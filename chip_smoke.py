@@ -20,7 +20,8 @@ device or away from the repository.  Phases, each one a printed line:
 4. serve at full width in bf16 (embed 1024, 8 heads x 128, depth 4,
    vocab 2048): 16 requests, prompts 64-512, 64 generated tokens, 8
    slots, block_len 16, attention through the kernel; continuous and
-   sequential tokens/s, the kernel's launches during the run, the pool
+   sequential tokens/s, the kernel's launches during the timed
+   continuous run (which must be depth x its decode steps), the pool
    against the dense rectangle and in place, peak device memory; ids
    against the dense oracle as a report (a flip only where the oracle's
    top-2 margin is below bf16 resolution); then the device's busy and
@@ -108,25 +109,34 @@ def make_case(torch, *, kind, b, w, h, hkv, d, bl, n_pages, n_blocks,
 
 
 def kernel_bytes_and_ops(case, block_len):
-    """Bytes the function must move (live K/V pages and scales, q,
-    tables and per-row ints in; o/m/l out) and its flops (q.k and p.v
-    over the live pages' slots), for the bound."""
+    """Bytes the function must move (the K/V slots and scales that some
+    query sees, q, tables and per-row ints in; o/m/l out) and its flops
+    (q.k and p.v over the keys each query sees), for the bound.  Only
+    visible keys count: slots of a live page past the row's last query
+    position are masked and the output does not depend on them."""
     pool, q, tables, pos0, active = case
     b, w, h, d = q.shape
     hkv = pool["k"].shape[2]
-    gw = (h // hkv) * w
-    j = (tables.new_tensor(range(tables.shape[1])) * block_len)[None, :]
-    live = (tables != 0) & active[:, None] & (j <= pos0[:, None] + w - 1)
-    n_live = int(live.sum())
+    g = h // hkv
+    first = tables.new_tensor(range(tables.shape[1]))[None, :] * block_len
+    live = (tables != 0) & active[:, None]  # [B, n_pages]
+
+    def visible_keys(last_pos):  # keys at positions <= last_pos, [B]
+        n = (last_pos[:, None] + 1 - first).clamp(0, block_len)
+        return (n * live).sum(dim=1)
+
+    # bytes: keys seen by a row's last query; flops: each query's own
+    n_bytes_keys = int(visible_keys(pos0 + w - 1).sum())
+    n_op_keys = sum(int(visible_keys(pos0 + i).sum()) for i in range(w))
     slot = hkv * d * pool["k"].element_size() * 2
     if "ks" in pool:
         slot += hkv * 4 * 2
     nbytes = (
-        n_live * block_len * slot
+        n_bytes_keys * slot
         + q.numel() * q.element_size() + tables.numel() * 4 + b * 5
-        + b * hkv * gw * (d + 2) * 4
+        + b * hkv * g * w * (d + 2) * 4
     )
-    flops = n_live * block_len * hkv * gw * d * 4
+    flops = n_op_keys * hkv * g * d * 4
     return nbytes, flops
 
 
@@ -267,9 +277,11 @@ def oracle_report(torch, mcfg, cfg, params, trace, got):
     return equal, flips
 
 
-def serve_leg(torch, eng_mod, pk, name, cfg, gate_flips=True):
-    """Serve ``cfg`` continuous and sequential through the engine with
-    the kernel's launch count set to 0 just before and read just after.
+def serve_leg(torch, eng_mod, name, cfg, gate_flips=True):
+    """Serve ``cfg`` continuous and sequential through the engine.  The
+    launch count is that of the timed continuous run alone
+    (``serve_legs`` sets the kernel's count to 0 just before that run
+    and reads it just after) and must equal depth x its decode steps.
     With ``gate_flips`` an id flip against the oracle fails the leg
     unless the oracle's margin there is below bf16 resolution; without,
     flips are reported only (an int8 pool also quantizes keys that the
@@ -277,9 +289,8 @@ def serve_leg(torch, eng_mod, pk, name, cfg, gate_flips=True):
     mcfg, decoder, params, trace = eng_mod.build_serve(cfg)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    pk.paged_block.launches = 0
     legs = eng_mod.serve_legs(decoder, params, trace, cfg.slots)
-    launches = pk.paged_block.launches
+    launches = legs.launches
     peak = torch.cuda.max_memory_allocated()
     steps = legs.engine.stats["steps"]
     total = sum(r.n_gen for r in trace)
@@ -305,8 +316,9 @@ def serve_leg(torch, eng_mod, pk, name, cfg, gate_flips=True):
     bad = []
     if not row["speedup"] > 1.0:
         bad.append("continuous batching not faster than sequential")
-    if launches < cfg.depth * steps:
-        bad.append(f"kernel launched {launches} < depth x steps")
+    if steps == 0 or launches != cfg.depth * steps:
+        bad.append(f"kernel launched {launches} times in the timed run, "
+                   f"not depth x steps = {cfg.depth * steps}")
     if not (legs.in_place and pool_mb < dense_mb):
         bad.append("pool not in place or not under the dense rectangle")
     if gate_flips and any(not f["below_bf16_resolution"] for f in flips):
@@ -316,17 +328,22 @@ def serve_leg(torch, eng_mod, pk, name, cfg, gate_flips=True):
     return row
 
 
-def phase_profile(torch, eng_mod, cfg, wall_s):
+def phase_profile(torch, eng_mod, timing, cfg, unprofiled_wall_s):
     """Device time of one continuous run of ``cfg``'s trace under
-    torch.profiler, against ``wall_s``, the same run's unprofiled host
-    wall time: the device's busy and idle share and the top kernels."""
+    torch.profiler: the device's busy and idle share against that same
+    run's host wall (profiler overhead included), and the top kernels.
+    ``unprofiled_wall_s`` (the timed serve run's wall, another run) is
+    printed beside it with the idle share it would give."""
     from torch.profiler import ProfilerActivity, profile
 
     _, decoder, params, trace = eng_mod.build_serve(cfg)
     eng = eng_mod.ServeEngine(decoder, params, slots=cfg.slots)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = timing.clock_ns()
         eng.run([dataclasses.replace(r) for r in trace])
         torch.cuda.synchronize()
+        wall_s = (timing.clock_ns() - t0) / 1e9
 
     def dev_us(e):
         return getattr(e, "self_device_time_total",
@@ -346,6 +363,8 @@ def phase_profile(torch, eng_mod, cfg, wall_s):
     emit({
         "phase": "profile", "leg": cfg.dtype, "wall_s": wall_s,
         "device_busy_s": busy_s, "device_idle_share": 1 - busy_s / wall_s,
+        "unprofiled_wall_s": unprofiled_wall_s,
+        "idle_share_vs_unprofiled_wall": 1 - busy_s / unprofiled_wall_s,
         "paged_attention_share_of_busy": k1_s / busy_s,
         "device_kernels": sum(e.count for e in events),
         "decode_steps": eng.stats["steps"],
@@ -401,11 +420,11 @@ def main() -> int:
     kres, ktime = phase_kernels(torch, pk, timing, spec)
 
     base = eng_mod.ServeConfig(**FULL_WIDTH, dtype="bfloat16", requests=16)
-    main_leg = serve_leg(torch, eng_mod, pk, "bf16", base)
-    phase_profile(torch, eng_mod, base,
+    main_leg = serve_leg(torch, eng_mod, "bf16", base)
+    phase_profile(torch, eng_mod, timing, base,
                   sum(r.n_gen for r in eng_mod.random_trace(base))
                   / main_leg["tokens_per_s"])
-    serve_leg(torch, eng_mod, pk, "gqa2_int8",
+    serve_leg(torch, eng_mod, "gqa2_int8",
               dataclasses.replace(base, kv_heads=2, cache_int8=True,
                                   requests=8),
               gate_flips=False)

@@ -129,9 +129,12 @@ def _reference_metric_keys():
 
 
 def test_run_serve_cpu_record():
+    # 16 requests over 8 slots: the timed runs are long enough (tens of
+    # ms continuous, ~4x that sequential) that a busy host's scheduling
+    # noise does not decide the speedup gate
     cfg = ServeConfig(
-        vocab=VOCAB, embed=32, heads=4, head_dim=8, depth=1, requests=8,
-        min_prompt=4, max_prompt=24, gen=6, slots=4, block_len=8,
+        vocab=VOCAB, embed=32, heads=4, head_dim=8, depth=1, requests=16,
+        min_prompt=4, max_prompt=24, gen=6, slots=8, block_len=8,
         device="cpu",
     )
     rec, = run_serve(cfg)

@@ -15,7 +15,6 @@ import hashlib
 import os
 import shutil
 import subprocess
-import threading
 from pathlib import Path
 
 PKG_DIR = Path(__file__).resolve().parents[1]
@@ -25,7 +24,6 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
-_LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
 
 
@@ -93,11 +91,10 @@ def build_all() -> dict[str, Path]:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded kernel library ``name``, built first if needed."""
-    with _LOCK:
-        lib = _LIBS.get(name)
-        if lib is None:
-            paths = build_all()
-            if name not in paths:
-                raise KeyError(f"no kernel source named {name!r}")
-            lib = _LIBS[name] = ctypes.CDLL(str(paths[name]))
-        return lib
+    lib = _LIBS.get(name)
+    if lib is None:
+        paths = build_all()
+        if name not in paths:
+            raise KeyError(f"no kernel source named {name!r}")
+        lib = _LIBS[name] = ctypes.CDLL(str(paths[name]))
+    return lib

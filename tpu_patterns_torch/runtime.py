@@ -16,19 +16,12 @@ import torch
 # part, dense rates without sparsity, at the full 700 W power limit).
 # These are published values, not measurements; a roofline share in this
 # package is stated against them with the card's power limit beside it.
-# Keyed by a substring of ``torch.cuda.get_device_name()``.
+# Keyed by a substring of ``torch.cuda.get_device_name()``.  Only the
+# rates a kernel's bound reads are kept: K1 does scalar f32 math.
 DEVICE_SPECS: dict[str, dict[str, float]] = {
     "h100": {
         "hbm_gbps": 3350.0,  # device memory, decimal GB/s
-        "hbm_gb": 80.0,
-        "bf16_tflops": 989.0,  # tensor cores, dense
-        "fp8_tflops": 1979.0,
-        "int8_tops": 1979.0,
-        "tf32_tflops": 495.0,
         "f32_tflops": 67.0,  # outside the tensor cores
-        "sms": 132.0,
-        "smem_per_block_kb": 227.0,
-        "l2_mb": 50.0,
     },
 }
 

@@ -206,7 +206,10 @@ int launch(const void* q, const void* k, const void* v, const float* ks,
     cudaError_t e = cudaFuncSetAttribute(
         paged_attention_kernel<QT, KT, D, INT8>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
+    if (e != cudaSuccess) {
+      cudaGetLastError();  // clear it, so the next launch reports its own
+      return static_cast<int>(e);
+    }
   }
   dim3 grid(Hkv, B);
   paged_attention_kernel<QT, KT, D, INT8><<<grid, THREADS, smem, stream>>>(

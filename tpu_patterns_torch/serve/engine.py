@@ -40,6 +40,7 @@ from tpu_patterns_torch.serve.paged import (
     PagedDecoder,
     make_paged_lm_decoder,
 )
+from tpu_patterns_torch.serve.paged_kernel import paged_block
 
 
 def _bucket(n: int, cap: int) -> int:
@@ -342,6 +343,7 @@ class ServeLegs:
     seq_s: float
     engine: ServeEngine  # the timed continuous engine
     in_place: bool  # pool buffers unchanged across the timed run
+    launches: int  # paged_block kernel launches of the timed continuous run
 
 
 def serve_legs(decoder: PagedDecoder, params: dict, trace: list[Request],
@@ -353,14 +355,18 @@ def serve_legs(decoder: PagedDecoder, params: dict, trace: list[Request],
         eng = ServeEngine(decoder, params, slots=n_slots)
         ptrs = eng.pool_ptrs()
         device_barrier(decoder.device)
+        paged_block.launches = 0
         t0 = clock_ns()
         out = eng.run([dataclasses.replace(r) for r in trace])
         device_barrier(decoder.device)
-        return out, (clock_ns() - t0) / 1e9, eng, ptrs == eng.pool_ptrs()
+        wall_s = (clock_ns() - t0) / 1e9
+        launches = paged_block.launches
+        return out, wall_s, eng, ptrs == eng.pool_ptrs(), launches
 
-    out_cont, cont_s, eng, in_place = timed_run(slots)
-    out_seq, seq_s, _, _ = timed_run(1)
-    return ServeLegs(out_cont, out_seq, cont_s, seq_s, eng, in_place)
+    out_cont, cont_s, eng, in_place, launches = timed_run(slots)
+    out_seq, seq_s, _, _, _ = timed_run(1)
+    return ServeLegs(out_cont, out_seq, cont_s, seq_s, eng, in_place,
+                     launches)
 
 
 def build_serve(cfg: ServeConfig):

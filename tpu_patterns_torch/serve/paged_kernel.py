@@ -28,7 +28,6 @@ TRASH_BLOCK = 0  # block 0 is the write sink (serve/paged.py contract)
 NEG_INF = -1e30  # masked score, as longctx/tuning.py's NEG_INF
 
 _KERNEL_D = (32, 64, 128, 256)
-_SMEM_LIMIT = 232_448  # bytes of shared memory one block may use (H100)
 _Q_KIND = {torch.float32: 0, torch.bfloat16: 1}
 _KV_KIND = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
@@ -140,10 +139,6 @@ def _launch_kernel(q, k, v, tables, pos0, active, block_len, k_scale,
         _check(t.is_contiguous(), "inputs must be contiguous")
     lib = _library()
     gw = (h // hkv) * w
-    smem = lib.paged_attention_smem_bytes(gw, d, bl)
-    _check(smem <= _SMEM_LIMIT,
-           f"G*W={gw}, D={d}, block_len={bl} need {smem} B of shared "
-           f"memory, over {_SMEM_LIMIT}")
     o = torch.empty((b, hkv, gw, d), dtype=torch.float32, device=dev)
     m = torch.empty((b, hkv, gw), dtype=torch.float32, device=dev)
     l = torch.empty((b, hkv, gw), dtype=torch.float32, device=dev)
@@ -158,8 +153,13 @@ def _launch_kernel(q, k, v, tables, pos0, active, block_len, k_scale,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     if rc != 0:
-        raise RuntimeError(f"paged_attention kernel launch failed: CUDA "
-                           f"error {rc}")
+        # the card refuses a shared-memory request over its per-block
+        # limit here (cudaFuncSetAttribute in the C entry)
+        smem = lib.paged_attention_smem_bytes(gw, d, bl)
+        raise RuntimeError(
+            f"paged_attention kernel launch failed: CUDA error {rc} "
+            f"(G*W={gw}, D={d}, block_len={bl}: {smem} B of shared memory)"
+        )
     return o, m, l
 
 
