@@ -87,3 +87,16 @@ def test_unported_options_are_refused():
                  ["serve", "--paged_attn", "pallas"]):
         with pytest.raises(SystemExit):
             cli.build_parser().parse_args(argv)
+
+
+def test_chip_smoke_needs_a_card(tmp_path):
+    """Without a CUDA device the smoke prints no result and exits
+    nonzero, in the checkout and as a lone copy."""
+    lone = tmp_path / "chip_smoke.py"
+    lone.write_text((ROOT / "chip_smoke.py").read_text())
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    for script, cwd in ((ROOT / "chip_smoke.py", ROOT), (lone, tmp_path)):
+        r = subprocess.run([sys.executable, str(script)], cwd=cwd, env=env,
+                           capture_output=True, text=True, timeout=120)
+        assert r.returncode != 0
+        assert '"ok"' not in r.stdout

@@ -3,10 +3,13 @@
 The host clock times host-visible work (a request, a serve run) that
 ends in a device barrier; a kernel's time comes from CUDA events around
 its launches, since PyTorch returns before the device finishes.
+``measure_chain`` times a chain of dependent ops (train steps) as the
+reference's does, with CUDA events in place of its fetch round trip.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Callable
 
@@ -56,3 +59,61 @@ def cuda_time_ms(
         e.record()
     torch.cuda.synchronize()
     return sum(s.elapsed_time(e) for s, e in zip(starts, ends)) / reps
+
+
+CHAIN_K = 2  # dependent ops per timed window
+SPREAD_LIMIT = 0.1  # reps spread past this share of their min: noise
+
+
+@dataclasses.dataclass
+class ChainMeasurement:
+    """Per-op time of a chain of dependent ops: the minimum over reps
+    of one timed window of ``CHAIN_K`` ops, divided by ``CHAIN_K``.
+    ``converged`` is False when the reps spread by more than
+    ``SPREAD_LIMIT`` of that minimum: the per-op time is then
+    noise-bound, and records say so."""
+
+    per_op_ns: float
+    converged: bool = True
+
+    def noise_note(self, what: str = "rate") -> str | None:
+        if self.converged:
+            return None
+        return (f"timed windows spread beyond the noise limit — {what} is "
+                "noise-bound, not measured")
+
+
+def measure_chain(
+    build_chain: Callable[[int], Callable[[], object]],
+    reps: int = 5,
+    warmup: int = 1,
+    device: torch.device | str = "cuda",
+) -> ChainMeasurement:
+    """Time ``build_chain(CHAIN_K)()``, a callable running ``CHAIN_K``
+    dependent ops (each feeding the next, so none can be skipped),
+    ``reps`` times after ``warmup`` untimed runs.  On the card each
+    window is a CUDA-event pair around the chain; on the CPU, where
+    torch runs synchronously, the host clock."""
+    dev = torch.device(device)
+    run = build_chain(CHAIN_K)
+    for _ in range(warmup):
+        run()
+    windows = []
+    for _ in range(reps):
+        if dev.type == "cuda":
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            run()
+            end.record()
+            end.synchronize()
+            windows.append(start.elapsed_time(end) * 1e6)
+        else:
+            t0 = clock_ns()
+            run()
+            windows.append(float(clock_ns() - t0))
+    best = min(windows)
+    return ChainMeasurement(
+        per_op_ns=best / CHAIN_K,
+        converged=max(windows) - best <= SPREAD_LIMIT * best,
+    )

@@ -17,11 +17,15 @@ import torch
 # These are published values, not measurements; a roofline share in this
 # package is stated against them with the card's power limit beside it.
 # Keyed by a substring of ``torch.cuda.get_device_name()``.  Only the
-# rates a kernel's bound reads are kept: K1 does scalar f32 math.
+# rates a kernel's bound reads are kept.  K1 does scalar f32 math.  The
+# flash kernels K2-K4 replace Pallas kernels that run their products on
+# the TPU's matrix unit, so the card's least time for the same work is
+# the tensor-core time: their bound reads the dense bf16 rate.
 DEVICE_SPECS: dict[str, dict[str, float]] = {
     "h100": {
         "hbm_gbps": 3350.0,  # device memory, decimal GB/s
         "f32_tflops": 67.0,  # outside the tensor cores
+        "bf16_tflops": 989.0,  # tensor cores, dense (no sparsity)
     },
 }
 
