@@ -5,9 +5,10 @@
 
 Run from the root of a checkout.  It imports nothing of JAX or of the
 JAX package, and fails (nonzero exit, no result line) without a CUDA
-device or away from the repository.  It drives both ported paths, the
-serve path (slice A) and the flagship train step (slice B).  Phases,
-each one or more printed lines:
+device or away from the repository.  It drives the three ported paths:
+the serve path (slice A), the flagship train step (slice B) and the
+one-device one-sided put (slice C).  Phases, each one or more printed
+lines:
 
 1. device and toolchain: torch/CUDA versions, ``nvcc --version``, and the
    card's name and power limit as ``nvidia-smi`` reports them;
@@ -55,7 +56,17 @@ each one or more printed lines:
    ``attention_reference`` (loss and every parameter's update), and one
    ``forward_shard`` under ``torch.no_grad``, which launches K2 once
    and matches the dense forward;
-9. the ``kernels`` line, then the device line, which is the last.
+9. the one-sided put: the four put kernels K8a-K8d against their plain
+   versions, bit for bit, on float32, bfloat16, int32 and int8 at edge
+   shapes (0, 1, 2 and 97 rows, chunks above the row count, trailing
+   dimensions of 100, 37 and 1001 elements, inputs one element into a
+   buffer)
+   and at the full 92,160 x 512 float32 buffer; each kernel's time there
+   beside its plain version's, one ``copy_`` call's and its byte bound;
+   then ``run_onesided`` at the reference's message size in auto mode
+   (SUCCESS, checksum and plausibility gates, the launches of streamed,
+   multi and inplace) and with ``kernel="mono"``, and the ``p2p`` CLI;
+10. the ``kernels`` line, then the device line, which is the last.
 """
 
 from __future__ import annotations
@@ -97,6 +108,16 @@ FLASH_KERNELS = {  # LAUNCHES key -> (source, the Pallas body it replaces)
         "tpu_patterns_torch/longctx/csrc/flash_attention_bwd.cu",
         "tpu_patterns/longctx/flash.py:279"),
 }
+
+
+PUT_SOURCE = "tpu_patterns_torch/comm/csrc/local_put.cu"
+PUT_KERNELS = {  # wrapper -> the Pallas body it replaces
+    "local_put": "tpu_patterns/comm/onesided.py:88",
+    "local_put_streamed": "tpu_patterns/comm/onesided.py:108",
+    "local_put_multi": "tpu_patterns/comm/onesided.py:229",
+    "local_put_inplace": "tpu_patterns/comm/onesided.py:175",
+}
+PUT_FULL = (92160, 512)  # the reference's message size as rows x cols
 
 
 def emit(obj) -> None:
@@ -782,6 +803,163 @@ def phase_flagship_exact(torch, F, fl, tr):
     return launches
 
 
+# -- phase 9: the one-sided put ----------------------------------------------
+
+
+def _put_input(torch, shape, dtype, seed, offset=0):
+    """Random bits of ``dtype`` on the card; with ``offset``, a view that
+    starts ``offset`` elements into a larger buffer (contiguous, but not
+    16-byte aligned)."""
+    g = torch.Generator().manual_seed(seed)
+    n = int(torch.Size(shape).numel())
+    raw = torch.randint(-100, 100, (n + offset,), generator=g)
+    return raw.to(dtype).to(DEVICE)[offset:].view(shape)
+
+
+def phase_put_vs_plain(torch, op):
+    """Every put kernel against its plain version, bit for bit."""
+    lib = op._library()
+    if lib.local_put_stage_bytes() != op.STAGE_BYTES:
+        raise AssertionError("local_put.cu STAGE_BYTES differs from "
+                             "onesided.STAGE_BYTES")
+    cases = 0
+
+    def same(name, got, want):
+        nonlocal cases
+        cases += 1
+        if got.shape != want.shape or not torch.equal(got, want):
+            raise AssertionError(f"put kernel differs from its plain "
+                                 f"version: {name}")
+
+    def all_puts(tag, x):
+        same(f"{tag} mono", op.local_put(x), op.local_put_reference(x))
+        for br in (1, 4, 1024):
+            same(f"{tag} streamed br{br}", op.local_put_streamed(x, br),
+                 op.local_put_reference(x))
+        for c in (1, 3, 8, 200):
+            same(f"{tag} multi c{c}", op.local_put_multi(x, c),
+                 op.local_put_reference(x))
+            same(f"{tag} inplace c{c}", op.local_put_inplace(x.clone(), c),
+                 op.local_put_inplace_reference(x.clone(), c))
+
+    dtypes = (torch.float32, torch.bfloat16, torch.int32, torch.int8)
+    # (300, 1001): segments of several stages with unaligned tails, and
+    # streamed tiles at unaligned offsets (16-byte heads)
+    shapes = ((0, 512), (1, 512), (2, 512), (97, 512), (16, 100), (97, 37),
+              (300, 1001))
+    for i, dt in enumerate(dtypes):
+        for j, shape in enumerate(shapes):
+            all_puts(f"{dt} {shape}", _put_input(torch, shape, dt, 10 * i + j))
+        # one element in: a source not 16-byte aligned; (97, 37) copies
+        # bytewise, (400, 512) in place keeps bulk copies behind a head
+        for shape in ((97, 37), (400, 512)):
+            all_puts(f"{dt} {shape} at offset 1",
+                     _put_input(torch, shape, dt, 99, offset=1))
+    full = _put_input(torch, PUT_FULL, torch.float32, 7)
+    same("full mono", op.local_put(full), full)
+    same("full streamed", op.local_put_streamed(full, 1024), full)
+    same("full multi", op.local_put_multi(full, 8), full)
+    same("full inplace", op.local_put_inplace(full.clone(), 8),
+         op.local_put_inplace_reference(full.clone(), 8))
+    torch.cuda.synchronize()
+    emit({"phase": "put_vs_plain", "cases": cases, "bit_exact": True,
+          "dtypes": [str(d) for d in dtypes], "shapes": [*shapes, PUT_FULL],
+          "stage_bytes": op.STAGE_BYTES})
+    return cases
+
+
+def phase_put_time(torch, op, timing, spec):
+    """Each put kernel at the full buffer (188.7 MB float32, 3.8x the L2,
+    so no flush): kernel, plain and one ``copy_`` call's ms, and the byte
+    bound (each byte moved read once and written once)."""
+    x = _put_input(torch, PUT_FULL, torch.float32, 7)
+    nbytes = x.numel() * x.element_size()
+    n_chunks, chunk_rows, half = op._inplace_plan(PUT_FULL[0], 8)
+    moved = {"local_put": nbytes, "local_put_streamed": nbytes,
+             "local_put_multi": nbytes,
+             "local_put_inplace": n_chunks * half * PUT_FULL[1] * 4}
+    buf = x.clone()
+    out = torch.empty_like(x)
+    view = buf.view(n_chunks, chunk_rows, PUT_FULL[1])
+
+    def t(fn):
+        return timing.cuda_time_ms(fn, reps=10, warmup=2)
+
+    kern = {
+        "local_put": t(lambda: op.local_put(x)),
+        "local_put_streamed": t(lambda: op.local_put_streamed(x, 1024)),
+        "local_put_multi": t(lambda: op.local_put_multi(x, 8)),
+        "local_put_inplace": t(lambda: op.local_put_inplace(buf, 8)),
+    }
+    plain_copy = t(lambda: op.local_put_reference(x))
+    plain = {"local_put_inplace": t(
+        lambda: op.local_put_inplace_reference(buf, 8))}
+    lib_copy = t(lambda: out.copy_(x))
+    library = {"local_put_inplace": t(
+        lambda: view[:, chunk_rows - half:].copy_(view[:, :half]))}
+    rows = {}
+    for name in PUT_KERNELS:
+        bound = 2 * moved[name] / (spec["hbm_gbps"] * 1e9) * 1e3
+        rows[name] = {
+            "ms": kern[name], "gbps": moved[name] / kern[name] / 1e6,
+            "plain_ms": plain.get(name, plain_copy),
+            "library_ms": library.get(name, lib_copy),
+            "bytes_moved": moved[name], "bound_ms": bound,
+            "bound_by": "bytes",
+        }
+    emit({"phase": "put_time", "shape": f"{PUT_FULL[0]}x{PUT_FULL[1]} "
+          "float32, chunks 8, block_rows 1024 (clamped to "
+          f"{op.streamed_block_rows(PUT_FULL[0], PUT_FULL[1] * 4, 1024)})",
+          "library": "out.copy_(x); inplace: one strided copy_ of the "
+          "chunk halves", **rows})
+    return rows
+
+
+def phase_onesided(torch, op):
+    """``run_onesided`` at the reference's message size: auto mode, then
+    mono; each with the put launch counts set to 0 just before and read
+    just after; then the ``p2p`` CLI in a process of its own."""
+    recs = {}
+    for kernel in ("auto", "mono"):
+        op.reset_launches()
+        rec, = op.run_onesided(op.OneSidedConfig(kernel=kernel),
+                               device=DEVICE)
+        torch.cuda.synchronize()
+        launches = op.launch_counts()
+        row = {"phase": "onesided", "kernel": kernel,
+               "verdict": rec.verdict.value, "commands": rec.commands,
+               "selected": rec.config["kernel"],
+               "bandwidth_GBps": rec.metrics["bandwidth_GBps"],
+               "launches": launches, "metrics": rec.metrics,
+               "notes": rec.notes}
+        emit(row)
+        need = (("local_put_streamed", "local_put_multi",
+                 "local_put_inplace") if kernel == "auto" else ("local_put",))
+        keys = ([f"bandwidth_GBps_{k}" for k in
+                 ("streamed", "multi", "xla", "inplace")]
+                if kernel == "auto" else ["bandwidth_GBps_mono"])
+        bad = []
+        if not rec.verdict or rec.metrics.get("checksum_ok") != 1.0 \
+                or rec.metrics.get("hbm_plausible") != 1.0:
+            bad.append("verdict, checksum_ok or hbm_plausible")
+        bad += [k for k in keys if k not in rec.metrics]
+        bad += [f"{k} never launched" for k in need if not launches[k] > 0]
+        bad += [n for n in rec.notes if "failed" in n]
+        if bad:
+            raise AssertionError(f"run_onesided {kernel}: {bad}; {rec.notes}")
+        recs[kernel] = row
+    r = subprocess.run(
+        [sys.executable, "-m", "tpu_patterns_torch", "p2p", "--transport",
+         "one_sided", "--device", "cuda"],
+        cwd=ROOT, capture_output=True, text=True, timeout=300,
+    )
+    emit({"phase": "p2p_cli", "rc": r.returncode,
+          "stdout_tail": r.stdout.splitlines()[-3:]})
+    if r.returncode != 0:
+        raise AssertionError(f"p2p CLI exited {r.returncode}: {r.stderr}")
+    return recs
+
+
 def main() -> int:
     import torch
 
@@ -790,6 +968,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
+    from tpu_patterns_torch.comm import onesided as op
     from tpu_patterns_torch.core import timing
     from tpu_patterns_torch.kernels import build
     from tpu_patterns_torch.longctx import flash as F
@@ -863,6 +1042,10 @@ def main() -> int:
                            flag["kernel"]["step_ms"] / 1e3)
     no_grad_launches = phase_flagship_exact(torch, F, fl, tr)
 
+    phase_put_vs_plain(torch, op)
+    ptime = phase_put_time(torch, op, timing, spec)
+    puts = phase_onesided(torch, op)
+
     # launches: K1 in the timed serve run, K3 and K4 in the flagship
     # run, K2 in the no-grad forward (each count set to 0 just before)
     launches = {**flag["kernel"]["launches"],
@@ -886,6 +1069,17 @@ def main() -> int:
             "name": kname, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[kname],
             "max_abs_err": flash_err[kname], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+        })
+    # launches: mono in its run_onesided call, the others in auto's
+    for kname, replaces in PUT_KERNELS.items():
+        row = ptime[kname]
+        run = puts["mono" if kname == "local_put" else "auto"]
+        kernels.append({
+            "name": kname, "route": "cuda", "source": PUT_SOURCE,
+            "replaces": replaces, "launches": run["launches"][kname],
+            "max_abs_err": 0.0, "bit_exact": True, "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
         })

@@ -54,6 +54,7 @@ def test_import_pulls_no_jax():
 
 def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
     from tpu_patterns_torch import cli
+    from tpu_patterns_torch.comm.onesided import OneSidedConfig, run_onesided
     from tpu_patterns_torch.models.lm import init_lm_params
     from tpu_patterns_torch.models.transformer import ModelConfig
     from tpu_patterns_torch.runtime import resolve_device
@@ -70,6 +71,9 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
                                       max_len=16),
         lambda: run_serve(ServeConfig()),
         lambda: cli.main(["serve"]),
+        lambda: run_onesided(OneSidedConfig(count=2048)),
+        lambda: cli.main(["p2p", "--transport", "one_sided"]),
+        lambda: cli.main(["p2p"]),
     ):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
@@ -84,9 +88,23 @@ def test_unported_options_are_refused():
     with pytest.raises(NotImplementedError, match="moe"):
         ModelConfig(moe=True)
     for argv in (["serve", "--spec_k", "2"], ["serve", "--prefix_share"],
-                 ["serve", "--paged_attn", "pallas"]):
+                 ["serve", "--paged_attn", "pallas"],
+                 ["p2p", "--devices", "2"], ["p2p", "--bidirectional", "0"],
+                 ["p2p", "--placement", "spread"],
+                 ["p2p", "--put-kernel", "pallas"]):
         with pytest.raises(SystemExit):
             cli.build_parser().parse_args(argv)
+
+
+def test_put_kernel_choices_are_the_librarys():
+    from tpu_patterns_torch import cli
+    from tpu_patterns_torch.comm.onesided import KERNELS
+
+    parser = cli.build_parser()
+    for k in KERNELS:
+        args = parser.parse_args(["p2p", "--transport", "one_sided",
+                                  "--put-kernel", k])
+        assert args.put_kernel == k
 
 
 def test_chip_smoke_needs_a_card(tmp_path):

@@ -18,8 +18,11 @@ each TPU kernel on a ported path is a kernel written by hand for Hopper
   serve/            paged pool, the fused paged-attention kernel
                     (serve/csrc/paged_attention.cu) and the
                     continuous-batching engine
+  comm/             dtypes, the fill and checksum verifier, and the
+                    one-device one-sided put with its four put kernels
+                    (comm/csrc/local_put.cu)
   kernels/build.py  nvcc build of every ``*.cu`` into build/torch_kernels/
-  convert.py        numpy params/pools from the JAX package -> tensors
-                    (and params/grads back, as numpy)
-  cli.py            ``python -m tpu_patterns_torch serve|flagship``
+  convert.py        numpy params/pools/fills from the JAX package ->
+                    tensors (and params/grads back, as numpy)
+  cli.py            ``python -m tpu_patterns_torch serve|flagship|p2p``
 """

@@ -4,12 +4,16 @@
         --head_dim 128 --depth 4 --dtype bfloat16 --vocab 2048 \
         --min_prompt 64 --max_prompt 512 --gen 64
     python -m tpu_patterns_torch flagship --device cuda
+    python -m tpu_patterns_torch p2p --transport one_sided --device cuda
 
 One flag per field of the subcommand's config
 (:class:`~tpu_patterns_torch.serve.engine.ServeConfig`,
 :class:`~tpu_patterns_torch.models.flagship.FlagshipConfig`), named as in
 ``tpu-patterns serve`` / ``tpu-patterns flagship``; ``--paged_attn`` and
-``--attn`` take ``kernel|dense`` and ``--device`` names the device.  A
+``--attn`` take ``kernel|dense`` and ``--device`` names the device.
+``p2p`` takes the flags of ``tpu-patterns p2p`` that the one-device
+put uses (:class:`~tpu_patterns_torch.comm.onesided.OneSidedConfig`,
+``--transport``, ``--put-kernel``, ``--chunks``, ``--block-rows``).  A
 flag (or a value) of the JAX package's subcommand that this package does
 not support yet is refused with a message, never ignored.  Prints the
 ``## mode | commands | VERDICT`` markers, appends JSON-lines Records with
@@ -64,6 +68,10 @@ def _opt_int(s: str) -> int | None:
     return None if s.strip().lower() in ("", "none") else int(s)
 
 
+# `tpu-patterns p2p` flags of the mesh and the pair exchange
+_NOT_PORTED_P2P = ("devices", "placement", "mechanism", "bidirectional")
+_P2P_FIELDS = ("count", "dtype", "reps", "warmup", "min_bandwidth", "seed")
+
 _CHOICES = {
     "paged_attn": ("kernel", "dense"),
     "attn": ("kernel", "dense"),
@@ -116,7 +124,77 @@ def build_parser() -> argparse.ArgumentParser:
         "fused flash-attention kernels",
     )
     _add_config_flags(fl, FlagshipConfig, _NOT_PORTED_FLAGSHIP)
+    _add_p2p_flags(sub.add_parser(
+        "p2p",
+        help="one-sided put bandwidth on one device (the local put) with "
+        "the CUDA put kernels",
+    ))
     return parser
+
+
+def _add_p2p_flags(p: argparse.ArgumentParser) -> None:
+    from tpu_patterns_torch.comm.onesided import KERNELS, OneSidedConfig
+
+    hints = typing.get_type_hints(OneSidedConfig)
+    for f in dataclasses.fields(OneSidedConfig):
+        if f.name in _P2P_FIELDS:
+            p.add_argument("--" + f.name, type=hints[f.name],
+                           default=f.default, help=f"(default: {f.default})")
+    p.add_argument(
+        "--transport", choices=("two_sided", "one_sided"),
+        default="two_sided",
+        help="one_sided: the one-device put; two_sided: the pair exchange, "
+        "which needs an even device count >= 2 and is not ported",
+    )
+    p.add_argument(
+        "--put-kernel", choices=KERNELS, default="auto",
+        help="one_sided copy schedule: the CUDA kernels streamed (K8b), "
+        "multi (K8c), mono (K8a) and inplace (K8d), or xla, the contrast, "
+        "which runs torch.roll by one row; auto measures streamed, multi, "
+        "xla and inplace, then picks",
+    )
+    p.add_argument("--chunks", type=int, default=None,
+                   help="multi and inplace: chunks in flight (default: "
+                   "comm/tuned.json, else 8)")
+    p.add_argument("--block-rows", type=int, default=None,
+                   help="streamed: rows per shared-memory stage (default: "
+                   "comm/tuned.json, else 1024)")
+    p.add_argument("--device", choices=_CHOICES["device"], default="cuda")
+    for name in _NOT_PORTED_P2P:
+        p.add_argument("--" + name, nargs="?", action=_NotPorted,
+                       help=argparse.SUPPRESS)
+
+
+def _p2p(args, parser, writer: ResultWriter) -> None:
+    """``tpu-patterns p2p`` on one device: the one-sided local put, or
+    the reference's SKIPPED Record for the pair exchange."""
+    import torch
+
+    from tpu_patterns_torch.comm.onesided import OneSidedConfig, run_onesided
+    from tpu_patterns_torch.core.results import Record, Verdict
+    from tpu_patterns_torch.runtime import resolve_device
+
+    dev = resolve_device(args.device)
+    n = torch.cuda.device_count() if dev.type == "cuda" else 1
+    if args.transport == "two_sided":
+        if n >= 2 and n % 2 == 0:
+            parser.error("p2p --transport two_sided on more than one device "
+                         "is not supported yet (ROADMAP.md)")
+        writer.record(Record(
+            pattern="p2p", mode="two_sided", commands=f"devices={n}",
+            verdict=Verdict.SKIPPED,
+            notes=[f"p2p needs an even device count >= 2, have {n}"],
+        ))
+        return
+    tuned = {k: v for k, v in (("chunks", args.chunks),
+                               ("block_rows", args.block_rows))
+             if v is not None}
+    cfg = OneSidedConfig(kernel=args.put_kernel, **tuned,
+                         **{k: getattr(args, k) for k in _P2P_FIELDS})
+    if n > 1:
+        writer.progress(f"{n} devices: the put runs on {dev} alone (the "
+                        "ring put across devices is not ported)")
+    run_onesided(cfg, writer, dev)
 
 
 def _config(cls, args):
@@ -137,6 +215,8 @@ def main(argv: list[str] | None = None) -> int:
     writer = ResultWriter(jsonl_path=args.jsonl)
     if args.cmd == "serve":
         run_serve(_config(ServeConfig, args), writer)
+    elif args.cmd == "p2p":
+        _p2p(args, parser, writer)
     else:
         cfg = _config(FlagshipConfig, args)
         why = unported(cfg)

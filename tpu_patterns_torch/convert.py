@@ -5,9 +5,10 @@ numpy (``{k: np.asarray(v)}``) and returns this package's
 depth-stacked params, so both packages compute the same function on the
 same weights; ``block_params_from_jax`` does the same for the train
 step's block params (``init_params``: no ``wemb``).  ``pool_from_numpy``
-does the same for one pool's leaves.  None imports JAX: bfloat16 arrays
-arrive as numpy's ``bfloat16`` extension dtype and are reinterpreted bit
-for bit.  ``params_to_numpy`` goes back: this package's params (or
+does the same for one pool's leaves, and ``fill_from_numpy`` for the
+reference's ``verify.fill_randomly`` buffer.  None imports JAX: bfloat16
+arrays arrive as numpy's ``bfloat16`` extension dtype and are
+reinterpreted bit for bit.  ``params_to_numpy`` goes back: this package's params (or
 grads) in the reference's layout, as float32 numpy.
 """
 
@@ -93,3 +94,10 @@ def pool_from_numpy(
 ) -> dict[str, torch.Tensor]:
     """Pool leaves (k/v and, for int8, ks/vs) as tensors, bits kept."""
     return {n: tensor_from_numpy(a, device) for n, a in pool.items()}
+
+
+def fill_from_numpy(a: np.ndarray, device="cpu") -> torch.Tensor:
+    """The reference's ``verify.fill_randomly`` output (as numpy) as this
+    package's put input, dtype and bits kept, so both packages copy and
+    check the same buffer."""
+    return tensor_from_numpy(a, device)

@@ -97,6 +97,9 @@ class ResultWriter:
     def progress(self, text: str) -> None:
         print(f"# {text}", file=self.stream, flush=True)
 
+    def metric(self, name: str, value: float, unit: str) -> None:
+        print(f"{name}: {value:.6g} {unit}", file=self.stream, flush=True)
+
     def record(self, rec: Record) -> Record:
         if not rec.env:
             rec.env = context_env()

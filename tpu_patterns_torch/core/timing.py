@@ -3,8 +3,8 @@
 The host clock times host-visible work (a request, a serve run) that
 ends in a device barrier; a kernel's time comes from CUDA events around
 its launches, since PyTorch returns before the device finishes.
-``measure_chain`` times a chain of dependent ops (train steps) as the
-reference's does, with CUDA events in place of its fetch round trip.
+``measure_chain`` times a chain of dependent ops (train steps, puts) as
+the reference's does, with CUDA events in place of its fetch round trip.
 """
 
 from __future__ import annotations
@@ -61,20 +61,43 @@ def cuda_time_ms(
     return sum(s.elapsed_time(e) for s, e in zip(starts, ends)) / reps
 
 
-CHAIN_K = 2  # dependent ops per timed window
+CHAIN_K = 2  # chain iterations per timed window
 SPREAD_LIMIT = 0.1  # reps spread past this share of their min: noise
+# Dependent ops per chain iteration for callers that pass
+# ``ops_per_iter=CHAIN_UNROLL`` (as the reference's puts do): one window
+# then holds CHAIN_K x CHAIN_UNROLL ops, which keeps a fast op's window
+# well above the event resolution.
+CHAIN_UNROLL = 8
+
+
+def unrolled_chain(op: Callable[[object], object], a: object, k: int):
+    """``k`` iterations of exactly ``CHAIN_UNROLL`` dependent ``op``
+    applications, each fed the previous one's output; returns the last.
+    The unroll is fixed so that it cannot drift from the accounting."""
+    for _ in range(k):
+        for _ in range(CHAIN_UNROLL):
+            a = op(a)
+    return a
 
 
 @dataclasses.dataclass
 class ChainMeasurement:
     """Per-op time of a chain of dependent ops: the minimum over reps
-    of one timed window of ``CHAIN_K`` ops, divided by ``CHAIN_K``.
+    of one timed window of ``CHAIN_K`` iterations, divided by the ops it
+    ran.
     ``converged`` is False when the reps spread by more than
     ``SPREAD_LIMIT`` of that minimum: the per-op time is then
     noise-bound, and records say so."""
 
     per_op_ns: float
     converged: bool = True
+
+    def gbps(self, n_bytes: float) -> float:
+        """bytes per ns == decimal GB/s, the reference's unit."""
+        return n_bytes / self.per_op_ns
+
+    def us(self) -> float:
+        return self.per_op_ns * 1e-3
 
     def noise_note(self, what: str = "rate") -> str | None:
         if self.converged:
@@ -88,12 +111,16 @@ def measure_chain(
     reps: int = 5,
     warmup: int = 1,
     device: torch.device | str = "cuda",
+    ops_per_iter: int = 1,
 ) -> ChainMeasurement:
     """Time ``build_chain(CHAIN_K)()``, a callable running ``CHAIN_K``
-    dependent ops (each feeding the next, so none can be skipped),
-    ``reps`` times after ``warmup`` untimed runs.  On the card each
+    iterations of ``ops_per_iter`` dependent ops each (each op feeding
+    the next, so none can be skipped), ``reps`` times after ``warmup``
+    untimed runs; the per-op time is per single op.  On the card each
     window is a CUDA-event pair around the chain; on the CPU, where
-    torch runs synchronously, the host clock."""
+    torch runs synchronously, the host clock.  Buffers the chain takes
+    from the caching allocator are cached by the warmup runs, so no
+    window waits on a device allocation."""
     dev = torch.device(device)
     run = build_chain(CHAIN_K)
     for _ in range(warmup):
@@ -114,6 +141,6 @@ def measure_chain(
             windows.append(float(clock_ns() - t0))
     best = min(windows)
     return ChainMeasurement(
-        per_op_ns=best / CHAIN_K,
+        per_op_ns=best / (CHAIN_K * ops_per_iter),
         converged=max(windows) - best <= SPREAD_LIMIT * best,
     )

@@ -30,6 +30,11 @@ DEVICE_SPECS: dict[str, dict[str, float]] = {
 }
 
 
+# A measured rate may exceed its datasheet peak by this factor before it
+# is taken for an accounting or timing fault, as in the JAX package.
+SPEC_PLAUSIBILITY_MARGIN = 1.15
+
+
 def match_device_spec(name: str) -> dict[str, float] | None:
     """Longest-substring lookup of :data:`DEVICE_SPECS` by device name."""
     kind = name.lower()
@@ -38,6 +43,18 @@ def match_device_spec(name: str) -> dict[str, float] | None:
         if key in kind and (best is None or len(key) > best[0]):
             best = (len(key), spec)
     return best[1] if best else None
+
+
+def chip_hbm_gbps(device: torch.device | str) -> float | None:
+    """The datasheet device-memory rate (decimal GB/s) of a CUDA
+    ``device`` whose name is in :data:`DEVICE_SPECS`; None on the CPU or
+    an unknown card, where no plausibility gate applies (the reference
+    likewise has no spec off-TPU)."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return None
+    spec = match_device_spec(torch.cuda.get_device_name(dev))
+    return None if spec is None else spec["hbm_gbps"]
 
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:
