@@ -5,10 +5,10 @@
 
 Run from the root of a checkout.  It imports nothing of JAX or of the
 JAX package, and fails (nonzero exit, no result line) without a CUDA
-device or away from the repository.  It drives the three ported paths:
-the serve path (slice A), the flagship train step (slice B) and the
-one-device one-sided put (slice C).  Phases, each one or more printed
-lines:
+device or away from the repository.  It drives the four ported paths:
+the serve path (slice A), the flagship train step (slice B), the
+one-device one-sided put (slice C) and the concurrency suite (slice D).
+Phases, each one or more printed lines:
 
 1. device and toolchain: torch/CUDA versions, ``nvcc --version``, and the
    card's name and power limit as ``nvidia-smi`` reports them;
@@ -66,12 +66,38 @@ lines:
    then ``run_onesided`` at the reference's message size in auto mode
    (SUCCESS, checksum and plausibility gates, the launches of streamed,
    multi and inplace) and with ``kernel="mono"``, and the ``p2p`` CLI;
-10. the ``kernels`` line, then the device line, which is the last.
+10. the concurrency suite: the busy-wait kernel K6 against its plain
+    version bit for bit (rows 1, 3, 8, 9, 64 at 0-4000 trips), the
+    copy-and-compute kernel K7 likewise in
+    both modes ("C", "D2D", "C D2D", "D2D D2D C C"; copies of 128, 4224,
+    4,194,304 and 33,554,432 elements, computes of 8 and 64 rows at 0, 3
+    and 100 trips); S buffers checked to be managed memory;
+    ``run_concurrency`` at the defaults (xla concurrent "C C" SUCCESS
+    with K6 launched; xla serial "C C" and both serial modes held to at
+    least 0.6 x the sum of their solos; "C H2D", "C S2D" and the
+    dispatch modes on "M2D D2M" and "H2D D2H"; pallas "C D2D" in both
+    modes with K7 launched; the balanced leg, 128 MiB copies against 400
+    trips raised by auto-tune, dma_overlap SUCCESS), the xla concurrent
+    and the pallas dma_overlap run again under torch.profiler, in a
+    process of their own, for the device's idle share, and the
+    ``concurrency`` CLI, default and
+    balanced; then K6 at the default 8 x 128 and 40,000 trips and K7 at
+    every pallas run's tuned commands, in both modes, bit for bit
+    against their plain versions (the plain busy-waits of one tripcount
+    run once, over their inputs stacked); K6's time at the
+    defaults and K7's at the tuned commands of the run whose launches
+    are reported, beside their bounds, K6's FMA chain floor, K7's
+    copy-only launch beside one ``copy_`` and the host's time per K7
+    launch; and the balanced shape's copy-only, compute-only and mixed
+    launches queued with no host gaps, the device's own overlap;
+11. the card's name and power limit again, the ``kernels`` line, then
+    the device line, which is the last.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import io
 import json
 import os
 import subprocess
@@ -960,6 +986,514 @@ def phase_onesided(torch, op):
     return recs
 
 
+# -- phase 10: the concurrency suite -------------------------------------------
+
+
+CONC_KERNELS = {  # wrapper -> (source, the Pallas body it replaces)
+    "busy_wait": ("tpu_patterns_torch/concurrency/csrc/busy_wait.cu",
+                  "tpu_patterns/concurrency/kernels.py:49"),
+    "dma_compute": ("tpu_patterns_torch/concurrency/csrc/dma_compute.cu",
+                    "tpu_patterns/concurrency/backends.py:248"),
+}
+# cycles from one dependent f32 FMA to the next on this card (the FMA
+# pipeline's latency): the chain floor of a busy-wait element is
+# 64 x tripcount of them at the SM clock
+FMA_LATENCY_CYCLES = 4
+# a serial mode's group time must be at least this share of the sum of
+# its commands' solo times, or the serial ordering was lost (the
+# reference's own guard, tests/test_concurrency.py:177-215)
+SERIAL_GUARD = 0.6
+BALANCED = dict(copy_elements=1 << 25, tripcount=400)
+CONC_KEYS = {"speedup", "theoretical_speedup", "serial_total_us", "mode_us",
+             "bytes_per_iter", "timing_converged"}
+
+
+def _conc_input(torch, rows, seed):
+    """The suite's buffer (``default_rng(seed).random((rows, 128))`` in
+    float32, as ``commands.alloc`` makes it) on the card."""
+    import numpy as np
+
+    a = np.random.default_rng(seed).random((rows, 128), dtype=np.float32)
+    return torch.from_numpy(a).to(DEVICE)
+
+
+def _same(torch, name, got, want):
+    if len(got) != len(want) or any(
+            g.shape != w.shape or not torch.equal(g, w)
+            for g, w in zip(got, want)):
+        raise AssertionError(f"{name}: kernel differs from its plain version")
+
+
+def phase_busy_wait_vs_plain(torch, ck):
+    """K6 against its plain version, bit for bit: rows 1, 3, 8, 9 and 64
+    at tripcounts 0, 1, 3, 100 and 4000 (the plain version is
+    elementwise, so one plain run over the rows stacked serves every row
+    count of a tripcount).  The default 8 x 128 at 40,000 trips is held
+    in :func:`phase_main_path_vs_plain`."""
+    rows = (1, 3, 8, 9, 64)
+    xs = [_conc_input(torch, r, 100 + r) for r in rows]
+    stacked = torch.cat(xs)
+    cases = 0
+    for trips in (0, 1, 3, 100, 4000):
+        want = ck.busy_wait_plain(stacked, trips).split(rows)
+        _same(torch, f"busy_wait trips {trips}",
+              [ck.busy_wait(x, trips) for x in xs], want)
+        cases += len(rows)
+    torch.cuda.synchronize()
+    emit({"phase": "busy_wait_vs_plain", "cases": cases, "bit_exact": True,
+          "rows": rows, "tripcounts": [0, 1, 3, 100, 4000]})
+    return cases
+
+
+def phase_dma_compute_vs_plain(torch, cb):
+    """K7 against its plain version, bit for bit, in both modes, for the
+    groups "C", "D2D", "C D2D" and "D2D D2D C C": copies of 128, 4224,
+    4,194,304 and 33,554,432 elements (the auto-tune cap), computes of
+    8 x 128 and 64 x 128 at tripcounts 0, 3 and 100."""
+    lib = cb._dma_library()
+    if (lib.dma_compute_max_copies(), lib.dma_compute_max_computes()) != (
+            cb.MAX_COPIES, cb.MAX_COMPUTES):
+        raise AssertionError("dma_compute.cu limits differ from backends.py")
+    copy_sizes = (128, 4224, 1 << 22, 1 << 25)
+    cases = 0
+    for group in ("C", "D2D", "C D2D", "D2D D2D C C"):
+        n_copy, n_comp = group.count("D2D"), group.split().count("C")
+        for copy_n in (copy_sizes if n_copy else (None,)):
+            copies = [_conc_input(torch, copy_n // 128, 10 + i)
+                      for i in range(n_copy)]
+            for comp_rows in ((8, 64) if n_comp else (None,)):
+                comps = [_conc_input(torch, comp_rows, 20 + i)
+                         for i in range(n_comp)]
+                for trips in ((0, 3, 100) if n_comp else (0,)):
+                    tr = [trips] * n_comp
+                    want = cb.dma_compute_plain(copies, comps, tr)
+                    for overlap in (False, True):
+                        _same(torch, f"dma_compute {group!r} copy {copy_n} "
+                              f"comp {comp_rows}x128 trips {trips} "
+                              f"overlap {overlap}",
+                              cb.dma_compute(copies, comps, tr, overlap),
+                              want)
+                        cases += 1
+    torch.cuda.synchronize()
+    emit({"phase": "dma_compute_vs_plain", "cases": cases, "bit_exact": True,
+          "groups": ["C", "D2D", "C D2D", "D2D D2D C C"],
+          "copy_elements": list(copy_sizes), "compute_rows": [8, 64],
+          "tripcounts": [0, 3, 100], "modes": ["dma_serial", "dma_overlap"]})
+    return cases
+
+
+def _device_time_s(torch, fn):
+    """``fn()`` under torch.profiler: its host wall, the summed device
+    time of its kernels, copies and memsets by name, and the union of
+    their intervals, the time the device was busy (work in flight
+    together on two streams counts once there and twice in the sum); all
+    in s; the number of device records by name, which tells whether the
+    profile kept every launch; and the first record's start after the
+    trace's, in ms."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    by_name: dict[str, float] = {}
+    calls: dict[str, int] = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA and dev_us(e) > 0:
+            by_name[e.key[:60]] = by_name.get(e.key[:60], 0.0) \
+                + dev_us(e) / 1e6
+            calls[e.key[:60]] = calls.get(e.key[:60], 0) + e.count
+    spans = sorted(
+        (e.start_ns(), e.start_ns() + e.duration_ns())
+        for e in prof.profiler.kineto_results.events()
+        if e.device_type() == torch.autograd.DeviceType.CUDA
+        and e.duration_ns() > 0)
+    if not by_name or not spans:
+        raise AssertionError("the profile holds no device time")
+    busy_ns, (lo, hi) = 0, spans[0]
+    for s, e in spans[1:]:
+        if s > hi:
+            busy_ns += hi - lo
+            lo, hi = s, e
+        else:
+            hi = max(hi, e)
+    busy_ns += hi - lo
+    first_ms = (spans[0][0] - prof.profiler.kineto_results.trace_start_ns()
+                ) / 1e6
+    return wall, by_name, busy_ns / 1e9, calls, first_ms
+
+
+def _queued_ms(torch, ck, fn, n=20):
+    """Device ms of one ``fn()`` with no host gaps, and the host's ms to
+    enqueue one: ``n`` calls queued behind a 40,000-trip busy-wait
+    (~5 ms), so the host has enqueued them all before the device reaches
+    the first, timed by a CUDA-event pair after the busy-wait.  Raises
+    if the enqueueing outlasted the busy-wait, which would let host time
+    back into the window."""
+    x = torch.zeros((8, 128), device=DEVICE)
+    fn()
+    lead, start, end = (torch.cuda.Event(enable_timing=True)
+                        for _ in range(3))
+    lead.record()
+    ck.busy_wait(x, 40_000)
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    end.record()
+    end.synchronize()
+    if host_ms >= lead.elapsed_time(start):
+        raise AssertionError(f"enqueueing {n} calls took {host_ms:.2f} ms, "
+                             "longer than the busy-wait ahead of them")
+    return start.elapsed_time(end) / n, host_ms / n
+
+
+def _k7_inputs(cc, tuned):
+    """The buffers ``PallasBackend.build`` makes for a Record's tuned
+    commands (copies from seeds 10+i, computes from 20+i) and the
+    computes' tripcounts."""
+    cmds = [dataclasses.replace(cc.parse_command(t["text"]),
+                                tripcount=t["tripcount"],
+                                elements=t["elements"],
+                                copy_elements=t["copy_elements"])
+            for t in tuned]
+    copies = [cc.alloc(c, DEVICE, seed=10 + i) for i, c in
+              enumerate(c for c in cmds if c.kind == "copy")]
+    comps = [cc.alloc(c, DEVICE, seed=20 + i) for i, c in
+             enumerate(c for c in cmds if c.kind == "compute")]
+    return copies, comps, [c.tripcount for c in cmds if c.kind == "compute"]
+
+
+def _k7_bound(ck, spec, copies, comps, trips):
+    """K7's bound on these inputs: (bytes ms, operations ms, bytes) --
+    each copy read and written once, each compute element read and
+    written once, 2 x 64 x tripcount flops an element over f32's peak."""
+    n_bytes = sum(2 * t.numel() * 4 for t in (*copies, *comps))
+    flops = sum(ck.flops(x.numel(), t) for x, t in zip(comps, trips))
+    return (n_bytes / (spec["hbm_gbps"] * 1e9) * 1e3,
+            flops / (spec["f32_tflops"] * 1e12) * 1e3, n_bytes)
+
+
+def phase_main_path_vs_plain(torch, ck, cb, cc, tuned_by_run):
+    """K6 and K7 bit for bit against their plain versions at the shapes
+    the main path launched them with: K6 at the default 8 x 128 and
+    40,000 trips (the xla runs' first compute, seed 0), K7 at each pallas
+    run's tuned commands, rebuilt as its build made them, in both modes.
+    The plain busy-waits of one tripcount run once, over their inputs
+    stacked (the plain version is elementwise, and its time is that of
+    its 64 x tripcount launches, not of the elements), timed by CUDA
+    events; a plain K7 is then ``dma_compute_plain`` of its copies and
+    those outputs.  Returns the plain ms of K6 and of K7 by run."""
+    jobs = {"busy_wait": ([], [_conc_input(torch, 8, 0)], [40_000])}
+    job_of = {}
+    for run, tuned in tuned_by_run.items():
+        key = json.dumps(tuned, sort_keys=True)
+        if key not in job_of:
+            job_of[key] = run
+            jobs[run] = _k7_inputs(cc, tuned)
+    by_trips: dict[int, list] = {}
+    for job, (_, comps, trips) in jobs.items():
+        for i, (x, t) in enumerate(zip(comps, trips)):
+            by_trips.setdefault(t, []).append((job, i, x))
+    busy_out, ms = {}, {}
+    for t, items in by_trips.items():
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        y = ck.busy_wait_plain(torch.cat([x for *_, x in items]), t)
+        end.record()
+        end.synchronize()
+        for (job, i, _), part in zip(items, y.split(
+                [x.shape[0] for *_, x in items])):
+            busy_out[job, i] = part
+        for job in {job for job, *_ in items}:
+            ms[job] = ms.get(job, 0.0) + start.elapsed_time(end)
+    copies, comps, trips = jobs["busy_wait"]
+    _same(torch, "busy_wait 8x128 at 40000 trips",
+          [ck.busy_wait(comps[0], trips[0])], [busy_out["busy_wait", 0]])
+    plain_ms = {}
+    for run, tuned in tuned_by_run.items():
+        job = job_of[json.dumps(tuned, sort_keys=True)]
+        copies, comps, trips = jobs[job]
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        want = (*cb.dma_compute_plain(copies, [], []),
+                *[busy_out[job, i] for i in range(len(comps))])
+        end.record()
+        end.synchronize()
+        plain_ms[run] = ms.get(job, 0.0) + start.elapsed_time(end)
+        for overlap in (False, True):
+            _same(torch, f"dma_compute at the {run} run's tuned commands "
+                  f"{tuned}, overlap {overlap}",
+                  cb.dma_compute(copies, comps, trips, overlap), want)
+    torch.cuda.synchronize()
+    emit({"phase": "main_path_vs_plain", "bit_exact": True,
+          "busy_wait": "8x128 at 40000 trips", "dma_compute": tuned_by_run,
+          "modes": ["dma_serial", "dma_overlap"],
+          "plain_busy_wait_runs": {t: sorted({job for job, *_ in items})
+                                   for t, items in by_trips.items()},
+          "busy_wait_plain_ms": ms["busy_wait"],
+          "dma_compute_plain_ms": plain_ms})
+    return ms["busy_wait"], plain_ms
+
+
+def phase_concurrency_time(torch, ck, cb, cc, ch, timing, spec,
+                           busy_plain_ms, k7_tuned, k7_plain_ms,
+                           balanced_tuned):
+    """K6 and K7 where the main path launches them, CUDA events: K6 at
+    the suite's defaults (1024 elements at 40,000 trips), K7 at the
+    tuned commands of the pallas dma_overlap "C D2D" run whose launches
+    the ``kernels`` line counts (both modes, copy-only beside one
+    ``copy_`` and compute-only), each beside its bound (flops over 67
+    TFLOP/s of f32, bytes read and written once over 3.35 TB/s; for
+    dma_serial also the sum of the two); K6's chain floor (64 x 40,000
+    dependent FMAs of FMA_LATENCY_CYCLES at the SM's top clock); the
+    copy-only launch also queued behind a busy-wait, which leaves out
+    the host's launch path, with the host's ms per launch, bound once
+    (as the backend launches) and marshalled per call; then the balanced
+    leg's tuned shape queued the same way, copy-only, compute-only and
+    mixed in both modes: the device's own overlap, held to the harness's
+    verdict (speedup at least theoretical / 1.3) and dma_serial to its
+    serial guard.  The plain ms come from :func:`phase_main_path_vs_plain`."""
+    clock_mhz = float(_run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                            "--format=csv,noheader,nounits"]).split()[0])
+    trips, n = 40_000, 1024
+    x = _conc_input(torch, n // 128, 0)
+    flops = ck.flops(n, trips)
+    ops_ms = flops / (spec["f32_tflops"] * 1e12) * 1e3
+    chain_ms = ck.FMAS_PER_TRIP * trips * FMA_LATENCY_CYCLES / (
+        clock_mhz * 1e6) * 1e3
+
+    def t(fn):
+        return timing.cuda_time_ms(fn, reps=5, warmup=1)
+
+    busy = {"ms": t(lambda: ck.busy_wait(x, trips)), "plain_ms": busy_plain_ms,
+            "bound_ms": ops_ms, "bound_by": "operations",
+            "chain_floor_ms": chain_ms, "library_ms": None,
+            "flops": flops, "shape": "8x128 float32 at 40000 trips"}
+
+    copies, comps, k7_trips = _k7_inputs(cc, k7_tuned)
+    bytes_ms, k7_ops_ms, k7_bytes = _k7_bound(ck, spec, copies, comps,
+                                              k7_trips)
+    copy_bytes_ms, _, copy_bytes = _k7_bound(ck, spec, copies, [], [])
+    dma = {
+        "tuned": k7_tuned,
+        "ms": t(lambda: cb.dma_compute(copies, comps, k7_trips, True)),
+        "dma_serial_ms": t(lambda: cb.dma_compute(copies, comps, k7_trips,
+                                                  False)),
+        "plain_ms": k7_plain_ms, "bytes": k7_bytes,
+        "bound_ms": max(k7_ops_ms, bytes_ms), "bound_by": "operations"
+        if k7_ops_ms >= bytes_ms else "bytes",
+        "dma_serial_floor_ms": k7_ops_ms + bytes_ms, "library_ms": None,
+        "copy_only_ms": t(lambda: cb.dma_compute(copies, [], [], True)),
+        "copy_only_bound_ms": copy_bytes_ms, "copy_only_bytes": copy_bytes,
+        "compute_only_ms": t(lambda: cb.dma_compute([], comps, k7_trips,
+                                                    True)),
+    }
+    outs = [torch.empty_like(c) for c in copies]
+    dma["copy_only_library_ms"] = t(
+        lambda: [o.copy_(c) for o, c in zip(outs, copies)])
+    bound = cb.K7Launch(copies, [], [], True, outs, [])
+    dma["copy_only_queued_ms"], dma["host_ms_per_bound_launch"] = \
+        _queued_ms(torch, ck, bound)
+    _, dma["host_ms_per_dma_compute_call"] = _queued_ms(
+        torch, ck, lambda: cb.dma_compute(copies, [], [], True))
+    dma["copy_only_library_queued_ms"], _ = _queued_ms(
+        torch, ck, lambda: [o.copy_(c) for o, c in zip(outs, copies)])
+    del copies, comps, outs, bound
+
+    copies, comps, b_trips = _k7_inputs(cc, balanced_tuned)
+    q = {}
+    for name, args in (("copy_only", (copies, [], [], True)),
+                       ("compute_only", ([], comps, b_trips, True)),
+                       ("dma_overlap", (copies, comps, b_trips, True)),
+                       ("dma_serial", (copies, comps, b_trips, False))):
+        bound = cb.K7Launch(*args, [torch.empty_like(c) for c in args[0]],
+                            [torch.empty_like(c) for c in args[1]])
+        q[name], _ = _queued_ms(torch, ck, bound)
+    solo_sum = q["copy_only"] + q["compute_only"]
+    balanced = {"tuned": balanced_tuned, "queued_ms": q,
+                "device_speedup": solo_sum / q["dma_overlap"],
+                "device_theoretical": solo_sum / max(q["copy_only"],
+                                                     q["compute_only"]),
+                "dma_serial_share_of_solos": q["dma_serial"] / solo_sum}
+    emit({"phase": "concurrency_time", "sm_clock_max_mhz": clock_mhz,
+          "fma_latency_cycles": FMA_LATENCY_CYCLES, "busy_wait": busy,
+          "dma_compute": dma, "balanced_device": balanced})
+    # the harness's verdict and serial guard, on the device's own times
+    if not balanced["device_speedup"] >= balanced["device_theoretical"] / (
+            1 + ch.TOL_SPEEDUP):
+        raise AssertionError(f"K7 dma_overlap does not overlap on the "
+                             f"device: {balanced}")
+    if not balanced["dma_serial_share_of_solos"] >= SERIAL_GUARD:
+        raise AssertionError(f"K7 dma_serial lost its order: {balanced}")
+    return busy, dma
+
+
+def _conc_run(torch, ck, cb, ch, **kw):
+    """One ``run_concurrency`` call with both launch counts set to 0 just
+    before and read just after; returns its Record and the counts."""
+    ck.busy_wait.launches = 0
+    cb.dma_compute.launches = 0
+    rec, = ch.run_concurrency(ch.ConcurrencyConfig(device=DEVICE, **kw))
+    torch.cuda.synchronize()
+    launches = {"busy_wait": ck.busy_wait.launches,
+                "dma_compute": cb.dma_compute.launches}
+    row = {"phase": "concurrency", "mode": rec.mode,
+           "commands": rec.commands, "verdict": rec.verdict.value,
+           "metrics": rec.metrics, "tuned": rec.config["tuned"],
+           "launches": launches, "notes": rec.notes}
+    emit(row)
+    if set(rec.metrics) != CONC_KEYS:
+        raise AssertionError(f"{rec.mode} {rec.commands}: metric keys "
+                             f"{sorted(rec.metrics)}")
+    return rec, launches
+
+
+def _serial_guard(rec):
+    m = rec.metrics
+    if not m["mode_us"] >= SERIAL_GUARD * m["serial_total_us"]:
+        raise AssertionError(
+            f"{rec.mode} {rec.commands}: group {m['mode_us']:.1f} us < "
+            f"{SERIAL_GUARD} x the solos' {m['serial_total_us']:.1f} us: the "
+            "serial ordering was lost")
+
+
+def phase_concurrency(torch, ck, cb, cc, ch):
+    """``run_concurrency`` on the card at the reference's defaults unless
+    stated: xla concurrent and serial "C C", concurrent "C H2D" and
+    "C S2D", both dispatch modes on "M2D D2M" and "H2D D2H"; pallas
+    dma_overlap and dma_serial on "C D2D"; the balanced leg (copies of
+    128 MiB, computes from 400 trips, so auto-tune raises the compute to
+    the copy); then the ``concurrency`` CLI, default and balanced.
+    Returns the launch counts the ``kernels`` line reports and each
+    pallas run's tuned commands."""
+    s = cc.alloc(cc.parse_command("S2D"), DEVICE)
+    d = cc.alloc(cc.parse_command("D2S"), DEVICE)
+    if not cc.is_managed(s) or cc.is_managed(d):
+        raise AssertionError("S is not managed memory, or D is")
+    del s, d
+    runs, k7_tuned = {}, {}
+    rec, launches = _conc_run(torch, ck, cb, ch, mode="concurrent")
+    if not rec.verdict or not launches["busy_wait"] > 0:
+        raise AssertionError(f"xla concurrent 'C C': {rec.verdict.value}, "
+                             f"{launches}; {rec.notes}")
+    runs["busy_wait"] = launches["busy_wait"]
+    # the same run, and the pallas one, under the profiler, in a
+    # process of their own (see profile_concurrency_main)
+    r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                        "--profile-concurrency"], cwd=ROOT,
+                       capture_output=True, text=True, timeout=300)
+    if r.returncode != 0:
+        raise AssertionError(f"concurrency profile exited {r.returncode}: "
+                             f"{r.stdout}{r.stderr}")
+    for ln in r.stdout.splitlines():
+        if ln.startswith('{"phase": "concurrency_profile"'):
+            emit(json.loads(ln))
+    rec, _ = _conc_run(torch, ck, cb, ch, mode="serial")
+    _serial_guard(rec)
+    for mode, group in (("concurrent", "C H2D"), ("concurrent", "C S2D"),
+                        ("dispatch_serial", "M2D D2M"),
+                        ("dispatch_serial", "H2D D2H"),
+                        ("dispatch_async", "M2D D2M"),
+                        ("dispatch_async", "H2D D2H")):
+        _conc_run(torch, ck, cb, ch, mode=mode, commands=(group,))
+    for mode in ("dma_overlap", "dma_serial"):
+        rec, launches = _conc_run(torch, ck, cb, ch, backend="pallas",
+                                  mode=mode, commands=("C D2D",))
+        if not launches["dma_compute"] > 0:
+            raise AssertionError(f"pallas {mode}: K7 never launched")
+        if mode == "dma_overlap":
+            runs["dma_compute"] = launches["dma_compute"]
+        k7_tuned[f"defaults {mode}"] = rec.config["tuned"]
+    rec, _ = _conc_run(torch, ck, cb, ch, backend="pallas",
+                       mode="dma_overlap", commands=("C D2D",), **BALANCED)
+    if not rec.verdict:
+        raise AssertionError(f"balanced pallas dma_overlap: {rec.notes}")
+    k7_tuned["balanced dma_overlap"] = rec.config["tuned"]
+    rec, _ = _conc_run(torch, ck, cb, ch, backend="pallas",
+                       mode="dma_serial", commands=("C D2D",), **BALANCED)
+    _serial_guard(rec)
+    k7_tuned["balanced dma_serial"] = rec.config["tuned"]
+    cli = [sys.executable, "-m", "tpu_patterns_torch", "concurrency",
+           "--device", "cuda"]
+    for argv in ([], ["--backend", "pallas", "--mode", "dma_overlap",
+                      "--commands", "C D2D", "--copy_elements",
+                      str(BALANCED["copy_elements"]), "--tripcount",
+                      str(BALANCED["tripcount"])]):
+        r = subprocess.run(cli + argv, cwd=ROOT, capture_output=True,
+                           text=True, timeout=300)
+        emit({"phase": "concurrency_cli", "argv": argv, "rc": r.returncode,
+              "stdout_tail": r.stdout.splitlines()[-3:]})
+        if r.returncode != 0:
+            raise AssertionError(f"concurrency CLI {argv} exited "
+                                 f"{r.returncode}: {r.stdout}{r.stderr}")
+    return runs, k7_tuned
+
+
+def profile_concurrency_main() -> int:
+    """``python3 chip_smoke.py --profile-concurrency``, which the smoke
+    runs in a process of its own: the xla concurrent "C C" run and the
+    pallas dma_overlap "C D2D" run, each under torch.profiler, and the
+    device's idle share of each, 1 - the union of its busy intervals
+    over the host's wall.  (In the smoke's own process, after the
+    earlier phases, the profiles dropped a few kernel records a run.)
+    Each run goes once unprofiled first, so that the profiled one finds
+    the kernel libraries loaded, as the main path did.  A profile that
+    lost kernel records (fewer than the launches) only bounds the idle
+    share from above; such a run is profiled again, up to 3 times, and
+    the line says which it has."""
+    import torch
+
+    if not torch.cuda.is_available():
+        return 2
+    sys.path.insert(0, ROOT)
+    from tpu_patterns_torch.concurrency import backends as cb
+    from tpu_patterns_torch.concurrency import harness as ch
+    from tpu_patterns_torch.concurrency import kernels as ck
+    from tpu_patterns_torch.core.results import ResultWriter
+
+    for kw, kname, prefix in (
+            (dict(mode="concurrent"), "busy_wait", "busy::busy_wait_kernel"),
+            (dict(backend="pallas", mode="dma_overlap", commands=("C D2D",)),
+             "dma_compute", "dma::dma_compute_kernel")):
+        ch.run_concurrency(ch.ConcurrencyConfig(device=DEVICE, **kw),
+                           ResultWriter(stream=io.StringIO()))
+        recorded_by_attempt = []
+        for _ in range(3):
+            ck.busy_wait.launches = 0
+            cb.dma_compute.launches = 0
+            wall, by_name, busy, calls, first_ms = _device_time_s(
+                torch, lambda: ch.run_concurrency(
+                    ch.ConcurrencyConfig(device=DEVICE, **kw),
+                    ResultWriter(stream=io.StringIO())))
+            launched = (ck.busy_wait.launches if kname == "busy_wait"
+                        else cb.dma_compute.launches)
+            recorded_by_attempt.append(sum(
+                n for k, n in calls.items() if k.startswith(prefix)))
+            if recorded_by_attempt[-1] == launched:
+                break
+        complete = recorded_by_attempt[-1] == launched
+        emit({"phase": "concurrency_profile", **kw, "wall_s": wall,
+              "device_busy_s": busy,
+              "device_idle_share": 1 - busy / wall if complete else None,
+              "device_idle_share_at_most": 1 - busy / wall,
+              "device_time_sum_s": sum(by_name.values()),
+              "launches": {kname: launched},
+              "kernel_records_by_attempt": recorded_by_attempt,
+              "profile_complete": complete, "first_record_ms": first_ms,
+              "by_name_s": by_name, "calls_by_name": calls})
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -969,6 +1503,10 @@ def main() -> int:
         return 2
     sys.path.insert(0, ROOT)
     from tpu_patterns_torch.comm import onesided as op
+    from tpu_patterns_torch.concurrency import backends as cb
+    from tpu_patterns_torch.concurrency import commands as cc
+    from tpu_patterns_torch.concurrency import harness as ch
+    from tpu_patterns_torch.concurrency import kernels as ck
     from tpu_patterns_torch.core import timing
     from tpu_patterns_torch.kernels import build
     from tpu_patterns_torch.longctx import flash as F
@@ -1046,6 +1584,16 @@ def main() -> int:
     ptime = phase_put_time(torch, op, timing, spec)
     puts = phase_onesided(torch, op)
 
+    phase_busy_wait_vs_plain(torch, ck)
+    phase_dma_compute_vs_plain(torch, cb)
+    conc_launches, k7_tuned = phase_concurrency(torch, ck, cb, cc, ch)
+    busy_plain_ms, k7_plain_ms = phase_main_path_vs_plain(torch, ck, cb, cc,
+                                                          k7_tuned)
+    conc_time = phase_concurrency_time(
+        torch, ck, cb, cc, ch, timing, spec, busy_plain_ms,
+        k7_tuned["defaults dma_overlap"], k7_plain_ms["defaults dma_overlap"],
+        k7_tuned["balanced dma_overlap"])
+
     # launches: K1 in the timed serve run, K3 and K4 in the flagship
     # run, K2 in the no-grad forward (each count set to 0 just before)
     launches = {**flag["kernel"]["launches"],
@@ -1083,6 +1631,22 @@ def main() -> int:
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
         })
+    # launches: K6 in the xla concurrent "C C" run, K7 in the pallas
+    # dma_overlap "C D2D" run, both at the defaults; K7's times are at
+    # that run's tuned commands
+    for (kname, (source, replaces)), row in zip(CONC_KERNELS.items(),
+                                                conc_time):
+        kernels.append({
+            "name": kname, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": conc_launches[kname],
+            "max_abs_err": 0.0, "bit_exact": True, "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+        })
+    # the card's name and power limit again, beside the numbers, where a
+    # tail of the output still holds them
+    emit(_run(["nvidia-smi", "--query-gpu=name,power.limit",
+               "--format=csv,noheader"]).strip().splitlines()[0])
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
@@ -1090,4 +1654,5 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(profile_concurrency_main()
+             if sys.argv[1:] == ["--profile-concurrency"] else main())

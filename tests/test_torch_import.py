@@ -42,6 +42,7 @@ def test_import_pulls_no_jax():
     code = (
         "import sys\n"
         "import tpu_patterns_torch.serve.engine, tpu_patterns_torch.cli\n"
+        "import tpu_patterns_torch.concurrency\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'tpu_patterns')]\n"
         "assert not bad, bad\n"
@@ -55,6 +56,10 @@ def test_import_pulls_no_jax():
 def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
     from tpu_patterns_torch import cli
     from tpu_patterns_torch.comm.onesided import OneSidedConfig, run_onesided
+    from tpu_patterns_torch.concurrency import (
+        ConcurrencyConfig,
+        run_concurrency,
+    )
     from tpu_patterns_torch.models.lm import init_lm_params
     from tpu_patterns_torch.models.transformer import ModelConfig
     from tpu_patterns_torch.runtime import resolve_device
@@ -74,6 +79,13 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
         lambda: run_onesided(OneSidedConfig(count=2048)),
         lambda: cli.main(["p2p", "--transport", "one_sided"]),
         lambda: cli.main(["p2p"]),
+        lambda: run_concurrency(),
+        lambda: run_concurrency(ConcurrencyConfig(backend="pallas",
+                                                  mode="dma_overlap",
+                                                  commands=("C D2D",))),
+        lambda: cli.main(["concurrency"]),
+        lambda: cli.main(["concurrency", "--backend", "pallas", "--mode",
+                          "dma_serial", "--commands", "C D2D"]),
     ):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()

@@ -20,9 +20,14 @@ each TPU kernel on a ported path is a kernel written by hand for Hopper
                     continuous-batching engine
   comm/             dtypes, the fill and checksum verifier, and the
                     one-device one-sided put with its four put kernels
-                    (comm/csrc/local_put.cu)
+                    (comm/csrc/local_put.cu, staging in bulk_copy.cuh)
+  concurrency/      the serial-vs-concurrent suite: command language and
+                    memory kinds, streams and dispatch (xla), the
+                    busy-wait kernel K6 and the copy-and-compute kernel K7
+                    (concurrency/csrc/), the harness
   kernels/build.py  nvcc build of every ``*.cu`` into build/torch_kernels/
   convert.py        numpy params/pools/fills from the JAX package ->
                     tensors (and params/grads back, as numpy)
-  cli.py            ``python -m tpu_patterns_torch serve|flagship|p2p``
+  cli.py            ``python -m tpu_patterns_torch
+                    serve|flagship|p2p|concurrency``
 """

@@ -5,6 +5,8 @@
         --min_prompt 64 --max_prompt 512 --gen 64
     python -m tpu_patterns_torch flagship --device cuda
     python -m tpu_patterns_torch p2p --transport one_sided --device cuda
+    python -m tpu_patterns_torch concurrency --device cuda \
+        --backend xla --mode concurrent --commands "C C"
 
 One flag per field of the subcommand's config
 (:class:`~tpu_patterns_torch.serve.engine.ServeConfig`,
@@ -13,7 +15,10 @@ One flag per field of the subcommand's config
 ``--attn`` take ``kernel|dense`` and ``--device`` names the device.
 ``p2p`` takes the flags of ``tpu-patterns p2p`` that the one-device
 put uses (:class:`~tpu_patterns_torch.comm.onesided.OneSidedConfig`,
-``--transport``, ``--put-kernel``, ``--chunks``, ``--block-rows``).  A
+``--transport``, ``--put-kernel``, ``--chunks``, ``--block-rows``);
+``concurrency`` those of ``tpu-patterns concurrency``
+(:class:`~tpu_patterns_torch.concurrency.harness.ConcurrencyConfig`,
+repeatable ``--commands``, ``--no_tuning``).  A
 flag (or a value) of the JAX package's subcommand that this package does
 not support yet is refused with a message, never ignored.  Prints the
 ``## mode | commands | VERDICT`` markers, appends JSON-lines Records with
@@ -80,11 +85,14 @@ _CHOICES = {
 }
 
 
-def _add_config_flags(p: argparse.ArgumentParser, cls, not_ported) -> None:
-    """One ``--<field>`` per dataclass field of ``cls``, and a refusing
-    flag for each name in ``not_ported``."""
+def _add_config_flags(p: argparse.ArgumentParser, cls, not_ported,
+                      skip=()) -> None:
+    """One ``--<field>`` per dataclass field of ``cls`` not in ``skip``,
+    and a refusing flag for each name in ``not_ported``."""
     hints = typing.get_type_hints(cls)
     for f in dataclasses.fields(cls):
+        if f.name in skip:
+            continue
         ftype = hints[f.name]
         kw: dict = {"default": f.default}
         if ftype is bool:
@@ -129,7 +137,57 @@ def build_parser() -> argparse.ArgumentParser:
         help="one-sided put bandwidth on one device (the local put) with "
         "the CUDA put kernels",
     ))
+    _add_concurrency_flags(sub.add_parser(
+        "concurrency",
+        help="serial-vs-concurrent harness: device commands on CUDA "
+        "streams (the busy-wait kernel) or in one copy-and-compute kernel",
+    ))
     return parser
+
+
+def _add_concurrency_flags(p: argparse.ArgumentParser) -> None:
+    from tpu_patterns_torch.concurrency.harness import ConcurrencyConfig
+
+    p.add_argument(
+        "--backend", choices=("xla", "pallas"), default="xla",
+        help="xla: each command its own work, the compute C a launch of the "
+        "busy-wait kernel (K6), copies copy_ calls, on one stream (serial), "
+        "a stream each (concurrent) or dispatched with a device wait after "
+        "each (dispatch_serial) or after all (dispatch_async); pallas: each "
+        "group one launch of the copy-and-compute kernel (K7), D2D copies "
+        "and computes in one kernel (dma_serial, dma_overlap)",
+    )
+    p.add_argument("--mode", default="concurrent")
+    p.add_argument(
+        "--commands", action="append", metavar='"C H2D"',
+        help="command group; repeatable (default: \"C C\")",
+    )
+    _add_config_flags(p, ConcurrencyConfig, (),
+                      skip=("backend", "mode", "commands"))
+    p.add_argument("--no_tuning", action="store_true",
+                   help="skip auto-tune")
+
+
+def _concurrency(args, writer: ResultWriter) -> None:
+    from tpu_patterns_torch.concurrency.harness import (
+        ConcurrencyConfig,
+        run_concurrency,
+    )
+
+    cfg = ConcurrencyConfig(
+        backend=args.backend,
+        mode=args.mode,
+        commands=tuple(args.commands or ["C C"]),
+        reps=args.reps,
+        warmup=args.warmup,
+        auto_tune=args.auto_tune and not args.no_tuning,
+        min_bandwidth=args.min_bandwidth,
+        tripcount=args.tripcount,
+        elements=args.elements,
+        copy_elements=args.copy_elements,
+        device=args.device,
+    )
+    run_concurrency(cfg, writer)
 
 
 def _add_p2p_flags(p: argparse.ArgumentParser) -> None:
@@ -217,6 +275,8 @@ def main(argv: list[str] | None = None) -> int:
         run_serve(_config(ServeConfig, args), writer)
     elif args.cmd == "p2p":
         _p2p(args, parser, writer)
+    elif args.cmd == "concurrency":
+        _concurrency(args, writer)
     else:
         cfg = _config(FlagshipConfig, args)
         why = unported(cfg)

@@ -80,6 +80,14 @@ def unrolled_chain(op: Callable[[object], object], a: object, k: int):
     return a
 
 
+def noise_bound_note(what: str = "rate") -> str:
+    """The shared not-a-measurement wording for a metric whose timed
+    windows spread past ``SPREAD_LIMIT`` (see
+    :meth:`ChainMeasurement.noise_note`)."""
+    return (f"timed windows spread beyond the noise limit — {what} is "
+            "noise-bound, not measured")
+
+
 @dataclasses.dataclass
 class ChainMeasurement:
     """Per-op time of a chain of dependent ops: the minimum over reps
@@ -100,10 +108,7 @@ class ChainMeasurement:
         return self.per_op_ns * 1e-3
 
     def noise_note(self, what: str = "rate") -> str | None:
-        if self.converged:
-            return None
-        return (f"timed windows spread beyond the noise limit — {what} is "
-                "noise-bound, not measured")
+        return None if self.converged else noise_bound_note(what)
 
 
 def measure_chain(
@@ -117,8 +122,10 @@ def measure_chain(
     iterations of ``ops_per_iter`` dependent ops each (each op feeding
     the next, so none can be skipped), ``reps`` times after ``warmup``
     untimed runs; the per-op time is per single op.  On the card each
-    window is a CUDA-event pair around the chain; on the CPU, where
-    torch runs synchronously, the host clock.  Buffers the chain takes
+    window is a CUDA-event pair around the chain, recorded on the
+    current stream: a chain that forks work to side streams joins them
+    back to it inside each iteration, or the window misses their work.
+    On the CPU, where torch runs synchronously, the host clock.  Buffers the chain takes
     from the caching allocator are cached by the warmup runs, so no
     window waits on a device allocation."""
     dev = torch.device(device)

@@ -2,7 +2,7 @@
 
 Every ``*.cu`` under the package is one kernel library with a plain C
 interface (its stem names it, so stems are unique across the package;
-``*.cuh`` headers beside it are included, not built).  Each compiles with its own ``nvcc`` process (all started
+``*.cuh`` headers are included, not built).  Each compiles with its own ``nvcc`` process (all started
 together) for ``sm_90a`` into ``build/torch_kernels/`` at the checkout's
 root, named by a hash of its source and the flags, at first use; later
 calls reuse the file.  The library loads with ``ctypes``.  A missing
@@ -48,10 +48,11 @@ def find_nvcc() -> str:
 
 
 def target(src: Path) -> Path:
-    """The library path for ``src``: keyed by its bytes, those of the
-    headers beside it and the flags."""
+    """The library path for ``src``: keyed by its bytes, those of every
+    ``*.cuh`` header under the package (a source may include one from
+    another directory) and the flags."""
     h = hashlib.sha256(src.read_bytes())
-    for hdr in sorted(src.parent.glob("*.cuh")):
+    for hdr in sorted(PKG_DIR.rglob("*.cuh")):
         h.update(hdr.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{src.stem}-{h.hexdigest()[:16]}.so"
