@@ -5,10 +5,11 @@
 
 Run from the root of a checkout.  It imports nothing of JAX or of the
 JAX package, and fails (nonzero exit, no result line) without a CUDA
-device or away from the repository.  It drives the four ported paths:
-the serve path (slice A), the flagship train step (slice B), the
-one-device one-sided put (slice C) and the concurrency suite (slice D).
-Phases, each one or more printed lines:
+device or away from the repository.  It drives the ported paths: the
+serve path (slice A), the flagship train step (slice B), the one-device
+one-sided put (slice C), the concurrency suite (slice D), and the ring
+(the allreduce miniapp and the ring put over a rank mesh of four ranks
+on the one card).  Phases, each one or more printed lines:
 
 1. device and toolchain: torch/CUDA versions, ``nvcc --version``, and the
    card's name and power limit as ``nvidia-smi`` reports them;
@@ -90,7 +91,28 @@ Phases, each one or more printed lines:
     copy-only launch beside one ``copy_`` and the host's time per K7
     launch; and the balanced shape's copy-only, compute-only and mixed
     launches queued with no host gaps, the device's own overlap;
-11. the card's name and power limit again, the ``kernels`` line, then
+11. the ring: the accumulate kernel K5 against its plain version on the
+    same tensors, bit for bit (float32 and int32; n = 1, 127, 4097, 2^23,
+    2^25; operands one element into a buffer; pinned host and managed
+    inputs, where K5 must launch and its output stay in their memory);
+    K5's time at 2^25 and 2^23 beside its plain version's, one
+    ``torch.add(out=)`` call's and its byte bound; ``run_allreduce`` at
+    the defaults (2^25 elements a rank, 4 ranks on the card, reps 5):
+    xla ring, ring_opt and psum at float32, ring at int32 and bfloat16,
+    pallas ring and ring_opt at float32, ring at int32 and at float32 in
+    pinned host (H) and managed (S) memory, each SUCCESS, K5 launched
+    (p-1) x p times per allreduce in every pallas run (its count set to
+    0 just before each); the pallas ring and ring_opt on random float32,
+    through K5 and through the plain accumulate, bit for bit; the ring
+    put kernel K9 against its plain version (the ring shift) at worlds
+    2, 4 and 8, float32 and bfloat16, 1, 97 and 2048 rows and misaligned
+    shards; K9's time per launch at 92,160 x 512 float32 beside its
+    plain version's, one ``copy_``'s and its bound; ``run_onesided``
+    over 4 ranks at the reference's message size (SUCCESS, checksum, 4
+    K9 launches per ring put); the ``allreduce``, ``miniapps`` and ``p2p
+    --devices 4`` commands; the pallas ring's device idle share comes
+    from the profiling process of phase 10;
+12. the card's name and power limit again, the ``kernels`` line, then
     the device line, which is the last.
 """
 
@@ -1396,7 +1418,8 @@ def phase_concurrency(torch, ck, cb, cc, ch):
         raise AssertionError(f"concurrency profile exited {r.returncode}: "
                              f"{r.stdout}{r.stderr}")
     for ln in r.stdout.splitlines():
-        if ln.startswith('{"phase": "concurrency_profile"'):
+        if ln.startswith(('{"phase": "concurrency_profile"',
+                          '{"phase": "allreduce_profile"')):
             emit(json.loads(ln))
     rec, _ = _conc_run(torch, ck, cb, ch, mode="serial")
     _serial_guard(rec)
@@ -1439,10 +1462,309 @@ def phase_concurrency(torch, ck, cb, cc, ch):
     return runs, k7_tuned
 
 
+# -- phase 11: the ring ---------------------------------------------------------
+
+RING_KERNELS = {  # wrapper -> (source, the Pallas body it replaces)
+    "accumulate": (
+        "tpu_patterns_torch/miniapps/apps/allreduce/csrc/accumulate.cu",
+        "tpu_patterns/miniapps/apps/allreduce/pallas.py:27"),
+    "ring_put": ("tpu_patterns_torch/comm/csrc/ring_put.cu",
+                 "tpu_patterns/comm/onesided.py:53"),
+}
+AR_WORLD = 4  # the miniapp's default world, four ranks on the one card
+AR_FULL = 1 << 25  # the miniapp's per-rank elements
+# run_allreduce at the defaults: (variant, algorithm, dtype, mem_kind)
+AR_RUNS = (
+    ("xla", "ring", "float32", "D"), ("xla", "ring_opt", "float32", "D"),
+    ("xla", "psum", "float32", "D"), ("xla", "ring", "int32", "D"),
+    ("xla", "ring", "bfloat16", "D"),
+    ("pallas", "ring", "float32", "D"), ("pallas", "ring_opt", "float32", "D"),
+    ("pallas", "ring", "int32", "D"), ("pallas", "ring", "float32", "H"),
+    ("pallas", "ring", "float32", "S"),
+)
+
+
+def _ring_input(torch, n, dtype, seed, offset=0):
+    """``n`` random values of ``dtype`` on the card (float32: normal;
+    int32: the full range, so that adds wrap); with ``offset``, a view
+    that starts ``offset`` elements into a larger buffer."""
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    if dtype == torch.int32:
+        raw = torch.randint(-2**31, 2**31 - 1, (n + offset,), generator=g,
+                            dtype=torch.int32, device=DEVICE)
+    else:
+        raw = torch.randn(n + offset, generator=g, device=DEVICE)
+    return raw[offset:]
+
+
+def _bits_equal(torch, got, want):
+    """Bit for bit, on the card: floats compared as their bits."""
+    bits = {torch.float32: torch.int32, torch.int32: torch.int32,
+            torch.bfloat16: torch.int16}
+    got, want = got.to(DEVICE), want.to(DEVICE)
+    return (got.shape == want.shape and got.dtype == want.dtype
+            and torch.equal(got.view(bits[got.dtype]),
+                            want.view(bits[want.dtype])))
+
+
+def phase_accumulate_vs_plain(torch, ap, cc):
+    """K5 against its plain version on the same tensors, bit for bit:
+    float32 and int32 at n = 1, 127, 4097, 2^23 and 2^25; views one
+    element into a buffer (a, b or both misaligned); and inputs in pinned
+    host (H) and managed (S) memory, where K5 must launch (its count
+    says so) and its output stays in the inputs' memory."""
+    from tpu_patterns_torch.comm.mesh import default_mesh
+
+    one_rank = default_mesh(1, DEVICE)
+    cases = 0
+
+    def same(name, got, want):
+        nonlocal cases
+        cases += 1
+        if not _bits_equal(torch, got, want):
+            raise AssertionError(f"accumulate differs from its plain "
+                                 f"version: {name}")
+
+    sizes = (1, 127, 4097, 1 << 23, AR_FULL)
+    for i, dt in enumerate((torch.float32, torch.int32)):
+        for j, n in enumerate(sizes):
+            a = _ring_input(torch, n, dt, 10 * i + j)
+            b = _ring_input(torch, n, dt, 10 * i + j + 5)
+            same(f"{dt} n={n}", ap.accumulate(a, b),
+                 ap.accumulate_reference(a, b))
+        for n in (127, 4097):
+            for oa, ob in ((1, 0), (0, 1), (1, 1)):
+                a = _ring_input(torch, n, dt, 40 + n, oa)
+                b = _ring_input(torch, n, dt, 41 + n, ob)
+                same(f"{dt} n={n} offsets {oa},{ob}", ap.accumulate(a, b),
+                     ap.accumulate_reference(a, b))
+        for kind in ("H", "S"):
+            for n in (4097, 1 << 23):
+                a = _ring_input(torch, n, dt, 60 + n)
+                b = _ring_input(torch, n, dt, 61 + n)
+                ka = cc.empty_in(cc.MemKind[kind], (n,), DEVICE, dt)
+                kb = cc.empty_in(cc.MemKind[kind], (n,), DEVICE, dt)
+                ka.copy_(a)
+                kb.copy_(b)
+                torch.cuda.synchronize()
+                before = ap.accumulate.launches
+                with one_rank.allocating_in(kind):  # S: a managed output
+                    got = ap.accumulate(ka, kb, device=DEVICE)
+                if ap.accumulate.launches != before + 1:
+                    raise AssertionError(f"accumulate on {kind} memory did "
+                                         "not launch K5")
+                kept = got.is_pinned() if kind == "H" else cc.is_managed(got)
+                if not kept:
+                    raise AssertionError(f"accumulate's output left {kind}")
+                same(f"{dt} n={n} {kind}", got, ap.accumulate_reference(a, b))
+    torch.cuda.synchronize()
+    emit({"phase": "accumulate_vs_plain", "cases": cases, "bit_exact": True,
+          "sizes": sizes, "kinds": ["D", "H", "S"]})
+    return cases
+
+
+def phase_accumulate_time(torch, ap, timing, spec):
+    """K5's ms per launch at 2^25 (the ring's shard) and 2^23 (the
+    bandwidth-optimal ring's chunk) float32, beside its plain version's,
+    one ``torch.add(out=)`` call's and its byte bound (two inputs read
+    and one output written once: 12 bytes an element).  Both shapes move
+    more than the 50 MB L2 a launch, so no flush."""
+    rows = {}
+    for n in (AR_FULL, AR_FULL // AR_WORLD):
+        a = _ring_input(torch, n, torch.float32, 1)
+        b = _ring_input(torch, n, torch.float32, 2)
+        out = torch.empty_like(a)
+
+        def t(fn):
+            return timing.cuda_time_ms(fn, reps=20, warmup=3)
+
+        rows[n] = {
+            "ms": t(lambda: ap.accumulate(a, b)),
+            "plain_ms": t(lambda: ap.accumulate_reference(a, b)),
+            "library_ms": t(lambda: torch.add(a, b, out=out)),
+            "bound_ms": 3 * n * 4 / (spec["hbm_gbps"] * 1e9) * 1e3,
+            "bound_by": "bytes",
+        }
+    emit({"phase": "accumulate_time", "shape": "float32, per launch",
+          "library": "torch.add(a, b, out=o)",
+          **{f"n={n}": r for n, r in rows.items()}})
+    return rows[AR_FULL]
+
+
+def phase_allreduce(torch, ap, ar, fw):
+    """``run_allreduce`` at the defaults (2^25 elements a rank, 4 ranks on
+    the one card, reps 5) over :data:`AR_RUNS`: each must read SUCCESS;
+    K5's count, set to 0 just before each run and read just after, must
+    be (p-1) x p launches per allreduce the run performed for every
+    pallas run, and 0 for xla.  Returns the pallas ring's launches at
+    float32 in device memory, the main path."""
+    from tpu_patterns_torch.core.results import ResultWriter
+
+    mesh = fw.default_mesh(AR_WORLD, DEVICE)
+    main = None
+    for variant, alg, dtype, kind in AR_RUNS:
+        cfg = ar.AllreduceConfig(dtype=dtype, algorithm=alg, mem_kind=kind)
+        ap.reset_launches()
+        t0 = time.perf_counter()
+        rec = fw.get_variant("allreduce", variant).run(
+            mesh=mesh, dtype=dtype, algorithm=alg, mem_kind=kind,
+            writer=ResultWriter(stream=io.StringIO()))
+        torch.cuda.synchronize()
+        launches = ap.accumulate.launches
+        want = ((AR_WORLD - 1) * AR_WORLD * ar.allreduces_per_run(cfg)
+                if variant == "pallas" else 0)
+        emit({"phase": "allreduce", "variant": variant, "algorithm": alg,
+              "dtype": dtype, "mem_kind": kind, "verdict": rec.verdict.value,
+              "commands": rec.commands, "wall_s": rec.metrics["wall_s"],
+              "busbw_GBps": rec.metrics["busbw_GBps"],
+              "wire_GBps": rec.metrics["wire_GBps"],
+              "timing_converged": rec.metrics["timing_converged"],
+              "accumulate_launches": launches, "want_launches": want,
+              "host_s": time.perf_counter() - t0, "notes": rec.notes})
+        if not rec.verdict or launches != want:
+            raise AssertionError(f"allreduce {variant}:{alg} {dtype} {kind}: "
+                                 f"{rec.verdict.value}, K5 launches "
+                                 f"{launches} (want {want}); {rec.notes}")
+        if (variant, alg, dtype, kind) == ("pallas", "ring", "float32", "D"):
+            main = launches
+    return main
+
+
+def phase_allreduce_vs_plain(torch, ap, ring, fw):
+    """The main path against its plain version at its own shapes: the
+    ring and the bandwidth-optimal ring over 4 ranks of 2^25 random
+    float32 each, once with K5 for each rank and once with the plain
+    accumulate, on the same tensors; equal bit for bit (the order of
+    adds is the ring's in both)."""
+    import functools
+
+    mesh = fw.default_mesh(AR_WORLD, DEVICE)
+    xs = [_ring_input(torch, AR_FULL, torch.float32, 90 + r)
+          for r in range(AR_WORLD)]
+    ops = [functools.partial(ap.accumulate, device=d) for d in mesh.devices]
+    for alg in ("ring", "ring_opt"):
+        got = ring.allreduce(xs, alg, ops)
+        want = ring.allreduce(xs, alg, ap.accumulate_reference)
+        if not all(_bits_equal(torch, g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"allreduce {alg} through K5 differs from "
+                                 "its plain version")
+        spread = max(float((g - got[0]).abs().max()) for g in got)
+        emit({"phase": "allreduce_vs_plain", "algorithm": alg,
+              "bit_exact": True, "ranks": AR_WORLD, "elements": AR_FULL,
+              "max_rank_spread": spread})
+
+
+def phase_ring_put_vs_plain(torch, op, fw):
+    """K9 against its plain version (the ring shift), bit for bit, at
+    worlds 2, 4 and 8 on the one card, float32 and bfloat16, 1, 97 and
+    2048 rows of 512, and shards that start one element into a buffer;
+    each output also equals the global buffer rolled by one shard."""
+    cases = 0
+    for world in (2, 4, 8):
+        mesh = fw.default_mesh(world, DEVICE)
+        for dt in (torch.float32, torch.bfloat16):
+            for rows in (1, 97, 2048):
+                x = _put_input(torch, (world * rows, 512), dt,
+                               world + rows)
+                shards = mesh.scatter(x)
+                cases += 1
+                got = op.ring_put(shards)
+                want = op.ring_put_reference(shards)
+                if not all(_bits_equal(torch, g, w)
+                           for g, w in zip(got, want)) or not _bits_equal(
+                        torch, mesh.gather(got), torch.roll(x, rows, 0)):
+                    raise AssertionError(f"ring_put differs: world {world} "
+                                         f"{dt} rows {rows}")
+            buf = _put_input(torch, (world * 97 * 512 + 1,), dt, world)
+            shards = [buf[1 + r * 97 * 512:1 + (r + 1) * 97 * 512]
+                      .view(97, 512) for r in range(world)]
+            cases += 1
+            if not all(_bits_equal(torch, g, w) for g, w in zip(
+                    op.ring_put(shards), op.ring_put_reference(shards))):
+                raise AssertionError(f"ring_put differs: world {world} {dt} "
+                                     "misaligned")
+    torch.cuda.synchronize()
+    emit({"phase": "ring_put_vs_plain", "cases": cases, "bit_exact": True,
+          "worlds": [2, 4, 8], "rows": [1, 97, 2048],
+          "dtypes": ["float32", "bfloat16"]})
+    return cases
+
+
+def phase_ring_put_time(torch, op, timing, spec, fw):
+    """K9's ms per launch at the reference's 92,160 x 512 float32 shard
+    (188.7 MB, 3.8x the L2): one ring put over 4 ranks is 4 launches, so
+    its time over 4; the plain version (the ring shift) likewise; one
+    ``copy_`` into the neighbour's buffer; the byte bound (the shard read
+    once and written once)."""
+    mesh = fw.default_mesh(AR_WORLD, DEVICE)
+    x = _put_input(torch, (AR_WORLD * PUT_FULL[0], PUT_FULL[1]),
+                   torch.float32, 3)
+    shards = mesh.scatter(x)
+    dst = torch.empty_like(shards[1])
+    nbytes = shards[0].numel() * 4
+
+    def t(fn):
+        return timing.cuda_time_ms(fn, reps=10, warmup=2)
+
+    row = {
+        "ms": t(lambda: op.ring_put(shards)) / AR_WORLD,
+        "plain_ms": t(lambda: op.ring_put_reference(shards)) / AR_WORLD,
+        "library_ms": t(lambda: dst.copy_(shards[0])),
+        "bound_ms": 2 * nbytes / (spec["hbm_gbps"] * 1e9) * 1e3,
+        "bound_by": "bytes",
+    }
+    emit({"phase": "ring_put_time", "shape": f"{PUT_FULL[0]}x{PUT_FULL[1]} "
+          f"float32 a rank, {AR_WORLD} ranks on the card, per launch",
+          "library": "dst.copy_(src)", **row})
+    return row
+
+
+def phase_onesided_ring(torch, op, fw):
+    """``run_onesided`` over 4 ranks on the one card at the reference's
+    message size: SUCCESS, ``checksum_ok`` 1, no ``hbm_plausible``, and
+    K9 launched 4 times for each ring put the run made (its count set to
+    0 just before, read just after)."""
+    cfg = op.OneSidedConfig()
+    op.reset_launches()
+    rec, = op.run_onesided(cfg, mesh=fw.default_mesh(AR_WORLD, DEVICE))
+    torch.cuda.synchronize()
+    launches = op.launch_counts()
+    from tpu_patterns_torch.core import timing
+
+    puts = timing.CHAIN_K * timing.CHAIN_UNROLL * (cfg.warmup + cfg.reps) + 1
+    emit({"phase": "onesided_ring", "verdict": rec.verdict.value,
+          "commands": rec.commands, "metrics": rec.metrics,
+          "launches": launches, "want_ring_put": AR_WORLD * puts,
+          "notes": rec.notes})
+    if (not rec.verdict or rec.metrics.get("checksum_ok") != 1.0
+            or "hbm_plausible" in rec.metrics
+            or launches["ring_put"] != AR_WORLD * puts):
+        raise AssertionError(f"run_onesided ring_put: {rec.verdict.value}, "
+                             f"{launches}; {rec.notes}")
+    return launches["ring_put"]
+
+
+def phase_ring_cli():
+    """The ``allreduce``, ``miniapps`` and ``p2p`` ring commands, each in
+    a process of its own, at their defaults over 4 ranks."""
+    cli = [sys.executable, "-m", "tpu_patterns_torch"]
+    for argv in (["allreduce", "--variant", "pallas", "--devices", "4"],
+                 ["miniapps", "--devices", "4"],
+                 ["p2p", "--transport", "one_sided", "--devices", "4"]):
+        r = subprocess.run(cli + argv + ["--device", "cuda"], cwd=ROOT,
+                           capture_output=True, text=True, timeout=300)
+        emit({"phase": "ring_cli", "argv": argv, "rc": r.returncode,
+              "stdout_tail": r.stdout.splitlines()[-3:]})
+        if r.returncode != 0:
+            raise AssertionError(f"CLI {argv} exited {r.returncode}: "
+                                 f"{r.stdout}{r.stderr}")
+
+
 def profile_concurrency_main() -> int:
     """``python3 chip_smoke.py --profile-concurrency``, which the smoke
-    runs in a process of its own: the xla concurrent "C C" run and the
-    pallas dma_overlap "C D2D" run, each under torch.profiler, and the
+    runs in a process of its own: the xla concurrent "C C" run, the
+    pallas dma_overlap "C D2D" run and the pallas ring allreduce at the
+    defaults (4 ranks on the card), each under torch.profiler, and the
     device's idle share of each, 1 - the union of its busy intervals
     over the host's wall.  (In the smoke's own process, after the
     earlier phases, the profiles dropped a few kernel records a run.)
@@ -1460,29 +1782,42 @@ def profile_concurrency_main() -> int:
     from tpu_patterns_torch.concurrency import harness as ch
     from tpu_patterns_torch.concurrency import kernels as ck
     from tpu_patterns_torch.core.results import ResultWriter
+    from tpu_patterns_torch.miniapps import framework as fw
+    from tpu_patterns_torch.miniapps.apps.allreduce import pallas as ap
 
-    for kw, kname, prefix in (
-            (dict(mode="concurrent"), "busy_wait", "busy::busy_wait_kernel"),
-            (dict(backend="pallas", mode="dma_overlap", commands=("C D2D",)),
-             "dma_compute", "dma::dma_compute_kernel")):
-        ch.run_concurrency(ch.ConcurrencyConfig(device=DEVICE, **kw),
-                           ResultWriter(stream=io.StringIO()))
+    def conc(**kw):
+        return lambda: ch.run_concurrency(
+            ch.ConcurrencyConfig(device=DEVICE, **kw),
+            ResultWriter(stream=io.StringIO()))
+
+    mesh = fw.default_mesh(AR_WORLD, DEVICE)
+    # (line, its keys, the run, the kernel's name and its launch count)
+    legs = (
+        ("concurrency_profile", dict(mode="concurrent"),
+         conc(mode="concurrent"), "busy_wait", ck.busy_wait),
+        ("concurrency_profile",
+         dict(backend="pallas", mode="dma_overlap", commands=("C D2D",)),
+         conc(backend="pallas", mode="dma_overlap", commands=("C D2D",)),
+         "dma_compute", cb.dma_compute),
+        ("allreduce_profile",
+         dict(variant="pallas", algorithm="ring", world=AR_WORLD),
+         lambda: fw.get_variant("allreduce", "pallas").run(
+             mesh=mesh, writer=ResultWriter(stream=io.StringIO())),
+         "accumulate", ap.accumulate),
+    )
+    for phase, kw, run, kname, wrapper in legs:
+        run()
         recorded_by_attempt = []
         for _ in range(3):
-            ck.busy_wait.launches = 0
-            cb.dma_compute.launches = 0
-            wall, by_name, busy, calls, first_ms = _device_time_s(
-                torch, lambda: ch.run_concurrency(
-                    ch.ConcurrencyConfig(device=DEVICE, **kw),
-                    ResultWriter(stream=io.StringIO())))
-            launched = (ck.busy_wait.launches if kname == "busy_wait"
-                        else cb.dma_compute.launches)
+            wrapper.launches = 0
+            wall, by_name, busy, calls, first_ms = _device_time_s(torch, run)
+            launched = wrapper.launches
             recorded_by_attempt.append(sum(
-                n for k, n in calls.items() if k.startswith(prefix)))
+                n for k, n in calls.items() if f"{kname}_kernel" in k))
             if recorded_by_attempt[-1] == launched:
                 break
         complete = recorded_by_attempt[-1] == launched
-        emit({"phase": "concurrency_profile", **kw, "wall_s": wall,
+        emit({"phase": phase, **kw, "wall_s": wall,
               "device_busy_s": busy,
               "device_idle_share": 1 - busy / wall if complete else None,
               "device_idle_share_at_most": 1 - busy / wall,
@@ -1503,6 +1838,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, ROOT)
     from tpu_patterns_torch.comm import onesided as op
+    from tpu_patterns_torch.comm import ring
     from tpu_patterns_torch.concurrency import backends as cb
     from tpu_patterns_torch.concurrency import commands as cc
     from tpu_patterns_torch.concurrency import harness as ch
@@ -1511,6 +1847,9 @@ def main() -> int:
     from tpu_patterns_torch.kernels import build
     from tpu_patterns_torch.longctx import flash as F
     from tpu_patterns_torch.longctx import tuning
+    from tpu_patterns_torch.miniapps import framework as fw
+    from tpu_patterns_torch.miniapps.apps import allreduce as ar
+    from tpu_patterns_torch.miniapps.apps.allreduce import pallas as ap
     from tpu_patterns_torch.models import flagship as fl
     from tpu_patterns_torch.models import transformer as tr
     from tpu_patterns_torch.runtime import match_device_spec
@@ -1594,6 +1933,15 @@ def main() -> int:
         k7_tuned["defaults dma_overlap"], k7_plain_ms["defaults dma_overlap"],
         k7_tuned["balanced dma_overlap"])
 
+    phase_accumulate_vs_plain(torch, ap, cc)
+    acc_time = phase_accumulate_time(torch, ap, timing, spec)
+    acc_launches = phase_allreduce(torch, ap, ar, fw)
+    phase_allreduce_vs_plain(torch, ap, ring, fw)
+    phase_ring_put_vs_plain(torch, op, fw)
+    rp_time = phase_ring_put_time(torch, op, timing, spec, fw)
+    rp_launches = phase_onesided_ring(torch, op, fw)
+    phase_ring_cli()
+
     # launches: K1 in the timed serve run, K3 and K4 in the flagship
     # run, K2 in the no-grad forward (each count set to 0 just before)
     launches = {**flag["kernel"]["launches"],
@@ -1639,6 +1987,19 @@ def main() -> int:
         kernels.append({
             "name": kname, "route": "cuda", "source": source,
             "replaces": replaces, "launches": conc_launches[kname],
+            "max_abs_err": 0.0, "bit_exact": True, "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+        })
+    # launches: K5 in the pallas ring allreduce at the defaults (float32,
+    # device memory), K9 in run_onesided over 4 ranks; K5's times at the
+    # ring's 2^25-element shard, K9's per launch at the 188.7 MB shard
+    for (kname, (source, replaces)), launched, row in zip(
+            RING_KERNELS.items(), (acc_launches, rp_launches),
+            (acc_time, rp_time)):
+        kernels.append({
+            "name": kname, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launched,
             "max_abs_err": 0.0, "bit_exact": True, "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],

@@ -43,6 +43,8 @@ def test_import_pulls_no_jax():
         "import sys\n"
         "import tpu_patterns_torch.serve.engine, tpu_patterns_torch.cli\n"
         "import tpu_patterns_torch.concurrency\n"
+        "import tpu_patterns_torch.miniapps, tpu_patterns_torch.comm.ring\n"
+        "import tpu_patterns_torch.miniapps.apps.allreduce.pallas\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'tpu_patterns')]\n"
         "assert not bad, bad\n"
@@ -55,10 +57,16 @@ def test_import_pulls_no_jax():
 
 def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
     from tpu_patterns_torch import cli
+    from tpu_patterns_torch.comm.mesh import RankMesh, default_mesh
     from tpu_patterns_torch.comm.onesided import OneSidedConfig, run_onesided
     from tpu_patterns_torch.concurrency import (
         ConcurrencyConfig,
         run_concurrency,
+    )
+    from tpu_patterns_torch.miniapps import framework
+    from tpu_patterns_torch.miniapps.apps.allreduce import (
+        AllreduceConfig,
+        run_allreduce,
     )
     from tpu_patterns_torch.models.lm import init_lm_params
     from tpu_patterns_torch.models.transformer import ModelConfig
@@ -86,6 +94,17 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
         lambda: cli.main(["concurrency"]),
         lambda: cli.main(["concurrency", "--backend", "pallas", "--mode",
                           "dma_serial", "--commands", "C D2D"]),
+        lambda: default_mesh(4),
+        lambda: framework.default_mesh(),
+        lambda: framework.run_all(),
+        lambda: run_allreduce(RankMesh(("cuda",) * 4), AllreduceConfig()),
+        lambda: run_onesided(OneSidedConfig(count=2048),
+                             mesh=RankMesh(("cuda:0", "cuda:0"))),
+        lambda: cli.main(["allreduce", "--devices", "4"]),
+        lambda: cli.main(["allreduce", "--variant", "pallas"]),
+        lambda: cli.main(["miniapps"]),
+        lambda: cli.main(["p2p", "--transport", "one_sided", "--devices",
+                          "4"]),
     ):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
@@ -101,7 +120,9 @@ def test_unported_options_are_refused():
         ModelConfig(moe=True)
     for argv in (["serve", "--spec_k", "2"], ["serve", "--prefix_share"],
                  ["serve", "--paged_attn", "pallas"],
-                 ["p2p", "--devices", "2"], ["p2p", "--bidirectional", "0"],
+                 ["allreduce", "--placement", "spread"],
+                 ["p2p", "--bidirectional", "0"],
+                 ["p2p", "--mechanism", "visible"],
                  ["p2p", "--placement", "spread"],
                  ["p2p", "--put-kernel", "pallas"]):
         with pytest.raises(SystemExit):

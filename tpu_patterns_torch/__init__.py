@@ -18,9 +18,14 @@ each TPU kernel on a ported path is a kernel written by hand for Hopper
   serve/            paged pool, the fused paged-attention kernel
                     (serve/csrc/paged_attention.cu) and the
                     continuous-batching engine
-  comm/             dtypes, the fill and checksum verifier, and the
+  comm/             dtypes, the fill and checksum verifier, the
                     one-device one-sided put with its four put kernels
-                    (comm/csrc/local_put.cu, staging in bulk_copy.cuh)
+                    (comm/csrc/local_put.cu, staging in bulk_copy.cuh),
+                    the rank mesh, the ring collectives and the ring put
+                    kernel K9 (comm/csrc/ring_put.cu)
+  miniapps/         the miniapp framework and the ring-allreduce app;
+                    its pallas variant's accumulate kernel K5
+                    (miniapps/apps/allreduce/csrc/accumulate.cu)
   concurrency/      the serial-vs-concurrent suite: command language and
                     memory kinds, streams and dispatch (xla), the
                     busy-wait kernel K6 and the copy-and-compute kernel K7
@@ -29,5 +34,5 @@ each TPU kernel on a ported path is a kernel written by hand for Hopper
   convert.py        numpy params/pools/fills from the JAX package ->
                     tensors (and params/grads back, as numpy)
   cli.py            ``python -m tpu_patterns_torch
-                    serve|flagship|p2p|concurrency``
+                    serve|flagship|p2p|concurrency|allreduce|miniapps``
 """

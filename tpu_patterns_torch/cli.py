@@ -7,18 +7,27 @@
     python -m tpu_patterns_torch p2p --transport one_sided --device cuda
     python -m tpu_patterns_torch concurrency --device cuda \
         --backend xla --mode concurrent --commands "C C"
+    python -m tpu_patterns_torch allreduce --device cuda --devices 4 \
+        --variant pallas --algorithm ring_opt
+    python -m tpu_patterns_torch miniapps --device cuda --devices 4
+    python -m tpu_patterns_torch p2p --transport one_sided --devices 4
 
 One flag per field of the subcommand's config
 (:class:`~tpu_patterns_torch.serve.engine.ServeConfig`,
 :class:`~tpu_patterns_torch.models.flagship.FlagshipConfig`), named as in
 ``tpu-patterns serve`` / ``tpu-patterns flagship``; ``--paged_attn`` and
 ``--attn`` take ``kernel|dense`` and ``--device`` names the device.
-``p2p`` takes the flags of ``tpu-patterns p2p`` that the one-device
+``p2p`` takes the flags of ``tpu-patterns p2p`` that the one-sided
 put uses (:class:`~tpu_patterns_torch.comm.onesided.OneSidedConfig`,
-``--transport``, ``--put-kernel``, ``--chunks``, ``--block-rows``);
+``--transport``, ``--put-kernel``, ``--chunks``, ``--block-rows``,
+``--devices``);
 ``concurrency`` those of ``tpu-patterns concurrency``
 (:class:`~tpu_patterns_torch.concurrency.harness.ConcurrencyConfig`,
-repeatable ``--commands``, ``--no_tuning``).  A
+repeatable ``--commands``, ``--no_tuning``); ``allreduce`` and
+``miniapps`` those of ``tpu-patterns allreduce`` and ``miniapps``.
+``--devices N`` is the rank count (≙ ``mpirun -n N``, 0 = one rank per
+card): the ranks of a rank mesh (``comm/mesh.py``) are placed over the
+visible cards, several to a card when there are fewer cards.  A
 flag (or a value) of the JAX package's subcommand that this package does
 not support yet is refused with a message, never ignored.  Prints the
 ``## mode | commands | VERDICT`` markers, appends JSON-lines Records with
@@ -73,8 +82,9 @@ def _opt_int(s: str) -> int | None:
     return None if s.strip().lower() in ("", "none") else int(s)
 
 
-# `tpu-patterns p2p` flags of the mesh and the pair exchange
-_NOT_PORTED_P2P = ("devices", "placement", "mechanism", "bidirectional")
+# `tpu-patterns p2p` flags of the placement (topo/) and the pair exchange
+_NOT_PORTED_P2P = ("placement", "mechanism", "bidirectional")
+_NOT_PORTED_MESH = ("placement", "mechanism")
 _P2P_FIELDS = ("count", "dtype", "reps", "warmup", "min_bandwidth", "seed")
 
 _CHOICES = {
@@ -101,8 +111,8 @@ def _add_config_flags(p: argparse.ArgumentParser, cls, not_ported,
             kw.update(type=_opt_int, metavar="INT|none")
         else:
             kw["type"] = ftype
-        if f.name in _CHOICES:
-            kw["choices"] = _CHOICES[f.name]
+        if f.name in _CHOICES or "choices" in f.metadata:
+            kw["choices"] = _CHOICES.get(f.name, f.metadata.get("choices"))
         p.add_argument("--" + f.name, **kw, help=f"(default: {f.default})")
     for name in not_ported:
         p.add_argument("--" + name, nargs="?", action=_NotPorted,
@@ -142,7 +152,105 @@ def build_parser() -> argparse.ArgumentParser:
         help="serial-vs-concurrent harness: device commands on CUDA "
         "streams (the busy-wait kernel) or in one copy-and-compute kernel",
     ))
+    _add_allreduce_flags(sub.add_parser(
+        "allreduce",
+        help="ring-allreduce miniapp over a rank mesh (pallas: the "
+        "accumulate kernel)",
+    ))
+    m = sub.add_parser("miniapps", help="run every typed variant (≙ ctest)")
+    m.add_argument("--devices", type=int, default=0,
+                   help="ranks (0 = 4, the default world)")
+    m.add_argument("--elements", type=int, default=0,
+                   help="0 = app default")
+    m.add_argument("--reps", type=int, default=3)
+    m.add_argument("--device", choices=_CHOICES["device"], default="cuda")
     return parser
+
+
+def _add_allreduce_flags(p: argparse.ArgumentParser) -> None:
+    from tpu_patterns_torch.miniapps.apps.allreduce import AllreduceConfig
+
+    _add_config_flags(p, AllreduceConfig, _NOT_PORTED_MESH)
+    p.add_argument("--variant", choices=("xla", "pallas"), default="xla")
+    p.add_argument("--devices", type=int, default=0,
+                   help="ranks (0 = one per card) — ≙ mpirun -n N")
+    p.add_argument("--device", choices=_CHOICES["device"], default="cuda")
+
+
+def _world_skip(writer: ResultWriter, pattern: str, mode: str, n: int,
+                reason: str) -> None:
+    """World-size constraints unmet: a SKIPPED Record, as the
+    reference writes."""
+    from tpu_patterns_torch.core.results import Record, Verdict
+
+    writer.record(Record(pattern=pattern, mode=mode,
+                         commands=f"devices={n}", verdict=Verdict.SKIPPED,
+                         notes=[reason]))
+
+
+def _ranks(devices: int, device: str) -> int:
+    """``--devices``: 0 means one rank per card (one on the CPU)."""
+    import torch
+
+    from tpu_patterns_torch.runtime import resolve_device
+
+    dev = resolve_device(device)
+    return devices or (torch.cuda.device_count() if dev.type == "cuda"
+                       else 1)
+
+
+def _allreduce(args, writer: ResultWriter) -> None:
+    from tpu_patterns_torch.comm.mesh import default_mesh
+    from tpu_patterns_torch.miniapps.framework import get_variant
+
+    spec = get_variant("allreduce", args.variant)
+    mode = f"{args.variant}:{args.algorithm}"
+    n = _ranks(args.devices, args.device)
+    if args.require_even_ge4 and (n < 4 or n % 2):
+        _world_skip(
+            writer, "allreduce", mode, n,
+            f"allreduce needs an even world >= 4, have {n} "
+            "(--require_even_ge4 false to override)",
+        )
+        return
+    if args.algorithm == "ring_opt" and args.elements % n:
+        _world_skip(
+            writer, "allreduce", mode, n,
+            f"ring_opt needs elements % world == 0 ({args.elements} % {n})",
+        )
+        return
+    spec.run(
+        mesh=default_mesh(n, args.device),
+        dtype=args.dtype,
+        writer=writer,
+        elements=args.elements,
+        algorithm=args.algorithm,
+        mem_kind=args.mem_kind,
+        reps=args.reps,
+        warmup=args.warmup,
+        tol=args.tol,
+        require_even_ge4=args.require_even_ge4,
+    )
+
+
+def _miniapps(args, writer: ResultWriter) -> None:
+    """Every typed variant once (≙ ctest).  The world defaults to
+    ``DEFAULT_NP`` ranks whatever the card count: the rank mesh places
+    several on a card (the reference takes at most its device count)."""
+    from tpu_patterns_torch.miniapps.framework import (
+        DEFAULT_NP,
+        default_mesh,
+        run_all,
+    )
+
+    n = args.devices or DEFAULT_NP
+    overrides = {}
+    if args.elements:
+        overrides["elements"] = args.elements
+    if n < 4 or n % 2:
+        overrides["require_even_ge4"] = False  # reduced mesh: keep apps runnable
+    run_all(writer=writer, mesh=default_mesh(n, args.device), reps=args.reps,
+            **overrides)
 
 
 def _add_concurrency_flags(p: argparse.ArgumentParser) -> None:
@@ -217,6 +325,9 @@ def _add_p2p_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--block-rows", type=int, default=None,
                    help="streamed: rows per shared-memory stage (default: "
                    "comm/tuned.json, else 1024)")
+    p.add_argument("--devices", type=int, default=0,
+                   help="ranks (0 = one per card) — ≙ mpirun -n N; with "
+                   "more than one, one_sided runs the ring put (K9)")
     p.add_argument("--device", choices=_CHOICES["device"], default="cuda")
     for name in _NOT_PORTED_P2P:
         p.add_argument("--" + name, nargs="?", action=_NotPorted,
@@ -224,35 +335,26 @@ def _add_p2p_flags(p: argparse.ArgumentParser) -> None:
 
 
 def _p2p(args, parser, writer: ResultWriter) -> None:
-    """``tpu-patterns p2p`` on one device: the one-sided local put, or
-    the reference's SKIPPED Record for the pair exchange."""
-    import torch
-
+    """``tpu-patterns p2p``: the one-sided put (the local put on one
+    rank, the ring put over more), or the reference's SKIPPED Record for
+    the pair exchange."""
+    from tpu_patterns_torch.comm.mesh import default_mesh
     from tpu_patterns_torch.comm.onesided import OneSidedConfig, run_onesided
-    from tpu_patterns_torch.core.results import Record, Verdict
-    from tpu_patterns_torch.runtime import resolve_device
 
-    dev = resolve_device(args.device)
-    n = torch.cuda.device_count() if dev.type == "cuda" else 1
+    n = _ranks(args.devices, args.device)
     if args.transport == "two_sided":
         if n >= 2 and n % 2 == 0:
             parser.error("p2p --transport two_sided on more than one device "
                          "is not supported yet (ROADMAP.md)")
-        writer.record(Record(
-            pattern="p2p", mode="two_sided", commands=f"devices={n}",
-            verdict=Verdict.SKIPPED,
-            notes=[f"p2p needs an even device count >= 2, have {n}"],
-        ))
+        _world_skip(writer, "p2p", "two_sided", n,
+                    f"p2p needs an even device count >= 2, have {n}")
         return
     tuned = {k: v for k, v in (("chunks", args.chunks),
                                ("block_rows", args.block_rows))
              if v is not None}
     cfg = OneSidedConfig(kernel=args.put_kernel, **tuned,
                          **{k: getattr(args, k) for k in _P2P_FIELDS})
-    if n > 1:
-        writer.progress(f"{n} devices: the put runs on {dev} alone (the "
-                        "ring put across devices is not ported)")
-    run_onesided(cfg, writer, dev)
+    run_onesided(cfg, writer, mesh=default_mesh(n, args.device))
 
 
 def _config(cls, args):
@@ -277,6 +379,10 @@ def main(argv: list[str] | None = None) -> int:
         _p2p(args, parser, writer)
     elif args.cmd == "concurrency":
         _concurrency(args, writer)
+    elif args.cmd == "allreduce":
+        _allreduce(args, writer)
+    elif args.cmd == "miniapps":
+        _miniapps(args, writer)
     else:
         cfg = _config(FlagshipConfig, args)
         why = unported(cfg)

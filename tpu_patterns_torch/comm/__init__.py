@@ -1,10 +1,14 @@
-"""Communication patterns (counterpart of ``tpu_patterns/comm``); so far
-the one-device one-sided put and what it needs.
+"""Communication patterns (counterpart of ``tpu_patterns/comm``): the
+one-sided puts and the ring over a rank mesh.
 
   dtypes.py     config dtype names -> torch dtypes, itemsize, modulus
   verify.py     shuffled-iota fill and the exact wrapped checksum
-  onesided.py   the four put kernels' wrappers, their plain versions and
-                ``run_onesided`` (csrc/local_put.cu: the kernels)
+  mesh.py       the rank mesh: p ranks in one process over the cards
+  ring.py       ring shift, naive and bandwidth-optimal ring allreduce,
+                the library contrast
+  onesided.py   the four local put kernels' wrappers and the ring put's
+                (K9), their plain versions and ``run_onesided``
+                (csrc/local_put.cu, csrc/ring_put.cu: the kernels)
 """
 
 from tpu_patterns_torch.comm.dtypes import DTYPES, get_dtype  # noqa: F401
@@ -18,5 +22,6 @@ from tpu_patterns_torch.comm.onesided import (  # noqa: F401
     local_put,
     local_put_multi,
     local_put_streamed,
+    ring_put,
     run_onesided,
 )

@@ -1,6 +1,6 @@
-"""One-sided put on one device: the HBM-copy headline.
+"""One-sided puts: the HBM-copy headline on one device, and the ring put.
 
-Counterpart of the one-device path of ``tpu_patterns/comm/onesided.py``.
+Counterpart of ``tpu_patterns/comm/onesided.py``.
 A one-sided put writes a buffer into memory of the device's own with no
 receiver: there, an async DMA fenced by a semaphore wait; here, bulk
 asynchronous copies through shared memory fenced by an mbarrier and a
@@ -21,7 +21,11 @@ On a CUDA tensor each wrapper launches its kernel (counted in its
 path.  :func:`run_onesided` times the schedules and a compiler-free
 contrast (``xla``: ``torch.roll`` by one row, a library op, kept under
 the reference's name) and records the fastest as the put bandwidth.
-The ring put across devices (``ring_put``) is not ported.
+
+Over a rank mesh of more than one rank (``comm/mesh.py``),
+:func:`ring_put` (K9, ``csrc/ring_put.cu``) puts every rank's shard into
+its +1 neighbour's output buffer, and :func:`run_onesided` runs the
+reference's ``ring_put`` mode.
 """
 
 from __future__ import annotations
@@ -35,6 +39,8 @@ import torch
 
 from tpu_patterns_torch.comm import verify
 from tpu_patterns_torch.comm.dtypes import get_dtype
+from tpu_patterns_torch.comm.mesh import RankMesh
+from tpu_patterns_torch.comm.ring import ring_perm, ring_shift
 from tpu_patterns_torch.core import timing
 from tpu_patterns_torch.core.results import Record, ResultWriter, Verdict
 from tpu_patterns_torch.runtime import (
@@ -236,8 +242,87 @@ def local_put_inplace(x: torch.Tensor, chunks: int = 8) -> torch.Tensor:
     return x
 
 
+def _ring_library() -> ctypes.CDLL:
+    """The built K9 library with its C signatures declared."""
+    from tpu_patterns_torch.kernels.build import load
+
+    lib = load("ring_put")
+    if lib.ring_put.argtypes is None:
+        lib.ring_put.restype = ctypes.c_int
+        lib.ring_put.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                 ctypes.c_longlong, ctypes.c_void_p]
+        lib.ring_put_enable_peer.restype = ctypes.c_int
+        lib.ring_put_enable_peer.argtypes = [ctypes.c_int]
+    return lib
+
+
+def _enable_peer(lib: ctypes.CDLL, src: torch.device, dst: torch.device
+                 ) -> None:
+    """Let ``src`` write ``dst``'s memory, or raise: the ring put never
+    stages through the host."""
+    if not torch.cuda.can_device_access_peer(src, dst):
+        raise RuntimeError(f"ring_put: {src} cannot access {dst}'s memory "
+                           "(no peer access)")
+    with torch.cuda.device(src):
+        rc = lib.ring_put_enable_peer(dst.index)
+    if rc != 0:
+        raise RuntimeError(f"ring_put: enabling peer access {src} -> {dst} "
+                           f"failed: CUDA error {rc}")
+
+
+def ring_put_reference(shards: list[torch.Tensor]) -> list[torch.Tensor]:
+    """Plain K9: rank r's shard copied into a fresh buffer of rank
+    (r + 1) % p, the ring shift."""
+    return ring_shift(shards)
+
+
+def ring_put(shards: list[torch.Tensor]) -> list[torch.Tensor]:
+    """One ring-neighbour one-sided put (K9): for every rank r, a launch
+    on r's device copies r's shard into a new output buffer owned by
+    rank (r + 1) % p; returns the outputs in rank order.  The shards
+    share one shape and dtype.  Between cards the sender must have peer
+    access to the receiver (else this raises), and an event recorded
+    after the launch orders the receiver's stream behind it; on one card
+    stream order is the fence."""
+    types = {s.device.type for s in shards}
+    if types == {"cpu"}:
+        return ring_put_reference(shards)
+    if types != {"cuda"}:
+        raise ValueError(f"ring_put: shards on {sorted(types)} together")
+    first = shards[0]
+    for s in shards:
+        _check(s, "ring_put")
+        if s.shape != first.shape or s.dtype != first.dtype:
+            raise ValueError("ring_put: shards differ in shape or dtype")
+    out = [torch.empty_like(s) for s in shards]
+    n_bytes = first.numel() * first.element_size()
+    if n_bytes == 0:
+        return out
+    lib = _ring_library()
+    for src, dst in ring_perm(len(shards)):
+        sdev, ddev = shards[src].device, out[dst].device
+        stream = torch.cuda.current_stream(sdev)
+        if ddev != sdev:
+            _enable_peer(lib, sdev, ddev)
+            ready = torch.cuda.Event()
+            ready.record(torch.cuda.current_stream(ddev))
+            stream.wait_event(ready)
+        with torch.cuda.device(sdev):
+            rc = lib.ring_put(shards[src].data_ptr(), out[dst].data_ptr(),
+                              n_bytes, stream.cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"ring_put kernel launch failed: CUDA error "
+                               f"{rc}")
+        ring_put.launches += 1
+        if ddev != sdev:
+            done = torch.cuda.Event()
+            done.record(stream)
+            torch.cuda.current_stream(ddev).wait_event(done)
+    return out
+
+
 PUT_WRAPPERS = ("local_put", "local_put_streamed", "local_put_multi",
-                "local_put_inplace")
+                "local_put_inplace", "ring_put")
 for _name in PUT_WRAPPERS:
     globals()[_name].launches = 0
 
@@ -320,11 +405,14 @@ def run_onesided(
     cfg: OneSidedConfig | None = None,
     writer: ResultWriter | None = None,
     device: torch.device | str | None = None,
+    mesh: RankMesh | None = None,
 ) -> list[Record]:
-    """One-sided put bandwidth on one device (the reference's
-    ``local_put`` mode): time each candidate schedule as a chain of
-    dependent puts, keep the fastest plausible one, check its output
-    against the expected one, and return one Record.
+    """One-sided put bandwidth.  Over a ``mesh`` of more than one rank,
+    the reference's ``ring_put`` mode (:func:`_run_ring_put`).  Else on
+    one device (``mesh``'s only rank, or ``device``), the ``local_put``
+    mode: time each candidate schedule as a chain of dependent puts,
+    keep the fastest plausible one, check its output against the
+    expected one, and return one Record.
 
     Unlike the reference, a candidate that fails in auto mode raises: a
     kernel that does not build or launch must not vanish behind the
@@ -335,8 +423,10 @@ def run_onesided(
             f"unknown onesided kernel {cfg.kernel!r}; "
             "want auto|streamed|multi|mono|xla|inplace"
         )
-    dev = resolve_device(device)
     writer = writer or ResultWriter()
+    if mesh is not None and mesh.size > 1:
+        return _run_ring_put(cfg, writer, mesh)
+    dev = mesh.devices[0] if mesh is not None else resolve_device(device)
     spec = get_dtype(cfg.dtype)
     rows = max(1, cfg.count // COLS)
     count = rows * COLS
@@ -452,4 +542,67 @@ def run_onesided(
             "the shrunken buffer never left a faster memory tier; grow "
             "count until the working set exceeds the L2 cache"
         )
+    return [writer.record(rec)]
+
+
+def _run_ring_put(cfg: OneSidedConfig, writer: ResultWriter,
+                  mesh: RankMesh) -> list[Record]:
+    """The reference's ``ring_put`` mode: the global fill of ``n x
+    count`` elements split by rank, a chain of dependent ring puts timed
+    on rank 0's stream (every card joined back to it), the bandwidth
+    over all ``n`` puts of a ring step, and the output checked against
+    the global buffer rolled by one shard.  No device-memory
+    plausibility gate: with ranks on other cards the put crosses a
+    link."""
+    n = mesh.size
+    spec = get_dtype(cfg.dtype)
+    rows = max(1, cfg.count // COLS)
+    count = rows * COLS
+    shard_bytes = count * spec.itemsize
+    dev = mesh.devices[0]
+    x = verify.fill_randomly(n * count, cfg.dtype, cfg.seed, dev).reshape(
+        n * rows, COLS)
+    shards = mesh.scatter(x)
+    for d in mesh.cards():
+        timing.device_barrier(d)
+    writer.progress(
+        f"onesided ring_put: {shard_bytes / 1e6:.2f} MB/put, "
+        f"{n} transfer(s), dtype={cfg.dtype}"
+    )
+
+    def build_chain(k: int):
+        def run():
+            timing.unrolled_chain(ring_put, shards, k)
+            mesh.join()
+        return run
+
+    res = timing.measure_chain(build_chain, reps=cfg.reps, warmup=cfg.warmup,
+                               device=dev, ops_per_iter=timing.CHAIN_UNROLL)
+    gbps = res.gbps(shard_bytes * n)
+    out = mesh.gather(ring_put(shards))
+    data_ok = bool(torch.equal(out, torch.roll(x.cpu(), rows, 0)))
+    bw_ok = cfg.min_bandwidth < 0 or gbps >= cfg.min_bandwidth
+    writer.metric("ring_put Bandwidth", gbps, "GB/s")
+    rec = Record(
+        pattern="onesided",
+        mode="ring_put",
+        commands=f"{n}dev x {shard_bytes // 1_000_000}MB",
+        metrics={
+            "bandwidth_GBps": gbps,
+            "min_time_us": res.us(),
+            "bytes_per_put": float(shard_bytes),
+            "checksum_ok": float(data_ok),
+            "timing_converged": float(res.converged),
+        },
+        config={"device_kind": (torch.cuda.get_device_name(dev)
+                                if mesh.on_cuda else "cpu"),
+                "world": n},
+        verdict=Verdict.SUCCESS if data_ok and bw_ok else Verdict.FAILURE,
+    )
+    if note := mesh.note("the puts"):
+        rec.notes.append(note)
+    if note := res.noise_note():
+        rec.notes.append(note)
+    if not data_ok:
+        rec.notes.append("one-sided put data mismatch")
     return [writer.record(rec)]

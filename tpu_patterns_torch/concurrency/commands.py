@@ -144,18 +144,19 @@ def is_managed(t: torch.Tensor) -> bool:
     return kind == CUDA_MEMORY_TYPE_MANAGED
 
 
-def empty_in(kind: MemKind, shape, device: torch.device) -> torch.Tensor:
-    """An uninitialized float32 buffer of ``shape`` in memory ``kind``
+def empty_in(kind: MemKind, shape, device: torch.device,
+             dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """An uninitialized ``dtype`` buffer of ``shape`` in memory ``kind``
     (on the CPU: a plain CPU tensor whatever the kind)."""
     dev = torch.device(device)
     if dev.type == "cpu" or kind is MemKind.M:
-        return torch.empty(shape, dtype=torch.float32)
+        return torch.empty(shape, dtype=dtype)
     if kind is MemKind.H:
-        return torch.empty(shape, dtype=torch.float32, pin_memory=True)
+        return torch.empty(shape, dtype=dtype, pin_memory=True)
     if kind is MemKind.S:
         with torch.cuda.device(dev), torch.cuda.use_mem_pool(_managed_pool()):
-            return torch.empty(shape, dtype=torch.float32, device=dev)
-    return torch.empty(shape, dtype=torch.float32, device=dev)
+            return torch.empty(shape, dtype=dtype, device=dev)
+    return torch.empty(shape, dtype=dtype, device=dev)
 
 
 def place(a: np.ndarray, kind: MemKind, device: torch.device) -> torch.Tensor:

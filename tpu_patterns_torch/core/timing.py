@@ -35,6 +35,14 @@ def device_barrier(device: torch.device | str | None = None) -> None:
         torch.cuda.synchronize(dev)
 
 
+def max_over_processes_s(dt_s: float) -> float:
+    """Max-over-ranks duration (the reference's ``MPI_Allreduce`` with
+    ``MPI_MAX``).  The port runs its ranks in one process (a rank mesh),
+    whose timed window already covers every rank, so this is the
+    identity; the reference gathers over processes here."""
+    return dt_s
+
+
 def cuda_time_ms(
     fn: Callable[[], object],
     reps: int = 20,
