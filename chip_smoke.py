@@ -7,9 +7,11 @@ Run from the root of a checkout.  It imports nothing of JAX or of the
 JAX package, and fails (nonzero exit, no result line) without a CUDA
 device or away from the repository.  It drives the ported paths: the
 serve path (slice A), the flagship train step (slice B), the one-device
-one-sided put (slice C), the concurrency suite (slice D), and the ring
+one-sided put (slice C), the concurrency suite (slice D), the ring
 (the allreduce miniapp and the ring put over a rank mesh of four ranks
-on the one card).  Phases, each one or more printed lines:
+on the one card), and the interop slice (the native C++ module and the
+kernel whose output it reads in place).  Phases, each one or more
+printed lines:
 
 1. device and toolchain: torch/CUDA versions, ``nvcc --version``, and the
    card's name and power limit as ``nvidia-smi`` reports them;
@@ -112,7 +114,25 @@ on the one card).  Phases, each one or more printed lines:
     K9 launches per ring put); the ``allreduce``, ``miniapps`` and ``p2p
     --devices 4`` commands; the pallas ring's device idle share comes
     from the profiling process of phase 10;
-12. the card's name and power limit again, the ``kernels`` line, then
+12. interop: the native module built from the checkout with g++ (the
+    compiler's version, the seconds of a build from scratch, the
+    library the port loads); the kernel K10 (``add_one``, x + 1)
+    against its plain version on the same tensors, bit for bit, at (4,
+    128), 1, 127, 4097 and 2^25 elements, one element into a buffer, on
+    +-0, +-inf and subnormals, and in managed memory, each call
+    launching K10; the typed ops refusing a CUDA tensor; the zero-copy
+    proof, the slice's main path (K10's count set to 0 just before):
+    K10 writes into managed memory, which the C++ checksum reads in
+    place after a synchronize (512 for (4, 128) zeros,
+    ``expected_checksum(n) + n`` for ``fill_randomly(2^20)``), and K10's
+    output in device memory reaches the C++ through
+    ``offload_checksum`` (pinned staging) and ``host_checksum`` inside
+    a ``torch.compile``d program (512 each), 4 K10 launches;
+    ``python -m tpu_patterns_torch interop --device cuda`` (7 Records,
+    modes native and offload:gpu, all SUCCESS, exit 0); K10's time at
+    (4, 128) and 2^25 (L2 flushed) beside its plain version's, one
+    ``torch.add(x, 1.0, out=)`` call's and its byte bound;
+13. the card's name and power limit again, the ``kernels`` line, then
     the device line, which is the last.
 """
 
@@ -1760,6 +1780,204 @@ def phase_ring_cli():
                                  f"{r.stdout}{r.stderr}")
 
 
+# -- phase 12: interop -------------------------------------------------------
+
+# K10: (source, the Pallas body it replaces)
+INTEROP_KERNEL = ("tpu_patterns_torch/interop/csrc/add_one.cu",
+                  "tests/test_interop.py:67")
+K10_PROOF = (4, 128)  # the reference test's block
+K10_FULL = 1 << 25
+
+
+def _wrap32(v: int) -> int:
+    return (v + (1 << 31)) % (1 << 32) - (1 << 31)
+
+
+def phase_native_build(native):
+    """The native module from the checkout's source with g++: the
+    compiler's version, the seconds of one build from scratch (into a
+    temporary directory under build/), and the library the port loads
+    (built at the first clock read)."""
+    import tempfile
+    from pathlib import Path
+
+    cxx = native.find_cxx()
+    version = _run([cxx, "--version"]).splitlines()[0]
+    scratch = os.path.join(ROOT, "build")
+    os.makedirs(scratch, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        t0 = time.perf_counter()
+        native.build_shared_object(native.SOURCE, build_dir=Path(tmp))
+        build_s = time.perf_counter() - t0
+    native.load()
+    emit({"phase": "native_build", "compiler": version, "seconds": build_s,
+          "flags": native.CXX_FLAGS,
+          "library": os.path.relpath(native.NATIVE.path, ROOT)})
+
+
+def phase_add_one_vs_plain(torch, k10, cc, calls):
+    """K10 against its plain version on the same tensors, bit for bit:
+    random float32 at (4, 128), 1, 127, 4097 and 2^25 elements; views one
+    element into a buffer; +-0, +-inf, subnormals and the float32
+    extremes; an input and an output in managed memory.  Every call must
+    launch K10.  Then the typed ops, registered for the CPU alone, must
+    refuse a CUDA tensor."""
+    cases = 0
+
+    def same(name, x, out=None):
+        nonlocal cases
+        before = k10.add_one.launches
+        got = k10.add_one(x, out=out)
+        if k10.add_one.launches != before + 1:
+            raise AssertionError(f"add_one did not launch K10: {name}")
+        cases += 1
+        if not _bits_equal(torch, got, k10.add_one_reference(x)):
+            raise AssertionError(f"add_one differs from its plain version: "
+                                 f"{name}")
+
+    for i, shape in enumerate((K10_PROOF, (1,), (127,), (4097,),
+                               (K10_FULL,))):
+        g = torch.Generator(device=DEVICE).manual_seed(70 + i)
+        same(f"shape {shape}", torch.randn(shape, generator=g, device=DEVICE))
+    for n in (127, 4097):
+        same(f"n={n} one element into a buffer",
+             _ring_input(torch, n, torch.float32, 80 + n, 1))
+    special = torch.tensor(
+        [0.0, -0.0, float("inf"), float("-inf"), 1.4e-45, -1.4e-45, 1e-40,
+         -1e-40, 1.1754942e-38, -1.1754942e-38, -1.0, -0.5, 3.4e38, -3.4e38,
+         1e-8, -1e-8], device=DEVICE)
+    same("+-0, +-inf, subnormals", special)
+    same("specials repeated, 16-byte vectors", special.repeat(257))
+    xs = cc.empty_in(cc.MemKind.S, (4097,), DEVICE)
+    outs = cc.empty_in(cc.MemKind.S, (4097,), DEVICE)
+    if not (cc.is_managed(xs) and cc.is_managed(outs)):
+        raise AssertionError("the S buffers are not managed memory")
+    xs.copy_(_ring_input(torch, 4097, torch.float32, 90))
+    same("managed input and output", xs, out=outs)
+    torch.cuda.synchronize()
+    x = torch.ones(8, device=DEVICE)
+    refused = []
+    for name, call in (
+            ("ffi_checksum", lambda: calls.ffi_checksum(x)),
+            ("ffi_saxpy", lambda: calls.ffi_saxpy(2.0, x, x)),
+            ("tp::clock_ns", lambda: torch.ops.tp.clock_ns(x.device))):
+        try:
+            call()
+        except RuntimeError:  # NotImplementedError is one
+            refused.append(name)
+            continue
+        raise AssertionError(f"{name} ran on a CUDA tensor")
+    emit({"phase": "add_one_vs_plain", "cases": cases, "bit_exact": True,
+          "memory": ["device", "managed"], "cuda_refused": refused})
+    return cases
+
+
+def phase_interop_proof(torch, k10, calls, native, cc):
+    """The slice's main path, the zero-copy proof on the card, with
+    K10's count set to 0 just before and read just after:
+    K10 writes its output into managed memory (checked managed), and
+    after a synchronize ``tp_checksum_f32_direct`` reads it in place
+    through ``data_ptr()``: 4 x 128 for (4, 128) zeros, and
+    ``expected_checksum(n) + n`` for ``fill_randomly(2^20)``; K10's
+    output in device memory reaches the C++ through ``offload_checksum``
+    (staged into pinned memory) and through ``host_checksum`` inside a
+    ``torch.compile``d program, each reading 512.  Returns K10's
+    launches (4)."""
+    from tpu_patterns_torch.comm.verify import expected_checksum, fill_randomly
+
+    lib = native.load()
+    n = 1 << 20
+    want = {"managed zeros": 4 * 128,
+            "managed fill_randomly 2^20": _wrap32(expected_checksum(n) + n),
+            "offload_checksum": 4 * 128, "compiled host_checksum": 4 * 128}
+    t0 = time.perf_counter()
+    prog = torch.compile(lambda t: calls.host_checksum(t), fullgraph=True,
+                         backend="aot_eager")
+    k10.reset_launches()
+    got = {}
+    for name, x in (("managed zeros", torch.zeros(K10_PROOF, device=DEVICE)),
+                    ("managed fill_randomly 2^20",
+                     fill_randomly(n, "float32", seed=4, device=DEVICE))):
+        out = cc.empty_in(cc.MemKind.S, x.shape, DEVICE)
+        if not cc.is_managed(out):
+            raise AssertionError("the proof's output is not managed memory")
+        k10.add_one(x, out=out)
+        torch.cuda.synchronize()  # before the host reads managed memory
+        got[name] = lib.tp_checksum_f32_direct(out.data_ptr(), out.numel())
+    y = k10.add_one(torch.zeros(K10_PROOF, device=DEVICE))
+    if not calls.stage_to_host(y).is_pinned():
+        raise AssertionError("offload staging is not pinned host memory")
+    off = calls.offload_checksum(y)
+    if off.device.type != "cuda":
+        raise AssertionError(f"offload_checksum returned on {off.device}")
+    got["offload_checksum"] = int(off[0])
+    got["compiled host_checksum"] = int(
+        prog(k10.add_one(torch.zeros(K10_PROOF, device=DEVICE)))[0])
+    launches = k10.add_one.launches
+    emit({"phase": "interop_proof", "checksums": got, "want": want,
+          "add_one_launches": launches, "seconds": time.perf_counter() - t0})
+    if got != want or launches != 4:
+        raise AssertionError(f"interop proof: {got} (want {want}), K10 "
+                             f"launches {launches} (want 4)")
+    return launches
+
+
+def phase_interop_cli():
+    """``python -m tpu_patterns_torch interop --device cuda`` in a
+    process of its own: 7 Records, modes native and offload:gpu, all
+    SUCCESS, exit 0."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        jl = os.path.join(tmp, "interop.jsonl")
+        r = subprocess.run(
+            [sys.executable, "-m", "tpu_patterns_torch", "--jsonl", jl,
+             "interop", "--device", "cuda"],
+            cwd=ROOT, capture_output=True, text=True, timeout=300)
+        recs = ([json.loads(ln) for ln in open(jl) if ln.strip()]
+                if os.path.exists(jl) else [])
+    got = sorted((r_["mode"], r_["commands"], r_["verdict"]) for r_ in recs)
+    emit({"phase": "interop_cli", "rc": r.returncode, "records": got,
+          "seconds": time.perf_counter() - t0})
+    if (r.returncode != 0 or len(got) != 7
+            or {m for m, _, _ in got} != {"native", "offload:gpu"}
+            or any(v != "SUCCESS" for _, _, v in got)):
+        raise AssertionError(f"interop CLI: rc {r.returncode}, {got}: "
+                             f"{r.stdout}{r.stderr}")
+
+
+def phase_add_one_time(torch, k10, timing, spec):
+    """K10's ms per launch, L2 flushed before each, at the proof's (4,
+    128) and at 2^25 float32, beside its plain version's, one
+    ``torch.add(x, 1.0, out=)`` call's and its byte bound (each element
+    read once and written once: 8 bytes).  At (4, 128) a launch's
+    latency, not the bytes, bounds the time.  Returns the 2^25 row."""
+    flush = torch.empty(64 << 20, dtype=torch.int32, device=DEVICE)
+    rows = {}
+    for i, shape in enumerate((K10_PROOF, (K10_FULL,))):
+        g = torch.Generator(device=DEVICE).manual_seed(100 + i)
+        x = torch.randn(shape, generator=g, device=DEVICE)
+        out = torch.empty_like(x)
+
+        def t(fn):
+            return timing.cuda_time_ms(fn, reps=20, warmup=3,
+                                       before=flush.zero_)
+
+        rows["x".join(map(str, shape))] = {
+            "ms": t(lambda: k10.add_one(x, out=out)),
+            "plain_ms": t(lambda: k10.add_one_reference(x)),
+            "library_ms": t(lambda: torch.add(x, 1.0, out=out)),
+            "bound_ms": 2 * x.numel() * 4 / (spec["hbm_gbps"] * 1e9) * 1e3,
+            "bound_by": "bytes",
+        }
+    rows["4x128"]["note"] = ("the launch latency bounds this size; the byte "
+                             "bound is far below one launch")
+    emit({"phase": "add_one_time", "shape": "float32, per launch, L2 "
+          "flushed", "library": "torch.add(x, 1.0, out=o)", **rows})
+    return rows[str(K10_FULL)]
+
+
 def profile_concurrency_main() -> int:
     """``python3 chip_smoke.py --profile-concurrency``, which the smoke
     runs in a process of its own: the xla concurrent "C C" run, the
@@ -1844,6 +2062,8 @@ def main() -> int:
     from tpu_patterns_torch.concurrency import harness as ch
     from tpu_patterns_torch.concurrency import kernels as ck
     from tpu_patterns_torch.core import timing
+    from tpu_patterns_torch.interop import calls, native
+    from tpu_patterns_torch.interop import kernel as k10
     from tpu_patterns_torch.kernels import build
     from tpu_patterns_torch.longctx import flash as F
     from tpu_patterns_torch.longctx import tuning
@@ -1942,6 +2162,12 @@ def main() -> int:
     rp_launches = phase_onesided_ring(torch, op, fw)
     phase_ring_cli()
 
+    phase_native_build(native)
+    phase_add_one_vs_plain(torch, k10, cc, calls)
+    k10_launches = phase_interop_proof(torch, k10, calls, native, cc)
+    phase_interop_cli()
+    k10_time = phase_add_one_time(torch, k10, timing, spec)
+
     # launches: K1 in the timed serve run, K3 and K4 in the flagship
     # run, K2 in the no-grad forward (each count set to 0 just before)
     launches = {**flag["kernel"]["launches"],
@@ -2004,6 +2230,17 @@ def main() -> int:
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
         })
+    # launches: K10 on the interop proof path (managed memory, offload,
+    # host_checksum compiled); its times at 2^25 float32
+    source, replaces = INTEROP_KERNEL
+    kernels.append({
+        "name": "add_one", "route": "cuda", "source": source,
+        "replaces": replaces, "launches": k10_launches,
+        "max_abs_err": 0.0, "bit_exact": True, "ms": k10_time["ms"],
+        "plain_ms": k10_time["plain_ms"], "bound_ms": k10_time["bound_ms"],
+        "bound_by": k10_time["bound_by"],
+        "library_ms": k10_time["library_ms"],
+    })
     # the card's name and power limit again, beside the numbers, where a
     # tail of the output still holds them
     emit(_run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -45,6 +45,7 @@ def test_import_pulls_no_jax():
         "import tpu_patterns_torch.concurrency\n"
         "import tpu_patterns_torch.miniapps, tpu_patterns_torch.comm.ring\n"
         "import tpu_patterns_torch.miniapps.apps.allreduce.pallas\n"
+        "import tpu_patterns_torch.interop, tpu_patterns_torch.interop.kernel\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'tpu_patterns')]\n"
         "assert not bad, bad\n"
@@ -105,6 +106,7 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
         lambda: cli.main(["miniapps"]),
         lambda: cli.main(["p2p", "--transport", "one_sided", "--devices",
                           "4"]),
+        lambda: cli.main(["interop"]),
     ):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()

@@ -8,7 +8,8 @@ each TPU kernel on a ported path is a kernel written by hand for Hopper
 
   runtime.py        device resolution (cuda, or cpu only when asked) and
                     the card's datasheet spec table
-  core/             clocks and CUDA-event timing; Records and markers
+  core/             the native clock and CUDA-event timing; Records and
+                    markers
   models/           params, q/k/v, RoPE, int8 KV, MLP, attention, the
                     dense per-request decoder (the exactness oracle), the
                     one-device train step and the flagship workload
@@ -30,9 +31,17 @@ each TPU kernel on a ported path is a kernel written by hand for Hopper
                     memory kinds, streams and dispatch (xla), the
                     busy-wait kernel K6 and the copy-and-compute kernel K7
                     (concurrency/csrc/), the harness
+  interop/          the native C++ module (interop/csrc/
+                    tpu_patterns_native.cc, built with g++ into
+                    build/torch_native/ at first use; the host clock of
+                    core/timing.py), its typed custom ops, the raw DLPack
+                    probe, host staging from the card, and the kernel K10
+                    (interop/csrc/add_one.cu) whose output the C++ reads
+                    in place
   kernels/build.py  nvcc build of every ``*.cu`` into build/torch_kernels/
   convert.py        numpy params/pools/fills from the JAX package ->
                     tensors (and params/grads back, as numpy)
   cli.py            ``python -m tpu_patterns_torch
-                    serve|flagship|p2p|concurrency|allreduce|miniapps``
+                    serve|flagship|p2p|concurrency|allreduce|miniapps|
+                    interop``
 """

@@ -11,6 +11,7 @@
         --variant pallas --algorithm ring_opt
     python -m tpu_patterns_torch miniapps --device cuda --devices 4
     python -m tpu_patterns_torch p2p --transport one_sided --devices 4
+    python -m tpu_patterns_torch interop --device cuda
 
 One flag per field of the subcommand's config
 (:class:`~tpu_patterns_torch.serve.engine.ServeConfig`,
@@ -24,7 +25,9 @@ put uses (:class:`~tpu_patterns_torch.comm.onesided.OneSidedConfig`,
 ``concurrency`` those of ``tpu-patterns concurrency``
 (:class:`~tpu_patterns_torch.concurrency.harness.ConcurrencyConfig`,
 repeatable ``--commands``, ``--no_tuning``); ``allreduce`` and
-``miniapps`` those of ``tpu-patterns allreduce`` and ``miniapps``.
+``miniapps`` those of ``tpu-patterns allreduce`` and ``miniapps``;
+``interop`` (the native C++ round trips, no flag of the reference's) only
+``--device``.
 ``--devices N`` is the rank count (≙ ``mpirun -n N``, 0 = one rank per
 card): the ranks of a rank mesh (``comm/mesh.py``) are placed over the
 visible cards, several to a card when there are fewer cards.  A
@@ -164,6 +167,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="0 = app default")
     m.add_argument("--reps", type=int, default=3)
     m.add_argument("--device", choices=_CHOICES["device"], default="cuda")
+    i = sub.add_parser("interop", help="native C++ round-trip proofs")
+    i.add_argument("--device", choices=_CHOICES["device"], default="cuda",
+                   help="device of the offload round trips (the native "
+                   "ones run on CPU tensors)")
     return parser
 
 
@@ -251,6 +258,55 @@ def _miniapps(args, writer: ResultWriter) -> None:
         overrides["require_even_ge4"] = False  # reduced mesh: keep apps runnable
     run_all(writer=writer, mesh=default_mesh(n, args.device), reps=args.reps,
             **overrides)
+
+
+def _interop(args, writer: ResultWriter) -> None:
+    """Native-interop round trips (≙ running the two interop binaries),
+    with the reference's Records (``tpu_patterns/cli.py:778-850``): the
+    typed and raw depths on CPU tensors (mode ``native``), then the host
+    offload depths on the run's device (mode ``offload:gpu`` on the
+    card, ``offload:cpu`` with ``--device cpu``)."""
+    import torch
+
+    from tpu_patterns_torch.core.results import Record, Verdict
+    from tpu_patterns_torch.interop import calls, native
+    from tpu_patterns_torch.runtime import resolve_device
+
+    dev = resolve_device(args.device)
+    if not native.available():
+        writer.record(Record(
+            pattern="interop", mode="native", verdict=Verdict.SKIPPED,
+            notes=[f"native module unavailable: {native.build_error()}"]))
+        return
+
+    def record(mode: str, checks: dict[str, bool]) -> None:
+        for name, ok in checks.items():
+            writer.record(Record(
+                pattern="interop", mode=mode, commands=name,
+                verdict=Verdict.SUCCESS if ok else Verdict.FAILURE))
+
+    x = torch.arange(256, dtype=torch.float32)
+    y = torch.ones(256, dtype=torch.float32)
+    record("native", {
+        "clock": int(calls.ffi_clock_ns()[0]) > 0,
+        "checksum": int(calls.ffi_checksum(x)[0]) == 255 * 256 // 2,
+        "saxpy": torch.allclose(calls.ffi_saxpy(2.0, x, y), 2.0 * x + y),
+        "raw_info": int(calls.raw_info(x)[3]) == 1,  # one tensor
+    })
+
+    dx, dy = x.to(dev), y.to(dev)
+    want = (2.0 * x + y).to(dev)
+    checks = {
+        "offload_checksum": int(calls.offload_checksum(dx)[0])
+        == 255 * 256 // 2,
+        "offload_saxpy": torch.allclose(calls.offload_saxpy(2.0, dx, dy),
+                                        want),
+    }
+    if calls.supports_host_callbacks(str(dev)):
+        prog = torch.compile(lambda a, b: calls.host_saxpy(2.0, a, b),
+                             fullgraph=True, backend="aot_eager")
+        checks["host_callback_saxpy"] = torch.allclose(prog(dx, dy), want)
+    record(f"offload:{'gpu' if dev.type == 'cuda' else 'cpu'}", checks)
 
 
 def _add_concurrency_flags(p: argparse.ArgumentParser) -> None:
@@ -383,6 +439,8 @@ def main(argv: list[str] | None = None) -> int:
         _allreduce(args, writer)
     elif args.cmd == "miniapps":
         _miniapps(args, writer)
+    elif args.cmd == "interop":
+        _interop(args, writer)
     else:
         cfg = _config(FlagshipConfig, args)
         why = unported(cfg)

@@ -1,8 +1,12 @@
 """Clocks, the device barrier and CUDA-event timing.
 
-The host clock times host-visible work (a request, a serve run) that
-ends in a device barrier; a kernel's time comes from CUDA events around
-its launches, since PyTorch returns before the device finishes.
+The host clock is the native module's ``CLOCK_MONOTONIC``
+(``interop/native.py``, built at first use), as the reference's is
+(``tpu_patterns/core/timing.py:28-51``); a failed build raises and no
+other clock is taken.  It times host-visible work (a request, a serve
+run) that ends in a device barrier; a kernel's time comes from CUDA
+events around its launches, since PyTorch returns before the device
+finishes.
 ``measure_chain`` times a chain of dependent ops (train steps, puts) as
 the reference's does, with CUDA events in place of its fetch round trip.
 """
@@ -15,10 +19,12 @@ from typing import Callable
 
 import torch
 
+from tpu_patterns_torch.interop import native
+
 
 def clock_ns() -> int:
-    """Monotonic nanoseconds for durations."""
-    return time.perf_counter_ns()
+    """Monotonic nanoseconds for durations, from the native clock."""
+    return native.clock_ns()
 
 
 def wall_time_s() -> float:
