@@ -16,7 +16,11 @@ printed lines:
 1. device and toolchain: torch/CUDA versions, ``nvcc --version``, and the
    card's name and power limit as ``nvidia-smi`` reports them;
 2. build: every kernel compiled from the checkout's sources with nvcc,
-   one process per source, all at once;
+   one process per source, all at once; then the ``kernel_build`` line:
+   each instance of the redesigned kernels (the bf16 wgmma forward of
+   K2/K3, the all-SM mono put K8a) with its registers, spills, static
+   and dynamic shared memory from ``-Xptxas -v`` and whether ptxas
+   serialized its wgmma products;
 3. K1 vs plain: the paged-attention kernel against its plain torch
    version on the card, for f32, bf16 and int8 pools, W=1 and W=4,
    G=1 and G=4, ragged pos0, TRASH pages, an inactive and an all-TRASH
@@ -30,11 +34,14 @@ printed lines:
    offsets (0,0,1), (16,32,1), (2,5,8), Lq != Lk, wholly masked rows,
    and the flagship's shape (32 folded heads x 4096 x 128, bf16,
    causal), where two runs must also agree bit for bit and the tile
-   model must equal the kernels' own shared-memory sizes; then each
+   model must equal the kernels' own shared-memory sizes; the bf16
+   forward also at lengths that are no multiple of its tile (K3 and K2,
+   Lq/Lk 100/200, 130/130, 40/72); then each
    flash kernel's time at that shape (L2 flushed) beside its plain
    version's, one SDPA call's (forward for K2/K3, its backward for K4)
    and its bound (bytes over 3.35 TB/s or visible-key flops over 989
-   TFLOP/s), and the forward and backward at other tile pairs that fit;
+   TFLOP/s), the forward at every tile pair its bf16 kernel takes and
+   the backward at other tile pairs that fit;
 5. serve at full width in bf16 (embed 1024, 8 heads x 128, depth 4,
    vocab 2048): 16 requests, prompts 64-512, 64 generated tokens, 8
    slots, block_len 16, attention through K1; continuous and sequential
@@ -59,9 +66,11 @@ printed lines:
    ``attention_reference`` (loss and every parameter's update), and one
    ``forward_shard`` under ``torch.no_grad``, which launches K2 once
    and matches the dense forward;
-9. the one-sided put: the four put kernels K8a-K8d against their plain
-   versions, bit for bit, on float32, bfloat16, int32 and int8 at edge
-   shapes (0, 1, 2 and 97 rows, chunks above the row count, trailing
+9. the one-sided put: K8a's span on this card against its Python
+   mirror (``onesided.mono_span``); the four put kernels K8a-K8d
+   against their plain versions, bit for bit, on float32, bfloat16,
+   int32 and int8 at edge shapes (0, 1, 2 and 97 rows, chunks above the
+   row count, trailing
    dimensions of 100, 37 and 1001 elements, inputs one element into a
    buffer)
    and at the full 92,160 x 512 float32 buffer; each kernel's time there
@@ -69,6 +78,9 @@ printed lines:
    then ``run_onesided`` at the reference's message size in auto mode
    (SUCCESS, checksum and plausibility gates, the launches of streamed,
    multi and inplace) and with ``kernel="mono"``, and the ``p2p`` CLI;
+   then the ``redesign`` line: K3's, K2's and K8a's ms beside their
+   times before the redesign (PERF.md's 4.485, 4.539 and 4.023 ms),
+   their library call's and their bound;
 10. the concurrency suite: the busy-wait kernel K6 against its plain
     version bit for bit (rows 1, 3, 8, 9, 64 at 0-4000 trips), the
     copy-and-compute kernel K7 likewise in
@@ -140,8 +152,10 @@ from __future__ import annotations
 
 import dataclasses
 import io
+import itertools
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -186,6 +200,15 @@ PUT_KERNELS = {  # wrapper -> the Pallas body it replaces
     "local_put_inplace": "tpu_patterns/comm/onesided.py:175",
 }
 PUT_FULL = (92160, 512)  # the reference's message size as rows x cols
+# The redesigned kernels' times before their redesign (PERF.md's kernel
+# table, measured by this script on NVIDIA H100 80GB HBM3, 700.00 W),
+# set beside this run's
+REDESIGNED_BEFORE_MS = {"flash_block": 4.485, "flash_attention": 4.539,
+                        "local_put": 4.023}
+# kernel library -> the kernels redesigned for the card whose -Xptxas -v
+# report the kernel_build line carries
+REDESIGNED_LIBS = {"flash_attention": "flash_fwd_wgmma_kernel",
+                   "local_put": "local_put_mono_kernel"}
 
 
 def emit(obj) -> None:
@@ -195,6 +218,46 @@ def emit(obj) -> None:
 def _run(cmd: list[str]) -> str:
     return subprocess.run(cmd, capture_output=True, text=True, timeout=60,
                           check=True).stdout
+
+
+def ptxas_report(log: str, prefix: str) -> dict:
+    """Registers, spills and static shared memory of each kernel whose
+    name starts with ``prefix`` in an ``nvcc -Xptxas -v`` log, and
+    whether ptxas serialized its wgmma products (C7513).  The wgmma
+    forward's instances are named by their template arguments (D,
+    block_k, consumer warpgroups)."""
+    out, cur, serialized = {}, None, set()
+    for ln in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?(\w+)'?", ln)
+        if m:
+            cur = m.group(1) if prefix in m.group(1) else None
+            if cur and cur not in out:
+                out[cur] = {"wgmma_serialized": False}
+            continue
+        m = re.search(r"wgmma.*serialized.*function '(\w+)'", ln)
+        if m:
+            serialized.add(m.group(1))
+        if cur is None:
+            continue
+        for key, pat in (("registers", r"Used (\d+) registers"),
+                         ("spill_stores", r"(\d+) bytes spill stores"),
+                         ("spill_loads", r"(\d+) bytes spill loads"),
+                         ("static_smem", r"(\d+) bytes smem")):
+            m = re.search(pat, ln)
+            if m:
+                out[cur][key] = int(m.group(1))
+
+    for name in serialized & out.keys():
+        out[name]["wgmma_serialized"] = True
+
+    def pretty(name):
+        t = re.search(r"ILi(\d+)ELi(\d+)ELi(\d+)E", name)
+        if t:
+            return (f"{prefix}<D={t.group(1)},BK={t.group(2)},"
+                    f"NC={t.group(3)}>")
+        return prefix
+    return {pretty(n): r for n, r in out.items()}
 
 
 # -- phase 3: the kernel against its plain version ---------------------------
@@ -442,6 +505,37 @@ def flash_case(torch, F, name, *, lq, lk, h, d, dtype, causal, q_off=0,
     return errs, (q, k, v, do, lse, delta)
 
 
+def flash_fwd_ragged(torch, F):
+    """The bf16 forward at lengths that are no multiple of its tile (its
+    TMA boxes read zeros past the end, it masks keys past Lk and stores
+    no row past Lq): K3 and K2 against their plain versions at
+    FLASH_TOL, causal and not, D 64 and 128.  Returns the worst
+    relative error of each."""
+    worst = {"flash_block": 0.0, "flash_attention": 0.0}
+    for i, (lq, lk, d, causal) in enumerate((
+            (100, 200, 128, True), (100, 200, 64, False),
+            (130, 130, 128, True), (40, 72, 64, True))):
+        g = torch.Generator().manual_seed(200 + i)
+        q, k, v = (torch.randn((n, 3, d), generator=g).to(DEVICE,
+                                                          torch.bfloat16)
+                   for n in (lq, lk, lk))
+        o, m, l = F.flash_block(q, k, v, 0, 0, causal=causal)
+        ro, rm, rl = F.flash_block_reference(q, k, v, 0, 0, causal)
+        out = F.flash_attention(q, k, v, causal=causal)
+        errs = {"flash_block": max(_rel(o, ro)[0], _rel(m, rm)[0],
+                                   _rel(l, rl)[0]),
+                "flash_attention": _rel(
+                    out, F.flash_attention_reference(q, k, v, causal))[0]}
+        for n, r in errs.items():
+            worst[n] = max(worst[n], r)
+    torch.cuda.synchronize()
+    bad = {n: r for n, r in worst.items() if not r <= FLASH_TOL["bfloat16"]}
+    if bad:
+        raise AssertionError(f"ragged bf16 forward past "
+                             f"{FLASH_TOL['bfloat16']}: {bad}")
+    return worst
+
+
 def phase_flash_kernels(torch, F, tuning):
     """Every case of phase 4; returns per-kernel max abs error and the
     flagship-shape inputs."""
@@ -483,6 +577,7 @@ def phase_flash_kernels(torch, F, tuning):
         err[n] = max(err[n], a)
         worst[n] = max(worst[n], r)
     q, k, v, do, lse, delta = inputs
+    ragged = flash_fwd_ragged(torch, F)
     # no atomics: a second run gives the same bits
     again = (F.flash_block(q, k, v, 0, 0, causal=True),
              F.flash_block_bwd(q, k, v, do, lse, delta, causal=True,
@@ -510,7 +605,8 @@ def phase_flash_kernels(torch, F, tuning):
           "max_rel_err_by_dtype": by_dtype,
           "max_abs_err": err, "flagship_rel_err": {
               n: r for n, (r, _) in errs.items()},
-          "flagship_bitwise_repeat": bitwise, "tiles_fwd": fwd_t,
+          "flagship_bitwise_repeat": bitwise,
+          "ragged_fwd_rel_err": ragged, "tiles_fwd": fwd_t,
           "tiles_bwd": bwd_t, "smem_model_vs_kernel": model})
     if not bitwise:
         raise AssertionError("flash kernels: two runs differ in bits")
@@ -581,9 +677,10 @@ def phase_flash_time(torch, F, timing, spec, inputs, fwd_t, bwd_t):
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         }
-    # other tile pairs that fit, for the tuning of a later change
+    # every tile pair the bf16 forward takes (the default, the 1024 x
+    # 1024 request's, is the largest), and other backward pairs that fit
     sweep = {"fwd": {}, "bwd": {}}
-    for tiles in ((64, 128), (128, 64), (64, 64), (32, 64), (32, 32)):
+    for tiles in itertools.product(F.FWD_BF16_SIDES, repeat=2):
         sweep["fwd"][str(tiles)] = t(lambda tiles=tiles: F._launch_fwd(
             q, k, v, 0, 0, True, d**-0.5, *tiles, 1, emit_stats=True))
     for tiles in ((64, 64), (32, 64), (64, 32), (32, 32)):
@@ -803,8 +900,8 @@ def phase_flagship_profile(torch, timing, fl, tr, unprofiled_step_s):
     busy_s = sum(dev_us(e) for e in events) / 1e6
     if busy_s <= 0:
         raise AssertionError("the flagship profile holds no device time")
-    share = {}
-    for key in ("flash_fwd_kernel", "flash_bwd_dq_kernel",
+    share = {}  # the flagship is bf16: its forward is the wgmma kernel
+    for key in ("flash_fwd_wgmma_kernel", "flash_bwd_dq_kernel",
                 "flash_bwd_dkv_kernel"):
         share[key] = sum(dev_us(e) for e in events if key in e.key) / 1e6 \
             / busy_s
@@ -890,6 +987,14 @@ def phase_put_vs_plain(torch, op):
     if lib.local_put_stage_bytes() != op.STAGE_BYTES:
         raise AssertionError("local_put.cu STAGE_BYTES differs from "
                              "onesided.STAGE_BYTES")
+    # K8a's plan: the kernel's span is its Python mirror's, on this card
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan_ns = (1, 15, 16, 17, 4096, 16385, 1_000_003,
+               PUT_FULL[0] * PUT_FULL[1] * 4)
+    spans = {n: lib.local_put_mono_span(n, sms) for n in plan_ns}
+    if any(spans[n] != op.mono_span(n, sms) for n in plan_ns):
+        raise AssertionError(f"local_put.cu mono_span differs from "
+                             f"onesided.mono_span: {spans}")
     cases = 0
 
     def same(name, got, want):
@@ -932,7 +1037,8 @@ def phase_put_vs_plain(torch, op):
     torch.cuda.synchronize()
     emit({"phase": "put_vs_plain", "cases": cases, "bit_exact": True,
           "dtypes": [str(d) for d in dtypes], "shapes": [*shapes, PUT_FULL],
-          "stage_bytes": op.STAGE_BYTES})
+          "stage_bytes": op.STAGE_BYTES, "sms": sms,
+          "mono_span_by_bytes": spans})
     return cases
 
 
@@ -2047,6 +2153,33 @@ def profile_concurrency_main() -> int:
     return 0
 
 
+def phase_kernel_build(torch, libs, F, op):
+    """The redesigned kernels as built: each instance's registers,
+    spills and static shared memory from ``-Xptxas -v``, whether ptxas
+    serialized its wgmma products, and the dynamic shared memory it
+    launches with (the wgmma forward's from its library, the mono put's
+    at the full buffer on this card)."""
+    report = {}
+    for lib, prefix in REDESIGNED_LIBS.items():
+        report.update(ptxas_report(
+            libs[lib].with_suffix(".log").read_text(), prefix))
+    lib_f = F._library("flash_attention")
+    for name, row in report.items():
+        t = re.search(r"D=(\d+),BK=(\d+),NC=(\d+)", name)
+        if t:
+            d, bk, nc = map(int, t.groups())
+            row["dynamic_smem"] = lib_f.flash_fwd_smem_bytes(2, 64 * nc, bk,
+                                                             d)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    n = PUT_FULL[0] * PUT_FULL[1] * 4
+    span = op.mono_span(n, sms)
+    # bulk_copy.cuh: 128 B of mbarriers and two stages of the span
+    report["local_put_mono_kernel"].update(
+        dynamic_smem=128 + 2 * min(span, op.STAGE_BYTES),
+        blocks=-(-n // span), span_bytes=span)
+    emit({"phase": "kernel_build", "kernels": report})
+
+
 def main() -> int:
     import torch
 
@@ -2103,6 +2236,7 @@ def main() -> int:
     emit({"phase": "build", "seconds": build_s,
           "libs": {n: os.path.relpath(p, ROOT) for n, p in libs.items()},
           "ptxas": ptxas})
+    phase_kernel_build(torch, libs, F, op)
 
     kres, ktime = phase_kernels(torch, pk, timing, spec)
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions
@@ -2142,6 +2276,17 @@ def main() -> int:
     phase_put_vs_plain(torch, op)
     ptime = phase_put_time(torch, op, timing, spec)
     puts = phase_onesided(torch, op)
+    emit({"phase": "redesign", "card": smi,
+          "note": "ms_before: PERF.md's kernel table before the redesign "
+          "(this script, same card and power limit)",
+          **{name: {"ms": rows[name]["ms"], "ms_before": before,
+                    "speedup": before / rows[name]["ms"],
+                    "library_ms": rows[name]["library_ms"],
+                    "bound_ms": rows[name]["bound_ms"],
+                    "over_library": rows[name]["ms"]
+                    / rows[name]["library_ms"]}
+             for name, before in REDESIGNED_BEFORE_MS.items()
+             for rows in ((ftime if name in ftime else ptime),)}})
 
     phase_busy_wait_vs_plain(torch, ck)
     phase_dma_compute_vs_plain(torch, cb)

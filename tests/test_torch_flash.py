@@ -264,9 +264,10 @@ def test_tile_fit_and_tuned_defaults(tmp_path):
     """The shared-memory ladder: the largest pair <= the request that
     fits 227 KB in every kernel it serves, halving the larger side."""
     budget = tuning.H100_SMEM_OPTIN
-    # the flagship's bf16 D=128 tiles from the 1024 x 1024 request
+    # the flagship's bf16 D=128 tiles from the 1024 x 1024 request: the
+    # wgmma forward's largest, two consumer warpgroups by 128 keys
     assert tuning._auto_block(4096, 4096, 128, 2, ("fwd",), 1024,
-                              1024) == (64, 128)
+                              1024) == (128, 128)
     assert tuning._auto_block(4096, 4096, 128, 2, ("dq", "dkv"), 1024,
                               1024) == (64, 64)
     for kinds in (("fwd",), ("dq", "dkv")):
@@ -287,3 +288,31 @@ def test_tile_fit_and_tuned_defaults(tmp_path):
     path = tmp_path / "flash_tuned.json"
     path.write_text('{"block_q": 256, "block_k": 512}')
     assert tuning.load_tuned_blocks(str(path)) == (256, 512)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_bf16_forward_tiles_fit_and_mask_ragged_edges(d):
+    """Every tile pair the bf16 forward's ladder can return fits 227 KB
+    at D 64 and 128; its sides are 64 or 128, the largest <= the
+    request that divides the length, else 64 (the kernel masks the
+    ragged edge, so the wrapper does not refuse it)."""
+    budget = tuning.H100_SMEM_OPTIN
+    got = set()
+    for lq in (16, 64, 100, 192, 256, 4096):
+        for lk in (16, 64, 100, 192, 256, 4096):
+            for req in (16, 64, 100, 128, 1024):
+                bq, bk = tuning._auto_block(lq, lk, d, 2, ("fwd",), req, req)
+                assert bq in tuning.FWD_BF16_SIDES
+                assert bk in tuning.FWD_BF16_SIDES
+                assert (bq == 64 or (bq <= req and lq % bq == 0))
+                assert (bk == 64 or (bk <= req and lk % bk == 0))
+                got.add((bq, bk))
+    assert got == {(a, b) for a in tuning.FWD_BF16_SIDES
+                   for b in tuning.FWD_BF16_SIDES}
+    for bq, bk in got:
+        assert tuning.smem_bytes("fwd", bq, bk, d, 2) <= budget
+    # a ragged bf16 forward runs (on the CPU, its plain version)
+    q = _t(_np(5, (100, 2, d))).to(torch.bfloat16)
+    k = _t(_np(6, (200, 2, d))).to(torch.bfloat16)
+    o, m, l = tflash.flash_block(q, k, k, 0, 0, causal=True)
+    assert o.shape == (100, 2, d) and m.shape == l.shape == (2, 100)

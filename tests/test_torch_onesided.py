@@ -130,6 +130,31 @@ def test_streamed_tile_fits_one_stage():
         assert got == 1 or got * rb <= to.STAGE_BYTES
 
 
+@pytest.mark.parametrize("n", [0, 1, 15, 16, 188_743_680, 1_000_003])
+def test_mono_plan_spans_cover_once_aligned_and_balanced(n):
+    """K8a's plan on an H100 (132 SMs): one span per block that covers
+    [0, n) exactly once, every span but the last starting 16-byte
+    aligned, at most one block per SM, and no two spans differing by
+    more than one stage (the kernel's stage: the span rounded up to 16
+    bytes, at most STAGE_BYTES).  188,743,680 bytes is the reference's
+    message; 1,000,003 is prime."""
+    sms = 132
+    spans = to.mono_spans(n, sms)
+    assert len(spans) <= sms
+    pos = 0
+    for start, stop in spans:
+        assert start == pos and stop > start
+        pos = stop
+    assert pos == n
+    assert all(start % 16 == 0 for start, _ in spans[:-1])
+    if spans:
+        lens = [stop - start for start, stop in spans]
+        stage = min(-(-lens[0] // 16) * 16, to.STAGE_BYTES)
+        assert max(lens) - min(lens) <= stage
+    if n == 188_743_680:  # the full put takes every SM
+        assert len(spans) == sms
+
+
 @pytest.mark.parametrize("name", sorted(jdtypes.DTYPES))
 def test_dtypes_match_reference(name):
     want, got = jdtypes.get_dtype(name), tdtypes.get_dtype(name)

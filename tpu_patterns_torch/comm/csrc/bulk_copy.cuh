@@ -11,9 +11,11 @@
 // load of piece k+1 is in flight while piece k is stored.
 //
 // A copy is a Plan of segments: segment g copies `len` bytes from
-// src + g*stride to dst + g*stride.  run(p, blk, nblk) is the work of
-// block `blk` of the `nblk` blocks that share the plan: segments blk,
-// blk + nblk, ...  Each segment is cut into pieces of at most one stage.
+// src + g*stride to dst + g*stride; a nonzero `last` is the length of
+// the last segment instead (a ragged tail, at most `len`).  run(p, blk,
+// nblk) is the work of block `blk` of the `nblk` blocks that share the
+// plan: segments blk, blk + nblk, ...  Each segment is cut into pieces
+// of at most one stage.
 // Each segment's unaligned head and tail (< 16 bytes each) are copied by
 // the block's threads with plain byte stores; a source and destination
 // that differ in alignment mod 16 are copied bytewise whole.  The
@@ -23,6 +25,8 @@
 #include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
+
+#include "../../kernels/csrc/hopper.cuh"
 
 namespace put {
 
@@ -37,59 +41,26 @@ struct Plan {
   const unsigned char* src;
   unsigned char* dst;
   long long n_seg, stride, len, stage;
+  long long last = 0;  // 0: the last segment is `len` bytes too
 };
 
-// A segment's head (to 16-byte alignment), bulk body and tail.
+// A segment's bytes, head (to 16-byte alignment), bulk body and tail.
 struct Span {
   const unsigned char* s;
   unsigned char* d;
-  long long head, body, tail;
+  long long n, head, body, tail;
 };
 
 __device__ __forceinline__ Span span_of(const Plan& p, long long g) {
   Span r;
   r.s = p.src + g * p.stride;
   r.d = p.dst + g * p.stride;
+  r.n = (p.last && g == p.n_seg - 1) ? p.last : p.len;
   long long head = (16 - (reinterpret_cast<uintptr_t>(r.s) & 15)) & 15;
-  r.head = head < p.len ? head : p.len;
-  r.body = (p.len - r.head) & ~15LL;
-  r.tail = p.len - r.head - r.body;
+  r.head = head < r.n ? head : r.n;
+  r.body = (r.n - r.head) & ~15LL;
+  r.tail = r.n - r.head - r.body;
   return r;
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* ptr) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
-}
-
-__device__ __forceinline__ void bar_init(uint32_t bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar)
-               : "memory");
-}
-
-__device__ __forceinline__ void bar_expect(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void bar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-// Wait for the completion of the barrier's phase of parity `parity`.
-__device__ __forceinline__ void bar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n\t.reg .pred p;\n\t"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
-        "selp.u32 %0, 1, 0, p;\n\t}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  }
 }
 
 __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
@@ -121,10 +92,11 @@ __device__ void stream_pieces(const Plan& p, long long blk, long long nblk) {
   const long long total = mine * per;
   uint32_t bar[STAGES], buf[STAGES];
   for (int s = 0; s < STAGES; ++s) {
-    bar[s] = smem_addr(smem + 8 * s);
-    buf[s] = smem_addr(smem + BAR_BYTES + s * p.stage);
+    bar[s] = hopper::smem_u32(smem + 8 * s);
+    buf[s] = hopper::smem_u32(smem + BAR_BYTES + s * p.stage);
   }
-  // piece k: bytes (0 for an empty last piece), source and destination
+  // piece k: bytes (0 for an empty last piece, or a piece past a ragged
+  // last segment's body), source and destination
   auto piece = [&](long long k, const unsigned char** s, unsigned char** d) {
     const Span sp = span_of(p, blk + (k / per) * nblk);
     const long long off = (k % per) * p.stage;
@@ -139,16 +111,16 @@ __device__ void stream_pieces(const Plan& p, long long blk, long long nblk) {
     unsigned char* d;
     const uint32_t n = piece(k, &s, &d);
     if (n) {
-      bar_expect(bar[st], n);
+      hopper::bar_expect(bar[st], n);
       bulk_load(buf[st], s, n, bar[st]);
     } else {
-      bar_arrive(bar[st]);  // the phase still completes
+      hopper::bar_arrive(bar[st]);  // the phase still completes
     }
   };
   for (long long k = 0; k < total && k < STAGES; ++k) load(k);
   for (long long k = 0; k < total; ++k) {
     const int st = static_cast<int>(k % STAGES);
-    bar_wait(bar[st], static_cast<uint32_t>((k / STAGES) & 1));
+    hopper::bar_wait(bar[st], static_cast<uint32_t>((k / STAGES) & 1));
     const unsigned char* s;
     unsigned char* d;
     const uint32_t n = piece(k, &s, &d);
@@ -170,14 +142,15 @@ __device__ __forceinline__ void run(const Plan& p, long long blk,
                       reinterpret_cast<uintptr_t>(p.dst)) &
                      15) == 0;
   if (bulk && threadIdx.x == 0) {
-    for (int s = 0; s < STAGES; ++s) bar_init(smem_addr(smem + 8 * s));
+    for (int s = 0; s < STAGES; ++s)
+      hopper::bar_init(hopper::smem_u32(smem + 8 * s), 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   }
   for (long long g = blk; g < p.n_seg; g += nblk) {
     const Span sp = span_of(p, g);
     if (!bulk) {
-      for (long long j = threadIdx.x; j < p.len; j += blockDim.x)
+      for (long long j = threadIdx.x; j < sp.n; j += blockDim.x)
         sp.d[j] = sp.s[j];
       continue;
     }

@@ -20,8 +20,17 @@
 // work is a list of segments (a Plan), and block b takes segments b,
 // b + gridDim.x, ...  The four kernels differ only in the plan and the
 // grid, as the four Pallas kernels differ only in their schedule:
-//   * mono: one block, one segment, the whole buffer (one engine, one
-//     fence); it runs on one SM of 132, so far under the bound by design;
+//   * mono: one put of the whole buffer in one launch, whose end is the
+//     one fence.  On a TPU that is one DMA engine; on this card the
+//     engine of a device-to-device copy inside a kernel is the SMs, so
+//     the put is spread over all of them: the buffer is cut into one
+//     contiguous span per block, a multiple of 16 bytes long (so every
+//     span starts 16-byte aligned when the buffer does), the last one
+//     ragged and shorter by less than one stage (mono_span below; a
+//     span of at least MONO_MIN_SPAN, so a small buffer takes fewer
+//     blocks), and each block streams its span through its stage ring:
+//     112 KB in flight per SM, over the ~25 KB that 3.35 TB/s times a
+//     microsecond of latency needs;
 //   * streamed: a tile of `block_rows` rows per segment, one stage per
 //     tile, a grid of min(tiles, SMs) blocks walking the tiles;
 //   * multi: `chunks` row slices, one block (and its own mbarriers) per
@@ -52,6 +61,28 @@ __global__ void __launch_bounds__(THREADS)
   run(p, blockIdx.x, gridDim.x);
 }
 
+// Smallest mono span: below 132 of these the put takes fewer blocks.
+constexpr long long MONO_MIN_SPAN = 16 * 1024;
+
+// The mono span for n bytes over `sms` SMs: n over min(sms, ceil(n /
+// MONO_MIN_SPAN)) blocks, rounded up to 16 bytes.  The put takes
+// ceil(n / span) blocks; the last span is n - (blocks - 1) * span.
+inline long long mono_span(long long n, long long sms) {
+  long long blocks = (n + MONO_MIN_SPAN - 1) / MONO_MIN_SPAN;
+  if (blocks > sms) blocks = sms;
+  if (blocks < 1) blocks = 1;
+  const long long span = (n + blocks - 1) / blocks;
+  return (span + 15) & ~15LL;
+}
+
+inline int sm_count(int* sms) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  return static_cast<int>(e);
+}
+
 inline int launch(void (*kernel)(Plan), Plan p, long long grid,
                   void* stream) {
   if (p.n_seg < 1 || p.len < 1 || grid < 1 || grid > 0x7fffffffLL ||
@@ -80,21 +111,29 @@ long long local_put_stage_bytes() { return put::STAGE_BYTES; }
 // success), or cudaErrorInvalidValue for an empty or oversized plan;
 // none synchronizes.
 
-// K8a: the whole buffer, n bytes, by one block.
+// The mono span for n bytes over `sms` SMs (tests hold the wrapper's
+// Python mirror, onesided.mono_spans, to it).
+long long local_put_mono_span(long long n, long long sms) {
+  return put::mono_span(n, sms);
+}
+
+// K8a: the whole buffer, n bytes, one span per block over every SM.
 int local_put_mono(const void* src, void* dst, long long n, void* stream) {
+  int sms = 0;
+  if (int e = put::sm_count(&sms)) return e;
+  const long long span = put::mono_span(n, sms);
+  const long long blocks = (n + span - 1) / span;
   put::Plan p{static_cast<const unsigned char*>(src),
-              static_cast<unsigned char*>(dst), 1, n, n, 0};
-  return put::launch(put::local_put_mono_kernel, p, 1, stream);
+              static_cast<unsigned char*>(dst), blocks, span, span, 0,
+              n - (blocks - 1) * span};
+  return put::launch(put::local_put_mono_kernel, p, blocks, stream);
 }
 
 // K8b: n_tiles tiles of tile_bytes, over min(n_tiles, SMs) blocks.
 int local_put_streamed(const void* src, void* dst, long long n_tiles,
                        long long tile_bytes, void* stream) {
-  int dev = 0, sms = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e != cudaSuccess) return static_cast<int>(e);
+  int sms = 0;
+  if (int e = put::sm_count(&sms)) return e;
   put::Plan p{static_cast<const unsigned char*>(src),
               static_cast<unsigned char*>(dst), n_tiles, tile_bytes,
               tile_bytes, 0};

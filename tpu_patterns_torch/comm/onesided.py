@@ -7,7 +7,8 @@ asynchronous copies through shared memory fenced by an mbarrier and a
 bulk-group wait (``csrc/local_put.cu``).  Four schedules, each a CUDA
 kernel written for sm_90a:
 
-* :func:`local_put` (K8a, mono): one block copies the whole buffer;
+* :func:`local_put` (K8a, mono): one launch copies the whole buffer,
+  one contiguous span per SM (:func:`mono_spans`);
 * :func:`local_put_streamed` (K8b): row tiles of ``block_rows`` rows,
   double-buffered through each block's shared memory;
 * :func:`local_put_multi` (K8c): ``chunks`` row slices, one block each,
@@ -90,6 +91,8 @@ def _library() -> ctypes.CDLL:
         ptr, i64 = ctypes.c_void_p, ctypes.c_longlong
         lib.local_put_stage_bytes.restype = i64
         lib.local_put_stage_bytes.argtypes = []
+        lib.local_put_mono_span.restype = i64
+        lib.local_put_mono_span.argtypes = [i64, i64]
         sigs = {
             "local_put_mono": [ptr, ptr, i64, ptr],
             "local_put_streamed": [ptr, ptr, i64, i64, ptr],
@@ -106,6 +109,25 @@ def _library() -> ctypes.CDLL:
 # (csrc/local_put.cu STAGE_BYTES; the smoke checks the two agree).  Two
 # stages and the barriers fit in the 227 KB a block may use.
 STAGE_BYTES = 112 * 1024
+# The smallest span of the mono put (csrc/local_put.cu MONO_MIN_SPAN).
+MONO_MIN_SPAN = 16 * 1024
+
+
+def mono_span(n: int, sms: int) -> int:
+    """K8a's span for an ``n``-byte buffer (n >= 1) on a card of ``sms``
+    SMs, as ``local_put.cu::mono_span`` computes it: n over min(sms,
+    ceil(n / MONO_MIN_SPAN)) blocks, rounded up to 16 bytes."""
+    blocks = min(sms, -(-n // MONO_MIN_SPAN))
+    return (-(-n // blocks) + 15) & ~15
+
+
+def mono_spans(n: int, sms: int) -> list[tuple[int, int]]:
+    """The (start, stop) byte spans of K8a's blocks, one per block, the
+    last one ragged."""
+    if n <= 0:
+        return []
+    span = mono_span(n, sms)
+    return [(s, min(s + span, n)) for s in range(0, n, span)]
 
 
 def _check(x: torch.Tensor, name: str) -> None:

@@ -6,36 +6,69 @@
 //   * flash_attention's _kernel (:135) and _kernel_compact (:840)
 //     -- K2: normalizes (o / l, l == 0 -> 1) and casts to q's dtype.
 // One kernel with a runtime epilogue switch (emit_stats) gives both.
+// The dispatch is by dtype: bfloat16 inputs run flash_fwd_wgmma_kernel,
+// float32 inputs the scalar flash_fwd_kernel (a tensor-core f32 product
+// would be TF32, which keeps ~3 digits).
 //
 // What bounds it on this card: operations.  Per (head, q-tile) it reads
 // q once and each visible k/v tile once, and does 4*D flops per visible
 // (query, key) pair; at D = 128 in bf16 that is far above the H100's
 // ~295 flops/byte ridge, so the tensor-core rate is the bound.
 //
-// Design (first version: right and simple):
-//   * one thread block (8 warps) per (q-tile, head); a loop over the
-//     k-tiles INSIDE the block takes the place of the TPU's sequential
-//     grid axis, and m / l / acc of the q-tile live in shared memory
-//     across it;
-//   * causal: the loop stops at the first k-tile wholly above the
-//     diagonal (by global position: q_off + (row0 + bq - 1) * stride <
-//     k_off + col0 * stride), before its k/v are loaded.  Later tiles
-//     are masked too (positions grow with the tile index), so every
-//     block visits exactly its live tiles: the dense and the compact
-//     grid of the reference are one launch here, bit-identical;
-//   * per k-tile: stage k, v; S = Q K^T (tensor cores for bf16, scalar
-//     f32 for f32); one warp per row applies scale, mask and the online
-//     softmax; P is rounded to the input dtype (the Pallas kernel's
-//     p.astype(v.dtype)) and acc = alpha * acc + P V;
-//   * synchronous 16-byte loads, no cp.async, TMA or wgmma: those, and
-//     keeping S and acc in registers, are the next steps for speed.
+// bf16 design (flash_fwd_wgmma_kernel), built from the card's own units:
+//   * a block is one (head, q-tile of 64 * NC rows): NC consumer
+//     warpgroups of 64 rows each and one producer warpgroup, whose
+//     first thread issues every load;
+//   * loads are TMA boxes [rows, 1, 64] of the 3-D tensors [L, H, D]
+//     (tensor maps made per launch), 128-byte swizzled: q once per
+//     block, k and v tiles each through a ring of STAGES slots (2 at D
+//     128, 4 at D 64) behind their own full/free mbarriers, so the next
+//     tiles are in flight while the consumers compute;
+//   * S = Q K^T is wgmma with both operands in shared memory and S in
+//     registers; the online softmax runs on those registers (row max
+//     and sum over the quad of threads that share a row, by shuffles,
+//     exp as one ex2 of an FMA); P is rounded to bf16 in registers and
+//     is the register A operand of O += P V (V the transposed shared
+//     operand); O stays in registers across the k loop and alpha
+//     rescales it there.  No S, P or O goes through shared memory;
+//   * inside a warpgroup the products of tile it and the P V of tile
+//     it - 1 are issued together, and the softmax of tile it runs while
+//     that P V is on the tensor cores; the two consumer warpgroups
+//     overlap each other's softmax and products as well.  A product
+//     reads its register operand while it runs, and ptxas serializes
+//     every product of the kernel (C7513) if any instruction writes
+//     such a register before the product is waited for: so the softmax
+//     works on the f32 scores in place and P is packed only after the
+//     wait for the P V that read the previous P, and the first product
+//     of S takes S as a write-only operand;
+//   * causal: the block visits its live k-tiles only (it stops at the
+//     first tile wholly above its last row), a warpgroup skips a tile
+//     wholly above its own rows, and only tiles that cross the diagonal
+//     (or the ragged end of k) are masked element by element; the grid
+//     is (heads, q-tiles) with the last, heaviest q-tiles first, so the
+//     triangle's long blocks start in the first wave;
+//   * lengths need not be multiples of the tile: TMA fills rows past
+//     the end with zeros, columns past Lk are masked, rows past Lq are
+//     not stored;
+//   * no atomics: each output element has one owner, and the k-tiles
+//     are summed in ascending order, so two runs give the same bits.
+//
+// f32 design (flash_fwd_kernel): one thread block (8 warps) per (q-tile,
+// head) walks the live k-tiles as above, staging k, v, S, P and acc in
+// shared memory; S = Q K^T and P V are scalar f32 FMAs, one warp per
+// row runs the online softmax.
 //
 // Math as the Pallas _online_step: s = (q . k) * scale, masked to
 // NEG_INF = -1e30 where q_pos < k_pos; m_cur = max(m_prev, max s);
 // p = exp(s - m_cur) * (m_cur > NEG_INF / 2); alpha = exp(m_prev - m_cur);
 // l = alpha * l + sum p (p unrounded); acc = alpha * acc + round(p) . v.
 
+#include <math.h>
+
+#include <type_traits>
+
 #include "flash_common.cuh"
+#include "../../kernels/csrc/hopper.cuh"
 
 namespace flash {
 
@@ -167,16 +200,523 @@ int launch_fwd(int emit_stats, const void* q, const void* k, const void* v,
   return static_cast<int>(cudaGetLastError());
 }
 
+
+// -- bf16: wgmma with TMA loads --------------------------------------------
+
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr size_t FWD_BAR_BYTES = 256;  // 1 + 4 * STAGES mbarriers
+
+// K/V ring depth: 128 KB of k and v tiles in flight at bk 128 either way
+__host__ __device__ constexpr int fwd_stages(int D) { return D <= 64 ? 4 : 2; }
+
+// Dynamic shared memory of one bf16 forward block: slack to align the
+// swizzled tiles to 1024 bytes, the q tile, the ring's k and v tiles and
+// the mbarriers (tuning.py::smem_bytes agrees).
+__host__ __device__ constexpr size_t smem_fwd_bf16(int bq, int bk, int D) {
+  return 1024 + static_cast<size_t>(bq) * D * 2 +
+         static_cast<size_t>(fwd_stages(D)) * 2 * bk * D * 2 + FWD_BAR_BYTES;
+}
+
+template <int D, int BK, int NC>
+struct Fwd {
+  static constexpr int BQ = 64 * NC;  // 64 query rows per warpgroup
+  static constexpr int STAGES = fwd_stages(D);
+  static constexpr int THREADS = 128 * (NC + 1);  // + the producer
+  static constexpr int CHUNKS = D / 64;  // 128-byte swizzled column blocks
+  static constexpr uint32_t Q_BYTES = BQ * D * 2;
+  static constexpr uint32_t T_BYTES = BK * D * 2;  // one k or v tile
+  static constexpr size_t SMEM = smem_fwd_bf16(BQ, BK, D);
+  static_assert((1 + 4 * STAGES) * 8 <= FWD_BAR_BYTES, "mbarriers");
+};
+
+// max / sum over the four threads that hold one accumulator row
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // round to nearest even
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// The online-softmax state of a consumer thread's two rows (a: row ra,
+// b: row rb = ra + 8).  l is this thread's part of the row sum.
+struct Rows {
+  float m_a, m_b, l_a, l_b;
+};
+
+// One tile's online softmax on the raw scores S (q . k, masked to
+// -inf), in registers, in place: m <- max(m, scale * max S); S <- p =
+// exp(scale * S - m), 0 for a row whose m is still NEG_INF (the keep
+// factor: its offset is 0 and every score -inf); l <- alpha l + sum p.
+// Returns alpha = exp(m_prev - m) of both rows.
+template <int BK>
+__device__ __forceinline__ float2 online_softmax(float (&sc)[BK / 2], Rows& r,
+                                                 float scale) {
+  float mx_a[4], mx_b[4];  // four independent partial maxima per row
+#pragma unroll
+  for (int i = 0; i < 4; ++i) mx_a[i] = mx_b[i] = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j) {
+    mx_a[j % 4] = fmaxf(mx_a[j % 4], fmaxf(sc[4 * j], sc[4 * j + 1]));
+    mx_b[j % 4] = fmaxf(mx_b[j % 4], fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
+  }
+  const float tile_a = quad_max(fmaxf(fmaxf(mx_a[0], mx_a[1]),
+                                      fmaxf(mx_a[2], mx_a[3])));
+  const float tile_b = quad_max(fmaxf(fmaxf(mx_b[0], mx_b[1]),
+                                      fmaxf(mx_b[2], mx_b[3])));
+  // the rounded max of the scaled scores is the max of the rounded ones
+  const float mc_a = fmaxf(r.m_a, tile_a * scale);
+  const float mc_b = fmaxf(r.m_b, tile_b * scale);
+  const float2 alpha = make_float2(hopper::ex2((r.m_a - mc_a) * LOG2E),
+                                   hopper::ex2((r.m_b - mc_b) * LOG2E));
+  r.m_a = mc_a;
+  r.m_b = mc_b;
+  const float c = scale * LOG2E;
+  const float off_a = mc_a > NEG_INF * 0.5f ? mc_a * LOG2E : 0.f;
+  const float off_b = mc_b > NEG_INF * 0.5f ? mc_b * LOG2E : 0.f;
+  float sum_a[2] = {0.f, 0.f}, sum_b[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      sc[4 * j + e] = hopper::ex2(fmaf(sc[4 * j + e], c, -off_a));
+      sc[4 * j + 2 + e] = hopper::ex2(fmaf(sc[4 * j + 2 + e], c, -off_b));
+      sum_a[j % 2] += sc[4 * j + e];
+      sum_b[j % 2] += sc[4 * j + 2 + e];
+    }
+  }
+  r.l_a = alpha.x * r.l_a + (sum_a[0] + sum_a[1]);
+  r.l_b = alpha.y * r.l_b + (sum_b[0] + sum_b[1]);
+  return alpha;
+}
+
+// P, rounded to bf16, as four registers per 16 keys: the A operand of
+// P V.  Written only once the previous P V is done, since a product
+// reads its register operand while it runs.
+template <int BK>
+__device__ __forceinline__ void pack_p(const float (&sc)[BK / 2],
+                                       uint32_t (&p)[BK / 16][4]) {
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j) {
+    p[j / 2][(j % 2) * 2] = pack_bf16(sc[4 * j], sc[4 * j + 1]);
+    p[j / 2][(j % 2) * 2 + 1] = pack_bf16(sc[4 * j + 2], sc[4 * j + 3]);
+  }
+}
+
+// One output row of a consumer thread: its D / 4 values o[4j + e],
+// o[4j + e + 1] (e = 0 for its first row, 2 for its second).
+template <int D, int E>
+__device__ __forceinline__ void store_row(const float (&o)[D / 2], int r,
+                                          float m, float l, void* o_out,
+                                          float* m_out, float* l_out, int Lq,
+                                          int H, int h, int cq, int lane,
+                                          int emit_stats) {
+  const size_t base = (static_cast<size_t>(r) * H + h) * D + cq;
+  if (emit_stats) {
+    float* row = static_cast<float*>(o_out) + base;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<float2*>(row + 8 * j) =
+          make_float2(o[4 * j + E], o[4 * j + E + 1]);
+    if (lane % 4 == 0) {
+      m_out[static_cast<size_t>(h) * Lq + r] = m;
+      l_out[static_cast<size_t>(h) * Lq + r] = l;
+    }
+  } else {
+    bf16* row = static_cast<bf16*>(o_out) + base;
+    const float d = l == 0.f ? 1.f : l;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(row + 8 * j) =
+          __floats2bfloat162_rn(o[4 * j + E] / d, o[4 * j + E + 1] / d);
+  }
+}
+
+template <int D, int BK, int NC>
+__global__ void __launch_bounds__(Fwd<D, BK, NC>::THREADS, 1)
+    flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv,
+                           void* __restrict__ o_out,
+                           float* __restrict__ m_out,
+                           float* __restrict__ l_out, int Lq, int Lk, int H,
+                           int causal, int q_off, int k_off, int stride,
+                           float scale, int emit_stats) {
+  using C = Fwd<D, BK, NC>;
+  constexpr int S = C::STAGES;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t sq = (hopper::smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t sk = sq + C::Q_BYTES;      // k slot s at sk + s T
+  const uint32_t sv = sk + S * C::T_BYTES;  // v slot s at sv + s T
+  const uint32_t bars = sv + S * C::T_BYTES;
+  // mbarriers: [0] q loaded; then per slot s: k loaded, v loaded, k read
+  // and v read by every consumer warp
+  auto full_k = [&](int s) { return bars + 8 * (1 + s); };
+  auto full_v = [&](int s) { return bars + 8 * (1 + S + s); };
+  auto free_k = [&](int s) { return bars + 8 * (1 + 2 * S + s); };
+  auto free_v = [&](int s) { return bars + 8 * (1 + 3 * S + s); };
+
+  const int h = blockIdx.x;
+  const int row0 = (gridDim.y - 1 - blockIdx.y) * C::BQ;  // heaviest first
+  const int rows = min(C::BQ, Lq - row0);
+  // the live tiles of rows up to q position q_last: first key at or
+  // before it
+  auto live = [&](long long q_last, int n) {
+    if (!causal) return n;
+    const long long t =
+        q_last < k_off ? 0 : (q_last - k_off) / stride / BK + 1;
+    return t < n ? static_cast<int>(t) : n;
+  };
+  const int n_tiles = live(
+      q_off + static_cast<long long>(row0 + rows - 1) * stride,
+      (Lk + BK - 1) / BK);
+
+  if (threadIdx.x == 0) {
+    hopper::bar_init(bars, 1);
+    for (int s = 0; s < S; ++s) {
+      hopper::bar_init(full_k(s), 1);
+      hopper::bar_init(full_v(s), 1);
+      hopper::bar_init(free_k(s), NC * 4);  // one arrival per consumer warp
+      hopper::bar_init(free_v(s), NC * 4);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == NC) {
+    // the producer: registers go to the consumers; one thread loads q,
+    // then k and v tiles in turn, each into its slot once every
+    // consumer warp has released the slot's previous tile
+    if constexpr (NC == 2) hopper::setmaxnreg_dec<24>();
+    if (threadIdx.x == NC * 128) {
+      hopper::tma_prefetch(&tq);
+      hopper::tma_prefetch(&tk);
+      hopper::tma_prefetch(&tv);
+      hopper::bar_expect(bars, C::Q_BYTES);
+      for (int c = 0; c < C::CHUNKS; ++c)
+        hopper::tma_load_3d(sq + c * C::BQ * 128, &tq, bars, c * 64, h, row0);
+      for (int it = 0; it < n_tiles; ++it) {
+        const int s = it % S;
+        const uint32_t prev = (it / S - 1) & 1;
+        if (it >= S) hopper::bar_wait(free_k(s), prev);
+        hopper::bar_expect(full_k(s), C::T_BYTES);
+        for (int c = 0; c < C::CHUNKS; ++c)
+          hopper::tma_load_3d(sk + s * C::T_BYTES + c * BK * 128, &tk,
+                              full_k(s), c * 64, h, it * BK);
+        if (it >= S) hopper::bar_wait(free_v(s), prev);
+        hopper::bar_expect(full_v(s), C::T_BYTES);
+        for (int c = 0; c < C::CHUNKS; ++c)
+          hopper::tma_load_3d(sv + s * C::T_BYTES + c * BK * 128, &tv,
+                              full_v(s), c * 64, h, it * BK);
+      }
+    }
+    return;
+  }
+
+  // a consumer warpgroup: rows [wr0, wr0 + 64) of the q tile
+  if constexpr (NC == 2) hopper::setmaxnreg_inc<240>();
+  const int tid = threadIdx.x % 128, lane = tid % 32;
+  // the warpgroup's index, broadcast so the compiler sees it uniform
+  // and keeps the descriptors in uniform registers
+  const int wgu = __shfl_sync(0xffffffffu, wg, 0);
+  const int wr0 = row0 + wgu * 64;
+  const int wrows = min(64, Lq - wr0);  // <= 0: wholly past Lq
+  const int ra = wr0 + (tid / 32) * 16 + lane / 4;  // this thread's rows:
+  const int rb = ra + 8;                            // ra and rb
+  const int cq = 2 * (lane % 4);  // its columns in each group of 8
+  const long long wq_first = q_off + static_cast<long long>(wr0) * stride;
+  const long long wq_last =
+      q_off + static_cast<long long>(wr0 + wrows - 1) * stride;
+  const long long qa = q_off + static_cast<long long>(ra) * stride;
+  const long long qb = qa + 8LL * stride;
+  const uint32_t q_wg = sq + wgu * 64 * 128;
+  // the tiles this warpgroup computes; the block's later live tiles are
+  // wholly above its rows
+  const int n_wg = wrows > 0 ? live(wq_last, n_tiles) : 0;
+
+  // S = Q K^T of slot s, 16 columns of D per product, and O += P V of
+  // slot s, 16 keys per product (V [keys, D] is the transposed,
+  // MN-major B, its 64-column blocks BK * 128 bytes apart).  Each
+  // descriptor is a base plus a constant step in 16-byte units: 2 for
+  // 16 columns, rows * 8 for a 64-column block, 128 for 16 keys.
+  const uint64_t dq = hopper::desc_sw128(q_wg, 16, 1024);
+  auto qk = [&](float (&sc)[BK / 2], int s) {
+    const uint64_t dk = hopper::desc_sw128(sk + s * C::T_BYTES, 16, 1024);
+    hopper::wgmma_ss_init(sc, dq, dk);  // S = ..., then S += ...
+#pragma unroll
+    for (int kk = 1; kk < D / 16; ++kk)
+      hopper::wgmma_ss(sc, dq + (kk / 4) * C::BQ * 8 + (kk % 4) * 2,
+                       dk + (kk / 4) * BK * 8 + (kk % 4) * 2);
+  };
+  auto pv = [&](float (&o)[D / 2], uint32_t (&p)[BK / 16][4], int s) {
+    const uint64_t dv =
+        hopper::desc_sw128(sv + s * C::T_BYTES, BK * 128, 1024);
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      hopper::wgmma_rs(o, p[kk], dv + kk * 128);
+  };
+  // -inf where the tile crosses the diagonal or the end of k: key c of
+  // the tile is visible to a row while c <= its last visible column
+  auto mask = [&](float (&sc)[BK / 2], int it) {
+    const int col0 = it * BK, cols = min(BK, Lk - col0);
+    const long long k_first = k_off + static_cast<long long>(col0) * stride;
+    const long long k_last =
+        k_off + static_cast<long long>(col0 + cols - 1) * stride;
+    if (!((causal && wq_first < k_last) || cols < BK)) return;
+    auto last_col = [&](long long q_pos) {
+      if (!causal) return cols - 1;
+      if (q_pos < k_first) return -1;
+      const long long c = (q_pos - k_first) / stride;
+      return static_cast<int>(c < cols - 1 ? c : cols - 1);
+    };
+    const int last_a = last_col(qa) - cq, last_b = last_col(qb) - cq;
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        if (8 * j + e > last_a) sc[4 * j + e] = -INFINITY;
+        if (8 * j + e > last_b) sc[4 * j + 2 + e] = -INFINITY;
+      }
+  };
+  auto release = [&](uint32_t bar) {
+    __syncwarp();
+    if (lane == 0) hopper::bar_arrive(bar);
+  };
+
+  // With two consumer warpgroups, they take turns to issue their
+  // products (named barriers 1 and 2), so one's softmax runs while the
+  // other's products hold the tensor cores.  Both pass n_tiles + 1
+  // turns (tile 0's S, one per later tile, the last P V), skipped tiles
+  // included; warpgroup 0 goes first.
+  auto turn_wait = [&]() {
+    if constexpr (NC == 2) hopper::named_sync(1 + wgu, 256);
+  };
+  auto turn_pass = [&]() {
+    if constexpr (NC == 2) hopper::named_arrive(2 - wgu, 256);
+  };
+  if (NC == 2 && wgu == 1) hopper::named_arrive(1, 256);
+
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  Rows r{NEG_INF, NEG_INF, 0.f, 0.f};
+  uint32_t p[BK / 16][4];  // P of the tile before the current one
+
+  hopper::bar_wait(bars, 0);
+  if (n_wg > 0) {  // tile 0: S and its softmax (O is still zero)
+    float sc[BK / 2];
+    hopper::bar_wait(full_k(0), 0);
+    turn_wait();
+    hopper::wgmma_fence();
+    qk(sc, 0);
+    hopper::wgmma_commit();
+    turn_pass();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(sc);
+    release(free_k(0));
+    mask(sc, 0);
+    online_softmax<BK>(sc, r, scale);
+    pack_p<BK>(sc, p);
+  }
+  // tile it: S_it = Q K_it^T and O += P_{it-1} V_{it-1} in flight
+  // together; the softmax of S_it runs while P V is on the tensor cores
+  auto step = [&](int it, auto masked) {
+    const int s = it % S, sp = (it - 1) % S;
+    float sc[BK / 2];
+    hopper::bar_wait(full_k(s), (it / S) & 1);
+    hopper::bar_wait(full_v(sp), ((it - 1) / S) & 1);
+    hopper::fence_regs(o);  // rescaled O and packed P before the products
+    hopper::fence_regs(p);
+    turn_wait();
+    hopper::wgmma_fence();
+    qk(sc, s);
+    hopper::wgmma_commit();
+    pv(o, p, sp);
+    hopper::wgmma_commit();
+    turn_pass();
+    hopper::wgmma_wait<1>();  // S_it is done; P V may still run
+    hopper::fence_regs(sc);
+    release(free_k(s));
+    if constexpr (decltype(masked)::value) mask(sc, it);
+    const float2 alpha = online_softmax<BK>(sc, r, scale);
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(o);   // the rescale and the packing of the next P
+    hopper::fence_regs(sc);  // only once this P V is done
+    release(free_v(sp));
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      o[4 * j] *= alpha.x;
+      o[4 * j + 1] *= alpha.x;
+      o[4 * j + 2] *= alpha.y;
+      o[4 * j + 3] *= alpha.y;
+    }
+    pack_p<BK>(sc, p);
+  };
+  // the leading tiles need no mask: full, and wholly at or below the
+  // diagonal for every row of the warpgroup; the rest go through mask()
+  int n_plain = min(n_wg, Lk / BK);
+  if (causal) {
+    const long long last = wq_first < k_off ? -1 : (wq_first - k_off) / stride;
+    const long long t = (last + 1) / BK;
+    if (t < n_plain) n_plain = static_cast<int>(t);
+  }
+  int it = 1;
+  for (; it < n_plain; ++it) step(it, std::false_type{});
+  for (; it < n_wg; ++it) step(it, std::true_type{});
+  if (n_wg > 0) {  // the last tile's P V
+    const int s = (n_wg - 1) % S;
+    hopper::bar_wait(full_v(s), ((n_wg - 1) / S) & 1);
+    hopper::fence_regs(o);
+    hopper::fence_regs(p);
+    turn_wait();
+    hopper::wgmma_fence();
+    pv(o, p, s);
+    hopper::wgmma_commit();
+    turn_pass();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(o);
+    release(free_v(s));
+  }
+  // tiles wholly above this warpgroup's rows: release them in turn,
+  // each only once loaded, so no arrival runs ahead of the ring's phase
+  if (n_wg == 0 && n_tiles > 0) {  // the turn of the last P V
+    turn_wait();
+    turn_pass();
+  }
+  for (int it = n_wg; it < n_tiles; ++it) {
+    const int s = it % S;
+    const uint32_t ph = (it / S) & 1;
+    turn_wait();
+    turn_pass();
+    hopper::bar_wait(full_k(s), ph);
+    release(free_k(s));
+    hopper::bar_wait(full_v(s), ph);
+    release(free_v(s));
+  }
+
+  const float l_a = quad_sum(r.l_a), l_b = quad_sum(r.l_b);
+  if (ra < Lq)
+    store_row<D, 0>(o, ra, r.m_a, l_a, o_out, m_out, l_out, Lq, H, h, cq,
+                    lane, emit_stats);
+  if (rb < Lq)
+    store_row<D, 2>(o, rb, r.m_b, l_b, o_out, m_out, l_out, Lq, H, h, cq,
+                    lane, emit_stats);
+}
+
+// cuTensorMapEncodeTiled from the driver through the runtime, so the
+// library needs no link against libcuda
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found{};
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                            cudaEnableDefault, &found);
+#endif
+    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// bf16 [L, H, D] at `base` as a 3-D tensor map of 128-byte swizzled
+// boxes [rows, 1, 64]; rows past L read as zeros
+inline int tile_map(CUtensorMap* map, const void* base, int L, int H, int D,
+                    int rows) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(H),
+                              static_cast<cuuint64_t>(L)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(D) * 2,
+                                 static_cast<cuuint64_t>(H) * D * 2};
+  const cuuint32_t box[3] = {64, 1, static_cast<cuuint32_t>(rows)};
+  const cuuint32_t step[3] = {1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                        const_cast<void*>(base), dims, strides, box, step,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <int D, int BK, int NC>
+int launch_wgmma(int emit_stats, const void* q, const void* k, const void* v,
+                 void* o, float* m, float* l, int Lq, int Lk, int H,
+                 int causal, int q_off, int k_off, int stride, float scale,
+                 cudaStream_t stream) {
+  using C = Fwd<D, BK, NC>;
+  CUtensorMap tq, tk, tv;
+  if (int e = tile_map(&tq, q, Lq, H, D, C::BQ)) return e;
+  if (int e = tile_map(&tk, k, Lk, H, D, BK)) return e;
+  if (int e = tile_map(&tv, v, Lk, H, D, BK)) return e;
+  if (int e = set_smem(flash_fwd_wgmma_kernel<D, BK, NC>, C::SMEM)) return e;
+  dim3 grid(H, (Lq + C::BQ - 1) / C::BQ);
+  flash_fwd_wgmma_kernel<D, BK, NC><<<grid, C::THREADS, C::SMEM, stream>>>(
+      tq, tk, tv, o, m, l, Lq, Lk, H, causal, q_off, k_off, stride, scale,
+      emit_stats);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_bf16(int bq, int bk, int emit_stats, const void* q, const void* k,
+                const void* v, void* o, float* m, float* l, int Lq, int Lk,
+                int H, int causal, int q_off, int k_off, int stride,
+                float scale, cudaStream_t st) {
+#define FLASH_WGMMA(BQ, BK)                                                   \
+  if (bq == BQ && bk == BK)                                                   \
+    return launch_wgmma<D, BK, BQ / 64>(emit_stats, q, k, v, o, m, l, Lq, Lk, \
+                                        H, causal, q_off, k_off, stride,      \
+                                        scale, st);
+  FLASH_WGMMA(128, 128)
+  FLASH_WGMMA(128, 64)
+  FLASH_WGMMA(64, 128)
+  FLASH_WGMMA(64, 64)
+#undef FLASH_WGMMA
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// the bf16 kernel's shapes: tiles and D of 64 or 128, any lengths
+inline bool shapes_ok_bf16(int Lq, int Lk, int H, int D, int bq, int bk,
+                           int stride) {
+  return Lq > 0 && Lk > 0 && H > 0 && (D == 64 || D == 128) &&
+         (bq == 64 || bq == 128) && (bk == 64 || bk == 128) &&
+         (Lq + bq - 1) / bq <= 65535 && stride >= 1;
+}
+
 }  // namespace flash
 
 extern "C" {
 
-// Dynamic shared memory of one forward block, in bytes.
+// Dynamic shared memory of one forward block, in bytes: the bf16
+// (wgmma) kernel's for in_bytes 2, the f32 kernel's for 4.
 size_t flash_fwd_smem_bytes(int in_bytes, int bq, int bk, int D) {
-  return flash::smem_fwd(in_bytes, bq, bk, D);
+  return in_bytes == 2 ? flash::smem_fwd_bf16(bq, bk, D)
+                       : flash::smem_fwd(in_bytes, bq, bk, D);
 }
 
-// kind: 0 float32, 1 bfloat16 (q, k, v and, without stats, o).
+// kind: 0 float32 (the scalar kernel; tiles multiples of 16 that divide
+// the lengths), 1 bfloat16 (the wgmma kernel; tiles 64 or 128, D 64 or
+// 128, any lengths) for q, k, v and, without stats, o.
 // emit_stats 1: o is f32 [Lq, H, D] unnormalized, m and l f32 [H, Lq]
 // (K3); 0: o is normalized in q's dtype, m and l unused (K2).
 // Launches on ``stream`` and returns cudaGetLastError() (0 on
@@ -185,17 +725,24 @@ int flash_fwd(int kind, int emit_stats, const void* q, const void* k,
               const void* v, void* o, float* m, float* l, int Lq, int Lk,
               int H, int D, int bq, int bk, int causal, int q_off, int k_off,
               int stride, float scale, void* stream) {
-  if (!flash::shapes_ok(Lq, Lk, H, D, bq, bk, stride))
-    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (kind == 0)
+  if (kind == 0) {
+    if (!flash::shapes_ok(Lq, Lk, H, D, bq, bk, stride))
+      return static_cast<int>(cudaErrorInvalidValue);
     return flash::launch_fwd<float>(emit_stats, q, k, v, o, m, l, Lq, Lk, H,
                                     D, bq, bk, causal, q_off, k_off, stride,
                                     scale, st);
-  if (kind == 1)
-    return flash::launch_fwd<flash::bf16>(emit_stats, q, k, v, o, m, l, Lq,
-                                          Lk, H, D, bq, bk, causal, q_off,
-                                          k_off, stride, scale, st);
+  }
+  if (kind == 1) {
+    if (!flash::shapes_ok_bf16(Lq, Lk, H, D, bq, bk, stride))
+      return static_cast<int>(cudaErrorInvalidValue);
+    return D == 64 ? flash::launch_bf16<64>(bq, bk, emit_stats, q, k, v, o, m,
+                                            l, Lq, Lk, H, causal, q_off,
+                                            k_off, stride, scale, st)
+                   : flash::launch_bf16<128>(bq, bk, emit_stats, q, k, v, o,
+                                             m, l, Lq, Lk, H, causal, q_off,
+                                             k_off, stride, scale, st);
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -13,7 +13,9 @@ Counterpart of ``tpu_patterns/longctx/flash.py`` on one device:
   reference's ``custom_vjp`` primal does.
 
 On a CUDA tensor each wrapper launches its hand-written kernel
-(``longctx/csrc/flash_attention.cu`` for K2/K3,
+(``longctx/csrc/flash_attention.cu`` for K2/K3: by dtype, the wgmma
+kernel with TMA loads for bfloat16 and the scalar kernel for float32,
+whose tensor-core product would be TF32;
 ``longctx/csrc/flash_attention_bwd.cu`` for K4's dq and dk/dv kernels,
 built for sm_90a at first use) or raises; on a CPU tensor it runs its
 plain-torch version (``*_reference``), which rounds at the same points
@@ -22,7 +24,9 @@ count in :data:`LAUNCHES`.
 
 Tiles: (block_q, block_k) is clamped by ``tuning._auto_block`` to the
 largest pair that fits the card's shared memory, and must divide the
-sequence lengths (the reference's error).  ``grid_mode="compact"`` keeps
+sequence lengths (the reference's error), except for the bfloat16
+forward, whose sides are 64 or 128 and whose kernel masks a ragged
+edge.  ``grid_mode="compact"`` keeps
 the reference's validation (causal only; static zero offsets and unit
 stride; Lq == Lk for the backward).  The kernels themselves walk each
 q-tile's causally live k-tiles only, in ascending order, on both grid
@@ -40,6 +44,7 @@ from tpu_patterns_torch.longctx.attention import causal_mask
 from tpu_patterns_torch.longctx.tuning import (
     DEFAULT_BLOCK_K,
     DEFAULT_BLOCK_Q,
+    FWD_BF16_SIDES,
     MIN_TILE,
     NEG_INF,
     _auto_block,
@@ -176,7 +181,8 @@ def _blocks(q, k, kinds, block_q, block_k):
     lk = k.shape[0]
     bq, bk = _auto_block(lq, lk, d, q.element_size(), kinds, block_q,
                          block_k, smem_budget(q.device))
-    if lq % bq or lk % bk:
+    ragged_ok = kinds == ("fwd",) and q.dtype == torch.bfloat16
+    if (lq % bq or lk % bk) and not ragged_ok:
         raise ValueError(
             f"block sizes ({bq}, {bk}) must divide the sequence lengths "
             f"({lq}, {lk})"
@@ -254,10 +260,20 @@ def _raise_rc(what, rc, bq, bk, d, smem_bytes):
 
 def _launch_fwd(q, k, v, q_off, k_off, causal, scale, bq, bk, pos_stride,
                 emit_stats):
+    """K2 or K3.  The kernel is chosen by dtype: bfloat16 runs the wgmma
+    kernel (tiles of 64 or 128, head_dim 64 or 128), float32 the scalar
+    one (a tensor-core f32 product would be TF32).  A failed build or
+    launch raises; neither kernel stands in for the other."""
     what = "flash_block" if emit_stats else "flash_attention"
     _cuda_inputs(what, q, k, v)
     _check_tiles(what, bq, bk)
     lq, h, d = q.shape
+    if q.dtype == torch.bfloat16 and (
+            d not in (64, 128) or bq not in FWD_BF16_SIDES
+            or bk not in FWD_BF16_SIDES):
+        raise ValueError(f"{what}: the bfloat16 kernel takes head_dim 64 "
+                         f"or 128 and tiles of 64 or 128, not D={d}, "
+                         f"({bq}, {bk})")
     lk = k.shape[0]
     dev = q.device
     if emit_stats:
