@@ -18,9 +18,10 @@ printed lines:
 2. build: every kernel compiled from the checkout's sources with nvcc,
    one process per source, all at once; then the ``kernel_build`` line:
    each instance of the redesigned kernels (the bf16 wgmma forward of
-   K2/K3, the all-SM mono put K8a) with its registers, spills, static
-   and dynamic shared memory from ``-Xptxas -v`` and whether ptxas
-   serialized its wgmma products;
+   K2/K3, the bf16 wgmma backward of K4, dq and dk/dv, the all-SM mono
+   put K8a) with its registers, spills, static and dynamic shared
+   memory from ``-Xptxas -v`` and whether ptxas serialized its wgmma
+   products (a backward instance that spills or is serialized fails);
 3. K1 vs plain: the paged-attention kernel against its plain torch
    version on the card, for f32, bf16 and int8 pools, W=1 and W=4,
    G=1 and G=4, ragged pos0, TRASH pages, an inactive and an all-TRASH
@@ -35,13 +36,14 @@ printed lines:
    and the flagship's shape (32 folded heads x 4096 x 128, bf16,
    causal), where two runs must also agree bit for bit and the tile
    model must equal the kernels' own shared-memory sizes; the bf16
-   forward also at lengths that are no multiple of its tile (K3 and K2,
-   Lq/Lk 100/200, 130/130, 40/72); then each
+   kernels also at lengths that are no multiple of their tile (K3, K2
+   and K4, Lq/Lk 100/200, 130/130, 40/72; K4 also at its two-warpgroup
+   tiles for D 64, 256/384); then each
    flash kernel's time at that shape (L2 flushed) beside its plain
    version's, one SDPA call's (forward for K2/K3, its backward for K4)
    and its bound (bytes over 3.35 TB/s or visible-key flops over 989
    TFLOP/s), the forward at every tile pair its bf16 kernel takes and
-   the backward at other tile pairs that fit;
+   each bf16 backward kernel at each of its pairs;
 5. serve at full width in bf16 (embed 1024, 8 heads x 128, depth 4,
    vocab 2048): 16 requests, prompts 64-512, 64 generated tokens, 8
    slots, block_len 16, attention through K1; continuous and sequential
@@ -78,9 +80,9 @@ printed lines:
    then ``run_onesided`` at the reference's message size in auto mode
    (SUCCESS, checksum and plausibility gates, the launches of streamed,
    multi and inplace) and with ``kernel="mono"``, and the ``p2p`` CLI;
-   then the ``redesign`` line: K3's, K2's and K8a's ms beside their
-   times before the redesign (PERF.md's 4.485, 4.539 and 4.023 ms),
-   their library call's and their bound;
+   then the ``redesign`` line: K3's, K2's, K4's (dq, dk/dv) and K8a's
+   ms beside their times before the redesign (PERF.md's 4.485, 4.539,
+   4.925, 6.599 and 4.023 ms), their library call's and their bound;
 10. the concurrency suite: the busy-wait kernel K6 against its plain
     version bit for bit (rows 1, 3, 8, 9, 64 at 0-4000 trips), the
     copy-and-compute kernel K7 likewise in
@@ -204,11 +206,15 @@ PUT_FULL = (92160, 512)  # the reference's message size as rows x cols
 # table, measured by this script on NVIDIA H100 80GB HBM3, 700.00 W),
 # set beside this run's
 REDESIGNED_BEFORE_MS = {"flash_block": 4.485, "flash_attention": 4.539,
-                        "local_put": 4.023}
-# kernel library -> the kernels redesigned for the card whose -Xptxas -v
-# report the kernel_build line carries
+                        "flash_block_bwd_dq": 4.925,
+                        "flash_block_bwd_dkv": 6.599, "local_put": 4.023}
+# kernel library -> the kernels redesigned for the card (a name prefix)
+# whose -Xptxas -v report the kernel_build line carries
 REDESIGNED_LIBS = {"flash_attention": "flash_fwd_wgmma_kernel",
+                   "flash_attention_bwd": "flash_bwd_wgmma_",
                    "local_put": "local_put_mono_kernel"}
+# the backward's instances as ptxas_report names them
+BWD_WGMMA = re.compile(r"flash_bwd_wgmma_(dq|dkv)_kernel<D=(\d+),NC=(\d+)>")
 
 
 def emit(obj) -> None:
@@ -224,8 +230,9 @@ def ptxas_report(log: str, prefix: str) -> dict:
     """Registers, spills and static shared memory of each kernel whose
     name starts with ``prefix`` in an ``nvcc -Xptxas -v`` log, and
     whether ptxas serialized its wgmma products (C7513).  The wgmma
-    forward's instances are named by their template arguments (D,
-    block_k, consumer warpgroups)."""
+    kernels' instances are named by their template arguments (the
+    forward's D, block_k, consumer warpgroups; the backward's D and
+    consumer warpgroups)."""
     out, cur, serialized = {}, None, set()
     for ln in log.splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties "
@@ -252,11 +259,13 @@ def ptxas_report(log: str, prefix: str) -> dict:
         out[name]["wgmma_serialized"] = True
 
     def pretty(name):
-        t = re.search(r"ILi(\d+)ELi(\d+)ELi(\d+)E", name)
-        if t:
-            return (f"{prefix}<D={t.group(1)},BK={t.group(2)},"
-                    f"NC={t.group(3)}>")
-        return prefix
+        t = re.search(r"\d(flash_\w+?_kernel)I((?:Li\d+E)+)E", name)
+        if not t:
+            return prefix
+        args = re.findall(r"Li(\d+)E", t.group(2))
+        labels = ("D", "BK", "NC") if len(args) == 3 else ("D", "NC")
+        return (t.group(1) + "<"
+                + ",".join(f"{a}={b}" for a, b in zip(labels, args)) + ">")
     return {pretty(n): r for n, r in out.items()}
 
 
@@ -505,33 +514,42 @@ def flash_case(torch, F, name, *, lq, lk, h, d, dtype, causal, q_off=0,
     return errs, (q, k, v, do, lse, delta)
 
 
-def flash_fwd_ragged(torch, F):
-    """The bf16 forward at lengths that are no multiple of its tile (its
-    TMA boxes read zeros past the end, it masks keys past Lk and stores
-    no row past Lq): K3 and K2 against their plain versions at
-    FLASH_TOL, causal and not, D 64 and 128.  Returns the worst
-    relative error of each."""
-    worst = {"flash_block": 0.0, "flash_attention": 0.0}
+def flash_ragged(torch, F):
+    """The bf16 kernels at lengths that are no multiple of their tiles
+    (their TMA boxes read zeros past the end, they mask keys past Lk and
+    store no row past Lq): K3, K2 and K4 against their plain versions at
+    FLASH_TOL, causal and not, D 64 and 128; and at D 64 with the
+    default request, K4's two-warpgroup tiles (256/384).  Returns the
+    worst relative error of each kernel."""
+    worst = dict.fromkeys(FLASH_KERNELS, 0.0)
     for i, (lq, lk, d, causal) in enumerate((
             (100, 200, 128, True), (100, 200, 64, False),
-            (130, 130, 128, True), (40, 72, 64, True))):
+            (130, 130, 128, True), (40, 72, 64, True),
+            (256, 384, 64, True), (256, 384, 64, False))):
         g = torch.Generator().manual_seed(200 + i)
-        q, k, v = (torch.randn((n, 3, d), generator=g).to(DEVICE,
-                                                          torch.bfloat16)
-                   for n in (lq, lk, lk))
+        q, k, v, do = (torch.randn((n, 3, d), generator=g).to(
+            DEVICE, torch.bfloat16) for n in (lq, lk, lk, lq))
         o, m, l = F.flash_block(q, k, v, 0, 0, causal=causal)
         ro, rm, rl = F.flash_block_reference(q, k, v, 0, 0, causal)
         out = F.flash_attention(q, k, v, causal=causal)
+        out_ref, lse = F._row_stats(ro, rm, rl)
+        delta = F._delta(do, out_ref.to(torch.bfloat16))
+        got = F.flash_block_bwd(q, k, v, do, lse, delta, causal=causal)
+        want = F.flash_block_bwd_reference(q, k, v, do, lse, delta, 0, 0,
+                                           causal)
         errs = {"flash_block": max(_rel(o, ro)[0], _rel(m, rm)[0],
                                    _rel(l, rl)[0]),
                 "flash_attention": _rel(
-                    out, F.flash_attention_reference(q, k, v, causal))[0]}
+                    out, F.flash_attention_reference(q, k, v, causal))[0],
+                "flash_block_bwd_dq": _rel(got[0], want[0])[0],
+                "flash_block_bwd_dkv": max(_rel(got[1], want[1])[0],
+                                           _rel(got[2], want[2])[0])}
         for n, r in errs.items():
             worst[n] = max(worst[n], r)
     torch.cuda.synchronize()
     bad = {n: r for n, r in worst.items() if not r <= FLASH_TOL["bfloat16"]}
     if bad:
-        raise AssertionError(f"ragged bf16 forward past "
+        raise AssertionError(f"ragged bf16 flash kernels past "
                              f"{FLASH_TOL['bfloat16']}: {bad}")
     return worst
 
@@ -577,7 +595,7 @@ def phase_flash_kernels(torch, F, tuning):
         err[n] = max(err[n], a)
         worst[n] = max(worst[n], r)
     q, k, v, do, lse, delta = inputs
-    ragged = flash_fwd_ragged(torch, F)
+    ragged = flash_ragged(torch, F)
     # no atomics: a second run gives the same bits
     again = (F.flash_block(q, k, v, 0, 0, causal=True),
              F.flash_block_bwd(q, k, v, do, lse, delta, causal=True,
@@ -589,16 +607,16 @@ def phase_flash_kernels(torch, F, tuning):
                   for a, b in zip(x, y))
     # the shared-memory model in Python is the kernels' own
     fwd_t = F._blocks(q, k, ("fwd",), 1024, 1024)
-    bwd_t = F._blocks(q, k, ("dq", "dkv"), 1024, 1024)
+    bwd_t = F._bwd_tiles(q, k, 1024, 1024)  # {"dq": pair, "dkv": pair}
     lib_f, lib_b = F._library("flash_attention"), F._library(
         "flash_attention_bwd")
     model = {
         "fwd": (tuning.smem_bytes("fwd", *fwd_t, 128, 2),
                 lib_f.flash_fwd_smem_bytes(2, *fwd_t, 128)),
-        "dq": (tuning.smem_bytes("dq", *bwd_t, 128, 2),
-               lib_b.flash_bwd_smem_bytes(0, 2, *bwd_t, 128)),
-        "dkv": (tuning.smem_bytes("dkv", *bwd_t, 128, 2),
-                lib_b.flash_bwd_smem_bytes(1, 2, *bwd_t, 128)),
+        "dq": (tuning.smem_bytes("dq", *bwd_t["dq"], 128, 2),
+               lib_b.flash_bwd_smem_bytes(0, 2, *bwd_t["dq"], 128)),
+        "dkv": (tuning.smem_bytes("dkv", *bwd_t["dkv"], 128, 2),
+                lib_b.flash_bwd_smem_bytes(1, 2, *bwd_t["dkv"], 128)),
     }
     emit({"phase": "flash_vs_plain", "cases": len(cases) + 1,
           "tolerance_rel": FLASH_TOL, "max_rel_err": worst,
@@ -606,7 +624,7 @@ def phase_flash_kernels(torch, F, tuning):
           "max_abs_err": err, "flagship_rel_err": {
               n: r for n, (r, _) in errs.items()},
           "flagship_bitwise_repeat": bitwise,
-          "ragged_fwd_rel_err": ragged, "tiles_fwd": fwd_t,
+          "ragged_rel_err": ragged, "tiles_fwd": fwd_t,
           "tiles_bwd": bwd_t, "smem_model_vs_kernel": model})
     if not bitwise:
         raise AssertionError("flash kernels: two runs differ in bits")
@@ -633,7 +651,7 @@ def phase_flash_time(torch, F, timing, spec, inputs, fwd_t, bwd_t):
     }
     for name in ("dq", "dkv"):
         kern[f"flash_block_bwd_{name}"] = t(lambda name=name: F._launch_bwd(
-            q, k, v, do, lse, delta, 0, 0, True, d**-0.5, *bwd_t, 1,
+            q, k, v, do, lse, delta, 0, 0, True, d**-0.5, bwd_t, 1,
             kernels=(name,)))
     plain_fwd = t(lambda: F.flash_block_reference(q, k, v, 0, 0, True))
     plain = {
@@ -678,14 +696,19 @@ def phase_flash_time(torch, F, timing, spec, inputs, fwd_t, bwd_t):
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         }
     # every tile pair the bf16 forward takes (the default, the 1024 x
-    # 1024 request's, is the largest), and other backward pairs that fit
-    sweep = {"fwd": {}, "bwd": {}}
+    # 1024 request's, is the largest), and every pair of each bf16
+    # backward kernel (one or two consumer warpgroups)
+    sweep = {"fwd": {}, "dq": {}, "dkv": {}}
     for tiles in itertools.product(F.FWD_BF16_SIDES, repeat=2):
         sweep["fwd"][str(tiles)] = t(lambda tiles=tiles: F._launch_fwd(
             q, k, v, 0, 0, True, d**-0.5, *tiles, 1, emit_stats=True))
-    for tiles in ((64, 64), (32, 64), (64, 32), (32, 32)):
-        sweep["bwd"][str(tiles)] = t(lambda tiles=tiles: F._launch_bwd(
-            q, k, v, do, lse, delta, 0, 0, True, d**-0.5, *tiles, 1))
+    for side in F.BWD_BF16_SIDES:
+        for name, tiles in (("dq", (side, F.BWD_STREAM)),
+                            ("dkv", (F.BWD_STREAM, side))):
+            sweep[name][str(tiles)] = t(
+                lambda name=name, tiles=tiles: F._launch_bwd(
+                    q, k, v, do, lse, delta, 0, 0, True, d**-0.5,
+                    {name: tiles}, 1, kernels=(name,)))
     emit({"phase": "flash_tiles", "ms_by_tile": sweep,
           "chosen": {"fwd": fwd_t, "bwd": bwd_t}})
     emit({"phase": "flash_time", "shape": f"BH{h} L{lq} D{d} bf16 causal, "
@@ -901,8 +924,8 @@ def phase_flagship_profile(torch, timing, fl, tr, unprofiled_step_s):
     if busy_s <= 0:
         raise AssertionError("the flagship profile holds no device time")
     share = {}  # the flagship is bf16: its forward is the wgmma kernel
-    for key in ("flash_fwd_wgmma_kernel", "flash_bwd_dq_kernel",
-                "flash_bwd_dkv_kernel"):
+    for key in ("flash_fwd_wgmma_kernel", "flash_bwd_wgmma_dq_kernel",
+                "flash_bwd_wgmma_dkv_kernel"):
         share[key] = sum(dev_us(e) for e in events if key in e.key) / 1e6 \
             / busy_s
     top = sorted(events, key=dev_us, reverse=True)[:8]
@@ -2157,19 +2180,29 @@ def phase_kernel_build(torch, libs, F, op):
     """The redesigned kernels as built: each instance's registers,
     spills and static shared memory from ``-Xptxas -v``, whether ptxas
     serialized its wgmma products, and the dynamic shared memory it
-    launches with (the wgmma forward's from its library, the mono put's
-    at the full buffer on this card)."""
+    launches with (the wgmma kernels' from their library, the mono put's
+    at the full buffer on this card).  A backward instance that spills
+    or whose products ptxas serialized fails."""
     report = {}
     for lib, prefix in REDESIGNED_LIBS.items():
         report.update(ptxas_report(
             libs[lib].with_suffix(".log").read_text(), prefix))
     lib_f = F._library("flash_attention")
+    lib_b = F._library("flash_attention_bwd")
     for name, row in report.items():
         t = re.search(r"D=(\d+),BK=(\d+),NC=(\d+)", name)
         if t:
             d, bk, nc = map(int, t.groups())
             row["dynamic_smem"] = lib_f.flash_fwd_smem_bytes(2, 64 * nc, bk,
                                                              d)
+        t = BWD_WGMMA.fullmatch(name)
+        if t:
+            which = int(t.group(1) == "dkv")
+            d, nc = int(t.group(2)), int(t.group(3))
+            tiles = ((F.BWD_STREAM, 64 * nc) if which
+                     else (64 * nc, F.BWD_STREAM))
+            row["dynamic_smem"] = lib_b.flash_bwd_smem_bytes(which, 2,
+                                                             *tiles, d)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     n = PUT_FULL[0] * PUT_FULL[1] * 4
     span = op.mono_span(n, sms)
@@ -2178,6 +2211,13 @@ def phase_kernel_build(torch, libs, F, op):
         dynamic_smem=128 + 2 * min(span, op.STAGE_BYTES),
         blocks=-(-n // span), span_bytes=span)
     emit({"phase": "kernel_build", "kernels": report})
+    bwd = {n: r for n, r in report.items() if BWD_WGMMA.fullmatch(n)}
+    bad = [n for n, r in bwd.items() if r.get("spill_stores")
+           or r.get("spill_loads") or r["wgmma_serialized"]]
+    if len(bwd) != 8 or bad:
+        raise AssertionError(f"bf16 backward build: {len(bwd)} of 8 "
+                             f"instances reported; spilled or serialized: "
+                             f"{bad}")
 
 
 def main() -> int:

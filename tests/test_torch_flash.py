@@ -265,13 +265,19 @@ def test_tile_fit_and_tuned_defaults(tmp_path):
     fits 227 KB in every kernel it serves, halving the larger side."""
     budget = tuning.H100_SMEM_OPTIN
     # the flagship's bf16 D=128 tiles from the 1024 x 1024 request: the
-    # wgmma forward's largest, two consumer warpgroups by 128 keys
+    # wgmma forward's largest, two consumer warpgroups by 128 keys; the
+    # backward's dq two warpgroups of rows by 64 keys, its dk/dv 64 rows
+    # by two warpgroups of keys (a pair each: asking for both is refused)
     assert tuning._auto_block(4096, 4096, 128, 2, ("fwd",), 1024,
                               1024) == (128, 128)
-    assert tuning._auto_block(4096, 4096, 128, 2, ("dq", "dkv"), 1024,
-                              1024) == (64, 64)
-    for kinds in (("fwd",), ("dq", "dkv")):
-        for ib in (2, 4):
+    assert tuning._auto_block(4096, 4096, 128, 2, ("dq",), 1024,
+                              1024) == (128, 64)
+    assert tuning._auto_block(4096, 4096, 128, 2, ("dkv",), 1024,
+                              1024) == (64, 128)
+    with pytest.raises(ValueError, match="a tile pair each"):
+        tuning._auto_block(4096, 4096, 128, 2, ("dq", "dkv"), 1024, 1024)
+    for kinds, ibs in ((("fwd",), (2, 4)), (("dq", "dkv"), (4,))):
+        for ib in ibs:
             for d in (64, 128):
                 bq, bk = tuning._auto_block(4096, 4096, d, ib, kinds, 1024,
                                             1024)
@@ -316,3 +322,51 @@ def test_bf16_forward_tiles_fit_and_mask_ragged_edges(d):
     k = _t(_np(6, (200, 2, d))).to(torch.bfloat16)
     o, m, l = tflash.flash_block(q, k, k, 0, 0, causal=True)
     assert o.shape == (100, 2, d) and m.shape == l.shape == (2, 100)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_bf16_backward_tiles_fit_and_mask_ragged_edges(d):
+    """The bf16 backward's pairs: dq owns 64 or 128 rows and streams 64
+    keys, dk/dv owns 64 or 128 keys and streams 64 rows; the owned side
+    is the largest <= the request that divides its length, else 64 (the
+    kernels mask the ragged edge), and every pair fits 227 KB.  A ragged
+    bf16 backward runs (on the CPU, its plain version)."""
+    budget = tuning.H100_SMEM_OPTIN
+    got = {"dq": set(), "dkv": set()}
+    for lq in (16, 64, 100, 192, 256, 4096):
+        for lk in (16, 64, 100, 192, 256, 4096):
+            for req in (16, 64, 100, 128, 1024):
+                bq, bk = tuning._auto_block(lq, lk, d, 2, ("dq",), req, req)
+                assert bq in tuning.BWD_BF16_SIDES
+                assert bk == tuning.BWD_STREAM
+                assert bq == 64 or (bq <= req and lq % bq == 0)
+                got["dq"].add((bq, bk))
+                bq, bk = tuning._auto_block(lq, lk, d, 2, ("dkv",), req,
+                                            req)
+                assert bq == tuning.BWD_STREAM
+                assert bk in tuning.BWD_BF16_SIDES
+                assert bk == 64 or (bk <= req and lk % bk == 0)
+                got["dkv"].add((bq, bk))
+    assert got == {"dq": {(s, 64) for s in tuning.BWD_BF16_SIDES},
+                   "dkv": {(64, s) for s in tuning.BWD_BF16_SIDES}}
+    for kind, pairs in got.items():
+        for bq, bk in pairs:
+            assert tuning.smem_bytes(kind, bq, bk, d, 2) <= budget
+    q = _t(_np(5, (100, 2, d))).to(torch.bfloat16)
+    k = _t(_np(6, (200, 2, d))).to(torch.bfloat16)
+    assert tflash._bwd_tiles(q, k, 1024, 1024) == {"dq": (64, 64),
+                                                   "dkv": (64, 64)}
+    assert tflash._bwd_tiles(k, k, 1024, 1024) == {"dq": (64, 64),
+                                                   "dkv": (64, 64)}
+    assert tflash._bwd_tiles(q[:64], k[:128], 1024, 1024) == {
+        "dq": (64, 64), "dkv": (64, 128)}
+    do = _t(_np(7, (100, 2, d))).to(torch.bfloat16)
+    lse, delta = _t(_np(8, (2, 100))), _t(_np(9, (2, 100)))
+    for causal in (False, True):
+        got = tflash.flash_block_bwd(q, k, k, do, lse, delta, 0, 0,
+                                     causal=causal)
+        want = tflash.flash_block_bwd_reference(q, k, k, do, lse, delta, 0,
+                                                0, causal)
+        for a, b in zip(got, want):
+            assert a.dtype == torch.float32
+            assert torch.equal(a, b)

@@ -68,7 +68,7 @@
 #include <type_traits>
 
 #include "flash_common.cuh"
-#include "../../kernels/csrc/hopper.cuh"
+#include "flash_wgmma.cuh"
 
 namespace flash {
 
@@ -203,7 +203,6 @@ int launch_fwd(int emit_stats, const void* q, const void* k, const void* v,
 
 // -- bf16: wgmma with TMA loads --------------------------------------------
 
-constexpr float LOG2E = 1.4426950408889634f;
 constexpr size_t FWD_BAR_BYTES = 256;  // 1 + 4 * STAGES mbarriers
 
 // K/V ring depth: 128 KB of k and v tiles in flight at bk 128 either way
@@ -237,11 +236,6 @@ __device__ __forceinline__ float quad_max(float x) {
 __device__ __forceinline__ float quad_sum(float x) {
   x += __shfl_xor_sync(0xffffffffu, x, 1);
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // round to nearest even
-  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 // The online-softmax state of a consumer thread's two rows (a: row ra,
@@ -294,19 +288,6 @@ __device__ __forceinline__ float2 online_softmax(float (&sc)[BK / 2], Rows& r,
   r.l_a = alpha.x * r.l_a + (sum_a[0] + sum_a[1]);
   r.l_b = alpha.y * r.l_b + (sum_b[0] + sum_b[1]);
   return alpha;
-}
-
-// P, rounded to bf16, as four registers per 16 keys: the A operand of
-// P V.  Written only once the previous P V is done, since a product
-// reads its register operand while it runs.
-template <int BK>
-__device__ __forceinline__ void pack_p(const float (&sc)[BK / 2],
-                                       uint32_t (&p)[BK / 16][4]) {
-#pragma unroll
-  for (int j = 0; j < BK / 8; ++j) {
-    p[j / 2][(j % 2) * 2] = pack_bf16(sc[4 * j], sc[4 * j + 1]);
-    p[j / 2][(j % 2) * 2 + 1] = pack_bf16(sc[4 * j + 2], sc[4 * j + 3]);
-  }
 }
 
 // One output row of a consumer thread: its D / 4 values o[4j + e],
@@ -365,17 +346,9 @@ __global__ void __launch_bounds__(Fwd<D, BK, NC>::THREADS, 1)
   const int h = blockIdx.x;
   const int row0 = (gridDim.y - 1 - blockIdx.y) * C::BQ;  // heaviest first
   const int rows = min(C::BQ, Lq - row0);
-  // the live tiles of rows up to q position q_last: first key at or
-  // before it
-  auto live = [&](long long q_last, int n) {
-    if (!causal) return n;
-    const long long t =
-        q_last < k_off ? 0 : (q_last - k_off) / stride / BK + 1;
-    return t < n ? static_cast<int>(t) : n;
-  };
-  const int n_tiles = live(
-      q_off + static_cast<long long>(row0 + rows - 1) * stride,
-      (Lk + BK - 1) / BK);
+  const int n_tiles = live_k_tiles(
+      causal, q_off + static_cast<long long>(row0 + rows - 1) * stride,
+      k_off, stride, BK, (Lk + BK - 1) / BK);
 
   if (threadIdx.x == 0) {
     hopper::bar_init(bars, 1);
@@ -439,7 +412,9 @@ __global__ void __launch_bounds__(Fwd<D, BK, NC>::THREADS, 1)
   const uint32_t q_wg = sq + wgu * 64 * 128;
   // the tiles this warpgroup computes; the block's later live tiles are
   // wholly above its rows
-  const int n_wg = wrows > 0 ? live(wq_last, n_tiles) : 0;
+  const int n_wg =
+      wrows > 0 ? live_k_tiles(causal, wq_last, k_off, stride, BK, n_tiles)
+                : 0;
 
   // S = Q K^T of slot s, 16 columns of D per product, and O += P V of
   // slot s, 16 keys per product (V [keys, D] is the transposed,
@@ -462,28 +437,8 @@ __global__ void __launch_bounds__(Fwd<D, BK, NC>::THREADS, 1)
     for (int kk = 0; kk < BK / 16; ++kk)
       hopper::wgmma_rs(o, p[kk], dv + kk * 128);
   };
-  // -inf where the tile crosses the diagonal or the end of k: key c of
-  // the tile is visible to a row while c <= its last visible column
   auto mask = [&](float (&sc)[BK / 2], int it) {
-    const int col0 = it * BK, cols = min(BK, Lk - col0);
-    const long long k_first = k_off + static_cast<long long>(col0) * stride;
-    const long long k_last =
-        k_off + static_cast<long long>(col0 + cols - 1) * stride;
-    if (!((causal && wq_first < k_last) || cols < BK)) return;
-    auto last_col = [&](long long q_pos) {
-      if (!causal) return cols - 1;
-      if (q_pos < k_first) return -1;
-      const long long c = (q_pos - k_first) / stride;
-      return static_cast<int>(c < cols - 1 ? c : cols - 1);
-    };
-    const int last_a = last_col(qa) - cq, last_b = last_col(qb) - cq;
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        if (8 * j + e > last_a) sc[4 * j + e] = -INFINITY;
-        if (8 * j + e > last_b) sc[4 * j + 2 + e] = -INFINITY;
-      }
+    mask_keys<BK>(sc, it, Lk, causal, k_off, stride, wq_first, qa, qb, cq);
   };
   auto release = [&](uint32_t bar) {
     __syncwarp();
@@ -523,7 +478,7 @@ __global__ void __launch_bounds__(Fwd<D, BK, NC>::THREADS, 1)
     release(free_k(0));
     mask(sc, 0);
     online_softmax<BK>(sc, r, scale);
-    pack_p<BK>(sc, p);
+    pack_a<BK>(sc, p);  // P: the A operand of P V
   }
   // tile it: S_it = Q K_it^T and O += P_{it-1} V_{it-1} in flight
   // together; the softmax of S_it runs while P V is on the tensor cores
@@ -557,7 +512,7 @@ __global__ void __launch_bounds__(Fwd<D, BK, NC>::THREADS, 1)
       o[4 * j + 2] *= alpha.y;
       o[4 * j + 3] *= alpha.y;
     }
-    pack_p<BK>(sc, p);
+    pack_a<BK>(sc, p);  // P: the A operand of P V
   };
   // the leading tiles need no mask: full, and wholly at or below the
   // diagonal for every row of the warpgroup; the rest go through mask()
@@ -608,55 +563,6 @@ __global__ void __launch_bounds__(Fwd<D, BK, NC>::THREADS, 1)
   if (rb < Lq)
     store_row<D, 2>(o, rb, r.m_b, l_b, o_out, m_out, l_out, Lq, H, h, cq,
                     lane, emit_stats);
-}
-
-// cuTensorMapEncodeTiled from the driver through the runtime, so the
-// library needs no link against libcuda
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-inline EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found{};
-#if CUDART_VERSION >= 12050
-    cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                            cudaEnableDefault, &found);
-#endif
-    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// bf16 [L, H, D] at `base` as a 3-D tensor map of 128-byte swizzled
-// boxes [rows, 1, 64]; rows past L read as zeros
-inline int tile_map(CUtensorMap* map, const void* base, int L, int H, int D,
-                    int rows) {
-  EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D),
-                              static_cast<cuuint64_t>(H),
-                              static_cast<cuuint64_t>(L)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(D) * 2,
-                                 static_cast<cuuint64_t>(H) * D * 2};
-  const cuuint32_t box[3] = {64, 1, static_cast<cuuint32_t>(rows)};
-  const cuuint32_t step[3] = {1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-                        const_cast<void*>(base), dims, strides, box, step,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <int D, int BK, int NC>

@@ -1,30 +1,25 @@
-// Shared pieces of the flash-attention kernels (flash_attention.cu,
-// flash_attention_bwd.cu) for Hopper (sm_90a).
+// Shared pieces of the f32 flash-attention kernels (flash_attention.cu,
+// flash_attention_bwd.cu) for Hopper (sm_90a); the bf16 kernels' are in
+// flash_wgmma.cuh.
 //
 // Layout: q/k/v/do are [L, H, D] row-major (the JAX package's layout;
 // the train step folds batch into H); row statistics are [H, L] f32.
 // A thread block stages tiles of one head into shared memory, each
 // region 128-B aligned, rows padded by 16 B (input dtype) or 4 floats
-// (f32) so tensor-core fragment loads spread over the banks.  The
-// Python model of these regions is tpu_patterns_torch/longctx/tuning.py
-// ::smem_bytes; the *_smem_bytes entry points below must agree with it.
+// (f32).  The Python model of these regions is tpu_patterns_torch/
+// longctx/tuning.py::smem_bytes; the *_smem_bytes entry points must
+// agree with it.
 //
-// Products: C (f32, shared) = or += A . B over shared tiles.  bf16
-// inputs run them on the tensor cores through WMMA (16x16x16 bf16
-// fragments, f32 accumulate: the products of bf16 values are exact and
-// sum in f32, as the Pallas kernels' dots with
-// preferred_element_type=f32).  f32 inputs run scalar f32 FMAs: a
-// tensor-core f32 product would be TF32, which keeps ~3 digits.
+// Products: C (f32, shared) = or += A . B over shared tiles, as scalar
+// f32 FMAs: a tensor-core f32 product would be TF32, which keeps ~3
+// digits.
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stddef.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 namespace flash {
 
@@ -109,40 +104,9 @@ __device__ inline void load_row_stat(float* dst, const float* __restrict__ src,
 
 // A(i, k): A_T ? A[k * lda + i] : A[i * lda + k]   (M x K)
 // B(k, j): B_T ? B[j * ldb + k] : B[k * ldb + j]   (K x N)
-// C[i * ldc + j] (+)= sum_k A(i, k) B(k, j); M, N, K multiples of 16.
-// Each output tile belongs to one warp (tensor cores) or one thread
-// (scalar), so the sums are deterministic.  The caller syncs after.
-template <bool A_T, bool B_T>
-__device__ void mm_tc(const bf16* A, int lda, const bf16* B, int ldb, float* C,
-                      int ldc, int M, int N, int K, bool accumulate) {
-  using namespace nvcuda;
-  typedef typename std::conditional<A_T, wmma::col_major,
-                                    wmma::row_major>::type LA;
-  typedef typename std::conditional<B_T, wmma::col_major,
-                                    wmma::row_major>::type LB;
-  const int warp = threadIdx.x >> 5;
-  const int tn = N / 16;
-  const int tiles = (M / 16) * tn;
-  for (int t = warp; t < tiles; t += WARPS) {
-    const int i0 = (t / tn) * 16, j0 = (t % tn) * 16;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> c;
-    if (accumulate)
-      wmma::load_matrix_sync(c, C + i0 * ldc + j0, ldc, wmma::mem_row_major);
-    else
-      wmma::fill_fragment(c, 0.f);
-    for (int k0 = 0; k0 < K; k0 += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, LA> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, LB> b;
-      wmma::load_matrix_sync(a, A_T ? A + k0 * lda + i0 : A + i0 * lda + k0,
-                             lda);
-      wmma::load_matrix_sync(b, B_T ? B + j0 * ldb + k0 : B + k0 * ldb + j0,
-                             ldb);
-      wmma::mma_sync(c, a, b, c);
-    }
-    wmma::store_matrix_sync(C + i0 * ldc + j0, c, ldc, wmma::mem_row_major);
-  }
-}
-
+// C[i * ldc + j] (+)= sum_k A(i, k) B(k, j); M, N multiples of 4.
+// Each 4 x 4 output tile belongs to one thread, so the sums are
+// deterministic.  The caller syncs after.
 template <bool A_T, bool B_T>
 __device__ void mm_scalar(const float* A, int lda, const float* B, int ldb,
                           float* C, int ldc, int M, int N, int K,
@@ -177,14 +141,11 @@ __device__ void mm_scalar(const float* A, int lda, const float* B, int ldb,
   }
 }
 
-template <bool A_T, bool B_T, typename T>
-__device__ __forceinline__ void mm(const T* A, int lda, const T* B, int ldb,
-                                   float* C, int ldc, int M, int N, int K,
-                                   bool accumulate) {
-  if constexpr (std::is_same<T, bf16>::value)
-    mm_tc<A_T, B_T>(A, lda, B, ldb, C, ldc, M, N, K, accumulate);
-  else
-    mm_scalar<A_T, B_T>(A, lda, B, ldb, C, ldc, M, N, K, accumulate);
+template <bool A_T, bool B_T>
+__device__ __forceinline__ void mm(const float* A, int lda, const float* B,
+                                   int ldb, float* C, int ldc, int M, int N,
+                                   int K, bool accumulate) {
+  mm_scalar<A_T, B_T>(A, lda, B, ldb, C, ldc, M, N, K, accumulate);
 }
 
 // Shared-memory bytes of each kernel, region by region in carve order

@@ -12,12 +12,12 @@ Counterpart of ``tpu_patterns/longctx/flash.py`` on one device:
   plus K4 backward under autograd; without a gradient it runs K2, as the
   reference's ``custom_vjp`` primal does.
 
-On a CUDA tensor each wrapper launches its hand-written kernel
-(``longctx/csrc/flash_attention.cu`` for K2/K3: by dtype, the wgmma
-kernel with TMA loads for bfloat16 and the scalar kernel for float32,
-whose tensor-core product would be TF32;
-``longctx/csrc/flash_attention_bwd.cu`` for K4's dq and dk/dv kernels,
-built for sm_90a at first use) or raises; on a CPU tensor it runs its
+On a CUDA tensor each wrapper launches its hand-written kernels
+(``longctx/csrc/flash_attention.cu`` for K2/K3,
+``longctx/csrc/flash_attention_bwd.cu`` for K4's dq and dk/dv kernels;
+by dtype, the wgmma kernels with TMA loads for bfloat16 and the scalar
+kernels for float32, whose tensor-core product would be TF32; built for
+sm_90a at first use) or raises; on a CPU tensor it runs its
 plain-torch version (``*_reference``), which rounds at the same points
 as the kernels.  There is no other path.  Each launch adds one to its
 count in :data:`LAUNCHES`.
@@ -25,8 +25,10 @@ count in :data:`LAUNCHES`.
 Tiles: (block_q, block_k) is clamped by ``tuning._auto_block`` to the
 largest pair that fits the card's shared memory, and must divide the
 sequence lengths (the reference's error), except for the bfloat16
-forward, whose sides are 64 or 128 and whose kernel masks a ragged
-edge.  ``grid_mode="compact"`` keeps
+kernels, whose sides are 64 or 128 and which mask a ragged edge; from
+the one request the bfloat16 backward's dq and dk/dv kernels each take
+their own pair (:func:`_bwd_tiles`; the order in which they walk their
+tiles is :func:`bwd_schedule`).  ``grid_mode="compact"`` keeps
 the reference's validation (causal only; static zero offsets and unit
 stride; Lq == Lk for the backward).  The kernels themselves walk each
 q-tile's causally live k-tiles only, in ascending order, on both grid
@@ -42,6 +44,8 @@ import torch
 
 from tpu_patterns_torch.longctx.attention import causal_mask
 from tpu_patterns_torch.longctx.tuning import (
+    BWD_BF16_SIDES,
+    BWD_STREAM,
     DEFAULT_BLOCK_K,
     DEFAULT_BLOCK_Q,
     FWD_BF16_SIDES,
@@ -95,6 +99,51 @@ def _causal_pair_table_kmajor(nq: int, nk: int, bq: int,
         for pos, iq in enumerate(live):
             rows.append((jk, iq, int(pos == 0), int(pos == len(live) - 1)))
     return torch.tensor(rows, dtype=torch.int32).reshape(-1, 4).T.contiguous()
+
+
+# -- the bf16 backward kernels' tile walk -------------------------------------
+
+
+def _live_k_tiles(causal, q_last, k_off, stride, bk, n):
+    """The leading k-tiles of ``bk`` keys (``n`` in all) with a key at or
+    before query position ``q_last`` (``live_k_tiles`` in the source)."""
+    if not causal:
+        return n
+    t = 0 if q_last < k_off else (q_last - k_off) // stride // bk + 1
+    return min(t, n)
+
+
+def _first_q_tile(causal, k_pos, q_off, stride, bq, lq):
+    """The first q-tile of ``bq`` rows (``lq`` in all) with a row at or
+    after key position ``k_pos``; the tile count if none
+    (``first_q_tile`` in the source)."""
+    if not causal or k_pos <= q_off:
+        return 0
+    r = (k_pos - q_off + stride - 1) // stride  # the first row that sees it
+    return r // bq if r < lq else -(-lq // bq)
+
+
+def bwd_schedule(kind, lq, lk, bq, bk, causal=True, q_off=0, k_off=0,
+                 pos_stride=1):
+    """The walk of the bfloat16 backward kernel ``kind`` at tile (bq, bk),
+    as ``flash_attention_bwd.cu`` plans it: one (block's tile, [the
+    tiles it loads, in order]) per block of a head, in launch order.
+    "dq": a block owns a q-tile and loads k-tiles 0 .. its last live
+    one, the last q-tiles (the heaviest) first; "dkv": a block owns a
+    k-tile and loads q-tiles from its first live one to the last, the
+    first k-tiles (the heaviest) first.  Lengths may be ragged."""
+    nq, nk = -(-lq // bq), -(-lk // bk)
+    if kind == "dq":
+        return [(iq, list(range(_live_k_tiles(
+                    causal, q_off + (min((iq + 1) * bq, lq) - 1) * pos_stride,
+                    k_off, pos_stride, bk, nk))))
+                for iq in reversed(range(nq))]
+    if kind == "dkv":
+        return [(jk, list(range(_first_q_tile(
+                    causal, k_off + jk * bk * pos_stride, q_off, pos_stride,
+                    bq, lq), nq)))
+                for jk in range(nk)]
+    raise ValueError(f"unknown backward kernel {kind!r}")
 
 
 # -- plain versions -------------------------------------------------------------
@@ -181,13 +230,24 @@ def _blocks(q, k, kinds, block_q, block_k):
     lk = k.shape[0]
     bq, bk = _auto_block(lq, lk, d, q.element_size(), kinds, block_q,
                          block_k, smem_budget(q.device))
-    ragged_ok = kinds == ("fwd",) and q.dtype == torch.bfloat16
+    ragged_ok = len(kinds) == 1 and q.dtype == torch.bfloat16
     if (lq % bq or lk % bk) and not ragged_ok:
         raise ValueError(
             f"block sizes ({bq}, {bk}) must divide the sequence lengths "
             f"({lq}, {lk})"
         )
     return bq, bk
+
+
+def _bwd_tiles(q, k, block_q, block_k) -> dict[str, tuple[int, int]]:
+    """K4's (bq, bk) by kernel from the one request: a pair each for the
+    bfloat16 kernels (dq (64 or 128, 64), dk/dv (64, 64 or 128)), one
+    shared pair for the float32 ones."""
+    if q.element_size() == 2:
+        return {n: _blocks(q, k, (n,), block_q, block_k)
+                for n in ("dq", "dkv")}
+    pair = _blocks(q, k, ("dq", "dkv"), block_q, block_k)
+    return {"dq": pair, "dkv": pair}
 
 
 # -- kernel launches ------------------------------------------------------------
@@ -297,13 +357,28 @@ def _launch_fwd(q, k, v, q_off, k_off, causal, scale, bq, bk, pos_stride,
     return (o, m, l) if emit_stats else o
 
 
-def _launch_bwd(q, k, v, do, lse, delta, q_off, k_off, causal, scale, bq,
-                bk, pos_stride, kernels=("dq", "dkv")):
-    """K4's two kernels in order; ``kernels`` names a subset to time one
-    alone (the outputs of a kernel left out stay uninitialized)."""
+def _launch_bwd(q, k, v, do, lse, delta, q_off, k_off, causal, scale, tiles,
+                pos_stride, kernels=("dq", "dkv")):
+    """K4's two kernels in order, each at its pair of ``tiles`` (see
+    :func:`_bwd_tiles`).  The kernels are chosen by dtype: bfloat16 runs
+    the wgmma kernels (head_dim 64 or 128; dq tiles (64 or 128, 64),
+    dk/dv tiles (64, 64 or 128)), float32 the scalar ones.  A failed
+    build or launch raises; neither stands in for the other.
+    ``kernels`` names a subset to time one alone (the outputs of a
+    kernel left out stay uninitialized)."""
     _cuda_inputs("flash_block_bwd", q, k, v, do)
-    _check_tiles("flash_block_bwd", bq, bk)
     lq, h, d = q.shape
+    for name in kernels:
+        _check_tiles(f"flash_block_bwd {name}", *tiles[name])
+    if q.dtype == torch.bfloat16:
+        legal = {"dq": {(s, BWD_STREAM) for s in BWD_BF16_SIDES},
+                 "dkv": {(BWD_STREAM, s) for s in BWD_BF16_SIDES}}
+        if d not in (64, 128) or any(tuple(tiles[n]) not in legal[n]
+                                     for n in kernels):
+            raise ValueError(
+                f"flash_block_bwd: the bfloat16 kernels take head_dim 64 "
+                f"or 128, dq tiles (64 or 128, {BWD_STREAM}) and dk/dv "
+                f"tiles ({BWD_STREAM}, 64 or 128), not D={d}, {tiles}")
     lk = k.shape[0]
     stats = [t.contiguous().float() for t in (lse, delta)]
     for t in stats:
@@ -316,16 +391,16 @@ def _launch_bwd(q, k, v, do, lse, delta, q_off, k_off, causal, scale, bq,
     dv = torch.empty_like(dk)
     lib = _library("flash_attention_bwd")
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    shape = (lq, lk, h, d, bq, bk, int(causal), int(q_off), int(k_off),
-             int(pos_stride))
     ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
            lse.data_ptr(), delta.data_ptr())
     for which, name, outs in ((0, "dq", (dq,)), (1, "dkv", (dk, dv))):
         if name not in kernels:
             continue
+        bq, bk = tiles[name]
         fn = lib.flash_bwd_dq if which == 0 else lib.flash_bwd_dkv
-        rc = fn(_KIND[q.dtype], *ins, *(t.data_ptr() for t in outs), *shape,
-                scale, stream)
+        rc = fn(_KIND[q.dtype], *ins, *(t.data_ptr() for t in outs), lq, lk,
+                h, d, bq, bk, int(causal), int(q_off), int(k_off),
+                int(pos_stride), scale, stream)
         _raise_rc(f"flash_block_bwd {name}", rc, bq, bk, d,
                   lambda: lib.flash_bwd_smem_bytes(which, q.element_size(),
                                                    bq, bk, d))
@@ -385,17 +460,18 @@ def flash_block_bwd(q, k, v, do, lse, delta, q_off: int = 0,
     """K4: f32 (dq, dk, dv) of one (q-shard, kv-shard) pair.  q, do
     [Lq, H, D]; k, v [Lk, H, D]; lse, delta f32 [H, Lq] (the rows'
     global logsumexp and rowsum(dO * O)).  Offsets as
-    :func:`flash_block`.  One tile pair serves both kernels."""
+    :func:`flash_block`.  One request (block_q, block_k) serves both
+    kernels (:func:`_bwd_tiles`)."""
     lq, _, d = q.shape
     scale = _scale(d, scale)
     _check_grid(grid_mode, causal, q_off, k_off, pos_stride, lq,
                 k.shape[0], need_square=True)
-    bq, bk = _blocks(q, k, ("dq", "dkv"), block_q, block_k)
+    tiles = _bwd_tiles(q, k, block_q, block_k)
     if not _on_cuda("flash_block_bwd", q):
         return flash_block_bwd_reference(q, k, v, do, lse, delta, q_off,
                                          k_off, causal, scale, pos_stride)
     return _launch_bwd(q, k, v, do, lse, delta, q_off, k_off, causal,
-                       scale, bq, bk, pos_stride)
+                       scale, tiles, pos_stride)
 
 
 def _row_stats(o_unnorm, m, l):

@@ -10,10 +10,13 @@ working set is that of the CUDA kernels' own shared-memory tiles
 A (block_q, block_k) pair IS the kernels' tile: a q-tile of block_q rows
 loops over k-tiles of block_k keys inside one thread block.
 
-The bf16 forward (the wgmma kernel) takes tiles of 64 or 128 on either
-side, 64 query rows per consumer warpgroup, and masks a ragged edge, so
-its tile need not divide the lengths; the float32 forward and the
-backward kernels take multiples of 16 that divide them.
+The bf16 kernels (wgmma) take tiles of 64 or 128 a side, 64 rows or
+keys per consumer warpgroup, and mask a ragged edge, so their tile need
+not divide the lengths: the forward either pair, the backward's dq
+kernel (64 or 128 rows, 64 keys) and its dk/dv kernel (64 rows, 64 or
+128 keys) each its own pair from the one request.  The float32 kernels
+take multiples of 16 that divide the lengths, one pair for both
+backward kernels.
 """
 
 from __future__ import annotations
@@ -35,12 +38,16 @@ DEFAULT_BLOCK_K = 1024
 # An H100's opt-in shared memory per block (Hopper tuning guide): the
 # budget for CPU tensors, which have no card to ask.
 H100_SMEM_OPTIN = 232448
-# The kernels' tiles are multiples of the 16 x 16 tensor-core fragment.
+# The float32 kernels' tiles are multiples of 16 (flash_common.cuh).
 MIN_TILE = 16
 # The bf16 forward's tile sides, largest first (64 rows per warpgroup).
 FWD_BF16_SIDES = (128, 64)
+# The bf16 backward's: the side a block owns (dq's rows, dk/dv's keys),
+# largest first, and the side it streams (dq's keys, dk/dv's rows).
+BWD_BF16_SIDES = (128, 64)
+BWD_STREAM = 64
 _REGION_ALIGN = 128  # every shared-memory region starts 128-B aligned
-_BARRIER_BYTES = 256  # the bf16 forward's mbarriers
+_BARRIER_BYTES = 256  # the bf16 kernels' mbarriers
 
 _TUNED_CACHE: dict[tuple[str, float], tuple[int, int]] = {}
 
@@ -72,18 +79,32 @@ def fwd_stages(d: int) -> int:
     return 4 if d <= 64 else 2
 
 
+def bwd_stages(d: int) -> int:
+    """Depth of the bf16 backward's ring of streamed tiles: 64 KB of
+    tiles (k and v for dq, q and do for dk/dv) at 64 a tile for D 128
+    (2 stages) and D 64 (4)."""
+    return 4 if d <= 64 else 2
+
+
 def smem_bytes(kind: str, bq: int, bk: int, d: int, in_bytes: int) -> int:
     """Dynamic shared memory of one thread block of kernel ``kind``
     ("fwd", "dq" or "dkv") at tile (bq, bk), head_dim ``d`` and input
-    element size ``in_bytes``.  The bf16 forward: 1024 B of slack to
-    align its swizzled tiles, the q tile, :func:`fwd_stages` (k, v) tile
-    pairs and 256 B of mbarriers.  The others: the regions the kernel
-    carves, in order, each rounded up to 128 B; input-dtype rows are
-    padded by 16 B and float32 rows by 4 floats (bank spread;
-    tensor-core row strides)."""
-    if kind == "fwd" and in_bytes == 2:
-        return (1024 + bq * d * 2 + fwd_stages(d) * 2 * bk * d * 2
-                + _BARRIER_BYTES)
+    element size ``in_bytes``.  The bf16 kernels: 1024 B of slack to
+    align their swizzled tiles, the tiles a block loads once (the
+    forward's q, dq's q and do, dk/dv's k and v), the ring's tiles
+    (:func:`fwd_stages` (k, v) pairs; :func:`bwd_stages` (k, v) pairs
+    for dq, (q, do) pairs with their rows' f32 lse and delta for dk/dv)
+    and 256 B of mbarriers.  The float32 kernels: the regions the
+    kernel carves, in order, each rounded up to 128 B; rows are padded
+    by 16 B (bank spread)."""
+    if in_bytes == 2:
+        tile = d * 2  # bytes of one bf16 row
+        own, ring = {
+            "fwd": (bq * tile, fwd_stages(d) * 2 * bk * tile),
+            "dq": (2 * bq * tile, bwd_stages(d) * 2 * bk * tile),
+            "dkv": (2 * bk * tile, bwd_stages(d) * 2 * bq * (tile + 4)),
+        }[kind]
+        return 1024 + own + ring + _BARRIER_BYTES
     ldt = d + 16 // in_bytes  # staged q/k/v/do rows, input dtype
     lds = bk + 4  # float32 score rows
     ldp = bk + 16 // in_bytes  # probability / dS rows, input dtype
@@ -123,23 +144,30 @@ def _auto_block(lq: int, lk: int, d: int, in_bytes: int,
                 budget: int = H100_SMEM_OPTIN) -> tuple[int, int]:
     """Largest (block_q, block_k) pair <= the requested sizes (clamped to
     the sequence lengths, then halved, the larger side first) whose
-    shared memory fits ``budget`` in every kernel of ``kinds``.  The
-    bf16 forward alone (kinds ``("fwd",)``, ``in_bytes`` 2) takes each
-    side from :data:`FWD_BF16_SIDES`: the largest <= the request (64 at
-    least) that divides the length, else 64, whose ragged edge the
-    kernel masks."""
+    shared memory fits ``budget`` in every kernel of ``kinds``.  A bf16
+    kernel (``in_bytes`` 2; kinds ``("fwd",)``, ``("dq",)`` or
+    ``("dkv",)``, one at a time) takes each side it may choose from
+    :data:`FWD_BF16_SIDES` (:data:`BWD_BF16_SIDES`): the largest <= the
+    request (64 at least) that divides the length, else 64, whose ragged
+    edge the kernel masks; the backward's streamed side is
+    :data:`BWD_STREAM`."""
 
     def est(bq: int, bk: int) -> int:
         return max(smem_bytes(k, bq, bk, d, in_bytes) for k in kinds)
 
-    if kinds == ("fwd",) and in_bytes == 2:
-        def side(req: int, n: int) -> int:
-            return next(t for t in FWD_BF16_SIDES
-                        if t == FWD_BF16_SIDES[-1]
-                        or (t <= req and n % t == 0))
+    if in_bytes == 2 and ("dq" in kinds or "dkv" in kinds) and len(kinds) > 1:
+        raise ValueError("the bfloat16 backward kernels take a tile pair "
+                         "each: ask for ('dq',) and ('dkv',) apart")
+    if in_bytes == 2 and kinds in (("fwd",), ("dq",), ("dkv",)):
+        sides = FWD_BF16_SIDES if kinds == ("fwd",) else BWD_BF16_SIDES
 
-        bq, bk = side(block_q, lq), side(block_k, lk)
-        while est(bq, bk) > budget and max(bq, bk) > FWD_BF16_SIDES[-1]:
+        def side(req: int, n: int) -> int:
+            return next(t for t in sides
+                        if t == sides[-1] or (t <= req and n % t == 0))
+
+        bq = BWD_STREAM if kinds == ("dkv",) else side(block_q, lq)
+        bk = BWD_STREAM if kinds == ("dq",) else side(block_k, lk)
+        while est(bq, bk) > budget and max(bq, bk) > sides[-1]:
             if bq >= bk:
                 bq //= 2
             else:
