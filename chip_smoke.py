@@ -19,16 +19,24 @@ printed lines:
    one process per source, all at once; then the ``kernel_build`` line:
    each instance of the redesigned kernels (the bf16 wgmma forward of
    K2/K3, the bf16 wgmma backward of K4, dq and dk/dv, the all-SM mono
-   put K8a) with its registers, spills, static and dynamic shared
-   memory from ``-Xptxas -v`` and whether ptxas serialized its wgmma
-   products (a backward instance that spills or is serialized fails);
-3. K1 vs plain: the paged-attention kernel against its plain torch
-   version on the card, for f32, bf16 and int8 pools, W=1 and W=4,
-   G=1 and G=4, ragged pos0, TRASH pages, an inactive and an all-TRASH
-   row, at a small shape and at the serve slice's shape; at the slice's
-   shape the kernel's, the plain version's and one SDPA call's time
-   (``scaled_dot_product_attention`` on the gathered window, a yardstick
-   the package never calls) beside the device-memory bound;
+   and multi puts K8a and K8c, the split-page K1) with its registers,
+   spills, static and dynamic shared memory from ``-Xptxas -v`` and
+   whether ptxas serialized its wgmma products (a backward instance
+   that spills or is serialized fails);
+3. K1 vs plain: the split-page paged-attention kernel against its plain
+   torch version on the card, for f32, bf16 and int8 pools, W=1 and
+   W=4, G=1 and G=4, ragged pos0, TRASH pages, an inactive and an
+   all-TRASH row, at a small shape and at the serve slice's shape (with
+   int8 at W=4 and G=4, and split edges: a row whose window ends inside
+   the first split, a split whose pages are all TRASH between live
+   ones), the slice's cases again in splits of several stages, and a
+   long window (32 rows at the end of 4096-token windows, bf16); at the
+   slice's shape and the long window the kernel's, the plain version's,
+   one SDPA call's (``scaled_dot_product_attention`` on the gathered
+   window, the kernel table's yardstick) and the gather from the block
+   tables plus that SDPA call's times (each the median of 5 readings
+   of 20 calls, L2 flushed; the library calls are yardsticks the
+   package never makes) beside the device-memory bound;
 4. flash vs plain: K2 (``flash_attention``), K3 (``flash_block``) and
    K4 (``flash_block_bwd``: the dq and the dk/dv kernel) against their
    plain versions: causal and not, f32 and bf16, D 64 and 128, shard
@@ -68,8 +76,10 @@ printed lines:
    ``attention_reference`` (loss and every parameter's update), and one
    ``forward_shard`` under ``torch.no_grad``, which launches K2 once
    and matches the dense forward;
-9. the one-sided put: K8a's span on this card against its Python
-   mirror (``onesided.mono_span``); the four put kernels K8a-K8d
+9. the one-sided put: K8a's and K8c's spans on this card against their
+   Python mirrors (``onesided.mono_span``, ``onesided.multi_span``; K8c
+   takes 8 x (SMs // 8) blocks at the full buffer in 8 chunks); the
+   four put kernels K8a-K8d
    against their plain versions, bit for bit, on float32, bfloat16,
    int32 and int8 at edge shapes (0, 1, 2 and 97 rows, chunks above the
    row count, trailing
@@ -80,9 +90,10 @@ printed lines:
    then ``run_onesided`` at the reference's message size in auto mode
    (SUCCESS, checksum and plausibility gates, the launches of streamed,
    multi and inplace) and with ``kernel="mono"``, and the ``p2p`` CLI;
-   then the ``redesign`` line: K3's, K2's, K4's (dq, dk/dv) and K8a's
-   ms beside their times before the redesign (PERF.md's 4.485, 4.539,
-   4.925, 6.599 and 4.023 ms), their library call's and their bound;
+   then the ``redesign`` line: K3's, K2's, K4's (dq, dk/dv), K8a's, K1's
+   and K8c's ms beside their times before the redesign (PERF.md's
+   4.485, 4.539, 4.925, 6.599, 4.023, 0.1593 and 0.5195 ms), their
+   library call's and their bound;
 10. the concurrency suite: the busy-wait kernel K6 against its plain
     version bit for bit (rows 1, 3, 8, 9, 64 at 0-4000 trips), the
     copy-and-compute kernel K7 likewise in
@@ -112,7 +123,8 @@ printed lines:
     2^25; operands one element into a buffer; pinned host and managed
     inputs, where K5 must launch and its output stay in their memory);
     K5's time at 2^25 and 2^23 beside its plain version's, one
-    ``torch.add(out=)`` call's and its byte bound; ``run_allreduce`` at
+    ``torch.add(out=)`` call's and its byte bound (each the median of 5
+    readings of 20 calls, with their min and max); ``run_allreduce`` at
     the defaults (2^25 elements a rank, 4 ranks on the card, reps 5):
     xla ring, ring_opt and psum at float32, ring at int32 and bfloat16,
     pallas ring and ring_opt at float32, ring at int32 and at float32 in
@@ -207,12 +219,15 @@ PUT_FULL = (92160, 512)  # the reference's message size as rows x cols
 # set beside this run's
 REDESIGNED_BEFORE_MS = {"flash_block": 4.485, "flash_attention": 4.539,
                         "flash_block_bwd_dq": 4.925,
-                        "flash_block_bwd_dkv": 6.599, "local_put": 4.023}
-# kernel library -> the kernels redesigned for the card (a name prefix)
+                        "flash_block_bwd_dkv": 6.599, "local_put": 4.023,
+                        "paged_attention": 0.1593, "local_put_multi": 0.5195}
+# kernel library -> the kernels redesigned for the card (name prefixes)
 # whose -Xptxas -v report the kernel_build line carries
-REDESIGNED_LIBS = {"flash_attention": "flash_fwd_wgmma_kernel",
-                   "flash_attention_bwd": "flash_bwd_wgmma_",
-                   "local_put": "local_put_mono_kernel"}
+REDESIGNED_LIBS = {"flash_attention": ("flash_fwd_wgmma_kernel",),
+                   "flash_attention_bwd": ("flash_bwd_wgmma_",),
+                   "local_put": ("local_put_mono_kernel",
+                                 "local_put_multi_kernel"),
+                   "paged_attention": ("paged_attention_split_kernel",)}
 # the backward's instances as ptxas_report names them
 BWD_WGMMA = re.compile(r"flash_bwd_wgmma_(dq|dkv)_kernel<D=(\d+),NC=(\d+)>")
 
@@ -259,6 +274,12 @@ def ptxas_report(log: str, prefix: str) -> dict:
         out[name]["wgmma_serialized"] = True
 
     def pretty(name):
+        t = re.search(r"paged_attention_split_kernelI((?:Li\d+E)+)E", name)
+        if t:
+            args = re.findall(r"Li(\d+)E", t.group(1))
+            return ("paged_attention_split_kernel<"
+                    + ",".join(f"{a}={b}" for a, b in
+                               zip(("Q", "KV", "D"), args)) + ">")
         t = re.search(r"\d(flash_\w+?_kernel)I((?:Li\d+E)+)E", name)
         if not t:
             return prefix
@@ -378,6 +399,83 @@ def check_kernel(torch, pk, name, case, block_len, tol):
     return err
 
 
+def long_window_case(torch, *, b=32, n_pages=256, hkv=8, d=128, bl=16,
+                     seed=23):
+    """The long-window shape: ``b`` bf16 rows, each at the end of an
+    ``n_pages * bl``-token window of its own distinct pages (every block
+    of the pool but TRASH is some row's), W 1, H = Hkv."""
+    g = torch.Generator().manual_seed(seed)
+    n_blocks = 1 + b * n_pages
+    shape = (n_blocks, bl, hkv, d)
+    pool = {n: torch.randn(shape, generator=g).to(torch.bfloat16)
+            for n in ("k", "v")}
+    q = torch.randn((b, 1, hkv, d), generator=g).to(torch.bfloat16)
+    tables = (1 + torch.randperm(n_blocks - 1, generator=g)).to(
+        torch.int32).reshape(b, n_pages)
+    pos0 = torch.full((b,), n_pages * bl - 1, dtype=torch.int32)
+    active = torch.ones(b, dtype=torch.bool)
+    return ({n: t.to(DEVICE) for n, t in pool.items()}, q.to(DEVICE),
+            tables.to(DEVICE), pos0.to(DEVICE), active.to(DEVICE))
+
+
+def time_paged(torch, pk, timing, spec, case, block_len, flush):
+    """K1 on ``case``, its plain version, one SDPA call on the gathered
+    window (the table's library column, as in earlier runs) and the
+    gather from the block tables plus that SDPA (the closest library
+    route to the whole function), each read 5 times (median, min, max)
+    with the L2 flushed before every call; and the byte bound."""
+    pool, q, tables, pos0, active = case
+    args = (q, pool["k"], pool["v"], tables, pos0, active)
+    kw = dict(block_len=block_len, k_scale=pool.get("ks"),
+              v_scale=pool.get("vs"))
+    b, w, h, d = q.shape
+    hkv = pool["k"].shape[2]
+    n_pages = tables.shape[1]
+    L = n_pages * block_len
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def gathered():
+        tb = tables.long()
+        kg = pool["k"][tb].movedim(3, 1).reshape(b, hkv, L, d)
+        vg = pool["v"][tb].movedim(3, 1).reshape(b, hkv, L, d)
+        k_pos = torch.arange(L, device=DEVICE)
+        visible = ((k_pos[None, :] <= pos0[:, None])
+                   & (tables != 0).repeat_interleave(block_len, dim=1))
+        return kg, vg, visible[:, None, None, :]
+
+    kg, vg, mask = gathered()
+    qh = q.transpose(1, 2)
+
+    def gather_sdpa():
+        kg_, vg_, mask_ = gathered()
+        return sdpa(qh, kg_, vg_, attn_mask=mask_)
+
+    def t(fn):
+        return timing.cuda_time_repeated_ms(fn, before=flush.zero_)
+
+    row = {
+        "kernel": t(lambda: pk.paged_block(*args, **kw)),
+        "plain": t(lambda: pk.paged_block_reference(*args, **kw)),
+        "library_sdpa": t(lambda: sdpa(qh, kg, vg, attn_mask=mask)),
+        "library_gather_sdpa": t(gather_sdpa),
+    }
+    nbytes, flops = kernel_bytes_and_ops(case, block_len)
+    bytes_ms = nbytes / (spec["hbm_gbps"] * 1e9) * 1e3
+    ops_ms = flops / (spec["f32_tflops"] * 1e12) * 1e3
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    pps = pk.split_pages(n_pages, block_len, b, hkv,
+                         d * pool["k"].element_size(), sms)
+    row.update(
+        bytes=nbytes, flops=flops, bound_ms=max(bytes_ms, ops_ms),
+        bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+        pages_per_split=pps, blocks=b * hkv * -(-n_pages // pps),
+        pages_per_stage=min(pps, pk.stage_pages(
+            block_len, d * pool["k"].element_size())),
+    )
+    row["share_of_bound"] = row["bound_ms"] / row["kernel"]["ms"]
+    return row
+
+
 def phase_kernels(torch, pk, timing, spec):
     results = {"cases": 0, "max_abs_err": 0.0}
     tols = {"f32": 2e-5, "bf16": 1e-4, "int8": 1e-4}
@@ -401,56 +499,59 @@ def phase_kernels(torch, pk, timing, spec):
         "slice_f32_w1_g1": dict(kind="f32", w=1, h=8, hkv=8),
         "slice_int8_w1_g4": dict(kind="int8", w=1, h=8, hkv=2, q_bf16=True),
         "slice_bf16_w4_g1": dict(kind="bf16", w=4, h=8, hkv=8),
+        "slice_int8_w4_g4": dict(kind="int8", w=4, h=8, hkv=2, q_bf16=True),
+        # split edges, at the kernel's own split of the bf16 serve shape:
+        # row 0's window ends inside the first split, and every page of
+        # row 1's second split is TRASH between live ones
+        "split_edges_bf16_w4_g1": dict(kind="bf16", w=4, h=8, hkv=8),
     }
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    pps = pk.split_pages(36, 16, 8, 8, 128 * 2, sms)
     cases = {}
     for name, kw in slice_cases.items():
         cases[name] = make_case(
             torch, b=8, d=128, bl=16, n_pages=36,
             n_blocks=max(n_blocks, 217), seed=17, lens=lens, **kw
         )
+        if name.startswith("split_edges"):
+            _, _, tables, pos0, _ = cases[name]
+            pos0[0] = pps * 16 // 2
+            tables[1, pps: 2 * pps] = 0
         err = check_kernel(torch, pk, name, cases[name], 16,
                            tols[kw["kind"]])
         results["cases"] += 1
         results["max_abs_err"] = max(results["max_abs_err"], err)
-    emit({"phase": "kernel_vs_plain", **results})
+    # the same cases in splits of several stages (the long-window plan,
+    # which these shapes do not reach on their own)
+    wave = pk.WAVE_BLOCKS
+    pk.WAVE_BLOCKS = 0
+    try:
+        for name, case in cases.items():
+            err = check_kernel(torch, pk, name + "_staged", case, 16,
+                               tols[slice_cases[name]["kind"]])
+            results["cases"] += 1
+            results["max_abs_err"] = max(results["max_abs_err"], err)
+    finally:
+        pk.WAVE_BLOCKS = wave
+    emit({"phase": "kernel_vs_plain", **results,
+          "serve_pages_per_split": pps})
 
-    # time the main path's shape (bf16 pool, W=1, G=1), L2 flushed
-    pool, q, tables, pos0, active = main = cases["slice_bf16_w1_g1"]
-    args = (q, pool["k"], pool["v"], tables, pos0, active)
+    # time the main path's shape (bf16 pool, W=1, G=1) and the long
+    # window, L2 flushed
     flush = torch.empty(64 << 20, dtype=torch.int32, device=DEVICE)
-    kernel_ms = timing.cuda_time_ms(
-        lambda: pk.paged_block(*args, block_len=16), before=flush.zero_
-    )
-    plain_ms = timing.cuda_time_ms(
-        lambda: pk.paged_block_reference(*args, block_len=16),
-        before=flush.zero_,
-    )
-    # the library yardstick: one SDPA call on the gathered window
-    b, w, h, d = q.shape
-    n_pages = tables.shape[1]
-    kg = pool["k"][tables.long()].movedim(3, 1).reshape(b, h, n_pages * 16, d)
-    vg = pool["v"][tables.long()].movedim(3, 1).reshape(b, h, n_pages * 16, d)
-    k_pos = torch.arange(n_pages * 16, device=DEVICE)
-    visible = ((k_pos[None, :] <= pos0[:, None])
-               & (tables != 0).repeat_interleave(16, dim=1))
-    mask = visible[:, None, None, :]
-    qh = q.transpose(1, 2)
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    library_ms = timing.cuda_time_ms(
-        lambda: sdpa(qh, kg, vg, attn_mask=mask), before=flush.zero_
-    )
-    nbytes, flops = kernel_bytes_and_ops(main, 16)
-    bytes_ms = nbytes / (spec["hbm_gbps"] * 1e9) * 1e3
-    ops_ms = flops / (spec["f32_tflops"] * 1e12) * 1e3
-    timed = {
-        "phase": "kernel_time", "shape": "B8 W1 H8 Hkv8 D128 bl16 pages36 "
-        "bf16, L2 flushed", "kernel_ms": kernel_ms, "plain_ms": plain_ms,
-        "library_ms": library_ms, "bytes": nbytes, "flops": flops,
-        "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-    }
-    emit(timed)
-    return results, timed
+    serve = time_paged(torch, pk, timing, spec, cases["slice_bf16_w1_g1"],
+                       16, flush)
+    emit({"phase": "kernel_time", "shape": "B8 W1 H8 Hkv8 D128 bl16 pages36 "
+          "bf16, L2 flushed", **serve})
+    long_case = long_window_case(torch)
+    err = check_kernel(torch, pk, "long_window_bf16", long_case, 16,
+                       tols["bf16"])
+    results["max_abs_err"] = max(results["max_abs_err"], err)
+    longw = time_paged(torch, pk, timing, spec, long_case, 16, flush)
+    del long_case
+    emit({"phase": "kernel_time", "shape": "B32 W1 H8 Hkv8 D128 bl16 "
+          "pages256 (4096-token windows) bf16, L2 flushed", **longw})
+    return results, serve, longw
 
 
 # -- phase 4: the flash kernels against their plain versions ----------------
@@ -833,7 +934,7 @@ def phase_profile(torch, eng_mod, timing, cfg, unprofiled_wall_s):
     if busy_s <= 0:
         raise AssertionError("the profile holds no device time")
     k1_s = sum(dev_us(e) for e in events
-               if "paged_attention_kernel" in e.key) / 1e6
+               if "paged_attention" in e.key) / 1e6
     top = sorted(events, key=dev_us, reverse=True)[:6]
     emit({
         "phase": "profile", "leg": cfg.dtype, "wall_s": wall_s,
@@ -1018,6 +1119,21 @@ def phase_put_vs_plain(torch, op):
     if any(spans[n] != op.mono_span(n, sms) for n in plan_ns):
         raise AssertionError(f"local_put.cu mono_span differs from "
                              f"onesided.mono_span: {spans}")
+    # K8c's plan likewise, at the full buffer in 1-200 chunks and at the
+    # small cases' chunks
+    n_full = PUT_FULL[0] * PUT_FULL[1] * 4
+    multi_plans = [(n_full // c, c) for c in (1, 3, 8, 200)] + [
+        (1, 1), (16, 200), (97 * 512 * 4, 1), (300 * 1001, 3)]
+    multi = {f"{cb}x{c}": lib.local_put_multi_span(cb, c, sms)
+             for cb, c in multi_plans}
+    if any(multi[f"{cb}x{c}"] != op.multi_span(cb, c, sms)
+           for cb, c in multi_plans):
+        raise AssertionError(f"local_put.cu multi_span differs from "
+                             f"onesided.multi_span: {multi}")
+    multi_blocks = len(op.multi_spans(n_full // 8, 8, sms))
+    if multi_blocks != 8 * (sms // 8):
+        raise AssertionError(f"K8c takes {multi_blocks} blocks at the full "
+                             f"buffer in 8 chunks, not {8 * (sms // 8)}")
     cases = 0
 
     def same(name, got, want):
@@ -1061,7 +1177,9 @@ def phase_put_vs_plain(torch, op):
     emit({"phase": "put_vs_plain", "cases": cases, "bit_exact": True,
           "dtypes": [str(d) for d in dtypes], "shapes": [*shapes, PUT_FULL],
           "stage_bytes": op.STAGE_BYTES, "sms": sms,
-          "mono_span_by_bytes": spans})
+          "mono_span_by_bytes": spans,
+          "multi_span_by_chunk_bytes_x_chunks": multi,
+          "multi_blocks_full_8_chunks": multi_blocks})
     return cases
 
 
@@ -1716,7 +1834,8 @@ def phase_accumulate_time(torch, ap, timing, spec):
     """K5's ms per launch at 2^25 (the ring's shard) and 2^23 (the
     bandwidth-optimal ring's chunk) float32, beside its plain version's,
     one ``torch.add(out=)`` call's and its byte bound (two inputs read
-    and one output written once: 12 bytes an element).  Both shapes move
+    and one output written once: 12 bytes an element).  Each time is
+    the median of 5 readings (with their min and max).  Both shapes move
     more than the 50 MB L2 a launch, so no flush."""
     rows = {}
     for n in (AR_FULL, AR_FULL // AR_WORLD):
@@ -1725,17 +1844,21 @@ def phase_accumulate_time(torch, ap, timing, spec):
         out = torch.empty_like(a)
 
         def t(fn):
-            return timing.cuda_time_ms(fn, reps=20, warmup=3)
+            return timing.cuda_time_repeated_ms(fn, reps=20, warmup=3)
 
+        kern, plain, lib = (t(lambda: ap.accumulate(a, b)),
+                            t(lambda: ap.accumulate_reference(a, b)),
+                            t(lambda: torch.add(a, b, out=out)))
         rows[n] = {
-            "ms": t(lambda: ap.accumulate(a, b)),
-            "plain_ms": t(lambda: ap.accumulate_reference(a, b)),
-            "library_ms": t(lambda: torch.add(a, b, out=out)),
+            "ms": kern["ms"], "ms_min": kern["min"], "ms_max": kern["max"],
+            "plain_ms": plain["ms"],
+            "library_ms": lib["ms"], "library_ms_min": lib["min"],
+            "library_ms_max": lib["max"],
             "bound_ms": 3 * n * 4 / (spec["hbm_gbps"] * 1e9) * 1e3,
             "bound_by": "bytes",
         }
-    emit({"phase": "accumulate_time", "shape": "float32, per launch",
-          "library": "torch.add(a, b, out=o)",
+    emit({"phase": "accumulate_time", "shape": "float32, per launch, "
+          "median of 5 readings of 20", "library": "torch.add(a, b, out=o)",
           **{f"n={n}": r for n, r in rows.items()}})
     return rows[AR_FULL]
 
@@ -2176,7 +2299,7 @@ def profile_concurrency_main() -> int:
     return 0
 
 
-def phase_kernel_build(torch, libs, F, op):
+def phase_kernel_build(torch, libs, F, op, pk):
     """The redesigned kernels as built: each instance's registers,
     spills and static shared memory from ``-Xptxas -v``, whether ptxas
     serialized its wgmma products, and the dynamic shared memory it
@@ -2184,9 +2307,10 @@ def phase_kernel_build(torch, libs, F, op):
     at the full buffer on this card).  A backward instance that spills
     or whose products ptxas serialized fails."""
     report = {}
-    for lib, prefix in REDESIGNED_LIBS.items():
-        report.update(ptxas_report(
-            libs[lib].with_suffix(".log").read_text(), prefix))
+    for lib, prefixes in REDESIGNED_LIBS.items():
+        for prefix in prefixes:
+            report.update(ptxas_report(
+                libs[lib].with_suffix(".log").read_text(), prefix))
     lib_f = F._library("flash_attention")
     lib_b = F._library("flash_attention_bwd")
     for name, row in report.items():
@@ -2210,6 +2334,21 @@ def phase_kernel_build(torch, libs, F, op):
     report["local_put_mono_kernel"].update(
         dynamic_smem=128 + 2 * min(span, op.STAGE_BYTES),
         blocks=-(-n // span), span_bytes=span)
+    span = op.multi_span(n // 8, 8, sms)
+    report["local_put_multi_kernel"].update(
+        dynamic_smem=128 + 2 * min(span, op.STAGE_BYTES),
+        blocks=len(op.multi_spans(n // 8, 8, sms)), span_bytes=span)
+    # K1 at the serve shape (bf16, G*W 1, D 128, 16 slots a page)
+    pps = pk.split_pages(36, 16, 8, 8, 256, sms)
+    lib_p = pk._library()
+    for name, row in report.items():
+        t = re.fullmatch(r"paged_attention_split_kernel<Q=(\d),KV=(\d),"
+                         r"D=(\d+)>", name)
+        if t and t.groups() == ("1", "1", "128"):
+            row.update(dynamic_smem=lib_p.paged_attention_smem_bytes(
+                1, 128, 1, 16, pps, min(pps, pk.stage_pages(16, 256))),
+                pages_per_split=pps,
+                blocks=8 * 8 * -(-36 // pps))
     emit({"phase": "kernel_build", "kernels": report})
     bwd = {n: r for n, r in report.items() if BWD_WGMMA.fullmatch(n)}
     bad = [n for n, r in bwd.items() if r.get("spill_stores")
@@ -2276,9 +2415,9 @@ def main() -> int:
     emit({"phase": "build", "seconds": build_s,
           "libs": {n: os.path.relpath(p, ROOT) for n, p in libs.items()},
           "ptxas": ptxas})
-    phase_kernel_build(torch, libs, F, op)
+    phase_kernel_build(torch, libs, F, op, pk)
 
-    kres, ktime = phase_kernels(torch, pk, timing, spec)
+    kres, ktime, klong = phase_kernels(torch, pk, timing, spec)
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions
     flash_err, inputs, fwd_t, bwd_t = phase_flash_kernels(torch, F, tuning)
     ftime = phase_flash_time(torch, F, timing, spec, inputs, fwd_t, bwd_t)
@@ -2316,17 +2455,20 @@ def main() -> int:
     phase_put_vs_plain(torch, op)
     ptime = phase_put_time(torch, op, timing, spec)
     puts = phase_onesided(torch, op)
+    rows = {**ftime, **ptime, "paged_attention": {
+        "ms": ktime["kernel"]["ms"], "bound_ms": ktime["bound_ms"],
+        "library_ms": ktime["library_sdpa"]["ms"]}}
     emit({"phase": "redesign", "card": smi,
           "note": "ms_before: PERF.md's kernel table before the redesign "
-          "(this script, same card and power limit)",
+          "(this script, same card and power limit); paged_attention's "
+          "library is SDPA on the gathered window",
           **{name: {"ms": rows[name]["ms"], "ms_before": before,
                     "speedup": before / rows[name]["ms"],
                     "library_ms": rows[name]["library_ms"],
                     "bound_ms": rows[name]["bound_ms"],
                     "over_library": rows[name]["ms"]
                     / rows[name]["library_ms"]}
-             for name, before in REDESIGNED_BEFORE_MS.items()
-             for rows in ((ftime if name in ftime else ptime),)}})
+             for name, before in REDESIGNED_BEFORE_MS.items()}})
 
     phase_busy_wait_vs_plain(torch, ck)
     phase_dma_compute_vs_plain(torch, cb)
@@ -2364,11 +2506,15 @@ def main() -> int:
         "replaces": "tpu_patterns/serve/paged_kernel.py:93",
         "launches": main_leg["kernel_launches"],
         "max_abs_err": kres["max_abs_err"],
-        "ms": ktime["kernel_ms"],
-        "plain_ms": ktime["plain_ms"],
+        "ms": ktime["kernel"]["ms"],
+        "plain_ms": ktime["plain"]["ms"],
         "bound_ms": ktime["bound_ms"],
         "bound_by": ktime["bound_by"],
-        "library_ms": ktime["library_ms"],
+        "library_ms": ktime["library_sdpa"]["ms"],
+        "ms_min": ktime["kernel"]["min"], "ms_max": ktime["kernel"]["max"],
+        "library_gather_sdpa_ms": ktime["library_gather_sdpa"]["ms"],
+        "long_window_ms": klong["kernel"]["ms"],
+        "long_window_share_of_bound": klong["share_of_bound"],
     }]
     for kname, (source, replaces) in FLASH_KERNELS.items():
         row = ftime[kname]

@@ -306,3 +306,37 @@ def test_p2p_cli_matches_reference_flags(capsys):
     assert "## local_put | 1dev x 0MB | SUCCESS" in capsys.readouterr().out
     assert tcli.main(["p2p", "--device", "cpu"]) == 0
     assert "## two_sided | devices=1 | SKIPPED" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("chunk_bytes,chunks", [
+    (188_743_680 // 8, 8), (1, 1), (15, 3), (16, 200), (1_000_003, 8),
+    (188_743_680 // 3, 3), (4096, 132), (300 * 1001, 7),
+])
+def test_multi_plan_spans_cover_each_chunk_once_and_aligned(chunk_bytes,
+                                                            chunks):
+    """K8c's plan on an H100 (132 SMs): each chunk's spans cover it
+    exactly once, in order; every span but each chunk's last starts
+    16-byte aligned within its chunk; no two spans of a chunk differ by
+    more than one stage; at most max(chunks, 132) blocks in all.  The
+    reference's message in 8 chunks takes 128 blocks."""
+    sms = 132
+    spans = to.multi_spans(chunk_bytes, chunks, sms)
+    assert len(spans) <= max(chunks, sms)
+    per = len(spans) // chunks
+    assert per * chunks == len(spans)
+    for c in range(chunks):
+        mine = spans[c * per:(c + 1) * per]
+        pos = c * chunk_bytes
+        for start, stop in mine:
+            assert start == pos and stop > start
+            pos = stop
+        assert pos == (c + 1) * chunk_bytes
+        assert all((start - c * chunk_bytes) % 16 == 0
+                   for start, _ in mine[:-1])
+        lens = [stop - start for start, stop in mine]
+        stage = min(-(-lens[0] // 16) * 16, to.STAGE_BYTES)
+        assert max(lens) - min(lens) <= stage
+    span = to.multi_span(chunk_bytes, chunks, sms)
+    assert span == to.mono_span(chunk_bytes, max(1, sms // chunks))
+    if (chunk_bytes, chunks) == (188_743_680 // 8, 8):
+        assert len(spans) == 128

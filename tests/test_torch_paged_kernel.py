@@ -151,3 +151,110 @@ def test_other_devices_raise():
     with pytest.raises(ValueError, match="no kernel"):
         tpk.paged_block(meta, tpool["k"], tpool["v"], ttab, tpos, tact,
                         block_len=BL)
+
+
+# pages a split: one page, two (which does not divide N_PAGES = 3), and
+# the whole row in one split
+SPLITS = (1, 2, N_PAGES)
+
+
+@pytest.mark.parametrize("pps", SPLITS)
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_split_reference_matches_pallas_and_plain(name, pps):
+    """The kernel's split-and-combine algorithm in plain torch against
+    the reference's Pallas kernel in interpret mode and against the
+    one-pass plain version; dead rows come out exactly 0."""
+    case = CASES[name]
+    pool, q, tables, pos0, active = _case(**case)
+    jpool = {n: jnp.asarray(a) for n, a in pool.items()}
+    jo, jm, jl = jpk.paged_block(
+        jnp.asarray(q), jpool["k"], jpool["v"], jnp.asarray(tables),
+        jnp.asarray(pos0), jnp.asarray(active), block_len=BL, rank=0,
+        k_scale=jpool.get("ks"), v_scale=jpool.get("vs"), interpret=True,
+    )
+    tpool, tq, ttab, tpos, tact = _torch_args(pool, q, tables, pos0, active)
+    args = (tq, tpool["k"], tpool["v"], ttab, tpos, tact)
+    kw = dict(block_len=BL, k_scale=tpool.get("ks"),
+              v_scale=tpool.get("vs"))
+    got = tpk.paged_block_split_reference(*args, pages_per_split=pps, **kw)
+    plain = tpk.paged_block_reference(*args, **kw)
+    for g, want, p in zip(got, (jo, jm, jl), plain):
+        np.testing.assert_allclose(g.numpy(), np.asarray(want), rtol=RTOL,
+                                   atol=ATOL)
+        np.testing.assert_allclose(g.numpy(), p.numpy(), rtol=RTOL,
+                                   atol=ATOL)
+    o, m, l = got
+    for r in _dead_rows(case):
+        assert torch.all(o[r] == 0) and torch.all(l[r] == 0)
+        assert torch.all(m[r] == tpk.NEG_INF)
+
+
+def _edge_case(kind, seed):
+    """Six pages of four slots: ``dead_split`` has every page of its
+    second split (pages 2-3 at two pages a split) TRASH between live
+    ones; ``last_split_only`` gives row 1 a single live page, the last,
+    and row 2 a window ending inside its first split."""
+    rng = np.random.RandomState(seed)
+    b, bl, n_pages, n_blocks, hkv, h, w = 3, 4, 6, 20, 2, 4, 2
+    pool = {n: rng.randn(n_blocks, bl, hkv, D).astype(np.float32)
+            for n in ("k", "v")}
+    q = rng.randn(b, w, h, D).astype(np.float32)
+    tables = (1 + rng.permutation(n_blocks - 1)[: b * n_pages]).reshape(
+        b, n_pages).astype(np.int32)
+    pos0 = np.asarray([21, 20, 1], np.int32)
+    if kind == "dead_split":
+        tables[:, 2:4] = jpk.TRASH_BLOCK
+    else:
+        tables[1, :-1] = jpk.TRASH_BLOCK
+    return pool, q, tables, pos0, np.ones(b, bool), bl
+
+
+@pytest.mark.parametrize("kind", ["dead_split", "last_split_only"])
+def test_split_edges_match_pallas(kind):
+    pool, q, tables, pos0, active, bl = _edge_case(kind, seed=7)
+    jpool = {n: jnp.asarray(a) for n, a in pool.items()}
+    want = jpk.paged_block(
+        jnp.asarray(q), jpool["k"], jpool["v"], jnp.asarray(tables),
+        jnp.asarray(pos0), jnp.asarray(active), block_len=bl, rank=0,
+        interpret=True,
+    )
+    tpool, tq, ttab, tpos, tact = _torch_args(pool, q, tables, pos0, active)
+    for pps in (1, 2, 4):
+        got = tpk.paged_block_split_reference(
+            tq, tpool["k"], tpool["v"], ttab, tpos, tact, block_len=bl,
+            pages_per_split=pps)
+        for g, w_ in zip(got, want):
+            assert torch.all(torch.isfinite(g))
+            np.testing.assert_allclose(g.numpy(), np.asarray(w_), rtol=RTOL,
+                                       atol=ATOL)
+
+
+@pytest.mark.parametrize("n_pages,block_len,b,hkv,row_bytes", [
+    (36, 16, 8, 8, 256),     # the serve shape, bf16 D 128: 9 splits of 4
+    (256, 16, 32, 8, 256),   # a long window: 16 splits of 4 stages
+    (36, 16, 1, 8, 256),     # one row: smaller splits fill the SMs
+    (5, 8, 4, 1, 256),
+    (3, 8, 3, 2, 32),        # f32 D 8 rows: a split of every page
+    (7, 64, 2, 2, 1024),     # f32 D 256 at block_len 64: a page a split
+    (1, 16, 1, 1, 128),
+    (4096, 16, 64, 8, 128),  # int8 D 128 at 64K tokens
+])
+def test_split_plan_covers_each_page_once(n_pages, block_len, b, hkv,
+                                          row_bytes):
+    """The split plan, from shapes alone, covers every page exactly once
+    in order; a split is at most ``MAX_STAGES`` stages, each at most
+    ``STAGE_BYTES`` of K and V unless it is a single page; the serve
+    shape gets 9 splits of one 4-page stage, the long window 16 splits
+    of four."""
+    pps = tpk.split_pages(n_pages, block_len, b, hkv, row_bytes, 132)
+    sp = tpk.stage_pages(block_len, row_bytes)
+    plan = tpk.split_plan(n_pages, pps)
+    assert plan[0][0] == 0 and plan[-1][1] == n_pages
+    assert all(a[1] == c[0] for a, c in zip(plan, plan[1:]))
+    assert all(0 < stop - start <= pps for start, stop in plan)
+    assert pps <= tpk.MAX_STAGES * sp
+    assert sp == 1 or 2 * sp * block_len * row_bytes <= tpk.STAGE_BYTES
+    if (n_pages, b) == (36, 8):
+        assert (pps, sp, len(plan)) == (4, 4, 9)
+    if (n_pages, b) == (256, 32):
+        assert (pps, sp, len(plan)) == (16, 4, 16)

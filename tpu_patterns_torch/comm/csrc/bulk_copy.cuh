@@ -12,7 +12,10 @@
 //
 // A copy is a Plan of segments: segment g copies `len` bytes from
 // src + g*stride to dst + g*stride; a nonzero `last` is the length of
-// the last segment instead (a ragged tail, at most `len`).  run(p, blk,
+// the last segment instead (a ragged tail, at most `len`).  A
+// ChunkPlan's segments come in chunks of `per` instead, chunk c starting
+// c*chunk bytes in: segment g is piece g % per of chunk g / per, and
+// `last` is the length of every chunk's last piece.  run(p, blk,
 // nblk) is the work of block `blk` of the `nblk` blocks that share the
 // plan: segments blk, blk + nblk, ...  Each segment is cut into pieces
 // of at most one stage.
@@ -44,6 +47,11 @@ struct Plan {
   long long last = 0;  // 0: the last segment is `len` bytes too
 };
 
+// A plan of `per` segments a chunk, chunks `chunk` bytes apart.
+struct ChunkPlan : Plan {
+  long long per = 1, chunk = 0;
+};
+
 // A segment's bytes, head (to 16-byte alignment), bulk body and tail.
 struct Span {
   const unsigned char* s;
@@ -61,6 +69,15 @@ __device__ __forceinline__ Span span_of(const Plan& p, long long g) {
   r.body = (r.n - r.head) & ~15LL;
   r.tail = r.n - r.head - r.body;
   return r;
+}
+
+__device__ __forceinline__ Span span_of(const ChunkPlan& p, long long g) {
+  const long long i = g % p.per;  // the piece within its chunk
+  Plan one = p;  // that piece as segment i of a one-chunk plan
+  one.src += (g / p.per) * p.chunk;
+  one.dst += (g / p.per) * p.chunk;
+  one.n_seg = p.per;
+  return span_of(one, i);
 }
 
 __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
@@ -86,7 +103,8 @@ extern __shared__ __align__(128) unsigned char smem[];
 
 // Thread 0 of block `blk` of `nblk`: every piece of its segments through
 // the stage ring.
-__device__ void stream_pieces(const Plan& p, long long blk, long long nblk) {
+template <class P>
+__device__ void stream_pieces(const P& p, long long blk, long long nblk) {
   const long long mine = (p.n_seg - blk + nblk - 1) / nblk;  // segments
   const long long per = (p.len + p.stage - 1) / p.stage;  // pieces each
   const long long total = mine * per;
@@ -136,7 +154,8 @@ __device__ void stream_pieces(const Plan& p, long long blk, long long nblk) {
 }
 
 // Every thread of block `blk` of the `nblk` blocks that share the plan.
-__device__ __forceinline__ void run(const Plan& p, long long blk,
+template <class P>
+__device__ __forceinline__ void run(const P& p, long long blk,
                                     long long nblk) {
   const bool bulk = ((reinterpret_cast<uintptr_t>(p.src) -
                       reinterpret_cast<uintptr_t>(p.dst)) &

@@ -33,8 +33,12 @@
 //     microsecond of latency needs;
 //   * streamed: a tile of `block_rows` rows per segment, one stage per
 //     tile, a grid of min(tiles, SMs) blocks walking the tiles;
-//   * multi: `chunks` row slices, one block (and its own mbarriers) per
-//     slice, all in flight together;
+//   * multi: `chunks` row slices, all in flight together in one
+//     launch.  A block a slice would use `chunks` SMs of 132 (8 at the
+//     default), so each slice is cut by mono's rule into
+//     max(1, SMs / chunks) spans (multi_span below): 16 blocks a slice,
+//     128 in all, at 8 chunks on 132 SMs, each streaming its span
+//     through its own stage ring and mbarriers;
 //   * inplace: `chunks` segments inside one buffer, each chunk's first
 //     `half` rows to its last `half` rows (disjoint, so all in flight).
 // A source and destination that differ in alignment mod 16 (a view with
@@ -53,7 +57,8 @@ __global__ void __launch_bounds__(THREADS)
     local_put_streamed_kernel(Plan p) {
   run(p, blockIdx.x, gridDim.x);
 }
-__global__ void __launch_bounds__(THREADS) local_put_multi_kernel(Plan p) {
+__global__ void __launch_bounds__(THREADS)
+    local_put_multi_kernel(ChunkPlan p) {
   run(p, blockIdx.x, gridDim.x);
 }
 __global__ void __launch_bounds__(THREADS)
@@ -75,6 +80,15 @@ inline long long mono_span(long long n, long long sms) {
   return (span + 15) & ~15LL;
 }
 
+// The multi span for chunks of `chunk` bytes: mono's span for one
+// chunk over max(1, sms / chunks) blocks.  A chunk takes ceil(chunk /
+// span) blocks, its last span chunk - (blocks - 1) * span bytes.
+inline long long multi_span(long long chunk, long long chunks,
+                            long long sms) {
+  const long long share = chunks > 0 && sms / chunks > 1 ? sms / chunks : 1;
+  return mono_span(chunk, share);
+}
+
 inline int sm_count(int* sms) {
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
@@ -83,8 +97,8 @@ inline int sm_count(int* sms) {
   return static_cast<int>(e);
 }
 
-inline int launch(void (*kernel)(Plan), Plan p, long long grid,
-                  void* stream) {
+template <class P>
+inline int launch(void (*kernel)(P), P p, long long grid, void* stream) {
   if (p.n_seg < 1 || p.len < 1 || grid < 1 || grid > 0x7fffffffLL ||
       p.len > 0x7fffffffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -117,6 +131,13 @@ long long local_put_mono_span(long long n, long long sms) {
   return put::mono_span(n, sms);
 }
 
+// The multi span for n_chunks chunks of chunk_bytes over `sms` SMs (the
+// smoke holds onesided.multi_spans to it).
+long long local_put_multi_span(long long chunk_bytes, long long n_chunks,
+                               long long sms) {
+  return put::multi_span(chunk_bytes, n_chunks, sms);
+}
+
 // K8a: the whole buffer, n bytes, one span per block over every SM.
 int local_put_mono(const void* src, void* dst, long long n, void* stream) {
   int sms = 0;
@@ -141,13 +162,22 @@ int local_put_streamed(const void* src, void* dst, long long n_tiles,
                      n_tiles < sms ? n_tiles : sms, stream);
 }
 
-// K8c: n_chunks slices of chunk_bytes, one block each.
+// K8c: n_chunks slices of chunk_bytes, each cut into multi spans, one
+// block a span.
 int local_put_multi(const void* src, void* dst, long long n_chunks,
                     long long chunk_bytes, void* stream) {
-  put::Plan p{static_cast<const unsigned char*>(src),
-              static_cast<unsigned char*>(dst), n_chunks, chunk_bytes,
-              chunk_bytes, 0};
-  return put::launch(put::local_put_multi_kernel, p, n_chunks, stream);
+  int sms = 0;
+  if (int e = put::sm_count(&sms)) return e;
+  if (n_chunks < 1 || chunk_bytes < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long span = put::multi_span(chunk_bytes, n_chunks, sms);
+  const long long per = (chunk_bytes + span - 1) / span;
+  put::ChunkPlan p{{static_cast<const unsigned char*>(src),
+                    static_cast<unsigned char*>(dst), n_chunks * per, span,
+                    span, 0, chunk_bytes - (per - 1) * span},
+                   per, chunk_bytes};
+  return put::launch(put::local_put_multi_kernel, p, n_chunks * per,
+                     stream);
 }
 
 // K8d: in buf, for each of n_chunks chunks of chunk_bytes, its first

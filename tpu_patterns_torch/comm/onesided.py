@@ -11,8 +11,9 @@ kernel written for sm_90a:
   one contiguous span per SM (:func:`mono_spans`);
 * :func:`local_put_streamed` (K8b): row tiles of ``block_rows`` rows,
   double-buffered through each block's shared memory;
-* :func:`local_put_multi` (K8c): ``chunks`` row slices, one block each,
-  all in flight;
+* :func:`local_put_multi` (K8c): ``chunks`` row slices, all in flight
+  in one launch, each cut into spans over its share of the SMs
+  (:func:`multi_spans`);
 * :func:`local_put_inplace` (K8d): each chunk's first half copied into
   its tail inside the same buffer.
 
@@ -93,6 +94,8 @@ def _library() -> ctypes.CDLL:
         lib.local_put_stage_bytes.argtypes = []
         lib.local_put_mono_span.restype = i64
         lib.local_put_mono_span.argtypes = [i64, i64]
+        lib.local_put_multi_span.restype = i64
+        lib.local_put_multi_span.argtypes = [i64, i64, i64]
         sigs = {
             "local_put_mono": [ptr, ptr, i64, ptr],
             "local_put_streamed": [ptr, ptr, i64, i64, ptr],
@@ -128,6 +131,25 @@ def mono_spans(n: int, sms: int) -> list[tuple[int, int]]:
         return []
     span = mono_span(n, sms)
     return [(s, min(s + span, n)) for s in range(0, n, span)]
+
+
+def multi_span(chunk_bytes: int, chunks: int, sms: int) -> int:
+    """K8c's span for chunks of ``chunk_bytes`` (>= 1) on a card of
+    ``sms`` SMs, as ``local_put.cu::multi_span`` computes it: K8a's span
+    for one chunk over max(1, sms // chunks) blocks."""
+    return mono_span(chunk_bytes, max(1, sms // chunks))
+
+
+def multi_spans(chunk_bytes: int, chunks: int, sms: int
+                ) -> list[tuple[int, int]]:
+    """The (start, stop) byte spans of K8c's blocks over the whole
+    buffer of ``chunks`` chunks, one per block in launch order: each
+    chunk's spans, its last one ragged."""
+    if chunk_bytes <= 0 or chunks <= 0:
+        return []
+    span = multi_span(chunk_bytes, chunks, sms)
+    return [(c * chunk_bytes + s, c * chunk_bytes + min(s + span, chunk_bytes))
+            for c in range(chunks) for s in range(0, chunk_bytes, span)]
 
 
 def _check(x: torch.Tensor, name: str) -> None:
@@ -210,9 +232,10 @@ def local_put_streamed(x: torch.Tensor, block_rows: int = 1024
 
 
 def local_put_multi(x: torch.Tensor, chunks: int = 8) -> torch.Tensor:
-    """One-sided put as ``chunks`` row slices all in flight (K8c), one
-    block and its own mbarriers each; ``chunks`` shrinks to a divisor of
-    the row count.  A new tensor equal to ``x``."""
+    """One-sided put as ``chunks`` row slices all in flight (K8c) in one
+    launch, each slice cut into :func:`multi_spans` of a block (and its
+    own mbarriers) each; ``chunks`` shrinks to a divisor of the row
+    count.  A new tensor equal to ``x``."""
     rows = x.shape[0] if x.ndim else 0
     if rows == 0 or x.numel() == 0:
         return x

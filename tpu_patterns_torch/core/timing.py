@@ -14,6 +14,7 @@ the reference's does, with CUDA events in place of its fetch round trip.
 from __future__ import annotations
 
 import dataclasses
+import statistics
 import time
 from typing import Callable
 
@@ -73,6 +74,23 @@ def cuda_time_ms(
         e.record()
     torch.cuda.synchronize()
     return sum(s.elapsed_time(e) for s, e in zip(starts, ends)) / reps
+
+
+def cuda_time_repeated_ms(
+    fn: Callable[[], object],
+    calls: int = 5,
+    reps: int = 20,
+    warmup: int = 3,
+    before: Callable[[], object] | None = None,
+) -> dict:
+    """:func:`cuda_time_ms` read ``calls`` times in a row: the median of
+    the readings (``ms``) with their ``min``, ``max`` and every reading
+    (``runs``), so that a small kernel's time does not rest on one
+    reading."""
+    runs = [cuda_time_ms(fn, reps=reps, warmup=warmup, before=before)
+            for _ in range(calls)]
+    return {"ms": statistics.median(runs), "min": min(runs),
+            "max": max(runs), "runs": runs}
 
 
 CHAIN_K = 2  # chain iterations per timed window

@@ -9,6 +9,12 @@ sm_90a at first use) or raises; on a CPU tensor it runs
 :func:`paged_block_reference`, the same function in plain torch.  There
 is no other path.
 
+The kernel splits each row's pages into groups of :func:`split_pages`
+pages, one thread block each, and merges the splits' partial triples in
+the same launch; :func:`paged_block_split_reference` computes the same
+partials and merge in plain torch, so that the split and combine math
+is testable on the CPU (nothing on the serve path calls it).
+
 Counterpart of ``tpu_patterns/serve/paged_kernel.py`` (``paged_block``,
 ``paged_attend``) on one device: query rows regroup g-major to
 [B, Hkv, G*W, D] (row r is query ``r % W`` of group ``r // W``),
@@ -41,12 +47,10 @@ def _regroup_q(q: torch.Tensor, hkv: int) -> torch.Tensor:
     )
 
 
-def paged_block_reference(
-    q, k, v, tables, pos0, active, *, block_len, k_scale=None, v_scale=None
-):
-    """Plain-torch K1: the kernel's function by gather, in float32, with
-    the kernel's masks and order of scaling.  Shapes as
-    :func:`paged_block`."""
+def _masked_scores(q, k, tables, pos0, active, block_len, k_scale):
+    """The kernel's masked scores [B, Hkv, G*W, n_pages*bl] in float32
+    (NEG_INF where a key is not visible) and the window gather it reads
+    the pool through."""
     b, w, h, d = q.shape
     n_blocks, bl, hkv, _ = k.shape
     n_pages = tables.shape[1]
@@ -73,14 +77,97 @@ def paged_block_reference(
     k_pos = torch.arange(n_pages * bl, device=dev)
     q_pos = pos0[:, None] + torch.arange(gw, device=dev)[None, :] % w
     visible = (k_pos[None, None, :] <= q_pos[:, :, None]) & live[:, None, :]
-    s = torch.where(visible[:, None], s, NEG_INF)
+    return torch.where(visible[:, None], s, NEG_INF), window
+
+
+def _softmax_triple(s, v_win, vs_win):
+    """Unnormalized (o, m, l) of masked scores s [..., L] against v rows
+    [..., L, D] (v scales [..., L] or None), the kernel's order."""
     m = s.amax(dim=-1)
     p = torch.exp(s - m[..., None]) * (m > NEG_INF / 2)[..., None]
     l = p.sum(dim=-1)
-    if v_scale is not None:
-        p = p * window(v_scale)[:, :, None, :]
-    o = p @ window(v)
-    return o, m, l
+    if vs_win is not None:
+        p = p * vs_win
+    return p @ v_win, m, l
+
+
+def paged_block_reference(
+    q, k, v, tables, pos0, active, *, block_len, k_scale=None, v_scale=None
+):
+    """Plain-torch K1: the kernel's function by gather, in float32, with
+    the kernel's masks and order of scaling.  Shapes as
+    :func:`paged_block`."""
+    s, window = _masked_scores(q, k, tables, pos0, active, block_len,
+                               k_scale)
+    vs = window(v_scale)[:, :, None, :] if v_scale is not None else None
+    return _softmax_triple(s, window(v), vs)
+
+
+def paged_block_split_reference(
+    q, k, v, tables, pos0, active, *, block_len, pages_per_split,
+    k_scale=None, v_scale=None,
+):
+    """Plain-torch K1 by the kernel's own algorithm: each split of
+    ``pages_per_split`` pages (:func:`split_plan`) gives a partial
+    (o_i, m_i, l_i) over its keys, then m = max m_i, l = sum l_i
+    exp(m_i - m), o = sum o_i exp(m_i - m), guarded so that a row that
+    sees nothing keeps m = NEG_INF, l = 0, o = 0.  Equal to
+    :func:`paged_block_reference` up to float32 rounding."""
+    s, window = _masked_scores(q, k, tables, pos0, active, block_len,
+                               k_scale)
+    v_win = window(v)
+    vs_win = window(v_scale) if v_scale is not None else None
+    bl = k.shape[1]
+    parts = []
+    for start, stop in split_plan(tables.shape[1], pages_per_split):
+        keys = slice(start * bl, stop * bl)
+        vs = vs_win[:, :, None, keys] if vs_win is not None else None
+        parts.append(_softmax_triple(s[..., keys], v_win[:, :, keys], vs))
+    o_i, m_i, l_i = (torch.stack(x) for x in zip(*parts))
+    m = m_i.amax(dim=0)
+    a = torch.exp(m_i - m) * (m > NEG_INF / 2)
+    return (a[..., None] * o_i).sum(dim=0), m, (a * l_i).sum(dim=0)
+
+
+# K and V bytes a block stages into shared memory at once: 64 slots of a
+# bf16 head row of 128 (csrc/paged_attention.cu's design note)
+STAGE_BYTES = 32 * 1024
+# A split holds at most this many stages, and lengthens only while the
+# grid keeps WAVE_BLOCKS blocks an SM
+MAX_STAGES = 4
+WAVE_BLOCKS = 4
+
+
+def stage_pages(block_len, row_bytes):
+    """Whole pages of K and V head rows of ``row_bytes`` that fit
+    ``STAGE_BYTES`` (at least one)."""
+    return max(1, STAGE_BYTES // (2 * row_bytes) // block_len)
+
+
+def split_pages(n_pages, block_len, b, hkv, row_bytes, sms):
+    """Pages a split of the kernel takes, from shapes alone (never the
+    tables or positions, whose read would sync the host): one stage
+    (:func:`stage_pages`), doubled up to ``MAX_STAGES`` stages while the
+    grid of b x hkv x splits blocks keeps ``WAVE_BLOCKS`` blocks on each
+    of the ``sms`` SMs, halved while it would leave an SM without one."""
+    def blocks(pps):
+        return b * hkv * -(-n_pages // pps)
+
+    sp = min(n_pages, stage_pages(block_len, row_bytes))
+    pps = sp
+    while (2 * pps <= min(n_pages, MAX_STAGES * sp)
+           and blocks(2 * pps) >= WAVE_BLOCKS * sms):
+        pps *= 2
+    while pps > 1 and blocks(pps) < sms:
+        pps = -(-pps // 2)
+    return pps
+
+
+def split_plan(n_pages, pages_per_split):
+    """The kernel's splits as (first page, stop page), in order: split i
+    takes pages [i * pps, min((i + 1) * pps, n_pages))."""
+    return [(p, min(p + pages_per_split, n_pages))
+            for p in range(0, n_pages, pages_per_split)]
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -95,13 +182,38 @@ def _library() -> ctypes.CDLL:
     lib = load("paged_attention")
     if lib.paged_attention.argtypes is None:
         lib.paged_attention_smem_bytes.restype = ctypes.c_size_t
-        lib.paged_attention_smem_bytes.argtypes = [ctypes.c_int] * 3
+        lib.paged_attention_smem_bytes.argtypes = [ctypes.c_int] * 6
         lib.paged_attention.restype = ctypes.c_int
         lib.paged_attention.argtypes = (
-            [ctypes.c_int] * 2 + [ctypes.c_void_p] * 11
-            + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
+            [ctypes.c_int] * 2 + [ctypes.c_void_p] * 13
+            + [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p]
         )
     return lib
+
+
+_SMS: dict[int, int] = {}
+# (device index, stream) -> (split counters int32, partials float32): the
+# kernel leaves its counters 0, so one launch after another on a stream
+# reuses them; a larger call grows them
+_WORKSPACE: dict[tuple[int, int], tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _sm_count(dev: torch.device) -> int:
+    if dev.index not in _SMS:
+        _SMS[dev.index] = torch.cuda.get_device_properties(
+            dev).multi_processor_count
+    return _SMS[dev.index]
+
+
+def _workspace(dev, stream, n_count, n_part):
+    key = (dev.index, stream)
+    count, part = _WORKSPACE.get(key, (None, None))
+    if count is None or count.numel() < n_count:
+        count = torch.zeros(n_count, dtype=torch.int32, device=dev)
+    if part is None or part.numel() < n_part:
+        part = torch.empty(n_part, dtype=torch.float32, device=dev)
+    _WORKSPACE[key] = (count, part)
+    return count, part
 
 
 def _launch_kernel(q, k, v, tables, pos0, active, block_len, k_scale,
@@ -118,8 +230,8 @@ def _launch_kernel(q, k, v, tables, pos0, active, block_len, k_scale,
     _check(d in _KERNEL_D, f"head_dim {d} not in {_KERNEL_D}")
     _check(h % hkv == 0 and k.shape[3] == d, "head counts or head_dim")
     _check(bl == block_len, f"pool block {bl} != block_len {block_len}")
-    _check(tables.dtype == torch.int32 and tables.shape[0] == b,
-           "tables must be int32 [B, n_pages]")
+    _check(tables.dtype == torch.int32 and tables.shape[0] == b
+           and n_pages >= 1, "tables must be int32 [B, n_pages >= 1]")
     _check(pos0.dtype == torch.int32 and pos0.shape == (b,),
            "pos0 must be int32 [B]")
     _check(active.dtype == torch.bool and active.shape == (b,),
@@ -137,8 +249,18 @@ def _launch_kernel(q, k, v, tables, pos0, active, block_len, k_scale,
     for t in tensors:
         _check(t.device == dev, f"tensor on {t.device}, q on {dev}")
         _check(t.is_contiguous(), "inputs must be contiguous")
+    # the kernel stages head rows by 16-byte copies
+    _check(k.data_ptr() % 16 == 0 and v.data_ptr() % 16 == 0,
+           "k/v pools must be 16-byte aligned")
     lib = _library()
     gw = (h // hkv) * w
+    row_bytes = d * k.element_size()
+    pps = split_pages(n_pages, bl, b, hkv, row_bytes, _sm_count(dev))
+    sp = min(pps, stage_pages(bl, row_bytes))
+    splits = -(-n_pages // pps)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    count, part = _workspace(dev, stream, b * hkv,
+                             b * hkv * splits * gw * (d + 2))
     o = torch.empty((b, hkv, gw, d), dtype=torch.float32, device=dev)
     m = torch.empty((b, hkv, gw), dtype=torch.float32, device=dev)
     l = torch.empty((b, hkv, gw), dtype=torch.float32, device=dev)
@@ -148,17 +270,19 @@ def _launch_kernel(q, k, v, tables, pos0, active, block_len, k_scale,
         k_scale.data_ptr() if int8 else None,
         v_scale.data_ptr() if int8 else None,
         tables.data_ptr(), pos0.data_ptr(), active.data_ptr(),
-        o.data_ptr(), m.data_ptr(), l.data_ptr(),
-        b, w, h, hkv, d, n_blocks, bl, n_pages, d**-0.5,
-        torch.cuda.current_stream(dev).cuda_stream,
+        o.data_ptr(), m.data_ptr(), l.data_ptr(), part.data_ptr(),
+        count.data_ptr(),
+        b, w, h, hkv, d, n_blocks, bl, n_pages, pps, sp, d**-0.5, stream,
     )
     if rc != 0:
         # the card refuses a shared-memory request over its per-block
         # limit here (cudaFuncSetAttribute in the C entry)
-        smem = lib.paged_attention_smem_bytes(gw, d, bl)
+        smem = lib.paged_attention_smem_bytes(gw, d, _KV_KIND[k.dtype], bl,
+                                              pps, sp)
         raise RuntimeError(
             f"paged_attention kernel launch failed: CUDA error {rc} "
-            f"(G*W={gw}, D={d}, block_len={bl}: {smem} B of shared memory)"
+            f"(G*W={gw}, D={d}, block_len={bl}, {pps} pages a split in "
+            f"stages of {sp}: {smem} B of shared memory)"
         )
     return o, m, l
 
