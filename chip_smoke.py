@@ -3,7 +3,11 @@
 
     python3 chip_smoke.py
 
-Run from the root of a checkout.  It imports nothing of JAX or of the
+Run from the root of a checkout.  ``python3 chip_smoke.py --tree TREE
+[PHASE ...]`` instead runs only the named timing phases of
+:data:`TREE_PHASES` with the package of the checkout at TREE, to compare
+two trees in one call (:func:`tree_main`).  It imports nothing of JAX or
+of the
 JAX package, and fails (nonzero exit, no result line) without a CUDA
 device or away from the repository.  It drives the ported paths: the
 serve path (slice A), the flagship train step (slice B), the one-device
@@ -18,8 +22,9 @@ printed lines:
 2. build: every kernel compiled from the checkout's sources with nvcc,
    one process per source, all at once; then the ``kernel_build`` line:
    each instance of the redesigned kernels (the bf16 wgmma forward of
-   K2/K3, the bf16 wgmma backward of K4, dq and dk/dv, the all-SM mono
-   and multi puts K8a and K8c, the split-page K1) with its registers,
+   K2/K3, the bf16 wgmma backward of K4, dq and dk/dv, the all-SM mono,
+   multi and in-place puts K8a, K8c and K8d, the split-page K1, the
+   streaming add K5) with its registers,
    spills, static and dynamic shared memory from ``-Xptxas -v`` and
    whether ptxas serialized its wgmma products (a backward instance
    that spills or is serialized fails);
@@ -76,9 +81,10 @@ printed lines:
    ``attention_reference`` (loss and every parameter's update), and one
    ``forward_shard`` under ``torch.no_grad``, which launches K2 once
    and matches the dense forward;
-9. the one-sided put: K8a's and K8c's spans on this card against their
-   Python mirrors (``onesided.mono_span``, ``onesided.multi_span``; K8c
-   takes 8 x (SMs // 8) blocks at the full buffer in 8 chunks); the
+9. the one-sided put: K8a's, K8c's and K8d's spans on this card against
+   their Python mirrors (``onesided.mono_span``, ``onesided.multi_span``,
+   ``onesided.inplace_spans``; K8c and K8d take 8 x (SMs // 8) blocks at
+   the full buffer in 8 chunks); the
    four put kernels K8a-K8d
    against their plain versions, bit for bit, on float32, bfloat16,
    int32 and int8 at edge shapes (0, 1, 2 and 97 rows, chunks above the
@@ -86,14 +92,12 @@ printed lines:
    dimensions of 100, 37 and 1001 elements, inputs one element into a
    buffer)
    and at the full 92,160 x 512 float32 buffer; each kernel's time there
-   beside its plain version's, one ``copy_`` call's and its byte bound;
+   beside its plain version's, one ``copy_`` call's (K8d: one strided
+   ``copy_`` of the chunk halves) and its byte bound, each the median of
+   5 readings;
    then ``run_onesided`` at the reference's message size in auto mode
    (SUCCESS, checksum and plausibility gates, the launches of streamed,
    multi and inplace) and with ``kernel="mono"``, and the ``p2p`` CLI;
-   then the ``redesign`` line: K3's, K2's, K4's (dq, dk/dv), K8a's, K1's
-   and K8c's ms beside their times before the redesign (PERF.md's
-   4.485, 4.539, 4.925, 6.599, 4.023, 0.1593 and 0.5195 ms), their
-   library call's and their bound;
 10. the concurrency suite: the busy-wait kernel K6 against its plain
     version bit for bit (rows 1, 3, 8, 9, 64 at 0-4000 trips), the
     copy-and-compute kernel K7 likewise in
@@ -118,13 +122,18 @@ printed lines:
     copy-only launch beside one ``copy_`` and the host's time per K7
     launch; and the balanced shape's copy-only, compute-only and mixed
     launches queued with no host gaps, the device's own overlap;
-11. the ring: the accumulate kernel K5 against its plain version on the
-    same tensors, bit for bit (float32 and int32; n = 1, 127, 4097, 2^23,
+11. the ring: K5's grid as the C side computes it against its Python
+    mirror (``pallas.tile_grid``); the accumulate kernel K5 against its
+    plain version on the same tensors, bit for bit (float32 and int32;
+    n = 1, 127, 4097, 2^23,
     2^25; operands one element into a buffer; pinned host and managed
     inputs, where K5 must launch and its output stay in their memory);
     K5's time at 2^25 and 2^23 beside its plain version's, one
     ``torch.add(out=)`` call's and its byte bound (each the median of 5
-    readings of 20 calls, with their min and max); ``run_allreduce`` at
+    readings of 20 calls, with their min and max, the host's time per
+    call in them), and K5's and ``torch.add``'s device time with no host
+    gaps and the host's us per call (calls queued behind a busy-wait);
+    ``run_allreduce`` at
     the defaults (2^25 elements a rank, 4 ranks on the card, reps 5):
     xla ring, ring_opt and psum at float32, ring at int32 and bfloat16,
     pallas ring and ring_opt at float32, ring at int32 and at float32 in
@@ -139,7 +148,11 @@ printed lines:
     over 4 ranks at the reference's message size (SUCCESS, checksum, 4
     K9 launches per ring put); the ``allreduce``, ``miniapps`` and ``p2p
     --devices 4`` commands; the pallas ring's device idle share comes
-    from the profiling process of phase 10;
+    from the profiling process of phase 10; then the ``redesign`` line:
+    K3's, K2's, K4's (dq, dk/dv), K8a's, K1's, K8c's, K8d's and K5's
+    (2^23, 2^25) ms beside their times before the redesign (PERF.md's
+    4.485, 4.539, 4.925, 6.599, 4.023, 0.1593, 0.5195, 0.2632, 0.04396
+    and 0.1410 ms), their library call's and their bound;
 12. interop: the native module built from the checkout with g++ (the
     compiler's version, the seconds of a build from scratch, the
     library the port loads); the kernel K10 (``add_one``, x + 1)
@@ -170,6 +183,7 @@ import itertools
 import json
 import os
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -220,14 +234,20 @@ PUT_FULL = (92160, 512)  # the reference's message size as rows x cols
 REDESIGNED_BEFORE_MS = {"flash_block": 4.485, "flash_attention": 4.539,
                         "flash_block_bwd_dq": 4.925,
                         "flash_block_bwd_dkv": 6.599, "local_put": 4.023,
-                        "paged_attention": 0.1593, "local_put_multi": 0.5195}
+                        "paged_attention": 0.1593, "local_put_multi": 0.5195,
+                        "local_put_inplace": 0.2632,
+                        "accumulate n=2^23": 0.04396,
+                        "accumulate n=2^25": 0.1410}
 # kernel library -> the kernels redesigned for the card (name prefixes)
 # whose -Xptxas -v report the kernel_build line carries
 REDESIGNED_LIBS = {"flash_attention": ("flash_fwd_wgmma_kernel",),
                    "flash_attention_bwd": ("flash_bwd_wgmma_",),
                    "local_put": ("local_put_mono_kernel",
-                                 "local_put_multi_kernel"),
-                   "paged_attention": ("paged_attention_split_kernel",)}
+                                 "local_put_multi_kernel",
+                                 "local_put_inplace_kernel"),
+                   "paged_attention": ("paged_attention_split_kernel",),
+                   "accumulate": ("accumulate_vec_kernel",
+                                  "accumulate_scalar_kernel")}
 # the backward's instances as ptxas_report names them
 BWD_WGMMA = re.compile(r"flash_bwd_wgmma_(dq|dkv)_kernel<D=(\d+),NC=(\d+)>")
 
@@ -274,6 +294,10 @@ def ptxas_report(log: str, prefix: str) -> dict:
         out[name]["wgmma_serialized"] = True
 
     def pretty(name):
+        t = re.search(r"(accumulate_(?:vec|scalar)_kernel)I([fi])", name)
+        if t:
+            return (t.group(1) + "<" + {"f": "float", "i": "int"}[t.group(2)]
+                    + ">")
         t = re.search(r"paged_attention_split_kernelI((?:Li\d+E)+)E", name)
         if t:
             args = re.findall(r"Li(\d+)E", t.group(1))
@@ -1134,6 +1158,28 @@ def phase_put_vs_plain(torch, op):
     if multi_blocks != 8 * (sms // 8):
         raise AssertionError(f"K8c takes {multi_blocks} blocks at the full "
                              f"buffer in 8 chunks, not {8 * (sms // 8)}")
+    # K8d's plan: each chunk's half cut by the C side's multi span of the
+    # half bytes, at the full buffer and the small cases' shapes
+    inplace = {}
+    for rows, row_bytes, c in ((PUT_FULL[0], PUT_FULL[1] * 4, 8),
+                               (2, 2048, 8), (97, 2048, 3), (97, 37 * 4, 8),
+                               (300, 1001, 200), (16, 400, 1)):
+        n_chunks, chunk_rows, half = op._inplace_plan(rows, c)
+        span = lib.local_put_multi_span(half * row_bytes, n_chunks, sms)
+        spans = op.inplace_spans(rows, row_bytes, c, sms)
+        per = -(-half * row_bytes // span)
+        lens = [stop - src for src, _, stop in spans]
+        if len(spans) != n_chunks * per or any(
+                ln != span for i, ln in enumerate(lens) if i % per != per - 1):
+            raise AssertionError(f"onesided.inplace_spans differs from "
+                                 f"local_put.cu's span {span} at rows "
+                                 f"{rows} x {row_bytes} B, chunks {c}")
+        inplace[f"{rows}x{row_bytes}Bx{c}"] = span
+    inplace_blocks = len(op.inplace_spans(PUT_FULL[0], PUT_FULL[1] * 4, 8,
+                                          sms))
+    if inplace_blocks != 8 * (sms // 8):
+        raise AssertionError(f"K8d takes {inplace_blocks} blocks at the full "
+                             f"buffer in 8 chunks, not {8 * (sms // 8)}")
     cases = 0
 
     def same(name, got, want):
@@ -1179,14 +1225,17 @@ def phase_put_vs_plain(torch, op):
           "stage_bytes": op.STAGE_BYTES, "sms": sms,
           "mono_span_by_bytes": spans,
           "multi_span_by_chunk_bytes_x_chunks": multi,
-          "multi_blocks_full_8_chunks": multi_blocks})
+          "multi_blocks_full_8_chunks": multi_blocks,
+          "inplace_span_by_rows_x_row_bytes_x_chunks": inplace,
+          "inplace_blocks_full_8_chunks": inplace_blocks})
     return cases
 
 
 def phase_put_time(torch, op, timing, spec):
     """Each put kernel at the full buffer (188.7 MB float32, 3.8x the L2,
-    so no flush): kernel, plain and one ``copy_`` call's ms, and the byte
-    bound (each byte moved read once and written once)."""
+    so no flush): kernel, plain and one ``copy_`` call's ms (each the
+    median of 5 readings of 10 calls), and the byte bound (each byte
+    moved read once and written once)."""
     x = _put_input(torch, PUT_FULL, torch.float32, 7)
     nbytes = x.numel() * x.element_size()
     n_chunks, chunk_rows, half = op._inplace_plan(PUT_FULL[0], 8)
@@ -1198,7 +1247,7 @@ def phase_put_time(torch, op, timing, spec):
     view = buf.view(n_chunks, chunk_rows, PUT_FULL[1])
 
     def t(fn):
-        return timing.cuda_time_ms(fn, reps=10, warmup=2)
+        return timing.cuda_time_repeated_ms(fn, reps=10, warmup=2)["ms"]
 
     kern = {
         "local_put": t(lambda: op.local_put(x)),
@@ -1220,7 +1269,7 @@ def phase_put_time(torch, op, timing, spec):
             "plain_ms": plain.get(name, plain_copy),
             "library_ms": library.get(name, lib_copy),
             "bytes_moved": moved[name], "bound_ms": bound,
-            "bound_by": "bytes",
+            "bound_by": "bytes", "share_of_bound": bound / kern[name],
         }
     emit({"phase": "put_time", "shape": f"{PUT_FULL[0]}x{PUT_FULL[1]} "
           "float32, chunks 8, block_rows 1024 (clamped to "
@@ -1543,8 +1592,9 @@ def phase_concurrency_time(torch, ck, cb, cc, ch, timing, spec,
     the ``kernels`` line counts (both modes, copy-only beside one
     ``copy_`` and compute-only), each beside its bound (flops over 67
     TFLOP/s of f32, bytes read and written once over 3.35 TB/s; for
-    dma_serial also the sum of the two); K6's chain floor (64 x 40,000
-    dependent FMAs of FMA_LATENCY_CYCLES at the SM's top clock); the
+    dma_serial also the sum of the two); K6's and K7's chain floor (64 x
+    tripcount dependent FMAs of FMA_LATENCY_CYCLES at the SM's top clock,
+    the least time for the work they are given); the
     copy-only launch also queued behind a busy-wait, which leaves out
     the host's launch path, with the host's ms per launch, bound once
     (as the backend launches) and marshalled per call; then the balanced
@@ -1558,8 +1608,12 @@ def phase_concurrency_time(torch, ck, cb, cc, ch, timing, spec,
     x = _conc_input(torch, n // 128, 0)
     flops = ck.flops(n, trips)
     ops_ms = flops / (spec["f32_tflops"] * 1e12) * 1e3
-    chain_ms = ck.FMAS_PER_TRIP * trips * FMA_LATENCY_CYCLES / (
-        clock_mhz * 1e6) * 1e3
+
+    def chain_floor_ms(trips):
+        return ck.FMAS_PER_TRIP * trips * FMA_LATENCY_CYCLES / (
+            clock_mhz * 1e6) * 1e3
+
+    chain_ms = chain_floor_ms(trips)
 
     def t(fn):
         return timing.cuda_time_ms(fn, reps=5, warmup=1)
@@ -1582,6 +1636,7 @@ def phase_concurrency_time(torch, ck, cb, cc, ch, timing, spec,
         "bound_ms": max(k7_ops_ms, bytes_ms), "bound_by": "operations"
         if k7_ops_ms >= bytes_ms else "bytes",
         "dma_serial_floor_ms": k7_ops_ms + bytes_ms, "library_ms": None,
+        "chain_floor_ms": chain_floor_ms(max(k7_trips, default=0)),
         "copy_only_ms": t(lambda: cb.dma_compute(copies, [], [], True)),
         "copy_only_bound_ms": copy_bytes_ms, "copy_only_bytes": copy_bytes,
         "compute_only_ms": t(lambda: cb.dma_compute([], comps, k7_trips,
@@ -1775,13 +1830,25 @@ def _bits_equal(torch, got, want):
 
 
 def phase_accumulate_vs_plain(torch, ap, cc):
-    """K5 against its plain version on the same tensors, bit for bit:
-    float32 and int32 at n = 1, 127, 4097, 2^23 and 2^25; views one
-    element into a buffer (a, b or both misaligned); and inputs in pinned
-    host (H) and managed (S) memory, where K5 must launch (its count
-    says so) and its output stays in the inputs' memory."""
+    """K5's grid, as the C side computes it (``accumulate_grid``),
+    against its Python mirror (``pallas.tile_grid``, which the CPU tests
+    hold to cover every element once) on both paths; then K5 against its
+    plain version on the same tensors, bit for bit: float32 and int32 at
+    n = 1, 127, 4097, 2^23 and 2^25; views one element into a buffer (a,
+    b or both misaligned); and inputs in pinned host (H) and managed (S)
+    memory, where K5 must launch (its count says so) and its output
+    stays in the inputs' memory."""
     from tpu_patterns_torch.comm.mesh import default_mesh
 
+    lib = ap._library()
+    grids = {}
+    for n in (1, 3, 4, 5, 127, 4097, (1 << 23) + 3, 1 << 23, AR_FULL):
+        for vec in (1, 0):
+            grid = lib.accumulate_grid(n, vec)
+            if grid != ap.tile_grid(n, bool(vec)):
+                raise AssertionError(f"pallas.tile_grid({n}, {bool(vec)}) "
+                                     f"differs from accumulate.cu's {grid}")
+            grids[f"{n} {'vector' if vec else 'scalar'}"] = grid
     one_rank = default_mesh(1, DEVICE)
     cases = 0
 
@@ -1826,41 +1893,70 @@ def phase_accumulate_vs_plain(torch, ap, cc):
                 same(f"{dt} n={n} {kind}", got, ap.accumulate_reference(a, b))
     torch.cuda.synchronize()
     emit({"phase": "accumulate_vs_plain", "cases": cases, "bit_exact": True,
-          "sizes": sizes, "kinds": ["D", "H", "S"]})
+          "sizes": sizes, "kinds": ["D", "H", "S"], "grid_by_n": grids})
     return cases
 
 
-def phase_accumulate_time(torch, ap, timing, spec):
-    """K5's ms per launch at 2^25 (the ring's shard) and 2^23 (the
-    bandwidth-optimal ring's chunk) float32, beside its plain version's,
-    one ``torch.add(out=)`` call's and its byte bound (two inputs read
-    and one output written once: 12 bytes an element).  Each time is
-    the median of 5 readings (with their min and max).  Both shapes move
+def _queued_stats(torch, ck, fn, readings=5):
+    """:func:`_queued_ms` read ``readings`` times: the median device ms
+    of one ``fn()`` with no host gaps (``ms``, with ``min`` and
+    ``max``) and the median host us to enqueue one (``host_us``)."""
+    runs = [_queued_ms(torch, ck, fn) for _ in range(readings)]
+    dev = [d for d, _ in runs]
+    return {"ms": statistics.median(dev), "min": min(dev), "max": max(dev),
+            "host_us": statistics.median(h for _, h in runs) * 1e3}
+
+
+def accumulate_times(torch, ap, ck, timing, spec, n):
+    """K5 at ``n`` float32 elements beside one ``torch.add(out=)`` call:
+    each one's time with the host in it, as a caller of the wrapper
+    sees it (the median of 5 readings of 20 calls, an event pair around
+    each call, with their min and max: where the host's work per call
+    outlasts the device's, the queue drains and the reading holds the
+    host's time); its device time with no host gaps and the host's us to
+    enqueue one call (:func:`_queued_stats`); the plain version's time
+    and the byte bound (12 bytes an element).  2^23 and 2^25 both move
     more than the 50 MB L2 a launch, so no flush."""
-    rows = {}
-    for n in (AR_FULL, AR_FULL // AR_WORLD):
-        a = _ring_input(torch, n, torch.float32, 1)
-        b = _ring_input(torch, n, torch.float32, 2)
-        out = torch.empty_like(a)
+    a = _ring_input(torch, n, torch.float32, 1)
+    b = _ring_input(torch, n, torch.float32, 2)
+    out = torch.empty_like(a)
+    if not _bits_equal(torch, ap.accumulate(a, b), torch.add(a, b)):
+        raise AssertionError(f"accumulate differs from torch.add at n={n}")
 
-        def t(fn):
-            return timing.cuda_time_repeated_ms(fn, reps=20, warmup=3)
+    def t(fn):
+        return timing.cuda_time_repeated_ms(fn, reps=20, warmup=3)
 
-        kern, plain, lib = (t(lambda: ap.accumulate(a, b)),
-                            t(lambda: ap.accumulate_reference(a, b)),
-                            t(lambda: torch.add(a, b, out=out)))
-        rows[n] = {
-            "ms": kern["ms"], "ms_min": kern["min"], "ms_max": kern["max"],
-            "plain_ms": plain["ms"],
-            "library_ms": lib["ms"], "library_ms_min": lib["min"],
-            "library_ms_max": lib["max"],
-            "bound_ms": 3 * n * 4 / (spec["hbm_gbps"] * 1e9) * 1e3,
-            "bound_by": "bytes",
-        }
-    emit({"phase": "accumulate_time", "shape": "float32, per launch, "
-          "median of 5 readings of 20", "library": "torch.add(a, b, out=o)",
+    kern, plain, lib = (t(lambda: ap.accumulate(a, b)),
+                        t(lambda: ap.accumulate_reference(a, b)),
+                        t(lambda: torch.add(a, b, out=out)))
+    q_kern = _queued_stats(torch, ck, lambda: ap.accumulate(a, b))
+    q_lib = _queued_stats(torch, ck, lambda: torch.add(a, b, out=out))
+    row = {
+        "ms": kern["ms"], "ms_min": kern["min"], "ms_max": kern["max"],
+        "device_ms": q_kern["ms"], "device_ms_min": q_kern["min"],
+        "device_ms_max": q_kern["max"], "host_us_per_call": q_kern["host_us"],
+        "plain_ms": plain["ms"],
+        "library_ms": lib["ms"], "library_ms_min": lib["min"],
+        "library_ms_max": lib["max"], "library_device_ms": q_lib["ms"],
+        "library_host_us_per_call": q_lib["host_us"],
+        "bound_ms": 3 * n * 4 / (spec["hbm_gbps"] * 1e9) * 1e3,
+        "bound_by": "bytes",
+    }
+    return row
+
+
+def phase_accumulate_time(torch, ap, ck, timing, spec):
+    """K5 at 2^25 (the ring's shard) and 2^23 (the bandwidth-optimal
+    ring's chunk) float32 (:func:`accumulate_times`); returns both
+    rows."""
+    rows = {n: accumulate_times(torch, ap, ck, timing, spec, n)
+            for n in (AR_FULL, AR_FULL // AR_WORLD)}
+    emit({"phase": "accumulate_time", "shape": "float32, per launch; ms: "
+          "median of 5 readings of 20 calls with the host in them; "
+          "device_ms: median of 5 readings of 20 calls queued behind a "
+          "busy-wait", "library": "torch.add(a, b, out=o)",
           **{f"n={n}": r for n, r in rows.items()}})
-    return rows[AR_FULL]
+    return rows
 
 
 def phase_allreduce(torch, ap, ar, fw):
@@ -2261,7 +2357,8 @@ def profile_concurrency_main() -> int:
             ResultWriter(stream=io.StringIO()))
 
     mesh = fw.default_mesh(AR_WORLD, DEVICE)
-    # (line, its keys, the run, the kernel's name and its launch count)
+    # (line, its keys, the run, the kernel's name (the prefix of its
+    # instances' names) and the wrapper that counts its launches)
     legs = (
         ("concurrency_profile", dict(mode="concurrent"),
          conc(mode="concurrent"), "busy_wait", ck.busy_wait),
@@ -2283,7 +2380,8 @@ def profile_concurrency_main() -> int:
             wall, by_name, busy, calls, first_ms = _device_time_s(torch, run)
             launched = wrapper.launches
             recorded_by_attempt.append(sum(
-                n for k, n in calls.items() if f"{kname}_kernel" in k))
+                n for k, n in calls.items()
+                if re.search(kname + r"\w*_kernel", k)))
             if recorded_by_attempt[-1] == launched:
                 break
         complete = recorded_by_attempt[-1] == launched
@@ -2299,12 +2397,63 @@ def profile_concurrency_main() -> int:
     return 0
 
 
+# the timing phases ``--tree`` runs with another checkout's package
+TREE_PHASES = ("put_time", "accumulate_time", "allreduce")
+
+
+def tree_main(tree: str, phases: list[str]) -> int:
+    """``python3 chip_smoke.py --tree TREE [PHASE ...]``: the named
+    phases of :data:`TREE_PHASES` (default: all) with the package and
+    kernels of the checkout at TREE (this one, or another unpacked under
+    it), in a process of its own, so that two trees compare on one card
+    in one call (run parent, change, change, parent).  Prints the card's
+    name and power limit, a ``tree`` line (the package's path), then
+    each phase's lines as the smoke prints them."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false",
+              file=sys.stderr)
+        return 2
+    unknown = set(phases) - set(TREE_PHASES)
+    if unknown:
+        print(f"chip_smoke: no tree phase {sorted(unknown)}; "
+              f"choose from {TREE_PHASES}", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.abspath(tree))
+    from tpu_patterns_torch.comm import onesided as op
+    from tpu_patterns_torch.concurrency import kernels as ck
+    from tpu_patterns_torch.core import timing
+    from tpu_patterns_torch.kernels import build
+    from tpu_patterns_torch.miniapps import framework as fw
+    from tpu_patterns_torch.miniapps.apps import allreduce as ar
+    from tpu_patterns_torch.miniapps.apps.allreduce import pallas as ap
+    from tpu_patterns_torch.runtime import match_device_spec
+
+    spec = match_device_spec(torch.cuda.get_device_name(0))
+    smi = _run(["nvidia-smi", "--query-gpu=name,power.limit",
+                "--format=csv,noheader"]).strip().splitlines()[0]
+    emit(smi)
+    emit({"phase": "tree", "tree": tree, "card": smi,
+          "package": os.path.dirname(os.path.dirname(
+              os.path.abspath(op.__file__)))})
+    build.build_all()
+    run = {"put_time": lambda: phase_put_time(torch, op, timing, spec),
+           "accumulate_time": lambda: phase_accumulate_time(
+               torch, ap, ck, timing, spec),
+           "allreduce": lambda: phase_allreduce(torch, ap, ar, fw)}
+    for name in phases or TREE_PHASES:
+        run[name]()
+    return 0
+
+
 def phase_kernel_build(torch, libs, F, op, pk):
     """The redesigned kernels as built: each instance's registers,
     spills and static shared memory from ``-Xptxas -v``, whether ptxas
     serialized its wgmma products, and the dynamic shared memory it
-    launches with (the wgmma kernels' from their library, the mono put's
-    at the full buffer on this card).  A backward instance that spills
+    launches with (the wgmma kernels' from their library, the puts' at
+    the full buffer on this card, with their blocks and span; K5 uses
+    none).  A backward instance that spills
     or whose products ptxas serialized fails."""
     report = {}
     for lib, prefixes in REDESIGNED_LIBS.items():
@@ -2338,6 +2487,12 @@ def phase_kernel_build(torch, libs, F, op, pk):
     report["local_put_multi_kernel"].update(
         dynamic_smem=128 + 2 * min(span, op.STAGE_BYTES),
         blocks=len(op.multi_spans(n // 8, 8, sms)), span_bytes=span)
+    n_chunks, _, half = op._inplace_plan(PUT_FULL[0], 8)
+    span = op.multi_span(half * PUT_FULL[1] * 4, n_chunks, sms)
+    report["local_put_inplace_kernel"].update(
+        dynamic_smem=128 + 2 * min(span, op.STAGE_BYTES),
+        blocks=len(op.inplace_spans(PUT_FULL[0], PUT_FULL[1] * 4, 8, sms)),
+        span_bytes=span)
     # K1 at the serve shape (bf16, G*W 1, D 128, 16 slots a page)
     pps = pk.split_pages(36, 16, 8, 8, 256, sms)
     lib_p = pk._library()
@@ -2455,21 +2610,6 @@ def main() -> int:
     phase_put_vs_plain(torch, op)
     ptime = phase_put_time(torch, op, timing, spec)
     puts = phase_onesided(torch, op)
-    rows = {**ftime, **ptime, "paged_attention": {
-        "ms": ktime["kernel"]["ms"], "bound_ms": ktime["bound_ms"],
-        "library_ms": ktime["library_sdpa"]["ms"]}}
-    emit({"phase": "redesign", "card": smi,
-          "note": "ms_before: PERF.md's kernel table before the redesign "
-          "(this script, same card and power limit); paged_attention's "
-          "library is SDPA on the gathered window",
-          **{name: {"ms": rows[name]["ms"], "ms_before": before,
-                    "speedup": before / rows[name]["ms"],
-                    "library_ms": rows[name]["library_ms"],
-                    "bound_ms": rows[name]["bound_ms"],
-                    "over_library": rows[name]["ms"]
-                    / rows[name]["library_ms"]}
-             for name, before in REDESIGNED_BEFORE_MS.items()}})
-
     phase_busy_wait_vs_plain(torch, ck)
     phase_dma_compute_vs_plain(torch, cb)
     conc_launches, k7_tuned = phase_concurrency(torch, ck, cb, cc, ch)
@@ -2481,13 +2621,30 @@ def main() -> int:
         k7_tuned["balanced dma_overlap"])
 
     phase_accumulate_vs_plain(torch, ap, cc)
-    acc_time = phase_accumulate_time(torch, ap, timing, spec)
+    acc_times = phase_accumulate_time(torch, ap, ck, timing, spec)
     acc_launches = phase_allreduce(torch, ap, ar, fw)
     phase_allreduce_vs_plain(torch, ap, ring, fw)
     phase_ring_put_vs_plain(torch, op, fw)
     rp_time = phase_ring_put_time(torch, op, timing, spec, fw)
     rp_launches = phase_onesided_ring(torch, op, fw)
     phase_ring_cli()
+    rows = {**ftime, **ptime, "paged_attention": {
+        "ms": ktime["kernel"]["ms"], "bound_ms": ktime["bound_ms"],
+        "library_ms": ktime["library_sdpa"]["ms"]},
+        "accumulate n=2^23": acc_times[AR_FULL // AR_WORLD],
+        "accumulate n=2^25": acc_times[AR_FULL]}
+    emit({"phase": "redesign", "card": smi,
+          "note": "ms_before: PERF.md's kernel table before the redesign "
+          "(this script, same card and power limit); paged_attention's "
+          "library is SDPA on the gathered window; accumulate's ms holds "
+          "the host's time per call (device_ms in accumulate_time)",
+          **{name: {"ms": rows[name]["ms"], "ms_before": before,
+                    "speedup": before / rows[name]["ms"],
+                    "library_ms": rows[name]["library_ms"],
+                    "bound_ms": rows[name]["bound_ms"],
+                    "over_library": rows[name]["ms"]
+                    / rows[name]["library_ms"]}
+             for name, before in REDESIGNED_BEFORE_MS.items()}})
 
     phase_native_build(native)
     phase_add_one_vs_plain(torch, k10, cc, calls)
@@ -2547,13 +2704,16 @@ def main() -> int:
             "max_abs_err": 0.0, "bit_exact": True, "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "chain_floor_ms": row["chain_floor_ms"],
         })
     # launches: K5 in the pallas ring allreduce at the defaults (float32,
     # device memory), K9 in run_onesided over 4 ranks; K5's times at the
-    # ring's 2^25-element shard, K9's per launch at the 188.7 MB shard
+    # ring's 2^25-element shard (with its device-only ms and host us per
+    # call there and at the 2^23 chunk), K9's per launch at the 188.7 MB
+    # shard
     for (kname, (source, replaces)), launched, row in zip(
             RING_KERNELS.items(), (acc_launches, rp_launches),
-            (acc_time, rp_time)):
+            (acc_times[AR_FULL], rp_time)):
         kernels.append({
             "name": kname, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launched,
@@ -2561,6 +2721,16 @@ def main() -> int:
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
         })
+    chunk = acc_times[AR_FULL // AR_WORLD]
+    next(k for k in kernels if k["name"] == "accumulate").update({
+        "device_ms": acc_times[AR_FULL]["device_ms"],
+        "host_us_per_call": acc_times[AR_FULL]["host_us_per_call"],
+        "library_device_ms": acc_times[AR_FULL]["library_device_ms"],
+        "ms_2^23": chunk["ms"], "device_ms_2^23": chunk["device_ms"],
+        "host_us_per_call_2^23": chunk["host_us_per_call"],
+        "library_ms_2^23": chunk["library_ms"],
+        "library_device_ms_2^23": chunk["library_device_ms"],
+        "bound_ms_2^23": chunk["bound_ms"]})
     # launches: K10 on the interop proof path (managed memory, offload,
     # host_checksum compiled); its times at 2^25 float32
     source, replaces = INTEROP_KERNEL
@@ -2583,5 +2753,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(profile_concurrency_main()
-             if sys.argv[1:] == ["--profile-concurrency"] else main())
+    if sys.argv[1:] == ["--profile-concurrency"]:
+        sys.exit(profile_concurrency_main())
+    if sys.argv[1:2] == ["--tree"] and len(sys.argv) >= 3:
+        sys.exit(tree_main(sys.argv[2], sys.argv[3:]))
+    sys.exit(main())

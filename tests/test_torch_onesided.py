@@ -340,3 +340,47 @@ def test_multi_plan_spans_cover_each_chunk_once_and_aligned(chunk_bytes,
     assert span == to.mono_span(chunk_bytes, max(1, sms // chunks))
     if (chunk_bytes, chunks) == (188_743_680 // 8, 8):
         assert len(spans) == 128
+
+
+@pytest.mark.parametrize("rows,row_bytes,chunks", [
+    (92160, 512 * 4, 8), (2, 512 * 4, 8), (3, 512 * 4, 8), (97, 512 * 4, 8),
+    (5, 100 * 4, 8), (7, 37 * 4, 200), (300, 1001 * 4, 3), (97, 512, 8),
+    (16, 100 * 4, 1), (1001, 37, 3),
+])
+def test_inplace_plan_spans_cover_each_half_once_and_disjoint(rows,
+                                                              row_bytes,
+                                                              chunks):
+    """K8d's plan on an H100 (132 SMs): for each of ``_inplace_plan``'s
+    chunks, its spans cover the chunk's first ``half`` rows exactly
+    once, in order; each span is written ``shift`` bytes further on,
+    inside the chunk's last ``half`` rows; no destination span overlaps
+    any source span (the put is in place, with every block in flight);
+    every span but a chunk's last starts 16-byte aligned within its
+    chunk.  The reference's message (92,160 x 512 float32) in 8 chunks
+    takes 128 blocks.  Row widths of 37 and 1001 float32 and int8 rows
+    give chunks whose bytes are no multiple of 16."""
+    sms = 132
+    spans = to.inplace_spans(rows, row_bytes, chunks, sms)
+    n_chunks, chunk_rows, half = to._inplace_plan(rows, chunks)
+    chunk, half_bytes = chunk_rows * row_bytes, half * row_bytes
+    shift = (chunk_rows - half) * row_bytes
+    span = to.multi_span(half_bytes, n_chunks, sms)
+    per = -(-half_bytes // span)
+    assert len(spans) == n_chunks * per
+    for c in range(n_chunks):
+        mine = spans[c * per:(c + 1) * per]
+        pos = c * chunk
+        for src, dst, stop in mine:
+            assert src == pos and stop > src
+            assert dst == src + shift
+            assert c * chunk + chunk - half_bytes <= dst
+            assert dst + (stop - src) <= (c + 1) * chunk
+            pos = stop
+        assert pos == c * chunk + half_bytes
+        assert all((src - c * chunk) % 16 == 0 for src, _, _ in mine[:-1])
+    srcs = sorted((s, e) for s, _, e in spans)
+    for src, dst, stop in spans:
+        end = dst + stop - src
+        assert not any(s < end and dst < e for s, e in srcs)
+    if (rows, row_bytes, chunks) == (92160, 512 * 4, 8):
+        assert len(spans) == 128

@@ -92,6 +92,28 @@ def test_accumulate_runs_plain_only_for_a_cpu_rank():
             tpallas.accumulate(*bad)
 
 
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "misaligned"])
+@pytest.mark.parametrize("n", [1, 3, 4, 5, 4097, (1 << 23) + 3, 1 << 25])
+def test_accumulate_tile_plan_covers_every_element_once(n, offset):
+    """K5's tile plan (``pallas.tile_grid`` and ``tile_elements``, the
+    mirror chip_smoke.py holds to the C side's grid): every element of
+    [0, n) written by exactly one thread of one block, none past n.  An operand one float32 into its
+    buffer is not 16-byte aligned and takes the scalar path; 2^25 is the
+    ring's shard, 2^23 + 3 the bandwidth-optimal ring's chunk with a
+    ragged tail."""
+    vector = (offset * 4) % 16 == 0
+    grid = tpallas.tile_grid(n, vector)
+    assert grid >= 1 and (grid - 1) * tpallas.TILE < max(n, 1)
+    seen = np.zeros(n, dtype=np.uint8)
+    count = 0
+    for block in range(grid):
+        i = tpallas.tile_elements(n, vector, block).numpy()
+        assert i.size and i.min() >= 0 and i.max() < n
+        seen[i] = 1
+        count += i.size
+    assert count == n and seen.all()
+
+
 # -- the ring ----------------------------------------------------------------
 
 

@@ -151,10 +151,12 @@ def default_mesh(n: int = 0, device: torch.device | str | None = None
 def fresh_like(t: torch.Tensor) -> torch.Tensor:
     """An uninitialized buffer shaped like ``t`` on ``t``'s device,
     pinned when ``t`` is a pinned host tensor, so that a ring step keeps
-    its buffers in the memory kind they were given in."""
-    pinned = t.device.type == "cpu" and t.is_pinned()
-    return torch.empty(t.shape, dtype=t.dtype, device=t.device,
-                       pin_memory=pinned)
+    its buffers in the memory kind they were given in.  Contiguous
+    either way; ``empty_like`` is the cheaper call on the host (a ring
+    step makes one per rank)."""
+    if t.device.type == "cpu" and t.is_pinned():
+        return torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    return torch.empty_like(t, memory_format=torch.contiguous_format)
 
 
 def _indexed(dev: torch.device) -> torch.device:

@@ -15,7 +15,8 @@ kernel written for sm_90a:
   in one launch, each cut into spans over its share of the SMs
   (:func:`multi_spans`);
 * :func:`local_put_inplace` (K8d): each chunk's first half copied into
-  its tail inside the same buffer.
+  its tail inside the same buffer, each half cut into spans over its
+  chunk's share of the SMs (:func:`inplace_spans`).
 
 On a CUDA tensor each wrapper launches its kernel (counted in its
 ``launches``) or raises; on a CPU tensor it runs its plain version
@@ -152,6 +153,28 @@ def multi_spans(chunk_bytes: int, chunks: int, sms: int
             for c in range(chunks) for s in range(0, chunk_bytes, span)]
 
 
+def inplace_spans(rows: int, row_bytes: int, chunks: int, sms: int
+                  ) -> list[tuple[int, int, int]]:
+    """The (src_start, dst_start, src_stop) byte offsets of K8d's blocks
+    in a buffer of ``rows`` rows of ``row_bytes``, one per block in
+    launch order: for each of :func:`_inplace_plan`'s chunks, its first
+    ``half`` rows cut as :func:`multi_spans` cuts a chunk of the half's
+    bytes (the C side's ``local_put_multi_span(half_bytes, n_chunks,
+    sms)``), each span written ``chunk_rows - half`` rows further on, the
+    last span of a chunk ragged.  Fewer than two rows: no span."""
+    if rows < 2 or row_bytes <= 0:
+        return []
+    n_chunks, chunk_rows, half = _inplace_plan(rows, chunks)
+    chunk, half_bytes = chunk_rows * row_bytes, half * row_bytes
+    shift = (chunk_rows - half) * row_bytes
+    # multi_spans of the halves laid end to end, moved to their chunks
+    out = []
+    for start, stop in multi_spans(half_bytes, n_chunks, sms):
+        src = start + start // half_bytes * (chunk - half_bytes)
+        out.append((src, src + shift, src + stop - start))
+    return out
+
+
 def _check(x: torch.Tensor, name: str) -> None:
     """The kernels copy bytes: any dtype, a contiguous tensor of rank
     >= 1 whose leading axis is the rows."""
@@ -268,7 +291,8 @@ def local_put_inplace(x: torch.Tensor, chunks: int = 8) -> torch.Tensor:
 
     MUTATES ``x`` and returns it: for each of :func:`_inplace_plan`'s
     chunks, its first ``half`` rows are copied into its last ``half``
-    rows (disjoint regions, all chunks in flight).  The reference aliases
+    rows (disjoint regions, all chunks in flight, each half over its
+    chunk's share of the SMs: :func:`inplace_spans`).  The reference aliases
     the same way (``input_output_aliases={0: 0}``).  Fewer than two rows
     leave nothing to copy: ``x`` comes back untouched."""
     rows = x.shape[0] if x.ndim else 0

@@ -11,27 +11,39 @@
 // at the bandwidth-optimal ring's 2^23-element chunk.
 //
 // Design.  The Pallas kernel pads the shard into (2048, 128) blocks that
-// fit VMEM; here nothing is padded.  A grid-stride loop over 16-byte
-// vectors (four elements) when all three pointers are 16-byte aligned,
-// then a scalar tail; any misaligned operand (a view that starts inside
-// a buffer) takes the scalar loop for the whole shard.  The grid is
-// sized to fill the SMs.  Float adds are __fadd_rn (IEEE round to
+// fit VMEM; here nothing is padded.  A streaming add: each block takes a
+// fixed tile of TILE = THREADS x VECS x 4 elements, and each thread
+// issues all of its VECS 16-byte loads of a and of b (8 in flight)
+// before its first add, then stores its VECS vectors: thread t of block
+// k takes vectors k * THREADS * VECS + t + j * THREADS, j < VECS, so a
+// warp's loads are contiguous.  The grid is sized from n (no SM count is
+// read), the ragged tail of vectors is masked, and the last block also
+// adds the n % 4 elements past the last whole vector.  When any of the
+// three pointers is not 16-byte aligned (a view that starts inside a
+// buffer) the scalar kernel takes the shard, the same tile of single
+// elements.  Loads and the store are ordinary ones: the streaming hint
+// (ld.global.cs) on the loads was no faster on the H100 (PERF.md), and
+// the ring's next step reads the output.  Float adds are __fadd_rn (IEEE round to
 // nearest, never contracted) and int32 adds wrap through unsigned
 // arithmetic, so the kernel equals a + b in torch bit for bit.
 //
-// Memory kinds.  A pointer to pinned host memory (the miniapp's H kind)
-// is read and written through its device pointer, over the bus; managed
-// memory (S) and device memory (D) directly.  A pointer the card cannot
-// reach (pageable host memory) is refused.
+// The launch path.  The ring launches K5 (p-1) x p times an allreduce,
+// at 2^23 elements ~0.04 ms of device time each, so the host's work per
+// call must stay under that.  The entry makes no query for device or
+// managed memory: the wrapper says which operands are pinned host
+// memory (the miniapp's H kind), and only those are looked up, for the
+// device pointer the card reads them through (over the bus).  Managed
+// memory (S) and device memory (D) are read directly.  The entry
+// switches to the rank's device only when it is not the current one.
+// A host pointer that is not pinned is refused.
 
 #include <cuda_runtime.h>
-
-#include "../../../../comm/csrc/grid_stride.cuh"
 
 namespace acc {
 
 constexpr int THREADS = 256;
-constexpr int BLOCKS_PER_SM = 8;
+constexpr int VECS = 4;  // 16-byte vectors of a thread
+constexpr long long TILE = THREADS * VECS * 4;  // elements of a block
 
 __device__ __forceinline__ float add(float a, float b) {
   return __fadd_rn(a, b);
@@ -43,90 +55,145 @@ __device__ __forceinline__ int add(int a, int b) {
 
 template <typename T, typename V>
 __global__ void __launch_bounds__(THREADS)
-    accumulate_kernel(const T* __restrict__ a, const T* __restrict__ b,
-                      T* __restrict__ o, long long n, int vec) {
-  const long long tid =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  long long done = 0;
-  if (vec) {
-    const long long nv = n / 4;
-    const V* av = reinterpret_cast<const V*>(a);
-    const V* bv = reinterpret_cast<const V*>(b);
-    V* ov = reinterpret_cast<V*>(o);
-    for (long long i = tid; i < nv; i += stride) {
-      const V x = av[i];
-      const V y = bv[i];
-      V z;
-      z.x = add(x.x, y.x);
-      z.y = add(x.y, y.y);
-      z.z = add(x.z, y.z);
-      z.w = add(x.w, y.w);
-      ov[i] = z;
+    accumulate_vec_kernel(const T* __restrict__ a, const T* __restrict__ b,
+                          T* __restrict__ o, long long n) {
+  const long long nv = n / 4;
+  const long long v0 =
+      static_cast<long long>(blockIdx.x) * (THREADS * VECS) + threadIdx.x;
+  const V* av = reinterpret_cast<const V*>(a);
+  const V* bv = reinterpret_cast<const V*>(b);
+  V* ov = reinterpret_cast<V*>(o);
+  V x[VECS], y[VECS];
+#pragma unroll
+  for (int j = 0; j < VECS; ++j) {
+    const long long v = v0 + j * THREADS;
+    if (v < nv) {
+      x[j] = av[v];
+      y[j] = bv[v];
     }
-    done = nv * 4;
   }
-  for (long long i = done + tid; i < n; i += stride) o[i] = add(a[i], b[i]);
+#pragma unroll
+  for (int j = 0; j < VECS; ++j) {
+    const long long v = v0 + j * THREADS;
+    if (v < nv) {
+      V z;
+      z.x = add(x[j].x, y[j].x);
+      z.y = add(x[j].y, y[j].y);
+      z.z = add(x[j].z, y[j].z);
+      z.w = add(x[j].w, y[j].w);
+      ov[v] = z;
+    }
+  }
+  // the n % 4 elements past the last whole vector
+  if (blockIdx.x == gridDim.x - 1 && threadIdx.x < n - nv * 4) {
+    const long long i = nv * 4 + threadIdx.x;
+    o[i] = add(a[i], b[i]);
+  }
 }
 
-// The address the current device reads `p` at: itself for device and
-// managed memory, the mapped device pointer for pinned host memory.
-// Pageable host memory gives cudaErrorInvalidValue.
-inline cudaError_t device_ptr(const void* p, const void** out) {
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+    accumulate_scalar_kernel(const T* __restrict__ a,
+                             const T* __restrict__ b, T* __restrict__ o,
+                             long long n) {
+  constexpr int ELEMS = VECS * 4;
+  const long long i0 =
+      static_cast<long long>(blockIdx.x) * TILE + threadIdx.x;
+  T x[ELEMS], y[ELEMS];
+#pragma unroll
+  for (int j = 0; j < ELEMS; ++j) {
+    const long long i = i0 + j * THREADS;
+    if (i < n) {
+      x[j] = a[i];
+      y[j] = b[i];
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < ELEMS; ++j) {
+    const long long i = i0 + j * THREADS;
+    if (i < n) o[i] = add(x[j], y[j]);
+  }
+}
+
+// The address the current device reads pinned host memory `p` at.
+// Memory that is not pinned host memory gives cudaErrorInvalidValue.
+inline cudaError_t host_device_ptr(const void* p, const void** out) {
   cudaPointerAttributes attr;
   cudaError_t e = cudaPointerGetAttributes(&attr, p);
   if (e != cudaSuccess) {
     cudaGetLastError();  // not sticky: clear it for the next launch check
     return e;
   }
-  if (attr.type == cudaMemoryTypeDevice ||
-      attr.type == cudaMemoryTypeManaged) {
-    *out = p;
-    return cudaSuccess;
+  if (attr.type != cudaMemoryTypeHost || attr.devicePointer == nullptr)
+    return cudaErrorInvalidValue;
+  *out = attr.devicePointer;
+  return cudaSuccess;
+}
+
+// The blocks of a launch over n elements: a tile each, of whole vectors
+// on the vector path (at least one block, whose tail takes n < 4) or of
+// single elements on the scalar path.
+inline long long grid_for(long long n, bool vec) {
+  if (!vec) return (n + TILE - 1) / TILE;
+  const long long nv = n / 4;
+  return nv < 1 ? 1 : (nv + THREADS * VECS - 1) / (THREADS * VECS);
+}
+
+template <typename T, typename V>
+void launch(const void* a, const void* b, void* o, long long n,
+            cudaStream_t s) {
+  const T* ta = static_cast<const T*>(a);
+  const T* tb = static_cast<const T*>(b);
+  T* to = static_cast<T*>(o);
+  if (((reinterpret_cast<unsigned long long>(a) |
+        reinterpret_cast<unsigned long long>(b) |
+        reinterpret_cast<unsigned long long>(o)) &
+       15) != 0) {
+    const unsigned grid = static_cast<unsigned>(grid_for(n, false));
+    accumulate_scalar_kernel<T><<<grid, THREADS, 0, s>>>(ta, tb, to, n);
+    return;
   }
-  if (attr.type == cudaMemoryTypeHost && attr.devicePointer != nullptr) {
-    *out = attr.devicePointer;
-    return cudaSuccess;
-  }
-  return cudaErrorInvalidValue;
+  const unsigned grid = static_cast<unsigned>(grid_for(n, true));
+  accumulate_vec_kernel<T, V><<<grid, THREADS, 0, s>>>(ta, tb, to, n);
 }
 
 }  // namespace acc
 
 extern "C" {
 
+// The blocks K5 launches over n elements, vec 1 on the vector path and
+// 0 on the scalar one (the smoke holds pallas.tile_grid to it).
+long long accumulate_grid(long long n, int vec) {
+  return acc::grid_for(n, vec != 0);
+}
+
 // out = a + b over n elements of float32 (dtype 0) or int32 (dtype 1),
-// on `stream` of the current device.  Returns cudaGetLastError() (0 on
-// success), the error of a pointer the card cannot reach, or
-// cudaErrorInvalidValue for n < 1 or an unknown dtype.  Does not
-// synchronize.
+// on `stream` of device `device`.  Bit i of `host` (a, b, out) marks an
+// operand in pinned host memory, read through its device pointer; every
+// other operand is device or managed memory, used as it is.  Returns
+// cudaGetLastError() (0 on success), the error of a host pointer the
+// card cannot reach, or cudaErrorInvalidValue for n < 1, n past the
+// grid's reach or an unknown dtype.  Does not synchronize.
 int accumulate(const void* a, const void* b, void* out, long long n,
-               int dtype, void* stream) {
-  if (n < 1 || (dtype != 0 && dtype != 1))
+               int dtype, int host, int device, void* stream) {
+  if (n < 1 || n / acc::TILE >= 0x7fffffffLL || (dtype != 0 && dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
-  const void *da, *db, *dout;
-  cudaError_t e;
-  if ((e = acc::device_ptr(a, &da)) != cudaSuccess ||
-      (e = acc::device_ptr(b, &db)) != cudaSuccess ||
-      (e = acc::device_ptr(out, &dout)) != cudaSuccess)
-    return static_cast<int>(e);
-  const int vec = ((reinterpret_cast<unsigned long long>(da) |
-                    reinterpret_cast<unsigned long long>(db) |
-                    reinterpret_cast<unsigned long long>(dout)) &
-                   15) == 0;
-  const int grid = grid_stride::blocks_for(vec ? n / 4 + 4 : n, acc::THREADS,
-                                           acc::BLOCKS_PER_SM);
-  if (grid < 1) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    acc::accumulate_kernel<float, float4><<<grid, acc::THREADS, 0, s>>>(
-        static_cast<const float*>(da), static_cast<const float*>(db),
-        static_cast<float*>(const_cast<void*>(dout)), n, vec);
-  else
-    acc::accumulate_kernel<int, int4><<<grid, acc::THREADS, 0, s>>>(
-        static_cast<const int*>(da), static_cast<const int*>(db),
-        static_cast<int*>(const_cast<void*>(dout)), n, vec);
-  return static_cast<int>(cudaGetLastError());
+  int prev = -1;
+  cudaError_t e = cudaGetDevice(&prev);
+  if (e == cudaSuccess && prev != device) e = cudaSetDevice(device);
+  const void* p[3] = {a, b, out};
+  for (int i = 0; i < 3 && e == cudaSuccess; ++i)
+    if (host & (1 << i)) e = acc::host_device_ptr(p[i], &p[i]);
+  if (e == cudaSuccess) {
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (dtype == 0)
+      acc::launch<float, float4>(p[0], p[1], const_cast<void*>(p[2]), n, s);
+    else
+      acc::launch<int, int4>(p[0], p[1], const_cast<void*>(p[2]), n, s);
+    e = cudaGetLastError();
+  }
+  if (prev >= 0 && prev != device) cudaSetDevice(prev);
+  return static_cast<int>(e);
 }
 
 }  // extern "C"

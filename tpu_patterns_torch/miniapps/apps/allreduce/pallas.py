@@ -27,6 +27,11 @@ from tpu_patterns_torch.miniapps.apps import allreduce as core
 from tpu_patterns_torch.miniapps.framework import VariantSpec
 
 _DTYPES = {torch.float32: 0, torch.int32: 1}  # the kernel's dtype codes
+# K5's tile (csrc/accumulate.cu): THREADS threads a block, each with VECS
+# 16-byte vectors of four elements, or VECS x 4 single elements on the
+# scalar path
+THREADS, VECS = 256, 4
+TILE = THREADS * VECS * 4
 
 
 def _library() -> ctypes.CDLL:
@@ -35,11 +40,58 @@ def _library() -> ctypes.CDLL:
 
     lib = load("accumulate")
     if lib.accumulate.argtypes is None:
-        ptr = ctypes.c_void_p
-        lib.accumulate.restype = ctypes.c_int
-        lib.accumulate.argtypes = [ptr, ptr, ptr, ctypes.c_longlong,
-                                   ctypes.c_int, ptr]
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.accumulate.restype = i32
+        lib.accumulate.argtypes = [ptr, ptr, ptr, ctypes.c_longlong, i32,
+                                   i32, i32, ptr]
+        lib.accumulate_grid.restype = ctypes.c_longlong
+        lib.accumulate_grid.argtypes = [ctypes.c_longlong, i32]
     return lib
+
+
+def tile_grid(n: int, vector: bool) -> int:
+    """The blocks K5 launches over ``n`` elements, as the C side's
+    ``accumulate_grid`` computes them: a tile of whole vectors each (at
+    least one block) on the vector path, a tile of single elements each
+    on the scalar path."""
+    if not vector:
+        return -(-n // TILE)
+    return max(1, -(-(n // 4) // (THREADS * VECS)))
+
+
+def tile_elements(n: int, vector: bool, block: int) -> torch.Tensor:
+    """The element indices block ``block`` of K5's launch over ``n``
+    elements writes.  On the vector path thread t takes vectors
+    block * THREADS * VECS + t + j * THREADS, j < VECS, masked at the
+    last whole vector, and the last block also the n % 4 elements past
+    it; on the scalar path elements block * TILE + t + j * THREADS,
+    j < VECS x 4, masked at n."""
+    t = torch.arange(THREADS)
+    if not vector:
+        i = block * TILE + t + torch.arange(VECS * 4)[:, None] * THREADS
+        return i[i < n]
+    v = block * THREADS * VECS + t + torch.arange(VECS)[:, None] * THREADS
+    v = v[v < n // 4]
+    i = (4 * v[:, None] + torch.arange(4)).ravel()
+    if block == tile_grid(n, True) - 1:
+        i = torch.cat([i, torch.arange(n // 4 * 4, n)])
+    return i
+
+
+@functools.cache
+def _launcher(index: int):
+    """K5's C entry bound to card ``index``, looked up once per card:
+    ``launch(a, b, out, n, dtype, host)`` on the card's current stream,
+    read at each call (a caller may switch streams between calls)."""
+    torch.cuda.init()
+    fn = _library().accumulate
+    raw_stream = torch._C._cuda_getCurrentRawStream
+
+    def launch(a: int, b: int, out: int, n: int, dtype: int, host: int
+               ) -> int:
+        return fn(a, b, out, n, dtype, host, index, raw_stream(index))
+
+    return launch
 
 
 def accumulate_reference(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -76,31 +128,30 @@ def accumulate(a: torch.Tensor, b: torch.Tensor,
         raise ValueError(f"accumulate: no kernel for device {dev}")
     if dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
-    on_host = False
-    for t in (a, b):
+    host = 0  # bit i: operand i (a, b, out) in pinned host memory
+    for i, t in enumerate((a, b)):
         if not t.is_contiguous():
             raise ValueError("accumulate: operands must be contiguous")
         if t.device.type == "cpu":
             if not t.is_pinned():
                 raise ValueError("accumulate: pageable host memory, which "
                                  f"{dev} cannot reach")
-            on_host = True
+            host |= 1 << i
         elif t.device != dev:
             raise ValueError(f"accumulate: a tensor on {t.device} for the "
                              f"rank on {dev}")
     out = fresh_like(a)
     if a.numel() == 0:
         return out
-    stream = torch.cuda.current_stream(dev)
-    with torch.cuda.device(dev):
-        rc = _library().accumulate(a.data_ptr(), b.data_ptr(), out.data_ptr(),
-                                   a.numel(), _DTYPES[a.dtype],
-                                   stream.cuda_stream)
+    if host & 1:  # out is pinned too, as a is
+        host |= 4
+    rc = _launcher(dev.index)(a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                              a.numel(), _DTYPES[a.dtype], host)
     if rc != 0:
         raise RuntimeError(f"accumulate kernel launch failed: CUDA error {rc}")
     accumulate.launches += 1
-    if on_host:
-        stream.synchronize()
+    if host:
+        torch.cuda.current_stream(dev).synchronize()
     return out
 
 
