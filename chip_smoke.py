@@ -23,8 +23,9 @@ printed lines:
    one process per source, all at once; then the ``kernel_build`` line:
    each instance of the redesigned kernels (the bf16 wgmma forward of
    K2/K3, the bf16 wgmma backward of K4, dq and dk/dv, the all-SM mono,
-   multi and in-place puts K8a, K8c and K8d, the split-page K1, the
-   streaming add K5) with its registers,
+   multi and in-place puts K8a, K8c and K8d, the register-streamed puts
+   K8b and K9, the split-page K1, the streaming add K5) with its
+   registers,
    spills, static and dynamic shared memory from ``-Xptxas -v`` and
    whether ptxas serialized its wgmma products (a backward instance
    that spills or is serialized fails);
@@ -81,10 +82,12 @@ printed lines:
    ``attention_reference`` (loss and every parameter's update), and one
    ``forward_shard`` under ``torch.no_grad``, which launches K2 once
    and matches the dense forward;
-9. the one-sided put: K8a's, K8c's and K8d's spans on this card against
-   their Python mirrors (``onesided.mono_span``, ``onesided.multi_span``,
-   ``onesided.inplace_spans``; K8c and K8d take 8 x (SMs // 8) blocks at
-   the full buffer in 8 chunks); the
+9. the one-sided put: K8a's, K8c's and K8d's spans on this card and
+   K8b's grid against their Python mirrors (``onesided.mono_span``,
+   ``onesided.multi_span``, ``onesided.inplace_spans``,
+   ``onesided.streamed_pieces``; K8c and K8d take 8 x (SMs // 8)
+   blocks at the full buffer in 8 chunks, K8b one block a 16 KB piece of
+   a tile); the
    four put kernels K8a-K8d
    against their plain versions, bit for bit, on float32, bfloat16,
    int32 and int8 at edge shapes (0, 1, 2 and 97 rows, chunks above the
@@ -94,7 +97,8 @@ printed lines:
    and at the full 92,160 x 512 float32 buffer; each kernel's time there
    beside its plain version's, one ``copy_`` call's (K8d: one strided
    ``copy_`` of the chunk halves) and its byte bound, each the median of
-   5 readings;
+   5 readings, and each kernel's and library call's device time with no
+   host gaps (calls queued behind a busy-wait);
    then ``run_onesided`` at the reference's message size in auto mode
    (SUCCESS, checksum and plausibility gates, the launches of streamed,
    multi and inplace) and with ``kernel="mono"``, and the ``p2p`` CLI;
@@ -141,18 +145,21 @@ printed lines:
     (p-1) x p times per allreduce in every pallas run (its count set to
     0 just before each); the pallas ring and ring_opt on random float32,
     through K5 and through the plain accumulate, bit for bit; the ring
-    put kernel K9 against its plain version (the ring shift) at worlds
-    2, 4 and 8, float32 and bfloat16, 1, 97 and 2048 rows and misaligned
-    shards; K9's time per launch at 92,160 x 512 float32 beside its
-    plain version's, one ``copy_``'s and its bound; ``run_onesided``
-    over 4 ranks at the reference's message size (SUCCESS, checksum, 4
-    K9 launches per ring put); the ``allreduce``, ``miniapps`` and ``p2p
+    put kernel K9's grid against its Python mirror
+    (``onesided.ring_put_pieces``), and K9 against its plain version (the
+    ring shift) at worlds 2, 4 and 8, float32 and bfloat16, 1, 97 and
+    2048 rows and misaligned shards; K9's time per launch at 92,160 x
+    512 float32 beside its plain version's, one ``copy_``'s and its
+    bound, and K9's and ``copy_``'s device time with no host gaps;
+    ``run_onesided`` over 4 ranks at the reference's message size
+    (SUCCESS, checksum, 4 K9 launches per ring put); the ``allreduce``, ``miniapps`` and ``p2p
     --devices 4`` commands; the pallas ring's device idle share comes
     from the profiling process of phase 10; then the ``redesign`` line:
-    K3's, K2's, K4's (dq, dk/dv), K8a's, K1's, K8c's, K8d's and K5's
-    (2^23, 2^25) ms beside their times before the redesign (PERF.md's
-    4.485, 4.539, 4.925, 6.599, 4.023, 0.1593, 0.5195, 0.2632, 0.04396
-    and 0.1410 ms), their library call's and their bound;
+    K3's, K2's, K4's (dq, dk/dv), K8a's, K1's, K8c's, K8d's, K5's
+    (2^23, 2^25), K8b's and K9's ms beside their times before the
+    redesign (PERF.md's 4.485, 4.539, 4.925, 6.599, 4.023, 0.1593,
+    0.5195, 0.2632, 0.04396, 0.1410, 0.1381 and 0.1372 ms), their
+    library call's and their bound;
 12. interop: the native module built from the checkout with g++ (the
     compiler's version, the seconds of a build from scratch, the
     library the port loads); the kernel K10 (``add_one``, x + 1)
@@ -237,14 +244,17 @@ REDESIGNED_BEFORE_MS = {"flash_block": 4.485, "flash_attention": 4.539,
                         "paged_attention": 0.1593, "local_put_multi": 0.5195,
                         "local_put_inplace": 0.2632,
                         "accumulate n=2^23": 0.04396,
-                        "accumulate n=2^25": 0.1410}
+                        "accumulate n=2^25": 0.1410,
+                        "local_put_streamed": 0.1381, "ring_put": 0.1372}
 # kernel library -> the kernels redesigned for the card (name prefixes)
 # whose -Xptxas -v report the kernel_build line carries
 REDESIGNED_LIBS = {"flash_attention": ("flash_fwd_wgmma_kernel",),
                    "flash_attention_bwd": ("flash_bwd_wgmma_",),
                    "local_put": ("local_put_mono_kernel",
+                                 "local_put_streamed_kernel",
                                  "local_put_multi_kernel",
                                  "local_put_inplace_kernel"),
+                   "ring_put": ("ring_put_kernel",),
                    "paged_attention": ("paged_attention_split_kernel",),
                    "accumulate": ("accumulate_vec_kernel",
                                   "accumulate_scalar_kernel")}
@@ -1180,6 +1190,21 @@ def phase_put_vs_plain(torch, op):
     if inplace_blocks != 8 * (sms // 8):
         raise AssertionError(f"K8d takes {inplace_blocks} blocks at the full "
                              f"buffer in 8 chunks, not {8 * (sms // 8)}")
+    # K8b's grid: one block a piece of a tile, as the wrapper cuts the
+    # tiles
+    streamed = {}
+    for rows, row_bytes in ((PUT_FULL[0], PUT_FULL[1] * 4), (97, 37 * 4),
+                            (97, 37), (300, 1001 * 4), (16, 100 * 4),
+                            (4, 40_000 * 4)):
+        for br in (1, 4, 1024):
+            tile_rows = op.streamed_block_rows(rows, row_bytes, br)
+            grid = lib.local_put_streamed_grid(rows // tile_rows,
+                                               tile_rows * row_bytes)
+            if grid != len(op.streamed_pieces(rows, row_bytes, br)):
+                raise AssertionError(f"onesided.streamed_pieces differs "
+                                     f"from local_put.cu's grid {grid} at "
+                                     f"rows {rows} x {row_bytes} B, br {br}")
+            streamed[f"{rows}x{row_bytes}Bxbr{br}"] = grid
     cases = 0
 
     def same(name, got, want):
@@ -1227,15 +1252,21 @@ def phase_put_vs_plain(torch, op):
           "multi_span_by_chunk_bytes_x_chunks": multi,
           "multi_blocks_full_8_chunks": multi_blocks,
           "inplace_span_by_rows_x_row_bytes_x_chunks": inplace,
-          "inplace_blocks_full_8_chunks": inplace_blocks})
+          "inplace_blocks_full_8_chunks": inplace_blocks,
+          "streamed_grid_by_rows_x_row_bytes_x_block_rows": streamed})
     return cases
 
 
-def phase_put_time(torch, op, timing, spec):
+def phase_put_time(torch, op, ck, cb, timing, spec):
     """Each put kernel at the full buffer (188.7 MB float32, 3.8x the L2,
     so no flush): kernel, plain and one ``copy_`` call's ms (each the
-    median of 5 readings of 10 calls), and the byte bound (each byte
-    moved read once and written once)."""
+    median of 5 readings of 10 calls, an event pair around each), the
+    kernel's and the library call's device ms with no host gaps
+    (:func:`_queued_stats`), and the byte bound (each byte moved read
+    once and written once).  Beside them K7's copy-only launch of the
+    same buffer, queued: its copy blocks run the bulk-copy code of K8a,
+    K8c and K8d (``bulk_copy.cuh``), so ``--tree`` sets it beside the
+    parent's too."""
     x = _put_input(torch, PUT_FULL, torch.float32, 7)
     nbytes = x.numel() * x.element_size()
     n_chunks, chunk_rows, half = op._inplace_plan(PUT_FULL[0], 8)
@@ -1249,25 +1280,41 @@ def phase_put_time(torch, op, timing, spec):
     def t(fn):
         return timing.cuda_time_repeated_ms(fn, reps=10, warmup=2)["ms"]
 
-    kern = {
-        "local_put": t(lambda: op.local_put(x)),
-        "local_put_streamed": t(lambda: op.local_put_streamed(x, 1024)),
-        "local_put_multi": t(lambda: op.local_put_multi(x, 8)),
-        "local_put_inplace": t(lambda: op.local_put_inplace(buf, 8)),
+    calls = {
+        "local_put": lambda: op.local_put(x),
+        "local_put_streamed": lambda: op.local_put_streamed(x, 1024),
+        "local_put_multi": lambda: op.local_put_multi(x, 8),
+        "local_put_inplace": lambda: op.local_put_inplace(buf, 8),
     }
+    lib_calls = {
+        "copy": lambda: out.copy_(x),
+        "local_put_inplace": lambda: view[:, chunk_rows - half:].copy_(
+            view[:, :half]),
+    }
+    kern = {name: t(fn) for name, fn in calls.items()}
     plain_copy = t(lambda: op.local_put_reference(x))
     plain = {"local_put_inplace": t(
         lambda: op.local_put_inplace_reference(buf, 8))}
-    lib_copy = t(lambda: out.copy_(x))
-    library = {"local_put_inplace": t(
-        lambda: view[:, chunk_rows - half:].copy_(view[:, :half]))}
+    library = {name: t(fn) for name, fn in lib_calls.items()}
+    queued = {name: _queued_stats(torch, ck, fn)
+              for name, fn in calls.items()}
+    lib_queued = {name: _queued_stats(torch, ck, fn)
+                  for name, fn in lib_calls.items()}
+    k7 = _queued_stats(torch, ck, cb.K7Launch([x.view(-1)], [], [], True,
+                                              [out.view(-1)], []))
     rows = {}
     for name in PUT_KERNELS:
         bound = 2 * moved[name] / (spec["hbm_gbps"] * 1e9) * 1e3
+        lib = name if name in lib_calls else "copy"
         rows[name] = {
             "ms": kern[name], "gbps": moved[name] / kern[name] / 1e6,
             "plain_ms": plain.get(name, plain_copy),
-            "library_ms": library.get(name, lib_copy),
+            "library_ms": library[lib],
+            "device_ms": queued[name]["ms"],
+            "device_ms_min": queued[name]["min"],
+            "device_ms_max": queued[name]["max"],
+            "library_device_ms": lib_queued[lib]["ms"],
+            "device_over_library": queued[name]["ms"] / lib_queued[lib]["ms"],
             "bytes_moved": moved[name], "bound_ms": bound,
             "bound_by": "bytes", "share_of_bound": bound / kern[name],
         }
@@ -1275,7 +1322,13 @@ def phase_put_time(torch, op, timing, spec):
           "float32, chunks 8, block_rows 1024 (clamped to "
           f"{op.streamed_block_rows(PUT_FULL[0], PUT_FULL[1] * 4, 1024)})",
           "library": "out.copy_(x); inplace: one strided copy_ of the "
-          "chunk halves", **rows})
+          "chunk halves", "timing": "ms: median of 5 readings of 10 calls, "
+          "an event pair around each; device_ms: median of 5 readings of "
+          "20 calls queued behind a busy-wait", **rows,
+          "dma_compute_copy_only": {
+              "device_ms": k7["ms"], "device_ms_min": k7["min"],
+              "device_ms_max": k7["max"],
+              "library_device_ms": lib_queued["copy"]["ms"]}})
     return rows
 
 
@@ -1897,11 +1950,12 @@ def phase_accumulate_vs_plain(torch, ap, cc):
     return cases
 
 
-def _queued_stats(torch, ck, fn, readings=5):
-    """:func:`_queued_ms` read ``readings`` times: the median device ms
-    of one ``fn()`` with no host gaps (``ms``, with ``min`` and
-    ``max``) and the median host us to enqueue one (``host_us``)."""
-    runs = [_queued_ms(torch, ck, fn) for _ in range(readings)]
+def _queued_stats(torch, ck, fn, readings=5, n=20):
+    """:func:`_queued_ms` of ``n`` calls read ``readings`` times: the
+    median device ms of one ``fn()`` with no host gaps (``ms``, with
+    ``min`` and ``max``) and the median host us to enqueue one
+    (``host_us``)."""
+    runs = [_queued_ms(torch, ck, fn, n) for _ in range(readings)]
     dev = [d for d, _ in runs]
     return {"ms": statistics.median(dev), "min": min(dev), "max": max(dev),
             "host_us": statistics.median(h for _, h in runs) * 1e3}
@@ -2026,7 +2080,17 @@ def phase_ring_put_vs_plain(torch, op, fw):
     """K9 against its plain version (the ring shift), bit for bit, at
     worlds 2, 4 and 8 on the one card, float32 and bfloat16, 1, 97 and
     2048 rows of 512, and shards that start one element into a buffer;
-    each output also equals the global buffer rolled by one shard."""
+    each output also equals the global buffer rolled by one shard.  First
+    K9's grid, as the C side computes it (``ring_put_grid``), against
+    its Python mirror (``onesided.ring_put_pieces``)."""
+    lib = op._ring_library()
+    grids = {}
+    for n in (1, 15, 16, 17, 16383, 16384, 16385, 97 * 512 * 2,
+             PUT_FULL[0] * PUT_FULL[1] * 4):
+        grids[n] = lib.ring_put_grid(n)
+        if grids[n] != len(op.ring_put_pieces(n)):
+            raise AssertionError(f"onesided.ring_put_pieces({n}) differs "
+                                 f"from ring_put.cu's grid {grids[n]}")
     cases = 0
     for world in (2, 4, 8):
         mesh = fw.default_mesh(world, DEVICE)
@@ -2054,16 +2118,19 @@ def phase_ring_put_vs_plain(torch, op, fw):
     torch.cuda.synchronize()
     emit({"phase": "ring_put_vs_plain", "cases": cases, "bit_exact": True,
           "worlds": [2, 4, 8], "rows": [1, 97, 2048],
-          "dtypes": ["float32", "bfloat16"]})
+          "dtypes": ["float32", "bfloat16"], "grid_by_bytes": grids})
     return cases
 
 
-def phase_ring_put_time(torch, op, timing, spec, fw):
+def phase_ring_put_time(torch, op, ck, timing, spec, fw):
     """K9's ms per launch at the reference's 92,160 x 512 float32 shard
     (188.7 MB, 3.8x the L2): one ring put over 4 ranks is 4 launches, so
-    its time over 4; the plain version (the ring shift) likewise; one
-    ``copy_`` into the neighbour's buffer; the byte bound (the shard read
-    once and written once)."""
+    its time over 4 (the median of 5 readings of 10 calls, an event pair
+    around each); the plain version (the ring shift) likewise; one
+    ``copy_`` into the neighbour's buffer; K9's and ``copy_``'s device
+    ms with no host gaps (:func:`_queued_stats`; a ring put does 4
+    launches' host work, so 10 calls, 40 launches, a reading); the byte
+    bound (the shard read once and written once)."""
     mesh = fw.default_mesh(AR_WORLD, DEVICE)
     x = _put_input(torch, (AR_WORLD * PUT_FULL[0], PUT_FULL[1]),
                    torch.float32, 3)
@@ -2072,12 +2139,20 @@ def phase_ring_put_time(torch, op, timing, spec, fw):
     nbytes = shards[0].numel() * 4
 
     def t(fn):
-        return timing.cuda_time_ms(fn, reps=10, warmup=2)
+        return timing.cuda_time_repeated_ms(fn, reps=10, warmup=2)["ms"]
 
+    q_kern = _queued_stats(torch, ck, lambda: op.ring_put(shards), n=10)
+    q_lib = _queued_stats(torch, ck, lambda: dst.copy_(shards[0]))
     row = {
         "ms": t(lambda: op.ring_put(shards)) / AR_WORLD,
         "plain_ms": t(lambda: op.ring_put_reference(shards)) / AR_WORLD,
         "library_ms": t(lambda: dst.copy_(shards[0])),
+        "device_ms": q_kern["ms"] / AR_WORLD,
+        "device_ms_min": q_kern["min"] / AR_WORLD,
+        "device_ms_max": q_kern["max"] / AR_WORLD,
+        "host_us_per_launch": q_kern["host_us"] / AR_WORLD,
+        "library_device_ms": q_lib["ms"],
+        "device_over_library": q_kern["ms"] / AR_WORLD / q_lib["ms"],
         "bound_ms": 2 * nbytes / (spec["hbm_gbps"] * 1e9) * 1e3,
         "bound_by": "bytes",
     }
@@ -2398,7 +2473,8 @@ def profile_concurrency_main() -> int:
 
 
 # the timing phases ``--tree`` runs with another checkout's package
-TREE_PHASES = ("put_time", "accumulate_time", "allreduce")
+TREE_PHASES = ("put_time", "ring_put_time", "accumulate_time",
+               "allreduce")
 
 
 def tree_main(tree: str, phases: list[str]) -> int:
@@ -2422,6 +2498,7 @@ def tree_main(tree: str, phases: list[str]) -> int:
         return 2
     sys.path.insert(0, os.path.abspath(tree))
     from tpu_patterns_torch.comm import onesided as op
+    from tpu_patterns_torch.concurrency import backends as cb
     from tpu_patterns_torch.concurrency import kernels as ck
     from tpu_patterns_torch.core import timing
     from tpu_patterns_torch.kernels import build
@@ -2438,7 +2515,10 @@ def tree_main(tree: str, phases: list[str]) -> int:
           "package": os.path.dirname(os.path.dirname(
               os.path.abspath(op.__file__)))})
     build.build_all()
-    run = {"put_time": lambda: phase_put_time(torch, op, timing, spec),
+    run = {"put_time": lambda: phase_put_time(torch, op, ck, cb, timing,
+                                              spec),
+           "ring_put_time": lambda: phase_ring_put_time(
+               torch, op, ck, timing, spec, fw),
            "accumulate_time": lambda: phase_accumulate_time(
                torch, ap, ck, timing, spec),
            "allreduce": lambda: phase_allreduce(torch, ap, ar, fw)}
@@ -2487,6 +2567,15 @@ def phase_kernel_build(torch, libs, F, op, pk):
     report["local_put_multi_kernel"].update(
         dynamic_smem=128 + 2 * min(span, op.STAGE_BYTES),
         blocks=len(op.multi_spans(n // 8, 8, sms)), span_bytes=span)
+    # stream_copy.cuh: no shared memory, one block a tile or piece
+    report["local_put_streamed_kernel"].update(
+        dynamic_smem=0, blocks=len(op.streamed_pieces(
+            PUT_FULL[0], PUT_FULL[1] * 4, 1024)), piece_bytes=op.STREAM_STEP,
+        tile_bytes=op.streamed_block_rows(PUT_FULL[0], PUT_FULL[1] * 4, 1024)
+        * PUT_FULL[1] * 4)
+    report["ring_put_kernel"].update(
+        dynamic_smem=0, blocks=len(op.ring_put_pieces(n)),
+        piece_bytes=op.STREAM_STEP)
     n_chunks, _, half = op._inplace_plan(PUT_FULL[0], 8)
     span = op.multi_span(half * PUT_FULL[1] * 4, n_chunks, sms)
     report["local_put_inplace_kernel"].update(
@@ -2608,7 +2697,7 @@ def main() -> int:
     no_grad_launches = phase_flagship_exact(torch, F, fl, tr)
 
     phase_put_vs_plain(torch, op)
-    ptime = phase_put_time(torch, op, timing, spec)
+    ptime = phase_put_time(torch, op, ck, cb, timing, spec)
     puts = phase_onesided(torch, op)
     phase_busy_wait_vs_plain(torch, ck)
     phase_dma_compute_vs_plain(torch, cb)
@@ -2625,14 +2714,14 @@ def main() -> int:
     acc_launches = phase_allreduce(torch, ap, ar, fw)
     phase_allreduce_vs_plain(torch, ap, ring, fw)
     phase_ring_put_vs_plain(torch, op, fw)
-    rp_time = phase_ring_put_time(torch, op, timing, spec, fw)
+    rp_time = phase_ring_put_time(torch, op, ck, timing, spec, fw)
     rp_launches = phase_onesided_ring(torch, op, fw)
     phase_ring_cli()
     rows = {**ftime, **ptime, "paged_attention": {
         "ms": ktime["kernel"]["ms"], "bound_ms": ktime["bound_ms"],
         "library_ms": ktime["library_sdpa"]["ms"]},
         "accumulate n=2^23": acc_times[AR_FULL // AR_WORLD],
-        "accumulate n=2^25": acc_times[AR_FULL]}
+        "accumulate n=2^25": acc_times[AR_FULL], "ring_put": rp_time}
     emit({"phase": "redesign", "card": smi,
           "note": "ms_before: PERF.md's kernel table before the redesign "
           "(this script, same card and power limit); paged_attention's "
@@ -2692,6 +2781,8 @@ def main() -> int:
             "max_abs_err": 0.0, "bit_exact": True, "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "device_ms": row["device_ms"],
+            "library_device_ms": row["library_device_ms"],
         })
     # launches: K6 in the xla concurrent "C C" run, K7 in the pallas
     # dma_overlap "C D2D" run, both at the defaults; K7's times are at
@@ -2731,6 +2822,9 @@ def main() -> int:
         "library_ms_2^23": chunk["library_ms"],
         "library_device_ms_2^23": chunk["library_device_ms"],
         "bound_ms_2^23": chunk["bound_ms"]})
+    next(k for k in kernels if k["name"] == "ring_put").update(
+        device_ms=rp_time["device_ms"],
+        library_device_ms=rp_time["library_device_ms"])
     # launches: K10 on the interop proof path (managed memory, offload,
     # host_checksum compiled); its times at 2^25 float32
     source, replaces = INTEROP_KERNEL

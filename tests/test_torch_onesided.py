@@ -55,6 +55,8 @@ def test_local_put_matches_reference(shape):
     ((6, 256), 4, np.float32),    # block shrinks to the divisor 3
     ((7, 256), 4, np.float32),    # prime rows
     ((97, 37), 8, np.int8),       # prime rows, 37-byte rows
+    ((97, 37), 1, np.float32),    # a block a row: 148-byte tiles
+    ((300, 1001), 1024, np.int8),  # one tile of 300,300 bytes
     ((16, 100), 1024, np.float32),  # trailing dim not a multiple of 128
     ((16, 3, 37), 1024, np.int32),
     ((4096,), 1024, np.float32),
@@ -128,6 +130,37 @@ def test_streamed_tile_fits_one_stage():
         got = to.streamed_block_rows(rows, rb, br)
         assert rows % got == 0 and got <= br
         assert got == 1 or got * rb <= to.STAGE_BYTES
+
+
+@pytest.mark.parametrize("block_rows", [1, 4, 1024])
+@pytest.mark.parametrize("rows,row_bytes", [
+    (92160, 512 * 4), (97, 37 * 4), (97, 37), (300, 1001 * 4),
+    (16, 100 * 4), (4, 40_000 * 4),
+])
+def test_streamed_pieces_cover_the_buffer_once(rows, row_bytes, block_rows):
+    """K8b's grid (``streamed_pieces``, the mirror chip_smoke.py holds to
+    the C side's ``local_put_streamed_grid``): each tile of
+    ``streamed_block_rows`` rows cut into ``STREAM_STEP`` pieces, one
+    block a piece, the blocks disjoint and in order, covering every byte
+    of the rows x row_bytes buffer exactly once, no piece crossing a
+    tile's end.  The reference's message (92,160 x 512 float32) at
+    block_rows 1024 takes 1,920 tiles of 48 rows (96 KB), 11,520 blocks
+    of 16 KB; a 160,000-byte row is a tile of ten pieces, the last
+    ragged."""
+    pieces = to.streamed_pieces(rows, row_bytes, block_rows)
+    tile = to.streamed_block_rows(rows, row_bytes, block_rows) * row_bytes
+    per = -(-tile // to.STREAM_STEP)
+    assert len(pieces) == rows * row_bytes // tile * per
+    pos = 0
+    for i, (start, stop) in enumerate(pieces):
+        assert start == pos and 0 < stop - start <= to.STREAM_STEP
+        assert start // tile == (stop - 1) // tile  # inside one tile
+        assert start % tile == i % per * to.STREAM_STEP
+        pos = stop
+    assert pos == rows * row_bytes
+    if (rows, row_bytes, block_rows) == (92160, 2048, 1024):
+        assert tile == 48 * 2048 and len(pieces) == 11520
+        assert all(stop - start == 16384 for start, stop in pieces)
 
 
 @pytest.mark.parametrize("n", [0, 1, 15, 16, 188_743_680, 1_000_003])

@@ -231,6 +231,30 @@ def test_ring_put_matches_reference(mesh1d, dtype):
                        torch.from_numpy(got))
 
 
+@pytest.mark.parametrize("n", [0, 1, 15, 16, 17, 16383, 16384, 16385,
+                               188_743_680])
+def test_ring_put_pieces_cover_the_shard_once(n):
+    """K9's grid (``ring_put_pieces``, the mirror chip_smoke.py holds to
+    the C side's ``ring_put_grid``): one block a ``STREAM_STEP`` piece
+    (16 KB), at least one block for a shard of a byte or more, the
+    pieces in order and covering [0, n) exactly once, each but the last
+    a whole step starting 16-byte aligned.  188,743,680 bytes is the
+    reference's 92,160 x 512 float32 shard: 11,520 blocks."""
+    assert to.STREAM_STEP == 16384
+    pieces = to.ring_put_pieces(n)
+    assert len(pieces) == -(-n // to.STREAM_STEP)
+    assert n == 0 or len(pieces) >= 1
+    pos = 0
+    for start, stop in pieces:
+        assert start == pos and 0 < stop - start <= to.STREAM_STEP
+        assert start % 16 == 0
+        pos = stop
+    assert pos == n
+    assert all(stop - start == to.STREAM_STEP for start, stop in pieces[:-1])
+    if n == 188_743_680:
+        assert len(pieces) == 11520
+
+
 def test_ring_put_refuses_mixed_devices():
     with pytest.raises(ValueError, match="together"):
         to.ring_put([torch.zeros(2, 4), torch.zeros(2, 4, device="meta")])

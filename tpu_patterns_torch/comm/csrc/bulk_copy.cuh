@@ -1,9 +1,9 @@
 // Bulk asynchronous copies staged through shared memory, for sm_90a.
 //
 // The device code of a put, shared by the one-sided put kernels
-// (local_put.cu, K8a-K8d) and the copy blocks of the copy-and-compute
-// kernel (concurrency/csrc/dma_compute.cu, K7).  Hopper has no
-// global->global copy inside a kernel, so a copy goes through shared
+// (local_put.cu, K8a, K8c and K8d) and the copy blocks of the
+// copy-and-compute kernel (concurrency/csrc/dma_compute.cu, K7).  Hopper
+// has no global->global copy inside a kernel, so a copy goes through shared
 // memory by the bulk asynchronous copy (the TMA unit without a tensor
 // map): cp.async.bulk global->shared completing on an mbarrier, then
 // cp.async.bulk shared->global in a bulk group.  One thread of a block

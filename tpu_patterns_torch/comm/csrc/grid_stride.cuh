@@ -1,7 +1,7 @@
 // The grid of a grid-stride kernel: one block per `threads` items, at
 // most `blocks_per_sm` blocks on each SM of the current device (the SM
-// count is read once per device).  Shared by the ring put (ring_put.cu)
-// and the interop kernel (interop/csrc/add_one.cu).
+// count is read once per device).  The grid of the interop kernel
+// (interop/csrc/add_one.cu).
 #pragma once
 
 #include <cuda_runtime.h>

@@ -13,13 +13,15 @@
 // half that for the in-place put, which moves half the buffer).
 //
 // Design.  The Pallas kernels are asynchronous copies fenced by a
-// semaphore wait.  Here each put is staged through shared memory by the
-// bulk asynchronous copies of bulk_copy.cuh: the load completes on an
-// mbarrier (the semaphore), the store in a bulk group (the closing
-// wait); unaligned heads and tails go by plain byte stores.  A block's
-// work is a list of segments (a Plan), and block b takes segments b,
-// b + gridDim.x, ...  The four kernels differ only in the plan and the
-// grid, as the four Pallas kernels differ only in their schedule:
+// semaphore wait.  Here mono, multi and inplace are staged through
+// shared memory by the bulk asynchronous copies of bulk_copy.cuh: the
+// load completes on an mbarrier (the semaphore), the store in a bulk
+// group (the closing wait); unaligned heads and tails go by plain byte
+// stores.  A block's work is a list of segments (a Plan), and block b
+// takes segments b, b + gridDim.x, ...  The streamed put instead streams
+// its tiles through registers (stream_copy.cuh), its fence the end of
+// the launch.  The four kernels differ in their plan and grid, as the
+// four Pallas kernels differ only in their schedule:
 //   * mono: one put of the whole buffer in one launch, whose end is the
 //     one fence.  On a TPU that is one DMA engine; on this card the
 //     engine of a device-to-device copy inside a kernel is the SMs, so
@@ -31,8 +33,13 @@
 //     blocks), and each block streams its span through its stage ring:
 //     112 KB in flight per SM, over the ~25 KB that 3.35 TB/s times a
 //     microsecond of latency needs;
-//   * streamed: a tile of `block_rows` rows per segment, one stage per
-//     tile, a grid of min(tiles, SMs) blocks walking the tiles;
+//   * streamed: tiles of `block_rows` rows (the wrapper clamps a tile
+//     to at most STAGE_BYTES: 48 rows of 2 KB, 1,920 tiles, at the full
+//     buffer), each cut into stream_copy::STEP (16 KB) pieces, its last
+//     ragged, one block a piece (11,520 at the full buffer;
+//     stream_copy.cuh's copy_piece).  A block holds no shared memory, so
+//     eight share an SM, and blocks go to SMs as SMs free up: no last
+//     round runs on part of the card;
 //   * multi: `chunks` row slices, all in flight together in one
 //     launch.  A block a slice would use `chunks` SMs of 132 (8 at the
 //     default), so each slice is cut by mono's rule into
@@ -55,15 +62,18 @@
 // does not give.
 
 #include "bulk_copy.cuh"
+#include "stream_copy.cuh"
 
 namespace put {
 
 __global__ void __launch_bounds__(THREADS) local_put_mono_kernel(Plan p) {
   run(p, blockIdx.x, gridDim.x);
 }
-__global__ void __launch_bounds__(THREADS)
-    local_put_streamed_kernel(Plan p) {
-  run(p, blockIdx.x, gridDim.x);
+__global__ void __launch_bounds__(stream_copy::THREADS)
+    local_put_streamed_kernel(const unsigned char* __restrict__ src,
+                              unsigned char* __restrict__ dst,
+                              long long tile_bytes, unsigned per) {
+  stream_copy::copy_piece(src, dst, tile_bytes, per);
 }
 __global__ void __launch_bounds__(THREADS)
     local_put_multi_kernel(ChunkPlan p) {
@@ -176,16 +186,25 @@ int local_put_mono(const void* src, void* dst, long long n, void* stream) {
   return put::launch(put::local_put_mono_kernel, p, blocks, stream);
 }
 
-// K8b: n_tiles tiles of tile_bytes, over min(n_tiles, SMs) blocks.
+// The blocks K8b launches for n_tiles tiles of tile_bytes: one a piece
+// of a tile, or 0 for an empty plan or a grid out of reach (the smoke
+// holds onesided.streamed_pieces to it).
+long long local_put_streamed_grid(long long n_tiles, long long tile_bytes) {
+  return stream_copy::grid(n_tiles, tile_bytes);
+}
+
+// K8b: n_tiles tiles of tile_bytes, one block a piece of a tile.
 int local_put_streamed(const void* src, void* dst, long long n_tiles,
                        long long tile_bytes, void* stream) {
-  int sms = 0;
-  if (int e = put::sm_count(&sms)) return e;
-  put::Plan p{static_cast<const unsigned char*>(src),
-              static_cast<unsigned char*>(dst), n_tiles, tile_bytes,
-              tile_bytes, 0};
-  return put::launch(put::local_put_streamed_kernel, p,
-                     n_tiles < sms ? n_tiles : sms, stream);
+  const long long grid = local_put_streamed_grid(n_tiles, tile_bytes);
+  if (grid < 1) return static_cast<int>(cudaErrorInvalidValue);
+  put::local_put_streamed_kernel<<<static_cast<unsigned>(grid),
+                                   stream_copy::THREADS, 0,
+                                   static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const unsigned char*>(src),
+      static_cast<unsigned char*>(dst), tile_bytes,
+      static_cast<unsigned>(stream_copy::pieces(tile_bytes)));
+  return static_cast<int>(cudaGetLastError());
 }
 
 // K8c: n_chunks slices of chunk_bytes, each cut into multi spans, one

@@ -12,11 +12,13 @@
 // ranks share the card (over NVLink, 450 GB/s each way, when they do
 // not).
 //
-// Design.  A plain store kernel launched on the sending rank's device:
-// a grid-stride loop of 16-byte vector loads and stores when both
-// pointers are 16-byte aligned, a byte tail for what is left (dtypes
-// narrower than 4 bytes leave a tail of a few bytes), and a byte loop
-// for the whole put when either pointer is misaligned.  The destination
+// Design.  A plain store kernel launched on the sending rank's device,
+// on the streaming copy of stream_copy.cuh: one block a STEP (16 KB)
+// piece of the shard, the grid sized from the bytes (no grid-stride
+// loop, no SM count), each thread's 16-byte loads all issued before its
+// stores; the last block also takes the byte tail (dtypes narrower than
+// 4 bytes leave a tail of a few bytes), and a source and destination
+// that differ in alignment mod 16 go a byte at a time.  The destination
 // may live on another card with peer access enabled; its stores then go
 // over the link.  K8's bulk copies (bulk_copy.cuh) are not used: whether
 // a bulk shared->global store may target a peer card's memory is not
@@ -27,51 +29,41 @@
 
 #include <cuda_runtime.h>
 
-#include "grid_stride.cuh"
+#include "stream_copy.cuh"
 
 namespace ring {
 
-constexpr int THREADS = 256;
-constexpr int BLOCKS_PER_SM = 8;
-
-__global__ void __launch_bounds__(THREADS)
+// The n_bytes shard as one tile of `per` pieces.
+__global__ void __launch_bounds__(stream_copy::THREADS)
     ring_put_kernel(const unsigned char* __restrict__ src,
                     unsigned char* __restrict__ dst, long long n_bytes,
-                    int vec) {
-  const long long tid =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  long long done = 0;
-  if (vec) {
-    const long long nv = n_bytes / 16;
-    const int4* s = reinterpret_cast<const int4*>(src);
-    int4* d = reinterpret_cast<int4*>(dst);
-    for (long long i = tid; i < nv; i += stride) d[i] = s[i];
-    done = nv * 16;
-  }
-  for (long long i = done + tid; i < n_bytes; i += stride) dst[i] = src[i];
+                    unsigned per) {
+  stream_copy::copy_piece(src, dst, n_bytes, per);
 }
 
 }  // namespace ring
 
 extern "C" {
 
+// The blocks K9 launches for an n_bytes shard: one a STEP piece, at
+// least one; 0 for n_bytes < 1 or a grid out of reach (the smoke holds
+// onesided.ring_put_pieces to it).
+long long ring_put_grid(long long n_bytes) {
+  return stream_copy::grid(1, n_bytes);
+}
+
 // Copy n_bytes from src (on the current device) to dst (on it, or on a
 // peer whose access the current device has enabled), on `stream`.
 // Returns cudaGetLastError() (0 on success), or cudaErrorInvalidValue
-// for n_bytes < 1.  Does not synchronize.
+// for n_bytes < 1 or past the grid's reach.  Does not synchronize.
 int ring_put(const void* src, void* dst, long long n_bytes, void* stream) {
-  if (n_bytes < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const int vec = ((reinterpret_cast<unsigned long long>(src) |
-                    reinterpret_cast<unsigned long long>(dst)) &
-                   15) == 0;
-  const int grid = grid_stride::blocks_for(
-      vec ? n_bytes / 16 + 16 : n_bytes, ring::THREADS, ring::BLOCKS_PER_SM);
+  const long long grid = ring_put_grid(n_bytes);
   if (grid < 1) return static_cast<int>(cudaErrorInvalidValue);
-  ring::ring_put_kernel<<<grid, ring::THREADS, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
+  ring::ring_put_kernel<<<static_cast<unsigned>(grid), stream_copy::THREADS,
+                          0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const unsigned char*>(src),
-      static_cast<unsigned char*>(dst), n_bytes, vec);
+      static_cast<unsigned char*>(dst), n_bytes,
+      static_cast<unsigned>(grid));
   return static_cast<int>(cudaGetLastError());
 }
 

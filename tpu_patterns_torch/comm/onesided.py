@@ -4,13 +4,15 @@ Counterpart of ``tpu_patterns/comm/onesided.py``.
 A one-sided put writes a buffer into memory of the device's own with no
 receiver: there, an async DMA fenced by a semaphore wait; here, bulk
 asynchronous copies through shared memory fenced by an mbarrier and a
-bulk-group wait (``csrc/local_put.cu``).  Four schedules, each a CUDA
+bulk-group wait, or a copy streamed through registers fenced by the
+launch's end (``csrc/local_put.cu``).  Four schedules, each a CUDA
 kernel written for sm_90a:
 
 * :func:`local_put` (K8a, mono): one launch copies the whole buffer,
   one contiguous span per SM (:func:`mono_spans`);
 * :func:`local_put_streamed` (K8b): row tiles of ``block_rows`` rows,
-  double-buffered through each block's shared memory;
+  each cut into 16 KB pieces, one block a piece (:func:`streamed_pieces`),
+  streamed through registers (``csrc/stream_copy.cuh``);
 * :func:`local_put_multi` (K8c): ``chunks`` row slices, all in flight
   in one launch, each cut into spans over its share of the SMs
   (:func:`multi_spans`);
@@ -26,7 +28,8 @@ contrast (``xla``: ``torch.roll`` by one row, a library op, kept under
 the reference's name) and records the fastest as the put bandwidth.
 
 Over a rank mesh of more than one rank (``comm/mesh.py``),
-:func:`ring_put` (K9, ``csrc/ring_put.cu``) puts every rank's shard into
+:func:`ring_put` (K9, ``csrc/ring_put.cu``, on the same streaming copy,
+one block a piece: :func:`ring_put_pieces`) puts every rank's shard into
 its +1 neighbour's output buffer, and :func:`run_onesided` runs the
 reference's ``ring_put`` mode.
 """
@@ -97,6 +100,8 @@ def _library() -> ctypes.CDLL:
         lib.local_put_mono_span.argtypes = [i64, i64]
         lib.local_put_multi_span.restype = i64
         lib.local_put_multi_span.argtypes = [i64, i64, i64]
+        lib.local_put_streamed_grid.restype = i64
+        lib.local_put_streamed_grid.argtypes = [i64, i64]
         sigs = {
             "local_put_mono": [ptr, ptr, i64, ptr],
             "local_put_streamed": [ptr, ptr, i64, i64, ptr],
@@ -115,6 +120,10 @@ def _library() -> ctypes.CDLL:
 STAGE_BYTES = 112 * 1024
 # The smallest span of the mono put (csrc/local_put.cu MONO_MIN_SPAN).
 MONO_MIN_SPAN = 16 * 1024
+# The streaming copy of K8b and K9 (csrc/stream_copy.cuh): a block of
+# 256 threads, each with 4 16-byte loads in flight, moves STREAM_STEP
+# bytes a step.
+STREAM_STEP = 256 * 4 * 16
 
 
 def mono_span(n: int, sms: int) -> int:
@@ -222,22 +231,52 @@ def local_put(x: torch.Tensor) -> torch.Tensor:
 
 
 def streamed_block_rows(rows: int, row_bytes: int, block_rows: int) -> int:
-    """``block_rows`` as K8b runs it: rows per shared-memory stage,
-    clamped so that a tile fits one stage (two stages and the barriers
-    fit a block's 227 KB; a 512-column float32 row is 2 KB, so this
-    replaces the reference's 4 MiB VMEM cap) and then to a divisor of
-    ``rows``.  A row longer than a stage takes one row per tile, which
-    the kernel cuts into stage-sized pieces."""
+    """``block_rows`` as K8b runs it: rows per tile, clamped so
+    that a tile is at most ``STAGE_BYTES`` (a 512-column float32 row is
+    2 KB, so this replaces the reference's 4 MiB VMEM cap: 48 rows and
+    1,920 tiles at the full buffer) and then to a divisor of ``rows``.
+    A row longer than that takes one row per tile."""
     return _largest_divisor_at_most(
         rows, min(block_rows, max(1, STAGE_BYTES // max(1, row_bytes)))
     )
 
 
+def streamed_pieces(rows: int, row_bytes: int, block_rows: int
+                    ) -> list[tuple[int, int]]:
+    """The (start, stop) bytes of K8b's blocks over a buffer of ``rows``
+    rows of ``row_bytes``: each tile of :func:`streamed_block_rows` rows
+    cut into ``STREAM_STEP`` pieces, its last ragged, one block a piece,
+    in launch order (the C side's ``local_put_streamed_grid`` counts
+    them)."""
+    if rows <= 0 or row_bytes <= 0:
+        return []
+    return _step_pieces(
+        rows * row_bytes,
+        streamed_block_rows(rows, row_bytes, block_rows) * row_bytes)
+
+
+def ring_put_pieces(n_bytes: int) -> list[tuple[int, int]]:
+    """The (start, stop) bytes of K9's blocks over an ``n_bytes`` shard,
+    one tile: one block a ``STREAM_STEP`` piece, the last ragged, in
+    launch order (the C side's ``ring_put_grid`` counts them)."""
+    return _step_pieces(n_bytes, n_bytes) if n_bytes > 0 else []
+
+
+def _step_pieces(n_bytes: int, tile: int) -> list[tuple[int, int]]:
+    """``n_bytes`` cut into tiles of ``tile`` bytes and each tile into
+    ``STREAM_STEP`` pieces, its last ragged (``stream_copy.cuh``'s
+    ``copy_piece``, one block a piece)."""
+    return [(t + s, t + min(s + STREAM_STEP, tile))
+            for t in range(0, n_bytes, tile)
+            for s in range(0, tile, STREAM_STEP)]
+
+
 def local_put_streamed(x: torch.Tensor, block_rows: int = 1024
                        ) -> torch.Tensor:
     """One-sided put streamed through on-chip memory (K8b): tiles of
-    :func:`streamed_block_rows` rows, each block double-buffering its
-    tiles.  A new tensor equal to ``x``."""
+    :func:`streamed_block_rows` rows cut into one block's pieces
+    (:func:`streamed_pieces`), each thread's loads into registers all in
+    flight before its stores.  A new tensor equal to ``x``."""
     rows = x.shape[0] if x.ndim else 0
     if rows == 0 or x.numel() == 0:
         return x
@@ -322,6 +361,8 @@ def _ring_library() -> ctypes.CDLL:
                                  ctypes.c_longlong, ctypes.c_void_p]
         lib.ring_put_enable_peer.restype = ctypes.c_int
         lib.ring_put_enable_peer.argtypes = [ctypes.c_int]
+        lib.ring_put_grid.restype = ctypes.c_longlong
+        lib.ring_put_grid.argtypes = [ctypes.c_longlong]
     return lib
 
 
@@ -434,7 +475,7 @@ class OneSidedConfig:
     # streamed, multi, xla and, with >= 2 rows, inplace, and keeps the
     # fastest)
     kernel: str = "auto"
-    # streamed: rows per shared-memory stage; multi/inplace: chunks in
+    # streamed: rows per tile; multi/inplace: chunks in
     # flight.  Resolved per instance from TUNED_PATH.
     block_rows: int | None = None
     chunks: int | None = None
