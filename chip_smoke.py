@@ -24,18 +24,21 @@ printed lines:
    each instance of the redesigned kernels (the bf16 wgmma forward of
    K2/K3, the bf16 wgmma backward of K4, dq and dk/dv, the all-SM mono,
    multi and in-place puts K8a, K8c and K8d, the register-streamed puts
-   K8b and K9, the split-page K1, the streaming add K5) with its
+   K8b and K9, the split-page K1, the streaming adds K5 and K10) with its
    registers,
    spills, static and dynamic shared memory from ``-Xptxas -v`` and
    whether ptxas serialized its wgmma products (a backward instance
    that spills or is serialized fails);
 3. K1 vs plain: the split-page paged-attention kernel against its plain
-   torch version on the card, for f32, bf16 and int8 pools, W=1 and
-   W=4, G=1 and G=4, ragged pos0, TRASH pages, an inactive and an
-   all-TRASH row, at a small shape and at the serve slice's shape (with
-   int8 at W=4 and G=4, and split edges: a row whose window ends inside
-   the first split, a split whose pages are all TRASH between live
-   ones), the slice's cases again in splits of several stages, and a
+   torch version on the card, for f32, bf16 and int8 pools, W=1, W=4
+   and W=5 (the verify step of spec_k 4), G=1 and G=4, ragged pos0,
+   TRASH pages, an inactive and an all-TRASH row, at a small shape and
+   at the serve slice's shape (with int8 at W=4 and G=4, split edges: a
+   row whose window ends inside the first split, a split whose pages are
+   all TRASH between live ones, and the verify cases at W=5, G=1 and
+   G=4, bf16 and int8, with an inactive row and a row whose last lanes
+   lie past its table; the shared memory of the G x W = 20 block is
+   reported), the slice's cases again in splits of several stages, and a
    long window (32 rows at the end of 4096-token windows, bf16); at the
    slice's shape and the long window the kernel's, the plain version's,
    one SDPA call's (``scaled_dot_product_attention`` on the gathered
@@ -67,9 +70,18 @@ printed lines:
    report (a flip only where the oracle's top-2 margin is below bf16
    resolution); then the device's busy and idle share of the continuous
    run, from torch.profiler.  A second leg serves 8 requests with 2 K/V
-   heads and an int8 pool;
+   heads and an int8 pool.  The spec leg decodes the repetitive trace
+   with spec_k 4 beside plain decode (tokens/s of each, accepted tokens
+   per row-step > 1.0, K1 launched depth x verify steps times in the
+   timed run and at W = 5 in one more run, no leaked block); the
+   prefix leg serves the shared trace (384 of 512 prompt tokens shared)
+   with sharing and without (peak blocks, CoW copies, prefix hits, no
+   leaked block, K1 launched depth x steps times); both with the oracle
+   gate of the main leg;
 6. serve exactness at full width in float32 with TF32 off:
-   ``run_serve``'s Record, whose ids must equal the dense oracle's;
+   ``run_serve`` with spec_k 4 and prefix sharing: its main,
+   ``prefix_share_*`` and ``spec_decode_*`` Records, each SUCCESS with
+   ids equal to the dense oracle's;
 7. the flagship train step at its full default width (bf16, batch 4,
    seq 4096, embed 1024, 8 heads x 128, causal, attention through the
    flash kernels): ``run_flagship``'s Record must read SUCCESS, and K3,
@@ -154,17 +166,14 @@ printed lines:
     ``run_onesided`` over 4 ranks at the reference's message size
     (SUCCESS, checksum, 4 K9 launches per ring put); the ``allreduce``, ``miniapps`` and ``p2p
     --devices 4`` commands; the pallas ring's device idle share comes
-    from the profiling process of phase 10; then the ``redesign`` line:
-    K3's, K2's, K4's (dq, dk/dv), K8a's, K1's, K8c's, K8d's, K5's
-    (2^23, 2^25), K8b's and K9's ms beside their times before the
-    redesign (PERF.md's 4.485, 4.539, 4.925, 6.599, 4.023, 0.1593,
-    0.5195, 0.2632, 0.04396, 0.1410, 0.1381 and 0.1372 ms), their
-    library call's and their bound;
+    from the profiling process of phase 10;
 12. interop: the native module built from the checkout with g++ (the
     compiler's version, the seconds of a build from scratch, the
-    library the port loads); the kernel K10 (``add_one``, x + 1)
-    against its plain version on the same tensors, bit for bit, at (4,
-    128), 1, 127, 4097 and 2^25 elements, one element into a buffer, on
+    library the port loads); K10's grid as the C side computes it
+    against its Python mirror (``kernel.tile_grid``); the kernel K10
+    (``add_one``, x + 1) against its plain version on the same tensors,
+    bit for bit, at (4, 128), 1, 3, 127, 4097, 2^25 and 2^25 + 3
+    elements, input, output or both one element into a buffer, on
     +-0, +-inf and subnormals, and in managed memory, each call
     launching K10; the typed ops refusing a CUDA tensor; the zero-copy
     proof, the slice's main path (K10's count set to 0 just before):
@@ -176,8 +185,15 @@ printed lines:
     a ``torch.compile``d program (512 each), 4 K10 launches;
     ``python -m tpu_patterns_torch interop --device cuda`` (7 Records,
     modes native and offload:gpu, all SUCCESS, exit 0); K10's time at
-    (4, 128) and 2^25 (L2 flushed) beside its plain version's, one
-    ``torch.add(x, 1.0, out=)`` call's and its byte bound;
+    (4, 128) and 2^25 (L2 flushed, median of 5 readings) beside its
+    plain version's, one ``torch.add(x, 1.0, out=)`` call's and its
+    byte bound, and K10's and that call's device time with no host gaps;
+    then the ``redesign`` line: K3's, K2's, K4's (dq, dk/dv), K8a's,
+    K1's, K8c's, K8d's, K5's (2^23, 2^25), K8b's, K9's and K10's ms
+    beside their times before the redesign (PERF.md's 4.485, 4.539,
+    4.925, 6.599, 4.023, 0.1593, 0.5195, 0.2632, 0.04396, 0.1410,
+    0.1381, 0.1372 and 0.09865 ms), their library call's and their
+    bound;
 13. the card's name and power limit again, the ``kernels`` line, then
     the device line, which is the last.
 """
@@ -198,6 +214,8 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 DEVICE = "cuda"
 BF16_RESOLUTION = 2.0**-7  # relative spacing of bfloat16 values
+SPEC_K = 4  # drafts a row of the spec legs: K1 verifies at W = 5
+SHARED_PREFIX = 384  # of the prefix leg's 512-token prompts
 FULL_WIDTH = dict(
     vocab=2048, embed=1024, heads=8, head_dim=128, mlp_mult=4, depth=4,
     rope=True, slots=8, block_len=16, min_prompt=64, max_prompt=512,
@@ -245,7 +263,8 @@ REDESIGNED_BEFORE_MS = {"flash_block": 4.485, "flash_attention": 4.539,
                         "local_put_inplace": 0.2632,
                         "accumulate n=2^23": 0.04396,
                         "accumulate n=2^25": 0.1410,
-                        "local_put_streamed": 0.1381, "ring_put": 0.1372}
+                        "local_put_streamed": 0.1381, "ring_put": 0.1372,
+                        "add_one": 0.09865}
 # kernel library -> the kernels redesigned for the card (name prefixes)
 # whose -Xptxas -v report the kernel_build line carries
 REDESIGNED_LIBS = {"flash_attention": ("flash_fwd_wgmma_kernel",),
@@ -257,7 +276,8 @@ REDESIGNED_LIBS = {"flash_attention": ("flash_fwd_wgmma_kernel",),
                    "ring_put": ("ring_put_kernel",),
                    "paged_attention": ("paged_attention_split_kernel",),
                    "accumulate": ("accumulate_vec_kernel",
-                                  "accumulate_scalar_kernel")}
+                                  "accumulate_scalar_kernel"),
+                   "add_one": ("add_one_vec_kernel", "add_one_scalar_kernel")}
 # the backward's instances as ptxas_report names them
 BWD_WGMMA = re.compile(r"flash_bwd_wgmma_(dq|dkv)_kernel<D=(\d+),NC=(\d+)>")
 
@@ -514,7 +534,7 @@ def phase_kernels(torch, pk, timing, spec):
     results = {"cases": 0, "max_abs_err": 0.0}
     tols = {"f32": 2e-5, "bf16": 1e-4, "int8": 1e-4}
     for kind in ("f32", "bf16", "int8"):
-        for w in (1, 4):
+        for w in (1, 4, 5):
             for g in (1, 4):
                 name = f"small_{kind}_w{w}_g{g}"
                 case = make_case(torch, kind=kind, b=4, w=w, h=4, hkv=4 // g,
@@ -538,6 +558,12 @@ def phase_kernels(torch, pk, timing, spec):
         # row 0's window ends inside the first split, and every page of
         # row 1's second split is TRASH between live ones
         "split_edges_bf16_w4_g1": dict(kind="bf16", w=4, h=8, hkv=8),
+        # the verify step of spec_k 4: W = 5, with an inactive row and a
+        # row whose last lanes lie past its table (a verify's padding
+        # lanes past the row's lifetime)
+        "verify_bf16_w5_g1": dict(kind="bf16", w=5, h=8, hkv=8),
+        "verify_bf16_w5_g4": dict(kind="bf16", w=5, h=8, hkv=2),
+        "verify_int8_w5_g4": dict(kind="int8", w=5, h=8, hkv=2, q_bf16=True),
     }
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     pps = pk.split_pages(36, 16, 8, 8, 128 * 2, sms)
@@ -551,6 +577,10 @@ def phase_kernels(torch, pk, timing, spec):
             _, _, tables, pos0, _ = cases[name]
             pos0[0] = pps * 16 // 2
             tables[1, pps: 2 * pps] = 0
+        if name.startswith("verify"):
+            _, _, tables, pos0, active = cases[name]
+            active[5] = False
+            pos0[2] = int((tables[2] != 0).sum()) * 16 - 2
         err = check_kernel(torch, pk, name, cases[name], 16,
                            tols[kw["kind"]])
         results["cases"] += 1
@@ -567,8 +597,14 @@ def phase_kernels(torch, pk, timing, spec):
             results["max_abs_err"] = max(results["max_abs_err"], err)
     finally:
         pk.WAVE_BLOCKS = wave
+    # shared memory of the verify step's block (G*W = 20, bf16, D 128)
+    vpps = pk.split_pages(36, 16, 8, 2, 128 * 2, sms)
+    verify_smem = pk._library().paged_attention_smem_bytes(
+        20, 128, 1, 16, vpps, min(vpps, pk.stage_pages(16, 256)))
     emit({"phase": "kernel_vs_plain", **results,
-          "serve_pages_per_split": pps})
+          "serve_pages_per_split": pps,
+          "verify_w5_g4_smem_bytes": verify_smem,
+          "verify_w5_g4_pages_per_split": vpps})
 
     # time the main path's shape (bf16 pool, W=1, G=1) and the long
     # window, L2 flushed
@@ -935,6 +971,141 @@ def serve_leg(torch, eng_mod, name, cfg, gate_flips=True):
         bad.append("an id flip against the oracle above bf16 resolution")
     if bad:
         raise AssertionError(f"serve leg {name}: " + "; ".join(bad))
+    return row
+
+
+def _launch_widths(torch, eng_mod, pk, decoder, params, trace, slots, **kw):
+    """The width W of every K1 launch of one run of ``trace`` through a
+    fresh engine (``kw``: ``spec_k``, ``prefix_share``), as {W: count}:
+    the module's ``paged_block`` is swapped for a recorder for the run,
+    and the launches it counts are handed back after."""
+    import collections
+
+    widths = collections.Counter()
+    launch = pk.paged_block
+
+    def recording(q, *a, **k):
+        widths[q.shape[1]] += 1
+        return launch(q, *a, **k)
+
+    # the kernel's wrapper counts into the module's paged_block, the
+    # recorder while it stands there
+    recording.launches = launch.launches
+    pk.paged_block = recording
+    try:
+        eng_mod.ServeEngine(decoder, params, slots=slots, **kw).run(
+            [dataclasses.replace(r) for r in trace])
+        torch.cuda.synchronize()
+    finally:
+        pk.paged_block = launch
+        launch.launches = recording.launches
+    return dict(widths)
+
+
+def serve_spec_leg(torch, eng_mod, pk, cfg):
+    """Speculative decoding at ``cfg``'s width on the repetitive trace
+    (``spec_k`` drafts a row, prompt lookup), timed beside plain decode
+    of the same trace through the same decoder (``engine.timed_run``).
+    Gates: K1 launched depth x verify steps times in the timed spec
+    run, every launch of one more run at W = spec_k + 1; accepted
+    tokens per row-step >
+    1.0; no leaked block; id flips against the dense oracle only where
+    its top-2 margin is below bf16 resolution."""
+    mcfg, decoder, params, _ = eng_mod.build_serve(cfg)
+    trace = eng_mod.repetitive_trace(cfg)
+    total = sum(r.n_gen for r in trace)
+    out_s, spec_s, eng_s, _, launches = eng_mod.timed_run(
+        decoder, params, trace, cfg.slots, spec_k=cfg.spec_k)
+    out_p, plain_s, eng_p, _, plain_launches = eng_mod.timed_run(
+        decoder, params, trace, cfg.slots)
+    widths = _launch_widths(torch, eng_mod, pk, decoder, params, trace,
+                            cfg.slots, spec_k=cfg.spec_k)
+    st = eng_s.stats
+    accepted = st["spec_tokens"] / st["spec_row_steps"]
+    equal, flips = oracle_report(torch, mcfg, cfg, params, trace, out_s)
+    row = {
+        "phase": "serve", "leg": "spec", "dtype": cfg.dtype,
+        "spec_k": cfg.spec_k, "requests": len(trace),
+        "tokens_per_s": total / spec_s,
+        "plain_tokens_per_s": total / plain_s,
+        "spec_over_plain": plain_s / spec_s,
+        "accepted_tokens_per_row_step": accepted,
+        "verify_steps": st["spec_steps"], "plain_steps": eng_p.stats["steps"],
+        "kernel_launches": launches,
+        "depth_x_verify_steps": cfg.depth * st["spec_steps"],
+        "launch_widths": widths,
+        "plain_kernel_launches": plain_launches,
+        "leaked_blocks": eng_s.leaked_blocks(),
+        "spec_equals_plain": out_s == out_p,
+        "oracle_equal": equal, "oracle_flips": flips,
+    }
+    emit(row)
+    bad = []
+    if st["spec_steps"] == 0 or launches != cfg.depth * st["spec_steps"]:
+        bad.append(f"K1 launched {launches} times in the timed run, not "
+                   f"depth x verify steps = {cfg.depth * st['spec_steps']}")
+    if set(widths) != {cfg.spec_k + 1}:
+        bad.append(f"K1 ran at widths {widths}, not W = {cfg.spec_k + 1}")
+    if plain_launches != cfg.depth * eng_p.stats["steps"]:
+        bad.append("plain decode's K1 launches are not depth x steps")
+    if not accepted > 1.0:
+        bad.append(f"accepted tokens per row-step {accepted} <= 1.0")
+    if eng_s.leaked_blocks():
+        bad.append("leaked blocks")
+    if any(not f["below_bf16_resolution"] for f in flips):
+        bad.append("an id flip against the oracle above bf16 resolution")
+    if bad:
+        raise AssertionError("serve spec leg: " + "; ".join(bad))
+    return row
+
+
+def serve_prefix_leg(torch, eng_mod, pk, cfg):
+    """Prefix sharing at ``cfg``'s width on the shared trace (every
+    prompt opens with the same ``shared_prefix`` tokens), shared and
+    non-shared through the prefix-share Record's decoder (a pool that
+    never defers), each timed (``engine.timed_run``).  Gates: fewer
+    peak blocks shared than
+    not, no leaked block, K1 launched depth x steps times in the timed
+    shared run, id flips against the dense oracle only below bf16
+    resolution."""
+    mcfg, _, params, _ = eng_mod.build_serve(cfg)
+    decoder = eng_mod.prefix_decoder(cfg, mcfg, params["wemb"].device)
+    trace, s_len = eng_mod.shared_trace(cfg)
+    total = sum(r.n_gen for r in trace)
+    out_s, shared_s, eng_s, _, launches = eng_mod.timed_run(
+        decoder, params, trace, cfg.slots, prefix_share=True)
+    out_p, plain_s, eng_p, _, _ = eng_mod.timed_run(
+        decoder, params, trace, cfg.slots)
+    equal, flips = oracle_report(torch, mcfg, cfg, params, trace, out_s)
+    st = eng_s.stats
+    row = {
+        "phase": "serve", "leg": "prefix", "dtype": cfg.dtype,
+        "requests": len(trace), "shared_tokens": s_len,
+        "tokens_per_s": total / shared_s,
+        "nonshared_tokens_per_s": total / plain_s,
+        "peak_blocks": st["peak_blocks"],
+        "nonshared_peak_blocks": eng_p.stats["peak_blocks"],
+        "block_savings": 1 - st["peak_blocks"] / eng_p.stats["peak_blocks"],
+        "cow_copies": st["cow_copies"],
+        "prefix_hit_blocks": st["prefix_hit_blocks"],
+        "leaked_blocks": eng_s.leaked_blocks(),
+        "decode_steps": st["steps"], "kernel_launches": launches,
+        "depth_x_steps": cfg.depth * st["steps"],
+        "shared_equals_nonshared": out_s == out_p,
+        "oracle_equal": equal, "oracle_flips": flips,
+    }
+    emit(row)
+    bad = []
+    if not st["peak_blocks"] < eng_p.stats["peak_blocks"]:
+        bad.append("sharing did not lower the peak blocks")
+    if eng_s.leaked_blocks():
+        bad.append("leaked blocks")
+    if st["steps"] == 0 or launches != cfg.depth * st["steps"]:
+        bad.append(f"K1 launched {launches} times, not depth x steps")
+    if any(not f["below_bf16_resolution"] for f in flips):
+        bad.append("an id flip against the oracle above bf16 resolution")
+    if bad:
+        raise AssertionError("serve prefix leg: " + "; ".join(bad))
     return row
 
 
@@ -2239,12 +2410,25 @@ def phase_native_build(native):
 
 
 def phase_add_one_vs_plain(torch, k10, cc, calls):
-    """K10 against its plain version on the same tensors, bit for bit:
-    random float32 at (4, 128), 1, 127, 4097 and 2^25 elements; views one
-    element into a buffer; +-0, +-inf, subnormals and the float32
-    extremes; an input and an output in managed memory.  Every call must
-    launch K10.  Then the typed ops, registered for the CPU alone, must
-    refuse a CUDA tensor."""
+    """K10's grid, as the C side computes it (``add_one_grid``), against
+    its Python mirror (``kernel.tile_grid``, which the CPU tests hold to
+    cover every element once) on both paths; then K10 against its plain
+    version on the same tensors, bit for bit: random float32 at (4,
+    128), 1, 3, 127, 4097, 2^25 and 2^25 + 3 (an odd tail) elements;
+    input, output or both one element into a buffer (the scalar path);
+    +-0, +-inf, subnormals and the float32 extremes; an input and an
+    output in managed memory.  Every call must launch K10.  Then the
+    typed ops, registered for the CPU alone, must refuse a CUDA
+    tensor."""
+    lib = k10._library()
+    grids = {}
+    for n in (1, 3, 4, 5, 127, 512, 4097, K10_FULL, K10_FULL + 3):
+        for vec in (1, 0):
+            grid = lib.add_one_grid(n, vec)
+            if grid != k10.tile_grid(n, bool(vec)):
+                raise AssertionError(f"kernel.tile_grid({n}, {bool(vec)}) "
+                                     f"differs from add_one.cu's {grid}")
+            grids[f"{n} {'vector' if vec else 'scalar'}"] = grid
     cases = 0
 
     def same(name, x, out=None):
@@ -2258,13 +2442,15 @@ def phase_add_one_vs_plain(torch, k10, cc, calls):
             raise AssertionError(f"add_one differs from its plain version: "
                                  f"{name}")
 
-    for i, shape in enumerate((K10_PROOF, (1,), (127,), (4097,),
-                               (K10_FULL,))):
+    for i, shape in enumerate((K10_PROOF, (1,), (3,), (127,), (4097,),
+                               (K10_FULL,), (K10_FULL + 3,))):
         g = torch.Generator(device=DEVICE).manual_seed(70 + i)
         same(f"shape {shape}", torch.randn(shape, generator=g, device=DEVICE))
-    for n in (127, 4097):
-        same(f"n={n} one element into a buffer",
-             _ring_input(torch, n, torch.float32, 80 + n, 1))
+    for n in (127, 4097, K10_FULL + 3):
+        for xo, oo in ((1, 0), (0, 1), (1, 1)):
+            out = (torch.empty(n + oo, device=DEVICE)[oo:] if oo else None)
+            same(f"n={n} offsets in {xo}, out {oo}",
+                 _ring_input(torch, n, torch.float32, 80 + n + xo, xo), out)
     special = torch.tensor(
         [0.0, -0.0, float("inf"), float("-inf"), 1.4e-45, -1.4e-45, 1e-40,
          -1e-40, 1.1754942e-38, -1.1754942e-38, -1.0, -0.5, 3.4e38, -3.4e38,
@@ -2291,7 +2477,8 @@ def phase_add_one_vs_plain(torch, k10, cc, calls):
             continue
         raise AssertionError(f"{name} ran on a CUDA tensor")
     emit({"phase": "add_one_vs_plain", "cases": cases, "bit_exact": True,
-          "memory": ["device", "managed"], "cuda_refused": refused})
+          "memory": ["device", "managed"], "cuda_refused": refused,
+          "grid_by_n": grids})
     return cases
 
 
@@ -2370,12 +2557,16 @@ def phase_interop_cli():
                              f"{r.stdout}{r.stderr}")
 
 
-def phase_add_one_time(torch, k10, timing, spec):
-    """K10's ms per launch, L2 flushed before each, at the proof's (4,
+def phase_add_one_time(torch, k10, ck, timing, spec):
+    """K10's ms per launch, L2 flushed before each (the median of 5
+    readings of 20 calls, with their min and max), at the proof's (4,
     128) and at 2^25 float32, beside its plain version's, one
     ``torch.add(x, 1.0, out=)`` call's and its byte bound (each element
-    read once and written once: 8 bytes).  At (4, 128) a launch's
-    latency, not the bytes, bounds the time.  Returns the 2^25 row."""
+    read once and written once: 8 bytes); and K10's and that call's
+    device time with no host gaps and the host's us to enqueue one
+    (:func:`_queued_stats`, no flush: 2^25 moves more than the L2).  At
+    (4, 128) a launch's latency, not the bytes, bounds the time.
+    Returns the 2^25 row."""
     flush = torch.empty(64 << 20, dtype=torch.int32, device=DEVICE)
     rows = {}
     for i, shape in enumerate((K10_PROOF, (K10_FULL,))):
@@ -2384,20 +2575,32 @@ def phase_add_one_time(torch, k10, timing, spec):
         out = torch.empty_like(x)
 
         def t(fn):
-            return timing.cuda_time_ms(fn, reps=20, warmup=3,
-                                       before=flush.zero_)
+            return timing.cuda_time_repeated_ms(fn, reps=20, warmup=3,
+                                                before=flush.zero_)
 
+        kern = t(lambda: k10.add_one(x, out=out))
+        lib = t(lambda: torch.add(x, 1.0, out=out))
+        q_kern = _queued_stats(torch, ck, lambda: k10.add_one(x, out=out))
+        q_lib = _queued_stats(torch, ck, lambda: torch.add(x, 1.0, out=out))
+        bound = 2 * x.numel() * 4 / (spec["hbm_gbps"] * 1e9) * 1e3
         rows["x".join(map(str, shape))] = {
-            "ms": t(lambda: k10.add_one(x, out=out)),
-            "plain_ms": t(lambda: k10.add_one_reference(x)),
-            "library_ms": t(lambda: torch.add(x, 1.0, out=out)),
-            "bound_ms": 2 * x.numel() * 4 / (spec["hbm_gbps"] * 1e9) * 1e3,
-            "bound_by": "bytes",
+            "ms": kern["ms"], "ms_min": kern["min"], "ms_max": kern["max"],
+            "device_ms": q_kern["ms"], "device_ms_min": q_kern["min"],
+            "device_ms_max": q_kern["max"],
+            "host_us_per_call": q_kern["host_us"],
+            "plain_ms": t(lambda: k10.add_one_reference(x))["ms"],
+            "library_ms": lib["ms"], "library_ms_min": lib["min"],
+            "library_ms_max": lib["max"], "library_device_ms": q_lib["ms"],
+            "library_host_us_per_call": q_lib["host_us"],
+            "bound_ms": bound, "bound_by": "bytes",
+            "device_share_of_bound": bound / q_kern["ms"],
         }
     rows["4x128"]["note"] = ("the launch latency bounds this size; the byte "
                              "bound is far below one launch")
-    emit({"phase": "add_one_time", "shape": "float32, per launch, L2 "
-          "flushed", "library": "torch.add(x, 1.0, out=o)", **rows})
+    emit({"phase": "add_one_time", "shape": "float32, per launch; ms: "
+          "median of 5 readings of 20 calls, L2 flushed; device_ms: median "
+          "of 5 readings of 20 calls queued behind a busy-wait",
+          "library": "torch.add(x, 1.0, out=o)", **rows})
     return rows[str(K10_FULL)]
 
 
@@ -2474,7 +2677,7 @@ def profile_concurrency_main() -> int:
 
 # the timing phases ``--tree`` runs with another checkout's package
 TREE_PHASES = ("put_time", "ring_put_time", "accumulate_time",
-               "allreduce")
+               "allreduce", "add_one_time")
 
 
 def tree_main(tree: str, phases: list[str]) -> int:
@@ -2501,6 +2704,7 @@ def tree_main(tree: str, phases: list[str]) -> int:
     from tpu_patterns_torch.concurrency import backends as cb
     from tpu_patterns_torch.concurrency import kernels as ck
     from tpu_patterns_torch.core import timing
+    from tpu_patterns_torch.interop import kernel as k10
     from tpu_patterns_torch.kernels import build
     from tpu_patterns_torch.miniapps import framework as fw
     from tpu_patterns_torch.miniapps.apps import allreduce as ar
@@ -2521,7 +2725,9 @@ def tree_main(tree: str, phases: list[str]) -> int:
                torch, op, ck, timing, spec, fw),
            "accumulate_time": lambda: phase_accumulate_time(
                torch, ap, ck, timing, spec),
-           "allreduce": lambda: phase_allreduce(torch, ap, ar, fw)}
+           "allreduce": lambda: phase_allreduce(torch, ap, ar, fw),
+           "add_one_time": lambda: phase_add_one_time(torch, k10, ck,
+                                                      timing, spec)}
     for name in phases or TREE_PHASES:
         run[name]()
     return 0
@@ -2593,6 +2799,14 @@ def phase_kernel_build(torch, libs, F, op, pk):
                 1, 128, 1, 16, pps, min(pps, pk.stage_pages(16, 256))),
                 pages_per_split=pps,
                 blocks=8 * 8 * -(-36 // pps))
+    # K10: no shared memory, one block a tile of the stream
+    from tpu_patterns_torch.interop import kernel as k10
+
+    for name in ("add_one_vec_kernel", "add_one_scalar_kernel"):
+        report[name].update(
+            dynamic_smem=0, threads=k10.THREADS, vectors=k10.VECS,
+            blocks_at_2_25=k10.tile_grid(K10_FULL,
+                                         name == "add_one_vec_kernel"))
     emit({"phase": "kernel_build", "kernels": report})
     bwd = {n: r for n, r in report.items() if BWD_WGMMA.fullmatch(n)}
     bad = [n for n, r in bwd.items() if r.get("spill_stores")
@@ -2676,20 +2890,30 @@ def main() -> int:
               dataclasses.replace(base, kv_heads=2, cache_int8=True,
                                   requests=8),
               gate_flips=False)
+    spec_leg = serve_spec_leg(torch, eng_mod, pk,
+                              dataclasses.replace(base, spec_k=SPEC_K))
+    serve_prefix_leg(torch, eng_mod, pk, dataclasses.replace(
+        base, prefix_share=True, shared_prefix=SHARED_PREFIX))
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     emit({"phase": "exact_f32", "matmul.allow_tf32":
           torch.backends.cuda.matmul.allow_tf32,
           "cudnn.allow_tf32": torch.backends.cudnn.allow_tf32})
-    rec, = eng_mod.run_serve(
-        dataclasses.replace(base, dtype="float32")
-    )
-    emit({"phase": "exact_f32", "verdict": rec.verdict.value,
-          "metrics": rec.metrics, "notes": rec.notes})
-    if rec.metrics["exact"] != 1.0 or not rec.verdict:
-        raise AssertionError("float32 serve Record failed: "
-                             + "; ".join(rec.notes))
+    recs = eng_mod.run_serve(dataclasses.replace(
+        base, dtype="float32", spec_k=SPEC_K, prefix_share=True))
+    for rec in recs:
+        emit({"phase": "exact_f32", "mode": rec.mode,
+              "verdict": rec.verdict.value, "metrics": rec.metrics,
+              "notes": rec.notes})
+    modes = [r.mode for r in recs]
+    if (len(recs) != 3 or not modes[1].startswith("prefix_share_")
+            or not modes[2].startswith("spec_decode_")):
+        raise AssertionError(f"float32 run_serve Records: {modes}")
+    for rec in recs:
+        if rec.metrics["exact"] != 1.0 or not rec.verdict:
+            raise AssertionError(f"float32 serve Record {rec.mode} failed: "
+                                 + "; ".join(rec.notes))
 
     flag = phase_flagship(torch, F, fl)
     phase_flagship_profile(torch, timing, fl, tr,
@@ -2717,16 +2941,24 @@ def main() -> int:
     rp_time = phase_ring_put_time(torch, op, ck, timing, spec, fw)
     rp_launches = phase_onesided_ring(torch, op, fw)
     phase_ring_cli()
+    phase_native_build(native)
+    phase_add_one_vs_plain(torch, k10, cc, calls)
+    k10_launches = phase_interop_proof(torch, k10, calls, native, cc)
+    phase_interop_cli()
+    k10_time = phase_add_one_time(torch, k10, ck, timing, spec)
+
     rows = {**ftime, **ptime, "paged_attention": {
         "ms": ktime["kernel"]["ms"], "bound_ms": ktime["bound_ms"],
         "library_ms": ktime["library_sdpa"]["ms"]},
         "accumulate n=2^23": acc_times[AR_FULL // AR_WORLD],
-        "accumulate n=2^25": acc_times[AR_FULL], "ring_put": rp_time}
+        "accumulate n=2^25": acc_times[AR_FULL], "ring_put": rp_time,
+        "add_one": k10_time}
     emit({"phase": "redesign", "card": smi,
           "note": "ms_before: PERF.md's kernel table before the redesign "
           "(this script, same card and power limit); paged_attention's "
           "library is SDPA on the gathered window; accumulate's ms holds "
-          "the host's time per call (device_ms in accumulate_time)",
+          "the host's time per call (device_ms in accumulate_time); "
+          "add_one's at 2^25, L2 flushed",
           **{name: {"ms": rows[name]["ms"], "ms_before": before,
                     "speedup": before / rows[name]["ms"],
                     "library_ms": rows[name]["library_ms"],
@@ -2734,12 +2966,6 @@ def main() -> int:
                     "over_library": rows[name]["ms"]
                     / rows[name]["library_ms"]}
              for name, before in REDESIGNED_BEFORE_MS.items()}})
-
-    phase_native_build(native)
-    phase_add_one_vs_plain(torch, k10, cc, calls)
-    k10_launches = phase_interop_proof(torch, k10, calls, native, cc)
-    phase_interop_cli()
-    k10_time = phase_add_one_time(torch, k10, timing, spec)
 
     # launches: K1 in the timed serve run, K3 and K4 in the flagship
     # run, K2 in the no-grad forward (each count set to 0 just before)
@@ -2761,6 +2987,7 @@ def main() -> int:
         "library_gather_sdpa_ms": ktime["library_gather_sdpa"]["ms"],
         "long_window_ms": klong["kernel"]["ms"],
         "long_window_share_of_bound": klong["share_of_bound"],
+        "verify_launches": spec_leg["kernel_launches"],
     }]
     for kname, (source, replaces) in FLASH_KERNELS.items():
         row = ftime[kname]
@@ -2835,6 +3062,9 @@ def main() -> int:
         "plain_ms": k10_time["plain_ms"], "bound_ms": k10_time["bound_ms"],
         "bound_by": k10_time["bound_by"],
         "library_ms": k10_time["library_ms"],
+        "device_ms": k10_time["device_ms"],
+        "library_device_ms": k10_time["library_device_ms"],
+        "host_us_per_call": k10_time["host_us_per_call"],
     })
     # the card's name and power limit again, beside the numbers, where a
     # tail of the output still holds them

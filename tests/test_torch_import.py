@@ -120,7 +120,8 @@ def test_unported_options_are_refused():
 
     with pytest.raises(NotImplementedError, match="moe"):
         ModelConfig(moe=True)
-    for argv in (["serve", "--spec_k", "2"], ["serve", "--prefix_share"],
+    for argv in (["serve", "--kv_host_tier", "1"],
+                 ["serve", "--snapshot_dir", "snap"],
                  ["serve", "--paged_attn", "pallas"],
                  ["allreduce", "--placement", "spread"],
                  ["p2p", "--bidirectional", "0"],

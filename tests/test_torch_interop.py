@@ -220,6 +220,30 @@ def test_kernel_output_flows_into_cpp():
     assert int(prog(y)[0]) == expected_checksum(2048) + 2048
 
 
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "misaligned"])
+@pytest.mark.parametrize("n", [1, 3, 4, 5, 127, 512, 4097, 16384,
+                               (1 << 25) + 3])
+def test_add_one_tile_plan_covers_every_element_once(n, offset):
+    """K10's grid mirror (``kernel.tile_grid``, which chip_smoke.py holds
+    to the C side's ``add_one_grid``) and its tiles: every element of
+    [0, n) written by exactly one thread of one block, none past n, at
+    the proof's 512, edge sizes around a vector and a tile, and a
+    ragged 2^25.  An operand one float32 into its buffer takes the
+    scalar path."""
+    vector = offset == 0
+    grid = kernel.tile_grid(n, vector)
+    tile = kernel.THREADS * kernel.VECS * 4
+    assert grid >= 1 and (grid - 1) * tile < n
+    seen = np.zeros(n, dtype=np.uint8)
+    count = 0
+    for block in range(grid):
+        i = kernel.tile_elements(n, vector, block).numpy()
+        assert i.size and i.min() >= 0 and i.max() < n
+        seen[i] += 1
+        count += i.size
+    assert count == n and (seen == 1).all()
+
+
 def test_add_one_has_no_fallback():
     with pytest.raises(ValueError, match="no kernel"):
         kernel.add_one(torch.empty((4, 128), device="meta"))

@@ -163,3 +163,13 @@ def test_cli_takes_or_refuses_every_reference_serve_flag():
     for name in tcli._NOT_PORTED:
         with pytest.raises(SystemExit):
             tcli.build_parser().parse_args(["serve", f"--{name}", "1"])
+    # speculative decoding and prefix sharing are taken
+    args = tcli.build_parser().parse_args(
+        ["serve", "--spec_k", "4", "--min_accepted", "1.5",
+         "--prefix_share", "true", "--shared_prefix", "16",
+         "--min_block_savings", "0.25"])
+    assert (args.spec_k, args.min_accepted, args.prefix_share,
+            args.shared_prefix, args.min_block_savings) == (
+        4, 1.5, True, 16, 0.25)
+    assert not {"spec_k", "min_accepted", "prefix_share", "shared_prefix",
+                "min_block_savings"} & set(tcli._NOT_PORTED)

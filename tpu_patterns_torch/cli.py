@@ -49,9 +49,8 @@ from tpu_patterns_torch.core.results import ResultWriter
 # `tpu-patterns <cmd>` flags whose machinery is not ported yet
 _NOT_PORTED_FLAGSHIP = ("devices", "dp", "tp")
 _NOT_PORTED = (
-    "devices", "dp", "tp", "watchdog_s", "prefix_share", "shared_prefix",
-    "min_block_savings", "spec_k", "min_accepted", "snapshot_dir",
-    "resume", "ids_out", "kv_host_tier", "session_dir", "host_tier_blocks",
+    "devices", "dp", "tp", "watchdog_s", "snapshot_dir", "resume",
+    "ids_out", "kv_host_tier", "session_dir", "host_tier_blocks",
     "min_tier_speedup", "prefix_store", "scenario", "time_scale",
     "obs_http", "burn_mitigation", "slo_fast_s", "slo_slow_s",
     "slo_budget", "burn_multiplier", "preempt", "replicas",

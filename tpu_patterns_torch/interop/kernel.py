@@ -8,6 +8,11 @@ managed memory, and its output reaches the native C++ in place (managed
 memory, after a synchronize) or through host staging
 (``calls.offload_checksum``, ``calls.host_checksum``).  A CPU tensor
 runs the plain version, :func:`add_one_reference`.
+
+The kernel is a streaming tile (``kernels/csrc/stream_tile.cuh``, K5's)
+of one 16-byte vector a thread and 1024 threads a block;
+:func:`tile_grid` mirrors its grid (chip_smoke.py holds it to the C
+side's ``add_one_grid``) and :func:`tile_elements` its tiles.
 """
 
 from __future__ import annotations
@@ -15,6 +20,8 @@ from __future__ import annotations
 import ctypes
 
 import torch
+
+from tpu_patterns_torch.kernels import tile
 
 
 def _library() -> ctypes.CDLL:
@@ -26,7 +33,25 @@ def _library() -> ctypes.CDLL:
         ptr = ctypes.c_void_p
         lib.add_one.restype = ctypes.c_int
         lib.add_one.argtypes = [ptr, ptr, ctypes.c_longlong, ptr]
+        lib.add_one_grid.restype = ctypes.c_longlong
+        lib.add_one_grid.argtypes = [ctypes.c_longlong, ctypes.c_int]
     return lib
+
+
+# K10's tile (csrc/add_one.cu)
+THREADS, VECS = 1024, 1
+
+
+def tile_grid(n: int, vector: bool) -> int:
+    """The blocks K10 launches over ``n`` elements, as the C side's
+    ``add_one_grid`` computes them (:func:`kernels.tile.tile_grid`)."""
+    return tile.tile_grid(n, vector, THREADS, VECS)
+
+
+def tile_elements(n: int, vector: bool, block: int) -> torch.Tensor:
+    """The element indices block ``block`` of K10's launch over ``n``
+    elements writes (:func:`kernels.tile.tile_elements`)."""
+    return tile.tile_elements(n, vector, block, THREADS, VECS)
 
 
 def add_one_reference(x: torch.Tensor) -> torch.Tensor:

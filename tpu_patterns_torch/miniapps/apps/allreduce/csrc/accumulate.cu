@@ -39,11 +39,14 @@
 
 #include <cuda_runtime.h>
 
+#include "../../../../kernels/csrc/stream_tile.cuh"
+
 namespace acc {
 
-constexpr int THREADS = 256;
-constexpr int VECS = 4;  // 16-byte vectors of a thread
-constexpr long long TILE = THREADS * VECS * 4;  // elements of a block
+using Tile = stream_tile::Tile<256, 4>;
+constexpr int THREADS = Tile::THREADS;
+constexpr int VECS = Tile::VECS;
+constexpr long long TILE = Tile::TILE;
 
 __device__ __forceinline__ float add(float a, float b) {
   return __fadd_rn(a, b);
@@ -130,15 +133,6 @@ inline cudaError_t host_device_ptr(const void* p, const void** out) {
   return cudaSuccess;
 }
 
-// The blocks of a launch over n elements: a tile each, of whole vectors
-// on the vector path (at least one block, whose tail takes n < 4) or of
-// single elements on the scalar path.
-inline long long grid_for(long long n, bool vec) {
-  if (!vec) return (n + TILE - 1) / TILE;
-  const long long nv = n / 4;
-  return nv < 1 ? 1 : (nv + THREADS * VECS - 1) / (THREADS * VECS);
-}
-
 template <typename T, typename V>
 void launch(const void* a, const void* b, void* o, long long n,
             cudaStream_t s) {
@@ -149,11 +143,11 @@ void launch(const void* a, const void* b, void* o, long long n,
         reinterpret_cast<unsigned long long>(b) |
         reinterpret_cast<unsigned long long>(o)) &
        15) != 0) {
-    const unsigned grid = static_cast<unsigned>(grid_for(n, false));
+    const unsigned grid = static_cast<unsigned>(Tile::grid(n, false));
     accumulate_scalar_kernel<T><<<grid, THREADS, 0, s>>>(ta, tb, to, n);
     return;
   }
-  const unsigned grid = static_cast<unsigned>(grid_for(n, true));
+  const unsigned grid = static_cast<unsigned>(Tile::grid(n, true));
   accumulate_vec_kernel<T, V><<<grid, THREADS, 0, s>>>(ta, tb, to, n);
 }
 
@@ -164,7 +158,7 @@ extern "C" {
 // The blocks K5 launches over n elements, vec 1 on the vector path and
 // 0 on the scalar one (the smoke holds pallas.tile_grid to it).
 long long accumulate_grid(long long n, int vec) {
-  return acc::grid_for(n, vec != 0);
+  return acc::Tile::grid(n, vec != 0);
 }
 
 // out = a + b over n elements of float32 (dtype 0) or int32 (dtype 1),

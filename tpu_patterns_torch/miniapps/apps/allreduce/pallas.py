@@ -23,15 +23,28 @@ import torch
 
 from tpu_patterns_torch.comm.mesh import fresh_like
 from tpu_patterns_torch.core.results import Record, ResultWriter
+from tpu_patterns_torch.kernels import tile
 from tpu_patterns_torch.miniapps.apps import allreduce as core
 from tpu_patterns_torch.miniapps.framework import VariantSpec
 
 _DTYPES = {torch.float32: 0, torch.int32: 1}  # the kernel's dtype codes
-# K5's tile (csrc/accumulate.cu): THREADS threads a block, each with VECS
-# 16-byte vectors of four elements, or VECS x 4 single elements on the
-# scalar path
+# K5's tile (csrc/accumulate.cu, kernels/csrc/stream_tile.cuh): THREADS
+# threads a block, each with VECS 16-byte vectors of four elements, or
+# VECS x 4 single elements on the scalar path
 THREADS, VECS = 256, 4
 TILE = THREADS * VECS * 4
+
+
+def tile_grid(n: int, vector: bool) -> int:
+    """The blocks K5 launches over ``n`` elements, as the C side's
+    ``accumulate_grid`` computes them (:func:`kernels.tile.tile_grid`)."""
+    return tile.tile_grid(n, vector, THREADS, VECS)
+
+
+def tile_elements(n: int, vector: bool, block: int) -> torch.Tensor:
+    """The element indices block ``block`` of K5's launch over ``n``
+    elements writes (:func:`kernels.tile.tile_elements`)."""
+    return tile.tile_elements(n, vector, block, THREADS, VECS)
 
 
 def _library() -> ctypes.CDLL:
@@ -47,35 +60,6 @@ def _library() -> ctypes.CDLL:
         lib.accumulate_grid.restype = ctypes.c_longlong
         lib.accumulate_grid.argtypes = [ctypes.c_longlong, i32]
     return lib
-
-
-def tile_grid(n: int, vector: bool) -> int:
-    """The blocks K5 launches over ``n`` elements, as the C side's
-    ``accumulate_grid`` computes them: a tile of whole vectors each (at
-    least one block) on the vector path, a tile of single elements each
-    on the scalar path."""
-    if not vector:
-        return -(-n // TILE)
-    return max(1, -(-(n // 4) // (THREADS * VECS)))
-
-
-def tile_elements(n: int, vector: bool, block: int) -> torch.Tensor:
-    """The element indices block ``block`` of K5's launch over ``n``
-    elements writes.  On the vector path thread t takes vectors
-    block * THREADS * VECS + t + j * THREADS, j < VECS, masked at the
-    last whole vector, and the last block also the n % 4 elements past
-    it; on the scalar path elements block * TILE + t + j * THREADS,
-    j < VECS x 4, masked at n."""
-    t = torch.arange(THREADS)
-    if not vector:
-        i = block * TILE + t + torch.arange(VECS * 4)[:, None] * THREADS
-        return i[i < n]
-    v = block * THREADS * VECS + t + torch.arange(VECS)[:, None] * THREADS
-    v = v[v < n // 4]
-    i = (4 * v[:, None] + torch.arange(4)).ravel()
-    if block == tile_grid(n, True) - 1:
-        i = torch.cat([i, torch.arange(n // 4 * 4, n)])
-    return i
 
 
 @functools.cache

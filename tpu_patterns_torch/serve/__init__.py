@@ -2,8 +2,12 @@
 
   paged_kernel.py  fused paged attention: the CUDA kernel's wrapper and
                    its plain-torch version
-  paged.py         block pool + block tables; prefill and step updating
-                   the pool in place
-  engine.py        FIFO admit / prefill / step / retire scheduler and the
-                   ``serve`` measured pattern
+  paged.py         block pool + block tables; prefill, step, the
+                   speculative verify step and the CoW block copy,
+                   updating the pool in place
+  prefix.py        the radix index of admitted prompts that prefix
+                   sharing aliases blocks through
+  engine.py        FIFO admit / prefill / step / retire scheduler (with
+                   prefix sharing and speculative decoding) and the
+                   ``serve`` measured patterns
 """

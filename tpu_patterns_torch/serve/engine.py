@@ -5,21 +5,31 @@ Counterpart of the scheduler core of ``tpu_patterns/serve/engine.py``.
 The host loop owns the request queue, the slot table and the block free
 list.  Each iteration it
 
-  1. RETIRES finished rows (their blocks return to the free list),
+  1. RETIRES finished rows (each drops its table's block references; a
+     block's last reference returns it to the free list),
   2. ADMITS queued requests FIFO into free slots, reserving each one's
      whole lifetime (``ceil((prompt + gen - 1) / block_len)`` blocks) at
      admission, and DEFERS (never OOMs) when the pool cannot cover the
      head of the queue,
   3. PREFILLS the newcomers as one bucketed call (ragged lens), and
   4. runs ONE decode step for the whole active set, each row at its own
-     position, so a row admitted late decodes beside an early one.
+     position, so a row admitted late decodes beside an early one; with
+     ``spec_k`` > 0 the step is the speculative wide step (each row
+     drafts up to ``spec_k`` tokens by prompt lookup and one call
+     verifies them all).
 
-Row counts and prompt lengths are bucketed to powers of two, as in the
-JAX package, so the set of shapes the device sees stays small.
+With ``prefix_share`` admission is shared-aware: a prompt's whole-block
+prefix already in the radix index (``serve/prefix.py``) aliases those
+blocks (refcount + 1), a partial match at the boundary claims one fresh
+block that copies the donor (CoW), and only the rest comes from the free
+list.  Row counts and prompt lengths are bucketed to powers of two, as in
+the JAX package, so the set of shapes the device sees stays small.
 
 ``run_serve`` is the measured pattern: the same trace served continuous
 (``slots`` wide) and sequential (one slot), gated on speedup, exactness
-against the per-request dense decoder and the in-place pool.
+against the per-request dense decoder and the in-place pool; with
+``prefix_share`` or ``spec_k`` it also emits the reference's
+``prefix_share_*`` and ``spec_decode_*`` Records.
 """
 
 from __future__ import annotations
@@ -41,6 +51,7 @@ from tpu_patterns_torch.serve.paged import (
     make_paged_lm_decoder,
 )
 from tpu_patterns_torch.serve.paged_kernel import paged_block
+from tpu_patterns_torch.serve.prefix import PrefixIndex
 
 
 def _bucket(n: int, cap: int) -> int:
@@ -65,17 +76,25 @@ class _Slot:
     last_tok: int
     out: list[int]
     t_submit_ns: int
+    prompt: list[int]  # kept live: drafter context
+    write_from: int = 0  # prefix-share write fence (until its prefill)
+    own_blocks: tuple[int, ...] = ()  # blocks this row newly indexed
 
 
 class ServeEngine:
     """Continuous-batching scheduler over a :class:`PagedDecoder`.
 
     ``slots`` bounds the active set (the decode bucket ceiling).  The
-    decoder may be shared between engines; each engine owns its pool."""
+    decoder may be shared between engines; each engine owns its pool.
+    ``prefix_share`` turns on copy-on-write prefix sharing, ``spec_k``
+    speculative decoding with up to ``spec_k`` drafts a row a step."""
 
-    def __init__(self, decoder: PagedDecoder, params: dict, *, slots: int):
+    def __init__(self, decoder: PagedDecoder, params: dict, *, slots: int,
+                 prefix_share: bool = False, spec_k: int = 0):
         if slots < 1:
             raise ValueError(f"slots must be >= 1, got {slots}")
+        if spec_k < 0:
+            raise ValueError(f"spec_k must be >= 0, got {spec_k}")
         self.decoder = decoder
         self.params = params
         self.slots = slots
@@ -84,12 +103,23 @@ class ServeEngine:
         self.pool = decoder.init_pool()
         # block 0 is the trash block: never handed out
         self.free = list(range(self.layout.n_blocks - 1, TRASH_BLOCK, -1))
+        # per-block refcount: the live row tables mapping the block, so
+        # sum(ref.values()) equals the live table references.  TRASH_BLOCK
+        # never appears here.
+        self.ref: dict[int, int] = {}
+        self.index = (
+            PrefixIndex(self.layout.block_len) if prefix_share else None
+        )
+        self._pending_cow: list[tuple[int, int]] = []  # (src, dst)
+        self.spec_k = spec_k
         self.queue: list[tuple[Request, int]] = []  # (request, t_submit)
         self.active: list[_Slot] = []
         self.done: dict[int, list[int]] = {}
         self.stats = {
             "steps": 0, "deferrals": 0, "tokens": 0, "max_occupancy": 0.0,
-            "queue_wait_ns": [],
+            "queue_wait_ns": [], "peak_blocks": 0, "prefix_hit_blocks": 0,
+            "cow_copies": 0, "spec_steps": 0, "spec_row_steps": 0,
+            "spec_tokens": 0,
         }
 
     # -- bookkeeping -----------------------------------------------------
@@ -136,13 +166,27 @@ class ServeEngine:
         iff every prefill and step updated the pool in place."""
         return {n: t.data_ptr() for n, t in self.pool.items()}
 
+    def _release_block(self, b: int) -> None:
+        """Drop one table reference; the last one frees the block and
+        (with sharing on) removes its index node, so the index never
+        outlives the live shareable set."""
+        if b == TRASH_BLOCK:
+            return
+        n = self.ref.get(b, 0) - 1
+        if n > 0:
+            self.ref[b] = n
+            return
+        self.ref.pop(b, None)
+        if self.index is not None:
+            self.index.remove_block(b)
+        self.free.append(b)
+
     def _retire(self) -> None:
         still = []
         for s in self.active:
             if len(s.out) >= s.n_gen:
-                # no prefix sharing: a table is the only owner of its
-                # blocks, so retiring frees them all
-                self.free.extend(s.table)
+                for b in s.table:
+                    self._release_block(b)
                 self.done[s.rid] = s.out
             else:
                 still.append(s)
@@ -152,20 +196,50 @@ class ServeEngine:
         """Pull queued requests FIFO into free slots while blocks last; a
         head the pool cannot cover DEFERS (stays queued, one deferral
         counted) and ends admission, so later requests cannot starve
-        it."""
+        it.
+
+        With prefix sharing on, the prompt's indexed whole-block prefix
+        aliases existing blocks (refcount + 1, no allocation), a partial
+        boundary match claims one fresh block to copy the donor into,
+        and only the rest draws on the free list, so a shareable request
+        admits where its full rectangle would have deferred."""
         admitted: list[tuple[Request, _Slot]] = []
         while self.queue and len(self.active) + len(admitted) < self.slots:
             req, t_submit = self.queue[0]
             need = self._blocks_needed(req)
-            if need > len(self.free):
+            plan = (self.index.plan(req.tokens)
+                    if self.index is not None else None)
+            # the index never covers more than the prompt's blocks, but
+            # aliasing more than the table holds would leak references
+            aliased = list(plan.aliased)[:need] if plan else []
+            if need - len(aliased) > len(self.free):
                 self.stats["deferrals"] += 1
                 break
             self.queue.pop(0)
-            table = [self.free.pop() for _ in range(need)]
+            fresh = [self.free.pop() for _ in range(need - len(aliased))]
+            table = aliased + fresh
+            for b in aliased:
+                self.ref[b] = self.ref.get(b, 0) + 1
+            for b in fresh:
+                self.ref[b] = 1
+            write_from = len(aliased) * self.layout.block_len
+            if plan is not None and plan.donor is not None and fresh:
+                # CoW: the boundary block copies the donor, then this row
+                # overwrites its own tail from the split point
+                self._pending_cow.append((plan.donor, fresh[0]))
+                write_from += plan.donor_len
+                self.stats["cow_copies"] += 1
+            self.stats["prefix_hit_blocks"] += len(aliased)
+            own_blocks: tuple[int, ...] = ()
+            if self.index is not None:
+                own_blocks = tuple(self.index.insert(req.tokens, table))
             now = clock_ns()
             slot = _Slot(
                 rid=req.rid, lens=len(req.tokens), steps=0, n_gen=req.n_gen,
                 table=table, last_tok=-1, out=[], t_submit_ns=t_submit,
+                prompt=list(req.tokens),
+                write_from=min(write_from, len(req.tokens)),
+                own_blocks=own_blocks,
             )
             self.stats["queue_wait_ns"].append(now - t_submit)
             admitted.append((req, slot))
@@ -177,6 +251,19 @@ class ServeEngine:
             t[i, : len(s.table)] = s.table
         return t
 
+    def _cow_copy(self) -> None:
+        """Run the pending copy-on-write boundary copies in one call,
+        padded to a power-of-two lane count with TRASH self-copies."""
+        if not self._pending_cow:
+            return
+        n = _bucket(len(self._pending_cow), self.slots)
+        src = np.full((n,), TRASH_BLOCK, np.int32)
+        dst = np.full((n,), TRASH_BLOCK, np.int32)
+        for i, (a, b) in enumerate(self._pending_cow):
+            src[i], dst[i] = a, b
+        self.decoder.copy_blocks(self.pool, src, dst)
+        self._pending_cow = []
+
     def _prefill(self, admitted: list[tuple[Request, _Slot]]) -> None:
         reqs = [r for r, _ in admitted]
         slots = [s for _, s in admitted]
@@ -185,15 +272,16 @@ class ServeEngine:
         rows = _bucket(len(reqs), self.slots)
         tokens = np.zeros((rows, lpad), np.int32)
         lens = np.zeros((rows,), np.int32)
-        # the write fence: no prefix sharing, so every row writes its
-        # whole prompt from position 0
+        # the write fence: positions below it sit in shared blocks already
         start = np.zeros((rows,), np.int32)
         active = np.zeros((rows,), bool)
         for i, r in enumerate(reqs):
             tokens[i, : len(r.tokens)] = r.tokens
             lens[i] = len(r.tokens)
+            start[i] = slots[i].write_from
             active[i] = True
         tables = self._tables_array(slots, rows)
+        self._cow_copy()
         tok0 = self.decoder.prefill(
             self.params, self.pool, tokens, lens, start, tables, active
         )
@@ -202,7 +290,11 @@ class ServeEngine:
         for i, s in enumerate(slots):
             s.last_tok = int(tok0[i])
             s.out.append(s.last_tok)
+            s.write_from = 0  # fence spent: the wave is on the device
             self.stats["tokens"] += 1
+        if self.index is not None:
+            for s in slots:
+                self.index.materialize(list(s.own_blocks))
         self.active.extend(slots)
 
     def _step(self) -> None:
@@ -227,6 +319,74 @@ class ServeEngine:
             self.stats["tokens"] += 1
         self.stats["steps"] += 1
 
+    @staticmethod
+    def _draft(ctx: list[int], k: int) -> list[int]:
+        """Prompt-lookup self-drafting: find the most recent earlier
+        occurrence of the context's trailing n-gram (n = 3, 2, 1) and
+        propose the tokens that followed it.  An unmatched context
+        proposes nothing and the step degenerates to plain decode."""
+        for n in (3, 2, 1):
+            if len(ctx) <= n:
+                continue
+            pat = ctx[-n:]
+            first = pat[0]
+            for s in range(len(ctx) - n - 1, -1, -1):
+                if ctx[s] == first and ctx[s : s + n] == pat:
+                    # s + n <= len(ctx) - 1: at least one token follows
+                    return ctx[s + n : s + n + k]
+        return []
+
+    def _verify_step(self) -> None:
+        """The speculative wide step: draft up to ``spec_k`` tokens a
+        row, verify them all (and the bonus position) in one call, and
+        commit the longest accepted prefix.  Position i's output is the
+        greedy id the plain step would emit after committing tokens
+        0..i, so a draft survives exactly when it equals what the model
+        would have said: committed ids equal plain decode's."""
+        w = self.spec_k + 1
+        rows = _bucket(len(self.active), self.slots)
+        toks = np.zeros((rows, w), np.int32)
+        lens = np.zeros((rows,), np.int32)
+        steps = np.zeros((rows,), np.int32)
+        n_draft = np.zeros((rows,), np.int32)
+        active = np.zeros((rows,), bool)
+        drafts: list[list[int]] = []
+        for i, s in enumerate(self.active):
+            # the last generated token is returned, never fed, so at
+            # most remaining - 1 drafts can ever be verified
+            room = min(self.spec_k, s.n_gen - len(s.out) - 1)
+            d = self._draft(s.prompt + s.out, room) if room > 0 else []
+            drafts.append(d)
+            toks[i, 0] = s.last_tok
+            toks[i, 1 : 1 + len(d)] = d
+            lens[i], steps[i] = s.lens, s.steps
+            n_draft[i], active[i] = len(d), True
+        tables = self._tables_array(self.active, rows)
+        out = self.decoder.verify(
+            self.params, self.pool, toks, lens, steps, n_draft, tables,
+            active,
+        )
+        out = out.cpu().numpy()
+        committed = 0
+        for i, s in enumerate(self.active):
+            d = drafts[i]
+            a = 0
+            while a < len(d) and d[a] == int(out[i, a]):
+                a += 1  # draft a + 1 matched the model's output a
+            commit = [int(out[i, t]) for t in range(a + 1)]
+            commit = commit[: s.n_gen - len(s.out)]
+            s.out.extend(commit)
+            s.steps += len(commit)  # their K/V is in the pool
+            s.last_tok = s.out[-1]
+            committed += len(commit)
+            self.stats["tokens"] += len(commit)
+        self.stats["steps"] += 1
+        self.stats["spec_steps"] += 1
+        # per row: spec_tokens / spec_row_steps compares with plain
+        # decode's exactly one token a row a step
+        self.stats["spec_row_steps"] += len(self.active)
+        self.stats["spec_tokens"] += committed
+
     def run(self, requests: list[Request]) -> dict[int, list[int]]:
         """Serve ``requests`` to completion; returns {rid: generated ids}."""
         for r in requests:
@@ -238,7 +398,13 @@ class ServeEngine:
                 self._prefill(admitted)
                 self._retire()  # n_gen == 1 finishes at prefill
             if self.active:
-                self._step()
+                if self.spec_k:
+                    self._verify_step()
+                else:
+                    self._step()
+            self.stats["peak_blocks"] = max(
+                self.stats["peak_blocks"], self.allocated_blocks()
+            )
             self.stats["max_occupancy"] = max(
                 self.stats["max_occupancy"], self._occupancy()
             )
@@ -271,6 +437,15 @@ class ServeConfig:
     max_prompt: int = 48
     gen: int = 16  # tokens generated per request
     min_speedup: float = 1.0  # continuous-vs-sequential gate
+    # prefix sharing (CoW radix cache): serve a shared-prefix trace with
+    # block aliasing on vs off and gate the allocated-block saving
+    prefix_share: bool = False
+    shared_prefix: int = 0  # common prompt-prefix tokens; 0 = auto (3/4)
+    min_block_savings: float = 0.3  # peak-block saving the Record gates
+    # speculative decoding: draft spec_k tokens a row (prompt lookup) and
+    # verify them in one wide step; 0 = plain one-token decode
+    spec_k: int = 0
+    min_accepted: float = 1.0  # accepted-tokens/step gate (plain = 1.0)
     seed: int = 0
     device: str = "cuda"  # "cpu" runs the plain torch versions
 
@@ -300,6 +475,51 @@ def random_trace(cfg: ServeConfig) -> list[Request]:
         )
         for i in range(cfg.requests)
     ]
+
+
+def shared_trace(cfg: ServeConfig, rng=None
+                 ) -> tuple[list[Request], int]:
+    """The chat-shaped trace of the prefix-share Record: every prompt
+    opens with the same ``shared_prefix`` tokens (a system prompt) and
+    ends with a short private suffix, drawn from ``rng`` (default: seed
+    + 2) as the JAX package draws it.  Returns (requests, shared token
+    count)."""
+    rng = rng or np.random.RandomState(cfg.seed + 2)
+    s_len = cfg.shared_prefix or max(1, (3 * cfg.max_prompt) // 4)
+    if s_len >= cfg.max_prompt:
+        raise ValueError(
+            f"shared_prefix {s_len} leaves no room for a private "
+            f"suffix under max_prompt {cfg.max_prompt}"
+        )
+    shared = rng.randint(0, cfg.vocab, size=s_len).tolist()
+    reqs = [
+        Request(
+            rid=i,
+            tokens=shared + rng.randint(
+                0, cfg.vocab,
+                size=rng.randint(1, cfg.max_prompt - s_len + 1),
+            ).tolist(),
+            n_gen=cfg.gen,
+        )
+        for i in range(cfg.requests)
+    ]
+    return reqs, s_len
+
+
+def repetitive_trace(cfg: ServeConfig, rng=None) -> list[Request]:
+    """Motif-tiled prompts of the spec-decode Record, the prompt-lookup
+    drafter's home ground, drawn from ``rng`` (default: seed + 3) as the
+    JAX package draws them."""
+    rng = rng or np.random.RandomState(cfg.seed + 3)
+    reqs = []
+    for i in range(cfg.requests):
+        motif = rng.randint(0, cfg.vocab, size=3).tolist()
+        lp = int(rng.randint(cfg.min_prompt, cfg.max_prompt + 1))
+        reqs.append(
+            Request(rid=i, tokens=(motif * (lp // 3 + 1))[:lp],
+                    n_gen=cfg.gen)
+        )
+    return reqs
 
 
 def model_config(cfg: ServeConfig) -> ModelConfig:
@@ -346,25 +566,33 @@ class ServeLegs:
     launches: int  # paged_block kernel launches of the timed continuous run
 
 
+def timed_run(decoder: PagedDecoder, params: dict, trace: list[Request],
+              slots: int, **engine_kw):
+    """Serve ``trace`` once through a fresh engine (warm-up: library
+    loads, allocator and kernel caches), then once more, timed, through
+    another (``engine_kw``: ``prefix_share``, ``spec_k``), with the
+    paged kernel's launch count set to 0 just before the timed run and
+    read just after.  Returns (ids, wall s, the timed engine, whether
+    its pool stayed in place, launches)."""
+    ServeEngine(decoder, params, slots=slots, **engine_kw).run(
+        [dataclasses.replace(r) for r in trace]
+    )
+    eng = ServeEngine(decoder, params, slots=slots, **engine_kw)
+    ptrs = eng.pool_ptrs()
+    device_barrier(decoder.device)
+    paged_block.launches = 0
+    t0 = clock_ns()
+    out = eng.run([dataclasses.replace(r) for r in trace])
+    device_barrier(decoder.device)
+    wall_s = (clock_ns() - t0) / 1e9
+    return out, wall_s, eng, ptrs == eng.pool_ptrs(), paged_block.launches
+
+
 def serve_legs(decoder: PagedDecoder, params: dict, trace: list[Request],
                slots: int) -> ServeLegs:
-    def timed_run(n_slots: int):
-        ServeEngine(decoder, params, slots=n_slots).run(
-            [dataclasses.replace(r) for r in trace]
-        )  # warm-up: library loads, allocator and kernel caches
-        eng = ServeEngine(decoder, params, slots=n_slots)
-        ptrs = eng.pool_ptrs()
-        device_barrier(decoder.device)
-        paged_block.launches = 0
-        t0 = clock_ns()
-        out = eng.run([dataclasses.replace(r) for r in trace])
-        device_barrier(decoder.device)
-        wall_s = (clock_ns() - t0) / 1e9
-        launches = paged_block.launches
-        return out, wall_s, eng, ptrs == eng.pool_ptrs(), launches
-
-    out_cont, cont_s, eng, in_place, launches = timed_run(slots)
-    out_seq, seq_s, _, _, _ = timed_run(1)
+    out_cont, cont_s, eng, in_place, launches = timed_run(
+        decoder, params, trace, slots)
+    out_seq, seq_s, _, _, _ = timed_run(decoder, params, trace, 1)
     return ServeLegs(out_cont, out_seq, cont_s, seq_s, eng, in_place,
                      launches)
 
@@ -403,6 +631,146 @@ def _serve_commands(cfg: ServeConfig) -> str:
     )
 
 
+def _first_divergence(writer, what, trace, got, want_ids) -> bool:
+    """Whether every request's ids equal its dense decode; the first
+    that does not is reported."""
+    for r in trace:
+        if got.get(r.rid) != want_ids[r.rid]:
+            writer.progress(
+                f"{what} exactness: request {r.rid} diverged from dense "
+                f"decode (got {got.get(r.rid)}, want {want_ids[r.rid]})"
+            )
+            return False
+    return True
+
+
+def prefix_decoder(cfg: ServeConfig, mcfg, device) -> PagedDecoder:
+    """The prefix-share Record's decoder: a pool covering every slot's
+    whole lifetime, so sharing changes allocation and never deferral."""
+    max_len = cfg.max_prompt + cfg.gen
+    per_row = -(-max_len // cfg.block_len)
+    return make_paged_lm_decoder(
+        mcfg, cfg.vocab, n_blocks=cfg.slots * per_row + 1,
+        block_len=cfg.block_len, max_len=max_len,
+        cache_int8=cfg.cache_int8, attn=cfg.paged_attn, device=device,
+    )
+
+
+def _prefix_record(cfg: ServeConfig, writer: ResultWriter, mcfg, params,
+                   device) -> Record:
+    """Measured pattern: the same shared-prefix trace served with CoW
+    block sharing on and off, through one decoder whose pool covers the
+    whole non-shared demand (so the contrast is allocation, not
+    deferral).  Gates: at least ``min_block_savings`` fewer peak
+    allocated blocks, every request's ids equal to its per-request dense
+    decode, shared ids equal to non-shared ones, and no leaked block."""
+    decoder = prefix_decoder(cfg, mcfg, device)
+    trace, s_len = shared_trace(cfg)
+
+    def serve_once(share: bool):
+        eng = ServeEngine(decoder, params, slots=cfg.slots,
+                          prefix_share=share)
+        return eng.run([dataclasses.replace(r) for r in trace]), eng
+
+    out_shared, eng_s = serve_once(True)
+    out_plain, eng_p = serve_once(False)
+    want_ids = _dense_expected(mcfg, cfg, params, trace)
+    exact = out_shared == out_plain and _first_divergence(
+        writer, "prefix-share", trace, out_shared, want_ids)
+
+    peak_s = eng_s.stats["peak_blocks"]
+    peak_p = eng_p.stats["peak_blocks"]
+    savings = 1.0 - (peak_s / peak_p) if peak_p else 0.0
+    block_mb = decoder.pool_nbytes() / decoder.layout.n_blocks / 1e6
+    leaked = eng_s.leaked_blocks()
+    ok = (exact and peak_s < peak_p and savings >= cfg.min_block_savings
+          and leaked == 0)
+    rec = Record(
+        pattern="serve",
+        mode=f"prefix_share_req{cfg.requests}_bl{cfg.block_len}_sp1",
+        commands=_serve_commands(cfg) + f" shared{s_len}",
+        metrics={
+            "exact": float(exact),
+            "peak_blocks": float(peak_s),
+            "nonshared_peak_blocks": float(peak_p),
+            "block_savings": round(savings, 3),
+            "prefix_pool_MB": round(peak_s * block_mb, 4),
+            "nonshared_pool_MB": round(peak_p * block_mb, 4),
+            "prefix_hit_blocks": float(eng_s.stats["prefix_hit_blocks"]),
+            "cow_copies": float(eng_s.stats["cow_copies"]),
+            "shared_tokens": float(s_len),
+            "deferrals": float(eng_s.stats["deferrals"]),
+            "leaked_blocks": float(leaked),
+        },
+        verdict=Verdict.SUCCESS if ok else Verdict.FAILURE,
+        config={"device": str(decoder.device), "paged_attn": cfg.paged_attn},
+    )
+    if not exact:
+        rec.notes.append(
+            "exactness gate FAILED: prefix sharing changed a request's "
+            "greedy ids vs per-request dense decode"
+        )
+    if not peak_s < peak_p or savings < cfg.min_block_savings:
+        rec.notes.append(
+            f"memory gate FAILED: peak {peak_s} vs non-shared {peak_p} "
+            f"blocks ({savings:.0%} saved) < {cfg.min_block_savings:.0%} "
+            "target on the shared-prefix trace"
+        )
+    if leaked:
+        rec.notes.append(f"{leaked} block(s) leaked by the refcounts")
+    writer.record(rec)
+    return rec
+
+
+def _spec_record(cfg: ServeConfig, writer: ResultWriter, mcfg, decoder,
+                 params) -> Record:
+    """Measured pattern: a repetitive trace decoded with prompt-lookup
+    speculative decoding and with plain one-token decode through the
+    same decoder.  Gates: accepted tokens per row-step >
+    ``min_accepted`` (plain decode is exactly 1.0) and ids equal to both
+    the plain engine's and the per-request dense decode."""
+    trace = repetitive_trace(cfg)
+    eng_spec = ServeEngine(decoder, params, slots=cfg.slots,
+                           spec_k=cfg.spec_k)
+    out_spec = eng_spec.run([dataclasses.replace(r) for r in trace])
+    eng_plain = ServeEngine(decoder, params, slots=cfg.slots)
+    out_plain = eng_plain.run([dataclasses.replace(r) for r in trace])
+    want_ids = _dense_expected(mcfg, cfg, params, trace)
+    exact = out_spec == out_plain and _first_divergence(
+        writer, "spec-decode", trace, out_spec, want_ids)
+
+    row_steps = eng_spec.stats["spec_row_steps"]
+    accepted = eng_spec.stats["spec_tokens"] / row_steps if row_steps else 0.0
+    ok = exact and accepted > cfg.min_accepted
+    rec = Record(
+        pattern="serve",
+        mode=f"spec_decode_k{cfg.spec_k}_sp1",
+        commands=_serve_commands(cfg),
+        metrics={
+            "exact": float(exact),
+            "accepted_tokens_per_step": round(accepted, 3),
+            "draft_k": float(cfg.spec_k),
+            "decode_steps": float(eng_spec.stats["steps"]),
+            "plain_decode_steps": float(eng_plain.stats["steps"]),
+            "tokens": float(eng_spec.stats["tokens"]),
+        },
+        verdict=Verdict.SUCCESS if ok else Verdict.FAILURE,
+        config={"device": str(decoder.device), "paged_attn": cfg.paged_attn},
+    )
+    if not exact:
+        rec.notes.append(
+            "exactness gate FAILED: speculative decoding changed a "
+            "request's greedy ids vs plain/dense decode"
+        )
+    if not accepted > cfg.min_accepted:
+        rec.notes.append(
+            f"accepted-tokens/step {accepted:.2f} <= {cfg.min_accepted}:"
+            " drafts were not worth a wide step on this trace"
+        )
+    writer.record(rec)
+    return rec
+
+
 def run_serve(cfg: ServeConfig, writer: ResultWriter | None = None
               ) -> list[Record]:
     """Measured pattern: serve one trace continuous (``slots`` wide) and
@@ -414,6 +782,11 @@ def run_serve(cfg: ServeConfig, writer: ResultWriter | None = None
     * memory: the pool is below the dense ``slots x max_len`` rectangle
       and its buffers are the same before and after the run (updated in
       place: ``alias_MB`` reports the pool bytes so updated, 0 if not).
+
+    With ``prefix_share`` the ``prefix_share_*`` Record follows, with
+    ``spec_k`` the ``spec_decode_*`` one (each on its own trace, as the
+    JAX package draws it).  The JAX package emits only those two when
+    either flag is set; this one serves the main trace first as well.
     """
     writer = writer or ResultWriter()
     mcfg, decoder, params, trace = build_serve(cfg)
@@ -425,16 +798,8 @@ def run_serve(cfg: ServeConfig, writer: ResultWriter | None = None
     speedup = cont_tps / seq_tps if seq_tps > 0 else 0.0
 
     want_ids = _dense_expected(mcfg, cfg, params, trace)
-    exact = legs.out_cont == legs.out_seq
-    for r in trace:
-        if legs.out_cont.get(r.rid) != want_ids[r.rid]:
-            exact = False
-            writer.progress(
-                f"serve exactness: request {r.rid} diverged from dense "
-                f"decode (got {legs.out_cont.get(r.rid)}, "
-                f"want {want_ids[r.rid]})"
-            )
-            break
+    exact = legs.out_cont == legs.out_seq and _first_divergence(
+        writer, "serve", trace, legs.out_cont, want_ids)
 
     pool_mb, dense_mb = cache_mb(cfg, decoder)
     mem_ok = pool_mb < dense_mb and legs.in_place
@@ -482,4 +847,10 @@ def run_serve(cfg: ServeConfig, writer: ResultWriter | None = None
             "bytes not under the dense slots x max_len rectangle"
         )
     writer.record(rec)
-    return [rec]
+    recs = [rec]
+    if cfg.prefix_share:
+        recs.append(_prefix_record(cfg, writer, mcfg, params,
+                                   decoder.device))
+    if cfg.spec_k:
+        recs.append(_spec_record(cfg, writer, mcfg, decoder, params))
+    return recs

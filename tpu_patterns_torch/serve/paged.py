@@ -20,9 +20,18 @@ block 0 unmasked (the kernel skips it, the dense path masks it).
 The pool is updated IN PLACE (``index_put_``) by every prefill and
 step, the analogue of the JAX package's donated pool: one set of device
 buffers lives for the engine's whole run.  ``attn`` picks the decode
-attention: ``"kernel"`` (the default) runs the fused paged kernel
-(``serve/paged_kernel.py``), ``"dense"`` gathers the page window and
-reruns the dense masked attention.  Prefill always runs the dense path.
+and verify attention: ``"kernel"`` (the default) runs the fused paged
+kernel (``serve/paged_kernel.py``), ``"dense"`` gathers the page window
+and reruns the dense masked attention.  Prefill always runs the dense
+path.
+
+Tables are the only binding between rows and blocks, so one physical
+block may sit in many tables: copy-on-write prefix sharing
+(``serve/prefix.py``, refcounts in the engine) aliases common prompt
+prefixes onto one copy, prefill's per-row ``start`` fence keeps shared
+blocks read-only, and ``copy_blocks`` clones the one boundary block
+where writes diverge.  ``verify`` runs a k+1-token window for
+speculative decoding; ``step`` is ``verify`` at a window of one token.
 """
 
 from __future__ import annotations
@@ -65,14 +74,6 @@ class PagedLayout:
     def blocks_for(self, n_positions: int) -> int:
         """Blocks covering positions [0, n_positions)."""
         return -(-n_positions // self.block_len)
-
-    def write_slot(self, pos, tables):
-        """Per-row (physical block, offset) for writing position ``pos``
-        [B] through ``tables`` [B, n_pages]."""
-        n_pages = tables.shape[1]
-        j = (pos // self.block_len).clamp(0, n_pages - 1).long()
-        phys = tables.gather(1, j[:, None])[:, 0]
-        return phys, pos % self.block_len
 
     def page_positions(self, n_pages: int, device) -> torch.Tensor:
         """[n_pages * block_len] global position of each slot of a
@@ -158,51 +159,78 @@ def _paged_prefill_layer(p_l, x, pool_l, lens, start, tables,
     return _mlp(p_l, y)
 
 
-def _paged_decode_layer(p_l, x, pool_l, pos, active, tables,
+def _paged_verify_layer(p_l, x, pool_l, pos0, n_draft, active, tables,
                         layout: PagedLayout, cfg: ModelConfig,
                         attn: str = "kernel"):
-    """One layer for each active row's next token x [B, 1, E] at global
-    position ``pos`` [B]: write its k/v to the row's tail block, then
-    attend through the tables (fused kernel or dense gather)."""
+    """One layer of the speculative wide step: x [B, W, E] holds each
+    row's last committed token and up to ``n_draft`` [B] drafted ones,
+    token i at global position ``pos0 + i``.  A prefill at a per-row
+    offset: write every fed position through the tables, then attend
+    (fused kernel or dense gather) each query causally over its own
+    prefix, so output i is what the one-token step would emit after
+    committing tokens 0..i; the one-token step is this layer at W = 1
+    with no draft.  Lanes ``i > n_draft`` are padding: their writes go
+    to the trash block (they may lie past the row's reserved lifetime)
+    and their outputs are never read.  Slots holding drafts a previous
+    wide step rejected are rewritten here before a trusted query reads
+    them: the window advances at most ``accepted + 1 <= W`` positions a
+    step."""
+    b, w, _ = x.shape
+    n_pages = tables.shape[1]
     q, k, v = qkv_native(p_l, x)
+    i = torch.arange(w, dtype=torch.int32, device=x.device)
+    pos = pos0[:, None] + i[None, :]  # [B, W] global positions
     if cfg.rope:
-        cos, sin = rope_tables(pos[:, None], cfg.head_dim, cfg.rope_theta,
-                               q.dtype)
+        cos, sin = rope_tables(pos, cfg.head_dim, cfg.rope_theta, q.dtype)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
-    phys, o_loc = layout.write_slot(pos, tables)
-    _pool_write(
-        pool_l, k[:, 0], v[:, 0],
-        torch.where(active, phys, TRASH_BLOCK),
-        torch.where(active, o_loc, 0),
-    )
+    j = (pos // layout.block_len).clamp(0, n_pages - 1).long()
+    phys = tables.gather(1, j)  # [B, W]
+    own = active[:, None] & (i[None, :] <= n_draft[:, None])
+    pb = torch.where(own, phys, TRASH_BLOCK).reshape(-1)
+    ob = torch.where(own, pos % layout.block_len, 0).reshape(-1)
+    hkv, d = k.shape[2], k.shape[3]
+    _pool_write(pool_l, k.reshape(b * w, hkv, d), v.reshape(b * w, hkv, d),
+                pb, ob)
     if attn == "kernel":
-        att = paged_attend(pool_l, q, tables, pos, active, layout)
+        att = paged_attend(pool_l, q, tables, pos0, active, layout)
     else:
-        n_pages = tables.shape[1]
         posn = layout.page_positions(n_pages, x.device)
         tvalid = (tables > TRASH_BLOCK).repeat_interleave(
             layout.block_len, dim=1
         )
-        mask = (posn[None, :] <= pos[:, None]) & tvalid & active[:, None]
-        att = _pool_attend(pool_l, q, tables, mask[:, None, :], layout)
+        mask = (
+            (posn[None, None, :] <= pos[:, :, None])
+            & tvalid[:, None, :]
+            & active[:, None, None]
+        )  # [B, W, L]
+        att = _pool_attend(pool_l, q, tables, mask, layout)
     y = x + torch.einsum("blhd,hde->ble", att, p_l["wo"])
     return _mlp(p_l, y)
 
 
 @dataclasses.dataclass(frozen=True)
 class PagedDecoder:
-    """(prefill, step) over the paged pool on one device.
+    """(prefill, step, verify, copy_blocks) over the paged pool on one
+    device.
 
     * ``prefill(params, pool, tokens, lens, start, tables, active) ->
       tok0``: run a bucket of right-padded prompts [B, Lpad], write
-      their K/V through their tables from position ``start`` on, and
-      return each row's greedy first token (0 for inactive rows).
+      their K/V through their tables from position ``start`` on
+      (earlier positions sit in shared blocks already: prefix sharing's
+      write fence), and return each row's greedy first token (0 for
+      inactive rows).
     * ``step(params, pool, tok, lens, steps, tables, active) -> next``:
       one iteration for a bucket of rows, each at its own position
       ``lens + steps``; returns the next greedy ids.
+    * ``verify(params, pool, toks, lens, steps, n_draft, tables,
+      active) -> ids [B, W]``: the speculative wide step; toks [B, W]
+      holds each row's last committed token and up to ``n_draft[b]``
+      drafted ones, and the greedy id at every fed position comes back.
+    * ``copy_blocks(pool, src, dst)``: the CoW boundary copy, whole
+      blocks of every layer and leaf (scales included).
 
-    Both update ``pool`` in place.  Host arrays are moved to the
+    All update ``pool`` in place.  Host arrays are moved to the
     decoder's device on the way in."""
 
     cfg: ModelConfig
@@ -279,21 +307,40 @@ class PagedDecoder:
         tok0 = sharded_argmax(y_last @ wemb.T)
         return torch.where(active, tok0, 0)
 
-    @torch.no_grad()
     def step(self, params, pool, tok, lens, steps, tables, active):
         tok = self._dev(tok, torch.int32)
-        pos = self._dev(lens, torch.int32) + self._dev(steps, torch.int32)
+        no_draft = torch.zeros_like(tok)
+        return self.verify(params, pool, tok[:, None], lens, steps,
+                           no_draft, tables, active)[:, 0]
+
+    @torch.no_grad()
+    def verify(self, params, pool, toks, lens, steps, n_draft, tables,
+               active):
+        toks = self._dev(toks, torch.int32)
+        pos0 = self._dev(lens, torch.int32) + self._dev(steps, torch.int32)
+        n_draft = self._dev(n_draft, torch.int32)
         tables = self._dev(tables, torch.int32)
         active = self._dev(active, torch.bool)
         wemb = params["wemb"]
-        x = embed_tokens(wemb, tok[:, None]).to(self.cfg.torch_dtype)
+        x = embed_tokens(wemb, toks).to(self.cfg.torch_dtype)
         for p_l, pool_l in self._layers(params, pool):
-            x = _paged_decode_layer(
-                p_l, x, pool_l, pos, active, tables, self.layout, self.cfg,
-                attn=self.attn,
+            x = _paged_verify_layer(
+                p_l, x, pool_l, pos0, n_draft, active, tables, self.layout,
+                self.cfg, attn=self.attn,
             )
-        nxt = sharded_argmax(x[:, 0, :] @ wemb.T)
-        return torch.where(active, nxt, 0)
+        b, w, _ = x.shape
+        out = sharded_argmax(x.reshape(b * w, -1) @ wemb.T).reshape(b, w)
+        return torch.where(active[:, None], out, 0)
+
+    @torch.no_grad()
+    def copy_blocks(self, pool, src, dst) -> None:
+        """Clone pool blocks ``src[i] -> dst[i]`` across every layer and
+        leaf, scales included, in place.  Padding lanes pass
+        ``src == dst == TRASH_BLOCK`` (a self-copy of garbage)."""
+        src = self._dev(src, torch.long)
+        dst = self._dev(dst, torch.long)
+        for leaf in pool.values():
+            leaf[:, dst] = leaf[:, src]
 
     # -- params ----------------------------------------------------------
 
