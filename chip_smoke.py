@@ -10,7 +10,8 @@ two trees in one call (:func:`tree_main`).  It imports nothing of JAX or
 of the
 JAX package, and fails (nonzero exit, no result line) without a CUDA
 device or away from the repository.  It drives the ported paths: the
-serve path (slice A), the flagship train step (slice B), the one-device
+serve path (slice A), the flagship train step and the resumable train
+loop with its checkpoints (slice B), the one-device
 one-sided put (slice C), the concurrency suite (slice D), the ring
 (the allreduce miniapp and the ring put over a rank mesh of four ranks
 on the one card), and the interop slice (the native C++ module and the
@@ -94,6 +95,23 @@ printed lines:
    ``attention_reference`` (loss and every parameter's update), and one
    ``forward_shard`` under ``torch.no_grad``, which launches K2 once
    and matches the dense forward;
+8b. the resumable train loop (``models/train_loop.py::train``) at the
+   flagship's width and the serve model's depth 4 (bf16, causal, kernel
+   attention, lr 1e-4), in a directory under ``build/`` removed after:
+   8 steps with a checkpoint every 2 (keep 2) and a ``train_step``
+   Record every 2, SUCCESS with 4 such Records, K3, dq and dk/dv each
+   launched 4 x 8 times and K2 never (counts set to 0 just before);
+   the same 8 steps with no checkpoint (the loop's rate, equal bit for
+   bit); killed after 4 steps and resumed to 8 with the async saver
+   (start 4, loss and every parameter's bytes equal to the straight
+   run's); native data (the C++ loader) for 4 steps against killed at
+   2 and resumed (bitwise equal); a NaN injected at step 2
+   (``faults.configure``, checked every step), which halts with a
+   FAILURE Record and a ``nonfinite`` WARNING, step 2 the only
+   committed step; and ``python -m tpu_patterns_torch ckpt DIR
+   --leaves`` on the straight run's directory (steps 6 and 8, 5 leaves
+   each); each leg's steps/s, tokens/s and model TFLOP/s beside
+   ``run_flagship``'s step_ms at depth 1;
 9. the one-sided put: K8a's, K8c's and K8d's spans on this card and
    K8b's grid against their Python mirrors (``onesided.mono_span``,
    ``onesided.multi_span``, ``onesided.inplace_spans``,
@@ -194,8 +212,9 @@ printed lines:
     4.925, 6.599, 4.023, 0.1593, 0.5195, 0.2632, 0.04396, 0.1410,
     0.1381, 0.1372 and 0.09865 ms), their library call's and their
     bound;
-13. the card's name and power limit again, the ``kernels`` line, then
-    the device line, which is the last.
+13. the card's name and power limit again, the ``kernels`` line (the
+    flash rows also carry ``train_loop_launches``, phase 8b's counts),
+    then the device line, which is the last.
 """
 
 from __future__ import annotations
@@ -204,6 +223,7 @@ import dataclasses
 import io
 import itertools
 import json
+import math
 import os
 import re
 import statistics
@@ -1294,6 +1314,176 @@ def phase_flagship_exact(torch, F, fl, tr):
         bad.append(f"no-grad launches {launches}")
     if bad:
         raise AssertionError(f"flagship f32 exactness: {bad}")
+    return launches
+
+
+# -- phase 8b: the resumable train loop ---------------------------------------
+
+# the flagship's width at the serve model's depth (TrainLoopConfig fields)
+TRAIN_WIDTH = dict(embed=1024, heads=8, head_dim=128, mlp_mult=4, seq=4096,
+                   batch=4, dtype="bfloat16", causal=True, attn="kernel",
+                   depth=4, lr=1e-4)
+TRAIN_FAULT = "train.step:nan:step=2"  # the halt leg's spec
+
+
+def _loop(tl, work, name, **kw):
+    """One ``train`` call at :data:`TRAIN_WIDTH` into ``work/name``; its
+    Records go to a JSON-lines file (markers to a buffer).  Returns the
+    loop's result and its Records."""
+    from tpu_patterns_torch.core.results import ResultWriter
+
+    jsonl = os.path.join(work, name + ".jsonl")
+    writer = ResultWriter(jsonl_path=jsonl, stream=io.StringIO())
+    cfg = tl.TrainLoopConfig(**TRAIN_WIDTH, ckpt_dir=os.path.join(work, name),
+                             **kw)
+    out = tl.train(cfg, writer, device=DEVICE)
+    with open(jsonl) as f:
+        return out, [json.loads(ln) for ln in f if ln.strip()]
+
+
+def _same_state(torch, a, b) -> bool:
+    """Every leaf of two checkpoint trees equal byte for byte."""
+    if a["params"].keys() != b["params"].keys():
+        return False
+    return int(a["step"]) == int(b["step"]) and all(
+        torch.equal(a["params"][k].view(torch.int16),
+                    b["params"][k].view(torch.int16)) for k in a["params"])
+
+
+def phase_train_loop(torch, F, tl, faults, tc, flagship_step_ms):
+    """The train loop at the flagship's width, depth 4, through K3/K4:
+    a straight run, a kill and an async resume, native data killed and
+    resumed, the non-finite halt, and ``ckpt`` on the straight run's
+    directory.  Returns the straight run's flash launches."""
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="train_loop_",
+                            dir=os.path.join(ROOT, "build"))
+    depth, steps = TRAIN_WIDTH["depth"], 8
+    fail = []
+    try:
+        # 1. straight: 8 steps, a checkpoint every 2 (keep 2), K3/K4 counted
+        t0 = time.perf_counter()
+        F.reset_launches()
+        a, recs = _loop(tl, work, "a", steps=steps, ckpt_every=2, keep=2,
+                        log_every=2)
+        torch.cuda.synchronize()
+        launches = dict(F.LAUNCHES)
+        wall_a = time.perf_counter() - t0
+        final = recs[-1]
+        logged = [r for r in recs if r["pattern"] == "train_step"]
+        want = {"flash_attention": 0, "flash_block": depth * steps,
+                "flash_block_bwd_dq": depth * steps,
+                "flash_block_bwd_dkv": depth * steps}
+        m = final["metrics"]
+        loop_ms = 1e3 / m["steps_per_s"] if m["steps_per_s"] else None
+        emit({"phase": "train_loop", "leg": "straight", "steps": steps,
+              "width": TRAIN_WIDTH, "verdict": final["verdict"],
+              "final_loss": a["loss"], "launches": launches,
+              "steps_per_s": m["steps_per_s"],
+              "tokens_per_s": m["tokens_per_s"],
+              "model_tflops_per_s": m["model_tflops_per_s"],
+              "step_ms": loop_ms,
+              "step_ms_per_layer": loop_ms and loop_ms / depth,
+              "flagship_step_ms_depth1": flagship_step_ms,
+              "train_step_records": [(r["metrics"]["step"],
+                                      r["metrics"]["steps_per_s"])
+                                     for r in logged],
+              "wall_s": wall_a})
+        if final["verdict"] != "SUCCESS" or len(logged) != 4:
+            fail.append(f"straight: {final['verdict']}, "
+                        f"{len(logged)} train_step Records")
+        if launches != want:
+            fail.append(f"straight launches {launches}, want {want}")
+
+        # the same 8 steps with no checkpoint and no log: the loop's rate
+        # without its saves and fences
+        r, recs = _loop(tl, work, "rate", steps=steps)
+        m = recs[-1]["metrics"]
+        emit({"phase": "train_loop", "leg": "no_ckpt",
+              "steps_per_s": m["steps_per_s"],
+              "tokens_per_s": m["tokens_per_s"],
+              "model_tflops_per_s": m["model_tflops_per_s"],
+              "step_ms": 1e3 / m["steps_per_s"],
+              "flagship_step_ms_depth1": flagship_step_ms,
+              "bit_equal_to_straight": _same_state(torch, a["state"],
+                                                   r["state"])})
+        if not _same_state(torch, a["state"], r["state"]):
+            fail.append("no-checkpoint run differs from the straight run")
+        del r
+
+        # 2. kill after 4, resume to 8 with the async saver
+        _loop(tl, work, "b", steps=4, ckpt_every=2, keep=2)
+        b, recs = _loop(tl, work, "b", steps=steps, ckpt_every=2, keep=2,
+                        resume=True, ckpt_async=True)
+        same = _same_state(torch, a["state"], b["state"])
+        emit({"phase": "train_loop", "leg": "kill_resume_async",
+              "start_step": b["start_step"], "final_loss": b["loss"],
+              "loss_equal": b["loss"] == a["loss"], "bit_equal": same,
+              "verdict": recs[-1]["verdict"],
+              "steps_per_s": recs[-1]["metrics"]["steps_per_s"]})
+        if not (b["start_step"] == 4 and b["loss"] == a["loss"] and same):
+            fail.append(f"kill/resume: start {b['start_step']}, loss "
+                        f"{b['loss']} vs {a['loss']}, bit_equal {same}")
+        del b
+
+        # 3. native data: straight 4 steps against killed at 2 and resumed
+        c, _ = _loop(tl, work, "c", steps=4, ckpt_every=2, data="native")
+        _loop(tl, work, "d", steps=2, ckpt_every=2, data="native")
+        d, recs = _loop(tl, work, "d", steps=4, ckpt_every=2, data="native",
+                        resume=True)
+        same = _same_state(torch, c["state"], d["state"])
+        emit({"phase": "train_loop", "leg": "native_resume",
+              "start_step": d["start_step"], "final_loss": d["loss"],
+              "loss_equal": d["loss"] == c["loss"], "bit_equal": same,
+              "verdict": recs[-1]["verdict"]})
+        if not (d["start_step"] == 2 and d["loss"] == c["loss"] and same
+                and math.isfinite(c["loss"])):
+            fail.append(f"native resume: start {d['start_step']}, loss "
+                        f"{d['loss']} vs {c['loss']}, bit_equal {same}")
+        del c, d
+
+        # 4. halt: NaN injected at step 2, checked every step
+        faults.configure(TRAIN_FAULT)
+        try:
+            e, recs = _loop(tl, work, "e", steps=4, ckpt_every=2,
+                            nonfinite_every=1)
+        finally:
+            faults.configure(None)
+        warn = [r for r in recs if r["mode"] == "nonfinite"]
+        committed = tc.available_steps(os.path.join(work, "e"))
+        emit({"phase": "train_loop", "leg": "halt", "fault": TRAIN_FAULT,
+              "verdict": recs[-1]["verdict"], "notes": recs[-1]["notes"],
+              "nonfinite_warnings": [w["metrics"]["step"] for w in warn],
+              "committed": committed})
+        if (recs[-1]["verdict"] != "FAILURE"
+                or [w["metrics"]["step"] for w in warn] != [2.0]
+                or committed != [2]):
+            fail.append(f"halt: {recs[-1]['verdict']}, warnings "
+                        f"{len(warn)}, committed {committed}")
+
+        # 5. `ckpt` on the straight run's directory, as a user runs it
+        r = subprocess.run(
+            [sys.executable, "-m", "tpu_patterns_torch", "ckpt",
+             os.path.join(work, "a"), "--leaves"],
+            cwd=ROOT, capture_output=True, text=True, timeout=120)
+        heads = [ln for ln in r.stdout.splitlines()
+                 if ln.startswith("step_")]
+        n_leaves = len(a["state"]["params"]) + 1  # + the step
+        emit({"phase": "train_loop", "leg": "ckpt_cli", "rc": r.returncode,
+              "steps": heads, "want_leaves": n_leaves,
+              "phase_seconds": time.perf_counter() - t_phase})
+        if (r.returncode != 0 or len(heads) != 2
+                or not heads[0].startswith("step_6:")
+                or not heads[1].startswith("step_8:")
+                or any(f", {n_leaves} leaves" not in h for h in heads)):
+            fail.append(f"ckpt CLI: rc {r.returncode}: {r.stdout}{r.stderr}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    if fail:
+        raise AssertionError(f"train loop: {fail}")
     return launches
 
 
@@ -2840,7 +3030,10 @@ def main() -> int:
     from tpu_patterns_torch.miniapps import framework as fw
     from tpu_patterns_torch.miniapps.apps import allreduce as ar
     from tpu_patterns_torch.miniapps.apps.allreduce import pallas as ap
+    from tpu_patterns_torch import ckpt as tc
+    from tpu_patterns_torch import faults
     from tpu_patterns_torch.models import flagship as fl
+    from tpu_patterns_torch.models import train_loop as tl
     from tpu_patterns_torch.models import transformer as tr
     from tpu_patterns_torch.runtime import match_device_spec
     from tpu_patterns_torch.serve import engine as eng_mod
@@ -2919,6 +3112,8 @@ def main() -> int:
     phase_flagship_profile(torch, timing, fl, tr,
                            flag["kernel"]["step_ms"] / 1e3)
     no_grad_launches = phase_flagship_exact(torch, F, fl, tr)
+    train_launches = phase_train_loop(torch, F, tl, faults, tc,
+                                      flag["kernel"]["step_ms"])
 
     phase_put_vs_plain(torch, op)
     ptime = phase_put_time(torch, op, ck, cb, timing, spec)
@@ -2997,6 +3192,7 @@ def main() -> int:
             "max_abs_err": flash_err[kname], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "train_loop_launches": train_launches[kname],
         })
     # launches: mono in its run_onesided call, the others in auto's
     for kname, replaces in PUT_KERNELS.items():

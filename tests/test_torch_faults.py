@@ -1,0 +1,209 @@
+"""The port's fault injector and retry policy against the JAX package's.
+
+The same spec text goes through both packages' ``parse_spec``; the same
+seeded ``p=``/``after=``/``count=`` spec fires on the same ordinals of
+the same calls; the retry policies give the same backoff schedules and
+the same retry, quarantine and re-raise behavior.  The port knows only
+the sites it has (``train.step``, ``ckpt.save``, ``ckpt.restore``): a
+spec naming any other site is refused at parse time, where the JAX
+package takes it."""
+
+import dataclasses
+
+import pytest
+
+from tpu_patterns import faults as jf
+from tpu_patterns_torch import faults as tf
+
+PORT_SITES = {"train.step", "ckpt.save", "ckpt.restore"}
+
+SPECS = [
+    "train.step:nan",
+    "train.step:nan:step=2",
+    "ckpt.save:error:after=1:count=2",
+    "ckpt.restore:sleep:delay_s=0.5:p=0.25",
+    "ckpt.save:crash:rc=7:proc=0",
+    "ckpt.save:kill, train.step:preempt:count=3",
+    " ckpt.restore:hang:step=4:after=0 ,",
+    "train.step:error:p=0.5:after=2:count=10:step=3",
+    "",
+]
+
+BAD = [
+    "siteonly",
+    "train.step:frobnicate",  # unknown action
+    "ckpt.save:error:notkv",
+    "train.steps:nan",  # typo'd site would inject nothing
+    "ckpt.save:error:cout=1",  # typo'd key would match nothing
+    "ckpt.save:error:count=x",
+    "ckpt.save:error:p=half",
+]
+
+
+@pytest.fixture(autouse=True)
+def _clean_faults():
+    for pkg in (jf, tf):
+        pkg.configure("")
+    yield
+    for pkg in (jf, tf):
+        pkg.configure(None)
+
+
+def test_port_knows_exactly_its_sites():
+    assert tf.KNOWN_SITES == PORT_SITES
+    assert PORT_SITES <= jf.KNOWN_SITES
+    assert tf.MATCH_KEYS == jf.MATCH_KEYS
+    assert tf.injector.ACTIONS == jf.injector.ACTIONS
+
+
+@pytest.mark.parametrize("text", SPECS)
+def test_parse_spec_matches_reference(text):
+    got = [dataclasses.asdict(s) for s in tf.parse_spec(text)]
+    want = [dataclasses.asdict(s) for s in jf.parse_spec(text)]
+    assert got == want
+
+
+@pytest.mark.parametrize("text", BAD)
+def test_malformed_specs_raise_in_both(text):
+    with pytest.raises(ValueError) as want:
+        jf.parse_spec(text)
+    with pytest.raises(ValueError) as got:
+        tf.parse_spec(text)
+    # the same complaint up to the site list
+    assert str(got.value).split(" (want")[0] == str(want.value).split(
+        " (want")[0]
+
+
+@pytest.mark.parametrize("site", sorted(jf.KNOWN_SITES - PORT_SITES)[:6])
+def test_unported_sites_are_refused(site):
+    assert jf.parse_spec(f"{site}:error")
+    with pytest.raises(ValueError, match="unknown site"):
+        tf.parse_spec(f"{site}:error")
+
+
+def _firings(pkg, spec, calls):
+    """Which of ``calls`` (ctx dicts at train.step) fire under ``spec``."""
+    pkg.configure(None)  # fresh in-process ordinals
+    pkg.configure(spec)
+    fired = []
+    for ctx in calls:
+        try:
+            fired.append(pkg.inject("train.step", **ctx) is not None)
+        except pkg.InjectedFault:
+            fired.append(True)
+    return fired
+
+
+@pytest.mark.parametrize("seed", ["0", "7", "12345"])
+@pytest.mark.parametrize("spec", [
+    "train.step:nan:p=0.5:after=2:count=10",
+    "train.step:error:p=0.3:count=99",
+    "train.step:nan:after=3:count=4",
+    "train.step:error:step=3:count=2",
+])
+def test_same_spec_fires_on_same_ordinals(spec, seed, monkeypatch):
+    monkeypatch.setenv(jf.injector.ENV_SEED, seed)
+    calls = [{"step": t % 5} for t in range(30)]
+    want = _firings(jf, spec, calls)
+    got = _firings(tf, spec, calls)
+    assert got == want
+    assert got == _firings(tf, spec, calls)  # replays bit-identically
+    assert any(got)
+
+
+def test_inactive_is_a_noop():
+    assert not tf.active()
+    assert tf.inject("train.step", step=3) is None
+
+
+def test_injected_fault_is_an_oserror():
+    assert issubclass(tf.InjectedFault, OSError)
+
+
+def test_state_dir_shares_ordinals_across_registries(tmp_path, monkeypatch):
+    monkeypatch.setenv(tf.ENV_STATE, str(tmp_path))
+    tf.configure("ckpt.save:error:count=1")
+    with pytest.raises(tf.InjectedFault):
+        tf.inject("ckpt.save")
+    tf.configure(None)
+    tf.configure("ckpt.save:error:count=1")  # a "new process"
+    assert tf.inject("ckpt.save") is None
+
+
+def test_env_spec_is_read(monkeypatch):
+    tf.configure(None)
+    monkeypatch.setenv(tf.ENV_SPEC, "train.step:nan:step=1")
+    assert tf.active()
+    assert tf.inject("train.step", step=0) is None
+    assert tf.inject("train.step", step=1).action == "nan"
+
+
+def test_firing_logs_a_warning_record_on_stderr(capsys):
+    tf.configure("ckpt.restore:error")
+    with pytest.raises(tf.InjectedFault):
+        tf.inject("ckpt.restore", step=1)
+    err = capsys.readouterr().err
+    assert "## ckpt.restore | error | WARNING" in err
+
+
+@pytest.mark.parametrize("kw", [
+    dict(seed=7),
+    dict(seed=3, backoff_base_s=0.1, backoff_max_s=0.5, jitter_frac=0.5),
+    dict(jitter_frac=0.0, backoff_base_s=0.1, backoff_max_s=0.5),
+    dict(seed=11, backoff_mult=3.0, max_attempts=5),
+])
+def test_backoff_schedules_match(kw):
+    got = [tf.RetryPolicy(**kw).backoff_s(a) for a in range(1, 8)]
+    want = [jf.RetryPolicy(**kw).backoff_s(a) for a in range(1, 8)]
+    assert got == want
+
+
+def test_unseeded_jitter_is_bounded():
+    p = tf.RetryPolicy(backoff_base_s=0.1, jitter_frac=0.25)
+    assert all(0.075 <= p.backoff_s(1) <= 0.125 for _ in range(20))
+
+
+def test_ckpt_policy_matches(monkeypatch):
+    assert dataclasses.asdict(tf.ckpt_retry_policy()) == dataclasses.asdict(
+        jf.ckpt_retry_policy())
+    monkeypatch.setenv("TPU_PATTERNS_CKPT_ATTEMPTS", "4")
+    assert tf.ckpt_retry_policy().max_attempts == 4
+    assert dataclasses.asdict(tf.ckpt_retry_policy()) == dataclasses.asdict(
+        jf.ckpt_retry_policy())
+
+
+def _failing(errors):
+    """fn() raising each of ``errors`` in turn, then returning "ok"."""
+    calls = []
+
+    def fn():
+        calls.append(1)
+        if len(calls) <= len(errors):
+            raise errors[len(calls) - 1]
+        return "ok"
+
+    return fn, calls
+
+
+@pytest.mark.parametrize("errors,attempts,outcome", [
+    ([], 2, "ok"),
+    ([OSError("blip")], 2, "ok"),
+    ([OSError("a"), OSError("a")], 3, "Quarantined"),
+    ([OSError("a"), OSError("b")], 2, "OSError"),
+    ([OSError("a"), OSError("b"), OSError("c")], 3, "OSError"),
+    ([ValueError("bug")], 3, "ValueError"),
+])
+def test_call_with_retry_matches(errors, attempts, outcome):
+    results = []
+    for pkg in (jf, tf):
+        fn, calls = _failing(errors)
+        sleeps = []
+        policy = pkg.RetryPolicy(max_attempts=attempts, seed=5)
+        try:
+            res = pkg.call_with_retry(fn, policy=policy, site="ckpt.save",
+                                      sleep=sleeps.append)
+        except Exception as e:  # noqa: BLE001 - compared across packages
+            res = type(e).__name__
+        results.append((res, len(calls), sleeps))
+    assert results[0] == results[1]
+    assert results[1][0] == outcome

@@ -46,6 +46,8 @@ def test_import_pulls_no_jax():
         "import tpu_patterns_torch.miniapps, tpu_patterns_torch.comm.ring\n"
         "import tpu_patterns_torch.miniapps.apps.allreduce.pallas\n"
         "import tpu_patterns_torch.interop, tpu_patterns_torch.interop.kernel\n"
+        "import tpu_patterns_torch.faults, tpu_patterns_torch.io\n"
+        "import tpu_patterns_torch.ckpt, tpu_patterns_torch.models.train_loop\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'tpu_patterns')]\n"
         "assert not bad, bad\n"
@@ -70,6 +72,7 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
         run_allreduce,
     )
     from tpu_patterns_torch.models.lm import init_lm_params
+    from tpu_patterns_torch.models.train_loop import TrainLoopConfig, train
     from tpu_patterns_torch.models.transformer import ModelConfig
     from tpu_patterns_torch.runtime import resolve_device
     from tpu_patterns_torch.serve.engine import ServeConfig, run_serve
@@ -107,6 +110,9 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
         lambda: cli.main(["p2p", "--transport", "one_sided", "--devices",
                           "4"]),
         lambda: cli.main(["interop"]),
+        lambda: train(TrainLoopConfig()),
+        lambda: train(TrainLoopConfig(attn="kernel", data="native")),
+        lambda: cli.main(["train"]),
     ):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()

@@ -261,8 +261,17 @@ def test_run_onesided_record_matches_reference(kernel, monkeypatch):
         ref.pattern, ref.mode, ref.commands, ref.verdict.value)
     assert rec.verdict is Verdict.SUCCESS, rec.notes
     assert set(rec.metrics) == set(ref.metrics)
-    for key in ("checksum_ok", "bytes_per_put"):
-        assert rec.metrics[key] == ref.metrics[key]
+    if kernel == "auto":
+        # each package's auto picks its winner by timing, so the bytes a
+        # put moves (inplace moves half) are held to the reference's
+        # Record for the kernel the port picked
+        won, = [n.split(": ")[1] for n in rec.notes
+                if n.startswith("auto-selected kernel: ")]
+        ref_won = _ref_record(dict(kw, kernel=won))
+        assert rec.metrics["bytes_per_put"] == ref_won.metrics["bytes_per_put"]
+    else:
+        assert rec.metrics["bytes_per_put"] == ref.metrics["bytes_per_put"]
+    assert rec.metrics["checksum_ok"] == ref.metrics["checksum_ok"]
     assert _notes(rec, names) == _notes(ref, names)
     assert all(v > 0 for k, v in rec.metrics.items()
                if k.startswith("bandwidth_GBps"))

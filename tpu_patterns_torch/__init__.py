@@ -12,7 +12,8 @@ each TPU kernel on a ported path is a kernel written by hand for Hopper
                     markers
   models/           params, q/k/v, RoPE, int8 KV, MLP, attention, the
                     dense per-request decoder (the exactness oracle), the
-                    one-device train step and the flagship workload
+                    one-device train step, the flagship workload and
+                    the resumable training loop (models/train_loop.py)
   longctx/          dense attention twins, the flash tile model and the
                     flash-attention kernels (longctx/csrc/: forward, and
                     dq and dk/dv backward)
@@ -38,10 +39,15 @@ each TPU kernel on a ported path is a kernel written by hand for Hopper
                     probe, host staging from the card, and the kernel K10
                     (interop/csrc/add_one.cu) whose output the C++ reads
                     in place
+  ckpt/             atomic checkpoints of tensor trees, in the JAX
+                    package's on-disk format
+  io/               the native prefetch batch loader (io/csrc/loader.cc,
+                    built with g++ at first use)
+  faults/           seeded fault sites and the ckpt retry policy
   kernels/build.py  nvcc build of every ``*.cu`` into build/torch_kernels/
   convert.py        numpy params/pools/fills from the JAX package ->
                     tensors (and params/grads back, as numpy)
   cli.py            ``python -m tpu_patterns_torch
-                    serve|flagship|p2p|concurrency|allreduce|miniapps|
-                    interop``
+                    serve|flagship|train|ckpt|p2p|concurrency|
+                    allreduce|miniapps|interop``
 """

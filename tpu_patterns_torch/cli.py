@@ -12,12 +12,19 @@
     python -m tpu_patterns_torch miniapps --device cuda --devices 4
     python -m tpu_patterns_torch p2p --transport one_sided --devices 4
     python -m tpu_patterns_torch interop --device cuda
+    python -m tpu_patterns_torch train --device cuda --attn kernel \
+        --ckpt_dir ckpts --ckpt_every 2 --steps 8
+    python -m tpu_patterns_torch ckpt ckpts --leaves
 
 One flag per field of the subcommand's config
 (:class:`~tpu_patterns_torch.serve.engine.ServeConfig`,
-:class:`~tpu_patterns_torch.models.flagship.FlagshipConfig`), named as in
-``tpu-patterns serve`` / ``tpu-patterns flagship``; ``--paged_attn`` and
-``--attn`` take ``kernel|dense`` and ``--device`` names the device.
+:class:`~tpu_patterns_torch.models.flagship.FlagshipConfig`,
+:class:`~tpu_patterns_torch.models.train_loop.TrainLoopConfig`), named as
+in ``tpu-patterns serve`` / ``flagship`` / ``train``; ``--paged_attn``
+and ``--attn`` take ``kernel|dense`` (``train`` also the JAX package's
+``xla``, read as ``dense``) and ``--device`` names the device.
+``ckpt DIR [--leaves]`` prints a checkpoint directory's steps (and leaf
+table) in the lines of ``tpu-patterns ckpt``.
 ``p2p`` takes the flags of ``tpu-patterns p2p`` that the one-sided
 put uses (:class:`~tpu_patterns_torch.comm.onesided.OneSidedConfig`,
 ``--transport``, ``--put-kernel``, ``--chunks``, ``--block-rows``,
@@ -46,7 +53,8 @@ import typing
 
 from tpu_patterns_torch.core.results import ResultWriter
 
-# `tpu-patterns <cmd>` flags whose machinery is not ported yet
+# `tpu-patterns <cmd>` flags whose machinery is not ported yet (the
+# mesh flags of `flagship` and `train`)
 _NOT_PORTED_FLAGSHIP = ("devices", "dp", "tp")
 _NOT_PORTED = (
     "devices", "dp", "tp", "watchdog_s", "snapshot_dir", "resume",
@@ -114,7 +122,7 @@ def _add_config_flags(p: argparse.ArgumentParser, cls, not_ported,
         else:
             kw["type"] = ftype
         if f.name in _CHOICES or "choices" in f.metadata:
-            kw["choices"] = _CHOICES.get(f.name, f.metadata.get("choices"))
+            kw["choices"] = f.metadata.get("choices", _CHOICES.get(f.name))
         p.add_argument("--" + f.name, **kw, help=f"(default: {f.default})")
     for name in not_ported:
         p.add_argument("--" + name, nargs="?", action=_NotPorted,
@@ -123,6 +131,7 @@ def _add_config_flags(p: argparse.ArgumentParser, cls, not_ported,
 
 def build_parser() -> argparse.ArgumentParser:
     from tpu_patterns_torch.models.flagship import FlagshipConfig
+    from tpu_patterns_torch.models.train_loop import TrainLoopConfig
     from tpu_patterns_torch.serve.engine import ServeConfig
 
     parser = argparse.ArgumentParser(
@@ -144,6 +153,21 @@ def build_parser() -> argparse.ArgumentParser:
         "fused flash-attention kernels",
     )
     _add_config_flags(fl, FlagshipConfig, _NOT_PORTED_FLAGSHIP)
+    tr = sub.add_parser(
+        "train",
+        help="resumable training loop with atomic checkpoints "
+        "(--ckpt_dir/--ckpt_every/--resume)",
+    )
+    _add_config_flags(tr, TrainLoopConfig, _NOT_PORTED_FLAGSHIP)
+    tr.add_argument("--device", choices=_CHOICES["device"], default="cuda")
+    ck = sub.add_parser(
+        "ckpt",
+        help="inspect a checkpoint directory: committed steps, sizes, "
+        "leaf table (read-only)",
+    )
+    ck.add_argument("dir", help="checkpoint root (the train --ckpt_dir)")
+    ck.add_argument("--leaves", action="store_true",
+                    help="print the per-leaf table")
     _add_p2p_flags(sub.add_parser(
         "p2p",
         help="one-sided put bandwidth on one device (the local put) with "
@@ -412,6 +436,48 @@ def _p2p(args, parser, writer: ResultWriter) -> None:
     run_onesided(cfg, writer, mesh=default_mesh(n, args.device))
 
 
+def _train(args, parser, writer: ResultWriter) -> None:
+    from tpu_patterns_torch.models.train_loop import (
+        TrainLoopConfig,
+        train,
+        unported,
+    )
+
+    cfg = _config(TrainLoopConfig, args)
+    why = unported(cfg)
+    if why:
+        parser.error(f"train: {why}")
+    train(cfg, writer, device=args.device)
+
+
+def _ckpt(args) -> None:
+    """Inspect a checkpoint directory (read-only, manifest-driven), in
+    the lines of ``tpu-patterns ckpt`` (``tpu_patterns/cli.py:657``)."""
+    from tpu_patterns_torch import ckpt
+
+    info = ckpt.describe(args.dir)
+    if not info["steps"]:
+        print(f"no committed checkpoints under {info['root']}")
+        return
+    for s in info["steps"]:
+        print(
+            f"step_{s['step']}: {s['bytes'] / 1e6:.2f} MB, "
+            f"{s['process_count']} process(es), {len(s['leaves'])} leaves"
+        )
+        if args.leaves:
+            for leaf in s["leaves"]:
+                # merged axes render as a+b, replicated dims as '-'
+                parts = [
+                    "+".join(e) if isinstance(e, list) else
+                    ("-" if e is None else str(e))
+                    for e in leaf["spec"]
+                ]
+                spec = ",".join(parts) or "-"
+                print(f"  {leaf['key']}: {tuple(leaf['shape'])} "
+                      f"{leaf['dtype']} spec=({spec})")
+    print(f"latest: step_{info['steps'][-1]['step']}")
+
+
 def _config(cls, args):
     return cls(**{f.name: getattr(args, f.name)
                   for f in dataclasses.fields(cls)})
@@ -440,6 +506,10 @@ def main(argv: list[str] | None = None) -> int:
         _miniapps(args, writer)
     elif args.cmd == "interop":
         _interop(args, writer)
+    elif args.cmd == "train":
+        _train(args, parser, writer)
+    elif args.cmd == "ckpt":
+        _ckpt(args)
     else:
         cfg = _config(FlagshipConfig, args)
         why = unported(cfg)

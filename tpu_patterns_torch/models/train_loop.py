@@ -1,0 +1,415 @@
+"""Resumable training loop over the flagship model on one device.
+
+Counterpart of ``tpu_patterns/models/train_loop.py``: the one-device
+train step (``models/transformer.py::make_train_step``) composed with
+atomic checkpoints (``ckpt/``), the native prefetch loader (``io/``),
+the ``train.step`` fault site and the non-finite guard, so a killed run
+resumes bit for bit:
+
+* the batch stream is a pure function of (seed, step), so the resumed
+  run sees exactly the batches the killed run would have seen;
+* the checkpoint tree carries the step counter as an int32 leaf, so
+  "where was I" is part of the committed state;
+* saves are atomic (tmp + rename): a kill mid-save resumes from the
+  previous committed step, never from a torn file.
+
+The checkpoint tree is ``{"params": ..., "step": ...}`` with the params
+in the JAX package's layout (no depth axis at depth 1), so either
+package resumes the other's checkpoints.  With ``attn="kernel"`` every
+step launches K3 (forward) and K4 (dq; dk/dv) once a layer.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import numpy as np
+import torch
+
+from tpu_patterns_torch import ckpt, faults
+from tpu_patterns_torch.core.results import Record, Verdict
+from tpu_patterns_torch.core.timing import clock_ns
+from tpu_patterns_torch.models.flagship import flagship_flops
+from tpu_patterns_torch.models.transformer import (
+    ModelConfig,
+    init_params,
+    make_train_step,
+    param_shapes,
+)
+from tpu_patterns_torch.runtime import resolve_device
+
+
+@dataclasses.dataclass
+class TrainLoopConfig:
+    """CLI ``train`` subcommand: the JAX package's fields and defaults."""
+
+    embed: int = 256
+    heads: int = 8
+    head_dim: int = 32
+    mlp_mult: int = 4
+    seq: int = 512
+    batch: int = 4
+    dtype: str = "float32"
+    causal: bool = True
+    # "dense" (attention_reference) | "kernel" (the flash kernels); the
+    # JAX package's default "xla" reads as "dense"
+    attn: str = dataclasses.field(
+        default="xla", metadata={"choices": ("kernel", "dense", "xla")})
+    moe: bool = False
+    remat: bool = False
+    remat_policy: str = "full"
+    depth: int = 1
+    kv_heads: int = 0  # GQA K/V heads (0 = MHA)
+    rope: bool = False  # rotary position embeddings on q/k
+    # batch source: "synthetic" (torch.randn, pure in (seed, step)) |
+    # "native" (the C++ prefetch loader, io/loader.py)
+    data: str = dataclasses.field(
+        default="synthetic", metadata={"choices": ("synthetic", "native")})
+    optimizer: str = "sgd"  # sgd (zero-sgd | zero-adam: not ported)
+    lr: float = 1e-3
+    steps: int = 10
+    seed: int = 0
+    # checkpointing: every k steps into ckpt_dir, pruned to `keep`
+    ckpt_dir: str = ""
+    ckpt_every: int = 0
+    keep: int = 2
+    resume: bool = False
+    # commit checkpoints from a background thread (AsyncSaver)
+    ckpt_async: bool = False
+    # emit a train_step Record every k steps (0 = only the final Record)
+    log_every: int = 0
+    # non-finite guard over the loss and the updated params: "halt"
+    # stops with a WARNING Record (final verdict FAILURE), "skip-step"
+    # reverts the update and goes on (the batch is consumed), "off"
+    # disables the check
+    nonfinite: str = dataclasses.field(
+        default="halt", metadata={"choices": ("halt", "skip-step", "off")})
+    # 0 = auto: every step under skip-step, every 10th under halt; a
+    # checkpoint step always checks, so a poisoned tree is never saved
+    nonfinite_every: int = 0
+
+
+_ATTN = {"xla": "dense", "dense": "dense", "kernel": "kernel"}
+
+
+def unported(cfg: TrainLoopConfig) -> str | None:
+    """Why ``cfg`` asks for something this package does not do yet, or
+    None.  The JAX package takes these values; here they are refused,
+    never ignored."""
+    if cfg.optimizer in ("zero-sgd", "zero-adam"):
+        return (f"optimizer {cfg.optimizer!r} is not ported yet (ZeRO "
+                "optimizers: ROADMAP.md item 11); want sgd")
+    if cfg.moe:
+        return "moe=True is not ported to tpu_patterns_torch yet"
+    if cfg.remat_policy == "dots":
+        return "remat_policy='dots' is not ported yet (ROADMAP.md item 9)"
+    return None
+
+
+def _model_cfg(cfg: TrainLoopConfig) -> ModelConfig:
+    if cfg.attn not in _ATTN:
+        raise ValueError(f"unknown attn {cfg.attn!r}; want dense|kernel")
+    return ModelConfig(
+        embed=cfg.embed, heads=cfg.heads, head_dim=cfg.head_dim,
+        mlp_mult=cfg.mlp_mult, causal=cfg.causal, dtype=cfg.dtype,
+        attn=_ATTN[cfg.attn], remat=cfg.remat,
+        remat_policy=cfg.remat_policy, depth=cfg.depth,
+        kv_heads=cfg.kv_heads, rope=cfg.rope,
+    )
+
+
+def _to_saved(params: dict, mcfg: ModelConfig) -> dict:
+    """The params in the checkpoint's layout: the depth axis dropped at
+    depth 1, as the JAX package lays them out."""
+    return {k: p[0] if mcfg.depth == 1 else p for k, p in params.items()}
+
+
+def _from_saved(params: dict, mcfg: ModelConfig) -> dict:
+    return {k: p[None] if mcfg.depth == 1 else p for k, p in params.items()}
+
+
+def _template(mcfg: ModelConfig, dev: torch.device) -> dict:
+    """An empty checkpoint tree: what restore fills."""
+    lead = () if mcfg.depth == 1 else (mcfg.depth,)
+    params = {k: torch.empty(lead + shape, dtype=mcfg.torch_dtype,
+                             device=dev)
+              for k, shape in param_shapes(mcfg).items()}
+    return {"params": params,
+            "step": torch.zeros((), dtype=torch.int32, device=dev)}
+
+
+def _make_batch_source(cfg: TrainLoopConfig, mcfg: ModelConfig,
+                       dev: torch.device, start: int):
+    """(get_batch(t), close()) for the configured data source; batch t
+    is a function of (seed, t) for both."""
+    shape = (cfg.batch, cfg.seq, cfg.embed)
+    if cfg.data == "synthetic":
+        def synthetic(t: int) -> torch.Tensor:
+            gen = torch.Generator(dev).manual_seed(
+                cfg.seed + 1_000_003 * (t + 1))
+            return torch.randn(shape, generator=gen, device=dev).to(
+                mcfg.torch_dtype)
+
+        return synthetic, (lambda: None)
+    if cfg.data != "native":
+        raise ValueError(
+            f"unknown data source {cfg.data!r}; want synthetic|native"
+        )
+    from tpu_patterns_torch.io import NativeLoader
+
+    loader = NativeLoader(cfg.seed, shape)
+    loader.seek(start)
+
+    def native(t: int) -> torch.Tensor:
+        arr, step = loader.next()
+        if step != t:  # a caller skipped steps
+            loader.seek(t)
+            arr, step = loader.next()
+        # copy out of the ring view before anything else: the slot is
+        # recycled at the next next(), whatever reads it then
+        return torch.from_numpy(np.array(arr)).to(dev, mcfg.torch_dtype)
+
+    return native, loader.close
+
+
+def _all_finite(loss: torch.Tensor, params: dict) -> bool:
+    """One reduction over the loss and every floating param, read with a
+    single host sync (the cost of acting on the verdict before the next
+    step; thin it with nonfinite_every)."""
+    flags = [torch.isfinite(loss).all()] + [
+        torch.isfinite(p).all() for p in params.values()
+        if p.is_floating_point()
+    ]
+    return bool(torch.stack(flags).all().item())
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _emit_nonfinite_warning(writer, step: int, policy: str) -> None:
+    if writer is not None:
+        writer.record(Record(
+            pattern="train",
+            mode="nonfinite",
+            commands=f"step={step}",
+            metrics={"step": float(step)},
+            verdict=Verdict.WARNING,
+            notes=[f"non-finite loss/state at step {step}; policy={policy}"],
+        ))
+
+
+def _emit_step_record(writer, cfg: TrainLoopConfig, step: int, loss: float,
+                      steps_per_s: float) -> None:
+    writer.record(Record(
+        pattern="train_step",
+        mode=cfg.optimizer,
+        commands=f"step={step}",
+        metrics={
+            "step": float(step),
+            "loss": loss,
+            "steps_per_s": round(steps_per_s, 3),
+        },
+        verdict=Verdict.SUCCESS if math.isfinite(loss) else Verdict.FAILURE,
+    ))
+
+
+def train(cfg: TrainLoopConfig, writer=None, device: str = "cuda") -> dict:
+    """Run (or resume) the loop on ``device``; returns the final state
+    and a summary.
+
+    The returned dict has ``state`` (the checkpoint tree: params in the
+    JAX package's layout and the int32 ``step``), ``loss`` (the last
+    step's, None when no step ran), ``start_step`` (0 or the resumed
+    step), ``steps_per_s`` and ``tokens_per_s``.
+    """
+    why = unported(cfg)
+    if why:
+        raise NotImplementedError(why)
+    if cfg.optimizer != "sgd":
+        raise ValueError(
+            f"unknown optimizer {cfg.optimizer!r}; want sgd|zero-sgd|zero-adam"
+        )
+    dev = resolve_device(device)
+    mcfg = _model_cfg(cfg)
+
+    resume_step = None
+    if cfg.ckpt_dir:
+        committed = ckpt.available_steps(cfg.ckpt_dir)
+        if cfg.resume:
+            resume_step = max(committed) if committed else None
+        elif committed:
+            # a fresh run into a dir holding another run's steps would
+            # poison retention, and a later resume would restore the OLD
+            # run's state
+            raise ValueError(
+                f"ckpt_dir {cfg.ckpt_dir!r} already holds committed steps "
+                f"{committed}; pass resume=True to continue that run or "
+                "use a fresh directory"
+            )
+    if cfg.nonfinite not in ("halt", "skip-step", "off"):
+        raise ValueError(
+            f"unknown nonfinite policy {cfg.nonfinite!r}; "
+            "want halt|skip-step|off"
+        )
+    if cfg.nonfinite == "skip-step" and cfg.nonfinite_every not in (0, 1):
+        # a thinned check sees poison late, when the state it would
+        # revert to is itself poisoned
+        raise ValueError(
+            "nonfinite=skip-step requires nonfinite_every=1 (reverting "
+            "needs the previous step's state to be provably clean)"
+        )
+    # mean objective: lr scales stay independent of batch and seq
+    n_global = float(cfg.batch * cfg.seq * cfg.embed)
+    # the step updates out of place, so the pre-step params stay live
+    # for skip-step's revert with no second builder
+    step_fn = make_train_step(mcfg, lr=cfg.lr, n_global=n_global)
+
+    start = 0
+    if resume_step is not None:
+        tree = ckpt.restore(cfg.ckpt_dir, _template(mcfg, dev),
+                            step=resume_step)
+        params = _from_saved(tree["params"], mcfg)
+        start = int(tree["step"])
+    else:
+        params = init_params(torch.Generator().manual_seed(cfg.seed), mcfg,
+                             dev)
+    step_no = start
+
+    def checkpoint_tree():
+        return {"params": _to_saved(params, mcfg),
+                "step": torch.tensor(step_no, dtype=torch.int32, device=dev)}
+
+    loss = None
+    get_batch, close_source = _make_batch_source(cfg, mcfg, dev, start)
+    saver = ckpt.AsyncSaver() if cfg.ckpt_async else None
+    t0 = clock_ns()
+    rate_start = start
+    t_window, window_start = t0, start
+    if cfg.nonfinite == "off":
+        check_every = 0
+    elif cfg.nonfinite_every > 0:
+        check_every = cfg.nonfinite_every
+    else:  # auto: skip-step must see every step; halt amortizes the sync
+        check_every = 1 if cfg.nonfinite == "skip-step" else 10
+    halted_at = None
+    try:
+        for t in range(start, cfg.steps):
+            x = get_batch(t)
+            new_params, step_loss = step_fn(params, x)
+            # fault site: ``nan`` poisons this step's loss, the shape of a
+            # real numerical blowup; the guard below is the recovery
+            fault = faults.inject("train.step", step=t)
+            if fault is not None and fault.action == "nan":
+                step_loss = step_loss * math.nan
+            step_no = t + 1
+            will_ckpt = (
+                cfg.ckpt_dir
+                and cfg.ckpt_every > 0
+                and (t + 1) % cfg.ckpt_every == 0
+            )
+            # a thinned check is forced at every checkpoint step: a
+            # poisoned tree is never committed
+            if (
+                check_every
+                and ((t + 1) % check_every == 0 or will_ckpt)
+                and not _all_finite(step_loss, new_params)
+            ):
+                _emit_nonfinite_warning(writer, t, cfg.nonfinite)
+                if cfg.nonfinite == "halt":
+                    loss = step_loss
+                    halted_at = t
+                    params = new_params
+                    break
+                # skip-step: keep the pre-step params; the batch is
+                # consumed and the step leaf advances, so the stream stays
+                # a function of t; `loss` keeps its last finite value
+            else:
+                params = new_params
+                loss = step_loss
+            if will_ckpt:
+                if saver is not None:
+                    saver.save(cfg.ckpt_dir, t + 1, checkpoint_tree(),
+                               keep=cfg.keep)
+                else:
+                    ckpt.save(cfg.ckpt_dir, t + 1, checkpoint_tree(),
+                              keep=cfg.keep)
+            if t == start:
+                # restart the clocks AFTER the first step: it carries the
+                # first use of every kernel (and, on a fresh build, its
+                # compile), excluded from clock and count alike
+                _sync(dev)
+                t0, rate_start = clock_ns(), t + 1
+                t_window, window_start = t0, t + 1
+            if (
+                writer is not None
+                and cfg.log_every > 0
+                and (t + 1) % cfg.log_every == 0
+            ):
+                # reading the loss fences the window, so its rate is the
+                # device's, not the dispatch rate; a window with no step
+                # after the first emits no Record
+                steps_in_window = t + 1 - window_start
+                if steps_in_window > 0 and loss is not None:
+                    window_loss = float(loss)
+                    now = clock_ns()
+                    _emit_step_record(
+                        writer, cfg, t + 1, window_loss,
+                        steps_in_window / max((now - t_window) / 1e9, 1e-9),
+                    )
+                    t_window, window_start = now, t + 1
+        _sync(dev)
+    finally:
+        # join the in-flight save even when the loop raised: a completed
+        # step's checkpoint is not abandoned mid-commit, and its error
+        # surfaces
+        try:
+            if saver is not None:
+                saver.wait()
+        finally:
+            close_source()
+    elapsed = (clock_ns() - t0) / 1e9
+    # steps after the first (0 on a 1-step run); clamped for a resumed
+    # checkpoint already past cfg.steps
+    ran = max(0, cfg.steps - rate_start)
+    out = {
+        "state": checkpoint_tree(),
+        "loss": float(loss) if loss is not None else None,
+        "start_step": start,
+        "steps_per_s": (ran / elapsed) if ran and elapsed > 0 else 0.0,
+    }
+    out["tokens_per_s"] = out["steps_per_s"] * cfg.batch * cfg.seq
+    if writer is not None:
+        metrics = {
+            "steps_per_s": round(out["steps_per_s"], 3),
+            "tokens_per_s": round(out["tokens_per_s"], 1),
+            "model_tflops_per_s": round(
+                out["steps_per_s"] * flagship_flops(cfg) / 1e12, 4
+            ),
+            "resumed_from": float(start),
+        }
+        notes = []
+        if out["loss"] is None:
+            # a no-op resume: a fake 0.0 would read as a converged run
+            notes.append(f"already complete at step {start}; no steps ran")
+            finite = True
+        else:
+            metrics["final_loss"] = out["loss"]
+            finite = math.isfinite(out["loss"])
+        if halted_at is not None:
+            notes.append(
+                f"halted at step {halted_at}: non-finite loss/state "
+                "(nonfinite=halt; pass --nonfinite skip-step to revert "
+                "and continue)"
+            )
+        writer.record(Record(
+            pattern="train",
+            mode=cfg.optimizer,
+            commands=f"steps={cfg.steps} resume_from={start}",
+            metrics=metrics,
+            notes=notes,
+            verdict=Verdict.SUCCESS if finite else Verdict.FAILURE,
+        ))
+    return out
