@@ -14,8 +14,10 @@ serve path (slice A), the flagship train step and the resumable train
 loop with its checkpoints (slice B), the one-device
 one-sided put (slice C), the concurrency suite (slice D), the ring
 (the allreduce miniapp and the ring put over a rank mesh of four ranks
-on the one card), and the interop slice (the native C++ module and the
-kernel whose output it reads in place).  Phases, each one or more
+on the one card), the interop slice (the native C++ module and the
+kernel whose output it reads in place), and the rest of the P2P suite
+(topology, placement, the pair exchange, the hierarchical allreduce and
+the environment tier of the CLI).  Phases, each one or more
 printed lines:
 
 1. device and toolchain: torch/CUDA versions, ``nvcc --version``, and the
@@ -212,13 +214,28 @@ printed lines:
     4.925, 6.599, 4.023, 0.1593, 0.5195, 0.2632, 0.04396, 0.1410,
     0.1381, 0.1372 and 0.09865 ms), their library call's and their
     bound;
-13. the card's name and power limit again, the ``kernels`` line (the
+13. the P2P suite (no TPU kernel on its path: the pair exchange and the
+    hierarchical allreduce are torch copies and adds, as the reference's
+    are XLA collectives), each CLI run in this process: ``topo`` (one
+    device, ``gpu``, plane [0], one order in every placement mode, one
+    group) and ``topo 0``; ``run_p2p`` at the reference's 1,179,648 x 40
+    float32 (188.74 MB a pair) over 2 and 4 ranks on the card, uni and
+    bidirectional, each Record SUCCESS with ``checksum_ok`` 1 and twice
+    its rate at most 1.15 x 3350 GB/s, each receiver's output in storage
+    apart from every input's; the six placement x mechanism pairs of
+    ``p2p --devices 2`` (a mesh on card 0, the same per-shard checksums,
+    SUCCESS); ``hier --devices 4`` at 2^22 float32 a rank with ``--dcn
+    2`` and ``--dcn 0`` (flat and hier SUCCESS); ``allreduce --devices
+    4`` compact and spread (the same ``validated``); and ``p2p`` under
+    ``TPU_PATTERNS_REPS=3`` (the run's reps 3, a flag's 4 beating it);
+14. the card's name and power limit again, the ``kernels`` line (the
     flash rows also carry ``train_loop_launches``, phase 8b's counts),
     then the device line, which is the last.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import io
 import itertools
@@ -2794,6 +2811,217 @@ def phase_add_one_time(torch, k10, ck, timing, spec):
     return rows[str(K10_FULL)]
 
 
+# -- phase 13: the P2P suite ---------------------------------------------------
+
+P2P_WORLDS = (2, 4)  # ranks of the pair exchange, all on the one card
+P2P_MARGIN = 1.15  # runtime.SPEC_PLAUSIBILITY_MARGIN
+
+
+@contextlib.contextmanager
+def _env(**vars_):
+    """``os.environ`` with ``vars_`` set, restored after."""
+    old = {k: os.environ.get(k) for k in vars_}
+    os.environ.update(vars_)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _cli_in_process(argv, **env):
+    """``python -m tpu_patterns_torch ARGV`` in this process (each
+    process costs seconds to reach the card), with ``env`` set: its exit
+    code, its stdout and its Records."""
+    import tempfile
+
+    from tpu_patterns_torch import cli
+
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        jl = os.path.join(tmp, "run.jsonl")
+        out = io.StringIO()
+        with _env(**env), contextlib.redirect_stdout(out):
+            rc = cli.main(["--jsonl", jl, *argv])
+        recs = ([json.loads(ln) for ln in open(jl) if ln.strip()]
+                if os.path.exists(jl) else [])
+    return rc, out.getvalue(), recs
+
+
+def _storage(t) -> int:
+    return t.untyped_storage().data_ptr()
+
+
+def phase_topo():
+    """``topo`` and ``topo 0`` on the card: one device, platform gpu,
+    plane [0], the same order in every placement mode, one group."""
+    from tpu_patterns_torch.topo import placement
+
+    rc, out, _ = _cli_in_process(["topo", "--device", DEVICE])
+    lines = out.splitlines()
+    want = ["devices: 1 (gpu), torus 1, 1 core(s)/chip [synthetic coords]",
+            "plane 0: [0]",
+            *[f"placement {m.value}: [0]" for m in placement.PlacementMode],
+            "hierarchy: 1 slice group(s) (1 devices)"]
+    rc0, out0, _ = _cli_in_process(["topo", "0", "--device", DEVICE])
+    emit({"phase": "topo", "lines": lines, "entry_0": out0.strip()})
+    if rc or rc0 or lines != want or out0 != "0\n":
+        raise AssertionError(f"topo: rc {rc}/{rc0}, {lines} != {want}; "
+                             f"entry {out0!r}")
+
+
+def phase_p2p(torch, p2p, mesh_mod, spec):
+    """``run_p2p`` at the reference's 1,179,648 x 40 float32 (188.74 MB
+    a pair) over 2 and 4 ranks on the card, uni and bidirectional: each
+    Record SUCCESS with ``checksum_ok`` 1, no ``ici_plausible``, and
+    twice its rate (each transfer reads and writes its bytes) at most
+    1.15 x the card's memory rate; each receiver's output in storage of
+    its own, apart from every input's.  Returns the rows."""
+    from tpu_patterns_torch.comm import verify
+    from tpu_patterns_torch.core.results import ResultWriter
+
+    cfg = p2p.P2PConfig()
+    rows = []
+    for n in P2P_WORLDS:
+        mesh = mesh_mod.default_mesh(n, DEVICE)
+        recs = p2p.run_p2p(mesh, cfg, ResultWriter(stream=io.StringIO()))
+        shards = mesh.scatter(verify.fill_randomly(n * cfg.count, cfg.dtype,
+                                                   cfg.seed, DEVICE))
+        inputs = {_storage(x) for x in shards}
+        for rec in recs:
+            perm = p2p.pair_permutation(n, rec.mode == "bidirectional")
+            out = p2p.pair_exchange(shards, perm)
+            torch.cuda.synchronize()
+            outs = [_storage(o) for o in out]
+            distinct = not inputs & set(outs) and len(set(outs)) == n
+            twice = 2 * rec.metrics["bandwidth_GBps"]
+            row = {"phase": "p2p", "world": n, "mode": rec.mode,
+                   "commands": rec.commands, "verdict": rec.verdict.value,
+                   "metrics": rec.metrics, "notes": rec.notes,
+                   "distinct_storage": distinct,
+                   "twice_rate_over_hbm": twice / spec["hbm_gbps"]}
+            emit(row)
+            rows.append(row)
+            del out
+            if (not rec.verdict or rec.metrics["checksum_ok"] != 1.0
+                    or "ici_plausible" in rec.metrics or not distinct
+                    or twice > P2P_MARGIN * spec["hbm_gbps"]):
+                raise AssertionError(f"p2p {n} ranks {rec.mode}: {row}")
+        del shards
+    return rows
+
+
+def phase_p2p_placements(torch, p2p, placement):
+    """Each of the six placement x mechanism pairs of ``p2p --devices
+    2``: a mesh of two ranks on card 0, the CLI's Records SUCCESS, and
+    the per-shard checksums after each exchange equal across the six."""
+    from tpu_patterns_torch.comm import verify
+
+    cfg = p2p.P2PConfig()
+    fill = verify.fill_randomly(2 * cfg.count, cfg.dtype, cfg.seed, DEVICE)
+    seen = {}
+    for mode in placement.PlacementMode:
+        for mech in placement.Mechanism:
+            mesh = placement.make_mesh(2, mode, mech, DEVICE)
+            shards = mesh.scatter(fill)
+            sums = [p2p.shard_checksums(p2p.pair_exchange(
+                shards, p2p.pair_permutation(2, bidir)))
+                for bidir in (False, True)]
+            del shards
+            rc, _, recs = _cli_in_process(
+                ["p2p", "--devices", "2", "--placement", mode.value,
+                 "--mechanism", mech.value, "--reps", "3",
+                 "--device", DEVICE])
+            got = [(r["mode"], r["verdict"], r["metrics"]["checksum_ok"])
+                   for r in recs]
+            seen[(mode.value, mech.value)] = sums
+            emit({"phase": "p2p_placement", "placement": mode.value,
+                  "mechanism": mech.value, "rc": rc,
+                  "devices": [str(d) for d in mesh.devices],
+                  "checksums": sums, "records": got})
+            if (rc or mesh.devices != (torch.device(DEVICE, 0),) * 2
+                    or got != [("unidirectional", "SUCCESS", 1.0),
+                               ("bidirectional", "SUCCESS", 1.0)]):
+                raise AssertionError(f"p2p {mode.value}/{mech.value}: rc "
+                                     f"{rc}, {mesh.devices}, {got}")
+    if len({json.dumps(v) for v in seen.values()}) != 1:
+        raise AssertionError(f"checksums differ across placements: {seen}")
+
+
+def phase_hier():
+    """``hier --devices 4`` at ``HierConfig``'s 2^22 float32 a rank:
+    ``--dcn 2`` (2 x 2) and ``--dcn 0`` (one group detected, 1 x 4),
+    flat and hier each SUCCESS."""
+    for dcn, grid in (("2", "2x2dev"), ("0", "1x4dev")):
+        rc, _, recs = _cli_in_process(["hier", "--devices", "4", "--dcn",
+                                       dcn, "--device", DEVICE])
+        got = [(r["mode"], r["commands"], r["verdict"]) for r in recs]
+        emit({"phase": "hier", "dcn": int(dcn), "rc": rc, "records": got,
+              "metrics": {r["mode"]: r["metrics"] for r in recs},
+              "notes": {r["mode"]: r["notes"] for r in recs}})
+        if rc or got != [(m, f"{grid} x 16MB", "SUCCESS")
+                         for m in ("flat", "hier")]:
+            raise AssertionError(f"hier --dcn {dcn}: rc {rc}, {got}")
+
+
+def phase_allreduce_placement():
+    """``allreduce --devices 4`` at the defaults, compact and spread:
+    the same ``validated``, SUCCESS."""
+    got = {}
+    for mode in ("compact", "spread"):
+        rc, _, recs = _cli_in_process(["allreduce", "--devices", "4",
+                                       "--placement", mode,
+                                       "--device", DEVICE])
+        got[mode] = [(r["mode"], r["verdict"], r["metrics"]["validated"])
+                     for r in recs]
+        if rc:
+            raise AssertionError(f"allreduce --placement {mode}: rc {rc}")
+    emit({"phase": "allreduce_placement", "records": got})
+    if got["spread"] != got["compact"] or got["compact"] != [
+            ("xla:ring", "SUCCESS", 1.0)]:
+        raise AssertionError(f"allreduce placements: {got}")
+
+
+def phase_env_tier():
+    """``TPU_PATTERNS_REPS=3 python -m tpu_patterns_torch p2p --devices
+    2``: the run takes the environment's reps (its progress line), and a
+    flag still beats the environment."""
+    reps = {}
+    for argv in ([], ["--reps", "4"]):
+        rc, out, recs = _cli_in_process(
+            ["p2p", "--devices", "2", "--bidirectional", "false", *argv,
+             "--device", DEVICE], TPU_PATTERNS_REPS="3")
+        line = next(ln for ln in out.splitlines() if ln.startswith("# p2p:"))
+        reps[" ".join(argv) or "env"] = line
+        if rc or [r["verdict"] for r in recs] != ["SUCCESS"]:
+            raise AssertionError(f"p2p env tier {argv}: rc {rc}, {recs}")
+    emit({"phase": "env_tier", "progress": reps})
+    if not (reps["env"].endswith("reps=3")
+            and reps["--reps 4"].endswith("reps=4")):
+        raise AssertionError(f"env tier: {reps}")
+
+
+def phase_p2p_suite(torch, spec):
+    """Phase 13 (module docstring)."""
+    from tpu_patterns_torch.comm import mesh as mesh_mod
+    from tpu_patterns_torch.comm import p2p
+    from tpu_patterns_torch.topo import placement
+
+    t0 = time.perf_counter()
+    phase_topo()
+    rows = phase_p2p(torch, p2p, mesh_mod, spec)
+    phase_p2p_placements(torch, p2p, placement)
+    phase_hier()
+    phase_allreduce_placement()
+    phase_env_tier()
+    emit({"phase": "p2p_suite", "seconds": time.perf_counter() - t0,
+          "card": _run(["nvidia-smi", "--query-gpu=name,power.limit",
+                        "--format=csv,noheader"]).strip().splitlines()[0]})
+    return rows
+
+
 def profile_concurrency_main() -> int:
     """``python3 chip_smoke.py --profile-concurrency``, which the smoke
     runs in a process of its own: the xla concurrent "C C" run, the
@@ -3141,6 +3369,7 @@ def main() -> int:
     k10_launches = phase_interop_proof(torch, k10, calls, native, cc)
     phase_interop_cli()
     k10_time = phase_add_one_time(torch, k10, ck, timing, spec)
+    phase_p2p_suite(torch, spec)
 
     rows = {**ftime, **ptime, "paged_attention": {
         "ms": ktime["kernel"]["ms"], "bound_ms": ktime["bound_ms"],

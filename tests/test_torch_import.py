@@ -48,6 +48,9 @@ def test_import_pulls_no_jax():
         "import tpu_patterns_torch.interop, tpu_patterns_torch.interop.kernel\n"
         "import tpu_patterns_torch.faults, tpu_patterns_torch.io\n"
         "import tpu_patterns_torch.ckpt, tpu_patterns_torch.models.train_loop\n"
+        "import tpu_patterns_torch.topo, tpu_patterns_torch.topo.native\n"
+        "import tpu_patterns_torch.comm.p2p, tpu_patterns_torch.core.config\n"
+        "import tpu_patterns_torch.comm.hierarchical\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'tpu_patterns')]\n"
         "assert not bad, bad\n"
@@ -61,7 +64,9 @@ def test_import_pulls_no_jax():
 def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
     from tpu_patterns_torch import cli
     from tpu_patterns_torch.comm.mesh import RankMesh, default_mesh
+    from tpu_patterns_torch.comm.hierarchical import run_hierarchical
     from tpu_patterns_torch.comm.onesided import OneSidedConfig, run_onesided
+    from tpu_patterns_torch.comm.p2p import run_p2p
     from tpu_patterns_torch.concurrency import (
         ConcurrencyConfig,
         run_concurrency,
@@ -77,6 +82,7 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
     from tpu_patterns_torch.runtime import resolve_device
     from tpu_patterns_torch.serve.engine import ServeConfig, run_serve
     from tpu_patterns_torch.serve.paged import make_paged_lm_decoder
+    from tpu_patterns_torch.topo import bootstrap, discover, make_mesh
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = ModelConfig(embed=16, heads=2, head_dim=8)
@@ -113,6 +119,17 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
         lambda: train(TrainLoopConfig()),
         lambda: train(TrainLoopConfig(attn="kernel", data="native")),
         lambda: cli.main(["train"]),
+        lambda: discover(),
+        lambda: make_mesh(2),
+        lambda: make_mesh(4, "spread", "visible"),
+        lambda: bootstrap(),
+        lambda: run_p2p(RankMesh(("cuda:0", "cuda:0"))),
+        lambda: run_hierarchical(RankMesh(("cuda:0",) * 4)),
+        lambda: cli.main(["p2p", "--devices", "2"]),
+        lambda: cli.main(["hier", "--devices", "4"]),
+        lambda: cli.main(["hier"]),
+        lambda: cli.main(["topo"]),
+        lambda: cli.main(["topo", "1"]),
     ):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
@@ -129,10 +146,11 @@ def test_unported_options_are_refused():
     for argv in (["serve", "--kv_host_tier", "1"],
                  ["serve", "--snapshot_dir", "snap"],
                  ["serve", "--paged_attn", "pallas"],
-                 ["allreduce", "--placement", "spread"],
-                 ["p2p", "--bidirectional", "0"],
-                 ["p2p", "--mechanism", "visible"],
-                 ["p2p", "--placement", "spread"],
+                 ["allreduce", "--placement", "diagonal"],
+                 ["p2p", "--bidirectional", "maybe"],
+                 ["p2p", "--mechanism", "affinity"],
+                 ["p2p", "--placement", "diagonal"],
+                 ["hier", "--placement", "spread"],
                  ["p2p", "--put-kernel", "pallas"]):
         with pytest.raises(SystemExit):
             cli.build_parser().parse_args(argv)

@@ -220,8 +220,14 @@ def test_cli_allreduce_and_miniapps(capsys):
     assert tcli.main(["p2p", "--transport", "one_sided", "--device", "cpu",
                       "--devices", "4", "--count", "2048", "--reps", "2"]) == 0
     assert "## ring_put | 4dev x 0MB | SUCCESS" in capsys.readouterr().out
-    for argv in (["allreduce", "--placement", "spread"],
-                 ["allreduce", "--mechanism", "visible"],
+    for placement in ("spread", "compact_plan"):
+        assert tcli.main(["allreduce", "--device", "cpu", "--devices", "4",
+                          "--elements", "512", "--reps", "2", "--placement",
+                          placement, "--mechanism", "visible"]) == 0
+        assert "## xla:ring | 4dev float32 D N=512 | SUCCESS" in \
+            capsys.readouterr().out
+    for argv in (["allreduce", "--placement", "diagonal"],
+                 ["allreduce", "--mechanism", "affinity"],
                  ["allreduce", "--algorithm", "tree"],
                  ["allreduce", "--mem_kind", "M"]):
         with pytest.raises(SystemExit):

@@ -9,7 +9,8 @@ each TPU kernel on a ported path is a kernel written by hand for Hopper
   runtime.py        device resolution (cuda, or cpu only when asked) and
                     the card's datasheet spec table
   core/             the native clock and CUDA-event timing; Records and
-                    markers
+                    markers; the three config tiers (defaults <
+                    TPU_PATTERNS_<FIELD> < CLI)
   models/           params, q/k/v, RoPE, int8 KV, MLP, attention, the
                     dense per-request decoder (the exactness oracle), the
                     one-device train step, the flagship workload and
@@ -24,7 +25,11 @@ each TPU kernel on a ported path is a kernel written by hand for Hopper
                     one-device one-sided put with its four put kernels
                     (comm/csrc/local_put.cu, staging in bulk_copy.cuh),
                     the rank mesh, the ring collectives and the ring put
-                    kernel K9 (comm/csrc/ring_put.cu)
+                    kernel K9 (comm/csrc/ring_put.cu), the two-sided pair
+                    exchange and the hierarchical allreduce
+  topo/             topology discovery (the C++ planes core
+                    topo/csrc/topo.cc, built with g++ at first use), rank
+                    placement over the cards, the multi-process bootstrap
   miniapps/         the miniapp framework and the ring-allreduce app;
                     its pallas variant's accumulate kernel K5
                     (miniapps/apps/allreduce/csrc/accumulate.cu)
@@ -48,6 +53,6 @@ each TPU kernel on a ported path is a kernel written by hand for Hopper
   convert.py        numpy params/pools/fills from the JAX package ->
                     tensors (and params/grads back, as numpy)
   cli.py            ``python -m tpu_patterns_torch
-                    serve|flagship|train|ckpt|p2p|concurrency|
-                    allreduce|miniapps|interop``
+                    serve|flagship|train|ckpt|p2p|hier|topo|
+                    concurrency|allreduce|miniapps|interop``
 """

@@ -11,6 +11,9 @@
         --variant pallas --algorithm ring_opt
     python -m tpu_patterns_torch miniapps --device cuda --devices 4
     python -m tpu_patterns_torch p2p --transport one_sided --devices 4
+    python -m tpu_patterns_torch p2p --devices 2 --placement spread
+    python -m tpu_patterns_torch hier --devices 4 --dcn 2
+    python -m tpu_patterns_torch topo [N]
     python -m tpu_patterns_torch interop --device cuda
     python -m tpu_patterns_torch train --device cuda --attn kernel \
         --ckpt_dir ckpts --ckpt_every 2 --steps 8
@@ -20,19 +23,25 @@ One flag per field of the subcommand's config
 (:class:`~tpu_patterns_torch.serve.engine.ServeConfig`,
 :class:`~tpu_patterns_torch.models.flagship.FlagshipConfig`,
 :class:`~tpu_patterns_torch.models.train_loop.TrainLoopConfig`), named as
-in ``tpu-patterns serve`` / ``flagship`` / ``train``; ``--paged_attn``
+in ``tpu-patterns serve`` / ``flagship`` / ``train``, whose default is
+the field's unless ``TPU_PATTERNS_<FIELD>`` is set (``core/config.py``:
+CLI > environment > default); ``--paged_attn``
 and ``--attn`` take ``kernel|dense`` (``train`` also the JAX package's
 ``xla``, read as ``dense``) and ``--device`` names the device.
 ``ckpt DIR [--leaves]`` prints a checkpoint directory's steps (and leaf
 table) in the lines of ``tpu-patterns ckpt``.
-``p2p`` takes the flags of ``tpu-patterns p2p`` that the one-sided
-put uses (:class:`~tpu_patterns_torch.comm.onesided.OneSidedConfig`,
-``--transport``, ``--put-kernel``, ``--chunks``, ``--block-rows``,
-``--devices``);
+``p2p`` takes the flags of ``tpu-patterns p2p``
+(:class:`~tpu_patterns_torch.comm.p2p.P2PConfig`, ``--transport``:
+``two_sided``, the pair exchange, or ``one_sided``, the put; ``--put-kernel``,
+``--chunks``, ``--block-rows``, ``--devices``, ``--placement``,
+``--mechanism``); ``hier`` those of ``tpu-patterns hier``
+(:class:`~tpu_patterns_torch.comm.hierarchical.HierConfig`,
+``--devices``); ``topo [N]`` prints the fabric probe's lines;
 ``concurrency`` those of ``tpu-patterns concurrency``
 (:class:`~tpu_patterns_torch.concurrency.harness.ConcurrencyConfig`,
 repeatable ``--commands``, ``--no_tuning``); ``allreduce`` and
-``miniapps`` those of ``tpu-patterns allreduce`` and ``miniapps``;
+``miniapps`` those of ``tpu-patterns allreduce`` (with ``--placement``
+and ``--mechanism``) and ``miniapps``;
 ``interop`` (the native C++ round trips, no flag of the reference's) only
 ``--device``.
 ``--devices N`` is the rank count (≙ ``mpirun -n N``, 0 = one rank per
@@ -49,8 +58,8 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import sys
-import typing
 
+from tpu_patterns_torch.core.config import _coerce, add_config_args
 from tpu_patterns_torch.core.results import ResultWriter
 
 # `tpu-patterns <cmd>` flags whose machinery is not ported yet (the
@@ -88,13 +97,13 @@ def _bool(s: str) -> bool:
     raise argparse.ArgumentTypeError(f"not a boolean: {s!r}")
 
 
-def _opt_int(s: str) -> int | None:
-    return None if s.strip().lower() in ("", "none") else int(s)
+def _coerce_strict(field_type, raw: str):
+    """``core/config.py``'s coercion, except that a word that is no
+    boolean is refused rather than read as False."""
+    return _bool(raw) if field_type is bool else _coerce(field_type, raw)
 
 
-# `tpu-patterns p2p` flags of the placement (topo/) and the pair exchange
-_NOT_PORTED_P2P = ("placement", "mechanism", "bidirectional")
-_NOT_PORTED_MESH = ("placement", "mechanism")
+# the P2PConfig fields that the one-sided put's config shares
 _P2P_FIELDS = ("count", "dtype", "reps", "warmup", "min_bandwidth", "seed")
 
 _CHOICES = {
@@ -107,26 +116,35 @@ _CHOICES = {
 
 def _add_config_flags(p: argparse.ArgumentParser, cls, not_ported,
                       skip=()) -> None:
-    """One ``--<field>`` per dataclass field of ``cls`` not in ``skip``,
-    and a refusing flag for each name in ``not_ported``."""
-    hints = typing.get_type_hints(cls)
-    for f in dataclasses.fields(cls):
-        if f.name in skip:
-            continue
-        ftype = hints[f.name]
-        kw: dict = {"default": f.default}
-        if ftype is bool:
-            kw.update(type=_bool, metavar="BOOL")
-        elif ftype == (int | None):
-            kw.update(type=_opt_int, metavar="INT|none")
-        else:
-            kw["type"] = ftype
-        if f.name in _CHOICES or "choices" in f.metadata:
-            kw["choices"] = f.metadata.get("choices", _CHOICES.get(f.name))
-        p.add_argument("--" + f.name, **kw, help=f"(default: {f.default})")
+    """One ``--<field>`` per dataclass field of ``cls`` not in ``skip``
+    (default: ``TPU_PATTERNS_<FIELD>`` when set, else the field's), and a
+    refusing flag for each name in ``not_ported``."""
+    add_config_args(p, cls, skip=skip, choices=_CHOICES,
+                    coerce=_coerce_strict)
     for name in not_ported:
         p.add_argument("--" + name, nargs="?", action=_NotPorted,
                        help=argparse.SUPPRESS)
+
+
+def _add_mesh_args(p: argparse.ArgumentParser) -> None:
+    from tpu_patterns_torch.topo.placement import Mechanism, PlacementMode
+
+    p.add_argument("--devices", type=int, default=0,
+                   help="ranks (0 = one per card) — ≙ mpirun -n N")
+    p.add_argument("--placement", choices=[m.value for m in PlacementMode],
+                   default="compact", help="rank->device order")
+    p.add_argument("--mechanism", choices=[m.value for m in Mechanism],
+                   default="mesh",
+                   help="ordering (mesh ≙ affinity mask) vs subset "
+                   "(visible ≙ selector)")
+    p.add_argument("--device", choices=_CHOICES["device"], default="cuda")
+
+
+def _mesh(args):
+    from tpu_patterns_torch.topo.placement import make_mesh
+
+    return make_mesh(args.devices, args.placement, args.mechanism,
+                     args.device)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -170,8 +188,13 @@ def build_parser() -> argparse.ArgumentParser:
                     help="print the per-leaf table")
     _add_p2p_flags(sub.add_parser(
         "p2p",
-        help="one-sided put bandwidth on one device (the local put) with "
-        "the CUDA put kernels",
+        help="pair-exchange bandwidth over a rank mesh (two_sided), or the "
+        "one-sided put with the CUDA put kernels (one_sided)",
+    ))
+    _add_hier_flags(sub.add_parser(
+        "hier",
+        help="hierarchical allreduce (inner tier, then outer) against the "
+        "flat one over a rank mesh",
     ))
     _add_concurrency_flags(sub.add_parser(
         "concurrency",
@@ -190,6 +213,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="0 = app default")
     m.add_argument("--reps", type=int, default=3)
     m.add_argument("--device", choices=_CHOICES["device"], default="cuda")
+    t = sub.add_parser("topo", help="fabric probe (≙ ./topology [N])")
+    t.add_argument("n", nargs="?", type=int, default=None)
+    t.add_argument("--device", choices=_CHOICES["device"], default="cuda")
     i = sub.add_parser("interop", help="native C++ round-trip proofs")
     i.add_argument("--device", choices=_CHOICES["device"], default="cuda",
                    help="device of the offload round trips (the native "
@@ -200,11 +226,9 @@ def build_parser() -> argparse.ArgumentParser:
 def _add_allreduce_flags(p: argparse.ArgumentParser) -> None:
     from tpu_patterns_torch.miniapps.apps.allreduce import AllreduceConfig
 
-    _add_config_flags(p, AllreduceConfig, _NOT_PORTED_MESH)
+    _add_config_flags(p, AllreduceConfig, ())
     p.add_argument("--variant", choices=("xla", "pallas"), default="xla")
-    p.add_argument("--devices", type=int, default=0,
-                   help="ranks (0 = one per card) — ≙ mpirun -n N")
-    p.add_argument("--device", choices=_CHOICES["device"], default="cuda")
+    _add_mesh_args(p)
 
 
 def _world_skip(writer: ResultWriter, pattern: str, mode: str, n: int,
@@ -230,7 +254,6 @@ def _ranks(devices: int, device: str) -> int:
 
 
 def _allreduce(args, writer: ResultWriter) -> None:
-    from tpu_patterns_torch.comm.mesh import default_mesh
     from tpu_patterns_torch.miniapps.framework import get_variant
 
     spec = get_variant("allreduce", args.variant)
@@ -250,7 +273,7 @@ def _allreduce(args, writer: ResultWriter) -> None:
         )
         return
     spec.run(
-        mesh=default_mesh(n, args.device),
+        mesh=_mesh(args),
         dtype=args.dtype,
         writer=writer,
         elements=args.elements,
@@ -378,18 +401,16 @@ def _concurrency(args, writer: ResultWriter) -> None:
 
 
 def _add_p2p_flags(p: argparse.ArgumentParser) -> None:
-    from tpu_patterns_torch.comm.onesided import KERNELS, OneSidedConfig
+    from tpu_patterns_torch.comm.onesided import KERNELS
+    from tpu_patterns_torch.comm.p2p import P2PConfig
 
-    hints = typing.get_type_hints(OneSidedConfig)
-    for f in dataclasses.fields(OneSidedConfig):
-        if f.name in _P2P_FIELDS:
-            p.add_argument("--" + f.name, type=hints[f.name],
-                           default=f.default, help=f"(default: {f.default})")
+    _add_config_flags(p, P2PConfig, ())
     p.add_argument(
         "--transport", choices=("two_sided", "one_sided"),
         default="two_sided",
-        help="one_sided: the one-device put; two_sided: the pair exchange, "
-        "which needs an even device count >= 2 and is not ported",
+        help="two_sided: the pair exchange (even ranks to odd, then both "
+        "ways), which needs an even rank count >= 2; one_sided: the "
+        "one-device put, or the ring put over more ranks",
     )
     p.add_argument(
         "--put-kernel", choices=KERNELS, default="auto",
@@ -404,36 +425,92 @@ def _add_p2p_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--block-rows", type=int, default=None,
                    help="streamed: rows per shared-memory stage (default: "
                    "comm/tuned.json, else 1024)")
-    p.add_argument("--devices", type=int, default=0,
-                   help="ranks (0 = one per card) — ≙ mpirun -n N; with "
-                   "more than one, one_sided runs the ring put (K9)")
-    p.add_argument("--device", choices=_CHOICES["device"], default="cuda")
-    for name in _NOT_PORTED_P2P:
-        p.add_argument("--" + name, nargs="?", action=_NotPorted,
-                       help=argparse.SUPPRESS)
+    _add_mesh_args(p)
 
 
-def _p2p(args, parser, writer: ResultWriter) -> None:
-    """``tpu-patterns p2p``: the one-sided put (the local put on one
-    rank, the ring put over more), or the reference's SKIPPED Record for
-    the pair exchange."""
-    from tpu_patterns_torch.comm.mesh import default_mesh
+def _p2p(args, writer: ResultWriter) -> None:
+    """``tpu-patterns p2p``: the pair exchange over the placed ranks
+    (the reference's SKIPPED Record on an odd count or fewer than 2), or
+    the one-sided put (the local put on one rank, the ring put over
+    more)."""
     from tpu_patterns_torch.comm.onesided import OneSidedConfig, run_onesided
+    from tpu_patterns_torch.comm.p2p import P2PConfig, run_p2p
 
     n = _ranks(args.devices, args.device)
-    if args.transport == "two_sided":
-        if n >= 2 and n % 2 == 0:
-            parser.error("p2p --transport two_sided on more than one device "
-                         "is not supported yet (ROADMAP.md)")
+    if args.transport == "two_sided" and (n < 2 or n % 2):
         _world_skip(writer, "p2p", "two_sided", n,
                     f"p2p needs an even device count >= 2, have {n}")
+        return
+    mesh = _mesh(args)
+    fields = {k: getattr(args, k) for k in _P2P_FIELDS}
+    if args.transport == "two_sided":
+        run_p2p(mesh, P2PConfig(bidirectional=args.bidirectional, **fields),
+                writer)
         return
     tuned = {k: v for k, v in (("chunks", args.chunks),
                                ("block_rows", args.block_rows))
              if v is not None}
-    cfg = OneSidedConfig(kernel=args.put_kernel, **tuned,
-                         **{k: getattr(args, k) for k in _P2P_FIELDS})
-    run_onesided(cfg, writer, mesh=default_mesh(n, args.device))
+    run_onesided(OneSidedConfig(kernel=args.put_kernel, **tuned, **fields),
+                 writer, mesh=mesh)
+
+
+def _add_hier_flags(p: argparse.ArgumentParser) -> None:
+    from tpu_patterns_torch.comm.hierarchical import HierConfig
+
+    _add_config_flags(p, HierConfig, ())
+    # no placement flags: the (dcn, ici) split is the placement
+    p.add_argument("--devices", type=int, default=0,
+                   help="ranks (0 = one per card)")
+    p.add_argument("--device", choices=_CHOICES["device"], default="cuda")
+
+
+def _hier(args, writer: ResultWriter) -> None:
+    """``tpu-patterns hier`` with the reference's world checks, except
+    that ranks may share a card (``--devices`` counts ranks)."""
+    from tpu_patterns_torch.comm.hierarchical import (
+        HierConfig,
+        detect_hierarchy,
+        run_hierarchical,
+    )
+    from tpu_patterns_torch.comm.mesh import default_mesh
+
+    n = _ranks(args.devices, args.device)
+    mesh = default_mesh(n, args.device)
+    if args.dcn == 0:
+        # an unequal grouping is a world-shape constraint: a skip
+        try:
+            detect_hierarchy(list(mesh.devices))
+        except ValueError as e:
+            _world_skip(writer, "hierarchical", "hier", n, str(e))
+            return
+    elif args.dcn < 1 or n % args.dcn or n // args.dcn < 2:
+        _world_skip(writer, "hierarchical", "hier", n,
+                    f"need dcn|{n} and ici >= 2, have dcn={args.dcn}")
+        return
+    run_hierarchical(mesh, _config(HierConfig, args), writer)
+
+
+def _topo(args) -> None:
+    """The fabric probe, in the lines of ``tpu-patterns topo``
+    (``tpu_patterns/cli.py:752-775``)."""
+    from tpu_patterns_torch.comm.hierarchical import detect_hierarchy
+    from tpu_patterns_torch.topo.placement import PlacementMode, order_devices
+    from tpu_patterns_torch.topo.topology import discover, local_devices
+
+    devices = local_devices(args.device)
+    topo = discover(devices)
+    if args.n is not None:
+        print(topo.entry(args.n))
+        return
+    print(topo.describe())
+    for mode in PlacementMode:
+        print(f"placement {mode.value}: {order_devices(topo, mode)}")
+    try:
+        n_groups, _ = detect_hierarchy(devices)
+        print(f"hierarchy: {n_groups} slice group(s) "
+              f"({len(devices)} devices)")
+    except ValueError as e:
+        print(f"hierarchy: irregular ({e})")
 
 
 def _train(args, parser, writer: ResultWriter) -> None:
@@ -497,7 +574,11 @@ def main(argv: list[str] | None = None) -> int:
     if args.cmd == "serve":
         run_serve(_config(ServeConfig, args), writer)
     elif args.cmd == "p2p":
-        _p2p(args, parser, writer)
+        _p2p(args, writer)
+    elif args.cmd == "hier":
+        _hier(args, writer)
+    elif args.cmd == "topo":
+        _topo(args)
     elif args.cmd == "concurrency":
         _concurrency(args, writer)
     elif args.cmd == "allreduce":

@@ -1,5 +1,6 @@
 """Communication patterns (counterpart of ``tpu_patterns/comm``): the
-one-sided puts and the ring over a rank mesh.
+one-sided puts, the ring, the pair exchange and the hierarchical
+allreduce over a rank mesh.
 
   dtypes.py     config dtype names -> torch dtypes, itemsize, modulus
   verify.py     shuffled-iota fill and the exact wrapped checksum
@@ -9,6 +10,10 @@ one-sided puts and the ring over a rank mesh.
   onesided.py   the four local put kernels' wrappers and the ring put's
                 (K9), their plain versions and ``run_onesided``
                 (csrc/local_put.cu, csrc/ring_put.cu: the kernels)
+  p2p.py        the two-sided pair exchange (ppermute's semantics),
+                ``run_p2p``
+  hierarchical.py  flat and hierarchical (inner, then outer tier)
+                allreduce, ``run_hierarchical``
 """
 
 from tpu_patterns_torch.comm.dtypes import DTYPES, get_dtype  # noqa: F401

@@ -8,12 +8,13 @@ array (rank r's tensor is shard r).  Ring code (``comm/ring.py``,
 
 One deliberate difference from the reference: its ``default_mesh``
 (``miniapps/framework.py``) and ``_build_mesh`` (``cli.py``) raise when
-asked for more ranks than devices.  Here ranks are placed compactly over
-the visible cards, several to a card where there are more ranks than
-cards, as an MPI launch places several ranks on one GPU.  Ranks that
-share a card run their work one after another on its current stream, and
-a ring step between them is a copy in that card's memory, not a transfer
-over a fabric; :meth:`RankMesh.note` says so in each Record.
+asked for more ranks than devices.  Here ranks are placed over the
+visible cards (``topo/placement.py``), several to a card where there are
+more ranks than cards, as an MPI launch places several ranks on one
+GPU.  Ranks that share a card run their work one after another on its
+current stream, and a ring step between them is a copy in that card's
+memory, not a transfer over a fabric; :meth:`RankMesh.note` says so in
+each Record.
 """
 
 from __future__ import annotations
@@ -134,18 +135,14 @@ class RankMesh:
 
 def default_mesh(n: int = 0, device: torch.device | str | None = None
                  ) -> RankMesh:
-    """``n`` ranks placed compactly over the visible cards: rank r on
-    card ``r * g // n`` of g; ``n = 0`` means one rank per card.  On
-    ``device="cpu"`` every rank is on the CPU (``n = 0``: one rank)."""
-    dev = resolve_device(device)
-    g = torch.cuda.device_count() if dev.type == "cuda" else 1
-    n = n or g
-    if n < 1:
-        raise ValueError(f"need at least one rank, got {n}")
-    if dev.type == "cpu":
-        return RankMesh(tuple(torch.device("cpu") for _ in range(n)))
-    return RankMesh(tuple(torch.device("cuda", r * g // n)
-                          for r in range(n)))
+    """``n`` ranks placed compactly over the visible cards
+    (``topo/placement.py::make_mesh`` at compact/mesh): the first n cards
+    up to one rank a card, else rank r on card ``r * g // n`` of g;
+    ``n = 0`` means one rank per card.  On ``device="cpu"`` every rank
+    is on the CPU (``n = 0``: one rank)."""
+    from tpu_patterns_torch.topo.placement import make_mesh
+
+    return make_mesh(n, device=device)
 
 
 def fresh_like(t: torch.Tensor) -> torch.Tensor:

@@ -1,2 +1,3 @@
-"""Host layer: timing (clocks, device barrier, CUDA events) and results
-(Record, Verdict, ResultWriter)."""
+"""Host layer: timing (clocks, device barrier, CUDA events), results
+(Record, Verdict, ResultWriter) and config (defaults < environment <
+CLI)."""
