@@ -15,10 +15,11 @@ loop with its checkpoints (slice B), the one-device
 one-sided put (slice C), the concurrency suite (slice D), the ring
 (the allreduce miniapp and the ring put over a rank mesh of four ranks
 on the one card), the interop slice (the native C++ module and the
-kernel whose output it reads in place), and the rest of the P2P suite
+kernel whose output it reads in place), the rest of the P2P suite
 (topology, placement, the pair exchange, the hierarchical allreduce and
-the environment tier of the CLI).  Phases, each one or more
-printed lines:
+the environment tier of the CLI), and the load generator over the serve
+path (seeded sampling, SLO Records, chaos under load).  Phases, each
+one or more printed lines:
 
 1. device and toolchain: torch/CUDA versions, ``nvcc --version``, and the
    card's name and power limit as ``nvidia-smi`` reports them;
@@ -228,9 +229,31 @@ printed lines:
     2`` and ``--dcn 0`` (flat and hier SUCCESS); ``allreduce --devices
     4`` compact and spread (the same ``validated``); and ``p2p`` under
     ``TPU_PATTERNS_REPS=3`` (the run's reps 3, a flag's 4 beating it);
-14. the card's name and power limit again, the ``kernels`` line (the
-    flash rows also carry ``train_loop_launches``, phase 8b's counts),
-    then the device line, which is the last.
+14. the load generator on the serve path (``loadgen/``) at the serve
+    model's width (vocab 2048, embed 1024, 8 heads x 128, depth 4, 8
+    slots, block_len 16, attention through K1) in float32 with TF32 off:
+    a throwaway run of ``chat:requests=8`` and ``chat-sampled:requests=8``
+    first (``warmup``: the decode and sampling paths' first launches),
+    then each of
+    the five presets (chat, rag, batch-summarize, agentic, chat-sampled)
+    at ``time_scale`` 1 under its own SLO, each a ``run_loadgen`` of its
+    own: every Record SUCCESS (goodput 1.0, nothing lost), cost
+    identities closed, K1 launched (its count set to 0 just before each
+    run, read just after, with the width of every launch), and
+    ``chat-sampled``'s ids equal to the fixed-seed oracle's; ``chat``
+    also under ``loadgen.arrive:error:after=2:count=1``, whose chaos
+    Record must read WARNING (an arrival dropped and healed, the
+    reference's verdict) with one drop and the trace covered;
+    ``chat-sampled`` again at ``spec_k`` 4 (oracle-exact, K1 at W = 5);
+    ``chat-sampled`` in bfloat16 with its id flips against the oracle
+    reported, not gated; ``chat:requests=16`` under torch.profiler (device
+    activity only) for the device's idle share; and the ``loadgen`` CLI (embed 256, head_dim
+    32); each leg's TTFT, TPOT
+    and e2e p50/p99, goodput, tokens and wall time;
+15. the card's name and power limit again, the ``kernels`` line (the
+    flash rows also carry ``train_loop_launches``, phase 8b's counts,
+    and K1's row ``loadgen_launches``, phase 14's by scenario), then the
+    device line, which is the last.
 """
 
 from __future__ import annotations
@@ -1013,29 +1036,12 @@ def serve_leg(torch, eng_mod, name, cfg, gate_flips=True):
 
 def _launch_widths(torch, eng_mod, pk, decoder, params, trace, slots, **kw):
     """The width W of every K1 launch of one run of ``trace`` through a
-    fresh engine (``kw``: ``spec_k``, ``prefix_share``), as {W: count}:
-    the module's ``paged_block`` is swapped for a recorder for the run,
-    and the launches it counts are handed back after."""
-    import collections
-
-    widths = collections.Counter()
-    launch = pk.paged_block
-
-    def recording(q, *a, **k):
-        widths[q.shape[1]] += 1
-        return launch(q, *a, **k)
-
-    # the kernel's wrapper counts into the module's paged_block, the
-    # recorder while it stands there
-    recording.launches = launch.launches
-    pk.paged_block = recording
-    try:
+    fresh engine (``kw``: ``spec_k``, ``prefix_share``), as {W: count}
+    (``_k1_widths``)."""
+    with _k1_widths(pk) as widths:
         eng_mod.ServeEngine(decoder, params, slots=slots, **kw).run(
             [dataclasses.replace(r) for r in trace])
         torch.cuda.synchronize()
-    finally:
-        pk.paged_block = launch
-        launch.launches = recording.launches
     return dict(widths)
 
 
@@ -3022,6 +3028,245 @@ def phase_p2p_suite(torch, spec):
     return rows
 
 
+# -- phase 14: the load generator on the serve path -------------------------
+
+# the serve model's width (FULL_WIDTH's LoadGenConfig fields)
+LOADGEN_WIDTH = dict(
+    vocab=2048, embed=1024, heads=8, head_dim=128, mlp_mult=4, depth=4,
+    rope=True, slots=8, block_len=16, paged_attn="kernel", device=DEVICE,
+    dtype="float32",
+)
+LOADGEN_PRESETS = ("chat", "rag", "batch-summarize", "agentic",
+                   "chat-sampled")
+LOADGEN_CHAOS = "loadgen.arrive:error:after=2:count=1"
+
+
+@contextlib.contextmanager
+def _k1_widths(pk):
+    """{W: launches} of every K1 launch inside the block: the module's
+    ``paged_block`` is swapped for a recorder, and the launches it
+    counts are handed back after."""
+    import collections
+
+    widths = collections.Counter()
+    launch = pk.paged_block
+
+    def recording(q, *a, **k):
+        widths[q.shape[1]] += 1
+        return launch(q, *a, **k)
+
+    # the kernel's wrapper counts into the module's paged_block, the
+    # recorder while it stands there
+    recording.launches = launch.launches
+    pk.paged_block = recording
+    try:
+        yield widths
+    finally:
+        pk.paged_block = launch
+        launch.launches = recording.launches
+
+
+def _loadgen_run(torch, pk, lg, **kw):
+    """``run_loadgen`` at the serve model's width with ``kw``: its
+    Records and K1's launches in the run (count set to 0 just before,
+    read just after) by width."""
+    cfg = lg.LoadGenConfig(**{**LOADGEN_WIDTH, **kw})
+    pk.paged_block.launches = 0
+    t0 = time.perf_counter()
+    with _k1_widths(pk) as widths:
+        recs = lg.run_loadgen(cfg, lg_writer())
+        torch.cuda.synchronize()
+    return recs, pk.paged_block.launches, dict(widths), \
+        time.perf_counter() - t0
+
+
+def lg_writer():
+    """A ResultWriter whose markers stay out of the smoke's output."""
+    from tpu_patterns_torch.core.results import ResultWriter
+
+    return ResultWriter(stream=io.StringIO())
+
+
+_LG_KEYS = ("goodput", "ttft_p50_ms", "ttft_p99_ms", "tpot_p50_ms",
+            "tpot_p99_ms", "e2e_p50_ms", "e2e_p99_ms", "tokens", "requests",
+            "done", "dropped", "deferrals", "sampled_exact",
+            "cost_identity_ok", "cost_decode_ms", "cost_prefill_ms")
+
+
+def _lg_row(rec, **extra) -> dict:
+    return {"phase": "loadgen", "mode": rec.mode,
+            "verdict": rec.verdict.value,
+            **{k: rec.metrics[k] for k in _LG_KEYS if k in rec.metrics},
+            **extra}
+
+
+def loadgen_bf16_flips(torch, lg, runner):
+    """``chat-sampled`` served in bfloat16 and held to the fixed-seed
+    oracle, reported and not gated: the engine's batched bf16 matmuls
+    and the oracle's batch-1 ones round differently, so a draw whose
+    Gumbel-perturbed top two lie within that rounding can flip."""
+    from tpu_patterns_torch.loadgen import build_schedule
+    from tpu_patterns_torch.serve.engine import _oracle_expected
+
+    t_leg = time.perf_counter()
+    cfg = lg.LoadGenConfig(**{**LOADGEN_WIDTH, "dtype": "bfloat16",
+                              "scenarios": ("chat-sampled",)})
+    (spec,) = runner._resolved_specs(cfg)
+    mcfg, decoder, params = runner.build_loadgen(cfg, [spec])
+    sched = build_schedule(spec, vocab=cfg.vocab, seed=cfg.seed)
+    eng, source, wall_s = runner._drive(decoder, params, cfg, spec, sched)
+    want = _oracle_expected(mcfg, cfg.vocab, params,
+                            [tr.request for tr in sched],
+                            max_prompt=spec.max_prompt, max_gen=spec.max_gen)
+    flips = []
+    for rid, ids in sorted(eng.done.items()):
+        if ids != want[rid]:
+            step = next(i for i, (a, b) in enumerate(zip(ids, want[rid]))
+                        if a != b)
+            flips.append({"rid": rid, "step": step, "tokens": len(ids)})
+    row = {"phase": "loadgen", "leg": "bf16_chat-sampled",
+           "requests": len(sched), "done": len(eng.done),
+           "oracle_equal": len(eng.done) - len(flips), "oracle_flips": flips,
+           "wall_s": wall_s, "leg_seconds": time.perf_counter() - t_leg,
+           "cost_identity_ok": all(
+               eng.cost.snapshot()[k] for k in
+               ("decode_identity_ok", "prefill_identity_ok",
+                "conservation_ok"))}
+    emit(row)
+    if len(eng.done) != len(sched) or not row["cost_identity_ok"]:
+        raise AssertionError("loadgen bf16 leg: a request was lost or the "
+                             "cost identities broke")
+
+
+def loadgen_profile(torch, lg, runner, timing):
+    """``chat`` at half its requests (16) under torch.profiler: the
+    device's busy and idle share of the run's host wall (the profiler's
+    overhead in it), K1's share of busy time and the top device kernels.
+    Device activity alone is traced, at half the scenario: gathering a
+    whole one's ~74,000 kernel events took ~30 s, more than the run."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu_patterns_torch.loadgen import build_schedule
+
+    t_leg = time.perf_counter()
+    cfg = lg.LoadGenConfig(**{**LOADGEN_WIDTH,
+                              "scenarios": ("chat:requests=16",)})
+    (spec,) = runner._resolved_specs(cfg)
+    _, decoder, params = runner.build_loadgen(cfg, [spec])
+    sched = build_schedule(spec, vocab=cfg.vocab, seed=cfg.seed)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = timing.clock_ns()
+        eng, _, _ = runner._drive(decoder, params, cfg, spec, sched)
+        torch.cuda.synchronize()
+        wall_s = (timing.clock_ns() - t0) / 1e9
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and dev_us(e) > 0]
+    busy_s = sum(dev_us(e) for e in events) / 1e6
+    if busy_s <= 0:
+        raise AssertionError("the loadgen profile holds no device time")
+    k1_s = sum(dev_us(e) for e in events
+               if "paged_attention" in e.key) / 1e6
+    top = sorted(events, key=dev_us, reverse=True)[:6]
+    emit({"phase": "loadgen_profile", "scenario": spec.name,
+          "wall_s": wall_s, "device_busy_s": busy_s,
+          "device_idle_share": 1 - busy_s / wall_s,
+          "paged_attention_share_of_busy": k1_s / busy_s,
+          "device_kernels": sum(e.count for e in events),
+          "decode_steps": eng.stats["steps"],
+          "top_device": [{"name": e.key[:60], "ms": dev_us(e) / 1e3,
+                          "calls": e.count} for e in top],
+          "leg_seconds": time.perf_counter() - t_leg})
+
+
+def phase_loadgen(torch, pk, timing):
+    """Phase 14 (module docstring).  Returns K1's launches by scenario."""
+    from tpu_patterns_torch import loadgen as lg
+    from tpu_patterns_torch.loadgen import runner
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # throwaway: the first launches of the decode and sampling paths
+    recs, launches, _, wall = _loadgen_run(
+        torch, pk, lg, scenarios=("chat:requests=8",
+                                  "chat-sampled:requests=8"))
+    emit({"phase": "loadgen", "leg": "warmup", "seconds": wall,
+          "verdicts": [r.verdict.value for r in recs],
+          "kernel_launches": launches})
+    bad = []
+    by_scenario = {}
+    for name in LOADGEN_PRESETS:
+        kw = {"scenarios": (name,)}
+        if name == "chat":
+            kw["chaos"] = LOADGEN_CHAOS
+        recs, launches, widths, wall = _loadgen_run(torch, pk, lg, **kw)
+        by_scenario[name] = launches
+        clean = recs[0]
+        emit(_lg_row(clean, kernel_launches=launches, launch_widths=widths,
+                     wall_s=wall))
+        if clean.verdict.value != "SUCCESS":
+            bad.append(f"{clean.mode} {clean.verdict.value}: "
+                       + "; ".join(clean.notes))
+        if clean.metrics["cost_identity_ok"] != 1.0:
+            bad.append(f"{clean.mode}: cost identities broke")
+        if launches <= 0 or set(widths) != {1}:
+            bad.append(f"{clean.mode}: K1 launches {launches} at {widths}")
+        if name == "chat-sampled" and clean.metrics["sampled_exact"] != 1.0:
+            bad.append(f"{clean.mode}: sampled ids left the oracle")
+        if name == "chat":
+            chaos = recs[1]
+            m = chaos.metrics
+            emit({"phase": "loadgen", "mode": chaos.mode,
+                  "verdict": chaos.verdict.value, **m})
+            # a dropped arrival heals: the reference's verdict is WARNING
+            if (chaos.verdict.value != "WARNING" or m["dropped"] != 1
+                    or m["covered"] != 1 or m["injected"] < 1
+                    or m["done"] + m["failed"] + m["dropped"]
+                    != m["requests"]):
+                bad.append(f"{chaos.mode} {chaos.verdict.value}: {m}")
+    recs, launches, widths, wall = _loadgen_run(
+        torch, pk, lg, scenarios=("chat-sampled",), spec_k=SPEC_K)
+    rec = recs[0]
+    by_scenario[f"chat-sampled spec_k{SPEC_K}"] = launches
+    emit(_lg_row(rec, spec_k=SPEC_K, kernel_launches=launches,
+                 launch_widths=widths, wall_s=wall))
+    if (rec.verdict.value != "SUCCESS"
+            or rec.metrics["sampled_exact"] != 1.0
+            or rec.metrics["cost_identity_ok"] != 1.0
+            or widths.get(SPEC_K + 1, 0) <= 0):
+        bad.append(f"spec_k {SPEC_K} {rec.mode} {rec.verdict.value}: "
+                   f"{rec.metrics['sampled_exact']}, widths {widths}; "
+                   + "; ".join(rec.notes))
+    loadgen_bf16_flips(torch, lg, runner)
+    loadgen_profile(torch, lg, runner, timing)
+    # the CLI at a small width K1 takes (head_dim 32)
+    t_leg = time.perf_counter()
+    rc, _, cli_recs = _cli_in_process(
+        ["loadgen", "--device", "cuda", "--scenarios",
+         "chat:requests=8,chat-sampled:requests=8", "--time_scale", "0.25",
+         "--embed", "256", "--head_dim", "32"])
+    emit({"phase": "loadgen_cli", "rc": rc,
+          "modes": [r["mode"] for r in cli_recs],
+          "verdicts": [r["verdict"] for r in cli_recs],
+          "leg_seconds": time.perf_counter() - t_leg})
+    if rc != 0 or [r["verdict"] for r in cli_recs] != ["SUCCESS"] * 2:
+        bad.append(f"loadgen CLI rc {rc}")
+    emit({"phase": "loadgen_phase", "seconds": time.perf_counter() - t_phase,
+          "k1_launches": by_scenario,
+          "card": _run(["nvidia-smi", "--query-gpu=name,power.limit",
+                        "--format=csv,noheader"]).strip().splitlines()[0]})
+    if bad:
+        raise AssertionError("loadgen: " + " | ".join(bad))
+    return by_scenario
+
+
 def profile_concurrency_main() -> int:
     """``python3 chip_smoke.py --profile-concurrency``, which the smoke
     runs in a process of its own: the xla concurrent "C C" run, the
@@ -3096,11 +3341,15 @@ def profile_concurrency_main() -> int:
 # the timing phases ``--tree`` runs with another checkout's package
 TREE_PHASES = ("put_time", "ring_put_time", "accumulate_time",
                "allreduce", "add_one_time")
+# phases ``--tree`` runs only when named: phase 14 on its own, and phase
+# 5's bf16 serve leg (a tree's serve tokens/s against another's)
+TREE_ONLY_NAMED = ("loadgen", "serve")
 
 
 def tree_main(tree: str, phases: list[str]) -> int:
     """``python3 chip_smoke.py --tree TREE [PHASE ...]``: the named
-    phases of :data:`TREE_PHASES` (default: all) with the package and
+    phases of :data:`TREE_PHASES` (default: all) or
+    :data:`TREE_ONLY_NAMED` with the package and
     kernels of the checkout at TREE (this one, or another unpacked under
     it), in a process of its own, so that two trees compare on one card
     in one call (run parent, change, change, parent).  Prints the card's
@@ -3112,10 +3361,11 @@ def tree_main(tree: str, phases: list[str]) -> int:
         print("chip_smoke: torch.cuda.is_available() is false",
               file=sys.stderr)
         return 2
-    unknown = set(phases) - set(TREE_PHASES)
+    unknown = set(phases) - set(TREE_PHASES) - set(TREE_ONLY_NAMED)
     if unknown:
         print(f"chip_smoke: no tree phase {sorted(unknown)}; "
-              f"choose from {TREE_PHASES}", file=sys.stderr)
+              f"choose from {TREE_PHASES + TREE_ONLY_NAMED}",
+              file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.abspath(tree))
     from tpu_patterns_torch.comm import onesided as op
@@ -3128,6 +3378,8 @@ def tree_main(tree: str, phases: list[str]) -> int:
     from tpu_patterns_torch.miniapps.apps import allreduce as ar
     from tpu_patterns_torch.miniapps.apps.allreduce import pallas as ap
     from tpu_patterns_torch.runtime import match_device_spec
+    from tpu_patterns_torch.serve import engine as eng_mod
+    from tpu_patterns_torch.serve import paged_kernel as pk
 
     spec = match_device_spec(torch.cuda.get_device_name(0))
     smi = _run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3145,7 +3397,12 @@ def tree_main(tree: str, phases: list[str]) -> int:
                torch, ap, ck, timing, spec),
            "allreduce": lambda: phase_allreduce(torch, ap, ar, fw),
            "add_one_time": lambda: phase_add_one_time(torch, k10, ck,
-                                                      timing, spec)}
+                                                      timing, spec),
+           "loadgen": lambda: phase_loadgen(torch, pk, timing),
+           "serve": lambda: serve_leg(torch, eng_mod, "bf16",
+                                      eng_mod.ServeConfig(
+                                          **FULL_WIDTH, dtype="bfloat16",
+                                          requests=16))}
     for name in phases or TREE_PHASES:
         run[name]()
     return 0
@@ -3370,6 +3627,7 @@ def main() -> int:
     phase_interop_cli()
     k10_time = phase_add_one_time(torch, k10, ck, timing, spec)
     phase_p2p_suite(torch, spec)
+    loadgen_launches = phase_loadgen(torch, pk, timing)
 
     rows = {**ftime, **ptime, "paged_attention": {
         "ms": ktime["kernel"]["ms"], "bound_ms": ktime["bound_ms"],
@@ -3412,6 +3670,7 @@ def main() -> int:
         "long_window_ms": klong["kernel"]["ms"],
         "long_window_share_of_bound": klong["share_of_bound"],
         "verify_launches": spec_leg["kernel_launches"],
+        "loadgen_launches": loadgen_launches,
     }]
     for kname, (source, replaces) in FLASH_KERNELS.items():
         row = ftime[kname]

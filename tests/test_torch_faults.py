@@ -4,9 +4,9 @@ The same spec text goes through both packages' ``parse_spec``; the same
 seeded ``p=``/``after=``/``count=`` spec fires on the same ordinals of
 the same calls; the retry policies give the same backoff schedules and
 the same retry, quarantine and re-raise behavior.  The port knows only
-the sites it has (``train.step``, ``ckpt.save``, ``ckpt.restore``): a
-spec naming any other site is refused at parse time, where the JAX
-package takes it."""
+the sites it has (``train.step``, ``ckpt.save``, ``ckpt.restore``,
+``loadgen.arrive``, ``obs.cost_book``): a spec naming any other site is
+refused at parse time, where the JAX package takes it."""
 
 import dataclasses
 
@@ -15,7 +15,8 @@ import pytest
 from tpu_patterns import faults as jf
 from tpu_patterns_torch import faults as tf
 
-PORT_SITES = {"train.step", "ckpt.save", "ckpt.restore"}
+PORT_SITES = {"train.step", "ckpt.save", "ckpt.restore", "loadgen.arrive",
+              "obs.cost_book"}
 
 SPECS = [
     "train.step:nan",

@@ -51,6 +51,10 @@ def test_import_pulls_no_jax():
         "import tpu_patterns_torch.topo, tpu_patterns_torch.topo.native\n"
         "import tpu_patterns_torch.comm.p2p, tpu_patterns_torch.core.config\n"
         "import tpu_patterns_torch.comm.hierarchical\n"
+        "import tpu_patterns_torch.loadgen, tpu_patterns_torch.obs\n"
+        "import tpu_patterns_torch.loadgen.runner\n"
+        "import tpu_patterns_torch.obs.slo, tpu_patterns_torch.obs.cost\n"
+        "import tpu_patterns_torch.models.prng\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'tpu_patterns')]\n"
         "assert not bad, bad\n"
@@ -67,6 +71,7 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
     from tpu_patterns_torch.comm.hierarchical import run_hierarchical
     from tpu_patterns_torch.comm.onesided import OneSidedConfig, run_onesided
     from tpu_patterns_torch.comm.p2p import run_p2p
+    from tpu_patterns_torch.loadgen import LoadGenConfig, run_loadgen
     from tpu_patterns_torch.concurrency import (
         ConcurrencyConfig,
         run_concurrency,
@@ -130,6 +135,11 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
         lambda: cli.main(["hier"]),
         lambda: cli.main(["topo"]),
         lambda: cli.main(["topo", "1"]),
+        lambda: run_loadgen(LoadGenConfig()),
+        lambda: cli.main(["loadgen"]),
+        lambda: cli.main(["serve", "--scenario", "chat"]),
+        lambda: make_paged_lm_decoder(cfg, 32, n_blocks=4, block_len=8,
+                                      max_len=16, sampling=True),
     ):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()

@@ -173,3 +173,39 @@ def test_cli_takes_or_refuses_every_reference_serve_flag():
         4, 1.5, True, 16, 0.25)
     assert not {"spec_k", "min_accepted", "prefix_share", "shared_prefix",
                 "min_block_savings"} & set(tcli._NOT_PORTED)
+    # the load generator's bridge and the burn monitor's flags are taken
+    moved = {"scenario": "chat:requests=4", "time_scale": "0.5",
+             "burn_mitigation": "spec_off", "slo_fast_s": "30",
+             "slo_slow_s": "120", "slo_budget": "0.2",
+             "burn_multiplier": "3"}
+    argv = ["serve"]
+    for name, value in moved.items():
+        argv += [f"--{name}", value]
+    args = tcli.build_parser().parse_args(argv)
+    assert (args.scenario, args.time_scale, args.burn_mitigation,
+            args.slo_fast_s, args.slo_slow_s, args.slo_budget,
+            args.burn_multiplier) == ("chat:requests=4", 0.5, "spec_off",
+                                      30.0, 120.0, 0.2, 3.0)
+    assert not set(moved) & set(tcli._NOT_PORTED)
+    with pytest.raises(SystemExit):
+        tcli.build_parser().parse_args(["serve", "--burn_mitigation", "x"])
+
+
+def test_cli_takes_or_refuses_every_reference_loadgen_flag():
+    """Each flag of the reference's ``loadgen`` is a port flag (the kv
+    tier's, preemption's, the live plane's and the watchdog's are then
+    refused with a message by ``validate_config``) or refused by the
+    parser (the mesh flags); the port adds only ``--device``."""
+    def flags(parser):
+        sub = next(a for a in parser._actions
+                   if isinstance(a, argparse._SubParsersAction))
+        return {a.dest for a in sub.choices["loadgen"]._actions
+                if a.dest != "help"}
+
+    ref = flags(jcli.build_parser())
+    port = flags(tcli.build_parser())
+    assert port - ref == {"device"}
+    assert ref <= port
+    for name in tcli._NOT_PORTED_FLAGSHIP:
+        with pytest.raises(SystemExit):
+            tcli.build_parser().parse_args(["loadgen", f"--{name}", "1"])

@@ -12,15 +12,22 @@ each TPU kernel on a ported path is a kernel written by hand for Hopper
                     markers; the three config tiers (defaults <
                     TPU_PATTERNS_<FIELD> < CLI)
   models/           params, q/k/v, RoPE, int8 KV, MLP, attention, the
-                    dense per-request decoder (the exactness oracle), the
-                    one-device train step, the flagship workload and
-                    the resumable training loop (models/train_loop.py)
+                    seeded per-row sampler (models/prng.py: threefry as
+                    jax.random draws it), the dense per-request decoder
+                    (the exactness oracle), the one-device train step,
+                    the flagship workload and the resumable training
+                    loop (models/train_loop.py)
   longctx/          dense attention twins, the flash tile model and the
                     flash-attention kernels (longctx/csrc/: forward, and
                     dq and dk/dv backward)
   serve/            paged pool, the fused paged-attention kernel
                     (serve/csrc/paged_attention.cu) and the
                     continuous-batching engine
+  loadgen/          scenario presets, seeded arrivals, the percentile
+                    sketch and the runner that drives the engine on the
+                    wall clock into SLO Records
+  obs/              the metrics registry, the SLO burn monitor and the
+                    cost book
   comm/             dtypes, the fill and checksum verifier, the
                     one-device one-sided put with its four put kernels
                     (comm/csrc/local_put.cu, staging in bulk_copy.cuh),
@@ -53,6 +60,6 @@ each TPU kernel on a ported path is a kernel written by hand for Hopper
   convert.py        numpy params/pools/fills from the JAX package ->
                     tensors (and params/grads back, as numpy)
   cli.py            ``python -m tpu_patterns_torch
-                    serve|flagship|train|ckpt|p2p|hier|topo|
+                    serve|loadgen|flagship|train|ckpt|p2p|hier|topo|
                     concurrency|allreduce|miniapps|interop``
 """

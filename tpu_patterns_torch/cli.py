@@ -3,6 +3,9 @@
     python -m tpu_patterns_torch serve --device cuda --embed 1024 \
         --head_dim 128 --depth 4 --dtype bfloat16 --vocab 2048 \
         --min_prompt 64 --max_prompt 512 --gen 64
+    python -m tpu_patterns_torch loadgen --device cuda \
+        --scenarios chat,chat-sampled --chaos loadgen.arrive:error:count=1
+    python -m tpu_patterns_torch serve --device cuda --scenario chat
     python -m tpu_patterns_torch flagship --device cuda
     python -m tpu_patterns_torch p2p --transport one_sided --device cuda
     python -m tpu_patterns_torch concurrency --device cuda \
@@ -21,11 +24,16 @@
 
 One flag per field of the subcommand's config
 (:class:`~tpu_patterns_torch.serve.engine.ServeConfig`,
+:class:`~tpu_patterns_torch.loadgen.runner.LoadGenConfig`,
 :class:`~tpu_patterns_torch.models.flagship.FlagshipConfig`,
 :class:`~tpu_patterns_torch.models.train_loop.TrainLoopConfig`), named as
-in ``tpu-patterns serve`` / ``flagship`` / ``train``, whose default is
+in ``tpu-patterns serve`` / ``loadgen`` / ``flagship`` / ``train``, whose
+default is
 the field's unless ``TPU_PATTERNS_<FIELD>`` is set (``core/config.py``:
-CLI > environment > default); ``--paged_attn``
+CLI > environment > default); ``loadgen`` and ``serve --scenario`` check
+the scenario and chaos specs (and refuse the unported kv tier,
+preemption, live plane and watchdog) before the model is built;
+``--paged_attn``
 and ``--attn`` take ``kernel|dense`` (``train`` also the JAX package's
 ``xla``, read as ``dense``) and ``--device`` names the device.
 ``ckpt DIR [--leaves]`` prints a checkpoint directory's steps (and leaf
@@ -68,9 +76,7 @@ _NOT_PORTED_FLAGSHIP = ("devices", "dp", "tp")
 _NOT_PORTED = (
     "devices", "dp", "tp", "watchdog_s", "snapshot_dir", "resume",
     "ids_out", "kv_host_tier", "session_dir", "host_tier_blocks",
-    "min_tier_speedup", "prefix_store", "scenario", "time_scale",
-    "obs_http", "burn_mitigation", "slo_fast_s", "slo_slow_s",
-    "slo_budget", "burn_multiplier", "preempt", "replicas",
+    "min_tier_speedup", "prefix_store", "obs_http", "preempt", "replicas",
     "replica_policy", "route_blocks", "min_replica_speedup",
     "replica_watchdog_s", "replica_dir", "elastic_reserve",
     "scale_out_occupancy", "scale_in_occupancy", "scale_sustain_s",
@@ -108,6 +114,7 @@ _P2P_FIELDS = ("count", "dtype", "reps", "warmup", "min_bandwidth", "seed")
 
 _CHOICES = {
     "paged_attn": ("kernel", "dense"),
+    "burn_mitigation": ("off", "shed", "spec_off"),
     "attn": ("kernel", "dense"),
     "attn_grid": ("dense", "compact"),
     "device": ("cuda", "cpu"),
@@ -148,6 +155,7 @@ def _mesh(args):
 
 
 def build_parser() -> argparse.ArgumentParser:
+    from tpu_patterns_torch.loadgen.runner import LoadGenConfig
     from tpu_patterns_torch.models.flagship import FlagshipConfig
     from tpu_patterns_torch.models.train_loop import TrainLoopConfig
     from tpu_patterns_torch.serve.engine import ServeConfig
@@ -165,6 +173,14 @@ def build_parser() -> argparse.ArgumentParser:
         "with the fused paged-attention kernel",
     )
     _add_config_flags(sv, ServeConfig, _NOT_PORTED)
+    lg = sub.add_parser(
+        "loadgen",
+        help="trace-driven load generator over the serve engine: seeded "
+        "arrival processes + scenario presets (chat, rag, "
+        "batch-summarize, agentic, chat-sampled), TTFT/TPOT/e2e "
+        "percentiles, goodput-under-SLO verdicts, optional chaos twin",
+    )
+    _add_config_flags(lg, LoadGenConfig, _NOT_PORTED_FLAGSHIP)
     fl = sub.add_parser(
         "flagship",
         help="PatternFormer train-step benchmark (fwd+bwd+SGD) with the "
@@ -560,19 +576,57 @@ def _config(cls, args):
                   for f in dataclasses.fields(cls)})
 
 
+def _checked(what: str, check) -> None:
+    """Run a parse-time ``check``; a ValueError (a typo'd scenario or
+    chaos spec, an unported field) exits with one line, before the
+    model is built."""
+    try:
+        check()
+    except ValueError as e:
+        raise SystemExit(f"error: {what}: {e}") from e
+
+
+def _serve(args, writer: ResultWriter) -> None:
+    from tpu_patterns_torch.loadgen.runner import validate_config
+    from tpu_patterns_torch.serve.engine import (
+        ServeConfig,
+        _run_scenario_config,
+        run_serve,
+    )
+
+    cfg = _config(ServeConfig, args)
+    if cfg.scenario:
+        _checked("serve --scenario",
+                 lambda: validate_config(_run_scenario_config(cfg)))
+    run_serve(cfg, writer)
+
+
+def _loadgen(args, writer: ResultWriter) -> None:
+    from tpu_patterns_torch.loadgen.runner import (
+        LoadGenConfig,
+        run_loadgen,
+        validate_config,
+    )
+
+    cfg = _config(LoadGenConfig, args)
+    _checked("loadgen", lambda: validate_config(cfg))
+    run_loadgen(cfg, writer)
+
+
 def main(argv: list[str] | None = None) -> int:
     from tpu_patterns_torch.models.flagship import (
         FlagshipConfig,
         run_flagship,
         unported,
     )
-    from tpu_patterns_torch.serve.engine import ServeConfig, run_serve
 
     parser = build_parser()
     args = parser.parse_args(argv)
     writer = ResultWriter(jsonl_path=args.jsonl)
     if args.cmd == "serve":
-        run_serve(_config(ServeConfig, args), writer)
+        _serve(args, writer)
+    elif args.cmd == "loadgen":
+        _loadgen(args, writer)
     elif args.cmd == "p2p":
         _p2p(args, writer)
     elif args.cmd == "hier":

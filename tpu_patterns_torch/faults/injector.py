@@ -37,9 +37,11 @@ under flock).  ``p=`` draws from a generator seeded by
 (``TPU_PATTERNS_FAULTS_SEED``, site, ordinal), so a chaos run replays
 bit-identically under the same seed.
 
-Every firing is logged BEFORE the action, as a WARNING Record on stderr
-(``core/results.py``).  The JAX package also books a flight-recorder
-event and a counter through its ``obs`` package, which is not ported.
+Every firing is logged BEFORE the action: a WARNING Record on stderr
+(``core/results.py``) and one on the ``tpu_patterns_faults_injected_total``
+counter (``obs/metrics.py``, labelled by site and action).  The JAX
+package also books a flight-recorder event, which the port's ``obs`` does
+not have yet, and writes the Record to ``faults.jsonl`` too.
 """
 
 from __future__ import annotations
@@ -66,10 +68,16 @@ KNOWN_SITES = frozenset({
     "ckpt.save",  # ckpt/checkpoint.py, after the shards, before the manifest
     "ckpt.restore",  # ckpt/checkpoint.py, before the shard reads
     "train.step",  # models/train_loop.py, per step (``nan`` poisons loss)
+    # loadgen/runner.py, per released arrival (ctx rid, scenario): an
+    # ``error`` drops the arrival, ``sleep``/``hang`` delays it
+    "loadgen.arrive",
+    # obs/cost.py, per booking: fails OPEN (an error skips the booking)
+    "obs.cost_book",
 })
 
 # the match keys of the spec grammar (the JAX package's set; the sites
-# here pass ``step`` and, at ckpt.save, ``proc``)
+# here pass ``step``, at ckpt.save ``proc``, at loadgen.arrive ``rid`` and
+# ``scenario``, at obs.cost_book ``rows`` or ``rid`` and ``replica``)
 MATCH_KEYS = frozenset({
     "pid", "cmd", "cell", "step", "proc", "rows", "rid", "scenario",
     "replica", "blocks", "endpoint", "fingerprint",
@@ -217,15 +225,22 @@ def _chance(spec: FaultSpec, ordinal: int) -> bool:
 
 def _log_firing(spec: FaultSpec, ctx: dict) -> None:
     """A WARNING Record on stderr (the action may be about to kill
-    stdout), BEFORE the action: a crash firing still leaves its trail.
-    A logging failure never masks or alters the injected behavior."""
+    stdout) and the injected-faults counter, BEFORE the action: a crash
+    firing still leaves its trail.  A logging failure never masks or
+    alters the injected behavior."""
     try:
+        from tpu_patterns_torch import obs
         from tpu_patterns_torch.core.results import (
             Record,
             ResultWriter,
             Verdict,
         )
 
+        obs.counter(
+            "tpu_patterns_faults_injected_total",
+            site=spec.site,
+            action=spec.action,
+        ).inc()
         ResultWriter(stream=sys.stderr).record(Record(
             pattern="faults",
             mode=spec.site,

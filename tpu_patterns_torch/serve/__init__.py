@@ -4,10 +4,11 @@
                    its plain-torch version
   paged.py         block pool + block tables; prefill, step, the
                    speculative verify step and the CoW block copy,
-                   updating the pool in place
+                   updating the pool in place; optionally sampling
   prefix.py        the radix index of admitted prompts that prefix
                    sharing aliases blocks through
   engine.py        FIFO admit / prefill / step / retire scheduler (with
-                   prefix sharing and speculative decoding) and the
-                   ``serve`` measured patterns
+                   prefix sharing, speculative decoding, per-request
+                   sampling, the request lifecycle, the burn monitor and
+                   the cost book) and the ``serve`` measured patterns
 """

@@ -25,11 +25,29 @@ block that copies the donor (CoW), and only the rest comes from the free
 list.  Row counts and prompt lengths are bucketed to powers of two, as in
 the JAX package, so the set of shapes the device sees stays small.
 
+The engine also carries what the load generator (``loadgen/``) reads:
+per-request sampling (``temperature``/``top_k``/``top_p``/``seed``/
+``gen_offset`` through a decoder made with ``sampling=True``; the draw
+for a request's n-th generated token is keyed ``(seed, gen_offset + n)``
+and nothing else), submission backdated to a scheduled arrival, and the
+per-request lifecycle (``self.lifecycle``: TTFT, TPOT, e2e and the
+deadline verdict, from host stamps the loop already takes).  Every
+finalized request feeds the SLO burn monitor (``obs/slo.py``), whose
+mitigation ladder ``burn_mitigation`` (``shed``: shed admissions, bulk
+first; ``spec_off``: plain decode instead of the wide step) acts while
+a burn episode lasts, and the cost book (``obs/cost.py``) apportions
+every measured prefill and decode wall and the pool's block-seconds.
+``run(requests, source=...)`` polls an arrival source once an
+iteration.  The kv tier, preemption, snapshots, the fleet store,
+disaggregated handoff, the watchdog and the ``serve.*`` fault sites
+with their retry and quarantine path are not ported (ROADMAP).
+
 ``run_serve`` is the measured pattern: the same trace served continuous
 (``slots`` wide) and sequential (one slot), gated on speedup, exactness
 against the per-request dense decoder and the in-place pool; with
 ``prefix_share`` or ``spec_k`` it also emits the reference's
-``prefix_share_*`` and ``spec_decode_*`` Records.
+``prefix_share_*`` and ``spec_decode_*`` Records.  With ``scenario`` it
+is the load generator's SLO pattern instead (``loadgen/runner.py``).
 """
 
 from __future__ import annotations
@@ -39,11 +57,15 @@ import dataclasses
 import numpy as np
 import torch
 
+from tpu_patterns_torch import obs
 from tpu_patterns_torch.core.results import Record, ResultWriter, Verdict
 from tpu_patterns_torch.core.timing import clock_ns, device_barrier
 from tpu_patterns_torch.models.decode import kv_slot_bytes
 from tpu_patterns_torch.models.lm import init_lm_params, make_lm_decoder
 from tpu_patterns_torch.models.transformer import ModelConfig
+from tpu_patterns_torch.obs.cost import CostBook
+from tpu_patterns_torch.obs.cost import register as _register_cost
+from tpu_patterns_torch.obs.slo import SloConfig, SloMonitor
 from tpu_patterns_torch.runtime import resolve_device
 from tpu_patterns_torch.serve.paged import (
     TRASH_BLOCK,
@@ -64,6 +86,22 @@ class Request:
     rid: int
     tokens: list[int]  # prompt ids
     n_gen: int  # total tokens to generate (the first comes from prefill)
+    # loadgen labels: the scenario rides into the lifecycle and the cost
+    # book; the deadline is the submit -> last-token budget (0 = none)
+    scenario: str = ""
+    deadline_ms: float = 0.0
+    # ``interactive`` or ``bulk``: burn-rate shedding takes bulk first
+    priority: str = "interactive"
+    # per-request sampling, honored by a decoder made with sampling=True
+    # (temperature 0 = greedy, bit-identical to the unsampled cores).
+    # The draw for the n-th generated token is keyed (seed, gen_offset +
+    # n): ``gen_offset`` is the global index of the next token to
+    # generate (0 for a fresh request)
+    temperature: float = 0.0
+    top_k: int = 0
+    top_p: float = 1.0
+    seed: int = 0
+    gen_offset: int = 0
 
 
 @dataclasses.dataclass
@@ -79,6 +117,19 @@ class _Slot:
     prompt: list[int]  # kept live: drafter context
     write_from: int = 0  # prefix-share write fence (until its prefill)
     own_blocks: tuple[int, ...] = ()  # blocks this row newly indexed
+    scenario: str = ""
+    deadline_ms: float = 0.0
+    priority: str = "interactive"
+    temperature: float = 0.0  # per-request sampling (see Request)
+    top_k: int = 0
+    top_p: float = 1.0
+    seed: int = 0
+    gen_offset: int = 0  # global index of this row's next generated token
+    # host clock_ns stamps: admission, first token on the host, latest
+    # token on the host; the lifecycle's TTFT/TPOT/e2e come from these
+    t_admit_ns: int = 0
+    t_first_ns: int = 0
+    t_last_ns: int = 0
 
 
 class ServeEngine:
@@ -87,14 +138,23 @@ class ServeEngine:
     ``slots`` bounds the active set (the decode bucket ceiling).  The
     decoder may be shared between engines; each engine owns its pool.
     ``prefix_share`` turns on copy-on-write prefix sharing, ``spec_k``
-    speculative decoding with up to ``spec_k`` drafts a row a step."""
+    speculative decoding with up to ``spec_k`` drafts a row a step.
+    ``slo`` configures the burn monitor and ``burn_mitigation`` (``off``,
+    ``shed``, ``spec_off``) the ladder it drives."""
 
     def __init__(self, decoder: PagedDecoder, params: dict, *, slots: int,
-                 prefix_share: bool = False, spec_k: int = 0):
+                 prefix_share: bool = False, spec_k: int = 0,
+                 slo: SloConfig | None = None,
+                 burn_mitigation: str = "off"):
         if slots < 1:
             raise ValueError(f"slots must be >= 1, got {slots}")
         if spec_k < 0:
             raise ValueError(f"spec_k must be >= 0, got {spec_k}")
+        if burn_mitigation not in ("off", "shed", "spec_off"):
+            raise ValueError(
+                f"burn_mitigation must be off | shed | spec_off, got "
+                f"{burn_mitigation!r}"
+            )
         self.decoder = decoder
         self.params = params
         self.slots = slots
@@ -112,14 +172,31 @@ class ServeEngine:
         )
         self._pending_cow: list[tuple[int, int]] = []  # (src, dst)
         self.spec_k = spec_k
+        # the live SLO burn monitor: every finalized request books its
+        # tokens good or bad against its deadline; with no deadlines it
+        # is inert.  The ladder is opt-in: ``shed`` sheds admissions
+        # (bulk first) while a burn episode lasts, ``spec_off`` falls
+        # back from the wide step to plain decode (same ids)
+        self.slo = SloMonitor(slo)
+        self.burn_mitigation = burn_mitigation
+        # the cost book: measured prefill/decode walls apportioned over
+        # the rows of each wave, and the pool's block-seconds
+        self.cost = _register_cost(CostBook(self.layout.n_blocks - 1))
+        # admissions the burn ladder shed: {rid: reason}, a terminal
+        # bucket like done, so the trace's accounting still closes
+        self.shed: dict[int, str] = {}
         self.queue: list[tuple[Request, int]] = []  # (request, t_submit)
         self.active: list[_Slot] = []
         self.done: dict[int, list[int]] = {}
+        # per-request lifecycle, written once at retirement: {rid:
+        # {status, scenario, n_out, priority, submit/admit/first/last_ns,
+        # ttft/tpot/e2e_ms, deadline_ms, met}}
+        self.lifecycle: dict[int, dict] = {}
         self.stats = {
-            "steps": 0, "deferrals": 0, "tokens": 0, "max_occupancy": 0.0,
-            "queue_wait_ns": [], "peak_blocks": 0, "prefix_hit_blocks": 0,
-            "cow_copies": 0, "spec_steps": 0, "spec_row_steps": 0,
-            "spec_tokens": 0,
+            "steps": 0, "prefills": 0, "deferrals": 0, "tokens": 0,
+            "max_occupancy": 0.0, "queue_wait_ns": [], "peak_blocks": 0,
+            "prefix_hit_blocks": 0, "cow_copies": 0, "spec_steps": 0,
+            "spec_row_steps": 0, "spec_tokens": 0, "sheds": 0,
         }
 
     # -- bookkeeping -----------------------------------------------------
@@ -131,6 +208,10 @@ class ServeEngine:
         return self.layout.blocks_for(len(req.tokens) + max(req.n_gen - 1, 0))
 
     def submit(self, req: Request, t_submit_ns: int | None = None) -> None:
+        """Queue ``req``.  ``t_submit_ns`` backdates the submission to
+        the request's scheduled arrival (loadgen): lateness the engine
+        caused by being busy when the arrival was due counts against
+        TTFT and e2e instead of vanishing (coordinated omission)."""
         if not req.tokens or req.n_gen < 1:
             raise ValueError(f"request {req.rid}: empty prompt or n_gen < 1")
         need = self._blocks_needed(req)
@@ -187,10 +268,60 @@ class ServeEngine:
             if len(s.out) >= s.n_gen:
                 for b in s.table:
                     self._release_block(b)
+                self.cost.drop(s.rid)
                 self.done[s.rid] = s.out
+                self._finalize_lifecycle(s, "done")
+                obs.counter("tpu_patterns_serve_requests_total").inc()
             else:
                 still.append(s)
         self.active = still
+
+    def _finalize_lifecycle(self, s: _Slot, status: str) -> None:
+        """Close out a request: its lifecycle entry, the burn monitor's
+        booking and the TTFT/TPOT histograms, all from host stamps the
+        loop already took (no device sync).  The reference also writes
+        the request's lifecycle spans here; the port has no spans yet."""
+        now = clock_ns()
+        first = s.t_first_ns or now
+        last = s.t_last_ns or first
+        n_out = len(s.out)
+        ttft_ms = (first - s.t_submit_ns) / 1e6 if s.t_first_ns else None
+        tpot_ms = (
+            (last - first) / (n_out - 1) / 1e6
+            if s.t_first_ns and n_out > 1
+            else None
+        )
+        e2e_ms = (last - s.t_submit_ns) / 1e6
+        met = (
+            status == "done"
+            and (s.deadline_ms <= 0 or e2e_ms <= s.deadline_ms)
+        )
+        self.lifecycle[s.rid] = {
+            "status": status, "scenario": s.scenario, "n_out": n_out,
+            "priority": s.priority,
+            "submit_ns": s.t_submit_ns, "admit_ns": s.t_admit_ns,
+            "first_ns": s.t_first_ns, "last_ns": last,
+            "ttft_ms": ttft_ms, "tpot_ms": tpot_ms, "e2e_ms": e2e_ms,
+            "deadline_ms": s.deadline_ms, "met": met,
+        }
+        # a request that never finished books its whole budget as bad
+        self.slo.observe(
+            tokens=n_out if status == "done" else max(s.n_gen, 1),
+            met=met, ttft_ms=ttft_ms, tpot_ms=tpot_ms,
+            priority=s.priority,
+        )
+        if ttft_ms is not None:
+            obs.histogram("tpu_patterns_serve_ttft_ms").observe(ttft_ms)
+        if tpot_ms is not None:
+            obs.histogram("tpu_patterns_serve_tpot_ms").observe(tpot_ms)
+
+    def _shed_request(self, rid: int, reason: str,
+                      priority: str = "interactive") -> None:
+        """Terminal shed bookkeeping of the burn ladder: counted, never
+        dropped silently."""
+        self.shed[rid] = reason
+        self.stats["sheds"] += 1
+        obs.counter("tpu_patterns_serve_shed_total", priority=priority).inc()
 
     def _admit(self) -> list[tuple[Request, _Slot]]:
         """Pull queued requests FIFO into free slots while blocks last; a
@@ -202,9 +333,26 @@ class ServeEngine:
         aliases existing blocks (refcount + 1, no allocation), a partial
         boundary match claims one fresh block to copy the donor into,
         and only the rest draws on the free list, so a shareable request
-        admits where its full rectangle would have deferred."""
+        admits where its full rectangle would have deferred.
+
+        While a burn episode is active under ``burn_mitigation="shed"``,
+        the queue's first bulk request is shed instead, or the head when
+        none is bulk (the reference's ladder with preemption off)."""
         admitted: list[tuple[Request, _Slot]] = []
-        while self.queue and len(self.active) + len(admitted) < self.slots:
+        while self.queue:
+            if self.burn_mitigation == "shed" and self.slo.mitigating():
+                bi = next((i for i, (r, _) in enumerate(self.queue)
+                           if r.priority == "bulk"), None)
+                req, _ = self.queue.pop(0 if bi is None else bi)
+                self._shed_request(
+                    req.rid,
+                    "shed: slo burn-rate mitigation active"
+                    + (" (bulk first)" if bi is not None else ""),
+                    priority=req.priority,
+                )
+                continue
+            if len(self.active) + len(admitted) >= self.slots:
+                break
             req, t_submit = self.queue[0]
             need = self._blocks_needed(req)
             plan = (self.index.plan(req.tokens)
@@ -214,6 +362,7 @@ class ServeEngine:
             aliased = list(plan.aliased)[:need] if plan else []
             if need - len(aliased) > len(self.free):
                 self.stats["deferrals"] += 1
+                obs.counter("tpu_patterns_serve_deferrals_total").inc()
                 break
             self.queue.pop(0)
             fresh = [self.free.pop() for _ in range(need - len(aliased))]
@@ -229,7 +378,12 @@ class ServeEngine:
                 self._pending_cow.append((plan.donor, fresh[0]))
                 write_from += plan.donor_len
                 self.stats["cow_copies"] += 1
-            self.stats["prefix_hit_blocks"] += len(aliased)
+                obs.counter("tpu_patterns_serve_cow_copies_total").inc()
+            if aliased:
+                self.stats["prefix_hit_blocks"] += len(aliased)
+                obs.counter(
+                    "tpu_patterns_serve_prefix_hit_blocks_total"
+                ).inc(len(aliased))
             own_blocks: tuple[int, ...] = ()
             if self.index is not None:
                 own_blocks = tuple(self.index.insert(req.tokens, table))
@@ -240,8 +394,19 @@ class ServeEngine:
                 prompt=list(req.tokens),
                 write_from=min(write_from, len(req.tokens)),
                 own_blocks=own_blocks,
+                scenario=req.scenario, deadline_ms=req.deadline_ms,
+                priority=req.priority, temperature=req.temperature,
+                top_k=req.top_k, top_p=req.top_p, seed=req.seed,
+                gen_offset=req.gen_offset, t_admit_ns=now,
             )
+            # the row's residency integral opens: it holds len(table)
+            # block references until it retires
+            self.cost.hold(req.rid, len(table), scenario=req.scenario,
+                           priority=req.priority)
             self.stats["queue_wait_ns"].append(now - t_submit)
+            obs.histogram("tpu_patterns_serve_queue_wait_ms").observe(
+                (now - t_submit) / 1e6
+            )
             admitted.append((req, slot))
         return admitted
 
@@ -250,6 +415,26 @@ class ServeEngine:
         for i, s in enumerate(slots):
             t[i, : len(s.table)] = s.table
         return t
+
+    def _sampling_args(self, slots: list[_Slot], rows: int) -> tuple:
+        """The sampling cores' per-row (seeds, gidx, temp, topk, topp):
+        row i's next draw is keyed (seed, gen_offset + len(out)), the
+        request's global generated-token index.  Empty when the decoder
+        has no sampling cores."""
+        if not self.decoder.sampling:
+            return ()
+        seeds = np.zeros((rows,), np.int32)
+        gidx = np.zeros((rows,), np.int32)
+        temp = np.zeros((rows,), np.float32)
+        topk = np.zeros((rows,), np.int32)
+        topp = np.ones((rows,), np.float32)
+        for i, s in enumerate(slots):
+            seeds[i] = s.seed
+            gidx[i] = s.gen_offset + len(s.out)
+            temp[i] = s.temperature
+            topk[i] = s.top_k
+            topp[i] = s.top_p
+        return seeds, gidx, temp, topk, topp
 
     def _cow_copy(self) -> None:
         """Run the pending copy-on-write boundary copies in one call,
@@ -281,20 +466,33 @@ class ServeEngine:
             start[i] = slots[i].write_from
             active[i] = True
         tables = self._tables_array(slots, rows)
+        t0 = clock_ns()
         self._cow_copy()
         tok0 = self.decoder.prefill(
-            self.params, self.pool, tokens, lens, start, tables, active
+            self.params, self.pool, tokens, lens, start, tables, active,
+            *self._sampling_args(slots, rows),
         )
         # the scheduler's one sync per call: ids must reach the host
         tok0 = tok0.cpu().numpy()
+        t_tok = clock_ns()  # the wave's first tokens are on the host
+        obs.histogram("tpu_patterns_serve_prefill_ms").observe(
+            (t_tok - t0) / 1e6
+        )
+        # the wave's wall, split equal-share over its rows
+        self.cost.book_prefill(
+            t_tok - t0, [(r.rid, r.scenario, r.priority) for r in reqs]
+        )
         for i, s in enumerate(slots):
             s.last_tok = int(tok0[i])
             s.out.append(s.last_tok)
             s.write_from = 0  # fence spent: the wave is on the device
+            s.t_first_ns = s.t_last_ns = t_tok
             self.stats["tokens"] += 1
         if self.index is not None:
             for s in slots:
                 self.index.materialize(list(s.own_blocks))
+        obs.counter("tpu_patterns_serve_tokens_total").inc(len(slots))
+        self.stats["prefills"] += 1
         self.active.extend(slots)
 
     def _step(self) -> None:
@@ -308,15 +506,23 @@ class ServeEngine:
                 s.last_tok, s.lens, s.steps, True
             )
         tables = self._tables_array(self.active, rows)
+        t0 = clock_ns()
         nxt = self.decoder.step(
-            self.params, self.pool, tok, lens, steps, tables, active
+            self.params, self.pool, tok, lens, steps, tables, active,
+            *self._sampling_args(self.active, rows),
         )
         nxt = nxt.cpu().numpy()
+        t_tok = clock_ns()
+        obs.histogram("tpu_patterns_serve_step_ms").observe(
+            (t_tok - t0) / 1e6
+        )
         for i, s in enumerate(self.active):
             s.steps += 1  # the fed token's K/V is now in the pool
             s.last_tok = int(nxt[i])
             s.out.append(s.last_tok)
+            s.t_last_ns = t_tok
             self.stats["tokens"] += 1
+        obs.counter("tpu_patterns_serve_tokens_total").inc(len(self.active))
         self.stats["steps"] += 1
 
     @staticmethod
@@ -342,7 +548,10 @@ class ServeEngine:
         commit the longest accepted prefix.  Position i's output is the
         greedy id the plain step would emit after committing tokens
         0..i, so a draft survives exactly when it equals what the model
-        would have said: committed ids equal plain decode's."""
+        would have said: committed ids equal plain decode's.  A sampling
+        decoder draws position i with key (seed, gidx + i), the key the
+        plain step would use after committing i tokens, so a sampled
+        stream stays equal to plain decode's too."""
         w = self.spec_k + 1
         rows = _bucket(len(self.active), self.slots)
         toks = np.zeros((rows, w), np.int32)
@@ -362,11 +571,16 @@ class ServeEngine:
             lens[i], steps[i] = s.lens, s.steps
             n_draft[i], active[i] = len(d), True
         tables = self._tables_array(self.active, rows)
+        t0 = clock_ns()
         out = self.decoder.verify(
             self.params, self.pool, toks, lens, steps, n_draft, tables,
-            active,
+            active, *self._sampling_args(self.active, rows),
         )
         out = out.cpu().numpy()
+        t_tok = clock_ns()
+        obs.histogram("tpu_patterns_serve_step_ms").observe(
+            (t_tok - t0) / 1e6
+        )
         committed = 0
         for i, s in enumerate(self.active):
             d = drafts[i]
@@ -378,8 +592,13 @@ class ServeEngine:
             s.out.extend(commit)
             s.steps += len(commit)  # their K/V is in the pool
             s.last_tok = s.out[-1]
+            s.t_last_ns = t_tok
             committed += len(commit)
             self.stats["tokens"] += len(commit)
+            obs.histogram(
+                "tpu_patterns_serve_spec_accepted_tokens"
+            ).observe(float(len(commit)))
+        obs.counter("tpu_patterns_serve_tokens_total").inc(committed)
         self.stats["steps"] += 1
         self.stats["spec_steps"] += 1
         # per row: spec_tokens / spec_row_steps compares with plain
@@ -387,28 +606,84 @@ class ServeEngine:
         self.stats["spec_row_steps"] += len(self.active)
         self.stats["spec_tokens"] += committed
 
-    def run(self, requests: list[Request]) -> dict[int, list[int]]:
-        """Serve ``requests`` to completion; returns {rid: generated ids}."""
+    def run(self, requests: list[Request], *, source=None
+            ) -> dict[int, list[int]]:
+        """Serve ``requests`` to completion; returns {rid: generated ids}.
+
+        ``source`` streams arrivals in: a callable polled once an
+        iteration as ``source(idle=...)``, returning newly arrived
+        requests (``[]``: nothing yet, ``None``: exhausted).  Items are
+        ``Request`` or ``(Request, t_submit_ns)``, the second backdating
+        submission to the scheduled arrival.  With ``idle`` true the
+        engine has nothing to run and the source owns the wait until its
+        next arrival (``loadgen/runner.py``), so this loop never
+        sleeps."""
         for r in requests:
             self.submit(r)
-        while self.queue or self.active:
-            self._retire()
-            admitted = self._admit()
-            if admitted:
-                self._prefill(admitted)
-                self._retire()  # n_gen == 1 finishes at prefill
-            if self.active:
-                if self.spec_k:
-                    self._verify_step()
-                else:
-                    self._step()
-            self.stats["peak_blocks"] = max(
-                self.stats["peak_blocks"], self.allocated_blocks()
-            )
-            self.stats["max_occupancy"] = max(
-                self.stats["max_occupancy"], self._occupancy()
-            )
+        # the cost window covers exactly this loop
+        self.cost.start(self.allocated_blocks())
+        try:
+            while True:
+                if source is not None:
+                    batch = source(idle=not (self.queue or self.active))
+                    if batch is None:
+                        source = None
+                    else:
+                        for item in batch:
+                            if isinstance(item, tuple):
+                                self.submit(item[0], t_submit_ns=item[1])
+                            else:
+                                self.submit(item)
+                if not (self.queue or self.active):
+                    if source is None:
+                        break
+                    continue
+                self._retire()
+                # sample the pool integral where retire frees blocks and
+                # admission takes them
+                self.cost.tick(self.allocated_blocks())
+                admitted = self._admit()
+                self.cost.tick(self.allocated_blocks())
+                if admitted:
+                    self._prefill(admitted)
+                    self._retire()  # n_gen == 1 finishes at prefill
+                if self.active:
+                    self._decode()
+                self.stats["peak_blocks"] = max(
+                    self.stats["peak_blocks"], self.allocated_blocks()
+                )
+                occ = self._occupancy()
+                self.stats["max_occupancy"] = max(
+                    self.stats["max_occupancy"], occ
+                )
+                obs.gauge("tpu_patterns_serve_pool_occupancy").set(occ)
+                obs.gauge("tpu_patterns_serve_active_rows").set(
+                    len(self.active)
+                )
+                self.cost.tick(self.allocated_blocks())
+        finally:
+            self.cost.close(self.allocated_blocks())
         return dict(self.done)
+
+    def _decode(self) -> None:
+        """One decode dispatch for the active set, its wall booked to the
+        cost book over the rows that rode it.  Under ``spec_off`` an
+        active burn episode falls back from the wide step to plain
+        decode (the same ids, less work a step)."""
+        use_spec = bool(self.spec_k) and not (
+            self.burn_mitigation == "spec_off" and self.slo.mitigating()
+        )
+        wave = [(s.rid, s.scenario, s.priority) for s in self.active]
+        t0 = clock_ns()
+        if use_spec:
+            self._verify_step()
+        else:
+            self._step()
+        wall_ns = clock_ns() - t0
+        obs.histogram("tpu_patterns_serve_decode_wall_ms").observe(
+            wall_ns / 1e6
+        )
+        self.cost.book_decode(wall_ns, wave)
 
 
 @dataclasses.dataclass
@@ -447,7 +722,37 @@ class ServeConfig:
     spec_k: int = 0
     min_accepted: float = 1.0  # accepted-tokens/step gate (plain = 1.0)
     seed: int = 0
+    # trace-driven load generation: a loadgen scenario spec ("chat",
+    # "rag:requests=16", the loadgen/scenarios.py grammar).  Set, the run
+    # is the SLO pattern of ``loadgen/runner.py`` on this model and pool:
+    # the scenario owns the trace, so requests/min_prompt/max_prompt/gen
+    # above are superseded (override them inside the spec)
+    scenario: str = ""
+    time_scale: float = 1.0  # compress scenario ARRIVALS onto the wall
+    # the SLO burn monitor's ladder (obs/slo.py): off = observe only,
+    # shed = shed admissions while a burn episode lasts, spec_off = plain
+    # decode instead of the speculative wide step until it recovers
+    burn_mitigation: str = "off"
+    slo_fast_s: float = 60.0  # fast burn window (reacts)
+    slo_slow_s: float = 300.0  # slow burn window (contextualizes)
+    slo_budget: float = 0.1  # allowed bad-token fraction
+    burn_multiplier: float = 2.0  # fast-window burn that trips the ladder
     device: str = "cuda"  # "cpu" runs the plain torch versions
+
+
+def _slo_kwargs(cfg) -> dict:
+    """The burn monitor's engine kwargs from a ServeConfig or a
+    LoadGenConfig (both carry these field names), so every engine a
+    measured pattern builds gets the same monitor config."""
+    return {
+        "burn_mitigation": cfg.burn_mitigation,
+        "slo": SloConfig(
+            fast_window_s=cfg.slo_fast_s,
+            slow_window_s=cfg.slo_slow_s,
+            budget=cfg.slo_budget,
+            multiplier=cfg.burn_multiplier,
+        ),
+    }
 
 
 def _auto_blocks(cfg: ServeConfig) -> int:
@@ -533,20 +838,36 @@ def model_config(cfg: ServeConfig) -> ModelConfig:
 def _dense_expected(mcfg, cfg: ServeConfig, params, requests):
     """Per-request greedy ids from the dense batch-1 decoder: the
     engine-independent ground truth."""
-    dev = params["wemb"].device
-    dpre, dgen = make_lm_decoder(
-        mcfg, cfg.vocab, 1, cfg.max_prompt, cfg.gen,
-        cache_int8=cfg.cache_int8,
+    return _oracle_expected(
+        mcfg, cfg.vocab, params, requests, max_prompt=cfg.max_prompt,
+        max_gen=cfg.gen, cache_int8=cfg.cache_int8,
     )
+
+
+def _oracle_expected(mcfg, vocab: int, params, requests, *, max_prompt: int,
+                     max_gen: int, cache_int8: bool = False):
+    """Per-request ground-truth ids from the dense batch-1 decoder:
+    greedy rows by the argmax rollout, sampled rows (``temperature >
+    0``) by the same ``sample_token_rows`` the serve cores run, keyed
+    ``(request.seed, gen_offset + n)``.  No pool, no scheduler, no
+    batching: the fixed-seed oracle of every exactness gate."""
+    dev = params["wemb"].device
+    dpre, dgen = make_lm_decoder(mcfg, vocab, 1, max_prompt, max_gen,
+                                 cache_int8=cache_int8)
     want: dict[int, list[int]] = {}
     for r in requests:
-        toks = torch.zeros((1, cfg.max_prompt), dtype=torch.int32)
+        toks = torch.zeros((1, max_prompt), dtype=torch.int32)
         toks[0, : len(r.tokens)] = torch.as_tensor(r.tokens)
         lens = torch.tensor([len(r.tokens)], dtype=torch.int32)
-        cache, t0 = dpre(params, toks.to(dev), lens)
+        rows = None
+        if r.temperature > 0:
+            rows = ([r.seed], [r.gen_offset], [r.temperature], [r.top_k],
+                    [r.top_p])
+        cache, t0 = dpre(params, toks.to(dev), lens, sample_rows=rows)
         ids = [int(t0[0])]
         if r.n_gen > 1:
-            _, gen_ids = dgen(params, cache, t0, (lens, 0), r.n_gen - 1)
+            _, gen_ids = dgen(params, cache, t0, (lens, 0), r.n_gen - 1,
+                              sample_rows=rows)
             ids += gen_ids[0].tolist()
         want[r.rid] = ids
     return want
@@ -589,10 +910,11 @@ def timed_run(decoder: PagedDecoder, params: dict, trace: list[Request],
 
 
 def serve_legs(decoder: PagedDecoder, params: dict, trace: list[Request],
-               slots: int) -> ServeLegs:
+               slots: int, **engine_kw) -> ServeLegs:
     out_cont, cont_s, eng, in_place, launches = timed_run(
-        decoder, params, trace, slots)
-    out_seq, seq_s, _, _, _ = timed_run(decoder, params, trace, 1)
+        decoder, params, trace, slots, **engine_kw)
+    out_seq, seq_s, _, _, _ = timed_run(decoder, params, trace, 1,
+                                        **engine_kw)
     return ServeLegs(out_cont, out_seq, cont_s, seq_s, eng, in_place,
                      launches)
 
@@ -669,7 +991,7 @@ def _prefix_record(cfg: ServeConfig, writer: ResultWriter, mcfg, params,
 
     def serve_once(share: bool):
         eng = ServeEngine(decoder, params, slots=cfg.slots,
-                          prefix_share=share)
+                          prefix_share=share, **_slo_kwargs(cfg))
         return eng.run([dataclasses.replace(r) for r in trace]), eng
 
     out_shared, eng_s = serve_once(True)
@@ -731,9 +1053,10 @@ def _spec_record(cfg: ServeConfig, writer: ResultWriter, mcfg, decoder,
     the plain engine's and the per-request dense decode."""
     trace = repetitive_trace(cfg)
     eng_spec = ServeEngine(decoder, params, slots=cfg.slots,
-                           spec_k=cfg.spec_k)
+                           spec_k=cfg.spec_k, **_slo_kwargs(cfg))
     out_spec = eng_spec.run([dataclasses.replace(r) for r in trace])
-    eng_plain = ServeEngine(decoder, params, slots=cfg.slots)
+    eng_plain = ServeEngine(decoder, params, slots=cfg.slots,
+                            **_slo_kwargs(cfg))
     out_plain = eng_plain.run([dataclasses.replace(r) for r in trace])
     want_ids = _dense_expected(mcfg, cfg, params, trace)
     exact = out_spec == out_plain and _first_divergence(
@@ -787,12 +1110,19 @@ def run_serve(cfg: ServeConfig, writer: ResultWriter | None = None
     ``spec_k`` the ``spec_decode_*`` one (each on its own trace, as the
     JAX package draws it).  The JAX package emits only those two when
     either flag is set; this one serves the main trace first as well.
+
+    With ``scenario`` the run is the load generator's instead
+    (``loadgen/runner.py::run_loadgen``) on this model and pool, one
+    Record for the scenario.  The JAX package's bridge leaves
+    ``paged_attn`` at the load generator's default; this one passes it.
     """
     writer = writer or ResultWriter()
+    if cfg.scenario:
+        return _run_scenario(cfg, writer)
     mcfg, decoder, params, trace = build_serve(cfg)
     total_tokens = sum(r.n_gen for r in trace)
 
-    legs = serve_legs(decoder, params, trace, cfg.slots)
+    legs = serve_legs(decoder, params, trace, cfg.slots, **_slo_kwargs(cfg))
     cont_tps = total_tokens / legs.cont_s if legs.cont_s > 0 else 0.0
     seq_tps = total_tokens / legs.seq_s if legs.seq_s > 0 else 0.0
     speedup = cont_tps / seq_tps if seq_tps > 0 else 0.0
@@ -854,3 +1184,28 @@ def run_serve(cfg: ServeConfig, writer: ResultWriter | None = None
     if cfg.spec_k:
         recs.append(_spec_record(cfg, writer, mcfg, decoder, params))
     return recs
+
+
+def _run_scenario_config(cfg: ServeConfig):
+    """``serve --scenario``'s LoadGenConfig: the model and pool knobs map
+    one-to-one; the scenario owns the trace."""
+    from tpu_patterns_torch.loadgen.runner import LoadGenConfig
+
+    return LoadGenConfig(
+        vocab=cfg.vocab, embed=cfg.embed, heads=cfg.heads,
+        head_dim=cfg.head_dim, mlp_mult=cfg.mlp_mult, depth=cfg.depth,
+        dtype=cfg.dtype, rope=cfg.rope, kv_heads=cfg.kv_heads,
+        cache_int8=cfg.cache_int8, paged_attn=cfg.paged_attn,
+        slots=cfg.slots, block_len=cfg.block_len, n_blocks=cfg.n_blocks,
+        spec_k=cfg.spec_k, prefix_share=cfg.prefix_share, seed=cfg.seed,
+        time_scale=cfg.time_scale, scenarios=(cfg.scenario,),
+        burn_mitigation=cfg.burn_mitigation, slo_fast_s=cfg.slo_fast_s,
+        slo_slow_s=cfg.slo_slow_s, slo_budget=cfg.slo_budget,
+        burn_multiplier=cfg.burn_multiplier, device=cfg.device,
+    )
+
+
+def _run_scenario(cfg: ServeConfig, writer: ResultWriter) -> list[Record]:
+    from tpu_patterns_torch.loadgen.runner import run_loadgen
+
+    return run_loadgen(_run_scenario_config(cfg), writer)

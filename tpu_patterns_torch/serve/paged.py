@@ -32,6 +32,15 @@ prefixes onto one copy, prefill's per-row ``start`` fence keeps shared
 blocks read-only, and ``copy_blocks`` clones the one boundary block
 where writes diverge.  ``verify`` runs a k+1-token window for
 speculative decoding; ``step`` is ``verify`` at a window of one token.
+
+A decoder made with ``sampling=True`` takes five more per-row host
+arrays ``(seeds, gidx, temp, topk, topp)`` in ``prefill``, ``step`` and
+``verify`` and returns ids from the seeded sampler
+(``models/lm.py::sample_token_rows``): row b's token at position t of
+a call is keyed ``(seeds[b], gidx[b] + t)``, the key the one-token step
+would use after committing t tokens, so a verified sampled stream
+equals plain decode's.  Rows with ``temp <= 0`` keep the greedy ids of
+the unsampled cores, bit for bit.
 """
 
 from __future__ import annotations
@@ -46,7 +55,12 @@ from tpu_patterns_torch.models.decode import (
     _quantize_kv,
     kv_slot_bytes,
 )
-from tpu_patterns_torch.models.lm import embed_tokens, sharded_argmax
+from tpu_patterns_torch.models.lm import (
+    embed_tokens,
+    sample_rows_on,
+    sample_token_rows,
+    sharded_argmax,
+)
 from tpu_patterns_torch.models.transformer import (
     ModelConfig,
     apply_rope,
@@ -230,6 +244,8 @@ class PagedDecoder:
     * ``copy_blocks(pool, src, dst)``: the CoW boundary copy, whole
       blocks of every layer and leaf (scales included).
 
+    With ``sampling`` the three cores take ``seeds, gidx, temp, topk,
+    topp`` [B] after ``active`` and sample (inactive rows still give 0).
     All update ``pool`` in place.  Host arrays are moved to the
     decoder's device on the way in."""
 
@@ -240,6 +256,7 @@ class PagedDecoder:
     device: torch.device
     cache_int8: bool = False
     attn: str = "kernel"
+    sampling: bool = False
 
     def __post_init__(self):
         if self.attn not in ("dense", "kernel"):
@@ -278,13 +295,42 @@ class PagedDecoder:
     def _dev(self, a, dtype) -> torch.Tensor:
         return torch.as_tensor(a).to(device=self.device, dtype=dtype)
 
+    def _rows(self, rows: tuple) -> tuple | None:
+        """The sampler's per-row arrays on the device (one copy), or None
+        where the greedy argmax serves: an unsampled decoder, or no row
+        with ``temp > 0``."""
+        if bool(rows) != self.sampling:
+            raise ValueError(
+                f"a decoder with sampling={self.sampling} takes "
+                f"{'5' if self.sampling else 'no'} per-row sampling "
+                f"arrays, got {len(rows)}"
+            )
+        return sample_rows_on(self.device, *rows) if rows else None
+
+    @staticmethod
+    def _pick(logits, rows, w: int) -> torch.Tensor:
+        """ids [B, w] from logits [B * w, V]: the greedy argmax, or row
+        b's position t drawn with key ``(seeds[b], gidx[b] + t)``."""
+        if rows is None:
+            return sharded_argmax(logits).reshape(-1, w)
+        seeds, gidx, temp, topk, topp = rows
+        t = torch.arange(w, dtype=torch.int32, device=logits.device)
+        return sample_token_rows(
+            logits, seeds.repeat_interleave(w),
+            (gidx[:, None] + t[None, :]).reshape(-1),
+            temp.repeat_interleave(w), topk.repeat_interleave(w),
+            topp.repeat_interleave(w),
+        ).reshape(-1, w)
+
     def _layers(self, params: dict, pool: dict):
         for i in range(self.cfg.depth):
             p_l = {k: v[i] for k, v in params.items() if k != "wemb"}
             yield p_l, {n: leaf[i] for n, leaf in pool.items()}
 
     @torch.no_grad()
-    def prefill(self, params, pool, tokens, lens, start, tables, active):
+    def prefill(self, params, pool, tokens, lens, start, tables, active,
+                *rows):
+        rows = self._rows(rows)
         lpad = tokens.shape[1]
         if lpad > self.n_pages * self.layout.block_len:
             raise ValueError(
@@ -304,18 +350,19 @@ class PagedDecoder:
             )
         idx = (lens - 1).clamp(0, lpad - 1).long()
         y_last = x[torch.arange(x.shape[0], device=self.device), idx]
-        tok0 = sharded_argmax(y_last @ wemb.T)
+        tok0 = self._pick(y_last @ wemb.T, rows, 1)[:, 0]
         return torch.where(active, tok0, 0)
 
-    def step(self, params, pool, tok, lens, steps, tables, active):
+    def step(self, params, pool, tok, lens, steps, tables, active, *rows):
         tok = self._dev(tok, torch.int32)
         no_draft = torch.zeros_like(tok)
         return self.verify(params, pool, tok[:, None], lens, steps,
-                           no_draft, tables, active)[:, 0]
+                           no_draft, tables, active, *rows)[:, 0]
 
     @torch.no_grad()
     def verify(self, params, pool, toks, lens, steps, n_draft, tables,
-               active):
+               active, *rows):
+        rows = self._rows(rows)
         toks = self._dev(toks, torch.int32)
         pos0 = self._dev(lens, torch.int32) + self._dev(steps, torch.int32)
         n_draft = self._dev(n_draft, torch.int32)
@@ -329,7 +376,7 @@ class PagedDecoder:
                 self.cfg, attn=self.attn,
             )
         b, w, _ = x.shape
-        out = sharded_argmax(x.reshape(b * w, -1) @ wemb.T).reshape(b, w)
+        out = self._pick(x.reshape(b * w, -1) @ wemb.T, rows, w)
         return torch.where(active[:, None], out, 0)
 
     @torch.no_grad()
@@ -378,12 +425,13 @@ def make_paged_lm_decoder(
     max_len: int,
     cache_int8: bool = False,
     attn: str = "kernel",
+    sampling: bool = False,
     device=None,
 ) -> PagedDecoder:
     """The paged token decoder: ``n_blocks`` physical blocks of
     ``block_len`` slots (block 0 is trash), tables covering ``max_len``
     positions per sequence, on ``device`` (cuda unless "cpu" is
-    named)."""
+    named); ``sampling`` gives the cores the per-row seeded sampler."""
     layout = PagedLayout(n_blocks, block_len)
     return PagedDecoder(
         cfg=cfg,
@@ -393,4 +441,5 @@ def make_paged_lm_decoder(
         device=resolve_device(device),
         cache_int8=cache_int8,
         attn=attn,
+        sampling=sampling,
     )
