@@ -17,9 +17,10 @@ one-sided put (slice C), the concurrency suite (slice D), the ring
 on the one card), the interop slice (the native C++ module and the
 kernel whose output it reads in place), the rest of the P2P suite
 (topology, placement, the pair exchange, the hierarchical allreduce and
-the environment tier of the CLI), and the load generator over the serve
-path (seeded sampling, SLO Records, chaos under load).  Phases, each
-one or more printed lines:
+the environment tier of the CLI), the load generator over the serve
+path (seeded sampling, SLO Records, chaos under load), and the
+long-context ``decode`` pattern and the token LM's ``lm`` (no kernel on
+their path).  Phases, each one or more printed lines:
 
 1. device and toolchain: torch/CUDA versions, ``nvcc --version``, and the
    card's name and power limit as ``nvidia-smi`` reports them;
@@ -250,10 +251,31 @@ one or more printed lines:
     activity only) for the device's idle share; and the ``loadgen`` CLI (embed 256, head_dim
     32); each leg's TTFT, TPOT
     and e2e p50/p99, goodput, tokens and wall time;
-15. the card's name and power limit again, the ``kernels`` line (the
+15. ``decode`` and ``lm`` (``models/decode.py``, ``models/lm.py``; dense
+    torch ops, no hand-written kernel), K1's and K2-K4's counts set to 0
+    just before: ``run_decode`` at ``DecodeConfig``'s defaults (bf16,
+    embed 1024, 8 heads x 128, depth 4, batch 8, a 4096-token prefill,
+    128 generated, 5 reps), SUCCESS with ``cache_MB`` 553.648, its
+    tokens/s, ms a token beside the step's byte floor (cache and weights
+    read once over 3.35 TB/s), prefill ms and peak device memory, then
+    again with 2 K/V heads, RoPE and an int8 cache (mode
+    ``sp1_gqa2_rope_int8``); the teacher-forced check at that width in
+    float32 with TF32 off (batch 2, a 512-token prefill, 16 steps fed the
+    true input, MHA and GQA 2 with RoPE) against ``forward_stack`` over
+    the whole sequence, within 256 float32 eps of the output's
+    magnitude; one ``generate(…, 128)`` under torch.profiler: the
+    device's busy and idle share of its wall and its launches a step;
+    ``run_lm`` at ``LMConfig``'s defaults (float32, vocab 1024, embed
+    256, 8 x 32, depth 2, batch 4, seq 256, 20 steps) greedy and sampled
+    (temperature 0.8, top-k 16) twice, each SUCCESS and the two sampled
+    runs' ids equal bit for bit; the ``decode`` (prefill 512, gen 16,
+    reps 2) and ``lm`` (steps 4) CLI exiting 0, ``lm --tp 2`` refused;
+    then K1's and K2-K4's counts, which must read 0;
+16. the card's name and power limit again, the ``kernels`` line (the
     flash rows also carry ``train_loop_launches``, phase 8b's counts,
-    and K1's row ``loadgen_launches``, phase 14's by scenario), then the
-    device line, which is the last.
+    K1's row ``loadgen_launches``, phase 14's by scenario, and K1-K4
+    ``decode_lm_launches``, phase 15's), then the device line, which is
+    the last.
 """
 
 from __future__ import annotations
@@ -3267,6 +3289,266 @@ def phase_loadgen(torch, pk, timing):
     return by_scenario
 
 
+# -- phase 15: decode and lm on the card --------------------------------------
+
+# the float32 teacher-forced check at the decode width: batch 2, a
+# 512-token prefill, 16 steps fed the true next input
+DECODE_EXACT = dict(batch=2, prefill=512, steps=16)
+DECODE_EXACT_EPS = 256  # bound: this many float32 eps of the output's max
+
+
+def _decode_leg(torch, D, **kw):
+    """``run_decode`` at ``DecodeConfig``'s defaults with ``kw``: its
+    Record and the run's peak device memory."""
+    cfg = D.DecodeConfig(device=DEVICE, **kw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rec, = D.run_decode(cfg, lg_writer())
+    torch.cuda.synchronize()
+    return cfg, rec, torch.cuda.max_memory_allocated(), \
+        time.perf_counter() - t0
+
+
+def decode_byte_floor_ms(torch, D, tr, cfg, spec) -> float:
+    """The least time of one decode step: every cache slot and every
+    weight read once (the dense attention reads the whole cache, written
+    or not), over the card's memory rate."""
+    mcfg = D.model_config(cfg)
+    lc = cfg.prefill + cfg.gen
+    cache = cfg.depth * cfg.batch * lc * D.kv_slot_bytes(
+        cfg.head_dim, mcfg.n_kv, mcfg.torch_dtype, cfg.cache_int8)
+    itemsize = torch.empty((), dtype=mcfg.torch_dtype).element_size()
+    weights = cfg.depth * sum(math.prod(s) for s in
+                              tr.param_shapes(mcfg).values()) * itemsize
+    return (cache + weights) / (spec["hbm_gbps"] * 1e9) * 1e3
+
+
+def decode_exact(torch, D, tr):
+    """The teacher-forced check at the decode width in float32 with TF32
+    off, MHA and GQA 2 with RoPE: its max error against its bound."""
+    rows = []
+    for kw in (dict(), dict(kv_heads=2, rope=True)):
+        d = D.DecodeConfig()
+        cfg = tr.ModelConfig(embed=d.embed, heads=d.heads,
+                             head_dim=d.head_dim, mlp_mult=d.mlp_mult,
+                             depth=d.depth, dtype="float32", **kw)
+        n = DECODE_EXACT
+        with D._exact_matmuls(torch.device(DEVICE)):
+            params = D._stacked_params(0, cfg, DEVICE)
+            x = D._probe_input(1, (n["batch"], n["prefill"] + n["steps"],
+                                   cfg.embed), DEVICE)
+            got, want = D.teacher_forced(cfg, params, x, n["prefill"])
+        scale = max(1.0, float(abs(want).max()))
+        err = float(abs(got - want).max())
+        bound = DECODE_EXACT_EPS * float(torch.finfo(torch.float32).eps) \
+            * scale
+        row = {"phase": "decode_exact_f32", "kv_heads": cfg.kv_heads,
+               "rope": cfg.rope, **n, "depth": cfg.depth,
+               "positions": got.shape[1], "max_abs_err": err,
+               "scale": scale, "bound": bound,
+               "err_in_eps_of_scale": err / scale
+               / float(torch.finfo(torch.float32).eps),
+               "tolerance": f"{DECODE_EXACT_EPS} eps(f32) x max(1, max|ref|)",
+               "tf32": torch.backends.cuda.matmul.allow_tf32}
+        emit(row)
+        rows.append(row)
+    return rows
+
+
+def decode_profile(torch, D, timing):
+    """One ``generate(…, 128)`` call at ``DecodeConfig``'s defaults under
+    torch.profiler (device activity): the device's busy and idle share
+    of its wall and its launches a token step, beside the same call's
+    unprofiled wall (host clock, synchronized) and ``run_decode``'s
+    timed chain over the same calls (CUDA events)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = D.DecodeConfig(device=DEVICE)
+    mcfg = D.model_config(cfg)
+    prefill, generate = D.make_decoder(mcfg, cfg.batch, cfg.prefill,
+                                       cfg.gen, donate=True)
+    params = D._stacked_params(cfg.seed, mcfg, DEVICE)
+    x = D._probe_input(cfg.seed + 1, (cfg.batch, cfg.prefill, cfg.embed),
+                       DEVICE).to(mcfg.torch_dtype)
+    caches, y0 = prefill(params, x)
+
+    def call():
+        torch.cuda.synchronize()
+        t0 = timing.clock_ns()
+        generate(params, caches, y0, cfg.prefill, cfg.gen)
+        torch.cuda.synchronize()
+        return (timing.clock_ns() - t0) / 1e9
+
+    call()  # warm
+    unprofiled_s = min(call() for _ in range(3))
+
+    def build_chain(k: int):  # run_decode's timed chain, the same calls
+        def run():
+            c, y = {n: v.clone() for n, v in caches.items()}, y0
+            for _ in range(k):
+                c, out = generate(params, c, y, cfg.prefill, cfg.gen)
+                y = out[:, -1:, :]
+
+        return run
+
+    chain = timing.measure_chain(build_chain, reps=cfg.reps,
+                                 warmup=cfg.warmup, device=DEVICE)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        wall_s = call()
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and dev_us(e) > 0]
+    busy_s = sum(dev_us(e) for e in events) / 1e6
+    if busy_s <= 0:
+        raise AssertionError("the decode profile holds no device time")
+    launches = sum(e.count for e in events)
+    top = sorted(events, key=dev_us, reverse=True)[:6]
+    row = {"phase": "decode_profile", "steps": cfg.gen, "wall_s": wall_s,
+           "unprofiled_wall_s": unprofiled_s,
+           "unprofiled_ms_per_step": unprofiled_s * 1e3 / cfg.gen,
+           "chain_ms_per_step": chain.per_op_ns / 1e6 / cfg.gen,
+           "chain_converged": chain.converged, "device_busy_s": busy_s,
+           "device_busy_share": busy_s / wall_s,
+           "device_idle_share": 1 - busy_s / wall_s,
+           "idle_share_vs_unprofiled_wall": 1 - busy_s / unprofiled_s,
+           "device_launches": launches,
+           "launches_per_step": launches / cfg.gen,
+           "device_ms_per_step": busy_s * 1e3 / cfg.gen,
+           "top_device": [{"name": e.key[:60], "ms": dev_us(e) / 1e3,
+                           "calls": e.count} for e in top]}
+    emit(row)
+    return row
+
+
+@contextlib.contextmanager
+def _lm_ids(lm):
+    """Every ``generate`` output of the LM decoders made inside the
+    block (``run_lm`` warms the call, then times a second)."""
+    seen = []
+    real = lm.make_lm_decoder
+
+    def recording(*a, **k):
+        pre, gen = real(*a, **k)
+
+        def gen_rec(*ga, **gk):
+            out = gen(*ga, **gk)
+            seen.append(out[1].cpu())
+            return out
+
+        return pre, gen_rec
+
+    lm.make_lm_decoder = recording
+    try:
+        yield seen
+    finally:
+        lm.make_lm_decoder = real
+
+
+def phase_decode_lm(torch, pk, F, timing, spec):
+    """Phase 15 (module docstring).  Returns K1's and K2-K4's launches
+    in the phase (each must be 0)."""
+    from tpu_patterns_torch.models import decode as D
+    from tpu_patterns_torch.models import lm
+    from tpu_patterns_torch.models import transformer as tr
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    pk.paged_block.launches = 0
+    F.reset_launches()
+    bad = []
+    for name, kw, want_mb in (
+            ("main", {}, 553.648),
+            ("gqa2_rope_int8", dict(kv_heads=2, rope=True, cache_int8=True),
+             None)):
+        cfg, rec, peak, wall = _decode_leg(torch, D, **kw)
+        floor_ms = decode_byte_floor_ms(torch, D, tr, cfg, spec)
+        m = rec.metrics
+        emit({"phase": "decode", "leg": name, "mode": rec.mode,
+              "commands": rec.commands, "verdict": rec.verdict.value,
+              **m, "byte_floor_ms_per_token": floor_ms,
+              "byte_floor_share": floor_ms / m["ms_per_token"],
+              "peak_device_MB": peak / 1e6, "leg_seconds": wall,
+              "notes": rec.notes})
+        if rec.verdict.value != "SUCCESS":
+            bad.append(f"decode {rec.mode} {rec.verdict.value}: "
+                       + "; ".join(rec.notes))
+        if want_mb is not None and m["cache_MB"] != want_mb:
+            bad.append(f"decode cache_MB {m['cache_MB']}, want {want_mb}")
+        if name != "main" and rec.mode != "sp1_gqa2_rope_int8":
+            bad.append(f"decode mode {rec.mode}")
+    for row in decode_exact(torch, D, tr):
+        if not row["max_abs_err"] <= row["bound"]:
+            bad.append(f"decode f32 teacher-forced error {row['max_abs_err']}"
+                       f" above {row['bound']}")
+    decode_profile(torch, D, timing)
+
+    legs = (("greedy", {}), ("sampled", dict(temperature=0.8, top_k=16)),
+            ("sampled_again", dict(temperature=0.8, top_k=16)))
+    ids = []
+    for name, kw in legs:
+        t0 = time.perf_counter()
+        with _lm_ids(lm) as seen:
+            rec, = lm.run_lm(lm.LMConfig(device=DEVICE, **kw), lg_writer())
+        emit({"phase": "lm", "leg": name, "mode": rec.mode,
+              "commands": rec.commands, "verdict": rec.verdict.value,
+              **rec.metrics, "notes": rec.notes,
+              "leg_seconds": time.perf_counter() - t0})
+        if rec.verdict.value != "SUCCESS":
+            bad.append(f"lm {rec.mode} {rec.verdict.value}: "
+                       + "; ".join(rec.notes))
+        ids.append(seen[-1])
+    greedy_ids, sampled_ids = ids[0], ids[1:]
+    same = torch.equal(*sampled_ids)
+    emit({"phase": "lm", "leg": "sampled_repeat", "ids_equal": same,
+          "ids_shape": list(sampled_ids[0].shape),
+          "share_unlike_greedy": float(
+              (sampled_ids[0] != greedy_ids).float().mean())})
+    if not same:
+        bad.append("lm: two sampled runs at one seed drew different ids")
+
+    for argv, marker in ((["decode", "--prefill", "512", "--gen", "16",
+                           "--reps", "2"], "sp1"), (["lm", "--steps", "4"],
+                                                   "V1024")):
+        t0 = time.perf_counter()
+        rc, out, recs = _cli_in_process(argv)
+        ok = rc == 0 and f"## {marker} |" in out and "| SUCCESS" in out
+        emit({"phase": "decode_lm_cli", "argv": argv, "rc": rc,
+              "verdicts": [r["verdict"] for r in recs],
+              "leg_seconds": time.perf_counter() - t0})
+        if not ok:
+            bad.append(f"{' '.join(argv)}: rc {rc}")
+    err = io.StringIO()
+    try:
+        with contextlib.redirect_stderr(err):
+            _cli_in_process(["lm", "--tp", "2"])
+        refused = None
+    except SystemExit as e:
+        refused = e.code
+    emit({"phase": "decode_lm_cli", "argv": ["lm", "--tp", "2"],
+          "exit": refused, "message": err.getvalue().strip()[-160:]})
+    if refused != 2 or "does not support yet" not in err.getvalue():
+        bad.append("lm --tp 2 was not refused")
+
+    torch.cuda.synchronize()
+    launches = {"paged_attention": pk.paged_block.launches, **F.LAUNCHES}
+    emit({"phase": "decode_lm_phase", "seconds": time.perf_counter() - t_phase,
+          "kernel_launches": launches,
+          "card": _run(["nvidia-smi", "--query-gpu=name,power.limit",
+                        "--format=csv,noheader"]).strip().splitlines()[0]})
+    if any(launches.values()):
+        bad.append(f"decode/lm launched kernels: {launches}")
+    if bad:
+        raise AssertionError("decode/lm: " + " | ".join(bad))
+    return launches
+
+
 def profile_concurrency_main() -> int:
     """``python3 chip_smoke.py --profile-concurrency``, which the smoke
     runs in a process of its own: the xla concurrent "C C" run, the
@@ -3341,9 +3623,9 @@ def profile_concurrency_main() -> int:
 # the timing phases ``--tree`` runs with another checkout's package
 TREE_PHASES = ("put_time", "ring_put_time", "accumulate_time",
                "allreduce", "add_one_time")
-# phases ``--tree`` runs only when named: phase 14 on its own, and phase
-# 5's bf16 serve leg (a tree's serve tokens/s against another's)
-TREE_ONLY_NAMED = ("loadgen", "serve")
+# phases ``--tree`` runs only when named: phases 14 and 15 on their own,
+# and phase 5's bf16 serve leg (a tree's serve tokens/s against another's)
+TREE_ONLY_NAMED = ("loadgen", "decode_lm", "serve")
 
 
 def tree_main(tree: str, phases: list[str]) -> int:
@@ -3374,6 +3656,7 @@ def tree_main(tree: str, phases: list[str]) -> int:
     from tpu_patterns_torch.core import timing
     from tpu_patterns_torch.interop import kernel as k10
     from tpu_patterns_torch.kernels import build
+    from tpu_patterns_torch.longctx import flash as F
     from tpu_patterns_torch.miniapps import framework as fw
     from tpu_patterns_torch.miniapps.apps import allreduce as ar
     from tpu_patterns_torch.miniapps.apps.allreduce import pallas as ap
@@ -3399,6 +3682,7 @@ def tree_main(tree: str, phases: list[str]) -> int:
            "add_one_time": lambda: phase_add_one_time(torch, k10, ck,
                                                       timing, spec),
            "loadgen": lambda: phase_loadgen(torch, pk, timing),
+           "decode_lm": lambda: phase_decode_lm(torch, pk, F, timing, spec),
            "serve": lambda: serve_leg(torch, eng_mod, "bf16",
                                       eng_mod.ServeConfig(
                                           **FULL_WIDTH, dtype="bfloat16",
@@ -3628,6 +3912,7 @@ def main() -> int:
     k10_time = phase_add_one_time(torch, k10, ck, timing, spec)
     phase_p2p_suite(torch, spec)
     loadgen_launches = phase_loadgen(torch, pk, timing)
+    decode_lm_launches = phase_decode_lm(torch, pk, F, timing, spec)
 
     rows = {**ftime, **ptime, "paged_attention": {
         "ms": ktime["kernel"]["ms"], "bound_ms": ktime["bound_ms"],
@@ -3671,6 +3956,7 @@ def main() -> int:
         "long_window_share_of_bound": klong["share_of_bound"],
         "verify_launches": spec_leg["kernel_launches"],
         "loadgen_launches": loadgen_launches,
+        "decode_lm_launches": decode_lm_launches["paged_attention"],
     }]
     for kname, (source, replaces) in FLASH_KERNELS.items():
         row = ftime[kname]
@@ -3681,6 +3967,7 @@ def main() -> int:
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "train_loop_launches": train_launches[kname],
+            "decode_lm_launches": decode_lm_launches[kname],
         })
     # launches: mono in its run_onesided call, the others in auto's
     for kname, replaces in PUT_KERNELS.items():

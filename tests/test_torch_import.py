@@ -55,6 +55,7 @@ def test_import_pulls_no_jax():
         "import tpu_patterns_torch.loadgen.runner\n"
         "import tpu_patterns_torch.obs.slo, tpu_patterns_torch.obs.cost\n"
         "import tpu_patterns_torch.models.prng\n"
+        "import tpu_patterns_torch.models.decode, tpu_patterns_torch.models.lm\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'tpu_patterns')]\n"
         "assert not bad, bad\n"
@@ -81,7 +82,8 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
         AllreduceConfig,
         run_allreduce,
     )
-    from tpu_patterns_torch.models.lm import init_lm_params
+    from tpu_patterns_torch.models.decode import DecodeConfig, run_decode
+    from tpu_patterns_torch.models.lm import LMConfig, init_lm_params, run_lm
     from tpu_patterns_torch.models.train_loop import TrainLoopConfig, train
     from tpu_patterns_torch.models.transformer import ModelConfig
     from tpu_patterns_torch.runtime import resolve_device
@@ -140,6 +142,10 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
         lambda: cli.main(["serve", "--scenario", "chat"]),
         lambda: make_paged_lm_decoder(cfg, 32, n_blocks=4, block_len=8,
                                       max_len=16, sampling=True),
+        lambda: run_decode(DecodeConfig()),
+        lambda: cli.main(["decode"]),
+        lambda: run_lm(LMConfig()),
+        lambda: cli.main(["lm"]),
     ):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()

@@ -15,8 +15,10 @@ each TPU kernel on a ported path is a kernel written by hand for Hopper
                     seeded per-row sampler (models/prng.py: threefry as
                     jax.random draws it), the dense per-request decoder
                     (the exactness oracle), the one-device train step,
-                    the flagship workload and the resumable training
-                    loop (models/train_loop.py)
+                    the flagship workload, the resumable training loop
+                    (models/train_loop.py), the long-context decode
+                    pattern and the token LM's train-then-generate
+                    pattern
   longctx/          dense attention twins, the flash tile model and the
                     flash-attention kernels (longctx/csrc/: forward, and
                     dq and dk/dv backward)

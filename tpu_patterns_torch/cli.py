@@ -21,13 +21,20 @@
     python -m tpu_patterns_torch train --device cuda --attn kernel \
         --ckpt_dir ckpts --ckpt_every 2 --steps 8
     python -m tpu_patterns_torch ckpt ckpts --leaves
+    python -m tpu_patterns_torch decode --device cuda --kv_heads 2 \
+        --rope true --cache_int8 true
+    python -m tpu_patterns_torch lm --device cuda --temperature 0.8 \
+        --top_k 16
 
 One flag per field of the subcommand's config
 (:class:`~tpu_patterns_torch.serve.engine.ServeConfig`,
 :class:`~tpu_patterns_torch.loadgen.runner.LoadGenConfig`,
 :class:`~tpu_patterns_torch.models.flagship.FlagshipConfig`,
-:class:`~tpu_patterns_torch.models.train_loop.TrainLoopConfig`), named as
-in ``tpu-patterns serve`` / ``loadgen`` / ``flagship`` / ``train``, whose
+:class:`~tpu_patterns_torch.models.train_loop.TrainLoopConfig`,
+:class:`~tpu_patterns_torch.models.decode.DecodeConfig`,
+:class:`~tpu_patterns_torch.models.lm.LMConfig`), named as
+in ``tpu-patterns serve`` / ``loadgen`` / ``flagship`` / ``train`` /
+``decode`` / ``lm``, whose
 default is
 the field's unless ``TPU_PATTERNS_<FIELD>`` is set (``core/config.py``:
 CLI > environment > default); ``loadgen`` and ``serve --scenario`` check
@@ -71,7 +78,7 @@ from tpu_patterns_torch.core.config import _coerce, add_config_args
 from tpu_patterns_torch.core.results import ResultWriter
 
 # `tpu-patterns <cmd>` flags whose machinery is not ported yet (the
-# mesh flags of `flagship` and `train`)
+# mesh flags of `flagship`, `train`, `decode`, `lm` and `loadgen`)
 _NOT_PORTED_FLAGSHIP = ("devices", "dp", "tp")
 _NOT_PORTED = (
     "devices", "dp", "tp", "watchdog_s", "snapshot_dir", "resume",
@@ -156,7 +163,9 @@ def _mesh(args):
 
 def build_parser() -> argparse.ArgumentParser:
     from tpu_patterns_torch.loadgen.runner import LoadGenConfig
+    from tpu_patterns_torch.models.decode import DecodeConfig
     from tpu_patterns_torch.models.flagship import FlagshipConfig
+    from tpu_patterns_torch.models.lm import LMConfig
     from tpu_patterns_torch.models.train_loop import TrainLoopConfig
     from tpu_patterns_torch.serve.engine import ServeConfig
 
@@ -194,6 +203,20 @@ def build_parser() -> argparse.ArgumentParser:
     )
     _add_config_flags(tr, TrainLoopConfig, _NOT_PORTED_FLAGSHIP)
     tr.add_argument("--device", choices=_CHOICES["device"], default="cuda")
+    dc = sub.add_parser(
+        "decode",
+        help="autoregressive decode over a dense KV cache (the "
+        "long-context inference pattern): prefill, then timed "
+        "self-feeding generation, gated by teacher forcing",
+    )
+    _add_config_flags(dc, DecodeConfig, _NOT_PORTED_FLAGSHIP)
+    lmp = sub.add_parser(
+        "lm",
+        help="token-level LM: embedding, cross-entropy and argmax; train "
+        "then generate (greedy or Gumbel-max sampled), one measured "
+        "pattern",
+    )
+    _add_config_flags(lmp, LMConfig, _NOT_PORTED_FLAGSHIP)
     ck = sub.add_parser(
         "ckpt",
         help="inspect a checkpoint directory: committed steps, sizes, "
@@ -543,6 +566,23 @@ def _train(args, parser, writer: ResultWriter) -> None:
     train(cfg, writer, device=args.device)
 
 
+def _model_pattern(args, parser, writer: ResultWriter) -> None:
+    """``decode`` or ``lm``: refuse what the port does not do (the
+    mixture FFN, the striped layout) before anything is built."""
+    from tpu_patterns_torch.models import decode, lm
+
+    mod, cls, run = {
+        "decode": (decode, decode.DecodeConfig, decode.run_decode),
+        "lm": (lm, lm.LMConfig, lm.run_lm),
+    }[args.cmd]
+    cfg = _config(cls, args)
+    try:
+        mod.model_config(cfg)
+    except NotImplementedError as e:
+        parser.error(f"{args.cmd}: {e}")
+    run(cfg, writer)
+
+
 def _ckpt(args) -> None:
     """Inspect a checkpoint directory (read-only, manifest-driven), in
     the lines of ``tpu-patterns ckpt`` (``tpu_patterns/cli.py:657``)."""
@@ -645,6 +685,8 @@ def main(argv: list[str] | None = None) -> int:
         _train(args, parser, writer)
     elif args.cmd == "ckpt":
         _ckpt(args)
+    elif args.cmd in ("decode", "lm"):
+        _model_pattern(args, parser, writer)
     else:
         cfg = _config(FlagshipConfig, args)
         why = unported(cfg)

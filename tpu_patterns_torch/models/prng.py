@@ -61,7 +61,13 @@ def fold_in(k: torch.Tensor, data) -> torch.Tensor:
     """``jax.random.fold_in``: keys ``[..., 2]`` and ``data`` (an int or
     an integer tensor broadcasting over the leading axes, read as
     uint32) -> keys ``[..., 2]``."""
-    d = torch.as_tensor(data, device=k.device).to(torch.int64) & MASK32
+    if isinstance(data, int):
+        # filled on the device: a host scalar never becomes a copy (and
+        # a copy's wait) inside a generation loop
+        d = torch.full(k.shape[:-1], data & MASK32, dtype=torch.int64,
+                       device=k.device)
+    else:
+        d = torch.as_tensor(data, device=k.device).to(torch.int64) & MASK32
     y0, y1 = threefry2x32(k[..., 0], k[..., 1], torch.zeros_like(d), d)
     return torch.stack((y0, y1), dim=-1)
 

@@ -63,7 +63,8 @@ class ModelConfig:
     def __post_init__(self):
         if self.moe:
             raise NotImplementedError(
-                "moe=True is not ported to tpu_patterns_torch yet"
+                "moe=True is not ported to tpu_patterns_torch yet "
+                "(ROADMAP.md, Queue 1 step 8)"
             )
         if self.kv_heads and self.heads % self.kv_heads:
             raise ValueError(
@@ -75,7 +76,7 @@ class ModelConfig:
         if self.attn_layout == "striped":
             raise NotImplementedError(
                 "attn_layout='striped' is an sp > 1 layout, not ported to "
-                "tpu_patterns_torch yet"
+                "tpu_patterns_torch yet (ROADMAP.md, Queue 1 step 8)"
             )
         if self.attn_layout != "contiguous":
             raise ValueError(f"unknown attn_layout {self.attn_layout!r}")
@@ -236,6 +237,16 @@ def forward_shard(params: dict, x: torch.Tensor,
     y = x + o
     hidden = torch.relu(torch.einsum("ble,ef->blf", y, params["w1"]))
     return y + torch.einsum("blf,fe->ble", hidden, params["w2"])
+
+
+def forward_stack(params: dict, x: torch.Tensor,
+                  cfg: ModelConfig) -> torch.Tensor:
+    """Every layer of the ``[depth]``-stacked ``params`` applied in
+    turn: the single-device reference the decode gates hold the cache
+    path to."""
+    for i in range(next(iter(params.values())).shape[0]):
+        x = forward_shard({k: v[i] for k, v in params.items()}, x, cfg)
+    return x
 
 
 def _checkpoint_full(fn):
