@@ -18,9 +18,10 @@ on the one card), the interop slice (the native C++ module and the
 kernel whose output it reads in place), the rest of the P2P suite
 (topology, placement, the pair exchange, the hierarchical allreduce and
 the environment tier of the CLI), the load generator over the serve
-path (seeded sampling, SLO Records, chaos under load), and the
+path (seeded sampling, SLO Records, chaos under load), the
 long-context ``decode`` pattern and the token LM's ``lm`` (no kernel on
-their path).  Phases, each one or more printed lines:
+their path), and the serve engine's kv tier, priority preemption and
+snapshots.  Phases, each one or more printed lines:
 
 1. device and toolchain: torch/CUDA versions, ``nvcc --version``, and the
    card's name and power limit as ``nvidia-smi`` reports them;
@@ -271,9 +272,34 @@ their path).  Phases, each one or more printed lines:
     runs' ids equal bit for bit; the ``decode`` (prefill 512, gen 16,
     reps 2) and ``lm`` (steps 4) CLI exiting 0, ``lm --tp 2`` refused;
     then K1's and K2-K4's counts, which must read 0;
-16. the card's name and power limit again, the ``kernels`` line (the
+16. the kv tier, preemption and snapshots on the serve path, at the
+    serve model's width in float32 with TF32 off (K1's count set to 0
+    just before each leg, read just after): (a) ``run_serve`` with
+    ``kv_host_tier``: the ``kv_tier_*`` Record SUCCESS (exact, the
+    defer-only leg deferring where the tier leg never does, pressure
+    admits, evictions and onload hits, no leak, tokens/s above the
+    defer-only leg's), its evict and onload MB and the milliseconds of
+    the copies, the session commits and the onloads; (b) the same with
+    ``session_dir`` twice over one directory, the second run reading
+    its history back (``session_loaded`` > 0) with 0 fresh full prompt
+    blocks; (c) ``serve --snapshot_dir`` under
+    ``serve.step:preempt:after=4:count=1`` (a WARNING Record and a
+    committed snapshot), then ``--resume true --ids_out``: SUCCESS,
+    exact and the ids file equal to an uninterrupted engine's; again
+    with ``--prefix_share true --spec_k 4`` under ``serve.verify``
+    (K1 at W = 5 after the resume); (d) priority preemption at the
+    engine (2 slots, running bulk rows, interactive arrivals), greedy
+    and sampled (temperature 0.8, top-k 16): ids equal to an
+    unpreempted engine's, preempted and resumed >= 1, no banked
+    partial left, each lifecycle's n_out its n_gen; (e) ``run_loadgen``
+    with ``kv_host_tier`` on the JAX package's tier-race traffic (its
+    ``serve.kv_tier`` sweep cell, lengths doubled for block_len 16): the
+    ``chat_kv_tier_*`` Record SUCCESS, the defer-only leg deferring, the
+    tier leg never, and the tier leg decoding in fewer steps;
+17. the card's name and power limit again, the ``kernels`` line (the
     flash rows also carry ``train_loop_launches``, phase 8b's counts,
-    K1's row ``loadgen_launches``, phase 14's by scenario, and K1-K4
+    K1's row ``loadgen_launches``, phase 14's by scenario,
+    ``kv_tier_launches``, phase 16's by leg, and K1-K4
     ``decode_lm_launches``, phase 15's), then the device line, which is
     the last.
 """
@@ -3549,6 +3575,327 @@ def phase_decode_lm(torch, pk, F, timing, spec):
     return launches
 
 
+# -- phase 16: the kv tier, preemption and snapshots on the serve path -------
+
+# the serve model at full width in float32 (ids are gated)
+KV_WIDTH = dict(FULL_WIDTH, dtype="float32")
+# the session trace's size in legs a and b (16 conversations, 2 turns):
+# at the default 16 requests (10 conversations) the retained prefixes
+# fit the 26-block pool and nothing evicts, in the JAX package's run
+# alike
+KV_REQUESTS = 32
+# the loadgen race: the JAX package's own tier-race traffic, its
+# ``serve.kv_tier`` sweep cell (tpu_patterns/sweep.py, ``serve_specs``):
+# one 2-block shared prefix, prompts pinned so that every request needs
+# exactly 5 blocks, a pool 1/1.4 of the 8 slots' working set, arrivals
+# at 0.02 of real time.  Its token lengths are doubled for block_len 16
+# (the cell runs block_len 8), so the block counts stay the cell's: the
+# defer-only engine fits 5 rows of 8, the tier (aliasing the prefix) 8
+KV_LOADGEN = ("chat:requests=16:min_prompt=52:mean_prompt=56:max_prompt=60"
+              ":min_gen=16:mean_gen=18:max_gen=20"
+              ":prefix_groups=1:shared_prefix=32:working_set_mult=1.4"
+              ":slo_ttft_ms=60000:slo_tpot_ms=20000")
+KV_LOADGEN_TIME_SCALE = 0.02
+# readings of leg e in ``--tree . kv_race`` (its spread, PERF.md)
+KV_RACE_REPS = 8
+# priority preemption at the engine: 2 slots of running bulk rows, and
+# interactive requests behind them that claim slots by parking bulk
+KV_PREEMPT_BLOCKS = 33  # 4 rows x 8 blocks of 16, + trash
+
+
+def _k1_leg(torch, pk, fn):
+    """``fn()`` with K1's count set to 0 just before and read just after:
+    (its result, launches, {W: launches}, seconds)."""
+    pk.paged_block.launches = 0
+    t0 = time.perf_counter()
+    with _k1_widths(pk) as widths:
+        out = fn()
+        torch.cuda.synchronize()
+    return out, pk.paged_block.launches, dict(widths), \
+        time.perf_counter() - t0
+
+
+def _serve_argv(cfg: dict) -> list[str]:
+    """``serve`` flags for the ServeConfig fields in ``cfg``."""
+    argv = ["serve"]
+    for k, v in cfg.items():
+        argv += [f"--{k}", str(v).lower() if isinstance(v, bool) else str(v)]
+    return argv
+
+
+def _tier_ms(rec) -> dict:
+    return {k: rec.config.get(k) for k in ("evict_ms", "commit_ms",
+                                           "onload_ms")}
+
+
+def kv_cli_preempt_resume(torch, pk, eng_mod, faults, work, name, site,
+                          **kw):
+    """``serve --snapshot_dir`` at the serve width with ``site:preempt``
+    after 4 steps (a WARNING Record, a committed step), then ``--resume
+    true --ids_out``: SUCCESS, exact, and the ids file equal to an
+    uninterrupted engine's on the same trace.  Returns (problems, K1's
+    launches in each run)."""
+    from tpu_patterns_torch import ckpt as tc
+
+    bad = []
+    snap = os.path.join(work, f"snap_{name}")
+    ids = os.path.join(work, f"ids_{name}.json")
+    flags = dict(KV_WIDTH, requests=8, gen=32, **kw)
+    argv = _serve_argv(flags) + ["--snapshot_dir", snap]
+    faults.configure(f"{site}:preempt:after=4:count=1")
+    try:
+        (rc, _, recs), n1, w1, s1 = _k1_leg(
+            torch, pk, lambda: _cli_in_process(argv))
+    finally:
+        faults.configure(None)
+    step = tc.latest_step(snap)
+    rec = recs[0] if recs else {}
+    emit({"phase": "kv_tier", "leg": f"c_{name}_preempt", "rc": rc,
+          "mode": rec.get("mode"), "verdict": rec.get("verdict"),
+          "metrics": rec.get("metrics"), "committed_step": step,
+          "kv_tier_launches": n1, "launch_widths": w1, "seconds": s1})
+    launches = {f"c_{name}_preempt": n1}
+    if (rc != 0 or rec.get("verdict") != "WARNING"
+            or rec["metrics"]["preempted"] != 1.0 or step is None
+            or n1 <= 0):
+        bad.append(f"c {name}: preempt leg rc {rc} {rec}, K1 {n1}")
+        return bad, launches
+    (rc, _, recs), n2, w2, s2 = _k1_leg(torch, pk, lambda: _cli_in_process(
+        argv + ["--resume", "true", "--ids_out", ids]))
+    launches[f"c_{name}_resume"] = n2
+    rec = recs[0] if recs else {}
+    cfg = eng_mod.ServeConfig(**flags)
+    mcfg, decoder, params, trace = eng_mod.build_serve(cfg)
+    if cfg.prefix_share:
+        trace, _ = eng_mod.shared_trace(cfg)
+    want = eng_mod.ServeEngine(decoder, params, slots=cfg.slots,
+                               prefix_share=cfg.prefix_share,
+                               spec_k=cfg.spec_k).run(trace)
+    got = {}
+    if os.path.exists(ids):
+        with open(ids) as f:
+            got = {int(k): v for k, v in json.load(f)["done"].items()}
+    emit({"phase": "kv_tier", "leg": f"c_{name}_resume", "rc": rc,
+          "mode": rec.get("mode"), "verdict": rec.get("verdict"),
+          "metrics": rec.get("metrics"), "ids_equal_uninterrupted":
+          got == want, "kv_tier_launches": n2, "launch_widths": w2,
+          "seconds": s2})
+    if (rc != 0 or rec.get("verdict") != "SUCCESS"
+            or rec["metrics"]["exact"] != 1.0 or got != want or n2 <= 0):
+        bad.append(f"c {name}: resume leg rc {rc} {rec}, ids equal "
+                   f"{got == want}, K1 {n2}")
+    if cfg.spec_k and w2.get(cfg.spec_k + 1, 0) <= 0:
+        bad.append(f"c {name}: no K1 launch at W = {cfg.spec_k + 1} after "
+                   f"the resume ({w2})")
+    return bad, launches
+
+
+def kv_priority_preempt(torch, pk, eng_mod, sampled: bool):
+    """The reference's interactive-preempts-bulk shape at the serve
+    width: 2 slots, 2 bulk rows admitted first, 2 interactive requests
+    behind them.  The preempting engine's ids must equal an unpreempted
+    engine's; every banked partial retired; each request's lifecycle
+    n_out its n_gen.  Returns (row, problems)."""
+    import numpy as np
+
+    from tpu_patterns_torch.models.lm import init_lm_params
+    from tpu_patterns_torch.serve.paged import make_paged_lm_decoder
+
+    cfg = eng_mod.ServeConfig(**KV_WIDTH)
+    mcfg = eng_mod.model_config(cfg)
+    decoder = make_paged_lm_decoder(
+        mcfg, cfg.vocab, n_blocks=KV_PREEMPT_BLOCKS, block_len=16,
+        max_len=128, attn="kernel", sampling=sampled, device=DEVICE)
+    params = decoder.stack_params(init_lm_params(cfg.seed, mcfg, cfg.vocab,
+                                                 DEVICE))
+    rng = np.random.RandomState(9)
+    reqs = []
+    for i in range(4):
+        bulk = i < 2
+        reqs.append(eng_mod.Request(
+            rid=i, tokens=rng.randint(0, cfg.vocab,
+                                      size=rng.randint(40, 90)).tolist(),
+            n_gen=24 if bulk else 6,
+            priority="bulk" if bulk else "interactive",
+            temperature=0.8 if sampled else 0.0,
+            top_k=16 if sampled else 0, seed=100 + i))
+    want = eng_mod.ServeEngine(decoder, params, slots=2).run(
+        [dataclasses.replace(r) for r in reqs])
+    eng = eng_mod.ServeEngine(decoder, params, slots=2, kv_host_tier=True,
+                              preempt="bulk")
+    out, launches, widths, secs = _k1_leg(
+        torch, pk, lambda: eng.run([dataclasses.replace(r) for r in reqs]))
+    n_out = {rid: lc["n_out"] for rid, lc in eng.lifecycle.items()}
+    st = eng.stats
+    row = {"phase": "kv_tier", "leg": "d_" + ("sampled" if sampled
+                                               else "greedy"),
+           "ids_equal_unpreempted": out == want,
+           "preempted": st["preempted"],
+           "preempted_resumed": st["preempted_resumed"],
+           "evictions": st["evictions"], "onload_hits": st["onload_hits"],
+           "banked_left": len(eng.preempted_partial),
+           "lifecycle_n_out_ok": n_out == {r.rid: r.n_gen for r in reqs},
+           "leaked_blocks": eng.leaked_blocks(),
+           "kv_tier_launches": launches, "launch_widths": widths,
+           "seconds": secs}
+    bad = []
+    if not (out == want and st["preempted"] >= 1
+            and st["preempted_resumed"] >= 1 and not eng.preempted_partial
+            and row["lifecycle_n_out_ok"] and row["leaked_blocks"] == 0
+            and launches > 0):
+        bad.append(f"d {row['leg']}: {row}")
+    return row, bad
+
+
+def kv_loadgen_race(torch, pk, lg):
+    """Leg e: ``run_loadgen`` on :data:`KV_LOADGEN` with ``kv_host_tier``,
+    its Records printed, then a ``e_loadgen_run`` line with the race's
+    counts.  Beside the Record's verdict (which reads tokens/s on the
+    host's clock) it holds the counts the schedule decides: the
+    defer-only leg defers, the tier leg never does, and the tier leg
+    decodes in fewer steps.  Returns (that line, problems)."""
+    recs, n, widths, secs = _k1_leg(torch, pk, lambda: lg.run_loadgen(
+        lg.LoadGenConfig(**LOADGEN_WIDTH, scenarios=(KV_LOADGEN,),
+                         kv_host_tier=True,
+                         time_scale=KV_LOADGEN_TIME_SCALE),
+        lg_writer()))
+    for rec in recs:
+        emit({"phase": "kv_tier", "leg": "e_loadgen", "mode": rec.mode,
+              "verdict": rec.verdict.value, **rec.metrics,
+              **_tier_ms(rec), "notes": rec.notes})
+    race = [r for r in recs if r.mode.endswith("_kv_tier_sp1")]
+    row = {"phase": "kv_tier", "leg": "e_loadgen_run",
+           "kv_tier_launches": n, "launch_widths": widths, "seconds": secs}
+    if len(race) != 1:
+        return row, [f"e: no race Record in {[r.mode for r in recs]}"]
+    m, cfg = race[0].metrics, race[0].config
+    row.update(verdict=race[0].verdict.value,
+               goodput_speedup=m["goodput_speedup"],
+               deferrals=m["deferrals"],
+               defer_baseline_deferrals=m["defer_baseline_deferrals"],
+               decode_steps=cfg.get("decode_steps"),
+               defer_decode_steps=cfg.get("defer_decode_steps"))
+    emit(row)
+    bad = []
+    if race[0].verdict.value != "SUCCESS" or n <= 0:
+        bad.append(f"e: {race[0].verdict.value} {m} {race[0].notes}")
+    if not (m["defer_baseline_deferrals"] > 0 and m["deferrals"] == 0
+            and row["decode_steps"] < row["defer_decode_steps"]):
+        bad.append(f"e: the schedule's counts {row}")
+    return row, bad
+
+
+def phase_kv_race(torch, pk):
+    """``--tree . kv_race``: leg e :data:`KV_RACE_REPS` times in one
+    process (after one run that warms the kernels and the allocator),
+    then a ``kv_race_spread`` line: each reading's ``goodput_speedup``
+    and decode steps, their min, median and max.  Fails if any
+    reading's leg fails."""
+    from tpu_patterns_torch import loadgen as lg
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kv_loadgen_race(torch, pk, lg)
+    rows, bad = [], []
+    for _ in range(KV_RACE_REPS):
+        row, problems = kv_loadgen_race(torch, pk, lg)
+        rows.append(row)
+        bad += problems
+    ups = sorted(r.get("goodput_speedup", 0.0) for r in rows)
+    emit({"phase": "kv_race_spread", "readings": len(rows),
+          "goodput_speedup": [r.get("goodput_speedup") for r in rows],
+          "min": ups[0], "median": ups[len(ups) // 2], "max": ups[-1],
+          "decode_steps": [r.get("decode_steps") for r in rows],
+          "defer_decode_steps": [r.get("defer_decode_steps") for r in rows],
+          "card": _run(["nvidia-smi", "--query-gpu=name,power.limit",
+                        "--format=csv,noheader"]).strip().splitlines()[0]})
+    if bad:
+        raise AssertionError("kv race: " + " | ".join(bad))
+
+
+def phase_kv_tier(torch, pk):
+    """Phase 16 (module docstring).  Returns K1's launches by leg."""
+    import shutil
+
+    from tpu_patterns_torch import faults
+    from tpu_patterns_torch import loadgen as lg
+    from tpu_patterns_torch.serve import engine as eng_mod
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    work = os.path.join(ROOT, "build", "kv_tier_smoke")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    bad = []
+    launches = {}
+    try:
+        # a. the tier race
+        (rec,), n, widths, secs = _k1_leg(torch, pk, lambda: eng_mod.run_serve(
+            eng_mod.ServeConfig(**KV_WIDTH, requests=KV_REQUESTS,
+                                kv_host_tier=True), lg_writer()))
+        launches["a_tier_race"] = n
+        m = rec.metrics
+        emit({"phase": "kv_tier", "leg": "a_tier_race", "mode": rec.mode,
+              "verdict": rec.verdict.value, **m, **_tier_ms(rec),
+              "kv_tier_launches": n, "launch_widths": widths,
+              "seconds": secs, "notes": rec.notes})
+        if (rec.verdict.value != "SUCCESS" or m["exact"] != 1.0
+                or not m["defer_baseline_deferrals"] > 0
+                or m["deferrals"] != 0 or not m["pressure_admits"] > 0
+                or not m["evictions"] > 0 or not m["onload_hits"] > 0
+                or m["leaked_blocks"] != 0 or not m["goodput_speedup"] > 1.0
+                or n <= 0):
+            bad.append(f"a: {rec.verdict.value} {m} {rec.notes}")
+        # b. the session cache, twice over one directory
+        sess = os.path.join(work, "sess")
+        for turn in (1, 2):
+            (rec,), n, _, secs = _k1_leg(
+                torch, pk, lambda: eng_mod.run_serve(eng_mod.ServeConfig(
+                    **KV_WIDTH, requests=KV_REQUESTS, kv_host_tier=True,
+                    session_dir=sess), lg_writer()))
+            launches[f"b_session_{turn}"] = n
+            m = rec.metrics
+            emit({"phase": "kv_tier", "leg": f"b_session_{turn}",
+                  "mode": rec.mode, "verdict": rec.verdict.value, **m,
+                  **_tier_ms(rec), "kv_tier_launches": n, "seconds": secs,
+                  "notes": rec.notes})
+            if rec.verdict.value != "SUCCESS" or m["exact"] != 1.0 or n <= 0:
+                bad.append(f"b{turn}: {rec.verdict.value} {m} {rec.notes}")
+            if turn == 2 and not (m["session_loaded"] > 0
+                                  and m["prompt_fresh_full_blocks"] == 0):
+                bad.append(f"b2: the restart prefilled history {m}")
+        # c. preempt -> snapshot -> resume through the CLI
+        for name, site, kw in (
+                ("greedy", "serve.step", {}),
+                ("shared_spec", "serve.verify",
+                 dict(prefix_share=True, spec_k=SPEC_K))):
+            problems, counts = kv_cli_preempt_resume(
+                torch, pk, eng_mod, faults, work, name, site, **kw)
+            bad += problems
+            launches.update(counts)
+        # d. priority preemption at the engine, greedy and sampled
+        for sampled in (False, True):
+            row, problems = kv_priority_preempt(torch, pk, eng_mod, sampled)
+            emit(row)
+            launches[row["leg"]] = row["kv_tier_launches"]
+            bad += problems
+        # e. the loadgen race
+        row, problems = kv_loadgen_race(torch, pk, lg)
+        launches["e_loadgen"] = row["kv_tier_launches"]
+        bad += problems
+    finally:
+        faults.configure(None)
+        shutil.rmtree(work, ignore_errors=True)
+    emit({"phase": "kv_tier_phase", "seconds": time.perf_counter() - t_phase,
+          "kv_tier_launches": launches,
+          "card": _run(["nvidia-smi", "--query-gpu=name,power.limit",
+                        "--format=csv,noheader"]).strip().splitlines()[0]})
+    if bad:
+        raise AssertionError("kv tier: " + " | ".join(bad))
+    return launches
+
+
 def profile_concurrency_main() -> int:
     """``python3 chip_smoke.py --profile-concurrency``, which the smoke
     runs in a process of its own: the xla concurrent "C C" run, the
@@ -3623,9 +3970,11 @@ def profile_concurrency_main() -> int:
 # the timing phases ``--tree`` runs with another checkout's package
 TREE_PHASES = ("put_time", "ring_put_time", "accumulate_time",
                "allreduce", "add_one_time")
-# phases ``--tree`` runs only when named: phases 14 and 15 on their own,
-# and phase 5's bf16 serve leg (a tree's serve tokens/s against another's)
-TREE_ONLY_NAMED = ("loadgen", "decode_lm", "serve")
+# phases ``--tree`` runs only when named: phases 14, 15 and 16 on their
+# own, phase 16's leg e again and again (``kv_race``: its spread), and
+# phase 5's bf16 serve leg (a tree's serve tokens/s against another's)
+TREE_ONLY_NAMED = ("loadgen", "decode_lm", "kv_tier", "kv_race",
+                   "serve")
 
 
 def tree_main(tree: str, phases: list[str]) -> int:
@@ -3683,6 +4032,8 @@ def tree_main(tree: str, phases: list[str]) -> int:
                                                       timing, spec),
            "loadgen": lambda: phase_loadgen(torch, pk, timing),
            "decode_lm": lambda: phase_decode_lm(torch, pk, F, timing, spec),
+           "kv_tier": lambda: phase_kv_tier(torch, pk),
+           "kv_race": lambda: phase_kv_race(torch, pk),
            "serve": lambda: serve_leg(torch, eng_mod, "bf16",
                                       eng_mod.ServeConfig(
                                           **FULL_WIDTH, dtype="bfloat16",
@@ -3913,6 +4264,7 @@ def main() -> int:
     phase_p2p_suite(torch, spec)
     loadgen_launches = phase_loadgen(torch, pk, timing)
     decode_lm_launches = phase_decode_lm(torch, pk, F, timing, spec)
+    kv_tier_launches = phase_kv_tier(torch, pk)
 
     rows = {**ftime, **ptime, "paged_attention": {
         "ms": ktime["kernel"]["ms"], "bound_ms": ktime["bound_ms"],
@@ -3957,6 +4309,7 @@ def main() -> int:
         "verify_launches": spec_leg["kernel_launches"],
         "loadgen_launches": loadgen_launches,
         "decode_lm_launches": decode_lm_launches["paged_attention"],
+        "kv_tier_launches": kv_tier_launches,
     }]
     for kname, (source, replaces) in FLASH_KERNELS.items():
         row = ftime[kname]

@@ -5,7 +5,8 @@ seeded ``p=``/``after=``/``count=`` spec fires on the same ordinals of
 the same calls; the retry policies give the same backoff schedules and
 the same retry, quarantine and re-raise behavior.  The port knows only
 the sites it has (``train.step``, ``ckpt.save``, ``ckpt.restore``,
-``loadgen.arrive``, ``obs.cost_book``): a spec naming any other site is
+``loadgen.arrive``, ``obs.cost_book`` and the serve engine's kv-tier,
+preemption and decode-step sites): a spec naming any other site is
 refused at parse time, where the JAX package takes it."""
 
 import dataclasses
@@ -16,7 +17,8 @@ from tpu_patterns import faults as jf
 from tpu_patterns_torch import faults as tf
 
 PORT_SITES = {"train.step", "ckpt.save", "ckpt.restore", "loadgen.arrive",
-              "obs.cost_book"}
+              "obs.cost_book", "serve.evict", "serve.onload",
+              "serve.preempt", "serve.shed", "serve.step", "serve.verify"}
 
 SPECS = [
     "train.step:nan",

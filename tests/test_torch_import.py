@@ -56,6 +56,7 @@ def test_import_pulls_no_jax():
         "import tpu_patterns_torch.obs.slo, tpu_patterns_torch.obs.cost\n"
         "import tpu_patterns_torch.models.prng\n"
         "import tpu_patterns_torch.models.decode, tpu_patterns_torch.models.lm\n"
+        "import tpu_patterns_torch.serve.kvtier\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'tpu_patterns')]\n"
         "assert not bad, bad\n"
@@ -159,8 +160,8 @@ def test_unported_options_are_refused():
 
     with pytest.raises(NotImplementedError, match="moe"):
         ModelConfig(moe=True)
-    for argv in (["serve", "--kv_host_tier", "1"],
-                 ["serve", "--snapshot_dir", "snap"],
+    for argv in (["serve", "--watchdog_s", "1"],
+                 ["serve", "--obs_http", "9100"],
                  ["serve", "--paged_attn", "pallas"],
                  ["allreduce", "--placement", "diagonal"],
                  ["p2p", "--bidirectional", "maybe"],

@@ -252,19 +252,23 @@ def test_resolved_specs_and_validate_config():
     with pytest.raises(ValueError, match="duplicate scenario"):
         _resolved_specs(tl.LoadGenConfig(scenarios=("chat", "chat")))
     tl.validate_config(tl.LoadGenConfig())
+    tl.validate_config(tl.LoadGenConfig(kv_host_tier=True, preempt="bulk",
+                                        session_dir="/tmp/x",
+                                        host_tier_blocks=4))
     for cfg, match in (
         (dict(scenarios=("chatt",)), "unknown preset"),
         (dict(chaos="nope.site:error"), "unknown site"),
-        (dict(chaos="serve.step:error:count=1"), "unknown site"),
+        (dict(chaos="serve.step:error:count=1"), "Queue 1 step 5"),
         (dict(time_scale=0.0), "time_scale"),
         (dict(vocab=1), "vocab"),
         (dict(min_goodput=2.0), "min_goodput"),
         (dict(session_dir="/tmp/x"), "kv_host_tier"),
         (dict(preempt="everything"), "preempt must be"),
         (dict(preempt="bulk"), "requires kv_host_tier"),
-        (dict(kv_host_tier=True), "not ported.*ROADMAP"),
-        (dict(kv_host_tier=True, preempt="bulk"), "not ported.*ROADMAP"),
-        (dict(host_tier_blocks=4), "not ported.*ROADMAP"),
+        (dict(kv_host_tier=True, obs_http=9100), "not ported.*ROADMAP"),
+        (dict(kv_host_tier=True, preempt="bulk", watchdog_s=1.0),
+         "not ported.*ROADMAP"),
+        (dict(chaos="serve.prefill:error"), "unknown site"),
         (dict(obs_http=9100), "not ported.*ROADMAP"),
         (dict(watchdog_s=5.0), "not ported.*ROADMAP"),
         (dict(burn_mitigation="panic"), "burn_mitigation"),
@@ -583,12 +587,12 @@ def test_serve_scenario_bridge(tmp_path):
 
 @pytest.mark.parametrize("argv", [
     ["loadgen", "--chaos", "serve.step:error:count=1"],
-    ["loadgen", "--kv_host_tier", "true"],
+    ["loadgen", "--kv_host_tier", "true", "--watchdog_s", "5"],
     ["loadgen", "--preempt", "bulk"],
     ["loadgen", "--scenarios", "chatt"],
     ["loadgen", "--dp", "2"],
     ["serve", "--scenario", "chat:requests=many"],
-    ["serve", "--scenario", "chat", "--kv_host_tier", "1"],
+    ["serve", "--scenario", "chat", "--snapshot_dir", "snap"],
     ["serve", "--scenario", "chat", "--time_scale", "0"],
 ])
 def test_cli_refuses_with_a_message(argv, capsys):

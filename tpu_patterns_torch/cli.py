@@ -6,6 +6,13 @@
     python -m tpu_patterns_torch loadgen --device cuda \
         --scenarios chat,chat-sampled --chaos loadgen.arrive:error:count=1
     python -m tpu_patterns_torch serve --device cuda --scenario chat
+    python -m tpu_patterns_torch serve --device cuda --kv_host_tier true \
+        --session_dir sess
+    python -m tpu_patterns_torch serve --device cuda --snapshot_dir snap
+    python -m tpu_patterns_torch serve --device cuda --snapshot_dir snap \
+        --resume true --ids_out ids.json
+    python -m tpu_patterns_torch loadgen --device cuda --kv_host_tier true \
+        --preempt bulk --scenarios chat:bulk_fraction=0.5:working_set_mult=2
     python -m tpu_patterns_torch flagship --device cuda
     python -m tpu_patterns_torch p2p --transport one_sided --device cuda
     python -m tpu_patterns_torch concurrency --device cuda \
@@ -38,8 +45,9 @@ in ``tpu-patterns serve`` / ``loadgen`` / ``flagship`` / ``train`` /
 default is
 the field's unless ``TPU_PATTERNS_<FIELD>`` is set (``core/config.py``:
 CLI > environment > default); ``loadgen`` and ``serve --scenario`` check
-the scenario and chaos specs (and refuse the unported kv tier,
-preemption, live plane and watchdog) before the model is built;
+the scenario and chaos specs (and refuse the unported live plane and
+watchdog), and ``serve`` its flag combinations, before the model is
+built;
 ``--paged_attn``
 and ``--attn`` take ``kernel|dense`` (``train`` also the JAX package's
 ``xla``, read as ``dense``) and ``--device`` names the device.
@@ -81,10 +89,8 @@ from tpu_patterns_torch.core.results import ResultWriter
 # mesh flags of `flagship`, `train`, `decode`, `lm` and `loadgen`)
 _NOT_PORTED_FLAGSHIP = ("devices", "dp", "tp")
 _NOT_PORTED = (
-    "devices", "dp", "tp", "watchdog_s", "snapshot_dir", "resume",
-    "ids_out", "kv_host_tier", "session_dir", "host_tier_blocks",
-    "min_tier_speedup", "prefix_store", "obs_http", "preempt", "replicas",
-    "replica_policy", "route_blocks", "min_replica_speedup",
+    "devices", "dp", "tp", "watchdog_s", "prefix_store", "obs_http",
+    "replicas", "replica_policy", "route_blocks", "min_replica_speedup",
     "replica_watchdog_s", "replica_dir", "elastic_reserve",
     "scale_out_occupancy", "scale_in_occupancy", "scale_sustain_s",
     "scale_cooldown_s", "min_live_replicas", "disagg",
@@ -630,11 +636,13 @@ def _serve(args, writer: ResultWriter) -> None:
     from tpu_patterns_torch.loadgen.runner import validate_config
     from tpu_patterns_torch.serve.engine import (
         ServeConfig,
+        _refuse_unsupported,
         _run_scenario_config,
         run_serve,
     )
 
     cfg = _config(ServeConfig, args)
+    _checked("serve", lambda: _refuse_unsupported(cfg))
     if cfg.scenario:
         _checked("serve --scenario",
                  lambda: validate_config(_run_scenario_config(cfg)))

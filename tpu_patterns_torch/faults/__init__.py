@@ -8,6 +8,7 @@ Counterpart of ``tpu_patterns/faults/`` for the sites this package has:
                ``tpu_patterns_faults_injected_total``
   retry.py     RetryPolicy (bounded attempts, exponential backoff and
                jitter, same-signature-twice -> quarantine) for ckpt I/O
+               and the serve engine's kv tier
 
 Fault sites:
 
@@ -18,9 +19,24 @@ Fault sites:
   loadgen.arrive  loadgen/runner.py, per released arrival (``error``
                 drops it, ``sleep``/``hang`` delays it)
   obs.cost_book obs/cost.py, per booking (fails open: skips it)
+  serve.evict   serve/engine.py, before a kv-tier eviction wave's
+                device->host copy (retried; a deterministic failure
+                discards the wave's retained blocks)
+  serve.onload  serve/engine.py, before a restore's host->device copy
+                (retried; a deterministic failure prefills fresh)
+  serve.preempt serve/engine.py, before a bulk row is preempted (fails
+                open: the victim keeps running)
+  serve.shed    serve/engine.py, before a burn-ladder shed (fails open:
+                the request admits)
+  serve.step    serve/engine.py, before each decode step's launch
+                (serve.verify: before the speculative wide step's);
+  serve.verify  ``preempt`` snapshots at the iteration boundary,
+                ``sleep``/``hang`` stall the step, ``error`` is refused
+                at parse time until the step's retry and quarantine are
+                ported
 
-The ``serve.*`` sites wait for the engine's retry and quarantine path: a
-spec naming one is refused at parse time.
+``serve.prefill`` and the fleet's sites are not ported: a spec naming one
+is refused at parse time.
 """
 
 from tpu_patterns_torch.faults.injector import (  # noqa: F401
@@ -40,4 +56,5 @@ from tpu_patterns_torch.faults.retry import (  # noqa: F401
     RetryPolicy,
     call_with_retry,
     ckpt_retry_policy,
+    serve_retry_policy,
 )

@@ -73,11 +73,30 @@ KNOWN_SITES = frozenset({
     "loadgen.arrive",
     # obs/cost.py, per booking: fails OPEN (an error skips the booking)
     "obs.cost_book",
+    # serve/engine.py's host KV tier: evict fires before the device->host
+    # block copy, onload before the host->device copy, each inside its
+    # retry (a deterministic failure falls back: discard or prefill
+    # fresh); preempt and shed fail OPEN (an error aborts the preemption
+    # or the shed, the row runs or admits as if no rung had fired)
+    "serve.evict", "serve.onload", "serve.preempt", "serve.shed",
+    # serve/engine.py, before each decode step's (verify step's) launch:
+    # ``preempt`` raises SIGTERM, the step completes and the loop
+    # snapshots at its iteration boundary; ``sleep``/``hang`` stall it
+    "serve.step", "serve.verify",
 })
+
+# site -> actions it refuses at parse time: the decode steps have no
+# retry or quarantine yet, so an ``error`` there would end the run
+# (ROADMAP.md, Queue 1 step 5)
+REFUSED_ACTIONS = {
+    "serve.step": frozenset({"error"}),
+    "serve.verify": frozenset({"error"}),
+}
 
 # the match keys of the spec grammar (the JAX package's set; the sites
 # here pass ``step``, at ckpt.save ``proc``, at loadgen.arrive ``rid`` and
-# ``scenario``, at obs.cost_book ``rows`` or ``rid`` and ``replica``)
+# ``scenario``, at obs.cost_book ``rows`` or ``rid`` and ``replica``, at
+# the serve.* sites ``rid``, ``rows``, ``step`` and ``replica``)
 MATCH_KEYS = frozenset({
     "pid", "cmd", "cell", "step", "proc", "rows", "rid", "scenario",
     "replica", "blocks", "endpoint", "fingerprint",
@@ -126,6 +145,12 @@ def parse_spec(text: str) -> list[FaultSpec]:
             raise ValueError(
                 f"fault spec {chunk!r}: unknown action {action!r} "
                 f"(want one of {sorted(ACTIONS)})"
+            )
+        if action in REFUSED_ACTIONS.get(site, ()):
+            raise ValueError(
+                f"fault spec {chunk!r}: {action!r} at {site!r} is not "
+                "ported: the decode step's retry and quarantine come with "
+                "ROADMAP.md Queue 1 step 5"
             )
         kw: dict = {}
         match: list[tuple[str, str]] = []

@@ -1,12 +1,12 @@
 """Shared recovery policy: bounded retries, backoff, quarantine.
 
 Counterpart of ``tpu_patterns/faults/retry.py`` for the checkpoint I/O
-of this package.  A failure carries a SIGNATURE (exception type and
-message), and the SAME signature on two consecutive attempts means the
-failure is deterministic: the caller quarantines the work instead of
-burning the budget (:class:`Quarantined`).  A signature that changes
-between attempts still looks transient and keeps retrying up to
-``max_attempts``.
+and the serve engine's kv tier of this package.  A failure carries a
+SIGNATURE (exception type and message), and the SAME signature on two
+consecutive attempts means the failure is deterministic: the caller
+quarantines the work instead of burning the budget
+(:class:`Quarantined`).  A signature that changes between attempts still
+looks transient and keeps retrying up to ``max_attempts``.
 
 Backoff is exponential with jitter; the jitter draw is seeded from
 ``seed`` when nonzero (reproducible chaos runs), else from the native
@@ -101,6 +101,17 @@ def _env_attempts(var: str, default: int) -> int:
         return max(1, int(os.environ.get(var, default)))
     except ValueError:
         return default
+
+
+def serve_retry_policy() -> RetryPolicy:
+    """Serve policy (the kv tier's copies): ``TPU_PATTERNS_SERVE_ATTEMPTS``
+    total attempts (default 2), tiny backoff -- a transient failure
+    clears at once or is deterministic, and the scheduler waits."""
+    return RetryPolicy(
+        max_attempts=_env_attempts("TPU_PATTERNS_SERVE_ATTEMPTS", 2),
+        backoff_base_s=0.01,
+        backoff_max_s=0.2,
+    )
 
 
 def ckpt_retry_policy() -> RetryPolicy:

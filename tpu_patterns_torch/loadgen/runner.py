@@ -14,12 +14,17 @@ a second Record gating that p99 degrades bounded (<= the scenario's
 multiplier over the clean run) and that done + failed + dropped exactly
 covers the trace: no request silently lost.
 
-Not ported yet (ROADMAP, item 14), and refused with a message: the kv
-tier leg (``kv_host_tier``, ``session_dir``, ``host_tier_blocks``),
-preemption (``preempt``), the live telemetry plane (``obs_http``) and the
-watchdog (``watchdog_s``).  A chaos spec may name only the sites the port
-fires (``loadgen.arrive``, ``obs.cost_book``, ...): the engine's
-``serve.*`` sites wait for its retry and quarantine path.
+With ``kv_host_tier`` every leg runs the tiered engine (with
+``session_dir`` its session cache, with ``preempt="bulk"`` priority
+preemption of the scenario's bulk rows), and a scenario that declares
+memory pressure (``working_set_mult > 0``) also races the tier against
+the defer-only engine (:func:`_kv_tier_loadgen_record`).
+
+Not ported yet (ROADMAP, Queue 1 step 7), and refused with a message:
+the live telemetry plane (``obs_http``) and the watchdog
+(``watchdog_s``).  A chaos spec may name only the sites the port fires
+(``loadgen.arrive``, ``obs.cost_book``, the kv tier's ``serve.*`` sites,
+``serve.step``/``serve.verify`` without ``error``).
 """
 
 from __future__ import annotations
@@ -148,12 +153,16 @@ class LoadGenConfig:
     n_blocks: int = 0  # 0 = auto: full slots x max_len rectangle + trash
     spec_k: int = 0  # speculative decoding under load (engine flag)
     prefix_share: bool = False  # CoW prefix sharing under load
-    # the tiered KV cache, its session dir and preemption are not ported
-    # yet: any value but the default is refused (validate_config)
+    # the tiered KV cache under load: every leg runs the tiered engine,
+    # and a scenario with working_set_mult > 0 also races it against
+    # the defer-only engine (admit-where-deferred, goodput above)
     kv_host_tier: bool = False
-    session_dir: str = ""
+    session_dir: str = ""  # persist evicted prefixes across restarts
     host_tier_blocks: int = 0
+    # preemption of running bulk rows (needs kv_host_tier; pair with a
+    # scenario whose bulk_fraction > 0 so there are victims)
     preempt: str = "off"
+    # the watchdog is not ported (0 = off is the only value)
     watchdog_s: float = 0.0
     # the workload: comma-separated scenario specs
     # ("chat,rag:requests=16", the scenarios.parse_scenario grammar)
@@ -211,10 +220,7 @@ def _resolved_specs(cfg: LoadGenConfig) -> list[ScenarioSpec]:
 
 # LoadGenConfig fields whose machinery is not ported, with the value that
 # means "off"
-_UNPORTED = {
-    "kv_host_tier": False, "session_dir": "", "host_tier_blocks": 0,
-    "preempt": "off", "obs_http": 0, "watchdog_s": 0.0,
-}
+_UNPORTED = {"obs_http": 0, "watchdog_s": 0.0}
 
 
 def validate_config(cfg: LoadGenConfig) -> None:
@@ -253,21 +259,46 @@ def validate_config(cfg: LoadGenConfig) -> None:
     for name, off in _UNPORTED.items():
         if getattr(cfg, name) != off:
             raise ValueError(
-                f"{name}={getattr(cfg, name)!r}: the kv tier, preemption, "
-                "the live plane and the watchdog are not ported to "
-                "tpu_patterns_torch yet (ROADMAP.md, Queue 1 item 14)"
+                f"{name}={getattr(cfg, name)!r}: the live telemetry plane "
+                "and the watchdog are not ported to tpu_patterns_torch yet "
+                "(ROADMAP.md, Queue 1 step 7)"
             )
     # the SloConfig invariants, surfaced at parse time as one line
     _slo_kwargs(cfg)
 
 
+def _session_fingerprint(cfg: LoadGenConfig) -> dict:
+    """The config a committed session's K/V depends on (the weights'
+    seed and dims and the block layout), handed to the host tier so a
+    session dir committed under another model is refused.  Pool size
+    and scenario shape are left out: block contents do not depend on
+    them."""
+    return {
+        k: getattr(cfg, k)
+        for k in ("vocab", "embed", "heads", "head_dim", "mlp_mult",
+                  "depth", "dtype", "rope", "kv_heads", "cache_int8",
+                  "block_len", "seed")
+    }
+
+
 def _drive(
     decoder, params, cfg: LoadGenConfig, spec: ScenarioSpec,
-    schedule: list[TimedRequest],
+    schedule: list[TimedRequest], *, kv_tier: bool = False,
+    use_session: bool = True, use_preempt: bool = True,
 ) -> tuple[ServeEngine, ArrivalSource, float]:
+    """Serve ``schedule`` through a fresh engine; the tiered one when
+    ``kv_tier`` (its session dir and preemption unless ``use_session``
+    or ``use_preempt`` is false: the tier race and the chaos twin turn
+    them off, so neither measures the cache or the priority schedule)."""
     eng = ServeEngine(
         decoder, params, slots=cfg.slots, prefix_share=cfg.prefix_share,
-        spec_k=cfg.spec_k, **_slo_kwargs(cfg),
+        spec_k=cfg.spec_k, kv_host_tier=kv_tier,
+        session_dir=(cfg.session_dir or None)
+        if kv_tier and use_session else None,
+        host_tier_blocks=cfg.host_tier_blocks,
+        preempt=cfg.preempt if kv_tier and use_preempt else "off",
+        fingerprint=_session_fingerprint(cfg) if kv_tier else None,
+        **_slo_kwargs(cfg),
     )
     source = ArrivalSource(schedule, scenario=spec.name)
     t0 = clock_ns()
@@ -343,6 +374,8 @@ def _stats(
         "ttft": ttft, "tpot": tpot, "e2e": e2e,
         "done": done, "failed": failed, "dropped": len(source.dropped),
         "sheds": len(eng.shed),
+        "preempted": eng.stats["preempted"],
+        "preempted_resumed": eng.stats["preempted_resumed"],
         "goodput": good_tokens / total_tokens if total_tokens else 0.0,
         "tokens": sum(
             lc["n_out"] for lc in eng.lifecycle.values()
@@ -494,7 +527,8 @@ def run_loadgen(cfg: LoadGenConfig, writer=None) -> list:
             f"{schedule[-1].arrival_s:.2f}s "
             f"({_scenario_commands(cfg, spec)})"
         )
-        eng, source, _wall = _drive(decoder, params, cfg, spec, schedule)
+        eng, source, _wall = _drive(decoder, params, cfg, spec, schedule,
+                                    kv_tier=cfg.kv_host_tier)
         st = _stats(eng, source, schedule)
         _publish_gauges(spec, st)
         ttft_p = _pcts(st["ttft"])
@@ -520,6 +554,7 @@ def run_loadgen(cfg: LoadGenConfig, writer=None) -> list:
             not st["unaccounted"]
             and st["failed"] == 0
             and st["dropped"] == 0
+            and eng.preempted_at is None
             and st["goodput"] >= cfg.min_goodput
             and not mismatched
         )
@@ -543,9 +578,8 @@ def run_loadgen(cfg: LoadGenConfig, writer=None) -> list:
                 "failed": float(st["failed"]),
                 "dropped": float(st["dropped"]),
                 "shed": float(st["sheds"]),
-                # preemption is not ported: nothing is ever preempted
-                "preempted": 0.0,
-                "preempted_resumed": 0.0,
+                "preempted": float(st["preempted"]),
+                "preempted_resumed": float(st["preempted_resumed"]),
                 "deferrals": float(st["deferrals"]),
                 "tokens": float(st["tokens"]),
                 "slo_ttft_ms": spec.slo_ttft_ms,
@@ -587,11 +621,112 @@ def run_loadgen(cfg: LoadGenConfig, writer=None) -> list:
             )
         writer.record(rec)
         records.append(rec)
+        if cfg.kv_host_tier and spec.working_set_mult > 0:
+            # the race needs a scenario that declares memory pressure: on
+            # a pool it does not oversubscribe the defer-only leg never
+            # defers and the contrast is vacuous
+            records.append(_kv_tier_loadgen_record(
+                decoder, params, cfg, spec, schedule, writer, config
+            ))
         if cfg.chaos:
             records.append(_chaos_record(
                 decoder, params, cfg, spec, schedule, st, writer, config
             ))
     return records
+
+
+def _kv_tier_loadgen_record(decoder, params, cfg, spec, schedule, writer,
+                            config):
+    """The schedule served by the tiered engine and by the defer-only one
+    (no retention, no tier) through the same pool, after one tiered
+    warm-up pass, and the comparison Record: the defer-only leg defers
+    (> 0) where the tiered leg never does; the tier evicted and leaked
+    nothing; tokens per wall second above the defer-only leg's with
+    goodput-under-SLO no worse.  Session and preemption stay off on the
+    tiered legs: the race measures the ladder, not the cache or the
+    priority schedule.  The Record's config adds the copies'
+    milliseconds and each leg's decode steps."""
+    from tpu_patterns_torch.core.results import Record, Verdict
+
+    _drive(decoder, params, cfg, spec, schedule, kv_tier=True,
+           use_session=False, use_preempt=False)
+    tier_eng, tier_source, tier_wall_s = _drive(
+        decoder, params, cfg, spec, schedule, kv_tier=True,
+        use_session=False, use_preempt=False,
+    )
+    tier_st = _stats(tier_eng, tier_source, schedule)
+    eng, source, wall_s = _drive(decoder, params, cfg, spec, schedule,
+                                 kv_tier=False)
+    base_st = _stats(eng, source, schedule)
+    tier_tps = tier_st["tokens"] / tier_wall_s if tier_wall_s > 0 else 0.0
+    base_tps = base_st["tokens"] / wall_s if wall_s > 0 else 0.0
+    speedup = tier_tps / base_tps if base_tps > 0 else 0.0
+    est = tier_eng.stats
+    leaked = tier_eng.leaked_blocks()
+    ok = (
+        not tier_st["unaccounted"] and not base_st["unaccounted"]
+        and base_st["deferrals"] > 0
+        and tier_st["deferrals"] == 0
+        and est["evictions"] > 0
+        and leaked == 0
+        and tier_tps > base_tps
+        and tier_st["goodput"] >= base_st["goodput"]
+    )
+    rec = Record(
+        pattern="loadgen",
+        mode=f"{spec.name}_kv_tier_sp1",
+        commands=(f"{_scenario_commands(cfg, spec)} "
+                  f"ws_mult{spec.working_set_mult:g}"),
+        metrics={
+            "goodput": round(tier_st["goodput"], 4),
+            "defer_goodput": round(base_st["goodput"], 4),
+            "tokens_per_s": round(tier_tps, 1),
+            "defer_tokens_per_s": round(base_tps, 1),
+            "goodput_speedup": round(speedup, 3),
+            "deferrals": float(tier_st["deferrals"]),
+            "defer_baseline_deferrals": float(base_st["deferrals"]),
+            "evictions": float(est["evictions"]),
+            "evict_MB": round(est["evict_bytes"] / 1e6, 4),
+            "onload_hits": float(est["onload_hits"]),
+            "onload_MB": round(est["onload_bytes"] / 1e6, 4),
+            "pressure_admits": float(est["pressure_admits"]),
+            "retained_peak": float(est["retained_peak"]),
+            "leaked_blocks": float(leaked),
+        },
+        verdict=Verdict.SUCCESS if ok else Verdict.FAILURE,
+        config={**config, "evict_ms": est["evict_ns"] / 1e6,
+                "commit_ms": est["commit_ns"] / 1e6,
+                "onload_ms": est["onload_ns"] / 1e6,
+                "decode_steps": est["steps"],
+                "defer_decode_steps": eng.stats["steps"]},
+    )
+    if not base_st["deferrals"] > 0:
+        rec.notes.append(
+            "the defer-only leg never deferred: working_set_mult did not "
+            "oversubscribe the pool, the contrast is vacuous"
+        )
+    if tier_st["deferrals"] > 0:
+        rec.notes.append(
+            f"tiered leg deferred {tier_st['deferrals']} time(s): the "
+            "ladder fell through to the cliff"
+        )
+    if est["evictions"] == 0:
+        rec.notes.append(
+            "tiered leg never evicted: retention alone absorbed the "
+            "pressure, the host tier went unexercised"
+        )
+    if not tier_tps > base_tps:
+        rec.notes.append(
+            f"goodput {tier_tps:.1f} tok/s <= defer-only {base_tps:.1f}: "
+            "admitting earlier did not pay"
+        )
+    if tier_st["goodput"] < base_st["goodput"]:
+        rec.notes.append(
+            f"SLO goodput {tier_st['goodput']:.3f} < defer-only "
+            f"{base_st['goodput']:.3f}"
+        )
+    writer.record(rec)
+    return rec
 
 
 def _chaos_record(
@@ -603,7 +738,12 @@ def _chaos_record(
     injected_before = _injected_total()
     faults.configure(cfg.chaos)
     try:
-        eng, source, _wall = _drive(decoder, params, cfg, spec, schedule)
+        # session off: inheriting the clean leg's committed session would
+        # hand this leg its history for free (and chaos evictions must
+        # not touch the user's session dir)
+        eng, source, _wall = _drive(decoder, params, cfg, spec, schedule,
+                                    kv_tier=cfg.kv_host_tier,
+                                    use_session=False)
     finally:
         faults.configure(None)
     injected = _injected_total() - injected_before
@@ -611,7 +751,7 @@ def _chaos_record(
     clean_p99 = _pcts(clean_st["e2e"])[2]
     chaos_p99 = _pcts(st["e2e"])[2]
     ratio = chaos_p99 / clean_p99 if clean_p99 > 0 else -1.0
-    covered = not st["unaccounted"]
+    covered = not st["unaccounted"] and eng.preempted_at is None
     bounded = (
         chaos_p99 < 0  # nothing finished: coverage gate carries it
         or clean_p99 <= 0
@@ -649,6 +789,11 @@ def _chaos_record(
         rec.notes.append(
             f"request(s) {st['unaccounted'][:8]} silently lost under "
             "chaos: done+failed+dropped must cover the trace"
+        )
+    if eng.preempted_at is not None:
+        rec.notes.append(
+            "engine preempted mid-trace by the injected fault; pending "
+            "requests are accounted but the scenario did not complete"
         )
     if not bounded:
         rec.notes.append(

@@ -6,9 +6,13 @@
                    speculative verify step and the CoW block copy,
                    updating the pool in place; optionally sampling
   prefix.py        the radix index of admitted prompts that prefix
-                   sharing aliases blocks through
+                   sharing aliases blocks through (with host-resident
+                   nodes for the kv tier)
+  kvtier.py        the host KV tier: host copies of evicted blocks and
+                   the session cache over ``ckpt/``
   engine.py        FIFO admit / prefill / step / retire scheduler (with
                    prefix sharing, speculative decoding, per-request
-                   sampling, the request lifecycle, the burn monitor and
-                   the cost book) and the ``serve`` measured patterns
+                   sampling, the request lifecycle, the burn monitor,
+                   the cost book, the kv tier, priority preemption and
+                   snapshots) and the ``serve`` measured patterns
 """

@@ -38,26 +38,47 @@ first; ``spec_off``: plain decode instead of the wide step) acts while
 a burn episode lasts, and the cost book (``obs/cost.py``) apportions
 every measured prefill and decode wall and the pool's block-seconds.
 ``run(requests, source=...)`` polls an arrival source once an
-iteration.  The kv tier, preemption, snapshots, the fleet store,
-disaggregated handoff, the watchdog and the ``serve.*`` fault sites
-with their retry and quarantine path are not ported (ROADMAP).
+iteration.
+
+The memory-pressure and preemption-safety ladder is ported too.  The
+host KV tier (``serve/kvtier.py``, ``kv_host_tier``) retains refcount-0
+prefix blocks, evicts them to host memory when the free list runs dry
+and pages them back on a prefix hit (alias -> evict -> defer), with an
+optional session cache that survives a restart.  Priority preemption
+(``preempt="bulk"``) parks a running bulk row in the tier for an
+interactive admission or the burn ladder (shed bulk -> preempt bulk ->
+shed the head) and resumes it bit-identical.  With ``snapshot_dir``,
+SIGTERM/SIGINT (or an injected ``serve.step:preempt``) ends the loop at
+its iteration boundary with a committed snapshot that
+``restore_snapshot`` resumes.  Not ported (ROADMAP): the fleet store,
+disaggregated handoff, the watchdog, the decision ledger and events,
+and the retry and quarantine path of prefill and the decode steps.
 
 ``run_serve`` is the measured pattern: the same trace served continuous
 (``slots`` wide) and sequential (one slot), gated on speedup, exactness
 against the per-request dense decoder and the in-place pool; with
 ``prefix_share`` or ``spec_k`` it also emits the reference's
-``prefix_share_*`` and ``spec_decode_*`` Records.  With ``scenario`` it
-is the load generator's SLO pattern instead (``loadgen/runner.py``).
+``prefix_share_*`` and ``spec_decode_*`` Records.  With ``snapshot_dir``
+it is the preemptible one-pass run (``--resume`` continues it), with
+``kv_host_tier`` the tier-against-defer race or (with ``session_dir``)
+the session-cache run, and with ``scenario`` the load generator's SLO
+pattern (``loadgen/runner.py``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
+import json
+import os
+import signal
+import sys
+import threading
 
 import numpy as np
 import torch
 
-from tpu_patterns_torch import obs
+from tpu_patterns_torch import ckpt, faults, obs
 from tpu_patterns_torch.core.results import Record, ResultWriter, Verdict
 from tpu_patterns_torch.core.timing import clock_ns, device_barrier
 from tpu_patterns_torch.models.decode import kv_slot_bytes
@@ -72,8 +93,14 @@ from tpu_patterns_torch.serve.paged import (
     PagedDecoder,
     make_paged_lm_decoder,
 )
+from tpu_patterns_torch.serve.kvtier import HostTier
 from tpu_patterns_torch.serve.paged_kernel import paged_block
 from tpu_patterns_torch.serve.prefix import PrefixIndex
+
+# the reference's snapshot format: 2 added refcounts, the prefix index
+# and slot prompts; 3 the per-request sampling config and the
+# generated-token key offset of queued and active rows
+SNAPSHOT_FORMAT = 3
 
 
 def _bucket(n: int, cap: int) -> int:
@@ -140,20 +167,48 @@ class ServeEngine:
     ``prefix_share`` turns on copy-on-write prefix sharing, ``spec_k``
     speculative decoding with up to ``spec_k`` drafts a row a step.
     ``slo`` configures the burn monitor and ``burn_mitigation`` (``off``,
-    ``shed``, ``spec_off``) the ladder it drives."""
+    ``shed``, ``spec_off``) the ladder it drives.
+
+    ``kv_host_tier`` turns on the host KV tier (``serve/kvtier.py``;
+    it implies the prefix index): refcount-0 prefix blocks are retained
+    on the device, evicted to host memory when the free list runs dry
+    (LRU by last reference, leaf-first) and paged back on a prefix hit.
+    ``session_dir`` commits the tier so a restarted engine reloads it,
+    ``host_tier_blocks`` bounds it (0 = unbounded).  ``preempt="bulk"``
+    (needs the tier) lets interactive admissions and the burn ladder
+    park a running bulk row in the tier and requeue it.
+    ``snapshot_dir`` arms SIGTERM/SIGINT: the loop finishes its
+    iteration, commits a snapshot there and returns;
+    :meth:`restore_snapshot` loads it into a fresh engine.
+    ``fingerprint`` is the config a snapshot or session must agree on."""
 
     def __init__(self, decoder: PagedDecoder, params: dict, *, slots: int,
                  prefix_share: bool = False, spec_k: int = 0,
                  slo: SloConfig | None = None,
-                 burn_mitigation: str = "off"):
+                 burn_mitigation: str = "off",
+                 kv_host_tier: bool = False,
+                 session_dir: str | None = None,
+                 host_tier_blocks: int = 0,
+                 preempt: str = "off",
+                 snapshot_dir: str | None = None,
+                 fingerprint: dict | None = None):
         if slots < 1:
             raise ValueError(f"slots must be >= 1, got {slots}")
         if spec_k < 0:
             raise ValueError(f"spec_k must be >= 0, got {spec_k}")
+        if session_dir and not kv_host_tier:
+            raise ValueError("session_dir requires kv_host_tier")
         if burn_mitigation not in ("off", "shed", "spec_off"):
             raise ValueError(
                 f"burn_mitigation must be off | shed | spec_off, got "
                 f"{burn_mitigation!r}"
+            )
+        if preempt not in ("off", "bulk"):
+            raise ValueError(f"preempt must be off | bulk, got {preempt!r}")
+        if preempt != "off" and not kv_host_tier:
+            raise ValueError(
+                "preempt requires kv_host_tier: a preempted row is "
+                "forced through the evict path into the host tier"
             )
         self.decoder = decoder
         self.params = params
@@ -167,16 +222,40 @@ class ServeEngine:
         # sum(ref.values()) equals the live table references.  TRASH_BLOCK
         # never appears here.
         self.ref: dict[int, int] = {}
+        # the kv tier's eviction and restore are index node transitions,
+        # so the tier implies the index
+        self.prefix_share = prefix_share or kv_host_tier
         self.index = (
-            PrefixIndex(self.layout.block_len) if prefix_share else None
+            PrefixIndex(self.layout.block_len) if self.prefix_share else None
         )
         self._pending_cow: list[tuple[int, int]] = []  # (src, dst)
+        self.fingerprint = dict(fingerprint or {})
+        # the host KV tier: retained refcount-0 prefix blocks stay
+        # allocated (a device-resident prefix cache), move to host
+        # memory when the free list runs dry and page back on a hit
+        self.tier: HostTier | None = None
+        if kv_host_tier:
+            self.tier = HostTier(
+                {name: ((shape[0], *shape[2:]), dt)
+                 for name, (shape, dt) in decoder._pool_leaves().items()},
+                block_len=self.layout.block_len,
+                session_dir=session_dir, capacity_blocks=host_tier_blocks,
+                fingerprint=self.fingerprint,
+            )
+        self.retry_policy = faults.serve_retry_policy()
+        # retained blocks: {block: last-reference stamp}, the LRU order
+        # (a counter, not a clock, so replays are deterministic)
+        self.retained: dict[int, int] = {}
+        self._lru_clock = itertools.count()
+        # fresh full prompt blocks a request prefilled, by rid
+        self.fresh_by_rid: dict[int, int] = {}
         self.spec_k = spec_k
         # the live SLO burn monitor: every finalized request books its
         # tokens good or bad against its deadline; with no deadlines it
         # is inert.  The ladder is opt-in: ``shed`` sheds admissions
-        # (bulk first) while a burn episode lasts, ``spec_off`` falls
-        # back from the wide step to plain decode (same ids)
+        # (bulk first, then preempts running bulk under ``preempt``)
+        # while a burn episode lasts, ``spec_off`` falls back from the
+        # wide step to plain decode (same ids)
         self.slo = SloMonitor(slo)
         self.burn_mitigation = burn_mitigation
         # the cost book: measured prefill/decode walls apportioned over
@@ -185,6 +264,14 @@ class ServeEngine:
         # admissions the burn ladder shed: {rid: reason}, a terminal
         # bucket like done, so the trace's accounting still closes
         self.shed: dict[int, str] = {}
+        # priority preemption: a preempted bulk row's output so far
+        # banks here until its resumed leg retires, and the stitched
+        # stream equals an unpreempted one
+        self.preempt = preempt
+        self.preempted_partial: dict[int, list[int]] = {}
+        # the first leg's first-token stamp: the TTFT the client saw
+        self.preempted_first_ns: dict[int, int] = {}
+        self.preempted_rids: set[int] = set()
         self.queue: list[tuple[Request, int]] = []  # (request, t_submit)
         self.active: list[_Slot] = []
         self.done: dict[int, list[int]] = {}
@@ -197,7 +284,34 @@ class ServeEngine:
             "max_occupancy": 0.0, "queue_wait_ns": [], "peak_blocks": 0,
             "prefix_hit_blocks": 0, "cow_copies": 0, "spec_steps": 0,
             "spec_row_steps": 0, "spec_tokens": 0, "sheds": 0,
+            # the kv tier (all 0 with it off); the *_ns are this port's:
+            # host wall of the evictions' copies into the tier (device to
+            # host, then into the store), of the session commits and of
+            # the onload calls
+            "evictions": 0, "evict_bytes": 0, "onload_hits": 0,
+            "onload_bytes": 0, "tier_fallbacks": 0, "pressure_admits": 0,
+            "session_loaded": 0, "prompt_fresh_full_blocks": 0,
+            "retained_peak": 0, "evict_ns": 0, "commit_ns": 0,
+            "onload_ns": 0,
+            # preemption events, and preempted requests later retired
+            "preempted": 0, "preempted_resumed": 0,
         }
+        # SIGTERM/SIGINT (or an injected ``preempt``) sets the event; the
+        # loop finishes its iteration, snapshots into snapshot_dir and
+        # returns
+        self.snapshot_dir = snapshot_dir or None
+        self.preempted_at: int | None = None
+        self._preempt = threading.Event()
+        self._preempt_signum: int | None = None
+        if self.tier is not None and session_dir:
+            # the session cache: rebuild host-resident index nodes from
+            # the latest committed tier, shallow-first (an orphaned chain
+            # is dropped, never fabricated)
+            for path, handle in self.tier.load_session():
+                if self.index.add_host_path(path, handle):
+                    self.stats["session_loaded"] += 1
+                else:
+                    self.tier.discard(handle)
 
     # -- bookkeeping -----------------------------------------------------
 
@@ -237,20 +351,23 @@ class ServeEngine:
         return self.allocated_blocks() / (self.layout.n_blocks - 1)
 
     def leaked_blocks(self) -> int:
-        """Allocated blocks no live table references: 0 unless the
-        bookkeeping broke."""
+        """Allocated blocks that neither a live table references nor the
+        tier retains: 0 unless the bookkeeping broke."""
         live = {b for s in self.active for b in s.table if b != TRASH_BLOCK}
-        return self.allocated_blocks() - len(live)
+        return self.allocated_blocks() - len(live) - len(self.retained)
 
     def pool_ptrs(self) -> dict[str, int]:
         """Device addresses of the pool leaves: unchanged across a run
-        iff every prefill and step updated the pool in place."""
+        iff every prefill, step and onload updated the pool in place."""
         return {n: t.data_ptr() for n, t in self.pool.items()}
 
     def _release_block(self, b: int) -> None:
         """Drop one table reference; the last one frees the block and
         (with sharing on) removes its index node, so the index never
-        outlives the live shareable set."""
+        outlives the live shareable set.  With the kv tier on, a
+        materialized indexed block is retained instead: it stays
+        allocated and aliasable until pressure evicts it or a row
+        references it again."""
         if b == TRASH_BLOCK:
             return
         n = self.ref.get(b, 0) - 1
@@ -258,9 +375,199 @@ class ServeEngine:
             self.ref[b] = n
             return
         self.ref.pop(b, None)
+        if self.tier is not None and self.index.is_materialized(b):
+            self.retained[b] = next(self._lru_clock)
+            self.stats["retained_peak"] = max(
+                self.stats["retained_peak"], len(self.retained)
+            )
+            return
         if self.index is not None:
             self.index.remove_block(b)
         self.free.append(b)
+
+    # -- the host KV tier (serve/kvtier.py) ------------------------------
+
+    def _tier_fallback(self, op: str, err: Exception) -> None:
+        """A tier operation failed after its retries: the caller takes
+        the reference's degradation (discard, defer or prefill fresh)
+        with the engine's state unchanged, and this leaves the trail: a
+        WARNING Record on stderr and the fallbacks counter."""
+        self.stats["tier_fallbacks"] += 1
+        obs.counter("tpu_patterns_serve_kv_tier_fallbacks_total").inc()
+        ResultWriter(stream=sys.stderr).record(Record(
+            pattern="serve",
+            mode="kv_tier_fallback",
+            commands=op,
+            metrics={"pid": float(os.getpid())},
+            verdict=Verdict.WARNING,
+            notes=[
+                f"kv tier {op} failed after retries ({err}); falling back "
+                "to the tierless path for this wave, device state "
+                "unchanged"
+            ],
+        ))
+
+    def _evict_wave(self, blocks: list[int], rid: int = -1) -> int:
+        """Evict retained ``blocks`` (leaf-first-safe) to the host tier in
+        one gather.  The order is the mid-evict contract: the blocking
+        device->host copy (the pool read, not changed), then the session
+        commit, and only then the state transition (node to host, block
+        to the free list), so a crash anywhere leaves the device state
+        or the previously committed host copy.  Returns the blocks
+        evicted (0 on a fallback)."""
+        if not blocks:
+            return 0
+
+        def attempt():
+            # before the copy: nothing mutated, so an error retries
+            faults.inject("serve.evict", rid=rid, rows=len(blocks))
+            out = self.decoder.gather_blocks(self.pool, blocks)
+            host = {n: t.to("cpu") for n, t in out.items()}
+            return [
+                (b, {n: host[n][:, i] for n in host},
+                 self.index.node_path(b))
+                for i, b in enumerate(blocks)
+            ]
+
+        t0 = clock_ns()
+        try:
+            entries = faults.call_with_retry(
+                attempt, policy=self.retry_policy, site="serve.evict"
+            )
+        except (OSError, faults.Quarantined) as e:
+            self._tier_fallback("evict", e)
+            return 0
+        handles = [self.tier.put(data, path) for _, data, path in entries]
+        t1 = clock_ns()
+        self.stats["evict_ns"] += t1 - t0
+        try:
+            # commit before the transition: from here on the host copy
+            # is durable, so freeing the device block cannot tear it
+            self.tier.commit()
+        except OSError as e:  # ckpt.save retried the transients already
+            for h in handles:
+                self.tier.discard(h)
+            self._tier_fallback("evict-commit", e)
+            return 0
+        self.stats["commit_ns"] += clock_ns() - t1
+        for (b, _, _), h in zip(entries, handles):
+            self.index.evict_block(b, h)
+            self.retained.pop(b, None)
+            self.free.append(b)
+        n_bytes = self.tier.block_nbytes() * len(entries)
+        self.stats["evictions"] += len(entries)
+        self.stats["evict_bytes"] += n_bytes
+        obs.counter("tpu_patterns_serve_kv_evictions_total").inc(len(entries))
+        obs.histogram("tpu_patterns_serve_kv_evict_bytes").observe(
+            float(n_bytes)
+        )
+        # the host bound: forget the least-recently-stored blocks with
+        # their subtrees; a forgotten prefix prefills again
+        while self.tier.over_capacity():
+            h = self.tier.oldest()
+            for dropped in self.index.remove_handle(h):
+                self.tier.discard(dropped)
+            self.tier.discard(h)
+        return len(entries)
+
+    def _evict_candidates(self, protect: set[int]) -> list[int]:
+        """Retained blocks that may evict now: LRU by last reference,
+        leaf-first (no device-resident child), minus ``protect`` (the
+        blocks an admission is about to alias) and minus pending CoW
+        donors, which must keep their contents until ``_cow_copy``."""
+        donors = {src for src, _ in self._pending_cow}
+        return [
+            b for b in sorted(self.retained, key=self.retained.get)
+            if b not in protect and b not in donors
+            and not self.index.has_resident_children(b)
+        ]
+
+    def _evict_for(self, k: int, protect: set[int], rid: int = -1) -> int:
+        """Free >= ``k`` blocks by evicting cold retained blocks in
+        leaf-first waves (evicting a leaf can make its parent eligible).
+        A wave that fails after its retries discards those blocks
+        instead (freed with no host copy, their nodes and host subtrees
+        dropped): retained blocks are a cache of recomputable K/V, so
+        the prefix just prefills again."""
+        if self.tier is None or k <= 0:
+            return 0
+        freed = 0
+        while freed < k:
+            cands = self._evict_candidates(protect)
+            if not cands:
+                break
+            wave = cands[: k - freed]
+            done = self._evict_wave(wave, rid=rid)
+            if not done:
+                for b in wave:
+                    self.retained.pop(b, None)
+                    for h in self.index.drop_block_subtree(b):
+                        self.tier.discard(h)
+                    self.free.append(b)
+                done = len(wave)
+            freed += done
+        return freed
+
+    def _onload(self, handles: list[int], rid: int = -1) -> list[int]:
+        """Page tier ``handles`` back onto fresh blocks in one scatter.
+        Returns the blocks, device-resident and indexed again; after a
+        failure past the retries, ``[]`` with the free list restored, and
+        the caller prefills those positions instead."""
+        if not handles:
+            return []
+        blocks = [self.free.pop() for _ in handles]
+
+        def attempt():
+            # before the copy: the targets hold garbage either way
+            faults.inject("serve.onload", rid=rid, rows=len(handles))
+            vals = {
+                n: torch.stack([self.tier.get(h)[n] for h in handles], 1)
+                for n in self.tier.leaf_meta
+            }
+            self.decoder.onload_blocks(self.pool, vals, blocks)
+
+        t0 = clock_ns()
+        try:
+            faults.call_with_retry(
+                attempt, policy=self.retry_policy, site="serve.onload"
+            )
+        except (OSError, faults.Quarantined) as e:
+            self.free.extend(blocks)
+            self._tier_fallback("onload", e)
+            return []
+        self.stats["onload_ns"] += clock_ns() - t0
+        for h, b in zip(handles, blocks):
+            self.index.restore_block(h, b)
+            self.tier.discard(h)
+        n_bytes = self.tier.block_nbytes() * len(handles)
+        self.stats["onload_hits"] += len(handles)
+        self.stats["onload_bytes"] += n_bytes
+        obs.counter("tpu_patterns_serve_kv_onload_hits_total").inc(
+            len(handles)
+        )
+        obs.histogram("tpu_patterns_serve_kv_onload_bytes").observe(
+            float(n_bytes)
+        )
+        return blocks
+
+    def save_session(self) -> None:
+        """Persist the session cache: evict every retained block to the
+        tier in leaf-first waves and commit, so finished conversations'
+        prefixes survive a restart.  No-op without a session dir."""
+        if self.tier is None or not self.tier.session_dir:
+            return
+        while True:
+            cands = self._evict_candidates(set())
+            if not cands or not self._evict_wave(cands):
+                break
+        # a final commit even when nothing evicted: restores may have
+        # drained the store since the last wave's commit
+        try:
+            self.tier.commit()
+        except OSError as e:
+            self._tier_fallback("session-commit", e)
+
+    # -- retirement and the ladder's rungs -------------------------------
 
     def _retire(self) -> None:
         still = []
@@ -269,6 +576,16 @@ class ServeEngine:
                 for b in s.table:
                     self._release_block(b)
                 self.cost.drop(s.rid)
+                if s.rid in self.preempted_partial:
+                    # a resumed leg: its banked output goes in front, and
+                    # the lifecycle sees the whole stream with the first
+                    # leg's first token
+                    s.out = self.preempted_partial.pop(s.rid) + s.out
+                    s.t_first_ns = (
+                        self.preempted_first_ns.pop(s.rid, None)
+                        or s.t_first_ns
+                    )
+                    self.stats["preempted_resumed"] += 1
                 self.done[s.rid] = s.out
                 self._finalize_lifecycle(s, "done")
                 obs.counter("tpu_patterns_serve_requests_total").inc()
@@ -318,10 +635,92 @@ class ServeEngine:
     def _shed_request(self, rid: int, reason: str,
                       priority: str = "interactive") -> None:
         """Terminal shed bookkeeping of the burn ladder: counted, never
-        dropped silently."""
+        dropped silently.  A shed resumed leg abandons its banked
+        output."""
         self.shed[rid] = reason
+        self.preempted_partial.pop(rid, None)
+        self.preempted_first_ns.pop(rid, None)
         self.stats["sheds"] += 1
         obs.counter("tpu_patterns_serve_shed_total", priority=priority).inc()
+
+    def _preempt_victim(self) -> _Slot | None:
+        """The bulk row to preempt next: the most recently admitted one
+        (LIFO: the oldest has banked the most work), skipping finished
+        rows and rows whose blocks ride a pending CoW copy."""
+        pending = {b for pair in self._pending_cow for b in pair}
+        for s in reversed(self.active):
+            if s.priority != "bulk" or len(s.out) >= s.n_gen:
+                continue
+            if any(b in pending for b in s.table):
+                continue
+            return s
+        return None
+
+    def _preempt_slot(self, s: _Slot, protect=frozenset()) -> None:
+        """Preempt running row ``s``: index its fully written blocks,
+        release the row, force the now-retained blocks through the evict
+        path into the host tier, and requeue the request as a forced
+        session carrying its output so far.  Re-admission restores or
+        aliases those blocks, so no full block is recomputed.
+        ``protect`` blocks (an admission's alias set) stay on the
+        device."""
+        self.active.remove(s)
+        # K/V is written for positions [0, lens + steps): the prompt and
+        # every fed generated token; only those full blocks are indexed
+        ctx = s.prompt + s.out
+        n_kv = s.lens + s.steps
+        self.index.materialize(self.index.insert(ctx[:n_kv], s.table))
+        for b in s.table:
+            self._release_block(b)
+        self.cost.drop(s.rid)
+        # a block another row still references (or a protected one)
+        # stays on the device and aliases on resume
+        want = {b for b in s.table if b in self.retained} - set(protect)
+        while want:
+            wave = [b for b in self._evict_candidates(set(protect))
+                    if b in want]
+            if not wave or not self._evict_wave(wave, rid=s.rid):
+                break
+            want -= set(wave)
+        self.preempted_partial[s.rid] = (
+            self.preempted_partial.get(s.rid, []) + list(s.out)
+        )
+        if s.t_first_ns and s.rid not in self.preempted_first_ns:
+            self.preempted_first_ns[s.rid] = s.t_first_ns
+        self.preempted_rids.add(s.rid)
+        # the remainder goes to the back of the queue with its original
+        # submit time; the banked tokens keep their draw indices, so the
+        # key sequence continues where the preempted stream stopped
+        self.queue.append((
+            Request(
+                rid=s.rid, tokens=ctx, n_gen=s.n_gen - len(s.out),
+                scenario=s.scenario, deadline_ms=s.deadline_ms,
+                priority="bulk", temperature=s.temperature, top_k=s.top_k,
+                top_p=s.top_p, seed=s.seed,
+                gen_offset=s.gen_offset + len(s.out),
+            ),
+            s.t_submit_ns,
+        ))
+        self.stats["preempted"] += 1
+        obs.counter("tpu_patterns_serve_preempted_total",
+                    priority="bulk").inc()
+
+    def _try_preempt(self, protect=frozenset()) -> bool:
+        """One guarded preemption: pick a bulk victim and force it out.
+        The ``serve.preempt`` site fails open: an injected error aborts
+        the preemption (the victim runs on) and the caller degrades to
+        its next rung."""
+        if self.preempt != "bulk":
+            return False
+        victim = self._preempt_victim()
+        if victim is None:
+            return False
+        try:
+            faults.inject("serve.preempt", rid=victim.rid)
+        except faults.InjectedFault:
+            return False
+        self._preempt_slot(victim, protect=protect)
+        return True
 
     def _admit(self) -> list[tuple[Request, _Slot]]:
         """Pull queued requests FIFO into free slots while blocks last; a
@@ -332,27 +731,46 @@ class ServeEngine:
         With prefix sharing on, the prompt's indexed whole-block prefix
         aliases existing blocks (refcount + 1, no allocation), a partial
         boundary match claims one fresh block to copy the donor into,
-        and only the rest draws on the free list, so a shareable request
-        admits where its full rectangle would have deferred.
+        and only the rest draws on the free list.  With the kv tier the
+        host-resident continuation of that prefix pages back onto fresh
+        blocks, and a dry free list first evicts cold retained blocks
+        (alias -> evict -> defer).
 
-        While a burn episode is active under ``burn_mitigation="shed"``,
-        the queue's first bulk request is shed instead, or the head when
-        none is bulk (the reference's ladder with preemption off)."""
+        Under ``preempt="bulk"`` an interactive head meeting a full
+        active set, or a free list still short after eviction, preempts
+        running bulk rows first.  While a burn episode is active under
+        ``burn_mitigation="shed"``, the queue's first bulk request that
+        is not a resumed leg is shed, else a running bulk row preempts,
+        else the head is shed (the reference's ladder)."""
         admitted: list[tuple[Request, _Slot]] = []
         while self.queue:
             if self.burn_mitigation == "shed" and self.slo.mitigating():
                 bi = next((i for i, (r, _) in enumerate(self.queue)
-                           if r.priority == "bulk"), None)
-                req, _ = self.queue.pop(0 if bi is None else bi)
-                self._shed_request(
-                    req.rid,
-                    "shed: slo burn-rate mitigation active"
-                    + (" (bulk first)" if bi is not None else ""),
-                    priority=req.priority,
-                )
-                continue
+                           if r.priority == "bulk"
+                           and r.rid not in self.preempted_partial), None)
+                if bi is None and self._try_preempt():
+                    continue
+                shed_i = 0 if bi is None else bi
+                req, _ = self.queue[shed_i]
+                try:
+                    faults.inject("serve.shed", rid=req.rid)
+                except faults.InjectedFault:
+                    pass  # fails open: the request admits as usual
+                else:
+                    self.queue.pop(shed_i)
+                    self._shed_request(
+                        req.rid,
+                        "shed: slo burn-rate mitigation active"
+                        + (" (bulk first)" if bi is not None else ""),
+                        priority=req.priority,
+                    )
+                    continue
             if len(self.active) + len(admitted) >= self.slots:
-                break
+                # the active set is full: an interactive head may free a
+                # slot by preempting a running bulk row
+                if not (self.queue[0][0].priority == "interactive"
+                        and self._try_preempt()):
+                    break
             req, t_submit = self.queue[0]
             need = self._blocks_needed(req)
             plan = (self.index.plan(req.tokens)
@@ -360,30 +778,73 @@ class ServeEngine:
             # the index never covers more than the prompt's blocks, but
             # aliasing more than the table holds would leak references
             aliased = list(plan.aliased)[:need] if plan else []
-            if need - len(aliased) > len(self.free):
+            restores = (list(plan.restores)[: need - len(aliased)]
+                        if plan and self.tier is not None else [])
+            # restore targets and fresh blocks both draw on the free
+            # list: a dry one evicts cold retained blocks first, sparing
+            # the blocks this admission aliases and its CoW donor
+            device_need = need - len(aliased)
+            protect = set(aliased)
+            if plan is not None and plan.donor is not None:
+                protect.add(plan.donor)
+            if device_need > len(self.free):
+                self._evict_for(device_need - len(self.free), protect,
+                                rid=req.rid)
+            while (device_need > len(self.free)
+                   and req.priority == "interactive"
+                   and self._try_preempt(protect=protect)):
+                self._evict_for(device_need - len(self.free), protect,
+                                rid=req.rid)
+            if device_need > len(self.free):
                 self.stats["deferrals"] += 1
                 obs.counter("tpu_patterns_serve_deferrals_total").inc()
                 break
             self.queue.pop(0)
-            fresh = [self.free.pop() for _ in range(need - len(aliased))]
-            table = aliased + fresh
-            for b in aliased:
+            if aliased and need > len(self.free):
+                # without its aliased blocks this request would not have
+                # fit now: the admission the kv-tier Record counts
+                self.stats["pressure_admits"] += 1
+            # the tier's capacity drop may have forgotten some of the
+            # restore run: keep its contiguous head, prefill the rest
+            for i, h in enumerate(restores):
+                if h not in self.tier.store:
+                    restores = restores[:i]
+                    break
+            restored = self._onload(restores, rid=req.rid)
+            fresh = [self.free.pop()
+                     for _ in range(need - len(aliased) - len(restored))]
+            table = aliased + restored + fresh
+            for b in aliased + restored:
                 self.ref[b] = self.ref.get(b, 0) + 1
+                self.retained.pop(b, None)
             for b in fresh:
                 self.ref[b] = 1
-            write_from = len(aliased) * self.layout.block_len
-            if plan is not None and plan.donor is not None and fresh:
+            covered = len(aliased) + len(restored)
+            write_from = covered * self.layout.block_len
+            # the donor lies below the deepest matched node: it covers
+            # real positions only if every planned restore landed
+            donor_ok = plan is not None and plan.donor is not None and (
+                not plan.restores or len(restored) == len(plan.restores)
+            )
+            if donor_ok and fresh:
                 # CoW: the boundary block copies the donor, then this row
                 # overwrites its own tail from the split point
                 self._pending_cow.append((plan.donor, fresh[0]))
                 write_from += plan.donor_len
                 self.stats["cow_copies"] += 1
                 obs.counter("tpu_patterns_serve_cow_copies_total").inc()
-            if aliased:
-                self.stats["prefix_hit_blocks"] += len(aliased)
+            if covered:
+                self.stats["prefix_hit_blocks"] += covered
                 obs.counter(
                     "tpu_patterns_serve_prefix_hit_blocks_total"
-                ).inc(len(aliased))
+                ).inc(covered)
+            fresh_full = max(
+                0, len(req.tokens) // self.layout.block_len - covered
+            )
+            self.stats["prompt_fresh_full_blocks"] += fresh_full
+            self.fresh_by_rid[req.rid] = (
+                self.fresh_by_rid.get(req.rid, 0) + fresh_full
+            )
             own_blocks: tuple[int, ...] = ()
             if self.index is not None:
                 own_blocks = tuple(self.index.insert(req.tokens, table))
@@ -506,6 +967,9 @@ class ServeEngine:
                 s.last_tok, s.lens, s.steps, True
             )
         tables = self._tables_array(self.active, rows)
+        # before the launch: ``preempt`` raises SIGTERM, this step still
+        # completes and the loop snapshots at its iteration boundary
+        faults.inject("serve.step", step=self.stats["steps"])
         t0 = clock_ns()
         nxt = self.decoder.step(
             self.params, self.pool, tok, lens, steps, tables, active,
@@ -571,6 +1035,9 @@ class ServeEngine:
             lens[i], steps[i] = s.lens, s.steps
             n_draft[i], active[i] = len(d), True
         tables = self._tables_array(self.active, rows)
+        # before the launch, as serve.step
+        faults.inject("serve.verify", step=self.stats["steps"],
+                      rows=len(self.active))
         t0 = clock_ns()
         out = self.decoder.verify(
             self.params, self.pool, toks, lens, steps, n_draft, tables,
@@ -606,9 +1073,205 @@ class ServeEngine:
         self.stats["spec_row_steps"] += len(self.active)
         self.stats["spec_tokens"] += committed
 
+    # -- snapshots -------------------------------------------------------
+
+    def _on_preempt_signal(self, signum, frame) -> None:
+        # async-signal-safe only: the handler interrupts the loop, which
+        # may hold the metrics registry's lock, so it sets the event and
+        # the loop does the counting at its iteration boundary
+        self._preempt_signum = signum
+        self._preempt.set()
+
+    def _install_preempt_handlers(self):
+        """Arm SIGTERM/SIGINT -> snapshot while the loop runs; returns
+        the callback that restores the previous handlers.  A no-op off
+        the main thread or without a snapshot_dir."""
+        if not self.snapshot_dir:
+            return lambda: None
+        try:
+            prev = {
+                s: signal.signal(s, self._on_preempt_signal)
+                for s in (signal.SIGTERM, signal.SIGINT)
+            }
+        except ValueError:  # not the main thread
+            return lambda: None
+
+        def restore():
+            for s, h in prev.items():
+                signal.signal(s, h)
+
+        return restore
+
+    def snapshot(self) -> str:
+        """Commit the pool and the scheduler's state atomically under
+        snapshot_dir: the pool (and the tier's blocks) through
+        ``ckpt.save``, everything host-side the loop owns in the
+        ``engine.json`` sidecar of the same commit (the reference's keys
+        at format 3; ``failed`` stays empty, the port has no quarantine
+        yet)."""
+        step = self.stats["steps"]
+        state = {
+            "format": SNAPSHOT_FORMAT,
+            "fingerprint": self.fingerprint,
+            "queue": [
+                {"rid": r.rid, "tokens": r.tokens, "n_gen": r.n_gen,
+                 "priority": r.priority, "temperature": r.temperature,
+                 "top_k": r.top_k, "top_p": r.top_p, "seed": r.seed,
+                 "gen_offset": r.gen_offset}
+                for r, _ in self.queue
+            ],
+            "active": [
+                {"rid": s.rid, "lens": s.lens, "steps": s.steps,
+                 "n_gen": s.n_gen, "table": s.table,
+                 "last_tok": s.last_tok, "out": s.out,
+                 "prompt": s.prompt, "priority": s.priority,
+                 "temperature": s.temperature, "top_k": s.top_k,
+                 "top_p": s.top_p, "seed": s.seed,
+                 "gen_offset": s.gen_offset}
+                for s in self.active
+            ],
+            "free": list(self.free),
+            "ref": {str(b): n for b, n in self.ref.items()},
+            "index": (self.index.to_state()
+                      if self.index is not None else None),
+            "done": {str(k): v for k, v in self.done.items()},
+            "failed": {},
+            "shed": {str(k): v for k, v in self.shed.items()},
+            "preempted_partial": {
+                str(k): v for k, v in self.preempted_partial.items()
+            },
+            "preempted_first_ns": {
+                str(k): v for k, v in self.preempted_first_ns.items()
+            },
+            "preempted_rids": sorted(self.preempted_rids),
+            "stats": {k: v for k, v in self.stats.items()
+                      if k != "queue_wait_ns"},
+        }
+        tree = {"pool": self.pool}
+        if self.tier is not None:
+            handles, arrays = self.tier.state_arrays()
+            state["retained"] = {str(b): n for b, n in self.retained.items()}
+            state["tier"] = {
+                "handles": handles,
+                "paths": {str(h): list(self.tier.paths[h]) for h in handles},
+            }
+            tree["tier"] = arrays
+        return ckpt.save(self.snapshot_dir, step, tree,
+                         extras={"engine.json": json.dumps(state)})
+
+    def restore_snapshot(self) -> int:
+        """Load the latest committed snapshot into this fresh engine (the
+        pool copied into its buffers on the engine's device); returns
+        the snapshot's decode-step counter.  A snapshot of another
+        format or taken under another fingerprint raises, naming the
+        keys that differ."""
+        if not self.snapshot_dir:
+            raise ValueError("engine has no snapshot_dir to restore from")
+        step = ckpt.latest_step(self.snapshot_dir)
+        if step is None:
+            raise FileNotFoundError(
+                f"no committed serve snapshot under {self.snapshot_dir}"
+            )
+        state = json.loads(
+            ckpt.read_extra(self.snapshot_dir, "engine.json", step=step)
+        )
+        if state.get("format") != SNAPSHOT_FORMAT:
+            raise ValueError(
+                f"serve snapshot format {state.get('format')} != "
+                f"{SNAPSHOT_FORMAT}"
+            )
+        if (self.fingerprint and state.get("fingerprint")
+                and state["fingerprint"] != self.fingerprint):
+            diff = {
+                k for k in set(self.fingerprint) | set(state["fingerprint"])
+                if self.fingerprint.get(k) != state["fingerprint"].get(k)
+            }
+            raise ValueError(
+                "serve snapshot was taken under a different config "
+                f"(mismatched: {sorted(diff)}): resume with the flags of "
+                "the preempted run"
+            )
+        # host templates: the pool comes back into its own buffers below
+        template = {"pool": {n: torch.empty(t.shape, dtype=t.dtype)
+                             for n, t in self.pool.items()}}
+        if self.tier is not None and state.get("tier") is not None:
+            n_host = len(state["tier"]["handles"])
+            template["tier"] = {
+                name: torch.empty((n_host, *shape), dtype=dt)
+                for name, (shape, dt) in self.tier.leaf_meta.items()
+            }
+        tree = ckpt.restore(self.snapshot_dir, template, step=step)
+        for n, leaf in self.pool.items():
+            leaf.copy_(tree["pool"][n])
+        if "tier" in template:
+            handles = [int(h) for h in state["tier"]["handles"]]
+            paths = {h: tuple(state["tier"]["paths"][str(h)])
+                     for h in handles}
+            self.tier.load_arrays(handles, paths, tree["tier"])
+        self.retained = {
+            int(b): int(n) for b, n in (state.get("retained") or {}).items()
+        }
+        if self.retained:
+            self._lru_clock = itertools.count(max(self.retained.values()) + 1)
+        now = clock_ns()
+        self.queue = [
+            (Request(rid=q["rid"], tokens=list(q["tokens"]),
+                     n_gen=q["n_gen"], priority=q["priority"],
+                     temperature=q["temperature"], top_k=q["top_k"],
+                     top_p=q["top_p"], seed=q["seed"],
+                     gen_offset=q["gen_offset"]), now)
+            for q in state["queue"]
+        ]
+        self.active = [
+            _Slot(rid=a["rid"], lens=a["lens"], steps=a["steps"],
+                  n_gen=a["n_gen"], table=list(a["table"]),
+                  last_tok=a["last_tok"], out=list(a["out"]),
+                  t_submit_ns=now, prompt=list(a["prompt"]),
+                  priority=a["priority"], temperature=a["temperature"],
+                  top_k=a["top_k"], top_p=a["top_p"], seed=a["seed"],
+                  gen_offset=a["gen_offset"])
+            for a in state["active"]
+        ]
+        self.free = list(state["free"])
+        self.ref = {int(b): int(n) for b, n in state["ref"].items()}
+        if self.index is not None and state.get("index") is not None:
+            self.index = PrefixIndex.from_state(self.layout.block_len,
+                                                state["index"])
+        self.done = {int(k): v for k, v in state["done"].items()}
+        self.shed = {int(k): v for k, v in state["shed"].items()}
+        self.preempted_partial = {
+            int(k): list(v) for k, v in state["preempted_partial"].items()
+        }
+        self.preempted_first_ns = {
+            int(k): int(v) for k, v in state["preempted_first_ns"].items()
+        }
+        self.preempted_rids = {int(r) for r in state["preempted_rids"]}
+        for k, v in state["stats"].items():
+            if k in self.stats:
+                self.stats[k] = v
+        obs.counter("tpu_patterns_serve_resumes_total").inc()
+        return step
+
+    def _take_preemption(self) -> None:
+        """Act on a pending preemption at an iteration boundary, on the
+        loop's own thread: count it, stamp ``preempted_at`` and
+        snapshot."""
+        obs.counter("tpu_patterns_serve_preemptions_total").inc()
+        self.preempted_at = self.stats["steps"]
+        if self.snapshot_dir:
+            self.snapshot()
+
+    # -- the loop --------------------------------------------------------
+
     def run(self, requests: list[Request], *, source=None
             ) -> dict[int, list[int]]:
         """Serve ``requests`` to completion; returns {rid: generated ids}.
+
+        An empty ``requests`` continues what the queue and the active
+        set hold (the resume path after :meth:`restore_snapshot`).  If a
+        preemption signal arrives the loop finishes its iteration,
+        snapshots, sets ``preempted_at`` and returns the partial
+        results.  With a session dir the tier is committed at the end.
 
         ``source`` streams arrivals in: a callable polled once an
         iteration as ``source(idle=...)``, returning newly arrived
@@ -620,6 +1283,7 @@ class ServeEngine:
         sleeps."""
         for r in requests:
             self.submit(r)
+        restore_handlers = self._install_preempt_handlers()
         # the cost window covers exactly this loop
         self.cost.start(self.allocated_blocks())
         try:
@@ -635,6 +1299,11 @@ class ServeEngine:
                             else:
                                 self.submit(item)
                 if not (self.queue or self.active):
+                    if self._preempt.is_set():
+                        # idle until the next arrival: the signal does
+                        # not wait for it
+                        self._take_preemption()
+                        break
                     if source is None:
                         break
                     continue
@@ -661,8 +1330,15 @@ class ServeEngine:
                     len(self.active)
                 )
                 self.cost.tick(self.allocated_blocks())
+                if self._preempt.is_set():
+                    self._take_preemption()
+                    break
+            if self.tier is not None and self.tier.session_dir:
+                # bank the session cache at the run's end
+                self.save_session()
         finally:
             self.cost.close(self.allocated_blocks())
+            restore_handlers()
         return dict(self.done)
 
     def _decode(self) -> None:
@@ -722,6 +1398,23 @@ class ServeConfig:
     spec_k: int = 0
     min_accepted: float = 1.0  # accepted-tokens/step gate (plain = 1.0)
     seed: int = 0
+    # preemption safety: with snapshot_dir set, SIGTERM/SIGINT mid-serve
+    # finishes the current iteration, commits the engine's state there
+    # and ends with a WARNING Record; --resume restores the latest
+    # snapshot and continues, ids gated against the dense decode (this
+    # path serves the trace once, no speedup race)
+    snapshot_dir: str = ""
+    resume: bool = False
+    ids_out: str = ""  # write {rid: generated ids} JSON on completion
+    # the host KV tier (serve/kvtier.py): retain refcount-0 prefix
+    # blocks, evict them to host memory when the free list runs dry and
+    # page them back on a prefix hit.  Plain runs bank the tier-against-
+    # defer Record; --session_dir makes it the session-cache run, whose
+    # tier survives a restart through ckpt/
+    kv_host_tier: bool = False
+    session_dir: str = ""
+    host_tier_blocks: int = 0  # host-tier capacity in blocks (0 = unbounded)
+    min_tier_speedup: float = 1.0  # tier-against-defer tokens/s gate
     # trace-driven load generation: a loadgen scenario spec ("chat",
     # "rag:requests=16", the loadgen/scenarios.py grammar).  Set, the run
     # is the SLO pattern of ``loadgen/runner.py`` on this model and pool:
@@ -737,6 +1430,10 @@ class ServeConfig:
     slo_slow_s: float = 300.0  # slow burn window (contextualizes)
     slo_budget: float = 0.1  # allowed bad-token fraction
     burn_multiplier: float = 2.0  # fast-window burn that trips the ladder
+    # priority preemption (needs --kv_host_tier and --scenario): a
+    # running bulk row under pressure parks in the host tier and resumes
+    # bit-identical
+    preempt: str = "off"  # off | bulk
     device: str = "cuda"  # "cpu" runs the plain torch versions
 
 
@@ -1094,6 +1791,374 @@ def _spec_record(cfg: ServeConfig, writer: ResultWriter, mcfg, decoder,
     return rec
 
 
+def _serve_fingerprint(cfg: ServeConfig, n_blocks: int) -> dict:
+    """The config a snapshot must agree on to resume: everything that
+    shapes the pool, the trace or the token stream (the reference's
+    exclusions; ``device`` stays in, so a snapshot taken on the card
+    refuses to resume on the CPU)."""
+    fp = dataclasses.asdict(cfg)
+    for k in ("snapshot_dir", "resume", "ids_out", "min_speedup",
+              "min_block_savings", "min_accepted", "session_dir",
+              "host_tier_blocks", "min_tier_speedup",
+              # the burn ladder never shapes the token stream (a shed
+              # request is terminal bookkeeping, spec_off is
+              # bit-identical), nor does preemption (resume is exact)
+              "burn_mitigation", "slo_fast_s", "slo_slow_s", "slo_budget",
+              "burn_multiplier", "preempt"):
+        fp.pop(k)
+    fp["n_blocks"] = n_blocks  # resolved, not the 0 = auto sentinel
+    return fp
+
+
+def _run_preemptible(cfg: ServeConfig, writer: ResultWriter, mcfg,
+                     decoder: PagedDecoder, params, trace) -> list[Record]:
+    """The preemption-safe serve path (``snapshot_dir``): serve the trace
+    once under armed SIGTERM/SIGINT handlers.  Preempted: a committed
+    snapshot and a WARNING Record.  Completed (fresh or ``resume``):
+    every finished request's ids gated against the dense per-request
+    decode, and ``ids_out`` written."""
+    eng = ServeEngine(
+        decoder, params, slots=cfg.slots, snapshot_dir=cfg.snapshot_dir,
+        fingerprint=_serve_fingerprint(cfg, decoder.layout.n_blocks),
+        prefix_share=cfg.prefix_share, spec_k=cfg.spec_k,
+        kv_host_tier=cfg.kv_host_tier, session_dir=cfg.session_dir or None,
+        host_tier_blocks=cfg.host_tier_blocks, **_slo_kwargs(cfg),
+    )
+    resumed_from = None
+    if cfg.resume:
+        resumed_from = eng.restore_snapshot()
+        writer.progress(
+            f"serve resume: snapshot at decode step {resumed_from} "
+            f"({len(eng.done)} done, {len(eng.active)} active, "
+            f"{len(eng.queue)} queued)"
+        )
+        out = eng.run([])
+    else:
+        out = eng.run([dataclasses.replace(r) for r in trace])
+    mode = ("resume" if cfg.resume else "preemptible") + f"_slots{cfg.slots}_sp1"
+    config = {"device": str(decoder.device), "paged_attn": cfg.paged_attn}
+    if eng.preempted_at is not None:
+        rec = Record(
+            pattern="serve", mode=mode, commands=_serve_commands(cfg),
+            metrics={
+                "preempted": 1.0,
+                "snapshot_step": float(eng.preempted_at),
+                "done_requests": float(len(eng.done)),
+                "pending_requests": float(len(eng.queue) + len(eng.active)),
+            },
+            verdict=Verdict.WARNING,
+            notes=[
+                f"preempted at decode step {eng.preempted_at}; engine "
+                f"state committed under {cfg.snapshot_dir}: rerun with "
+                "--resume true to continue"
+            ],
+            config=config,
+        )
+        writer.record(rec)
+        return [rec]
+    if cfg.ids_out:
+        with open(cfg.ids_out, "w") as f:
+            json.dump({"done": {str(k): out[k] for k in sorted(out)},
+                       "failed": {}}, f)
+    want_ids = _dense_expected(mcfg, cfg, params,
+                               [r for r in trace if r.rid in out])
+    mismatched = [r.rid for r in trace
+                  if r.rid in out and out[r.rid] != want_ids[r.rid]]
+    unaccounted = [r.rid for r in trace if r.rid not in out]
+    leaked = eng.leaked_blocks()
+    ok = not (mismatched or unaccounted or leaked)
+    rec = Record(
+        pattern="serve", mode=mode, commands=_serve_commands(cfg),
+        metrics={
+            "exact": float(not mismatched),
+            "done_requests": float(len(out)),
+            # the port has no quarantine path yet (ROADMAP)
+            "quarantined": 0.0,
+            "resumed_from": float(
+                resumed_from if resumed_from is not None else -1
+            ),
+            "decode_steps": float(eng.stats["steps"]),
+            "tokens": float(eng.stats["tokens"]),
+            "deferrals": float(eng.stats["deferrals"]),
+            "leaked_blocks": float(leaked),
+            "prefix_hit_blocks": float(eng.stats["prefix_hit_blocks"]),
+            "cow_copies": float(eng.stats["cow_copies"]),
+            "spec_steps": float(eng.stats["spec_steps"]),
+            "spec_tokens": float(eng.stats["spec_tokens"]),
+        },
+        verdict=Verdict.SUCCESS if ok else Verdict.FAILURE,
+        config=config,
+    )
+    if mismatched:
+        rec.notes.append(
+            f"exactness gate FAILED for request(s) {mismatched[:8]}: ids "
+            "diverged from the dense per-request decode"
+        )
+    if unaccounted:
+        rec.notes.append(
+            f"request(s) {unaccounted[:8]} never completed: scheduler bug"
+        )
+    if leaked:
+        rec.notes.append(
+            f"{leaked} allocated block(s) have no live table reference: "
+            "refcount bookkeeping leaked"
+        )
+    writer.record(rec)
+    return [rec]
+
+
+def session_trace(cfg: ServeConfig) -> tuple[list[Request], int]:
+    """The conversation-shaped chat trace of the kv-tier patterns, drawn
+    from seed + 4 as the JAX package draws it: ``G`` users sharing one
+    two-block system prompt, each with a private history growing a
+    block a turn, submitted turn-major, so a turn-2 request arrives
+    after its turn-1 wave retired and a tierless engine must prefill
+    the history again.  Returns (requests, gen)."""
+    bl = cfg.block_len
+    if cfg.slots < 3:
+        raise ValueError(
+            "the kv-tier trace needs --slots >= 3 (the oversubscribed "
+            f"pool geometry degenerates below that), got {cfg.slots}"
+        )
+    n_conv = max(cfg.slots + 2, cfg.requests // 2)
+    gen = max(2, min(cfg.gen, bl))
+    rng = np.random.RandomState(cfg.seed + 4)
+    shared = rng.randint(0, cfg.vocab, size=2 * bl).tolist()
+    convs = [rng.randint(0, cfg.vocab, size=2 * bl).tolist()
+             for _ in range(n_conv)]
+    reqs, rid = [], 0
+    for turn in (1, 2):
+        for g in range(n_conv):
+            reqs.append(Request(rid=rid, tokens=shared + convs[g][: turn * bl],
+                                n_gen=gen))
+            rid += 1
+    return reqs, gen
+
+
+def _kv_tier_pool(cfg: ServeConfig, mcfg, device) -> PagedDecoder:
+    """The oversubscribed pool of both kv-tier patterns: the shared
+    prefix (2 blocks) plus ``slots`` turn-2 private working sets (3
+    each), under the defer-only engine's turn-1 demand (``slots x 4``),
+    so that engine defers on the session trace where the tier admits."""
+    bl = cfg.block_len
+    return make_paged_lm_decoder(
+        mcfg, cfg.vocab, n_blocks=2 + 3 * cfg.slots + 1, block_len=bl,
+        max_len=5 * bl, cache_int8=cfg.cache_int8, attn=cfg.paged_attn,
+        device=device,
+    )
+
+
+def _kv_oracle_cfg(cfg: ServeConfig, gen: int) -> ServeConfig:
+    """The dense oracle's shape for the session trace (prompts reach 4
+    blocks whatever ``max_prompt`` says)."""
+    return dataclasses.replace(cfg, max_prompt=4 * cfg.block_len, gen=gen)
+
+
+def _kv_tier_record(cfg: ServeConfig, writer: ResultWriter, mcfg, params,
+                    device) -> Record:
+    """Measured pattern: the oversubscribed session trace served with the
+    host KV tier on and by the defer-only engine, through pools of one
+    size, each timed after a warm-up run.  Gates: the defer-only leg
+    defers where the tier leg never does and admits at least once only
+    because retained blocks aliased (``pressure_admits``); evictions
+    and onload hits > 0; tokens/s above ``min_tier_speedup`` x the
+    defer-only leg's; ids equal to the dense decode's and the defer-only
+    leg's; no leaked block."""
+    trace, gen = session_trace(cfg)
+    decoder = _kv_tier_pool(cfg, mcfg, device)
+    n_blocks = decoder.layout.n_blocks
+    total_tokens = sum(r.n_gen for r in trace)
+
+    def serve_once(tier: bool):
+        def build():
+            return ServeEngine(decoder, params, slots=cfg.slots,
+                               kv_host_tier=tier,
+                               host_tier_blocks=cfg.host_tier_blocks,
+                               **_slo_kwargs(cfg))
+
+        build().run([dataclasses.replace(r) for r in trace])  # warm-up
+        eng = build()
+        device_barrier(decoder.device)
+        t0 = clock_ns()
+        out = eng.run([dataclasses.replace(r) for r in trace])
+        device_barrier(decoder.device)
+        return out, (clock_ns() - t0) / 1e9, eng
+
+    out_tier, tier_s, eng_t = serve_once(True)
+    out_base, base_s, eng_b = serve_once(False)
+    want_ids = _dense_expected(mcfg, _kv_oracle_cfg(cfg, gen), params, trace)
+    exact = out_tier == out_base and _first_divergence(
+        writer, "kv-tier", trace, out_tier, want_ids)
+    tier_tps = total_tokens / tier_s if tier_s > 0 else 0.0
+    base_tps = total_tokens / base_s if base_s > 0 else 0.0
+    speedup = tier_tps / base_tps if base_tps > 0 else 0.0
+    st = eng_t.stats
+    leaked = eng_t.leaked_blocks()
+    ok = (exact and eng_b.stats["deferrals"] > 0 and st["deferrals"] == 0
+          and st["pressure_admits"] > 0 and st["evictions"] > 0
+          and st["onload_hits"] > 0 and np.isfinite(speedup)
+          and speedup > cfg.min_tier_speedup and leaked == 0)
+    rec = Record(
+        pattern="serve",
+        mode=f"kv_tier_slots{cfg.slots}_bl{cfg.block_len}_sp1",
+        commands=(
+            f"req{len(trace)} conv{len(trace) // 2}x2turns gen{gen} "
+            f"pool{n_blocks} V{cfg.vocab} depth{cfg.depth} {cfg.dtype}"
+        ),
+        metrics={
+            "exact": float(exact),
+            "tokens_per_s": round(tier_tps, 1),
+            "defer_tokens_per_s": round(base_tps, 1),
+            "goodput_speedup": round(speedup, 3),
+            "deferrals": float(st["deferrals"]),
+            "defer_baseline_deferrals": float(eng_b.stats["deferrals"]),
+            "pressure_admits": float(st["pressure_admits"]),
+            "evictions": float(st["evictions"]),
+            "evict_MB": round(st["evict_bytes"] / 1e6, 4),
+            "onload_hits": float(st["onload_hits"]),
+            "onload_MB": round(st["onload_bytes"] / 1e6, 4),
+            "retained_peak": float(st["retained_peak"]),
+            "tier_fallbacks": float(st["tier_fallbacks"]),
+            "decode_steps": float(st["steps"]),
+            "defer_decode_steps": float(eng_b.stats["steps"]),
+            "leaked_blocks": float(leaked),
+        },
+        verdict=Verdict.SUCCESS if ok else Verdict.FAILURE,
+        config={"device": str(decoder.device), "paged_attn": cfg.paged_attn,
+                "evict_ms": st["evict_ns"] / 1e6,
+                "commit_ms": st["commit_ns"] / 1e6,
+                "onload_ms": st["onload_ns"] / 1e6},
+    )
+    if not exact:
+        rec.notes.append(
+            "exactness gate FAILED: evict/restore changed a request's "
+            "greedy ids vs per-request dense decode"
+        )
+    if not eng_b.stats["deferrals"] > 0:
+        rec.notes.append(
+            "the defer-only baseline never deferred: the trace did not "
+            "oversubscribe the pool, the contrast is vacuous"
+        )
+    if st["deferrals"] > 0 or st["pressure_admits"] == 0:
+        rec.notes.append(
+            f"admit-where-deferred gate FAILED: tier deferred "
+            f"{st['deferrals']} time(s), pressure admits "
+            f"{st['pressure_admits']}"
+        )
+    if st["evictions"] == 0 or st["onload_hits"] == 0:
+        rec.notes.append(
+            f"tier traffic gate FAILED: evictions {st['evictions']}, "
+            f"onload hits {st['onload_hits']}: the trace never exercised "
+            "the host tier"
+        )
+    if not speedup > cfg.min_tier_speedup:
+        rec.notes.append(
+            f"goodput {tier_tps:.1f} tok/s <= {cfg.min_tier_speedup}x the "
+            f"defer-only baseline's {base_tps:.1f}: the ladder did not "
+            "beat the cliff on this trace"
+        )
+    if leaked:
+        rec.notes.append(f"{leaked} block(s) leaked through evict/restore")
+    writer.record(rec)
+    return rec
+
+
+def _kv_session_record(cfg: ServeConfig, writer: ResultWriter, mcfg,
+                       params, device) -> Record:
+    """Measured pattern: one pass of the session trace with the tier and
+    the session cache (``session_dir``) on, gated against the dense
+    decode.  The Record carries what a restart is held to:
+    ``session_loaded`` (host blocks adopted from the committed cache at
+    start), ``onload_hits`` and ``prompt_fresh_full_blocks`` (0 on a
+    resumed run: no history block prefilled again)."""
+    trace, gen = session_trace(cfg)
+    decoder = _kv_tier_pool(cfg, mcfg, device)
+    n_blocks = decoder.layout.n_blocks
+    eng = ServeEngine(
+        decoder, params, slots=cfg.slots, kv_host_tier=True,
+        session_dir=cfg.session_dir, host_tier_blocks=cfg.host_tier_blocks,
+        fingerprint=_serve_fingerprint(cfg, n_blocks), **_slo_kwargs(cfg),
+    )
+    out = eng.run([dataclasses.replace(r) for r in trace])
+    want_ids = _dense_expected(mcfg, _kv_oracle_cfg(cfg, gen), params,
+                               [r for r in trace if r.rid in out])
+    mismatched = [r.rid for r in trace
+                  if r.rid in out and out[r.rid] != want_ids[r.rid]]
+    unaccounted = [r.rid for r in trace if r.rid not in out]
+    st = eng.stats
+    leaked = eng.leaked_blocks()
+    verdict = Verdict.SUCCESS
+    if mismatched or unaccounted or leaked:
+        verdict = Verdict.FAILURE
+    elif st["tier_fallbacks"]:
+        verdict = Verdict.WARNING
+    rec = Record(
+        pattern="serve",
+        mode=f"kv_session_slots{cfg.slots}_bl{cfg.block_len}_sp1",
+        commands=(
+            f"req{len(trace)} conv{len(trace) // 2}x2turns gen{gen} "
+            f"pool{n_blocks} session={bool(cfg.session_dir)}"
+        ),
+        metrics={
+            "exact": float(not mismatched),
+            "done_requests": float(len(out)),
+            "quarantined": 0.0,
+            "session_loaded": float(st["session_loaded"]),
+            "onload_hits": float(st["onload_hits"]),
+            "evictions": float(st["evictions"]),
+            "prompt_fresh_full_blocks": float(st["prompt_fresh_full_blocks"]),
+            "pressure_admits": float(st["pressure_admits"]),
+            "tier_fallbacks": float(st["tier_fallbacks"]),
+            "deferrals": float(st["deferrals"]),
+            "leaked_blocks": float(leaked),
+        },
+        verdict=verdict,
+        config={"device": str(decoder.device), "paged_attn": cfg.paged_attn,
+                "evict_ms": st["evict_ns"] / 1e6,
+                "commit_ms": st["commit_ns"] / 1e6,
+                "onload_ms": st["onload_ns"] / 1e6},
+    )
+    if mismatched:
+        rec.notes.append(
+            f"exactness gate FAILED for request(s) {mismatched[:8]}: ids "
+            "diverged from the dense per-request decode (a restored block "
+            "was not bit-identical?)"
+        )
+    if unaccounted:
+        rec.notes.append(
+            f"request(s) {unaccounted[:8]} never completed: scheduler bug"
+        )
+    if leaked:
+        rec.notes.append(f"{leaked} block(s) leaked through the tier")
+    writer.record(rec)
+    return rec
+
+
+def _refuse_unsupported(cfg: ServeConfig) -> None:
+    """The reference's refusals of flag combinations a path does not
+    run, raised before the model is built."""
+    if cfg.scenario:
+        if cfg.snapshot_dir or cfg.resume or cfg.ids_out:
+            raise ValueError(
+                "serve --scenario is the SLO measured pattern; run "
+                "preemption (--snapshot_dir/--resume/--ids_out) on the "
+                "plain serve trace instead"
+            )
+        return
+    if cfg.preempt != "off":
+        raise ValueError(
+            "serve --preempt runs through --scenario (a priority-tagged "
+            "trace); the plain measured patterns have no priority "
+            "classes to preempt"
+        )
+    if cfg.resume and not cfg.snapshot_dir:
+        raise ValueError("serve --resume requires --snapshot_dir")
+    if cfg.ids_out and not cfg.snapshot_dir:
+        raise ValueError("serve --ids_out requires --snapshot_dir")
+    if cfg.session_dir and not cfg.kv_host_tier:
+        raise ValueError("serve --session_dir requires --kv_host_tier")
+
+
 def run_serve(cfg: ServeConfig, writer: ResultWriter | None = None
               ) -> list[Record]:
     """Measured pattern: serve one trace continuous (``slots`` wide) and
@@ -1111,15 +2176,38 @@ def run_serve(cfg: ServeConfig, writer: ResultWriter | None = None
     JAX package draws it).  The JAX package emits only those two when
     either flag is set; this one serves the main trace first as well.
 
+    With ``snapshot_dir`` the run is the preemptible one-pass instead
+    (the shared trace under ``prefix_share``, the repetitive one under
+    ``spec_k``; ``resume`` continues a committed snapshot), and with
+    ``kv_host_tier`` the tier-against-defer race on the session trace
+    (with ``session_dir``, the session-cache run), as in the JAX
+    package.
+
     With ``scenario`` the run is the load generator's instead
     (``loadgen/runner.py::run_loadgen``) on this model and pool, one
     Record for the scenario.  The JAX package's bridge leaves
     ``paged_attn`` at the load generator's default; this one passes it.
     """
     writer = writer or ResultWriter()
+    _refuse_unsupported(cfg)
     if cfg.scenario:
         return _run_scenario(cfg, writer)
     mcfg, decoder, params, trace = build_serve(cfg)
+    if cfg.snapshot_dir:
+        # a run that can be preempted anywhere has no speedup race; with
+        # sharing or speculation asked for, it serves the trace their
+        # Record would, so the resume is checked with shared blocks or
+        # drafts in flight
+        if cfg.prefix_share:
+            trace, _ = shared_trace(cfg)
+        elif cfg.spec_k:
+            trace = repetitive_trace(cfg)
+        return _run_preemptible(cfg, writer, mcfg, decoder, params, trace)
+    if cfg.kv_host_tier:
+        if cfg.session_dir:
+            return [_kv_session_record(cfg, writer, mcfg, params,
+                                       decoder.device)]
+        return [_kv_tier_record(cfg, writer, mcfg, params, decoder.device)]
     total_tokens = sum(r.n_gen for r in trace)
 
     legs = serve_legs(decoder, params, trace, cfg.slots, **_slo_kwargs(cfg))
@@ -1197,11 +2285,14 @@ def _run_scenario_config(cfg: ServeConfig):
         dtype=cfg.dtype, rope=cfg.rope, kv_heads=cfg.kv_heads,
         cache_int8=cfg.cache_int8, paged_attn=cfg.paged_attn,
         slots=cfg.slots, block_len=cfg.block_len, n_blocks=cfg.n_blocks,
-        spec_k=cfg.spec_k, prefix_share=cfg.prefix_share, seed=cfg.seed,
+        spec_k=cfg.spec_k, prefix_share=cfg.prefix_share,
+        kv_host_tier=cfg.kv_host_tier, session_dir=cfg.session_dir,
+        host_tier_blocks=cfg.host_tier_blocks, seed=cfg.seed,
         time_scale=cfg.time_scale, scenarios=(cfg.scenario,),
         burn_mitigation=cfg.burn_mitigation, slo_fast_s=cfg.slo_fast_s,
         slo_slow_s=cfg.slo_slow_s, slo_budget=cfg.slo_budget,
-        burn_multiplier=cfg.burn_multiplier, device=cfg.device,
+        burn_multiplier=cfg.burn_multiplier, preempt=cfg.preempt,
+        device=cfg.device,
     )
 
 

@@ -32,6 +32,9 @@ prefixes onto one copy, prefill's per-row ``start`` fence keeps shared
 blocks read-only, and ``copy_blocks`` clones the one boundary block
 where writes diverge.  ``verify`` runs a k+1-token window for
 speculative decoding; ``step`` is ``verify`` at a window of one token.
+``gather_blocks`` and ``onload_blocks`` move whole blocks between the
+pool and the host kv tier (``serve/kvtier.py``); like the reference's
+gather and onload they are plain indexing, not a kernel.
 
 A decoder made with ``sampling=True`` takes five more per-row host
 arrays ``(seeds, gidx, temp, topk, topp)`` in ``prefill``, ``step`` and
@@ -243,6 +246,8 @@ class PagedDecoder:
       drafted ones, and the greedy id at every fed position comes back.
     * ``copy_blocks(pool, src, dst)``: the CoW boundary copy, whole
       blocks of every layer and leaf (scales included).
+    * ``gather_blocks(pool, src)`` and ``onload_blocks(pool, vals,
+      dst)``: the kv tier's block copies out of and into the pool.
 
     With ``sampling`` the three cores take ``seeds, gidx, temp, topk,
     topp`` [B] after ``active`` and sample (inactive rows still give 0).
@@ -273,21 +278,24 @@ class PagedDecoder:
             cfg.head_dim, cfg.n_kv, cfg.torch_dtype, self.cache_int8
         )
 
-    def init_pool(self) -> dict[str, torch.Tensor]:
-        """A fresh zeroed pool on the decoder's device."""
+    def _pool_leaves(self) -> dict[str, tuple[tuple, torch.dtype]]:
+        """(shape, dtype) a pool leaf: the one table behind
+        :meth:`init_pool` and the kv tier's per-block leaf table."""
         lay, cfg = self.layout, self.cfg
         kv = (cfg.depth, lay.n_blocks, lay.block_len, cfg.n_kv, cfg.head_dim)
-        dev = self.device
         if self.cache_int8:
             return {
-                "k": torch.zeros(kv, dtype=torch.int8, device=dev),
-                "v": torch.zeros(kv, dtype=torch.int8, device=dev),
-                "ks": torch.zeros(kv[:-1], dtype=torch.float32, device=dev),
-                "vs": torch.zeros(kv[:-1], dtype=torch.float32, device=dev),
+                "k": (kv, torch.int8), "v": (kv, torch.int8),
+                "ks": (kv[:-1], torch.float32),
+                "vs": (kv[:-1], torch.float32),
             }
+        return {"k": (kv, cfg.torch_dtype), "v": (kv, cfg.torch_dtype)}
+
+    def init_pool(self) -> dict[str, torch.Tensor]:
+        """A fresh zeroed pool on the decoder's device."""
         return {
-            "k": torch.zeros(kv, dtype=cfg.torch_dtype, device=dev),
-            "v": torch.zeros(kv, dtype=cfg.torch_dtype, device=dev),
+            n: torch.zeros(shape, dtype=dt, device=self.device)
+            for n, (shape, dt) in self._pool_leaves().items()
         }
 
     # -- cores -----------------------------------------------------------
@@ -388,6 +396,32 @@ class PagedDecoder:
         dst = self._dev(dst, torch.long)
         for leaf in pool.values():
             leaf[:, dst] = leaf[:, src]
+
+    # -- the kv tier's block copies ---------------------------------------
+
+    @torch.no_grad()
+    def gather_blocks(self, pool, src) -> dict[str, torch.Tensor]:
+        """The device->host half of the kv tier's handoff: blocks
+        ``src[i]`` of every layer and leaf (scales included) as fresh
+        ``[depth, len(src), ...]`` device tensors.  The pool is read,
+        never changed: until the host copy is committed the device copy
+        stays authoritative (the mid-evict contract).  Exactly
+        ``len(src)`` blocks are read; the reference pads the wave to a
+        power of two only to bound its compiled shapes."""
+        src = self._dev(src, torch.long)
+        return {n: leaf[:, src] for n, leaf in pool.items()}
+
+    @torch.no_grad()
+    def onload_blocks(self, pool, vals, dst) -> None:
+        """The host->device half: write ``vals[leaf]`` ``[depth,
+        len(dst), ...]`` into blocks ``dst[i]`` of every layer and leaf,
+        in place (the pool's buffers stay the same, as ``pool_ptrs``
+        checks).  The targets came off the free list: their old contents
+        were garbage."""
+        dst = self._dev(dst, torch.long)
+        for n, leaf in pool.items():
+            leaf.index_copy_(1, dst, vals[n].to(device=leaf.device,
+                                                dtype=leaf.dtype))
 
     # -- params ----------------------------------------------------------
 
