@@ -20,8 +20,9 @@ kernel whose output it reads in place), the rest of the P2P suite
 the environment tier of the CLI), the load generator over the serve
 path (seeded sampling, SLO Records, chaos under load), the
 long-context ``decode`` pattern and the token LM's ``lm`` (no kernel on
-their path), and the serve engine's kv tier, priority preemption and
-snapshots.  Phases, each one or more printed lines:
+their path), the serve engine's kv tier, priority preemption and
+snapshots, and its recovery path with the obs plane that records it.
+Phases, each one or more printed lines:
 
 1. device and toolchain: torch/CUDA versions, ``nvcc --version``, and the
    card's name and power limit as ``nvidia-smi`` reports them;
@@ -296,12 +297,36 @@ snapshots.  Phases, each one or more printed lines:
     ``serve.kv_tier`` sweep cell, lengths doubled for block_len 16): the
     ``chat_kv_tier_*`` Record SUCCESS, the defer-only leg deferring, the
     tier leg never, and the tier leg decoding in fewer steps;
-17. the card's name and power limit again, the ``kernels`` line (the
+17. recovery and the obs plane on the serve path, through K1, at the
+    serve model's width in float32 with TF32 off (K1's count set to 0
+    just before each leg, read just after; alone with ``--tree .
+    recovery``): (a) the serve trace (8 requests, gen 16) with
+    ``error:count=1`` at ``serve.prefill``, ``serve.step`` and
+    ``serve.verify`` (spec_k 4): ids equal to the unfaulted run's and
+    the dense oracle's, one retry counted at the site; (b)
+    ``scripts/chaos_smoke.py``'s leg (d) at dp = tp = 1 through the CLI
+    (``--prefix_share true --spec_k 4 --max_prompt 24 --shared_prefix
+    16`` under ``serve.verify:error:after=2:count=99``): exit 0, a
+    WARNING Record, quarantined > 0, done + quarantined = 8, no leaked
+    block; (c) the JAX package's ``loadgen.chaos_chat`` sweep cell: the
+    chaos Record covers the trace, its faults fired and its p99 is
+    within 50x the clean run's; (d) ``serve.step:error:count=99`` under
+    a ``Breaker(threshold=2)``: it trips, the loop stops and the queue
+    stays intact; (e) a ``--obs-dump`` serve run's ``spans.jsonl``,
+    ``metrics.jsonl`` and ``cost.jsonl`` and their ``obs export
+    --chrome-trace``, every ``serve.step_outer`` at least its
+    ``serve.step`` under ``serve.step:sleep``, a hang dump with every
+    thread's stack and a WARNING Record under ``serve.step:hang`` and
+    ``--watchdog_s 1``, and ``/healthz`` and ``/metrics`` answering
+    mid-run from the live plane; (f) the serve trace's tokens/s with the
+    obs plane off and on, alternating, 4 readings each, spans a decode
+    step and the host's microseconds a span (reported, not gated);
+18. the card's name and power limit again, the ``kernels`` line (the
     flash rows also carry ``train_loop_launches``, phase 8b's counts,
     K1's row ``loadgen_launches``, phase 14's by scenario,
-    ``kv_tier_launches``, phase 16's by leg, and K1-K4
-    ``decode_lm_launches``, phase 15's), then the device line, which is
-    the last.
+    ``kv_tier_launches``, phase 16's by leg, ``recovery_launches``,
+    phase 17's by leg, and K1-K4 ``decode_lm_launches``, phase 15's),
+    then the device line, which is the last.
 """
 
 from __future__ import annotations
@@ -3896,6 +3921,423 @@ def phase_kv_tier(torch, pk):
     return launches
 
 
+# -- phase 17: recovery and the obs plane on the serve path, through K1 -------
+
+# the serve trace of legs a, d and f: the serve model's random trace
+REC_REQUESTS = 8
+REC_GEN = 16
+# leg b: ``scripts/chaos_smoke.py`` leg (d) at dp = tp = 1, its serve
+# trace flags (SERVE_ARGS there: 8 requests, prompts 4-24, gen 6, 4
+# slots) at the serve model's width
+REC_CHAOS_SERVE = dict(requests=8, min_prompt=4, max_prompt=24, gen=6,
+                       slots=4, prefix_share=True, spec_k=SPEC_K,
+                       shared_prefix=16)
+REC_VERIFY_FAULT = "serve.verify:error:after=2:count=99"
+# leg c: the JAX package's ``loadgen.chaos_chat`` sweep cell
+# (tpu_patterns/sweep.py, ``loadgen_specs``, the full shape)
+REC_CHAOS_CHAT = dict(scenarios=("chat",), time_scale=0.05,
+                      slo_ttft_ms=30000.0, slo_tpot_ms=5000.0,
+                      chaos="serve.step:error:count=1,"
+                            "serve.step:error:after=6:count=1",
+                      chaos_p99_mult=50.0)
+# leg f: readings of each of obs off and obs on, alternating
+REC_OBS_READINGS = 4
+
+
+def _smi() -> str:
+    return _run(["nvidia-smi", "--query-gpu=name,power.limit",
+                 "--format=csv,noheader"]).strip().splitlines()[0]
+
+
+def _counter(obs, name, **labels) -> float:
+    return obs.counter(name, **labels).value
+
+
+def _fast_policy(faults):
+    return faults.RetryPolicy(max_attempts=2, backoff_base_s=0.0,
+                              jitter_frac=0.0)
+
+
+def _free_port() -> int:
+    """An ephemeral port of 127.0.0.1, asked of the kernel by binding
+    port 0 (the plane's own ``ObsHttp(0)`` semantics; the CLI's
+    ``--obs_http 0`` means off, as the JAX package's config reads it)."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _engine_run(torch, pk, eng, trace):
+    """``eng.run`` over a copy of ``trace`` as a K1 leg: (ids, launches,
+    {W: launches}, seconds)."""
+    return _k1_leg(torch, pk, lambda: eng.run(
+        [dataclasses.replace(r) for r in trace]))
+
+
+def rec_transient(torch, pk, eng_mod, faults, obs, decoder, params, mcfg,
+                  cfg, trace):
+    """Leg a: ``error:count=1`` at each of serve.prefill, serve.step and
+    serve.verify (spec_k 4): ids equal to the unfaulted run's and the
+    dense oracle's, one retry counted at the site, nothing
+    quarantined."""
+    bad, launches = [], {}
+    want = eng_mod._dense_expected(mcfg, cfg, params, trace)
+    clean = {}
+    for spec_k in (0, SPEC_K):
+        out, n, _, _ = _engine_run(torch, pk, eng_mod.ServeEngine(
+            decoder, params, slots=cfg.slots, spec_k=spec_k), trace)
+        clean[spec_k] = out
+        launches[f"a_clean_k{spec_k}"] = n
+        if out != want:
+            bad.append(f"a: unfaulted spec_k {spec_k} differs from the "
+                       "dense oracle")
+    for site in ("serve.prefill", "serve.step", "serve.verify"):
+        spec_k = SPEC_K if site == "serve.verify" else 0
+        before = _counter(obs, "tpu_patterns_faults_retries_total",
+                          site=site)
+        eng = eng_mod.ServeEngine(decoder, params, slots=cfg.slots,
+                                  spec_k=spec_k,
+                                  retry_policy=_fast_policy(faults))
+        faults.configure(f"{site}:error:count=1")
+        try:
+            out, n, widths, secs = _engine_run(torch, pk, eng, trace)
+        finally:
+            faults.configure(None)
+        retries = _counter(obs, "tpu_patterns_faults_retries_total",
+                           site=site) - before
+        ok = (out == clean[spec_k] == want and not eng.failed
+              and retries == 1 and n > 0)
+        emit({"phase": "recovery", "leg": f"a_{site}", "ok": ok,
+              "exact_vs_unfaulted": out == clean[spec_k],
+              "exact_vs_dense": out == want, "retries": retries,
+              "quarantined": len(eng.failed), "steps": eng.stats["steps"],
+              "recovery_launches": n, "launch_widths": widths,
+              "seconds": secs})
+        launches[f"a_{site}"] = n
+        if not ok:
+            bad.append(f"a {site}: exact {out == want} retries {retries} "
+                       f"failed {eng.failed} launches {n}")
+    return bad, launches
+
+
+def rec_verify_fault(torch, pk, faults, work):
+    """Leg b: chaos-smoke leg (d) through the port's CLI: exit 0 with a
+    WARNING Record, rows quarantined, done + quarantined = 8, no leaked
+    block."""
+    flags = dict(KV_WIDTH, **REC_CHAOS_SERVE)
+    argv = _serve_argv(flags) + ["--snapshot_dir",
+                                 os.path.join(work, "snap_v")]
+    faults.configure(REC_VERIFY_FAULT)
+    try:
+        (rc, _, recs), n, widths, secs = _k1_leg(
+            torch, pk, lambda: _cli_in_process(argv))
+    finally:
+        faults.configure(None)
+    rec = recs[-1] if recs else {}
+    m = rec.get("metrics", {})
+    ok = (rc == 0 and rec.get("verdict") == "WARNING"
+          and m.get("quarantined", 0) > 0
+          and m.get("done_requests", 0) + m.get("quarantined", 0) == 8
+          and m.get("leaked_blocks") == 0.0 and n > 0)
+    emit({"phase": "recovery", "leg": "b_verify_fault", "ok": ok, "rc": rc,
+          "mode": rec.get("mode"), "verdict": rec.get("verdict"),
+          "metrics": m, "notes": rec.get("notes"),
+          "recovery_launches": n, "launch_widths": widths, "seconds": secs})
+    return ([] if ok else [f"b: rc {rc} {rec.get('verdict')} {m}"]), n
+
+
+def rec_chaos_chat(torch, pk):
+    """Leg c: the ``loadgen.chaos_chat`` cell under load: the chaos
+    Record covers the trace, its faults fired, its p99 is within 50x the
+    clean run's."""
+    from tpu_patterns_torch import loadgen as lg
+
+    recs, n, widths, secs = _loadgen_run(torch, pk, lg, **REC_CHAOS_CHAT)
+    chaos = next(r for r in recs if r.mode.endswith("_chaos_sp1"))
+    m = chaos.metrics
+    ok = (m["covered"] == 1.0 and m["injected"] > 0
+          and m["done"] + m["failed"] + m["dropped"] == m["requests"]
+          and 0 < m["p99_ratio"] <= m["p99_mult_gate"]
+          and chaos.verdict.value != "FAILURE" and n > 0)
+    emit({"phase": "recovery", "leg": "c_chaos_chat", "ok": ok,
+          "records": [{"mode": r.mode, "verdict": r.verdict.value,
+                       **{k: r.metrics.get(k) for k in (
+                           "requests", "done", "failed", "dropped",
+                           "injected", "covered", "e2e_p99_ms",
+                           "clean_e2e_p99_ms", "p99_ratio", "goodput",
+                           "tpot_p50_ms", "ttft_p50_ms")}}
+                      for r in recs],
+          "notes": chaos.notes, "recovery_launches": n,
+          "launch_widths": widths, "seconds": secs})
+    return ([] if ok else [f"c: {chaos.verdict.value} {m}"]), n
+
+
+def rec_breaker(torch, pk, eng_mod, faults, rt, decoder, params, cfg,
+                trace):
+    """Leg d: ``serve.step:error:count=99`` under ``Breaker(threshold=2)``:
+    it trips after two whole-wave quarantines, the loop stops and the
+    rest of the queue is left intact."""
+    b = rt.Breaker(threshold=2, cooldown_s=3600.0)
+    eng = eng_mod.ServeEngine(decoder, params, slots=2, breaker=b,
+                              retry_policy=_fast_policy(faults))
+    faults.configure("serve.step:error:count=99")
+    try:
+        out, n, _, secs = _engine_run(torch, pk, eng, trace)
+    finally:
+        faults.configure(None)
+    queued = [r.rid for r, _ in eng.queue]
+    ok = (eng.breaker_tripped and b.opened and b.failures == 2
+          and sorted(eng.failed) == [0, 1, 2, 3] and not out
+          and queued == [r.rid for r in trace[4:]] and not eng.active
+          and eng.leaked_blocks() == 0)
+    emit({"phase": "recovery", "leg": "d_breaker", "ok": ok,
+          "tripped": eng.breaker_tripped, "failures": b.failures,
+          "quarantined": sorted(eng.failed), "queued": queued,
+          "decisions": [e["action"] for e in eng.decisions.events],
+          "recovery_launches": n, "seconds": secs})
+    return ([] if ok else [f"d: tripped {eng.breaker_tripped} "
+                           f"failed {eng.failed} queued {queued}"]), n
+
+
+def _span_pairs(entries):
+    """(serve.step_outer, its serve.step or serve.verify) duration
+    pairs, matched by parent id."""
+    outers = {e["span_id"]: e for e in entries
+              if e.get("kind") == "span" and e["name"] == "serve.step_outer"}
+    return [(outers[e["parent_id"]]["dur_ns"], e["dur_ns"])
+            for e in entries
+            if e.get("kind") == "span"
+            and e["name"] in ("serve.step", "serve.verify")
+            and e["parent_id"] in outers]
+
+
+def rec_obs_plane(torch, pk, eng_mod, faults, obs, work):
+    """Leg e: a ``--obs-dump`` serve run's dumps and their Chrome-trace
+    export; serve.step_outer >= serve.step under an injected sleep; the
+    watchdog's hang dump under ``serve.step:hang`` and ``--watchdog_s
+    1``; the live plane answering /healthz and /metrics mid-run."""
+    import threading
+    import urllib.request
+
+    from tpu_patterns_torch.obs import export as obs_export
+
+    bad, launches, row = [], {}, {"phase": "recovery", "leg": "e_obs_plane"}
+    small = dict(KV_WIDTH, requests=4, gen=8, max_prompt=128, min_speedup=0)
+    # e1: --obs-dump, then obs export --chrome-trace
+    obs_dir = os.path.join(work, "obs")
+    faults.configure("serve.step:sleep:delay_s=0.05:count=3")
+    try:
+        (rc, _, recs), n, _, secs = _k1_leg(torch, pk, lambda: _cli_in_process(
+            ["--obs-dir", obs_dir, "--obs-dump"] + _serve_argv(small)))
+    finally:
+        faults.configure(None)
+    launches["e_obs_dump"] = n
+    dumps = {f: os.path.exists(os.path.join(obs_dir, f))
+             for f in ("spans.jsonl", "metrics.jsonl", "cost.jsonl")}
+    trace_path = os.path.join(work, "trace.json")
+    rc2, out2, _ = _cli_in_process(["--obs-dir", obs_dir, "obs", "export",
+                                    "--chrome-trace", trace_path])
+    try:
+        trace = json.load(open(trace_path))
+        n_events = len(trace["traceEvents"])
+    except (OSError, ValueError):
+        n_events = -1
+    entries = obs_export.load_entries(os.path.join(obs_dir, "spans.jsonl"))
+    pairs = _span_pairs(entries)
+    outer_ge = bool(pairs) and all(o >= i for o, i in pairs)
+    slept = sum(1 for o, i in pairs if o - i >= 0.05e9)
+    row.update(obs_dump_rc=rc, dumps=dumps, export_rc=rc2,
+               chrome_trace_events=n_events, step_pairs=len(pairs),
+               outer_ge_inner=outer_ge, outer_covers_sleep=slept,
+               obs_dump_launches=n, obs_dump_seconds=secs)
+    if (rc != 0 or not all(dumps.values()) or rc2 != 0 or n_events <= 0
+            or not outer_ge or slept < 3 or n <= 0):
+        bad.append(f"e1: rc {rc} dumps {dumps} export {rc2} "
+                   f"events {n_events} pairs {len(pairs)} slept {slept}")
+    # e2: the watchdog under an injected hang
+    wd_dir = os.path.join(work, "obs_wd")
+    before = len(obs.fired_dumps())
+    faults.configure("serve.step:hang:delay_s=2.5:after=2:count=1")
+    try:
+        (rc, _, recs), n, _, secs = _k1_leg(torch, pk, lambda: _cli_in_process(
+            ["--obs-dir", wd_dir] + _serve_argv(small)
+            + ["--watchdog_s", "1"]))
+    finally:
+        faults.configure(None)
+    launches["e_watchdog"] = n
+    fired = obs.fired_dumps()[before:]
+    stacks_ok, wd_rec = False, {}
+    if fired:
+        stacks = open(fired[0][: -len(".jsonl")] + "_stacks.txt").read()
+        stacks_ok = ("thread MainThread" in stacks
+                     and "tpu-patterns-watchdog" in stacks)
+        wd_path = os.path.join(wd_dir, "watchdog.jsonl")
+        if os.path.exists(wd_path):
+            wd_rec = json.loads(open(wd_path).readline())
+    row.update(watchdog_rc=rc, watchdog_dumps=[os.path.basename(p)
+                                               for p in fired],
+               watchdog_stacks=stacks_ok,
+               watchdog_record=[wd_rec.get("mode"), wd_rec.get("commands"),
+                                wd_rec.get("verdict")],
+               watchdog_launches=n, watchdog_seconds=secs)
+    if (rc != 0 or not fired or not stacks_ok
+            or wd_rec.get("verdict") != "WARNING"):
+        bad.append(f"e2: rc {rc} fired {fired} stacks {stacks_ok} {wd_rec}")
+    # e3: the live plane, scraped from this thread while run_serve serves
+    port = _free_port()
+    result = {}
+
+    def serve():
+        result["recs"] = eng_mod.run_serve(
+            eng_mod.ServeConfig(**dict(small, requests=8), obs_http=port),
+            lg_writer())
+
+    pk.paged_block.launches = 0
+    th = threading.Thread(target=serve, name="live-serve")
+    t0 = time.perf_counter()
+    th.start()
+    seen = {}
+    while th.is_alive() and len(seen) < 2:
+        for path in ("/healthz", "/metrics"):
+            if path in seen:
+                continue
+            try:
+                with urllib.request.urlopen(
+                        f"http://127.0.0.1:{port}{path}", timeout=5) as r:
+                    body = r.read().decode()
+                if path == "/healthz":
+                    h = json.loads(body)
+                    if h["engine"] is not None:
+                        seen[path] = {"verdict": h["verdict"],
+                                      "active_rows":
+                                          h["engine"]["active_rows"]}
+                elif "tpu_patterns_serve_tokens_total" in body:
+                    seen[path] = {"bytes": len(body)}
+            except OSError:
+                pass
+        time.sleep(0.02)
+    th.join()
+    n = pk.paged_block.launches
+    launches["e_live"] = n
+    row.update(live=seen, live_seconds=time.perf_counter() - t0,
+               live_launches=n)
+    if len(seen) < 2 or seen["/healthz"]["verdict"] != "ok" or n <= 0:
+        bad.append(f"e3: live plane answered {seen}")
+    row["ok"] = not bad
+    emit(row)
+    return bad, launches
+
+
+def rec_obs_cost(torch, pk, eng_mod, obs, decoder, params, cfg, trace):
+    """Leg f: the serve trace's tokens/s with obs off (``set_enabled``,
+    what ``TPU_PATTERNS_OBS=0`` sets at import) against on, alternating;
+    spans a decode step and the host's microseconds a span.  Reported,
+    not gated."""
+    tokens = sum(r.n_gen for r in trace)
+
+    def run():
+        eng = eng_mod.ServeEngine(decoder, params, slots=cfg.slots)
+        obs.flight_recorder().clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.run([dataclasses.replace(r) for r in trace])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        ring = obs.flight_recorder().snapshot()
+        return (tokens / wall, sum(1 for e in ring if e["kind"] == "span"),
+                eng.stats["steps"])
+
+    readings = {"off": [], "on": []}
+    spans_per_step = []
+    pk.paged_block.launches = 0
+    try:
+        run()  # warm
+        for _ in range(REC_OBS_READINGS):
+            for mode in ("off", "on"):
+                obs.set_enabled(mode == "on")
+                tps, n_spans, steps = run()
+                readings[mode].append(tps)
+                if mode == "on":
+                    spans_per_step.append(n_spans / max(steps, 1))
+    finally:
+        obs.set_enabled(True)
+    n = pk.paged_block.launches
+    # the host's cost of one span: enter and exit, timed over many
+    reps = 20000
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        with obs.span("cost.probe", rows=8):
+            pass
+    span_us = (time.perf_counter() - t0) / reps * 1e6
+    obs.flight_recorder().clear()
+
+    def spread(xs):
+        s = sorted(xs)
+        return {"min": s[0], "median": statistics.median(s), "max": s[-1]}
+
+    off, on = spread(readings["off"]), spread(readings["on"])
+    emit({"phase": "recovery", "leg": "f_obs_cost",
+          "tokens_per_s_off": readings["off"],
+          "tokens_per_s_on": readings["on"], "off": off, "on": on,
+          "on_over_off_median": on["median"] / off["median"],
+          "spans_per_decode_step": statistics.median(spans_per_step),
+          "host_us_per_span": span_us, "recovery_launches": n,
+          "card": _smi()})
+    return n
+
+
+def phase_recovery(torch, pk):
+    """Phase 17 (module docstring).  Returns K1's launches by leg."""
+    import shutil
+
+    from tpu_patterns_torch import faults, obs, rt
+    from tpu_patterns_torch.serve import engine as eng_mod
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    work = os.path.join(ROOT, "build", "recovery_smoke")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    obs.configure(os.path.join(work, "obs_phase"))
+    bad, launches = [], {}
+    try:
+        cfg = eng_mod.ServeConfig(**dict(KV_WIDTH, requests=REC_REQUESTS,
+                                         gen=REC_GEN))
+        mcfg, decoder, params, trace = eng_mod.build_serve(cfg)
+        problems, counts = rec_transient(torch, pk, eng_mod, faults, obs,
+                                         decoder, params, mcfg, cfg, trace)
+        bad += problems
+        launches.update(counts)
+        problems, launches["b_verify_fault"] = rec_verify_fault(
+            torch, pk, faults, work)
+        bad += problems
+        problems, launches["c_chaos_chat"] = rec_chaos_chat(torch, pk)
+        bad += problems
+        problems, launches["d_breaker"] = rec_breaker(
+            torch, pk, eng_mod, faults, rt, decoder, params, cfg, trace)
+        bad += problems
+        problems, counts = rec_obs_plane(torch, pk, eng_mod, faults, obs,
+                                         work)
+        bad += problems
+        launches.update(counts)
+        fcfg = eng_mod.ServeConfig(**dict(KV_WIDTH, requests=16))
+        _, fdec, fparams, ftrace = eng_mod.build_serve(fcfg)
+        launches["f_obs_cost"] = rec_obs_cost(torch, pk, eng_mod, obs, fdec,
+                                              fparams, fcfg, ftrace)
+    finally:
+        faults.configure(None)
+        obs.configure(None)
+        shutil.rmtree(work, ignore_errors=True)
+    emit({"phase": "recovery_phase", "seconds": time.perf_counter() - t_phase,
+          "recovery_launches": launches, "card": _smi()})
+    if bad:
+        raise AssertionError("recovery: " + " | ".join(bad))
+    return launches
+
+
 def profile_concurrency_main() -> int:
     """``python3 chip_smoke.py --profile-concurrency``, which the smoke
     runs in a process of its own: the xla concurrent "C C" run, the
@@ -3970,11 +4412,12 @@ def profile_concurrency_main() -> int:
 # the timing phases ``--tree`` runs with another checkout's package
 TREE_PHASES = ("put_time", "ring_put_time", "accumulate_time",
                "allreduce", "add_one_time")
-# phases ``--tree`` runs only when named: phases 14, 15 and 16 on their
-# own, phase 16's leg e again and again (``kv_race``: its spread), and
-# phase 5's bf16 serve leg (a tree's serve tokens/s against another's)
+# phases ``--tree`` runs only when named: phases 14, 15, 16 and 17 on
+# their own, phase 16's leg e again and again (``kv_race``: its spread),
+# and phase 5's bf16 serve leg (a tree's serve tokens/s against
+# another's)
 TREE_ONLY_NAMED = ("loadgen", "decode_lm", "kv_tier", "kv_race",
-                   "serve")
+                   "recovery", "serve")
 
 
 def tree_main(tree: str, phases: list[str]) -> int:
@@ -4034,6 +4477,7 @@ def tree_main(tree: str, phases: list[str]) -> int:
            "decode_lm": lambda: phase_decode_lm(torch, pk, F, timing, spec),
            "kv_tier": lambda: phase_kv_tier(torch, pk),
            "kv_race": lambda: phase_kv_race(torch, pk),
+           "recovery": lambda: phase_recovery(torch, pk),
            "serve": lambda: serve_leg(torch, eng_mod, "bf16",
                                       eng_mod.ServeConfig(
                                           **FULL_WIDTH, dtype="bfloat16",
@@ -4265,6 +4709,7 @@ def main() -> int:
     loadgen_launches = phase_loadgen(torch, pk, timing)
     decode_lm_launches = phase_decode_lm(torch, pk, F, timing, spec)
     kv_tier_launches = phase_kv_tier(torch, pk)
+    recovery_launches = phase_recovery(torch, pk)
 
     rows = {**ftime, **ptime, "paged_attention": {
         "ms": ktime["kernel"]["ms"], "bound_ms": ktime["bound_ms"],
@@ -4310,6 +4755,7 @@ def main() -> int:
         "loadgen_launches": loadgen_launches,
         "decode_lm_launches": decode_lm_launches["paged_attention"],
         "kv_tier_launches": kv_tier_launches,
+        "recovery_launches": recovery_launches,
     }]
     for kname, (source, replaces) in FLASH_KERNELS.items():
         row = ftime[kname]

@@ -3,11 +3,15 @@
 The same spec text goes through both packages' ``parse_spec``; the same
 seeded ``p=``/``after=``/``count=`` spec fires on the same ordinals of
 the same calls; the retry policies give the same backoff schedules and
-the same retry, quarantine and re-raise behavior.  The port knows only
-the sites it has (``train.step``, ``ckpt.save``, ``ckpt.restore``,
-``loadgen.arrive``, ``obs.cost_book`` and the serve engine's kv-tier,
-preemption and decode-step sites): a spec naming any other site is
-refused at parse time, where the JAX package takes it."""
+the same retry, quarantine and re-raise behavior, booking the same
+retry and quarantine counters; a firing leaves the same ``fault.injected``
+event and ``faults.jsonl`` line.  The port knows only the sites it has
+(``train.step``, ``ckpt.save``, ``ckpt.restore``, ``loadgen.arrive``,
+``obs.cost_book``, ``obs.scrape`` and the serve engine's prefill,
+decode-step, kv-tier and preemption sites, ``error`` included at
+``serve.prefill``, ``serve.step`` and ``serve.verify``): a spec naming
+any other site is refused at parse time, where the JAX package takes
+it."""
 
 import dataclasses
 
@@ -17,8 +21,9 @@ from tpu_patterns import faults as jf
 from tpu_patterns_torch import faults as tf
 
 PORT_SITES = {"train.step", "ckpt.save", "ckpt.restore", "loadgen.arrive",
-              "obs.cost_book", "serve.evict", "serve.onload",
-              "serve.preempt", "serve.shed", "serve.step", "serve.verify"}
+              "obs.cost_book", "obs.scrape", "serve.evict", "serve.onload",
+              "serve.preempt", "serve.shed", "serve.prefill", "serve.step",
+              "serve.verify"}
 
 SPECS = [
     "train.step:nan",
@@ -29,6 +34,10 @@ SPECS = [
     "ckpt.save:kill, train.step:preempt:count=3",
     " ckpt.restore:hang:step=4:after=0 ,",
     "train.step:error:p=0.5:after=2:count=10:step=3",
+    "serve.step:error:count=1,serve.step:error:after=6:count=1",
+    "serve.verify:error:after=2:count=99",
+    "serve.prefill:error:count=99:rows=2",
+    "obs.scrape:error:endpoint=metrics",
     "",
 ]
 
@@ -210,3 +219,67 @@ def test_call_with_retry_matches(errors, attempts, outcome):
         results.append((res, len(calls), sleeps))
     assert results[0] == results[1]
     assert results[1][0] == outcome
+
+
+def test_firing_leaves_the_references_event_and_jsonl(tmp_path):
+    """Each package books one ``fault.injected`` event (site, action and
+    the ctx stringified) and appends one WARNING Record to
+    ``faults.jsonl`` under its obs run dir."""
+    import json
+
+    from tpu_patterns import obs as jobs
+    from tpu_patterns_torch import obs as tobs
+
+    got = {}
+    for name, pkg, o in (("ref", jf, jobs), ("port", tf, tobs)):
+        run = tmp_path / name
+        o.configure(str(run))
+        o.flight_recorder().clear()
+        try:
+            pkg.configure("serve.step:error")
+            with pytest.raises(pkg.InjectedFault):
+                pkg.inject("serve.step", step=3, replica="")
+        finally:
+            o.configure(None)
+        ev = [e for e in o.flight_recorder().snapshot()
+              if e["name"] == "fault.injected"]
+        recs = [json.loads(ln) for ln in open(run / "faults.jsonl")]
+        got[name] = (
+            [(e["kind"], e["attrs"]) for e in ev],
+            [(r["pattern"], r["mode"], r["commands"], r["verdict"],
+              r["notes"]) for r in recs],
+        )
+    assert got["port"] == got["ref"]
+    assert got["port"][0] == [("event", {"site": "serve.step",
+                                         "action": "error", "step": "3",
+                                         "replica": ""})]
+
+
+@pytest.mark.parametrize("errors,attempts", [
+    ([OSError("blip")], 2),
+    ([OSError("a"), OSError("a")], 3),
+    ([OSError("a"), OSError("b")], 2),
+])
+def test_retry_and_quarantine_counters_match(errors, attempts):
+    """``call_with_retry`` books ``tpu_patterns_faults_retries_total``
+    and ``..._quarantined_total`` at its site by the same counts in
+    both packages."""
+    from tpu_patterns import obs as jobs
+    from tpu_patterns_torch import obs as tobs
+
+    moved = []
+    for pkg, o in ((jf, jobs), (tf, tobs)):
+        names = ("tpu_patterns_faults_retries_total",
+                 "tpu_patterns_faults_quarantined_total")
+        before = [o.counter(n, site="serve.step").value for n in names]
+        fn, _ = _failing(errors)
+        try:
+            pkg.call_with_retry(fn, policy=pkg.RetryPolicy(
+                max_attempts=attempts, backoff_base_s=0.0, jitter_frac=0.0),
+                site="serve.step", sleep=lambda s: None)
+        except Exception:  # noqa: BLE001 - the outcome is compared above
+            pass
+        moved.append([o.counter(n, site="serve.step").value - b
+                      for n, b in zip(names, before)])
+    assert moved[0] == moved[1]
+    assert sum(moved[1]) >= 1

@@ -1,5 +1,6 @@
-"""tpu_patterns_torch stands alone: no JAX, nothing of tpu_patterns, and
-no quiet CPU run when CUDA is missing."""
+"""tpu_patterns_torch stands alone: no JAX, nothing of tpu_patterns, no
+``tabulate`` (the machine with the card has none), and no quiet CPU run
+when CUDA is missing."""
 
 import ast
 import os
@@ -11,7 +12,7 @@ import pytest
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "tpu_patterns")
+FORBIDDEN = ("jax", "jaxlib", "tpu_patterns", "tabulate")
 
 
 def _port_sources():
@@ -57,8 +58,11 @@ def test_import_pulls_no_jax():
         "import tpu_patterns_torch.models.prng\n"
         "import tpu_patterns_torch.models.decode, tpu_patterns_torch.models.lm\n"
         "import tpu_patterns_torch.serve.kvtier\n"
+        "import tpu_patterns_torch.obs.spans, tpu_patterns_torch.obs.live\n"
+        "import tpu_patterns_torch.obs.watchdog, tpu_patterns_torch.obs.export\n"
+        "import tpu_patterns_torch.obs.decisions, tpu_patterns_torch.rt\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'tpu_patterns')]\n"
+        "('jax', 'jaxlib', 'tpu_patterns', 'tabulate')]\n"
         "assert not bad, bad\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT))
@@ -160,9 +164,7 @@ def test_unported_options_are_refused():
 
     with pytest.raises(NotImplementedError, match="moe"):
         ModelConfig(moe=True)
-    for argv in (["serve", "--watchdog_s", "1"],
-                 ["serve", "--obs_http", "9100"],
-                 ["serve", "--paged_attn", "pallas"],
+    for argv in (["serve", "--paged_attn", "pallas"],
                  ["allreduce", "--placement", "diagonal"],
                  ["p2p", "--bidirectional", "maybe"],
                  ["p2p", "--mechanism", "affinity"],

@@ -255,22 +255,27 @@ def test_resolved_specs_and_validate_config():
     tl.validate_config(tl.LoadGenConfig(kv_host_tier=True, preempt="bulk",
                                         session_dir="/tmp/x",
                                         host_tier_blocks=4))
+    # the live plane, the watchdog and errors at the recovering decode
+    # sites are taken, as the reference takes them
+    for kw in (dict(obs_http=9100), dict(watchdog_s=5.0),
+               dict(chaos="serve.step:error:count=1,"
+                          "serve.step:error:after=6:count=1"),
+               dict(chaos="serve.prefill:error:count=99"),
+               dict(chaos="serve.verify:error:after=2:count=99")):
+        tl.validate_config(tl.LoadGenConfig(**kw))
+        jl.validate_config(jl.LoadGenConfig(**kw))
     for cfg, match in (
         (dict(scenarios=("chatt",)), "unknown preset"),
         (dict(chaos="nope.site:error"), "unknown site"),
-        (dict(chaos="serve.step:error:count=1"), "Queue 1 step 5"),
         (dict(time_scale=0.0), "time_scale"),
         (dict(vocab=1), "vocab"),
         (dict(min_goodput=2.0), "min_goodput"),
         (dict(session_dir="/tmp/x"), "kv_host_tier"),
         (dict(preempt="everything"), "preempt must be"),
         (dict(preempt="bulk"), "requires kv_host_tier"),
-        (dict(kv_host_tier=True, obs_http=9100), "not ported.*ROADMAP"),
-        (dict(kv_host_tier=True, preempt="bulk", watchdog_s=1.0),
-         "not ported.*ROADMAP"),
-        (dict(chaos="serve.prefill:error"), "unknown site"),
-        (dict(obs_http=9100), "not ported.*ROADMAP"),
-        (dict(watchdog_s=5.0), "not ported.*ROADMAP"),
+        (dict(chaos="serve.prefil:error"), "unknown site"),
+        (dict(obs_http=-1), "must be >= 0"),
+        (dict(watchdog_s=-5.0), "must be >= 0"),
         (dict(burn_mitigation="panic"), "burn_mitigation"),
         (dict(slo_budget=0.0), "budget"),
     ):
@@ -586,8 +591,10 @@ def test_serve_scenario_bridge(tmp_path):
 
 
 @pytest.mark.parametrize("argv", [
-    ["loadgen", "--chaos", "serve.step:error:count=1"],
-    ["loadgen", "--kv_host_tier", "true", "--watchdog_s", "5"],
+    # an error at serve.step and the watchdog are taken now: a typo'd
+    # site and a negative deadline are what stays refused
+    ["loadgen", "--chaos", "serve.stpe:error:count=1"],
+    ["loadgen", "--kv_host_tier", "true", "--watchdog_s", "-5"],
     ["loadgen", "--preempt", "bulk"],
     ["loadgen", "--scenarios", "chatt"],
     ["loadgen", "--dp", "2"],

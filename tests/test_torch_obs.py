@@ -38,8 +38,9 @@ def clock(monkeypatch, tmp_path):
     c = _Clock()
     for mod in (jslo, tslo, jcost, tcost):
         monkeypatch.setattr(mod, "clock_ns", c)
-    # the reference's burn trail writes slo.jsonl under its run dir
+    # each package's burn trail writes slo.jsonl under its run dir
     monkeypatch.setattr(jobs, "run_dir", lambda: str(tmp_path))
+    monkeypatch.setattr(tobs, "run_dir", lambda: str(tmp_path / "port"))
     for reg in (jobs.metrics_registry(), tobs.metrics_registry()):
         reg.clear()
     for pkg in (jf, tf):

@@ -15,6 +15,7 @@ prefilled, the ``run_serve`` and loadgen Records, and the CLI's
 flags."""
 
 import ast
+import dataclasses
 import functools
 import inspect
 import io
@@ -491,20 +492,23 @@ def test_cli_takes_the_tier_flags_and_refuses_the_rest(capsys):
                               "--preempt", "bulk", "--session_dir", "d"])
     assert (args.kv_host_tier, args.preempt, args.session_dir) == (
         True, "bulk", "d")
-    for argv in (["serve", "--watchdog_s", "5"],
-                 ["serve", "--prefix_store", "p"]):
-        with pytest.raises(SystemExit):
-            parser.parse_args(argv)
+    with pytest.raises(SystemExit):
+        parser.parse_args(["serve", "--prefix_store", "p"])
+    # the watchdog's deadline is taken now (the recovery and obs slice)
+    assert parser.parse_args(["serve", "--watchdog_s", "5"]).watchdog_s == 5
+    assert parser.parse_args(["loadgen", "--watchdog_s", "5"]).watchdog_s == 5
     for argv in (["serve", "--preempt", "bulk"],
                  ["serve", "--resume", "true"],
-                 ["serve", "--session_dir", "d"],
-                 ["loadgen", "--watchdog_s", "5"],
-                 ["loadgen", "--chaos", "serve.step:error"]):
+                 ["serve", "--session_dir", "d"]):
         with pytest.raises(SystemExit) as e:
             tcli.main(argv + ["--device", "cpu"])
         assert "error" in str(e.value.code)
-    with pytest.raises(ValueError, match="Queue 1 step 5"):
-        tfaults.parse_spec("serve.step:error:count=1")
+    # an error at the decode step retries and quarantines: the spec
+    # parses as the reference's does
+    for text in ("serve.step:error:count=1", "serve.verify:error",
+                 "serve.prefill:error:count=99"):
+        assert [dataclasses.asdict(s) for s in tfaults.parse_spec(text)] == [
+            dataclasses.asdict(s) for s in jfaults.parse_spec(text)]
     assert tfaults.parse_spec("serve.step:preempt:after=2:count=1")
     assert tfaults.parse_spec("serve.evict:error,serve.onload:sleep")
 

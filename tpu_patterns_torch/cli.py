@@ -32,6 +32,13 @@
         --rope true --cache_int8 true
     python -m tpu_patterns_torch lm --device cuda --temperature 0.8 \
         --top_k 16
+    python -m tpu_patterns_torch --obs-dir obs --obs-dump serve \
+        --device cuda --watchdog_s 30 --obs_http 9100
+    python -m tpu_patterns_torch --obs-dir obs obs summarize
+    python -m tpu_patterns_torch --obs-dir obs obs export \
+        --chrome-trace trace.json --prom
+    python -m tpu_patterns_torch obs watch http://127.0.0.1:9100
+    python -m tpu_patterns_torch --obs-dir obs obs cost
 
 One flag per field of the subcommand's config
 (:class:`~tpu_patterns_torch.serve.engine.ServeConfig`,
@@ -45,9 +52,8 @@ in ``tpu-patterns serve`` / ``loadgen`` / ``flagship`` / ``train`` /
 default is
 the field's unless ``TPU_PATTERNS_<FIELD>`` is set (``core/config.py``:
 CLI > environment > default); ``loadgen`` and ``serve --scenario`` check
-the scenario and chaos specs (and refuse the unported live plane and
-watchdog), and ``serve`` its flag combinations, before the model is
-built;
+the scenario and chaos specs, and ``serve`` its flag combinations,
+before the model is built;
 ``--paged_attn``
 and ``--attn`` take ``kernel|dense`` (``train`` also the JAX package's
 ``xla``, read as ``dense``) and ``--device`` names the device.
@@ -67,6 +73,17 @@ repeatable ``--commands``, ``--no_tuning``); ``allreduce`` and
 and ``--mechanism``) and ``miniapps``;
 ``interop`` (the native C++ round trips, no flag of the reference's) only
 ``--device``.
+``obs ACTION`` reads the obs plane's dumps as ``tpu-patterns obs`` does:
+``summarize`` (the span table), ``export --chrome-trace OUT.json``
+and/or ``--prom``, ``watch URL`` (poll a live ``--obs_http`` plane) and
+``cost [DIR]``; ``fleet``, ``journey`` and ``explain`` read the merged
+fleet timeline and are refused until the fleet is ported (ROADMAP.md
+Queue 1 step 9), as is ``summarize --profile-dir`` until the profile
+reader is (step 6).  The global ``--obs-dir`` sets where dumps land and
+``--obs-dump`` writes ``spans.jsonl``, ``metrics.jsonl`` and (after a
+serve or loadgen run) ``cost.jsonl`` there when the run ends; an
+uncaught exception or SIGTERM dumps the flight recorder to
+``crash.jsonl``.
 ``--devices N`` is the rank count (≙ ``mpirun -n N``, 0 = one rank per
 card): the ranks of a rank mesh (``comm/mesh.py``) are placed over the
 visible cards, several to a card when there are fewer cards.  A
@@ -89,8 +106,7 @@ from tpu_patterns_torch.core.results import ResultWriter
 # mesh flags of `flagship`, `train`, `decode`, `lm` and `loadgen`)
 _NOT_PORTED_FLAGSHIP = ("devices", "dp", "tp")
 _NOT_PORTED = (
-    "devices", "dp", "tp", "watchdog_s", "prefix_store", "obs_http",
-    "replicas", "replica_policy", "route_blocks", "min_replica_speedup",
+    "devices", "dp", "tp", "prefix_store", "replicas", "replica_policy", "route_blocks", "min_replica_speedup",
     "replica_watchdog_s", "replica_dir", "elastic_reserve",
     "scale_out_occupancy", "scale_in_occupancy", "scale_sustain_s",
     "scale_cooldown_s", "min_live_replicas", "disagg",
@@ -181,6 +197,17 @@ def build_parser() -> argparse.ArgumentParser:
     )
     parser.add_argument("--jsonl", default=None,
                         help="append JSONL records here")
+    parser.add_argument(
+        "--obs-dir", default=None,
+        help="directory for obs dumps (watchdog/crash/spans/metrics); "
+        "default $TPU_PATTERNS_OBS_DIR, else results/obs",
+    )
+    parser.add_argument(
+        "--obs-dump", action="store_true",
+        help="dump the flight recorder (spans.jsonl) and metrics "
+        "(metrics.jsonl) under the obs dir when the run finishes — the "
+        "ring records always; this flag exports it",
+    )
     sub = parser.add_subparsers(dest="cmd", required=True)
     sv = sub.add_parser(
         "serve",
@@ -265,7 +292,164 @@ def build_parser() -> argparse.ArgumentParser:
     i.add_argument("--device", choices=_CHOICES["device"], default="cuda",
                    help="device of the offload round trips (the native "
                    "ones run on CPU tensors)")
+    _add_obs_flags(sub.add_parser(
+        "obs",
+        help="observability layer: summarize recorded spans, export "
+        "Chrome traces (Perfetto-openable) and Prometheus metrics, poll "
+        "a live plane, roll up the cost book",
+    ))
     return parser
+
+
+# ``obs`` actions that read the merged fleet timeline (obs/fleet.py)
+_OBS_FLEET_ACTIONS = ("fleet", "journey", "explain")
+
+
+def _add_obs_flags(ob: argparse.ArgumentParser) -> None:
+    """The reference's ``obs`` flags (``tpu_patterns/cli.py``)."""
+    ob.add_argument(
+        "action",
+        choices=("summarize", "export", "fleet", "journey", "watch",
+                 "cost", "explain"),
+        help="summarize = per-span table; export = --chrome-trace / "
+        "--prom; watch <url> = poll a live --obs_http plane (/healthz + "
+        "/metrics) into a one-line-per-interval view; cost <dir> = "
+        "per-request/class/scenario attribution table with identity "
+        "verdicts (+ cost_rollup.jsonl); fleet, journey and explain "
+        "read the merged fleet timeline (not ported: ROADMAP.md Queue 1 "
+        "step 9)",
+    )
+    ob.add_argument(
+        "target", nargs="?", default=None,
+        help="cost: the obs dir to read (default --obs-dir); watch: the "
+        "plane URL (http://127.0.0.1:PORT)",
+    )
+    ob.add_argument("--action", dest="filter_action", default=None,
+                    metavar="KIND",
+                    help="explain: filter to one decision kind")
+    ob.add_argument("--interval", type=float, default=1.0,
+                    help="watch: seconds between polls (default 1.0)")
+    ob.add_argument(
+        "--count", type=int, default=0,
+        help="watch: stop after N successful polls (0 = poll until the "
+        "plane goes away — the watched run finishing exits 0)",
+    )
+    ob.add_argument(
+        "--input", default=None,
+        help="one specific dump file (default: spans.jsonl + crash.jsonl "
+        "+ hang_*.jsonl under the obs dir)",
+    )
+    ob.add_argument("--chrome-trace", default=None, metavar="OUT.json",
+                    help="write Chrome trace_event JSON here")
+    ob.add_argument("--prom", action="store_true",
+                    help="print the dumped metrics in Prometheus text "
+                    "format")
+    ob.add_argument(
+        "--profile-dir", default=None,
+        help="join host spans with a device trace's breakdown (not "
+        "ported: ROADMAP.md Queue 1 step 6)",
+    )
+
+
+def _obs(args, writer: ResultWriter) -> None:
+    """Read the obs layer's dumps: span summaries, Chrome-trace and
+    Prometheus export, the live plane's poller and the cost rollup, as
+    ``tpu-patterns obs`` does (``tpu_patterns/cli.py``)."""
+    import glob
+    import json
+    import os
+
+    from tpu_patterns_torch import obs
+    from tpu_patterns_torch.obs import cost as obs_cost
+    from tpu_patterns_torch.obs import export as obs_export
+    from tpu_patterns_torch.obs import live as obs_live
+    from tpu_patterns_torch.obs import metrics as obs_metrics
+
+    obs_dir = args.obs_dir or obs.run_dir()
+    if args.action in _OBS_FLEET_ACTIONS:
+        raise SystemExit(
+            f"obs {args.action}: reads the merged fleet timeline "
+            "(obs/fleet.py merge_fleet), which is not ported yet "
+            "(ROADMAP.md Queue 1 step 9)"
+        )
+    if args.action == "watch":
+        if not args.target:
+            raise SystemExit(
+                "obs watch: pass the plane URL (http://127.0.0.1:PORT — "
+                "start one with `serve --obs_http PORT`)"
+            )
+        rc = obs_live.watch(args.target, interval_s=args.interval,
+                            count=args.count)
+        if rc:
+            raise SystemExit(rc)
+        return
+    if args.action == "cost":
+        cost_dir = args.target or obs_dir
+        metas, reqs = obs_cost.load_dir(cost_dir)
+        if not metas:
+            raise SystemExit(
+                f"no cost.jsonl under {cost_dir} — run a serve/loadgen "
+                "pattern with --obs-dump first"
+            )
+        print(obs_cost.cost_table(metas, reqs))
+        out = os.path.join(cost_dir, "cost_rollup.jsonl")
+        with open(out, "w") as f:
+            for key in ("priority", "scenario", "replica"):
+                for k, g in sorted(obs_cost.rollup(reqs, key).items()):
+                    f.write(json.dumps(
+                        {"kind": "cost_rollup", "by": key, "key": k, **g}
+                    ) + "\n")
+        writer.progress(f"merged cost rollup -> {out}")
+        return
+    if args.profile_dir:
+        raise SystemExit(
+            "obs summarize --profile-dir: the host/device join reads a "
+            "trace through core/profile.py, which is not ported yet "
+            "(ROADMAP.md Queue 1 step 6)"
+        )
+    if args.input:
+        span_files = [args.input]
+    else:
+        span_files = [
+            p for p in (os.path.join(obs_dir, "spans.jsonl"),
+                        os.path.join(obs_dir, "crash.jsonl"))
+            if os.path.exists(p)
+        ] + sorted(glob.glob(os.path.join(obs_dir, "hang_*.jsonl")))
+    entries: list[dict] = []
+    for p in span_files:
+        entries.extend(obs_export.load_entries(p))
+    # hang/crash dumps and an end-of-run spans.jsonl overlap (one ring,
+    # dumped at different moments): summaries must not double-count
+    entries = obs_export.dedupe_entries(entries)
+    if args.action == "summarize":
+        if not entries:
+            raise SystemExit(
+                f"no obs dumps under {obs_dir} — run a pattern with "
+                "--obs-dump (or wait for a watchdog/crash dump) first"
+            )
+        writer.progress(f"{len(entries)} entries from {len(span_files)} "
+                        f"dump(s) under {obs_dir}")
+        print(obs_export.summarize(entries))
+        return
+    # action == "export"
+    if not args.chrome_trace and not args.prom:
+        raise SystemExit(
+            "obs export: pass --chrome-trace OUT.json and/or --prom"
+        )
+    if args.chrome_trace:
+        if not entries:
+            raise SystemExit(f"no obs dumps under {obs_dir} to export")
+        out = obs_export.write_chrome_trace(entries, args.chrome_trace)
+        writer.progress(f"chrome trace ({len(entries)} events) -> {out} "
+                        "(open in Perfetto / chrome://tracing)")
+    if args.prom:
+        mpath = os.path.join(obs_dir, "metrics.jsonl")
+        if not os.path.exists(mpath):
+            raise SystemExit(
+                f"no {mpath} — run a pattern with --obs-dump first"
+            )
+        with open(mpath) as f:
+            print(obs_metrics.registry_from_jsonl(f).to_prom_text(), end="")
 
 
 def _add_allreduce_flags(p: argparse.ArgumentParser) -> None:
@@ -668,10 +852,18 @@ def main(argv: list[str] | None = None) -> int:
         unported,
     )
 
+    from tpu_patterns_torch import obs
+
     parser = build_parser()
     args = parser.parse_args(argv)
+    if args.obs_dir:
+        obs.configure(args.obs_dir)
+    if args.cmd != "obs":  # the reader must not dump over what it reads
+        obs.install_crash_handlers()
     writer = ResultWriter(jsonl_path=args.jsonl)
-    if args.cmd == "serve":
+    if args.cmd == "obs":
+        _obs(args, writer)
+    elif args.cmd == "serve":
         _serve(args, writer)
     elif args.cmd == "loadgen":
         _loadgen(args, writer)
@@ -701,6 +893,13 @@ def main(argv: list[str] | None = None) -> int:
         if why:
             parser.error(f"flagship: {why}")
         run_flagship(cfg, writer)
+    if args.obs_dump and args.cmd != "obs":
+        from tpu_patterns_torch.obs import cost as _cost
+
+        writer.progress(f"obs spans -> {obs.dump(reason='end_of_run')}")
+        writer.progress(f"obs metrics -> {obs.dump_metrics()}")
+        if _cost.books():  # serve/loadgen paths register engine books
+            writer.progress(f"obs cost -> {obs.dump_cost()}")
     return writer.exit_code
 
 

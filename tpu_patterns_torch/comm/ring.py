@@ -124,13 +124,25 @@ def ring_allreduce_optimal(xs: Sequence[torch.Tensor],
     return flat
 
 
+# (variant, ranks, elements) of every schedule dispatched in this process
+_TRACED: set[tuple[str, int, int]] = set()
+
+
 def allreduce(xs: Sequence[torch.Tensor], variant: str,
               op: Op | Sequence[Op] | None = None) -> list[torch.Tensor]:
     """Dispatch over the miniapp's algorithms.  ``op`` customizes the
     manual rings' accumulate; the library path ignores it."""
-    # The reference records a flight-recorder event here
-    # (``obs.event("ring.allreduce.trace", ...)``); it waits for the
-    # port of ``obs/``.
+    from tpu_patterns_torch import obs
+
+    # one flight-recorder event a schedule: which variant ran over which
+    # ring size, booked at its first dispatch (the JAX package books it
+    # once a traced program; the port's ranks run eagerly, and an event
+    # a call would sit inside the timed reps)
+    key = (variant, len(xs), int(xs[0].numel()) if xs else 0)
+    if key not in _TRACED:
+        _TRACED.add(key)
+        obs.event("ring.allreduce.trace", variant=variant, axis="ranks",
+                  axis_size=key[1], elements=key[2])
     if variant == "psum":
         return library_allreduce(xs)
     if variant == "ring":

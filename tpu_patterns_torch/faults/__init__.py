@@ -1,42 +1,59 @@
-"""faults/ -- deterministic fault injection and the retry policy.
+"""faults/ — deterministic fault injection + shared recovery policies.
 
-Counterpart of ``tpu_patterns/faults/`` for the sites this package has:
+The port's copy of ``tpu_patterns/faults/``: the runtime treats
+preemption, transient faults, and numerical blowups as EXPECTED inputs:
 
-  injector.py  named fault sites (``inject("ckpt.save", step=4)``) fired
-               by a seeded ``TPU_PATTERNS_FAULTS`` spec; each firing is
-               logged as a WARNING Record on stderr and counted in
-               ``tpu_patterns_faults_injected_total``
-  retry.py     RetryPolicy (bounded attempts, exponential backoff and
-               jitter, same-signature-twice -> quarantine) for ckpt I/O
-               and the serve engine's kv tier
+  injector.py  named fault sites (``inject("serve.step")``) fired by a
+               seeded ``TPU_PATTERNS_FAULTS`` spec — every recovery
+               path is reachable on the CPU, and every firing is logged
+               as an obs WARNING Record (``faults.jsonl``), a
+               ``fault.injected`` event and a counter
+  retry.py     the shared RetryPolicy (bounded attempts, exponential
+               backoff + jitter, same-signature-twice -> quarantine)
+               applied to ckpt I/O, the serve engine's prefill, decode
+               and verify calls and the kv tier's copies, and
+               ``run_cell_attempts``/``cell_retry_policy``, the sweep
+               cells' loop (its caller, ``sweep.py``, waits for ROADMAP.md
+               Queue 1 step 10)
 
-Fault sites:
+Fault sites of this package:
 
-  ckpt.save     ckpt/checkpoint.py, mid-save (after the shards, before
-                the manifest commit marker)
-  ckpt.restore  ckpt/checkpoint.py, before the shard reads
-  train.step    models/train_loop.py, per step (``nan`` poisons loss)
-  loadgen.arrive  loadgen/runner.py, per released arrival (``error``
-                drops it, ``sleep``/``hang`` delays it)
-  obs.cost_book obs/cost.py, per booking (fails open: skips it)
-  serve.evict   serve/engine.py, before a kv-tier eviction wave's
-                device->host copy (retried; a deterministic failure
-                discards the wave's retained blocks)
-  serve.onload  serve/engine.py, before a restore's host->device copy
-                (retried; a deterministic failure prefills fresh)
-  serve.preempt serve/engine.py, before a bulk row is preempted (fails
-                open: the victim keeps running)
-  serve.shed    serve/engine.py, before a burn-ladder shed (fails open:
-                the request admits)
-  serve.step    serve/engine.py, before each decode step's launch
-                (serve.verify: before the speculative wide step's);
-  serve.verify  ``preempt`` snapshots at the iteration boundary,
-                ``sleep``/``hang`` stall the step, ``error`` is refused
-                at parse time until the step's retry and quarantine are
-                ported
+  ckpt.save      ckpt/checkpoint.py, mid-save (after the shards, before
+                 the manifest commit marker)
+  ckpt.restore   ckpt/checkpoint.py, before the shard reads
+  train.step     models/train_loop.py, per step (``nan`` poisons loss)
+  serve.prefill  serve/engine.py, before each prefill's launch
+                 (``error`` retries; exhaustion quarantines exactly the
+                 admitted rows with a per-request verdict)
+  serve.step     serve/engine.py, before each decode step's launch
+                 (``preempt`` raises SIGTERM; the engine finishes the
+                 step, snapshots, and exits clean; ``error`` retries
+                 under the serve policy, quarantining the active set on
+                 exhaustion; ``sleep``/``hang`` stall it)
+  serve.verify   serve/engine.py, before each speculative wide step's
+                 launch (``spec_k > 0`` replaces serve.step with this
+                 site; same recovery contract — retries, then quarantine
+                 with shared-block refcounts released)
+  serve.evict    serve/engine.py, before a kv-tier eviction wave's
+                 device->host copy (retried; a deterministic failure
+                 discards the wave's retained blocks)
+  serve.onload   serve/engine.py, before a restore's host->device copy
+                 (retried; a deterministic failure prefills fresh)
+  serve.preempt  serve/engine.py, before a bulk row is preempted (fails
+                 open: the victim keeps running)
+  serve.shed     serve/engine.py, before a burn-ladder shed (fails open:
+                 the request admits)
+  loadgen.arrive loadgen/runner.py, per released arrival (``error``
+                 drops it, ``sleep``/``hang`` delays it)
+  obs.cost_book  obs/cost.py and obs/decisions.py, per booking (fails
+                 open: skips it)
+  obs.scrape     obs/live.py, per HTTP request to the live plane (any
+                 error answers 503)
 
-``serve.prefill`` and the fleet's sites are not ported: a spec naming one
-is refused at parse time.
+Not ported: the fleet's sites (``router.route``, ``replica.*``,
+``fleet.*``, ``disagg.*``, ``store.*``; Queue 1 step 9) and the sweep's
+and warm workers' (``cell.run``, ``worker.ready``; step 10).  A spec
+naming one is refused at parse time.
 """
 
 from tpu_patterns_torch.faults.injector import (  # noqa: F401
@@ -55,6 +72,8 @@ from tpu_patterns_torch.faults.retry import (  # noqa: F401
     Quarantined,
     RetryPolicy,
     call_with_retry,
+    cell_retry_policy,
     ckpt_retry_policy,
+    run_cell_attempts,
     serve_retry_policy,
 )

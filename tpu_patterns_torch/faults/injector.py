@@ -37,11 +37,11 @@ under flock).  ``p=`` draws from a generator seeded by
 (``TPU_PATTERNS_FAULTS_SEED``, site, ordinal), so a chaos run replays
 bit-identically under the same seed.
 
-Every firing is logged BEFORE the action: a WARNING Record on stderr
-(``core/results.py``) and one on the ``tpu_patterns_faults_injected_total``
-counter (``obs/metrics.py``, labelled by site and action).  The JAX
-package also books a flight-recorder event, which the port's ``obs`` does
-not have yet, and writes the Record to ``faults.jsonl`` too.
+Every firing is logged BEFORE the action: a ``fault.injected``
+flight-recorder event, a WARNING Record (``faults.jsonl`` under the obs
+run dir, markers on stderr) and one on the
+``tpu_patterns_faults_injected_total`` counter (labelled by site and
+action).
 """
 
 from __future__ import annotations
@@ -62,7 +62,8 @@ ACTIONS = frozenset(
 )
 
 # every inject() call site in the package: a spec naming anything else
-# is a typo (or a site not ported yet) that would silently inject
+# is a typo (or a site not ported yet: the fleet's, the sweep's, the
+# warm workers' and the prefix store's) that would silently inject
 # nothing, so parse_spec rejects it
 KNOWN_SITES = frozenset({
     "ckpt.save",  # ckpt/checkpoint.py, after the shards, before the manifest
@@ -79,24 +80,22 @@ KNOWN_SITES = frozenset({
     # fresh); preempt and shed fail OPEN (an error aborts the preemption
     # or the shed, the row runs or admits as if no rung had fired)
     "serve.evict", "serve.onload", "serve.preempt", "serve.shed",
-    # serve/engine.py, before each decode step's (verify step's) launch:
-    # ``preempt`` raises SIGTERM, the step completes and the loop
-    # snapshots at its iteration boundary; ``sleep``/``hang`` stall it
-    "serve.step", "serve.verify",
+    # serve/engine.py, before each prefill's, decode step's and verify
+    # step's launch (nothing mutated yet): ``error`` retries under the
+    # serve policy and quarantines exactly the wave's rows on
+    # exhaustion; ``preempt`` raises SIGTERM, the step completes and the
+    # loop snapshots at its iteration boundary; ``sleep``/``hang`` stall
+    "serve.prefill", "serve.step", "serve.verify",
+    # obs/live.py, per HTTP request to the live plane: any error answers
+    # 503, never crashing (or blocking) the scheduler it observes
+    "obs.scrape",
 })
-
-# site -> actions it refuses at parse time: the decode steps have no
-# retry or quarantine yet, so an ``error`` there would end the run
-# (ROADMAP.md, Queue 1 step 5)
-REFUSED_ACTIONS = {
-    "serve.step": frozenset({"error"}),
-    "serve.verify": frozenset({"error"}),
-}
 
 # the match keys of the spec grammar (the JAX package's set; the sites
 # here pass ``step``, at ckpt.save ``proc``, at loadgen.arrive ``rid`` and
 # ``scenario``, at obs.cost_book ``rows`` or ``rid`` and ``replica``, at
-# the serve.* sites ``rid``, ``rows``, ``step`` and ``replica``)
+# the serve.* sites ``rid``, ``rows``, ``step`` and ``replica``, at
+# obs.scrape ``endpoint``)
 MATCH_KEYS = frozenset({
     "pid", "cmd", "cell", "step", "proc", "rows", "rid", "scenario",
     "replica", "blocks", "endpoint", "fingerprint",
@@ -145,12 +144,6 @@ def parse_spec(text: str) -> list[FaultSpec]:
             raise ValueError(
                 f"fault spec {chunk!r}: unknown action {action!r} "
                 f"(want one of {sorted(ACTIONS)})"
-            )
-        if action in REFUSED_ACTIONS.get(site, ()):
-            raise ValueError(
-                f"fault spec {chunk!r}: {action!r} at {site!r} is not "
-                "ported: the decode step's retry and quarantine come with "
-                "ROADMAP.md Queue 1 step 5"
             )
         kw: dict = {}
         match: list[tuple[str, str]] = []
@@ -249,10 +242,9 @@ def _chance(spec: FaultSpec, ordinal: int) -> bool:
 
 
 def _log_firing(spec: FaultSpec, ctx: dict) -> None:
-    """A WARNING Record on stderr (the action may be about to kill
-    stdout) and the injected-faults counter, BEFORE the action: a crash
-    firing still leaves its trail.  A logging failure never masks or
-    alters the injected behavior."""
+    """WARNING Record + ring event + counter, BEFORE the action (a crash
+    firing must still leave its trail).  Logging failures never mask or
+    alter the injected behavior."""
     try:
         from tpu_patterns_torch import obs
         from tpu_patterns_torch.core.results import (
@@ -266,7 +258,14 @@ def _log_firing(spec: FaultSpec, ctx: dict) -> None:
             site=spec.site,
             action=spec.action,
         ).inc()
-        ResultWriter(stream=sys.stderr).record(Record(
+        obs.event("fault.injected", site=spec.site, action=spec.action, **{
+            k: str(v) for k, v in ctx.items()
+        })
+        writer = ResultWriter(
+            jsonl_path=os.path.join(obs.run_dir(), "faults.jsonl"),
+            stream=sys.stderr,  # the action may be about to kill stdout
+        )
+        writer.record(Record(
             pattern="faults",
             mode=spec.site,
             commands=spec.action,

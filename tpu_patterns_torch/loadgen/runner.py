@@ -20,11 +20,13 @@ preemption of the scenario's bulk rows), and a scenario that declares
 memory pressure (``working_set_mult > 0``) also races the tier against
 the defer-only engine (:func:`_kv_tier_loadgen_record`).
 
-Not ported yet (ROADMAP, Queue 1 step 7), and refused with a message:
-the live telemetry plane (``obs_http``) and the watchdog
-(``watchdog_s``).  A chaos spec may name only the sites the port fires
-(``loadgen.arrive``, ``obs.cost_book``, the kv tier's ``serve.*`` sites,
-``serve.step``/``serve.verify`` without ``error``).
+``obs_http`` serves the live plane (``obs/live.py``) for the whole run
+and ``watchdog_s`` arms the hang watchdog on every engine's prefill,
+step and verify spans.  A chaos spec may name the sites the port fires
+(``loadgen.arrive``, ``obs.cost_book``, ``obs.scrape`` and the serve
+engine's ``serve.*`` sites, ``error`` at prefill, step and verify
+included: retried, then quarantined, with the chaos Record's coverage
+counting the quarantined rows as failed).
 """
 
 from __future__ import annotations
@@ -121,6 +123,10 @@ class ArrivalSource:
                     "tpu_patterns_loadgen_requests_total",
                     scenario=self.scenario, status="dropped",
                 ).inc()
+                obs.event(
+                    "loadgen.drop", rid=str(req.rid),
+                    scenario=self.scenario,
+                )
                 continue
             batch.append((req, t_submit_ns))
             self.released += 1
@@ -162,8 +168,7 @@ class LoadGenConfig:
     # preemption of running bulk rows (needs kv_host_tier; pair with a
     # scenario whose bulk_fraction > 0 so there are victims)
     preempt: str = "off"
-    # the watchdog is not ported (0 = off is the only value)
-    watchdog_s: float = 0.0
+    watchdog_s: float = 0.0  # per-step watchdog deadline (0 = spans only)
     # the workload: comma-separated scenario specs
     # ("chat,rag:requests=16", the scenarios.parse_scenario grammar)
     scenarios: tuple[str, ...] = ("chat",)
@@ -176,8 +181,10 @@ class LoadGenConfig:
     # SECOND time under it, gating bounded p99 + full trace coverage
     chaos: str = ""
     chaos_p99_mult: float = 0.0  # > 0 overrides the scenario preset
-    # the live telemetry plane is not ported (0 = off is the only value);
-    # the burn monitor's ladder is: shed | spec_off arm it
+    # the live telemetry plane and the burn monitor's ladder (the same
+    # knobs as `serve`): obs_http > 0 serves /metrics /healthz /statusz
+    # /costz on 127.0.0.1 for the whole run; burn_mitigation shed |
+    # spec_off arms the engine's degradation ladder
     obs_http: int = 0
     burn_mitigation: str = "off"
     slo_fast_s: float = 60.0
@@ -218,16 +225,10 @@ def _resolved_specs(cfg: LoadGenConfig) -> list[ScenarioSpec]:
     return specs
 
 
-# LoadGenConfig fields whose machinery is not ported, with the value that
-# means "off"
-_UNPORTED = {"obs_http": 0, "watchdog_s": 0.0}
-
-
 def validate_config(cfg: LoadGenConfig) -> None:
-    """The parse-time surface: scenario specs, the chaos spec, the
-    schedule-shaping scalars and the unported fields.  Raises ValueError
-    on any typo, so the CLI can report it in one line before the model
-    is built."""
+    """The parse-time surface: scenario specs, the chaos spec and the
+    schedule-shaping scalars.  Raises ValueError on any typo, so the CLI
+    can report it in one line before the model is built."""
     _resolved_specs(cfg)
     if cfg.chaos:
         faults.parse_spec(cfg.chaos)
@@ -256,13 +257,11 @@ def validate_config(cfg: LoadGenConfig) -> None:
             f"burn_mitigation must be off | shed | spec_off, got "
             f"{cfg.burn_mitigation!r}"
         )
-    for name, off in _UNPORTED.items():
-        if getattr(cfg, name) != off:
-            raise ValueError(
-                f"{name}={getattr(cfg, name)!r}: the live telemetry plane "
-                "and the watchdog are not ported to tpu_patterns_torch yet "
-                "(ROADMAP.md, Queue 1 step 7)"
-            )
+    if cfg.obs_http < 0 or cfg.watchdog_s < 0:
+        raise ValueError(
+            f"obs_http ({cfg.obs_http}) and watchdog_s ({cfg.watchdog_s}) "
+            "must be >= 0 (0 = off)"
+        )
     # the SloConfig invariants, surfaced at parse time as one line
     _slo_kwargs(cfg)
 
@@ -291,8 +290,9 @@ def _drive(
     or ``use_preempt`` is false: the tier race and the chaos twin turn
     them off, so neither measures the cache or the priority schedule)."""
     eng = ServeEngine(
-        decoder, params, slots=cfg.slots, prefix_share=cfg.prefix_share,
-        spec_k=cfg.spec_k, kv_host_tier=kv_tier,
+        decoder, params, slots=cfg.slots, watchdog_s=cfg.watchdog_s,
+        prefix_share=cfg.prefix_share, spec_k=cfg.spec_k,
+        kv_host_tier=kv_tier,
         session_dir=(cfg.session_dir or None)
         if kv_tier and use_session else None,
         host_tier_blocks=cfg.host_tier_blocks,
@@ -302,7 +302,10 @@ def _drive(
     )
     source = ArrivalSource(schedule, scenario=spec.name)
     t0 = clock_ns()
-    eng.run([], source=source)
+    with obs.span(
+        "loadgen.scenario", scenario=spec.name, requests=len(schedule)
+    ):
+        eng.run([], source=source)
     return eng, source, (clock_ns() - t0) / 1e9
 
 
@@ -442,10 +445,9 @@ def _publish_gauges(spec: ScenarioSpec, st: dict) -> None:
 
 def _injected_total() -> float:
     """Every injected firing so far, over all sites and actions."""
-    return sum(
-        m.value for m in obs.metrics_registry().metrics()
-        if m.name == "tpu_patterns_faults_injected_total"
-    )
+    from tpu_patterns_torch import rt
+
+    return rt.metric_total("tpu_patterns_faults_injected_total")
 
 
 def _scenario_commands(cfg: LoadGenConfig, spec: ScenarioSpec) -> str:
@@ -512,6 +514,23 @@ def run_loadgen(cfg: LoadGenConfig, writer=None) -> list:
 
     writer = writer or ResultWriter()
     validate_config(cfg)
+    if cfg.obs_http:
+        # the live plane covers the whole run (clean, kv-tier and chaos
+        # legs alike: each engine attaches at run() entry)
+        from tpu_patterns_torch.obs.live import ObsHttp
+
+        plane = ObsHttp(cfg.obs_http)
+        port = plane.start()
+        writer.progress(
+            f"obs http plane live on http://127.0.0.1:{port} "
+            "(/metrics /healthz /statusz; poll it with "
+            f"`python -m tpu_patterns_torch obs watch "
+            f"http://127.0.0.1:{port}`)"
+        )
+        try:
+            return run_loadgen(dataclasses.replace(cfg, obs_http=0), writer)
+        finally:
+            plane.stop()
     specs = _resolved_specs(cfg)
     mcfg, decoder, params = build_loadgen(cfg, specs)
     config = {"device": str(decoder.device), "paged_attn": cfg.paged_attn}
@@ -650,13 +669,15 @@ def _kv_tier_loadgen_record(decoder, params, cfg, spec, schedule, writer,
 
     _drive(decoder, params, cfg, spec, schedule, kv_tier=True,
            use_session=False, use_preempt=False)
-    tier_eng, tier_source, tier_wall_s = _drive(
-        decoder, params, cfg, spec, schedule, kv_tier=True,
-        use_session=False, use_preempt=False,
-    )
+    with obs.span("loadgen.kv_tier", scenario=spec.name):
+        tier_eng, tier_source, tier_wall_s = _drive(
+            decoder, params, cfg, spec, schedule, kv_tier=True,
+            use_session=False, use_preempt=False,
+        )
     tier_st = _stats(tier_eng, tier_source, schedule)
-    eng, source, wall_s = _drive(decoder, params, cfg, spec, schedule,
-                                 kv_tier=False)
+    with obs.span("loadgen.kv_defer_baseline", scenario=spec.name):
+        eng, source, wall_s = _drive(decoder, params, cfg, spec, schedule,
+                                     kv_tier=False)
     base_st = _stats(eng, source, schedule)
     tier_tps = tier_st["tokens"] / tier_wall_s if tier_wall_s > 0 else 0.0
     base_tps = base_st["tokens"] / wall_s if wall_s > 0 else 0.0
@@ -741,9 +762,10 @@ def _chaos_record(
         # session off: inheriting the clean leg's committed session would
         # hand this leg its history for free (and chaos evictions must
         # not touch the user's session dir)
-        eng, source, _wall = _drive(decoder, params, cfg, spec, schedule,
-                                    kv_tier=cfg.kv_host_tier,
-                                    use_session=False)
+        with obs.span("loadgen.chaos", scenario=spec.name):
+            eng, source, _wall = _drive(decoder, params, cfg, spec,
+                                        schedule, kv_tier=cfg.kv_host_tier,
+                                        use_session=False)
     finally:
         faults.configure(None)
     injected = _injected_total() - injected_before
@@ -806,6 +828,8 @@ def _chaos_record(
             f"chaos spec {cfg.chaos!r} never fired: the chaos leg "
             "measured a clean run"
         )
+    for rid in sorted(eng.failed)[:4]:
+        rec.notes.append(f"request {rid} QUARANTINED: {eng.failed[rid]}")
     for rid in sorted(source.dropped)[:4]:
         rec.notes.append(f"request {rid} DROPPED: {source.dropped[rid]}")
     writer.record(rec)

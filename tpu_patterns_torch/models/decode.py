@@ -386,7 +386,8 @@ def run_decode(cfg: DecodeConfig, writer=None) -> list:
                      dev).to(mcfg.torch_dtype)
     caches, y0 = prefill(params, x)
     # time to first token: one warmed prefill over the full context
-    prefill_ms = _timed_ms(lambda: prefill(params, x), dev)
+    with obs.span("decode.prefill", tokens=cfg.batch * cfg.prefill):
+        prefill_ms = _timed_ms(lambda: prefill(params, x), dev)
 
     gate = _teacher_forcing_gate(mcfg, cache_int8=cfg.cache_int8,
                                  device=dev)

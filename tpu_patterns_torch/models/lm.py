@@ -409,6 +409,7 @@ def run_lm(cfg: LMConfig, writer=None) -> list:
     must stay in the vocab.  Weights and tokens come from
     ``torch.Generator``s seeded from ``cfg.seed``, not the reference's
     ``jax.random`` streams, so the losses differ from its at one seed."""
+    from tpu_patterns_torch import obs
     from tpu_patterns_torch.core.results import Record, ResultWriter, Verdict
     from tpu_patterns_torch.core.timing import clock_ns
 
@@ -425,11 +426,12 @@ def run_lm(cfg: LMConfig, writer=None) -> list:
     _, first = step(p, toks)
     first = float(first)
     loss = first  # steps=0: the initial loss, nothing trained
-    t0 = clock_ns()
-    for _ in range(cfg.steps):
-        p, loss = step(p, toks)
-    loss = float(loss)
-    train_s = (clock_ns() - t0) / 1e9
+    with obs.span("lm.train", steps=cfg.steps, vocab=cfg.vocab):
+        t0 = clock_ns()
+        for _ in range(cfg.steps):
+            p, loss = step(p, toks)
+        loss = float(loss)
+        train_s = (clock_ns() - t0) / 1e9
 
     pre, gen = make_lm_decoder(mcfg, cfg.vocab, cfg.batch, cfg.seq,
                                cfg.gen, cache_int8=cfg.cache_int8)
@@ -439,10 +441,11 @@ def run_lm(cfg: LMConfig, writer=None) -> list:
     # warm first: the rollout is deterministic in (caches, tok0, seed),
     # so the timed second call does the same work
     gen(p, caches, tok0, cfg.seq, cfg.gen, **gen_kw)[1].cpu()
-    t1 = clock_ns()
-    _, out = gen(p, caches, tok0, cfg.seq, cfg.gen, **gen_kw)
-    out = out.cpu().numpy()
-    gen_s = (clock_ns() - t1) / 1e9
+    with obs.span("lm.generate", tokens=cfg.batch * cfg.gen):
+        t1 = clock_ns()
+        _, out = gen(p, caches, tok0, cfg.seq, cfg.gen, **gen_kw)
+        out = out.cpu().numpy()
+        gen_s = (clock_ns() - t1) / 1e9
     tps = cfg.batch * cfg.gen / gen_s if gen_s > 0 else 0.0
 
     learned = bool(np.isfinite(loss) and loss < first)

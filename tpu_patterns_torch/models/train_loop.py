@@ -27,7 +27,7 @@ import math
 import numpy as np
 import torch
 
-from tpu_patterns_torch import ckpt, faults
+from tpu_patterns_torch import ckpt, faults, obs
 from tpu_patterns_torch.core.results import Record, Verdict
 from tpu_patterns_torch.core.timing import clock_ns
 from tpu_patterns_torch.models.flagship import flagship_flops
@@ -189,7 +189,12 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
-def _emit_nonfinite_warning(writer, step: int, policy: str) -> None:
+def _emit_nonfinite_warning(writer, cfg: TrainLoopConfig, step: int,
+                            policy: str) -> None:
+    obs.counter(
+        "tpu_patterns_train_nonfinite_total", optimizer=cfg.optimizer
+    ).inc()
+    obs.event("train.nonfinite", step=str(step), policy=policy)
     if writer is not None:
         writer.record(Record(
             pattern="train",
@@ -203,6 +208,10 @@ def _emit_nonfinite_warning(writer, step: int, policy: str) -> None:
 
 def _emit_step_record(writer, cfg: TrainLoopConfig, step: int, loss: float,
                       steps_per_s: float) -> None:
+    obs.gauge("tpu_patterns_train_loss", optimizer=cfg.optimizer).set(loss)
+    obs.gauge(
+        "tpu_patterns_train_steps_per_s", optimizer=cfg.optimizer
+    ).set(steps_per_s)
     writer.record(Record(
         pattern="train_step",
         mode=cfg.optimizer,
@@ -295,15 +304,20 @@ def train(cfg: TrainLoopConfig, writer=None, device: str = "cuda") -> dict:
     else:  # auto: skip-step must see every step; halt amortizes the sync
         check_every = 1 if cfg.nonfinite == "skip-step" else 10
     halted_at = None
+    steps_total = obs.counter(
+        "tpu_patterns_train_steps_total", optimizer=cfg.optimizer
+    )
     try:
         for t in range(start, cfg.steps):
-            x = get_batch(t)
-            new_params, step_loss = step_fn(params, x)
-            # fault site: ``nan`` poisons this step's loss, the shape of a
-            # real numerical blowup; the guard below is the recovery
-            fault = faults.inject("train.step", step=t)
-            if fault is not None and fault.action == "nan":
-                step_loss = step_loss * math.nan
+            with obs.span("train.step", step=t, optimizer=cfg.optimizer):
+                x = get_batch(t)
+                new_params, step_loss = step_fn(params, x)
+                # fault site: ``nan`` poisons this step's loss, the shape
+                # of a real numerical blowup; the guard below is the
+                # recovery
+                fault = faults.inject("train.step", step=t)
+                if fault is not None and fault.action == "nan":
+                    step_loss = step_loss * math.nan
             step_no = t + 1
             will_ckpt = (
                 cfg.ckpt_dir
@@ -317,7 +331,7 @@ def train(cfg: TrainLoopConfig, writer=None, device: str = "cuda") -> dict:
                 and ((t + 1) % check_every == 0 or will_ckpt)
                 and not _all_finite(step_loss, new_params)
             ):
-                _emit_nonfinite_warning(writer, t, cfg.nonfinite)
+                _emit_nonfinite_warning(writer, cfg, t, cfg.nonfinite)
                 if cfg.nonfinite == "halt":
                     loss = step_loss
                     halted_at = t
@@ -326,16 +340,23 @@ def train(cfg: TrainLoopConfig, writer=None, device: str = "cuda") -> dict:
                 # skip-step: keep the pre-step params; the batch is
                 # consumed and the step leaf advances, so the stream stays
                 # a function of t; `loss` keeps its last finite value
+                obs.counter(
+                    "tpu_patterns_train_steps_skipped_total",
+                    optimizer=cfg.optimizer,
+                ).inc()
             else:
                 params = new_params
                 loss = step_loss
+            steps_total.inc()
             if will_ckpt:
-                if saver is not None:
-                    saver.save(cfg.ckpt_dir, t + 1, checkpoint_tree(),
-                               keep=cfg.keep)
-                else:
-                    ckpt.save(cfg.ckpt_dir, t + 1, checkpoint_tree(),
-                              keep=cfg.keep)
+                with obs.span("train.checkpoint", step=t + 1,
+                              mode="async" if saver is not None else "sync"):
+                    if saver is not None:
+                        saver.save(cfg.ckpt_dir, t + 1, checkpoint_tree(),
+                                   keep=cfg.keep)
+                    else:
+                        ckpt.save(cfg.ckpt_dir, t + 1, checkpoint_tree(),
+                                  keep=cfg.keep)
             if t == start:
                 # restart the clocks AFTER the first step: it carries the
                 # first use of every kernel (and, on a fresh build, its

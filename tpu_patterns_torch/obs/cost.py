@@ -1,10 +1,9 @@
 """obs/cost.py — per-request device-time and KV block-second
 attribution, with identities that close EXACTLY.
 
-The port's copy of ``tpu_patterns/obs/cost.py``'s ``CostBook``,
-``rollup``, ``register`` and ``books``, on the port's clock and fault
-sites.  The dump, the directory loader and the ``obs cost`` table serve
-the ``obs`` CLI and the live plane, which are not ported (item 15).
+The port's copy of ``tpu_patterns/obs/cost.py``, on the port's clock
+and fault sites; the ``obs cost`` table is the port's own fixed-width
+rendering (``obs/table.py``) of the same rows.
 
 Two resources dominate a serving fleet's bill: device time (the
 compiled prefill/decode calls) and KV pool residency (block-seconds).
@@ -40,14 +39,17 @@ attributions move together, so the internal identities still hold —
 and never propagates into the scheduler.  Cost accounting must not be
 able to take down the engine it bills.
 
-Rollups (request → priority class → scenario) ride the snapshot;
-``to_jsonl`` is the reference's per-run ``cost.jsonl`` shape.
+Rollups (request → priority class → scenario → replica) serve the
+``obs cost <dir>`` table, the ``/costz`` live endpoint (obs/live.py)
+and the per-run ``cost.jsonl`` dump next to ``metrics.jsonl``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import glob
 import json
+import os
 
 from tpu_patterns_torch import faults
 from tpu_patterns_torch.core.timing import clock_ns
@@ -297,7 +299,7 @@ class CostBook:
 
     def to_jsonl(self) -> str:
         """One ``meta`` line (totals + identities, requests elided) then
-        one line per request — the reference's ``cost.jsonl`` shape."""
+        one line per request — the shape ``load_dir`` merges."""
         snap = self.snapshot()
         reqs = snap.pop("requests")
         snap.pop("by_priority")
@@ -339,3 +341,110 @@ def register(book: CostBook) -> CostBook:
 
 def books() -> list[CostBook]:
     return list(_BOOKS)
+
+
+def dump_all(path: str) -> str:
+    """Write every registered book's JSONL to ``path`` (the
+    ``obs.dump_cost`` backend — rides the same dump sites as
+    ``metrics.jsonl`` so replica children leave their cost next to
+    their metrics)."""
+    d = os.path.dirname(path)
+    if d:
+        os.makedirs(d, exist_ok=True)
+    with open(path, "w") as f:
+        for b in _BOOKS:
+            f.write(b.to_jsonl())
+    return path
+
+
+def load_dir(obs_dir: str) -> tuple[list[dict], list[dict]]:
+    """Read ``cost.jsonl`` from ``obs_dir`` and every ``replica-*/``
+    under it; returns (meta lines, request lines) with replica dirs
+    tagged — the ``obs cost`` merge."""
+    paths = sorted(glob.glob(os.path.join(obs_dir, "cost.jsonl")))
+    for d in sorted(glob.glob(os.path.join(obs_dir, "replica-*"))):
+        paths.extend(
+            sorted(glob.glob(os.path.join(d, "cost.jsonl")))
+        )
+    metas, reqs = [], []
+    for p in paths:
+        label = ""
+        parent = os.path.basename(os.path.dirname(p))
+        if parent.startswith("replica-"):
+            label = parent[len("replica-"):]
+        with open(p) as f:
+            for line in f:
+                line = line.strip()
+                if not line:
+                    continue
+                e = json.loads(line)
+                if label and not e.get("replica"):
+                    e["replica"] = label
+                if e.get("kind") == "cost_meta":
+                    metas.append(e)
+                elif e.get("kind") == "cost_req":
+                    reqs.append(e)
+    return metas, reqs
+
+
+def _ms(ns: float) -> str:
+    return f"{ns / 1e6:.2f}"
+
+
+def _blk_s(ns: float) -> str:
+    return f"{ns / 1e9:.3f}"
+
+
+def cost_table(
+    metas: list[dict], reqs: list[dict], top: int = 8
+) -> str:
+    """The ``obs cost`` rendering: identity verdicts, then the
+    priority/scenario/replica rollups, then the top requests by
+    attributed device time."""
+    from tpu_patterns_torch.obs.table import markdown_table
+
+    if not metas:
+        return "no cost.jsonl in the obs dir — run with --obs-dump"
+    lines = []
+    for m in metas:
+        who = f"replica {m['replica']}" if m.get("replica") else "engine"
+        ok = (
+            m["decode_identity_ok"] and m["prefill_identity_ok"]
+            and m["conservation_ok"]
+        )
+        lines.append(
+            f"{who}: identities {'OK' if ok else 'BROKEN'} "
+            f"(decode {_ms(m['decode_wall_ns'])} ms attributed exactly, "
+            f"pool {m['pool_blocks']} blocks x "
+            f"{m['elapsed_ns'] / 1e9:.3f} s closes, "
+            f"busy {_blk_s(m['busy_block_ns'])} block-s)"
+        )
+    sections = []
+    for key in ("priority", "scenario", "replica"):
+        groups = rollup(reqs, key)
+        rows = [
+            [k, g["requests"], _ms(g["decode_ns"]),
+             _ms(g["prefill_ns"]), _blk_s(g["block_ns"])]
+            for k, g in sorted(
+                groups.items(), key=lambda kv: -kv[1]["decode_ns"]
+            )
+        ]
+        sections.append(f"by {key}\n\n" + markdown_table(
+            rows,
+            headers=[key, "reqs", "decode ms", "prefill ms", "block-s"],
+        ))
+    top_rows = sorted(
+        reqs, key=lambda r: -(r["decode_ns"] + r["prefill_ns"])
+    )[:top]
+    sections.append("top requests by device time\n\n" + markdown_table(
+        [
+            [r["rid"], r.get("replica") or "-", r.get("priority") or "-",
+             r.get("scenario") or "-", _ms(r["decode_ns"]),
+             _ms(r["prefill_ns"]), _blk_s(r["block_ns"]),
+             r["decode_steps"]]
+            for r in top_rows
+        ],
+        headers=["rid", "replica", "class", "scenario", "decode ms",
+                 "prefill ms", "block-s", "steps"],
+    ))
+    return "\n".join(lines) + "\n\n" + "\n\n".join(sections)

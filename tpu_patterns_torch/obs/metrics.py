@@ -1,11 +1,10 @@
 """Metrics registry: counters, gauges, histograms; JSONL + Prometheus text.
 
-The port's copy of ``tpu_patterns/obs/metrics.py``'s registry and
-exports.  Two differences: the run-provenance stamp (run id, git SHA,
-mesh fingerprint) comes from the reference's ``perf/provenance.py``,
-which is not ported, so the stamp is empty (``# RUN`` with no pairs);
-and the readers of a dump (``parse_prom_text``, ``registry_from_jsonl``)
-serve the ``obs`` CLI, which is not ported either (item 15).
+The port's copy of ``tpu_patterns/obs/metrics.py``.  One difference:
+the run-provenance stamp (run id, git SHA, mesh fingerprint) comes from
+the reference's ``perf/provenance.py``, which is not ported, so a live
+registry's stamp is empty (``# RUN`` with no pairs); a registry read
+back from a dump keeps the dump's.
 
 Dependency-free (no prometheus_client — the container bakes nothing in,
 and the text exposition format is 20 lines).  Metrics are keyed by
@@ -13,16 +12,18 @@ and the text exposition format is 20 lines).  Metrics are keyed by
 name, runners add their own gauges (loss, throughput) and counters
 (steps, sweep cells).  Export is pull-only: ``to_prom_text()`` renders
 the registry for a scrape-style consumer, ``to_jsonl()`` appends to the
-same JSONL discipline every Record stream uses; the reference's
-``parse_prom_text`` and ``registry_from_jsonl`` read both back (the
-round trips the port's tests pin).
+same JSONL discipline every Record stream uses, and ``parse_prom_text``
+and ``registry_from_jsonl`` read both back (the round trips the tests
+pin; ``obs export --prom`` renders a dumped run's registry).
 """
 
 from __future__ import annotations
 
 import json
 import math
+import re
 import threading
+from typing import Iterable
 
 
 # Span durations are nanoseconds: exponential decades from 1 µs to 1000 s.
@@ -119,6 +120,10 @@ class Registry:
     def __init__(self):
         self._metrics: dict[tuple, _Metric] = {}
         self._lock = threading.Lock()
+        # the provenance of the metrics IN this registry: None = live
+        # (stamped at export time), set by registry_from_jsonl so a past
+        # run's dump keeps its own stamp when exported again
+        self.run_stamp: dict[str, str] | None = None
 
     def _get(self, cls, name: str, help: str, labels: dict, **kw):
         key = (cls.kind, name, _label_key(labels))
@@ -148,7 +153,9 @@ class Registry:
             self._metrics.clear()
 
     def _stamp(self) -> dict[str, str]:
-        return {}  # the provenance stamp waits for perf/provenance.py
+        if self.run_stamp is not None:
+            return self.run_stamp
+        return {}  # the live stamp waits for perf/provenance.py
 
     # -- export ----------------------------------------------------------
 
@@ -292,3 +299,75 @@ def gauge(name: str, help: str = "", **labels) -> Gauge:
 
 def histogram(name: str, help: str = "", buckets=None, **labels) -> Histogram:
     return _DEFAULT.histogram(name, help, buckets=buckets, **labels)
+
+
+_SAMPLE_RE = re.compile(
+    r"^(?P<name>[A-Za-z_:][A-Za-z0-9_:]*)"
+    r"(?:\{(?P<labels>[^}]*)\})?\s+(?P<value>\S+)\s*$"
+)
+_LABEL_RE = re.compile(r'([A-Za-z_][A-Za-z0-9_]*)="((?:[^"\\]|\\.)*)"')
+
+
+def parse_prom_text(text: str) -> dict[tuple, float]:
+    """Parse exposition text into {(name, ((label, value), ...)): value}.
+
+    The inverse of :meth:`Registry.to_prom_text` for plain samples
+    (histogram series come back as their ``_bucket``/``_sum``/``_count``
+    component samples) — enough for round-trip tests and ``obs watch``.
+    """
+    out: dict[tuple, float] = {}
+    for line in text.splitlines():
+        line = line.strip()
+        if not line or line.startswith("#"):
+            continue
+        m = _SAMPLE_RE.match(line)
+        if not m:
+            raise ValueError(f"unparseable prometheus sample: {line!r}")
+        labels = tuple(
+            (k, v.replace('\\"', '"').replace("\\\\", "\\"))
+            for k, v in _LABEL_RE.findall(m.group("labels") or "")
+        )
+        raw = m.group("value")
+        val = math.inf if raw == "+Inf" else float(raw)
+        out[(m.group("name"), labels)] = val
+    return out
+
+
+def registry_from_jsonl(lines: Iterable[str]) -> Registry:
+    """Rebuild a Registry from :meth:`Registry.to_jsonl` output — the
+    CLI's ``obs export --prom`` renders a *dumped* run's metrics, which
+    necessarily lives in a different process from the run."""
+    reg = Registry()
+    for line in lines:
+        line = line.strip()
+        if not line:
+            continue
+        d = json.loads(line)
+        labels = d.get("labels", {})
+        kind = d.get("type")
+        if kind == "run":
+            # keep the DUMPED run's provenance
+            reg.run_stamp = {
+                k: str(d[k])
+                for k in ("run_id", "git_sha", "mesh_fp")
+                if k in d
+            }
+            continue
+        if kind == "counter":
+            reg.counter(d["metric"], **labels).inc(d["value"])
+        elif kind == "gauge":
+            reg.gauge(d["metric"], **labels).set(d["value"])
+        elif kind == "histogram":
+            pairs = [
+                (math.inf if le == "+Inf" else float(le), int(acc))
+                for le, acc in d.get("buckets", [])
+            ]
+            finite = [le for le, _ in pairs if le != math.inf]
+            h = reg.histogram(d["metric"], buckets=finite, **labels)
+            prev = 0
+            for i, (_, acc) in enumerate(pairs):
+                h.counts[i] = acc - prev  # de-cumulate
+                prev = acc
+            h.sum = float(d.get("sum", 0.0))
+            h.count = int(d.get("count", 0))
+    return reg

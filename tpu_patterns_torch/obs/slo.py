@@ -1,9 +1,6 @@
 """SLO burn-rate monitor: rolling dual-window good/bad-token accounting.
 
-The port's copy of ``tpu_patterns/obs/slo.py``, on the port's clock.  The
-reference's fire trail also books a flight-recorder event and writes
-its WARNING Record to ``slo.jsonl`` under the obs run dir; the port has
-neither yet, so the Record goes to stderr and the events are dropped.
+The port's copy of ``tpu_patterns/obs/slo.py``, on the port's clock.
 
 The loadgen runner judges SLOs *post-mortem*: percentiles and
 goodput are computed after the last request retired.  This module is
@@ -41,6 +38,7 @@ the autopsy.
 from __future__ import annotations
 
 import dataclasses
+import os
 import sys
 import threading
 
@@ -176,7 +174,7 @@ class SloMonitor:
             StreamingPercentiles,
         )
 
-        fired = False
+        fired = recovered = False
         with self._lock:
             self._advance(clock_ns())
             slot = self._head % N_BUCKETS
@@ -214,11 +212,14 @@ class SloMonitor:
                 fired = True
             elif self._mitigating and burn_fast <= self.cfg.recover:
                 self._mitigating = False
+                recovered = True
             publish_pcts = fired or self._head != self._last_pub
             self._last_pub = self._head
         self._publish(burn_fast, burn_slow, pcts=publish_pcts)
         if fired:
             self._fire(burn_fast, burn_slow, gf, bf)
+        if recovered:
+            self._recover(burn_fast)
 
     def mitigating(self) -> bool:
         """Is a burn episode active right now?  Buckets age out on the
@@ -231,8 +232,11 @@ class SloMonitor:
             gf, bf = self._window(self._fast_k)
             if self._burn(gf, bf) <= self.cfg.recover:
                 self._mitigating = False
-                return False
-            return True
+            else:
+                return True
+            burn_fast = self._burn(gf, bf)
+        self._recover(burn_fast)
+        return False
 
     # -- export ----------------------------------------------------------
 
@@ -275,9 +279,9 @@ class SloMonitor:
     def _fire(
         self, burn_fast: float, burn_slow: float, good: float, bad: float
     ) -> None:
-        """The watchdog-style WARNING trail: Record on stderr + counter,
-        best-effort — a logging failure must never take the scheduler
-        thread down with it."""
+        """The watchdog-style WARNING trail: Record + ring event +
+        counter, best-effort — a logging failure must never take the
+        scheduler thread down with it."""
         try:
             from tpu_patterns_torch import obs
             from tpu_patterns_torch.core.results import (
@@ -287,7 +291,14 @@ class SloMonitor:
             )
 
             obs.counter("tpu_patterns_slo_burn_warnings_total").inc()
-            ResultWriter(stream=sys.stderr).record(Record(
+            obs.event(
+                "slo.burn", burn_fast=f"{burn_fast:.3f}",
+                burn_slow=f"{burn_slow:.3f}", replica=self.replica,
+            )
+            ResultWriter(
+                jsonl_path=os.path.join(obs.run_dir(), "slo.jsonl"),
+                stream=sys.stderr,
+            ).record(Record(
                 pattern="obs",
                 mode="slo_burn",
                 commands=(
@@ -311,6 +322,17 @@ class SloMonitor:
                 ],
             ))
         except Exception:  # the trail is best-effort: never alters serving
+            pass
+
+    def _recover(self, burn_fast: float) -> None:
+        try:
+            from tpu_patterns_torch import obs
+
+            obs.event(
+                "slo.recovered", burn_fast=f"{burn_fast:.3f}",
+                replica=self.replica,
+            )
+        except Exception:  # same contract as the fire trail
             pass
 
     def snapshot(self) -> dict:

@@ -13,6 +13,8 @@
   engine.py        FIFO admit / prefill / step / retire scheduler (with
                    prefix sharing, speculative decoding, per-request
                    sampling, the request lifecycle, the burn monitor,
-                   the cost book, the kv tier, priority preemption and
-                   snapshots) and the ``serve`` measured patterns
+                   the cost book, the kv tier, priority preemption,
+                   snapshots, retry and quarantine, the decode-health
+                   breaker and slot leases, recorded by the obs plane)
+                   and the ``serve`` measured patterns
 """

@@ -50,9 +50,26 @@ interactive admission or the burn ladder (shed bulk -> preempt bulk ->
 shed the head) and resumes it bit-identical.  With ``snapshot_dir``,
 SIGTERM/SIGINT (or an injected ``serve.step:preempt``) ends the loop at
 its iteration boundary with a committed snapshot that
-``restore_snapshot`` resumes.  Not ported (ROADMAP): the fleet store,
-disaggregated handoff, the watchdog, the decision ledger and events,
-and the retry and quarantine path of prefill and the decode steps.
+``restore_snapshot`` resumes.
+
+The recovery path is the reference's: a prefill, decode step or verify
+step runs inside ``faults.call_with_retry`` under ``retry_policy``
+(sites ``serve.prefill``, ``serve.step``, ``serve.verify``, each fired
+before anything is written), so a transient ``OSError`` retries from
+the same state, and a deterministic one quarantines exactly the rows of
+that wave (``_quarantine``: blocks back through the refcounts, a
+per-request verdict in ``failed``) while the engine keeps serving
+everyone else.  Any other error (a CUDA error is a ``RuntimeError``)
+ends the run.  Slots are leased from an ``rt.LeasePool``, in-flight rows
+held in an ``rt.LeaseTable``, and an opt-in ``rt.Breaker`` stops the
+loop with the queue intact after consecutive whole-wave quarantines.
+The obs plane records all of it: the ``serve.*`` spans (``serve.
+step_outer`` covers injection and every retry), one Chrome-trace lane of
+``req.*`` spans a request, the ``serve.*`` events with their decision-
+ledger entries (``obs/decisions.py``), and the live plane's view
+(``obs/live.py``) while ``run`` is in its loop.  ``watchdog_s`` puts a
+deadline on every prefill, step and verify span.  Not ported (ROADMAP):
+the fleet prefix store and disaggregated handoff.
 
 ``run_serve`` is the measured pattern: the same trace served continuous
 (``slots`` wide) and sequential (one slot), gated on speedup, exactness
@@ -78,7 +95,7 @@ import threading
 import numpy as np
 import torch
 
-from tpu_patterns_torch import ckpt, faults, obs
+from tpu_patterns_torch import ckpt, faults, obs, rt
 from tpu_patterns_torch.core.results import Record, ResultWriter, Verdict
 from tpu_patterns_torch.core.timing import clock_ns, device_barrier
 from tpu_patterns_torch.models.decode import kv_slot_bytes
@@ -86,6 +103,7 @@ from tpu_patterns_torch.models.lm import init_lm_params, make_lm_decoder
 from tpu_patterns_torch.models.transformer import ModelConfig
 from tpu_patterns_torch.obs.cost import CostBook
 from tpu_patterns_torch.obs.cost import register as _register_cost
+from tpu_patterns_torch.obs.decisions import DecisionLedger
 from tpu_patterns_torch.obs.slo import SloConfig, SloMonitor
 from tpu_patterns_torch.runtime import resolve_device
 from tpu_patterns_torch.serve.paged import (
@@ -106,6 +124,13 @@ SNAPSHOT_FORMAT = 3
 def _bucket(n: int, cap: int) -> int:
     """Next power of two >= n, clipped to cap."""
     return min(1 << max(0, n - 1).bit_length(), cap)
+
+
+# Chrome-trace lane ids of the per-request lifecycle spans: far above any
+# thread id's low bits, and a window of their own for each engine (rids
+# restart at 0 in every engine of a process)
+_REQ_LANE_BASE = 1_000_000
+_ENGINE_SEQ = itertools.count()
 
 
 @dataclasses.dataclass
@@ -157,6 +182,7 @@ class _Slot:
     t_admit_ns: int = 0
     t_first_ns: int = 0
     t_last_ns: int = 0
+    slot: int = -1  # the scheduler-slot lease token (rt.LeasePool)
 
 
 class ServeEngine:
@@ -180,9 +206,17 @@ class ServeEngine:
     ``snapshot_dir`` arms SIGTERM/SIGINT: the loop finishes its
     iteration, commits a snapshot there and returns;
     :meth:`restore_snapshot` loads it into a fresh engine.
-    ``fingerprint`` is the config a snapshot or session must agree on."""
+    ``fingerprint`` is the config a snapshot or session must agree on.
+
+    ``retry_policy`` (default ``faults.serve_retry_policy()``) governs the
+    prefill, step and verify retries; ``breaker`` (an ``rt.Breaker``,
+    off by default) stops the loop after its threshold of consecutive
+    whole-wave quarantines; ``watchdog_s`` arms the hang watchdog on
+    every prefill, step and verify span."""
 
     def __init__(self, decoder: PagedDecoder, params: dict, *, slots: int,
+                 watchdog_s: float = 0.0, retry_policy=None,
+                 breaker: rt.Breaker | None = None,
                  prefix_share: bool = False, spec_k: int = 0,
                  slo: SloConfig | None = None,
                  burn_mitigation: str = "off",
@@ -213,6 +247,21 @@ class ServeEngine:
         self.decoder = decoder
         self.params = params
         self.slots = slots
+        # the active-set ceiling is a leased resource: admission leases
+        # one scheduler slot, retire, quarantine and preemption release it
+        self.slot_pool = rt.LeasePool(
+            slots, max_leased=slots, spawn=itertools.count().__next__
+        )
+        # the opt-in decode-health breaker: consecutive whole-wave
+        # quarantines open it and the loop stops with the queue intact;
+        # None keeps serving, quarantining wave by wave
+        self.breaker = breaker
+        self.breaker_tripped = False
+        # the replica id the fault sites' ctx and the live plane carry:
+        # one engine is "" (the fleet, ROADMAP.md Queue 1 step 9, labels
+        # its replicas)
+        self.replica = ""
+        self.watchdog_s = watchdog_s
         self.layout = decoder.layout
         self.n_pages = decoder.n_pages
         self.pool = decoder.init_pool()
@@ -242,7 +291,7 @@ class ServeEngine:
                 session_dir=session_dir, capacity_blocks=host_tier_blocks,
                 fingerprint=self.fingerprint,
             )
-        self.retry_policy = faults.serve_retry_policy()
+        self.retry_policy = retry_policy or faults.serve_retry_policy()
         # retained blocks: {block: last-reference stamp}, the LRU order
         # (a counter, not a clock, so replays are deterministic)
         self.retained: dict[int, int] = {}
@@ -259,8 +308,12 @@ class ServeEngine:
         self.slo = SloMonitor(slo)
         self.burn_mitigation = burn_mitigation
         # the cost book: measured prefill/decode walls apportioned over
-        # the rows of each wave, and the pool's block-seconds
+        # the rows of each wave, and the pool's block-seconds; the
+        # decision ledger: one entry a defer, evict, shed, preempt or
+        # breaker trip with the signals read at decision time.  Both
+        # fail open (the obs.cost_book site)
         self.cost = _register_cost(CostBook(self.layout.n_blocks - 1))
+        self.decisions = DecisionLedger()
         # admissions the burn ladder shed: {rid: reason}, a terminal
         # bucket like done, so the trace's accounting still closes
         self.shed: dict[int, str] = {}
@@ -272,9 +325,17 @@ class ServeEngine:
         # the first leg's first-token stamp: the TTFT the client saw
         self.preempted_first_ns: dict[int, int] = {}
         self.preempted_rids: set[int] = set()
+        # the in-flight ledger: rid -> its _Slot, acquired at admission,
+        # released at retire, quarantine or preemption (the live plane's
+        # /statusz reads it)
+        self.inflight = rt.LeaseTable()
         self.queue: list[tuple[Request, int]] = []  # (request, t_submit)
         self.active: list[_Slot] = []
         self.done: dict[int, list[int]] = {}
+        # rows the recovery policy gave up on: {rid: reason}, a terminal
+        # bucket like done, never dropped silently
+        self.failed: dict[int, str] = {}
+        self._lane_base = _REQ_LANE_BASE * (1 + next(_ENGINE_SEQ))
         # per-request lifecycle, written once at retirement: {rid:
         # {status, scenario, n_out, priority, submit/admit/first/last_ns,
         # ttft/tpot/e2e_ms, deadline_ms, met}}
@@ -391,21 +452,30 @@ class ServeEngine:
         """A tier operation failed after its retries: the caller takes
         the reference's degradation (discard, defer or prefill fresh)
         with the engine's state unchanged, and this leaves the trail: a
-        WARNING Record on stderr and the fallbacks counter."""
+        ``serve.kv_tier_fallback`` event, a WARNING Record (``serve.jsonl``
+        under the obs run dir, markers on stderr) and the fallbacks
+        counter."""
         self.stats["tier_fallbacks"] += 1
         obs.counter("tpu_patterns_serve_kv_tier_fallbacks_total").inc()
-        ResultWriter(stream=sys.stderr).record(Record(
-            pattern="serve",
-            mode="kv_tier_fallback",
-            commands=op,
-            metrics={"pid": float(os.getpid())},
-            verdict=Verdict.WARNING,
-            notes=[
-                f"kv tier {op} failed after retries ({err}); falling back "
-                "to the tierless path for this wave, device state "
-                "unchanged"
-            ],
-        ))
+        obs.event("serve.kv_tier_fallback", op=op, error=str(err))
+        try:
+            ResultWriter(
+                jsonl_path=os.path.join(obs.run_dir(), "serve.jsonl"),
+                stream=sys.stderr,
+            ).record(Record(
+                pattern="serve",
+                mode="kv_tier_fallback",
+                commands=op,
+                metrics={"pid": float(os.getpid())},
+                verdict=Verdict.WARNING,
+                notes=[
+                    f"kv tier {op} failed after retries ({err}); falling "
+                    "back to the tierless path for this wave, device "
+                    "state unchanged"
+                ],
+            ))
+        except Exception:  # the trail is best-effort: a healed wave stays
+            pass
 
     def _evict_wave(self, blocks: list[int], rid: int = -1) -> int:
         """Evict retained ``blocks`` (leaf-first-safe) to the host tier in
@@ -458,8 +528,25 @@ class ServeEngine:
         self.stats["evictions"] += len(entries)
         self.stats["evict_bytes"] += n_bytes
         obs.counter("tpu_patterns_serve_kv_evictions_total").inc(len(entries))
+        # one ledger entry a wave, count = blocks evicted (the counter's
+        # identity); free_before takes this wave's blocks back out
+        self.decisions.book(
+            "evict",
+            rid=rid if rid >= 0 else None,
+            count=len(entries),
+            rationale="free list dry: evict cold retained blocks "
+                      "(LRU by last reference, leaf-first) to host",
+            victims=",".join(str(b) for b, _, _ in entries),
+            free_before=len(self.free) - len(entries),
+            retained=len(self.retained),
+            host_blocks=len(self.tier),
+        )
         obs.histogram("tpu_patterns_serve_kv_evict_bytes").observe(
             float(n_bytes)
+        )
+        obs.event(
+            "serve.kv_evict", blocks=str(len(entries)),
+            host_blocks=str(len(self.tier)),
         )
         # the host bound: forget the least-recently-stored blocks with
         # their subtrees; a forgotten prefix prefills again
@@ -548,6 +635,10 @@ class ServeEngine:
         obs.histogram("tpu_patterns_serve_kv_onload_bytes").observe(
             float(n_bytes)
         )
+        obs.event(
+            "serve.kv_onload", blocks=str(len(handles)),
+            host_blocks=str(len(self.tier)),
+        )
         return blocks
 
     def save_session(self) -> None:
@@ -575,6 +666,8 @@ class ServeEngine:
             if len(s.out) >= s.n_gen:
                 for b in s.table:
                     self._release_block(b)
+                self.slot_pool.release(s.slot, reusable=True)
+                self.inflight.release(s.rid)
                 self.cost.drop(s.rid)
                 if s.rid in self.preempted_partial:
                     # a resumed leg: its banked output goes in front, and
@@ -595,10 +688,11 @@ class ServeEngine:
 
     def _finalize_lifecycle(self, s: _Slot, status: str) -> None:
         """Close out a request: its lifecycle entry, the burn monitor's
-        booking and the TTFT/TPOT histograms, all from host stamps the
-        loop already took (no device sync).  The reference also writes
-        the request's lifecycle spans here; the port has no spans yet."""
+        booking, the TTFT/TPOT histograms and its queued/prefill/decode
+        lifecycle spans (one Chrome-trace lane a request), all from host
+        stamps the loop already took (no device sync)."""
         now = clock_ns()
+        admit = s.t_admit_ns or now
         first = s.t_first_ns or now
         last = s.t_last_ns or first
         n_out = len(s.out)
@@ -631,17 +725,57 @@ class ServeEngine:
             obs.histogram("tpu_patterns_serve_ttft_ms").observe(ttft_ms)
         if tpot_ms is not None:
             obs.histogram("tpu_patterns_serve_tpot_ms").observe(tpot_ms)
+        # one lane a request in the Chrome trace: queued -> prefill
+        # (admission to first token) -> decode, with first-token and
+        # retirement instants (obs/export.py names the lane "req <rid>")
+        lane = self._lane_base + s.rid
+        attrs = {"rid": s.rid}
+        if s.scenario:
+            attrs["scenario"] = s.scenario
+        if s.t_admit_ns:
+            obs.complete_span(
+                "req.queued", s.t_submit_ns, s.t_admit_ns - s.t_submit_ns,
+                tid=lane, **attrs,
+            )
+        if s.t_admit_ns and s.t_first_ns:
+            obs.complete_span(
+                "req.prefill", admit, first - admit, tid=lane, **attrs
+            )
+        if s.t_first_ns:
+            obs.complete_span(
+                "req.first_token", first, 0, tid=lane, **attrs
+            )
+            obs.complete_span(
+                "req.decode", first, last - first, tid=lane,
+                tokens=n_out, **attrs,
+            )
+        obs.complete_span(
+            "req.retired" if status == "done" else "req.failed",
+            last, 0, tid=lane, **attrs,
+        )
 
     def _shed_request(self, rid: int, reason: str,
-                      priority: str = "interactive") -> None:
+                      priority: str = "interactive",
+                      rung: str = "head") -> None:
         """Terminal shed bookkeeping of the burn ladder: counted, never
         dropped silently.  A shed resumed leg abandons its banked
-        output."""
+        output.  ``rung`` names the ladder's rung that shed it (``bulk``:
+        queued bulk first; ``head``: both earlier rungs exhausted)."""
         self.shed[rid] = reason
         self.preempted_partial.pop(rid, None)
         self.preempted_first_ns.pop(rid, None)
         self.stats["sheds"] += 1
         obs.counter("tpu_patterns_serve_shed_total", priority=priority).inc()
+        obs.counter("tpu_patterns_decision_shed_rung_total", rung=rung).inc()
+        obs.event("serve.shed", rid=str(rid), priority=priority)
+        burn = self.slo.snapshot()
+        self.decisions.book(
+            "shed", rid=rid,
+            rationale=reason, rung=rung, priority=priority,
+            burn_fast=round(burn.get("burn_rate_fast", 0.0), 4),
+            burn_slow=round(burn.get("burn_rate_slow", 0.0), 4),
+            queue=len(self.queue), active=len(self.active),
+        )
 
     def _preempt_victim(self) -> _Slot | None:
         """The bulk row to preempt next: the most recently admitted one
@@ -670,8 +804,15 @@ class ServeEngine:
         ctx = s.prompt + s.out
         n_kv = s.lens + s.steps
         self.index.materialize(self.index.insert(ctx[:n_kv], s.table))
+        # the pressure signals at decision time, read before the release
+        # frees the victim's blocks (the ledger carries what the
+        # scheduler saw)
+        free_at_decision = len(self.free)
+        occ_at_decision = round(self._occupancy(), 4)
         for b in s.table:
             self._release_block(b)
+        self.slot_pool.release(s.slot, reusable=True)
+        self.inflight.release(s.rid)
         self.cost.drop(s.rid)
         # a block another row still references (or a protected one)
         # stays on the device and aliases on resume
@@ -704,6 +845,20 @@ class ServeEngine:
         self.stats["preempted"] += 1
         obs.counter("tpu_patterns_serve_preempted_total",
                     priority="bulk").inc()
+        obs.event(
+            "serve.preempted", rid=str(s.rid), replica=self.replica,
+            banked=str(len(s.out)),
+        )
+        burn = self.slo.snapshot()
+        self.decisions.book(
+            "preempt", rid=s.rid,
+            rationale="bulk victim parked to host tier (LIFO: least "
+                      "banked decode work), remainder re-queued as "
+                      "forced session",
+            banked=len(s.out), free=free_at_decision,
+            occupancy=occ_at_decision, queue=len(self.queue),
+            burn_fast=round(burn.get("burn_rate_fast", 0.0), 4),
+        )
 
     def _try_preempt(self, protect=frozenset()) -> bool:
         """One guarded preemption: pick a bulk victim and force it out.
@@ -716,7 +871,8 @@ class ServeEngine:
         if victim is None:
             return False
         try:
-            faults.inject("serve.preempt", rid=victim.rid)
+            faults.inject("serve.preempt", rid=victim.rid,
+                          replica=self.replica)
         except faults.InjectedFault:
             return False
         self._preempt_slot(victim, protect=protect)
@@ -753,7 +909,8 @@ class ServeEngine:
                 shed_i = 0 if bi is None else bi
                 req, _ = self.queue[shed_i]
                 try:
-                    faults.inject("serve.shed", rid=req.rid)
+                    faults.inject("serve.shed", rid=req.rid,
+                                  replica=self.replica)
                 except faults.InjectedFault:
                     pass  # fails open: the request admits as usual
                 else:
@@ -763,13 +920,20 @@ class ServeEngine:
                         "shed: slo burn-rate mitigation active"
                         + (" (bulk first)" if bi is not None else ""),
                         priority=req.priority,
+                        rung="bulk" if bi is not None else "head",
                     )
                     continue
-            if len(self.active) + len(admitted) >= self.slots:
-                # the active set is full: an interactive head may free a
-                # slot by preempting a running bulk row
-                if not (self.queue[0][0].priority == "interactive"
+            # one scheduler slot a row (max_leased == slots): None means
+            # the active set is full, which ends admission (width, not
+            # pool pressure: no deferral)
+            slot_tok = self.slot_pool.lease()
+            if slot_tok is None:
+                # an interactive head may free a slot by preempting a
+                # running bulk row
+                if (self.queue[0][0].priority == "interactive"
                         and self._try_preempt()):
+                    slot_tok = self.slot_pool.lease()
+                if slot_tok is None:
                     break
             req, t_submit = self.queue[0]
             need = self._blocks_needed(req)
@@ -796,8 +960,21 @@ class ServeEngine:
                 self._evict_for(device_need - len(self.free), protect,
                                 rid=req.rid)
             if device_need > len(self.free):
+                self.slot_pool.release(slot_tok, reusable=True)
                 self.stats["deferrals"] += 1
                 obs.counter("tpu_patterns_serve_deferrals_total").inc()
+                obs.event(
+                    "serve.defer", rid=str(req.rid),
+                    need=device_need, free=len(self.free),
+                )
+                self.decisions.book(
+                    "defer", rid=req.rid,
+                    rationale="pool pressure: fresh-block need exceeds "
+                              "free list after evict/preempt rungs",
+                    need=device_need, free=len(self.free),
+                    queue=len(self.queue), active=len(self.active),
+                    occupancy=round(self._occupancy(), 4),
+                )
                 break
             self.queue.pop(0)
             if aliased and need > len(self.free):
@@ -833,6 +1010,10 @@ class ServeEngine:
                 write_from += plan.donor_len
                 self.stats["cow_copies"] += 1
                 obs.counter("tpu_patterns_serve_cow_copies_total").inc()
+                obs.event(
+                    "serve.cow_copy", rid=str(req.rid),
+                    donor=plan.donor, dst=fresh[0],
+                )
             if covered:
                 self.stats["prefix_hit_blocks"] += covered
                 obs.counter(
@@ -858,8 +1039,9 @@ class ServeEngine:
                 scenario=req.scenario, deadline_ms=req.deadline_ms,
                 priority=req.priority, temperature=req.temperature,
                 top_k=req.top_k, top_p=req.top_p, seed=req.seed,
-                gen_offset=req.gen_offset, t_admit_ns=now,
+                gen_offset=req.gen_offset, t_admit_ns=now, slot=slot_tok,
             )
+            self.inflight.acquire(req.rid, slot)
             # the row's residency integral opens: it holds len(table)
             # block references until it retires
             self.cost.hold(req.rid, len(table), scenario=req.scenario,
@@ -899,7 +1081,9 @@ class ServeEngine:
 
     def _cow_copy(self) -> None:
         """Run the pending copy-on-write boundary copies in one call,
-        padded to a power-of-two lane count with TRASH self-copies."""
+        padded to a power-of-two lane count with TRASH self-copies, and
+        clear them: a retried prefill finds them done and copies
+        nothing twice."""
         if not self._pending_cow:
             return
         n = _bucket(len(self._pending_cow), self.slots)
@@ -927,14 +1111,19 @@ class ServeEngine:
             start[i] = slots[i].write_from
             active[i] = True
         tables = self._tables_array(slots, rows)
+        # before the CoW copies and the launch: nothing is written yet,
+        # so an ``error`` here retries from the same state
+        faults.inject("serve.prefill", rows=len(reqs), replica=self.replica)
         t0 = clock_ns()
-        self._cow_copy()
-        tok0 = self.decoder.prefill(
-            self.params, self.pool, tokens, lens, start, tables, active,
-            *self._sampling_args(slots, rows),
-        )
-        # the scheduler's one sync per call: ids must reach the host
-        tok0 = tok0.cpu().numpy()
+        with obs.span("serve.prefill", deadline_s=self.watchdog_s or None,
+                      rows=len(reqs), lpad=lpad):
+            self._cow_copy()
+            tok0 = self.decoder.prefill(
+                self.params, self.pool, tokens, lens, start, tables, active,
+                *self._sampling_args(slots, rows),
+            )
+            # the scheduler's one sync per call: ids must reach the host
+            tok0 = tok0.cpu().numpy()
         t_tok = clock_ns()  # the wave's first tokens are on the host
         obs.histogram("tpu_patterns_serve_prefill_ms").observe(
             (t_tok - t0) / 1e6
@@ -967,15 +1156,19 @@ class ServeEngine:
                 s.last_tok, s.lens, s.steps, True
             )
         tables = self._tables_array(self.active, rows)
-        # before the launch: ``preempt`` raises SIGTERM, this step still
-        # completes and the loop snapshots at its iteration boundary
-        faults.inject("serve.step", step=self.stats["steps"])
+        # before the launch (nothing written yet, so ``error`` retries
+        # from the same state); ``preempt`` raises SIGTERM, this step
+        # still completes and the loop snapshots at its iteration boundary
+        faults.inject("serve.step", step=self.stats["steps"],
+                      replica=self.replica)
         t0 = clock_ns()
-        nxt = self.decoder.step(
-            self.params, self.pool, tok, lens, steps, tables, active,
-            *self._sampling_args(self.active, rows),
-        )
-        nxt = nxt.cpu().numpy()
+        with obs.span("serve.step", deadline_s=self.watchdog_s or None,
+                      rows=len(self.active)):
+            nxt = self.decoder.step(
+                self.params, self.pool, tok, lens, steps, tables, active,
+                *self._sampling_args(self.active, rows),
+            )
+            nxt = nxt.cpu().numpy()
         t_tok = clock_ns()
         obs.histogram("tpu_patterns_serve_step_ms").observe(
             (t_tok - t0) / 1e6
@@ -1035,15 +1228,18 @@ class ServeEngine:
             lens[i], steps[i] = s.lens, s.steps
             n_draft[i], active[i] = len(d), True
         tables = self._tables_array(self.active, rows)
-        # before the launch, as serve.step
+        # before the launch, as serve.step (exhaustion quarantines the
+        # active set with its shared blocks' refcounts released)
         faults.inject("serve.verify", step=self.stats["steps"],
-                      rows=len(self.active))
+                      rows=len(self.active), replica=self.replica)
         t0 = clock_ns()
-        out = self.decoder.verify(
-            self.params, self.pool, toks, lens, steps, n_draft, tables,
-            active, *self._sampling_args(self.active, rows),
-        )
-        out = out.cpu().numpy()
+        with obs.span("serve.verify", deadline_s=self.watchdog_s or None,
+                      rows=len(self.active), width=w):
+            out = self.decoder.verify(
+                self.params, self.pool, toks, lens, steps, n_draft, tables,
+                active, *self._sampling_args(self.active, rows),
+            )
+            out = out.cpu().numpy()
         t_tok = clock_ns()
         obs.histogram("tpu_patterns_serve_step_ms").observe(
             (t_tok - t0) / 1e6
@@ -1073,12 +1269,53 @@ class ServeEngine:
         self.stats["spec_row_steps"] += len(self.active)
         self.stats["spec_tokens"] += committed
 
+    # -- recovery --------------------------------------------------------
+
+    def _quarantine(self, slots: list[_Slot], reason: str) -> None:
+        """Give up on ``slots``: free their blocks through the refcounts
+        (shared and retained ones included), release their slot and
+        in-flight leases, record a per-request verdict and keep serving
+        everyone else: one deterministic failure must not sink the
+        batch."""
+        self._pending_cow = []  # never copy into blocks being freed
+        for s in slots:
+            for b in s.table:
+                self._release_block(b)
+            self.slot_pool.release(s.slot, reusable=True)
+            self.inflight.release(s.rid)
+            self.cost.drop(s.rid)
+            # a quarantined resumed leg is terminally failed: its banked
+            # output goes, nothing dangles in the accounting
+            self.preempted_partial.pop(s.rid, None)
+            self.preempted_first_ns.pop(s.rid, None)
+            self.failed[s.rid] = reason
+            self._finalize_lifecycle(s, "failed")
+            obs.counter("tpu_patterns_serve_quarantined_total").inc()
+            obs.event("serve.quarantine", rid=str(s.rid), reason=reason)
+
+    def _book_health(self, ok: bool, decode: bool = False) -> None:
+        """Feed the opt-in decode-health breaker: a whole-wave
+        quarantine (prefill or decode) is one failure, and only a served
+        decode wave resets the streak (a step-sick engine still prefills
+        fine; each step failure empties the active set, so a prefill
+        always runs in between, and its success must not clear the
+        streak).  When the breaker opens the loop stops at its next
+        iteration boundary with the queue intact."""
+        if self.breaker is None:
+            return
+        if ok:
+            if decode:
+                self.breaker.success()
+        elif self.breaker.failure():
+            self.breaker_tripped = True
+
     # -- snapshots -------------------------------------------------------
 
     def _on_preempt_signal(self, signum, frame) -> None:
         # async-signal-safe only: the handler interrupts the loop, which
-        # may hold the metrics registry's lock, so it sets the event and
-        # the loop does the counting at its iteration boundary
+        # may hold the metrics registry's (non-reentrant) lock, so no
+        # obs call here: it sets the event and the loop does the
+        # counting, the events and the snapshot at its iteration boundary
         self._preempt_signum = signum
         self._preempt.set()
 
@@ -1107,8 +1344,7 @@ class ServeEngine:
         snapshot_dir: the pool (and the tier's blocks) through
         ``ckpt.save``, everything host-side the loop owns in the
         ``engine.json`` sidecar of the same commit (the reference's keys
-        at format 3; ``failed`` stays empty, the port has no quarantine
-        yet)."""
+        at format 3, the quarantined rows' verdicts in ``failed``)."""
         step = self.stats["steps"]
         state = {
             "format": SNAPSHOT_FORMAT,
@@ -1135,7 +1371,7 @@ class ServeEngine:
             "index": (self.index.to_state()
                       if self.index is not None else None),
             "done": {str(k): v for k, v in self.done.items()},
-            "failed": {},
+            "failed": {str(k): v for k, v in self.failed.items()},
             "shed": {str(k): v for k, v in self.shed.items()},
             "preempted_partial": {
                 str(k): v for k, v in self.preempted_partial.items()
@@ -1156,8 +1392,10 @@ class ServeEngine:
                 "paths": {str(h): list(self.tier.paths[h]) for h in handles},
             }
             tree["tier"] = arrays
-        return ckpt.save(self.snapshot_dir, step, tree,
+        path = ckpt.save(self.snapshot_dir, step, tree,
                          extras={"engine.json": json.dumps(state)})
+        obs.event("serve.snapshot", step=str(step))
+        return path
 
     def restore_snapshot(self) -> int:
         """Load the latest committed snapshot into this fresh engine (the
@@ -1229,15 +1467,18 @@ class ServeEngine:
                   t_submit_ns=now, prompt=list(a["prompt"]),
                   priority=a["priority"], temperature=a["temperature"],
                   top_k=a["top_k"], top_p=a["top_p"], seed=a["seed"],
-                  gen_offset=a["gen_offset"])
+                  gen_offset=a["gen_offset"], slot=self.slot_pool.lease())
             for a in state["active"]
         ]
+        for s in self.active:
+            self.inflight.acquire(s.rid, s)
         self.free = list(state["free"])
         self.ref = {int(b): int(n) for b, n in state["ref"].items()}
         if self.index is not None and state.get("index") is not None:
             self.index = PrefixIndex.from_state(self.layout.block_len,
                                                 state["index"])
         self.done = {int(k): v for k, v in state["done"].items()}
+        self.failed = {int(k): v for k, v in state["failed"].items()}
         self.shed = {int(k): v for k, v in state["shed"].items()}
         self.preempted_partial = {
             int(k): list(v) for k, v in state["preempted_partial"].items()
@@ -1250,6 +1491,7 @@ class ServeEngine:
             if k in self.stats:
                 self.stats[k] = v
         obs.counter("tpu_patterns_serve_resumes_total").inc()
+        obs.event("serve.resume", step=str(step))
         return step
 
     def _take_preemption(self) -> None:
@@ -1257,6 +1499,7 @@ class ServeEngine:
         loop's own thread: count it, stamp ``preempted_at`` and
         snapshot."""
         obs.counter("tpu_patterns_serve_preemptions_total").inc()
+        obs.event("serve.preempt", signum=str(self._preempt_signum))
         self.preempted_at = self.stats["steps"]
         if self.snapshot_dir:
             self.snapshot()
@@ -1280,86 +1523,150 @@ class ServeEngine:
         submission to the scheduled arrival.  With ``idle`` true the
         engine has nothing to run and the source owns the wait until its
         next arrival (``loadgen/runner.py``), so this loop never
-        sleeps."""
+        sleeps.  If the breaker opens, the loop stops at its iteration
+        boundary with the queue and the verdicts intact."""
+        from tpu_patterns_torch.obs import live as obs_live
+
         for r in requests:
             self.submit(r)
         restore_handlers = self._install_preempt_handlers()
+        # while this loop runs, the live plane's /healthz, /statusz and
+        # /costz answer from this engine
+        obs_live.attach_engine(self)
         # the cost window covers exactly this loop
         self.cost.start(self.allocated_blocks())
         try:
-            while True:
-                if source is not None:
-                    batch = source(idle=not (self.queue or self.active))
-                    if batch is None:
-                        source = None
-                    else:
-                        for item in batch:
-                            if isinstance(item, tuple):
-                                self.submit(item[0], t_submit_ns=item[1])
-                            else:
-                                self.submit(item)
-                if not (self.queue or self.active):
+            with obs.span("serve.run", requests=len(requests)):
+                while True:
+                    if source is not None:
+                        batch = source(idle=not (self.queue or self.active))
+                        if batch is None:
+                            source = None
+                        else:
+                            for item in batch:
+                                if isinstance(item, tuple):
+                                    self.submit(item[0],
+                                                t_submit_ns=item[1])
+                                else:
+                                    self.submit(item)
+                    if not (self.queue or self.active):
+                        if self._preempt.is_set():
+                            # idle until the next arrival: the signal
+                            # does not wait for it
+                            self._take_preemption()
+                            break
+                        if source is None:
+                            break
+                        continue
+                    self._retire()
+                    # sample the pool integral where retire frees blocks
+                    # and admission takes them
+                    self.cost.tick(self.allocated_blocks())
+                    admitted = self._admit()
+                    self.cost.tick(self.allocated_blocks())
+                    if admitted:
+                        self._prefill_wave(admitted)
+                    if self.active:
+                        self._decode()
+                    self.stats["peak_blocks"] = max(
+                        self.stats["peak_blocks"], self.allocated_blocks()
+                    )
+                    occ = self._occupancy()
+                    self.stats["max_occupancy"] = max(
+                        self.stats["max_occupancy"], occ
+                    )
+                    obs.gauge("tpu_patterns_serve_pool_occupancy").set(occ)
+                    obs.gauge("tpu_patterns_serve_active_rows").set(
+                        len(self.active)
+                    )
+                    self.cost.tick(self.allocated_blocks())
+                    if self.breaker_tripped:
+                        self._trip()
+                        break
                     if self._preempt.is_set():
-                        # idle until the next arrival: the signal does
-                        # not wait for it
                         self._take_preemption()
                         break
-                    if source is None:
-                        break
-                    continue
-                self._retire()
-                # sample the pool integral where retire frees blocks and
-                # admission takes them
-                self.cost.tick(self.allocated_blocks())
-                admitted = self._admit()
-                self.cost.tick(self.allocated_blocks())
-                if admitted:
-                    self._prefill(admitted)
-                    self._retire()  # n_gen == 1 finishes at prefill
-                if self.active:
-                    self._decode()
-                self.stats["peak_blocks"] = max(
-                    self.stats["peak_blocks"], self.allocated_blocks()
-                )
-                occ = self._occupancy()
-                self.stats["max_occupancy"] = max(
-                    self.stats["max_occupancy"], occ
-                )
-                obs.gauge("tpu_patterns_serve_pool_occupancy").set(occ)
-                obs.gauge("tpu_patterns_serve_active_rows").set(
-                    len(self.active)
-                )
-                self.cost.tick(self.allocated_blocks())
-                if self._preempt.is_set():
-                    self._take_preemption()
-                    break
             if self.tier is not None and self.tier.session_dir:
                 # bank the session cache at the run's end
                 self.save_session()
         finally:
+            # the final pool tick settles every residency still held (a
+            # breaker or preemption exit leaves rows holding blocks)
             self.cost.close(self.allocated_blocks())
+            obs_live.detach_engine(self)
             restore_handlers()
         return dict(self.done)
 
+    def _prefill_wave(self, admitted: list[tuple[Request, _Slot]]) -> None:
+        """Prefill the admitted rows under the retry policy; a failure
+        past its retries quarantines exactly those rows."""
+        try:
+            faults.call_with_retry(
+                lambda: self._prefill(admitted),
+                policy=self.retry_policy, site="serve.prefill",
+            )
+        except (OSError, faults.Quarantined) as e:
+            self._quarantine([s for _, s in admitted],
+                             f"prefill failed after retries: {e}")
+            self._book_health(False)
+        else:
+            self._book_health(True)
+            self._retire()  # n_gen == 1 finishes at prefill
+
     def _decode(self) -> None:
-        """One decode dispatch for the active set, its wall booked to the
-        cost book over the rows that rode it.  Under ``spec_off`` an
-        active burn episode falls back from the wide step to plain
-        decode (the same ids, less work a step)."""
+        """One decode dispatch for the active set under the retry
+        policy; a failure past its retries quarantines the whole active
+        set.  Its wall (injection and retries included) is booked to the
+        cost book over the rows that rode it, and to the
+        ``serve.step_outer`` span, which covers what ``serve.step`` /
+        ``serve.verify`` (opened after the injection site) do not.
+        Under ``spec_off`` an active burn episode falls back from the
+        wide step to plain decode (the same ids, less work a step)."""
         use_spec = bool(self.spec_k) and not (
             self.burn_mitigation == "spec_off" and self.slo.mitigating()
         )
+        step_fn, site = ((self._verify_step, "serve.verify") if use_spec
+                         else (self._step, "serve.step"))
+        # the wave's identity, taken before the dispatch: a quarantined
+        # wave empties the active set, but its rows used the wall
         wave = [(s.rid, s.scenario, s.priority) for s in self.active]
         t0 = clock_ns()
-        if use_spec:
-            self._verify_step()
+        try:
+            # the outer span carries the watchdog deadline too: a hang
+            # injected at the site fires before serve.step opens
+            with obs.span("serve.step_outer",
+                          deadline_s=self.watchdog_s or None,
+                          rows=len(self.active)):
+                faults.call_with_retry(step_fn, policy=self.retry_policy,
+                                       site=site)
+        except (OSError, faults.Quarantined) as e:
+            casualties, self.active = self.active, []
+            self._quarantine(casualties,
+                             f"decode step failed after retries: {e}")
+            self._book_health(False, decode=True)
         else:
-            self._step()
-        wall_ns = clock_ns() - t0
-        obs.histogram("tpu_patterns_serve_decode_wall_ms").observe(
-            wall_ns / 1e6
+            self._book_health(True, decode=True)
+        finally:
+            wall_ns = clock_ns() - t0
+            obs.histogram("tpu_patterns_serve_decode_wall_ms").observe(
+                wall_ns / 1e6
+            )
+            self.cost.book_decode(wall_ns, wave)
+
+    def _trip(self) -> None:
+        """The breaker opened: count and explain the stop (the loop ends
+        at this iteration boundary with the queue and verdicts
+        intact)."""
+        obs.counter("tpu_patterns_replica_breaker_trips_total").inc()
+        obs.event("serve.breaker_open", replica=self.replica,
+                  queued=len(self.queue))
+        self.decisions.book(
+            "breaker",
+            rationale="consecutive whole-wave decode quarantines opened "
+                      "the health breaker; stopping at the iteration "
+                      "boundary",
+            queue=len(self.queue), active=len(self.active),
         )
-        self.cost.book_decode(wall_ns, wave)
 
 
 @dataclasses.dataclass
@@ -1388,6 +1695,7 @@ class ServeConfig:
     max_prompt: int = 48
     gen: int = 16  # tokens generated per request
     min_speedup: float = 1.0  # continuous-vs-sequential gate
+    watchdog_s: float = 0.0  # per-step watchdog deadline (0 = spans only)
     # prefix sharing (CoW radix cache): serve a shared-prefix trace with
     # block aliasing on vs off and gate the allocated-block saving
     prefix_share: bool = False
@@ -1434,6 +1742,11 @@ class ServeConfig:
     # running bulk row under pressure parks in the host tier and resumes
     # bit-identical
     preempt: str = "off"  # off | bulk
+    # the live telemetry plane (obs/live.py): PORT > 0 serves /metrics,
+    # /healthz, /statusz and /costz on 127.0.0.1 for the whole run, 0
+    # off; the ``obs watch URL`` subcommand polls it.  (The CLI's
+    # ``--obs_http 0`` means an ephemeral port, as a plane's ``port``)
+    obs_http: int = 0
     device: str = "cuda"  # "cpu" runs the plain torch versions
 
 
@@ -1608,10 +1921,12 @@ def timed_run(decoder: PagedDecoder, params: dict, trace: list[Request],
 
 def serve_legs(decoder: PagedDecoder, params: dict, trace: list[Request],
                slots: int, **engine_kw) -> ServeLegs:
-    out_cont, cont_s, eng, in_place, launches = timed_run(
-        decoder, params, trace, slots, **engine_kw)
-    out_seq, seq_s, _, _, _ = timed_run(decoder, params, trace, 1,
-                                        **engine_kw)
+    with obs.span("serve.continuous", slots=slots):
+        out_cont, cont_s, eng, in_place, launches = timed_run(
+            decoder, params, trace, slots, **engine_kw)
+    with obs.span("serve.sequential"):
+        out_seq, seq_s, _, _, _ = timed_run(decoder, params, trace, 1,
+                                            **engine_kw)
     return ServeLegs(out_cont, out_seq, cont_s, seq_s, eng, in_place,
                      launches)
 
@@ -1688,11 +2003,14 @@ def _prefix_record(cfg: ServeConfig, writer: ResultWriter, mcfg, params,
 
     def serve_once(share: bool):
         eng = ServeEngine(decoder, params, slots=cfg.slots,
-                          prefix_share=share, **_slo_kwargs(cfg))
+                          watchdog_s=cfg.watchdog_s, prefix_share=share,
+                          **_slo_kwargs(cfg))
         return eng.run([dataclasses.replace(r) for r in trace]), eng
 
-    out_shared, eng_s = serve_once(True)
-    out_plain, eng_p = serve_once(False)
+    with obs.span("serve.prefix_share", requests=len(trace)):
+        out_shared, eng_s = serve_once(True)
+    with obs.span("serve.prefix_baseline"):
+        out_plain, eng_p = serve_once(False)
     want_ids = _dense_expected(mcfg, cfg, params, trace)
     exact = out_shared == out_plain and _first_divergence(
         writer, "prefix-share", trace, out_shared, want_ids)
@@ -1703,7 +2021,7 @@ def _prefix_record(cfg: ServeConfig, writer: ResultWriter, mcfg, params,
     block_mb = decoder.pool_nbytes() / decoder.layout.n_blocks / 1e6
     leaked = eng_s.leaked_blocks()
     ok = (exact and peak_s < peak_p and savings >= cfg.min_block_savings
-          and leaked == 0)
+          and leaked == 0 and not eng_s.failed and not eng_p.failed)
     rec = Record(
         pattern="serve",
         mode=f"prefix_share_req{cfg.requests}_bl{cfg.block_len}_sp1",
@@ -1749,19 +2067,25 @@ def _spec_record(cfg: ServeConfig, writer: ResultWriter, mcfg, decoder,
     ``min_accepted`` (plain decode is exactly 1.0) and ids equal to both
     the plain engine's and the per-request dense decode."""
     trace = repetitive_trace(cfg)
-    eng_spec = ServeEngine(decoder, params, slots=cfg.slots,
-                           spec_k=cfg.spec_k, **_slo_kwargs(cfg))
-    out_spec = eng_spec.run([dataclasses.replace(r) for r in trace])
-    eng_plain = ServeEngine(decoder, params, slots=cfg.slots,
-                            **_slo_kwargs(cfg))
-    out_plain = eng_plain.run([dataclasses.replace(r) for r in trace])
+    with obs.span("serve.spec_decode", k=cfg.spec_k):
+        eng_spec = ServeEngine(decoder, params, slots=cfg.slots,
+                               watchdog_s=cfg.watchdog_s, spec_k=cfg.spec_k,
+                               **_slo_kwargs(cfg))
+        out_spec = eng_spec.run([dataclasses.replace(r) for r in trace])
+    with obs.span("serve.spec_baseline"):
+        eng_plain = ServeEngine(decoder, params, slots=cfg.slots,
+                                watchdog_s=cfg.watchdog_s,
+                                **_slo_kwargs(cfg))
+        out_plain = eng_plain.run([dataclasses.replace(r) for r in trace])
     want_ids = _dense_expected(mcfg, cfg, params, trace)
     exact = out_spec == out_plain and _first_divergence(
         writer, "spec-decode", trace, out_spec, want_ids)
 
     row_steps = eng_spec.stats["spec_row_steps"]
     accepted = eng_spec.stats["spec_tokens"] / row_steps if row_steps else 0.0
-    ok = exact and accepted > cfg.min_accepted
+    obs.gauge("tpu_patterns_serve_accepted_tokens_per_step").set(accepted)
+    ok = (exact and accepted > cfg.min_accepted
+          and not eng_spec.failed and not eng_plain.failed)
     rec = Record(
         pattern="serve",
         mode=f"spec_decode_k{cfg.spec_k}_sp1",
@@ -1797,14 +2121,14 @@ def _serve_fingerprint(cfg: ServeConfig, n_blocks: int) -> dict:
     exclusions; ``device`` stays in, so a snapshot taken on the card
     refuses to resume on the CPU)."""
     fp = dataclasses.asdict(cfg)
-    for k in ("snapshot_dir", "resume", "ids_out", "min_speedup",
+    for k in ("snapshot_dir", "resume", "ids_out", "watchdog_s", "min_speedup",
               "min_block_savings", "min_accepted", "session_dir",
               "host_tier_blocks", "min_tier_speedup",
               # the burn ladder never shapes the token stream (a shed
               # request is terminal bookkeeping, spec_off is
               # bit-identical), nor does preemption (resume is exact)
-              "burn_mitigation", "slo_fast_s", "slo_slow_s", "slo_budget",
-              "burn_multiplier", "preempt"):
+              "obs_http", "burn_mitigation", "slo_fast_s", "slo_slow_s",
+              "slo_budget", "burn_multiplier", "preempt"):
         fp.pop(k)
     fp["n_blocks"] = n_blocks  # resolved, not the 0 = auto sentinel
     return fp
@@ -1816,9 +2140,11 @@ def _run_preemptible(cfg: ServeConfig, writer: ResultWriter, mcfg,
     once under armed SIGTERM/SIGINT handlers.  Preempted: a committed
     snapshot and a WARNING Record.  Completed (fresh or ``resume``):
     every finished request's ids gated against the dense per-request
-    decode, and ``ids_out`` written."""
+    decode, quarantined rows reported per request (a WARNING: recovered,
+    not unscathed), and ``ids_out`` written."""
     eng = ServeEngine(
-        decoder, params, slots=cfg.slots, snapshot_dir=cfg.snapshot_dir,
+        decoder, params, slots=cfg.slots, watchdog_s=cfg.watchdog_s,
+        snapshot_dir=cfg.snapshot_dir,
         fingerprint=_serve_fingerprint(cfg, decoder.layout.n_blocks),
         prefix_share=cfg.prefix_share, spec_k=cfg.spec_k,
         kv_host_tier=cfg.kv_host_tier, session_dir=cfg.session_dir or None,
@@ -1859,21 +2185,27 @@ def _run_preemptible(cfg: ServeConfig, writer: ResultWriter, mcfg,
     if cfg.ids_out:
         with open(cfg.ids_out, "w") as f:
             json.dump({"done": {str(k): out[k] for k in sorted(out)},
-                       "failed": {}}, f)
+                       "failed": {str(k): eng.failed[k]
+                                  for k in sorted(eng.failed)}}, f)
     want_ids = _dense_expected(mcfg, cfg, params,
                                [r for r in trace if r.rid in out])
     mismatched = [r.rid for r in trace
                   if r.rid in out and out[r.rid] != want_ids[r.rid]]
-    unaccounted = [r.rid for r in trace if r.rid not in out]
+    unaccounted = [r.rid for r in trace
+                   if r.rid not in out and r.rid not in eng.failed]
     leaked = eng.leaked_blocks()
-    ok = not (mismatched or unaccounted or leaked)
+    obs.gauge("tpu_patterns_serve_exact").set(float(not mismatched))
+    verdict = Verdict.SUCCESS
+    if mismatched or unaccounted or leaked:
+        verdict = Verdict.FAILURE
+    elif eng.failed:
+        verdict = Verdict.WARNING  # recovered, but not unscathed
     rec = Record(
         pattern="serve", mode=mode, commands=_serve_commands(cfg),
         metrics={
             "exact": float(not mismatched),
             "done_requests": float(len(out)),
-            # the port has no quarantine path yet (ROADMAP)
-            "quarantined": 0.0,
+            "quarantined": float(len(eng.failed)),
             "resumed_from": float(
                 resumed_from if resumed_from is not None else -1
             ),
@@ -1886,7 +2218,7 @@ def _run_preemptible(cfg: ServeConfig, writer: ResultWriter, mcfg,
             "spec_steps": float(eng.stats["spec_steps"]),
             "spec_tokens": float(eng.stats["spec_tokens"]),
         },
-        verdict=Verdict.SUCCESS if ok else Verdict.FAILURE,
+        verdict=verdict,
         config=config,
     )
     if mismatched:
@@ -1896,13 +2228,18 @@ def _run_preemptible(cfg: ServeConfig, writer: ResultWriter, mcfg,
         )
     if unaccounted:
         rec.notes.append(
-            f"request(s) {unaccounted[:8]} never completed: scheduler bug"
+            f"request(s) {unaccounted[:8]} neither completed nor "
+            "quarantined: scheduler bug"
         )
     if leaked:
         rec.notes.append(
             f"{leaked} allocated block(s) have no live table reference: "
             "refcount bookkeeping leaked"
         )
+    for rid in sorted(eng.failed)[:8]:
+        rec.notes.append(f"request {rid} QUARANTINED: {eng.failed[rid]}")
+    if len(eng.failed) > 8:
+        rec.notes.append(f"... and {len(eng.failed) - 8} more quarantined")
     writer.record(rec)
     return [rec]
 
@@ -1972,7 +2309,7 @@ def _kv_tier_record(cfg: ServeConfig, writer: ResultWriter, mcfg, params,
     def serve_once(tier: bool):
         def build():
             return ServeEngine(decoder, params, slots=cfg.slots,
-                               kv_host_tier=tier,
+                               watchdog_s=cfg.watchdog_s, kv_host_tier=tier,
                                host_tier_blocks=cfg.host_tier_blocks,
                                **_slo_kwargs(cfg))
 
@@ -1984,8 +2321,10 @@ def _kv_tier_record(cfg: ServeConfig, writer: ResultWriter, mcfg, params,
         device_barrier(decoder.device)
         return out, (clock_ns() - t0) / 1e9, eng
 
-    out_tier, tier_s, eng_t = serve_once(True)
-    out_base, base_s, eng_b = serve_once(False)
+    with obs.span("serve.kv_tier", requests=len(trace)):
+        out_tier, tier_s, eng_t = serve_once(True)
+    with obs.span("serve.kv_defer_baseline"):
+        out_base, base_s, eng_b = serve_once(False)
     want_ids = _dense_expected(mcfg, _kv_oracle_cfg(cfg, gen), params, trace)
     exact = out_tier == out_base and _first_divergence(
         writer, "kv-tier", trace, out_tier, want_ids)
@@ -1997,7 +2336,8 @@ def _kv_tier_record(cfg: ServeConfig, writer: ResultWriter, mcfg, params,
     ok = (exact and eng_b.stats["deferrals"] > 0 and st["deferrals"] == 0
           and st["pressure_admits"] > 0 and st["evictions"] > 0
           and st["onload_hits"] > 0 and np.isfinite(speedup)
-          and speedup > cfg.min_tier_speedup and leaked == 0)
+          and speedup > cfg.min_tier_speedup and leaked == 0
+          and not eng_t.failed and not eng_b.failed)
     rec = Record(
         pattern="serve",
         mode=f"kv_tier_slots{cfg.slots}_bl{cfg.block_len}_sp1",
@@ -2075,22 +2415,25 @@ def _kv_session_record(cfg: ServeConfig, writer: ResultWriter, mcfg,
     decoder = _kv_tier_pool(cfg, mcfg, device)
     n_blocks = decoder.layout.n_blocks
     eng = ServeEngine(
-        decoder, params, slots=cfg.slots, kv_host_tier=True,
-        session_dir=cfg.session_dir, host_tier_blocks=cfg.host_tier_blocks,
+        decoder, params, slots=cfg.slots, watchdog_s=cfg.watchdog_s,
+        kv_host_tier=True, session_dir=cfg.session_dir,
+        host_tier_blocks=cfg.host_tier_blocks,
         fingerprint=_serve_fingerprint(cfg, n_blocks), **_slo_kwargs(cfg),
     )
-    out = eng.run([dataclasses.replace(r) for r in trace])
+    with obs.span("serve.kv_session", requests=len(trace)):
+        out = eng.run([dataclasses.replace(r) for r in trace])
     want_ids = _dense_expected(mcfg, _kv_oracle_cfg(cfg, gen), params,
                                [r for r in trace if r.rid in out])
     mismatched = [r.rid for r in trace
                   if r.rid in out and out[r.rid] != want_ids[r.rid]]
-    unaccounted = [r.rid for r in trace if r.rid not in out]
+    unaccounted = [r.rid for r in trace
+                   if r.rid not in out and r.rid not in eng.failed]
     st = eng.stats
     leaked = eng.leaked_blocks()
     verdict = Verdict.SUCCESS
     if mismatched or unaccounted or leaked:
         verdict = Verdict.FAILURE
-    elif st["tier_fallbacks"]:
+    elif eng.failed or st["tier_fallbacks"]:
         verdict = Verdict.WARNING
     rec = Record(
         pattern="serve",
@@ -2102,7 +2445,7 @@ def _kv_session_record(cfg: ServeConfig, writer: ResultWriter, mcfg,
         metrics={
             "exact": float(not mismatched),
             "done_requests": float(len(out)),
-            "quarantined": 0.0,
+            "quarantined": float(len(eng.failed)),
             "session_loaded": float(st["session_loaded"]),
             "onload_hits": float(st["onload_hits"]),
             "evictions": float(st["evictions"]),
@@ -2126,7 +2469,8 @@ def _kv_session_record(cfg: ServeConfig, writer: ResultWriter, mcfg,
         )
     if unaccounted:
         rec.notes.append(
-            f"request(s) {unaccounted[:8]} never completed: scheduler bug"
+            f"request(s) {unaccounted[:8]} neither completed nor "
+            "quarantined: scheduler bug"
         )
     if leaked:
         rec.notes.append(f"{leaked} block(s) leaked through the tier")
@@ -2187,9 +2531,28 @@ def run_serve(cfg: ServeConfig, writer: ResultWriter | None = None
     (``loadgen/runner.py::run_loadgen``) on this model and pool, one
     Record for the scenario.  The JAX package's bridge leaves
     ``paged_attn`` at the load generator's default; this one passes it.
+
+    With ``obs_http`` the live plane (``obs/live.py``) serves the whole
+    run on that port of 127.0.0.1; every engine the run builds attaches
+    to it while its loop runs.
     """
     writer = writer or ResultWriter()
     _refuse_unsupported(cfg)
+    if cfg.obs_http:
+        from tpu_patterns_torch.obs.live import ObsHttp
+
+        plane = ObsHttp(cfg.obs_http)
+        port = plane.start()
+        writer.progress(
+            f"obs http plane live on http://127.0.0.1:{port} "
+            "(/metrics /healthz /statusz; poll it with "
+            f"`python -m tpu_patterns_torch obs watch "
+            f"http://127.0.0.1:{port}`)"
+        )
+        try:
+            return run_serve(dataclasses.replace(cfg, obs_http=0), writer)
+        finally:
+            plane.stop()
     if cfg.scenario:
         return _run_scenario(cfg, writer)
     mcfg, decoder, params, trace = build_serve(cfg)
@@ -2210,10 +2573,17 @@ def run_serve(cfg: ServeConfig, writer: ResultWriter | None = None
         return [_kv_tier_record(cfg, writer, mcfg, params, decoder.device)]
     total_tokens = sum(r.n_gen for r in trace)
 
-    legs = serve_legs(decoder, params, trace, cfg.slots, **_slo_kwargs(cfg))
+    legs = serve_legs(decoder, params, trace, cfg.slots,
+                      watchdog_s=cfg.watchdog_s, **_slo_kwargs(cfg))
     cont_tps = total_tokens / legs.cont_s if legs.cont_s > 0 else 0.0
     seq_tps = total_tokens / legs.seq_s if legs.seq_s > 0 else 0.0
     speedup = cont_tps / seq_tps if seq_tps > 0 else 0.0
+    obs.gauge("tpu_patterns_serve_tokens_per_s", mode="continuous").set(
+        cont_tps
+    )
+    obs.gauge("tpu_patterns_serve_tokens_per_s", mode="sequential").set(
+        seq_tps
+    )
 
     want_ids = _dense_expected(mcfg, cfg, params, trace)
     exact = legs.out_cont == legs.out_seq and _first_divergence(
@@ -2292,7 +2662,7 @@ def _run_scenario_config(cfg: ServeConfig):
         burn_mitigation=cfg.burn_mitigation, slo_fast_s=cfg.slo_fast_s,
         slo_slow_s=cfg.slo_slow_s, slo_budget=cfg.slo_budget,
         burn_multiplier=cfg.burn_multiplier, preempt=cfg.preempt,
-        device=cfg.device,
+        watchdog_s=cfg.watchdog_s, device=cfg.device,
     )
 
 
