@@ -21,7 +21,9 @@ the environment tier of the CLI), the load generator over the serve
 path (seeded sampling, SLO Records, chaos under load), the
 long-context ``decode`` pattern and the token LM's ``lm`` (no kernel on
 their path), the serve engine's kv tier, priority preemption and
-snapshots, and its recovery path with the obs plane that records it.
+snapshots, its recovery path with the obs plane that records it, and the
+diagnostics (``doctor``, the profile reader, ``profilecheck``) and the
+perf observatory (``perf``).
 Phases, each one or more printed lines:
 
 1. device and toolchain: torch/CUDA versions, ``nvcc --version``, and the
@@ -321,16 +323,47 @@ Phases, each one or more printed lines:
     mid-run from the live plane; (f) the serve trace's tokens/s with the
     obs plane off and on, alternating, 4 readings each, spans a decode
     step and the host's microseconds a span (reported, not gated);
-18. the card's name and power limit again, the ``kernels`` line (the
+18. diagnostics and the perf observatory (alone with ``--tree .
+    diagnostics``): (a) ``doctor --device cuda`` through the CLI in a
+    process of its own, started as the smoke's pre-flight beside the
+    kernel build (which uses no card) and waited for before the first
+    timed phase: SUCCESS, its mode the card's name, the backend,
+    tiny-op and deep (bf16 4096 x 2048 ``x @ x.T``, checksum) probes
+    and both native modules ok; (b) ``--enable_profiling`` over a
+    ``serve`` run at the serve model's width (bf16, 2 requests of 8
+    tokens, with ``--obs-dump``) and over a ``flagship`` run at its
+    defaults: each a ``profile_breakdown`` Record with busy <= wall and
+    idle = wall - busy, the flagship's ``compute_frac`` >= 0.8 and K3/K4
+    launched (their counts set to 0 just before); one serve engine run
+    profiled in this process, its busy union parsed back from the
+    exported Kineto JSON equal to the in-memory one within 1 us; (e)
+    ``perf report`` at the serve width (bf16, train at batch 4, seq
+    1024, 24 requests): K1 launched in the ``*_pallas`` captures (count
+    set to 0 just before), a row for every ported executable, the card
+    named, no MFU above 1 or GB/s past 1.15 x 3350, ``serve.kv_tier``
+    with evictions and onload hits; (f) ``perf update-baseline`` into a
+    scratch file, then ``perf diff --include serve.step`` under
+    ``serve.step:sleep`` exiting 1 and naming ``serve.step``, and again
+    without the fault exiting 0; then, with nothing left to time, (c)
+    ``profilecheck`` on both traces, ``frac_other_time`` <= 0.2, the
+    op-name snapshots written to ``results/op_names/`` (the
+    classifier's fixtures) and every flash kernel booked as compute; (d)
+    ``obs summarize --profile-dir`` joining the serve run's spans with
+    its trace; and (e) one decode step of the dense and the K1 decoder
+    on one pool in float32: logits within phase 3's K1 tolerance (2e-5),
+    equal ids, K1 launched once a layer;
+19. the card's name and power limit again, the ``kernels`` line (the
     flash rows also carry ``train_loop_launches``, phase 8b's counts,
     K1's row ``loadgen_launches``, phase 14's by scenario,
     ``kv_tier_launches``, phase 16's by leg, ``recovery_launches``,
-    phase 17's by leg, and K1-K4 ``decode_lm_launches``, phase 15's),
+    phase 17's by leg, K1-K4 ``decode_lm_launches``, phase 15's, and
+    ``diagnostics_launches``, phase 18's by leg),
     then the device line, which is the last.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import io
@@ -339,6 +372,7 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -1251,9 +1285,7 @@ def phase_profile(torch, eng_mod, timing, cfg, unprofiled_wall_s):
     events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA
               and dev_us(e) > 0]
-    busy_s = sum(dev_us(e) for e in events) / 1e6
-    if busy_s <= 0:
-        raise AssertionError("the profile holds no device time")
+    busy_s = _profile_breakdown(prof, "the profile")["busy_ms"] / 1e3
     k1_s = sum(dev_us(e) for e in events
                if "paged_attention" in e.key) / 1e6
     top = sorted(events, key=dev_us, reverse=True)[:6]
@@ -1342,9 +1374,7 @@ def phase_flagship_profile(torch, timing, fl, tr, unprofiled_step_s):
     events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA
               and dev_us(e) > 0]
-    busy_s = sum(dev_us(e) for e in events) / 1e6
-    if busy_s <= 0:
-        raise AssertionError("the flagship profile holds no device time")
+    busy_s = _profile_breakdown(prof, "the flagship profile")["busy_ms"] / 1e3
     share = {}  # the flagship is bf16: its forward is the wgmma kernel
     for key in ("flash_fwd_wgmma_kernel", "flash_bwd_wgmma_dq_kernel",
                 "flash_bwd_wgmma_dkv_kernel"):
@@ -1930,6 +1960,22 @@ def phase_dma_compute_vs_plain(torch, cb):
     return cases
 
 
+def _profile_breakdown(prof, what: str, planes=None) -> dict:
+    """``core/profile.py``'s breakdown of a finished torch.profiler run,
+    read from its in-memory Kineto results (or from ``planes`` already
+    read from them): the one owner of the device's busy time (the union
+    of its kernels', copies' and memsets' intervals over every stream)
+    and idle; raises when the profile holds no device time."""
+    from tpu_patterns_torch.core import profile as P
+
+    if planes is None:
+        planes = P.planes_from_profile(prof)
+    bd = P.breakdown_of(planes)
+    if bd is None or bd["busy_ms"] <= 0:
+        raise AssertionError(f"{what} holds no device time")
+    return bd
+
+
 def _device_time_s(torch, fn):
     """``fn()`` under torch.profiler: its host wall, the summed device
     time of its kernels, copies and memsets by name, and the union of
@@ -1959,39 +2005,33 @@ def _device_time_s(torch, fn):
             by_name[e.key[:60]] = by_name.get(e.key[:60], 0.0) \
                 + dev_us(e) / 1e6
             calls[e.key[:60]] = calls.get(e.key[:60], 0) + e.count
-    spans = sorted(
-        (e.start_ns(), e.start_ns() + e.duration_ns())
-        for e in prof.profiler.kineto_results.events()
-        if e.device_type() == torch.autograd.DeviceType.CUDA
-        and e.duration_ns() > 0)
-    if not by_name or not spans:
+    if not by_name:
         raise AssertionError("the profile holds no device time")
-    busy_ns, (lo, hi) = 0, spans[0]
-    for s, e in spans[1:]:
-        if s > hi:
-            busy_ns += hi - lo
-            lo, hi = s, e
-        else:
-            hi = max(hi, e)
-    busy_ns += hi - lo
-    first_ms = (spans[0][0] - prof.profiler.kineto_results.trace_start_ns()
+    from tpu_patterns_torch.core import profile as P
+
+    planes = P.planes_from_profile(prof)
+    busy_s = _profile_breakdown(prof, "the profile", planes)["busy_ms"] / 1e3
+    first_ps = min(ev.offset_ps for p in planes for ln in p.lines
+                   for ev in ln.events)
+    first_ms = (first_ps / 1e3 - prof.profiler.kineto_results.trace_start_ns()
                 ) / 1e6
-    return wall, by_name, busy_ns / 1e9, calls, first_ms
+    return wall, by_name, busy_s, calls, first_ms
 
 
 def _queued_ms(torch, ck, fn, n=20):
     """Device ms of one ``fn()`` with no host gaps, and the host's ms to
-    enqueue one: ``n`` calls queued behind a 40,000-trip busy-wait
-    (~5 ms), so the host has enqueued them all before the device reaches
-    the first, timed by a CUDA-event pair after the busy-wait.  Raises
-    if the enqueueing outlasted the busy-wait, which would let host time
-    back into the window."""
+    enqueue one: ``n`` calls queued behind an 80,000-trip busy-wait
+    (~10 ms; at 40,000 a slow host once took 5.78 ms to enqueue 20 K7
+    launches), so the host has enqueued them all before the device
+    reaches the first, timed by a CUDA-event pair after the busy-wait.
+    Raises if the enqueueing outlasted the busy-wait, which would let
+    host time back into the window."""
     x = torch.zeros((8, 128), device=DEVICE)
     fn()
     lead, start, end = (torch.cuda.Event(enable_timing=True)
                         for _ in range(3))
     lead.record()
-    ck.busy_wait(x, 40_000)
+    ck.busy_wait(x, 80_000)
     start.record()
     t0 = time.perf_counter()
     for _ in range(n):
@@ -3241,9 +3281,7 @@ def loadgen_profile(torch, lg, runner, timing):
     events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA
               and dev_us(e) > 0]
-    busy_s = sum(dev_us(e) for e in events) / 1e6
-    if busy_s <= 0:
-        raise AssertionError("the loadgen profile holds no device time")
+    busy_s = _profile_breakdown(prof, "the loadgen profile")["busy_ms"] / 1e3
     k1_s = sum(dev_us(e) for e in events
                if "paged_attention" in e.key) / 1e6
     top = sorted(events, key=dev_us, reverse=True)[:6]
@@ -3455,9 +3493,7 @@ def decode_profile(torch, D, timing):
     events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA
               and dev_us(e) > 0]
-    busy_s = sum(dev_us(e) for e in events) / 1e6
-    if busy_s <= 0:
-        raise AssertionError("the decode profile holds no device time")
+    busy_s = _profile_breakdown(prof, "the decode profile")["busy_ms"] / 1e3
     launches = sum(e.count for e in events)
     top = sorted(events, key=dev_us, reverse=True)[:6]
     row = {"phase": "decode_profile", "steps": cfg.gen, "wall_s": wall_s,
@@ -4338,6 +4374,419 @@ def phase_recovery(torch, pk):
     return launches
 
 
+# -- phase 18: diagnostics and the perf observatory ---------------------------
+
+# the perf registry at the serve model's width (PerfConfig's fields:
+# DecodeConfig's embed 1024, 8 x 128 heads, depth 4, vocab 2048, bf16, 8
+# slots, block_len 16), train at batch 4 and seq 1024; k and inner are
+# measurement policy, no part of a baseline's fingerprint.  24 requests:
+# the kv-tier trace holds max(slots + 2, requests // 2) conversations,
+# and at 8 slots its pool evicts only from 11 of them on (PerfConfig's
+# 6 give 10, which fit)
+DIAG_WIDTH = dict(vocab=2048, embed=1024, heads=8, head_dim=128, depth=4,
+                  slots=8, block_len=16, batch=4, seq=1024, requests=24)
+DIAG_PERF = [f"--{k}={v}" for k, v in DIAG_WIDTH.items()] + [
+    "--dtype=bfloat16", "--device=cuda", "--k=2", "--inner=4"]
+# leg b's serve run: the serve model at full width, 2 requests of 8
+# (the profiler's host events, ~115k of them at this size, are what the
+# leg's seconds go to)
+DIAG_SERVE = ["serve", "--device=cuda", "--vocab=2048", "--embed=1024",
+              "--head_dim=128", "--depth=4", "--dtype=bfloat16",
+              "--min_prompt=64", "--max_prompt=512", "--gen=8",
+              "--requests=2"]
+# leg b's flagship run: FlagshipConfig's defaults, its 10 reps too (at 2
+# the weights' and input's host-to-device copies were 17-20% of busy)
+DIAG_FLAGSHIP = ["flagship", "--device=cuda"]
+DIAG_SLEEP = "serve.step:sleep:delay_s=0.05:count=1000000"
+# phase 3's K1 tolerance for float32 (rtol = atol)
+K1_F32_TOL = 2e-5
+# where leg c's op-name snapshots land (the classifier's fixtures,
+# committed as tests/torch_fixtures/op_names_h100_*.json)
+DIAG_SNAPSHOT_DIR = os.path.join("results", "op_names")
+DIAG_SNAPSHOTS = {"serve": "op_names_h100_serve.json",
+                  "flagship": "op_names_h100_flagship.json"}
+
+
+def _by_mode(recs, mode):
+    return [r for r in recs if r["mode"] == mode]
+
+
+def diag_doctor_start():
+    """Leg a, started as the smoke's pre-flight: ``python -m
+    tpu_patterns_torch doctor --device cuda`` in a process of its own,
+    before the kernels build.  The build runs nvcc on the host and
+    nothing on the card, so the doctor's probe children (their seconds go
+    to importing torch) share the card with no other work; the smoke
+    waits for it before its first timed phase (:func:`diag_doctor_wait`)
+    and phase 18 reads its Record."""
+    work = os.path.join(ROOT, "build", "doctor_preflight")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    jl = os.path.join(work, "doctor.jsonl")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "tpu_patterns_torch", "--jsonl", jl,
+         "doctor", "--device", "cuda"],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+    return proc, jl, time.perf_counter()
+
+
+def diag_doctor_wait(doctor):
+    """The pre-flight doctor's exit code, output and seconds, once it
+    exits; killed if it outlives its probes' deadlines."""
+    proc, jl, t0 = doctor
+    try:
+        out, _ = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    return proc.returncode, out, jl, time.perf_counter() - t0
+
+
+def diag_doctor(rc, out, jl, seconds):
+    """Leg a's verdict: the pre-flight doctor's Record."""
+    with open(jl) as f:
+        (rec,) = [json.loads(ln) for ln in f if ln.strip()]
+    m = rec["metrics"]
+    ok = (rc == 0 and rec["verdict"] == "SUCCESS" and "H100" in rec["mode"]
+          and all(m.get(f"{n}_ok") == 1.0 for n in (
+              "backend_init", "tiny_op", "deep_compute", "native_ffi",
+              "native_loader", "watchdog")))
+    emit({"phase": "diagnostics", "leg": "a_doctor", "ok": ok, "rc": rc,
+          "when": "pre-flight, beside the kernel build", "seconds": seconds,
+          "mode": rec["mode"], "verdict": rec["verdict"], "metrics": m,
+          "notes": rec["notes"],
+          "lines": [ln for ln in out.splitlines() if ln.startswith("#")]})
+    return [] if ok else [f"doctor: rc {rc}, {rec['verdict']}, "
+                          f"{rec['notes']}"]
+
+
+def _profiled_run(torch, pk, F, argv, prof_dir, **env):
+    """``--enable_profiling`` over a CLI run: its Records, the
+    ``profile_breakdown`` one checked, and K1's and K2-K4's launches."""
+    pk.paged_block.launches = 0
+    F.reset_launches()
+    rc, out, recs = _cli_in_process(["--enable_profiling", "--profile_dir",
+                                     prof_dir, *argv], **env)
+    launches = {"paged_attention": pk.paged_block.launches, **F.LAUNCHES}
+    bad = []
+    bds = _by_mode(recs, "profile_breakdown")
+    if len(bds) != 1:
+        return rc, None, recs, launches, [f"{argv}: no breakdown Record"]
+    m = bds[0]["metrics"]
+    # the Record's values are rounded to 4 decimals (ms)
+    if not (m["busy_ms"] <= m["wall_ms"] + 1e-4
+            and abs(m["idle_ms"] - (m["wall_ms"] - m["busy_ms"])) <= 2e-4):
+        bad.append(f"{argv[0]}: busy {m['busy_ms']} wall {m['wall_ms']} "
+                   f"idle {m['idle_ms']}")
+    return rc, m, recs, launches, bad
+
+
+def diag_union_parity(torch, eng_mod, work):
+    """The busy union of one profile, parsed back from its exported
+    Kineto JSON, against the same profile's in-memory union (both through
+    ``core/profile.py``): equal within 1 us."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu_patterns_torch.core import profile as P
+
+    cfg = eng_mod.ServeConfig(**dict(FULL_WIDTH, dtype="bfloat16",
+                                     requests=4, gen=8))
+    _, decoder, params, trace = eng_mod.build_serve(cfg)
+    eng_mod.ServeEngine(decoder, params, slots=cfg.slots).run(
+        [dataclasses.replace(r) for r in trace])  # warm
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        eng_mod.ServeEngine(decoder, params, slots=cfg.slots).run(
+            [dataclasses.replace(r) for r in trace])
+        torch.cuda.synchronize()
+    path = os.path.join(work, "union.pt.trace.json")
+    prof.export_chrome_trace(path)
+    mem_planes, disk_planes = P.planes_from_profile(prof), P.parse_trace(path)
+    mem, disk = P.breakdown_of(mem_planes), P.breakdown_of(disk_planes)
+    diff_us = abs(mem["busy_ms"] - disk["busy_ms"]) * 1e3
+    with open(path) as f:  # the device pids' event categories, counted
+        cats = collections.Counter(
+            ev.get("cat") for ev in json.load(f)["traceEvents"]
+            if ev.get("ph") == "X" and ev.get("cat") not in (
+                "cpu_op", "python_function", "cuda_runtime", "user_annotation",
+                "cuda_driver"))
+    row = {"phase": "diagnostics", "leg": "b_union_parity",
+           "busy_ms_memory": mem["busy_ms"], "busy_ms_json": disk["busy_ms"],
+           "wall_ms_memory": mem["wall_ms"], "wall_ms_json": disk["wall_ms"],
+           "diff_us": diff_us,
+           "streams": sum(len(p.lines) for p in mem_planes),
+           "events_memory": sum(len(ln.events) for p in mem_planes
+                                for ln in p.lines),
+           "events_json": sum(len(ln.events) for p in disk_planes
+                              for ln in p.lines),
+           "json_categories": dict(cats), "ok": diff_us <= 1.0}
+    emit(row)
+    return [] if row["ok"] else [f"union parity: {diff_us} us apart"]
+
+
+def diag_profilecheck(name, prof_dir, rates=None):
+    """Leg c: ``profilecheck`` on one trace dir, its op-name snapshot
+    written under ``results/op_names/``."""
+    os.makedirs(os.path.join(ROOT, DIAG_SNAPSHOT_DIR), exist_ok=True)
+    snap = os.path.join(ROOT, DIAG_SNAPSHOT_DIR, DIAG_SNAPSHOTS[name])
+    argv = ["profilecheck", prof_dir, "--snapshot-out", snap]
+    if rates:
+        argv += ["--rates-jsonl", rates]
+    rc, out, recs = _cli_in_process(argv)
+    (ops,) = _by_mode(recs, "profile_ops")
+    with open(snap) as f:
+        names = json.load(f)
+    total = sum(d["duration_ps"] for d in names.values()) or 1
+    worst_other = sorted(
+        ((d["duration_ps"] / total, n) for n, d in names.items()
+         if d["category"] == "other"), reverse=True)[:5]
+    row = {"phase": "diagnostics", "leg": f"c_profilecheck_{name}",
+           "rc": rc, "verdict": ops["verdict"], "metrics": ops["metrics"],
+           "snapshot": os.path.relpath(snap, ROOT),
+           "crosscheck": [(r["verdict"], r["notes"])
+                          for r in _by_mode(recs, "profile_crosscheck")],
+           "top_other": worst_other}
+    row["ok"] = (rc == 0 and ops["metrics"]["frac_other_time"] <= 0.2)
+    emit(row)
+    return names, ([] if row["ok"] else
+                   [f"profilecheck {name}: {ops['metrics']}, {worst_other}"])
+
+
+def _step_logits(dec, params, pool, a):
+    """One ``dec.step`` on ``a``'s inputs: its ids and the logits [B, V]
+    it picked them from, caught on their way into the decoder's picker
+    (the step itself runs unchanged)."""
+    seen = []
+
+    def catch(logits, rows, w):
+        seen.append(logits)
+        return type(dec)._pick(logits, rows, w)
+
+    object.__setattr__(dec, "_pick", catch)
+    try:
+        ids = dec.step(params, pool, a["tok"], a["lens"], a["steps"],
+                       a["tables"], a["active"])
+    finally:
+        object.__delattr__(dec, "_pick")
+    (logits,) = seen
+    return ids, logits
+
+
+def diag_dense_vs_k1(torch, pk):
+    """Leg e's agreement: one decode step of the dense decoder and of the
+    K1 decoder on the same pool and inputs, at the serve width in
+    float32 with TF32 off: the step's logits (every layer's attention,
+    positions and tables behind them) within phase 3's K1 tolerance, and
+    its ids equal."""
+    from tpu_patterns_torch.perf import registry
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = registry.PerfConfig(**DIAG_WIDTH, dtype="float32", device=DEVICE)
+    dense, params, mcfg = registry.decoder_for(cfg, DEVICE, attn="dense")
+    kernel, _, _ = registry.decoder_for(cfg, DEVICE, attn="kernel")
+    a = registry.core_inputs(cfg, dense)
+    pool = dense.init_pool()
+    dense.prefill(params, pool, a["tokens"], a["lens"], a["start"],
+                  a["tables"], a["active"])
+    got = {}
+    for name, dec in (("dense", dense), ("kernel", kernel)):
+        pk.paged_block.launches = 0
+        got[name] = (*_step_logits(dec, params, {n: t.clone() for n, t
+                                                  in pool.items()}, a),
+                     pk.paged_block.launches)
+    torch.cuda.synchronize()
+    (ids_d, want, k1_dense), (ids_k, logits, k1) = got["dense"], got["kernel"]
+    err = float((logits - want).abs().max())
+    row = {"phase": "diagnostics", "leg": "e_dense_vs_k1", "dtype": "float32",
+           "compared": "step logits", "shape": list(logits.shape),
+           "max_abs_err": err, "max_abs_logit": float(want.abs().max()),
+           "tolerance": K1_F32_TOL, "k1_launches": k1,
+           "k1_launches_dense": k1_dense,
+           "ids_equal": int((ids_d == ids_k).sum()), "rows": int(ids_d.numel())}
+    row["ok"] = (k1 == mcfg.depth and k1_dense == 0
+                 and row["ids_equal"] == row["rows"]
+                 and bool(torch.allclose(logits, want, rtol=K1_F32_TOL,
+                                         atol=K1_F32_TOL)))
+    emit(row)
+    return [] if row["ok"] else [f"dense vs K1: {row}"]
+
+
+def diag_perf(torch, pk, work):
+    """Legs e and f: the registry through ``perf`` at the serve width."""
+    from tpu_patterns_torch.perf import history, registry
+    from tpu_patterns_torch.runtime import SPEC_PLAUSIBILITY_MARGIN
+
+    bad, launches = [], {}
+    pk.paged_block.launches = 0
+    rc, out, recs = _cli_in_process([
+        "perf", "report", *DIAG_PERF, "--no-history",
+        "--include", "decoder.step_pallas,decoder.verify_pallas"])
+    launches["e_pallas_captures"] = pk.paged_block.launches
+    if rc or not launches["e_pallas_captures"]:
+        bad.append(f"perf pallas captures: rc {rc}, K1 "
+                   f"{launches['e_pallas_captures']}")
+    perf_dir = os.path.join(work, "perf")
+    pk.paged_block.launches = 0
+    rc, out, recs = _cli_in_process(["perf", "report", *DIAG_PERF,
+                                     "--perf-dir", perf_dir])
+    launches["e_report"] = pk.paged_block.launches
+    (snap,) = history.load_history(perf_dir)
+    rows = {n: f"| {n} |" in out for n in registry.PORTED}
+    execs = snap["executables"]
+    impossible = [
+        n for n, m in execs.items()
+        if m.get("mfu", 0.0) > 1.0
+        or m.get("achieved_gbps", 0.0) > SPEC_PLAUSIBILITY_MARGIN * 3350.0]
+    row = {"phase": "diagnostics", "leg": "e_perf_report", "rc": rc,
+           "card": snap["mesh"].get("card"), "rows": rows,
+           "skipped": snap["skipped"], "impossible": impossible,
+           "executables": {n: {k: m[k] for k in (
+               "step_ms", "analytic_flops", "analytic_hbm_bytes",
+               "achieved_gflops", "achieved_gbps", "mfu",
+               "kv_evictions", "kv_evict_bytes", "kv_onload_hits") if k in m}
+               for n, m in execs.items()},
+           "table": [ln for ln in out.splitlines() if ln.startswith("|")]}
+    tier = execs.get("serve.kv_tier", {})
+    row["ok"] = (rc == 0 and all(rows.values()) and not impossible
+                 and "H100" in (row["card"] or "")
+                 and tier.get("kv_evictions", 0.0) > 0
+                 and tier.get("kv_onload_hits", 0.0) > 0)
+    emit(row)
+    if not row["ok"]:
+        bad.append(f"perf report: rc {rc}, rows {rows}, impossible "
+                   f"{impossible}, serve.kv_tier {tier}")
+
+    bl = os.path.join(work, "baseline.json")
+    pk.paged_block.launches = 0
+    rc_pin, _, _ = _cli_in_process(["perf", "update-baseline", *DIAG_PERF,
+                                    "--baseline", bl, "--no-history"])
+    diff_argv = ["perf", "diff", *DIAG_PERF, "--baseline", bl,
+                 "--no-history", "--include", "serve.step"]
+    rc_slow, out_slow, slow = _cli_in_process(
+        diff_argv, TPU_PATTERNS_FAULTS=DIAG_SLEEP)
+    rc_clean, _, clean = _cli_in_process(diff_argv)
+    launches["f_baseline_and_diffs"] = pk.paged_block.launches
+    with open(bl) as f:
+        pinned = [e for e in json.load(f)["entries"]
+                  if e["executable"] == "serve.step"
+                  and e["metric"] == "step_ms"]
+    (flagged,) = _by_mode(slow, "serve.step")
+    (again,) = _by_mode(clean, "serve.step")
+    row = {"phase": "diagnostics", "leg": "f_perf_diff", "fault": DIAG_SLEEP,
+           "rc_update_baseline": rc_pin, "rc_diff_sleep": rc_slow,
+           "rc_diff_clean": rc_clean, "sleep_notes": flagged["notes"],
+           "pinned_step_ms": [(e["value"], e["machine"]) for e in pinned],
+           "sleep_step_ms": flagged["metrics"]["step_ms"],
+           "clean_step_ms": again["metrics"]["step_ms"],
+           "diff_progress": [ln for ln in out_slow.splitlines()
+                             if ln.startswith("# ")],
+           "ok": (rc_pin == 0 and rc_slow == 1
+                  and flagged["verdict"] == "FAILURE"
+                  and any("serve.step.step_ms" in n
+                          for n in flagged["notes"])
+                  and rc_clean == 0)}
+    emit(row)
+    if not row["ok"]:
+        bad.append(f"perf diff: {row}")
+    return bad, launches
+
+
+def phase_diagnostics(torch, pk, F, doctor):
+    """Phase 18 (module docstring); ``doctor`` is the pre-flight doctor's
+    :func:`diag_doctor_wait`.  Returns K1's and K2-K4's launches by
+    leg."""
+    from tpu_patterns_torch import obs
+    from tpu_patterns_torch.serve import engine as eng_mod
+
+    t_phase = time.perf_counter()
+    work = os.path.join(ROOT, "build", "diagnostics_smoke")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    bad, launches = [], {"paged_attention": {}}
+    ends = {}  # seconds into the phase at each leg's end
+
+    def done(leg):
+        ends[leg] = time.perf_counter() - t_phase
+
+    try:
+        bad += diag_doctor(*doctor)
+        done("a_doctor")
+        serve_prof = os.path.join(work, "serve_prof")
+        obs_dir = os.path.join(work, "obs")
+        rc, m, recs, got, problems = _profiled_run(
+            torch, pk, F, ["--obs-dir", obs_dir, "--obs-dump", *DIAG_SERVE],
+            serve_prof)
+        bad += problems
+        launches["paged_attention"]["b_serve"] = got["paged_attention"]
+        emit({"phase": "diagnostics", "leg": "b_serve", "rc": rc,
+              "breakdown": m, "k1_launches": got["paged_attention"],
+              "verdicts": [(r["mode"], r["verdict"]) for r in recs]})
+        if not got["paged_attention"]:
+            bad.append("profiled serve: K1 not launched")
+        obs.configure(None)  # its dumps are written; leg d reads them
+        done("b_serve")
+        flag_prof = os.path.join(work, "flagship_prof")
+        rc, m, frecs, got, problems = _profiled_run(torch, pk, F,
+                                                    DIAG_FLAGSHIP, flag_prof)
+        bad += problems
+        for k in FLASH_KERNELS:
+            launches[k] = {"b_flagship": got[k]}
+        rates = os.path.join(work, "flagship.jsonl")
+        with open(rates, "w") as f:
+            f.writelines(json.dumps(r) + "\n" for r in frecs)
+        ok = (rc == 0 and m is not None and m["compute_frac"] >= 0.8
+              and got["flash_block"] > 0 and got["flash_block_bwd_dq"] > 0
+              and got["flash_block_bwd_dkv"] > 0)
+        emit({"phase": "diagnostics", "leg": "b_flagship", "rc": rc,
+              "breakdown": m, "launches": got, "ok": ok,
+              "verdicts": [(r["mode"], r["verdict"]) for r in frecs]})
+        if not ok:
+            bad.append(f"profiled flagship: rc {rc}, {m}, {got}")
+        done("b_flagship")
+        bad += diag_union_parity(torch, eng_mod, work)
+        done("b_union_parity")
+
+        problems, got = diag_perf(torch, pk, work)
+        bad += problems
+        launches["paged_attention"].update(got)
+        done("e_f_perf")
+        _, problems = diag_profilecheck("serve", serve_prof)
+        bad += problems
+        names, problems = diag_profilecheck("flagship", flag_prof, rates)
+        bad += problems
+        flash = {n: d["category"] for n, d in names.items() if "flash_" in n}
+        if not flash or set(flash.values()) != {"compute"}:
+            bad.append(f"flagship: flash kernels booked as {flash}")
+        done("c_profilecheck")
+
+        rc, out, _ = _cli_in_process(["--obs-dir", obs_dir, "obs",
+                                      "summarize", "--profile-dir",
+                                      serve_prof])
+        joined = [ln for ln in out.splitlines()
+                  if ln.startswith("device plane") or ln.startswith("  ")]
+        ok = rc == 0 and any("device busy" in ln for ln in joined)
+        emit({"phase": "diagnostics", "leg": "d_obs_join", "rc": rc,
+              "lines": joined, "ok": ok})
+        if not ok:
+            bad.append(f"obs summarize --profile-dir: rc {rc}")
+        obs.configure(None)
+        done("d_obs_join")
+
+        bad += diag_dense_vs_k1(torch, pk)
+        done("e_dense_vs_k1")
+    finally:
+        obs.configure(None)
+        shutil.rmtree(work, ignore_errors=True)
+    emit({"phase": "diagnostics_phase",
+          "seconds": time.perf_counter() - t_phase, "leg_end_s": ends,
+          "diagnostics_launches": launches, "card": _smi()})
+    if bad:
+        raise AssertionError("diagnostics: " + " | ".join(bad))
+    return launches
+
+
 def profile_concurrency_main() -> int:
     """``python3 chip_smoke.py --profile-concurrency``, which the smoke
     runs in a process of its own: the xla concurrent "C C" run, the
@@ -4417,7 +4866,7 @@ TREE_PHASES = ("put_time", "ring_put_time", "accumulate_time",
 # and phase 5's bf16 serve leg (a tree's serve tokens/s against
 # another's)
 TREE_ONLY_NAMED = ("loadgen", "decode_lm", "kv_tier", "kv_race",
-                   "recovery", "serve")
+                   "recovery", "diagnostics", "serve")
 
 
 def tree_main(tree: str, phases: list[str]) -> int:
@@ -4463,7 +4912,12 @@ def tree_main(tree: str, phases: list[str]) -> int:
     emit({"phase": "tree", "tree": tree, "card": smi,
           "package": os.path.dirname(os.path.dirname(
               os.path.abspath(op.__file__)))})
-    build.build_all()
+    doctor = (diag_doctor_start() if "diagnostics" in phases else None)
+    try:
+        build.build_all()
+    finally:
+        if doctor is not None:
+            doctor = diag_doctor_wait(doctor)
     run = {"put_time": lambda: phase_put_time(torch, op, ck, cb, timing,
                                               spec),
            "ring_put_time": lambda: phase_ring_put_time(
@@ -4478,6 +4932,7 @@ def tree_main(tree: str, phases: list[str]) -> int:
            "kv_tier": lambda: phase_kv_tier(torch, pk),
            "kv_race": lambda: phase_kv_race(torch, pk),
            "recovery": lambda: phase_recovery(torch, pk),
+           "diagnostics": lambda: phase_diagnostics(torch, pk, F, doctor),
            "serve": lambda: serve_leg(torch, eng_mod, "bf16",
                                       eng_mod.ServeConfig(
                                           **FULL_WIDTH, dtype="bfloat16",
@@ -4618,19 +5073,23 @@ def main() -> int:
           "count": torch.cuda.device_count(), "nvidia_smi": smi})
     emit(smi)
 
-    t0 = time.perf_counter()
-    libs = build.build_all()
-    build_s = time.perf_counter() - t0
-    ptxas = []
-    for lib in libs.values():
-        log = lib.with_suffix(".log")
-        if log.exists():
-            ptxas += [ln.strip() for ln in log.read_text().splitlines()
-                      if "registers" in ln or "spill" in ln][:8]
-    emit({"phase": "build", "seconds": build_s,
-          "libs": {n: os.path.relpath(p, ROOT) for n, p in libs.items()},
-          "ptxas": ptxas})
-    phase_kernel_build(torch, libs, F, op, pk)
+    doctor = diag_doctor_start()
+    try:
+        t0 = time.perf_counter()
+        libs = build.build_all()
+        build_s = time.perf_counter() - t0
+        ptxas = []
+        for lib in libs.values():
+            log = lib.with_suffix(".log")
+            if log.exists():
+                ptxas += [ln.strip() for ln in log.read_text().splitlines()
+                          if "registers" in ln or "spill" in ln][:8]
+        emit({"phase": "build", "seconds": build_s,
+              "libs": {n: os.path.relpath(p, ROOT) for n, p in libs.items()},
+              "ptxas": ptxas, "beside": "the pre-flight doctor"})
+        phase_kernel_build(torch, libs, F, op, pk)
+    finally:
+        doctor = diag_doctor_wait(doctor)
 
     kres, ktime, klong = phase_kernels(torch, pk, timing, spec)
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions
@@ -4710,6 +5169,7 @@ def main() -> int:
     decode_lm_launches = phase_decode_lm(torch, pk, F, timing, spec)
     kv_tier_launches = phase_kv_tier(torch, pk)
     recovery_launches = phase_recovery(torch, pk)
+    diagnostics_launches = phase_diagnostics(torch, pk, F, doctor)
 
     rows = {**ftime, **ptime, "paged_attention": {
         "ms": ktime["kernel"]["ms"], "bound_ms": ktime["bound_ms"],
@@ -4756,6 +5216,7 @@ def main() -> int:
         "decode_lm_launches": decode_lm_launches["paged_attention"],
         "kv_tier_launches": kv_tier_launches,
         "recovery_launches": recovery_launches,
+        "diagnostics_launches": diagnostics_launches["paged_attention"],
     }]
     for kname, (source, replaces) in FLASH_KERNELS.items():
         row = ftime[kname]
@@ -4767,6 +5228,7 @@ def main() -> int:
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "train_loop_launches": train_launches[kname],
             "decode_lm_launches": decode_lm_launches[kname],
+            "diagnostics_launches": diagnostics_launches[kname],
         })
     # launches: mono in its run_onesided call, the others in auto's
     for kname, replaces in PUT_KERNELS.items():

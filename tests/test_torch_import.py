@@ -61,6 +61,11 @@ def test_import_pulls_no_jax():
         "import tpu_patterns_torch.obs.spans, tpu_patterns_torch.obs.live\n"
         "import tpu_patterns_torch.obs.watchdog, tpu_patterns_torch.obs.export\n"
         "import tpu_patterns_torch.obs.decisions, tpu_patterns_torch.rt\n"
+        "import tpu_patterns_torch.core.profile, tpu_patterns_torch.core.doctor\n"
+        "import tpu_patterns_torch.core.ratchet, tpu_patterns_torch.perf\n"
+        "import tpu_patterns_torch.perf.analytic, tpu_patterns_torch.perf.registry\n"
+        "import tpu_patterns_torch.perf.baseline, tpu_patterns_torch.perf.history\n"
+        "import tpu_patterns_torch.perf.report, tpu_patterns_torch.perf.provenance\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'tpu_patterns', 'tabulate')]\n"
         "assert not bad, bad\n"
@@ -91,6 +96,7 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
     from tpu_patterns_torch.models.lm import LMConfig, init_lm_params, run_lm
     from tpu_patterns_torch.models.train_loop import TrainLoopConfig, train
     from tpu_patterns_torch.models.transformer import ModelConfig
+    from tpu_patterns_torch.perf.registry import PerfConfig, capture
     from tpu_patterns_torch.runtime import resolve_device
     from tpu_patterns_torch.serve.engine import ServeConfig, run_serve
     from tpu_patterns_torch.serve.paged import make_paged_lm_decoder
@@ -151,6 +157,8 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
         lambda: cli.main(["decode"]),
         lambda: run_lm(LMConfig()),
         lambda: cli.main(["lm"]),
+        lambda: cli.main(["perf", "report", "--no-history"]),
+        lambda: capture(PerfConfig()),
     ):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
@@ -173,6 +181,48 @@ def test_unported_options_are_refused():
                  ["p2p", "--put-kernel", "pallas"]):
         with pytest.raises(SystemExit):
             cli.build_parser().parse_args(argv)
+
+
+def test_diagnostics_subcommands_parse():
+    from tpu_patterns_torch import cli
+
+    parser = cli.build_parser()
+    a = parser.parse_args(["doctor", "--device", "cpu", "--deep", "false",
+                           "--probe_timeout", "5"])
+    assert (a.cmd, a.device, a.deep, a.probe_timeout) == ("doctor", "cpu",
+                                                          False, 5)
+    assert parser.parse_args(["doctor"]).device == "cuda"
+    a = parser.parse_args(["profilecheck", "d", "--snapshot-out", "s.json",
+                           "--rates-jsonl", "r.jsonl"])
+    assert (a.profile_dir, a.snapshot_out, a.rates_jsonl) == (
+        "d", "s.json", "r.jsonl")
+    a = parser.parse_args(["--enable_profiling", "--profile_dir", "p",
+                           "perf", "diff", "--include", "serve.step",
+                           "--measured_tol", "-1", "--dtype", "bfloat16"])
+    assert (a.enable_profiling, a.profile_dir, a.perf_cmd, a.include,
+            a.measured_tol, a.dtype, a.device) == (
+        True, "p", "diff", "serve.step", -1.0, "bfloat16", "cuda")
+    a = parser.parse_args(["obs", "summarize", "--profile-dir", "p"])
+    assert a.obs_profile_dir == "p" and a.profile_dir == "results/profile"
+
+
+def test_diagnostics_refusals():
+    import contextlib
+    import io
+
+    from tpu_patterns_torch import cli
+
+    for argv in (["perf", "report", "--include", "zero.step",
+                  "--device", "cpu", "--no-history"],
+                 ["perf", "diff", "--include", "serve.prefix_store",
+                  "--device", "cpu", "--no-history"],
+                 ["doctor", "--workers", "true", "--device", "cpu"],
+                 ["perf", "report", "--devices", "4"],
+                 ["perf", "report", "--tp", "2"]):
+        with pytest.raises(SystemExit) as e, \
+                contextlib.redirect_stderr(io.StringIO()):
+            cli.main(argv)
+        assert e.value.code not in (0, None), argv
 
 
 def test_put_kernel_choices_are_the_librarys():

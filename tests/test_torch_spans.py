@@ -344,9 +344,40 @@ def test_write_chrome_trace_loads(tmp_path):
     assert {ev["ph"] for ev in trace["traceEvents"]} >= {"X", "i", "M"}
 
 
-def test_host_device_join_names_its_step():
-    with pytest.raises(NotImplementedError, match="Queue 1 step 6"):
-        texport.host_device_join(_entries(), "/nonexistent")
+def test_host_device_join_names_its_step(monkeypatch):
+    """The join against a device breakdown (``core/profile.py``): no
+    device plane gives the reference's host-only line; a breakdown gives
+    the reference's device section, its numbers line for line (the
+    engines are named for the card: SMs, NCCL, copies)."""
+    import re
+
+    from tpu_patterns.core import profile as jprofile
+    from tpu_patterns_torch.core import profile as tprofile
+
+    def tail(text):
+        lines = text.splitlines()
+        return lines[lines.index("device plane (core/profile.py "
+                                 "breakdown):"):]
+
+    got = texport.host_device_join(_entries(), "/nonexistent")
+    want = jexport.host_device_join(_entries(), "/nonexistent")
+    assert got.splitlines()[-1] == want.splitlines()[-1] == (
+        "(no device plane under /nonexistent — host spans only)")
+    bd = {"compute_ms": 3.5, "collective_ms": 0.25, "dma_ms": 0.125,
+          "infeed_outfeed_ms": 0.5, "other_ms": 0.0, "busy_ms": 4.0,
+          "wall_ms": 10.0, "idle_ms": 6.0, "compute_frac": 0.8046,
+          "collective_frac": 0.0575, "dma_frac": 0.0287,
+          "infeed_outfeed_frac": 0.1149, "other_frac": 0.0,
+          "n_device_planes": 1.0}
+    monkeypatch.setattr(tprofile, "breakdown", lambda d: dict(bd))
+    monkeypatch.setattr(jprofile, "breakdown", lambda d: dict(bd))
+    got = tail(texport.host_device_join(_entries(), "p"))
+    want = tail(jexport.host_device_join(_entries(), "p"))
+    num = re.compile(r"[0-9.]+%?")
+    assert got[0] == want[0] == "device plane (core/profile.py breakdown):"
+    assert [num.findall(ln.split(")", 1)[-1]) for ln in got[1:]] == \
+        [num.findall(ln.split(")", 1)[-1]) for ln in want[1:]]
+    assert "SMs (compute)" in got[2] and "MXU (compute)" in want[2]
 
 
 def test_markdown_table_cells():
@@ -520,7 +551,10 @@ def test_obs_cli_summarize_export_and_cost(tmp_path):
     (["obs", "fleet"], "Queue 1 step 9"),
     (["obs", "journey", "3"], "Queue 1 step 9"),
     (["obs", "explain", "3"], "Queue 1 step 9"),
-    (["obs", "summarize", "--profile-dir", "p"], "Queue 1 step 6"),
+    # the join reads the obs dumps first (this case's id is the one it
+    # had while the join was refused)
+    pytest.param(["obs", "summarize", "--profile-dir", "p"], "no obs dumps",
+                 id="argv3-Queue 1 step 6"),
     (["obs", "export"], "--chrome-trace"),
     (["obs", "watch"], "plane URL"),
 ])

@@ -35,6 +35,16 @@
     python -m tpu_patterns_torch --obs-dir obs --obs-dump serve \
         --device cuda --watchdog_s 30 --obs_http 9100
     python -m tpu_patterns_torch --obs-dir obs obs summarize
+    python -m tpu_patterns_torch --obs-dir obs obs summarize \
+        --profile-dir results/profile
+    python -m tpu_patterns_torch --enable_profiling \
+        --profile_dir results/profile flagship --device cuda
+    python -m tpu_patterns_torch profilecheck results/profile \
+        --snapshot-out op_names.json --rates-jsonl records.jsonl
+    python -m tpu_patterns_torch doctor --device cuda
+    python -m tpu_patterns_torch perf report --device cuda
+    python -m tpu_patterns_torch perf update-baseline --device cpu
+    python -m tpu_patterns_torch perf diff --device cpu
     python -m tpu_patterns_torch --obs-dir obs obs export \
         --chrome-trace trace.json --prom
     python -m tpu_patterns_torch obs watch http://127.0.0.1:9100
@@ -76,10 +86,22 @@ and ``--mechanism``) and ``miniapps``;
 ``obs ACTION`` reads the obs plane's dumps as ``tpu-patterns obs`` does:
 ``summarize`` (the span table), ``export --chrome-trace OUT.json``
 and/or ``--prom``, ``watch URL`` (poll a live ``--obs_http`` plane) and
-``cost [DIR]``; ``fleet``, ``journey`` and ``explain`` read the merged
-fleet timeline and are refused until the fleet is ported (ROADMAP.md
-Queue 1 step 9), as is ``summarize --profile-dir`` until the profile
-reader is (step 6).  The global ``--obs-dir`` sets where dumps land and
+``cost [DIR]``; ``summarize --profile-dir DIR`` joins the spans with a
+Kineto trace's device breakdown (``core/profile.py``); ``fleet``,
+``journey`` and ``explain`` read the merged fleet timeline and are
+refused until the fleet is ported (ROADMAP.md Queue 1 step 9).  The
+global ``--enable_profiling`` runs any subcommand under torch.profiler
+(CPU and CUDA activity), exports the Kineto trace under
+``--profile_dir`` and banks a ``profile_breakdown`` Record of where the
+device time went (none, with a progress line, when the trace holds no
+device event).  ``profilecheck DIR`` snapshots a trace's device op
+names, gates the share of busy time the classifier books as ``other``
+and cross-checks a Record stream's ``tflops_hw``; ``doctor`` runs the
+deadline-bounded health probes (``core/doctor.py``; ``--workers`` is
+refused); ``perf report|diff|update-baseline|prune-stale`` captures the
+executable registry (``perf/registry.py``), banks the snapshot and
+renders or gates it against ``perf/baseline.json``, exiting 1 on a new
+regression.  The global ``--obs-dir`` sets where dumps land and
 ``--obs-dump`` writes ``spans.jsonl``, ``metrics.jsonl`` and (after a
 serve or loadgen run) ``cost.jsonl`` there when the run ends; an
 uncaught exception or SIGTERM dumps the flight recorder to
@@ -198,6 +220,17 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--jsonl", default=None,
                         help="append JSONL records here")
     parser.add_argument(
+        "--enable_profiling", action="store_true",
+        help="run the subcommand under torch.profiler (CPU and CUDA "
+        "activity) and bank a profile_breakdown Record of where the "
+        "device time went (≙ the reference's --enable_profiling queue "
+        "property)",
+    )
+    parser.add_argument(
+        "--profile_dir", default="results/profile",
+        help="Kineto trace output directory for --enable_profiling",
+    )
+    parser.add_argument(
         "--obs-dir", default=None,
         help="directory for obs dumps (watchdog/crash/spans/metrics); "
         "default $TPU_PATTERNS_OBS_DIR, else results/obs",
@@ -298,7 +331,74 @@ def build_parser() -> argparse.ArgumentParser:
         "Chrome traces (Perfetto-openable) and Prometheus metrics, poll "
         "a live plane, roll up the cost book",
     ))
+    _add_perf_flags(sub.add_parser(
+        "perf",
+        help="performance observatory: capture analytic + measured cost "
+        "per ported entry point, bank one snapshot per run, and ratchet "
+        "the trajectory against the committed perf/baseline.json",
+    ))
+    dr = sub.add_parser(
+        "doctor",
+        help="deadline-bounded runtime health probes (backend init / tiny "
+        "op / real compute / native modules) — names the broken layer "
+        "instead of hanging",
+    )
+    from tpu_patterns_torch.core.doctor import DoctorConfig
+
+    _add_config_flags(dr, DoctorConfig, ())
+    pc = sub.add_parser(
+        "profilecheck",
+        help="validate a captured trace: real-op-name fixture snapshot, "
+        "unclassified-time gate, and tflops_hw-vs-compute-time crosscheck",
+    )
+    pc.add_argument("profile_dir", help="Kineto trace directory")
+    pc.add_argument(
+        "--snapshot-out", default=None,
+        help="write the {op name -> count/duration/category} fixture here",
+    )
+    pc.add_argument(
+        "--rates-jsonl", default=None,
+        help="Record stream holding a tflops_hw rate to cross-check "
+        "against the breakdown's compute time",
+    )
     return parser
+
+
+def _add_perf_flags(pf: argparse.ArgumentParser) -> None:
+    """The reference's ``perf`` flags (``tpu_patterns/cli.py``); its
+    mesh flags take 1 only, as the port's entry points run on one
+    device."""
+    from tpu_patterns_torch.perf.registry import PerfConfig
+
+    pf.add_argument(
+        "perf_cmd",
+        choices=("report", "diff", "update-baseline", "prune-stale"),
+        help="report: capture + render roofline/trajectory; diff: "
+        "capture + gate vs the baseline (exit 1 on NEW regressions, "
+        "named per-executable); update-baseline: capture + re-pin "
+        "(per-entry justifications survive); prune-stale: NO capture — "
+        "drop entries whose executable left the registry",
+    )
+    _add_config_flags(pf, PerfConfig, ())
+    pf.add_argument(
+        "--baseline", default=None,
+        help="baseline path (default: the committed "
+        "tpu_patterns_torch/perf/baseline.json)",
+    )
+    pf.add_argument("--perf-dir", default=None,
+                    help="history store directory (default "
+                    "results/perf_torch)")
+    pf.add_argument("--no-history", action="store_true",
+                    help="do not append this capture to the history store")
+    pf.add_argument(
+        "--measured_tol", type=float, default=0.0,
+        help="override the measured-class tolerance band for this diff "
+        "(relative; 0 keeps the class default, perf/baseline.py CLASSES; "
+        "negative makes measured entries informational for this diff)",
+    )
+    for flag in ("--devices", "--dp", "--tp"):
+        pf.add_argument(flag, type=int, choices=(1,), default=1,
+                        help="one device (the mesh flags take 1 only)")
 
 
 # ``obs`` actions that read the merged fleet timeline (obs/fleet.py)
@@ -345,9 +445,9 @@ def _add_obs_flags(ob: argparse.ArgumentParser) -> None:
                     help="print the dumped metrics in Prometheus text "
                     "format")
     ob.add_argument(
-        "--profile-dir", default=None,
-        help="join host spans with a device trace's breakdown (not "
-        "ported: ROADMAP.md Queue 1 step 6)",
+        "--profile-dir", dest="obs_profile_dir", default=None,
+        help="Kineto trace dir: join host spans with the device busy-time "
+        "breakdown (host vs SMs vs NCCL vs copies)",
     )
 
 
@@ -401,12 +501,6 @@ def _obs(args, writer: ResultWriter) -> None:
                     ) + "\n")
         writer.progress(f"merged cost rollup -> {out}")
         return
-    if args.profile_dir:
-        raise SystemExit(
-            "obs summarize --profile-dir: the host/device join reads a "
-            "trace through core/profile.py, which is not ported yet "
-            "(ROADMAP.md Queue 1 step 6)"
-        )
     if args.input:
         span_files = [args.input]
     else:
@@ -429,7 +523,11 @@ def _obs(args, writer: ResultWriter) -> None:
             )
         writer.progress(f"{len(entries)} entries from {len(span_files)} "
                         f"dump(s) under {obs_dir}")
-        print(obs_export.summarize(entries))
+        if args.obs_profile_dir:
+            print(obs_export.host_device_join(entries,
+                                              args.obs_profile_dir))
+        else:
+            print(obs_export.summarize(entries))
         return
     # action == "export"
     if not args.chrome_trace and not args.prom:
@@ -845,22 +943,255 @@ def _loadgen(args, writer: ResultWriter) -> None:
     run_loadgen(cfg, writer)
 
 
-def main(argv: list[str] | None = None) -> int:
+def _perf(args, writer: ResultWriter) -> None:
+    """The performance observatory, as ``tpu-patterns perf`` runs it:
+    capture the executable registry, bank the snapshot, then report /
+    diff against the baseline / re-pin.  The diff's verdict Records are
+    per executable, so a regression is named where it lives."""
+    from tpu_patterns_torch.core import ratchet
+    from tpu_patterns_torch.core.results import Record, Verdict
+    from tpu_patterns_torch.perf import baseline as perf_baseline
+    from tpu_patterns_torch.perf import history as perf_history
+    from tpu_patterns_torch.perf import registry as perf_registry
+    from tpu_patterns_torch.perf import report as perf_report
+
+    bl_path = args.baseline or perf_baseline.default_baseline_path()
+    if args.perf_cmd == "prune-stale":
+        # no capture: staleness is registry truth (an entry whose
+        # executable left the registry); surviving entries keep their
+        # values and justifications byte for byte
+        old = perf_baseline.load_baseline(bl_path)
+        keep = {
+            fp for fp, e in old.items()
+            if e.get("executable") in perf_registry.EXECUTABLES
+        }
+        kept, dropped = ratchet.prune_stale(
+            bl_path, keep, version=perf_baseline.BASELINE_VERSION,
+        )
+        for e in dropped:
+            writer.progress(
+                f"pruned stale entry: {e.get('executable')}."
+                f"{e.get('metric')} {e.get('fingerprint')}"
+            )
+        writer.record(Record(
+            pattern="perf", mode="prune-stale", commands=bl_path,
+            metrics={"entries": float(kept), "dropped": float(len(dropped))},
+        ))
+        return
+    cfg = _config(perf_registry.PerfConfig, args)
+    if args.perf_cmd == "update-baseline" and cfg.include:
+        raise SystemExit(
+            "error: --update-baseline needs the FULL registry (no "
+            "--include filter): a partial re-pin would drop the other "
+            "executables' entries"
+        )
+    _checked("perf", lambda: perf_registry._selected(cfg))
+    snap = perf_registry.capture(cfg, writer)
+    for name, why in snap["skipped"].items():
+        writer.progress(f"not captured: {name} ({why})")
+    if not args.no_history:
+        path = perf_history.append_snapshot(snap, args.perf_dir)
+        writer.progress(f"snapshot appended -> {path}")
+
+    if args.perf_cmd == "report":
+        timeline = perf_history.build_timeline(args.perf_dir)
+        print(perf_report.render(snap, timeline))
+        writer.record(Record(
+            pattern="perf", mode="report",
+            commands=f"{len(snap['executables'])} executables",
+            metrics={
+                "executables": float(len(snap["executables"])),
+                "history_snapshots": float(len(timeline["snapshots"])),
+                "bench_rounds": float(len(timeline["bench_rounds"])),
+                "records_ingested": float(len(timeline["records"])),
+            },
+        ))
+        return
+
+    old = perf_baseline.load_baseline(bl_path)
+    if args.perf_cmd == "update-baseline":
+        n = perf_baseline.save_baseline(bl_path, snap, old)
+        writer.record(Record(pattern="perf", mode="update-baseline",
+                             commands=bl_path,
+                             metrics={"entries": float(n)}))
+        return
+
+    tolerances = None
+    if args.measured_tol < 0:
+        tolerances = {"measured": None}  # informational this run
+        writer.progress("measured entries informational for this diff "
+                        "(--measured_tol < 0)")
+    elif args.measured_tol:
+        tolerances = {"measured": args.measured_tol}
+    diff = perf_baseline.diff_snapshot(snap, old, tolerances=tolerances)
+    by_exec: dict[str, list] = {}
+    for f in diff.regressions:
+        by_exec.setdefault(f.executable, []).append(f)
+    for name in sorted(snap["executables"]):
+        regs = by_exec.get(name, [])
+        writer.record(Record(
+            pattern="perf", mode=name, commands="perf diff",
+            metrics={
+                "regressions": float(len(regs)),
+                "step_ms": snap["executables"][name].get("step_ms", -1.0),
+            },
+            verdict=Verdict.FAILURE if regs else Verdict.SUCCESS,
+            notes=[f.message() for f in regs],
+        ))
+    for f in diff.improvements:
+        writer.progress(f"improvement: {f.message()}")
+    for s in diff.unbaselined:
+        writer.progress(f"unbaselined (run perf update-baseline): {s}")
+    for s in diff.skipped:
+        writer.progress(f"skipped (foreign mesh fingerprint): {s}")
+    for e in diff.stale:
+        writer.progress(
+            f"stale baseline entry: {e['executable']}.{e['metric']} "
+            f"{e['fingerprint']} — update-baseline to drop it"
+        )
+    writer.record(Record(
+        pattern="perf", mode="diff", commands=bl_path,
+        metrics={
+            "checked": float(diff.checked),
+            "regressions": float(len(diff.regressions)),
+            "improvements": float(len(diff.improvements)),
+            "unbaselined": float(len(diff.unbaselined)),
+            "skipped": float(len(diff.skipped)),
+            "stale": float(len(diff.stale)),
+        },
+        verdict=Verdict.FAILURE if diff.regressions else Verdict.SUCCESS,
+        notes=[f.message() for f in diff.regressions[:10]],
+    ))
+
+
+def _doctor(args, parser, writer: ResultWriter) -> None:
+    """The health probes; ``--workers`` (not ported) is refused."""
+    from tpu_patterns_torch.core.doctor import DoctorConfig, run_doctor
+
+    try:
+        run_doctor(_config(DoctorConfig, args), writer)
+    except ValueError as e:  # refused before any probe runs
+        parser.error(str(e))
+
+
+def _rate_records(path: str) -> list:
+    """The JSON Records of a stream that carry a ``tflops_hw`` rate
+    (marker lines carry no metrics)."""
+    import json
+
+    from tpu_patterns_torch.core.results import Record
+
+    out = []
+    with open(path) as f:
+        for line in f:
+            if not line.startswith("{"):
+                continue
+            try:
+                rec = Record.from_json(line)
+            except (json.JSONDecodeError, TypeError, ValueError):
+                continue
+            if "tflops_hw" in rec.metrics:
+                out.append(rec)
+    return out
+
+
+def _profilecheck(args, writer: ResultWriter) -> None:
+    """Validate a captured trace, as ``tpu-patterns profilecheck`` does:
+    snapshot its device op names (the classifier fixture), gate on the
+    share of busy time booked as ``other``, and — when
+    ``--rates-jsonl`` names a Record stream with a ``tflops_hw`` rate —
+    cross-check that rate against the breakdown's compute time."""
+    import json
+
+    from tpu_patterns_torch.core import profile as profile_mod
+    from tpu_patterns_torch.core.results import Record, Verdict
+    from tpu_patterns_torch.runtime import chip_peak_tflops
+
+    names = profile_mod.op_name_snapshot(args.profile_dir)
+    if names is None:
+        writer.record(Record(
+            pattern="profilecheck", mode="profile_ops",
+            commands=args.profile_dir, verdict=Verdict.SKIPPED,
+            notes=["no device plane under the trace dir"],
+        ))
+        return
+    if args.snapshot_out:
+        with open(args.snapshot_out, "w") as f:
+            json.dump(names, f, indent=1, sort_keys=True)
+        writer.progress(f"op-name fixture written to {args.snapshot_out}")
+    total_ps = sum(d["duration_ps"] for d in names.values()) or 1
+    other_ps = sum(d["duration_ps"] for d in names.values()
+                   if d["category"] == "other")
+    frac_other = other_ps / total_ps
+    rec = Record(
+        pattern="profilecheck", mode="profile_ops",
+        commands=args.profile_dir,
+        metrics={"unique_names": float(len(names)),
+                 "frac_other_time": round(frac_other, 4)},
+        # an unclassified hot op silently skews every breakdown fraction
+        verdict=Verdict.SUCCESS if frac_other <= 0.2 else Verdict.WARNING,
+    )
+    if frac_other > 0.2:
+        worst = sorted(
+            (n for n, d in names.items() if d["category"] == "other"),
+            key=lambda n: -names[n]["duration_ps"],
+        )[:5]
+        rec.notes.append(
+            f"{frac_other:.0%} of busy time unclassified; top: {worst}"
+        )
+    writer.record(rec)
+    if not args.rates_jsonl:
+        return
+    bd = profile_mod.breakdown(args.profile_dir)
+    rate_recs = _rate_records(args.rates_jsonl)
+    if bd is None or not rate_recs:
+        writer.record(Record(
+            pattern="profilecheck", mode="profile_crosscheck",
+            commands=args.rates_jsonl, verdict=Verdict.SKIPPED,
+            notes=["no breakdown or no tflops_hw record to check"],
+        ))
+        return
+    r = rate_recs[-1]  # newest rate in the stream
+    # dtype-aware ceiling on the card that banked the rate (None off it)
+    peak = None
+    if r.config.get("device", "cuda") != "cpu":
+        import torch
+
+        if torch.cuda.is_available():
+            peak = chip_peak_tflops(r.config.get("dtype"))
+    cc = profile_mod.crosscheck_rate(
+        r.metrics["tflops_hw"], bd, peak,
+        n_chips=int(bd.get("n_device_planes", 1)),
+    )
+    coherent = cc.get("coherent")
+    rec = Record(
+        pattern="profilecheck", mode="profile_crosscheck",
+        commands=f"{r.mode} | {r.commands}",
+        metrics={k: round(v, 4) for k, v in cc.items()},
+        verdict=Verdict.SUCCESS if coherent != 0.0 else Verdict.FAILURE,
+    )
+    if coherent == 0.0:
+        if "implied_mxu_tflops" in cc:
+            rec.notes.append(
+                f"implied on-compute rate {cc['implied_mxu_tflops']:.1f} "
+                f"TFLOP/s exceeds {cc['peak_bound_tflops']:.1f} — FLOP "
+                "count or classifier accounting is wrong"
+            )
+        else:
+            rec.notes.append(
+                "positive tflops_hw with ZERO classified compute time — "
+                "the classifier books every hot op outside 'compute'"
+            )
+    writer.record(rec)
+
+
+def _dispatch(args, parser, writer: ResultWriter) -> None:
     from tpu_patterns_torch.models.flagship import (
         FlagshipConfig,
         run_flagship,
         unported,
     )
 
-    from tpu_patterns_torch import obs
-
-    parser = build_parser()
-    args = parser.parse_args(argv)
-    if args.obs_dir:
-        obs.configure(args.obs_dir)
-    if args.cmd != "obs":  # the reader must not dump over what it reads
-        obs.install_crash_handlers()
-    writer = ResultWriter(jsonl_path=args.jsonl)
     if args.cmd == "obs":
         _obs(args, writer)
     elif args.cmd == "serve":
@@ -887,12 +1218,78 @@ def main(argv: list[str] | None = None) -> int:
         _ckpt(args)
     elif args.cmd in ("decode", "lm"):
         _model_pattern(args, parser, writer)
+    elif args.cmd == "perf":
+        _perf(args, writer)
+    elif args.cmd == "doctor":
+        _doctor(args, parser, writer)
+    elif args.cmd == "profilecheck":
+        _profilecheck(args, writer)
     else:
         cfg = _config(FlagshipConfig, args)
         why = unported(cfg)
         if why:
             parser.error(f"flagship: {why}")
         run_flagship(cfg, writer)
+
+
+def _profiled(args, parser, writer: ResultWriter) -> None:
+    """Run the subcommand under torch.profiler, export the Kineto trace
+    under ``--profile_dir``, and bank its ``profile_breakdown`` Record.
+    An unparsable trace, or one with no device event, gives a progress
+    line and no Record; the pattern's own verdict stands either way."""
+    import os
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu_patterns_torch.core import profile as profile_mod
+    from tpu_patterns_torch.core.results import Record, Verdict
+
+    os.makedirs(args.profile_dir, exist_ok=True)
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        _dispatch(args, parser, writer)
+    path = os.path.join(args.profile_dir,
+                        f"{args.cmd}_{os.getpid()}.pt.trace.json")
+    prof.export_chrome_trace(path)
+    writer.progress(f"profile trace written to {path}")
+    try:
+        bd = profile_mod.breakdown_of(profile_mod.parse_trace(path))
+    except (OSError, ValueError, KeyError, TypeError) as e:
+        # a truncated/corrupt trace: the run itself succeeded
+        writer.progress(f"trace unparsable ({type(e).__name__}: {e})")
+        bd = None
+    if bd is None:
+        writer.progress("no device plane in the trace (host-only run?) — "
+                        "no breakdown Record")
+        return
+    writer.record(Record(
+        pattern=args.cmd, mode="profile_breakdown", commands=path,
+        metrics={k: round(v, 4) for k, v in bd.items()},
+        verdict=Verdict.SUCCESS,
+    ))
+
+
+def main(argv: list[str] | None = None) -> int:
+    from tpu_patterns_torch import obs
+    from tpu_patterns_torch.perf import provenance
+
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    # one CLI invocation = one run: every Record this run banks carries
+    # a fresh run_id
+    provenance.new_run()
+    if args.obs_dir:
+        obs.configure(args.obs_dir)
+    if args.cmd != "obs":  # the reader must not dump over what it reads
+        obs.install_crash_handlers()
+    writer = ResultWriter(jsonl_path=args.jsonl)
+    if args.enable_profiling:
+        _profiled(args, parser, writer)
+    else:
+        _dispatch(args, parser, writer)
     if args.obs_dump and args.cmd != "obs":
         from tpu_patterns_torch.obs import cost as _cost
 

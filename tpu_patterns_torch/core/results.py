@@ -14,7 +14,6 @@ import enum
 import json
 import os
 import sys
-import uuid
 from typing import Any, TextIO
 
 from tpu_patterns_torch.core.timing import wall_time_s
@@ -65,8 +64,7 @@ _CONTEXT_ENV_VARS = (
     "TPU_PATTERNS_SWEEP_TIER",
 )
 
-# one id per process: Records of one run join on it
-_RUN_ID = uuid.uuid4().hex[:12]
+PACKAGE = "tpu_patterns_torch"
 
 
 def context_env() -> dict[str, str]:
@@ -104,7 +102,13 @@ class ResultWriter:
         if not rec.env:
             rec.env = context_env()
         if not rec.run:
-            rec.run = {"run_id": _RUN_ID, "package": "tpu_patterns_torch"}
+            # the JAX package's provenance keys (run_id, git_sha,
+            # mesh_fp), and ``package`` beside them, which names the
+            # package that banked the Record (perf/history.py joins on
+            # it); lazy: stamping must not pull perf/ in at import
+            from tpu_patterns_torch.perf.provenance import stamp_dict
+
+            rec.run = {**stamp_dict(), "package": PACKAGE}
         if rec.verdict is Verdict.FAILURE:
             self._failures += 1
         if not rec.commands:

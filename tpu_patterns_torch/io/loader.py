@@ -49,6 +49,20 @@ def _configure(lib: ctypes.CDLL) -> None:
 LOADER = LazyLib(SOURCE, _configure, flags=CXX_FLAGS + ("-pthread",))
 
 
+def native_available() -> bool:
+    """Whether the loader builds and loads here (the doctor's
+    ``native_loader`` layer)."""
+    try:
+        LOADER.load()
+    except RuntimeError:
+        return False
+    return True
+
+
+def build_error() -> str | None:
+    return LOADER.error
+
+
 def _mix64(z: np.ndarray) -> np.ndarray:
     """splitmix64's finalizer over uint64 (wrapping) arithmetic."""
     z = z + np.uint64(0x9E3779B97F4A7C15)

@@ -3,9 +3,10 @@
 The port's copy of ``tpu_patterns/obs/export.py``.  Two differences: the
 journey index the Chrome trace's flow arrows read (``journeys``) lives
 here, since ``obs/fleet.py`` is not ported (ROADMAP.md Queue 1 step 9),
-and ``host_device_join`` raises until ``core/profile.py``, the
-torch.profiler trace reader, is ported (Queue 1 step 6).  The summary
-table is the port's own fixed-width rendering (``obs/table.py``).
+and ``host_device_join`` reads a Kineto trace through
+``core/profile.py`` and names the card's engines (SMs, NCCL, copy
+engines).  The summary table is the port's own fixed-width rendering
+(``obs/table.py``).
 
 The flight recorder's entries are plain dicts; this module turns a dump
 (or the live ring) into
@@ -16,8 +17,8 @@ The flight recorder's entries are plain dicts; this module turns a dump
 * a per-span-name summary table (count / total / mean / max), the
   ``tpu-patterns obs summarize`` product;
 * a host+device join against ``core/profile.py``'s device-plane busy
-  categories, so ONE report answers "where did the step go: host, MXU
-  (compute), ICI (collective), or HBM (dma)".
+  categories, so ONE report answers "where did the step go: host, SMs
+  (compute), NCCL (collective), or copies (dma)".
 """
 
 from __future__ import annotations
@@ -244,14 +245,44 @@ def summarize(entries: list[dict]) -> str:
 
 
 def host_device_join(entries: list[dict], profile_dir: str) -> str:
-    """Join host spans with the device-plane breakdown of a captured
-    trace.  Needs ``core/profile.py``, the torch.profiler trace reader,
-    which is not ported yet."""
-    raise NotImplementedError(
-        "obs summarize --profile-dir joins host spans with a device "
-        "trace through core/profile.py, which is not ported yet "
-        "(ROADMAP.md Queue 1 step 6)"
+    """Join host spans with the device breakdown of a captured trace
+    (``core/profile.py``): one report answering "where did the step
+    go"."""
+    from tpu_patterns_torch.core import profile as profile_mod
+
+    lines = [summarize(entries), ""]
+    bd = profile_mod.breakdown(profile_dir)
+    if bd is None:
+        lines.append(
+            f"(no device plane under {profile_dir} — host spans only)"
+        )
+        return "\n".join(lines)
+    host_ms = sum(
+        e.get("dur_ns", 0) / 1e6
+        for e in entries
+        if e.get("kind") == "span" and e.get("depth", 0) == 0
     )
+    lines.append("device plane (core/profile.py breakdown):")
+    lines.append(
+        f"  host (top-level spans): {host_ms:.3f} ms wall"
+    )
+    for cat, engine in (
+        ("compute", "SMs"), ("collective", "NCCL/NVLink"),
+        ("dma", "copy/memset"), ("infeed_outfeed", "host xfer"),
+        ("other", "?"),
+    ):
+        ms = bd.get(f"{cat}_ms", 0.0)
+        frac = bd.get(f"{cat}_frac")
+        lines.append(
+            f"  {engine + ' (' + cat + ')':24s} {ms:10.3f} ms"
+            + (f"  ({frac:.1%} of busy)" if frac is not None else "")
+        )
+    lines.append(
+        f"  device busy {bd.get('busy_ms', 0.0):.3f} ms / wall "
+        f"{bd.get('wall_ms', 0.0):.3f} ms / idle "
+        f"{bd.get('idle_ms', 0.0):.3f} ms"
+    )
+    return "\n".join(lines)
 
 
 def journeys(entries: list[dict]) -> dict[str, list[dict]]:

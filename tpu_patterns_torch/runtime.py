@@ -57,6 +57,28 @@ def chip_hbm_gbps(device: torch.device | str) -> float | None:
     return None if spec is None else spec["hbm_gbps"]
 
 
+def chip_peak_tflops(dtype=None, device: torch.device | str = "cuda"
+                     ) -> float | None:
+    """The datasheet peak (TFLOP/s) of a CUDA ``device`` for ``dtype``
+    (a dtype name or ``torch.dtype``; None reads bfloat16): the dense
+    bf16 tensor-core rate, or float32 outside the tensor cores (the port
+    runs f32 with TF32 off, so f32 GEMMs never reach them).  None on the
+    CPU or an unknown card, as the JAX package's is off-TPU.  It does not
+    halve f32 the way the JAX package's TPU table does: that is the
+    TPU's matrix unit's rule, not Hopper's."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return None
+    spec = match_device_spec(torch.cuda.get_device_name(dev))
+    if spec is None:
+        return None
+    name = str(dtype or "bfloat16").replace("torch.", "")
+    key = {"bfloat16": "bf16_tflops", "float32": "f32_tflops"}.get(name)
+    if key is None:
+        raise ValueError(f"no datasheet peak for dtype {dtype!r}")
+    return spec[key]
+
+
 def resolve_device(device: str | torch.device | None = None) -> torch.device:
     """``cuda`` unless the caller names ``cpu``; raises when CUDA is
     asked for (explicitly or by default) and no CUDA device exists."""
