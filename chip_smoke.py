@@ -21,9 +21,11 @@ the environment tier of the CLI), the load generator over the serve
 path (seeded sampling, SLO Records, chaos under load), the
 long-context ``decode`` pattern and the token LM's ``lm`` (no kernel on
 their path), the serve engine's kv tier, priority preemption and
-snapshots, its recovery path with the obs plane that records it, and the
+snapshots, its recovery path with the obs plane that records it, the
 diagnostics (``doctor``, the profile reader, ``profilecheck``) and the
-perf observatory (``perf``).
+perf observatory (``perf``), and sequence parallelism (ring attention
+and Ulysses over a rank mesh of four ranks on the one card, through the
+flash kernels).
 Phases, each one or more printed lines:
 
 1. device and toolchain: torch/CUDA versions, ``nvcc --version``, and the
@@ -352,12 +354,39 @@ Phases, each one or more printed lines:
     its trace; and (e) one decode step of the dense and the K1 decoder
     on one pool in float32: logits within phase 3's K1 tolerance (2e-5),
     equal ids, K1 launched once a layer;
-19. the card's name and power limit again, the ``kernels`` line (the
+19. sequence parallelism, the ``longctx`` pattern over a rank mesh
+    (alone with ``--tree . longctx``; TF32 off): (a) K3 and K4 (K2 on
+    the diagonal) against their plain versions at the ring's full-width
+    shard (Lq = Lk = 1024, 8 heads x 128, causal), float32 and bfloat16,
+    contiguous (a wholly masked pair, the diagonal, a pair with no key
+    masked) and striped at stride 4; then K2 (the whole 4096-token
+    sequence), K3 and K4 (a shard pair with no key masked and the
+    diagonal) in float32, their scalar kernels, each beside its plain
+    version, one SDPA call in float32 and its f32 bound; (b) ``longctx``
+    through the CLI at ``LongCtxConfig``'s defaults (float32, seq 4096,
+    8 x 128, causal): ``--devices 1`` (ring, ulysses and flash, and the
+    agreement Record) and ``--devices 4`` with each of ring,
+    ring_pallas, ring_striped, ulysses and ulysses_pallas; (c) ``--grad
+    true``: flash at 1 rank, ring_pallas and ulysses_pallas at 4, each
+    ``tflops_hw`` at most 67 TFLOP/s times the one card; (d) bfloat16:
+    ring_pallas, and ulysses_pallas and flash with ``--causal_grid
+    compact``; every Record SUCCESS, K2-K4 launched in every fused run
+    and in no plain one (counts set to 0 just before each); one direct
+    call of each fused strategy, without and with a gradient, its
+    launches exactly as the strategy's structure gives (ring_pallas at
+    sp 4: 16 K3, and 16 of each K4 kernel under grad; ulysses_pallas 4
+    K2, or 4 K3 and 4 of each K4 kernel; flash 1 K2, or one of each);
+    (e) ``--enable_profiling`` over ``longctx --grad true --strategy
+    flash --devices 1``, then ``profilecheck --rates-jsonl`` on its
+    Records: the ``tflops_hw`` cross-check SUCCESS and coherent;
+20. the card's name and power limit again, the ``kernels`` line (the
     flash rows also carry ``train_loop_launches``, phase 8b's counts,
     K1's row ``loadgen_launches``, phase 14's by scenario,
     ``kv_tier_launches``, phase 16's by leg, ``recovery_launches``,
-    phase 17's by leg, K1-K4 ``decode_lm_launches``, phase 15's, and
-    ``diagnostics_launches``, phase 18's by leg),
+    phase 17's by leg, K1-K4 ``decode_lm_launches``, phase 15's,
+    ``diagnostics_launches``, phase 18's by leg, and K2-K4
+    ``longctx_launches``, phase 19's by leg, with ``longctx_f32``, their
+    float32 times at longctx's shape),
     then the device line, which is the last.
 """
 
@@ -4787,6 +4816,304 @@ def phase_diagnostics(torch, pk, F, doctor):
     return launches
 
 
+# -- phase 19: sequence parallelism (the longctx pattern) --------------------
+
+# LongCtxConfig's defaults: float32, seq 4096, 8 heads x 128, causal; the
+# ring's shard at 4 ranks is 1024 tokens
+LC_SEQ, LC_H, LC_D, LC_SP = 4096, 8, 128, 4
+LC_SHARD = LC_SEQ // LC_SP
+# leg a's (q_off, k_off, pos_stride) at the shard shape: contiguous
+# (stride 1) and striped (stride 4) rank pairs.  Contiguous: rank 0
+# against rank 1's keys (wholly masked), the diagonal, rank 1 against
+# rank 0's keys (no key masked).  Striped: rank 0 against rank 1's keys
+# (query i sees keys before i; row 0 none), the diagonal, rank 3 against
+# rank 0's keys (query i sees keys 0..i)
+LC_OFFSETS = {"contiguous": ((0, LC_SHARD, 1), (0, 0, 1), (LC_SHARD, 0, 1)),
+              "striped": ((0, 1, LC_SP), (0, 0, LC_SP), (3, 0, LC_SP))}
+LC_SP4 = ("ring", "ring_pallas", "ring_striped", "ulysses",
+          "ulysses_pallas")
+# leg c: the --grad runs; leg d: bf16, compact grids where taken
+LC_GRAD = (("flash", 1), ("ring_pallas", LC_SP), ("ulysses_pallas", LC_SP))
+LC_BF16 = (("ring_pallas", LC_SP, False), ("ulysses_pallas", LC_SP, True),
+           ("flash", 1, True))
+# leg e's profiled run: the flash grad Record at fewer reps (the
+# profiler's host events grow with each call)
+LC_PROFILED = ["--devices", "1", "--strategy", "flash", "--grad", "true",
+               "--reps", "3", "--warmup", "1"]
+
+
+def lc_shards(torch, F):
+    """Leg a: K3 and K4 (and K2 on the diagonal) against their plain
+    versions at the ring's full-width shard, [1024, 8, 128] a side,
+    causal, float32 and bfloat16, at each pair of :data:`LC_OFFSETS`.
+    Returns the worst relative and absolute error of each kernel."""
+    rel = dict.fromkeys(FLASH_KERNELS, 0.0)
+    err = dict.fromkeys(FLASH_KERNELS, 0.0)
+    cases = 0
+    for dtype in ("float32", "bfloat16"):
+        for layout, offsets in LC_OFFSETS.items():
+            for q_off, k_off, stride in offsets:
+                errs, _ = flash_case(
+                    torch, F, f"ring_{dtype}_{layout}_{q_off}_{k_off}",
+                    lq=LC_SHARD, lk=LC_SHARD, h=LC_H, d=LC_D, dtype=dtype,
+                    causal=True, q_off=q_off, k_off=k_off, stride=stride,
+                    seed=300 + cases)
+                cases += 1
+                for n, (r, a) in errs.items():
+                    rel[n], err[n] = max(rel[n], r), max(err[n], a)
+    emit({"phase": "longctx", "leg": "a_ring_shards", "cases": cases,
+          "shape": f"Lq=Lk={LC_SHARD} H{LC_H} D{LC_D} causal",
+          "offsets": LC_OFFSETS, "tolerance_rel": FLASH_TOL,
+          "max_rel_err": rel, "max_abs_err": err})
+    return err
+
+
+def lc_f32_times(torch, F, timing, spec):
+    """K2, K3 and K4 in float32 (their scalar kernels) at longctx's
+    shape: K2 over the whole sequence, K3 and K4 over a 1024-token shard
+    pair with no key masked and on the diagonal; L2 flushed before each
+    launch.  Beside each: its plain version's ms, one SDPA call's in
+    float32 with TF32 off and its bound (operations over the f32 peak,
+    bytes over the memory rate, the larger)."""
+    flush = torch.empty(64 << 20, dtype=torch.int32, device=DEVICE)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    scale = LC_D ** -0.5
+
+    def t(fn):
+        return timing.cuda_time_ms(fn, reps=10, before=flush.zero_)
+
+    def bound(nbytes, flops):
+        bytes_ms = nbytes / (spec["hbm_gbps"] * 1e9) * 1e3
+        ops_ms = flops / (spec["f32_tflops"] * 1e12) * 1e3
+        return {"bytes": nbytes, "flops": flops,
+                "bound_ms": max(bytes_ms, ops_ms),
+                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+    g = torch.Generator().manual_seed(400)
+
+    def normal(n):
+        return torch.randn((n, LC_H, LC_D), generator=g).to(DEVICE)
+
+    rows = {}
+    # K2: the whole causal sequence
+    q, k, v = normal(LC_SEQ), normal(LC_SEQ), normal(LC_SEQ)
+    tiles = F._blocks(q, k, ("fwd",), 1024, 1024)
+    views = [a.transpose(0, 1)[None] for a in (q, k, v)]
+    io_ = q.numel() * 4
+    pairs = LC_H * LC_SEQ * (LC_SEQ + 1) // 2
+    rows["flash_attention"] = {
+        "shape": f"L{LC_SEQ} H{LC_H} D{LC_D} f32 causal", "tiles": tiles,
+        "ms": t(lambda: F._launch_fwd(q, k, v, 0, 0, True, scale, *tiles,
+                                      1, emit_stats=False)),
+        "plain_ms": t(lambda: F.flash_attention_reference(q, k, v, True)),
+        "library_ms": t(lambda: sdpa(*views, is_causal=True)),
+        **bound(4 * io_, 2 * 2 * LC_D * pairs)}
+    # K3 and K4 on one shard pair: no key masked, then the diagonal
+    q, k, v, do = (normal(LC_SHARD) for _ in range(4))
+    views = [a.transpose(0, 1)[None] for a in (q, k, v)]
+    doh = do.transpose(0, 1)[None]
+    io_ = q.numel() * 4
+    stats = LC_H * LC_SHARD * 4
+    fwd_t = F._blocks(q, k, ("fwd",), 1024, 1024)
+    bwd_t = F._bwd_tiles(q, k, 512, 512)
+    for name, (q_off, k_off, causal) in (
+            ("full", (LC_SHARD, 0, True)), ("diagonal", (0, 0, True))):
+        pairs = LC_H * (LC_SHARD * LC_SHARD if q_off
+                        else LC_SHARD * (LC_SHARD + 1) // 2)
+        ro, rm, rl = F.flash_block_reference(q, k, v, q_off, k_off, causal)
+        out, lse = F._row_stats(ro, rm, rl)
+        delta = F._delta(do, out)
+        diag = q_off == 0
+        qh, kh, vh = (a.detach().requires_grad_(True) for a in views)
+        lib_out = sdpa(qh, kh, vh, is_causal=diag)
+        lib_fwd = t(lambda: sdpa(*views, is_causal=diag))
+        lib_bwd = t(lambda: torch.autograd.grad(
+            lib_out, (qh, kh, vh), doh, retain_graph=True))
+        plain_bwd = t(lambda: F.flash_block_bwd_reference(
+            q, k, v, do, lse, delta, q_off, k_off, causal))
+        rows[f"flash_block {name}"] = {
+            "shape": f"Lq=Lk={LC_SHARD} H{LC_H} D{LC_D} f32, q_off "
+            f"{q_off} k_off {k_off} causal", "tiles": fwd_t,
+            "ms": t(lambda: F._launch_fwd(q, k, v, q_off, k_off, causal,
+                                          scale, *fwd_t, 1,
+                                          emit_stats=True)),
+            "plain_ms": t(lambda: F.flash_block_reference(
+                q, k, v, q_off, k_off, causal)),
+            "library_ms": lib_fwd,
+            **bound(5 * io_ + 2 * stats, 2 * 2 * LC_D * pairs)}
+        for kname, n_prod, n_out in (("dq", 3, 1), ("dkv", 4, 2)):
+            rows[f"flash_block_bwd_{kname} {name}"] = {
+                "shape": rows[f"flash_block {name}"]["shape"],
+                "tiles": bwd_t[kname],
+                "ms": t(lambda kname=kname: F._launch_bwd(
+                    q, k, v, do, lse, delta, q_off, k_off, causal, scale,
+                    bwd_t, 1, kernels=(kname,))),
+                "plain_ms": plain_bwd, "library_ms": lib_bwd,
+                **bound((4 + n_out) * io_ + 2 * stats,
+                        n_prod * 2 * LC_D * pairs)}
+    emit({"phase": "longctx", "leg": "f32_time", "card": _smi(),
+          "note": "float32 (the scalar kernels), L2 flushed; library_ms is "
+          "SDPA in float32 with TF32 off (K4's: its backward, dq, dk and "
+          "dv together, as plain_ms)", **rows})
+    return rows
+
+
+def lc_launches(torch, F, mesh_mod, pattern):
+    """One direct call of each fused strategy at longctx's default shape
+    (float32), without and with a gradient, K2-K4's counts set to 0 just
+    before and read just after; held to the counts the strategies'
+    structure gives (the ring: sp^2 K3, and sp^2 of each K4 kernel)."""
+    sp = LC_SP
+    want = {
+        ("ring_pallas", False): (0, sp * sp, 0, 0),
+        ("ring_pallas", True): (0, sp * sp, sp * sp, sp * sp),
+        ("ulysses_pallas", False): (sp, 0, 0, 0),
+        ("ulysses_pallas", True): (0, sp, sp, sp),
+        ("flash", False): (1, 0, 0, 0),
+        ("flash", True): (0, 1, 1, 1),
+    }
+    g = torch.Generator().manual_seed(500)
+    qkv = [torch.randn((LC_SEQ, LC_H, LC_D), generator=g) for _ in range(3)]
+    got, bad = {}, []
+    for (name, grad), counts in want.items():
+        mesh = mesh_mod.default_mesh(1 if name == "flash" else sp, DEVICE)
+        shards = [s.requires_grad_(grad) for a in qkv
+                  for s in mesh.scatter(a)]
+        n = mesh.size
+        torch.cuda.synchronize()
+        F.reset_launches()
+        outs = pattern.STRATEGIES[name](shards[:n], shards[n:2 * n],
+                                        shards[2 * n:], causal=True)
+        if grad:
+            torch.autograd.grad(outs, shards, [torch.ones_like(o)
+                                               for o in outs])
+        torch.cuda.synchronize()
+        got[f"{name}{'_grad' if grad else ''}"] = dict(F.LAUNCHES)
+        if tuple(F.LAUNCHES.values()) != counts:
+            bad.append(f"{name} grad={grad}: {F.LAUNCHES} != {counts}")
+    emit({"phase": "longctx", "leg": "launch_counts", "sp": sp,
+          "launches": got, "ok": not bad})
+    return got, bad
+
+
+def lc_cli(F, argv):
+    """``longctx`` through the CLI in this process, K2-K4's counts set to
+    0 just before: its exit code, Records and the launches."""
+    F.reset_launches()
+    rc, _, recs = _cli_in_process(["longctx", "--device", DEVICE, *argv])
+    return rc, recs, dict(F.LAUNCHES)
+
+
+def _lc_row(leg, argv, rc, recs, launches):
+    return {"phase": "longctx", "leg": leg, "argv": argv, "rc": rc,
+            "launches": launches,
+            "records": [(r["mode"], r["commands"], r["verdict"],
+                         {k: r["metrics"][k] for k in (
+                             "tflops", "tflops_hw", "min_time_us",
+                             "max_abs_err", "gate_violation",
+                             "cross_max_err") if k in r["metrics"]})
+                        for r in recs],
+            "notes": sorted({n for r in recs for n in r["notes"]})}
+
+
+def phase_longctx(torch, pk, F, timing, spec):
+    """Phase 19 (module docstring).  Returns K2-K4's launches by leg
+    (legs b-e) and the float32 times of leg a's kernels."""
+    from tpu_patterns_torch.comm import mesh as mesh_mod
+    from tpu_patterns_torch.longctx import pattern
+
+    t_phase = time.perf_counter()
+    work = os.path.join(ROOT, "build", "longctx_smoke")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    bad, launches, ends, direct = [], {}, {}, {}
+    # the --grad Records' silicon rate: at most the f32 peak times the
+    # cards, and every rank of these runs is on the one card
+    f32_cap = spec["f32_tflops"]
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        shard_err = lc_shards(torch, F)
+        f32_rows = lc_f32_times(torch, F, timing, spec)
+        ends["a"] = time.perf_counter() - t_phase
+
+        legs = [("b_both_1", ["--devices", "1"])] + [
+            (f"b_{s}_{LC_SP}", ["--devices", str(LC_SP), "--strategy", s])
+            for s in LC_SP4]
+        legs += [(f"c_{s}_grad_{n}", ["--devices", str(n), "--strategy", s,
+                                      "--grad", "true"])
+                 for s, n in LC_GRAD]
+        legs += [(f"d_{s}_bf16_{n}", ["--devices", str(n), "--strategy", s,
+                                      "--dtype", "bfloat16"]
+                  + (["--causal_grid", "compact"] if compact else []))
+                 for s, n, compact in LC_BF16]
+        for leg, argv in legs:
+            rc, recs, got = lc_cli(F, argv)
+            launches[leg] = got
+            row = _lc_row(leg, argv, rc, recs, got)
+            ok = rc == 0 and recs and all(r["verdict"] == "SUCCESS"
+                                          for r in recs)
+            if leg == "b_both_1":
+                ok &= [r["mode"] for r in recs] == [
+                    "ring", "ulysses", "flash", "agreement"]
+            else:
+                ok &= len(recs) == 1
+            if "_grad_" in leg:
+                hw = [r["metrics"]["tflops_hw"] for r in recs]
+                ok &= all(x <= f32_cap for x in hw)
+                row["tflops_hw_cap"] = f32_cap
+            # the fused strategies go through K2-K4, the plain ones never
+            fused = "pallas" in leg or "flash" in leg or leg == "b_both_1"
+            ok &= (sum(got.values()) > 0) == fused
+            row["ok"] = bool(ok)
+            emit(row)
+            if not ok:
+                bad.append(f"{leg}: rc {rc}, {row['records']}, "
+                           f"{row['notes']}")
+        ends["b_c_d"] = time.perf_counter() - t_phase
+
+        direct, problems = lc_launches(torch, F, mesh_mod, pattern)
+        bad += problems
+        ends["launch_counts"] = time.perf_counter() - t_phase
+
+        prof = os.path.join(work, "prof")
+        rc, m, recs, got, problems = _profiled_run(
+            torch, pk, F, ["longctx", "--device", DEVICE, *LC_PROFILED],
+            prof)
+        bad += problems
+        launches["e_profiled_flash_grad"] = {
+            k: got[k] for k in FLASH_KERNELS}
+        rates = os.path.join(work, "longctx.jsonl")
+        with open(rates, "w") as f:
+            f.writelines(json.dumps(r) + "\n" for r in recs)
+        rc_pc, _, pc = _cli_in_process(["profilecheck", prof,
+                                        "--rates-jsonl", rates])
+        cross = _by_mode(pc, "profile_crosscheck")
+        ok = (rc == 0 and rc_pc == 0 and len(cross) == 1
+              and cross[0]["verdict"] == "SUCCESS"
+              and cross[0]["metrics"].get("coherent") == 1.0
+              and all(r["verdict"] == "SUCCESS" for r in recs))
+        emit({"phase": "longctx", "leg": "e_crosscheck", "rc": rc,
+              "rc_profilecheck": rc_pc, "breakdown": m,
+              "launches": launches["e_profiled_flash_grad"],
+              "rate_records": [(r["mode"], r["verdict"],
+                                r["metrics"].get("tflops_hw"))
+                               for r in recs if "tflops_hw" in r["metrics"]],
+              "crosscheck": [(r["verdict"], r["metrics"], r["notes"])
+                             for r in cross], "ok": ok})
+        if not ok:
+            bad.append(f"crosscheck: {cross}")
+        ends["e"] = time.perf_counter() - t_phase
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    emit({"phase": "longctx_phase", "seconds": time.perf_counter() - t_phase,
+          "leg_end_s": ends, "longctx_launches": launches,
+          "direct_launches": direct, "card": _smi()})
+    if bad:
+        raise AssertionError("longctx: " + " | ".join(bad))
+    return launches, f32_rows, shard_err
+
+
 def profile_concurrency_main() -> int:
     """``python3 chip_smoke.py --profile-concurrency``, which the smoke
     runs in a process of its own: the xla concurrent "C C" run, the
@@ -4861,12 +5188,11 @@ def profile_concurrency_main() -> int:
 # the timing phases ``--tree`` runs with another checkout's package
 TREE_PHASES = ("put_time", "ring_put_time", "accumulate_time",
                "allreduce", "add_one_time")
-# phases ``--tree`` runs only when named: phases 14, 15, 16 and 17 on
-# their own, phase 16's leg e again and again (``kv_race``: its spread),
-# and phase 5's bf16 serve leg (a tree's serve tokens/s against
-# another's)
+# phases ``--tree`` runs only when named: phases 14-19 on their own,
+# phase 16's leg e again and again (``kv_race``: its spread), and phase
+# 5's bf16 serve leg (a tree's serve tokens/s against another's)
 TREE_ONLY_NAMED = ("loadgen", "decode_lm", "kv_tier", "kv_race",
-                   "recovery", "diagnostics", "serve")
+                   "recovery", "diagnostics", "serve", "longctx")
 
 
 def tree_main(tree: str, phases: list[str]) -> int:
@@ -4933,6 +5259,7 @@ def tree_main(tree: str, phases: list[str]) -> int:
            "kv_race": lambda: phase_kv_race(torch, pk),
            "recovery": lambda: phase_recovery(torch, pk),
            "diagnostics": lambda: phase_diagnostics(torch, pk, F, doctor),
+           "longctx": lambda: phase_longctx(torch, pk, F, timing, spec),
            "serve": lambda: serve_leg(torch, eng_mod, "bf16",
                                       eng_mod.ServeConfig(
                                           **FULL_WIDTH, dtype="bfloat16",
@@ -5170,6 +5497,8 @@ def main() -> int:
     kv_tier_launches = phase_kv_tier(torch, pk)
     recovery_launches = phase_recovery(torch, pk)
     diagnostics_launches = phase_diagnostics(torch, pk, F, doctor)
+    longctx_launches, lc_f32, lc_err = phase_longctx(torch, pk, F, timing,
+                                                     spec)
 
     rows = {**ftime, **ptime, "paged_attention": {
         "ms": ktime["kernel"]["ms"], "bound_ms": ktime["bound_ms"],
@@ -5229,6 +5558,11 @@ def main() -> int:
             "train_loop_launches": train_launches[kname],
             "decode_lm_launches": decode_lm_launches[kname],
             "diagnostics_launches": diagnostics_launches[kname],
+            "longctx_launches": {leg: got[kname] for leg, got
+                                 in longctx_launches.items()},
+            "longctx_ring_shard_max_abs_err": lc_err[kname],
+            "longctx_f32": {shape: row for shape, row in lc_f32.items()
+                            if shape.split()[0] == kname},
         })
     # launches: mono in its run_onesided call, the others in auto's
     for kname, replaces in PUT_KERNELS.items():

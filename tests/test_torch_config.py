@@ -12,6 +12,7 @@ import enum
 
 import pytest
 
+from tpu_patterns import cli as jcli
 from tpu_patterns.core import config as jconfig
 from tpu_patterns_torch import cli as tcli
 from tpu_patterns_torch.core import config as tconfig
@@ -128,12 +129,22 @@ def test_cli_reads_the_environment_tier(monkeypatch):
     assert _p2p_args(["--reps", "5"]).reps == 5  # CLI beats env
     monkeypatch.setenv("TPU_PATTERNS_DCN", "0")
     monkeypatch.setenv("TPU_PATTERNS_MIN_SPEEDUP", "0.5")
-    monkeypatch.setenv("TPU_PATTERNS_BLOCK_Q", "none")
+    monkeypatch.setenv("TPU_PATTERNS_BLOCK_Q", "64")
     parser = tcli.build_parser()
     assert parser.parse_args(["hier"]).dcn == 0
     assert parser.parse_args(["serve"]).min_speedup == 0.5
-    assert parser.parse_args(["flagship"]).block_q is None
-    assert parser.parse_args(["flagship", "--block_q", "64"]).block_q == 64
+    assert parser.parse_args(["flagship"]).block_q == 64
+    assert parser.parse_args(["longctx"]).block_q == 64
+    assert parser.parse_args(["flagship", "--block_q", "32"]).block_q == 32
+    # "none" is a value of flagship's optional block_q but not of
+    # longctx's int one: the whole parser refuses it, naming the
+    # variable, as the JAX package's does
+    assert tcli._coerce_strict(int | None, "none") is None
+    monkeypatch.setenv("TPU_PATTERNS_BLOCK_Q", "none")
+    with pytest.raises(ValueError, match="TPU_PATTERNS_BLOCK_Q='none'"):
+        tcli.build_parser()
+    with pytest.raises(ValueError, match="invalid literal for int"):
+        jcli.build_parser()
     monkeypatch.setenv("TPU_PATTERNS_DEVICE", "tpu")  # not a choice
     with pytest.raises(ValueError, match="TPU_PATTERNS_DEVICE='tpu'"):
         tcli.build_parser()

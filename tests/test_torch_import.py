@@ -66,6 +66,9 @@ def test_import_pulls_no_jax():
         "import tpu_patterns_torch.perf.analytic, tpu_patterns_torch.perf.registry\n"
         "import tpu_patterns_torch.perf.baseline, tpu_patterns_torch.perf.history\n"
         "import tpu_patterns_torch.perf.report, tpu_patterns_torch.perf.provenance\n"
+        "import tpu_patterns_torch.longctx.pattern\n"
+        "import tpu_patterns_torch.longctx.ring_attention\n"
+        "import tpu_patterns_torch.longctx.ulysses\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'tpu_patterns', 'tabulate')]\n"
         "assert not bad, bad\n"
@@ -83,6 +86,7 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
     from tpu_patterns_torch.comm.onesided import OneSidedConfig, run_onesided
     from tpu_patterns_torch.comm.p2p import run_p2p
     from tpu_patterns_torch.loadgen import LoadGenConfig, run_loadgen
+    from tpu_patterns_torch.longctx.pattern import LongCtxConfig, run_longctx
     from tpu_patterns_torch.concurrency import (
         ConcurrencyConfig,
         run_concurrency,
@@ -134,6 +138,10 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
         lambda: cli.main(["p2p", "--transport", "one_sided", "--devices",
                           "4"]),
         lambda: cli.main(["interop"]),
+        lambda: run_longctx(cfg=LongCtxConfig()),
+        lambda: cli.main(["longctx"]),
+        lambda: cli.main(["longctx", "--devices", "4", "--strategy",
+                          "ring_pallas"]),
         lambda: train(TrainLoopConfig()),
         lambda: train(TrainLoopConfig(attn="kernel", data="native")),
         lambda: cli.main(["train"]),

@@ -25,6 +25,8 @@
     python -m tpu_patterns_torch hier --devices 4 --dcn 2
     python -m tpu_patterns_torch topo [N]
     python -m tpu_patterns_torch interop --device cuda
+    python -m tpu_patterns_torch longctx --device cuda --devices 4 \
+        --strategy ring_pallas --grad true
     python -m tpu_patterns_torch train --device cuda --attn kernel \
         --ckpt_dir ckpts --ckpt_every 2 --steps 8
     python -m tpu_patterns_torch ckpt ckpts --leaves
@@ -83,6 +85,12 @@ repeatable ``--commands``, ``--no_tuning``); ``allreduce`` and
 and ``--mechanism``) and ``miniapps``;
 ``interop`` (the native C++ round trips, no flag of the reference's) only
 ``--device``.
+``longctx`` takes the flags of ``tpu-patterns longctx``
+(:class:`~tpu_patterns_torch.longctx.pattern.LongCtxConfig`,
+``--strategy`` ring|ring_pallas|ring_striped|ulysses|ulysses_pallas|
+flash|both, ``--devices``, ``--placement``, ``--mechanism``): the
+sequence-parallel strategies over a rank mesh, ``both`` folding
+``flash`` in at one rank.
 ``obs ACTION`` reads the obs plane's dumps as ``tpu-patterns obs`` does:
 ``summarize`` (the span table), ``export --chrome-trace OUT.json``
 and/or ``--prom``, ``watch URL`` (poll a live ``--obs_http`` plane) and
@@ -321,6 +329,18 @@ def build_parser() -> argparse.ArgumentParser:
     t = sub.add_parser("topo", help="fabric probe (≙ ./topology [N])")
     t.add_argument("n", nargs="?", type=int, default=None)
     t.add_argument("--device", choices=_CHOICES["device"], default="cuda")
+    lc = sub.add_parser(
+        "longctx", help="sequence-parallel attention (ring vs Ulysses) "
+        "over a rank mesh, with the fused flash kernels")
+    from tpu_patterns_torch.longctx.pattern import LongCtxConfig
+
+    _add_config_flags(lc, LongCtxConfig, (), skip=("strategies", "device"))
+    lc.add_argument(
+        "--strategy", choices=LONGCTX_STRATEGIES, default="both",
+        help="manual-ring vs library-collective lineage; ring_pallas = "
+        "the flash kernels a ring step, ring_striped = load-balanced "
+        "causal layout, flash = the fused kernels on one rank")
+    _add_mesh_args(lc)
     i = sub.add_parser("interop", help="native C++ round-trip proofs")
     i.add_argument("--device", choices=_CHOICES["device"], default="cuda",
                    help="device of the offload round trips (the native "
@@ -611,6 +631,49 @@ def _allreduce(args, writer: ResultWriter) -> None:
         tol=args.tol,
         require_even_ge4=args.require_even_ge4,
     )
+
+
+LONGCTX_STRATEGIES = ("ring", "ring_pallas", "ring_striped", "ulysses",
+                      "ulysses_pallas", "flash", "both")
+
+
+def _longctx(args, writer: ResultWriter) -> None:
+    """``tpu-patterns longctx`` (``tpu_patterns/cli.py:268-323``): the
+    world-size skips, then :func:`run_longctx` over the rank mesh."""
+    from tpu_patterns_torch.longctx.pattern import LongCtxConfig, run_longctx
+
+    n = _ranks(args.devices, args.device)
+    if args.strategy == "both":
+        # on one rank, fold the fused kernels in so the agreement Record
+        # cross-checks them against the plain lineages
+        strategies = ("ring", "ulysses") + (("flash",) if n == 1 else ())
+    else:
+        strategies = (args.strategy,)
+    if args.seq % n:
+        _world_skip(writer, "longctx", args.strategy, n,
+                    f"seq {args.seq} not divisible by sp={n}")
+        return
+    if any(s.startswith("ulysses") for s in strategies) and args.heads % n:
+        if args.strategy != "both":
+            _world_skip(writer, "longctx", args.strategy, n,
+                        f"heads {args.heads} not divisible by sp={n} "
+                        "(ulysses)")
+            return
+        # only the ulysses family needs heads % sp: the rest still run
+        strategies = tuple(s for s in strategies
+                           if not s.startswith("ulysses"))
+        writer.progress(
+            f"dropping ulysses: heads {args.heads} not divisible by sp={n}")
+    if "flash" in strategies and n != 1:
+        _world_skip(writer, "longctx", args.strategy, n,
+                    f"flash strategy is single-device, have {n} "
+                    "(use --devices 1)")
+        return
+    cfg = LongCtxConfig(**{f.name: getattr(args, f.name)
+                           for f in dataclasses.fields(LongCtxConfig)
+                           if f.name != "strategies"},
+                        strategies=strategies)
+    run_longctx(_mesh(args), cfg, writer)
 
 
 def _miniapps(args, writer: ResultWriter) -> None:
@@ -1212,6 +1275,8 @@ def _dispatch(args, parser, writer: ResultWriter) -> None:
         _miniapps(args, writer)
     elif args.cmd == "interop":
         _interop(args, writer)
+    elif args.cmd == "longctx":
+        _longctx(args, writer)
     elif args.cmd == "train":
         _train(args, parser, writer)
     elif args.cmd == "ckpt":

@@ -7,15 +7,19 @@ Counterpart of ``tpu_patterns/longctx/attention.py`` on one device:
 * ``block_attention`` — one K/V block's partial attention, returning the
   online-softmax statistics (o unnormalized, running max m, normalizer
   l); ``combine_blocks`` merges two partials, ``empty_state`` is the
-  merge's identity and ``finalize`` normalizes.
+  merge's identity and ``finalize`` normalizes;
+* ``stripe`` — global token order to the striped shard layout;
+* ``run_sharded`` — the mesh launcher of the sequence-parallel
+  strategies (``ring_attention.py``, ``ulysses.py``) over a rank mesh
+  (``comm/mesh.py``).
 
 Layout as in the reference: q/k/v [seq, heads, head_dim]; statistics
-[heads, seq].  ``run_sharded`` (a mesh launcher) waits for the
-multi-rank slice.
+[heads, seq].
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 # Finite stand-in for -inf: exp() of it is exactly 0 with no NaN from
@@ -30,6 +34,23 @@ def neg_inf(dtype: torch.dtype) -> float:
 
 def _scale(q: torch.Tensor, scale: float | None) -> float:
     return float(scale) if scale is not None else q.shape[-1] ** -0.5
+
+
+def stripe(a, sp: int, axis: int = 0):
+    """Global token order -> the striped shard layout along ``axis``:
+    a contiguous sp-way sharding of the result gives shard r exactly
+    tokens ``r::sp``.  numpy in -> numpy out, torch in -> torch out;
+    ``sp <= 1`` is the identity."""
+    if sp <= 1:
+        return a
+    sl = [slice(None)] * a.ndim
+    parts = []
+    for r in range(sp):
+        sl[axis] = slice(r, None, sp)
+        parts.append(a[tuple(sl)])
+    if isinstance(a, torch.Tensor):
+        return torch.cat(parts, dim=axis)
+    return np.concatenate(parts, axis=axis)
 
 
 def causal_mask(q_pos: torch.Tensor, k_pos: torch.Tensor) -> torch.Tensor:
@@ -91,3 +112,18 @@ def finalize(state) -> torch.Tensor:
     o, _, l = state
     denom = l.transpose(0, 1)[..., None]
     return o / torch.where(denom == 0.0, 1.0, denom)
+
+
+def run_sharded(attn_fn, q, k, v, mesh, causal: bool = False,
+                scale: float | None = None) -> torch.Tensor:
+    """Shared launcher of the sequence-parallel strategies: scatter global
+    [L, H, D] tensors (numpy or torch) over the ranks of ``mesh`` (a
+    ``comm/mesh.py::RankMesh``, rank r holding rows ``[r*L/p,
+    (r+1)*L/p)``) and run ``attn_fn``, a shard-level function taking and
+    returning per-rank lists (``attn_fn(qs, ks, vs, causal=, scale=)``).
+    Returns the global output on rank 0's device.  Eager torch has
+    nothing to retrace, so no program cache stands in for the
+    reference's."""
+    outs = attn_fn(*(mesh.scatter(a) for a in (q, k, v)), causal=causal,
+                   scale=scale)
+    return torch.cat([o.to(mesh.devices[0]) for o in outs])
