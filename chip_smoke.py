@@ -33,13 +33,15 @@ Phases, each one or more printed lines:
 2. build: every kernel compiled from the checkout's sources with nvcc,
    one process per source, all at once; then the ``kernel_build`` line:
    each instance of the redesigned kernels (the bf16 wgmma forward of
-   K2/K3, the bf16 wgmma backward of K4, dq and dk/dv, the all-SM mono,
+   K2/K3 and its register-tiled f32 forward, the bf16 wgmma backward of
+   K4, dq and dk/dv, the all-SM mono,
    multi and in-place puts K8a, K8c and K8d, the register-streamed puts
    K8b and K9, the split-page K1, the streaming adds K5 and K10) with its
    registers,
    spills, static and dynamic shared memory from ``-Xptxas -v`` and
-   whether ptxas serialized its wgmma products (a backward instance
-   that spills or is serialized fails);
+   whether ptxas serialized its wgmma products (a bf16 backward instance
+   that spills or is serialized, or an f32 forward instance that spills,
+   fails);
 3. K1 vs plain: the split-page paged-attention kernel against its plain
    torch version on the card, for f32, bf16 and int8 pools, W=1, W=4
    and W=5 (the verify step of spec_k 4), G=1 and G=4, ragged pos0,
@@ -62,11 +64,15 @@ Phases, each one or more printed lines:
    plain versions: causal and not, f32 and bf16, D 64 and 128, shard
    offsets (0,0,1), (16,32,1), (2,5,8), Lq != Lk, wholly masked rows,
    and the flagship's shape (32 folded heads x 4096 x 128, bf16,
-   causal), where two runs must also agree bit for bit and the tile
-   model must equal the kernels' own shared-memory sizes; the bf16
-   kernels also at lengths that are no multiple of their tile (K3, K2
-   and K4, Lq/Lk 100/200, 130/130, 40/72; K4 also at its two-warpgroup
-   tiles for D 64, 256/384); then each
+   causal), where two runs must also agree bit for bit (so must two f32
+   runs of K2 and K3 at L4096 x 8 x 128, causal) and the tile model must
+   equal the kernels' own shared-memory sizes (the bf16 forward and
+   backward at the flagship's tiles, the f32 forward at D 64 and 128);
+   the bf16 kernels also at lengths that are no multiple of their tile
+   (K3, K2 and K4, Lq/Lk 100/200, 130/130, 40/72; K4 also at its
+   two-warpgroup tiles for D 64, 256/384), and the f32 forward (K3, K2)
+   at those lengths too, and at 64 heads (its 64-row units), ragged, at
+   an offset and a stride; then each
    flash kernel's time at that shape (L2 flushed) beside its plain
    version's, one SDPA call's (forward for K2/K3, its backward for K4)
    and its bound (bytes over 3.35 TB/s or visible-key flops over 989
@@ -361,8 +367,10 @@ Phases, each one or more printed lines:
     contiguous (a wholly masked pair, the diagonal, a pair with no key
     masked) and striped at stride 4; then K2 (the whole 4096-token
     sequence), K3 and K4 (a shard pair with no key masked and the
-    diagonal) in float32, their scalar kernels, each beside its plain
-    version, one SDPA call in float32 and its f32 bound; (b) ``longctx``
+    diagonal) in float32 (K2/K3 the register-tiled forward, K4 the scalar
+    kernels), each beside its plain version, one SDPA call in float32
+    and its f32 bound (alone, with the f32 forward's registers and the
+    f32 CLI legs' TFLOP/s, as ``--tree TREE flash_f32_time``); (b) ``longctx``
     through the CLI at ``LongCtxConfig``'s defaults (float32, seq 4096,
     8 x 128, causal): ``--devices 1`` (ring, ulysses and flash, and the
     agreement Record) and ``--devices 4`` with each of ring,
@@ -461,9 +469,14 @@ REDESIGNED_BEFORE_MS = {"flash_block": 4.485, "flash_attention": 4.539,
                         "accumulate n=2^25": 0.1410,
                         "local_put_streamed": 0.1381, "ring_put": 0.1372,
                         "add_one": 0.09865}
+# the f32 forward's times before its redesign (the scalar kernel, this
+# script's phase 19 leg a, same card and power limit), beside this run's
+F32_BEFORE_MS = {"flash_attention": 5.918, "flash_block full": 0.5918,
+                 "flash_block diagonal": 0.5921}
 # kernel library -> the kernels redesigned for the card (name prefixes)
 # whose -Xptxas -v report the kernel_build line carries
-REDESIGNED_LIBS = {"flash_attention": ("flash_fwd_wgmma_kernel",),
+REDESIGNED_LIBS = {"flash_attention": ("flash_fwd_wgmma_kernel",
+                                       "flash_fwd_f32_kernel"),
                    "flash_attention_bwd": ("flash_bwd_wgmma_",),
                    "local_put": ("local_put_mono_kernel",
                                  "local_put_streamed_kernel",
@@ -476,6 +489,8 @@ REDESIGNED_LIBS = {"flash_attention": ("flash_fwd_wgmma_kernel",),
                    "add_one": ("add_one_vec_kernel", "add_one_scalar_kernel")}
 # the backward's instances as ptxas_report names them
 BWD_WGMMA = re.compile(r"flash_bwd_wgmma_(dq|dkv)_kernel<D=(\d+),NC=(\d+)>")
+# the f32 forward's instances (a head_dim and rows a thread each)
+FWD_F32 = re.compile(r"flash_fwd_f32_kernel<D=(\d+),RT=(\d+)>")
 
 
 def emit(obj) -> None:
@@ -534,7 +549,8 @@ def ptxas_report(log: str, prefix: str) -> dict:
         if not t:
             return prefix
         args = re.findall(r"Li(\d+)E", t.group(2))
-        labels = ("D", "BK", "NC") if len(args) == 3 else ("D", "NC")
+        labels = (("D", "BK", "NC") if len(args) == 3
+                  else ("D", "RT") if "f32" in t.group(1) else ("D", "NC"))
         return (t.group(1) + "<"
                 + ",".join(f"{a}={b}" for a, b in zip(labels, args)) + ">")
     return {pretty(n): r for n, r in out.items()}
@@ -881,6 +897,69 @@ def flash_case(torch, F, name, *, lq, lk, h, d, dtype, causal, q_off=0,
     return errs, (q, k, v, do, lse, delta)
 
 
+RAGGED = ((100, 200, 128, True), (100, 200, 64, False),
+          (130, 130, 128, True), (40, 72, 64, True),
+          (256, 384, 64, True), (256, 384, 64, False))
+
+
+def flash_ragged_f32(torch, F):
+    """The f32 forward at :data:`RAGGED`'s lengths, no multiple of its
+    tile (32 rows by D keys; it stages rows past the end as zeros, masks
+    keys past Lk and stores no row past Lq): K3 (also with the first half
+    of the rows seeing no key) and K2 against their plain versions at
+    FLASH_TOL, rows that see no key exactly zero; then at 64 heads,
+    where the 64-row units run, ragged, at an offset and a stride.
+    Returns the worst relative error of each."""
+    worst = {"flash_block": 0.0, "flash_attention": 0.0}
+    for i, (lq, lk, d, causal) in enumerate(RAGGED):
+        g = torch.Generator().manual_seed(250 + i)
+        q, k, v = (torch.randn((n, 3, d), generator=g).to(DEVICE)
+                   for n in (lq, lk, lk))
+        for q_off, k_off in ((0, 0), (0, lq // 2)):
+            o, m, l = F.flash_block(q, k, v, q_off, k_off, causal=causal)
+            ro, rm, rl = F.flash_block_reference(q, k, v, q_off, k_off,
+                                                 causal)
+            live = rl > 0
+            worst["flash_block"] = max(worst["flash_block"], _rel(o, ro)[0],
+                                       _rel(m, rm, live)[0], _rel(l, rl)[0])
+            dead_ok = bool((o[~live.T] == 0).all() and (l[~live] == 0).all()
+                           and (m[~live] == F.NEG_INF).all())
+            if not dead_ok:
+                raise AssertionError(f"ragged f32 K3 {lq}/{lk}: wholly "
+                                     "masked rows not exactly zero")
+        out = F.flash_attention(q, k, v, causal=causal)
+        worst["flash_attention"] = max(worst["flash_attention"], _rel(
+            out, F.flash_attention_reference(q, k, v, causal))[0])
+    # 64 heads: the grid of 64-row units fills the card, so these run the
+    # 8-rows-a-thread kernel, ragged, at an offset and a stride
+    for i, d in enumerate((64, 128)):
+        g = torch.Generator().manual_seed(260 + i)
+        q, k, v = (torch.randn((1000, 64, d), generator=g).to(DEVICE)
+                   for _ in range(3))
+        if F._blocks(q, k, ("fwd",), 1024, 1024)[0] != 64:
+            raise AssertionError("64-row f32 units not chosen at 64 heads")
+        for q_off, k_off, stride in ((0, 0, 1), (0, 500, 1), (3, 0, 4)):
+            o, m, l = F.flash_block(q, k, v, q_off, k_off, causal=True,
+                                    pos_stride=stride)
+            ro, rm, rl = F.flash_block_reference(q, k, v, q_off, k_off,
+                                                 True, None, stride)
+            live = rl > 0
+            worst["flash_block"] = max(worst["flash_block"], _rel(o, ro)[0],
+                                       _rel(m, rm, live)[0], _rel(l, rl)[0])
+            if not bool((o[~live.T] == 0).all() and (l[~live] == 0).all()):
+                raise AssertionError("64-row f32 K3: wholly masked rows not "
+                                     "exactly zero")
+        worst["flash_attention"] = max(worst["flash_attention"], _rel(
+            F.flash_attention(q, k, v, causal=True),
+            F.flash_attention_reference(q, k, v, True))[0])
+    torch.cuda.synchronize()
+    bad = {n: r for n, r in worst.items() if not r <= FLASH_TOL["float32"]}
+    if bad:
+        raise AssertionError(f"ragged f32 flash forward past "
+                             f"{FLASH_TOL['float32']}: {bad}")
+    return worst
+
+
 def flash_ragged(torch, F):
     """The bf16 kernels at lengths that are no multiple of their tiles
     (their TMA boxes read zeros past the end, they mask keys past Lk and
@@ -889,10 +968,7 @@ def flash_ragged(torch, F):
     default request, K4's two-warpgroup tiles (256/384).  Returns the
     worst relative error of each kernel."""
     worst = dict.fromkeys(FLASH_KERNELS, 0.0)
-    for i, (lq, lk, d, causal) in enumerate((
-            (100, 200, 128, True), (100, 200, 64, False),
-            (130, 130, 128, True), (40, 72, 64, True),
-            (256, 384, 64, True), (256, 384, 64, False))):
+    for i, (lq, lk, d, causal) in enumerate(RAGGED):
         g = torch.Generator().manual_seed(200 + i)
         q, k, v, do = (torch.randn((n, 3, d), generator=g).to(
             DEVICE, torch.bfloat16) for n in (lq, lk, lk, lq))
@@ -963,6 +1039,7 @@ def phase_flash_kernels(torch, F, tuning):
         worst[n] = max(worst[n], r)
     q, k, v, do, lse, delta = inputs
     ragged = flash_ragged(torch, F)
+    ragged_f32 = flash_ragged_f32(torch, F)
     # no atomics: a second run gives the same bits
     again = (F.flash_block(q, k, v, 0, 0, causal=True),
              F.flash_block_bwd(q, k, v, do, lse, delta, causal=True,
@@ -972,6 +1049,14 @@ def phase_flash_kernels(torch, F, tuning):
                                block_q=1024, block_k=1024))
     bitwise = all(torch.equal(a, b) for x, y in zip(again, first)
                   for a, b in zip(x, y))
+    # and the f32 forward, K3 and K2, at longctx's L4096 x 8 x 128
+    g = torch.Generator().manual_seed(98)
+    qf, kf, vf = (torch.randn((4096, 8, 128), generator=g).to(DEVICE)
+                  for _ in range(3))
+    runs = [(*F.flash_block(qf, kf, vf, 0, 0, causal=True),
+             F.flash_attention(qf, kf, vf, causal=True)) for _ in range(2)]
+    bitwise_f32 = all(torch.equal(a, b) for a, b in zip(*runs))
+    del qf, kf, vf, runs
     # the shared-memory model in Python is the kernels' own
     fwd_t = F._blocks(q, k, ("fwd",), 1024, 1024)
     bwd_t = F._bwd_tiles(q, k, 1024, 1024)  # {"dq": pair, "dkv": pair}
@@ -980,6 +1065,11 @@ def phase_flash_kernels(torch, F, tuning):
     model = {
         "fwd": (tuning.smem_bytes("fwd", *fwd_t, 128, 2),
                 lib_f.flash_fwd_smem_bytes(2, *fwd_t, 128)),
+        # the f32 forward's four tiles (q-units of 32 or 64 rows, k-tiles
+        # of head_dim keys)
+        **{f"fwd_f32_{bq}x{d}": (tuning.smem_bytes("fwd", bq, d, d, 4),
+                                 lib_f.flash_fwd_smem_bytes(4, bq, d, d))
+           for bq in F.FWD_F32_Q_SIDES for d in (64, 128)},
         "dq": (tuning.smem_bytes("dq", *bwd_t["dq"], 128, 2),
                lib_b.flash_bwd_smem_bytes(0, 2, *bwd_t["dq"], 128)),
         "dkv": (tuning.smem_bytes("dkv", *bwd_t["dkv"], 128, 2),
@@ -991,10 +1081,14 @@ def phase_flash_kernels(torch, F, tuning):
           "max_abs_err": err, "flagship_rel_err": {
               n: r for n, (r, _) in errs.items()},
           "flagship_bitwise_repeat": bitwise,
-          "ragged_rel_err": ragged, "tiles_fwd": fwd_t,
+          "f32_fwd_bitwise_repeat_L4096": bitwise_f32,
+          "ragged_rel_err": ragged, "ragged_f32_fwd_rel_err": ragged_f32,
+          "tiles_fwd": fwd_t,
           "tiles_bwd": bwd_t, "smem_model_vs_kernel": model})
-    if not bitwise:
-        raise AssertionError("flash kernels: two runs differ in bits")
+    if not (bitwise and bitwise_f32):
+        raise AssertionError(f"flash kernels: two runs differ in bits "
+                             f"(bf16 flagship equal: {bitwise}; f32 K3/K2 "
+                             f"at L4096 equal: {bitwise_f32})")
     if any(a != b for a, b in model.values()):
         raise AssertionError(f"shared-memory model differs: {model}")
     return err, inputs, fwd_t, bwd_t
@@ -4869,10 +4963,10 @@ def lc_shards(torch, F):
 
 
 def lc_f32_times(torch, F, timing, spec):
-    """K2, K3 and K4 in float32 (their scalar kernels) at longctx's
-    shape: K2 over the whole sequence, K3 and K4 over a 1024-token shard
-    pair with no key masked and on the diagonal; L2 flushed before each
-    launch.  Beside each: its plain version's ms, one SDPA call's in
+    """K2, K3 and K4 in float32 (K2/K3 the register-tiled forward, K4 the
+    scalar kernels) at longctx's shape: K2 over the whole sequence, K3
+    and K4 over a 1024-token shard pair with no key masked and on the
+    diagonal; L2 flushed before each launch.  Beside each: its plain version's ms, one SDPA call's in
     float32 with TF32 off and its bound (operations over the f32 peak,
     bytes over the memory rate, the larger)."""
     flush = torch.empty(64 << 20, dtype=torch.int32, device=DEVICE)
@@ -4952,9 +5046,43 @@ def lc_f32_times(torch, F, timing, spec):
                 **bound((4 + n_out) * io_ + 2 * stats,
                         n_prod * 2 * LC_D * pairs)}
     emit({"phase": "longctx", "leg": "f32_time", "card": _smi(),
-          "note": "float32 (the scalar kernels), L2 flushed; library_ms is "
-          "SDPA in float32 with TF32 off (K4's: its backward, dq, dk and "
-          "dv together, as plain_ms)", **rows})
+          "note": "float32, L2 flushed; library_ms is SDPA in float32 with "
+          "TF32 off (K4's: its backward, dq, dk and dv together, as "
+          "plain_ms)", **rows})
+    return rows
+
+
+# the f32 longctx legs whose TFLOP/s the forward moves
+LC_F32_LEGS = (["--devices", "1", "--strategy", "flash"],
+               ["--devices", "4", "--strategy", "ring_pallas"],
+               ["--devices", "4", "--strategy", "ulysses_pallas"])
+
+
+def phase_flash_f32_time(torch, F, timing, spec, libs):
+    """``--tree TREE flash_f32_time``: leg a's float32 times
+    (:func:`lc_f32_times`) with the build's registers and spills of each
+    f32 forward instance (the wgmma kernels left out) and the model
+    TFLOP/s of the f32 ``longctx`` legs the forward runs on
+    (:data:`LC_F32_LEGS`: flash at 1 rank, ring_pallas and ulysses_pallas
+    at 4, each through the CLI at ``LongCtxConfig``'s defaults, TF32
+    off), so that parent and change time in one call."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rows = lc_f32_times(torch, F, timing, spec)
+    ptxas = {n: r for n, r in ptxas_report(
+        libs["flash_attention"].with_suffix(".log").read_text(),
+        "flash_fwd_").items() if "wgmma" not in n}
+    tflops = {}
+    for argv in LC_F32_LEGS:
+        rc, recs, got = lc_cli(F, argv)
+        tflops[argv[-1]] = {"rc": rc, "launches": got, "records": [
+            (r["mode"], r["verdict"], r["metrics"].get("tflops"))
+            for r in recs]}
+    emit({"phase": "flash_f32_time", "card": _smi(), "ptxas": ptxas,
+          "longctx_f32_tflops": tflops,
+          "ms": {n: r["ms"] for n, r in rows.items()},
+          "diagonal_over_full": rows["flash_block diagonal"]["ms"]
+          / rows["flash_block full"]["ms"]})
     return rows
 
 
@@ -5189,10 +5317,12 @@ def profile_concurrency_main() -> int:
 TREE_PHASES = ("put_time", "ring_put_time", "accumulate_time",
                "allreduce", "add_one_time")
 # phases ``--tree`` runs only when named: phases 14-19 on their own,
-# phase 16's leg e again and again (``kv_race``: its spread), and phase
-# 5's bf16 serve leg (a tree's serve tokens/s against another's)
+# phase 16's leg e again and again (``kv_race``: its spread), phase 5's
+# bf16 serve leg (a tree's serve tokens/s against another's) and phase
+# 19's f32 kernel times with the f32 legs' TFLOP/s (``flash_f32_time``)
 TREE_ONLY_NAMED = ("loadgen", "decode_lm", "kv_tier", "kv_race",
-                   "recovery", "diagnostics", "serve", "longctx")
+                   "recovery", "diagnostics", "serve", "longctx",
+                   "flash_f32_time")
 
 
 def tree_main(tree: str, phases: list[str]) -> int:
@@ -5240,7 +5370,7 @@ def tree_main(tree: str, phases: list[str]) -> int:
               os.path.abspath(op.__file__)))})
     doctor = (diag_doctor_start() if "diagnostics" in phases else None)
     try:
-        build.build_all()
+        libs = build.build_all()
     finally:
         if doctor is not None:
             doctor = diag_doctor_wait(doctor)
@@ -5260,6 +5390,8 @@ def tree_main(tree: str, phases: list[str]) -> int:
            "recovery": lambda: phase_recovery(torch, pk),
            "diagnostics": lambda: phase_diagnostics(torch, pk, F, doctor),
            "longctx": lambda: phase_longctx(torch, pk, F, timing, spec),
+           "flash_f32_time": lambda: phase_flash_f32_time(
+               torch, F, timing, spec, libs),
            "serve": lambda: serve_leg(torch, eng_mod, "bf16",
                                       eng_mod.ServeConfig(
                                           **FULL_WIDTH, dtype="bfloat16",
@@ -5290,6 +5422,10 @@ def phase_kernel_build(torch, libs, F, op, pk):
             d, bk, nc = map(int, t.groups())
             row["dynamic_smem"] = lib_f.flash_fwd_smem_bytes(2, 64 * nc, bk,
                                                              d)
+        t = FWD_F32.fullmatch(name)
+        if t:
+            d, rt = int(t.group(1)), int(t.group(2))  # tile (8 RT, D)
+            row["dynamic_smem"] = lib_f.flash_fwd_smem_bytes(4, 8 * rt, d, d)
         t = BWD_WGMMA.fullmatch(name)
         if t:
             which = int(t.group(1) == "dkv")
@@ -5351,6 +5487,12 @@ def phase_kernel_build(torch, libs, F, op, pk):
         raise AssertionError(f"bf16 backward build: {len(bwd)} of 8 "
                              f"instances reported; spilled or serialized: "
                              f"{bad}")
+    f32 = {n: r for n, r in report.items() if FWD_F32.fullmatch(n)}
+    bad = [n for n, r in f32.items() if r.get("spill_stores")
+           or r.get("spill_loads")]
+    if len(f32) != 4 or bad:
+        raise AssertionError(f"f32 forward build: {len(f32)} of 4 "
+                             f"instances reported; spilled: {bad}")
 
 
 def main() -> int:
@@ -5518,7 +5660,13 @@ def main() -> int:
                     "bound_ms": rows[name]["bound_ms"],
                     "over_library": rows[name]["ms"]
                     / rows[name]["library_ms"]}
-             for name, before in REDESIGNED_BEFORE_MS.items()}})
+             for name, before in REDESIGNED_BEFORE_MS.items()},
+          "f32_forward": {name: {"ms": lc_f32[name]["ms"],
+                                 "ms_before": before,
+                                 "speedup": before / lc_f32[name]["ms"],
+                                 "library_ms": lc_f32[name]["library_ms"],
+                                 "bound_ms": lc_f32[name]["bound_ms"]}
+                          for name, before in F32_BEFORE_MS.items()}})
 
     # launches: K1 in the timed serve run, K3 and K4 in the flagship
     # run, K2 in the no-grad forward (each count set to 0 just before)

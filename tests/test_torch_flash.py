@@ -276,7 +276,7 @@ def test_tile_fit_and_tuned_defaults(tmp_path):
                               1024) == (64, 128)
     with pytest.raises(ValueError, match="a tile pair each"):
         tuning._auto_block(4096, 4096, 128, 2, ("dq", "dkv"), 1024, 1024)
-    for kinds, ibs in ((("fwd",), (2, 4)), (("dq", "dkv"), (4,))):
+    for kinds, ibs in ((("fwd",), (2,)), (("dq", "dkv"), (4,))):
         for ib in ibs:
             for d in (64, 128):
                 bq, bk = tuning._auto_block(4096, 4096, d, ib, kinds, 1024,
@@ -286,9 +286,20 @@ def test_tile_fit_and_tuned_defaults(tmp_path):
                 bigger = (2 * bq, bk) if bq < bk else (bq, 2 * bk)
                 assert any(tuning.smem_bytes(k, *bigger, d, ib) > budget
                            for k in kinds)
-    # short sequences clamp the request; a small request is kept
-    assert tuning._auto_block(64, 64, 16, 4, ("fwd",), 1024, 1024) == (64, 64)
-    assert tuning._auto_block(64, 64, 16, 4, ("fwd",), 16, 32) == (16, 32)
+    # the float32 forward's ladder: its kernel's tile (32-row q-units,
+    # k-tiles of head_dim keys), whatever the request, within the budget
+    for d in (64, 128):
+        assert tuning._auto_block(4096, 4096, d, 4, ("fwd",), 1024,
+                                  1024) == (32, d)
+        assert tuning.smem_bytes("fwd", 32, d, d, 4) <= budget
+    # short sequences clamp the request; a small request is kept (the
+    # float32 backward's shared pair); the float32 forward takes its sides
+    assert tuning._auto_block(64, 64, 16, 4, ("dq", "dkv"), 1024,
+                              1024) == (64, 64)
+    assert tuning._auto_block(64, 64, 16, 4, ("dq", "dkv"), 16,
+                              32) == (16, 32)
+    assert tuning._auto_block(64, 64, 16, 4, ("fwd",), 1024, 1024) == (32, 64)
+    assert tuning._auto_block(64, 64, 16, 4, ("fwd",), 16, 32) == (32, 64)
     assert tuning.load_tuned_blocks(str(tmp_path / "absent.json")) == (
         tuning.DEFAULT_BLOCK_Q, tuning.DEFAULT_BLOCK_K)
     path = tmp_path / "flash_tuned.json"

@@ -7,13 +7,14 @@
 //     -- K2: normalizes (o / l, l == 0 -> 1) and casts to q's dtype.
 // One kernel with a runtime epilogue switch (emit_stats) gives both.
 // The dispatch is by dtype: bfloat16 inputs run flash_fwd_wgmma_kernel,
-// float32 inputs the scalar flash_fwd_kernel (a tensor-core f32 product
-// would be TF32, which keeps ~3 digits).
+// float32 inputs flash_fwd_f32_kernel, on the FMA units (a tensor-core
+// f32 product would be TF32, which keeps ~3 digits).
 //
 // What bounds it on this card: operations.  Per (head, q-tile) it reads
 // q once and each visible k/v tile once, and does 4*D flops per visible
-// (query, key) pair; at D = 128 in bf16 that is far above the H100's
-// ~295 flops/byte ridge, so the tensor-core rate is the bound.
+// (query, key) pair; at D = 128 that is far above the H100's ridge in
+// either dtype (~295 flops/byte for the bf16 tensor cores, ~20 for the
+// 67 TFLOP/s of f32 FMA), so the arithmetic rate is the bound.
 //
 // bf16 design (flash_fwd_wgmma_kernel), built from the card's own units:
 //   * a block is one (head, q-tile of 64 * NC rows): NC consumer
@@ -53,10 +54,46 @@
 //   * no atomics: each output element has one owner, and the k-tiles
 //     are summed in ascending order, so two runs give the same bits.
 //
-// f32 design (flash_fwd_kernel): one thread block (8 warps) per (q-tile,
-// head) walks the live k-tiles as above, staging k, v, S, P and acc in
-// shared memory; S = Q K^T and P V are scalar f32 FMAs, one warp per
-// row runs the online softmax.
+// f32 design (flash_fwd_f32_kernel), for FFMA at its issue rate:
+//   * a block owns q-units of 8 RT rows of one head (RT = 4 or 8 rows a
+//     thread) and walks their live k-tiles of D keys in ascending order,
+//     with 2D threads (128 at D 64, 256 at D 128): thread (ty, tx), ty <
+//     8 and tx < D / 4, holds the scores of rows ty + 8i and keys tx +
+//     (D / 4) j (RT x 4) and the output of the same rows at columns 4tx +
+//     e (RT x 4) in registers across the whole k loop, and alpha rescales
+//     them there;
+//   * both products are FFMA from registers fed by 128-bit shared loads:
+//     S = Q K^T reads a float4 of D from each of its RT q rows and 4 k
+//     rows (16 RT FFMA a step), P V a float4 of P for each 4 of its rows
+//     and one of V a key (4 RT FFMA).  A warp is 4 ty by 8 tx; rows of q
+//     and k are padded by 4 floats, so the 8 rows a warp reads at once
+//     fall in 8 different 16-byte bank groups: every shared read is one
+//     pass.  Each FFMA costs a thread 2 bytes of shared loads at RT 4,
+//     1.5 at RT 8, against the 1 an SM can feed at the FFMA rate: so the
+//     wrapper takes RT 8 (64-row units) wherever their grid still holds
+//     a block for every SM (tuning._auto_block), RT 4 (32 rows) elsewhere;
+//   * the row max reduces by shuffles over the 8 lanes of a warp that
+//     share a row, then over the row's D / 32 warps through shared memory
+//     behind a named barrier of those warps alone; l stays a per-thread
+//     partial, summed over the row once at the end; P goes through
+//     shared memory once a tile, transposed ([key][row]), so P V reads a
+//     thread's rows as float4s;
+//   * k and v tiles are staged by 16-byte cp.async into one k and one v
+//     buffer, a ring of two: k-tile it + 1 loads while tile it's P V
+//     runs, v-tile it while its S and softmax run, and a unit's last
+//     tile stages the next unit's q, k and v.  At D 128 one block of 8
+//     warps fills an SM (166 or 199 KB of shared memory); at D 64 two or
+//     three blocks of 4 warps share it;
+//   * causal balance: a block takes two q-units, n - 1 - p and p (the
+//     heavier first), so a causal triangle's blocks carry equal work and
+//     the diagonal shard pair costs about half the full one; the grid is
+//     (heads, pairs), the pairs holding the heaviest units first.  One
+//     launch, no atomics: each output element has one owner, its keys
+//     summed in ascending order, so two runs give the same bits;
+//   * lengths need not be multiples of the tile: rows past Lq or Lk are
+//     staged as zeros, keys past Lk are masked, rows past Lq are not
+//     stored.  Only tiles that cross the diagonal or the end of k are
+//     masked element by element.
 //
 // Math as the Pallas _online_step: s = (q . k) * scale, masked to
 // NEG_INF = -1e30 where q_pos < k_pos; m_cur = max(m_prev, max s);
@@ -72,132 +109,414 @@
 
 namespace flash {
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS) flash_fwd_kernel(
-    const T* __restrict__ q,  // [Lq, H, D]
-    const T* __restrict__ k,  // [Lk, H, D]
-    const T* __restrict__ v,  // [Lk, H, D]
-    void* __restrict__ o_out,  // [Lq, H, D]: f32 (stats) or T (normalized)
-    float* __restrict__ m_out,  // [H, Lq] (stats only)
-    float* __restrict__ l_out,  // [H, Lq] (stats only)
-    int Lq, int Lk, int H, int D, int bq, int bk, int causal, int q_off,
-    int k_off, int stride, float scale, int emit_stats) {
-  const int row0 = blockIdx.x * bq;
-  const int h = blockIdx.y;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int ldt = D + Pad<T>::value, lds = bk + 4, ldp = bk + Pad<T>::value,
-            lda = D + 4;
+// -- f32: register-tiled FFMA with cp.async staging ------------------------
 
-  extern __shared__ __align__(128) unsigned char smem[];
-  Carve cv(smem);
-  T* q_s = cv.take<T>(static_cast<size_t>(bq) * ldt);
-  T* k_s = cv.take<T>(static_cast<size_t>(bk) * ldt);
-  T* v_s = cv.take<T>(static_cast<size_t>(bk) * ldt);
-  float* s_s = cv.take<float>(static_cast<size_t>(bq) * lds);
-  T* p_s = cv.take<T>(static_cast<size_t>(bq) * ldp);
-  float* acc = cv.take<float>(static_cast<size_t>(bq) * lda);
-  float* m_s = cv.take<float>(bq);
-  float* l_s = cv.take<float>(bq);
-  float* a_s = cv.take<float>(bq);
+// The f32 forward's tile and threads (see the design note above): thread
+// (ty, tx), ty < 8 and tx < D / 4, holds RT rows by 4 keys of S and RT
+// rows by 4 columns of O, so a q-unit has 8 RT rows and a k-tile D keys.
+template <int D, int RT>
+struct F32Fwd {
+  static constexpr int BQ = 8 * RT;  // rows of a q-unit: 32 or 64
+  static constexpr int BK = D;       // keys of a k-tile
+  static constexpr int NTX = BK / 4;  // 16 or 32
+  static constexpr int THREADS = 8 * NTX;  // 128 or 256
+  static constexpr int KW = NTX / 8;  // warps that share a row: 2 or 4
+  static constexpr int LDQ = D + 4;  // padded rows: 8 rows 16 B apart mod
+  static constexpr int LDK = D + 4;  // 128 B, so 8 rows read in one pass
+  static constexpr int LDV = D;      // a key's row is read whole
+  static constexpr int LDP = BQ + 4;
+  static constexpr size_t SMEM = smem_fwd(BQ, BK, D);
+  // blocks an SM holds: 1 at D 128 (166 or 199 KB); at D 64 (51 or 68
+  // KB) as many as the registers a thread needs leave: 3 at 4 rows, 2 at 8
+  static constexpr int MIN_BLOCKS = D == 128 ? 1 : RT == 4 ? 3 : 2;
+  static_assert(D == 64 || D == 128, "head_dim 64 or 128");
+  static_assert(RT == 4 || RT == 8, "4 or 8 rows a thread");
+};
 
-  load_tile(q_s, ldt, q, row0, bq, H, h, D);
-  for (int i = tid; i < bq * lda; i += THREADS) acc[i] = 0.f;
-  for (int r = tid; r < bq; r += THREADS) {
-    m_s[r] = NEG_INF;
-    l_s[r] = 0.f;
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           uint32_t src_size) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(src_size)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Rows [row0, row0 + ROWS) of head h of src [L, H, D] into dst [ROWS][LD]
+// by 16-byte cp.async, a row per D / 4 threads; rows past L are
+// zero-filled (a src_size of 0 reads nothing).
+template <int D, int ROWS, int LD, int THREADS>
+__device__ __forceinline__ void stage_rows(float* dst,
+                                           const float* __restrict__ src,
+                                           int row0, int L, int H, int h) {
+  constexpr int CPR = D / 4;  // 16-byte chunks a row
+  constexpr int STEP = THREADS / CPR;  // rows a pass
+  static_assert(ROWS % STEP == 0, "whole passes");
+  const int r0 = threadIdx.x / CPR, ch = (threadIdx.x % CPR) * 4;
+  float* d = dst + r0 * LD + ch;
+  const float* s = src + (static_cast<size_t>(row0 + r0) * H + h) * D + ch;
+  const size_t s_step = static_cast<size_t>(STEP) * H * D;
+  if (row0 + ROWS <= L) {  // the whole tile lies inside: no test a row
+#pragma unroll
+    for (int n = 0; n < ROWS / STEP; ++n)
+      cp_async16(d + n * STEP * LD, s + n * s_step, 16u);
+    return;
   }
-  __syncthreads();
-
-  const int nk = Lk / bk;
-  const long long q_last =
-      q_off + static_cast<long long>(row0 + bq - 1) * stride;
-  for (int ik = 0; ik < nk; ++ik) {
-    const int col0 = ik * bk;
-    // the same value in every thread: the whole block stops together
-    if (causal && q_last < k_off + static_cast<long long>(col0) * stride)
-      break;
-    load_tile(k_s, ldt, k, col0, bk, H, h, D);
-    load_tile(v_s, ldt, v, col0, bk, H, h, D);
-    __syncthreads();
-
-    mm<false, true>(q_s, ldt, k_s, ldt, s_s, lds, bq, bk, D, false);
-    __syncthreads();
-
-    for (int r = warp; r < bq; r += WARPS) {
-      const long long q_pos =
-          q_off + static_cast<long long>(row0 + r) * stride;
-      float mx = NEG_INF;
-      for (int c = lane; c < bk; c += 32) {
-        float s = s_s[r * lds + c] * scale;
-        if (causal && q_pos < k_off + static_cast<long long>(col0 + c) * stride)
-          s = NEG_INF;
-        s_s[r * lds + c] = s;
-        mx = fmaxf(mx, s);
-      }
-      mx = warp_max(mx);
-      const float m_prev = m_s[r];
-      const float m_cur = fmaxf(m_prev, mx);
-      // rows with nothing unmasked yet keep exp() exactly 0
-      const float keep = (m_cur > NEG_INF * 0.5f) ? 1.f : 0.f;
-      float sum = 0.f;
-      for (int c = lane; c < bk; c += 32) {
-        const float p = expf(s_s[r * lds + c] - m_cur) * keep;
-        sum += p;
-        p_s[r * ldp + c] = from_f32<T>(p);
-      }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        const float alpha = expf(m_prev - m_cur);
-        a_s[r] = alpha;
-        l_s[r] = alpha * l_s[r] + sum;
-        m_s[r] = m_cur;
-      }
-    }
-    __syncthreads();
-
-    for (int i = tid; i < bq * D; i += THREADS) {
-      const int r = i / D, c = i % D;
-      acc[r * lda + c] *= a_s[r];
-    }
-    __syncthreads();
-    mm<false, false>(p_s, ldp, v_s, ldt, acc, lda, bq, D, bk, true);
-    __syncthreads();
-  }
-
-  if (emit_stats) {
-    float* o = static_cast<float*>(o_out);
-    for (int i = tid; i < bq * D; i += THREADS) {
-      const int r = i / D, c = i % D;
-      o[(static_cast<size_t>(row0 + r) * H + h) * D + c] = acc[r * lda + c];
-    }
-    for (int r = tid; r < bq; r += THREADS) {
-      m_out[static_cast<size_t>(h) * Lq + row0 + r] = m_s[r];
-      l_out[static_cast<size_t>(h) * Lq + row0 + r] = l_s[r];
-    }
-  } else {
-    T* o = static_cast<T*>(o_out);
-    for (int i = tid; i < bq * D; i += THREADS) {
-      const int r = i / D, c = i % D;
-      const float l = l_s[r];
-      o[(static_cast<size_t>(row0 + r) * H + h) * D + c] =
-          from_f32<T>(acc[r * lda + c] / (l == 0.f ? 1.f : l));
-    }
+#pragma unroll
+  for (int n = 0; n < ROWS / STEP; ++n) {
+    const bool in = row0 + r0 + n * STEP < L;
+    cp_async16(d + n * STEP * LD, in ? s + n * s_step : src, in ? 16u : 0u);
   }
 }
 
-template <typename T>
-int launch_fwd(int emit_stats, const void* q, const void* k, const void* v,
-               void* o, float* m, float* l, int Lq, int Lk, int H, int D,
-               int bq, int bk, int causal, int q_off, int k_off, int stride,
-               float scale, cudaStream_t stream) {
-  const size_t smem = smem_fwd(sizeof(T), bq, bk, D);
-  if (int e = set_smem(flash_fwd_kernel<T>, smem)) return e;
-  dim3 grid(Lq / bq, H);
-  flash_fwd_kernel<T><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), o, m, l, Lq, Lk, H, D, bq, bk, causal, q_off,
-      k_off, stride, scale, emit_stats);
+// Rows [0, RT) of a thread's values to shared memory as RT / 4 float4s
+template <int RT>
+__device__ __forceinline__ void store_rows(float* dst, const float (&x)[RT]) {
+#pragma unroll
+  for (int i = 0; i < RT; i += 4)
+    *reinterpret_cast<float4*>(dst + i) =
+        make_float4(x[i], x[i + 1], x[i + 2], x[i + 3]);
+}
+template <int RT>
+__device__ __forceinline__ void load_rows(float (&x)[RT], const float* src) {
+#pragma unroll
+  for (int i = 0; i < RT; i += 4) {
+    const float4 f = *reinterpret_cast<const float4*>(src + i);
+    x[i] = f.x;
+    x[i + 1] = f.y;
+    x[i + 2] = f.z;
+    x[i + 3] = f.w;
+  }
+}
+
+// FLASH_MARK phases: prologue, qk, max_exchange, softmax, wait_v, pv, wait_k, epilogue
+// (phase marks for scripts/flash_f32_phases.py; nothing unless it builds
+// this file with its header)
+#ifndef FLASH_MARK
+#define FLASH_MARK_START
+#define FLASH_MARK(n)
+#endif
+
+template <int D, int RT>
+__global__ void __launch_bounds__(F32Fwd<D, RT>::THREADS,
+                                  F32Fwd<D, RT>::MIN_BLOCKS)
+    flash_fwd_f32_kernel(const float* __restrict__ q,  // [Lq, H, D]
+                         const float* __restrict__ k,  // [Lk, H, D]
+                         const float* __restrict__ v,  // [Lk, H, D]
+                         void* __restrict__ o_out,  // [Lq, H, D] f32
+                         float* __restrict__ m_out,  // [H, Lq] (stats only)
+                         float* __restrict__ l_out,  // [H, Lq] (stats only)
+                         int Lq, int Lk, int H, int causal, int q_off,
+                         int k_off, int stride, float scale, int emit_stats) {
+  using C = F32Fwd<D, RT>;
+  constexpr int BQ = C::BQ, BK = C::BK, NT = C::THREADS, NTX = C::NTX,
+                KW = C::KW;
+  FLASH_MARK_START;
+  extern __shared__ __align__(128) unsigned char smem[];
+  Carve cv(smem);  // the regions of smem_fwd, in order
+  float* q_s = cv.take<float>(BQ * C::LDQ);
+  float* k_s = cv.take<float>(BK * C::LDK);
+  float* v_s = cv.take<float>(BK * C::LDV);
+  float* p_s = cv.take<float>(BK * C::LDP);  // P^T: [key][row slot]
+  float* red = cv.take<float>(KW * BQ);   // row max of each warp's keys
+  float* lred = cv.take<float>(KW * BQ);  // row sum of each warp's keys
+
+  // thread (ty, tx): rows ty + 8i, keys tx + NTX j of a k-tile, output
+  // columns 4tx + e, and row slots ty RT + i in P and the exchanges; a
+  // warp is 4 ty by 8 tx, so a row's keys lie in KW warps (its row
+  // group, 1 + warp / KW), and a warp's shared reads of q, k, p and v
+  // are each one pass
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int ty = 4 * (warp / KW) + (lane >> 3);
+  const int kw = warp % KW, tx = 8 * kw + (lane & 7);
+  const int slot = ty * RT;
+  const int h = blockIdx.x;
+  const int n_units = (Lq + BQ - 1) / BQ, nk = (Lk + BK - 1) / BK;
+
+  // this block's q-units: n_units - 1 - p, then p (the heavier first;
+  // once for the middle unit of an odd count), each with its live tiles
+  int unit[2], n_live[2], cnt = 0;
+  for (int s = 0; s < 2; ++s) {
+    const int u = s == 0 ? n_units - 1 - blockIdx.y : blockIdx.y;
+    if (s == 1 && u == unit[0]) break;
+    const long long q_last =
+        q_off + static_cast<long long>(min((u + 1) * BQ, Lq) - 1) * stride;
+    unit[cnt] = u;
+    n_live[cnt++] = live_k_tiles(causal, q_last, k_off, stride, BK, nk);
+  }
+  auto next_live = [&](int s) {
+    for (++s; s < cnt && n_live[s] == 0; ++s) {
+    }
+    return s;
+  };
+  auto load_q = [&](int u) {
+    stage_rows<D, BQ, C::LDQ, NT>(q_s, q, u * BQ, Lq, H, h);
+  };
+  auto load_k = [&](int it) {
+    stage_rows<D, BK, C::LDK, NT>(k_s, k, it * BK, Lk, H, h);
+  };
+  auto load_v = [&](int it) {
+    stage_rows<D, BK, C::LDV, NT>(v_s, v, it * BK, Lk, H, h);
+  };
+
+  // Two cp.async groups ahead of the loop: q and k-tile 0, then v-tile
+  // 0.  Each k-tile then stages while the tile before runs its P V, each
+  // v-tile while its own S and softmax run; a unit's last tile stages
+  // the next unit's q and first tiles.
+  if (next_live(-1) < cnt) {
+    load_q(unit[next_live(-1)]);
+    load_k(0);
+    cp_async_commit();
+    load_v(0);
+    cp_async_commit();
+  }
+
+  for (int s = 0; s < cnt; ++s) {
+    const int row0 = unit[s] * BQ;
+    float o[RT][4];
+    float m[RT], l[RT];
+    long long q_pos[RT];
+#pragma unroll
+    for (int i = 0; i < RT; ++i) {
+      m[i] = NEG_INF;
+      l[i] = 0.f;
+      q_pos[i] = q_off + static_cast<long long>(row0 + ty + 8 * i) * stride;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) o[i][c] = 0.f;
+    }
+    const int n_tiles = n_live[s], ns = next_live(s);
+    const long long q_first = q_off + static_cast<long long>(row0) * stride;
+    if (n_tiles > 0) {
+      cp_async_wait<1>();  // q and k-tile 0 (v-tile 0 may be in flight)
+      __syncthreads();
+    }
+    FLASH_MARK(0);
+
+    for (int it = 0; it < n_tiles; ++it) {
+      // S = Q K^T: RT x 4 scores a thread, summed over D in order
+      float sc[RT][4];
+#pragma unroll
+      for (int i = 0; i < RT; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) sc[i][j] = 0.f;
+#pragma unroll
+      for (int d0 = 0; d0 < D; d0 += 4) {
+        float4 kf[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          kf[j] = *reinterpret_cast<const float4*>(
+              k_s + (tx + NTX * j) * C::LDK + d0);
+#pragma unroll
+        for (int i = 0; i < RT; ++i) {
+          const float4 qf = *reinterpret_cast<const float4*>(
+              q_s + (ty + 8 * i) * C::LDQ + d0);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            sc[i][j] = fmaf(qf.x, kf[j].x, sc[i][j]);
+            sc[i][j] = fmaf(qf.y, kf[j].y, sc[i][j]);
+            sc[i][j] = fmaf(qf.z, kf[j].z, sc[i][j]);
+            sc[i][j] = fmaf(qf.w, kf[j].w, sc[i][j]);
+          }
+        }
+      }
+      FLASH_MARK(1);
+
+      // scale, then mask to NEG_INF: keys past Lk, and (causal) keys
+      // after the row; a tile below the unit's diagonal skips the test
+      const int col0 = it * BK;
+      const bool masked =
+          col0 + BK > Lk ||
+          (causal && q_first < k_off + static_cast<long long>(col0 + BK - 1) *
+                                           stride);
+      float mx[RT];
+#pragma unroll
+      for (int i = 0; i < RT; ++i) {
+        mx[i] = NEG_INF;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          float x = sc[i][j] * scale;
+          if (masked) {
+            const int key = col0 + tx + NTX * j;
+            if (key >= Lk ||
+                (causal &&
+                 q_pos[i] < k_off + static_cast<long long>(key) * stride))
+              x = NEG_INF;
+          }
+          sc[i][j] = x;
+          mx[i] = fmaxf(mx[i], x);
+        }
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 4));
+      }
+      if ((lane & 7) == 0) store_rows<RT>(red + kw * BQ + slot, mx);
+      // (A) the KW warps of these rows only (named barrier 1 or 2)
+      hopper::named_sync(1 + warp / KW, 32 * KW);
+      FLASH_MARK(2);
+
+      // the online softmax (Pallas _online_step): m <- max(m, tile max);
+      // p = exp(s - m), 0 while the row has seen no key (keep); l <-
+      // alpha l + sum p (this thread's keys; summed over the row at the
+      // end); P to shared memory unrounded
+      float tmax[RT], alpha[RT];
+      load_rows<RT>(tmax, red + slot);
+#pragma unroll
+      for (int w = 1; w < KW; ++w) {
+        float other[RT];
+        load_rows<RT>(other, red + w * BQ + slot);
+#pragma unroll
+        for (int i = 0; i < RT; ++i) tmax[i] = fmaxf(tmax[i], other[i]);
+      }
+#pragma unroll
+      for (int i = 0; i < RT; ++i) {
+        const float m_cur = fmaxf(m[i], tmax[i]);
+        alpha[i] = hopper::ex2((m[i] - m_cur) * LOG2E);
+        m[i] = m_cur;
+        const bool keep = m_cur > NEG_INF * 0.5f;
+        float sum = 0.f;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float p = keep ? hopper::ex2((sc[i][j] - m_cur) * LOG2E) : 0.f;
+          sc[i][j] = p;
+          sum += p;
+        }
+        l[i] = alpha[i] * l[i] + sum;
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float col[RT];
+#pragma unroll
+        for (int i = 0; i < RT; ++i) col[i] = sc[i][j];
+        store_rows<RT>(p_s + (tx + NTX * j) * C::LDP + slot, col);
+      }
+      FLASH_MARK(3);
+      cp_async_wait<0>();  // v-tile it
+      __syncthreads();     // (B) P and v visible to all; k (and q) read
+      if (it + 1 < n_tiles) {
+        load_k(it + 1);
+      } else if (ns < cnt) {
+        load_q(unit[ns]);
+        load_k(0);
+      }
+      cp_async_commit();  // perhaps empty: the group count stays in step
+      FLASH_MARK(4);
+
+      // O = alpha O + P V, over the tile's keys in order
+#pragma unroll
+      for (int i = 0; i < RT; ++i)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) o[i][c] *= alpha[i];
+#pragma unroll 16
+      for (int kk = 0; kk < BK; ++kk) {
+        float pv[RT];
+        load_rows<RT>(pv, p_s + kk * C::LDP + slot);
+        const float4 vv =
+            *reinterpret_cast<const float4*>(v_s + kk * C::LDV + 4 * tx);
+#pragma unroll
+        for (int i = 0; i < RT; ++i) {
+          o[i][0] = fmaf(pv[i], vv.x, o[i][0]);
+          o[i][1] = fmaf(pv[i], vv.y, o[i][1]);
+          o[i][2] = fmaf(pv[i], vv.z, o[i][2]);
+          o[i][3] = fmaf(pv[i], vv.w, o[i][3]);
+        }
+      }
+      FLASH_MARK(5);
+      cp_async_wait<0>();  // the next k-tile (and q)
+      __syncthreads();     // (C) v and P read by all
+      if (it + 1 < n_tiles) {
+        load_v(it + 1);
+      } else if (ns < cnt) {
+        load_v(0);
+      }
+      cp_async_commit();
+      FLASH_MARK(6);
+    }
+
+    // the row sums: this thread's, then the 8 lanes of its warp, then
+    // the KW warps in order (a fixed order: the same bits every run)
+    if (n_tiles > 0) {
+#pragma unroll
+      for (int i = 0; i < RT; ++i) {
+        l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+        l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+        l[i] += __shfl_xor_sync(0xffffffffu, l[i], 4);
+      }
+      if ((lane & 7) == 0) store_rows<RT>(lred + kw * BQ + slot, l);
+      __syncthreads();
+      load_rows<RT>(l, lred + slot);
+#pragma unroll
+      for (int w = 1; w < KW; ++w) {
+        float other[RT];
+        load_rows<RT>(other, lred + w * BQ + slot);
+#pragma unroll
+        for (int i = 0; i < RT; ++i) l[i] += other[i];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < RT; ++i) {
+      const int r = row0 + ty + 8 * i;
+      if (r >= Lq) continue;
+      float* row = static_cast<float*>(o_out) +
+                   (static_cast<size_t>(r) * H + h) * D + 4 * tx;
+      // K3 keeps o unnormalized (x / 1 is exact); K2: o / l, l == 0 -> 1
+      const float den = emit_stats || l[i] == 0.f ? 1.f : l[i];
+      *reinterpret_cast<float4*>(row) =
+          make_float4(o[i][0] / den, o[i][1] / den, o[i][2] / den,
+                      o[i][3] / den);
+      if (emit_stats && tx == 0) {
+        m_out[static_cast<size_t>(h) * Lq + r] = m[i];
+        l_out[static_cast<size_t>(h) * Lq + r] = l[i];
+      }
+    }
+    FLASH_MARK(7);
+  }
+}
+
+template <int D, int RT>
+int launch_f32(int emit_stats, const void* q, const void* k, const void* v,
+               void* o, float* m, float* l, int Lq, int Lk, int H,
+               int causal, int q_off, int k_off, int stride, float scale,
+               cudaStream_t stream) {
+  using C = F32Fwd<D, RT>;
+  auto kernel = flash_fwd_f32_kernel<D, RT>;
+  if (int e = set_smem(kernel, C::SMEM)) return e;
+  // the whole carveout to shared memory, so MIN_BLOCKS blocks fit an SM
+  if (cudaFuncSetAttribute(kernel,
+                           cudaFuncAttributePreferredSharedMemoryCarveout,
+                           cudaSharedmemCarveoutMaxShared) != cudaSuccess)
+    return static_cast<int>(cudaGetLastError());
+  const int units = (Lq + C::BQ - 1) / C::BQ;
+  dim3 grid(H, (units + 1) / 2);  // a block a pair of q-units
+  kernel<<<grid, C::THREADS, C::SMEM, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), o, m, l, Lq, Lk, H, causal, q_off, k_off,
+      stride, scale, emit_stats);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_f32_rows(int bq, int emit_stats, const void* q, const void* k,
+                    const void* v, void* o, float* m, float* l, int Lq,
+                    int Lk, int H, int causal, int q_off, int k_off,
+                    int stride, float scale, cudaStream_t st) {
+  return bq == 64 ? launch_f32<D, 8>(emit_stats, q, k, v, o, m, l, Lq, Lk, H,
+                                     causal, q_off, k_off, stride, scale, st)
+                  : launch_f32<D, 4>(emit_stats, q, k, v, o, m, l, Lq, Lk, H,
+                                     causal, q_off, k_off, stride, scale, st);
+}
+
+// the f32 kernel's shapes: D 64 or 128, a tile (32 or 64, D), any lengths
+inline bool shapes_ok_f32(int Lq, int Lk, int H, int D, int bq, int bk,
+                          int stride) {
+  return Lq > 0 && Lk > 0 && H > 0 && (D == 64 || D == 128) &&
+         (bq == 32 || bq == 64) && bk == D &&
+         ((Lq + bq - 1) / bq + 1) / 2 <= 65535 && stride >= 1;
 }
 
 
@@ -617,12 +936,12 @@ extern "C" {
 // (wgmma) kernel's for in_bytes 2, the f32 kernel's for 4.
 size_t flash_fwd_smem_bytes(int in_bytes, int bq, int bk, int D) {
   return in_bytes == 2 ? flash::smem_fwd_bf16(bq, bk, D)
-                       : flash::smem_fwd(in_bytes, bq, bk, D);
+                       : flash::smem_fwd(bq, bk, D);
 }
 
-// kind: 0 float32 (the scalar kernel; tiles multiples of 16 that divide
-// the lengths), 1 bfloat16 (the wgmma kernel; tiles 64 or 128, D 64 or
-// 128, any lengths) for q, k, v and, without stats, o.
+// kind: 0 float32 (the register-tiled FFMA kernel; tiles (32 or 64, D),
+// D 64 or 128, any lengths), 1 bfloat16 (the wgmma kernel; tiles 64 or 128,
+// D 64 or 128, any lengths) for q, k, v and, without stats, o.
 // emit_stats 1: o is f32 [Lq, H, D] unnormalized, m and l f32 [H, Lq]
 // (K3); 0: o is normalized in q's dtype, m and l unused (K2).
 // Launches on ``stream`` and returns cudaGetLastError() (0 on
@@ -633,11 +952,16 @@ int flash_fwd(int kind, int emit_stats, const void* q, const void* k,
               int stride, float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (kind == 0) {
-    if (!flash::shapes_ok(Lq, Lk, H, D, bq, bk, stride))
+    if (!flash::shapes_ok_f32(Lq, Lk, H, D, bq, bk, stride))
       return static_cast<int>(cudaErrorInvalidValue);
-    return flash::launch_fwd<float>(emit_stats, q, k, v, o, m, l, Lq, Lk, H,
-                                    D, bq, bk, causal, q_off, k_off, stride,
-                                    scale, st);
+    return D == 64 ? flash::launch_f32_rows<64>(bq, emit_stats, q, k, v, o,
+                                                m, l, Lq, Lk, H, causal,
+                                                q_off, k_off, stride, scale,
+                                                st)
+                   : flash::launch_f32_rows<128>(bq, emit_stats, q, k, v, o,
+                                                 m, l, Lq, Lk, H, causal,
+                                                 q_off, k_off, stride, scale,
+                                                 st);
   }
   if (kind == 1) {
     if (!flash::shapes_ok_bf16(Lq, Lk, H, D, bq, bk, stride))

@@ -1,6 +1,8 @@
 // Shared pieces of the f32 flash-attention kernels (flash_attention.cu,
 // flash_attention_bwd.cu) for Hopper (sm_90a); the bf16 kernels' are in
-// flash_wgmma.cuh.
+// flash_wgmma.cuh.  The scalar staging and products below (load_tile,
+// mm) are the f32 backward's; the f32 forward keeps its tiles in
+// registers (flash_attention.cu).
 //
 // Layout: q/k/v/do are [L, H, D] row-major (the JAX package's layout;
 // the train step folds batch into H); row statistics are [H, L] f32.
@@ -36,7 +38,7 @@ struct Pad {
   static constexpr int value = 16 / static_cast<int>(sizeof(T));
 };
 
-__host__ __device__ inline size_t region(size_t bytes) {
+__host__ __device__ constexpr size_t region(size_t bytes) {
   return (bytes + REGION_ALIGN - 1) / REGION_ALIGN * REGION_ALIGN;
 }
 
@@ -64,19 +66,6 @@ __device__ __forceinline__ float from_f32<float>(float x) {
 template <>
 __device__ __forceinline__ bf16 from_f32<bf16>(float x) {
   return __float2bfloat16(x);  // round to nearest even, as astype
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
 }
 
 // rows [row0, row0 + rows) of head h of src [L, H, D] -> dst [rows][ld],
@@ -149,13 +138,17 @@ __device__ __forceinline__ void mm(const float* A, int lda, const float* B,
 }
 
 // Shared-memory bytes of each kernel, region by region in carve order
-// (see the kernels and tuning.py::smem_bytes).
-inline size_t smem_fwd(int ib, int bq, int bk, int D) {
-  const size_t ldt = D + 16 / ib, lds = bk + 4, ldp = bk + 16 / ib,
-               lda = D + 4;
-  return region(bq * ldt * ib) + 2 * region(bk * ldt * ib) +
-         region(bq * lds * 4) + region(bq * ldp * ib) + region(bq * lda * 4) +
-         3 * region(bq * 4);
+// (see the kernels and tuning.py::smem_bytes).  The forward
+// (flash_attention.cu::flash_fwd_f32_kernel): q [bq][D + 4], k
+// [bk][D + 4], v [bk][D], P^T [bk][bq + 4] and two [bk / 32][bq] row
+// exchanges (max, sum: one row of each a warp that shares the rows),
+// all f32.
+__host__ __device__ constexpr size_t smem_fwd(int bq, int bk, int D) {
+  return region(static_cast<size_t>(bq) * (D + 4) * 4) +
+         region(static_cast<size_t>(bk) * (D + 4) * 4) +
+         region(static_cast<size_t>(bk) * D * 4) +
+         region(static_cast<size_t>(bk) * (bq + 4) * 4) +
+         2 * region(static_cast<size_t>(bk / 32) * bq * 4);
 }
 
 inline size_t smem_dq(int ib, int bq, int bk, int D) {

@@ -15,9 +15,10 @@ Counterpart of ``tpu_patterns/longctx/flash.py`` on one device:
 On a CUDA tensor each wrapper launches its hand-written kernels
 (``longctx/csrc/flash_attention.cu`` for K2/K3,
 ``longctx/csrc/flash_attention_bwd.cu`` for K4's dq and dk/dv kernels;
-by dtype, the wgmma kernels with TMA loads for bfloat16 and the scalar
-kernels for float32, whose tensor-core product would be TF32; built for
-sm_90a at first use) or raises; on a CPU tensor it runs its
+by dtype, the wgmma kernels with TMA loads for bfloat16, and for
+float32 the register-tiled FFMA forward with cp.async staging and the
+scalar backward kernels, since a tensor-core f32 product would be TF32;
+built for sm_90a at first use) or raises; on a CPU tensor it runs its
 plain-torch version (``*_reference``), which rounds at the same points
 as the kernels.  There is no other path.  Each launch adds one to its
 count in :data:`LAUNCHES`.
@@ -25,10 +26,12 @@ count in :data:`LAUNCHES`.
 Tiles: (block_q, block_k) is clamped by ``tuning._auto_block`` to the
 largest pair that fits the card's shared memory, and must divide the
 sequence lengths (the reference's error), except for the bfloat16
-kernels, whose sides are 64 or 128 and which mask a ragged edge; from
-the one request the bfloat16 backward's dq and dk/dv kernels each take
-their own pair (:func:`_bwd_tiles`; the order in which they walk their
-tiles is :func:`bwd_schedule`).  ``grid_mode="compact"`` keeps
+kernels, whose sides are 64 or 128, and the float32 forward, whose tile
+is (64 or 32, head_dim): those mask a ragged edge.  From the one
+request the bfloat16 backward's dq and dk/dv kernels each take their
+own pair (:func:`_bwd_tiles`; the order in which they walk their tiles
+is :func:`bwd_schedule`; the float32 forward's, :func:`fwd_schedule`).
+``grid_mode="compact"`` keeps
 the reference's validation (causal only; static zero offsets and unit
 stride; Lq == Lk for the backward).  The kernels themselves walk each
 q-tile's causally live k-tiles only, in ascending order, on both grid
@@ -49,9 +52,11 @@ from tpu_patterns_torch.longctx.tuning import (
     DEFAULT_BLOCK_K,
     DEFAULT_BLOCK_Q,
     FWD_BF16_SIDES,
+    FWD_F32_Q_SIDES,
     MIN_TILE,
     NEG_INF,
     _auto_block,
+    sm_count,
     smem_budget,
 )
 
@@ -146,6 +151,27 @@ def bwd_schedule(kind, lq, lk, bq, bk, causal=True, q_off=0, k_off=0,
     raise ValueError(f"unknown backward kernel {kind!r}")
 
 
+def fwd_schedule(lq, lk, bq, bk, causal=True, q_off=0, k_off=0,
+                 pos_stride=1):
+    """The walk of the float32 forward kernel at tile (bq, bk) (q-units
+    of bq rows, k-tiles of bk keys), as
+    ``flash_attention.cu::flash_fwd_f32_kernel`` plans it: per block of
+    a head, in launch order, its [(q-unit, [the k-tiles it loads, in
+    order])].  Block p takes q-units n - 1 - p and p (the heavier first;
+    the middle unit of an odd count alone), each with its k-tiles 0 ..
+    its last live one, so a causal triangle's blocks carry equal work.
+    Lengths may be ragged."""
+    nq, nk = -(-lq // bq), -(-lk // bk)
+
+    def walk(u):
+        q_last = q_off + (min((u + 1) * bq, lq) - 1) * pos_stride
+        return (u, list(range(_live_k_tiles(causal, q_last, k_off,
+                                            pos_stride, bk, nk))))
+
+    return [[walk(u) for u in dict.fromkeys((nq - 1 - p, p))]
+            for p in range((nq + 1) // 2)]
+
+
 # -- plain versions -------------------------------------------------------------
 
 
@@ -229,11 +255,18 @@ def _blocks(q, k, kinds, block_q, block_k):
     lq, _, d = q.shape
     lk = k.shape[0]
     bq, bk = _auto_block(lq, lk, d, q.element_size(), kinds, block_q,
-                         block_k, smem_budget(q.device))
+                         block_k, smem_budget(q.device), heads=q.shape[1],
+                         sms=sm_count(q.device))
+    if kinds == ("fwd",) and q.dtype != torch.bfloat16:
+        # the float32 forward masks a ragged edge itself; a request that
+        # does not divide the lengths keeps the reference's error
+        shown = (min(block_q, lq), min(block_k, lk))
+    else:
+        shown = (bq, bk)
     ragged_ok = len(kinds) == 1 and q.dtype == torch.bfloat16
-    if (lq % bq or lk % bk) and not ragged_ok:
+    if (lq % shown[0] or lk % shown[1]) and not ragged_ok:
         raise ValueError(
-            f"block sizes ({bq}, {bk}) must divide the sequence lengths "
+            f"block sizes {shown} must divide the sequence lengths "
             f"({lq}, {lk})"
         )
     return bq, bk
@@ -318,22 +351,34 @@ def _raise_rc(what, rc, bq, bk, d, smem_bytes):
         )
 
 
+def _check_fwd_shape(what, dtype, d, bq, bk):
+    """Refuse a head_dim or tile the forward kernel of ``dtype`` does not
+    take: bfloat16 head_dim 64 or 128 and tiles of 64 or 128 a side,
+    float32 head_dim 64 or 128 and tiles (32 or 64, head_dim)."""
+    if dtype == torch.bfloat16:
+        ok = bq in FWD_BF16_SIDES and bk in FWD_BF16_SIDES
+        tiles = f"tiles of {FWD_BF16_SIDES} a side"
+    else:
+        ok = bq in FWD_F32_Q_SIDES and bk == d
+        tiles = f"tiles with block_q in {FWD_F32_Q_SIDES} and block_k = D"
+    if d not in (64, 128) or not ok:
+        name = str(dtype).removeprefix("torch.")
+        raise ValueError(
+            f"{what}: the {name} kernel takes head_dim 64 or 128 and "
+            f"{tiles}, not D={d}, ({bq}, {bk})")
+
+
 def _launch_fwd(q, k, v, q_off, k_off, causal, scale, bq, bk, pos_stride,
                 emit_stats):
     """K2 or K3.  The kernel is chosen by dtype: bfloat16 runs the wgmma
-    kernel (tiles of 64 or 128, head_dim 64 or 128), float32 the scalar
-    one (a tensor-core f32 product would be TF32).  A failed build or
-    launch raises; neither kernel stands in for the other."""
+    kernel, float32 the register-tiled FFMA one (a tensor-core f32
+    product would be TF32); :func:`_check_fwd_shape` says what each
+    takes.  A failed build or launch raises; neither kernel stands in
+    for the other."""
     what = "flash_block" if emit_stats else "flash_attention"
     _cuda_inputs(what, q, k, v)
-    _check_tiles(what, bq, bk)
     lq, h, d = q.shape
-    if q.dtype == torch.bfloat16 and (
-            d not in (64, 128) or bq not in FWD_BF16_SIDES
-            or bk not in FWD_BF16_SIDES):
-        raise ValueError(f"{what}: the bfloat16 kernel takes head_dim 64 "
-                         f"or 128 and tiles of 64 or 128, not D={d}, "
-                         f"({bq}, {bk})")
+    _check_fwd_shape(what, q.dtype, d, bq, bk)
     lk = k.shape[0]
     dev = q.device
     if emit_stats:

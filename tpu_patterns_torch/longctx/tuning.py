@@ -14,9 +14,11 @@ The bf16 kernels (wgmma) take tiles of 64 or 128 a side, 64 rows or
 keys per consumer warpgroup, and mask a ragged edge, so their tile need
 not divide the lengths: the forward either pair, the backward's dq
 kernel (64 or 128 rows, 64 keys) and its dk/dv kernel (64 rows, 64 or
-128 keys) each its own pair from the one request.  The float32 kernels
-take multiples of 16 that divide the lengths, one pair for both
-backward kernels.
+128 keys) each its own pair from the one request.  The float32 forward
+(register-tiled FFMA) takes q-units of 64 rows where their grid fills
+the card and of 32 elsewhere, by k-tiles of head_dim keys (64 or 128),
+and masks a ragged edge too.  The float32 backward kernels take
+multiples of 16 that divide the lengths, one pair for both.
 """
 
 from __future__ import annotations
@@ -38,10 +40,17 @@ DEFAULT_BLOCK_K = 1024
 # An H100's opt-in shared memory per block (Hopper tuning guide): the
 # budget for CPU tensors, which have no card to ask.
 H100_SMEM_OPTIN = 232448
+# ... and its streaming multiprocessors
+H100_SMS = 132
 # The float32 kernels' tiles are multiples of 16 (flash_common.cuh).
 MIN_TILE = 16
 # The bf16 forward's tile sides, largest first (64 rows per warpgroup).
 FWD_BF16_SIDES = (128, 64)
+# The f32 forward's sides, largest first: rows of a q-unit (8 or 4 a
+# thread) and keys of a k-tile, as many as the head_dim (a block has
+# 2 x keys threads; flash_attention.cu's F32Fwd)
+FWD_F32_Q_SIDES = (64, 32)
+FWD_F32_K_SIDES = (128, 64)
 # The bf16 backward's: the side a block owns (dq's rows, dk/dv's keys),
 # largest first, and the side it streams (dq's keys, dk/dv's rows).
 BWD_BF16_SIDES = (128, 64)
@@ -95,8 +104,10 @@ def smem_bytes(kind: str, bq: int, bk: int, d: int, in_bytes: int) -> int:
     (:func:`fwd_stages` (k, v) pairs; :func:`bwd_stages` (k, v) pairs
     for dq, (q, do) pairs with their rows' f32 lse and delta for dk/dv)
     and 256 B of mbarriers.  The float32 kernels: the regions the
-    kernel carves, in order, each rounded up to 128 B; rows are padded
-    by 16 B (bank spread)."""
+    kernel carves, in order, each rounded up to 128 B.  The forward's
+    (``flash_common.cuh::smem_fwd``): q and k rows padded by 4 floats,
+    v unpadded, P^T [bk][bq + 4] and two [bk / 32][bq] row exchanges;
+    the backward's rows are padded by 16 B (bank spread)."""
     if in_bytes == 2:
         tile = d * 2  # bytes of one bf16 row
         own, ring = {
@@ -111,10 +122,9 @@ def smem_bytes(kind: str, bq: int, bk: int, d: int, in_bytes: int) -> int:
     lda = d + 4  # float32 accumulator rows
     ib = in_bytes
     regions = {
-        # q, k, v, s, p, acc, m, l, alpha
-        "fwd": [(bq * ldt, ib), (bk * ldt, ib), (bk * ldt, ib),
-                (bq * lds, 4), (bq * ldp, ib), (bq * lda, 4),
-                (bq, 4), (bq, 4), (bq, 4)],
+        # q, k, v, P^T, row max and row sum of each warp sharing a row
+        "fwd": [(bq * (d + 4), 4), (bk * (d + 4), 4), (bk * d, 4),
+                (bk * (bq + 4), 4), (bk // 32 * bq, 4), (bk // 32 * bq, 4)],
         # q, do, k, v, s, dp, ds, dq, lse, delta
         "dq": [(bq * ldt, ib), (bq * ldt, ib), (bk * ldt, ib),
                (bk * ldt, ib), (bq * lds, 4), (bq * lds, 4),
@@ -129,6 +139,15 @@ def smem_bytes(kind: str, bq: int, bk: int, d: int, in_bytes: int) -> int:
                for n, size in regions)
 
 
+def sm_count(device: torch.device | str) -> int:
+    """Streaming multiprocessors of ``device``'s card; the H100's for a
+    CPU device."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return H100_SMS
+    return int(torch.cuda.get_device_properties(dev).multi_processor_count)
+
+
 def smem_budget(device: torch.device | str) -> int:
     """Opt-in shared memory per block of ``device``'s card; the H100's
     for a CPU device."""
@@ -141,7 +160,8 @@ def smem_budget(device: torch.device | str) -> int:
 
 def _auto_block(lq: int, lk: int, d: int, in_bytes: int,
                 kinds: tuple[str, ...], block_q: int, block_k: int,
-                budget: int = H100_SMEM_OPTIN) -> tuple[int, int]:
+                budget: int = H100_SMEM_OPTIN, heads: int = 1,
+                sms: int = H100_SMS) -> tuple[int, int]:
     """Largest (block_q, block_k) pair <= the requested sizes (clamped to
     the sequence lengths, then halved, the larger side first) whose
     shared memory fits ``budget`` in every kernel of ``kinds``.  A bf16
@@ -150,7 +170,12 @@ def _auto_block(lq: int, lk: int, d: int, in_bytes: int,
     :data:`FWD_BF16_SIDES` (:data:`BWD_BF16_SIDES`): the largest <= the
     request (64 at least) that divides the length, else 64, whose ragged
     edge the kernel masks; the backward's streamed side is
-    :data:`BWD_STREAM`."""
+    :data:`BWD_STREAM`.  The float32 forward (``in_bytes`` 4, kinds
+    ``("fwd",)``; ``heads`` heads, a card of ``sms`` SMs) takes the
+    largest of :data:`FWD_F32_Q_SIDES` <= the request whose grid (a
+    block a pair of q-units, each head) holds a block for every SM, else
+    32, and the largest of :data:`FWD_F32_K_SIDES` not above the
+    head_dim (64 for a smaller one); every such pair fits the budget."""
 
     def est(bq: int, bk: int) -> int:
         return max(smem_bytes(k, bq, bk, d, in_bytes) for k in kinds)
@@ -158,6 +183,14 @@ def _auto_block(lq: int, lk: int, d: int, in_bytes: int,
     if in_bytes == 2 and ("dq" in kinds or "dkv" in kinds) and len(kinds) > 1:
         raise ValueError("the bfloat16 backward kernels take a tile pair "
                          "each: ask for ('dq',) and ('dkv',) apart")
+    if in_bytes == 4 and kinds == ("fwd",):
+        def fills(bq: int) -> bool:  # a block a pair of q-units, each head
+            return heads * ((-(-lq // bq) + 1) // 2) >= sms
+
+        return (next(t for t in FWD_F32_Q_SIDES if t == FWD_F32_Q_SIDES[-1]
+                     or (t <= block_q and fills(t))),
+                next(t for t in FWD_F32_K_SIDES
+                     if t <= d or t == FWD_F32_K_SIDES[-1]))
     if in_bytes == 2 and kinds in (("fwd",), ("dq",), ("dkv",)):
         sides = FWD_BF16_SIDES if kinds == ("fwd",) else BWD_BF16_SIDES
 
