@@ -34,14 +34,14 @@ Phases, each one or more printed lines:
    one process per source, all at once; then the ``kernel_build`` line:
    each instance of the redesigned kernels (the bf16 wgmma forward of
    K2/K3 and its register-tiled f32 forward, the bf16 wgmma backward of
-   K4, dq and dk/dv, the all-SM mono,
+   K4, dq and dk/dv, and its register-tiled f32 backward, the all-SM mono,
    multi and in-place puts K8a, K8c and K8d, the register-streamed puts
    K8b and K9, the split-page K1, the streaming adds K5 and K10) with its
    registers,
    spills, static and dynamic shared memory from ``-Xptxas -v`` and
    whether ptxas serialized its wgmma products (a bf16 backward instance
-   that spills or is serialized, or an f32 forward instance that spills,
-   fails);
+   that spills or is serialized, or an f32 forward or backward instance
+   that spills, fails);
 3. K1 vs plain: the split-page paged-attention kernel against its plain
    torch version on the card, for f32, bf16 and int8 pools, W=1, W=4
    and W=5 (the verify step of spec_k 4), G=1 and G=4, ragged pos0,
@@ -65,14 +65,16 @@ Phases, each one or more printed lines:
    offsets (0,0,1), (16,32,1), (2,5,8), Lq != Lk, wholly masked rows,
    and the flagship's shape (32 folded heads x 4096 x 128, bf16,
    causal), where two runs must also agree bit for bit (so must two f32
-   runs of K2 and K3 at L4096 x 8 x 128, causal) and the tile model must
-   equal the kernels' own shared-memory sizes (the bf16 forward and
-   backward at the flagship's tiles, the f32 forward at D 64 and 128);
-   the bf16 kernels also at lengths that are no multiple of their tile
-   (K3, K2 and K4, Lq/Lk 100/200, 130/130, 40/72; K4 also at its
-   two-warpgroup tiles for D 64, 256/384), and the f32 forward (K3, K2)
-   at those lengths too, and at 64 heads (its 64-row units), ragged, at
-   an offset and a stride; then each
+   runs of K2, K3 and K4 at L4096 x 8 x 128, causal) and the tile model
+   must equal the kernels' own shared-memory sizes (the bf16 forward and
+   backward at the flagship's tiles, the f32 forward and backward at
+   each of their tiles, D 64 and 128); the bf16 kernels also at lengths
+   that are no multiple of their tile (K3, K2 and K4, Lq/Lk 100/200,
+   130/130, 40/72; K4 also at its two-warpgroup tiles for D 64,
+   256/384), and the f32 kernels (K3, K2, K4) at those lengths too (K3
+   and K4 also with the first half of the rows seeing no key, where
+   K4's dq must be exactly zero), and at 64 heads (their 64-entry
+   units), ragged, at an offset and a stride; then each
    flash kernel's time at that shape (L2 flushed) beside its plain
    version's, one SDPA call's (forward for K2/K3, its backward for K4)
    and its bound (bytes over 3.35 TB/s or visible-key flops over 989
@@ -367,10 +369,11 @@ Phases, each one or more printed lines:
     contiguous (a wholly masked pair, the diagonal, a pair with no key
     masked) and striped at stride 4; then K2 (the whole 4096-token
     sequence), K3 and K4 (a shard pair with no key masked and the
-    diagonal) in float32 (K2/K3 the register-tiled forward, K4 the scalar
-    kernels), each beside its plain version, one SDPA call in float32
-    and its f32 bound (alone, with the f32 forward's registers and the
-    f32 CLI legs' TFLOP/s, as ``--tree TREE flash_f32_time``); (b) ``longctx``
+    diagonal) in float32 (the register-tiled kernels), each beside its
+    plain version, one SDPA call in float32 and its f32 bound (alone,
+    with the f32 kernels' registers, the diagonal-over-full ratios and
+    the f32 CLI legs' TFLOP/s, forward and ``--grad``, as ``--tree TREE
+    flash_f32_time``); (b) ``longctx``
     through the CLI at ``LongCtxConfig``'s defaults (float32, seq 4096,
     8 x 128, causal): ``--devices 1`` (ring, ulysses and flash, and the
     agreement Record) and ``--devices 4`` with each of ring,
@@ -469,15 +472,22 @@ REDESIGNED_BEFORE_MS = {"flash_block": 4.485, "flash_attention": 4.539,
                         "accumulate n=2^25": 0.1410,
                         "local_put_streamed": 0.1381, "ring_put": 0.1372,
                         "add_one": 0.09865}
-# the f32 forward's times before its redesign (the scalar kernel, this
-# script's phase 19 leg a, same card and power limit), beside this run's
+# the f32 kernels' times before their redesign (the scalar kernels, this
+# script's phase 19 leg a on NVIDIA H100 80GB HBM3, 700.00 W), beside
+# this run's
 F32_BEFORE_MS = {"flash_attention": 5.918, "flash_block full": 0.5918,
-                 "flash_block diagonal": 0.5921}
+                 "flash_block diagonal": 0.5921,
+                 "flash_block_bwd_dq full": 0.9499,
+                 "flash_block_bwd_dq diagonal": 0.7914,
+                 "flash_block_bwd_dkv full": 1.074,
+                 "flash_block_bwd_dkv diagonal": 1.056}
 # kernel library -> the kernels redesigned for the card (name prefixes)
 # whose -Xptxas -v report the kernel_build line carries
 REDESIGNED_LIBS = {"flash_attention": ("flash_fwd_wgmma_kernel",
                                        "flash_fwd_f32_kernel"),
-                   "flash_attention_bwd": ("flash_bwd_wgmma_",),
+                   "flash_attention_bwd": ("flash_bwd_wgmma_",
+                                           "flash_bwd_dq_f32_kernel",
+                                           "flash_bwd_dkv_f32_kernel"),
                    "local_put": ("local_put_mono_kernel",
                                  "local_put_streamed_kernel",
                                  "local_put_multi_kernel",
@@ -491,6 +501,8 @@ REDESIGNED_LIBS = {"flash_attention": ("flash_fwd_wgmma_kernel",
 BWD_WGMMA = re.compile(r"flash_bwd_wgmma_(dq|dkv)_kernel<D=(\d+),NC=(\d+)>")
 # the f32 forward's instances (a head_dim and rows a thread each)
 FWD_F32 = re.compile(r"flash_fwd_f32_kernel<D=(\d+),RT=(\d+)>")
+# the f32 backward's (a head_dim and the rows or keys a block owns)
+BWD_F32 = re.compile(r"flash_bwd_(dq|dkv)_f32_kernel<D=(\d+),OWN=(\d+)>")
 
 
 def emit(obj) -> None:
@@ -550,7 +562,9 @@ def ptxas_report(log: str, prefix: str) -> dict:
             return prefix
         args = re.findall(r"Li(\d+)E", t.group(2))
         labels = (("D", "BK", "NC") if len(args) == 3
-                  else ("D", "RT") if "f32" in t.group(1) else ("D", "NC"))
+                  else ("D", "OWN") if "bwd" in t.group(1) and "f32"
+                  in t.group(1) else ("D", "RT") if "f32" in t.group(1)
+                  else ("D", "NC"))
         return (t.group(1) + "<"
                 + ",".join(f"{a}={b}" for a, b in zip(labels, args)) + ">")
     return {pretty(n): r for n, r in out.items()}
@@ -902,19 +916,45 @@ RAGGED = ((100, 200, 128, True), (100, 200, 64, False),
           (256, 384, 64, True), (256, 384, 64, False))
 
 
+def _f32_bwd_case(torch, F, worst, q, k, v, do, q_off, k_off, causal,
+                  stride=1, block=512):
+    """K4 in float32 against its plain version on one case, the row
+    statistics from the plain forward, into ``worst``; raise where a dq
+    row that sees no key is not exactly zero."""
+    ro, rm, rl = F.flash_block_reference(q, k, v, q_off, k_off, causal,
+                                         None, stride)
+    out, lse = F._row_stats(ro, rm, rl)
+    delta = F._delta(do, out)
+    got = F.flash_block_bwd(q, k, v, do, lse, delta, q_off, k_off,
+                            causal=causal, block_q=block, block_k=block,
+                            pos_stride=stride)
+    want = F.flash_block_bwd_reference(q, k, v, do, lse, delta, q_off, k_off,
+                                       causal, None, stride)
+    worst["flash_block_bwd_dq"] = max(worst["flash_block_bwd_dq"],
+                                      _rel(got[0], want[0])[0])
+    worst["flash_block_bwd_dkv"] = max(worst["flash_block_bwd_dkv"],
+                                       _rel(got[1], want[1])[0],
+                                       _rel(got[2], want[2])[0])
+    if not bool((got[0][(rl == 0).T] == 0).all()):
+        raise AssertionError(f"f32 K4 {tuple(q.shape)} at ({q_off}, "
+                             f"{k_off}, {stride}): dq of rows that see no "
+                             "key not exactly zero")
+
+
 def flash_ragged_f32(torch, F):
-    """The f32 forward at :data:`RAGGED`'s lengths, no multiple of its
-    tile (32 rows by D keys; it stages rows past the end as zeros, masks
-    keys past Lk and stores no row past Lq): K3 (also with the first half
-    of the rows seeing no key) and K2 against their plain versions at
-    FLASH_TOL, rows that see no key exactly zero; then at 64 heads,
-    where the 64-row units run, ragged, at an offset and a stride.
-    Returns the worst relative error of each."""
-    worst = {"flash_block": 0.0, "flash_attention": 0.0}
+    """The f32 kernels at :data:`RAGGED`'s lengths, no multiple of their
+    tiles (they stage rows past the end as zeros, mask keys past Lk and
+    store no row past the end): K3 and K4 (also with the first half of
+    the rows seeing no key) and K2 against their plain versions at
+    FLASH_TOL, rows that see no key exactly zero (K3's o, m, l and K4's
+    dq); then at 64 heads, where the 64-entry units run, ragged, at an
+    offset and a stride.  Returns the worst relative error of each."""
+    worst = {"flash_block": 0.0, "flash_attention": 0.0,
+             "flash_block_bwd_dq": 0.0, "flash_block_bwd_dkv": 0.0}
     for i, (lq, lk, d, causal) in enumerate(RAGGED):
         g = torch.Generator().manual_seed(250 + i)
-        q, k, v = (torch.randn((n, 3, d), generator=g).to(DEVICE)
-                   for n in (lq, lk, lk))
+        q, k, v, do = (torch.randn((n, 3, d), generator=g).to(DEVICE)
+                       for n in (lq, lk, lk, lq))
         for q_off, k_off in ((0, 0), (0, lq // 2)):
             o, m, l = F.flash_block(q, k, v, q_off, k_off, causal=causal)
             ro, rm, rl = F.flash_block_reference(q, k, v, q_off, k_off,
@@ -927,17 +967,21 @@ def flash_ragged_f32(torch, F):
             if not dead_ok:
                 raise AssertionError(f"ragged f32 K3 {lq}/{lk}: wholly "
                                      "masked rows not exactly zero")
+            _f32_bwd_case(torch, F, worst, q, k, v, do, q_off, k_off, causal)
         out = F.flash_attention(q, k, v, causal=causal)
         worst["flash_attention"] = max(worst["flash_attention"], _rel(
             out, F.flash_attention_reference(q, k, v, causal))[0])
-    # 64 heads: the grid of 64-row units fills the card, so these run the
-    # 8-rows-a-thread kernel, ragged, at an offset and a stride
+    # 64 heads: the grids of 64-entry units fill the card, so these run
+    # the 8-rows-a-thread forward and the 64-entry backward, ragged, at an
+    # offset and a stride
     for i, d in enumerate((64, 128)):
         g = torch.Generator().manual_seed(260 + i)
-        q, k, v = (torch.randn((1000, 64, d), generator=g).to(DEVICE)
-                   for _ in range(3))
-        if F._blocks(q, k, ("fwd",), 1024, 1024)[0] != 64:
-            raise AssertionError("64-row f32 units not chosen at 64 heads")
+        q, k, v, do = (torch.randn((1000, 64, d), generator=g).to(DEVICE)
+                       for _ in range(4))
+        if (F._blocks(q, k, ("fwd",), 1024, 1024)[0] != 64
+                or F._bwd_tiles(q, k, 1000, 1000) != {"dq": (64, 64),
+                                                      "dkv": (64, 64)}):
+            raise AssertionError("64-entry f32 units not chosen at 64 heads")
         for q_off, k_off, stride in ((0, 0, 1), (0, 500, 1), (3, 0, 4)):
             o, m, l = F.flash_block(q, k, v, q_off, k_off, causal=True,
                                     pos_stride=stride)
@@ -949,13 +993,15 @@ def flash_ragged_f32(torch, F):
             if not bool((o[~live.T] == 0).all() and (l[~live] == 0).all()):
                 raise AssertionError("64-row f32 K3: wholly masked rows not "
                                      "exactly zero")
+            _f32_bwd_case(torch, F, worst, q, k, v, do, q_off, k_off, True,
+                          stride, block=1000)
         worst["flash_attention"] = max(worst["flash_attention"], _rel(
             F.flash_attention(q, k, v, causal=True),
             F.flash_attention_reference(q, k, v, True))[0])
     torch.cuda.synchronize()
     bad = {n: r for n, r in worst.items() if not r <= FLASH_TOL["float32"]}
     if bad:
-        raise AssertionError(f"ragged f32 flash forward past "
+        raise AssertionError(f"ragged f32 flash kernels past "
                              f"{FLASH_TOL['float32']}: {bad}")
     return worst
 
@@ -1049,14 +1095,20 @@ def phase_flash_kernels(torch, F, tuning):
                                block_q=1024, block_k=1024))
     bitwise = all(torch.equal(a, b) for x, y in zip(again, first)
                   for a, b in zip(x, y))
-    # and the f32 forward, K3 and K2, at longctx's L4096 x 8 x 128
+    # and the f32 kernels, K3, K2 and K4, at longctx's L4096 x 8 x 128
     g = torch.Generator().manual_seed(98)
-    qf, kf, vf = (torch.randn((4096, 8, 128), generator=g).to(DEVICE)
-                  for _ in range(3))
+    qf, kf, vf, dof = (torch.randn((4096, 8, 128), generator=g).to(DEVICE)
+                       for _ in range(4))
+    ro, rm, rl = F.flash_block_reference(qf, kf, vf, 0, 0, True)
+    out_f, lse_f = F._row_stats(ro, rm, rl)
+    delta_f = F._delta(dof, out_f)
     runs = [(*F.flash_block(qf, kf, vf, 0, 0, causal=True),
-             F.flash_attention(qf, kf, vf, causal=True)) for _ in range(2)]
+             F.flash_attention(qf, kf, vf, causal=True),
+             *F.flash_block_bwd(qf, kf, vf, dof, lse_f, delta_f,
+                                causal=True, block_q=1024, block_k=1024))
+            for _ in range(2)]
     bitwise_f32 = all(torch.equal(a, b) for a, b in zip(*runs))
-    del qf, kf, vf, runs
+    del qf, kf, vf, dof, ro, rm, rl, out_f, lse_f, delta_f, runs
     # the shared-memory model in Python is the kernels' own
     fwd_t = F._blocks(q, k, ("fwd",), 1024, 1024)
     bwd_t = F._bwd_tiles(q, k, 1024, 1024)  # {"dq": pair, "dkv": pair}
@@ -1074,6 +1126,13 @@ def phase_flash_kernels(torch, F, tuning):
                lib_b.flash_bwd_smem_bytes(0, 2, *bwd_t["dq"], 128)),
         "dkv": (tuning.smem_bytes("dkv", *bwd_t["dkv"], 128, 2),
                 lib_b.flash_bwd_smem_bytes(1, 2, *bwd_t["dkv"], 128)),
+        # the f32 backward's eight (two tiles a kernel and head_dim)
+        **{f"{kind}_f32_{bq}x{bk}": (
+            tuning.smem_bytes(kind, bq, bk, d, 4),
+            lib_b.flash_bwd_smem_bytes(int(kind == "dkv"), 4, bq, bk, d))
+           for d in (64, 128)
+           for kind, tiles in F._bwd_legal(torch.float32, d).items()
+           for bq, bk in sorted(tiles)},
     }
     emit({"phase": "flash_vs_plain", "cases": len(cases) + 1,
           "tolerance_rel": FLASH_TOL, "max_rel_err": worst,
@@ -1081,13 +1140,13 @@ def phase_flash_kernels(torch, F, tuning):
           "max_abs_err": err, "flagship_rel_err": {
               n: r for n, (r, _) in errs.items()},
           "flagship_bitwise_repeat": bitwise,
-          "f32_fwd_bitwise_repeat_L4096": bitwise_f32,
-          "ragged_rel_err": ragged, "ragged_f32_fwd_rel_err": ragged_f32,
+          "f32_bitwise_repeat_L4096": bitwise_f32,
+          "ragged_rel_err": ragged, "ragged_f32_rel_err": ragged_f32,
           "tiles_fwd": fwd_t,
           "tiles_bwd": bwd_t, "smem_model_vs_kernel": model})
     if not (bitwise and bitwise_f32):
         raise AssertionError(f"flash kernels: two runs differ in bits "
-                             f"(bf16 flagship equal: {bitwise}; f32 K3/K2 "
+                             f"(bf16 flagship equal: {bitwise}; f32 K3/K2/K4 "
                              f"at L4096 equal: {bitwise_f32})")
     if any(a != b for a, b in model.values()):
         raise AssertionError(f"shared-memory model differs: {model}")
@@ -4963,12 +5022,12 @@ def lc_shards(torch, F):
 
 
 def lc_f32_times(torch, F, timing, spec):
-    """K2, K3 and K4 in float32 (K2/K3 the register-tiled forward, K4 the
-    scalar kernels) at longctx's shape: K2 over the whole sequence, K3
-    and K4 over a 1024-token shard pair with no key masked and on the
-    diagonal; L2 flushed before each launch.  Beside each: its plain version's ms, one SDPA call's in
-    float32 with TF32 off and its bound (operations over the f32 peak,
-    bytes over the memory rate, the larger)."""
+    """K2, K3 and K4 in float32 (the register-tiled FFMA kernels) at
+    longctx's shape: K2 over the whole sequence, K3 and K4 over a
+    1024-token shard pair with no key masked and on the diagonal; L2
+    flushed before each launch.  Beside each: its plain version's ms,
+    one SDPA call's in float32 with TF32 off and its bound (operations
+    over the f32 peak, bytes over the memory rate, the larger)."""
     flush = torch.empty(64 << 20, dtype=torch.int32, device=DEVICE)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     scale = LC_D ** -0.5
@@ -5052,37 +5111,43 @@ def lc_f32_times(torch, F, timing, spec):
     return rows
 
 
-# the f32 longctx legs whose TFLOP/s the forward moves
-LC_F32_LEGS = (["--devices", "1", "--strategy", "flash"],
-               ["--devices", "4", "--strategy", "ring_pallas"],
-               ["--devices", "4", "--strategy", "ulysses_pallas"])
+# the f32 longctx legs whose TFLOP/s the f32 kernels move: the forward
+# (flash at 1 rank, ring_pallas and ulysses_pallas at 4), then the same
+# with --grad (leg c's)
+LC_F32_LEGS = tuple(["--devices", str(n), "--strategy", s] + grad
+                    for grad in ([], ["--grad", "true"])
+                    for s, n in LC_GRAD)
 
 
 def phase_flash_f32_time(torch, F, timing, spec, libs):
     """``--tree TREE flash_f32_time``: leg a's float32 times
-    (:func:`lc_f32_times`) with the build's registers and spills of each
-    f32 forward instance (the wgmma kernels left out) and the model
-    TFLOP/s of the f32 ``longctx`` legs the forward runs on
-    (:data:`LC_F32_LEGS`: flash at 1 rank, ring_pallas and ulysses_pallas
-    at 4, each through the CLI at ``LongCtxConfig``'s defaults, TF32
-    off), so that parent and change time in one call."""
+    (:func:`lc_f32_times`) with each kernel's diagonal over its full
+    pair, the build's registers and spills of each f32 instance (the
+    wgmma kernels left out) and the model TFLOP/s of the f32 ``longctx``
+    legs of :data:`LC_F32_LEGS`, each through the CLI at
+    ``LongCtxConfig``'s defaults, TF32 off, so that parent and change
+    time in one call."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     rows = lc_f32_times(torch, F, timing, spec)
-    ptxas = {n: r for n, r in ptxas_report(
-        libs["flash_attention"].with_suffix(".log").read_text(),
-        "flash_fwd_").items() if "wgmma" not in n}
+    ptxas = {}
+    for lib in ("flash_attention", "flash_attention_bwd"):
+        ptxas.update({n: r for n, r in ptxas_report(
+            libs[lib].with_suffix(".log").read_text(), "flash_").items()
+            if "wgmma" not in n})
     tflops = {}
     for argv in LC_F32_LEGS:
         rc, recs, got = lc_cli(F, argv)
-        tflops[argv[-1]] = {"rc": rc, "launches": got, "records": [
+        tflops[" ".join(argv[3:])] = {"rc": rc, "launches": got, "records": [
             (r["mode"], r["verdict"], r["metrics"].get("tflops"))
             for r in recs]}
     emit({"phase": "flash_f32_time", "card": _smi(), "ptxas": ptxas,
           "longctx_f32_tflops": tflops,
           "ms": {n: r["ms"] for n, r in rows.items()},
-          "diagonal_over_full": rows["flash_block diagonal"]["ms"]
-          / rows["flash_block full"]["ms"]})
+          "diagonal_over_full": {
+              n: rows[f"{n} diagonal"]["ms"] / rows[f"{n} full"]["ms"]
+              for n in ("flash_block", "flash_block_bwd_dq",
+                        "flash_block_bwd_dkv")}})
     return rows
 
 
@@ -5434,6 +5499,13 @@ def phase_kernel_build(torch, libs, F, op, pk):
                      else (64 * nc, F.BWD_STREAM))
             row["dynamic_smem"] = lib_b.flash_bwd_smem_bytes(which, 2,
                                                              *tiles, d)
+        t = BWD_F32.fullmatch(name)
+        if t:
+            which = int(t.group(1) == "dkv")
+            d, own = int(t.group(2)), int(t.group(3))
+            tiles = (own, 64 if own == 64 else d)  # dq's (bq, bk)
+            row["dynamic_smem"] = lib_b.flash_bwd_smem_bytes(
+                which, 4, *(tiles[::-1] if which else tiles), d)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     n = PUT_FULL[0] * PUT_FULL[1] * 4
     span = op.mono_span(n, sms)
@@ -5487,12 +5559,14 @@ def phase_kernel_build(torch, libs, F, op, pk):
         raise AssertionError(f"bf16 backward build: {len(bwd)} of 8 "
                              f"instances reported; spilled or serialized: "
                              f"{bad}")
-    f32 = {n: r for n, r in report.items() if FWD_F32.fullmatch(n)}
-    bad = [n for n, r in f32.items() if r.get("spill_stores")
-           or r.get("spill_loads")]
-    if len(f32) != 4 or bad:
-        raise AssertionError(f"f32 forward build: {len(f32)} of 4 "
-                             f"instances reported; spilled: {bad}")
+    for what, pattern, want in (("forward", FWD_F32, 4),
+                                ("backward", BWD_F32, 8)):
+        f32 = {n: r for n, r in report.items() if pattern.fullmatch(n)}
+        bad = [n for n, r in f32.items() if r.get("spill_stores")
+               or r.get("spill_loads")]
+        if len(f32) != want or bad:
+            raise AssertionError(f"f32 {what} build: {len(f32)} of {want} "
+                                 f"instances reported; spilled: {bad}")
 
 
 def main() -> int:
@@ -5661,12 +5735,11 @@ def main() -> int:
                     "over_library": rows[name]["ms"]
                     / rows[name]["library_ms"]}
              for name, before in REDESIGNED_BEFORE_MS.items()},
-          "f32_forward": {name: {"ms": lc_f32[name]["ms"],
-                                 "ms_before": before,
-                                 "speedup": before / lc_f32[name]["ms"],
-                                 "library_ms": lc_f32[name]["library_ms"],
-                                 "bound_ms": lc_f32[name]["bound_ms"]}
-                          for name, before in F32_BEFORE_MS.items()}})
+          "f32": {name: {"ms": lc_f32[name]["ms"], "ms_before": before,
+                         "speedup": before / lc_f32[name]["ms"],
+                         "library_ms": lc_f32[name]["library_ms"],
+                         "bound_ms": lc_f32[name]["bound_ms"]}
+                  for name, before in F32_BEFORE_MS.items()}})
 
     # launches: K1 in the timed serve run, K3 and K4 in the flagship
     # run, K2 in the no-grad forward (each count set to 0 just before)

@@ -261,8 +261,8 @@ def test_dense_twins_match_reference(causal):
 
 
 def test_tile_fit_and_tuned_defaults(tmp_path):
-    """The shared-memory ladder: the largest pair <= the request that
-    fits 227 KB in every kernel it serves, halving the larger side."""
+    """The shared-memory ladder: each kernel's own pair, which fits 227
+    KB where a pair one step larger does not."""
     budget = tuning.H100_SMEM_OPTIN
     # the flagship's bf16 D=128 tiles from the 1024 x 1024 request: the
     # wgmma forward's largest, two consumer warpgroups by 128 keys; the
@@ -274,30 +274,41 @@ def test_tile_fit_and_tuned_defaults(tmp_path):
                               1024) == (128, 64)
     assert tuning._auto_block(4096, 4096, 128, 2, ("dkv",), 1024,
                               1024) == (64, 128)
-    with pytest.raises(ValueError, match="a tile pair each"):
-        tuning._auto_block(4096, 4096, 128, 2, ("dq", "dkv"), 1024, 1024)
-    for kinds, ibs in ((("fwd",), (2,)), (("dq", "dkv"), (4,))):
-        for ib in ibs:
-            for d in (64, 128):
-                bq, bk = tuning._auto_block(4096, 4096, d, ib, kinds, 1024,
-                                            1024)
-                assert all(tuning.smem_bytes(k, bq, bk, d, ib) <= budget
-                           for k in kinds)
-                bigger = (2 * bq, bk) if bq < bk else (bq, 2 * bk)
-                assert any(tuning.smem_bytes(k, *bigger, d, ib) > budget
-                           for k in kinds)
+    for ib in (2, 4):
+        with pytest.raises(ValueError, match="a tile pair each"):
+            tuning._auto_block(4096, 4096, 128, ib, ("dq", "dkv"), 1024,
+                               1024)
+    for d in (64, 128):
+        bq, bk = tuning._auto_block(4096, 4096, d, 2, ("fwd",), 1024, 1024)
+        assert tuning.smem_bytes("fwd", bq, bk, d, 2) <= budget
+        bigger = (2 * bq, bk) if bq < bk else (bq, 2 * bk)
+        assert tuning.smem_bytes("fwd", *bigger, d, 2) > budget
+    # the float32 backward's ladder at one head (no grid of unit pairs
+    # fills the card): 32-entry units by tiles of head_dim; at 32 heads
+    # 64 by 64, since a 64-entry unit by 128 would not fit at D 128
+    for d in (64, 128):
+        small = {"dq": (32, d), "dkv": (d, 32)}
+        for kind, tiles in small.items():
+            assert tuning._auto_block(4096, 4096, d, 4, (kind,), 1024,
+                                      1024) == tiles
+            assert tuning._auto_block(4096, 4096, d, 4, (kind,), 1024,
+                                      1024, heads=32) == (64, 64)
+            assert tuning.smem_bytes(kind, *tiles, d, 4) <= budget
+            assert tuning.smem_bytes(kind, 64, 64, d, 4) <= budget
+    assert tuning.smem_bytes("dq", 64, 128, 128, 4) > budget
+    assert tuning.smem_bytes("dkv", 128, 64, 128, 4) > budget
     # the float32 forward's ladder: its kernel's tile (32-row q-units,
     # k-tiles of head_dim keys), whatever the request, within the budget
     for d in (64, 128):
         assert tuning._auto_block(4096, 4096, d, 4, ("fwd",), 1024,
                                   1024) == (32, d)
         assert tuning.smem_bytes("fwd", 32, d, d, 4) <= budget
-    # short sequences clamp the request; a small request is kept (the
-    # float32 backward's shared pair); the float32 forward takes its sides
-    assert tuning._auto_block(64, 64, 16, 4, ("dq", "dkv"), 1024,
-                              1024) == (64, 64)
-    assert tuning._auto_block(64, 64, 16, 4, ("dq", "dkv"), 16,
-                              32) == (16, 32)
+    # whatever the request, the float32 kernels take their sides (below
+    # head_dim 64, the smallest: no kernel takes such a head_dim)
+    assert tuning._auto_block(64, 64, 16, 4, ("dq",), 1024,
+                              1024) == (32, 64)
+    assert tuning._auto_block(64, 64, 16, 4, ("dkv",), 16,
+                              32) == (64, 32)
     assert tuning._auto_block(64, 64, 16, 4, ("fwd",), 1024, 1024) == (32, 64)
     assert tuning._auto_block(64, 64, 16, 4, ("fwd",), 16, 32) == (32, 64)
     assert tuning.load_tuned_blocks(str(tmp_path / "absent.json")) == (

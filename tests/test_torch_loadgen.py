@@ -502,9 +502,12 @@ QUICK = dict(vocab=VOCAB, embed=64, head_dim=8, depth=1, slots=4,
              block_len=8, time_scale=0.02, slo_ttft_ms=60_000,
              slo_tpot_ms=20_000,
              chaos="loadgen.arrive:error:after=2:count=1")
+# 16-24 generated tokens a request: the chaos twin's p99 gate compares
+# two runs' wall clocks, and at 2-3 tokens a compiled run's p99 is ~2 ms,
+# so one scheduling hiccup of a loaded CPU passed the 5x gate
 REF_SCENARIOS = tuple(
     f"{p}:requests=3:min_prompt=4:mean_prompt=6:max_prompt=8"
-    ":min_gen=2:mean_gen=2:max_gen=3" for p in ("chat", "chat-sampled"))
+    ":min_gen=16:mean_gen=16:max_gen=24" for p in ("chat", "chat-sampled"))
 
 
 @functools.lru_cache(maxsize=None)

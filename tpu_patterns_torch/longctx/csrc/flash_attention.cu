@@ -133,75 +133,8 @@ struct F32Fwd {
   static_assert(RT == 4 || RT == 8, "4 or 8 rows a thread");
 };
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           uint32_t src_size) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(src_size)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Rows [row0, row0 + ROWS) of head h of src [L, H, D] into dst [ROWS][LD]
-// by 16-byte cp.async, a row per D / 4 threads; rows past L are
-// zero-filled (a src_size of 0 reads nothing).
-template <int D, int ROWS, int LD, int THREADS>
-__device__ __forceinline__ void stage_rows(float* dst,
-                                           const float* __restrict__ src,
-                                           int row0, int L, int H, int h) {
-  constexpr int CPR = D / 4;  // 16-byte chunks a row
-  constexpr int STEP = THREADS / CPR;  // rows a pass
-  static_assert(ROWS % STEP == 0, "whole passes");
-  const int r0 = threadIdx.x / CPR, ch = (threadIdx.x % CPR) * 4;
-  float* d = dst + r0 * LD + ch;
-  const float* s = src + (static_cast<size_t>(row0 + r0) * H + h) * D + ch;
-  const size_t s_step = static_cast<size_t>(STEP) * H * D;
-  if (row0 + ROWS <= L) {  // the whole tile lies inside: no test a row
-#pragma unroll
-    for (int n = 0; n < ROWS / STEP; ++n)
-      cp_async16(d + n * STEP * LD, s + n * s_step, 16u);
-    return;
-  }
-#pragma unroll
-  for (int n = 0; n < ROWS / STEP; ++n) {
-    const bool in = row0 + r0 + n * STEP < L;
-    cp_async16(d + n * STEP * LD, in ? s + n * s_step : src, in ? 16u : 0u);
-  }
-}
-
-// Rows [0, RT) of a thread's values to shared memory as RT / 4 float4s
-template <int RT>
-__device__ __forceinline__ void store_rows(float* dst, const float (&x)[RT]) {
-#pragma unroll
-  for (int i = 0; i < RT; i += 4)
-    *reinterpret_cast<float4*>(dst + i) =
-        make_float4(x[i], x[i + 1], x[i + 2], x[i + 3]);
-}
-template <int RT>
-__device__ __forceinline__ void load_rows(float (&x)[RT], const float* src) {
-#pragma unroll
-  for (int i = 0; i < RT; i += 4) {
-    const float4 f = *reinterpret_cast<const float4*>(src + i);
-    x[i] = f.x;
-    x[i + 1] = f.y;
-    x[i + 2] = f.z;
-    x[i + 3] = f.w;
-  }
-}
-
 // FLASH_MARK phases: prologue, qk, max_exchange, softmax, wait_v, pv, wait_k, epilogue
-// (phase marks for scripts/flash_f32_phases.py; nothing unless it builds
-// this file with its header)
-#ifndef FLASH_MARK
-#define FLASH_MARK_START
-#define FLASH_MARK(n)
-#endif
+// (phase marks for scripts/flash_f32_phases.py; flash_common.cuh)
 
 template <int D, int RT>
 __global__ void __launch_bounds__(F32Fwd<D, RT>::THREADS,
@@ -485,12 +418,7 @@ int launch_f32(int emit_stats, const void* q, const void* k, const void* v,
                cudaStream_t stream) {
   using C = F32Fwd<D, RT>;
   auto kernel = flash_fwd_f32_kernel<D, RT>;
-  if (int e = set_smem(kernel, C::SMEM)) return e;
-  // the whole carveout to shared memory, so MIN_BLOCKS blocks fit an SM
-  if (cudaFuncSetAttribute(kernel,
-                           cudaFuncAttributePreferredSharedMemoryCarveout,
-                           cudaSharedmemCarveoutMaxShared) != cudaSuccess)
-    return static_cast<int>(cudaGetLastError());
+  if (int e = set_smem_f32(kernel, C::SMEM)) return e;
   const int units = (Lq + C::BQ - 1) / C::BQ;
   dim3 grid(H, (units + 1) / 2);  // a block a pair of q-units
   kernel<<<grid, C::THREADS, C::SMEM, stream>>>(

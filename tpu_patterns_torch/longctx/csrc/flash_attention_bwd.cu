@@ -9,13 +9,14 @@
 //   dV = P^T dO, dP = dO V^T, dS = P * (dP - delta)
 //   dQ = scale * dS K, dK = scale * dS^T Q            (all f32 out)
 // The dispatch is by dtype: bfloat16 inputs run the wgmma kernels,
-// float32 inputs the scalar ones (a tensor-core f32 product would be
-// TF32, which keeps ~3 digits).
+// float32 inputs the register-tiled FFMA ones (a tensor-core f32
+// product would be TF32, which keeps ~3 digits).
 //
 // What bounds them on this card: operations.  Per visible (query, key)
 // pair the dq kernel runs 3 products of 2*D flops (S, dP, dQ) and the
-// dk/dv kernel 4 (S, dP, dV, dK); in bf16 at D = 128 that is far above
-// the ~295 flops/byte ridge.
+// dk/dv kernel 4 (S, dP, dV, dK); at D = 128 that is far above the
+// ridge in either dtype (~295 flops/byte for the bf16 tensor cores, ~20
+// for the 67 TFLOP/s of f32 FMA).
 //
 // Both designs keep the reference's order and rounding points:
 //   * no floating-point atomics: every output element is summed by one
@@ -65,10 +66,53 @@
 //   * lengths need not be multiples of the tile: TMA fills rows past
 //     the end with zeros, and rows past the end are not stored.
 //
-// f32 design (flash_bwd_dq_kernel, flash_bwd_dkv_kernel): one thread
-// block (8 warps) per (q-tile, head) or (k-tile, head) walks its live
-// tiles as above, staging tiles, S, dP, P, dS and the sums in shared
-// memory, with synchronous 16-byte loads and scalar f32 FMAs.
+// f32 design (flash_bwd_dq_f32_kernel, flash_bwd_dkv_f32_kernel), for
+// FFMA at its issue rate, on the f32 forward's pattern
+// (flash_attention.cu):
+//   * a block owns units of OWN rows (dq) or keys (dk/dv) of one head and
+//     streams tiles of the other side, with 2D threads (256 at D 128,
+//     128 at D 64): 32-entry units by tiles of D, or 64 by 64.  A
+//     64-row unit by 128-key tiles would take 237 KB at D 128 (q, dO, k,
+//     v and dS^T), over the 227 KB a block may have, so the larger
+//     unit streams 64; the tiles fit in 149-202 KB at D 128 (one block
+//     an SM) and 60-103 KB at D 64 (three or two);
+//   * every product is FFMA from registers fed by 128-bit shared loads.
+//     The score products (dq: S = Q K^T and dP = dO V^T; dk/dv: S^T = K
+//     Q^T and dP^T = V dO^T) give a thread SR owned by 4 streamed
+//     entries: a quarter warp reads one owned row (broadcast) and 8
+//     streamed rows, padded by 4 floats so they fall in 8 bank groups.
+//     P and dS are formed in those registers (exp as one ex2 of an FMA;
+//     a dq thread holds its rows' lse and delta in registers, a dk/dv
+//     tile's 2 x 64 or 2 x 128 values come in with its q) and go through
+//     shared memory once a tile, each streamed entry's owned slots in a
+//     row ([streamed][owned slot]), so the gradient products (dQ += dS
+//     K; dV += P^T dO and dK += dS^T Q) read a thread's GR owned entries
+//     as float4s beside one float4 of the streamed operand's row.  Each
+//     gradient stays in registers across the walk, GR x 4 a thread (64
+//     floats for dK and dV at 64 keys and D 128).  At 4 owned entries a
+//     thread an FFMA costs 2 bytes of shared loads, at 8 1.5;
+//   * staging by 16-byte cp.async into one buffer a tile, the products
+//     ordered so that each tile is free before the next one lands: dq
+//     runs dP (v), S (k), dS, dS K (k), so v-tile it + 1 loads while S,
+//     dS and dS K of tile it run and k-tile it + 1 while its dP runs;
+//     dk/dv runs dP^T (dO), S^T (q), P and dS, dV (dO), dK (q), so
+//     dO-tile it + 1 loads during dK of tile it and q-tile it + 1 (with
+//     its lse and delta) during its dP^T.  A unit's last tile stages
+//     the next unit's own tiles as they come free.  Three barriers a
+//     tile for dq, four for dk/dv;
+//   * causal balance: a block takes two units, the heavier first (dq:
+//     q-units n - 1 - p and p; dk/dv: k-units p and n - 1 - p), so a
+//     causal triangle's blocks carry equal work and the diagonal shard
+//     pair costs about half the full one; the grid is (heads, pairs).
+//     The wrapper takes 64-entry units wherever their grid still holds
+//     a block for every SM (tuning._auto_block), 32 elsewhere.  The
+//     Python mirror of this walk is flash.py::bwd_f32_schedule;
+//   * lengths need not be multiples of the tile: rows past Lq or Lk are
+//     staged as zeros (and dk/dv's lse and delta past Lq as 0, so P dO
+//     and dP vanish there), dq masks keys past Lk, and nothing past the
+//     end is stored.  Only tiles that cross the diagonal or (dq) the
+//     end of k are masked element by element; a unit with no live tile
+//     stores zeros, and so does a dq row that sees no key.
 
 #include <math.h>
 
@@ -78,199 +122,6 @@
 #include "flash_wgmma.cuh"
 
 namespace flash {
-
-// s = (q . k) * scale, NEG_INF where query row ``qrow`` may not see key
-// ``kcol`` (rows and columns counted within the shards)
-__device__ __forceinline__ float masked_score(float dot, float scale,
-                                              int causal, int q_off,
-                                              int k_off, int stride, int qrow,
-                                              int kcol) {
-  float s = dot * scale;
-  if (causal && q_off + static_cast<long long>(qrow) * stride <
-                    k_off + static_cast<long long>(kcol) * stride)
-    s = NEG_INF;
-  return s;
-}
-
-template <typename T>
-__global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(
-    const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, const T* __restrict__ dout,
-    const float* __restrict__ lse, const float* __restrict__ delta,
-    float* __restrict__ dq,  // [Lq, H, D]
-    int Lq, int Lk, int H, int D, int bq, int bk, int causal, int q_off,
-    int k_off, int stride, float scale) {
-  const int row0 = blockIdx.x * bq;
-  const int h = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int ldt = D + Pad<T>::value, lds = bk + 4, ldp = bk + Pad<T>::value,
-            lda = D + 4;
-
-  extern __shared__ __align__(128) unsigned char smem[];
-  Carve cv(smem);
-  T* q_s = cv.take<T>(static_cast<size_t>(bq) * ldt);
-  T* do_s = cv.take<T>(static_cast<size_t>(bq) * ldt);
-  T* k_s = cv.take<T>(static_cast<size_t>(bk) * ldt);
-  T* v_s = cv.take<T>(static_cast<size_t>(bk) * ldt);
-  float* s_s = cv.take<float>(static_cast<size_t>(bq) * lds);
-  float* dp_s = cv.take<float>(static_cast<size_t>(bq) * lds);
-  T* ds_s = cv.take<T>(static_cast<size_t>(bq) * ldp);
-  float* acc = cv.take<float>(static_cast<size_t>(bq) * lda);
-  float* lse_s = cv.take<float>(bq);
-  float* delta_s = cv.take<float>(bq);
-
-  load_tile(q_s, ldt, q, row0, bq, H, h, D);
-  load_tile(do_s, ldt, dout, row0, bq, H, h, D);
-  load_row_stat(lse_s, lse, row0, bq, Lq, h);
-  load_row_stat(delta_s, delta, row0, bq, Lq, h);
-  for (int i = tid; i < bq * lda; i += THREADS) acc[i] = 0.f;
-  __syncthreads();
-
-  const int nk = Lk / bk;
-  const long long q_last =
-      q_off + static_cast<long long>(row0 + bq - 1) * stride;
-  for (int ik = 0; ik < nk; ++ik) {
-    const int col0 = ik * bk;
-    if (causal && q_last < k_off + static_cast<long long>(col0) * stride)
-      break;
-    load_tile(k_s, ldt, k, col0, bk, H, h, D);
-    load_tile(v_s, ldt, v, col0, bk, H, h, D);
-    __syncthreads();
-
-    mm<false, true>(q_s, ldt, k_s, ldt, s_s, lds, bq, bk, D, false);
-    mm<false, true>(do_s, ldt, v_s, ldt, dp_s, lds, bq, bk, D, false);
-    __syncthreads();
-
-    for (int i = tid; i < bq * bk; i += THREADS) {
-      const int r = i / bk, c = i % bk;
-      const float s = masked_score(s_s[r * lds + c], scale, causal, q_off,
-                                   k_off, stride, row0 + r, col0 + c);
-      const float p = expf(s - lse_s[r]);
-      const float ds = p * (dp_s[r * lds + c] - delta_s[r]);
-      ds_s[r * ldp + c] = from_f32<T>(ds);
-    }
-    __syncthreads();
-    mm<false, false>(ds_s, ldp, k_s, ldt, acc, lda, bq, D, bk, true);
-    __syncthreads();
-  }
-
-  for (int i = tid; i < bq * D; i += THREADS) {
-    const int r = i / D, c = i % D;
-    dq[(static_cast<size_t>(row0 + r) * H + h) * D + c] =
-        scale * acc[r * lda + c];
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(THREADS) flash_bwd_dkv_kernel(
-    const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, const T* __restrict__ dout,
-    const float* __restrict__ lse, const float* __restrict__ delta,
-    float* __restrict__ dk,  // [Lk, H, D]
-    float* __restrict__ dv,  // [Lk, H, D]
-    int Lq, int Lk, int H, int D, int bq, int bk, int causal, int q_off,
-    int k_off, int stride, float scale) {
-  const int col0 = blockIdx.x * bk;
-  const int h = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int ldt = D + Pad<T>::value, lds = bk + 4, ldp = bk + Pad<T>::value,
-            lda = D + 4;
-
-  extern __shared__ __align__(128) unsigned char smem[];
-  Carve cv(smem);
-  T* k_s = cv.take<T>(static_cast<size_t>(bk) * ldt);
-  T* v_s = cv.take<T>(static_cast<size_t>(bk) * ldt);
-  T* q_s = cv.take<T>(static_cast<size_t>(bq) * ldt);
-  T* do_s = cv.take<T>(static_cast<size_t>(bq) * ldt);
-  float* s_s = cv.take<float>(static_cast<size_t>(bq) * lds);
-  float* dp_s = cv.take<float>(static_cast<size_t>(bq) * lds);
-  T* p_s = cv.take<T>(static_cast<size_t>(bq) * ldp);
-  T* ds_s = cv.take<T>(static_cast<size_t>(bq) * ldp);
-  float* dk_acc = cv.take<float>(static_cast<size_t>(bk) * lda);
-  float* dv_acc = cv.take<float>(static_cast<size_t>(bk) * lda);
-  float* lse_s = cv.take<float>(bq);
-  float* delta_s = cv.take<float>(bq);
-
-  load_tile(k_s, ldt, k, col0, bk, H, h, D);
-  load_tile(v_s, ldt, v, col0, bk, H, h, D);
-  for (int i = tid; i < bk * lda; i += THREADS) {
-    dk_acc[i] = 0.f;
-    dv_acc[i] = 0.f;
-  }
-
-  const int nq = Lq / bq;
-  const long long k_first = k_off + static_cast<long long>(col0) * stride;
-  for (int iq = 0; iq < nq; ++iq) {
-    const int row0 = iq * bq;
-    // q-tiles wholly above the diagonal for this k-tile come first
-    if (causal &&
-        q_off + static_cast<long long>(row0 + bq - 1) * stride < k_first)
-      continue;
-    __syncthreads();  // the previous tile's readers of q_s / do_s are done
-    load_tile(q_s, ldt, q, row0, bq, H, h, D);
-    load_tile(do_s, ldt, dout, row0, bq, H, h, D);
-    load_row_stat(lse_s, lse, row0, bq, Lq, h);
-    load_row_stat(delta_s, delta, row0, bq, Lq, h);
-    __syncthreads();
-
-    mm<false, true>(q_s, ldt, k_s, ldt, s_s, lds, bq, bk, D, false);
-    mm<false, true>(do_s, ldt, v_s, ldt, dp_s, lds, bq, bk, D, false);
-    __syncthreads();
-
-    for (int i = tid; i < bq * bk; i += THREADS) {
-      const int r = i / bk, c = i % bk;
-      const float s = masked_score(s_s[r * lds + c], scale, causal, q_off,
-                                   k_off, stride, row0 + r, col0 + c);
-      const float p = expf(s - lse_s[r]);
-      p_s[r * ldp + c] = from_f32<T>(p);
-      ds_s[r * ldp + c] = from_f32<T>(p * (dp_s[r * lds + c] - delta_s[r]));
-    }
-    __syncthreads();
-    // dV += P^T dO, dK += dS^T Q: [bk x bq] . [bq x D]
-    mm<true, false>(p_s, ldp, do_s, ldt, dv_acc, lda, bk, D, bq, true);
-    mm<true, false>(ds_s, ldp, q_s, ldt, dk_acc, lda, bk, D, bq, true);
-  }
-  __syncthreads();
-
-  for (int i = tid; i < bk * D; i += THREADS) {
-    const int r = i / D, c = i % D;
-    const size_t off = (static_cast<size_t>(col0 + r) * H + h) * D + c;
-    dk[off] = scale * dk_acc[r * lda + c];
-    dv[off] = dv_acc[r * lda + c];
-  }
-}
-
-template <typename T>
-int launch_dq(const void* q, const void* k, const void* v, const void* dout,
-              const float* lse, const float* delta, float* dq, int Lq, int Lk,
-              int H, int D, int bq, int bk, int causal, int q_off, int k_off,
-              int stride, float scale, cudaStream_t stream) {
-  const size_t smem = smem_dq(sizeof(T), bq, bk, D);
-  if (int e = set_smem(flash_bwd_dq_kernel<T>, smem)) return e;
-  dim3 grid(Lq / bq, H);
-  flash_bwd_dq_kernel<T><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta, dq,
-      Lq, Lk, H, D, bq, bk, causal, q_off, k_off, stride, scale);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
-               const float* lse, const float* delta, float* dk, float* dv,
-               int Lq, int Lk, int H, int D, int bq, int bk, int causal,
-               int q_off, int k_off, int stride, float scale,
-               cudaStream_t stream) {
-  const size_t smem = smem_dkv(sizeof(T), bq, bk, D);
-  if (int e = set_smem(flash_bwd_dkv_kernel<T>, smem)) return e;
-  dim3 grid(Lk / bk, H);
-  flash_bwd_dkv_kernel<T><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta, dk,
-      dv, Lq, Lk, H, D, bq, bk, causal, q_off, k_off, stride, scale);
-  return static_cast<int>(cudaGetLastError());
-}
-
 
 // -- bf16: wgmma with TMA loads --------------------------------------------
 
@@ -842,6 +693,505 @@ inline bool shapes_ok_bf16(int which, int Lq, int Lk, int H, int D, int bq,
          (L + own - 1) / own <= 65535 && stride >= 1;
 }
 
+// -- f32: register-tiled FFMA with cp.async staging ------------------------
+
+// The f32 backward's tiles and threads (see the design note above): a
+// block owns units of OWN rows (dq) or keys (dk/dv) and streams tiles
+// of STREAM keys (dq) or rows (dk/dv), with 2D threads.  Score thread
+// (oy, sx), oy < NOY and sx < NSX, holds owned entries oy + NOY i (i <
+// SR) by streamed entries sx + NSX j (j < 4) of S and dP (S^T and dP^T);
+// gradient thread (ay, tx), ay < 8 and tx < D / 4, holds owned entries
+// ay + 8 (g / SR + M (g % SR)) (g < GR) by columns 4 tx + e of each
+// gradient.  A warp is 4 oy (ay) by 8 sx (tx).
+template <int D, int OWN>
+struct F32Bwd {
+  static constexpr int STREAM = OWN == 64 ? 64 : D;  // keys (rows) a tile
+  static constexpr int THREADS = 2 * D;               // 128 or 256
+  static constexpr int NSX = STREAM / 4;
+  static constexpr int NOY = THREADS / NSX;  // 8, or 16 at (D 128, OWN 64)
+  static constexpr int SR = OWN / NOY;       // 4, or 8 at (D 64, OWN 64)
+  static constexpr int NTX = D / 4;
+  static constexpr int GR = OWN / 8;  // 4 or 8
+  static constexpr int M = NOY / 8;   // score threads a gradient row set spans
+  static constexpr int LDT = D + 4;   // [rows][D] tiles: 8 rows 16 B apart
+  static constexpr int LDG = OWN + 4;  // P, dS ([streamed][owned slot])
+  // blocks an SM holds: 1 at D 128; at D 64 as many as the registers a
+  // thread needs leave: 3 of 32-entry units, 2 of 64
+  static constexpr int MIN_BLOCKS = D == 128 ? 1 : OWN == 32 ? 3 : 2;
+  static_assert(D == 64 || D == 128, "head_dim 64 or 128");
+  static_assert(OWN == 32 || OWN == 64, "units of 32 or 64");
+  static_assert(M * SR == GR && NOY * SR == OWN, "tilings agree");
+  // the first shared-memory slot of score thread oy's owned entries in a
+  // [streamed][owned slot] row: gradient thread ay reads slots ay GR ..
+  // ay GR + GR - 1, which hold those of score threads ay + 8 t (t < M)
+  __device__ static int slot(int oy) { return (oy % 8) * GR + (oy / 8) * SR; }
+};
+
+// acc[i][j] = sum over d, in order, of own[oy + NOY i][d] str[sx + NSX
+// j][d]: a quarter warp reads one owned row (broadcast) and 8 different
+// streamed rows (8 bank groups), a float4 each, for 16 SR FFMAs a thread
+template <class C, int D>
+__device__ __forceinline__ void score_tile(float (&acc)[C::SR][4],
+                                           const float* own, const float* str,
+                                           int oy, int sx) {
+#pragma unroll
+  for (int i = 0; i < C::SR; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+#pragma unroll
+  for (int d0 = 0; d0 < D; d0 += 4) {
+    float4 b[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      b[j] = *reinterpret_cast<const float4*>(str + (sx + C::NSX * j) * C::LDT +
+                                              d0);
+#pragma unroll
+    for (int i = 0; i < C::SR; ++i) {
+      const float4 a =
+          *reinterpret_cast<const float4*>(own + (oy + C::NOY * i) * C::LDT + d0);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        acc[i][j] = fmaf(a.x, b[j].x, acc[i][j]);
+        acc[i][j] = fmaf(a.y, b[j].y, acc[i][j]);
+        acc[i][j] = fmaf(a.z, b[j].z, acc[i][j]);
+        acc[i][j] = fmaf(a.w, b[j].w, acc[i][j]);
+      }
+    }
+  }
+}
+
+// acc[g][e] += sum over the tile's streamed entries s, in order, of
+// g_s[s][gslot + g] t_s[s][4 tx + e]: GR / 4 float4s of the owned slots
+// and one of the streamed operand's row, for 4 GR FFMAs a thread
+template <class C>
+__device__ __forceinline__ void grad_tile(float (&acc)[C::GR][4],
+                                          const float* g_s, const float* t_s,
+                                          int gslot, int tx) {
+#pragma unroll 16
+  for (int s = 0; s < C::STREAM; ++s) {
+    float gv[C::GR];
+    load_rows<C::GR>(gv, g_s + s * C::LDG + gslot);
+    const float4 tv =
+        *reinterpret_cast<const float4*>(t_s + s * C::LDT + 4 * tx);
+#pragma unroll
+    for (int g = 0; g < C::GR; ++g) {
+      acc[g][0] = fmaf(gv[g], tv.x, acc[g][0]);
+      acc[g][1] = fmaf(gv[g], tv.y, acc[g][1]);
+      acc[g][2] = fmaf(gv[g], tv.z, acc[g][2]);
+      acc[g][3] = fmaf(gv[g], tv.w, acc[g][3]);
+    }
+  }
+}
+
+// A gradient thread's GR x 4 sums, times `scale`, to rows base + ay + 8
+// (g / SR + M (g % SR)) < L of out [L, H, D] (columns 4 tx + e)
+template <class C, int D>
+__device__ __forceinline__ void store_grad(const float (&acc)[C::GR][4],
+                                           float* out, int base, int L, int H,
+                                           int h, int ay, int tx,
+                                           float scale) {
+#pragma unroll
+  for (int g = 0; g < C::GR; ++g) {
+    const int r = base + ay + 8 * (g / C::SR + C::M * (g % C::SR));
+    if (r < L)
+      *reinterpret_cast<float4*>(out + (static_cast<size_t>(r) * H + h) * D +
+                                 4 * tx) =
+          make_float4(scale * acc[g][0], scale * acc[g][1], scale * acc[g][2],
+                      scale * acc[g][3]);
+  }
+}
+
+// FLASH_MARK dq phases: prologue, wait_v, dp, wait_k, s, ds, dq, epilogue
+// FLASH_MARK dkv phases: prologue, wait_do, dp, wait_q, s, p_ds, dv, sync_dv, dk, epilogue
+// (phase marks for scripts/flash_f32_phases.py; flash_common.cuh)
+
+template <int D, int OWN>
+__global__ void __launch_bounds__(F32Bwd<D, OWN>::THREADS,
+                                  F32Bwd<D, OWN>::MIN_BLOCKS)
+    flash_bwd_dq_f32_kernel(const float* __restrict__ q,  // [Lq, H, D]
+                            const float* __restrict__ k,  // [Lk, H, D]
+                            const float* __restrict__ v,  // [Lk, H, D]
+                            const float* __restrict__ dout,  // [Lq, H, D]
+                            const float* __restrict__ lse,  // [H, Lq]
+                            const float* __restrict__ delta,  // [H, Lq]
+                            float* __restrict__ dq,  // [Lq, H, D]
+                            int Lq, int Lk, int H, int causal, int q_off,
+                            int k_off, int stride, float scale) {
+  using C = F32Bwd<D, OWN>;
+  constexpr int BQ = OWN, BK = C::STREAM, NT = C::THREADS, SR = C::SR,
+                GR = C::GR;
+  FLASH_MARK_START;
+  extern __shared__ __align__(128) unsigned char smem[];
+  Carve cv(smem);  // the regions of smem_dq_f32, in order
+  float* q_s = cv.take<float>(BQ * C::LDT);
+  float* do_s = cv.take<float>(BQ * C::LDT);
+  float* k_s = cv.take<float>(BK * C::LDT);
+  float* v_s = cv.take<float>(BK * C::LDT);
+  float* ds_s = cv.take<float>(BK * C::LDG);  // dS^T: [key][row slot]
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int sx = (lane & 7) + 8 * (warp % (C::NSX / 8));
+  const int oy = (lane >> 3) + 4 * (warp / (C::NSX / 8));
+  const int tx = (lane & 7) + 8 * (warp % (C::NTX / 8));
+  const int ay = (lane >> 3) + 4 * (warp / (C::NTX / 8));
+  const int h = blockIdx.x;
+  const int n_units = (Lq + BQ - 1) / BQ, nk = (Lk + BK - 1) / BK;
+  const float c = scale * LOG2E;
+
+  // this block's q-units: n_units - 1 - p, then p (the heavier first;
+  // once for the middle unit of an odd count), each with its live tiles
+  int unit[2], n_live[2], cnt = 0;
+  for (int s = 0; s < 2; ++s) {
+    const int u = s == 0 ? n_units - 1 - blockIdx.y : blockIdx.y;
+    if (s == 1 && u == unit[0]) break;
+    const long long q_last =
+        q_off + static_cast<long long>(min((u + 1) * BQ, Lq) - 1) * stride;
+    unit[cnt] = u;
+    n_live[cnt++] = live_k_tiles(causal, q_last, k_off, stride, BK, nk);
+  }
+  auto next_live = [&](int s) {
+    for (++s; s < cnt && n_live[s] == 0; ++s) {
+    }
+    return s;
+  };
+  auto load_q = [&](int u) {
+    stage_rows<D, BQ, C::LDT, NT>(q_s, q, u * BQ, Lq, H, h);
+  };
+  auto load_do = [&](int u) {
+    stage_rows<D, BQ, C::LDT, NT>(do_s, dout, u * BQ, Lq, H, h);
+  };
+  auto load_k = [&](int it) {
+    stage_rows<D, BK, C::LDT, NT>(k_s, k, it * BK, Lk, H, h);
+  };
+  auto load_v = [&](int it) {
+    stage_rows<D, BK, C::LDT, NT>(v_s, v, it * BK, Lk, H, h);
+  };
+
+  // One cp.async group ahead of the loop: the first live unit's q, dO
+  // and v-tile 0.  Each k-tile then stages while its own dP runs, each
+  // v-tile while the tile before runs S, dS and dS K; a unit's last tile
+  // stages the next unit's dO and v-tile 0 once its dP is done, and its
+  // q once its S is.
+  if (next_live(-1) < cnt) {
+    const int u = unit[next_live(-1)];
+    load_q(u);
+    load_do(u);
+    load_v(0);
+    cp_async_commit();
+  }
+
+  for (int s = 0; s < cnt; ++s) {
+    const int row0 = unit[s] * BQ;
+    const int n_tiles = n_live[s], ns = next_live(s);
+    float acc[GR][4];
+#pragma unroll
+    for (int g = 0; g < GR; ++g)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[g][e] = 0.f;
+    // the score thread's rows: lse in log2 units, delta, position
+    float nl[SR], dl[SR];
+    long long q_pos[SR];
+#pragma unroll
+    for (int i = 0; i < SR; ++i) {
+      const int r = row0 + oy + C::NOY * i;
+      const size_t at = static_cast<size_t>(h) * Lq + (r < Lq ? r : 0);
+      nl[i] = r < Lq ? lse[at] * LOG2E : 0.f;
+      dl[i] = r < Lq ? delta[at] : 0.f;
+      q_pos[i] = q_off + static_cast<long long>(r) * stride;
+    }
+    const long long q_first = q_off + static_cast<long long>(row0) * stride;
+    FLASH_MARK(0);
+
+    for (int it = 0; it < n_tiles; ++it) {
+      cp_async_wait<0>();  // v-tile it (a unit's first: and q, dO)
+      __syncthreads();     // (A) v visible; k and dS^T read by all
+      load_k(it);
+      cp_async_commit();
+      FLASH_MARK(1);
+      float dp[SR][4];
+      score_tile<C, D>(dp, do_s, v_s, oy, sx);  // dP = dO V^T
+      FLASH_MARK(2);
+      cp_async_wait<0>();  // k-tile it
+      __syncthreads();     // (B) k visible; v and dO read by all
+      if (it + 1 < n_tiles) {
+        load_v(it + 1);
+      } else if (ns < cnt) {
+        load_do(unit[ns]);
+        load_v(0);
+      }
+      cp_async_commit();  // perhaps empty: the group count stays in step
+      FLASH_MARK(3);
+      float sc[SR][4];
+      score_tile<C, D>(sc, q_s, k_s, oy, sx);  // S = Q K^T
+      FLASH_MARK(4);
+
+      // P = exp(s - lse), 0 where masked (keys past Lk and, causal, keys
+      // after the row; a tile below the unit's diagonal skips the test);
+      // dS = P (dP - delta), to shared memory as each key's row slots
+      const int col0 = it * BK;
+      const bool masked =
+          col0 + BK > Lk ||
+          (causal && q_first < k_off + static_cast<long long>(col0 + BK - 1) *
+                                           stride);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float col[SR];
+#pragma unroll
+        for (int i = 0; i < SR; ++i)
+          col[i] = hopper::ex2(fmaf(sc[i][j], c, -nl[i]));
+        if (masked) {
+          const int key = col0 + sx + C::NSX * j;
+          const long long k_pos = k_off + static_cast<long long>(key) * stride;
+#pragma unroll
+          for (int i = 0; i < SR; ++i)
+            if (key >= Lk || (causal && q_pos[i] < k_pos)) col[i] = 0.f;
+        }
+#pragma unroll
+        for (int i = 0; i < SR; ++i) col[i] *= dp[i][j] - dl[i];
+        store_rows<SR>(ds_s + (sx + C::NSX * j) * C::LDG + C::slot(oy), col);
+      }
+      __syncthreads();  // (C) dS^T visible; q read by all
+      if (it + 1 == n_tiles && ns < cnt) {
+        load_q(unit[ns]);
+        cp_async_commit();
+      }
+      FLASH_MARK(5);
+      grad_tile<C>(acc, ds_s, k_s, ay * GR, tx);  // dQ += dS K
+      FLASH_MARK(6);
+    }
+
+    // dQ = scale (dS K); a row that sees no key stores 0
+    store_grad<C, D>(acc, dq, row0, Lq, H, h, ay, tx, scale);
+    FLASH_MARK(7);
+  }
+}
+
+template <int D, int OWN>
+__global__ void __launch_bounds__(F32Bwd<D, OWN>::THREADS,
+                                  F32Bwd<D, OWN>::MIN_BLOCKS)
+    flash_bwd_dkv_f32_kernel(const float* __restrict__ q,  // [Lq, H, D]
+                             const float* __restrict__ k,  // [Lk, H, D]
+                             const float* __restrict__ v,  // [Lk, H, D]
+                             const float* __restrict__ dout,  // [Lq, H, D]
+                             const float* __restrict__ lse,  // [H, Lq]
+                             const float* __restrict__ delta,  // [H, Lq]
+                             float* __restrict__ dk,  // [Lk, H, D]
+                             float* __restrict__ dv,  // [Lk, H, D]
+                             int Lq, int Lk, int H, int causal, int q_off,
+                             int k_off, int stride, float scale) {
+  using C = F32Bwd<D, OWN>;
+  constexpr int BK = OWN, BQ = C::STREAM, NT = C::THREADS, SR = C::SR,
+                GR = C::GR;
+  FLASH_MARK_START;
+  extern __shared__ __align__(128) unsigned char smem[];
+  Carve cv(smem);  // the regions of smem_dkv_f32, in order
+  float* k_s = cv.take<float>(BK * C::LDT);
+  float* v_s = cv.take<float>(BK * C::LDT);
+  float* q_s = cv.take<float>(BQ * C::LDT);
+  float* do_s = cv.take<float>(BQ * C::LDT);
+  float* p_s = cv.take<float>(BQ * C::LDG);   // P: [row][key slot]
+  float* ds_s = cv.take<float>(BQ * C::LDG);  // dS: [row][key slot]
+  float* lse_s = cv.take<float>(BQ);
+  float* dl_s = cv.take<float>(BQ);
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int sx = (lane & 7) + 8 * (warp % (C::NSX / 8));
+  const int oy = (lane >> 3) + 4 * (warp / (C::NSX / 8));
+  const int tx = (lane & 7) + 8 * (warp % (C::NTX / 8));
+  const int ay = (lane >> 3) + 4 * (warp / (C::NTX / 8));
+  const int h = blockIdx.x;
+  const int n_units = (Lk + BK - 1) / BK, nq = (Lq + BQ - 1) / BQ;
+  const float c = scale * LOG2E;
+
+  // this block's k-units: p, then n_units - 1 - p (the first keys see
+  // the most rows: the heavier first), each with its first live q-tile
+  int unit[2], first[2], cnt = 0;
+  for (int s = 0; s < 2; ++s) {
+    const int u = s == 0 ? blockIdx.y : n_units - 1 - blockIdx.y;
+    if (s == 1 && u == unit[0]) break;
+    unit[cnt] = u;
+    first[cnt++] = first_q_tile(
+        causal, k_off + static_cast<long long>(u) * BK * stride, q_off,
+        stride, BQ, Lq);
+  }
+  auto next_live = [&](int s) {
+    for (++s; s < cnt && first[s] >= nq; ++s) {
+    }
+    return s;
+  };
+  auto load_k = [&](int u) {
+    stage_rows<D, BK, C::LDT, NT>(k_s, k, u * BK, Lk, H, h);
+  };
+  auto load_v = [&](int u) {
+    stage_rows<D, BK, C::LDT, NT>(v_s, v, u * BK, Lk, H, h);
+  };
+  auto load_do = [&](int it) {
+    stage_rows<D, BQ, C::LDT, NT>(do_s, dout, it * BQ, Lq, H, h);
+  };
+  // q-tile it and its rows' lse and delta (0 past Lq, where q and dO are
+  // 0 too, so P dO and dP vanish there)
+  auto load_q = [&](int it) {
+    stage_rows<D, BQ, C::LDT, NT>(q_s, q, it * BQ, Lq, H, h);
+    const int t = threadIdx.x;
+    if (t < 2 * BQ) {
+      const int r = it * BQ + t % BQ;
+      const float* src = (t < BQ ? lse : delta) + static_cast<size_t>(h) * Lq;
+      cp_async4((t < BQ ? lse_s : dl_s) + t % BQ, src + (r < Lq ? r : 0),
+                r < Lq ? 4u : 0u);
+    }
+  };
+
+  // One cp.async group ahead of the loop: the first live unit's k and v
+  // and its first dO-tile.  Each q-tile then stages while its own dP^T
+  // runs, each dO-tile while the tile before runs dK; a unit's last tile
+  // stages the next unit's v once its dP^T is done and its k once its
+  // S^T is.
+  if (next_live(-1) < cnt) {
+    const int s0 = next_live(-1);
+    load_k(unit[s0]);
+    load_v(unit[s0]);
+    load_do(first[s0]);
+    cp_async_commit();
+  }
+
+  for (int s = 0; s < cnt; ++s) {
+    const int col0 = unit[s] * BK;
+    const int ns = next_live(s);
+    float dk_acc[GR][4], dv_acc[GR][4];
+#pragma unroll
+    for (int g = 0; g < GR; ++g)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dk_acc[g][e] = dv_acc[g][e] = 0.f;
+    long long k_pos[SR];  // the score thread's keys
+#pragma unroll
+    for (int i = 0; i < SR; ++i)
+      k_pos[i] = k_off + static_cast<long long>(col0 + oy + C::NOY * i) * stride;
+    const long long k_last =
+        k_off + static_cast<long long>(col0 + BK - 1) * stride;
+    FLASH_MARK(0);
+
+    for (int it = first[s]; it < nq; ++it) {
+      cp_async_wait<0>();  // dO-tile it (a unit's first: and k, v)
+      __syncthreads();     // (a) dO visible; q, P and dS read by all
+      load_q(it);
+      cp_async_commit();
+      FLASH_MARK(1);
+      float dp[SR][4];
+      score_tile<C, D>(dp, v_s, do_s, oy, sx);  // dP^T = V dO^T
+      FLASH_MARK(2);
+      cp_async_wait<0>();  // q-tile it with its lse and delta
+      __syncthreads();     // (b) q visible; v read by all
+      if (it + 1 == nq && ns < cnt) {
+        load_v(unit[ns]);
+        cp_async_commit();
+      }
+      FLASH_MARK(3);
+      float sc[SR][4];
+      score_tile<C, D>(sc, k_s, q_s, oy, sx);  // S^T = K Q^T
+      FLASH_MARK(4);
+
+      // P^T = exp(s - lse), 0 where the row precedes the key (a tile
+      // whose first row sees the unit's last key skips the test); dS^T =
+      // P^T (dP^T - delta); both to shared memory as each row's key slots
+      const int row0 = it * BQ;
+      const bool masked =
+          causal && q_off + static_cast<long long>(row0) * stride < k_last;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int rr = sx + C::NSX * j;
+        const float nl = lse_s[rr] * LOG2E, dl = dl_s[rr];
+        float p[SR], ds[SR];
+#pragma unroll
+        for (int i = 0; i < SR; ++i) p[i] = hopper::ex2(fmaf(sc[i][j], c, -nl));
+        if (masked) {
+          const long long q_pos =
+              q_off + static_cast<long long>(row0 + rr) * stride;
+#pragma unroll
+          for (int i = 0; i < SR; ++i)
+            if (q_pos < k_pos[i]) p[i] = 0.f;
+        }
+#pragma unroll
+        for (int i = 0; i < SR; ++i) ds[i] = p[i] * (dp[i][j] - dl);
+        store_rows<SR>(p_s + rr * C::LDG + C::slot(oy), p);
+        store_rows<SR>(ds_s + rr * C::LDG + C::slot(oy), ds);
+      }
+      __syncthreads();  // (c) P and dS visible; k read by all
+      if (it + 1 == nq && ns < cnt) {
+        load_k(unit[ns]);
+        cp_async_commit();
+      }
+      FLASH_MARK(5);
+      grad_tile<C>(dv_acc, p_s, do_s, ay * GR, tx);  // dV += P^T dO
+      FLASH_MARK(6);
+      __syncthreads();  // (d) dO read by all
+      if (it + 1 < nq) {
+        load_do(it + 1);
+      } else if (ns < cnt) {
+        load_do(first[ns]);
+      }
+      cp_async_commit();  // perhaps empty: the group count stays in step
+      FLASH_MARK(7);
+      grad_tile<C>(dk_acc, ds_s, q_s, ay * GR, tx);  // dK += dS^T Q
+      FLASH_MARK(8);
+    }
+
+    // dK = scale (dS^T Q), dV; a key that no row sees stores 0
+    store_grad<C, D>(dk_acc, dk, col0, Lk, H, h, ay, tx, scale);
+    store_grad<C, D>(dv_acc, dv, col0, Lk, H, h, ay, tx, 1.f);
+    FLASH_MARK(9);
+  }
+}
+
+template <int D, int OWN>
+int launch_dq_f32(const void* q, const void* k, const void* v,
+                  const void* dout, const float* lse, const float* delta,
+                  float* dq, int Lq, int Lk, int H, int causal, int q_off,
+                  int k_off, int stride, float scale, cudaStream_t stream) {
+  using C = F32Bwd<D, OWN>;
+  auto kernel = flash_bwd_dq_f32_kernel<D, OWN>;
+  constexpr size_t smem = smem_dq_f32(OWN, C::STREAM, D);
+  if (int e = set_smem_f32(kernel, smem)) return e;
+  const int units = (Lq + OWN - 1) / OWN;
+  dim3 grid(H, (units + 1) / 2);  // a block a pair of q-units
+  kernel<<<grid, C::THREADS, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout), lse,
+      delta, dq, Lq, Lk, H, causal, q_off, k_off, stride, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D, int OWN>
+int launch_dkv_f32(const void* q, const void* k, const void* v,
+                   const void* dout, const float* lse, const float* delta,
+                   float* dk, float* dv, int Lq, int Lk, int H, int causal,
+                   int q_off, int k_off, int stride, float scale,
+                   cudaStream_t stream) {
+  using C = F32Bwd<D, OWN>;
+  auto kernel = flash_bwd_dkv_f32_kernel<D, OWN>;
+  constexpr size_t smem = smem_dkv_f32(C::STREAM, OWN, D);
+  if (int e = set_smem_f32(kernel, smem)) return e;
+  const int units = (Lk + OWN - 1) / OWN;
+  dim3 grid(H, (units + 1) / 2);  // a block a pair of k-units
+  kernel<<<grid, C::THREADS, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout), lse,
+      delta, dk, dv, Lq, Lk, H, causal, q_off, k_off, stride, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the f32 kernels' shapes: D 64 or 128, any lengths; the side a block
+// owns (dq's bq, dk/dv's bk) 32 or 64, the streamed side D beside 32
+// and 64 beside 64
+inline bool shapes_ok_f32(int which, int Lq, int Lk, int H, int D, int bq,
+                          int bk, int stride) {
+  const int own = which == 0 ? bq : bk, streamed = which == 0 ? bk : bq;
+  const int L = which == 0 ? Lq : Lk;
+  return Lq > 0 && Lk > 0 && H > 0 && (D == 64 || D == 128) &&
+         (own == 32 || own == 64) && streamed == (own == 64 ? 64 : D) &&
+         ((L + own - 1) / own + 1) / 2 <= 65535 && stride >= 1;
+}
+
+
 }  // namespace flash
 
 extern "C" {
@@ -852,15 +1202,15 @@ size_t flash_bwd_smem_bytes(int which, int in_bytes, int bq, int bk, int D) {
   if (in_bytes == 2)
     return which == 0 ? flash::smem_dq_bf16(bq, bk, D)
                       : flash::smem_dkv_bf16(bq, bk, D);
-  return which == 0 ? flash::smem_dq(in_bytes, bq, bk, D)
-                    : flash::smem_dkv(in_bytes, bq, bk, D);
+  return which == 0 ? flash::smem_dq_f32(bq, bk, D)
+                    : flash::smem_dkv_f32(bq, bk, D);
 }
 
-// kind: 0 float32 (the scalar kernel; tiles multiples of 16 that divide
-// the lengths), 1 bfloat16 (the wgmma kernel; tiles (64 or 128, 64), D
-// 64 or 128, any lengths) for q, k, v and do.  lse, delta f32 [H, Lq];
-// dq f32 [Lq, H, D].  Launches on ``stream`` and returns
-// cudaGetLastError(); never synchronizes.
+// kind: 0 float32 (the register-tiled FFMA kernel; tiles (32, D) or (64,
+// 64)), 1 bfloat16 (the wgmma kernel; tiles (64 or 128, 64)) for q, k, v
+// and do; D 64 or 128, any lengths.  lse, delta f32 [H, Lq]; dq f32 [Lq,
+// H, D].  Launches on ``stream`` and returns cudaGetLastError(); never
+// synchronizes.
 int flash_bwd_dq(int kind, const void* q, const void* k, const void* v,
                  const void* dout, const float* lse, const float* delta,
                  float* dq, int Lq, int Lk, int H, int D, int bq, int bk,
@@ -868,11 +1218,19 @@ int flash_bwd_dq(int kind, const void* q, const void* k, const void* v,
                  void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (kind == 0) {
-    if (!flash::shapes_ok(Lq, Lk, H, D, bq, bk, stride))
+    if (!flash::shapes_ok_f32(0, Lq, Lk, H, D, bq, bk, stride))
       return static_cast<int>(cudaErrorInvalidValue);
-    return flash::launch_dq<float>(q, k, v, dout, lse, delta, dq, Lq, Lk, H,
-                                   D, bq, bk, causal, q_off, k_off, stride,
-                                   scale, st);
+#define FLASH_DQ_F32(DD, OWN)                                                 \
+  if (D == DD && bq == OWN)                                                   \
+    return flash::launch_dq_f32<DD, OWN>(q, k, v, dout, lse, delta, dq, Lq,   \
+                                         Lk, H, causal, q_off, k_off, stride, \
+                                         scale, st);
+    FLASH_DQ_F32(128, 64)
+    FLASH_DQ_F32(128, 32)
+    FLASH_DQ_F32(64, 64)
+    FLASH_DQ_F32(64, 32)
+#undef FLASH_DQ_F32
+    return static_cast<int>(cudaErrorInvalidValue);
   }
   if (kind != 1 || !flash::shapes_ok_bf16(0, Lq, Lk, H, D, bq, bk, stride))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -889,7 +1247,8 @@ int flash_bwd_dq(int kind, const void* q, const void* k, const void* v,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// As flash_bwd_dq; dk, dv f32 [Lk, H, D]; bf16 tiles (64, 64 or 128).
+// As flash_bwd_dq; dk, dv f32 [Lk, H, D]; f32 tiles (D, 32) or (64, 64),
+// bf16 (64, 64 or 128).
 int flash_bwd_dkv(int kind, const void* q, const void* k, const void* v,
                   const void* dout, const float* lse, const float* delta,
                   float* dk, float* dv, int Lq, int Lk, int H, int D, int bq,
@@ -897,11 +1256,19 @@ int flash_bwd_dkv(int kind, const void* q, const void* k, const void* v,
                   float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (kind == 0) {
-    if (!flash::shapes_ok(Lq, Lk, H, D, bq, bk, stride))
+    if (!flash::shapes_ok_f32(1, Lq, Lk, H, D, bq, bk, stride))
       return static_cast<int>(cudaErrorInvalidValue);
-    return flash::launch_dkv<float>(q, k, v, dout, lse, delta, dk, dv, Lq,
-                                    Lk, H, D, bq, bk, causal, q_off, k_off,
-                                    stride, scale, st);
+#define FLASH_DKV_F32(DD, OWN)                                                \
+  if (D == DD && bk == OWN)                                                   \
+    return flash::launch_dkv_f32<DD, OWN>(q, k, v, dout, lse, delta, dk, dv,  \
+                                          Lq, Lk, H, causal, q_off, k_off,    \
+                                          stride, scale, st);
+    FLASH_DKV_F32(128, 64)
+    FLASH_DKV_F32(128, 32)
+    FLASH_DKV_F32(64, 64)
+    FLASH_DKV_F32(64, 32)
+#undef FLASH_DKV_F32
+    return static_cast<int>(cudaErrorInvalidValue);
   }
   if (kind != 1 || !flash::shapes_ok_bf16(1, Lq, Lk, H, D, bq, bk, stride))
     return static_cast<int>(cudaErrorInvalidValue);

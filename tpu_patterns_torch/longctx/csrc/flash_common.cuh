@@ -1,20 +1,17 @@
-// Shared pieces of the f32 flash-attention kernels (flash_attention.cu,
-// flash_attention_bwd.cu) for Hopper (sm_90a); the bf16 kernels' are in
-// flash_wgmma.cuh.  The scalar staging and products below (load_tile,
-// mm) are the f32 backward's; the f32 forward keeps its tiles in
-// registers (flash_attention.cu).
+// Shared pieces of the f32 flash-attention kernels (flash_attention.cu's
+// forward, flash_attention_bwd.cu's dq and dk/dv) for Hopper (sm_90a);
+// the bf16 kernels' are in flash_wgmma.cuh.  All of them are
+// register-tiled FFMA: a tensor-core f32 product would be TF32, which
+// keeps ~3 digits.
 //
 // Layout: q/k/v/do are [L, H, D] row-major (the JAX package's layout;
 // the train step folds batch into H); row statistics are [H, L] f32.
-// A thread block stages tiles of one head into shared memory, each
-// region 128-B aligned, rows padded by 16 B (input dtype) or 4 floats
-// (f32).  The Python model of these regions is tpu_patterns_torch/
-// longctx/tuning.py::smem_bytes; the *_smem_bytes entry points must
-// agree with it.
-//
-// Products: C (f32, shared) = or += A . B over shared tiles, as scalar
-// f32 FMAs: a tensor-core f32 product would be TF32, which keeps ~3
-// digits.
+// A thread block stages rows of one head into shared memory by 16-byte
+// cp.async, each region 128-B aligned, rows padded by 4 floats so that
+// the 8 rows a quarter warp reads at once fall in 8 different 16-byte
+// bank groups.  The Python model of these regions is
+// tpu_patterns_torch/longctx/tuning.py::smem_bytes; the *_smem_bytes
+// entry points must agree with it.
 
 #pragma once
 
@@ -26,17 +23,9 @@
 namespace flash {
 
 constexpr float NEG_INF = -1e30f;
-constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
 constexpr size_t REGION_ALIGN = 128;
 
 typedef __nv_bfloat16 bf16;
-
-// row padding in elements: 16 bytes of the input dtype
-template <typename T>
-struct Pad {
-  static constexpr int value = 16 / static_cast<int>(sizeof(T));
-};
 
 __host__ __device__ constexpr size_t region(size_t bytes) {
   return (bytes + REGION_ALIGN - 1) / REGION_ALIGN * REGION_ALIGN;
@@ -54,95 +43,88 @@ struct Carve {
   }
 };
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
+// Phase marks for scripts/flash_f32_phases.py: nothing unless it builds
+// a kernel source with its header, which defines them first.
+#ifndef FLASH_MARK
+#define FLASH_MARK_START
+#define FLASH_MARK(n)
+#endif
 
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           uint32_t src_size) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(src_size)
+               : "memory");
 }
-template <>
-__device__ __forceinline__ bf16 from_f32<bf16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as astype
+// one float (a row statistic); src_size 0 stores a zero
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          uint32_t src_size) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(src_size)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// rows [row0, row0 + rows) of head h of src [L, H, D] -> dst [rows][ld],
-// 16 bytes per thread per step (D * sizeof(T) is a multiple of 16 and
-// src is 16-B aligned: the wrapper checks both)
-template <typename T>
-__device__ void load_tile(T* dst, int ld, const T* __restrict__ src, int row0,
-                          int rows, int H, int h, int D) {
-  constexpr int V = 16 / static_cast<int>(sizeof(T));
-  const int chunks = D / V;
-  for (int i = threadIdx.x; i < rows * chunks; i += THREADS) {
-    const int r = i / chunks, c = (i % chunks) * V;
-    *reinterpret_cast<uint4*>(dst + r * ld + c) =
-        *reinterpret_cast<const uint4*>(
-            src + (static_cast<size_t>(row0 + r) * H + h) * D + c);
+// Rows [row0, row0 + ROWS) of head h of src [L, H, D] into dst [ROWS][LD]
+// by 16-byte cp.async, a row per D / 4 threads; rows past L are
+// zero-filled (a src_size of 0 reads nothing).
+template <int D, int ROWS, int LD, int THREADS>
+__device__ __forceinline__ void stage_rows(float* dst,
+                                           const float* __restrict__ src,
+                                           int row0, int L, int H, int h) {
+  constexpr int CPR = D / 4;  // 16-byte chunks a row
+  constexpr int STEP = THREADS / CPR;  // rows a pass
+  static_assert(ROWS % STEP == 0, "whole passes");
+  const int r0 = threadIdx.x / CPR, ch = (threadIdx.x % CPR) * 4;
+  float* d = dst + r0 * LD + ch;
+  const float* s = src + (static_cast<size_t>(row0 + r0) * H + h) * D + ch;
+  const size_t s_step = static_cast<size_t>(STEP) * H * D;
+  if (row0 + ROWS <= L) {  // the whole tile lies inside: no test a row
+#pragma unroll
+    for (int n = 0; n < ROWS / STEP; ++n)
+      cp_async16(d + n * STEP * LD, s + n * s_step, 16u);
+    return;
+  }
+#pragma unroll
+  for (int n = 0; n < ROWS / STEP; ++n) {
+    const bool in = row0 + r0 + n * STEP < L;
+    cp_async16(d + n * STEP * LD, in ? s + n * s_step : src, in ? 16u : 0u);
   }
 }
 
-// rows [row0, row0 + rows) of head h of a [H, L] f32 statistic
-__device__ inline void load_row_stat(float* dst, const float* __restrict__ src,
-                                     int row0, int rows, int L, int h) {
-  for (int r = threadIdx.x; r < rows; r += THREADS)
-    dst[r] = src[static_cast<size_t>(h) * L + row0 + r];
+// Rows [0, RT) of a thread's values to shared memory as RT / 4 float4s
+template <int RT>
+__device__ __forceinline__ void store_rows(float* dst, const float (&x)[RT]) {
+#pragma unroll
+  for (int i = 0; i < RT; i += 4)
+    *reinterpret_cast<float4*>(dst + i) =
+        make_float4(x[i], x[i + 1], x[i + 2], x[i + 3]);
 }
-
-// A(i, k): A_T ? A[k * lda + i] : A[i * lda + k]   (M x K)
-// B(k, j): B_T ? B[j * ldb + k] : B[k * ldb + j]   (K x N)
-// C[i * ldc + j] (+)= sum_k A(i, k) B(k, j); M, N multiples of 4.
-// Each 4 x 4 output tile belongs to one thread, so the sums are
-// deterministic.  The caller syncs after.
-template <bool A_T, bool B_T>
-__device__ void mm_scalar(const float* A, int lda, const float* B, int ldb,
-                          float* C, int ldc, int M, int N, int K,
-                          bool accumulate) {
-  const int tn = N / 4;
-  const int tiles = (M / 4) * tn;
-  for (int t = threadIdx.x; t < tiles; t += THREADS) {
-    const int i0 = (t / tn) * 4, j0 = (t % tn) * 4;
-    float c[4][4];
+template <int RT>
+__device__ __forceinline__ void load_rows(float (&x)[RT], const float* src) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        c[i][j] = accumulate ? C[(i0 + i) * ldc + j0 + j] : 0.f;
-    for (int k = 0; k < K; ++k) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        a[i] = A_T ? A[k * lda + i0 + i] : A[(i0 + i) * lda + k];
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        b[j] = B_T ? B[(j0 + j) * ldb + k] : B[k * ldb + j0 + j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) c[i][j] = fmaf(a[i], b[j], c[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) C[(i0 + i) * ldc + j0 + j] = c[i][j];
+  for (int i = 0; i < RT; i += 4) {
+    const float4 f = *reinterpret_cast<const float4*>(src + i);
+    x[i] = f.x;
+    x[i + 1] = f.y;
+    x[i + 2] = f.z;
+    x[i + 3] = f.w;
   }
 }
 
-template <bool A_T, bool B_T>
-__device__ __forceinline__ void mm(const float* A, int lda, const float* B,
-                                   int ldb, float* C, int ldc, int M, int N,
-                                   int K, bool accumulate) {
-  mm_scalar<A_T, B_T>(A, lda, B, ldb, C, ldc, M, N, K, accumulate);
-}
-
-// Shared-memory bytes of each kernel, region by region in carve order
-// (see the kernels and tuning.py::smem_bytes).  The forward
-// (flash_attention.cu::flash_fwd_f32_kernel): q [bq][D + 4], k
+// Shared-memory bytes of each f32 kernel, region by region in carve
+// order (see the kernels and tuning.py::smem_bytes), all f32.  The
+// forward (flash_attention.cu::flash_fwd_f32_kernel): q [bq][D + 4], k
 // [bk][D + 4], v [bk][D], P^T [bk][bq + 4] and two [bk / 32][bq] row
-// exchanges (max, sum: one row of each a warp that shares the rows),
-// all f32.
+// exchanges (max, sum: one row of each a warp that shares the rows).
 __host__ __device__ constexpr size_t smem_fwd(int bq, int bk, int D) {
   return region(static_cast<size_t>(bq) * (D + 4) * 4) +
          region(static_cast<size_t>(bk) * (D + 4) * 4) +
@@ -150,29 +132,22 @@ __host__ __device__ constexpr size_t smem_fwd(int bq, int bk, int D) {
          region(static_cast<size_t>(bk) * (bq + 4) * 4) +
          2 * region(static_cast<size_t>(bk / 32) * bq * 4);
 }
-
-inline size_t smem_dq(int ib, int bq, int bk, int D) {
-  const size_t ldt = D + 16 / ib, lds = bk + 4, ldp = bk + 16 / ib,
-               lda = D + 4;
-  return 2 * region(bq * ldt * ib) + 2 * region(bk * ldt * ib) +
-         2 * region(bq * lds * 4) + region(bq * ldp * ib) +
-         region(bq * lda * 4) + 2 * region(bq * 4);
+// dq (flash_attention_bwd.cu::flash_bwd_dq_f32_kernel; it owns bq rows
+// and streams bk keys): q and do [bq][D + 4], k and v [bk][D + 4], dS^T
+// [bk][bq + 4].
+__host__ __device__ constexpr size_t smem_dq_f32(int bq, int bk, int D) {
+  return 2 * region(static_cast<size_t>(bq) * (D + 4) * 4) +
+         2 * region(static_cast<size_t>(bk) * (D + 4) * 4) +
+         region(static_cast<size_t>(bk) * (bq + 4) * 4);
 }
-
-inline size_t smem_dkv(int ib, int bq, int bk, int D) {
-  const size_t ldt = D + 16 / ib, lds = bk + 4, ldp = bk + 16 / ib,
-               lda = D + 4;
-  return 2 * region(bk * ldt * ib) + 2 * region(bq * ldt * ib) +
-         2 * region(bq * lds * 4) + 2 * region(bq * ldp * ib) +
-         2 * region(bk * lda * 4) + 2 * region(bq * 4);
-}
-
-// shapes the kernels take; anything else is refused before a launch
-inline bool shapes_ok(int Lq, int Lk, int H, int D, int bq, int bk,
-                      int stride) {
-  return Lq > 0 && Lk > 0 && H > 0 && H <= 65535 && D > 0 && D % 16 == 0 &&
-         bq > 0 && bk > 0 && bq % 16 == 0 && bk % 16 == 0 && Lq % bq == 0 &&
-         Lk % bk == 0 && stride >= 1;
+// dk/dv (flash_bwd_dkv_f32_kernel; it owns bk keys and streams bq rows):
+// k and v [bk][D + 4], q and do [bq][D + 4], P and dS [bq][bk + 4], the
+// rows' lse and delta [bq].
+__host__ __device__ constexpr size_t smem_dkv_f32(int bq, int bk, int D) {
+  return 2 * region(static_cast<size_t>(bk) * (D + 4) * 4) +
+         2 * region(static_cast<size_t>(bq) * (D + 4) * 4) +
+         2 * region(static_cast<size_t>(bq) * (bk + 4) * 4) +
+         2 * region(static_cast<size_t>(bq) * 4);
 }
 
 template <typename K>
@@ -182,6 +157,21 @@ inline int set_smem(K kernel, size_t smem) {
       static_cast<int>(smem));
   if (e != cudaSuccess) {
     cudaGetLastError();  // clear it, so the next launch reports its own
+    return static_cast<int>(e);
+  }
+  return 0;
+}
+
+// set_smem, and the whole carveout to shared memory, so that an f32
+// kernel's MIN_BLOCKS blocks fit an SM
+template <typename K>
+inline int set_smem_f32(K kernel, size_t smem) {
+  if (int e = set_smem(kernel, smem)) return e;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+      cudaSharedmemCarveoutMaxShared);
+  if (e != cudaSuccess) {
+    cudaGetLastError();
     return static_cast<int>(e);
   }
   return 0;

@@ -16,22 +16,21 @@ On a CUDA tensor each wrapper launches its hand-written kernels
 (``longctx/csrc/flash_attention.cu`` for K2/K3,
 ``longctx/csrc/flash_attention_bwd.cu`` for K4's dq and dk/dv kernels;
 by dtype, the wgmma kernels with TMA loads for bfloat16, and for
-float32 the register-tiled FFMA forward with cp.async staging and the
-scalar backward kernels, since a tensor-core f32 product would be TF32;
-built for sm_90a at first use) or raises; on a CPU tensor it runs its
+float32 register-tiled FFMA kernels with cp.async staging, since a
+tensor-core f32 product would be TF32; built for sm_90a at first use)
+or raises; on a CPU tensor it runs its
 plain-torch version (``*_reference``), which rounds at the same points
 as the kernels.  There is no other path.  Each launch adds one to its
 count in :data:`LAUNCHES`.
 
-Tiles: (block_q, block_k) is clamped by ``tuning._auto_block`` to the
-largest pair that fits the card's shared memory, and must divide the
-sequence lengths (the reference's error), except for the bfloat16
-kernels, whose sides are 64 or 128, and the float32 forward, whose tile
-is (64 or 32, head_dim): those mask a ragged edge.  From the one
-request the bfloat16 backward's dq and dk/dv kernels each take their
-own pair (:func:`_bwd_tiles`; the order in which they walk their tiles
-is :func:`bwd_schedule`; the float32 forward's, :func:`fwd_schedule`).
-``grid_mode="compact"`` keeps
+Tiles: each kernel takes its own pair from the request (block_q,
+block_k) (``tuning._auto_block``; the backward's dq and dk/dv kernels
+each theirs, :func:`_bwd_tiles`), and masks a ragged edge itself.  A
+float32 request clamped to the lengths must still divide them (the
+reference's error); a bfloat16 one need not.  The order in which the
+kernels walk their tiles: :func:`bwd_schedule` (bfloat16 backward),
+:func:`fwd_schedule` (float32 forward) and :func:`bwd_f32_schedule`
+(float32 backward).  ``grid_mode="compact"`` keeps
 the reference's validation (causal only; static zero offsets and unit
 stride; Lq == Lk for the backward).  The kernels themselves walk each
 q-tile's causally live k-tiles only, in ascending order, on both grid
@@ -48,12 +47,12 @@ import torch
 from tpu_patterns_torch.longctx.attention import causal_mask
 from tpu_patterns_torch.longctx.tuning import (
     BWD_BF16_SIDES,
+    BWD_F32_SIDES,
     BWD_STREAM,
     DEFAULT_BLOCK_K,
     DEFAULT_BLOCK_Q,
     FWD_BF16_SIDES,
     FWD_F32_Q_SIDES,
-    MIN_TILE,
     NEG_INF,
     _auto_block,
     sm_count,
@@ -172,6 +171,33 @@ def fwd_schedule(lq, lk, bq, bk, causal=True, q_off=0, k_off=0,
             for p in range((nq + 1) // 2)]
 
 
+def bwd_f32_schedule(kind, lq, lk, bq, bk, causal=True, q_off=0, k_off=0,
+                     pos_stride=1):
+    """The walk of the float32 backward kernel ``kind`` at its tile (bq,
+    bk), as ``flash_attention_bwd.cu``'s ``flash_bwd_{dq,dkv}_f32_kernel``
+    plan it: per block of a head, in launch order, its [(unit, [the
+    tiles it loads, in order])].  "dq": q-units of bq rows, block p
+    taking units n - 1 - p and p, each with its k-tiles 0 .. its last
+    live one (the forward's walk, :func:`fwd_schedule`); "dkv": k-units
+    of bk keys, block p taking units p and n - 1 - p (the first keys see
+    the most rows), each with its q-tiles from its first live one to the
+    last.  The heavier unit comes first; the middle unit of an odd count
+    alone.  Lengths may be ragged."""
+    if kind == "dq":
+        return fwd_schedule(lq, lk, bq, bk, causal, q_off, k_off, pos_stride)
+    if kind != "dkv":
+        raise ValueError(f"unknown backward kernel {kind!r}")
+    nq, nk = -(-lq // bq), -(-lk // bk)
+
+    def walk(u):
+        return (u, list(range(_first_q_tile(
+            causal, k_off + u * bk * pos_stride, q_off, pos_stride, bq, lq),
+            nq)))
+
+    return [[walk(u) for u in dict.fromkeys((p, nk - 1 - p))]
+            for p in range((nk + 1) // 2)]
+
+
 # -- plain versions -------------------------------------------------------------
 
 
@@ -257,14 +283,10 @@ def _blocks(q, k, kinds, block_q, block_k):
     bq, bk = _auto_block(lq, lk, d, q.element_size(), kinds, block_q,
                          block_k, smem_budget(q.device), heads=q.shape[1],
                          sms=sm_count(q.device))
-    if kinds == ("fwd",) and q.dtype != torch.bfloat16:
-        # the float32 forward masks a ragged edge itself; a request that
-        # does not divide the lengths keeps the reference's error
-        shown = (min(block_q, lq), min(block_k, lk))
-    else:
-        shown = (bq, bk)
-    ragged_ok = len(kinds) == 1 and q.dtype == torch.bfloat16
-    if (lq % shown[0] or lk % shown[1]) and not ragged_ok:
+    # every kernel masks a ragged edge itself; a float32 request that
+    # does not divide the lengths keeps the reference's error
+    shown = (min(block_q, lq), min(block_k, lk))
+    if q.dtype != torch.bfloat16 and (lq % shown[0] or lk % shown[1]):
         raise ValueError(
             f"block sizes {shown} must divide the sequence lengths "
             f"({lq}, {lk})"
@@ -273,14 +295,11 @@ def _blocks(q, k, kinds, block_q, block_k):
 
 
 def _bwd_tiles(q, k, block_q, block_k) -> dict[str, tuple[int, int]]:
-    """K4's (bq, bk) by kernel from the one request: a pair each for the
-    bfloat16 kernels (dq (64 or 128, 64), dk/dv (64, 64 or 128)), one
-    shared pair for the float32 ones."""
-    if q.element_size() == 2:
-        return {n: _blocks(q, k, (n,), block_q, block_k)
-                for n in ("dq", "dkv")}
-    pair = _blocks(q, k, ("dq", "dkv"), block_q, block_k)
-    return {"dq": pair, "dkv": pair}
+    """K4's (bq, bk) by kernel from the one request, a pair each: the
+    bfloat16 kernels' dq (64 or 128, 64) and dk/dv (64, 64 or 128), the
+    float32 kernels' dq (32, head_dim) or (64, 64) and dk/dv (head_dim,
+    32) or (64, 64)."""
+    return {n: _blocks(q, k, (n,), block_q, block_k) for n in ("dq", "dkv")}
 
 
 # -- kernel launches ------------------------------------------------------------
@@ -328,17 +347,6 @@ def _cuda_inputs(what, q, k, v, *rest):
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{what}: inputs must be contiguous and "
                              "16-byte aligned")
-    d = tensors[0].shape[-1]
-    if d % MIN_TILE:
-        raise ValueError(f"{what}: head_dim {d} is not a multiple of 16")
-
-
-def _check_tiles(what, bq, bk):
-    if bq % MIN_TILE or bk % MIN_TILE:
-        raise ValueError(
-            f"{what}: kernel tiles ({bq}, {bk}) must be multiples of "
-            f"{MIN_TILE}"
-        )
 
 
 def _raise_rc(what, rc, bq, bk, d, smem_bytes):
@@ -402,28 +410,37 @@ def _launch_fwd(q, k, v, q_off, k_off, causal, scale, bq, bk, pos_stride,
     return (o, m, l) if emit_stats else o
 
 
+def _bwd_legal(dtype, d) -> dict[str, set[tuple[int, int]]]:
+    """The (bq, bk) tiles each backward kernel of ``dtype`` takes at
+    head_dim ``d`` (64 or 128): bfloat16 dq (64 or 128, 64) and dk/dv
+    (64, 64 or 128); float32 dq (32, d) or (64, 64) and dk/dv (d, 32) or
+    (64, 64)."""
+    if dtype == torch.bfloat16:
+        return {"dq": {(s, BWD_STREAM) for s in BWD_BF16_SIDES},
+                "dkv": {(BWD_STREAM, s) for s in BWD_BF16_SIDES}}
+    dq = {(s, 64 if s == 64 else d) for s in BWD_F32_SIDES}
+    return {"dq": dq, "dkv": {(b, a) for a, b in dq}}
+
+
 def _launch_bwd(q, k, v, do, lse, delta, q_off, k_off, causal, scale, tiles,
                 pos_stride, kernels=("dq", "dkv")):
     """K4's two kernels in order, each at its pair of ``tiles`` (see
     :func:`_bwd_tiles`).  The kernels are chosen by dtype: bfloat16 runs
-    the wgmma kernels (head_dim 64 or 128; dq tiles (64 or 128, 64),
-    dk/dv tiles (64, 64 or 128)), float32 the scalar ones.  A failed
-    build or launch raises; neither stands in for the other.
-    ``kernels`` names a subset to time one alone (the outputs of a
-    kernel left out stay uninitialized)."""
+    the wgmma kernels, float32 the register-tiled FFMA ones; both take
+    head_dim 64 or 128 and the tiles :func:`_bwd_legal` lists, and
+    anything else raises, as does a failed build or launch; neither
+    stands in for the other.  ``kernels`` names a subset to time one
+    alone (the outputs of a kernel left out stay uninitialized)."""
     _cuda_inputs("flash_block_bwd", q, k, v, do)
     lq, h, d = q.shape
-    for name in kernels:
-        _check_tiles(f"flash_block_bwd {name}", *tiles[name])
-    if q.dtype == torch.bfloat16:
-        legal = {"dq": {(s, BWD_STREAM) for s in BWD_BF16_SIDES},
-                 "dkv": {(BWD_STREAM, s) for s in BWD_BF16_SIDES}}
-        if d not in (64, 128) or any(tuple(tiles[n]) not in legal[n]
-                                     for n in kernels):
-            raise ValueError(
-                f"flash_block_bwd: the bfloat16 kernels take head_dim 64 "
-                f"or 128, dq tiles (64 or 128, {BWD_STREAM}) and dk/dv "
-                f"tiles ({BWD_STREAM}, 64 or 128), not D={d}, {tiles}")
+    legal = _bwd_legal(q.dtype, d)
+    if d not in (64, 128) or any(tuple(tiles[n]) not in legal[n]
+                                 for n in kernels):
+        name = str(q.dtype).removeprefix("torch.")
+        raise ValueError(
+            f"flash_block_bwd: the {name} kernels take head_dim 64 or 128 "
+            f"and tiles dq {sorted(legal['dq'])}, dk/dv "
+            f"{sorted(legal['dkv'])}, not D={d}, {tiles}")
     lk = k.shape[0]
     stats = [t.contiguous().float() for t in (lse, delta)]
     for t in stats:
@@ -506,7 +523,7 @@ def flash_block_bwd(q, k, v, do, lse, delta, q_off: int = 0,
     [Lq, H, D]; k, v [Lk, H, D]; lse, delta f32 [H, Lq] (the rows'
     global logsumexp and rowsum(dO * O)).  Offsets as
     :func:`flash_block`.  One request (block_q, block_k) serves both
-    kernels (:func:`_bwd_tiles`)."""
+    kernels, each its own pair (:func:`_bwd_tiles`)."""
     lq, _, d = q.shape
     scale = _scale(d, scale)
     _check_grid(grid_mode, causal, q_off, k_off, pos_stride, lq,

@@ -5,20 +5,22 @@ Counterpart of ``tpu_patterns/longctx/tuning.py``.  The reference fits
 (block_q, block_k) into a 14 MB VMEM budget; here the budget is the
 card's opt-in shared memory per block (232,448 B on an H100) and the
 working set is that of the CUDA kernels' own shared-memory tiles
-(``longctx/csrc/flash_common.cuh`` and ``flash_attention.cu``, whose
-``*_smem_bytes`` functions compute the same numbers, region by region).
-A (block_q, block_k) pair IS the kernels' tile: a q-tile of block_q rows
-loops over k-tiles of block_k keys inside one thread block.
+(``longctx/csrc/flash_common.cuh``, ``flash_attention.cu`` and
+``flash_attention_bwd.cu``, whose ``*_smem_bytes`` functions compute
+the same numbers, region by region).  A (block_q, block_k) pair IS the
+kernels' tile: a q-tile of block_q rows against k-tiles of block_k keys
+inside one thread block.
 
-The bf16 kernels (wgmma) take tiles of 64 or 128 a side, 64 rows or
-keys per consumer warpgroup, and mask a ragged edge, so their tile need
-not divide the lengths: the forward either pair, the backward's dq
-kernel (64 or 128 rows, 64 keys) and its dk/dv kernel (64 rows, 64 or
-128 keys) each its own pair from the one request.  The float32 forward
-(register-tiled FFMA) takes q-units of 64 rows where their grid fills
-the card and of 32 elsewhere, by k-tiles of head_dim keys (64 or 128),
-and masks a ragged edge too.  The float32 backward kernels take
-multiples of 16 that divide the lengths, one pair for both.
+Every kernel masks a ragged edge, so its tile need not divide the
+lengths, and each backward kernel takes its own pair from the one
+request.  The bf16 kernels (wgmma) take tiles of 64 or 128 a side, 64
+rows or keys per consumer warpgroup: the forward either pair, the
+backward's dq kernel (64 or 128 rows, 64 keys) and its dk/dv kernel (64
+rows, 64 or 128 keys).  The float32 kernels (register-tiled FFMA) take
+units of 64 where their grid (a block a pair of units, each head) fills
+the card and of 32 elsewhere: the forward q-units by k-tiles of
+head_dim keys (64 or 128), the backward's dq q-units and dk/dv k-units
+by tiles of the other side of head_dim beside 32, 64 beside 64.
 """
 
 from __future__ import annotations
@@ -42,8 +44,6 @@ DEFAULT_BLOCK_K = 1024
 H100_SMEM_OPTIN = 232448
 # ... and its streaming multiprocessors
 H100_SMS = 132
-# The float32 kernels' tiles are multiples of 16 (flash_common.cuh).
-MIN_TILE = 16
 # The bf16 forward's tile sides, largest first (64 rows per warpgroup).
 FWD_BF16_SIDES = (128, 64)
 # The f32 forward's sides, largest first: rows of a q-unit (8 or 4 a
@@ -51,6 +51,10 @@ FWD_BF16_SIDES = (128, 64)
 # 2 x keys threads; flash_attention.cu's F32Fwd)
 FWD_F32_Q_SIDES = (64, 32)
 FWD_F32_K_SIDES = (128, 64)
+# The f32 backward's: the side a block owns (dq's rows, dk/dv's keys),
+# largest first; it streams 64 beside 64 and the f32 forward's k side
+# beside 32 (flash_attention_bwd.cu's F32Bwd)
+BWD_F32_SIDES = (64, 32)
 # The bf16 backward's: the side a block owns (dq's rows, dk/dv's keys),
 # largest first, and the side it streams (dq's keys, dk/dv's rows).
 BWD_BF16_SIDES = (128, 64)
@@ -104,10 +108,12 @@ def smem_bytes(kind: str, bq: int, bk: int, d: int, in_bytes: int) -> int:
     (:func:`fwd_stages` (k, v) pairs; :func:`bwd_stages` (k, v) pairs
     for dq, (q, do) pairs with their rows' f32 lse and delta for dk/dv)
     and 256 B of mbarriers.  The float32 kernels: the regions the
-    kernel carves, in order, each rounded up to 128 B.  The forward's
-    (``flash_common.cuh::smem_fwd``): q and k rows padded by 4 floats,
-    v unpadded, P^T [bk][bq + 4] and two [bk / 32][bq] row exchanges;
-    the backward's rows are padded by 16 B (bank spread)."""
+    kernel carves, in order, each rounded up to 128 B
+    (``flash_common.cuh::smem_{fwd,dq_f32,dkv_f32}``), every [rows][D]
+    tile but the forward's v padded by 4 floats: the forward's q, k, v,
+    P^T [bk][bq + 4] and two [bk / 32][bq] row exchanges; dq's q, dO, k,
+    v and dS^T [bk][bq + 4]; dk/dv's k, v, q, dO, P and dS [bq][bk + 4],
+    and the rows' lse and delta."""
     if in_bytes == 2:
         tile = d * 2  # bytes of one bf16 row
         own, ring = {
@@ -116,27 +122,18 @@ def smem_bytes(kind: str, bq: int, bk: int, d: int, in_bytes: int) -> int:
             "dkv": (2 * bk * tile, bwd_stages(d) * 2 * bq * (tile + 4)),
         }[kind]
         return 1024 + own + ring + _BARRIER_BYTES
-    ldt = d + 16 // in_bytes  # staged q/k/v/do rows, input dtype
-    lds = bk + 4  # float32 score rows
-    ldp = bk + 16 // in_bytes  # probability / dS rows, input dtype
-    lda = d + 4  # float32 accumulator rows
-    ib = in_bytes
-    regions = {
+    row = d + 4  # floats of a padded [rows][D] row
+    floats = {
         # q, k, v, P^T, row max and row sum of each warp sharing a row
-        "fwd": [(bq * (d + 4), 4), (bk * (d + 4), 4), (bk * d, 4),
-                (bk * (bq + 4), 4), (bk // 32 * bq, 4), (bk // 32 * bq, 4)],
-        # q, do, k, v, s, dp, ds, dq, lse, delta
-        "dq": [(bq * ldt, ib), (bq * ldt, ib), (bk * ldt, ib),
-               (bk * ldt, ib), (bq * lds, 4), (bq * lds, 4),
-               (bq * ldp, ib), (bq * lda, 4), (bq, 4), (bq, 4)],
-        # k, v, q, do, s, dp, p, ds, dk, dv, lse, delta
-        "dkv": [(bk * ldt, ib), (bk * ldt, ib), (bq * ldt, ib),
-                (bq * ldt, ib), (bq * lds, 4), (bq * lds, 4),
-                (bq * ldp, ib), (bq * ldp, ib), (bk * lda, 4),
-                (bk * lda, 4), (bq, 4), (bq, 4)],
+        "fwd": [bq * row, bk * row, bk * d, bk * (bq + 4), bk // 32 * bq,
+                bk // 32 * bq],
+        # q, dO, k, v, dS^T
+        "dq": [bq * row, bq * row, bk * row, bk * row, bk * (bq + 4)],
+        # k, v, q, dO, P, dS, lse, delta
+        "dkv": [bk * row, bk * row, bq * row, bq * row, bq * (bk + 4),
+                bq * (bk + 4), bq, bq],
     }[kind]
-    return sum(-(-n * size // _REGION_ALIGN) * _REGION_ALIGN
-               for n, size in regions)
+    return sum(-(-n * 4 // _REGION_ALIGN) * _REGION_ALIGN for n in floats)
 
 
 def sm_count(device: torch.device | str) -> int:
@@ -162,53 +159,51 @@ def _auto_block(lq: int, lk: int, d: int, in_bytes: int,
                 kinds: tuple[str, ...], block_q: int, block_k: int,
                 budget: int = H100_SMEM_OPTIN, heads: int = 1,
                 sms: int = H100_SMS) -> tuple[int, int]:
-    """Largest (block_q, block_k) pair <= the requested sizes (clamped to
-    the sequence lengths, then halved, the larger side first) whose
-    shared memory fits ``budget`` in every kernel of ``kinds``.  A bf16
-    kernel (``in_bytes`` 2; kinds ``("fwd",)``, ``("dq",)`` or
-    ``("dkv",)``, one at a time) takes each side it may choose from
-    :data:`FWD_BF16_SIDES` (:data:`BWD_BF16_SIDES`): the largest <= the
-    request (64 at least) that divides the length, else 64, whose ragged
-    edge the kernel masks; the backward's streamed side is
-    :data:`BWD_STREAM`.  The float32 forward (``in_bytes`` 4, kinds
-    ``("fwd",)``; ``heads`` heads, a card of ``sms`` SMs) takes the
-    largest of :data:`FWD_F32_Q_SIDES` <= the request whose grid (a
-    block a pair of q-units, each head) holds a block for every SM, else
-    32, and the largest of :data:`FWD_F32_K_SIDES` not above the
-    head_dim (64 for a smaller one); every such pair fits the budget."""
+    """The tile (block_q, block_k) of one flash kernel (``kinds`` is
+    ``("fwd",)``, ``("dq",)`` or ``("dkv",)``) for the request
+    (block_q, block_k).  A bf16 kernel (``in_bytes`` 2) takes each side
+    it may choose from :data:`FWD_BF16_SIDES` (:data:`BWD_BF16_SIDES`):
+    the largest <= the request (64 at least) that divides the length,
+    else 64, whose ragged edge the kernel masks; the backward's streamed
+    side is :data:`BWD_STREAM`; the pair is halved, the larger side
+    first, until its shared memory fits ``budget``.  A float32 kernel
+    (``in_bytes`` 4; ``heads`` heads, a card of ``sms`` SMs) takes for
+    the side a block owns (the forward's and dq's rows, dk/dv's keys)
+    the largest of :data:`FWD_F32_Q_SIDES` (:data:`BWD_F32_SIDES`) <=
+    the request whose grid (a block a pair of units, each head) holds a
+    block for every SM, else 32; for the other side the largest of
+    :data:`FWD_F32_K_SIDES` not above the head_dim (64 for a smaller
+    one), and 64 beside the backward's 64.  Every such pair fits the
+    budget."""
+    if kinds not in (("fwd",), ("dq",), ("dkv",)):
+        raise ValueError("the flash kernels take a tile pair each: ask "
+                         "for ('fwd',), ('dq',) and ('dkv',) apart")
+    kind = kinds[0]
+    if in_bytes == 4:
+        n, req = (lk, block_k) if kind == "dkv" else (lq, block_q)
+        sides = FWD_F32_Q_SIDES if kind == "fwd" else BWD_F32_SIDES
 
-    def est(bq: int, bk: int) -> int:
-        return max(smem_bytes(k, bq, bk, d, in_bytes) for k in kinds)
+        def fills(t: int) -> bool:  # a block a pair of units, each head
+            return heads * ((-(-n // t) + 1) // 2) >= sms
 
-    if in_bytes == 2 and ("dq" in kinds or "dkv" in kinds) and len(kinds) > 1:
-        raise ValueError("the bfloat16 backward kernels take a tile pair "
-                         "each: ask for ('dq',) and ('dkv',) apart")
-    if in_bytes == 4 and kinds == ("fwd",):
-        def fills(bq: int) -> bool:  # a block a pair of q-units, each head
-            return heads * ((-(-lq // bq) + 1) // 2) >= sms
+        own = next(t for t in sides
+                   if t == sides[-1] or (t <= req and fills(t)))
+        other = next(t for t in FWD_F32_K_SIDES
+                     if t <= d or t == FWD_F32_K_SIDES[-1])
+        if kind != "fwd" and own == 64:
+            other = 64
+        return (other, own) if kind == "dkv" else (own, other)
 
-        return (next(t for t in FWD_F32_Q_SIDES if t == FWD_F32_Q_SIDES[-1]
-                     or (t <= block_q and fills(t))),
-                next(t for t in FWD_F32_K_SIDES
-                     if t <= d or t == FWD_F32_K_SIDES[-1]))
-    if in_bytes == 2 and kinds in (("fwd",), ("dq",), ("dkv",)):
-        sides = FWD_BF16_SIDES if kinds == ("fwd",) else BWD_BF16_SIDES
+    sides = FWD_BF16_SIDES if kind == "fwd" else BWD_BF16_SIDES
 
-        def side(req: int, n: int) -> int:
-            return next(t for t in sides
-                        if t == sides[-1] or (t <= req and n % t == 0))
+    def side(req: int, n: int) -> int:
+        return next(t for t in sides
+                    if t == sides[-1] or (t <= req and n % t == 0))
 
-        bq = BWD_STREAM if kinds == ("dkv",) else side(block_q, lq)
-        bk = BWD_STREAM if kinds == ("dq",) else side(block_k, lk)
-        while est(bq, bk) > budget and max(bq, bk) > sides[-1]:
-            if bq >= bk:
-                bq //= 2
-            else:
-                bk //= 2
-        return bq, bk
-
-    bq, bk = min(block_q, lq), min(block_k, lk)
-    while est(bq, bk) > budget and max(bq, bk) > MIN_TILE:
+    bq = BWD_STREAM if kind == "dkv" else side(block_q, lq)
+    bk = BWD_STREAM if kind == "dq" else side(block_k, lk)
+    while (smem_bytes(kind, bq, bk, d, in_bytes) > budget
+           and max(bq, bk) > sides[-1]):
         if bq >= bk:
             bq //= 2
         else:
