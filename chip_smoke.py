@@ -23,9 +23,11 @@ long-context ``decode`` pattern and the token LM's ``lm`` (no kernel on
 their path), the serve engine's kv tier, priority preemption and
 snapshots, its recovery path with the obs plane that records it, the
 diagnostics (``doctor``, the profile reader, ``profilecheck``) and the
-perf observatory (``perf``), and sequence parallelism (ring attention
+perf observatory (``perf``), sequence parallelism (ring attention
 and Ulysses over a rank mesh of four ranks on the one card, through the
-flash kernels).
+flash kernels), and the parallelism patterns (the collective matmul,
+the GPipe and 1F1B pipelines, top-1 MoE dispatch and the ZeRO step over
+rank meshes on the one card; no kernel on their path).
 Phases, each one or more printed lines:
 
 1. device and toolchain: torch/CUDA versions, ``nvcc --version``, and the
@@ -390,7 +392,21 @@ Phases, each one or more printed lines:
     (e) ``--enable_profiling`` over ``longctx --grad true --strategy
     flash --devices 1``, then ``profilecheck --rates-jsonl`` on its
     Records: the ``tflops_hw`` cross-check SUCCESS and coherent;
-20. the card's name and power limit again, the ``kernels`` line (the
+20. the parallelism patterns (``parallel/``; alone with ``--tree .
+    parallel``; no kernel on this path): ``overlap`` at
+    ``OverlapConfig``'s defaults (rows 1024, E 4096, F 4096, bf16, the
+    ag and rs Records) at 4 ranks and 1, with the card's TFLOP/s (ranks
+    x ``tflops_decomposed``, and the baseline's) at most the bf16 peak;
+    ``pipeline`` at ``PipelineConfig``'s (n_micro 8, batch 4, dim 256,
+    f32, gpipe and 1f1b) at 4 ranks and 2, with the microbatch conveyor
+    and with replicated microbatches; ``moe`` at ``MoEConfig``'s (512
+    tokens a rank, dim 128, f32, cf 0, 2 and 1) at 4 ranks and 1, and
+    in bfloat16 at 4; every Record SUCCESS; then ZeRO over 4 ranks on
+    leaves of 4096 x 4096, 4096 and 61 (the pad path): one SGD step and
+    two Adam steps of ``zero_apply`` within 1e-6 relative of the
+    replicated update, each rank's Adam moments a quarter of a leaf;
+    the phase's wall time and the card's name and power limit;
+21. the card's name and power limit again, the ``kernels`` line (the
     flash rows also carry ``train_loop_launches``, phase 8b's counts,
     K1's row ``loadgen_launches``, phase 14's by scenario,
     ``kv_tier_launches``, phase 16's by leg, ``recovery_launches``,
@@ -5307,6 +5323,130 @@ def phase_longctx(torch, pk, F, timing, spec):
     return launches, f32_rows, shard_err
 
 
+# -- phase 20: the parallelism patterns (parallel/) -------------------------
+
+# (leg, argv): each subcommand at its config's defaults, nothing cut:
+# overlap (rows 1024, E 4096, F 4096, bf16, ag and rs) at 4 ranks and 1,
+# pipeline (n_micro 8, batch 4, dim 256, f32, gpipe and 1f1b) at 4 and 2
+# ranks with the conveyor and with replicated microbatches, moe (512
+# tokens a rank, dim 128, f32, cf 0/2/1) at 4 and 1 and in bf16 at 4
+PAR_LEGS = (
+    [(f"overlap_{n}", ["overlap", "--devices", str(n)]) for n in (4, 1)]
+    + [(f"pipeline_{n}_{'sharded' if s else 'replicated'}",
+        ["pipeline", "--devices", str(n), "--micro_sharded", str(s).lower()])
+       for n in (4, 2) for s in (True, False)]
+    + [(f"moe_{n}", ["moe", "--devices", str(n)]) for n in (4, 1)]
+    + [("moe_4_bf16", ["moe", "--devices", "4", "--dtype", "bfloat16"])])
+PAR_RECORDS = {"overlap": 2, "pipeline": 2, "moe": 3}
+# the ZeRO check: leaves of 4096 x 4096, (4096,) and 61 (the pad path) at
+# 4 ranks; zero_apply against the replicated update
+ZERO_RANKS = 4
+ZERO_SHAPES = {"w": (4096, 4096), "b": (4096,), "pad": (61,)}
+ZERO_RTOL = 1e-6
+
+
+def par_zero(torch):
+    """ZeRO over 4 ranks on the card: one SGD step and two Adam steps of
+    ``zero_apply`` against the same optimizer on the replicated params
+    and the summed grads (max |zero - replicated| over max |replicated|,
+    each leaf, each rank), each rank's Adam state 1/4 of a leaf."""
+    from tpu_patterns_torch.comm import mesh as mesh_mod
+    from tpu_patterns_torch.parallel import optim, zero
+
+    mesh = mesh_mod.default_mesh(ZERO_RANKS, DEVICE)
+    dev = mesh.devices[0]
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def tree():
+        return {k: torch.randn(s, generator=gen, device=dev)
+                for k, s in ZERO_SHAPES.items()}
+
+    params, grads = tree(), [tree() for _ in range(ZERO_RANKS)]
+    g_sum = {k: torch.stack([g[k] for g in grads]).sum(0) for k in params}
+    rows, bad = [], []
+    for name, tx, steps in (("sgd", optim.sgd(0.1), 1),
+                            ("adam", optim.adam(1e-3), 2)):
+        t0 = time.perf_counter()
+        ps = [{k: v.clone() for k, v in params.items()} for _ in mesh.devices]
+        state = zero.zero_init(tx, ps)
+        for _ in range(steps):
+            ps, state = zero.zero_apply(tx, grads, state, ps)
+        torch.cuda.synchronize()
+        zero_s = time.perf_counter() - t0
+        rp, rst = params, tx.init(params)
+        for _ in range(steps):
+            upd, rst = tx.update(g_sum, rst, rp)
+            rp = optim.apply_updates(rp, upd)
+        err = max(float((p[k] - rp[k]).abs().max())
+                  / max(float(rp[k].abs().max()), 1e-30)
+                  for p in ps for k in rp)
+        shard = {k: zero.shard_size(math.prod(s), ZERO_RANKS)
+                 for k, s in ZERO_SHAPES.items()}
+        sharded = name == "sgd" or all(
+            st.mu[k].numel() == st.nu[k].numel() == shard[k]
+            for st in state for k in shard)
+        ok = err <= ZERO_RTOL and sharded
+        rows.append({"optimizer": name, "steps": steps, "rel_err": err,
+                     "state_sharded": sharded, "seconds": zero_s,
+                     "ok": ok})
+        if not ok:
+            bad.append(f"zero {name}: rel err {err:.3e}, state sharded "
+                       f"{sharded}")
+    memory = zero.memory_model(params, ZERO_RANKS)
+    emit({"phase": "parallel", "leg": "zero", "ranks": ZERO_RANKS,
+          "shapes": ZERO_SHAPES, "rtol": ZERO_RTOL, "runs": rows,
+          "memory_model": memory,
+          "verdict": "SUCCESS" if not bad else "FAILURE"})
+    return bad
+
+
+def phase_parallel(torch):
+    """Phase 20 (module docstring): the ``overlap``, ``pipeline`` and
+    ``moe`` subcommands over rank meshes on the card, then the ZeRO
+    check.  Raises if any Record or check fails."""
+    from tpu_patterns_torch.runtime import match_device_spec
+
+    t_phase = time.perf_counter()
+    peak = match_device_spec(torch.cuda.get_device_name(0))["bf16_tflops"]
+    bad, ends = [], {}
+    for leg, argv in PAR_LEGS:
+        t0 = time.perf_counter()
+        rc, _, recs = _cli_in_process([*argv, "--device", DEVICE])
+        ranks = int(argv[argv.index("--devices") + 1])
+        row = {"phase": "parallel", "leg": leg, "argv": argv, "rc": rc,
+               "seconds": time.perf_counter() - t0,
+               "records": [(r["mode"], r["commands"], r["verdict"],
+                            r["metrics"]) for r in recs],
+               "notes": sorted({n for r in recs for n in r["notes"]})}
+        if argv[0] == "overlap":
+            # tflops_decomposed counts a rank's flops; the ranks share the
+            # one card, so the card's rate is ranks x that (the baseline's:
+            # the same flops over its own time)
+            row["card_tflops"] = {}
+            for r in recs:
+                m = r["metrics"]
+                rate = ranks * m["tflops_decomposed"]
+                row["card_tflops"][r["mode"]] = {
+                    "decomposed": rate,
+                    "baseline": rate * m["decomposed_us"] / m["baseline_us"]}
+            row["bf16_peak_tflops"] = peak
+            over = [m for m, t in row["card_tflops"].items()
+                    if max(t.values()) > peak]
+            if over:
+                bad.append(f"{leg}: card rate above the bf16 peak {over}")
+        emit(row)
+        failed = [r["mode"] for r in recs if r["verdict"] != "SUCCESS"]
+        if rc != 0 or failed or len(recs) != PAR_RECORDS[argv[0]]:
+            bad.append(f"{leg}: rc {rc}, {len(recs)} Records, not "
+                       f"SUCCESS: {failed}")
+        ends[leg] = time.perf_counter() - t_phase
+    bad += par_zero(torch)
+    emit({"phase": "parallel_phase", "seconds": time.perf_counter() - t_phase,
+          "leg_end_s": ends, "card": _smi()})
+    if bad:
+        raise AssertionError("parallel: " + " | ".join(bad))
+
+
 def profile_concurrency_main() -> int:
     """``python3 chip_smoke.py --profile-concurrency``, which the smoke
     runs in a process of its own: the xla concurrent "C C" run, the
@@ -5380,7 +5520,7 @@ def profile_concurrency_main() -> int:
 
 # the timing phases ``--tree`` runs with another checkout's package
 TREE_PHASES = ("put_time", "ring_put_time", "accumulate_time",
-               "allreduce", "add_one_time")
+               "allreduce", "add_one_time", "parallel")
 # phases ``--tree`` runs only when named: phases 14-19 on their own,
 # phase 16's leg e again and again (``kv_race``: its spread), phase 5's
 # bf16 serve leg (a tree's serve tokens/s against another's) and phase
@@ -5455,6 +5595,7 @@ def tree_main(tree: str, phases: list[str]) -> int:
            "recovery": lambda: phase_recovery(torch, pk),
            "diagnostics": lambda: phase_diagnostics(torch, pk, F, doctor),
            "longctx": lambda: phase_longctx(torch, pk, F, timing, spec),
+           "parallel": lambda: phase_parallel(torch),
            "flash_f32_time": lambda: phase_flash_f32_time(
                torch, F, timing, spec, libs),
            "serve": lambda: serve_leg(torch, eng_mod, "bf16",
@@ -5715,6 +5856,7 @@ def main() -> int:
     diagnostics_launches = phase_diagnostics(torch, pk, F, doctor)
     longctx_launches, lc_f32, lc_err = phase_longctx(torch, pk, F, timing,
                                                      spec)
+    phase_parallel(torch)
 
     rows = {**ftime, **ptime, "paged_attention": {
         "ms": ktime["kernel"]["ms"], "bound_ms": ktime["bound_ms"],

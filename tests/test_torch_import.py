@@ -1,6 +1,6 @@
 """tpu_patterns_torch stands alone: no JAX, nothing of tpu_patterns, no
-``tabulate`` (the machine with the card has none), and no quiet CPU run
-when CUDA is missing."""
+``tabulate`` or ``optax`` (the machine with the card has neither), and
+no quiet CPU run when CUDA is missing."""
 
 import ast
 import os
@@ -12,7 +12,7 @@ import pytest
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "tpu_patterns", "tabulate")
+FORBIDDEN = ("jax", "jaxlib", "tpu_patterns", "tabulate", "optax")
 
 
 def _port_sources():

@@ -27,6 +27,9 @@
     python -m tpu_patterns_torch interop --device cuda
     python -m tpu_patterns_torch longctx --device cuda --devices 4 \
         --strategy ring_pallas --grad true
+    python -m tpu_patterns_torch overlap --devices 4
+    python -m tpu_patterns_torch pipeline --devices 4 --schedule both
+    python -m tpu_patterns_torch moe --devices 4 --capacity_factor 1.0
     python -m tpu_patterns_torch train --device cuda --attn kernel \
         --ckpt_dir ckpts --ckpt_every 2 --steps 8
     python -m tpu_patterns_torch ckpt ckpts --leaves
@@ -91,6 +94,16 @@ and ``--mechanism``) and ``miniapps``;
 flash|both, ``--devices``, ``--placement``, ``--mechanism``): the
 sequence-parallel strategies over a rank mesh, ``both`` folding
 ``flash`` in at one rank.
+``overlap`` takes the flags of ``tpu-patterns overlap``
+(:class:`~tpu_patterns_torch.parallel.overlap.OverlapConfig`,
+``--devices``, ``--placement``, ``--mechanism``), ``pipeline`` those of
+``tpu-patterns pipeline``
+(:class:`~tpu_patterns_torch.parallel.pipeline.PipelineConfig`,
+``--schedule`` gpipe|1f1b|both, ``--devices``; an ``n_micro`` that the
+rank count does not divide writes a SKIPPED Record) and ``moe`` those of
+``tpu-patterns moe`` (:class:`~tpu_patterns_torch.parallel.moe.MoEConfig`,
+repeatable ``--capacity_factor``, ``--devices``): the parallelism
+patterns over a rank mesh.
 ``obs ACTION`` reads the obs plane's dumps as ``tpu-patterns obs`` does:
 ``summarize`` (the span table), ``export --chrome-trace OUT.json``
 and/or ``--prom``, ``watch URL`` (poll a live ``--obs_http`` plane) and
@@ -341,6 +354,7 @@ def build_parser() -> argparse.ArgumentParser:
         "the flash kernels a ring step, ring_striped = load-balanced "
         "causal layout, flash = the fused kernels on one rank")
     _add_mesh_args(lc)
+    _add_parallel_parsers(sub)
     i = sub.add_parser("interop", help="native C++ round-trip proofs")
     i.add_argument("--device", choices=_CHOICES["device"], default="cuda",
                    help="device of the offload round trips (the native "
@@ -382,6 +396,42 @@ def build_parser() -> argparse.ArgumentParser:
         "against the breakdown's compute time",
     )
     return parser
+
+
+def _add_parallel_parsers(sub) -> None:
+    """``overlap``, ``pipeline`` and ``moe`` with the reference's flags
+    (``tpu_patterns/cli.py``), ``--device`` added."""
+    from tpu_patterns_torch.parallel.moe import MoEConfig
+    from tpu_patterns_torch.parallel.overlap import OverlapConfig
+    from tpu_patterns_torch.parallel.pipeline import PipelineConfig
+
+    ov = sub.add_parser(
+        "overlap",
+        help="collective matmul: decomposed ring all-gather/"
+        "reduce-scatter matmuls vs the library collective baseline",
+    )
+    _add_config_flags(ov, OverlapConfig, (), skip=("device",))
+    _add_mesh_args(ov)
+    pl = sub.add_parser(
+        "pipeline",
+        help="GPipe vs 1F1B schedule benchmark (bubble + memory)")
+    _add_config_flags(pl, PipelineConfig, (), skip=("schedules", "device"))
+    pl.add_argument("--schedule", choices=("gpipe", "1f1b", "both"),
+                    default="both")
+    pl.add_argument("--devices", type=int, default=0,
+                    help="ranks (0 = one per card)")
+    pl.add_argument("--device", choices=_CHOICES["device"], default="cuda")
+    mo = sub.add_parser(
+        "moe",
+        help="expert-parallel dispatch benchmark (capacity regimes)")
+    _add_config_flags(mo, MoEConfig, (),
+                      skip=("capacity_factors", "device"))
+    mo.add_argument("--capacity_factor", type=float, action="append",
+                    help="repeatable; 0 = exact (C = T); default 0, 2.0, "
+                    "1.0")
+    mo.add_argument("--devices", type=int, default=0,
+                    help="ranks (0 = one per card)")
+    mo.add_argument("--device", choices=_CHOICES["device"], default="cuda")
 
 
 def _add_perf_flags(pf: argparse.ArgumentParser) -> None:
@@ -674,6 +724,48 @@ def _longctx(args, writer: ResultWriter) -> None:
                            if f.name != "strategies"},
                         strategies=strategies)
     run_longctx(_mesh(args), cfg, writer)
+
+
+def _overlap(args, writer: ResultWriter) -> None:
+    from tpu_patterns_torch.parallel.overlap import OverlapConfig, run_overlap
+
+    run_overlap(_mesh(args), _config(OverlapConfig, args), writer)
+
+
+def _pipeline(args, writer: ResultWriter) -> None:
+    """``tpu-patterns pipeline`` (``tpu_patterns/cli.py:687-713``): the
+    ``n_micro % pp`` world skip, then :func:`run_pipeline` over
+    ``--devices`` ranks."""
+    from tpu_patterns_torch.comm.mesh import default_mesh
+    from tpu_patterns_torch.parallel.pipeline import (
+        PipelineConfig,
+        run_pipeline,
+    )
+
+    n = _ranks(args.devices, args.device)
+    schedules = (("gpipe", "1f1b") if args.schedule == "both"
+                 else (args.schedule,))
+    cfg = PipelineConfig(schedules=schedules, **{
+        f.name: getattr(args, f.name)
+        for f in dataclasses.fields(PipelineConfig)
+        if f.name != "schedules"})
+    if cfg.n_micro % n:
+        _world_skip(writer, "pipeline", args.schedule, n,
+                    f"n_micro {cfg.n_micro} not divisible by pp={n}")
+        return
+    run_pipeline(default_mesh(n, args.device), cfg, writer)
+
+
+def _moe(args, writer: ResultWriter) -> None:
+    from tpu_patterns_torch.comm.mesh import default_mesh
+    from tpu_patterns_torch.parallel.moe import MoEConfig, run_moe
+
+    kw = {f.name: getattr(args, f.name) for f in dataclasses.fields(MoEConfig)
+          if f.name != "capacity_factors"}
+    if args.capacity_factor:
+        kw["capacity_factors"] = tuple(args.capacity_factor)
+    run_moe(default_mesh(_ranks(args.devices, args.device), args.device),
+            MoEConfig(**kw), writer)
 
 
 def _miniapps(args, writer: ResultWriter) -> None:
@@ -1277,6 +1369,12 @@ def _dispatch(args, parser, writer: ResultWriter) -> None:
         _interop(args, writer)
     elif args.cmd == "longctx":
         _longctx(args, writer)
+    elif args.cmd == "overlap":
+        _overlap(args, writer)
+    elif args.cmd == "pipeline":
+        _pipeline(args, writer)
+    elif args.cmd == "moe":
+        _moe(args, writer)
     elif args.cmd == "train":
         _train(args, parser, writer)
     elif args.cmd == "ckpt":

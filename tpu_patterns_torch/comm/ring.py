@@ -13,7 +13,11 @@ reference's, so the results equal it bit for bit.
   each step moving the full buffer;
 * :func:`ring_allreduce_optimal`: reduce-scatter then all-gather, each a
   (p-1)-step ring of 1/p chunks;
-* :func:`library_allreduce`: the library contrast, one sum.
+* :func:`library_allreduce`: the library contrast, one sum;
+* :func:`library_all_gather`, :func:`library_reduce_scatter` and
+  :func:`all_to_all`: the other library collectives (``lax.all_gather``,
+  ``lax.psum_scatter`` and ``lax.all_to_all``, each tiled), which the
+  parallelism patterns (``parallel/``) contrast with their rings.
 
 ``op(acc, buf)`` is the per-step accumulate, plain ``+`` by default; it
 may also be a sequence of one op per rank (the miniapp's pallas variant
@@ -64,6 +68,48 @@ def library_allreduce(xs: Sequence[torch.Tensor]) -> list[torch.Tensor]:
     home = xs[0].device
     total = torch.stack([x.to(home) for x in xs]).sum(0, dtype=xs[0].dtype)
     return [fresh_like(x).copy_(total) for x in xs]
+
+
+def _blocks(x: torch.Tensor, dim: int, n: int) -> list[torch.Tensor]:
+    if x.shape[dim] % n:
+        raise ValueError(f"dimension {dim} of size {x.shape[dim]} not "
+                         f"divisible by {n} ranks")
+    return list(x.chunk(n, dim))
+
+
+def library_all_gather(xs: Sequence[torch.Tensor], dim: int = 0
+                       ) -> list[torch.Tensor]:
+    """The tiled ``lax.all_gather``: every rank gets the shards
+    concatenated along ``dim`` in rank order, a buffer of its own on its
+    device."""
+    home = xs[0].device
+    full = torch.cat([x.to(home) for x in xs], dim)
+    return [full.to(x.device, copy=True) for x in xs]
+
+
+def library_reduce_scatter(xs: Sequence[torch.Tensor], dim: int = 0
+                           ) -> list[torch.Tensor]:
+    """The tiled ``lax.psum_scatter``: rank r gets the sum over ranks of
+    block r of ``dim``, summed in the shards' dtype on rank 0's device
+    (torch's order of adds, not a ring's)."""
+    home = xs[0].device
+    total = torch.stack([x.to(home) for x in xs]).sum(0, dtype=xs[0].dtype)
+    return [b.to(x.device, copy=True)
+            for b, x in zip(_blocks(total, dim, len(xs)), xs)]
+
+
+def all_to_all(xs: Sequence[torch.Tensor], split: int, concat: int
+               ) -> list[torch.Tensor]:
+    """The tiled ``lax.all_to_all``: each rank's tensor is cut into p
+    blocks along ``split``; rank r gets block r of every rank,
+    concatenated along ``concat`` in rank order (a fresh contiguous
+    tensor on rank r's device).  Autograd carries the gradient back the
+    same way."""
+    p = len(xs)
+    parts = [_blocks(x, split, p) for x in xs]
+    return [torch.cat([part[r].to(xs[r].device) for part in parts],
+                      concat).contiguous()
+            for r in range(p)]
 
 
 def ring_allreduce_naive(xs: Sequence[torch.Tensor],

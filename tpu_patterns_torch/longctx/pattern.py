@@ -23,7 +23,6 @@ the ground truths run on the caller's device (rank 0's).
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import functools
 import json
@@ -39,7 +38,7 @@ from tpu_patterns_torch.core.results import Record, ResultWriter, Verdict
 from tpu_patterns_torch.longctx import attention as att
 from tpu_patterns_torch.longctx.ring_attention import ring_attention
 from tpu_patterns_torch.longctx.ulysses import ulysses_attention
-from tpu_patterns_torch.runtime import torch_dtype
+from tpu_patterns_torch.runtime import exact_f32, torch_dtype
 
 
 def flash_local(qs, ks, vs, causal=False, scale=None, block_q=1024,
@@ -152,7 +151,7 @@ def reference_blockwise(q, k, v, causal: bool) -> np.ndarray:
     """float32 ground truth computed chunk by chunk with the
     online-softmax monoid, so validation never holds the [H, L, L]
     score tensor.  It runs in torch on the inputs' device (on the card
-    with TF32 off, under :func:`_exact_f32`): numpy at L = 4096 would
+    with TF32 off, under ``runtime.exact_f32``): numpy at L = 4096 would
     take longer than the runs it checks."""
     lq, lk = q.shape[0], k.shape[0]
     cq, ck = min(REF_CHUNK, lq), min(REF_CHUNK, lk)
@@ -185,7 +184,7 @@ def _unstripe(a: np.ndarray, sp: int) -> np.ndarray:
 
 def _eps_effective(cfg: LongCtxConfig) -> float:
     """Rounding unit of the strategies' products: the io dtype's eps.
-    float32 runs with TF32 off (:func:`_exact_f32`), so no product
+    float32 runs with TF32 off (``runtime.exact_f32``), so no product
     rounds coarser than its inputs; the reference's TPU clause (bf16
     passes under f32 products on the matrix unit) has no counterpart
     here."""
@@ -323,24 +322,6 @@ def _grad_gates(cfg: LongCtxConfig, ref: np.ndarray,
         atol=max(cfg.tol, min(width * eps, 0.25) * ref_scale),
         unit_atol=eps * ref_scale,
     )
-
-
-@contextlib.contextmanager
-def _exact_f32(mesh: RankMesh):
-    """float32 products in float32 on the card: TF32 off for cuBLAS and
-    cuDNN while the runner is in, restored after."""
-    if not mesh.on_cuda:
-        yield
-        return
-    old = (torch.backends.cuda.matmul.allow_tf32,
-           torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        (torch.backends.cuda.matmul.allow_tf32,
-         torch.backends.cudnn.allow_tf32) = old
 
 
 def _inputs(cfg: LongCtxConfig, n: int) -> list[torch.Tensor]:
@@ -518,7 +499,7 @@ def run_longctx(mesh: RankMesh | None = None,
             f"heads {cfg.heads} not divisible by sp={sp} (ulysses)")
     if "flash" in cfg.strategies and sp != 1:
         raise ValueError("flash strategy is single-device (needs sp=1)")
-    with _exact_f32(mesh):
+    with exact_f32(mesh.on_cuda):
         if cfg.grad:
             return run_longctx_grad(mesh, cfg, writer)
         with torch.no_grad():

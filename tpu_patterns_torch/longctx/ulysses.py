@@ -6,14 +6,16 @@ sequence to the heads: each rank then computes exact full-sequence
 attention for its H/sp heads, and a second all-to-all flips back.  Two
 collectives in all, at the cost of needing heads % sp == 0.  The
 reference's ``lax.all_to_all`` becomes, over per-rank lists
-(``comm/mesh.py``), a gather of each rank's slice from every rank: a
-copy in card memory between ranks that share a card.
+(``comm/mesh.py``), ``comm/ring.py::all_to_all``: a gather of each
+rank's slice from every rank, a copy in card memory between ranks that
+share a card.
 """
 
 from __future__ import annotations
 
 import torch
 
+from tpu_patterns_torch.comm.ring import all_to_all
 from tpu_patterns_torch.longctx import attention as att
 
 
@@ -22,11 +24,7 @@ def seq_to_heads(xs: list[torch.Tensor]) -> list[torch.Tensor]:
     [r*H/sp, (r+1)*H/sp) of every rank's shard, in rank order.  Each
     result is a fresh contiguous tensor on rank r's device (the flash
     kernels refuse strided input)."""
-    sp = len(xs)
-    hh = xs[0].shape[1] // sp
-    return [torch.cat([x[:, r * hh:(r + 1) * hh].to(xs[r].device)
-                       for x in xs]).contiguous()
-            for r in range(sp)]
+    return all_to_all(xs, split=1, concat=0)
 
 
 def heads_to_seq(ys: list[torch.Tensor]) -> list[torch.Tensor]:
@@ -34,11 +32,7 @@ def heads_to_seq(ys: list[torch.Tensor]) -> list[torch.Tensor]:
     [r*L/sp, (r+1)*L/sp) of every rank's heads, in rank order (the
     inverse of :func:`seq_to_heads`; autograd carries each rank's head
     slice of the gradient back the same way)."""
-    sp = len(ys)
-    rows = ys[0].shape[0] // sp
-    return [torch.cat([y[r * rows:(r + 1) * rows].to(ys[r].device)
-                       for y in ys], dim=1).contiguous()
-            for r in range(sp)]
+    return all_to_all(ys, split=0, concat=1)
 
 
 def ulysses_attention(qs, ks, vs, causal: bool = False,

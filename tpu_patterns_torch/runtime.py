@@ -10,6 +10,8 @@ card can never turn into a quiet CPU run.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 # Datasheet peaks (NVIDIA's data sheet and the Hopper white paper, SXM
@@ -101,3 +103,21 @@ def torch_dtype(name: str) -> torch.dtype:
         return {"float32": torch.float32, "bfloat16": torch.bfloat16}[name]
     except KeyError:
         raise ValueError(f"unsupported dtype {name!r}") from None
+
+
+@contextlib.contextmanager
+def exact_f32(on_cuda: bool = True):
+    """float32 products in float32 on the card: TF32 off for cuBLAS and
+    cuDNN while inside, restored after (nothing changes on the CPU)."""
+    if not on_cuda:
+        yield
+        return
+    old = (torch.backends.cuda.matmul.allow_tf32,
+           torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = old
