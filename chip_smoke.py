@@ -406,14 +406,46 @@ Phases, each one or more printed lines:
     two Adam steps of ``zero_apply`` within 1e-6 relative of the
     replicated update, each rank's Adam moments a quarter of a leaf;
     the phase's wall time and the card's name and power limit;
-21. the card's name and power limit again, the ``kernels`` line (the
+21. the model train step across ranks (``model_mesh``; alone with
+    ``--tree . model_mesh``), all ranks on the one card: (a) ``run_flagship``
+    at its full default width (bf16, E 1024, 8 x 128 heads, L 4096, B 4,
+    kernel attention) over the contiguous meshes (dp, sp, tp) (1,1,1),
+    (2,2,1), (1,4,1), (1,2,2) and (2,2,2), striped at (1,4,1), moe at
+    (1,2,2) and zero-adam and zero-adam-offload at (2,2,1): every Record
+    SUCCESS, each loss within rtol 2^-5 of the one-rank loss on the same
+    params (moe: the one-rank loss of its own params), each mesh's world
+    gradient (the ZeRO legs' through Adam's first moment) within
+    ``MM_GRAD_TOL`` of the one-rank step's, part by part (wqkv's q, k and
+    v apart) relative to the part's max, K3 and each K4 kernel launched
+    depth x dp x tp x sp^2 times a step, step_ms and TFLOP/s beside the
+    card's name and power limit, and ``MM_FAULTS``, faults planted in
+    the ring's K3/K4 blocks, the attention output, the tp sums and the
+    striped layout, each tripping the gradient gate; (b) float32 with
+    TF32 off at E 256, H 8, D 64, L 1024, B 4: the (2,2,2) step's loss
+    within rtol 1e-5 of (1,1,1)'s, its gathered params within atol 1e-6
+    and its gradients within ``MM_GRAD_TOL``, every dp/sp replica
+    bit-identical, zero-sgd equal to SGD (rtol 1e-5, atol 1e-7) and the
+    ZeRO path's gradients to SGD's, GPipe's updates at (1,2,2,2) to
+    1F1B's and to the flat (1,2,2) step's over the same two blocks, and
+    the ring and attention faults planted again; (c) ``train --devices 4
+    --dp 2 --optimizer zero-adam
+    --ckpt_every 2 --attn kernel`` (at the train loop's widths but 4
+    heads of 64, float32) killed at step 4 and resumed to 6:
+    its step-6 checkpoint bit-exact with a straight run's, and resumed
+    on ``--dp 1`` (sp 4) within atol 1e-5 of it; (d) ``python -m
+    tpu_patterns_torch flagship --devices 4 --dp 2`` in a process of its
+    own on the package under test, exit 0 and a SUCCESS marker; (e) ``perf report --include
+    zero.step`` at ``PerfConfig``'s defaults, its row and a SUCCESS
+    marker; the phase's wall time;
+22. the card's name and power limit again, the ``kernels`` line (the
     flash rows also carry ``train_loop_launches``, phase 8b's counts,
     K1's row ``loadgen_launches``, phase 14's by scenario,
     ``kv_tier_launches``, phase 16's by leg, ``recovery_launches``,
     phase 17's by leg, K1-K4 ``decode_lm_launches``, phase 15's,
     ``diagnostics_launches``, phase 18's by leg, and K2-K4
     ``longctx_launches``, phase 19's by leg, with ``longctx_f32``, their
-    float32 times at longctx's shape),
+    float32 times at longctx's shape, and K3/K4 ``model_mesh_launches``,
+    phase 21's by mesh),
     then the device line, which is the last.
 """
 
@@ -1555,7 +1587,7 @@ def phase_flagship_profile(torch, timing, fl, tr, unprofiled_step_s):
     cfg, shape = _flagship_model(fl, tr, dtype="bfloat16", attn="kernel")
     params = tr.init_params(torch.Generator().manual_seed(0), cfg, DEVICE)
     x = torch.randn(shape, device=DEVICE, dtype=torch.bfloat16)
-    step = tr.make_train_step(cfg, lr=1e-30)
+    step = tr.make_train_step(None, cfg, lr=1e-30)
     step(params, x)  # warm
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1600,7 +1632,7 @@ def phase_flagship_exact(torch, F, fl, tr):
                             cfgs["dense"], DEVICE)
     x = torch.randn(shape,
                     generator=torch.Generator().manual_seed(1)).to(DEVICE)
-    out = {a: tr.make_train_step(c, lr=1e-2)(params, x)
+    out = {a: tr.make_train_step(None, c, lr=1e-2)(params, x)
            for a, c in cfgs.items()}
     loss_k, loss_d = float(out["kernel"][1]), float(out["dense"][1])
     upd_err, upd_norm_err = {}, {}
@@ -5447,6 +5479,502 @@ def phase_parallel(torch):
         raise AssertionError("parallel: " + " | ".join(bad))
 
 
+# phase 21: the model train step across ranks
+MM_MESHES = (  # (leg, (dp, sp, tp), FlagshipConfig fields)
+    ("111", (1, 1, 1), {}),
+    ("221", (2, 2, 1), {}),
+    ("141", (1, 4, 1), {}),
+    ("122", (1, 2, 2), {}),
+    ("222", (2, 2, 2), {}),
+    ("141_striped", (1, 4, 1), dict(attn_layout="striped")),
+    ("122_moe", (1, 2, 2), dict(moe=True)),
+    ("221_zero_adam", (2, 2, 1), dict(optimizer="zero-adam")),
+    ("221_zero_adam_offload", (2, 2, 1),
+     dict(optimizer="zero-adam-offload")),
+)
+# z carries at most 4 bf16 roundings that differ between meshes (the
+# row-parallel sums of o and m, the attention merge, the residual adds),
+# each within u = 2^-8 of |z|, so |d sum(z^2)| <= 2 * 4u * sum(z^2).
+# At this init attention is ~1e-5 of sum(z^2), so this gate holds the
+# mesh's x + MLP path; the gradient gate below holds its attention.
+MM_LOSS_RTOL = 2 * 4 * 2.0 ** -8
+# The gradient gate: each leaf's world gradient (wqkv split into its q,
+# k and v parts, which only attention's backward reaches) against the
+# one-rank step's on the same params and input, as max |mesh - one rank|
+# over max |one rank|, a part at a time.  On the H100 the sound meshes
+# read at most 1.7e-2 in bf16 (moe's we1; the attention parts 7.9e-3)
+# and 8.7e-7 in float32, the planted faults (MM_FAULTS, taken on every
+# run) at least 0.19 and 0.33 (PERF.md, Findings): 2^-4 sits near the bf16
+# pair's geometric mean, 1e-4 over two decades from either f32 reading.
+MM_GRAD_TOL = {"bfloat16": 2.0 ** -4, "float32": 1e-4}
+# the float32 kernels take head_dim 64 or 128 (longctx/flash.py)
+MM_F32 = dict(embed=256, heads=8, head_dim=64, seq=1024, batch=4)
+MM_TRAIN = ["train", "--device", DEVICE, "--devices", "4",
+            "--optimizer", "zero-adam", "--ckpt_every", "2",
+            "--attn", "kernel", "--heads", "4", "--head_dim", "64"]
+
+
+def mm_grad_err(got: dict, want: dict) -> dict:
+    """Each gradient part's max |got - want| over max |want| (wqkv, or
+    wq and wkv, split into their q, k and v parts)."""
+
+    def parts(g):
+        out = {}
+        for k, v in g.items():
+            v = v.float()
+            if k == "wqkv":
+                out.update(wq=v[:, 0], wk=v[:, 1], wv=v[:, 2])
+            elif k == "wkv":
+                out.update(wk=v[:, 0], wv=v[:, 1])
+            else:
+                out[k] = v
+        return out
+
+    g, w = parts(got), parts(want)
+    return {k: float((g[k].to(w[k].device) - w[k]).abs().max()
+                     / w[k].abs().max()) for k in w}
+
+
+def mm_grads(tr, mesh, cfg, params, xs, n_global=1.0):
+    """(loss, global gradients) of the mesh step (``make_mesh_grads``,
+    the grads ``make_train_step`` applies) at the global ``params``."""
+    loss, g = tr.make_mesh_grads(mesh, cfg, n_global)(
+        tr.shard_params(params, mesh, cfg), xs)
+    return float(loss), tr.gather_params(g, mesh, cfg)
+
+
+def mm_zero_grads(torch, tr, zs, mesh, cfg, params, xs, offload,
+                  n_global=1.0):
+    """(loss, global gradients) of the ZeRO step's path (sp sums, the dp
+    reduce-scatter, and with ``offload`` the moments' trip to pinned
+    host memory): one Adam step from zero moments leaves mu = (1 - b1) g
+    on each rank's slice (b1 = 0.9, ``optim.adam``'s default)."""
+    zstep, zinit, _ = zs.make_zero_train_step(
+        mesh, cfg, lr=1e-30, optimizer="adam", offload_state=offload,
+        n_global=n_global)
+    _, state, loss = zstep(*zinit(tr.shard_params(params, mesh, cfg)), xs)
+    torch.cuda.synchronize()  # offload's copies back to host memory
+    mu = {k: [st.mu[k].to(dev) for st, dev in zip(state, mesh.devices)]
+          for k in state[0].mu}
+    return float(loss), {k: v.float() / (1 - 0.9) for k, v in
+                         tr.gather_params(zstep.gather(mu), mesh,
+                                          cfg).items()}
+
+
+@contextlib.contextmanager
+def _patched(mod, name, wrap):
+    orig = getattr(mod, name)
+    setattr(mod, name, wrap(orig))
+    try:
+        yield
+    finally:
+        setattr(mod, name, orig)
+
+
+def _second_shard_first_block(q, q_off, k_off, stride) -> bool:
+    """The ring's (q shard 1, kv shard 0) block, wholly or partly
+    visible under the causal mask in either layout."""
+    return k_off == 0 and q_off == (1 if stride > 1 else q.shape[0])
+
+
+def _k3_drop(orig):
+    def bad(q, k, v, q_off=0, k_off=0, **kw):
+        if _second_shard_first_block(q, q_off, k_off,
+                                     kw.get("pos_stride", 1)):
+            from tpu_patterns_torch.longctx.attention import empty_state
+
+            return empty_state(q.float())
+        return orig(q, k, v, q_off=q_off, k_off=k_off, **kw)
+
+    return bad
+
+
+def _k4_drop(which):
+    def wrap(orig):
+        def bad(q, k, v, do, lse, delta, q_off=0, k_off=0, **kw):
+            out = list(orig(q, k, v, do, lse, delta, q_off=q_off,
+                            k_off=k_off, **kw))
+            if _second_shard_first_block(q, q_off, k_off,
+                                         kw.get("pos_stride", 1)):
+                for i in which:
+                    out[i] = out[i] * 0
+            return tuple(out)
+
+        return bad
+
+    return wrap
+
+
+def _tp_rank_0(orig):
+    def bad(mesh, xs):
+        return orig(mesh, [x if mesh.coord(r)["tp"] == 0 else x * 0
+                           for r, x in enumerate(xs)])
+
+    return bad
+
+
+def _striped_as_contiguous(orig):
+    def bad(*args, **kw):
+        return orig(*args, **{**kw, "layout": "contiguous"})
+
+    return bad
+
+
+# planted faults: (name, the leg whose mesh and params they run on, the
+# module attribute patched: "F" the flash kernels' wrappers, "tr" the
+# model, and the patch).  Each must trip the gradient gate.
+MM_FAULTS = (
+    ("k3_drops_a_ring_block", "141", "F", "flash_block", _k3_drop),
+    ("k4_dq_drops_a_ring_block", "141", "F", "flash_block_bwd",
+     _k4_drop((0,))),
+    ("k4_dkv_drops_a_ring_block", "141", "F", "flash_block_bwd",
+     _k4_drop((1, 2))),
+    ("attention_output_zero", "222", "tr", "_attend",
+     lambda orig: lambda *a, **kw: [o * 0 for o in orig(*a, **kw)]),
+    ("tp_sum_keeps_only_tp_rank_0", "122", "tr", "_tp_sum", _tp_rank_0),
+    ("moe_combine_keeps_only_tp_rank_0", "122_moe", "tr", "_tp_sum",
+     _tp_rank_0),
+    ("striped_read_as_contiguous", "141_striped", "tr", "ring_attention",
+     _striped_as_contiguous),
+)
+
+
+def mm_planted(F, tr, width, runs, faults, tol):
+    """Each planted fault's gradient error on its leg's run (``runs[leg]``:
+    mesh, cfg, params, xs, n_global, the reference grads ``ref`` and the
+    sound reading ``worst``), with the sound runs' worst beside it; a
+    fault the gate does not trip is a failure."""
+    mods = {"F": F, "tr": tr}
+    readings = {}
+    for name, leg, mod, attr, wrap in faults:
+        run = runs[leg]
+        with _patched(mods[mod], attr, wrap):
+            _, g = mm_grads(tr, run["mesh"], run["cfg"], run["params"],
+                            run["xs"], run["n_global"])
+        readings[name] = max(mm_grad_err(g, run["ref"]).values())
+    sound = max(r["worst"] for r in runs.values())
+    emit({"phase": "model_mesh", "leg": f"planted_faults_{width}",
+          "grad_tol": tol, "sound_worst": sound, "faults": readings})
+    return [f"{width}: the gradient gate ({tol:.3g}) misses planted fault "
+            f"{n} ({e:.3e})" for n, e in readings.items() if not e > tol]
+
+
+def mm_flagship(torch, F, fl, tr, zs, mesh_mod):
+    """Leg a: the full-width flagship over each mesh of MM_MESHES, its
+    gradients on each mesh against one rank's, and the planted
+    faults."""
+    smi = _smi()
+    tol = MM_GRAD_TOL["bfloat16"]
+    rows, bad, launches, refs, runs = {}, [], {}, {}, {}
+    d = fl.FlagshipConfig(device=DEVICE)
+    one = mesh_mod.model_mesh(1, device=DEVICE)
+    for leg, (dp, sp, tp), kw in MM_MESHES:
+        cfg = dataclasses.replace(d, **kw)
+        mesh = mesh_mod.model_mesh(dp * sp * tp, dp, tp, device=DEVICE)
+        torch.cuda.synchronize()
+        F.reset_launches()
+        rec, = fl.run_flagship(cfg, mesh=mesh)
+        torch.cuda.synchronize()
+        got = dict(F.LAUNCHES)
+        steps = rec.config["train_steps"]
+        per = cfg.depth * dp * tp * sp * sp
+        want = {"flash_attention": 0, "flash_block": per * steps,
+                "flash_block_bwd_dq": per * steps,
+                "flash_block_bwd_dkv": per * steps}
+        launches[leg] = got
+        loss = rec.metrics["loss"]
+        # the flagship's params and input; the reference is one rank on
+        # them (moe: its own params, every expert on the one rank)
+        mcfg = fl.model_config(cfg)
+        params = tr.init_params(torch.Generator().manual_seed(cfg.seed),
+                                mcfg, DEVICE, tr.n_experts(mesh, mcfg))
+        xs = fl.batch_shards(cfg, mesh, mcfg.torch_dtype)
+        if cfg.optimizer == "sgd":
+            _, grads = mm_grads(tr, mesh, mcfg, params, xs)
+        else:
+            _, grads = mm_zero_grads(torch, tr, zs, mesh, mcfg, params, xs,
+                                     cfg.optimizer.endswith("-offload"))
+        if cfg.moe not in refs:
+            refs[cfg.moe] = mm_grads(tr, one, mcfg, params, fl.batch_shards(
+                cfg, one, mcfg.torch_dtype))
+        ref, ref_grads = refs[cfg.moe]
+        rel = abs(loss - ref) / abs(ref)
+        gerr = mm_grad_err(grads, ref_grads)
+        worst = max(gerr.values())
+        runs[leg] = dict(mesh=mesh, cfg=mcfg, params=params, xs=xs,
+                         n_global=1.0, ref=ref_grads, worst=worst)
+        row = {"phase": "model_mesh", "leg": leg, "mesh": [dp, sp, tp],
+               "mode": rec.mode, "commands": rec.commands,
+               "verdict": rec.verdict.value, "step_ms": rec.metrics["step_ms"],
+               "tflops": rec.metrics["tflops"], "loss": loss,
+               "loss_ref": ref, "loss_rel_diff": rel,
+               "loss_rtol": MM_LOSS_RTOL, "grad_err_of_max": gerr,
+               "grad_tol": tol, "train_steps": steps,
+               "launches": got, "launches_want": want,
+               "memory_MB": {k: rec.metrics.get(k) for k in (
+                   "peak_temp_MB", "argument_MB", "output_MB")},
+               "notes": rec.notes, "card": smi}
+        emit(row)
+        rows[leg] = row
+        if (not rec.verdict or got != want or not rel <= MM_LOSS_RTOL
+                or not worst <= tol):
+            bad.append(f"flagship {leg}: {rec.verdict.value} {rec.notes}, "
+                       f"launches {got} want {want}, loss rel {rel:.3e}, "
+                       f"grads {worst:.3e} of their max")
+    bad += mm_planted(F, tr, "full_width_bf16", runs, MM_FAULTS, tol)
+    return rows, launches, bad
+
+
+def mm_exact(torch, F, tr, mesh_mod, zs, ps):
+    """Leg b: float32, TF32 off, MM_F32's width, kernel attention."""
+    from tpu_patterns_torch.runtime import exact_f32
+
+    bad = []
+    tol = MM_GRAD_TOL["float32"]
+    cfg = tr.ModelConfig(embed=MM_F32["embed"], heads=MM_F32["heads"],
+                         head_dim=MM_F32["head_dim"], attn="kernel")
+    b, l, e = MM_F32["batch"], MM_F32["seq"], MM_F32["embed"]
+    n_global = float(b * l * e)
+    g = torch.Generator().manual_seed(21)
+    params = tr.init_params(g, cfg, DEVICE)
+    x = torch.randn((b, l, e), generator=g).to(DEVICE)
+    out = {}
+    with exact_f32(True):
+        runs = {}
+        for name, shape in (("111", (1, 1, 1)), ("222", (2, 2, 2))):
+            mesh = mesh_mod.model_mesh(int(math.prod(shape)), shape[0],
+                                       shape[2], device=DEVICE)
+            xs = mesh.shard(x, ("dp", "sp", None))
+            step = tr.make_train_step(mesh, cfg, lr=1.0, n_global=n_global)
+            new, loss = step(tr.shard_params(params, mesh, cfg), xs)
+            _, grads = mm_grads(tr, mesh, cfg, params, xs, n_global)
+            runs[name] = (mesh, new, float(loss), xs, grads)
+        mesh, new, loss, xs, grads = runs["222"]
+        _, new1, loss1, _, grads1 = runs["111"]
+        got = tr.gather_params(new, mesh, cfg)
+        want = tr.gather_params(new1, runs["111"][0], cfg)
+        err = max(float((got[k] - want[k]).abs().max()) for k in got)
+        rel = abs(loss - loss1) / abs(loss1)
+        gerr = mm_grad_err(grads, grads1)
+        specs = tr.param_specs(cfg)
+        replicas_equal = all(
+            torch.equal(new[k][grp[0]], new[k][r])
+            for k in new
+            for grp in tr.reduce_groups(mesh, specs[k][1],
+                                        ("dp", "sp", "tp"))
+            for r in grp[1:])
+        out["sgd_222_vs_111"] = {"loss_rel_diff": rel, "params_max_err": err,
+                                 "grad_err_of_max": gerr,
+                                 "replicas_bit_identical": replicas_equal}
+        if not (rel <= 1e-5 and err <= 1e-6 and replicas_equal
+                and max(gerr.values()) <= tol):
+            bad.append(f"f32 (2,2,2) vs (1,1,1): loss rel {rel:.3e}, "
+                       f"params {err:.3e}, grads {max(gerr.values()):.3e} "
+                       f"of their max, replicas {replicas_equal}")
+        zstep, zinit, _ = zs.make_zero_train_step(
+            mesh, cfg, lr=1.0, optimizer="sgd", n_global=n_global)
+        shards, state = zinit(tr.shard_params(params, mesh, cfg))
+        shards, state, zloss = zstep(shards, state, xs)
+        zgot = tr.gather_params(zstep.gather(shards), mesh, cfg)
+        zerr = max(float(((zgot[k] - got[k]).abs()
+                          - 1e-5 * got[k].abs()).max()) for k in got)
+        zrel = abs(float(zloss) - loss) / abs(loss)
+        _, zgrads = mm_zero_grads(torch, tr, zs, mesh, cfg, params, xs,
+                                  False, n_global)
+        zgerr = mm_grad_err(zgrads, grads)
+        out["zero_sgd_vs_sgd"] = {"loss_rel_diff": zrel,
+                                  "excess_over_rtol": zerr,
+                                  "zero_grad_err_of_max": zgerr}
+        if not (zrel <= 1e-5 and zerr <= 1e-7
+                and max(zgerr.values()) <= tol):
+            bad.append(f"zero-sgd vs sgd: loss rel {zrel:.3e}, params "
+                       f"beyond rtol 1e-5 by {zerr:.3e} (atol 1e-7), ZeRO "
+                       f"grads {max(zgerr.values()):.3e} of their max")
+        m4 = mesh_mod.model_mesh(8, 1, 2, pp=2, device=DEVICE)
+        stack = ps.init_stack_params(torch.Generator().manual_seed(22), cfg,
+                                     2, DEVICE)
+        pspecs = ps.stack_specs(cfg, 2)
+        sharded = {k: m4.shard(v, pspecs[k][1]) for k, v in stack.items()}
+        xs4 = m4.shard(x, ("dp", "sp", None))
+        upd = {}
+        for sched in ("gpipe", "1f1b"):
+            step = ps.make_pipeline_train_step(m4, cfg, 2, lr=1.0,
+                                               schedule=sched)
+            new4, l4 = step(sharded, xs4)
+            upd[sched] = ({k: stack[k] - m4.assemble(v, pspecs[k][1])
+                           for k, v in new4.items()}, float(l4))
+        # the flat step over the same two blocks on one stage's sub-mesh
+        cfg2 = dataclasses.replace(cfg, depth=2)
+        m3 = mesh_mod.model_mesh(4, 1, 2, device=DEVICE)
+        new3, l3 = tr.make_train_step(m3, cfg2, lr=1.0)(
+            tr.shard_params(stack, m3, cfg2), m3.shard(x, ("dp", "sp",
+                                                           None)))
+        upd["flat"] = ({k: stack[k] - v for k, v in
+                        tr.gather_params(new3, m3, cfg2).items()}, float(l3))
+        (a, la), (c, lc), (f, lf) = upd["gpipe"], upd["1f1b"], upd["flat"]
+        perr = mm_grad_err(c, a)
+        ferr = mm_grad_err(a, f)
+        out["gpipe_vs_1f1b"] = {"loss_rel_diff": abs(la - lc) / abs(la),
+                                "grad_err_of_max": perr}
+        out["gpipe_vs_flat_122"] = {"loss_rel_diff": abs(la - lf) / abs(lf),
+                                    "grad_err_of_max": ferr}
+        for name, r in (("gpipe vs 1f1b", out["gpipe_vs_1f1b"]),
+                        ("gpipe vs the flat step", out["gpipe_vs_flat_122"])):
+            worst = max(r["grad_err_of_max"].values())
+            if not (r["loss_rel_diff"] <= 1e-5 and worst <= tol):
+                bad.append(f"{name}: loss rel {r['loss_rel_diff']:.3e}, "
+                           f"grads {worst:.3e} of their max")
+        sound = {"222": dict(mesh=mesh, cfg=cfg, params=params, xs=xs,
+                             n_global=n_global, ref=grads1,
+                             worst=max(gerr.values()))}
+        bad += mm_planted(F, tr, "f32", sound,
+                          [(n, "222", *rest) for n, _, *rest in MM_FAULTS
+                           if n.startswith(("k3", "k4", "attention"))], tol)
+    emit({"phase": "model_mesh", "leg": "f32_exact", "width": MM_F32,
+          **out, "ok": not bad})
+    return bad
+
+
+def _ckpt_arrays(torch, tc, root, step):
+    """Every leaf of a committed step as its global array (CPU)."""
+    leaves = tc.describe(root)["steps"]
+    info = next(s for s in leaves if s["step"] == step)["leaves"]
+    template = {}
+    for leaf in info:
+        node = template
+        path = re.findall(r"\['([^']*)'\]", leaf["key"])
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = torch.empty(leaf["shape"],
+                                     dtype=getattr(torch, leaf["dtype"]))
+    flat = {}
+
+    def walk(node, pre=""):
+        for k, v in node.items():
+            if isinstance(v, dict):
+                walk(v, f"{pre}{k}/")
+            else:
+                flat[pre + k] = v
+
+    walk(tc.restore(root, template, step=step))
+    return flat
+
+
+def mm_train(torch, tc):
+    """Leg c: the train CLI on a mesh, killed and resumed on the same
+    mesh and on another."""
+    bad = []
+    work = os.path.join(ROOT, "build", "model_mesh_train")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    runs = {}
+    for name, steps, extra in (("straight", 6, ["--dp", "2"]),
+                               ("killed", 4, ["--dp", "2"])):
+        rc, _, recs = _cli_in_process(
+            [*MM_TRAIN, *extra, "--steps", str(steps), "--ckpt_dir",
+             os.path.join(work, name)])
+        runs[name] = (rc, [r["verdict"] for r in recs])
+    shutil.copytree(os.path.join(work, "killed"),
+                    os.path.join(work, "other_mesh"))
+    for name, extra in (("killed", ["--dp", "2"]), ("other_mesh",
+                                                     ["--dp", "1"])):
+        rc, _, recs = _cli_in_process(
+            [*MM_TRAIN, *extra, "--steps", "6", "--resume", "true",
+             "--ckpt_dir", os.path.join(work, name)])
+        runs[f"{name}_resumed"] = (rc, [r["verdict"] for r in recs])
+    want = _ckpt_arrays(torch, tc, os.path.join(work, "straight"), 6)
+    same = _ckpt_arrays(torch, tc, os.path.join(work, "killed"), 6)
+    other = _ckpt_arrays(torch, tc, os.path.join(work, "other_mesh"), 6)
+    bit_exact = set(same) == set(want) and all(
+        torch.equal(same[k].view(torch.uint8) if same[k].dim() else same[k],
+                    want[k].view(torch.uint8) if want[k].dim() else want[k])
+        for k in want)
+    other_err = max(float((other[k].double() - want[k].double()).abs()
+                          .max()) for k in want if k.startswith("shards/"))
+    row = {"phase": "model_mesh", "leg": "train", "argv": MM_TRAIN,
+           "runs": runs, "same_mesh_bit_exact": bit_exact,
+           "other_mesh_params_max_err": other_err,
+           "leaves": sorted(want)}
+    emit(row)
+    if not all(rc == 0 for rc, _ in runs.values()):
+        bad.append(f"train CLI: {runs}")
+    if not bit_exact or not other_err <= 1e-5:
+        bad.append(f"train resume: same mesh bit-exact {bit_exact}, other "
+                   f"mesh max err {other_err:.3e}")
+    shutil.rmtree(work, ignore_errors=True)
+    return bad
+
+
+def mm_cli():
+    """Leg d: the flagship CLI over 4 ranks in a process of its own, on
+    the package this process imported (``--tree``'s, or this
+    checkout's)."""
+    import tpu_patterns_torch
+
+    t0 = time.perf_counter()
+    tree = os.path.dirname(os.path.dirname(os.path.abspath(
+        tpu_patterns_torch.__file__)))
+    argv = [sys.executable, "-m", "tpu_patterns_torch", "flagship",
+            "--devices", "4", "--dp", "2"]
+    path = os.environ.get("PYTHONPATH")
+    proc = subprocess.run(argv, cwd=tree, capture_output=True, text=True,
+                          timeout=600, env={**os.environ, "PYTHONPATH": (
+                              tree + os.pathsep + path if path else tree)})
+    markers = [ln for ln in proc.stdout.splitlines() if ln.startswith("## ")]
+    ok = proc.returncode == 0 and any(ln.endswith("| SUCCESS")
+                                      for ln in markers)
+    emit({"phase": "model_mesh", "leg": "cli", "argv": argv[1:],
+          "package": tree, "rc": proc.returncode, "markers": markers,
+          "seconds": time.perf_counter() - t0,
+          "stderr_tail": proc.stderr[-400:] if not ok else ""})
+    return [] if ok else [f"flagship CLI: rc {proc.returncode} {markers}"]
+
+
+def mm_perf():
+    """Leg e: the registry's ``zero.step`` capture through ``perf report``
+    at ``PerfConfig``'s defaults."""
+    rc, out, _ = _cli_in_process(["perf", "report", "--include", "zero.step",
+                                  "--device", DEVICE, "--no-history"])
+    table = [ln for ln in out.splitlines() if ln.startswith("|")]
+    markers = [ln for ln in out.splitlines() if ln.startswith("## ")]
+    ok = (rc == 0 and any(ln.startswith("| zero.step |") for ln in table)
+          and any(ln.endswith("| SUCCESS") for ln in markers))
+    emit({"phase": "model_mesh", "leg": "perf_zero_step", "rc": rc,
+          "table": table, "markers": markers, "ok": ok})
+    return [] if ok else [f"perf report zero.step: rc {rc} {markers}"]
+
+
+def phase_model_mesh(torch, F):
+    """Phase 21 (module docstring).  Returns K3/K4's launches by leg a's
+    mesh; raises if any leg fails."""
+    from tpu_patterns_torch import ckpt as tc
+    from tpu_patterns_torch.comm import mesh as mesh_mod
+    from tpu_patterns_torch.models import flagship as fl
+    from tpu_patterns_torch.models import pipeline_step as ps
+    from tpu_patterns_torch.models import transformer as tr
+    from tpu_patterns_torch.models import zero_step as zs
+
+    t_phase = time.perf_counter()
+    ends = {}
+    rows, launches, bad = mm_flagship(torch, F, fl, tr, zs, mesh_mod)
+    ends["flagship"] = time.perf_counter() - t_phase
+    bad += mm_exact(torch, F, tr, mesh_mod, zs, ps)
+    ends["f32_exact"] = time.perf_counter() - t_phase
+    bad += mm_train(torch, tc)
+    ends["train"] = time.perf_counter() - t_phase
+    bad += mm_cli()
+    ends["cli"] = time.perf_counter() - t_phase
+    bad += mm_perf()
+    ends["perf"] = time.perf_counter() - t_phase
+    emit({"phase": "model_mesh_phase", "seconds": time.perf_counter()
+          - t_phase, "leg_end_s": ends, "card": _smi(),
+          "step_ms": {leg: r["step_ms"] for leg, r in rows.items()},
+          "tflops": {leg: r["tflops"] for leg, r in rows.items()}})
+    if bad:
+        raise AssertionError("model_mesh: " + " | ".join(bad))
+    return launches
+
+
 def profile_concurrency_main() -> int:
     """``python3 chip_smoke.py --profile-concurrency``, which the smoke
     runs in a process of its own: the xla concurrent "C C" run, the
@@ -5520,7 +6048,7 @@ def profile_concurrency_main() -> int:
 
 # the timing phases ``--tree`` runs with another checkout's package
 TREE_PHASES = ("put_time", "ring_put_time", "accumulate_time",
-               "allreduce", "add_one_time", "parallel")
+               "allreduce", "add_one_time", "parallel", "model_mesh")
 # phases ``--tree`` runs only when named: phases 14-19 on their own,
 # phase 16's leg e again and again (``kv_race``: its spread), phase 5's
 # bf16 serve leg (a tree's serve tokens/s against another's) and phase
@@ -5596,6 +6124,7 @@ def tree_main(tree: str, phases: list[str]) -> int:
            "diagnostics": lambda: phase_diagnostics(torch, pk, F, doctor),
            "longctx": lambda: phase_longctx(torch, pk, F, timing, spec),
            "parallel": lambda: phase_parallel(torch),
+           "model_mesh": lambda: phase_model_mesh(torch, F),
            "flash_f32_time": lambda: phase_flash_f32_time(
                torch, F, timing, spec, libs),
            "serve": lambda: serve_leg(torch, eng_mod, "bf16",
@@ -5857,6 +6386,7 @@ def main() -> int:
     longctx_launches, lc_f32, lc_err = phase_longctx(torch, pk, F, timing,
                                                      spec)
     phase_parallel(torch)
+    mesh_launches = phase_model_mesh(torch, F)
 
     rows = {**ftime, **ptime, "paged_attention": {
         "ms": ktime["kernel"]["ms"], "bound_ms": ktime["bound_ms"],
@@ -5924,6 +6454,8 @@ def main() -> int:
             "longctx_launches": {leg: got[kname] for leg, got
                                  in longctx_launches.items()},
             "longctx_ring_shard_max_abs_err": lc_err[kname],
+            "model_mesh_launches": {leg: got[kname] for leg, got
+                                    in mesh_launches.items()},
             "longctx_f32": {shape: row for shape, row in lc_f32.items()
                             if shape.split()[0] == kname},
         })

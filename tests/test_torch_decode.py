@@ -267,7 +267,7 @@ def _flags(parser, cmd):
 def test_cli_flags_are_the_references_minus_the_mesh(cmd):
     ref = _flags(jcli.build_parser(), cmd)
     port = _flags(tcli.build_parser(), cmd)
-    mesh_flags = set(tcli._NOT_PORTED_FLAGSHIP)
+    mesh_flags = set(tcli._MESH_FLAGS)
     assert mesh_flags <= ref
     # the mesh flags stay as refusing actions, so compare the working ones
     assert port - mesh_flags == (ref - mesh_flags) | {"device"}

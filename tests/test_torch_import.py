@@ -176,10 +176,10 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
 
 def test_unported_options_are_refused():
     from tpu_patterns_torch import cli
-    from tpu_patterns_torch.models.transformer import ModelConfig
+    from tpu_patterns_torch.models.decode import DecodeConfig, model_config
 
     with pytest.raises(NotImplementedError, match="moe"):
-        ModelConfig(moe=True)
+        model_config(DecodeConfig(moe=True))
     for argv in (["serve", "--paged_attn", "pallas"],
                  ["allreduce", "--placement", "diagonal"],
                  ["p2p", "--bidirectional", "maybe"],
@@ -220,7 +220,7 @@ def test_diagnostics_refusals():
 
     from tpu_patterns_torch import cli
 
-    for argv in (["perf", "report", "--include", "zero.step",
+    for argv in (["perf", "report", "--include", "disagg.stream",
                   "--device", "cpu", "--no-history"],
                  ["perf", "diff", "--include", "serve.prefix_store",
                   "--device", "cpu", "--no-history"],

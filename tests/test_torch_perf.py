@@ -218,11 +218,10 @@ def captured():
 def test_capture_runs_every_ported_executable(captured):
     snap, cfg = captured
     assert set(snap["executables"]) == set(registry.PORTED) == {
-        "train.step", "decoder.prefill", "decoder.step", "decoder.verify",
-        "decoder.step_pallas", "decoder.verify_pallas", "copy_blocks",
-        "serve.step", "serve.kv_tier"}
+        "train.step", "zero.step", "decoder.prefill", "decoder.step",
+        "decoder.verify", "decoder.step_pallas", "decoder.verify_pallas",
+        "copy_blocks", "serve.step", "serve.kv_tier"}
     assert snap["skipped"] == {
-        "zero.step": "ROADMAP.md Queue 1 step 8 (the ZeRO optimizers)",
         "disagg.stream": "ROADMAP.md Queue 1 step 9 (disaggregated "
                          "serving)",
         "serve.prefix_store": "ROADMAP.md Queue 1 step 9 (the fleet's "
@@ -310,13 +309,33 @@ def test_committed_baseline_diffs_clean(captured):
 def test_include_selects_and_refuses():
     with pytest.raises(ValueError, match="unknown executable"):
         registry._selected(registry.PerfConfig(include="decoder.stepp"))
-    for name, step in (("zero.step", "step 8"), ("disagg.stream", "step 9"),
+    for name, step in (("disagg.stream", "step 9"),
                        ("serve.prefix_store", "step 9")):
         with pytest.raises(ValueError, match=step):
             registry._selected(registry.PerfConfig(
                 include=f"decoder.step,{name}"))
     assert registry._selected(registry.PerfConfig(
         include="serve.step, copy_blocks")) == ["serve.step", "copy_blocks"]
+    assert registry._selected(registry.PerfConfig(
+        include="zero.step")) == ["zero.step"]
+
+
+def test_report_includes_zero_step(capsys):
+    """``perf report --include zero.step`` on the CPU: the ZeRO-adam
+    step over two dp ranks, timed, with the train step's analytic
+    floors, SUCCESS."""
+    rc = cli.main(["perf", "report", "--include", "zero.step", "--device",
+                   "cpu", "--no-history", "--k", "2", "--inner", "1"])
+    out = capsys.readouterr().out
+    assert rc == 0, out
+    assert "zero.step" in out
+    snap = registry.capture(registry.PerfConfig(include="zero.step", k=1,
+                                                inner=1, device="cpu"))
+    m = snap["executables"]["zero.step"]
+    assert m["step_ms"] > 0
+    cfg = registry.PerfConfig()
+    assert m["analytic_flops"] == analytic.train_step_flops(
+        registry._mcfg(cfg), cfg.batch, cfg.seq)
 
 
 def test_perf_diff_names_a_serve_step_sleep_regression(tmp_path,
@@ -404,7 +423,7 @@ def test_perf_report_prune_and_history(tmp_path, monkeypatch):
 
 def test_perf_cli_refuses(tmp_path):
     err = io.StringIO()
-    for argv in (["perf", "report", "--include", "zero.step"],
+    for argv in (["perf", "report", "--include", "disagg.stream"],
                  ["perf", "update-baseline", "--include", "serve.step"],
                  ["perf", "diff", "--dp", "2"]):
         with pytest.raises(SystemExit) as e, \

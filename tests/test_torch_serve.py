@@ -206,6 +206,6 @@ def test_cli_takes_or_refuses_every_reference_loadgen_flag():
     port = flags(tcli.build_parser())
     assert port - ref == {"device"}
     assert ref <= port
-    for name in tcli._NOT_PORTED_FLAGSHIP:
+    for name in tcli._MESH_FLAGS:
         with pytest.raises(SystemExit):
             tcli.build_parser().parse_args(["loadgen", f"--{name}", "1"])

@@ -70,7 +70,7 @@ def test_train_step_matches_reference(name, attn):
     cfg = ttr.ModelConfig(**BASE, **CONFIGS[name], attn=attn, block_q=16,
                           block_k=16)
     params = block_params_from_jax(flat, cfg)
-    step = ttr.make_train_step(cfg, lr=LR)
+    step = ttr.make_train_step(None, cfg, lr=LR)
     new, loss = step(params, torch.from_numpy(_x()))
     np.testing.assert_allclose(float(loss), want_loss, rtol=1e-5)
     got = params_to_numpy(new, cfg)
@@ -135,15 +135,20 @@ def test_run_flagship_cpu_record():
 
 
 @pytest.mark.parametrize("kw,err", [
-    (dict(attn_layout="striped"), NotImplementedError),
-    (dict(remat_policy="dots"), NotImplementedError),
-    (dict(moe=True), NotImplementedError),
+    (dict(attn_layout="diagonal"), ValueError),
+    (dict(remat_policy="bogus"), ValueError),
+    (dict(heads=8, kv_heads=3), ValueError),
     (dict(attn="pallas"), ValueError),
     (dict(attn_grid="sparse"), ValueError),
 ])
 def test_model_config_refuses_unported(kw, err):
+    # moe, the striped layout and remat_policy="dots" are ported: only
+    # values that no package takes are refused
     with pytest.raises(err):
         ttr.ModelConfig(**kw)
+    for ok in (dict(attn_layout="striped"), dict(remat_policy="dots"),
+               dict(moe=True, capacity_factor=1.0)):
+        ttr.ModelConfig(**ok)
 
 
 def _flagship_flags(parser):
@@ -154,19 +159,19 @@ def _flagship_flags(parser):
 
 
 def test_cli_takes_or_refuses_every_reference_flagship_flag():
-    """Each flag of the reference's ``flagship`` is a port flag or is
-    refused with a message; the port adds only ``--device``; unported
-    values are refused too."""
+    """Each flag of the reference's ``flagship`` is a port flag (the
+    mesh flags ``--devices --dp --tp`` included); the port adds only
+    ``--device``; values no package takes are refused, and so is a mesh
+    that dp*tp does not divide."""
     ref = _flagship_flags(jcli.build_parser())
     port = _flagship_flags(tcli.build_parser())
     assert port - ref == {"device"}
     assert ref <= port
     assert {f.name for f in dataclasses.fields(tfl.FlagshipConfig)} == (
-        port - set(tcli._NOT_PORTED_FLAGSHIP))
-    for argv in (["--devices", "1"], ["--dp", "1"], ["--tp", "1"],
-                 ["--attn", "pallas"], ["--moe", "true"],
-                 ["--optimizer", "zero-adam"], ["--attn_layout", "striped"],
-                 ["--remat_policy", "dots"]):
+        port - set(tcli._MESH_FLAGS))
+    for argv in (["--attn", "pallas"], ["--attn_layout", "diagonal"],
+                 ["--devices", "3", "--dp", "2"],
+                 ["--devices", "4", "--tp", "3"]):
         with pytest.raises(SystemExit):
             tcli.main(["flagship", "--device", "cpu", *argv])
 

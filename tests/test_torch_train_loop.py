@@ -258,10 +258,14 @@ def test_bad_config_raises(tmp_path, kw, match):
 
 @pytest.mark.parametrize("kw", [dict(optimizer="zero-sgd"),
                                 dict(optimizer="zero-adam"), dict(moe=True),
-                                dict(remat_policy="dots")])
+                                dict(remat=True, remat_policy="dots")])
 def test_unported_options_refused(tmp_path, kw):
-    with pytest.raises(NotImplementedError):
-        _run_port(tmp_path, steps=1, **kw)
+    # the ZeRO optimizers, moe and the dots policy are ported now: each
+    # trains, its final Record SUCCESS
+    out, recs = _run_port(tmp_path, steps=2, **kw)
+    assert np.isfinite(out["loss"])
+    assert recs[-1]["verdict"] == "SUCCESS" and recs[-1]["mode"] == (
+        kw.get("optimizer", "sgd"))
 
 
 def test_kernel_path_equals_dense(tmp_path):
@@ -307,14 +311,13 @@ def test_cli_takes_or_refuses_every_reference_train_flag():
     assert port - ref == {"device"}
     assert ref <= port
     assert {f.name for f in dataclasses.fields(ttl.TrainLoopConfig)} == (
-        port - set(tcli._NOT_PORTED_FLAGSHIP) - {"device"})
+        port - set(tcli._MESH_FLAGS) - {"device"})
 
 
 @pytest.mark.parametrize("argv", [
-    ["--devices", "1"], ["--dp", "1"], ["--tp", "1"],
-    ["--optimizer", "zero-sgd"], ["--optimizer", "zero-adam"],
-    ["--moe", "true"], ["--remat_policy", "dots"], ["--attn", "pallas"],
-    ["--data", "files"], ["--nonfinite", "maybe"],
+    ["--devices", "x"], ["--dp", "two"], ["--tp", "1.5"],
+    ["--moe", "maybe"], ["--remat_policy", "dots", "--remat", "perhaps"],
+    ["--attn", "pallas"], ["--data", "files"], ["--nonfinite", "maybe"],
 ])
 def test_cli_refusals(argv):
     with pytest.raises(SystemExit) as e:

@@ -3,6 +3,7 @@ package's on-disk format (``ckpt/checkpoint.py``)."""
 
 from tpu_patterns_torch.ckpt.checkpoint import (
     AsyncSaver,
+    Sharded,
     available_steps,
     describe,
     latest_step,
@@ -13,5 +14,5 @@ from tpu_patterns_torch.ckpt.checkpoint import (
 
 __all__ = [
     "AsyncSaver", "available_steps", "describe", "latest_step",
-    "read_extra", "restore", "save",
+    "read_extra", "restore", "save", "Sharded",
 ]

@@ -29,15 +29,24 @@ Commit protocol (a checkpoint either exists complete or not at all):
     3. stale ``.tmp.*``/``.old.*`` dirs are ignored by restore and swept
        by the next save; ``keep`` prunes to the newest committed steps
 
+A leaf is a tensor (one shard covering it whole) or a :class:`Sharded`
+array, the per-rank blocks of a global array over a rank mesh: each
+distinct block is written once (the rank whose ``replica`` is 0), with
+its ``[start, stop]`` a dimension and the array's spec, as the JAX
+package writes a ``NamedSharding``'s replica-0 shards.
+
 Only one process writes.  A manifest with ``process_count > 1`` (the JAX
 package's multi-process save) is read, each process's shards assembled
 into the global array.  Restore fills a template tree: values from the
 checkpoint, device from the template; a shape or dtype that differs from
-the template's raises.
+the template's raises.  A :class:`Sharded` template is filled block by
+block from the assembled global array, so a run saved on one mesh
+resumes on another (the template's).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import shutil
@@ -53,6 +62,41 @@ FORMAT_VERSION = 1
 # same-size integer types in which shards are assembled before their
 # bytes are reinterpreted as the manifest's dtype
 _CARRIER = {1: np.uint8, 2: np.int16, 4: np.int32, 8: np.int64}
+
+
+@dataclasses.dataclass
+class Sharded:
+    """A global array of ``shape`` held as per-rank blocks: ``shards[r]``
+    is rank r's block, at ``index[r]`` (``[start, stop]`` a dimension);
+    ``replica[r] == 0`` marks the one copy of a block that a save writes;
+    ``spec`` names the mesh axis each dimension splits over (None:
+    replicated), for the manifest."""
+
+    shape: tuple
+    spec: list
+    shards: list
+    index: list
+    replica: list
+
+    @classmethod
+    def over(cls, mesh, shards: list, spec, shape=None) -> "Sharded":
+        """The blocks ``shards`` of a global array split per ``spec``
+        over ``mesh`` (a ``comm/mesh.py::NamedMesh``); ``shape`` defaults
+        to the blocks' shape scaled by the split axes."""
+        spec = list(spec) + [None] * (shards[0].dim() - len(spec))
+        if shape is None:
+            shape = [n * (mesh.dim(a) if a else 1)
+                     for n, a in zip(shards[0].shape, spec)]
+        return cls(tuple(shape), spec, list(shards),
+                   [mesh.index(shape, spec, r) for r in range(mesh.size)],
+                   [mesh.replica(spec, r) for r in range(mesh.size)])
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.shards[0].dtype
+
+    def dim(self) -> int:
+        return len(self.shape)
 
 
 def _dtype_name(dtype: torch.dtype) -> str:
@@ -160,26 +204,38 @@ def _snapshot(tree, copy: bool = False):
     host tensors, so a thread can write them while training goes on."""
     shard_table, arrays, manifest_leaves = [], {}, []
     for leaf_id, (path, leaf) in enumerate(_flatten(tree)):
-        if not isinstance(leaf, torch.Tensor):
+        if isinstance(leaf, Sharded):
+            blocks = [(s, idx) for s, idx, rep in zip(
+                leaf.shards, leaf.index, leaf.replica) if rep == 0]
+            # a PartitionSpec's trailing Nones are dropped, as JAX
+            # normalises it
+            spec = list(leaf.spec)
+            while spec and spec[-1] is None:
+                spec.pop()
+        elif isinstance(leaf, torch.Tensor):
+            blocks = [(leaf, [[None, None]] * leaf.dim())]
+            spec = [None] * leaf.dim()
+        else:
             raise TypeError(
                 f"checkpoint leaf {_keystr(path)} is {type(leaf).__name__}; "
-                "only torch.Tensor leaves are checkpointable"
+                "only torch.Tensor and Sharded leaves are checkpointable"
             )
-        host = leaf.detach()
-        if host.device.type != "cpu":
-            host = host.to("cpu")
-        elif copy:
-            host = host.clone()
-        name = f"{leaf_id}.0"
-        arrays[name] = _to_bytes_view(host)
-        shard_table.append({"leaf": leaf_id, "name": name,
-                            "index": [[None, None]] * leaf.dim()})
+        for shard_id, (block, index) in enumerate(blocks):
+            host = block.detach()
+            if host.device.type != "cpu":
+                host = host.to("cpu")
+            elif copy:
+                host = host.clone()
+            name = f"{leaf_id}.{shard_id}"
+            arrays[name] = _to_bytes_view(host)
+            shard_table.append({"leaf": leaf_id, "name": name,
+                                "index": index})
         manifest_leaves.append({
             "key": _keystr(path),
             "leaf": leaf_id,
             "shape": list(leaf.shape),
             "dtype": _dtype_name(leaf.dtype),
-            "spec": [None] * leaf.dim(),
+            "spec": spec,
         })
     return shard_table, arrays, manifest_leaves
 
@@ -386,7 +442,10 @@ def restore(root: str, like, *, step: int | None = None):
     (default: the latest committed one).
 
     ``like``'s leaves are tensors that give each leaf's shape, dtype and
-    device; leaves are matched to saved entries by key, and every
+    device, or :class:`Sharded` arrays whose blocks give each rank's
+    device and whose ``index`` says which block each rank gets (the
+    mesh to restore onto); leaves are matched to saved entries by key,
+    and every
     template leaf must be in the checkpoint with the template's shape
     and dtype (a mismatch raises; nothing is cast).  Transient I/O
     errors retry under the ckpt policy; a missing checkpoint raises
@@ -429,7 +488,13 @@ def restore(root: str, like, *, step: int | None = None):
                         f"template dtype {_dtype_name(leaf.dtype)}"
                     )
                 host = reader.load_global(manifest, info["leaf"])
-                out[path] = host.to(leaf.device)
+                if isinstance(leaf, Sharded):
+                    out[path] = dataclasses.replace(leaf, shards=[
+                        host[tuple(slice(a, b) for a, b in idx)].to(
+                            t.device).contiguous()
+                        for t, idx in zip(leaf.shards, leaf.index)])
+                else:
+                    out[path] = host.to(leaf.device)
         finally:
             reader.close()
         return _unflatten(like, out)

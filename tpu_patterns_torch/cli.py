@@ -145,9 +145,13 @@ import sys
 from tpu_patterns_torch.core.config import _coerce, add_config_args
 from tpu_patterns_torch.core.results import ResultWriter
 
-# `tpu-patterns <cmd>` flags whose machinery is not ported yet (the
-# mesh flags of `flagship`, `train`, `decode`, `lm` and `loadgen`)
-_NOT_PORTED_FLAGSHIP = ("devices", "dp", "tp")
+# the model commands' mesh flags: `flagship` and `train` take them;
+# `decode`, `lm` and `loadgen` refuse them, naming the step that ports
+# them
+_MESH_FLAGS = ("devices", "dp", "tp")
+_MESH_NOT_PORTED = (
+    "ROADMAP.md Queue 1 step 8c (decode and lm across ranks) and step 8d "
+    "(the nccl bootstrap and sharded serve)")
 _NOT_PORTED = (
     "devices", "dp", "tp", "prefix_store", "replicas", "replica_policy", "route_blocks", "min_replica_speedup",
     "replica_watchdog_s", "replica_dir", "elastic_reserve",
@@ -158,12 +162,18 @@ _NOT_PORTED = (
 
 
 class _NotPorted(argparse.Action):
+    where = "ROADMAP.md"
+
     def __call__(self, parser, namespace, values, option_string=None):
         parser.error(
             f"{option_string} is a `tpu-patterns {parser.prog.split()[-1]}`"
             " flag that tpu_patterns_torch does not support yet "
-            "(ROADMAP.md)"
+            f"({self.where})"
         )
+
+
+class _MeshNotPorted(_NotPorted):
+    where = _MESH_NOT_PORTED
 
 
 def _bool(s: str) -> bool:
@@ -189,20 +199,45 @@ _CHOICES = {
     "burn_mitigation": ("off", "shed", "spec_off"),
     "attn": ("kernel", "dense"),
     "attn_grid": ("dense", "compact"),
+    "attn_layout": ("contiguous", "striped"),
     "device": ("cuda", "cpu"),
 }
 
 
 def _add_config_flags(p: argparse.ArgumentParser, cls, not_ported,
-                      skip=()) -> None:
+                      skip=(), refuse=_NotPorted) -> None:
     """One ``--<field>`` per dataclass field of ``cls`` not in ``skip``
     (default: ``TPU_PATTERNS_<FIELD>`` when set, else the field's), and a
-    refusing flag for each name in ``not_ported``."""
+    refusing flag (``refuse``, naming where it is ported) for each name in
+    ``not_ported``."""
     add_config_args(p, cls, skip=skip, choices=_CHOICES,
                     coerce=_coerce_strict)
     for name in not_ported:
-        p.add_argument("--" + name, nargs="?", action=_NotPorted,
+        p.add_argument("--" + name, nargs="?", action=refuse,
                        help=argparse.SUPPRESS)
+
+
+def _add_model_mesh_flags(p: argparse.ArgumentParser) -> None:
+    """``--devices --dp --tp`` of the reference's model commands: sp is
+    the rest (``_mesh3d_from_args``)."""
+    p.add_argument("--devices", type=int, default=0,
+                   help="ranks (0 = one per card); sp = devices / (dp*tp)")
+    p.add_argument("--dp", type=int, default=1, help="data-parallel ranks")
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor-parallel (and expert) ranks")
+
+
+def _mesh3d(args):
+    """The dp x sp x tp mesh of ``flagship`` and ``train``: ``--dp`` and
+    ``--tp`` fixed, the rest of ``--devices`` ranks on sp (0 = one rank a
+    card); ranks that dp*tp does not divide are an error."""
+    from tpu_patterns_torch.comm.mesh import model_mesh
+
+    try:
+        return model_mesh(args.devices, args.dp, args.tp,
+                          device=args.device)
+    except ValueError as e:
+        raise SystemExit(f"error: {e}") from e
 
 
 def _add_mesh_args(p: argparse.ArgumentParser) -> None:
@@ -276,19 +311,21 @@ def build_parser() -> argparse.ArgumentParser:
         "batch-summarize, agentic, chat-sampled), TTFT/TPOT/e2e "
         "percentiles, goodput-under-SLO verdicts, optional chaos twin",
     )
-    _add_config_flags(lg, LoadGenConfig, _NOT_PORTED_FLAGSHIP)
+    _add_config_flags(lg, LoadGenConfig, _MESH_FLAGS, refuse=_MeshNotPorted)
     fl = sub.add_parser(
         "flagship",
         help="PatternFormer train-step benchmark (fwd+bwd+SGD) with the "
         "fused flash-attention kernels",
     )
-    _add_config_flags(fl, FlagshipConfig, _NOT_PORTED_FLAGSHIP)
+    _add_config_flags(fl, FlagshipConfig, ())
+    _add_model_mesh_flags(fl)
     tr = sub.add_parser(
         "train",
         help="resumable training loop with atomic checkpoints "
         "(--ckpt_dir/--ckpt_every/--resume)",
     )
-    _add_config_flags(tr, TrainLoopConfig, _NOT_PORTED_FLAGSHIP)
+    _add_config_flags(tr, TrainLoopConfig, ())
+    _add_model_mesh_flags(tr)
     tr.add_argument("--device", choices=_CHOICES["device"], default="cuda")
     dc = sub.add_parser(
         "decode",
@@ -296,14 +333,14 @@ def build_parser() -> argparse.ArgumentParser:
         "long-context inference pattern): prefill, then timed "
         "self-feeding generation, gated by teacher forcing",
     )
-    _add_config_flags(dc, DecodeConfig, _NOT_PORTED_FLAGSHIP)
+    _add_config_flags(dc, DecodeConfig, _MESH_FLAGS, refuse=_MeshNotPorted)
     lmp = sub.add_parser(
         "lm",
         help="token-level LM: embedding, cross-entropy and argmax; train "
         "then generate (greedy or Gumbel-max sampled), one measured "
         "pattern",
     )
-    _add_config_flags(lmp, LMConfig, _NOT_PORTED_FLAGSHIP)
+    _add_config_flags(lmp, LMConfig, _MESH_FLAGS, refuse=_MeshNotPorted)
     ck = sub.add_parser(
         "ckpt",
         help="inspect a checkpoint directory: committed steps, sizes, "
@@ -995,18 +1032,10 @@ def _topo(args) -> None:
         print(f"hierarchy: irregular ({e})")
 
 
-def _train(args, parser, writer: ResultWriter) -> None:
-    from tpu_patterns_torch.models.train_loop import (
-        TrainLoopConfig,
-        train,
-        unported,
-    )
+def _train(args, writer: ResultWriter) -> None:
+    from tpu_patterns_torch.models.train_loop import TrainLoopConfig, train
 
-    cfg = _config(TrainLoopConfig, args)
-    why = unported(cfg)
-    if why:
-        parser.error(f"train: {why}")
-    train(cfg, writer, device=args.device)
+    train(_config(TrainLoopConfig, args), writer, mesh=_mesh3d(args))
 
 
 def _model_pattern(args, parser, writer: ResultWriter) -> None:
@@ -1344,7 +1373,6 @@ def _dispatch(args, parser, writer: ResultWriter) -> None:
     from tpu_patterns_torch.models.flagship import (
         FlagshipConfig,
         run_flagship,
-        unported,
     )
 
     if args.cmd == "obs":
@@ -1376,7 +1404,7 @@ def _dispatch(args, parser, writer: ResultWriter) -> None:
     elif args.cmd == "moe":
         _moe(args, writer)
     elif args.cmd == "train":
-        _train(args, parser, writer)
+        _train(args, writer)
     elif args.cmd == "ckpt":
         _ckpt(args)
     elif args.cmd in ("decode", "lm"):
@@ -1388,11 +1416,8 @@ def _dispatch(args, parser, writer: ResultWriter) -> None:
     elif args.cmd == "profilecheck":
         _profilecheck(args, writer)
     else:
-        cfg = _config(FlagshipConfig, args)
-        why = unported(cfg)
-        if why:
-            parser.error(f"flagship: {why}")
-        run_flagship(cfg, writer)
+        run_flagship(_config(FlagshipConfig, args), writer,
+                     mesh=_mesh3d(args))
 
 
 def _profiled(args, parser, writer: ResultWriter) -> None:

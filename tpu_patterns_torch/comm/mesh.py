@@ -133,6 +133,165 @@ class RankMesh:
             yield
 
 
+@dataclasses.dataclass(frozen=True)
+class NamedMesh:
+    """Named axes over the ranks of a :class:`RankMesh`: the counterpart
+    of a ``jax.sharding.Mesh`` of ``np.array(devices).reshape(*shape)``
+    with ``axes`` as its axis names.  Rank r sits at the row-major
+    coordinate of r in ``shape`` (the last axis varies fastest), so a
+    per-rank list over ``ranks`` is a sharded array over this mesh."""
+
+    ranks: RankMesh
+    axes: tuple[str, ...]
+    shape: tuple[int, ...]
+
+    def __post_init__(self):
+        if len(self.axes) != len(self.shape):
+            raise ValueError(f"axes {self.axes} for shape {self.shape}")
+        if len(set(self.axes)) != len(self.axes):
+            raise ValueError(f"repeated axis name in {self.axes}")
+        if int(np.prod(self.shape)) != self.ranks.size:
+            raise ValueError(f"mesh shape {self.shape} for "
+                             f"{self.ranks.size} ranks")
+
+    @property
+    def size(self) -> int:
+        return self.ranks.size
+
+    @property
+    def devices(self) -> tuple[torch.device, ...]:
+        return self.ranks.devices
+
+    @property
+    def on_cuda(self) -> bool:
+        return self.ranks.on_cuda
+
+    def dim(self, axis: str) -> int:
+        """The size of ``axis``; 1 for an axis the mesh does not have."""
+        return (self.shape[self.axes.index(axis)] if axis in self.axes
+                else 1)
+
+    def coord(self, r: int) -> dict[str, int]:
+        """Rank r's coordinate, axis by axis."""
+        return dict(zip(self.axes,
+                        (int(i) for i in np.unravel_index(r, self.shape))))
+
+    def rank(self, **coord: int) -> int:
+        """The rank at ``coord`` (every axis named)."""
+        return int(np.ravel_multi_index(
+            tuple(coord[a] for a in self.axes), self.shape))
+
+    def group(self, axes: str | tuple[str, ...], r: int) -> list[int]:
+        """The ranks that share rank r's coordinate on every axis but
+        ``axes``, in row-major order over ``axes``: "the sp group of
+        (d, t)" is ``group("sp", rank(dp=d, sp=0, tp=t))``."""
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        grid = np.arange(self.size).reshape(self.shape)
+        at = self.coord(r)
+        index = tuple(slice(None) if a in axes else at[a]
+                      for a in self.axes)
+        return [int(i) for i in grid[index].reshape(-1)]
+
+    def groups(self, axes: str | tuple[str, ...]) -> list[list[int]]:
+        """Every group along ``axes`` (:meth:`group`), each once, in the
+        order of their first ranks; together they cover the mesh."""
+        seen, out = set(), []
+        for r in range(self.size):
+            if r not in seen:
+                g = self.group(axes, r)
+                seen.update(g)
+                out.append(g)
+        return out
+
+    def sub(self, axis: str, index: int) -> tuple["NamedMesh", list[int]]:
+        """The mesh of the ranks at coordinate ``index`` of ``axis``, over
+        the other axes, and those ranks in this mesh's numbering (rank i
+        of the sub-mesh is rank ``ranks[i]`` here)."""
+        ranks = self.group(tuple(a for a in self.axes if a != axis),
+                           self.rank(**{a: index if a == axis else 0
+                                        for a in self.axes}))
+        keep = [i for i, a in enumerate(self.axes) if a != axis]
+        return (NamedMesh(RankMesh(tuple(self.devices[r] for r in ranks)),
+                          tuple(self.axes[i] for i in keep),
+                          tuple(self.shape[i] for i in keep)), ranks)
+
+    def index(self, shape, spec, r: int) -> list[list[int]]:
+        """Rank r's block of a global ``shape`` split per ``spec`` (one
+        axis name or None a dimension, as a ``PartitionSpec`` with single
+        names; missing trailing entries are None): ``[start, stop]`` a
+        dimension."""
+        at = self.coord(r)
+        out = []
+        for i, n in enumerate(shape):
+            ax = spec[i] if i < len(spec) else None
+            if ax is None:
+                out.append([0, int(n)])
+                continue
+            k = self.dim(ax)
+            if n % k:
+                raise ValueError(f"dimension {i} of {tuple(shape)} not "
+                                 f"divisible by {ax}={k}")
+            step = n // k
+            out.append([at.get(ax, 0) * step, (at.get(ax, 0) + 1) * step])
+        return out
+
+    def replica(self, spec, r: int) -> int:
+        """0 when rank r holds the first copy of its block (its
+        coordinate is 0 on every axis ``spec`` does not name), else 1:
+        the one copy a checkpoint writes."""
+        named = {a for a in spec if a is not None}
+        at = self.coord(r)
+        return int(any(at[a] for a in self.axes if a not in named))
+
+    def shard(self, a: torch.Tensor, spec) -> list[torch.Tensor]:
+        """``a`` split per ``spec``: rank r's block, a contiguous copy on
+        rank r's device."""
+        out = []
+        for r, dev in enumerate(self.devices):
+            idx = tuple(slice(s, e) for s, e in self.index(a.shape, spec, r))
+            out.append(a[idx].to(device=dev, copy=True,
+                                 memory_format=torch.contiguous_format))
+        return out
+
+    def assemble(self, shards, spec) -> torch.Tensor:
+        """The global array of per-rank blocks split per ``spec`` (each
+        block's replica 0), on the first rank's device."""
+        first = shards[0]
+        shape = [n * (self.dim(spec[i]) if i < len(spec) and spec[i]
+                      else 1) for i, n in enumerate(first.shape)]
+        out = first.new_empty(shape)
+        for r, s in enumerate(shards):
+            if self.replica(spec, r) == 0:
+                idx = tuple(slice(a, b)
+                            for a, b in self.index(shape, spec, r))
+                out[idx] = s.to(first.device)
+        return out
+
+    def note(self, what: str = "ring shifts", memory: str | None = None
+             ) -> str | None:
+        return self.ranks.note(what, memory)
+
+    def describe(self) -> str:
+        return " ".join(f"{a}{n}" for a, n in zip(self.axes, self.shape))
+
+
+def model_mesh(n: int, dp: int = 1, tp: int = 1, pp: int = 0,
+               device: torch.device | str | None = None) -> NamedMesh:
+    """The model commands' ``("dp", "sp", "tp")`` mesh (``pp > 0`` adds
+    a fourth axis, ``"pp"``) over ``n`` ranks placed by
+    :func:`default_mesh` (``n = 0``: one rank a card): dp, tp and pp as
+    given, sp the rest.  Raises when dp·tp(·pp) does not divide n."""
+    ranks = default_mesh(n, device)
+    fixed = dp * tp * max(pp, 1)
+    if ranks.size % fixed:
+        raise ValueError(f"devices {ranks.size} not divisible by "
+                         f"dp*tp{'*pp' if pp else ''} = {fixed}")
+    sp = ranks.size // fixed
+    if pp:
+        return NamedMesh(ranks, ("dp", "sp", "tp", "pp"), (dp, sp, tp, pp))
+    return NamedMesh(ranks, ("dp", "sp", "tp"), (dp, sp, tp))
+
+
 def default_mesh(n: int = 0, device: torch.device | str | None = None
                  ) -> RankMesh:
     """``n`` ranks placed compactly over the visible cards

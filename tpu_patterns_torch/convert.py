@@ -4,7 +4,10 @@
 numpy (``{k: np.asarray(v)}``) and returns this package's
 depth-stacked params, so both packages compute the same function on the
 same weights; ``block_params_from_jax`` does the same for the train
-step's block params (``init_params``: no ``wemb``).  ``pool_from_numpy``
+step's block params (``init_params``: no ``wemb``; the mixture's
+``wg``/``we1``/``we2`` included), and ``stack_params_from_jax`` for the
+pipelined stack (``init_stack_params``: a leading stage axis).  Sharding
+the global params over a mesh is ``transformer.shard_params``'s.  ``pool_from_numpy``
 does the same for one pool's leaves, and ``fill_from_numpy`` for the
 reference's ``verify.fill_randomly`` buffer.  None imports JAX: bfloat16
 arrays arrive as numpy's ``bfloat16`` extension dtype and are
@@ -13,6 +16,8 @@ grads) in the reference's layout, as float32 numpy.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -69,11 +74,24 @@ def block_params_from_jax(
     flat: dict[str, np.ndarray], cfg: ModelConfig, device="cpu"
 ) -> dict[str, torch.Tensor]:
     """The reference's ``init_params`` block params (unstacked at depth
-    1, ``[depth, ...]`` above) as this package's depth-stacked params."""
-    shapes = param_shapes(cfg)
+    1, ``[depth, ...]`` above) as this package's depth-stacked params;
+    a ``moe`` model's expert count is its gate's width."""
+    n_exp = np.shape(flat["wg"])[-1] if cfg.moe and "wg" in flat else 0
+    shapes = param_shapes(cfg, n_exp)
     _check_keys(flat, set(shapes))
     return {k: _stack_block(k, a, shapes[k], cfg, device)
             for k, a in flat.items()}
+
+
+def stack_params_from_jax(
+    flat: dict[str, np.ndarray], cfg: ModelConfig, device="cpu"
+) -> dict[str, torch.Tensor]:
+    """The reference's ``init_stack_params`` (every leaf ``[n_stages,
+    ...]``, one block a stage) as this package's stack: the params of
+    ``cfg`` at depth n_stages (``pipeline_step.init_stack_params``)."""
+    n_stages = int(np.shape(next(iter(flat.values())))[0])
+    return block_params_from_jax(
+        flat, dataclasses.replace(cfg, depth=n_stages), device)
 
 
 def params_to_numpy(

@@ -337,6 +337,11 @@ class DecodeConfig:
 def model_config(cfg: DecodeConfig) -> ModelConfig:
     """The block config of a ``decode`` run; raises NotImplementedError
     for what is not ported (``moe``, the striped layout)."""
+    if cfg.moe or cfg.layout == "striped":
+        raise NotImplementedError(
+            "decode: moe and the striped layout run across ranks, not "
+            "ported yet (ROADMAP.md Queue 1 step 8c, decode and lm "
+            "across ranks)")
     return ModelConfig(
         embed=cfg.embed, heads=cfg.heads, head_dim=cfg.head_dim,
         mlp_mult=cfg.mlp_mult, causal=True, dtype=cfg.dtype,

@@ -394,6 +394,11 @@ class LMConfig:
 def model_config(cfg: LMConfig) -> ModelConfig:
     """The block config of an ``lm`` run; raises NotImplementedError for
     what is not ported (``moe``, the striped layout)."""
+    if cfg.moe or cfg.layout == "striped":
+        raise NotImplementedError(
+            "lm: moe and the striped layout run across ranks, not "
+            "ported yet (ROADMAP.md Queue 1 step 8c, decode and lm "
+            "across ranks)")
     return ModelConfig(
         embed=cfg.embed, heads=cfg.heads, head_dim=cfg.head_dim,
         mlp_mult=cfg.mlp_mult, causal=True, dtype=cfg.dtype,

@@ -1,10 +1,11 @@
-"""Resumable training loop over the flagship model on one device.
+"""Resumable training loop over the flagship model on a rank mesh.
 
-Counterpart of ``tpu_patterns/models/train_loop.py``: the one-device
-train step (``models/transformer.py::make_train_step``) composed with
-atomic checkpoints (``ckpt/``), the native prefetch loader (``io/``),
-the ``train.step`` fault site and the non-finite guard, so a killed run
-resumes bit for bit:
+Counterpart of ``tpu_patterns/models/train_loop.py``: the train step
+(``models/transformer.py::make_train_step``, or the ZeRO step of
+``models/zero_step.py``) over a dp x sp x tp mesh (one rank by default)
+composed with atomic checkpoints (``ckpt/``), the native prefetch loader
+(``io/``), the ``train.step`` fault site and the non-finite guard, so a
+killed run resumes bit for bit:
 
 * the batch stream is a pure function of (seed, step), so the resumed
   run sees exactly the batches the killed run would have seen;
@@ -15,8 +16,14 @@ resumes bit for bit:
 
 The checkpoint tree is ``{"params": ..., "step": ...}`` with the params
 in the JAX package's layout (no depth axis at depth 1), so either
-package resumes the other's checkpoints.  With ``attn="kernel"`` every
-step launches K3 (forward) and K4 (dq; dk/dv) once a layer.
+package resumes the other's one-device checkpoints; on a mesh each
+param is a ``ckpt.Sharded`` array (each distinct block written once,
+with its index and spec), and under ZeRO the tree is ``{"shards",
+"opt", "step"}`` (``zero_step.shard_specs``).  Restore reshards onto the
+run's mesh, so a run saved on one mesh resumes on another.  Batches are
+drawn whole and sharded [dp, sp, -].  With ``attn="kernel"`` every step
+launches K3 (forward) and K4 (dq; dk/dv) once a rank and layer at sp =
+1, sp² times a sp group and layer through the fused ring at sp > 1.
 """
 
 from __future__ import annotations
@@ -33,10 +40,15 @@ from tpu_patterns_torch.core.timing import clock_ns
 from tpu_patterns_torch.models.flagship import flagship_flops
 from tpu_patterns_torch.models.transformer import (
     ModelConfig,
+    gather_params,
     init_params,
     make_train_step,
-    param_shapes,
+    n_experts,
+    param_specs,
+    shard_params,
+    single_mesh,
 )
+from tpu_patterns_torch.parallel.optim import AdamState, tree_leaves
 from tpu_patterns_torch.runtime import resolve_device
 
 
@@ -66,7 +78,7 @@ class TrainLoopConfig:
     # "native" (the C++ prefetch loader, io/loader.py)
     data: str = dataclasses.field(
         default="synthetic", metadata={"choices": ("synthetic", "native")})
-    optimizer: str = "sgd"  # sgd (zero-sgd | zero-adam: not ported)
+    optimizer: str = "sgd"  # sgd | zero-sgd | zero-adam
     lr: float = 1e-3
     steps: int = 10
     seed: int = 0
@@ -93,63 +105,97 @@ class TrainLoopConfig:
 _ATTN = {"xla": "dense", "dense": "dense", "kernel": "kernel"}
 
 
-def unported(cfg: TrainLoopConfig) -> str | None:
-    """Why ``cfg`` asks for something this package does not do yet, or
-    None.  The JAX package takes these values; here they are refused,
-    never ignored."""
-    if cfg.optimizer in ("zero-sgd", "zero-adam"):
-        return (f"optimizer {cfg.optimizer!r} is not ported yet (ZeRO "
-                "optimizers: ROADMAP.md item 11); want sgd")
-    if cfg.moe:
-        return "moe=True is not ported to tpu_patterns_torch yet"
-    if cfg.remat_policy == "dots":
-        return "remat_policy='dots' is not ported yet (ROADMAP.md item 9)"
-    return None
-
-
 def _model_cfg(cfg: TrainLoopConfig) -> ModelConfig:
     if cfg.attn not in _ATTN:
         raise ValueError(f"unknown attn {cfg.attn!r}; want dense|kernel")
     return ModelConfig(
         embed=cfg.embed, heads=cfg.heads, head_dim=cfg.head_dim,
         mlp_mult=cfg.mlp_mult, causal=cfg.causal, dtype=cfg.dtype,
-        attn=_ATTN[cfg.attn], remat=cfg.remat,
+        moe=cfg.moe, attn=_ATTN[cfg.attn], remat=cfg.remat,
         remat_policy=cfg.remat_policy, depth=cfg.depth,
         kv_heads=cfg.kv_heads, rope=cfg.rope,
     )
 
 
-def _to_saved(params: dict, mcfg: ModelConfig) -> dict:
-    """The params in the checkpoint's layout: the depth axis dropped at
-    depth 1, as the JAX package lays them out."""
-    return {k: p[0] if mcfg.depth == 1 else p for k, p in params.items()}
+class _State:
+    """The loop's state on ``mesh`` and its checkpoint tree, both ways.
+
+    SGD: the per-rank params (a dict of per-rank lists, ``[depth, ...]``
+    leaves); the tree's params are in the JAX package's layout (no depth
+    axis at depth 1): plain tensors for a one-device run (``flat``),
+    ``ckpt.Sharded`` arrays on a mesh.  ZeRO: ``(shards, opt)`` of
+    ``models/zero_step.py``; the tree holds each slice as a Sharded array
+    of ``zero_step.shard_specs`` and Adam's count as one scalar."""
+
+    def __init__(self, mesh, mcfg: ModelConfig, flat: bool):
+        self.mesh, self.mcfg, self.flat = mesh, mcfg, flat
+        self.specs = param_specs(mcfg, n_experts(mesh, mcfg))
+
+    def _saved(self, k: str, per_rank: list):
+        _, spec = self.specs[k]
+        drop = self.mcfg.depth == 1
+        blocks = [p[0] if drop else p for p in per_rank]
+        if self.flat:
+            return blocks[0]
+        return ckpt.Sharded.over(self.mesh, blocks,
+                                 spec[1:] if drop else spec)
+
+    def _loaded(self, leaf) -> list:
+        blocks = [leaf] if self.flat else leaf.shards
+        return [b[None] if self.mcfg.depth == 1 else b for b in blocks]
+
+    def params_tree(self, params: dict) -> dict:
+        return {k: self._saved(k, v) for k, v in params.items()}
+
+    def params_of(self, tree: dict) -> dict:
+        return {k: self._loaded(v) for k, v in tree.items()}
+
+    def zero_tree(self, shards: dict, opt: list, zspecs: dict) -> dict:
+        def arr(k, per_rank):
+            shape, spec = zspecs[k]
+            return ckpt.Sharded.over(
+                self.mesh, [s.view(1, -1) if len(shape) == 2 else s
+                            for s in per_rank], spec, shape)
+
+        tree = {"shards": {k: arr(k, v) for k, v in shards.items()},
+                "opt": {}}
+        if isinstance(opt[0], AdamState):
+            tree["opt"] = {
+                "count": opt[0].count,
+                "mu": {k: arr(k, [st.mu[k] for st in opt]) for k in shards},
+                "nu": {k: arr(k, [st.nu[k] for st in opt]) for k in shards},
+            }
+        return tree
+
+    def zero_of(self, tree: dict) -> tuple[dict, list]:
+        def slices(leaf):
+            return [s.reshape(-1) for s in leaf.shards]
+
+        shards = {k: slices(v) for k, v in tree["shards"].items()}
+        if not tree["opt"]:
+            return shards, [() for _ in range(self.mesh.size)]
+        mu = {k: slices(v) for k, v in tree["opt"]["mu"].items()}
+        nu = {k: slices(v) for k, v in tree["opt"]["nu"].items()}
+        count = tree["opt"]["count"]
+        opt = [AdamState(count.to(dev, copy=True),
+                         {k: mu[k][r] for k in mu}, {k: nu[k][r] for k in nu})
+               for r, dev in enumerate(self.mesh.devices)]
+        return shards, opt
 
 
-def _from_saved(params: dict, mcfg: ModelConfig) -> dict:
-    return {k: p[None] if mcfg.depth == 1 else p for k, p in params.items()}
-
-
-def _template(mcfg: ModelConfig, dev: torch.device) -> dict:
-    """An empty checkpoint tree: what restore fills."""
-    lead = () if mcfg.depth == 1 else (mcfg.depth,)
-    params = {k: torch.empty(lead + shape, dtype=mcfg.torch_dtype,
-                             device=dev)
-              for k, shape in param_shapes(mcfg).items()}
-    return {"params": params,
-            "step": torch.zeros((), dtype=torch.int32, device=dev)}
-
-
-def _make_batch_source(cfg: TrainLoopConfig, mcfg: ModelConfig,
-                       dev: torch.device, start: int):
-    """(get_batch(t), close()) for the configured data source; batch t
-    is a function of (seed, t) for both."""
+def _make_batch_source(cfg: TrainLoopConfig, mcfg: ModelConfig, mesh,
+                       start: int):
+    """(get_batch(t), close()) for the configured data source: batch t,
+    a function of (seed, t) for both sources, drawn whole on rank 0's
+    device and sharded [dp, sp, -] (each rank's block)."""
     shape = (cfg.batch, cfg.seq, cfg.embed)
+    dev = mesh.devices[0]
     if cfg.data == "synthetic":
-        def synthetic(t: int) -> torch.Tensor:
+        def synthetic(t: int) -> list:
             gen = torch.Generator(dev).manual_seed(
                 cfg.seed + 1_000_003 * (t + 1))
-            return torch.randn(shape, generator=gen, device=dev).to(
-                mcfg.torch_dtype)
+            return mesh.shard(torch.randn(shape, generator=gen, device=dev)
+                              .to(mcfg.torch_dtype), ("dp", "sp", None))
 
         return synthetic, (lambda: None)
     if cfg.data != "native":
@@ -161,25 +207,26 @@ def _make_batch_source(cfg: TrainLoopConfig, mcfg: ModelConfig,
     loader = NativeLoader(cfg.seed, shape)
     loader.seek(start)
 
-    def native(t: int) -> torch.Tensor:
+    def native(t: int) -> list:
         arr, step = loader.next()
         if step != t:  # a caller skipped steps
             loader.seek(t)
             arr, step = loader.next()
         # copy out of the ring view before anything else: the slot is
         # recycled at the next next(), whatever reads it then
-        return torch.from_numpy(np.array(arr)).to(dev, mcfg.torch_dtype)
+        return mesh.shard(torch.from_numpy(np.array(arr)).to(
+            dev, mcfg.torch_dtype), ("dp", "sp", None))
 
     return native, loader.close
 
 
-def _all_finite(loss: torch.Tensor, params: dict) -> bool:
-    """One reduction over the loss and every floating param, read with a
-    single host sync (the cost of acting on the verdict before the next
-    step; thin it with nonfinite_every)."""
+def _all_finite(loss: torch.Tensor, state) -> bool:
+    """One reduction over the loss and every floating leaf of the state,
+    read with a single host sync (the cost of acting on the verdict
+    before the next step; thin it with nonfinite_every)."""
     flags = [torch.isfinite(loss).all()] + [
-        torch.isfinite(p).all() for p in params.values()
-        if p.is_floating_point()
+        torch.isfinite(p).all().to(loss.device)
+        for p in tree_leaves(state) if p.is_floating_point()
     ]
     return bool(torch.stack(flags).all().item())
 
@@ -225,24 +272,32 @@ def _emit_step_record(writer, cfg: TrainLoopConfig, step: int, loss: float,
     ))
 
 
-def train(cfg: TrainLoopConfig, writer=None, device: str = "cuda") -> dict:
-    """Run (or resume) the loop on ``device``; returns the final state
-    and a summary.
+def train(cfg: TrainLoopConfig, writer=None, device: str = "cuda",
+          mesh=None) -> dict:
+    """Run (or resume) the loop over ``mesh`` (a ``comm/mesh.py::
+    NamedMesh`` with axes dp, sp, tp; default one rank on ``device``);
+    returns the final state and a summary.
 
-    The returned dict has ``state`` (the checkpoint tree: params in the
-    JAX package's layout and the int32 ``step``), ``loss`` (the last
-    step's, None when no step ran), ``start_step`` (0 or the resumed
-    step), ``steps_per_s`` and ``tokens_per_s``.
+    The returned dict has ``state`` (the checkpoint tree and the int32
+    ``step``), ``params`` (the global params, ``[depth, ...]`` leaves on
+    rank 0's device), ``loss`` (the last step's, None when no step ran),
+    ``start_step`` (0 or the resumed step), ``steps_per_s`` and
+    ``tokens_per_s``.
     """
-    why = unported(cfg)
-    if why:
-        raise NotImplementedError(why)
-    if cfg.optimizer != "sgd":
+    if cfg.optimizer not in ("sgd", "zero-sgd", "zero-adam"):
         raise ValueError(
             f"unknown optimizer {cfg.optimizer!r}; want sgd|zero-sgd|zero-adam"
         )
-    dev = resolve_device(device)
+    flat = mesh is None
+    if flat:
+        mesh = single_mesh(resolve_device(device))
+    dev = mesh.devices[0]
     mcfg = _model_cfg(cfg)
+    dp, sp = mesh.dim("dp"), mesh.dim("sp")
+    if cfg.batch % dp or cfg.seq % sp:
+        raise ValueError(
+            f"batch {cfg.batch} % dp={dp} or seq {cfg.seq} % sp={sp} != 0"
+        )
 
     resume_step = None
     if cfg.ckpt_dir:
@@ -272,27 +327,63 @@ def train(cfg: TrainLoopConfig, writer=None, device: str = "cuda") -> dict:
         )
     # mean objective: lr scales stay independent of batch and seq
     n_global = float(cfg.batch * cfg.seq * cfg.embed)
-    # the step updates out of place, so the pre-step params stay live
+    layout = _State(mesh, mcfg, flat)
+    init = shard_params(init_params(torch.Generator().manual_seed(cfg.seed),
+                                    mcfg, dev, n_experts(mesh, mcfg)),
+                        mesh, mcfg)
+    # the steps update out of place, so the pre-step state stays live
     # for skip-step's revert with no second builder
-    step_fn = make_train_step(mcfg, lr=cfg.lr, n_global=n_global)
+    if cfg.optimizer == "sgd":
+        step_fn = make_train_step(mesh, mcfg, lr=cfg.lr, n_global=n_global)
+        state = init
 
+        def tree_of(st):
+            return {"params": layout.params_tree(st)}
+
+        def state_of(tree):
+            return layout.params_of(tree["params"])
+
+        def params_of(st):
+            return st
+
+    else:
+        from tpu_patterns_torch.models.zero_step import make_zero_train_step
+
+        zstep, zinit, zspecs = make_zero_train_step(
+            mesh, mcfg, lr=cfg.lr, optimizer=cfg.optimizer.split("-", 1)[1],
+            n_global=n_global)
+        state = zinit(init)
+
+        def step_fn(st, xs):
+            shards, opt, loss = zstep(*st, xs)
+            return (shards, opt), loss
+
+        def tree_of(st):
+            return layout.zero_tree(*st, zspecs)
+
+        def state_of(tree):
+            return layout.zero_of(tree)
+
+        def params_of(st):
+            return zstep.gather(st[0])
+
+    del init
     start = 0
     if resume_step is not None:
-        tree = ckpt.restore(cfg.ckpt_dir, _template(mcfg, dev),
-                            step=resume_step)
-        params = _from_saved(tree["params"], mcfg)
+        # the fresh state is the template: its blocks say which block of
+        # each saved array every rank of this mesh gets
+        tree = ckpt.restore(cfg.ckpt_dir, dict(tree_of(state), step=torch.zeros(
+            (), dtype=torch.int32, device=dev)), step=resume_step)
         start = int(tree["step"])
-    else:
-        params = init_params(torch.Generator().manual_seed(cfg.seed), mcfg,
-                             dev)
+        state = state_of(tree)
     step_no = start
 
     def checkpoint_tree():
-        return {"params": _to_saved(params, mcfg),
-                "step": torch.tensor(step_no, dtype=torch.int32, device=dev)}
+        return dict(tree_of(state),
+                    step=torch.tensor(step_no, dtype=torch.int32, device=dev))
 
     loss = None
-    get_batch, close_source = _make_batch_source(cfg, mcfg, dev, start)
+    get_batch, close_source = _make_batch_source(cfg, mcfg, mesh, start)
     saver = ckpt.AsyncSaver() if cfg.ckpt_async else None
     t0 = clock_ns()
     rate_start = start
@@ -311,7 +402,7 @@ def train(cfg: TrainLoopConfig, writer=None, device: str = "cuda") -> dict:
         for t in range(start, cfg.steps):
             with obs.span("train.step", step=t, optimizer=cfg.optimizer):
                 x = get_batch(t)
-                new_params, step_loss = step_fn(params, x)
+                new_state, step_loss = step_fn(state, x)
                 # fault site: ``nan`` poisons this step's loss, the shape
                 # of a real numerical blowup; the guard below is the
                 # recovery
@@ -329,15 +420,15 @@ def train(cfg: TrainLoopConfig, writer=None, device: str = "cuda") -> dict:
             if (
                 check_every
                 and ((t + 1) % check_every == 0 or will_ckpt)
-                and not _all_finite(step_loss, new_params)
+                and not _all_finite(step_loss, new_state)
             ):
                 _emit_nonfinite_warning(writer, cfg, t, cfg.nonfinite)
                 if cfg.nonfinite == "halt":
                     loss = step_loss
                     halted_at = t
-                    params = new_params
+                    state = new_state
                     break
-                # skip-step: keep the pre-step params; the batch is
+                # skip-step: keep the pre-step state; the batch is
                 # consumed and the step leaf advances, so the stream stays
                 # a function of t; `loss` keeps its last finite value
                 obs.counter(
@@ -345,7 +436,7 @@ def train(cfg: TrainLoopConfig, writer=None, device: str = "cuda") -> dict:
                     optimizer=cfg.optimizer,
                 ).inc()
             else:
-                params = new_params
+                state = new_state
                 loss = step_loss
             steps_total.inc()
             if will_ckpt:
@@ -397,6 +488,7 @@ def train(cfg: TrainLoopConfig, writer=None, device: str = "cuda") -> dict:
     ran = max(0, cfg.steps - rate_start)
     out = {
         "state": checkpoint_tree(),
+        "params": gather_params(params_of(state), mesh, mcfg),
         "loss": float(loss) if loss is not None else None,
         "start_step": start,
         "steps_per_s": (ran / elapsed) if ran and elapsed > 0 else 0.0,

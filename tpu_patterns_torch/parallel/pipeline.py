@@ -19,6 +19,11 @@ SPMD program, every rank computes every tick, a tick where it holds no
 live microbatch included (on garbage, discarded).  Ranks that share a
 card run one after another, so the bubble is not idle time on the card
 there, and a step's time is the world's serial time.
+
+A stage's activation, microbatches and params may be trees of tensors
+(a list over the stage's own sub-mesh, as the model's pipelined step
+gives them, ``models/pipeline_step.py``): every hop, feed and drain then
+works leaf by leaf, each leaf's ring over the pipeline ranks.
 """
 
 from __future__ import annotations
@@ -64,6 +69,34 @@ def peak_stash_microbatches(schedule: str, pp: int, n_micro: int) -> int:
     raise ValueError(f"unknown schedule {schedule!r}")
 
 
+def _leaves(tree: Any) -> list:
+    return _pytree.tree_flatten(tree)[0]
+
+
+def _shift(trees: Sequence[Any], shift: int = 1) -> list:
+    """``ring_shift`` of per-rank trees, leaf by leaf."""
+    if isinstance(trees[0], torch.Tensor):
+        return ring_shift(trees, shift)
+    flat = [_pytree.tree_flatten(t) for t in trees]
+    cols = [ring_shift([leaves[j] for leaves, _ in flat], shift)
+            for j in range(len(flat[0][0]))]
+    return [_pytree.tree_unflatten([c[r] for c in cols], flat[0][1])
+            for r in range(len(trees))]
+
+
+def _replicate_from(trees: Sequence[Any], owner: int) -> list:
+    """Rank ``owner``'s tree on every rank, as the reference's psum over
+    a one-hot owner: a sum over the ranks, zeros but the owner's, leaf
+    by leaf."""
+    flat = [_pytree.tree_flatten(t) for t in trees]
+    cols = [library_allreduce([leaves[j] if r == owner
+                               else torch.zeros_like(leaves[j])
+                               for r, (leaves, _) in enumerate(flat)])
+            for j in range(len(flat[0][0]))]
+    return [_pytree.tree_unflatten([c[r] for c in cols], flat[0][1])
+            for r in range(len(trees))]
+
+
 def _loader_step(c: int, loaders: list[torch.Tensor],
                  store: Sequence[torch.Tensor]
                  ) -> tuple[list[torch.Tensor], list[torch.Tensor]]:
@@ -78,9 +111,11 @@ def _loader_step(c: int, loaders: list[torch.Tensor],
     after the hop); rank 0 reads the first."""
     consumed = []
     for r, (loader, slabs) in enumerate(zip(loaders, store)):
-        j = c - r * (slabs.shape[0] - 1)
-        consumed.append(slabs[j] if 0 <= j < slabs.shape[0] else loader)
-    return consumed, ring_shift(consumed, -1)
+        k = _leaves(slabs)[0].shape[0]
+        j = c - r * (k - 1)
+        consumed.append(tree_map(lambda a, _j=j: a[_j], slabs)
+                        if 0 <= j < k else loader)
+    return consumed, _shift(consumed, -1)
 
 
 def _feed(c: int, micro: Sequence[torch.Tensor], loaders, micro_sharded,
@@ -89,12 +124,18 @@ def _feed(c: int, micro: Sequence[torch.Tensor], loaders, micro_sharded,
     if micro_sharded:
         fresh, loaders = _loader_step(c, loaders, micro)
         return fresh[0], loaders
-    return micro[0][min(c, n_micro - 1)], loaders
+    i = min(c, n_micro - 1)
+    return tree_map(lambda a: a[i], micro[0]), loaders
 
 
-def _n_micro(micro: Sequence[torch.Tensor], micro_sharded: bool) -> int:
-    k = micro[0].shape[0]
+def _n_micro(micro: Sequence[Any], micro_sharded: bool) -> int:
+    k = _leaves(micro[0])[0].shape[0]
     return k * len(micro) if micro_sharded else k
+
+
+def _first_slots(micro: Sequence[Any]) -> list:
+    """Zeros shaped like one microbatch, a tree a rank."""
+    return [tree_map(lambda a: torch.zeros_like(a[0]), m) for m in micro]
 
 
 def pipeline_apply(stage_fn: Callable, stage_params: Sequence[Any],
@@ -114,8 +155,8 @@ def pipeline_apply(stage_fn: Callable, stage_params: Sequence[Any],
     an output buffer), so autograd runs through the schedule."""
     pp = len(stage_params)
     n_micro = _n_micro(micro, micro_sharded)
-    recv = [torch.zeros_like(m[0]) for m in micro]
-    loaders = [torch.zeros_like(m[0]) for m in micro]
+    recv = _first_slots(micro)
+    loaders = _first_slots(micro)
     drained = []
     for t in range(n_micro + pp - 1):
         fresh, loaders = _feed(t, micro, loaders, micro_sharded, n_micro)
@@ -123,12 +164,11 @@ def pipeline_apply(stage_fn: Callable, stage_params: Sequence[Any],
               for r in range(pp)]
         if t >= pp - 1:  # the last stage finished microbatch t - (pp-1)
             drained.append(ys[-1])
-        recv = ring_shift(ys)  # activations one stage rightward
-    out = torch.stack(drained)
+        recv = _shift(ys)  # activations one stage rightward
+    out = tree_map(lambda *a: torch.stack(a), *drained)
     # the outputs live on the last stage; replicate them on every rank
-    # (a sum over the one-hot owner, as the reference's psum)
-    return library_allreduce([out if r == pp - 1 else torch.zeros_like(out)
-                              for r in range(pp)])
+    return _replicate_from([out if r == pp - 1 else tree_map(
+        torch.zeros_like, out) for r in range(pp)], pp - 1)
 
 
 def _stage_vjp(stage_fn: Callable, params: Any, x: torch.Tensor,
@@ -137,11 +177,15 @@ def _stage_vjp(stage_fn: Callable, params: Any, x: torch.Tensor,
     shaped like ``params``, dx).  ``torch.autograd.grad`` on fresh
     leaves, which costs the host less than ``torch.func.vjp``."""
     leaves, spec = _pytree.tree_flatten(params)
+    xs, xspec = _pytree.tree_flatten(x)
+    n = len(leaves)
     with torch.enable_grad():
-        ins = [t.detach().requires_grad_() for t in (*leaves, x)]
-        y = stage_fn(_pytree.tree_unflatten(ins[:-1], spec), ins[-1])
-        grads = torch.autograd.grad(y, ins, dy)
-    return _pytree.tree_unflatten(list(grads[:-1]), spec), grads[-1]
+        ins = [t.detach().requires_grad_() for t in (*leaves, *xs)]
+        y = stage_fn(_pytree.tree_unflatten(ins[:n], spec),
+                     _pytree.tree_unflatten(ins[n:], xspec))
+        grads = torch.autograd.grad(_leaves(y), ins, _leaves(dy))
+    return (_pytree.tree_unflatten(grads[:n], spec),
+            _pytree.tree_unflatten(grads[n:], xspec))
 
 
 def pipeline_train_1f1b(stage_fn: Callable, stage_params: Sequence[Any],
@@ -170,11 +214,12 @@ def pipeline_train_1f1b(stage_fn: Callable, stage_params: Sequence[Any],
     pp = len(stage_params)
     n_micro = _n_micro(micro, micro_sharded)
     slots = min(2 * pp - 1, n_micro + 2 * (pp - 1))
-    base = [torch.zeros_like(m[0]) for m in micro]
+    base = _first_slots(micro)
     recv_f, recv_b, loaders = list(base), list(base), list(base)
     stash = [[b] * slots for b in base]
     grads = [tree_map(torch.zeros_like, p) for p in stage_params]
-    loss_acc = torch.zeros((), dtype=torch.float32, device=base[-1].device)
+    homes = [_leaves(b)[0].device for b in base]
+    loss_acc = torch.zeros((), dtype=torch.float32, device=homes[-1])
     with torch.no_grad():  # the backward slots build their own graphs
         for c in range(n_micro + 2 * (pp - 1)):
             fresh, loaders = _feed(c, micro, loaders, micro_sharded, n_micro)
@@ -192,7 +237,7 @@ def pipeline_train_1f1b(stage_fn: Callable, stage_params: Sequence[Any],
                 if r == pp - 1:
                     loss_val, dy = out_grad_fn(y)
                     if 0 <= c - r < n_micro:
-                        loss_acc = loss_acc + loss_val.float()
+                        loss_acc = loss_acc + loss_val.float().to(homes[-1])
                 else:
                     dy = recv_b[r]
                 x_b = stash[r][(c - 2 * (pp - 1) + 2 * r) % slots]
@@ -201,10 +246,10 @@ def pipeline_train_1f1b(stage_fn: Callable, stage_params: Sequence[Any],
                     grads[r] = tree_map(lambda g, d: g + d, grads[r], dparams)
                 dxs.append(dx)
             # hops: activations right, cotangents left
-            recv_f, recv_b = ring_shift(ys), ring_shift(dxs, -1)
+            recv_f, recv_b = _shift(ys), _shift(dxs, -1)
     losses = library_allreduce(
-        [loss_acc if r == pp - 1 else torch.zeros((), device=b.device)
-         for r, b in enumerate(base)])
+        [loss_acc if r == pp - 1 else torch.zeros((), device=home)
+         for r, home in enumerate(homes)])
     return losses, grads
 
 

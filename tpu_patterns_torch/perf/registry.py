@@ -30,10 +30,12 @@ The JAX package's compiler figures (``cost_analysis``,
 and are not captured.  ``decoder.step_pallas``/``verify_pallas`` run the
 paged-attention kernel K1 (``serve/paged_kernel.py``; on CPU tensors
 its plain version) at the same shapes and floors as the dense legs.
-``zero.step`` (ROADMAP.md Queue 1 step 8), ``disagg.stream`` and
-``serve.prefix_store`` (step 9) read machinery not ported yet: a capture
-that names one is refused, and the full capture lists them under
-``skipped`` with their step.  The JAX package's Tier C ``SpmdEntry``
+``zero.step`` runs the ZeRO-adam train step (``models/zero_step.py``)
+over two dp ranks on the one device, a real dp axis as the JAX
+package's ``_train_mesh`` gives it.  ``disagg.stream`` and
+``serve.prefix_store`` (ROADMAP.md Queue 1 step 9) read machinery not
+ported yet: a capture that names one is refused, and the full capture
+lists them under ``skipped`` with their step.  The JAX package's Tier C ``SpmdEntry``
 registry serves its static analysis and is not part of this module.
 
 Every direct-timed rep runs inside an ``obs.span("perf.<name>")``.
@@ -110,7 +112,6 @@ EXECUTABLES = (
 # entries whose machinery is not ported yet -> the ROADMAP step that
 # ports it
 NOT_PORTED = {
-    "zero.step": "ROADMAP.md Queue 1 step 8 (the ZeRO optimizers)",
     "disagg.stream": "ROADMAP.md Queue 1 step 9 (disaggregated serving)",
     "serve.prefix_store": "ROADMAP.md Queue 1 step 9 (the fleet's "
                           "prefix store)",
@@ -174,32 +175,67 @@ def _mcfg(cfg: PerfConfig):
 # -- per-executable captures ----------------------------------------------
 
 
+def _train_metrics(cfg: PerfConfig, mcfg) -> dict:
+    from tpu_patterns_torch.perf import analytic
+
+    return {
+        "analytic_flops": analytic.train_step_flops(mcfg, cfg.batch,
+                                                    cfg.seq),
+        "analytic_hbm_bytes": analytic.train_step_hbm_bytes(
+            mcfg, cfg.batch, cfg.seq
+        ),
+    }
+
+
 def _capture_train(cfg: PerfConfig, dev) -> dict[str, dict]:
     from tpu_patterns_torch.models.transformer import (
         init_params,
         make_train_step,
     )
-    from tpu_patterns_torch.perf import analytic
 
     mcfg = _mcfg(cfg)
     params = init_params(torch.Generator().manual_seed(cfg.seed), mcfg, dev)
     x = torch.zeros((cfg.batch, cfg.seq, cfg.embed), dtype=mcfg.torch_dtype,
                     device=dev)
-    step = make_train_step(mcfg)
+    step = make_train_step(None, mcfg)
     state = {"p": params}
 
     def call():
         state["p"], loss = step(state["p"], x)
         return loss
 
-    return {"train.step": {
-        "analytic_flops": analytic.train_step_flops(mcfg, cfg.batch,
-                                                    cfg.seq),
-        "analytic_hbm_bytes": analytic.train_step_hbm_bytes(
-            mcfg, cfg.batch, cfg.seq
-        ),
-        "step_ms": _timed_reps("train.step", call, cfg, dev),
-    }}
+    m = _train_metrics(cfg, mcfg)
+    m["step_ms"] = _timed_reps("train.step", call, cfg, dev)
+    return {"train.step": m}
+
+
+def _capture_zero(cfg: PerfConfig, dev) -> dict[str, dict]:
+    """zero.step: the ZeRO-adam step, donating its slices and moments,
+    over a (2, 1, 1) mesh of two ranks on ``dev`` (the batch split over
+    dp)."""
+    from tpu_patterns_torch.comm.mesh import NamedMesh, RankMesh
+    from tpu_patterns_torch.models.transformer import (
+        init_params,
+        shard_params,
+    )
+    from tpu_patterns_torch.models.zero_step import make_zero_train_step
+
+    mcfg = _mcfg(cfg)
+    mesh = NamedMesh(RankMesh((dev, dev)), ("dp", "sp", "tp"), (2, 1, 1))
+    params = init_params(torch.Generator().manual_seed(cfg.seed), mcfg, dev)
+    x = torch.zeros((cfg.batch, cfg.seq, cfg.embed), dtype=mcfg.torch_dtype,
+                    device=dev)
+    xs = mesh.shard(x, ("dp", "sp", None))
+    step, init, _ = make_zero_train_step(mesh, mcfg, donate=True)
+    shards, opt = init(shard_params(params, mesh, mcfg))
+
+    def call():
+        _, _, loss = step(shards, opt, xs)
+        return loss
+
+    m = _train_metrics(cfg, mcfg)
+    m["step_ms"] = _timed_reps("zero.step", call, cfg, dev)
+    return {"zero.step": m}
 
 
 def decoder_for(cfg: PerfConfig, dev, attn: str = "dense"):
@@ -563,6 +599,7 @@ def card_line(dev) -> str:
 _CAPTURES = (
     # (the names one capture fills, the function, its progress line)
     (("train.step",), _capture_train, "train.step"),
+    (("zero.step",), _capture_zero, "zero.step (ZeRO-adam over dp=2)"),
     (("decoder.prefill", "decoder.step", "decoder.verify", "copy_blocks"),
      _capture_decoder, "decoder prefill/step/verify + copy_blocks"),
     (("decoder.step_pallas", "decoder.verify_pallas"),
