@@ -27,7 +27,9 @@ perf observatory (``perf``), sequence parallelism (ring attention
 and Ulysses over a rank mesh of four ranks on the one card, through the
 flash kernels), and the parallelism patterns (the collective matmul,
 the GPipe and 1F1B pipelines, top-1 MoE dispatch and the ZeRO step over
-rank meshes on the one card; no kernel on their path).
+rank meshes on the one card; no kernel on their path), the model train
+step across ranks, and ``decode`` and ``lm`` across ranks (no kernel on
+their path).
 Phases, each one or more printed lines:
 
 1. device and toolchain: torch/CUDA versions, ``nvcc --version``, and the
@@ -437,15 +439,46 @@ Phases, each one or more printed lines:
     own on the package under test, exit 0 and a SUCCESS marker; (e) ``perf report --include
     zero.step`` at ``PerfConfig``'s defaults, its row and a SUCCESS
     marker; the phase's wall time;
-22. the card's name and power limit again, the ``kernels`` line (the
+22. ``decode`` and ``lm`` across ranks (``decode_lm_mesh``; alone with
+    ``--tree . decode_lm_mesh``; no kernel on this path), all ranks on
+    the one card: (a) ``run_decode`` at ``DecodeConfig``'s widths (bf16,
+    E 1024, 8 x 128, depth 4, B 8, prefill 4096, gen 128; reps 2) over
+    (dp, sp, tp) (1,1,1), (1,4,1), (1,2,2) and (2,2,2), and at gen 32
+    striped at (1,4,1), moe at (1,2,2) and GQA 4 with RoPE and an int8
+    cache at (1,2,2): every Record SUCCESS (the teacher-forcing gate at
+    the mesh), the ragged gate at each mesh, the mode the mesh gives,
+    ``cache_MB`` 553.648 at gen 128, ``ms_per_token``, ``prefill_ms`` and
+    ``cache_MB`` beside the card's name and power limit; (b) the
+    attention gate: on each mesh of (a), every layer's combined
+    attention output (before ``wo``) at the prefill's last row and the
+    first 4 teacher-forced decode steps against one rank's on the same
+    params and inputs (the probe's inputs x4, ``DLM_ATTN_INPUT_SCALE``),
+    max |diff| over max |one rank| at most ``DLM_ATTN_TOL``, and two
+    planted faults at (1,4,1) above it (one sp rank's weighted values
+    left out of the combine, a per-rank max); in float32 with TF32 off
+    (E 256, 8 x 64, prefill 1024, B 4) the teacher-forced outputs over
+    (1,4,1), (1,2,2), (2,2,2) and striped (1,4,1) within 256 eps of one
+    rank's, and the LM's greedy ids at (2,2,2) and striped (1,4,1) equal
+    to one rank's; (c) ``run_lm`` at ``LMConfig``'s defaults over (1,1,1),
+    (2,2,2), striped (1,4,1), and moe at (1,1,2) and (1,2,2): every
+    Record SUCCESS, the first loss (unrounded) within rtol 1e-5 of one
+    rank's (moe: of (1,1,2)'s), the greedy ids at (2,2,2) equal to one
+    rank's, and the sampled ids (T 0.8, top_k 0 and 40) equal across
+    two runs at one seed; (d) ``python -m tpu_patterns_torch decode
+    --devices 4 --tp 2`` and ``lm --devices 8 --dp 2 --tp 2`` in
+    processes of their own on the package under test, beside (b) and
+    (c), exit 0 and a SUCCESS marker; K1-K4 launched 0 times in the
+    phase; its wall time;
+23. the card's name and power limit again, the ``kernels`` line (the
     flash rows also carry ``train_loop_launches``, phase 8b's counts,
     K1's row ``loadgen_launches``, phase 14's by scenario,
     ``kv_tier_launches``, phase 16's by leg, ``recovery_launches``,
     phase 17's by leg, K1-K4 ``decode_lm_launches``, phase 15's,
     ``diagnostics_launches``, phase 18's by leg, and K2-K4
     ``longctx_launches``, phase 19's by leg, with ``longctx_f32``, their
-    float32 times at longctx's shape, and K3/K4 ``model_mesh_launches``,
-    phase 21's by mesh),
+    float32 times at longctx's shape, K3/K4 ``model_mesh_launches``,
+    phase 21's by mesh, and K1-K4 ``decode_lm_mesh_launches``, phase
+    22's),
     then the device line, which is the last.
 """
 
@@ -3746,7 +3779,9 @@ def decode_profile(torch, D, timing):
 @contextlib.contextmanager
 def _lm_ids(lm):
     """Every ``generate`` output of the LM decoders made inside the
-    block (``run_lm`` warms the call, then times a second)."""
+    block (``run_lm`` warms the call, then times a second), as (the
+    decoder's mesh or None, its ids: a tensor, or per-rank lists over a
+    mesh)."""
     seen = []
     real = lm.make_lm_decoder
 
@@ -3755,7 +3790,7 @@ def _lm_ids(lm):
 
         def gen_rec(*ga, **gk):
             out = gen(*ga, **gk)
-            seen.append(out[1].cpu())
+            seen.append((k.get("mesh"), out[1]))
             return out
 
         return pre, gen_rec
@@ -3820,7 +3855,7 @@ def phase_decode_lm(torch, pk, F, timing, spec):
         if rec.verdict.value != "SUCCESS":
             bad.append(f"lm {rec.mode} {rec.verdict.value}: "
                        + "; ".join(rec.notes))
-        ids.append(seen[-1])
+        ids.append(seen[-1][1].cpu())
     greedy_ids, sampled_ids = ids[0], ids[1:]
     same = torch.equal(*sampled_ids)
     emit({"phase": "lm", "leg": "sampled_repeat", "ids_equal": same,
@@ -3844,14 +3879,14 @@ def phase_decode_lm(torch, pk, F, timing, spec):
     err = io.StringIO()
     try:
         with contextlib.redirect_stderr(err):
-            _cli_in_process(["lm", "--tp", "2"])
+            _cli_in_process(["loadgen", "--tp", "2"])
         refused = None
     except SystemExit as e:
         refused = e.code
-    emit({"phase": "decode_lm_cli", "argv": ["lm", "--tp", "2"],
+    emit({"phase": "decode_lm_cli", "argv": ["loadgen", "--tp", "2"],
           "exit": refused, "message": err.getvalue().strip()[-160:]})
-    if refused != 2 or "does not support yet" not in err.getvalue():
-        bad.append("lm --tp 2 was not refused")
+    if refused != 2 or "step 8d" not in err.getvalue():
+        bad.append("loadgen --tp 2 was not refused")
 
     torch.cuda.synchronize()
     launches = {"paged_attention": pk.paged_block.launches, **F.LAUNCHES}
@@ -5975,6 +6010,462 @@ def phase_model_mesh(torch, F):
     return launches
 
 
+# -- phase 22: decode and lm across ranks ------------------------------------
+
+# (leg, (dp, sp, tp), DecodeConfig fields): the main meshes at the
+# defaults (E 1024, 8 x 128 heads, depth 4, bf16, B 8, prefill 4096, gen
+# 128) but reps 2 (the steps are host-bound: 768 a leg), then the
+# feature legs at gen 32
+DLM_MESHES = (
+    ("111", (1, 1, 1), dict(reps=2)),
+    ("141", (1, 4, 1), dict(reps=2)),
+    ("122", (1, 2, 2), dict(reps=2)),
+    ("222", (2, 2, 2), dict(reps=2)),
+    ("striped_141", (1, 4, 1), dict(layout="striped", gen=32, reps=2)),
+    ("moe_122", (1, 2, 2), dict(moe=True, gen=32, reps=2)),
+    ("gqa4_rope_int8_122", (1, 2, 2), dict(kv_heads=4, rope=True,
+                                           cache_int8=True, gen=32,
+                                           reps=2)),
+)
+# the attention gate of leg b: each layer's combined attention output
+# (before wo) at the prefill's last row and the first DLM_ATTN_STEPS
+# teacher-forced decode steps, max |mesh - one rank| / max |one rank|;
+# set from the sound meshes' and the planted faults' readings on the
+# card (PERF.md §6)
+DLM_ATTN_STEPS = 4
+DLM_ATTN_TOL = {"float": 0.07, "int8": 0.25}
+DLM_FAULT_LEGS = ("141", "gqa4_rope_int8_122")
+# the gate's prompt and fed tokens are the run's scaled by this: at the
+# default init the scores' spread is ~0.04, the softmax near-uniform,
+# and a per-rank max moves the output by less than bf16 resolves (on
+# the H100 it read 1.08e-2 unscaled, the sound meshes' own reading);
+# x4 multiplies the scores by 16
+DLM_ATTN_INPUT_SCALE = 4.0
+# leg b's float32 probe (TF32 off): DecodeConfig at E 256, 8 x 64 heads,
+# prefill 1024, B 4; outputs within DLM_F32_EPS float32 eps of the
+# one-rank output's max (phase 15's DECODE_EXACT_EPS bound)
+DLM_F32 = dict(embed=256, heads=8, head_dim=64, prefill=1024, batch=4,
+               dtype="float32")
+DLM_F32_EPS = 256
+DLM_F32_MESHES = (("141", (1, 4, 1), {}), ("122", (1, 2, 2), {}),
+                  ("222", (2, 2, 2), {}),
+                  ("striped_141", (1, 4, 1), dict(layout="striped")))
+# leg b's greedy ids in float32: the LM at the probe's widths
+DLM_F32_LM = dict(vocab=1024, embed=256, heads=8, head_dim=64, depth=2,
+                  dtype="float32")
+DLM_F32_LM_GEN = 16
+
+
+def _dlm_mesh(mesh_mod, shape):
+    return mesh_mod.model_mesh(math.prod(shape), shape[0], shape[2],
+                               device=DEVICE)
+
+
+@contextlib.contextmanager
+def _attn_capture(D):
+    """Every combined attention output of the decoders run inside the
+    block: ("prefill", mesh, per-rank outputs) from ``_prefill_attend``
+    and ("decode", mesh, outputs) from ``_decode_attend``, in call
+    order (layer by layer)."""
+    calls = []
+    real_p, real_d = D._prefill_attend, D._decode_attend
+
+    def prefill_attend(mesh, layout, *a):
+        out = real_p(mesh, layout, *a)
+        calls.append(("prefill", mesh, [o.float() for o in out]))
+        return out
+
+    def decode_attend(mesh, *a):
+        out = real_d(mesh, *a)
+        calls.append(("decode", mesh, [o.float() for o in out]))
+        return out
+
+    D._prefill_attend, D._decode_attend = prefill_attend, decode_attend
+    try:
+        yield calls
+    finally:
+        D._prefill_attend, D._decode_attend = real_p, real_d
+
+
+def _attn_global(torch, kind, mesh, outs):
+    """[B, H, D] of one captured call: the prefill's last row (the last
+    sp rank's last local row, contiguous and striped alike) or the decode
+    query, each (dp, tp) block from its rank."""
+    sp = mesh.dim("sp")
+    b_loc, _, h_loc, d = outs[0].shape
+    out = torch.empty(b_loc * mesh.dim("dp"), h_loc * mesh.dim("tp"), d,
+                      device=outs[0].device)
+    for r, o in enumerate(outs):
+        at = mesh.coord(r)
+        if at["sp"] != (sp - 1 if kind == "prefill" else 0):
+            continue
+        out[at["dp"] * b_loc:(at["dp"] + 1) * b_loc,
+            at["tp"] * h_loc:(at["tp"] + 1) * h_loc] = o[:, -1 if kind ==
+                                                        "prefill" else 0]
+    return out
+
+
+def dlm_attn_run(torch, D, tr, mesh, cfg, params, x, toks):
+    """Every layer's combined attention output [calls, B, H, D] of a
+    prefill of ``x`` then DLM_ATTN_STEPS teacher-forced steps fed
+    ``toks`` over ``mesh``, from the global ``params``."""
+    from tpu_patterns_torch.longctx.attention import stripe
+
+    mcfg = D.model_config(cfg)
+    pre, gen = D.make_decoder(mcfg, cfg.batch, cfg.prefill,
+                              DLM_ATTN_STEPS * mesh.dim("sp"),
+                              cache_int8=cfg.cache_int8, mesh=mesh)
+    sharded = tr.shard_params(params, mesh, mcfg)
+    sp = mesh.dim("sp")
+    xs = mesh.shard(stripe(x, sp, axis=1) if cfg.layout == "striped" else x,
+                    ("dp", "sp", None))
+    with torch.no_grad(), _attn_capture(D) as calls:
+        c, _ = pre(sharded, xs)
+        for n in range(DLM_ATTN_STEPS):
+            c, _ = gen(sharded, c, mesh.shard(toks[:, n:n + 1],
+                                              ("dp", None, None)),
+                       cfg.prefill + n, 1)
+    return torch.stack([_attn_global(torch, *call) for call in calls])
+
+
+def _attn_err(got, want) -> float:
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def _dlm_inputs(torch, D, tr, cfg, mesh):
+    mcfg = D.model_config(cfg)
+    params = D._stacked_params(cfg.seed, mcfg, DEVICE,
+                               tr.n_experts(mesh, mcfg))
+    x = D._probe_input(cfg.seed + 1, (cfg.batch, cfg.prefill, cfg.embed),
+                       DEVICE).to(mcfg.torch_dtype)
+    toks = D._probe_input(cfg.seed + 2, (cfg.batch, DLM_ATTN_STEPS,
+                                         cfg.embed),
+                          DEVICE).to(mcfg.torch_dtype)
+    return params, x * DLM_ATTN_INPUT_SCALE, toks * DLM_ATTN_INPUT_SCALE
+
+
+def _numer_left_out(orig):
+    """The combine's sum of weighted values leaves the group's last rank
+    out (the normalizers, last axis 1, are summed whole)."""
+    def wrap(xs):
+        if xs[0].shape[-1] == 1 or len(xs) == 1:
+            return orig(xs)
+        return orig(list(xs[:-1]) + [xs[-1] * 0])
+
+    return wrap
+
+
+def dlm_decode(torch, D, tr, mesh_mod):
+    """Leg a: ``run_decode`` over each mesh of DLM_MESHES, both gates at
+    the mesh."""
+    bad, rows = [], {}
+    smi = _smi()
+    for leg, shape, kw in DLM_MESHES:
+        mesh = _dlm_mesh(mesh_mod, shape)
+        cfg = D.DecodeConfig(device=DEVICE, **kw)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        rec, = D.run_decode(cfg, lg_writer(), mesh=mesh)
+        ragged = D._ragged_gate(dataclasses.replace(D.model_config(cfg),
+                                                    rope=True),
+                                device=DEVICE, mesh=mesh)
+        torch.cuda.synchronize()
+        m = rec.metrics
+        want_mode = (f"sp{shape[1]}"
+                     + (f"_gqa{cfg.kv_heads}" if cfg.kv_heads else "")
+                     + ("_rope" if cfg.rope else "")
+                     + ("_int8" if cfg.cache_int8 else "")
+                     + ("_striped" if cfg.layout == "striped" else "")
+                     + ("_moe" if cfg.moe else ""))
+        row = {"phase": "decode_lm_mesh", "leg": f"decode_{leg}",
+               "mesh": list(shape), "mode": rec.mode,
+               "commands": rec.commands, "verdict": rec.verdict.value,
+               "ms_per_token": m["ms_per_token"],
+               "prefill_ms": m["prefill_ms"], "cache_MB": m["cache_MB"],
+               "tokens_per_s": m["tokens_per_s"],
+               "timing_converged": m["timing_converged"],
+               "ragged_gate": ragged,
+               "peak_device_MB": torch.cuda.max_memory_allocated() / 1e6,
+               "leg_seconds": time.perf_counter() - t0, "card": smi,
+               "notes": rec.notes}
+        emit(row)
+        rows[leg] = row
+        if rec.verdict.value != "SUCCESS" or not ragged:
+            bad.append(f"decode {leg}: {rec.verdict.value}, ragged gate "
+                       f"{ragged}: " + "; ".join(rec.notes))
+        if rec.mode != want_mode:
+            bad.append(f"decode {leg}: mode {rec.mode}, want {want_mode}")
+        if cfg.gen == 128 and m["cache_MB"] != 553.648:
+            bad.append(f"decode {leg}: cache_MB {m['cache_MB']}")
+    return rows, bad
+
+
+def _attn_kind(kw) -> str:
+    return "int8" if kw.get("cache_int8") else "float"
+
+
+def dlm_attn_gate(torch, D, tr, mesh_mod):
+    """Leg b: the attention gate, each mesh of DLM_MESHES against one
+    rank on the same params, prompt and fed tokens, and the planted
+    faults on the legs of DLM_FAULT_LEGS (a float and an int8 cache:
+    the int8 one's limit is its own, its quantization moving a sound
+    reading ~10x)."""
+    bad = []
+    t0 = time.perf_counter()
+    one = _dlm_mesh(mesh_mod, (1, 1, 1))
+    readings, faults = {}, {}
+    for leg, shape, kw in DLM_MESHES[1:]:
+        kw = {k: v for k, v in kw.items() if k not in ("gen", "reps")}
+        cfg = D.DecodeConfig(device=DEVICE, **kw)
+        mesh = _dlm_mesh(mesh_mod, shape)
+        inputs = _dlm_inputs(torch, D, tr, cfg, mesh)
+        ref = dlm_attn_run(torch, D, tr, one, cfg, *inputs)
+        readings[leg] = _attn_err(
+            dlm_attn_run(torch, D, tr, mesh, cfg, *inputs), ref)
+        tol = DLM_ATTN_TOL[_attn_kind(kw)]
+        if not readings[leg] <= tol:
+            bad.append(f"attention gate: {leg} reads {readings[leg]:.3e} "
+                       f"> {tol}")
+        if leg not in DLM_FAULT_LEGS:
+            continue
+        for name, attr, wrap in (("numer_left_out", "_sp_sum",
+                                  _numer_left_out),
+                                 ("per_rank_max", "_sp_max",
+                                  lambda orig: list)):
+            with _patched(D, attr, wrap):
+                e = faults[f"{name}_{leg}"] = _attn_err(
+                    dlm_attn_run(torch, D, tr, mesh, cfg, *inputs), ref)
+            if not e > tol:
+                bad.append(f"attention gate misses planted fault {name} "
+                           f"at {leg} ({e:.3e})")
+    emit({"phase": "decode_lm_mesh", "leg": "attention_gate",
+          "tol": DLM_ATTN_TOL, "input_scale": DLM_ATTN_INPUT_SCALE,
+          "sound": readings, "faults": faults, "steps": DLM_ATTN_STEPS,
+          "seconds": time.perf_counter() - t0, "card": _smi()})
+    return bad
+
+
+def dlm_f32(torch, D, tr, lm, mesh_mod):
+    """Leg b's float32 probe, TF32 off: teacher-forced decode outputs
+    over each mesh of DLM_F32_MESHES against one rank's, and the LM's
+    greedy ids at (2,2,2) and striped (1,4,1) against one rank's."""
+    from tpu_patterns_torch.longctx.attention import stripe
+
+    bad = []
+    t0 = time.perf_counter()
+    eps = float(torch.finfo(torch.float32).eps)
+    errs = {}
+    with D._exact_matmuls(torch.device(DEVICE)):
+        for leg, shape, kw in DLM_F32_MESHES:
+            cfg = D.model_config(D.DecodeConfig(**DLM_F32, **kw))
+            params = D._stacked_params(3, cfg, DEVICE)
+            x = D._probe_input(4, (DLM_F32["batch"],
+                                   DLM_F32["prefill"] + DLM_ATTN_STEPS,
+                                   cfg.embed), DEVICE)
+            got, want = D.teacher_forced(cfg, params, x, DLM_F32["prefill"],
+                                         mesh=_dlm_mesh(mesh_mod, shape))
+            one, _ = D.teacher_forced(cfg, params, x, DLM_F32["prefill"])
+            scale = max(1.0, float(abs(one).max()))
+            errs[leg] = {"vs_one_rank": float(abs(got - one).max()),
+                         "vs_forward": float(abs(got - want).max()),
+                         "bound": DLM_F32_EPS * eps * scale}
+        ids = {}
+        for leg, shape, kw in (("111", (1, 1, 1), {}),
+                               ("222", (2, 2, 2), {}),
+                               ("striped_141", (1, 4, 1),
+                                dict(attn_layout="striped"))):
+            cfg = tr.ModelConfig(**{k: v for k, v in DLM_F32_LM.items()
+                                    if k != "vocab"}, rope=True, **kw)
+            mesh = _dlm_mesh(mesh_mod, shape)
+            params = lm.init_lm_params(5, cfg, DLM_F32_LM["vocab"], DEVICE)
+            toks = torch.randint(0, DLM_F32_LM["vocab"],
+                                 (DLM_F32["batch"], DLM_F32["prefill"]),
+                                 generator=torch.Generator().manual_seed(6))
+            if cfg.attn_layout == "striped":
+                toks = stripe(toks, shape[1], axis=1)
+            pre, gen = lm.make_lm_decoder(
+                cfg, DLM_F32_LM["vocab"], DLM_F32["batch"],
+                DLM_F32["prefill"], DLM_F32_LM_GEN, mesh=mesh)
+            p = lm.shard_lm_params(params, mesh, cfg)
+            c, t0_ids = pre(p, mesh.shard(toks.to(DEVICE), ("dp", "sp")))
+            _, out = gen(p, c, t0_ids, DLM_F32["prefill"], DLM_F32_LM_GEN)
+            ids[leg] = torch.cat([mesh.assemble(t0_ids, ("dp",))[:, None],
+                                  mesh.assemble(out, ("dp", None))],
+                                 dim=1).cpu()
+    same = {leg: bool(torch.equal(v, ids["111"])) for leg, v in ids.items()}
+    emit({"phase": "decode_lm_mesh", "leg": "f32_exact", **{
+        k: v for k, v in DLM_F32.items()}, "steps": DLM_ATTN_STEPS,
+        "decode": errs, "tolerance": f"{DLM_F32_EPS} eps(f32) x max(1, "
+        "max|one rank|)", "lm_greedy_ids_equal": same,
+        "lm_ids_shape": list(ids["111"].shape),
+        "tf32": torch.backends.cuda.matmul.allow_tf32,
+        "seconds": time.perf_counter() - t0})
+    bad += [f"f32 decode {leg}: {e['vs_one_rank']:.3e} from one rank, "
+            f"bound {e['bound']:.3e}" for leg, e in errs.items()
+            if not e["vs_one_rank"] <= e["bound"]]
+    bad += [f"f32 lm greedy ids at {leg} differ from one rank's"
+            for leg, ok in same.items() if not ok]
+    return bad
+
+
+# leg c's sampled runs: their ids must repeat at one seed, so a short
+# training and generation do
+DLM_SAMPLED = dict(temperature=0.8, steps=2, gen=8)
+
+
+def dlm_lm(torch, lm, mesh_mod):
+    """Leg c: ``run_lm`` at LMConfig's defaults over (2,2,2), striped
+    (1,4,1) and moe (1,2,2), each loss_first (recomputed unrounded on
+    the run's params and tokens, ``lm.lm_inputs``) against one rank's
+    (moe: against (1,1,2), the expert count being tp), the greedy ids at
+    (2,2,2) against one rank's, and the sampled ids (T 0.8, top_k 0 and
+    40, DLM_SAMPLED) repeating at one seed."""
+    bad, rows = [], {}
+    legs = (("111", (1, 1, 1), {}), ("222", (2, 2, 2), {}),
+            ("striped_141", (1, 4, 1), dict(layout="striped")),
+            ("moe_112", (1, 1, 2), dict(moe=True)),
+            ("moe_122", (1, 2, 2), dict(moe=True)),
+            ("T0.8_222", (2, 2, 2), DLM_SAMPLED),
+            ("T0.8_222_again", (2, 2, 2), DLM_SAMPLED),
+            ("T0.8_k40_222", (2, 2, 2), dict(DLM_SAMPLED, top_k=40)),
+            ("T0.8_k40_222_again", (2, 2, 2), dict(DLM_SAMPLED, top_k=40)))
+    ids, losses = {}, {}
+    for leg, shape, kw in legs:
+        mesh = _dlm_mesh(mesh_mod, shape)
+        t0 = time.perf_counter()
+        with _lm_ids(lm) as seen:
+            rec, = lm.run_lm(lm.LMConfig(device=DEVICE, **kw), lg_writer(),
+                             mesh=mesh)
+        m, out = seen[-1]
+        ids[leg] = m.assemble(out, ("dp", None)).cpu()
+        rows[leg] = rec.metrics
+        if "temperature" not in kw:  # the Record's loss_first, unrounded
+            cfg = lm.LMConfig(device=DEVICE, **kw)
+            mcfg, params, toks = lm.lm_inputs(cfg, mesh)
+            with torch.no_grad():
+                losses[leg] = float(lm.lm_loss_mesh(
+                    mesh, lm.shard_lm_params(params, mesh, mcfg),
+                    mesh.shard(toks, ("dp", "sp")), mcfg))
+        emit({"phase": "decode_lm_mesh", "leg": f"lm_{leg}",
+              "mesh": list(shape), "mode": rec.mode,
+              "commands": rec.commands, "verdict": rec.verdict.value,
+              **rec.metrics, "notes": rec.notes,
+              "leg_seconds": time.perf_counter() - t0})
+        if rec.verdict.value != "SUCCESS":
+            bad.append(f"lm {leg} {rec.verdict.value}: "
+                       + "; ".join(rec.notes))
+    checks = {
+        "loss_first_222": ("222", "111"),
+        "loss_first_striped_141": ("striped_141", "111"),
+        "loss_first_moe_122": ("moe_122", "moe_112"),
+    }
+    rel = {name: abs(losses[a] - losses[b]) / abs(losses[b])
+           for name, (a, b) in checks.items()}
+    same = {"greedy_222": bool(torch.equal(ids["222"], ids["111"])),
+            "T0.8_again": bool(torch.equal(ids["T0.8_222"],
+                                           ids["T0.8_222_again"])),
+            "T0.8_k40_again": bool(torch.equal(ids["T0.8_k40_222"],
+                                               ids["T0.8_k40_222_again"])),
+            "T0.8_unlike_greedy": not bool(torch.equal(ids["T0.8_222"],
+                                                       ids["222"]))}
+    emit({"phase": "decode_lm_mesh", "leg": "lm_checks",
+          "loss_first": losses, "loss_first_rel": rel, "ids": same})
+    bad += [f"lm {n}: loss_first off by {e:.2e} relative"
+            for n, e in rel.items() if not e <= 1e-5]
+    bad += [f"lm ids: {n} is false" for n, ok in same.items() if not ok]
+    return rows, bad
+
+
+def dlm_cli_start():
+    """Leg d: ``decode --devices 4 --tp 2`` and ``lm --devices 8 --dp 2
+    --tp 2`` at their defaults, each in a process of its own on the
+    package this process imported, both at once; started here,
+    collected by :func:`dlm_cli_finish`."""
+    import tpu_patterns_torch
+
+    tree = os.path.dirname(os.path.dirname(os.path.abspath(
+        tpu_patterns_torch.__file__)))
+    path = os.environ.get("PYTHONPATH")
+    env = {**os.environ, "PYTHONPATH": (tree + os.pathsep + path if path
+                                        else tree)}
+    runs = [["decode", "--devices", "4", "--tp", "2"],
+            ["lm", "--devices", "8", "--dp", "2", "--tp", "2"]]
+    return tree, time.perf_counter(), [
+        (argv, subprocess.Popen([sys.executable, "-m", "tpu_patterns_torch",
+                                 *argv], cwd=tree, env=env, text=True,
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE))
+        for argv in runs]
+
+
+def dlm_cli_finish(started):
+    tree, t0, procs = started
+    bad = []
+    for argv, proc in procs:
+        try:
+            out, err = proc.communicate(timeout=600)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        markers = [ln for ln in out.splitlines() if ln.startswith("## ")]
+        ok = proc.returncode == 0 and any(ln.endswith("| SUCCESS")
+                                          for ln in markers)
+        emit({"phase": "decode_lm_mesh", "leg": "cli", "argv": argv,
+              "package": tree, "rc": proc.returncode, "markers": markers,
+              "seconds": time.perf_counter() - t0,
+              "stderr_tail": err[-400:] if not ok else ""})
+        if not ok:
+            bad.append(f"{' '.join(argv)}: rc {proc.returncode} {markers}")
+    return bad
+
+
+def phase_decode_lm_mesh(torch, pk, F):
+    """Phase 22 (module docstring).  Returns K1's and K2-K4's launches in
+    the phase (each must be 0); raises if any leg fails."""
+    from tpu_patterns_torch.comm import mesh as mesh_mod
+    from tpu_patterns_torch.models import decode as D
+    from tpu_patterns_torch.models import lm
+    from tpu_patterns_torch.models import transformer as tr
+
+    t_phase = time.perf_counter()
+    pk.paged_block.launches = 0
+    F.reset_launches()
+    ends = {}
+    rows, bad = dlm_decode(torch, D, tr, mesh_mod)
+    ends["decode"] = time.perf_counter() - t_phase
+    # the CLI processes run beside legs b and c, after the timed decode
+    # legs (their timings are informational)
+    cli = dlm_cli_start()
+    try:
+        bad += dlm_attn_gate(torch, D, tr, mesh_mod)
+        ends["attention_gate"] = time.perf_counter() - t_phase
+        bad += dlm_f32(torch, D, tr, lm, mesh_mod)
+        ends["f32"] = time.perf_counter() - t_phase
+        lm_rows, lm_bad = dlm_lm(torch, lm, mesh_mod)
+        bad += lm_bad
+        ends["lm"] = time.perf_counter() - t_phase
+    finally:
+        bad += dlm_cli_finish(cli)
+    ends["cli"] = time.perf_counter() - t_phase
+    torch.cuda.synchronize()
+    launches = {"paged_attention": pk.paged_block.launches, **F.LAUNCHES}
+    emit({"phase": "decode_lm_mesh_phase",
+          "seconds": time.perf_counter() - t_phase, "leg_end_s": ends,
+          "kernel_launches": launches, "card": _smi(),
+          "ms_per_token": {leg: r["ms_per_token"] for leg, r in rows.items()},
+          "prefill_ms": {leg: r["prefill_ms"] for leg, r in rows.items()},
+          "cache_MB": {leg: r["cache_MB"] for leg, r in rows.items()},
+          "gen_tokens_per_s": {leg: r["gen_tokens_per_s"]
+                               for leg, r in lm_rows.items()}})
+    if any(launches.values()):
+        bad.append(f"decode/lm across ranks launched kernels: {launches}")
+    if bad:
+        raise AssertionError("decode_lm_mesh: " + " | ".join(bad))
+    return launches
+
+
 def profile_concurrency_main() -> int:
     """``python3 chip_smoke.py --profile-concurrency``, which the smoke
     runs in a process of its own: the xla concurrent "C C" run, the
@@ -6048,7 +6539,8 @@ def profile_concurrency_main() -> int:
 
 # the timing phases ``--tree`` runs with another checkout's package
 TREE_PHASES = ("put_time", "ring_put_time", "accumulate_time",
-               "allreduce", "add_one_time", "parallel", "model_mesh")
+               "allreduce", "add_one_time", "parallel", "model_mesh",
+               "decode_lm_mesh")
 # phases ``--tree`` runs only when named: phases 14-19 on their own,
 # phase 16's leg e again and again (``kv_race``: its spread), phase 5's
 # bf16 serve leg (a tree's serve tokens/s against another's) and phase
@@ -6125,6 +6617,7 @@ def tree_main(tree: str, phases: list[str]) -> int:
            "longctx": lambda: phase_longctx(torch, pk, F, timing, spec),
            "parallel": lambda: phase_parallel(torch),
            "model_mesh": lambda: phase_model_mesh(torch, F),
+           "decode_lm_mesh": lambda: phase_decode_lm_mesh(torch, pk, F),
            "flash_f32_time": lambda: phase_flash_f32_time(
                torch, F, timing, spec, libs),
            "serve": lambda: serve_leg(torch, eng_mod, "bf16",
@@ -6387,6 +6880,7 @@ def main() -> int:
                                                      spec)
     phase_parallel(torch)
     mesh_launches = phase_model_mesh(torch, F)
+    dlm_mesh_launches = phase_decode_lm_mesh(torch, pk, F)
 
     rows = {**ftime, **ptime, "paged_attention": {
         "ms": ktime["kernel"]["ms"], "bound_ms": ktime["bound_ms"],
@@ -6436,6 +6930,7 @@ def main() -> int:
         "verify_launches": spec_leg["kernel_launches"],
         "loadgen_launches": loadgen_launches,
         "decode_lm_launches": decode_lm_launches["paged_attention"],
+        "decode_lm_mesh_launches": dlm_mesh_launches["paged_attention"],
         "kv_tier_launches": kv_tier_launches,
         "recovery_launches": recovery_launches,
         "diagnostics_launches": diagnostics_launches["paged_attention"],
@@ -6450,6 +6945,7 @@ def main() -> int:
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "train_loop_launches": train_launches[kname],
             "decode_lm_launches": decode_lm_launches[kname],
+            "decode_lm_mesh_launches": dlm_mesh_launches[kname],
             "diagnostics_launches": diagnostics_launches[kname],
             "longctx_launches": {leg: got[kname] for leg, got
                                  in longctx_launches.items()},

@@ -29,6 +29,12 @@ from tpu_patterns_torch import cli as tcli
 from tpu_patterns_torch import faults as tf
 from tpu_patterns_torch.convert import tensor_from_numpy
 
+# one intra-op thread: torch's OpenMP pool spins while it waits, and
+# test workers of eight threads each on a loaded host run these cases
+# tens of times slower (every worker imports every test module, so this
+# holds for the whole run)
+torch.set_num_threads(1)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

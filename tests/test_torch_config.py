@@ -17,6 +17,14 @@ from tpu_patterns.core import config as jconfig
 from tpu_patterns_torch import cli as tcli
 from tpu_patterns_torch.core import config as tconfig
 
+import torch
+
+# one intra-op thread: torch's OpenMP pool spins while it waits, and
+# test workers of eight threads each on a loaded host run these cases
+# tens of times slower (every worker imports every test module, so this
+# holds for the whole run)
+torch.set_num_threads(1)
+
 
 class Color(enum.Enum):
     RED = "red"

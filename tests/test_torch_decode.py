@@ -30,6 +30,12 @@ from tpu_patterns_torch.core.results import ResultWriter
 from tpu_patterns_torch.models import decode as tdec
 from tpu_patterns_torch.models import transformer as ttr
 
+# one intra-op thread: torch's OpenMP pool spins while it waits, and
+# test workers of eight threads each on a loaded host run these cases
+# tens of times slower (every worker imports every test module, so this
+# holds for the whole run)
+torch.set_num_threads(1)
+
 EPS64 = 64 * np.finfo(np.float32).eps
 B, LP, GEN = 3, 16, 4
 LENS = np.array([LP, 11, 5], np.int32)
@@ -265,24 +271,27 @@ def _flags(parser, cmd):
 
 @pytest.mark.parametrize("cmd", ["decode", "lm"])
 def test_cli_flags_are_the_references_minus_the_mesh(cmd):
+    """The reference's flags, the mesh's included, plus ``--device``."""
     ref = _flags(jcli.build_parser(), cmd)
     port = _flags(tcli.build_parser(), cmd)
-    mesh_flags = set(tcli._MESH_FLAGS)
-    assert mesh_flags <= ref
-    # the mesh flags stay as refusing actions, so compare the working ones
-    assert port - mesh_flags == (ref - mesh_flags) | {"device"}
-    for name in mesh_flags:
-        with pytest.raises(SystemExit):
-            tcli.build_parser().parse_args([cmd, f"--{name}", "2"])
+    assert set(tcli._MESH_FLAGS) <= ref
+    assert port == ref | {"device"}
+    args = tcli.build_parser().parse_args(
+        [cmd, "--devices", "8", "--dp", "2", "--tp", "2"])
+    assert (args.devices, args.dp, args.tp) == (8, 2, 2)
     assert tcli.build_parser().parse_args([cmd]).device == "cuda"
 
 
 @pytest.mark.parametrize("cmd", ["decode", "lm"])
 def test_cli_refuses_unported_options(cmd, capsys):
-    for argv in (["--moe", "true"], ["--layout", "striped"]):
-        with pytest.raises(SystemExit):
-            tcli.main([cmd, "--device", "cpu", *argv])
-        assert "ROADMAP.md" in capsys.readouterr().err
+    """A mesh that dp*tp does not divide is refused, as the reference's
+    ``_mesh3d_from_args`` refuses it; ``loadgen`` still refuses the mesh
+    flags, naming the step that ports them."""
+    with pytest.raises(SystemExit, match="not divisible by dp\\*tp = 4"):
+        tcli.main([cmd, "--device", "cpu", "--devices", "6", "--dp", "4"])
+    with pytest.raises(SystemExit):
+        tcli.main(["loadgen", "--device", "cpu", "--devices", "2"])
+    assert "ROADMAP.md Queue 1 step 8d" in capsys.readouterr().err
 
 
 def test_cli_decode_runs_on_the_cpu(capsys):

@@ -17,6 +17,14 @@ from tpu_patterns_torch import cli
 from tpu_patterns_torch.core import doctor
 from tpu_patterns_torch.core import results
 
+import torch
+
+# one intra-op thread: torch's OpenMP pool spins while it waits, and
+# test workers of eight threads each on a loaded host run these cases
+# tens of times slower (every worker imports every test module, so this
+# holds for the whole run)
+torch.set_num_threads(1)
+
 # what each probe layer's child prints, by scenario (the stub's answers)
 HEALTHY = {
     "backend_init": {"ok": True, "platform": "gpu",

@@ -20,6 +20,14 @@ import pytest
 from tpu_patterns import faults as jf
 from tpu_patterns_torch import faults as tf
 
+import torch
+
+# one intra-op thread: torch's OpenMP pool spins while it waits, and
+# test workers of eight threads each on a loaded host run these cases
+# tens of times slower (every worker imports every test module, so this
+# holds for the whole run)
+torch.set_num_threads(1)
+
 PORT_SITES = {"train.step", "ckpt.save", "ckpt.restore", "loadgen.arrive",
               "obs.cost_book", "obs.scrape", "serve.evict", "serve.onload",
               "serve.preempt", "serve.shed", "serve.prefill", "serve.step",

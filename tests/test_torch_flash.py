@@ -21,6 +21,12 @@ from tpu_patterns_torch.longctx import attention as tatt
 from tpu_patterns_torch.longctx import flash as tflash
 from tpu_patterns_torch.longctx import tuning
 
+# one intra-op thread: torch's OpenMP pool spins while it waits, and
+# test workers of eight threads each on a loaded host run these cases
+# tens of times slower (every worker imports every test module, so this
+# holds for the whole run)
+torch.set_num_threads(1)
+
 L, H, D = 64, 8, 16
 FWD_ATOL, GRAD_ATOL = 2e-5, 1e-4
 

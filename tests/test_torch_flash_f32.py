@@ -14,6 +14,12 @@ from tpu_patterns.longctx import flash as jflash
 from tpu_patterns_torch.longctx import flash as tflash
 from tpu_patterns_torch.longctx import tuning
 
+# one intra-op thread: torch's OpenMP pool spins while it waits, and
+# test workers of eight threads each on a loaded host run these cases
+# tens of times slower (every worker imports every test module, so this
+# holds for the whole run)
+torch.set_num_threads(1)
+
 SM_SMEM = 233472  # an H100 SM's shared memory; each block reserves 1 KB
 # the kernel's tiles: q-units of 32 or 64 rows, k-tiles of head_dim keys
 TILES = [(32, 64), (32, 128), (64, 64), (64, 128)]

@@ -15,6 +15,12 @@ from tpu_patterns.longctx import flash as jflash
 from tpu_patterns_torch.longctx import flash as tflash
 from tpu_patterns_torch.longctx import tuning
 
+# one intra-op thread: torch's OpenMP pool spins while it waits, and
+# test workers of eight threads each on a loaded host run these cases
+# tens of times slower (every worker imports every test module, so this
+# holds for the whole run)
+torch.set_num_threads(1)
+
 SM_SMEM = 233472  # an H100 SM's shared memory; each block reserves 1 KB
 
 # the card's f32 backward callers and the units each kernel owns: flash

@@ -9,6 +9,14 @@ import pytest
 from tpu_patterns.longctx import flash as jflash
 from tpu_patterns_torch.longctx import flash as tflash
 
+import torch
+
+# one intra-op thread: torch's OpenMP pool spins while it waits, and
+# test workers of eight threads each on a loaded host run these cases
+# tens of times slower (every worker imports every test module, so this
+# holds for the whole run)
+torch.set_num_threads(1)
+
 
 def _rows(schedule):
     """(block, tile, is_first, is_last) rows of a schedule, blocks in

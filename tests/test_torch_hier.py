@@ -28,6 +28,12 @@ from tpu_patterns_torch.comm import mesh as tmesh
 from tpu_patterns_torch.core.results import ResultWriter as TWriter
 from tpu_patterns_torch.core.results import Verdict
 
+# one intra-op thread: torch's OpenMP pool spins while it waits, and
+# test workers of eight threads each on a loaded host run these cases
+# tens of times slower (every worker imports every test module, so this
+# holds for the whole run)
+torch.set_num_threads(1)
+
 N = 48  # elements a rank: divisible by every ici below
 
 

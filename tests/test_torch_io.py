@@ -18,6 +18,14 @@ from tpu_patterns.io import loader as jl
 from tpu_patterns_torch.interop.native import CXX_FLAGS, LazyLib
 from tpu_patterns_torch.io import loader as tl
 
+import torch
+
+# one intra-op thread: torch's OpenMP pool spins while it waits, and
+# test workers of eight threads each on a loaded host run these cases
+# tens of times slower (every worker imports every test module, so this
+# holds for the whole run)
+torch.set_num_threads(1)
+
 SHAPE = (2, 32, 32)
 ELEMS = int(np.prod(SHAPE))
 

@@ -28,6 +28,12 @@ from tpu_patterns_torch.convert import tensor_from_numpy
 from tpu_patterns_torch.serve.kvtier import SESSION_FORMAT, HostTier
 from tpu_patterns_torch.serve.prefix import PrefixIndex
 
+# one intra-op thread: torch's OpenMP pool spins while it waits, and
+# test workers of eight threads each on a loaded host run these cases
+# tens of times slower (every worker imports every test module, so this
+# holds for the whole run)
+torch.set_num_threads(1)
+
 BL = 2  # block_len: small, so random prompts share blocks often
 
 

@@ -29,6 +29,14 @@ from tpu_patterns_torch.obs import metrics as tmetrics
 from test_torch_recovery import PKGS, _policy, _trace
 from test_torch_tier_engine import _port, _ref
 
+import torch
+
+# one intra-op thread: torch's OpenMP pool spins while it waits, and
+# test workers of eight threads each on a loaded host run these cases
+# tens of times slower (every worker imports every test module, so this
+# holds for the whole run)
+torch.set_num_threads(1)
+
 ENDPOINTS = ("/healthz", "/metrics", "/statusz", "/costz")
 LIVE = {"ref": jlive, "port": tlive}
 

@@ -29,6 +29,12 @@ from tpu_patterns_torch.models import lm as tlm
 from tpu_patterns_torch.models import prng
 from tpu_patterns_torch.models import transformer as ttr
 
+# one intra-op thread: torch's OpenMP pool spins while it waits, and
+# test workers of eight threads each on a loaded host run these cases
+# tens of times slower (every worker imports every test module, so this
+# holds for the whole run)
+torch.set_num_threads(1)
+
 REL = 1e-5
 VOCAB, B, LP, GEN = 64, 3, 12, 6
 

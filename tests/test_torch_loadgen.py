@@ -47,6 +47,14 @@ from tpu_patterns_torch.serve.engine import Request, ServeEngine
 from tpu_patterns_torch.serve.engine import _oracle_expected
 from tpu_patterns_torch.serve.paged import make_paged_lm_decoder
 
+import torch
+
+# one intra-op thread: torch's OpenMP pool spins while it waits, and
+# test workers of eight threads each on a loaded host run these cases
+# tens of times slower (every worker imports every test module, so this
+# holds for the whole run)
+torch.set_num_threads(1)
+
 PRESETS = sorted(jl.PRESETS)
 REQ_FIELDS = ("rid", "tokens", "n_gen", "scenario", "deadline_ms",
               "priority", "temperature", "top_k", "top_p", "seed",

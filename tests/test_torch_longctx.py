@@ -40,6 +40,12 @@ from tpu_patterns_torch.longctx import flash as tflash
 from tpu_patterns_torch.longctx import pattern as tpat
 from tpu_patterns_torch.longctx import ulysses as tuly
 
+# one intra-op thread: torch's OpenMP pool spins while it waits, and
+# test workers of eight threads each on a loaded host run these cases
+# tens of times slower (every worker imports every test module, so this
+# holds for the whole run)
+torch.set_num_threads(1)
+
 # the packages export ``ring_attention`` the function under the
 # module's name
 tring = importlib.import_module("tpu_patterns_torch.longctx.ring_attention")

@@ -27,6 +27,14 @@ from tpu_patterns_torch.miniapps import framework
 from tpu_patterns_torch.miniapps.apps import allreduce as core
 from tpu_patterns_torch.miniapps.apps.allreduce import pallas as tpallas
 
+import torch
+
+# one intra-op thread: torch's OpenMP pool spins while it waits, and
+# test workers of eight threads each on a loaded host run these cases
+# tens of times slower (every worker imports every test module, so this
+# holds for the whole run)
+torch.set_num_threads(1)
+
 N = 512  # small per-rank buffer for CPU runs
 FAST = dict(elements=N, reps=2, warmup=1)
 

@@ -34,6 +34,12 @@ from tpu_patterns_torch.convert import block_params_from_jax, params_to_numpy
 from tpu_patterns_torch.models import flagship as tfl
 from tpu_patterns_torch.models import transformer as ttr
 
+# one intra-op thread: torch's OpenMP pool spins while it waits, and
+# test workers of eight threads each on a loaded host run these cases
+# tens of times slower (every worker imports every test module, so this
+# holds for the whole run)
+torch.set_num_threads(1)
+
 E, H, D, B, L = 64, 8, 8, 4, 32
 N_GLOBAL = float(B * L * E)
 LR = 1.0
@@ -357,11 +363,23 @@ def test_cli_flagship_on_a_mesh(capsys):
 
 @pytest.mark.parametrize("cmd", ["decode", "lm", "loadgen"])
 def test_other_model_commands_refuse_the_mesh_flags(cmd, capsys):
-    for flag in tcli._MESH_FLAGS:
-        with pytest.raises(SystemExit):
-            tcli.build_parser().parse_args([cmd, f"--{flag}", "2"])
-        assert "step 8c (decode and lm across ranks)" in (
-            capsys.readouterr().err)
+    """``loadgen`` (and ``serve``) refuse the mesh flags, naming step 8d;
+    ``decode`` and ``lm`` take them and refuse only a mesh that dp*tp
+    does not divide."""
+    if cmd == "loadgen":
+        for sub in ("loadgen", "serve"):
+            for flag in tcli._MESH_FLAGS:
+                with pytest.raises(SystemExit):
+                    tcli.build_parser().parse_args([sub, f"--{flag}", "2"])
+                err = capsys.readouterr().err
+                assert "ROADMAP.md Queue 1 step 8d" in err
+                assert "8c" not in err
+        return
+    args = tcli.build_parser().parse_args(
+        [cmd, "--device", "cpu", "--devices", "8", "--dp", "2", "--tp", "2"])
+    assert tcli._mesh3d(args).shape == (2, 2, 2)
+    with pytest.raises(SystemExit, match="not divisible"):
+        tcli.main([cmd, "--device", "cpu", "--devices", "6", "--dp", "4"])
 
 
 def test_single_mesh_is_cached_per_device():

@@ -20,6 +20,12 @@ from tpu_patterns_torch.models import decode as tdec
 from tpu_patterns_torch.models import lm as tlm
 from tpu_patterns_torch.models import transformer as ttr
 
+# one intra-op thread: torch's OpenMP pool spins while it waits, and
+# test workers of eight threads each on a loaded host run these cases
+# tens of times slower (every worker imports every test module, so this
+# holds for the whole run)
+torch.set_num_threads(1)
+
 RTOL, ATOL = 2e-5, 2e-6
 
 

@@ -24,6 +24,14 @@ from tpu_patterns_torch.obs import cost as tcost
 from tpu_patterns_torch.obs import metrics as tmetrics
 from tpu_patterns_torch.obs import slo as tslo
 
+import torch
+
+# one intra-op thread: torch's OpenMP pool spins while it waits, and
+# test workers of eight threads each on a loaded host run these cases
+# tens of times slower (every worker imports every test module, so this
+# holds for the whole run)
+torch.set_num_threads(1)
+
 
 class _Clock:
     def __init__(self, t: int = 10_000):

@@ -20,6 +20,12 @@ from tpu_patterns_torch.convert import pool_from_numpy
 from tpu_patterns_torch.serve import paged as tpaged
 from tpu_patterns_torch.serve import paged_kernel as tpk
 
+# one intra-op thread: torch's OpenMP pool spins while it waits, and
+# test workers of eight threads each on a loaded host run these cases
+# tens of times slower (every worker imports every test module, so this
+# holds for the whole run)
+torch.set_num_threads(1)
+
 RTOL, ATOL = 2e-5, 2e-6
 B, BL, N_BLOCKS, N_PAGES, D = 3, 8, 10, 3, 8
 

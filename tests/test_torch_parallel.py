@@ -42,6 +42,12 @@ from tpu_patterns_torch.parallel import moe as tmoe
 from tpu_patterns_torch.parallel import overlap as tov
 from tpu_patterns_torch.parallel import pipeline as tpipe
 
+# one intra-op thread: torch's OpenMP pool spins while it waits, and
+# test workers of eight threads each on a loaded host run these cases
+# tens of times slower (every worker imports every test module, so this
+# holds for the whole run)
+torch.set_num_threads(1)
+
 ATOL = 1e-5
 RTOL_OF_MAX = 1e-5
 

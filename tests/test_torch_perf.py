@@ -31,6 +31,14 @@ from tpu_patterns_torch.perf import history as perf_history
 from tpu_patterns_torch.perf import registry
 from tpu_patterns_torch.perf import report as perf_report
 
+import torch
+
+# one intra-op thread: torch's OpenMP pool spins while it waits, and
+# test workers of eight threads each on a loaded host run these cases
+# tens of times slower (every worker imports every test module, so this
+# holds for the whole run)
+torch.set_num_threads(1)
+
 # -- analytic --------------------------------------------------------------
 
 GRID = [

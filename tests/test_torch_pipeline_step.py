@@ -30,6 +30,12 @@ from tpu_patterns_torch.models import transformer as ttr
 
 from test_torch_model_mesh import D, E, H, batch, jmesh, port_cfg
 
+# one intra-op thread: torch's OpenMP pool spins while it waits, and
+# test workers of eight threads each on a loaded host run these cases
+# tens of times slower (every worker imports every test module, so this
+# holds for the whole run)
+torch.set_num_threads(1)
+
 SHAPE = (1, 2, 2, 2)
 AXES4 = ("dp", "sp", "tp", "pp")
 N_MICRO = 2

@@ -20,6 +20,12 @@ import torch
 
 from tpu_patterns_torch.models import prng
 
+# one intra-op thread: torch's OpenMP pool spins while it waits, and
+# test workers of eight threads each on a loaded host run these cases
+# tens of times slower (every worker imports every test module, so this
+# holds for the whole run)
+torch.set_num_threads(1)
+
 WIDTHS = [1, 2, 3, 4, 5, 8, 16, 31, 32, 33, 63, 64]
 
 

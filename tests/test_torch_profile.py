@@ -17,6 +17,12 @@ from tpu_patterns.core import profile as ref
 from tpu_patterns_torch import cli
 from tpu_patterns_torch.core import profile as prof
 
+# one intra-op thread: torch's OpenMP pool spins while it waits, and
+# test workers of eight threads each on a loaded host run these cases
+# tens of times slower (every worker imports every test module, so this
+# holds for the whole run)
+torch.set_num_threads(1)
+
 FIXDIR = os.path.join(os.path.dirname(__file__), "fixtures")
 
 

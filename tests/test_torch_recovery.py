@@ -51,6 +51,14 @@ from test_torch_tier_engine import (
     _ref,
 )
 
+import torch
+
+# one intra-op thread: torch's OpenMP pool spins while it waits, and
+# test workers of eight threads each on a loaded host run these cases
+# tens of times slower (every worker imports every test module, so this
+# holds for the whole run)
+torch.set_num_threads(1)
+
 SITES = ("serve.prefill", "serve.step", "serve.verify")
 PKGS = {"ref": (JServeEngine, JRequest, jfaults, jobs, jrt),
         "port": (ServeEngine, Request, tfaults, tobs, trt)}

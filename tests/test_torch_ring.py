@@ -29,6 +29,12 @@ from tpu_patterns_torch.comm import ring as tring
 from tpu_patterns_torch.core.results import Verdict
 from tpu_patterns_torch.miniapps.apps.allreduce import pallas as tpallas
 
+# one intra-op thread: torch's OpenMP pool spins while it waits, and
+# test workers of eight threads each on a loaded host run these cases
+# tens of times slower (every worker imports every test module, so this
+# holds for the whole run)
+torch.set_num_threads(1)
+
 N = 320  # per-rank elements: divisible by 4 and 8, not by 128
 
 
@@ -104,14 +110,30 @@ def test_accumulate_tile_plan_covers_every_element_once(n, offset):
     vector = (offset * 4) % 16 == 0
     grid = tpallas.tile_grid(n, vector)
     assert grid >= 1 and (grid - 1) * tpallas.TILE < max(n, 1)
+    block, i = tpallas.tile_plan(n, vector)
+    assert i.min() >= 0 and i.max() < n
+    # every block writes something, and nothing but blocks of the grid
+    assert (np.bincount(block, minlength=grid) > 0).all()
+    assert block.min() >= 0 and block.max() < grid
     seen = np.zeros(n, dtype=np.uint8)
-    count = 0
-    for block in range(grid):
-        i = tpallas.tile_elements(n, vector, block).numpy()
-        assert i.size and i.min() >= 0 and i.max() < n
-        seen[i] = 1
-        count += i.size
-    assert count == n and seen.all()
+    seen[i] = 1
+    assert i.size == n and seen.all()
+
+
+@pytest.mark.parametrize("vector", [True, False],
+                         ids=["aligned", "misaligned"])
+@pytest.mark.parametrize("n", [1, 3, 4, 5, 4097, 3 * 4096 + 7])
+def test_tile_plan_is_the_per_block_tiles(n, vector):
+    """``tile_plan`` (every block at once) is ``tile_elements`` block by
+    block, in K5's and K10's tiles."""
+    from tpu_patterns_torch.interop import kernel as k10
+
+    for mod in (tpallas, k10):
+        block, i = mod.tile_plan(n, vector)
+        for b in range(mod.tile_grid(n, vector)):
+            np.testing.assert_array_equal(
+                np.sort(i[block == b]),
+                np.sort(mod.tile_elements(n, vector, b).numpy()))
 
 
 # -- the ring ----------------------------------------------------------------

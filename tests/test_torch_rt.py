@@ -25,6 +25,14 @@ from tpu_patterns_torch import obs as tobs
 from tpu_patterns_torch import rt as trt
 from tpu_patterns_torch.core.timing import clock_ns as t_clock_ns
 
+import torch
+
+# one intra-op thread: torch's OpenMP pool spins while it waits, and
+# test workers of eight threads each on a loaded host run these cases
+# tens of times slower (every worker imports every test module, so this
+# holds for the whole run)
+torch.set_num_threads(1)
+
 PKGS = ((jrt, jobs, j_clock_ns), (trt, tobs, t_clock_ns))
 COOLED = int(7200 * 1e9)  # a backdate past any cool-down below
 

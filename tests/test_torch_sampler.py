@@ -33,6 +33,12 @@ from tpu_patterns_torch.models.lm import (
 )
 from tpu_patterns_torch.models.transformer import ModelConfig
 
+# one intra-op thread: torch's OpenMP pool spins while it waits, and
+# test workers of eight threads each on a loaded host run these cases
+# tens of times slower (every worker imports every test module, so this
+# holds for the whole run)
+torch.set_num_threads(1)
+
 ROWS = 48
 
 

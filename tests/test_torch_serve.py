@@ -35,6 +35,14 @@ from tpu_patterns_torch.serve.engine import (
 )
 from tpu_patterns_torch.serve.paged import make_paged_lm_decoder
 
+import torch
+
+# one intra-op thread: torch's OpenMP pool spins while it waits, and
+# test workers of eight threads each on a loaded host run these cases
+# tens of times slower (every worker imports every test module, so this
+# holds for the whole run)
+torch.set_num_threads(1)
+
 VOCAB = 64
 MODEL = dict(embed=64, heads=8, head_dim=8, dtype="float32", depth=2,
              rope=True)

@@ -40,6 +40,14 @@ from tpu_patterns_torch.obs.table import markdown_table
 from test_torch_recovery import PKGS, _policy, _shared
 from test_torch_tier_engine import _conv_reqs, _port, _ref
 
+import torch
+
+# one intra-op thread: torch's OpenMP pool spins while it waits, and
+# test workers of eight threads each on a loaded host run these cases
+# tens of times slower (every worker imports every test module, so this
+# holds for the whole run)
+torch.set_num_threads(1)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

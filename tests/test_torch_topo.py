@@ -32,6 +32,12 @@ from tpu_patterns_torch.topo import native as tnative
 from tpu_patterns_torch.topo import placement as tplace
 from tpu_patterns_torch.topo import topology as ttopo
 
+# one intra-op thread: torch's OpenMP pool spins while it waits, and
+# test workers of eight threads each on a loaded host run these cases
+# tens of times slower (every worker imports every test module, so this
+# holds for the whole run)
+torch.set_num_threads(1)
+
 ROOT = Path(__file__).resolve().parents[1]
 # the modules, not the functions of the same name that ``topo`` exports
 jboot = importlib.import_module("tpu_patterns.topo.bootstrap")

@@ -30,6 +30,12 @@ from tpu_patterns_torch.convert import block_params_from_jax, params_to_numpy
 from tpu_patterns_torch.models import flagship as tfl
 from tpu_patterns_torch.models import transformer as ttr
 
+# one intra-op thread: torch's OpenMP pool spins while it waits, and
+# test workers of eight threads each on a loaded host run these cases
+# tens of times slower (every worker imports every test module, so this
+# holds for the whole run)
+torch.set_num_threads(1)
+
 B, L, E = 2, 32, 32
 LR = 1e-2
 BASE = dict(embed=E, heads=4, head_dim=16, mlp_mult=2, dtype="float32")

@@ -34,6 +34,12 @@ from tpu_patterns_torch.models import train_loop as ttl
 from test_torch_io import reference_loader  # noqa: F401 - autouse fixture
 from test_torch_model_mesh import jmesh
 
+# one intra-op thread: torch's OpenMP pool spins while it waits, and
+# test workers of eight threads each on a loaded host run these cases
+# tens of times slower (every worker imports every test module, so this
+# holds for the whole run)
+torch.set_num_threads(1)
+
 BASE = dict(embed=64, heads=8, head_dim=8, seq=32, batch=4, dtype="float32",
             lr=1e-2)
 

@@ -20,6 +20,12 @@ from tpu_patterns.parallel import zero as jzero
 from tpu_patterns_torch.parallel import optim as topt
 from tpu_patterns_torch.parallel import zero as tzero
 
+# one intra-op thread: torch's OpenMP pool spins while it waits, and
+# test workers of eight threads each on a loaded host run these cases
+# tens of times slower (every worker imports every test module, so this
+# holds for the whole run)
+torch.set_num_threads(1)
+
 DP = 8
 LR = 0.05
 RTOL, ATOL = 2e-6, 1e-7

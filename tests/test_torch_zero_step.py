@@ -41,6 +41,12 @@ from test_torch_model_mesh import (
     shard_batch,
 )
 
+# one intra-op thread: torch's OpenMP pool spins while it waits, and
+# test workers of eight threads each on a loaded host run these cases
+# tens of times slower (every worker imports every test module, so this
+# holds for the whole run)
+torch.set_num_threads(1)
+
 SHAPE = (2, 2, 2)
 RUNS = {  # name -> (optimizer, lr, steps, extra config)
     "sgd": ("sgd", 1.0, 1, {}),

@@ -145,15 +145,14 @@ import sys
 from tpu_patterns_torch.core.config import _coerce, add_config_args
 from tpu_patterns_torch.core.results import ResultWriter
 
-# the model commands' mesh flags: `flagship` and `train` take them;
-# `decode`, `lm` and `loadgen` refuse them, naming the step that ports
-# them
+# the model commands' mesh flags: `flagship`, `train`, `decode` and
+# `lm` take them; `loadgen` and `serve` refuse them, naming the step
+# that ports them
 _MESH_FLAGS = ("devices", "dp", "tp")
 _MESH_NOT_PORTED = (
-    "ROADMAP.md Queue 1 step 8c (decode and lm across ranks) and step 8d "
-    "(the nccl bootstrap and sharded serve)")
+    "ROADMAP.md Queue 1 step 8d (the nccl bootstrap and sharded serve)")
 _NOT_PORTED = (
-    "devices", "dp", "tp", "prefix_store", "replicas", "replica_policy", "route_blocks", "min_replica_speedup",
+    "prefix_store", "replicas", "replica_policy", "route_blocks", "min_replica_speedup",
     "replica_watchdog_s", "replica_dir", "elastic_reserve",
     "scale_out_occupancy", "scale_in_occupancy", "scale_sustain_s",
     "scale_cooldown_s", "min_live_replicas", "disagg",
@@ -228,7 +227,7 @@ def _add_model_mesh_flags(p: argparse.ArgumentParser) -> None:
 
 
 def _mesh3d(args):
-    """The dp x sp x tp mesh of ``flagship`` and ``train``: ``--dp`` and
+    """The dp x sp x tp mesh of the model commands: ``--dp`` and
     ``--tp`` fixed, the rest of ``--devices`` ranks on sp (0 = one rank a
     card); ranks that dp*tp does not divide are an error."""
     from tpu_patterns_torch.comm.mesh import model_mesh
@@ -304,6 +303,9 @@ def build_parser() -> argparse.ArgumentParser:
         "with the fused paged-attention kernel",
     )
     _add_config_flags(sv, ServeConfig, _NOT_PORTED)
+    for name in _MESH_FLAGS:
+        sv.add_argument("--" + name, nargs="?", action=_MeshNotPorted,
+                        help=argparse.SUPPRESS)
     lg = sub.add_parser(
         "loadgen",
         help="trace-driven load generator over the serve engine: seeded "
@@ -333,14 +335,16 @@ def build_parser() -> argparse.ArgumentParser:
         "long-context inference pattern): prefill, then timed "
         "self-feeding generation, gated by teacher forcing",
     )
-    _add_config_flags(dc, DecodeConfig, _MESH_FLAGS, refuse=_MeshNotPorted)
+    _add_config_flags(dc, DecodeConfig, ())
+    _add_model_mesh_flags(dc)
     lmp = sub.add_parser(
         "lm",
         help="token-level LM: embedding, cross-entropy and argmax; train "
         "then generate (greedy or Gumbel-max sampled), one measured "
         "pattern",
     )
-    _add_config_flags(lmp, LMConfig, _MESH_FLAGS, refuse=_MeshNotPorted)
+    _add_config_flags(lmp, LMConfig, ())
+    _add_model_mesh_flags(lmp)
     ck = sub.add_parser(
         "ckpt",
         help="inspect a checkpoint directory: committed steps, sizes, "
@@ -1038,21 +1042,15 @@ def _train(args, writer: ResultWriter) -> None:
     train(_config(TrainLoopConfig, args), writer, mesh=_mesh3d(args))
 
 
-def _model_pattern(args, parser, writer: ResultWriter) -> None:
-    """``decode`` or ``lm``: refuse what the port does not do (the
-    mixture FFN, the striped layout) before anything is built."""
+def _model_pattern(args, writer: ResultWriter) -> None:
+    """``decode`` or ``lm`` over the ``--devices/--dp/--tp`` mesh."""
     from tpu_patterns_torch.models import decode, lm
 
-    mod, cls, run = {
-        "decode": (decode, decode.DecodeConfig, decode.run_decode),
-        "lm": (lm, lm.LMConfig, lm.run_lm),
+    cls, run = {
+        "decode": (decode.DecodeConfig, decode.run_decode),
+        "lm": (lm.LMConfig, lm.run_lm),
     }[args.cmd]
-    cfg = _config(cls, args)
-    try:
-        mod.model_config(cfg)
-    except NotImplementedError as e:
-        parser.error(f"{args.cmd}: {e}")
-    run(cfg, writer)
+    run(_config(cls, args), writer, mesh=_mesh3d(args))
 
 
 def _ckpt(args) -> None:
@@ -1408,7 +1406,7 @@ def _dispatch(args, parser, writer: ResultWriter) -> None:
     elif args.cmd == "ckpt":
         _ckpt(args)
     elif args.cmd in ("decode", "lm"):
-        _model_pattern(args, parser, writer)
+        _model_pattern(args, writer)
     elif args.cmd == "perf":
         _perf(args, writer)
     elif args.cmd == "doctor":

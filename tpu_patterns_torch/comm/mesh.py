@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -173,8 +174,7 @@ class NamedMesh:
 
     def coord(self, r: int) -> dict[str, int]:
         """Rank r's coordinate, axis by axis."""
-        return dict(zip(self.axes,
-                        (int(i) for i in np.unravel_index(r, self.shape))))
+        return dict(zip(self.axes, _coord(self.shape, r)))
 
     def rank(self, **coord: int) -> int:
         """The rank at ``coord`` (every axis named)."""
@@ -195,13 +195,8 @@ class NamedMesh:
     def groups(self, axes: str | tuple[str, ...]) -> list[list[int]]:
         """Every group along ``axes`` (:meth:`group`), each once, in the
         order of their first ranks; together they cover the mesh."""
-        seen, out = set(), []
-        for r in range(self.size):
-            if r not in seen:
-                g = self.group(axes, r)
-                seen.update(g)
-                out.append(g)
-        return out
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        return [list(g) for g in _groups(self.axes, self.shape, axes)]
 
     def sub(self, axis: str, index: int) -> tuple["NamedMesh", list[int]]:
         """The mesh of the ranks at coordinate ``index`` of ``axis``, over
@@ -273,6 +268,25 @@ class NamedMesh:
 
     def describe(self) -> str:
         return " ".join(f"{a}{n}" for a, n in zip(self.axes, self.shape))
+
+
+@functools.lru_cache(maxsize=None)
+def _coord(shape: tuple[int, ...], r: int) -> tuple[int, ...]:
+    return tuple(int(i) for i in np.unravel_index(r, shape))
+
+
+@functools.lru_cache(maxsize=None)
+def _groups(names: tuple[str, ...], shape: tuple[int, ...],
+            axes: tuple[str, ...]) -> tuple[tuple[int, ...], ...]:
+    """:meth:`NamedMesh.groups` of a mesh's axis names and shape (the
+    decode and train steps ask for the same groups every layer)."""
+    grid = np.arange(int(np.prod(shape))).reshape(shape)
+    over = sorted(names.index(a) for a in set(axes) if a in names)
+    moved = np.moveaxis(grid, over, range(len(names) - len(over),
+                                          len(names)))
+    rows = moved.reshape(-1, int(np.prod([shape[i] for i in over])))
+    return tuple(sorted((tuple(int(i) for i in g) for g in rows),
+                        key=lambda g: g[0]))
 
 
 def model_mesh(n: int, dp: int = 1, tp: int = 1, pp: int = 0,

@@ -59,9 +59,11 @@ def params_from_jax(
     flat: dict[str, np.ndarray], cfg: ModelConfig, device="cpu"
 ) -> dict[str, torch.Tensor]:
     """The reference's LM params (block leaves stacked only when depth
-    > 1, ``wemb [V, E]``) as this package's params: every block leaf
-    [depth, ...], ``wemb`` unchanged, all in ``cfg.dtype``."""
-    shapes = param_shapes(cfg)
+    > 1, ``wemb [V, E]``; a ``moe`` model's expert count is its gate's
+    width) as this package's params: every block leaf [depth, ...],
+    ``wemb`` unchanged, all in ``cfg.dtype``."""
+    n_exp = np.shape(flat["wg"])[-1] if cfg.moe and "wg" in flat else 0
+    shapes = param_shapes(cfg, n_exp)
     _check_keys(flat, set(shapes) | {"wemb"})
     return {
         k: (tensor_from_numpy(a, device).to(cfg.torch_dtype) if k == "wemb"

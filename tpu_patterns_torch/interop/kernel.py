@@ -54,6 +54,12 @@ def tile_elements(n: int, vector: bool, block: int) -> torch.Tensor:
     return tile.tile_elements(n, vector, block, THREADS, VECS)
 
 
+def tile_plan(n: int, vector: bool):
+    """(block, element) of every element K10's launch over ``n`` elements
+    writes, for the whole grid at once (:func:`kernels.tile.tile_plan`)."""
+    return tile.tile_plan(n, vector, THREADS, VECS)
+
+
 def add_one_reference(x: torch.Tensor) -> torch.Tensor:
     """Plain K10: ``x + 1.0`` (IEEE single add, round to nearest)."""
     return x + 1.0

@@ -47,6 +47,12 @@ def tile_elements(n: int, vector: bool, block: int) -> torch.Tensor:
     return tile.tile_elements(n, vector, block, THREADS, VECS)
 
 
+def tile_plan(n: int, vector: bool):
+    """(block, element) of every element K5's launch over ``n`` elements
+    writes, for the whole grid at once (:func:`kernels.tile.tile_plan`)."""
+    return tile.tile_plan(n, vector, THREADS, VECS)
+
+
 def _library() -> ctypes.CDLL:
     """The built K5 library with its C signature declared."""
     from tpu_patterns_torch.kernels.build import load

@@ -531,6 +531,28 @@ def sum_over(groups: list, xs: list) -> list:
     return out
 
 
+def _reduce_over(groups: list, xs: list, reduce) -> list:
+    out = list(xs)
+    for g in groups:
+        if len(g) > 1:
+            home = xs[g[0]].device
+            total = reduce(torch.stack([xs[r].to(home) for r in g]))
+            for r in g:
+                out[r] = torch.empty_like(xs[r]).copy_(total)
+    return out
+
+
+def max_over(groups: list, xs: list) -> list:
+    """Each group's elementwise max (the reference's ``pmax``), every
+    rank of the group a copy; a group of one keeps its tensor."""
+    return _reduce_over(groups, xs, lambda t: t.amax(0))
+
+
+def min_over(groups: list, xs: list) -> list:
+    """Each group's elementwise min (``pmin``), as :func:`max_over`."""
+    return _reduce_over(groups, xs, lambda t: t.amin(0))
+
+
 def unused_ok(mesh: NamedMesh, specs: dict) -> frozenset:
     """The (leaf, rank) pairs allowed to reach the objective by no path:
     at tp > 1 a tp-replicated leaf (the gate) off tp rank 0, whose rank's
