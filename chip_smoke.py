@@ -287,7 +287,8 @@ Phases, each one or more printed lines:
     256, 8 x 32, depth 2, batch 4, seq 256, 20 steps) greedy and sampled
     (temperature 0.8, top-k 16) twice, each SUCCESS and the two sampled
     runs' ids equal bit for bit; the ``decode`` (prefill 512, gen 16,
-    reps 2) and ``lm`` (steps 4) CLI exiting 0, ``lm --tp 2`` refused;
+    reps 2) and ``lm`` (steps 4) CLI exiting 0, ``loadgen --dp 2``
+    refused with the reference's message;
     then K1's and K2-K4's counts, which must read 0;
 16. the kv tier, preemption and snapshots on the serve path, at the
     serve model's width in float32 with TF32 off (K1's count set to 0
@@ -469,7 +470,34 @@ Phases, each one or more printed lines:
     processes of their own on the package under test, beside (b) and
     (c), exit 0 and a SUCCESS marker; K1-K4 launched 0 times in the
     phase; its wall time;
-23. the card's name and power limit again, the ``kernels`` line (the
+23. serve across ranks (``serve_mesh``; alone with ``--tree .
+    serve_mesh``), all ranks on the one card: (a) K1 on one rank's stripe
+    of every block (``bl_loc = 16 / sp``) at every rank of sp 2 and 4,
+    against its plain version at phase 3's tolerances, at the serve
+    width (8 rows, 8 x 128 heads over 2 kv heads, block_len 16, bf16, f32
+    and int8, W 1 and 5, rows 0 and 1 at positions 1 and 5 so that page
+    0 is dead on the upper ranks, an inactive row) and on the 4096-token
+    windows; each sp group's combine of the kernel's triples against the
+    sp = 1 kernel on the whole pool (``SM_COMBINE_TOL``); K1's ms a
+    launch at rank 0 and rank sp - 1 beside the sp = 1 kernel's on the
+    same pool, each beside its bound; (b) the serve width (E 1024, 8 x
+    128, depth 4, vocab 2048, RoPE, block_len 16; ``SM_CUT``: 6 requests,
+    16 generated) in bf16 through 4 slots (2 requests admitted mid-run,
+    into recycled slots) over (dp, sp, tp) (1,1,1), (1,2,1), (1,1,2),
+    (1,2,2) and (1,4,1) and with GQA 2 and an int8 pool at (1,2,2)
+    (continuous faster than sequential, the pool in place, K1 launched
+    depth x ranks x decode steps, id flips against the same-mesh dense
+    oracle reported with their top-2 margin, gated above bf16 resolution
+    but for int8); in float32 with TF32 off ``run_serve`` with the prefix
+    and spec Records at (1,2,2), at (1,4,1), the kv tier Record at
+    (1,2,1) (phase 16's 32 requests), a preempt/resume pair at (1,2,1)
+    and ``run_loadgen`` ``chat:requests=16`` at (1,2,2): every Record
+    SUCCESS (the preempted one WARNING) with exact ids, its mode the
+    mesh's sp, K1 launched depth x ranks x the decoder's calls; (c) the
+    combine gate: the sound combine at sp 2 and 4 within
+    ``SM_COMBINE_TOL``, a per-rank max and one rank's weighted values
+    left out each above it; the phase's wall time;
+24. the card's name and power limit again, the ``kernels`` line (the
     flash rows also carry ``train_loop_launches``, phase 8b's counts,
     K1's row ``loadgen_launches``, phase 14's by scenario,
     ``kv_tier_launches``, phase 16's by leg, ``recovery_launches``,
@@ -478,7 +506,8 @@ Phases, each one or more printed lines:
     ``longctx_launches``, phase 19's by leg, with ``longctx_f32``, their
     float32 times at longctx's shape, K3/K4 ``model_mesh_launches``,
     phase 21's by mesh, and K1-K4 ``decode_lm_mesh_launches``, phase
-    22's),
+    22's, and K1's ``serve_mesh_launches``, phase 23's by leg, with its
+    stripe checks and its times by rank),
     then the device line, which is the last.
 """
 
@@ -486,6 +515,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import hashlib
 import dataclasses
 import io
 import itertools
@@ -632,12 +662,14 @@ def ptxas_report(log: str, prefix: str) -> dict:
         if t:
             return (t.group(1) + "<" + {"f": "float", "i": "int"}[t.group(2)]
                     + ">")
-        t = re.search(r"paged_attention_split_kernelI((?:Li\d+E)+)E", name)
+        t = re.search(r"paged_attention_split_kernelI((?:L[ib]\d+E)+)E",
+                      name)
         if t:
-            args = re.findall(r"Li(\d+)E", t.group(1))
+            args = re.findall(r"L[ib](\d+)E", t.group(1))
+            labels = ("Q", "KV", "D", "STRIPED")
             return ("paged_attention_split_kernel<"
-                    + ",".join(f"{a}={b}" for a, b in
-                               zip(("Q", "KV", "D"), args)) + ">")
+                    + ",".join(f"{a}={b}" for a, b in zip(labels, args))
+                    + ">")
         t = re.search(r"\d(flash_\w+?_kernel)I((?:Li\d+E)+)E", name)
         if not t:
             return prefix
@@ -699,21 +731,24 @@ def make_case(torch, *, kind, b, w, h, hkv, d, bl, n_pages, n_blocks,
             tables.to(DEVICE), pos0.to(DEVICE), active.to(DEVICE))
 
 
-def kernel_bytes_and_ops(case, block_len):
+def kernel_bytes_and_ops(case, block_len, rank=0):
     """Bytes the function must move (the K/V slots and scales that some
     query sees, q, tables and per-row ints in; o/m/l out) and its flops
     (q.k and p.v over the keys each query sees), for the bound.  Only
     visible keys count: slots of a live page past the row's last query
-    position are masked and the output does not depend on them."""
+    position are masked and the output does not depend on them.  A
+    shard pool of ``bl`` slots a block holds sp rank ``rank``'s stripe
+    of each ``block_len``-slot block."""
     pool, q, tables, pos0, active = case
     b, w, h, d = q.shape
-    hkv = pool["k"].shape[2]
+    bl, hkv = pool["k"].shape[1:3]
     g = h // hkv
-    first = tables.new_tensor(range(tables.shape[1]))[None, :] * block_len
+    first = (tables.new_tensor(range(tables.shape[1]))[None, :] * block_len
+             + rank * bl)
     live = (tables != 0) & active[:, None]  # [B, n_pages]
 
     def visible_keys(last_pos):  # keys at positions <= last_pos, [B]
-        n = (last_pos[:, None] + 1 - first).clamp(0, block_len)
+        n = (last_pos[:, None] + 1 - first).clamp(0, bl)
         return (n * live).sum(dim=1)
 
     # bytes: keys seen by a row's last query; flops: each query's own
@@ -750,10 +785,14 @@ def check_kernel(torch, pk, name, case, block_len, tol):
             )
         err = max(err, float((g - w_).abs().max()))
 
-    from tpu_patterns_torch.serve.paged import PagedLayout
+    from tpu_patterns_torch.serve import paged as P
 
-    lay = PagedLayout(pool["k"].shape[0], block_len)
-    out = pk.paged_attend(pool, q, tables, pos0, active, lay)
+    lay = P.PagedLayout(pool["k"].shape[0], block_len)
+    if hasattr(pk, "paged_attend"):
+        # a tree of another commit (``--tree``): the one-shard attend
+        out = pk.paged_attend(pool, q, tables, pos0, active, lay)
+    else:
+        (out,) = P.paged_attend([pool], [q], [tables], [pos0], [active], lay)
     dead = (~active) | (tables == 0).all(dim=1)
     if not torch.isfinite(out).all() or bool((out[dead] != 0).any()):
         raise AssertionError(f"{name}: a dead row is not exactly zero")
@@ -837,6 +876,38 @@ def time_paged(torch, pk, timing, spec, case, block_len, flush):
     return row
 
 
+# the serve slice's shape: 8 rows at their decode positions in lifetimes
+# of prompts 64-512 plus 64 generated tokens, block_len 16, 36-page
+# tables over a 217-block pool
+SLICE_LENS = (64, 512, 300, 128, 450, 77, 200, 389)
+
+
+def slice_case(torch, **kw):
+    """:func:`make_case` at the serve slice's shape (``kw``: kind, w, h,
+    hkv, seed, q_bf16)."""
+    n_blocks = 1 + sum(-(-(n + 63) // 16) for n in SLICE_LENS)
+    return make_case(torch, b=8, d=128, bl=16, n_pages=36,
+                     n_blocks=max(n_blocks, 217), lens=list(SLICE_LENS),
+                     **kw)
+
+
+def k1_times(torch, pk, timing, spec, serve_case):
+    """K1's time at the main path's shape (bf16 pool, W=1, G=1) and at
+    the long window, L2 flushed, each emitted as a ``kernel_time``
+    row."""
+    flush = torch.empty(64 << 20, dtype=torch.int32, device=DEVICE)
+    serve = time_paged(torch, pk, timing, spec, serve_case, 16, flush)
+    emit({"phase": "kernel_time", "shape": "B8 W1 H8 Hkv8 D128 bl16 pages36 "
+          "bf16, L2 flushed", **serve})
+    long_case = long_window_case(torch)
+    err = check_kernel(torch, pk, "long_window_bf16", long_case, 16, 1e-4)
+    longw = time_paged(torch, pk, timing, spec, long_case, 16, flush)
+    del long_case
+    emit({"phase": "kernel_time", "shape": "B32 W1 H8 Hkv8 D128 bl16 "
+          "pages256 (4096-token windows) bf16, L2 flushed", **longw})
+    return serve, longw, err
+
+
 def phase_kernels(torch, pk, timing, spec):
     results = {"cases": 0, "max_abs_err": 0.0}
     tols = {"f32": 2e-5, "bf16": 1e-4, "int8": 1e-4}
@@ -850,11 +921,6 @@ def phase_kernels(torch, pk, timing, spec):
                 err = check_kernel(torch, pk, name, case, 8, tols[kind])
                 results["cases"] += 1
                 results["max_abs_err"] = max(results["max_abs_err"], err)
-    # the serve slice's shape: 8 rows at their decode positions in
-    # lifetimes of prompts 64-512 plus 64 generated tokens, block_len 16,
-    # 36-page tables over a 217-block pool
-    lens = [64, 512, 300, 128, 450, 77, 200, 389]
-    n_blocks = 1 + sum(-(-(n + 63) // 16) for n in lens)
     slice_cases = {
         "slice_bf16_w1_g1": dict(kind="bf16", w=1, h=8, hkv=8),
         "slice_f32_w1_g1": dict(kind="f32", w=1, h=8, hkv=8),
@@ -876,10 +942,7 @@ def phase_kernels(torch, pk, timing, spec):
     pps = pk.split_pages(36, 16, 8, 8, 128 * 2, sms)
     cases = {}
     for name, kw in slice_cases.items():
-        cases[name] = make_case(
-            torch, b=8, d=128, bl=16, n_pages=36,
-            n_blocks=max(n_blocks, 217), seed=17, lens=lens, **kw
-        )
+        cases[name] = slice_case(torch, seed=17, **kw)
         if name.startswith("split_edges"):
             _, _, tables, pos0, _ = cases[name]
             pos0[0] = pps * 16 // 2
@@ -915,19 +978,9 @@ def phase_kernels(torch, pk, timing, spec):
 
     # time the main path's shape (bf16 pool, W=1, G=1) and the long
     # window, L2 flushed
-    flush = torch.empty(64 << 20, dtype=torch.int32, device=DEVICE)
-    serve = time_paged(torch, pk, timing, spec, cases["slice_bf16_w1_g1"],
-                       16, flush)
-    emit({"phase": "kernel_time", "shape": "B8 W1 H8 Hkv8 D128 bl16 pages36 "
-          "bf16, L2 flushed", **serve})
-    long_case = long_window_case(torch)
-    err = check_kernel(torch, pk, "long_window_bf16", long_case, 16,
-                       tols["bf16"])
+    serve, longw, err = k1_times(torch, pk, timing, spec,
+                                 cases["slice_bf16_w1_g1"])
     results["max_abs_err"] = max(results["max_abs_err"], err)
-    longw = time_paged(torch, pk, timing, spec, long_case, 16, flush)
-    del long_case
-    emit({"phase": "kernel_time", "shape": "B32 W1 H8 Hkv8 D128 bl16 "
-          "pages256 (4096-token windows) bf16, L2 flushed", **longw})
     return results, serve, longw
 
 
@@ -1323,22 +1376,33 @@ def phase_flash_time(torch, F, timing, spec, inputs, fwd_t, bwd_t):
 # -- phases 4 and 5: serving at full width ------------------------------------
 
 
-def oracle_report(torch, mcfg, cfg, params, trace, got):
-    """Per-request ids against the dense oracle; for each request that
-    differs, the oracle's top-2 relative logit margin at the first
-    differing step."""
+def oracle_report(torch, mcfg, cfg, params, trace, got, mesh=None):
+    """Per-request ids against the dense oracle (over ``mesh``: the
+    same-mesh dense decoder, lengths padded up to a multiple of sp); for
+    each request that differs, the oracle's top-2 relative logit margin
+    at the first differing step."""
     from tpu_patterns_torch.models.lm import make_lm_decoder
 
-    pre, gen = make_lm_decoder(mcfg, cfg.vocab, 1, cfg.max_prompt, cfg.gen,
-                               cache_int8=cfg.cache_int8)
+    sp = mesh.dim("sp") if mesh is not None else 1
+    lpd = cfg.max_prompt + (-cfg.max_prompt % sp)
+    pre, gen = make_lm_decoder(mcfg, cfg.vocab, 1, lpd,
+                               cfg.gen + (-cfg.gen % sp),
+                               cache_int8=cfg.cache_int8, mesh=mesh)
     equal, flips = 0, []
     for r in trace:
-        toks = torch.zeros((1, cfg.max_prompt), dtype=torch.int32)
+        toks = torch.zeros((1, lpd), dtype=torch.int32)
         toks[0, : len(r.tokens)] = torch.tensor(r.tokens)
         lens = torch.tensor([len(r.tokens)], dtype=torch.int32)
-        cache, t0, lg0 = pre(params, toks.to(DEVICE), lens, return_logits=True)
+        toks = (toks.to(DEVICE) if mesh is None
+                else mesh.shard(toks, ("dp", "sp")))
+        cache, t0, lg0 = pre(params, toks, lens, return_logits=True)
         _, ids, lgs = gen(params, cache, t0, (lens, 0), r.n_gen - 1,
                           return_logits=True)
+        if mesh is not None:  # rank 0's ids, the vocab shards joined
+            tp_ranks = mesh.group("tp", 0)
+            t0, ids = t0[0], ids[0]
+            lg0 = torch.cat([lg0[i] for i in tp_ranks], dim=-1)
+            lgs = torch.cat([lgs[i] for i in tp_ranks], dim=-1)
         want = [int(t0[0])] + ids[0].tolist()
         if got[r.rid] == want:
             equal += 1
@@ -1353,16 +1417,21 @@ def oracle_report(torch, mcfg, cfg, params, trace, got):
     return equal, flips
 
 
-def serve_leg(torch, eng_mod, name, cfg, gate_flips=True):
-    """Serve ``cfg`` continuous and sequential through the engine.  The
-    launch count is that of the timed continuous run alone
-    (``serve_legs`` sets the kernel's count to 0 just before that run
-    and reads it just after) and must equal depth x its decode steps.
-    With ``gate_flips`` an id flip against the oracle fails the leg
-    unless the oracle's margin there is below bf16 resolution; without,
-    flips are reported only (an int8 pool also quantizes keys that the
-    two paths computed in bf16 through different matmul shapes)."""
-    mcfg, decoder, params, trace = eng_mod.build_serve(cfg)
+def serve_leg(torch, eng_mod, name, cfg, gate_flips=True, mesh=None,
+              phase="serve"):
+    """Serve ``cfg`` continuous and sequential through the engine (over
+    ``mesh``: its sharded decoder).  The launch count is that of the
+    timed continuous run alone (``serve_legs`` sets the kernel's count
+    to 0 just before that run and reads it just after) and must equal
+    depth x ranks x its decode steps.  With ``gate_flips`` an id flip
+    against the oracle fails the leg unless the oracle's margin there is
+    below bf16 resolution; without, flips are reported only (an int8
+    pool also quantizes keys that the two paths computed in bf16 through
+    different matmul shapes)."""
+    # a tree of another commit (``--tree``) may predate the mesh argument
+    mcfg, decoder, params, trace = (eng_mod.build_serve(cfg) if mesh is None
+                                    else eng_mod.build_serve(cfg, mesh))
+    ranks = mesh.size if mesh is not None else 1
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     legs = eng_mod.serve_legs(decoder, params, trace, cfg.slots)
@@ -1372,9 +1441,9 @@ def serve_leg(torch, eng_mod, name, cfg, gate_flips=True):
     total = sum(r.n_gen for r in trace)
     pool_mb, dense_mb = eng_mod.cache_mb(cfg, decoder)
     equal, flips = oracle_report(torch, mcfg, cfg, params, trace,
-                                 legs.out_cont)
+                                 legs.out_cont, mesh)
     row = {
-        "phase": "serve", "leg": name, "dtype": cfg.dtype,
+        "phase": phase, "leg": name, "dtype": cfg.dtype,
         "kv_heads": cfg.kv_heads, "cache_int8": cfg.cache_int8,
         "requests": len(trace),
         "tokens_per_s": total / legs.cont_s,
@@ -1382,19 +1451,24 @@ def serve_leg(torch, eng_mod, name, cfg, gate_flips=True):
         "speedup": legs.seq_s / legs.cont_s,
         "decode_steps": steps, "kernel_launches": launches,
         "depth_x_steps": cfg.depth * steps,
+        **({"mesh": list(mesh.shape), "ranks": ranks,
+            "notes": _mesh_note(mesh)} if mesh is not None else {}),
         "pool_MB": pool_mb, "dense_cache_MB": dense_mb,
         "pool_in_place": legs.in_place,
         "max_memory_allocated_MB": peak / 1e6,
         "continuous_equals_sequential": legs.out_cont == legs.out_seq,
+        "ids_sha256": hashlib.sha256(json.dumps(
+            sorted(legs.out_cont.items())).encode()).hexdigest()[:16],
         "oracle_equal": equal, "oracle_flips": flips,
     }
     emit(row)
     bad = []
     if not row["speedup"] > 1.0:
         bad.append("continuous batching not faster than sequential")
-    if steps == 0 or launches != cfg.depth * steps:
+    if steps == 0 or launches != cfg.depth * ranks * steps:
         bad.append(f"kernel launched {launches} times in the timed run, "
-                   f"not depth x steps = {cfg.depth * steps}")
+                   f"not depth x ranks x steps = "
+                   f"{cfg.depth * ranks * steps}")
     if not (legs.in_place and pool_mb < dense_mb):
         bad.append("pool not in place or not under the dense rectangle")
     if gate_flips and any(not f["below_bf16_resolution"] for f in flips):
@@ -3876,17 +3950,15 @@ def phase_decode_lm(torch, pk, F, timing, spec):
               "leg_seconds": time.perf_counter() - t0})
         if not ok:
             bad.append(f"{' '.join(argv)}: rc {rc}")
-    err = io.StringIO()
     try:
-        with contextlib.redirect_stderr(err):
-            _cli_in_process(["loadgen", "--tp", "2"])
+        _cli_in_process(["loadgen", "--dp", "2"])
         refused = None
     except SystemExit as e:
-        refused = e.code
-    emit({"phase": "decode_lm_cli", "argv": ["loadgen", "--tp", "2"],
-          "exit": refused, "message": err.getvalue().strip()[-160:]})
-    if refused != 2 or "step 8d" not in err.getvalue():
-        bad.append("loadgen --tp 2 was not refused")
+        refused = str(e.code)
+    emit({"phase": "decode_lm_cli", "argv": ["loadgen", "--dp", "2"],
+          "exit": refused})
+    if refused is None or "loadgen requires --dp 1" not in refused:
+        bad.append("loadgen --dp 2 was not refused")
 
     torch.cuda.synchronize()
     launches = {"paged_attention": pk.paged_block.launches, **F.LAUNCHES}
@@ -4824,10 +4896,12 @@ def _step_logits(dec, params, pool, a):
     it picked them from, caught on their way into the decoder's picker
     (the step itself runs unchanged)."""
     seen = []
+    pick = dec._pick
 
     def catch(logits, rows, w):
-        seen.append(logits)
-        return type(dec)._pick(logits, rows, w)
+        # the picker takes each rank's vocab shard; one device holds one
+        seen.append(logits[0] if isinstance(logits, list) else logits)
+        return pick(logits, rows, w)
 
     object.__setattr__(dec, "_pick", catch)
     try:
@@ -6466,6 +6540,372 @@ def phase_decode_lm_mesh(torch, pk, F):
     return launches
 
 
+# -- phase 23: serve across ranks (the sharded pool, K1 at sp > 1) ----------
+
+# (leg, (dp, sp, tp)): the serve width's meshes, all ranks on the card
+SM_MESHES = (("11", (1, 1, 1)), ("21", (1, 2, 1)), ("12", (1, 1, 2)),
+             ("22", (1, 2, 2)), ("41", (1, 4, 1)))
+# the mesh legs' cut of phase 5's trace (16 requests, 64 generated): the
+# ranks run one after another on the card, so a mesh leg's host time
+# grows with its ranks
+SM_CUT = dict(requests=6, gen=16)
+# the bf16 legs serve their 6 requests through 4 slots, so the
+# continuous leg admits 2 of them mid-run, into recycled slots
+SM_BF16 = {**FULL_WIDTH, "dtype": "bfloat16", **SM_CUT, "slots": 4}
+SM_F32 = dict(FULL_WIDTH, dtype="float32", **SM_CUT)
+# part a: K1 on a stripe against its plain version (phase 3's
+# tolerances), and the sp group's combine against the sp = 1 kernel on
+# the whole pool, max |diff| / max |sp 1|: float32 sums in another
+# order; a bf16 q's output rounds to bf16 once
+SM_TOL = {"f32": 2e-5, "bf16": 1e-4, "int8": 1e-4}
+SM_COMBINE_TOL = {"f32": 1e-5, "bf16": 2.0**-7, "int8": 2.0**-7}
+SM_SPS = (2, 4)
+SM_LOADGEN = "chat:requests=16"
+
+
+def _mesh_note(mesh):
+    note = mesh.note("sp combines and tp sums")
+    return [note] if note else []
+
+
+def sm_stripes(case, sp):
+    """Each rank's stripe of a case's global pool (block slots
+    [r * bl_loc, (r + 1) * bl_loc)), contiguous on the card."""
+    pool = case[0]
+    bl = pool["k"].shape[1] // sp
+    return [{n: t[:, r * bl:(r + 1) * bl].contiguous()
+             for n, t in pool.items()} for r in range(sp)]
+
+
+def sm_check_stripes(torch, pk, name, case, sp, kind):
+    """K1 at every rank of sp on the case's stripes against its plain
+    version (a row the rank sees nothing of: m = NEG_INF, exact zeros),
+    then the group's combine of the kernel's triples against the sp = 1
+    kernel on the whole pool.  Returns (max abs err, combine err)."""
+    from tpu_patterns_torch.serve.paged import PagedLayout, paged_attend
+
+    pool, q, tables, pos0, active = case
+    stripes = sm_stripes(case, sp)
+    err = 0.0
+    for r, st in enumerate(stripes):
+        args = (q, st["k"], st["v"], tables, pos0, active)
+        kw = dict(block_len=16, rank=r, k_scale=st.get("ks"),
+                  v_scale=st.get("vs"))
+        got = pk.paged_block(*args, **kw)
+        want = pk.paged_block_reference(*args, **kw)
+        torch.cuda.synchronize()
+        for g, w_, what in zip(got, want, ("o", "m", "l")):
+            if not torch.allclose(g, w_, rtol=SM_TOL[kind],
+                                  atol=SM_TOL[kind]):
+                raise AssertionError(
+                    f"{name} sp{sp} rank {r}: kernel {what} differs from "
+                    f"the plain version by {float((g - w_).abs().max())}")
+            err = max(err, float((g - w_).abs().max()))
+        o, m, l_ = got
+        blind = m == pk.NEG_INF
+        if bool((o[blind] != 0).any()) or bool((l_[blind] != 0).any()):
+            raise AssertionError(f"{name} sp{sp} rank {r}: a row this rank "
+                                 "sees nothing of is not exactly zero")
+    outs = paged_attend(stripes, [q] * sp, [tables] * sp, [pos0] * sp,
+                        [active] * sp, PagedLayout(pool["k"].shape[0], 16, sp))
+    (one,) = paged_attend([pool], [q], [tables], [pos0], [active],
+                          PagedLayout(pool["k"].shape[0], 16))
+    return err, max(_rel(o, one)[0] for o in outs)
+
+
+def sm_cases(torch):
+    """Part a's cases at the serve width (8 rows, 8 x 128 heads over 2
+    kv heads, block_len 16, 36-page tables of the serve slice's
+    lifetimes): bf16, f32 and int8 (bf16 q), W 1 and 5, rows 0 and 1 at
+    positions 1 and 5 (page 0 dead on the upper ranks: at sp 4 ranks 1-3
+    see nothing of row 0 at W 1, ranks 2-3 nothing of row 1), an inactive
+    row 5."""
+    cases = {}
+    for kind in ("bf16", "f32", "int8"):
+        for w in (1, 5):
+            case = slice_case(torch, kind=kind, w=w, h=8, hkv=2,
+                              seed=31 + w, q_bf16=kind == "int8")
+            case[3][0], case[3][1] = 1, 5
+            case[4][5] = False
+            cases[f"serve_{kind}_w{w}"] = (kind, case)
+    return cases
+
+
+def sm_kernel(torch, pk, ck, timing, spec):
+    """Part a: K1 on the stripes at sp 1, 2 and 4, every rank, against
+    its plain version and, combined, against the sp = 1 kernel; the long
+    window too; then K1's time a launch at rank 0 and rank sp - 1 of the
+    bf16 W 1 serve case and of the long window (and at sp 1 on the same
+    pools), L2 flushed and queued, beside each one's bound."""
+    t0 = time.perf_counter()
+    res = {"cases": 0, "max_abs_err": 0.0, "combine_rel_err": {}}
+    cases = sm_cases(torch)
+    for name, (kind, case) in cases.items():
+        # sp 1: the unsharded launch with its new arguments, on its own
+        for sp in (1, *SM_SPS):
+            err, cerr = sm_check_stripes(torch, pk, name, case, sp, kind)
+            res["cases"] += sp
+            res["max_abs_err"] = max(res["max_abs_err"], err)
+            res["combine_rel_err"][f"{name}_sp{sp}"] = cerr
+            if not cerr <= SM_COMBINE_TOL[kind]:
+                raise AssertionError(f"{name} sp{sp}: combine off the sp 1 "
+                                     f"kernel by {cerr:.3e}")
+    long_case = long_window_case(torch)
+    for sp in SM_SPS:
+        err, cerr = sm_check_stripes(torch, pk, "long_window", long_case,
+                                     sp, "bf16")
+        res["cases"] += sp
+        res["max_abs_err"] = max(res["max_abs_err"], err)
+        res["combine_rel_err"][f"long_window_sp{sp}"] = cerr
+        if not cerr <= SM_COMBINE_TOL["bf16"]:
+            raise AssertionError(f"long window sp{sp}: combine off by "
+                                 f"{cerr:.3e}")
+    flush = torch.empty(64 << 20, dtype=torch.int32, device=DEVICE)
+
+    def timed(case, st, rank):
+        """K1 on ``st`` (a stripe of ``case``'s pool, or the pool) at
+        ``rank``: ms a launch with the L2 flushed before each, device ms
+        with no host gaps (20 launches queued behind a busy-wait, warm
+        in L2) and the host's ms to enqueue one, beside the bound."""
+        _, q, tables, pos0, active = case
+
+        def fn():
+            return pk.paged_block(q, st["k"], st["v"], tables, pos0, active,
+                                  block_len=16, rank=rank,
+                                  k_scale=st.get("ks"), v_scale=st.get("vs"))
+
+        t = timing.cuda_time_repeated_ms(fn, before=flush.zero_)
+        queued, host = _queued_ms(torch, ck, fn)
+        nbytes, flops = kernel_bytes_and_ops((st, q, tables, pos0, active),
+                                             16, rank)
+        bound = max(nbytes / (spec["hbm_gbps"] * 1e9),
+                    flops / (spec["f32_tflops"] * 1e12)) * 1e3
+        return {"ms": t["ms"], "min": t["min"], "max": t["max"],
+                "queued_ms": queued, "host_ms_a_call": host,
+                "bound_ms": bound, "bytes": nbytes}
+
+    times = {}
+    for shape, case in (("serve", cases["serve_bf16_w1"][1]),
+                        ("long_window", long_case)):
+        times[f"{shape}_sp1"] = timed(case, case[0], 0)
+        for sp in SM_SPS:
+            st = sm_stripes(case, sp)
+            for r in (0, sp - 1):
+                times[f"{shape}_sp{sp}_rank{r}"] = timed(case, st[r], r)
+            del st
+    del long_case
+    emit({"phase": "serve_mesh", "leg": "a_k1_stripes", **res,
+          "tol": SM_TOL, "combine_tol": SM_COMBINE_TOL,
+          "shape": "B8 H8 Hkv2 D128 bl16 pages36, W1 and W5, bf16/f32/int8; "
+          "B32 4096-token windows bf16 (Hkv 8)", "times_bf16_w1": times,
+          "seconds": time.perf_counter() - t0, "card": _smi()})
+    return res, times
+
+
+def sm_combine_gate(torch, pk, P):
+    """Part c: the combine gate of part a on the f32 W 5 serve case at sp
+    2 and 4, sound, then with each planted fault (a per-rank max in place
+    of the group's, one rank's weighted values left out of the sum),
+    each of which must read above the gate's tolerance."""
+    _, case = sm_cases(torch)["serve_f32_w5"]
+    tol = SM_COMBINE_TOL["f32"]
+    readings, bad = {}, []
+    faults = (("per_rank_max", "_sp_max", lambda orig: list),
+              ("numer_left_out", "_sp_sum", _numer_left_out_o))
+    for sp in SM_SPS:
+        readings[f"sound_sp{sp}"] = sm_check_stripes(
+            torch, pk, "gate", case, sp, "f32")[1]
+        if not readings[f"sound_sp{sp}"] <= tol:
+            bad.append(f"the sound combine at sp {sp} reads "
+                       f"{readings[f'sound_sp{sp}']:.3e}")
+        for name, attr, wrap in faults:
+            with _patched(P, attr, wrap):
+                e = readings[f"{name}_sp{sp}"] = sm_check_stripes(
+                    torch, pk, "gate", case, sp, "f32")[1]
+            if not e > tol:
+                bad.append(f"the combine gate misses {name} at sp {sp} "
+                           f"({e:.3e})")
+    emit({"phase": "serve_mesh", "leg": "c_combine_gate", "tol": tol,
+          "readings": readings, "card": _smi()})
+    return bad
+
+
+def _numer_left_out_o(orig):
+    """The K1 combine's sum of weighted values [B, Hkv, G*W, D] leaves
+    the group's last rank out (the normalizers are summed whole)."""
+    def wrap(xs):
+        if xs[0].dim() == 4 and len(xs) > 1:
+            return orig(list(xs[:-1]) + [xs[-1] * 0])
+        return orig(xs)
+
+    return wrap
+
+
+def _counting(calls):
+    """A wrap for ``PagedDecoder.verify`` (``step`` calls it) that
+    counts its calls."""
+    def wrap(orig):
+        def verify(self, *a, **k):
+            calls[0] += 1
+            return orig(self, *a, **k)
+
+        return verify
+
+    return wrap
+
+
+def sm_records(torch, pk, P, leg, mesh, fn):
+    """``fn()`` (Records of the sharded decoder over ``mesh``) with K1's
+    count set to 0 just before and read just after, and the decoder's
+    step and verify calls counted: each launches K1 depth x ranks times.
+    Returns (Records, launches, calls, seconds)."""
+    calls = [0]
+    with _patched(P.PagedDecoder, "verify", _counting(calls)):
+        # _k1_leg's recorder keeps the count of the whole run
+        # (serve_legs sets the module's count to 0 before each timed leg)
+        recs, launches, _, secs = _k1_leg(torch, pk, fn)
+    return recs, launches, calls[0], secs
+
+
+def sm_record_rows(leg, mesh, recs, launches, calls, depth, secs):
+    """One row a Record, and what fails the leg: a verdict other than
+    SUCCESS (WARNING for a preempted run), an id off the same-mesh dense
+    oracle, a mode without the mesh's sp, K1's launches 0 or other than
+    depth x ranks x the decoder's calls."""
+    bad = []
+    want = depth * mesh.size * calls
+    for rec in recs:
+        m = rec.metrics
+        ok = "WARNING" if m.get("preempted") == 1.0 else "SUCCESS"
+        emit({"phase": "serve_mesh", "leg": leg, "mesh": list(mesh.shape),
+              "mode": rec.mode, "commands": rec.commands,
+              "verdict": rec.verdict.value, "metrics": m,
+              "k1_launches": launches, "decoder_calls": calls,
+              "seconds": secs, "notes": rec.notes})
+        if rec.verdict.value != ok or m.get("exact", 1.0) != 1.0:
+            bad.append(f"{leg} {rec.mode}: {rec.verdict.value} "
+                       + "; ".join(rec.notes))
+        if f"_sp{mesh.dim('sp')}" not in rec.mode:
+            bad.append(f"{leg}: mode {rec.mode} lacks sp {mesh.dim('sp')}")
+    if launches <= 0 or launches != want:
+        bad.append(f"{leg}: K1 launched {launches} times, not depth x "
+                   f"ranks x decoder calls = {want}")
+    return bad
+
+
+def sm_serve(torch, pk, eng_mod, P, lg, faults, mesh_mod):
+    """Part b: the serve width over the meshes; returns (K1's launches by
+    leg, bf16 rows by mesh, problems)."""
+    bad, launches, rows = [], {}, {}
+    smi = _smi()
+    for leg, shape in SM_MESHES:
+        mesh = _dlm_mesh(mesh_mod, shape)
+        try:
+            row = serve_leg(torch, eng_mod, f"bf16_{leg}",
+                            eng_mod.ServeConfig(**SM_BF16), mesh=mesh,
+                            phase="serve_mesh")
+        except AssertionError as e:
+            bad.append(str(e))
+            continue
+        row["card"] = smi
+        rows[leg] = row
+        launches[f"bf16_{leg}"] = row["kernel_launches"]
+    mesh22 = _dlm_mesh(mesh_mod, (1, 2, 2))
+    try:
+        row = serve_leg(torch, eng_mod, "bf16_gqa2_int8_22",
+                        eng_mod.ServeConfig(**SM_BF16, kv_heads=2,
+                                            cache_int8=True),
+                        gate_flips=False, mesh=mesh22, phase="serve_mesh")
+        launches["bf16_gqa2_int8_22"] = row["kernel_launches"]
+    except AssertionError as e:
+        bad.append(str(e))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    f32 = eng_mod.ServeConfig(**SM_F32)
+    mesh21 = _dlm_mesh(mesh_mod, (1, 2, 1))
+    legs = [
+        ("f32_prefix_spec_22", mesh22, lambda: eng_mod.run_serve(
+            dataclasses.replace(f32, prefix_share=True,
+                                shared_prefix=SHARED_PREFIX, spec_k=SPEC_K),
+            lg_writer(), mesh22)),
+        ("f32_41", _dlm_mesh(mesh_mod, (1, 4, 1)), None),
+        ("f32_kv_tier_21", mesh21, lambda: eng_mod.run_serve(
+            eng_mod.ServeConfig(**KV_WIDTH, requests=KV_REQUESTS,
+                                kv_host_tier=True), lg_writer(), mesh21)),
+        ("f32_loadgen_chat_22", mesh22, lambda: lg.run_loadgen(
+            lg.LoadGenConfig(**LOADGEN_WIDTH, scenarios=(SM_LOADGEN,)),
+            lg_writer(), mesh22)),
+    ]
+    for leg, mesh, fn in legs:
+        if fn is None:
+            fn = (lambda m: lambda: eng_mod.run_serve(f32, lg_writer(),
+                                                      m))(mesh)
+        recs, n, calls, secs = sm_records(torch, pk, P, leg, mesh, fn)
+        launches[leg] = n
+        bad += sm_record_rows(leg, mesh, recs, n, calls, f32.depth, secs)
+    # a preempt/resume pair at (1, 2, 1): preempted after 4 steps (a
+    # WARNING Record, a committed snapshot), then resumed to the end
+    work = os.path.join(ROOT, "build", "serve_mesh_smoke")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    try:
+        snap = dataclasses.replace(f32, snapshot_dir=os.path.join(work, "s"))
+        faults.configure("serve.step:preempt:after=4:count=1")
+        try:
+            recs, n, calls, secs = sm_records(
+                torch, pk, P, "f32_preempt_21", mesh21,
+                lambda: eng_mod.run_serve(snap, lg_writer(), mesh21))
+        finally:
+            faults.configure(None)
+        launches["f32_preempt_21"] = n
+        bad += sm_record_rows("f32_preempt_21", mesh21, recs, n, calls,
+                              f32.depth, secs)
+        recs, n, calls, secs = sm_records(
+            torch, pk, P, "f32_resume_21", mesh21,
+            lambda: eng_mod.run_serve(dataclasses.replace(snap, resume=True),
+                                      lg_writer(), mesh21))
+        launches["f32_resume_21"] = n
+        bad += sm_record_rows("f32_resume_21", mesh21, recs, n, calls,
+                              f32.depth, secs)
+        if recs[0].metrics.get("resumed_from", -1) < 0:
+            bad.append("f32_resume_21: the run did not resume a snapshot")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return launches, rows, bad
+
+
+def phase_serve_mesh(torch, pk, timing, spec):
+    """Phase 23 (module docstring).  Returns (K1's launches by leg, the
+    stripe checks, K1's times by rank); raises if any part fails."""
+    from tpu_patterns_torch import faults
+    from tpu_patterns_torch import loadgen as lg
+    from tpu_patterns_torch.comm import mesh as mesh_mod
+    from tpu_patterns_torch.concurrency import kernels as ck
+    from tpu_patterns_torch.serve import engine as eng_mod
+    from tpu_patterns_torch.serve import paged as P
+
+    t_phase = time.perf_counter()
+    ends = {}
+    kres, ktimes = sm_kernel(torch, pk, ck, timing, spec)
+    ends["a_k1_stripes"] = time.perf_counter() - t_phase
+    launches, rows, bad = sm_serve(torch, pk, eng_mod, P, lg, faults,
+                                   mesh_mod)
+    ends["b_serve"] = time.perf_counter() - t_phase
+    bad += sm_combine_gate(torch, pk, P)
+    ends["c_combine_gate"] = time.perf_counter() - t_phase
+    emit({"phase": "serve_mesh_phase",
+          "seconds": time.perf_counter() - t_phase, "leg_end_s": ends,
+          "k1_launches": launches, "card": _smi(),
+          "cut": SM_CUT,
+          "bf16_tokens_per_s": {leg: r["tokens_per_s"]
+                                for leg, r in rows.items()},
+          "bf16_oracle_flips": {leg: r["oracle_flips"]
+                                for leg, r in rows.items()}})
+    if bad:
+        raise AssertionError("serve_mesh: " + " | ".join(bad))
+    return launches, kres, ktimes
+
+
 def profile_concurrency_main() -> int:
     """``python3 chip_smoke.py --profile-concurrency``, which the smoke
     runs in a process of its own: the xla concurrent "C C" run, the
@@ -6540,14 +6980,15 @@ def profile_concurrency_main() -> int:
 # the timing phases ``--tree`` runs with another checkout's package
 TREE_PHASES = ("put_time", "ring_put_time", "accumulate_time",
                "allreduce", "add_one_time", "parallel", "model_mesh",
-               "decode_lm_mesh")
+               "decode_lm_mesh", "serve_mesh")
 # phases ``--tree`` runs only when named: phases 14-19 on their own,
 # phase 16's leg e again and again (``kv_race``: its spread), phase 5's
-# bf16 serve leg (a tree's serve tokens/s against another's) and phase
-# 19's f32 kernel times with the f32 legs' TFLOP/s (``flash_f32_time``)
+# bf16 serve leg (a tree's serve tokens/s and ids against another's),
+# phase 19's f32 kernel times with the f32 legs' TFLOP/s
+# (``flash_f32_time``) and phase 3's K1 times (``k1_time``)
 TREE_ONLY_NAMED = ("loadgen", "decode_lm", "kv_tier", "kv_race",
                    "recovery", "diagnostics", "serve", "longctx",
-                   "flash_f32_time")
+                   "flash_f32_time", "k1_time")
 
 
 def tree_main(tree: str, phases: list[str]) -> int:
@@ -6618,8 +7059,11 @@ def tree_main(tree: str, phases: list[str]) -> int:
            "parallel": lambda: phase_parallel(torch),
            "model_mesh": lambda: phase_model_mesh(torch, F),
            "decode_lm_mesh": lambda: phase_decode_lm_mesh(torch, pk, F),
+           "serve_mesh": lambda: phase_serve_mesh(torch, pk, timing, spec),
            "flash_f32_time": lambda: phase_flash_f32_time(
                torch, F, timing, spec, libs),
+           "k1_time": lambda: k1_times(torch, pk, timing, spec, slice_case(
+               torch, seed=17, kind="bf16", w=1, h=8, hkv=8)),
            "serve": lambda: serve_leg(torch, eng_mod, "bf16",
                                       eng_mod.ServeConfig(
                                           **FULL_WIDTH, dtype="bfloat16",
@@ -6700,7 +7144,7 @@ def phase_kernel_build(torch, libs, F, op, pk):
     lib_p = pk._library()
     for name, row in report.items():
         t = re.fullmatch(r"paged_attention_split_kernel<Q=(\d),KV=(\d),"
-                         r"D=(\d+)>", name)
+                         r"D=(\d+),STRIPED=0>", name)
         if t and t.groups() == ("1", "1", "128"):
             row.update(dynamic_smem=lib_p.paged_attention_smem_bytes(
                 1, 128, 1, 16, pps, min(pps, pk.stage_pages(16, 256))),
@@ -6881,6 +7325,8 @@ def main() -> int:
     phase_parallel(torch)
     mesh_launches = phase_model_mesh(torch, F)
     dlm_mesh_launches = phase_decode_lm_mesh(torch, pk, F)
+    sm_launches, sm_stripes, sm_times = phase_serve_mesh(torch, pk, timing,
+                                                         spec)
 
     rows = {**ftime, **ptime, "paged_attention": {
         "ms": ktime["kernel"]["ms"], "bound_ms": ktime["bound_ms"],
@@ -6931,6 +7377,11 @@ def main() -> int:
         "loadgen_launches": loadgen_launches,
         "decode_lm_launches": decode_lm_launches["paged_attention"],
         "decode_lm_mesh_launches": dlm_mesh_launches["paged_attention"],
+        "serve_mesh_launches": sm_launches,
+        "stripes_max_abs_err": sm_stripes["max_abs_err"],
+        "stripes_combine_rel_err": sm_stripes["combine_rel_err"],
+        "stripe_ms": {k: v["ms"] for k, v in sm_times.items()},
+        "stripe_bound_ms": {k: v["bound_ms"] for k, v in sm_times.items()},
         "kv_tier_launches": kv_tier_launches,
         "recovery_launches": recovery_launches,
         "diagnostics_launches": diagnostics_launches["paged_attention"],

@@ -283,15 +283,20 @@ def test_cli_flags_are_the_references_minus_the_mesh(cmd):
 
 
 @pytest.mark.parametrize("cmd", ["decode", "lm"])
-def test_cli_refuses_unported_options(cmd, capsys):
+def test_cli_refuses_unported_options(cmd):
     """A mesh that dp*tp does not divide is refused, as the reference's
-    ``_mesh3d_from_args`` refuses it; ``loadgen`` still refuses the mesh
-    flags, naming the step that ports them."""
+    ``_mesh3d_from_args`` refuses it; ``serve`` and ``loadgen`` take
+    ``--devices`` and ``--tp`` (the sharded serve) and refuse a dp other
+    than 1 with the reference's message."""
     with pytest.raises(SystemExit, match="not divisible by dp\\*tp = 4"):
         tcli.main([cmd, "--device", "cpu", "--devices", "6", "--dp", "4"])
-    with pytest.raises(SystemExit):
-        tcli.main(["loadgen", "--device", "cpu", "--devices", "2"])
-    assert "ROADMAP.md Queue 1 step 8d" in capsys.readouterr().err
+    for sub in ("serve", "loadgen"):
+        args = tcli.build_parser().parse_args(
+            [sub, "--devices", "4", "--tp", "2"])
+        assert (args.devices, args.dp, args.tp) == (4, 1, 2)
+        with pytest.raises(SystemExit, match=f"{sub} requires --dp 1"):
+            tcli.main([sub, "--device", "cpu", "--devices", "2", "--dp",
+                       "2"])
 
 
 def test_cli_decode_runs_on_the_cpu(capsys):

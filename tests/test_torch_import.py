@@ -185,8 +185,11 @@ def test_unported_options_are_refused():
     from tpu_patterns_torch.models.decode import DecodeConfig, model_config
 
     # the mixture decodes since ROADMAP step 8c (decode and lm across
-    # ranks); the sharded serve path (step 8d) is still refused
+    # ranks), and serve and loadgen take the mesh since step 8d (the
+    # sharded serve)
     assert model_config(DecodeConfig(moe=True)).moe
+    for argv in (["serve", "--tp", "2"], ["loadgen", "--devices", "2"]):
+        cli.build_parser().parse_args(argv)
     for argv in (["serve", "--paged_attn", "pallas"],
                  ["allreduce", "--placement", "diagonal"],
                  ["p2p", "--bidirectional", "maybe"],
@@ -194,8 +197,7 @@ def test_unported_options_are_refused():
                  ["p2p", "--placement", "diagonal"],
                  ["hier", "--placement", "spread"],
                  ["p2p", "--put-kernel", "pallas"],
-                 ["serve", "--tp", "2"],
-                 ["loadgen", "--devices", "2"]):
+                 ["serve", "--replicas", "2"]):
         with pytest.raises(SystemExit):
             cli.build_parser().parse_args(argv)
 

@@ -363,17 +363,19 @@ def test_cli_flagship_on_a_mesh(capsys):
 
 @pytest.mark.parametrize("cmd", ["decode", "lm", "loadgen"])
 def test_other_model_commands_refuse_the_mesh_flags(cmd, capsys):
-    """``loadgen`` (and ``serve``) refuse the mesh flags, naming step 8d;
-    ``decode`` and ``lm`` take them and refuse only a mesh that dp*tp
-    does not divide."""
+    """``loadgen`` and ``serve`` take the mesh flags since step 8d (the
+    sharded serve) and refuse only a dp other than 1, with the
+    reference's message; ``decode`` and ``lm`` take them and refuse only
+    a mesh that dp*tp does not divide."""
     if cmd == "loadgen":
         for sub in ("loadgen", "serve"):
-            for flag in tcli._MESH_FLAGS:
-                with pytest.raises(SystemExit):
-                    tcli.build_parser().parse_args([sub, f"--{flag}", "2"])
-                err = capsys.readouterr().err
-                assert "ROADMAP.md Queue 1 step 8d" in err
-                assert "8c" not in err
+            args = tcli.build_parser().parse_args(
+                [sub, "--device", "cpu", "--devices", "4", "--tp", "2"])
+            assert tcli._mesh3d(args).shape == (1, 2, 2)
+            with pytest.raises(SystemExit, match=f"{sub} requires --dp 1 "
+                               r"\(fold devices into sp\)"):
+                tcli.main([sub, "--device", "cpu", "--devices", "4",
+                           "--dp", "2"])
         return
     args = tcli.build_parser().parse_args(
         [cmd, "--device", "cpu", "--devices", "8", "--dp", "2", "--tp", "2"])

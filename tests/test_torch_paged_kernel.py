@@ -1,13 +1,14 @@
 """The plain-torch paged-attention kernel (K1) against the JAX package.
 
 On the CPU ``paged_block`` runs ``paged_block_reference``, the plain
-version the CUDA kernel is held against on the card.  Here that plain
-version, and ``paged_attend`` around it, meet the reference's Pallas
-kernel in interpret mode on the adversarial cases of
-tests/test_paged_kernel.py (ragged mid-block pos0, TRASH pages, inactive
-and all-TRASH rows, W=1 and W=4, int8, GQA), and the port's own dense
-``_pool_attend`` path.  Float32 tolerances are the reference's (rtol
-2e-5, atol 2e-6); dead rows must be exactly 0."""
+version the CUDA kernel is held against on the card. Here that plain
+version, and ``serve/paged.py::paged_attend`` around it (an sp group of
+one), meet the reference's Pallas kernel in interpret mode on the
+adversarial cases of tests/test_paged_kernel.py (ragged mid-block pos0,
+TRASH pages, inactive and all-TRASH rows, W=1 and W=4, int8, GQA), and
+the port's own dense attention over the gathered page windows. Float32
+tolerances are the reference's (rtol 2e-5, atol 2e-6); dead rows must be
+exactly 0."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -17,6 +18,7 @@ import torch
 from tpu_patterns.serve import paged as jpaged
 from tpu_patterns.serve import paged_kernel as jpk
 from tpu_patterns_torch.convert import pool_from_numpy
+from tpu_patterns_torch.models import decode as tdec
 from tpu_patterns_torch.serve import paged as tpaged
 from tpu_patterns_torch.serve import paged_kernel as tpk
 
@@ -108,8 +110,8 @@ def test_plain_kernel_matches_pallas_interpret(name):
                                    rtol=RTOL, atol=ATOL)
 
     want = jpk.paged_attend(jpool, *jargs, jl, None, interpret=True)
-    got = tpk.paged_attend(tpool, tq, ttab, tpos, tact,
-                           tpaged.PagedLayout(N_BLOCKS, BL))
+    (got,) = tpaged.paged_attend([tpool], [tq], [ttab], [tpos], [tact],
+                                 tpaged.PagedLayout(N_BLOCKS, BL))
     assert got.shape == q.shape and got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), np.asarray(want),
                                rtol=RTOL, atol=ATOL)
@@ -131,8 +133,12 @@ def test_plain_kernel_matches_dense_pool_attend(name):
     pos = tpos[:, None] + torch.arange(w)[None, :]
     mask = ((posn[None, None, :] <= pos[:, :, None]) & tvalid[:, None, :]
             & tact[:, None, None])
-    want = tpaged._pool_attend(tpool, tq, ttab, mask, layout)
-    got = tpk.paged_attend(tpool, tq, ttab, tpos, tact, layout)
+    win = tpaged._windows(tpool, ttab, layout)
+    want = tdec._distributed_attention(tq, win["k"], win["v"], mask,
+                                       k_scale=win.get("ks"),
+                                       v_scale=win.get("vs"))
+    (got,) = tpaged.paged_attend([tpool], [tq], [ttab], [tpos], [tact],
+                                 layout)
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=RTOL,
                                atol=ATOL)
     for r in _dead_rows(case):

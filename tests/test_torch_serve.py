@@ -200,10 +200,9 @@ def test_cli_takes_or_refuses_every_reference_serve_flag():
 
 
 def test_cli_takes_or_refuses_every_reference_loadgen_flag():
-    """Each flag of the reference's ``loadgen`` is a port flag (the kv
-    tier's, preemption's, the live plane's and the watchdog's are then
-    refused with a message by ``validate_config``) or refused by the
-    parser (the mesh flags); the port adds only ``--device``."""
+    """Each flag of the reference's ``loadgen`` is a port flag, the mesh
+    flags included (a dp other than 1 then refused with the reference's
+    message); the port adds only ``--device``."""
     def flags(parser):
         sub = next(a for a in parser._actions
                    if isinstance(a, argparse._SubParsersAction))
@@ -214,6 +213,8 @@ def test_cli_takes_or_refuses_every_reference_loadgen_flag():
     port = flags(tcli.build_parser())
     assert port - ref == {"device"}
     assert ref <= port
-    for name in tcli._MESH_FLAGS:
-        with pytest.raises(SystemExit):
-            tcli.build_parser().parse_args(["loadgen", f"--{name}", "1"])
+    args = tcli.build_parser().parse_args(
+        ["loadgen", "--devices", "4", "--dp", "1", "--tp", "2"])
+    assert (args.devices, args.dp, args.tp) == (4, 1, 2)
+    with pytest.raises(SystemExit, match="loadgen requires --dp 1"):
+        tcli.main(["loadgen", "--device", "cpu", "--dp", "2"])

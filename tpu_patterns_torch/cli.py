@@ -13,6 +13,8 @@
         --resume true --ids_out ids.json
     python -m tpu_patterns_torch loadgen --device cuda --kv_host_tier true \
         --preempt bulk --scenarios chat:bulk_fraction=0.5:working_set_mult=2
+    python -m tpu_patterns_torch serve --device cuda --devices 4 --tp 2
+    python -m tpu_patterns_torch loadgen --device cuda --devices 4 --tp 2
     python -m tpu_patterns_torch flagship --device cuda
     python -m tpu_patterns_torch p2p --transport one_sided --device cuda
     python -m tpu_patterns_torch concurrency --device cuda \
@@ -145,12 +147,10 @@ import sys
 from tpu_patterns_torch.core.config import _coerce, add_config_args
 from tpu_patterns_torch.core.results import ResultWriter
 
-# the model commands' mesh flags: `flagship`, `train`, `decode` and
-# `lm` take them; `loadgen` and `serve` refuse them, naming the step
-# that ports them
+# the model commands' mesh flags: `flagship`, `train`, `decode`, `lm`,
+# `serve` and `loadgen` take them (the last two refuse a dp other than 1)
 _MESH_FLAGS = ("devices", "dp", "tp")
-_MESH_NOT_PORTED = (
-    "ROADMAP.md Queue 1 step 8d (the nccl bootstrap and sharded serve)")
+# serve's replica-fleet flags, refused until the fleet is ported
 _NOT_PORTED = (
     "prefix_store", "replicas", "replica_policy", "route_blocks", "min_replica_speedup",
     "replica_watchdog_s", "replica_dir", "elastic_reserve",
@@ -161,7 +161,7 @@ _NOT_PORTED = (
 
 
 class _NotPorted(argparse.Action):
-    where = "ROADMAP.md"
+    where = "ROADMAP.md Queue 1 step 9 (the replica fleet)"
 
     def __call__(self, parser, namespace, values, option_string=None):
         parser.error(
@@ -169,10 +169,6 @@ class _NotPorted(argparse.Action):
             " flag that tpu_patterns_torch does not support yet "
             f"({self.where})"
         )
-
-
-class _MeshNotPorted(_NotPorted):
-    where = _MESH_NOT_PORTED
 
 
 def _bool(s: str) -> bool:
@@ -303,9 +299,7 @@ def build_parser() -> argparse.ArgumentParser:
         "with the fused paged-attention kernel",
     )
     _add_config_flags(sv, ServeConfig, _NOT_PORTED)
-    for name in _MESH_FLAGS:
-        sv.add_argument("--" + name, nargs="?", action=_MeshNotPorted,
-                        help=argparse.SUPPRESS)
+    _add_model_mesh_flags(sv)
     lg = sub.add_parser(
         "loadgen",
         help="trace-driven load generator over the serve engine: seeded "
@@ -313,7 +307,8 @@ def build_parser() -> argparse.ArgumentParser:
         "batch-summarize, agentic, chat-sampled), TTFT/TPOT/e2e "
         "percentiles, goodput-under-SLO verdicts, optional chaos twin",
     )
-    _add_config_flags(lg, LoadGenConfig, _MESH_FLAGS, refuse=_MeshNotPorted)
+    _add_config_flags(lg, LoadGenConfig, ())
+    _add_model_mesh_flags(lg)
     fl = sub.add_parser(
         "flagship",
         help="PatternFormer train-step benchmark (fwd+bwd+SGD) with the "
@@ -1105,12 +1100,21 @@ def _serve(args, writer: ResultWriter) -> None:
         run_serve,
     )
 
+    if args.dp != 1:
+        # the pool is shared state over sp x tp; batch rows are
+        # scheduler slots, not a data axis (data-parallel serving is the
+        # replica fleet)
+        raise SystemExit(
+            "error: serve requires --dp 1 (fold devices into sp); for "
+            "data-parallel serving use --replicas N — N engine "
+            "replicas behind the prefix-aware router"
+        )
     cfg = _config(ServeConfig, args)
     _checked("serve", lambda: _refuse_unsupported(cfg))
     if cfg.scenario:
         _checked("serve --scenario",
                  lambda: validate_config(_run_scenario_config(cfg)))
-    run_serve(cfg, writer)
+    run_serve(cfg, writer, mesh=_mesh3d(args))
 
 
 def _loadgen(args, writer: ResultWriter) -> None:
@@ -1120,9 +1124,12 @@ def _loadgen(args, writer: ResultWriter) -> None:
         validate_config,
     )
 
+    if args.dp != 1:
+        raise SystemExit(
+            "error: loadgen requires --dp 1 (fold devices into sp)")
     cfg = _config(LoadGenConfig, args)
     _checked("loadgen", lambda: validate_config(cfg))
-    run_loadgen(cfg, writer)
+    run_loadgen(cfg, writer, mesh=_mesh3d(args))
 
 
 def _perf(args, writer: ResultWriter) -> None:

@@ -47,8 +47,10 @@ from tpu_patterns_torch.loadgen.scenarios import (
 )
 from tpu_patterns_torch.serve.engine import (
     ServeEngine,
+    _mesh_notes,
     _oracle_expected,
     _slo_kwargs,
+    _sp_mode,
 )
 
 
@@ -460,18 +462,20 @@ def _scenario_commands(cfg: LoadGenConfig, spec: ScenarioSpec) -> str:
     )
 
 
-def build_loadgen(cfg: LoadGenConfig, specs: list[ScenarioSpec]):
+def build_loadgen(cfg: LoadGenConfig, specs: list[ScenarioSpec],
+                  mesh=None):
     """(model config, decoder, params) for ``cfg``'s scenarios on its
-    device: one decoder covering every scenario's longest request, with
-    the sampling cores when any scenario samples (greedy rows through
-    them keep their ids, so one decoder serves a mixed list), weights
-    drawn from ``cfg.seed`` as ``build_serve`` draws them."""
+    device (or over ``mesh``, sp x tp): one decoder covering every
+    scenario's longest request, with the sampling cores when any
+    scenario samples (greedy rows through them keep their ids, so one
+    decoder serves a mixed list), weights drawn from ``cfg.seed`` as
+    ``build_serve`` draws them."""
     from tpu_patterns_torch.models.lm import init_lm_params
     from tpu_patterns_torch.models.transformer import ModelConfig
     from tpu_patterns_torch.runtime import resolve_device
     from tpu_patterns_torch.serve.paged import make_paged_lm_decoder
 
-    dev = resolve_device(cfg.device)
+    dev = resolve_device(cfg.device) if mesh is None else mesh.devices[0]
     mcfg = ModelConfig(
         embed=cfg.embed, heads=cfg.heads, head_dim=cfg.head_dim,
         mlp_mult=cfg.mlp_mult, dtype=cfg.dtype, depth=cfg.depth,
@@ -492,6 +496,7 @@ def build_loadgen(cfg: LoadGenConfig, specs: list[ScenarioSpec]):
         mcfg, cfg.vocab, n_blocks=n_blocks, block_len=cfg.block_len,
         max_len=max_len, cache_int8=cfg.cache_int8, attn=cfg.paged_attn,
         sampling=any(s.temperature > 0 for s in specs), device=dev,
+        mesh=mesh,
     )
     params = decoder.stack_params(
         init_lm_params(cfg.seed, mcfg, cfg.vocab, dev)
@@ -499,9 +504,11 @@ def build_loadgen(cfg: LoadGenConfig, specs: list[ScenarioSpec]):
     return mcfg, decoder, params
 
 
-def run_loadgen(cfg: LoadGenConfig, writer=None) -> list:
+def run_loadgen(cfg: LoadGenConfig, writer=None, mesh=None) -> list:
     """Measured pattern: one SLO Record per scenario (plus a chaos twin
-    per scenario when ``cfg.chaos`` is set).
+    per scenario when ``cfg.chaos`` is set), on one device or, with
+    ``mesh`` (sp x tp, dp 1), through the sharded decoder over it (the
+    oracle the same-mesh dense decoder, the modes ``_sp{sp}``).
 
     Clean-run gates: every scheduled request retires (nothing
     unaccounted), none failed or dropped, goodput-under-SLO >=
@@ -528,11 +535,12 @@ def run_loadgen(cfg: LoadGenConfig, writer=None) -> list:
             f"http://127.0.0.1:{port}`)"
         )
         try:
-            return run_loadgen(dataclasses.replace(cfg, obs_http=0), writer)
+            return run_loadgen(dataclasses.replace(cfg, obs_http=0), writer,
+                               mesh)
         finally:
             plane.stop()
     specs = _resolved_specs(cfg)
-    mcfg, decoder, params = build_loadgen(cfg, specs)
+    mcfg, decoder, params = build_loadgen(cfg, specs, mesh)
     config = {"device": str(decoder.device), "paged_attn": cfg.paged_attn}
 
     records = []
@@ -562,7 +570,7 @@ def run_loadgen(cfg: LoadGenConfig, writer=None) -> list:
             want = _oracle_expected(
                 mcfg, cfg.vocab, params, [tr.request for tr in schedule],
                 max_prompt=spec.max_prompt, max_gen=spec.max_gen,
-                cache_int8=cfg.cache_int8,
+                cache_int8=cfg.cache_int8, mesh=decoder.mesh,
             )
             mismatched = sorted(
                 rid for rid, ids in eng.done.items()
@@ -579,7 +587,7 @@ def run_loadgen(cfg: LoadGenConfig, writer=None) -> list:
         )
         rec = Record(
             pattern="loadgen",
-            mode=f"{spec.name}_sp1",
+            mode=spec.name + _sp_mode(decoder),
             commands=_scenario_commands(cfg, spec),
             metrics={
                 "goodput": round(st["goodput"], 4),
@@ -638,6 +646,7 @@ def run_loadgen(cfg: LoadGenConfig, writer=None) -> list:
                 "mitigation on the clean leg: the SLO budget burned "
                 "under the scenario's own load"
             )
+        rec.notes += _mesh_notes(decoder)
         writer.record(rec)
         records.append(rec)
         if cfg.kv_host_tier and spec.working_set_mult > 0:
@@ -695,7 +704,7 @@ def _kv_tier_loadgen_record(decoder, params, cfg, spec, schedule, writer,
     )
     rec = Record(
         pattern="loadgen",
-        mode=f"{spec.name}_kv_tier_sp1",
+        mode=f"{spec.name}_kv_tier" + _sp_mode(decoder),
         commands=(f"{_scenario_commands(cfg, spec)} "
                   f"ws_mult{spec.working_set_mult:g}"),
         metrics={
@@ -746,6 +755,7 @@ def _kv_tier_loadgen_record(decoder, params, cfg, spec, schedule, writer,
             f"SLO goodput {tier_st['goodput']:.3f} < defer-only "
             f"{base_st['goodput']:.3f}"
         )
+    rec.notes += _mesh_notes(decoder)
     writer.record(rec)
     return rec
 
@@ -786,7 +796,7 @@ def _chaos_record(
         verdict = Verdict.WARNING  # healed (or inert), not unscathed
     rec = Record(
         pattern="loadgen",
-        mode=f"{spec.name}_chaos_sp1",
+        mode=f"{spec.name}_chaos" + _sp_mode(decoder),
         commands=f"{_scenario_commands(cfg, spec)} | {cfg.chaos}",
         metrics={
             "goodput": round(st["goodput"], 4),
@@ -832,5 +842,6 @@ def _chaos_record(
         rec.notes.append(f"request {rid} QUARANTINED: {eng.failed[rid]}")
     for rid in sorted(source.dropped)[:4]:
         rec.notes.append(f"request {rid} DROPPED: {source.dropped[rid]}")
+    rec.notes += _mesh_notes(decoder)
     writer.record(rec)
     return rec

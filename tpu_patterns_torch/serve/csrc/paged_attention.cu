@@ -5,8 +5,8 @@
 // the UNNORMALIZED online-softmax triple of the row's G*W query rows
 // against the row's pool pages:
 //   o [B, Hkv, G*W, D] f32, m / l [B, Hkv, G*W] f32.
-// The normalize and the regroup to [B, W, H, D] stay in torch
-// (serve/paged_kernel.py::paged_attend).
+// The sp combine, the normalize and the regroup to [B, W, H, D] stay in
+// torch (serve/paged.py::paged_attend).
 //
 // What bounds it on this card: at the serve shape, latency; at long
 // windows, device-memory bytes.  Per (b, h) it reads each visible key's
@@ -60,9 +60,16 @@
 //     that sees nothing keeps m = NEG_INF, l = 0, o = 0.  One split
 //     writes the output directly.
 //
+// Over sp ranks the pool is a shard: each block holds rank `rank`'s
+// stripe of bl = block_len / sp slots of a block_len-slot block (sp = 1:
+// bl = block_len, rank 0).  Local slot indices stay monotone in global
+// position, so staging and the split plan work on local indices; only
+// the liveness test, the cut-off nk and the key limits read positions.
+//
 // Masking and math follow the Pallas kernel: g-major row r is query
 // w = r % W at global position pos0 + w; a key at page j slot c sits at
-// j*block_len + c and is visible iff its page is live and k_pos <= q_pos;
+// j*block_len + rank*bl + c and is visible iff its page is live and
+// k_pos <= q_pos;
 // masked scores are NEG_INF = -1e30; p = exp(s - m) * (m > NEG_INF/2);
 // l sums the unscaled p; for int8 the k scale multiplies the score after
 // the d^-0.5 scale and the v scale multiplies p after l is summed.
@@ -186,7 +193,7 @@ __host__ __device__ inline size_t smem_bytes(int GW, int D, int kv_bytes,
          sizeof(int) * (GW + nb * sk + pps);
 }
 
-template <int QK, int KVK, int D>
+template <int QK, int KVK, int D, bool STRIPED>
 __global__ void __launch_bounds__(THREADS) paged_attention_split_kernel(
     const void* __restrict__ q_,      // [B, W, H, D]
     const void* __restrict__ k_,      // [n_blocks, bl, Hkv, D]
@@ -202,7 +209,7 @@ __global__ void __launch_bounds__(THREADS) paged_attention_split_kernel(
     float* __restrict__ part,         // partials (more than one split)
     unsigned int* __restrict__ count,  // [B * Hkv], 0 between launches
     int W, int H, int Hkv, int n_blocks, int bl, int n_pages, int pps,
-    int sp, float scale) {
+    int sp, int block_len, int rank, float scale) {
   using QT = typename Elem<QK>::T;
   using KT = typename Elem<KVK>::T;
   constexpr bool INT8 = KVK == 2;
@@ -226,7 +233,13 @@ __global__ void __launch_bounds__(THREADS) paged_attention_split_kernel(
   const int nb = pps > sp ? 2 : 1;       // stage buffers
   const int page0 = s * pps;
   const int np = min(pps, n_pages - page0);  // pages of this split
-  const int key0 = page0 * bl;               // first key position
+  const int key0 = page0 * bl;               // first key, local index
+  // a page's global extent and the split's first key position: a
+  // striped page is rank `rank`'s stripe of a block_len-slot block, an
+  // unstriped one (sp = 1) the whole block, whose positions are the
+  // local indices
+  const int blk = STRIPED ? block_len : bl;
+  const int gbase = STRIPED ? page0 * block_len + rank * bl : key0;
 
   extern __shared__ __align__(16) unsigned char smem[];
   const int red_bytes = static_cast<int>(sizeof(float)) * THREADS * EPC;
@@ -252,12 +265,22 @@ __global__ void __launch_bounds__(THREADS) paged_attention_split_kernel(
   for (int j = tid; j < np; j += THREADS) {
     int tab = tables[static_cast<size_t>(b) * n_pages + page0 + j];
     tab = min(max(tab, 0), n_blocks - 1);
-    const bool ok = tab != 0 && act && (page0 + j) * bl <= last_q;
+    const bool ok = tab != 0 && act && gbase + j * blk <= last_q;
     tab_s[j] = ok ? tab : -1;
     live |= ok;
   }
-  // keys past the row's last query are seen by no query row
-  const int nk = min(np * bl, last_q - key0 + 1);
+  // keys past the row's last query are seen by no query row.  Striped,
+  // count the local slots at positions <= last_q page by page (a page's
+  // slots sit at j*block_len + c relative to gbase, so the split's keys
+  // are no run of consecutive positions)
+  int nk = min(np * bl, last_q - key0 + 1);
+  if (STRIPED) {
+    const int rel = last_q - gbase;
+    const int jf = rel / block_len;
+    nk = rel < 0 ? 0
+         : jf >= np ? np * bl
+                    : jf * bl + min(bl, rel - jf * block_len + 1);
+  }
   const bool alive = __syncthreads_or(live) && nk > 0;
 
   const size_t bh = static_cast<size_t>(b) * Hkv + h;
@@ -297,7 +320,8 @@ __global__ void __launch_bounds__(THREADS) paged_attention_split_kernel(
           const int row = kbase + c;
           cp_async16(k_s + bf * kbuf + row * ROW + ch * 16, kb + off, n);
           cp_async16(v_s + (bf * sk + row) * ROW + ch * 16, vb + off, n);
-          if (ch == 0) klim_s[bf * sk + row] = tab < 0 ? INT_MAX : j * bl + c;
+          if (ch == 0)
+            klim_s[bf * sk + row] = tab < 0 ? INT_MAX : j * blk + c;
         }
         if (INT8) {
           const size_t sp0 =
@@ -322,7 +346,7 @@ __global__ void __launch_bounds__(THREADS) paged_attention_split_kernel(
           q[((static_cast<size_t>(b) * W + w) * H + h * G + g) * D + d]);
       acc_s[i] = 0.f;
       if (d == 0) {
-        qlim_s[r] = p0 + w - key0;
+        qlim_s[r] = p0 + w - gbase;
         m_s[r] = NEG_INF;
         l_s[r] = 0.f;
       }
@@ -534,12 +558,16 @@ int launch(const void* q, const void* k, const void* v, const float* ks,
            const float* vs, const int32_t* tables, const int32_t* pos0,
            const uint8_t* active, float* o, float* m, float* l, float* part,
            unsigned int* count, int B, int W, int H, int Hkv, int n_blocks,
-           int bl, int n_pages, int pps, int sp, float scale, size_t smem,
-           cudaStream_t stream) {
+           int bl, int n_pages, int pps, int sp, int block_len, int rank,
+           float scale, size_t smem, cudaStream_t stream) {
+  // sp = 1 runs the unstriped instance: its position arithmetic is the
+  // local indices', with no per-page division
+  auto kernel = block_len == bl
+                    ? paged_attention_split_kernel<QK, KVK, D, false>
+                    : paged_attention_split_kernel<QK, KVK, D, true>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        paged_attention_split_kernel<QK, KVK, D>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (e != cudaSuccess) {
       cudaGetLastError();  // clear it, so the next launch reports its own
@@ -547,9 +575,9 @@ int launch(const void* q, const void* k, const void* v, const float* ks,
     }
   }
   dim3 grid((n_pages + pps - 1) / pps, Hkv, B);
-  paged_attention_split_kernel<QK, KVK, D><<<grid, THREADS, smem, stream>>>(
+  kernel<<<grid, THREADS, smem, stream>>>(
       q, k, v, ks, vs, tables, pos0, active, o, m, l, part, count, W, H, Hkv,
-      n_blocks, bl, n_pages, pps, sp, scale);
+      n_blocks, bl, n_pages, pps, sp, block_len, rank, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -559,12 +587,14 @@ int launch_d(int D, const void* q, const void* k, const void* v,
              const int32_t* pos0, const uint8_t* active, float* o, float* m,
              float* l, float* part, unsigned int* count, int B, int W, int H,
              int Hkv, int n_blocks, int bl, int n_pages, int pps, int sp,
-             float scale, size_t smem, cudaStream_t stream) {
+             int block_len, int rank, float scale, size_t smem,
+             cudaStream_t stream) {
 #define PAGED_CASE(DV)                                                      \
   case DV:                                                                  \
     return launch<QK, KVK, DV>(q, k, v, ks, vs, tables, pos0, active, o, m, \
                                l, part, count, B, W, H, Hkv, n_blocks, bl,  \
-                               n_pages, pps, sp, scale, smem, stream);
+                               n_pages, pps, sp, block_len, rank, scale,    \
+                               smem, stream);
   switch (D) {
     PAGED_CASE(32)
     PAGED_CASE(64)
@@ -590,9 +620,11 @@ size_t paged_attention_smem_bytes(int GW, int D, int kv_kind, int bl,
 }
 
 // q_kind: 0 float32, 1 bfloat16.  kv_kind: 0 float32, 1 bfloat16,
-// 2 int8 with float32 per-slot scales ks/vs.  `pps` pages a split,
-// ceil(n_pages / pps) splits, each staged `sp` pages (1 <= sp <= pps) at
-// a time.  With more than one split, `part` holds
+// 2 int8 with float32 per-slot scales ks/vs.  The pool's blocks hold
+// `bl` slots, sp rank `rank`'s stripe of `block_len`-slot blocks
+// (block_len a multiple of bl, 0 <= rank < block_len / bl).  `pps`
+// pages a split, ceil(n_pages / pps) splits, each staged `sp` pages
+// (1 <= sp <= pps) at a time.  With more than one split, `part` holds
 // B*Hkv*splits*GW*(D + 2) floats and `count` B*Hkv zeros (the kernel
 // leaves them 0).  Launches on ``stream`` and returns cudaGetLastError()
 // (0 on success); never synchronizes.
@@ -602,9 +634,11 @@ int paged_attention(int q_kind, int kv_kind, const void* q, const void* k,
                     const uint8_t* active, float* o, float* m, float* l,
                     float* part, unsigned int* count, int B, int W, int H,
                     int Hkv, int D, int n_blocks, int bl, int n_pages,
-                    int pps, int sp, float scale, void* stream) {
+                    int pps, int sp, int block_len, int rank, float scale,
+                    void* stream) {
   if (B == 0 || Hkv == 0) return 0;
   if (n_pages < 1 || pps < 1 || sp < 1 || sp > pps || bl < 1 ||
+      block_len % bl != 0 || rank < 0 || rank >= block_len / bl ||
       B > 65535 || Hkv > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem =
@@ -614,7 +648,8 @@ int paged_attention(int q_kind, int kv_kind, const void* q, const void* k,
   if (q_kind == QK && kv_kind == KVK)                                        \
     return launch_d<QK, KVK>(D, q, k, v, ks, vs, tables, pos0, active, o, m, \
                              l, part, count, B, W, H, Hkv, n_blocks, bl,     \
-                             n_pages, pps, sp, scale, smem, st);
+                             n_pages, pps, sp, block_len, rank, scale, smem, \
+                             st);
   PAGED_KINDS(0, 0)
   PAGED_KINDS(1, 1)
   PAGED_KINDS(0, 2)

@@ -79,7 +79,11 @@ against the per-request dense decoder and the in-place pool; with
 it is the preemptible one-pass run (``--resume`` continues it), with
 ``kv_host_tier`` the tier-against-defer race or (with ``session_dir``)
 the session-cache run, and with ``scenario`` the load generator's SLO
-pattern (``loadgen/runner.py``).
+pattern (``loadgen/runner.py``).  Each runs on one device or, with
+``mesh``, over sp x tp ranks through the one ``serve/paged.py::
+PagedDecoder``; the engine itself knows no ranks (the decoder owns the
+pool's layout, its snapshot tree and its block copies, which move
+blocks in the global layout) and reads the mesh from the decoder.
 """
 
 from __future__ import annotations
@@ -97,7 +101,7 @@ import torch
 
 from tpu_patterns_torch import ckpt, faults, obs, rt
 from tpu_patterns_torch.core.results import Record, ResultWriter, Verdict
-from tpu_patterns_torch.core.timing import clock_ns, device_barrier
+from tpu_patterns_torch.core.timing import clock_ns
 from tpu_patterns_torch.models.decode import kv_slot_bytes
 from tpu_patterns_torch.models.lm import init_lm_params, make_lm_decoder
 from tpu_patterns_torch.models.transformer import ModelConfig
@@ -420,7 +424,7 @@ class ServeEngine:
     def pool_ptrs(self) -> dict[str, int]:
         """Device addresses of the pool leaves: unchanged across a run
         iff every prefill, step and onload updated the pool in place."""
-        return {n: t.data_ptr() for n, t in self.pool.items()}
+        return self.decoder.pool_ptrs(self.pool)
 
     def _release_block(self, b: int) -> None:
         """Drop one table reference; the last one frees the block and
@@ -1383,7 +1387,7 @@ class ServeEngine:
             "stats": {k: v for k, v in self.stats.items()
                       if k != "queue_wait_ns"},
         }
-        tree = {"pool": self.pool}
+        tree = {"pool": self.decoder.pool_tree(self.pool)}
         if self.tier is not None:
             handles, arrays = self.tier.state_arrays()
             state["retained"] = {str(b): n for b, n in self.retained.items()}
@@ -1429,9 +1433,8 @@ class ServeEngine:
                 f"(mismatched: {sorted(diff)}): resume with the flags of "
                 "the preempted run"
             )
-        # host templates: the pool comes back into its own buffers below
-        template = {"pool": {n: torch.empty(t.shape, dtype=t.dtype)
-                             for n, t in self.pool.items()}}
+        # the pool comes back into its own buffers below
+        template = {"pool": self.decoder.pool_template(self.pool)}
         if self.tier is not None and state.get("tier") is not None:
             n_host = len(state["tier"]["handles"])
             template["tier"] = {
@@ -1439,8 +1442,7 @@ class ServeEngine:
                 for name, (shape, dt) in self.tier.leaf_meta.items()
             }
         tree = ckpt.restore(self.snapshot_dir, template, step=step)
-        for n, leaf in self.pool.items():
-            leaf.copy_(tree["pool"][n])
+        self.decoder.load_pool(self.pool, tree["pool"])
         if "tier" in template:
             handles = [int(h) for h in state["tier"]["handles"]]
             paths = {h: tuple(state["tier"]["paths"][str(h)])
@@ -1845,41 +1847,52 @@ def model_config(cfg: ServeConfig) -> ModelConfig:
     )
 
 
-def _dense_expected(mcfg, cfg: ServeConfig, params, requests):
+def _dense_expected(mcfg, cfg: ServeConfig, params, requests, mesh=None):
     """Per-request greedy ids from the dense batch-1 decoder: the
     engine-independent ground truth."""
     return _oracle_expected(
         mcfg, cfg.vocab, params, requests, max_prompt=cfg.max_prompt,
-        max_gen=cfg.gen, cache_int8=cfg.cache_int8,
+        max_gen=cfg.gen, cache_int8=cfg.cache_int8, mesh=mesh,
     )
 
 
 def _oracle_expected(mcfg, vocab: int, params, requests, *, max_prompt: int,
-                     max_gen: int, cache_int8: bool = False):
+                     max_gen: int, cache_int8: bool = False, mesh=None):
     """Per-request ground-truth ids from the dense batch-1 decoder:
     greedy rows by the argmax rollout, sampled rows (``temperature >
     0``) by the same ``sample_token_rows`` the serve cores run, keyed
     ``(request.seed, gen_offset + n)``.  No pool, no scheduler, no
-    batching: the fixed-seed oracle of every exactness gate."""
-    dev = params["wemb"].device
-    dpre, dgen = make_lm_decoder(mcfg, vocab, 1, max_prompt, max_gen,
-                                 cache_int8=cache_int8)
+    batching: the fixed-seed oracle of every exactness gate.  Over
+    ``mesh`` (the serve decoder's; ``params`` its per-rank lists) it is
+    the same-mesh dense decoder, the prompt and generation lengths
+    padded up to a multiple of sp as the reference pads them."""
+    sp = mesh.dim("sp") if mesh is not None else 1
+    lpd = max_prompt + (-max_prompt % sp)
+    gen_cap = max_gen + (-max_gen % sp)
+    dpre, dgen = make_lm_decoder(mcfg, vocab, 1, lpd, gen_cap,
+                                 cache_int8=cache_int8, mesh=mesh)
     want: dict[int, list[int]] = {}
     for r in requests:
-        toks = torch.zeros((1, max_prompt), dtype=torch.int32)
+        toks = torch.zeros((1, lpd), dtype=torch.int32)
         toks[0, : len(r.tokens)] = torch.as_tensor(r.tokens)
         lens = torch.tensor([len(r.tokens)], dtype=torch.int32)
         rows = None
         if r.temperature > 0:
             rows = ([r.seed], [r.gen_offset], [r.temperature], [r.top_k],
                     [r.top_p])
-        cache, t0 = dpre(params, toks.to(dev), lens, sample_rows=rows)
-        ids = [int(t0[0])]
+        if mesh is None:
+            toks = toks.to(params["wemb"].device)
+        else:  # each rank's sp shard of the prompt
+            toks = mesh.shard(toks, ("dp", "sp"))
+        cache, t0 = dpre(params, toks, lens, sample_rows=rows)
+        out = [t0]
         if r.n_gen > 1:
-            _, gen_ids = dgen(params, cache, t0, (lens, 0), r.n_gen - 1,
-                              sample_rows=rows)
-            ids += gen_ids[0].tolist()
-        want[r.rid] = ids
+            out.append(dgen(params, cache, t0, (lens, 0), r.n_gen - 1,
+                            sample_rows=rows)[1])
+        if mesh is not None:  # rank 0's copy: every rank's is the same
+            out = [o[0] for o in out]
+        want[r.rid] = [int(out[0][0])] + (out[1][0].tolist()
+                                          if len(out) > 1 else [])
     return want
 
 
@@ -1910,11 +1923,11 @@ def timed_run(decoder: PagedDecoder, params: dict, trace: list[Request],
     )
     eng = ServeEngine(decoder, params, slots=slots, **engine_kw)
     ptrs = eng.pool_ptrs()
-    device_barrier(decoder.device)
+    decoder.sync()
     paged_block.launches = 0
     t0 = clock_ns()
     out = eng.run([dataclasses.replace(r) for r in trace])
-    device_barrier(decoder.device)
+    decoder.sync()
     wall_s = (clock_ns() - t0) / 1e9
     return out, wall_s, eng, ptrs == eng.pool_ptrs(), paged_block.launches
 
@@ -1931,15 +1944,17 @@ def serve_legs(decoder: PagedDecoder, params: dict, trace: list[Request],
                      launches)
 
 
-def build_serve(cfg: ServeConfig):
-    """(model config, decoder, params, trace) for ``cfg`` on its device:
-    weights from ``cfg.seed``, the trace from ``cfg.seed + 1``."""
-    dev = resolve_device(cfg.device)
+def build_serve(cfg: ServeConfig, mesh=None):
+    """(model config, decoder, params, trace) for ``cfg`` on its device
+    (or over ``mesh``, sp x tp: params split over its ranks): weights
+    from ``cfg.seed``, the trace from ``cfg.seed + 1``."""
+    dev = resolve_device(cfg.device) if mesh is None else mesh.devices[0]
     mcfg = model_config(cfg)
     decoder = make_paged_lm_decoder(
         mcfg, cfg.vocab, n_blocks=cfg.n_blocks or _auto_blocks(cfg),
         block_len=cfg.block_len, max_len=cfg.max_prompt + cfg.gen,
         cache_int8=cfg.cache_int8, attn=cfg.paged_attn, device=dev,
+        mesh=mesh,
     )
     params = decoder.stack_params(
         init_lm_params(cfg.seed, mcfg, cfg.vocab, dev)
@@ -1948,7 +1963,9 @@ def build_serve(cfg: ServeConfig):
 
 
 def cache_mb(cfg: ServeConfig, decoder: PagedDecoder) -> tuple[float, float]:
-    """(pool MB, dense ``slots x max_len`` rectangle MB) of KV cache."""
+    """(pool MB, dense ``slots x max_len`` rectangle MB) of KV cache, the
+    pool's summed over every rank of a mesh (each holds its stripe and
+    heads, nothing twice)."""
     mcfg = decoder.cfg
     dense = (
         cfg.depth * cfg.slots * (cfg.max_prompt + cfg.gen)
@@ -1978,7 +1995,19 @@ def _first_divergence(writer, what, trace, got, want_ids) -> bool:
     return True
 
 
-def prefix_decoder(cfg: ServeConfig, mcfg, device) -> PagedDecoder:
+def _sp_mode(decoder: PagedDecoder) -> str:
+    """The Records' mode suffix: the sp of the decoder's pool."""
+    return f"_sp{decoder.layout.sp}"
+
+
+def _mesh_notes(decoder: PagedDecoder) -> list[str]:
+    """What a Record says of ranks sharing a device (``RankMesh.note``)."""
+    note = decoder.mesh and decoder.mesh.note("sp combines and tp sums")
+    return [note] if note else []
+
+
+def prefix_decoder(cfg: ServeConfig, mcfg, device, mesh=None
+                   ) -> PagedDecoder:
     """The prefix-share Record's decoder: a pool covering every slot's
     whole lifetime, so sharing changes allocation and never deferral."""
     max_len = cfg.max_prompt + cfg.gen
@@ -1987,18 +2016,19 @@ def prefix_decoder(cfg: ServeConfig, mcfg, device) -> PagedDecoder:
         mcfg, cfg.vocab, n_blocks=cfg.slots * per_row + 1,
         block_len=cfg.block_len, max_len=max_len,
         cache_int8=cfg.cache_int8, attn=cfg.paged_attn, device=device,
+        mesh=mesh,
     )
 
 
 def _prefix_record(cfg: ServeConfig, writer: ResultWriter, mcfg, params,
-                   device) -> Record:
+                   main: PagedDecoder) -> Record:
     """Measured pattern: the same shared-prefix trace served with CoW
     block sharing on and off, through one decoder whose pool covers the
     whole non-shared demand (so the contrast is allocation, not
     deferral).  Gates: at least ``min_block_savings`` fewer peak
     allocated blocks, every request's ids equal to its per-request dense
     decode, shared ids equal to non-shared ones, and no leaked block."""
-    decoder = prefix_decoder(cfg, mcfg, device)
+    decoder = prefix_decoder(cfg, mcfg, main.device, main.mesh)
     trace, s_len = shared_trace(cfg)
 
     def serve_once(share: bool):
@@ -2011,7 +2041,7 @@ def _prefix_record(cfg: ServeConfig, writer: ResultWriter, mcfg, params,
         out_shared, eng_s = serve_once(True)
     with obs.span("serve.prefix_baseline"):
         out_plain, eng_p = serve_once(False)
-    want_ids = _dense_expected(mcfg, cfg, params, trace)
+    want_ids = _dense_expected(mcfg, cfg, params, trace, decoder.mesh)
     exact = out_shared == out_plain and _first_divergence(
         writer, "prefix-share", trace, out_shared, want_ids)
 
@@ -2024,7 +2054,8 @@ def _prefix_record(cfg: ServeConfig, writer: ResultWriter, mcfg, params,
           and leaked == 0 and not eng_s.failed and not eng_p.failed)
     rec = Record(
         pattern="serve",
-        mode=f"prefix_share_req{cfg.requests}_bl{cfg.block_len}_sp1",
+        mode=f"prefix_share_req{cfg.requests}_bl{cfg.block_len}"
+        + _sp_mode(decoder),
         commands=_serve_commands(cfg) + f" shared{s_len}",
         metrics={
             "exact": float(exact),
@@ -2055,6 +2086,7 @@ def _prefix_record(cfg: ServeConfig, writer: ResultWriter, mcfg, params,
         )
     if leaked:
         rec.notes.append(f"{leaked} block(s) leaked by the refcounts")
+    rec.notes += _mesh_notes(decoder)
     writer.record(rec)
     return rec
 
@@ -2077,7 +2109,7 @@ def _spec_record(cfg: ServeConfig, writer: ResultWriter, mcfg, decoder,
                                 watchdog_s=cfg.watchdog_s,
                                 **_slo_kwargs(cfg))
         out_plain = eng_plain.run([dataclasses.replace(r) for r in trace])
-    want_ids = _dense_expected(mcfg, cfg, params, trace)
+    want_ids = _dense_expected(mcfg, cfg, params, trace, decoder.mesh)
     exact = out_spec == out_plain and _first_divergence(
         writer, "spec-decode", trace, out_spec, want_ids)
 
@@ -2088,7 +2120,7 @@ def _spec_record(cfg: ServeConfig, writer: ResultWriter, mcfg, decoder,
           and not eng_spec.failed and not eng_plain.failed)
     rec = Record(
         pattern="serve",
-        mode=f"spec_decode_k{cfg.spec_k}_sp1",
+        mode=f"spec_decode_k{cfg.spec_k}" + _sp_mode(decoder),
         commands=_serve_commands(cfg),
         metrics={
             "exact": float(exact),
@@ -2111,6 +2143,7 @@ def _spec_record(cfg: ServeConfig, writer: ResultWriter, mcfg, decoder,
             f"accepted-tokens/step {accepted:.2f} <= {cfg.min_accepted}:"
             " drafts were not worth a wide step on this trace"
         )
+    rec.notes += _mesh_notes(decoder)
     writer.record(rec)
     return rec
 
@@ -2161,7 +2194,8 @@ def _run_preemptible(cfg: ServeConfig, writer: ResultWriter, mcfg,
         out = eng.run([])
     else:
         out = eng.run([dataclasses.replace(r) for r in trace])
-    mode = ("resume" if cfg.resume else "preemptible") + f"_slots{cfg.slots}_sp1"
+    mode = (("resume" if cfg.resume else "preemptible")
+            + f"_slots{cfg.slots}" + _sp_mode(decoder))
     config = {"device": str(decoder.device), "paged_attn": cfg.paged_attn}
     if eng.preempted_at is not None:
         rec = Record(
@@ -2180,6 +2214,7 @@ def _run_preemptible(cfg: ServeConfig, writer: ResultWriter, mcfg,
             ],
             config=config,
         )
+        rec.notes += _mesh_notes(decoder)
         writer.record(rec)
         return [rec]
     if cfg.ids_out:
@@ -2188,7 +2223,8 @@ def _run_preemptible(cfg: ServeConfig, writer: ResultWriter, mcfg,
                        "failed": {str(k): eng.failed[k]
                                   for k in sorted(eng.failed)}}, f)
     want_ids = _dense_expected(mcfg, cfg, params,
-                               [r for r in trace if r.rid in out])
+                               [r for r in trace if r.rid in out],
+                               decoder.mesh)
     mismatched = [r.rid for r in trace
                   if r.rid in out and out[r.rid] != want_ids[r.rid]]
     unaccounted = [r.rid for r in trace
@@ -2240,6 +2276,7 @@ def _run_preemptible(cfg: ServeConfig, writer: ResultWriter, mcfg,
         rec.notes.append(f"request {rid} QUARANTINED: {eng.failed[rid]}")
     if len(eng.failed) > 8:
         rec.notes.append(f"... and {len(eng.failed) - 8} more quarantined")
+    rec.notes += _mesh_notes(decoder)
     writer.record(rec)
     return [rec]
 
@@ -2272,7 +2309,8 @@ def session_trace(cfg: ServeConfig) -> tuple[list[Request], int]:
     return reqs, gen
 
 
-def _kv_tier_pool(cfg: ServeConfig, mcfg, device) -> PagedDecoder:
+def _kv_tier_pool(cfg: ServeConfig, mcfg, device, mesh=None
+                  ) -> PagedDecoder:
     """The oversubscribed pool of both kv-tier patterns: the shared
     prefix (2 blocks) plus ``slots`` turn-2 private working sets (3
     each), under the defer-only engine's turn-1 demand (``slots x 4``),
@@ -2281,7 +2319,7 @@ def _kv_tier_pool(cfg: ServeConfig, mcfg, device) -> PagedDecoder:
     return make_paged_lm_decoder(
         mcfg, cfg.vocab, n_blocks=2 + 3 * cfg.slots + 1, block_len=bl,
         max_len=5 * bl, cache_int8=cfg.cache_int8, attn=cfg.paged_attn,
-        device=device,
+        device=device, mesh=mesh,
     )
 
 
@@ -2292,7 +2330,7 @@ def _kv_oracle_cfg(cfg: ServeConfig, gen: int) -> ServeConfig:
 
 
 def _kv_tier_record(cfg: ServeConfig, writer: ResultWriter, mcfg, params,
-                    device) -> Record:
+                    main: PagedDecoder) -> Record:
     """Measured pattern: the oversubscribed session trace served with the
     host KV tier on and by the defer-only engine, through pools of one
     size, each timed after a warm-up run.  Gates: the defer-only leg
@@ -2302,7 +2340,7 @@ def _kv_tier_record(cfg: ServeConfig, writer: ResultWriter, mcfg, params,
     defer-only leg's; ids equal to the dense decode's and the defer-only
     leg's; no leaked block."""
     trace, gen = session_trace(cfg)
-    decoder = _kv_tier_pool(cfg, mcfg, device)
+    decoder = _kv_tier_pool(cfg, mcfg, main.device, main.mesh)
     n_blocks = decoder.layout.n_blocks
     total_tokens = sum(r.n_gen for r in trace)
 
@@ -2315,17 +2353,18 @@ def _kv_tier_record(cfg: ServeConfig, writer: ResultWriter, mcfg, params,
 
         build().run([dataclasses.replace(r) for r in trace])  # warm-up
         eng = build()
-        device_barrier(decoder.device)
+        decoder.sync()
         t0 = clock_ns()
         out = eng.run([dataclasses.replace(r) for r in trace])
-        device_barrier(decoder.device)
+        decoder.sync()
         return out, (clock_ns() - t0) / 1e9, eng
 
     with obs.span("serve.kv_tier", requests=len(trace)):
         out_tier, tier_s, eng_t = serve_once(True)
     with obs.span("serve.kv_defer_baseline"):
         out_base, base_s, eng_b = serve_once(False)
-    want_ids = _dense_expected(mcfg, _kv_oracle_cfg(cfg, gen), params, trace)
+    want_ids = _dense_expected(mcfg, _kv_oracle_cfg(cfg, gen), params, trace,
+                               decoder.mesh)
     exact = out_tier == out_base and _first_divergence(
         writer, "kv-tier", trace, out_tier, want_ids)
     tier_tps = total_tokens / tier_s if tier_s > 0 else 0.0
@@ -2340,7 +2379,8 @@ def _kv_tier_record(cfg: ServeConfig, writer: ResultWriter, mcfg, params,
           and not eng_t.failed and not eng_b.failed)
     rec = Record(
         pattern="serve",
-        mode=f"kv_tier_slots{cfg.slots}_bl{cfg.block_len}_sp1",
+        mode=f"kv_tier_slots{cfg.slots}_bl{cfg.block_len}"
+        + _sp_mode(decoder),
         commands=(
             f"req{len(trace)} conv{len(trace) // 2}x2turns gen{gen} "
             f"pool{n_blocks} V{cfg.vocab} depth{cfg.depth} {cfg.dtype}"
@@ -2399,12 +2439,13 @@ def _kv_tier_record(cfg: ServeConfig, writer: ResultWriter, mcfg, params,
         )
     if leaked:
         rec.notes.append(f"{leaked} block(s) leaked through evict/restore")
+    rec.notes += _mesh_notes(decoder)
     writer.record(rec)
     return rec
 
 
 def _kv_session_record(cfg: ServeConfig, writer: ResultWriter, mcfg,
-                       params, device) -> Record:
+                       params, main: PagedDecoder) -> Record:
     """Measured pattern: one pass of the session trace with the tier and
     the session cache (``session_dir``) on, gated against the dense
     decode.  The Record carries what a restart is held to:
@@ -2412,7 +2453,7 @@ def _kv_session_record(cfg: ServeConfig, writer: ResultWriter, mcfg,
     start), ``onload_hits`` and ``prompt_fresh_full_blocks`` (0 on a
     resumed run: no history block prefilled again)."""
     trace, gen = session_trace(cfg)
-    decoder = _kv_tier_pool(cfg, mcfg, device)
+    decoder = _kv_tier_pool(cfg, mcfg, main.device, main.mesh)
     n_blocks = decoder.layout.n_blocks
     eng = ServeEngine(
         decoder, params, slots=cfg.slots, watchdog_s=cfg.watchdog_s,
@@ -2423,7 +2464,8 @@ def _kv_session_record(cfg: ServeConfig, writer: ResultWriter, mcfg,
     with obs.span("serve.kv_session", requests=len(trace)):
         out = eng.run([dataclasses.replace(r) for r in trace])
     want_ids = _dense_expected(mcfg, _kv_oracle_cfg(cfg, gen), params,
-                               [r for r in trace if r.rid in out])
+                               [r for r in trace if r.rid in out],
+                               decoder.mesh)
     mismatched = [r.rid for r in trace
                   if r.rid in out and out[r.rid] != want_ids[r.rid]]
     unaccounted = [r.rid for r in trace
@@ -2437,7 +2479,8 @@ def _kv_session_record(cfg: ServeConfig, writer: ResultWriter, mcfg,
         verdict = Verdict.WARNING
     rec = Record(
         pattern="serve",
-        mode=f"kv_session_slots{cfg.slots}_bl{cfg.block_len}_sp1",
+        mode=f"kv_session_slots{cfg.slots}_bl{cfg.block_len}"
+        + _sp_mode(decoder),
         commands=(
             f"req{len(trace)} conv{len(trace) // 2}x2turns gen{gen} "
             f"pool{n_blocks} session={bool(cfg.session_dir)}"
@@ -2474,6 +2517,7 @@ def _kv_session_record(cfg: ServeConfig, writer: ResultWriter, mcfg,
         )
     if leaked:
         rec.notes.append(f"{leaked} block(s) leaked through the tier")
+    rec.notes += _mesh_notes(decoder)
     writer.record(rec)
     return rec
 
@@ -2503,8 +2547,8 @@ def _refuse_unsupported(cfg: ServeConfig) -> None:
         raise ValueError("serve --session_dir requires --kv_host_tier")
 
 
-def run_serve(cfg: ServeConfig, writer: ResultWriter | None = None
-              ) -> list[Record]:
+def run_serve(cfg: ServeConfig, writer: ResultWriter | None = None,
+              mesh=None) -> list[Record]:
     """Measured pattern: serve one trace continuous (``slots`` wide) and
     sequential (one slot, same decoder), and gate
 
@@ -2535,6 +2579,14 @@ def run_serve(cfg: ServeConfig, writer: ResultWriter | None = None
     With ``obs_http`` the live plane (``obs/live.py``) serves the whole
     run on that port of 127.0.0.1; every engine the run builds attaches
     to it while its loop runs.
+
+    With ``mesh`` (a ``comm/mesh.py::NamedMesh`` of sp x tp ranks, dp 1)
+    every path serves through the :class:`PagedDecoder` over it, its
+    exactness oracle is the same-mesh dense decoder, the modes say
+    ``_sp{sp}`` and each Record notes ranks that share a device.  As the
+    reference warns, an int8 pool at sp > 1 is held against a dense
+    prefill that attends float k/v, so an id whose top two logits lie
+    within the quantization error may flip there.
     """
     writer = writer or ResultWriter()
     _refuse_unsupported(cfg)
@@ -2550,12 +2602,13 @@ def run_serve(cfg: ServeConfig, writer: ResultWriter | None = None
             f"http://127.0.0.1:{port}`)"
         )
         try:
-            return run_serve(dataclasses.replace(cfg, obs_http=0), writer)
+            return run_serve(dataclasses.replace(cfg, obs_http=0), writer,
+                             mesh)
         finally:
             plane.stop()
     if cfg.scenario:
-        return _run_scenario(cfg, writer)
-    mcfg, decoder, params, trace = build_serve(cfg)
+        return _run_scenario(cfg, writer, mesh)
+    mcfg, decoder, params, trace = build_serve(cfg, mesh)
     if cfg.snapshot_dir:
         # a run that can be preempted anywhere has no speedup race; with
         # sharing or speculation asked for, it serves the trace their
@@ -2568,9 +2621,8 @@ def run_serve(cfg: ServeConfig, writer: ResultWriter | None = None
         return _run_preemptible(cfg, writer, mcfg, decoder, params, trace)
     if cfg.kv_host_tier:
         if cfg.session_dir:
-            return [_kv_session_record(cfg, writer, mcfg, params,
-                                       decoder.device)]
-        return [_kv_tier_record(cfg, writer, mcfg, params, decoder.device)]
+            return [_kv_session_record(cfg, writer, mcfg, params, decoder)]
+        return [_kv_tier_record(cfg, writer, mcfg, params, decoder)]
     total_tokens = sum(r.n_gen for r in trace)
 
     legs = serve_legs(decoder, params, trace, cfg.slots,
@@ -2585,7 +2637,7 @@ def run_serve(cfg: ServeConfig, writer: ResultWriter | None = None
         seq_tps
     )
 
-    want_ids = _dense_expected(mcfg, cfg, params, trace)
+    want_ids = _dense_expected(mcfg, cfg, params, trace, decoder.mesh)
     exact = legs.out_cont == legs.out_seq and _first_divergence(
         writer, "serve", trace, legs.out_cont, want_ids)
 
@@ -2596,7 +2648,7 @@ def run_serve(cfg: ServeConfig, writer: ResultWriter | None = None
     ok = exact and np.isfinite(speedup) and speedup > cfg.min_speedup and mem_ok
     rec = Record(
         pattern="serve",
-        mode=f"slots{cfg.slots}_bl{cfg.block_len}_sp1"
+        mode=f"slots{cfg.slots}_bl{cfg.block_len}" + _sp_mode(decoder)
         + (f"_gqa{cfg.kv_heads}" if cfg.kv_heads else "")
         + ("_int8" if cfg.cache_int8 else ""),
         commands=_serve_commands(cfg),
@@ -2634,11 +2686,11 @@ def run_serve(cfg: ServeConfig, writer: ResultWriter | None = None
             "memory gate FAILED: pool not updated in place or cache "
             "bytes not under the dense slots x max_len rectangle"
         )
+    rec.notes += _mesh_notes(decoder)
     writer.record(rec)
     recs = [rec]
     if cfg.prefix_share:
-        recs.append(_prefix_record(cfg, writer, mcfg, params,
-                                   decoder.device))
+        recs.append(_prefix_record(cfg, writer, mcfg, params, decoder))
     if cfg.spec_k:
         recs.append(_spec_record(cfg, writer, mcfg, decoder, params))
     return recs
@@ -2666,7 +2718,8 @@ def _run_scenario_config(cfg: ServeConfig):
     )
 
 
-def _run_scenario(cfg: ServeConfig, writer: ResultWriter) -> list[Record]:
+def _run_scenario(cfg: ServeConfig, writer: ResultWriter, mesh=None
+                  ) -> list[Record]:
     from tpu_patterns_torch.loadgen.runner import run_loadgen
 
-    return run_loadgen(_run_scenario_config(cfg), writer)
+    return run_loadgen(_run_scenario_config(cfg), writer, mesh)

@@ -2,8 +2,9 @@
 
 ``paged_block`` computes one layer's attention of q [B, W, H, D] against
 each row's pool pages, read through the block tables with no gathered
-window, and returns the unnormalized (o, m, l) triple; ``paged_attend``
-normalizes it and regroups the heads.  On a CUDA tensor ``paged_block``
+window, and returns the unnormalized (o, m, l) triple;
+``serve/paged.py::paged_attend`` combines an sp group's triples,
+normalizes and regroups the heads.  On a CUDA tensor ``paged_block``
 launches the hand-written kernel ``csrc/paged_attention.cu`` (built for
 sm_90a at first use) or raises; on a CPU tensor it runs
 :func:`paged_block_reference`, the same function in plain torch.  There
@@ -16,12 +17,18 @@ partials and merge in plain torch, so that the split and combine math
 is testable on the CPU (nothing on the serve path calls it).
 
 Counterpart of ``tpu_patterns/serve/paged_kernel.py`` (``paged_block``,
-``paged_attend``) on one device: query rows regroup g-major to
-[B, Hkv, G*W, D] (row r is query ``r % W`` of group ``r // W``),
-causality is by global position (query w at ``pos0 + w``), pages that
-are TRASH, belong to an inactive row or lie wholly in the future are
-skipped, and int8 pools dequantize inside the math (k's scale on the
-score, v's on the probability after the normalizer sums).
+``paged_attend``): query rows regroup g-major to [B, Hkv, G*W, D] (row r
+is query ``r % W`` of group ``r // W``), causality is by global position
+(query w at ``pos0 + w``), pages that are TRASH, belong to an inactive
+row or lie wholly in the future are skipped, and int8 pools dequantize
+inside the math (k's scale on the score, v's on the probability after
+the normalizer sums).
+
+Over sp ranks each rank holds a stripe of every block: a shard pool
+[n_blocks, bl_loc, Hkv, D] with ``bl_loc = block_len / sp``, whose slot
+s of page j sits at global position ``j * block_len + rank * bl_loc +
+s``.  ``paged_block`` takes the rank and computes that shard's partial
+triple.
 """
 
 from __future__ import annotations
@@ -47,10 +54,11 @@ def _regroup_q(q: torch.Tensor, hkv: int) -> torch.Tensor:
     )
 
 
-def _masked_scores(q, k, tables, pos0, active, block_len, k_scale):
+def _masked_scores(q, k, tables, pos0, active, block_len, k_scale, rank=0):
     """The kernel's masked scores [B, Hkv, G*W, n_pages*bl] in float32
     (NEG_INF where a key is not visible) and the window gather it reads
-    the pool through."""
+    the pool through; ``bl`` is the pool's block, sp rank ``rank``'s
+    stripe of each ``block_len``-slot block."""
     b, w, h, d = q.shape
     n_blocks, bl, hkv, _ = k.shape
     n_pages = tables.shape[1]
@@ -67,14 +75,15 @@ def _masked_scores(q, k, tables, pos0, active, block_len, k_scale):
     s = qt @ window(k).transpose(-1, -2) * d**-0.5  # [B, Hkv, GW, L]
     if k_scale is not None:
         s = s * window(k_scale)[:, :, None, :]
-    j = torch.arange(n_pages, device=dev)
+    # each page's first key position: its block's, plus this stripe's
+    first = torch.arange(n_pages, device=dev) * block_len + rank * bl
     live = (
         (tb != TRASH_BLOCK)
         & active.to(torch.bool)[:, None]
-        & (j[None, :] * block_len <= pos0[:, None] + w - 1)
+        & (first[None, :] <= pos0[:, None] + w - 1)
     )  # [B, n_pages]
     live = live.repeat_interleave(bl, dim=1)  # [B, L]
-    k_pos = torch.arange(n_pages * bl, device=dev)
+    k_pos = (first[:, None] + torch.arange(bl, device=dev)).reshape(-1)
     q_pos = pos0[:, None] + torch.arange(gw, device=dev)[None, :] % w
     visible = (k_pos[None, None, :] <= q_pos[:, :, None]) & live[:, None, :]
     return torch.where(visible[:, None], s, NEG_INF), window
@@ -92,19 +101,20 @@ def _softmax_triple(s, v_win, vs_win):
 
 
 def paged_block_reference(
-    q, k, v, tables, pos0, active, *, block_len, k_scale=None, v_scale=None
+    q, k, v, tables, pos0, active, *, block_len, rank=0, k_scale=None,
+    v_scale=None,
 ):
     """Plain-torch K1: the kernel's function by gather, in float32, with
     the kernel's masks and order of scaling.  Shapes as
     :func:`paged_block`."""
     s, window = _masked_scores(q, k, tables, pos0, active, block_len,
-                               k_scale)
+                               k_scale, rank)
     vs = window(v_scale)[:, :, None, :] if v_scale is not None else None
     return _softmax_triple(s, window(v), vs)
 
 
 def paged_block_split_reference(
-    q, k, v, tables, pos0, active, *, block_len, pages_per_split,
+    q, k, v, tables, pos0, active, *, block_len, pages_per_split, rank=0,
     k_scale=None, v_scale=None,
 ):
     """Plain-torch K1 by the kernel's own algorithm: each split of
@@ -114,7 +124,7 @@ def paged_block_split_reference(
     sees nothing keeps m = NEG_INF, l = 0, o = 0.  Equal to
     :func:`paged_block_reference` up to float32 rounding."""
     s, window = _masked_scores(q, k, tables, pos0, active, block_len,
-                               k_scale)
+                               k_scale, rank)
     v_win = window(v)
     vs_win = window(v_scale) if v_scale is not None else None
     bl = k.shape[1]
@@ -186,7 +196,7 @@ def _library() -> ctypes.CDLL:
         lib.paged_attention.restype = ctypes.c_int
         lib.paged_attention.argtypes = (
             [ctypes.c_int] * 2 + [ctypes.c_void_p] * 13
-            + [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p]
+            + [ctypes.c_int] * 12 + [ctypes.c_float, ctypes.c_void_p]
         )
     return lib
 
@@ -216,7 +226,7 @@ def _workspace(dev, stream, n_count, n_part):
     return count, part
 
 
-def _launch_kernel(q, k, v, tables, pos0, active, block_len, k_scale,
+def _launch_kernel(q, k, v, tables, pos0, active, block_len, rank, k_scale,
                    v_scale):
     b, w, h, d = q.shape
     n_blocks, bl, hkv, _ = k.shape
@@ -229,7 +239,8 @@ def _launch_kernel(q, k, v, tables, pos0, active, block_len, k_scale,
     _check(v.dtype == k.dtype and v.shape == k.shape, "k/v pools differ")
     _check(d in _KERNEL_D, f"head_dim {d} not in {_KERNEL_D}")
     _check(h % hkv == 0 and k.shape[3] == d, "head counts or head_dim")
-    _check(bl == block_len, f"pool block {bl} != block_len {block_len}")
+    _check(block_len % bl == 0 and 0 <= rank < block_len // bl,
+           f"pool block {bl} is no stripe {rank} of block_len {block_len}")
     _check(tables.dtype == torch.int32 and tables.shape[0] == b
            and n_pages >= 1, "tables must be int32 [B, n_pages >= 1]")
     _check(pos0.dtype == torch.int32 and pos0.shape == (b,),
@@ -272,7 +283,8 @@ def _launch_kernel(q, k, v, tables, pos0, active, block_len, k_scale,
         tables.data_ptr(), pos0.data_ptr(), active.data_ptr(),
         o.data_ptr(), m.data_ptr(), l.data_ptr(), part.data_ptr(),
         count.data_ptr(),
-        b, w, h, hkv, d, n_blocks, bl, n_pages, pps, sp, d**-0.5, stream,
+        b, w, h, hkv, d, n_blocks, bl, n_pages, pps, sp, block_len, rank,
+        d**-0.5, stream,
     )
     if rc != 0:
         # the card refuses a shared-memory request over its per-block
@@ -288,50 +300,32 @@ def _launch_kernel(q, k, v, tables, pos0, active, block_len, k_scale,
 
 
 def paged_block(
-    q, k, v, tables, pos0, active, *, block_len, k_scale=None, v_scale=None
+    q, k, v, tables, pos0, active, *, block_len, rank=0, k_scale=None,
+    v_scale=None,
 ):
-    """One layer's unnormalized paged attention:
+    """One layer's unnormalized paged attention on one shard:
     (o [B, Hkv, G*W, D] f32, m [B, Hkv, G*W] f32, l [B, Hkv, G*W] f32).
 
     q [B, W, H, D] (query w of row b at global position ``pos0[b] + w``);
-    k/v one layer's pool leaves [n_blocks, block_len, Hkv, D] (int8 with
-    ``k_scale``/``v_scale`` [n_blocks, block_len, Hkv] float32); tables
-    [B, n_pages] int32 physical block ids; pos0 [B] int32; active [B]
-    bool.  CPU tensors run :func:`paged_block_reference`; CUDA tensors
-    launch the kernel (counted in ``paged_block.launches``) or raise."""
+    k/v one layer's pool leaves [n_blocks, bl_loc, Hkv, D], sp rank
+    ``rank``'s stripe of every ``block_len``-slot block (``bl_loc =
+    block_len`` and rank 0 unsharded; int8 with ``k_scale``/``v_scale``
+    [n_blocks, bl_loc, Hkv] float32); tables [B, n_pages] int32 physical
+    block ids; pos0 [B] int32; active [B] bool.  CPU tensors run
+    :func:`paged_block_reference`; CUDA tensors launch the kernel
+    (counted in ``paged_block.launches``) or raise."""
     if q.device.type == "cpu":
         return paged_block_reference(
-            q, k, v, tables, pos0, active, block_len=block_len,
+            q, k, v, tables, pos0, active, block_len=block_len, rank=rank,
             k_scale=k_scale, v_scale=v_scale,
         )
     if q.device.type != "cuda":
         raise ValueError(f"paged_block: no kernel for device {q.device}")
     out = _launch_kernel(
-        q, k, v, tables, pos0, active, block_len, k_scale, v_scale
+        q, k, v, tables, pos0, active, block_len, rank, k_scale, v_scale
     )
     paged_block.launches += 1
     return out
 
 
 paged_block.launches = 0
-
-
-def paged_attend(pool_l: dict, q, tables, pos0, active, layout):
-    """Drop-in for ``paged._pool_attend`` on the decode hot path: fused
-    attention of q [B, W, H, D] against the rows' page windows,
-    normalized and regrouped to [B, W, H, D] in q's dtype.  A row with no
-    visible slot keeps m == NEG_INF; the guard makes its output exactly
-    0."""
-    b, w, h, d = q.shape
-    o, m, l = paged_block(
-        q.contiguous(), pool_l["k"], pool_l["v"], tables, pos0, active,
-        block_len=layout.block_len,
-        k_scale=pool_l.get("ks"), v_scale=pool_l.get("vs"),
-    )
-    alpha = torch.exp(m - torch.clamp_min(m, NEG_INF / 2))
-    l = l * alpha
-    o = o * alpha[..., None]
-    out = o / torch.clamp_min(l, 1e-30)[..., None]  # [B, Hkv, G*W, D]
-    hkv = out.shape[1]
-    out = out.reshape(b, hkv, h // hkv, w, d).permute(0, 3, 1, 2, 4)
-    return out.reshape(b, w, h, d).to(q.dtype)
