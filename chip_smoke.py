@@ -92,8 +92,10 @@ Phases, each one or more printed lines:
    and in place, peak device memory; ids against the dense oracle as a
    report (a flip only where the oracle's top-2 margin is below bf16
    resolution); then the device's busy and idle share of the continuous
-   run, from torch.profiler.  A second leg serves 8 requests with 2 K/V
-   heads and an int8 pool.  The spec leg decodes the repetitive trace
+   run, from torch.profiler.  The legs after it run at depth 2
+   (``SERVE_LEG_CUT``, the serve model's depth halved).  A second leg
+   serves 8 requests with 2 K/V heads and an int8 pool.  The spec leg
+   decodes the repetitive trace
    with spec_k 4 beside plain decode (tokens/s of each, accepted tokens
    per row-step > 1.0, K1 launched depth x verify steps times in the
    timed run and at W = 5 in one more run, no leaked block); the
@@ -101,8 +103,9 @@ Phases, each one or more printed lines:
    with sharing and without (peak blocks, CoW copies, prefix hits, no
    leaked block, K1 launched depth x steps times); both with the oracle
    gate of the main leg;
-6. serve exactness at full width in float32 with TF32 off:
-   ``run_serve`` with spec_k 4 and prefix sharing: its main,
+6. serve exactness at full width (depth 2, ``SERVE_LEG_CUT``) in
+   float32 with TF32 off: ``run_serve`` with spec_k 4 and prefix
+   sharing: its main,
    ``prefix_share_*`` and ``spec_decode_*`` Records, each SUCCESS with
    ids equal to the dense oracle's;
 7. the flagship train step at its full default width (bf16, batch 4,
@@ -249,8 +252,9 @@ Phases, each one or more printed lines:
     4`` compact and spread (the same ``validated``); and ``p2p`` under
     ``TPU_PATTERNS_REPS=3`` (the run's reps 3, a flag's 4 beating it);
 14. the load generator on the serve path (``loadgen/``) at the serve
-    model's width (vocab 2048, embed 1024, 8 heads x 128, depth 4, 8
-    slots, block_len 16, attention through K1) in float32 with TF32 off:
+    model's width (vocab 2048, embed 1024, 8 heads x 128, 8 slots,
+    block_len 16, attention through K1) cut to depth 2
+    (``LOADGEN_WIDTH``) in float32 with TF32 off:
     a throwaway run of ``chat:requests=8`` and ``chat-sampled:requests=8``
     first (``warmup``: the decode and sampling paths' first launches),
     then each of
@@ -443,14 +447,15 @@ Phases, each one or more printed lines:
 22. ``decode`` and ``lm`` across ranks (``decode_lm_mesh``; alone with
     ``--tree . decode_lm_mesh``; no kernel on this path), all ranks on
     the one card: (a) ``run_decode`` at ``DecodeConfig``'s widths (bf16,
-    E 1024, 8 x 128, depth 4, B 8, prefill 4096, gen 128; reps 2) over
-    (dp, sp, tp) (1,1,1), (1,4,1), (1,2,2) and (2,2,2), and at gen 32
-    striped at (1,4,1), moe at (1,2,2) and GQA 4 with RoPE and an int8
-    cache at (1,2,2): every Record SUCCESS (the teacher-forcing gate at
+    E 1024, 8 x 128, depth 4, B 8, prefill 4096, gen 128; reps 2) at
+    (dp, sp, tp) (1,1,1), then cut to depth 2 and gen 32 (``DLM_CUT``)
+    over (1,4,1), (1,2,2) and (2,2,2), striped at (1,4,1), moe at
+    (1,2,2) and GQA 4 with RoPE and an int8 cache at (1,2,2): every
+    Record SUCCESS (the teacher-forcing gate at
     the mesh), the ragged gate at each mesh, the mode the mesh gives,
     ``cache_MB`` 553.648 at gen 128, ``ms_per_token``, ``prefill_ms`` and
     ``cache_MB`` beside the card's name and power limit; (b) the
-    attention gate: on each mesh of (a), every layer's combined
+    attention gate: on each mesh of (a) at depth 4, every layer's combined
     attention output (before ``wo``) at the prefill's last row and the
     first 4 teacher-forced decode steps against one rank's on the same
     params and inputs (the probe's inputs x4, ``DLM_ATTN_INPUT_SCALE``),
@@ -481,7 +486,7 @@ Phases, each one or more printed lines:
     sp = 1 kernel on the whole pool (``SM_COMBINE_TOL``); K1's ms a
     launch at rank 0 and rank sp - 1 beside the sp = 1 kernel's on the
     same pool, each beside its bound; (b) the serve width (E 1024, 8 x
-    128, depth 4, vocab 2048, RoPE, block_len 16; ``SM_CUT``: 6 requests,
+    128, vocab 2048, RoPE, block_len 16; ``SM_CUT``: depth 2, 6 requests,
     16 generated) in bf16 through 4 slots (2 requests admitted mid-run,
     into recycled slots) over (dp, sp, tp) (1,1,1), (1,2,1), (1,1,2),
     (1,2,2) and (1,4,1) and with GQA 2 and an int8 pool at (1,2,2)
@@ -497,7 +502,29 @@ Phases, each one or more printed lines:
     combine gate: the sound combine at sp 2 and 4 within
     ``SM_COMBINE_TOL``, a per-rank max and one rank's weighted values
     left out each above it; the phase's wall time;
-24. the card's name and power limit again, the ``kernels`` line (the
+24. the replica fleet (``fleet``; alone with ``--tree . fleet``): the
+    serve width in float32 (E 1024, 8 x 128, depth 4, vocab 2048, RoPE,
+    block_len 16; phase 5's trace, ``FLEET_CUT``), every replica a
+    ``python -m
+    tpu_patterns_torch`` process of its own on the one card, each
+    serving through K1: (a) ``serve --replicas 2 --devices 2
+    --replica_policy round_robin`` on the plain trace, then one replica
+    alone: both SUCCESS, exact, covered, no leak, the shipped child
+    metrics equal to the front door's; ``replica_speedup`` printed, not
+    gated (``FLEET_SPEEDUP_GATE`` 0: the reference's 1.8 is not met
+    steadily on the one card); (b) the routing
+    comparison on ``FLEET_CHAT``: ``prefix_hit_blocks`` under prefix
+    routing above round-robin's, SUCCESS; (c) the store A/B under
+    ``FLEET_KILL`` (one child SIGKILLed, a shared fault-state dir) with
+    ``--prefix_share --kv_host_tier``, without and with
+    ``--prefix_store``: both WARNING, covered and exact, the store leg's
+    ``rerouted_fresh_blocks`` strictly below the base leg's; (d) the
+    elastic A/B on ``FLEET_RAMP`` (1 replica + 1 reserve): SUCCESS with
+    a scale-out; (e) ``obs fleet`` and ``obs journey`` over leg a's obs
+    dir: one journey a completed request, the merged retirements equal
+    to the Record's ``done_total``; every child that served launched K1;
+    the phase's wall time;
+25. the card's name and power limit again, the ``kernels`` line (the
     flash rows also carry ``train_loop_launches``, phase 8b's counts,
     K1's row ``loadgen_launches``, phase 14's by scenario,
     ``kv_tier_launches``, phase 16's by leg, ``recovery_launches``,
@@ -507,7 +534,8 @@ Phases, each one or more printed lines:
     float32 times at longctx's shape, K3/K4 ``model_mesh_launches``,
     phase 21's by mesh, and K1-K4 ``decode_lm_mesh_launches``, phase
     22's, and K1's ``serve_mesh_launches``, phase 23's by leg, with its
-    stripe checks and its times by rank),
+    stripe checks and its times by rank, and ``fleet_launches``, phase
+    24's by leg and replica),
     then the device line, which is the last.
 """
 
@@ -534,6 +562,10 @@ DEVICE = "cuda"
 BF16_RESOLUTION = 2.0**-7  # relative spacing of bfloat16 values
 SPEC_K = 4  # drafts a row of the spec legs: K1 verifies at W = 5
 SHARED_PREFIX = 384  # of the prefix leg's 512-token prompts
+# the serve legs after phase 5's main bf16 leg (its GQA/int8, spec and
+# prefix legs and phase 6's float32 Records) at half the serve model's
+# depth: each runs its trace continuous and sequential, twice
+SERVE_LEG_CUT = dict(depth=2)
 FULL_WIDTH = dict(
     vocab=2048, embed=1024, heads=8, head_dim=128, mlp_mult=4, depth=4,
     rope=True, slots=8, block_len=16, min_prompt=64, max_prompt=512,
@@ -3480,9 +3512,11 @@ def phase_p2p_suite(torch, spec):
 
 # -- phase 14: the load generator on the serve path -------------------------
 
-# the serve model's width (FULL_WIDTH's LoadGenConfig fields)
+# the serve model's width (FULL_WIDTH's LoadGenConfig fields), cut to
+# depth 2 (the host path a step is per layer: phases 14, 16's loadgen
+# race and 23's loadgen leg run at half the serve model's depth)
 LOADGEN_WIDTH = dict(
-    vocab=2048, embed=1024, heads=8, head_dim=128, mlp_mult=4, depth=4,
+    vocab=2048, embed=1024, heads=8, head_dim=128, mlp_mult=4, depth=2,
     rope=True, slots=8, block_len=16, paged_attn="kernel", device=DEVICE,
     dtype="float32",
 )
@@ -6086,20 +6120,22 @@ def phase_model_mesh(torch, F):
 
 # -- phase 22: decode and lm across ranks ------------------------------------
 
-# (leg, (dp, sp, tp), DecodeConfig fields): the main meshes at the
-# defaults (E 1024, 8 x 128 heads, depth 4, bf16, B 8, prefill 4096, gen
-# 128) but reps 2 (the steps are host-bound: 768 a leg), then the
-# feature legs at gen 32
+# (leg, (dp, sp, tp), DecodeConfig fields): (1,1,1) at the defaults (E
+# 1024, 8 x 128 heads, depth 4, bf16, B 8, prefill 4096, gen 128) but
+# reps 2 (the steps are host-bound: 768 a leg), the other meshes and the
+# feature legs cut to depth 2 and gen 32 (the ranks run in turn on the
+# card, so a mesh leg's host time grows with its ranks: at depth 4 and
+# gen 128 (2,2,2) alone took 47.5 s)
+DLM_CUT = dict(depth=2, gen=32, reps=2)
 DLM_MESHES = (
     ("111", (1, 1, 1), dict(reps=2)),
-    ("141", (1, 4, 1), dict(reps=2)),
-    ("122", (1, 2, 2), dict(reps=2)),
-    ("222", (2, 2, 2), dict(reps=2)),
-    ("striped_141", (1, 4, 1), dict(layout="striped", gen=32, reps=2)),
-    ("moe_122", (1, 2, 2), dict(moe=True, gen=32, reps=2)),
-    ("gqa4_rope_int8_122", (1, 2, 2), dict(kv_heads=4, rope=True,
-                                           cache_int8=True, gen=32,
-                                           reps=2)),
+    ("141", (1, 4, 1), DLM_CUT),
+    ("122", (1, 2, 2), DLM_CUT),
+    ("222", (2, 2, 2), DLM_CUT),
+    ("striped_141", (1, 4, 1), dict(DLM_CUT, layout="striped")),
+    ("moe_122", (1, 2, 2), dict(DLM_CUT, moe=True)),
+    ("gqa4_rope_int8_122", (1, 2, 2), dict(DLM_CUT, kv_heads=4, rope=True,
+                                           cache_int8=True)),
 )
 # the attention gate of leg b: each layer's combined attention output
 # (before wo) at the prefill's last row and the first DLM_ATTN_STEPS
@@ -6290,7 +6326,11 @@ def dlm_attn_gate(torch, D, tr, mesh_mod):
     one = _dlm_mesh(mesh_mod, (1, 1, 1))
     readings, faults = {}, {}
     for leg, shape, kw in DLM_MESHES[1:]:
-        kw = {k: v for k, v in kw.items() if k not in ("gen", "reps")}
+        # the gate runs at the decode defaults' depth, where its limits
+        # and planted faults were read (DLM_CUT's depth 2 let the per-rank
+        # max at (1,4,1) read 4.8e-2, under the 0.07 limit)
+        kw = {k: v for k, v in kw.items()
+              if k not in ("gen", "reps", "depth")}
         cfg = D.DecodeConfig(device=DEVICE, **kw)
         mesh = _dlm_mesh(mesh_mod, shape)
         inputs = _dlm_inputs(torch, D, tr, cfg, mesh)
@@ -6545,10 +6585,10 @@ def phase_decode_lm_mesh(torch, pk, F):
 # (leg, (dp, sp, tp)): the serve width's meshes, all ranks on the card
 SM_MESHES = (("11", (1, 1, 1)), ("21", (1, 2, 1)), ("12", (1, 1, 2)),
              ("22", (1, 2, 2)), ("41", (1, 4, 1)))
-# the mesh legs' cut of phase 5's trace (16 requests, 64 generated): the
-# ranks run one after another on the card, so a mesh leg's host time
-# grows with its ranks
-SM_CUT = dict(requests=6, gen=16)
+# the mesh legs' cut of phase 5's trace (16 requests, 64 generated) and
+# of its depth (4): the ranks run one after another on the card, so a
+# mesh leg's host time grows with its ranks
+SM_CUT = dict(requests=6, gen=16, depth=2)
 # the bf16 legs serve their 6 requests through 4 slots, so the
 # continuous leg admits 2 of them mid-run, into recycled slots
 SM_BF16 = {**FULL_WIDTH, "dtype": "bfloat16", **SM_CUT, "slots": 4}
@@ -6830,8 +6870,9 @@ def sm_serve(torch, pk, eng_mod, P, lg, faults, mesh_mod):
             lg_writer(), mesh22)),
         ("f32_41", _dlm_mesh(mesh_mod, (1, 4, 1)), None),
         ("f32_kv_tier_21", mesh21, lambda: eng_mod.run_serve(
-            eng_mod.ServeConfig(**KV_WIDTH, requests=KV_REQUESTS,
-                                kv_host_tier=True), lg_writer(), mesh21)),
+            eng_mod.ServeConfig(**{**KV_WIDTH, "depth": SM_CUT["depth"]},
+                                requests=KV_REQUESTS, kv_host_tier=True),
+            lg_writer(), mesh21)),
         ("f32_loadgen_chat_22", mesh22, lambda: lg.run_loadgen(
             lg.LoadGenConfig(**LOADGEN_WIDTH, scenarios=(SM_LOADGEN,)),
             lg_writer(), mesh22)),
@@ -6904,6 +6945,213 @@ def phase_serve_mesh(torch, pk, timing, spec):
     if bad:
         raise AssertionError("serve_mesh: " + " | ".join(bad))
     return launches, kres, ktimes
+
+
+# -- phase 24: the replica fleet (N engine processes behind the router) ----
+
+# the serve width in float32 (the exact-id gates), phase 5's trace (16
+# requests, 64 generated)
+FLEET_WIDTH = dict(FULL_WIDTH, dtype="float32", requests=16)
+# leg a's scaling gate: off.  On the one card the reference's 1.8 over
+# one replica is not met steadily (PERF.md: 1.365 and 1.781 in two
+# calls): host paths of processes that share one card and its host; the
+# one-replica leg runs all the same and the speedup is printed, not
+# gated.  The requests are dealt round-robin: prefix routing splits a
+# 16-request random trace by the ring's arcs (11 to 5 on the card),
+# which measures the ring
+FLEET_SPEEDUP_GATE = 0.0
+FLEET_SCALING_POLICY = "round_robin"
+# leg b: the reference fleet smoke's chat recipe, its token lengths
+# doubled for block_len 16 (two shared blocks, so that a group's prompts
+# share their routing key)
+FLEET_CHAT = ("chat:requests=16:prefix_groups=2:shared_prefix=32"
+              ":min_prompt=40:mean_prompt=48:max_prompt=64"
+              ":min_gen=2:mean_gen=4:max_gen=6"
+              ":slo_ttft_ms=60000:slo_tpot_ms=20000")
+# leg c: the reference's recipe (scripts/prefix_store_smoke.py): the busy
+# arc owner killed at the fleet's 5th decode step, the shared trace
+FLEET_KILL = "serve.step:kill:after=4:count=1"
+FLEET_KILL_CUT = dict(requests=8, gen=16)
+# what the phase cuts of the serve width, by leg
+FLEET_CUT = {"c_store": FLEET_KILL_CUT}
+# leg d: the reference's elastic recipe (scripts/elastic_smoke.py)
+FLEET_RAMP = ("batch-summarize:requests=24:rate_rps=12:bulk_fraction=0.5"
+              ":min_prompt=8:mean_prompt=14:max_prompt=20"
+              ":min_gen=4:mean_gen=8:max_gen=12"
+              ":slo_ttft_ms=60000:slo_tpot_ms=20000")
+FLEET_ELASTIC = dict(replicas=1, elastic_reserve=1, slots=2,
+                     scale_out_occupancy=1.1, scale_in_occupancy=0.1,
+                     scale_sustain_s=0.1, scale_cooldown_s=0.5,
+                     kv_host_tier=True, preempt="bulk",
+                     burn_mitigation="shed", time_scale=0.05)
+
+
+def _fleet_record(eng_mod, replica, mesh_mod, work, ranks=2, **kw):
+    """One ``run_replicas`` call at the fleet width over ``ranks`` ranks
+    on the card (a rank a slice); returns its Record."""
+    from tpu_patterns_torch.core.results import ResultWriter
+
+    cfg = eng_mod.ServeConfig(**{**FLEET_WIDTH, **kw}, replica_dir=work)
+    recs = replica.run_replicas(
+        cfg, ResultWriter(stream=io.StringIO()),
+        mesh=mesh_mod.model_mesh(ranks, device=DEVICE))
+    assert len(recs) == 1
+    return recs[0]
+
+
+def _fleet_row(rec, leg, t0) -> dict:
+    row = {"phase": "fleet", "leg": leg, "mode": rec.mode,
+           "verdict": rec.verdict.value, "metrics": rec.metrics,
+           "paged_block_launches": rec.config.get("paged_block_launches"),
+           "notes": rec.notes, "seconds": time.perf_counter() - t0,
+           "card": _smi()}
+    emit(row)
+    return row
+
+
+def phase_fleet(torch):
+    """Phase 24 (module docstring).  Returns K1's launches by leg and
+    replica; raises if any part fails."""
+    import tempfile
+
+    from tpu_patterns_torch import obs
+    from tpu_patterns_torch.comm import mesh as mesh_mod
+    from tpu_patterns_torch.obs import fleet as obs_fleet
+    from tpu_patterns_torch.serve import engine as eng_mod
+    from tpu_patterns_torch.serve import replica
+
+    t_phase = time.perf_counter()
+    bad, launches, ends = [], {}, {}
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="fleet_", dir=os.path.join(ROOT, "build"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    def launched(leg, row):
+        legs = row["paged_block_launches"] or []
+        launches[leg] = legs
+        # every replica that reported (a killed child reports nothing)
+        if not legs or any(v <= 0 for by in legs for v in by.values()):
+            bad.append(f"{leg}: a replica launched K1 0 times: {legs}")
+
+    # (a) scaling against one replica, the obs plane dumping under obs_dir
+    obs_dir = os.path.join(work, "obs")
+    t0 = time.perf_counter()
+    obs.configure(obs_dir)
+    try:
+        rec = _fleet_record(eng_mod, replica, mesh_mod,
+                            os.path.join(work, "a"), replicas=2,
+                            replica_policy=FLEET_SCALING_POLICY,
+                            min_replica_speedup=FLEET_SPEEDUP_GATE)
+        obs.dump(reason="end_of_run")
+    finally:
+        obs.configure(None)
+    row = _fleet_row(rec, "a_scaling", t0)
+    launched("a_scaling", row)
+    if rec.verdict.value != "SUCCESS":
+        bad.append(f"scaling Record {rec.verdict.value}: {rec.notes}")
+    done_total = rec.metrics["done_total"]
+    agg_tps = rec.metrics["aggregate_tokens_per_s"]
+    t0 = time.perf_counter()
+    rec = _fleet_record(eng_mod, replica, mesh_mod, os.path.join(work, "a1"),
+                        ranks=1, replicas=1, min_replica_speedup=0.0)
+    row = _fleet_row(rec, "a_one_replica", t0)
+    launched("a_one_replica", row)
+    if rec.verdict.value != "SUCCESS":
+        bad.append(f"one-replica Record {rec.verdict.value}: {rec.notes}")
+    one_tps = rec.metrics["aggregate_tokens_per_s"]
+    emit({"phase": "fleet", "leg": "a_speedup", "aggregate_tokens_per_s":
+          agg_tps, "single_replica_tokens_per_s": one_tps,
+          "replica_speedup": agg_tps / one_tps if one_tps > 0 else 0.0,
+          "reference_gate": 1.8, "gated": False, "card": _smi()})
+    ends["a_scaling"] = time.perf_counter() - t_phase
+
+    # (e) obs fleet and obs journey over leg a's dir: the parent's dump
+    # holds the routes of both of leg a's fleets, the replica dirs the
+    # measured fleet's requests, so a served journey is one that retired
+    rc, out, _ = _cli_in_process(["--obs-dir", obs_dir, "obs", "fleet"])
+    merged, procs = obs_fleet.merge_fleet(obs_dir)
+    served = {jid: [a["name"] for a in anchors]
+              for jid, anchors in obs_fleet.journeys(merged).items()
+              if any(a["name"] == "req.retired" for a in anchors)}
+    # the replicas' retirements (the smoke's own engines retire into the
+    # parent's ring too, untagged)
+    retired = sum(1 for e in merged if e.get("replica")
+                  and e.get("kind") == "span" and e["name"] == "req.retired")
+    whole = all(names[0] == "journey.route" and names.count("req.retired")
+                == 1 for names in served.values())
+    jid = min(served) if served else "none"
+    rc_j, out_j, _ = _cli_in_process(["--obs-dir", obs_dir, "obs",
+                                      "journey", jid])
+    emit({"phase": "fleet", "leg": "e_obs", "fleet_rc": rc,
+          "journey_rc": rc_j, "processes": sorted(procs),
+          "served_journeys": len(served), "merged_retired": retired,
+          "record_done_total": done_total, "routed_then_retired": whole,
+          "journey_rows": out_j.count("\n| ") - 1,
+          "fleet_trace": os.path.exists(os.path.join(obs_dir,
+                                                     "fleet_trace.json"))})
+    if (rc or rc_j or len(served) != done_total or retired != done_total
+            or not whole):
+        bad.append(f"obs fleet: rc {rc}/{rc_j}, {len(served)} served "
+                   f"journeys, {retired} retired against {done_total} done")
+    ends["e_obs"] = time.perf_counter() - t_phase
+
+    # (b) the routing comparison
+    t0 = time.perf_counter()
+    rec = _fleet_record(eng_mod, replica, mesh_mod, os.path.join(work, "b"),
+                        replicas=2, scenario=FLEET_CHAT, time_scale=0.05)
+    row = _fleet_row(rec, "b_routing", t0)
+    launched("b_routing", row)
+    m = rec.metrics
+    if (rec.verdict.value != "SUCCESS" or not m["prefix_hit_blocks_prefix"]
+            > m["prefix_hit_blocks_round_robin"]):
+        bad.append(f"routing Record {rec.verdict.value}: {rec.notes}")
+    ends["b_routing"] = time.perf_counter() - t_phase
+
+    # (c) the store A/B under a kill
+    fresh = {}
+    for leg, store in (("c_base", ""),
+                       ("c_store", os.path.join(work, "store"))):
+        t0 = time.perf_counter()
+        with _env(TPU_PATTERNS_FAULTS=FLEET_KILL,
+                  TPU_PATTERNS_FAULTS_STATE=os.path.join(work,
+                                                         leg + "-state")):
+            rec = _fleet_record(
+                eng_mod, replica, mesh_mod, os.path.join(work, leg),
+                replicas=2, min_replica_speedup=0.0, prefix_share=True,
+                kv_host_tier=True, prefix_store=store, **FLEET_KILL_CUT)
+        row = _fleet_row(rec, leg, t0)
+        launched(leg, row)
+        m = rec.metrics
+        fresh[leg] = m["rerouted_fresh_blocks"]
+        if (rec.verdict.value != "WARNING" or m["covered"] != 1.0
+                or m["exact"] != 1.0 or m["rerouted"] < 1
+                or m["leaked_blocks"]):
+            bad.append(f"{leg}: {rec.verdict.value} {rec.notes}")
+    if not fresh["c_store"] < fresh["c_base"]:
+        bad.append(f"store A/B: rerouted_fresh_blocks {fresh}")
+    ends["c_store"] = time.perf_counter() - t_phase
+
+    # (d) the elastic A/B
+    t0 = time.perf_counter()
+    rec = _fleet_record(eng_mod, replica, mesh_mod, os.path.join(work, "d"),
+                        scenario=FLEET_RAMP, **FLEET_ELASTIC)
+    row = _fleet_row(rec, "d_elastic", t0)
+    launched("d_elastic", row)
+    if rec.verdict.value != "SUCCESS" or rec.metrics["scale_outs"] < 1:
+        bad.append(f"elastic Record {rec.verdict.value}: {rec.notes}")
+    ends["d_elastic"] = time.perf_counter() - t_phase
+    shutil.rmtree(work, ignore_errors=True)
+    emit({"phase": "fleet_phase", "seconds": time.perf_counter() - t_phase,
+          "leg_end_s": ends, "k1_launches": launches, "card": _smi(),
+          "cut": FLEET_CUT, "speedup_gate": FLEET_SPEEDUP_GATE,
+          "earlier_cuts": {"serve_legs": SERVE_LEG_CUT,
+                           "loadgen_depth": LOADGEN_WIDTH["depth"],
+                           "decode_lm_mesh": DLM_CUT, "serve_mesh": SM_CUT},
+          "scaling_policy": FLEET_SCALING_POLICY})
+    if bad:
+        raise AssertionError("fleet: " + " | ".join(bad))
+    return launches
 
 
 def profile_concurrency_main() -> int:
@@ -6980,7 +7228,7 @@ def profile_concurrency_main() -> int:
 # the timing phases ``--tree`` runs with another checkout's package
 TREE_PHASES = ("put_time", "ring_put_time", "accumulate_time",
                "allreduce", "add_one_time", "parallel", "model_mesh",
-               "decode_lm_mesh", "serve_mesh")
+               "decode_lm_mesh", "serve_mesh", "fleet")
 # phases ``--tree`` runs only when named: phases 14-19 on their own,
 # phase 16's leg e again and again (``kv_race``: its spread), phase 5's
 # bf16 serve leg (a tree's serve tokens/s and ids against another's),
@@ -7060,6 +7308,7 @@ def tree_main(tree: str, phases: list[str]) -> int:
            "model_mesh": lambda: phase_model_mesh(torch, F),
            "decode_lm_mesh": lambda: phase_decode_lm_mesh(torch, pk, F),
            "serve_mesh": lambda: phase_serve_mesh(torch, pk, timing, spec),
+           "fleet": lambda: phase_fleet(torch),
            "flash_f32_time": lambda: phase_flash_f32_time(
                torch, F, timing, spec, libs),
            "k1_time": lambda: k1_times(torch, pk, timing, spec, slice_case(
@@ -7212,6 +7461,13 @@ def main() -> int:
     spec = match_device_spec(kind)
     if spec is None:
         raise RuntimeError(f"no datasheet entry for {kind!r}")
+    t_main = time.perf_counter()
+
+    def mark(after: str) -> None:
+        """The smoke's clock: seconds since its start, after a phase."""
+        emit({"phase": "clock", "after": after,
+              "seconds": time.perf_counter() - t_main})
+
     nvcc_line = next(
         (ln.strip() for ln in _run([build.find_nvcc(), "--version"])
          .splitlines() if "release" in ln), "?"
@@ -7242,24 +7498,28 @@ def main() -> int:
         doctor = diag_doctor_wait(doctor)
 
     kres, ktime, klong = phase_kernels(torch, pk, timing, spec)
+    mark("build_and_kernels")
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions
     flash_err, inputs, fwd_t, bwd_t = phase_flash_kernels(torch, F, tuning)
     ftime = phase_flash_time(torch, F, timing, spec, inputs, fwd_t, bwd_t)
     del inputs
+    mark("flash")
 
     base = eng_mod.ServeConfig(**FULL_WIDTH, dtype="bfloat16", requests=16)
     main_leg = serve_leg(torch, eng_mod, "bf16", base)
     phase_profile(torch, eng_mod, timing, base,
                   sum(r.n_gen for r in eng_mod.random_trace(base))
                   / main_leg["tokens_per_s"])
+    cut = dataclasses.replace(base, **SERVE_LEG_CUT)
     serve_leg(torch, eng_mod, "gqa2_int8",
-              dataclasses.replace(base, kv_heads=2, cache_int8=True,
+              dataclasses.replace(cut, kv_heads=2, cache_int8=True,
                                   requests=8),
               gate_flips=False)
     spec_leg = serve_spec_leg(torch, eng_mod, pk,
-                              dataclasses.replace(base, spec_k=SPEC_K))
+                              dataclasses.replace(cut, spec_k=SPEC_K))
     serve_prefix_leg(torch, eng_mod, pk, dataclasses.replace(
-        base, prefix_share=True, shared_prefix=SHARED_PREFIX))
+        cut, prefix_share=True, shared_prefix=SHARED_PREFIX))
+    mark("serve")
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -7267,7 +7527,7 @@ def main() -> int:
           torch.backends.cuda.matmul.allow_tf32,
           "cudnn.allow_tf32": torch.backends.cudnn.allow_tf32})
     recs = eng_mod.run_serve(dataclasses.replace(
-        base, dtype="float32", spec_k=SPEC_K, prefix_share=True))
+        cut, dtype="float32", spec_k=SPEC_K, prefix_share=True))
     for rec in recs:
         emit({"phase": "exact_f32", "mode": rec.mode,
               "verdict": rec.verdict.value, "metrics": rec.metrics,
@@ -7287,6 +7547,7 @@ def main() -> int:
     no_grad_launches = phase_flagship_exact(torch, F, fl, tr)
     train_launches = phase_train_loop(torch, F, tl, faults, tc,
                                       flag["kernel"]["step_ms"])
+    mark("flagship_and_train_loop")
 
     phase_put_vs_plain(torch, op)
     ptime = phase_put_time(torch, op, ck, cb, timing, spec)
@@ -7300,6 +7561,7 @@ def main() -> int:
         torch, ck, cb, cc, ch, timing, spec, busy_plain_ms,
         k7_tuned["defaults dma_overlap"], k7_plain_ms["defaults dma_overlap"],
         k7_tuned["balanced dma_overlap"])
+    mark("put_and_concurrency")
 
     phase_accumulate_vs_plain(torch, ap, cc)
     acc_times = phase_accumulate_time(torch, ap, ck, timing, spec)
@@ -7314,19 +7576,33 @@ def main() -> int:
     k10_launches = phase_interop_proof(torch, k10, calls, native, cc)
     phase_interop_cli()
     k10_time = phase_add_one_time(torch, k10, ck, timing, spec)
+    mark("ring_and_interop")
     phase_p2p_suite(torch, spec)
+    mark("p2p_suite")
     loadgen_launches = phase_loadgen(torch, pk, timing)
+    mark("loadgen")
     decode_lm_launches = phase_decode_lm(torch, pk, F, timing, spec)
+    mark("decode_lm")
     kv_tier_launches = phase_kv_tier(torch, pk)
+    mark("kv_tier")
     recovery_launches = phase_recovery(torch, pk)
+    mark("recovery")
     diagnostics_launches = phase_diagnostics(torch, pk, F, doctor)
+    mark("diagnostics")
     longctx_launches, lc_f32, lc_err = phase_longctx(torch, pk, F, timing,
                                                      spec)
+    mark("longctx")
     phase_parallel(torch)
+    mark("parallel")
     mesh_launches = phase_model_mesh(torch, F)
+    mark("model_mesh")
     dlm_mesh_launches = phase_decode_lm_mesh(torch, pk, F)
+    mark("decode_lm_mesh")
     sm_launches, sm_stripes, sm_times = phase_serve_mesh(torch, pk, timing,
                                                          spec)
+    mark("serve_mesh")
+    fleet_launches = phase_fleet(torch)
+    mark("fleet")
 
     rows = {**ftime, **ptime, "paged_attention": {
         "ms": ktime["kernel"]["ms"], "bound_ms": ktime["bound_ms"],
@@ -7385,6 +7661,7 @@ def main() -> int:
         "kv_tier_launches": kv_tier_launches,
         "recovery_launches": recovery_launches,
         "diagnostics_launches": diagnostics_launches["paged_attention"],
+        "fleet_launches": fleet_launches,
     }]
     for kname, (source, replaces) in FLASH_KERNELS.items():
         row = ftime[kname]

@@ -7,11 +7,12 @@ the same retry, quarantine and re-raise behavior, booking the same
 retry and quarantine counters; a firing leaves the same ``fault.injected``
 event and ``faults.jsonl`` line.  The port knows only the sites it has
 (``train.step``, ``ckpt.save``, ``ckpt.restore``, ``loadgen.arrive``,
-``obs.cost_book``, ``obs.scrape`` and the serve engine's prefill,
+``obs.cost_book``, ``obs.scrape``, the serve engine's prefill,
 decode-step, kv-tier and preemption sites, ``error`` included at
-``serve.prefill``, ``serve.step`` and ``serve.verify``): a spec naming
-any other site is refused at parse time, where the JAX package takes
-it."""
+``serve.prefill``, ``serve.step`` and ``serve.verify``, and the replica
+fleet's and the prefix store's): a spec naming any other site (the
+disaggregated handoff's, the sweep's, the warm workers') is refused at
+parse time, where the JAX package takes it."""
 
 import dataclasses
 
@@ -28,10 +29,14 @@ import torch
 # holds for the whole run)
 torch.set_num_threads(1)
 
+# the replica fleet's sites and the prefix store's
+FLEET_SITES = {"router.route", "replica.spawn", "replica.drain",
+               "replica.obs_ship", "fleet.scale_out", "fleet.scale_in",
+               "store.publish", "store.fetch", "store.prewarm"}
 PORT_SITES = {"train.step", "ckpt.save", "ckpt.restore", "loadgen.arrive",
               "obs.cost_book", "obs.scrape", "serve.evict", "serve.onload",
               "serve.preempt", "serve.shed", "serve.prefill", "serve.step",
-              "serve.verify"}
+              "serve.verify"} | FLEET_SITES
 
 SPECS = [
     "train.step:nan",
@@ -94,11 +99,28 @@ def test_malformed_specs_raise_in_both(text):
         " (want")[0]
 
 
-@pytest.mark.parametrize("site", sorted(jf.KNOWN_SITES - PORT_SITES)[:6])
+@pytest.mark.parametrize("site", sorted(jf.KNOWN_SITES - PORT_SITES))
 def test_unported_sites_are_refused(site):
     assert jf.parse_spec(f"{site}:error")
     with pytest.raises(ValueError, match="unknown site"):
         tf.parse_spec(f"{site}:error")
+
+
+def test_disagg_sites_are_refused_naming_step_9b():
+    for site in ("disagg.transfer", "disagg.adopt"):
+        with pytest.raises(ValueError, match="step 9b"):
+            tf.parse_spec(f"{site}:error")
+
+
+@pytest.mark.parametrize("site", sorted(FLEET_SITES))
+def test_fleet_sites_parse_as_the_reference(site):
+    """Refused before the fleet was ported; now each parses, with its
+    match keys, as the JAX package parses it."""
+    key = "fingerprint=ab12" if site.startswith("store.") else "replica=1"
+    text = f"{site}:error:after=1:count=2:{key}"
+    got = [dataclasses.asdict(s) for s in tf.parse_spec(text)]
+    want = [dataclasses.asdict(s) for s in jf.parse_spec(text)]
+    assert got == want
 
 
 def _firings(pkg, spec, calls):

@@ -75,6 +75,10 @@ def test_import_pulls_no_jax():
         "import tpu_patterns_torch.longctx.pattern\n"
         "import tpu_patterns_torch.longctx.ring_attention\n"
         "import tpu_patterns_torch.longctx.ulysses\n"
+        "import tpu_patterns_torch.serve.replica\n"
+        "import tpu_patterns_torch.serve.router, tpu_patterns_torch.serve.store\n"
+        "import tpu_patterns_torch.serve.elastic, tpu_patterns_torch.obs.fleet\n"
+        "import tpu_patterns_torch.exec.proc\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'tpu_patterns', 'tabulate')]\n"
         "assert not bad, bad\n"
@@ -173,6 +177,8 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
         lambda: cli.main(["lm"]),
         lambda: cli.main(["perf", "report", "--no-history"]),
         lambda: capture(PerfConfig()),
+        lambda: run_serve(ServeConfig(replicas=2)),
+        lambda: cli.main(["serve", "--replicas", "2"]),
     ):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
@@ -197,9 +203,13 @@ def test_unported_options_are_refused():
                  ["p2p", "--placement", "diagonal"],
                  ["hier", "--placement", "spread"],
                  ["p2p", "--put-kernel", "pallas"],
-                 ["serve", "--replicas", "2"]):
+                 ["serve", "--disagg", "1:1"],
+                 ["serve", "--min_ttft_improvement", "1.05"]):
         with pytest.raises(SystemExit):
             cli.build_parser().parse_args(argv)
+    # the replica fleet parses since ROADMAP step 9a
+    assert cli.build_parser().parse_args(
+        ["serve", "--replicas", "2"]).replicas == 2
 
 
 def test_diagnostics_subcommands_parse():
@@ -233,7 +243,7 @@ def test_diagnostics_refusals():
 
     for argv in (["perf", "report", "--include", "disagg.stream",
                   "--device", "cpu", "--no-history"],
-                 ["perf", "diff", "--include", "serve.prefix_store",
+                 ["perf", "diff", "--include", "disagg.stream",
                   "--device", "cpu", "--no-history"],
                  ["doctor", "--workers", "true", "--device", "cpu"],
                  ["perf", "report", "--devices", "4"],

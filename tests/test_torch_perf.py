@@ -228,12 +228,10 @@ def test_capture_runs_every_ported_executable(captured):
     assert set(snap["executables"]) == set(registry.PORTED) == {
         "train.step", "zero.step", "decoder.prefill", "decoder.step",
         "decoder.verify", "decoder.step_pallas", "decoder.verify_pallas",
-        "copy_blocks", "serve.step", "serve.kv_tier"}
+        "copy_blocks", "serve.step", "serve.kv_tier", "serve.prefix_store"}
     assert snap["skipped"] == {
-        "disagg.stream": "ROADMAP.md Queue 1 step 9 (disaggregated "
+        "disagg.stream": "ROADMAP.md Queue 1 step 9b (disaggregated "
                          "serving)",
-        "serve.prefix_store": "ROADMAP.md Queue 1 step 9 (the fleet's "
-                              "prefix store)",
     }
     assert set(snap["run"]) == {"run_id", "git_sha", "mesh_fp"}
     assert snap["mesh"] == {"shape": {"dp": 1, "sp": 1, "tp": 1},
@@ -244,6 +242,10 @@ def test_capture_runs_every_ported_executable(captured):
         assert not {"xla_flops", "compile_s", "temp_bytes"} & set(m)
     tier = snap["executables"]["serve.kv_tier"]
     assert tier["kv_evictions"] > 0 and tier["kv_onload_hits"] > 0
+    # the fetcher found every block the publisher committed
+    store = snap["executables"]["serve.prefix_store"]
+    assert store["store_hits"] > 0
+    assert store["store_fetch_bytes"] == store["store_publish_bytes"] > 0
 
 
 @pytest.mark.parametrize("requests,evicts", [(6, False), (21, False),
@@ -317,11 +319,13 @@ def test_committed_baseline_diffs_clean(captured):
 def test_include_selects_and_refuses():
     with pytest.raises(ValueError, match="unknown executable"):
         registry._selected(registry.PerfConfig(include="decoder.stepp"))
-    for name, step in (("disagg.stream", "step 9"),
-                       ("serve.prefix_store", "step 9")):
-        with pytest.raises(ValueError, match=step):
-            registry._selected(registry.PerfConfig(
-                include=f"decoder.step,{name}"))
+    with pytest.raises(ValueError, match="step 9b"):
+        registry._selected(registry.PerfConfig(
+            include="decoder.step,disagg.stream"))
+    # the fleet prefix store's capture is ported: selected, not refused
+    assert registry._selected(registry.PerfConfig(
+        include="decoder.step,serve.prefix_store")) == [
+            "decoder.step", "serve.prefix_store"]
     assert registry._selected(registry.PerfConfig(
         include="serve.step, copy_blocks")) == ["serve.step", "copy_blocks"]
     assert registry._selected(registry.PerfConfig(

@@ -197,6 +197,24 @@ def test_cli_takes_or_refuses_every_reference_serve_flag():
     assert not set(moved) & set(tcli._NOT_PORTED)
     with pytest.raises(SystemExit):
         tcli.build_parser().parse_args(["serve", "--burn_mitigation", "x"])
+    # the replica fleet's flags are taken and parse as the reference's;
+    # only the disaggregated split (step 9b) is refused
+    assert set(tcli._NOT_PORTED) == {"disagg", "min_ttft_improvement"}
+    assert "9b" in tcli._NotPorted.where
+    fleet = {"replicas": "2", "replica_policy": "round_robin",
+             "route_blocks": "3", "min_replica_speedup": "0",
+             "replica_watchdog_s": "30", "replica_dir": "w",
+             "prefix_store": "st", "elastic_reserve": "1",
+             "scale_out_occupancy": "1.1", "scale_in_occupancy": "0.1",
+             "scale_sustain_s": "0.2", "scale_cooldown_s": "0.5",
+             "min_live_replicas": "1"}
+    argv = ["serve"]
+    for name, value in fleet.items():
+        argv += [f"--{name}", value]
+    got = vars(tcli.build_parser().parse_args(argv))
+    want = vars(jcli.build_parser().parse_args(argv))
+    assert {k: got[k] for k in fleet} == {k: want[k] for k in fleet}
+    assert not set(fleet) & set(tcli._NOT_PORTED)
 
 
 def test_cli_takes_or_refuses_every_reference_loadgen_flag():

@@ -498,14 +498,18 @@ def test_cli_takes_the_tier_flags_and_refuses_the_rest(capsys):
                               "--preempt", "bulk", "--session_dir", "d"])
     assert (args.kv_host_tier, args.preempt, args.session_dir) == (
         True, "bulk", "d")
-    with pytest.raises(SystemExit):
-        parser.parse_args(["serve", "--prefix_store", "p"])
+    # the fleet prefix store parses since the replica fleet was ported;
+    # without --replicas it is refused before anything runs, as the
+    # reference refuses it
+    assert parser.parse_args(["serve", "--prefix_store", "p"]).prefix_store \
+        == "p"
     # the watchdog's deadline is taken now (the recovery and obs slice)
     assert parser.parse_args(["serve", "--watchdog_s", "5"]).watchdog_s == 5
     assert parser.parse_args(["loadgen", "--watchdog_s", "5"]).watchdog_s == 5
     for argv in (["serve", "--preempt", "bulk"],
                  ["serve", "--resume", "true"],
-                 ["serve", "--session_dir", "d"]):
+                 ["serve", "--session_dir", "d"],
+                 ["serve", "--prefix_store", "p", "--kv_host_tier", "true"]):
         with pytest.raises(SystemExit) as e:
             tcli.main(argv + ["--device", "cpu"])
         assert "error" in str(e.value.code)

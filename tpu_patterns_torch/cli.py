@@ -110,9 +110,13 @@ patterns over a rank mesh.
 ``summarize`` (the span table), ``export --chrome-trace OUT.json``
 and/or ``--prom``, ``watch URL`` (poll a live ``--obs_http`` plane) and
 ``cost [DIR]``; ``summarize --profile-dir DIR`` joins the spans with a
-Kineto trace's device breakdown (``core/profile.py``); ``fleet``,
-``journey`` and ``explain`` read the merged fleet timeline and are
-refused until the fleet is ported (ROADMAP.md Queue 1 step 9).  The
+Kineto trace's device breakdown (``core/profile.py``); ``fleet [DIR]``
+(the merged summary and a Chrome trace with a lane set a process),
+``journey <jid|rid>`` and ``explain <jid|rid>`` (or ``--action KIND``)
+read the merged timeline of a fleet's dumps (``obs/fleet.py``).
+``serve --replicas N`` runs N engine processes behind the prefix-aware
+router (``serve/replica.py``), with its fleet flags; only ``--disagg``
+and ``--min_ttft_improvement`` are refused (step 9b).  The
 global ``--enable_profiling`` runs any subcommand under torch.profiler
 (CPU and CUDA activity), exports the Kineto trace under
 ``--profile_dir`` and banks a ``profile_breakdown`` Record of where the
@@ -150,18 +154,13 @@ from tpu_patterns_torch.core.results import ResultWriter
 # the model commands' mesh flags: `flagship`, `train`, `decode`, `lm`,
 # `serve` and `loadgen` take them (the last two refuse a dp other than 1)
 _MESH_FLAGS = ("devices", "dp", "tp")
-# serve's replica-fleet flags, refused until the fleet is ported
-_NOT_PORTED = (
-    "prefix_store", "replicas", "replica_policy", "route_blocks", "min_replica_speedup",
-    "replica_watchdog_s", "replica_dir", "elastic_reserve",
-    "scale_out_occupancy", "scale_in_occupancy", "scale_sustain_s",
-    "scale_cooldown_s", "min_live_replicas", "disagg",
-    "min_ttft_improvement",
-)
+# serve's disaggregated-fleet flags, refused until it is ported
+_NOT_PORTED = ("disagg", "min_ttft_improvement")
 
 
 class _NotPorted(argparse.Action):
-    where = "ROADMAP.md Queue 1 step 9 (the replica fleet)"
+    where = ("ROADMAP.md Queue 1 step 9b (the disaggregated prefill/"
+             "decode fleet)")
 
     def __call__(self, parser, namespace, values, option_string=None):
         parser.error(
@@ -521,13 +520,16 @@ def _add_obs_flags(ob: argparse.ArgumentParser) -> None:
         "--prom; watch <url> = poll a live --obs_http plane (/healthz + "
         "/metrics) into a one-line-per-interval view; cost <dir> = "
         "per-request/class/scenario attribution table with identity "
-        "verdicts (+ cost_rollup.jsonl); fleet, journey and explain "
-        "read the merged fleet timeline (not ported: ROADMAP.md Queue 1 "
-        "step 9)",
+        "verdicts (+ cost_rollup.jsonl); fleet <dir> = merge the "
+        "parent's dumps and every replica-*/ dir into one timeline "
+        "(summary + Chrome trace); journey <jid|rid> = one request's "
+        "cross-process story; explain <jid|rid> = its decisions (or "
+        "--action KIND fleet-wide)",
     )
     ob.add_argument(
         "target", nargs="?", default=None,
-        help="cost: the obs dir to read (default --obs-dir); watch: the "
+        help="fleet/cost: the obs dir to read (default --obs-dir); "
+        "journey/explain: the journey id (j...) or request id; watch: the "
         "plane URL (http://127.0.0.1:PORT)",
     )
     ob.add_argument("--action", dest="filter_action", default=None,
@@ -573,11 +575,8 @@ def _obs(args, writer: ResultWriter) -> None:
 
     obs_dir = args.obs_dir or obs.run_dir()
     if args.action in _OBS_FLEET_ACTIONS:
-        raise SystemExit(
-            f"obs {args.action}: reads the merged fleet timeline "
-            "(obs/fleet.py merge_fleet), which is not ported yet "
-            "(ROADMAP.md Queue 1 step 9)"
-        )
+        _obs_fleet(args, obs_dir, writer)
+        return
     if args.action == "watch":
         if not args.target:
             raise SystemExit(
@@ -654,6 +653,72 @@ def _obs(args, writer: ResultWriter) -> None:
             )
         with open(mpath) as f:
             print(obs_metrics.registry_from_jsonl(f).to_prom_text(), end="")
+
+
+def _obs_fleet(args, obs_dir: str, writer: ResultWriter) -> None:
+    """``obs fleet|journey|explain`` over the merged fleet timeline (the
+    parent's dumps and every ``replica-*/`` dir), as the reference's."""
+    import os
+
+    from tpu_patterns_torch.obs import decisions as obs_decisions
+    from tpu_patterns_torch.obs import export as obs_export
+    from tpu_patterns_torch.obs import fleet as obs_fleet
+
+    if args.action == "fleet":
+        fleet_dir = args.target or obs_dir
+        merged, procs = obs_fleet.merge_fleet(fleet_dir)
+        if not merged:
+            raise SystemExit(
+                f"no fleet dumps under {fleet_dir} — run `serve --replicas "
+                "N --obs-dump` (replica dirs land under "
+                "<obs_dir>/replica-<id>/) first"
+            )
+        n_replicas = sum(1 for p in procs if p != obs_fleet.ROUTER_PID)
+        writer.progress(
+            f"{len(merged)} merged entries from {len(procs)} process(es) "
+            f"({n_replicas} replica(s)) under {fleet_dir}"
+        )
+        print(obs_export.summarize(merged))
+        out = args.chrome_trace or os.path.join(fleet_dir,
+                                                "fleet_trace.json")
+        obs_export.write_chrome_trace(merged, out, process_names=procs)
+        writer.progress(
+            f"fleet chrome trace ({n_replicas} replica lanes + router) -> "
+            f"{out} (open in Perfetto / chrome://tracing)"
+        )
+        writer.progress(
+            f"{len(obs_fleet.journeys(merged))} journey(s) stitched; "
+            "inspect one with: python -m tpu_patterns_torch obs journey "
+            "<jid|rid>"
+        )
+        return
+    if args.action == "journey":
+        if not args.target:
+            raise SystemExit(
+                "obs journey: pass a journey id (j...) or a request id"
+            )
+        merged, _ = obs_fleet.merge_fleet(obs_dir)
+        if not merged:
+            raise SystemExit(f"no fleet dumps under {obs_dir}")
+        print(obs_fleet.journey_table(merged, args.target))
+        return
+    # explain: one request's (or one action's) decisions on the merged
+    # timeline, with their rationale and the signals read at the time
+    if not args.target and not args.filter_action:
+        raise SystemExit(
+            "obs explain: pass a request/journey id, or filter fleet-wide "
+            f"with --action ({'|'.join(obs_decisions.ACTIONS)})"
+        )
+    if args.filter_action and args.filter_action not in obs_decisions.ACTIONS:
+        raise SystemExit(
+            f"obs explain: unknown --action {args.filter_action!r} (want "
+            f"one of {sorted(obs_decisions.ACTIONS)})"
+        )
+    merged, _ = obs_fleet.merge_fleet(obs_dir)
+    if not merged:
+        raise SystemExit(f"no fleet dumps under {obs_dir}")
+    print(obs_decisions.explain_table(merged, key=args.target,
+                                      action=args.filter_action))
 
 
 def _add_allreduce_flags(p: argparse.ArgumentParser) -> None:

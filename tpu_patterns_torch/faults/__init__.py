@@ -50,10 +50,25 @@ Fault sites of this package:
   obs.scrape     obs/live.py, per HTTP request to the live plane (any
                  error answers 503)
 
-Not ported: the fleet's sites (``router.route``, ``replica.*``,
-``fleet.*``, ``disagg.*``, ``store.*``; Queue 1 step 9) and the sweep's
-and warm workers' (``cell.run``, ``worker.ready``; step 10).  A spec
-naming one is refused at parse time.
+  router.route   serve/router.py, after the ring's decision, before the
+                 dispatch (``error`` falls back to another live replica,
+                 counted as a reroute; ``sleep`` stalls the front door)
+  replica.spawn  serve/replica.py, before a child's fork (retried under
+                 the replica policy)
+  replica.drain  serve/replica.py, before a drain or checkpoint request
+                 (``error``: the replica is treated as unresponsive)
+  replica.obs_ship  serve/replica.py (child), before each obs batch
+                 (``error`` drops that batch; the obs watchdog sees it)
+  fleet.scale_out, fleet.scale_in  serve/replica.py, before an elastic
+                 spawn or drain (``error`` aborts that action)
+  store.publish, store.fetch, store.prewarm  serve/engine.py, before a
+                 fleet-store commit, admission-miss read or scale-out
+                 pre-fetch (each degrades to fresh prefill)
+
+Not ported: the disaggregated handoff's sites (``disagg.transfer``,
+``disagg.adopt``; Queue 1 step 9b) and the sweep's and warm workers'
+(``cell.run``, ``worker.ready``; step 10).  A spec naming one is refused
+at parse time.
 """
 
 from tpu_patterns_torch.faults.injector import (  # noqa: F401

@@ -62,9 +62,9 @@ ACTIONS = frozenset(
 )
 
 # every inject() call site in the package: a spec naming anything else
-# is a typo (or a site not ported yet: the fleet's, the sweep's, the
-# warm workers' and the prefix store's) that would silently inject
-# nothing, so parse_spec rejects it
+# is a typo (or a site not ported yet: the disaggregated handoff's, the
+# sweep's and the warm workers') that would silently inject nothing, so
+# parse_spec rejects it
 KNOWN_SITES = frozenset({
     "ckpt.save",  # ckpt/checkpoint.py, after the shards, before the manifest
     "ckpt.restore",  # ckpt/checkpoint.py, before the shard reads
@@ -89,13 +89,41 @@ KNOWN_SITES = frozenset({
     # obs/live.py, per HTTP request to the live plane: any error answers
     # 503, never crashing (or blocking) the scheduler it observes
     "obs.scrape",
+    # the replica fleet (serve/router.py, serve/replica.py): route fires
+    # after the ring's decision and before the dispatch (an ``error``
+    # falls back to another live replica, counted as a reroute); spawn
+    # before the child's fork (retried under the replica policy); drain
+    # before a drain or checkpoint request (an ``error`` is treated as an
+    # unresponsive replica: killed and settled); obs_ship in the child
+    # before each obs batch (an ``error`` drops that batch)
+    "router.route", "replica.spawn", "replica.drain", "replica.obs_ship",
+    # serve/replica.py's elastic controller, before a scale-out spawn or
+    # a scale-in drain (an ``error`` aborts that action; the cooldown is
+    # spent all the same)
+    "fleet.scale_out", "fleet.scale_in",
+    # the fleet prefix store (serve/store.py via serve/engine.py):
+    # publish fires before the tmp + os.replace commit, fetch before an
+    # admission-miss store read, prewarm before a scale-out pre-fetch;
+    # each degrades to fresh prefill on a deterministic failure
+    "store.publish", "store.fetch", "store.prewarm",
 })
+
+# sites of the JAX package that a later step ports, named in the refusal
+_LATER_SITES = {
+    "disagg.transfer": "ROADMAP.md Queue 1 step 9b, the disaggregated "
+                       "prefill/decode handoff",
+    "disagg.adopt": "ROADMAP.md Queue 1 step 9b, the disaggregated "
+                    "prefill/decode handoff",
+    "cell.run": "ROADMAP.md Queue 1 step 10, the sweep",
+    "worker.ready": "ROADMAP.md Queue 1 step 10, the warm workers",
+}
 
 # the match keys of the spec grammar (the JAX package's set; the sites
 # here pass ``step``, at ckpt.save ``proc``, at loadgen.arrive ``rid`` and
 # ``scenario``, at obs.cost_book ``rows`` or ``rid`` and ``replica``, at
 # the serve.* sites ``rid``, ``rows``, ``step`` and ``replica``, at
-# obs.scrape ``endpoint``)
+# obs.scrape ``endpoint``, at the fleet's sites ``replica`` (router.route
+# also ``rid``) and at the store.* sites ``fingerprint``)
 MATCH_KEYS = frozenset({
     "pid", "cmd", "cell", "step", "proc", "rows", "rid", "scenario",
     "replica", "blocks", "endpoint", "fingerprint",
@@ -136,9 +164,11 @@ def parse_spec(text: str) -> list[FaultSpec]:
             )
         site, action = parts[0].strip(), parts[1].strip()
         if site not in KNOWN_SITES:
+            where = _LATER_SITES.get(site)
             raise ValueError(
-                f"fault spec {chunk!r}: unknown site {site!r} "
-                f"(want one of {sorted(KNOWN_SITES)})"
+                f"fault spec {chunk!r}: unknown site {site!r}"
+                + (f", not ported yet ({where})" if where else "")
+                + f" (want one of {sorted(KNOWN_SITES)})"
             )
         if action not in ACTIONS:
             raise ValueError(

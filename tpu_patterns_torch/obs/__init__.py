@@ -24,12 +24,10 @@ The port's copy of ``tpu_patterns/obs/`` (all jax-free there):
   table.py     the fixed-width markdown tables of the readers (the JAX
                package renders them with ``tabulate``)
 
-Not ported yet: ``fleet.py`` (the merged fleet timeline that ``obs
-fleet``, ``obs journey`` and ``obs explain`` read, and the live plane's
-fleet view) with the replica fleet, ROADMAP.md Queue 1 step 9; and the
-host/device join of ``obs summarize --profile-dir`` (``export.
-host_device_join``), which needs the torch.profiler trace reader
-``core/profile.py``, Queue 1 step 6.
+  fleet.py     the replica fleet's plane: child-side span and counter
+               shipping, the parent's sink and mirror reconciliation,
+               the merged fleet timeline that ``obs fleet``, ``obs
+               journey`` and ``obs explain`` read, request journeys
 
 Usage (the whole API most call sites need)::
 

@@ -2,9 +2,8 @@
 many.
 
 The port's copy of ``tpu_patterns/obs/decisions.py``; ``explain_table``
-renders with the port's own fixed-width table (``obs/table.py``), and
-the fleet's merged timeline it reads waits for ``obs/fleet.py``
-(ROADMAP.md Queue 1 step 9): here it reads one process's entries.
+renders with the port's own fixed-width table (``obs/table.py``); ``obs
+explain`` hands it the fleet's merged timeline (``obs/fleet.py``).
 
 Every control-plane action the serve stack takes — defer, evict, shed,
 preempt, scale out/in, breaker trip, reroute — already increments a

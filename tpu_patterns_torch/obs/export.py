@@ -2,8 +2,7 @@
 
 The port's copy of ``tpu_patterns/obs/export.py``.  Two differences: the
 journey index the Chrome trace's flow arrows read (``journeys``) lives
-here, since ``obs/fleet.py`` is not ported (ROADMAP.md Queue 1 step 9),
-and ``host_device_join`` reads a Kineto trace through
+here (``obs/fleet.py`` imports it), and ``host_device_join`` reads a Kineto trace through
 ``core/profile.py`` and names the card's engines (SMs, NCCL, copy
 engines).  The summary table is the port's own fixed-width rendering
 (``obs/table.py``).

@@ -1,10 +1,8 @@
 """Live telemetry plane: /metrics, /healthz, /statusz over stdlib HTTP.
 
-The port's copy of ``tpu_patterns/obs/live.py`` for one engine: the
-replica fleet's view (``attach_fleet`` and the per-replica lanes of
-/healthz and /statusz) waits for the fleet (ROADMAP.md Queue 1 step 9),
-and /statusz reports ``jid`` as null, since the port's requests carry
-no journey id.
+The port's copy of ``tpu_patterns/obs/live.py``, the replica fleet's
+view included: a fleet parent attaches its manager (``attach_fleet``),
+and /healthz and /statusz answer with one lane per replica.
 
 Everything the obs stack had before this module is post-hoc — spans,
 flight-recorder rings, fleet merges, perfwatch all answer "what
@@ -28,7 +26,9 @@ to the serving plane:
              engine's rt.LeaseTable with lifecycle timestamps (age,
              TTFT, tokens out of budget), resumed legs flagged with
              their banked token counts and parked (preempted, queued)
-             rows listed
+             rows listed; on a replica-fleet parent, one LANE per
+             replica aggregated from the parent's lease ledgers + the
+             shipped obs stream
   /costz     the attribution plane live (obs/cost.py): measured
              decode/prefill walls apportioned per request with the
              identity verdicts, the pool block-second integral, and
@@ -59,11 +59,13 @@ ENDPOINTS = ("/metrics", "/healthz", "/statusz", "/costz")
 #
 # The plane outlives any one engine (A/B measured patterns build several
 # per run), so engines announce themselves: ServeEngine.run attaches at
-# loop entry and detaches at exit.  One process, one current target —
-# the same shape as the default metrics registry.
+# loop entry and detaches at exit, the replica parent attaches its
+# manager for the fleet view.  One process, one current target of each
+# kind — the same shape as the default metrics registry.
 
 _TARGET_LOCK = threading.Lock()
 _ENGINE = None
+_FLEET = None
 # watchdog fired_dumps() length at the moment the current target
 # attached: "recent-fire status" means fires during THIS run — a hang
 # diagnosed in an earlier leg of the same process must not mark a
@@ -99,6 +101,26 @@ def current_engine():
         return _ENGINE
 
 
+def attach_fleet(manager) -> None:
+    global _FLEET, _FIRES_AT_ATTACH
+    fires = _fired_count()
+    with _TARGET_LOCK:
+        _FLEET = manager
+        _FIRES_AT_ATTACH = fires
+
+
+def detach_fleet(manager) -> None:
+    global _FLEET
+    with _TARGET_LOCK:
+        if _FLEET is manager:
+            _FLEET = None
+
+
+def current_fleet():
+    with _TARGET_LOCK:
+        return _FLEET
+
+
 # -- snapshots -------------------------------------------------------------
 
 
@@ -130,16 +152,30 @@ def _engine_health(eng) -> dict:
     }
 
 
+def _fleet_health(mgr) -> dict:
+    lanes = {}
+    for h in mgr.handles.values():
+        lanes[h.id] = {
+            "state": h.state,
+            "alive": bool(h.alive()),
+            "breaker_open": bool(h.breaker.opened),
+            "leases": len(h.leases),
+            "obs_stalled": bool(getattr(h, "obs_stalled", False)),
+        }
+    return {"replicas": lanes}
+
+
 def health_snapshot() -> dict:
     """The /healthz body.  Verdict ladder: ``unhealthy`` when the
-    decode path is gone (engine breaker open/tripped); ``degraded`` when
-    serving continues impaired (burn mitigation active, watchdog fired,
-    quarantined requests, tier fallbacks); ``ok`` otherwise — an idle
-    plane with nothing attached is ok, not an error."""
+    decode path is gone (engine breaker open/tripped, or every fleet
+    replica dead); ``degraded`` when serving continues impaired (burn
+    mitigation active, watchdog fired, quarantined requests, tier
+    fallbacks, a sick replica); ``ok`` otherwise — an idle plane with
+    nothing attached is ok, not an error."""
     from tpu_patterns_torch import obs
 
     with _TARGET_LOCK:
-        eng = _ENGINE
+        eng, fleet = _ENGINE, _FLEET
         fires_baseline = _FIRES_AT_ATTACH
     out: dict = {"verdict": "ok", "pid_clock_ns": clock_ns()}
     unhealthy = degraded = False
@@ -169,6 +205,20 @@ def health_snapshot() -> dict:
             degraded = True
     else:
         out["engine"] = None
+    if fleet is not None:
+        out["fleet"] = _fleet_health(fleet)
+        lanes = out["fleet"]["replicas"].values()
+        if lanes and not any(
+            l["alive"] and l["state"] in ("spawning", "ready")
+            for l in lanes
+        ):
+            unhealthy = True
+        if any(
+            l["state"] in ("quarantined", "drained", "dead")
+            or l["breaker_open"] or l["obs_stalled"]
+            for l in lanes
+        ):
+            degraded = True
     out["verdict"] = (
         "unhealthy" if unhealthy else "degraded" if degraded else "ok"
     )
@@ -187,7 +237,7 @@ def _engine_status(eng) -> dict:
             "rid": rid,
             "scenario": slot.scenario or None,
             "priority": slot.priority or None,
-            "jid": None,
+            "jid": slot.jid or None,
             "prompt_tokens": slot.lens,
             "generated": len(slot.out),
             "banked": banked or None,
@@ -232,15 +282,54 @@ def _engine_status(eng) -> dict:
     }
 
 
+def _fleet_status(mgr) -> dict:
+    """One lane per replica: the parent's lease ledger (which rids are
+    in flight WHERE) joined with the shipped obs stream's per-replica
+    counter truth (obs/fleet.py) — the fleet statusz needs no RPC to
+    the children, everything is already at the parent."""
+    fleet_obs = getattr(mgr, "fleet_obs", None)
+    lanes = []
+    for h in mgr.handles.values():
+        shipped = {}
+        if fleet_obs is not None:
+            totals = fleet_obs.shipped_totals.get(h.id, {})
+            for (_, name, lk), v in totals.items():
+                if name in (
+                    "tpu_patterns_serve_requests_total",
+                    "tpu_patterns_serve_tokens_total",
+                    "tpu_patterns_serve_quarantined_total",
+                ):
+                    short = name[len("tpu_patterns_serve_"):-len("_total")]
+                    shipped[short] = shipped.get(short, 0.0) + v
+        lanes.append({
+            "replica": h.id,
+            "state": h.state,
+            "inflight": sorted(h.leases.held()),
+            "breaker_open": bool(h.breaker.opened),
+            "last_msg_age_s": round(
+                (clock_ns() - h.last_msg_ns) / 1e9, 3
+            ),
+            "obs_stalled": bool(getattr(h, "obs_stalled", False)),
+            "shipped": shipped,
+        })
+    return {"replicas": lanes}
+
+
 def status_snapshot() -> dict:
-    eng = current_engine()
-    return {"engine": _engine_status(eng) if eng is not None else None}
+    eng, fleet = current_engine(), current_fleet()
+    out: dict = {}
+    out["engine"] = _engine_status(eng) if eng is not None else None
+    if fleet is not None:
+        out["fleet"] = _fleet_status(fleet)
+    return out
 
 
 def cost_snapshot(max_requests: int = 32) -> dict:
     """The /costz body: the attached engine's cost book (obs/cost.py)
     with the per-request list capped for scrape size — the full list
-    lands in ``cost.jsonl`` at dump time."""
+    lands in ``cost.jsonl`` at dump time.  A replica-fleet parent
+    answers for its OWN engine only; the children's books dump next to
+    their metrics and merge offline via ``obs cost``."""
     eng = current_engine()
     if eng is None:
         return {"engine": None}
@@ -448,6 +537,13 @@ def _watch_line(n: int, health: dict, samples: dict) -> str:
         )
         if v is not None:
             parts.append(f"{tag}_tpot_p99={_fmt(v, 'ms')}")
+    if "fleet" in health:
+        lanes = health["fleet"]["replicas"]
+        live = sum(
+            1 for l in lanes.values()
+            if l["alive"] and l["state"] in ("spawning", "ready")
+        )
+        parts.append(f"replicas={live}/{len(lanes)}")
     return " ".join(parts)
 
 

@@ -32,10 +32,12 @@ paged-attention kernel K1 (``serve/paged_kernel.py``; on CPU tensors
 its plain version) at the same shapes and floors as the dense legs.
 ``zero.step`` runs the ZeRO-adam train step (``models/zero_step.py``)
 over two dp ranks on the one device, a real dp axis as the JAX
-package's ``_train_mesh`` gives it.  ``disagg.stream`` and
-``serve.prefix_store`` (ROADMAP.md Queue 1 step 9) read machinery not
-ported yet: a capture that names one is refused, and the full capture
-lists them under ``skipped`` with their step.  The JAX package's Tier C ``SpmdEntry``
+package's ``_train_mesh`` gives it.  ``serve.prefix_store`` is the
+fleet prefix store's round trip (a publisher engine, then a cold
+fetcher engine on the same trace, in one process).  ``disagg.stream``
+(ROADMAP.md Queue 1 step 9b) reads machinery not ported yet: a capture
+that names it is refused, and the full capture lists it under
+``skipped`` with its step.  The JAX package's Tier C ``SpmdEntry``
 registry serves its static analysis and is not part of this module.
 
 Every direct-timed rep runs inside an ``obs.span("perf.<name>")``.
@@ -112,9 +114,7 @@ EXECUTABLES = (
 # entries whose machinery is not ported yet -> the ROADMAP step that
 # ports it
 NOT_PORTED = {
-    "disagg.stream": "ROADMAP.md Queue 1 step 9 (disaggregated serving)",
-    "serve.prefix_store": "ROADMAP.md Queue 1 step 9 (the fleet's "
-                          "prefix store)",
+    "disagg.stream": "ROADMAP.md Queue 1 step 9b (disaggregated serving)",
 }
 
 PORTED = tuple(n for n in EXECUTABLES if n not in NOT_PORTED)
@@ -533,6 +533,65 @@ def _capture_kv_tier(cfg: PerfConfig, dev) -> dict[str, dict]:
     }}
 
 
+def _capture_prefix_store(cfg: PerfConfig, dev) -> dict[str, dict]:
+    """The fleet prefix store's round trip: a publisher engine serves the
+    deterministic session trace with the store attached (every retained
+    or evicted full block commits), then a cold fetcher engine serves the
+    SAME trace against the warm store, its admission misses fetching
+    instead of prefilling.  ``store_publish_bytes``,
+    ``store_fetch_bytes`` and ``store_hits`` are exact host-side
+    accounting at the fixed trace (the ``analytic`` class, so a republish
+    or refetch storm fails ``perf diff``), beside the measured decode
+    wall of the warm fetcher."""
+    import shutil
+    import tempfile
+
+    from tpu_patterns_torch.models.lm import init_lm_params
+    from tpu_patterns_torch.serve.engine import (
+        ServeConfig,
+        ServeEngine,
+        _kv_tier_pool,
+        session_trace,
+    )
+
+    scfg = ServeConfig(
+        vocab=cfg.vocab, embed=cfg.embed, heads=cfg.heads,
+        head_dim=cfg.head_dim, mlp_mult=cfg.mlp_mult, depth=cfg.depth,
+        dtype=cfg.dtype, rope=cfg.rope, kv_heads=cfg.kv_heads,
+        cache_int8=cfg.cache_int8, slots=cfg.slots,
+        block_len=cfg.block_len, requests=cfg.requests, gen=cfg.gen,
+        seed=cfg.seed, device=str(dev),
+    )
+    trace, _gen = session_trace(scfg)
+    mcfg = _mcfg(cfg)
+    decoder = _kv_tier_pool(scfg, mcfg, dev)
+    params = decoder.stack_params(
+        init_lm_params(cfg.seed, mcfg, cfg.vocab, dev)
+    )
+    store_dir = tempfile.mkdtemp(prefix="tpu_patterns_torch_perf_store_")
+    try:
+        pub = ServeEngine(decoder, params, slots=scfg.slots,
+                          kv_host_tier=True, prefix_store=store_dir)
+        pub.run([dataclasses.replace(r) for r in trace])
+
+        def run_once():
+            eng = ServeEngine(decoder, params, slots=scfg.slots,
+                              kv_host_tier=True, prefix_store=store_dir)
+            eng.run([dataclasses.replace(r) for r in trace])
+            return eng
+
+        reps, eng = _engine_reps(cfg, run_once)
+        st = eng.stats
+        return {"serve.prefix_store": {
+            "store_publish_bytes": float(pub.stats["store_publish_bytes"]),
+            "store_fetch_bytes": float(st["store_fetch_bytes"]),
+            "store_hits": float(st["store_hits"]),
+            "step_ms": _median_ms(reps) if reps else -1.0,
+        }}
+    finally:
+        shutil.rmtree(store_dir, ignore_errors=True)
+
+
 # -- the snapshot ----------------------------------------------------------
 
 
@@ -607,6 +666,8 @@ _CAPTURES = (
     (("serve.step",), _capture_serve, "serve.step (engine-driven trace)"),
     (("serve.kv_tier",), _capture_kv_tier,
      "serve.kv_tier (tiered-KV offload trace)"),
+    (("serve.prefix_store",), _capture_prefix_store,
+     "serve.prefix_store (publisher, then fetcher, on one store)"),
 )
 
 

@@ -16,5 +16,12 @@
                    the cost book, the kv tier, priority preemption,
                    snapshots, retry and quarantine, the decode-health
                    breaker and slot leases, recorded by the obs plane)
-                   and the ``serve`` measured patterns
+                   and the ``serve`` measured patterns, with the
+                   fleet prefix store's publish/fetch/prewarm hooks
+  router.py        the prefix-aware consistent-hash router of the fleet
+  store.py         the fleet prefix store: one atomic npz a block
+  elastic.py       the elastic fleet's scale-out/scale-in policy
+  replica.py       ``serve --replicas N``: N engine processes behind the
+                   router, with fail-over, drain, the elastic reserve
+                   and the fleet's obs shipping, and its three Records
 """

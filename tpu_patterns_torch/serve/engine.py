@@ -68,8 +68,16 @@ step_outer`` covers injection and every retry), one Chrome-trace lane of
 ``req.*`` spans a request, the ``serve.*`` events with their decision-
 ledger entries (``obs/decisions.py``), and the live plane's view
 (``obs/live.py``) while ``run`` is in its loop.  ``watchdog_s`` puts a
-deadline on every prefill, step and verify span.  Not ported (ROADMAP):
-the fleet prefix store and disaggregated handoff.
+deadline on every prefill, step and verify span.
+
+The fleet's hooks are ported too: ``replica`` labels a fleet engine's
+fault sites, spans and metrics, a request's ``jid`` (its fleet journey
+id) rides its lifecycle spans, and ``prefix_store`` (needs the kv tier)
+publishes every materialized full prefix block to the fleet prefix
+store (``serve/store.py``) at iteration boundaries and consults it on an
+admission miss before prefilling fresh; ``prewarm_paths`` fetches a
+scale-out replica's ring arc into the tier.  Not ported (ROADMAP.md
+Queue 1 step 9b): the disaggregated prefill/decode handoff.
 
 ``run_serve`` is the measured pattern: the same trace served continuous
 (``slots`` wide) and sequential (one slot), gated on speedup, exactness
@@ -118,6 +126,7 @@ from tpu_patterns_torch.serve.paged import (
 from tpu_patterns_torch.serve.kvtier import HostTier
 from tpu_patterns_torch.serve.paged_kernel import paged_block
 from tpu_patterns_torch.serve.prefix import PrefixIndex
+from tpu_patterns_torch.serve.store import PrefixStore, block_fingerprint
 
 # the reference's snapshot format: 2 added refcounts, the prefix index
 # and slot prompts; 3 the per-request sampling config and the
@@ -158,6 +167,7 @@ class Request:
     top_p: float = 1.0
     seed: int = 0
     gen_offset: int = 0
+    jid: str = ""  # fleet journey id (rides the lifecycle spans)
 
 
 @dataclasses.dataclass
@@ -187,6 +197,7 @@ class _Slot:
     t_first_ns: int = 0
     t_last_ns: int = 0
     slot: int = -1  # the scheduler-slot lease token (rt.LeasePool)
+    jid: str = ""  # fleet journey id (rides the lifecycle spans)
 
 
 class ServeEngine:
@@ -211,6 +222,9 @@ class ServeEngine:
     iteration, commits a snapshot there and returns;
     :meth:`restore_snapshot` loads it into a fresh engine.
     ``fingerprint`` is the config a snapshot or session must agree on.
+    ``replica`` is a fleet engine's id (its fault sites' ``replica`` ctx
+    and its obs labels); ``prefix_store`` (needs ``kv_host_tier``) names
+    the fleet prefix store's directory.
 
     ``retry_policy`` (default ``faults.serve_retry_policy()``) governs the
     prefill, step and verify retries; ``breaker`` (an ``rt.Breaker``,
@@ -229,13 +243,20 @@ class ServeEngine:
                  host_tier_blocks: int = 0,
                  preempt: str = "off",
                  snapshot_dir: str | None = None,
-                 fingerprint: dict | None = None):
+                 fingerprint: dict | None = None,
+                 replica: str = "",
+                 prefix_store: str | None = None):
         if slots < 1:
             raise ValueError(f"slots must be >= 1, got {slots}")
         if spec_k < 0:
             raise ValueError(f"spec_k must be >= 0, got {spec_k}")
         if session_dir and not kv_host_tier:
             raise ValueError("session_dir requires kv_host_tier")
+        if prefix_store and not kv_host_tier:
+            raise ValueError(
+                "prefix_store requires kv_host_tier: fetched blocks "
+                "adopt through the host tier's onload path"
+            )
         if burn_mitigation not in ("off", "shed", "spec_off"):
             raise ValueError(
                 f"burn_mitigation must be off | shed | spec_off, got "
@@ -261,10 +282,9 @@ class ServeEngine:
         # None keeps serving, quarantining wave by wave
         self.breaker = breaker
         self.breaker_tripped = False
-        # the replica id the fault sites' ctx and the live plane carry:
-        # one engine is "" (the fleet, ROADMAP.md Queue 1 step 9, labels
-        # its replicas)
-        self.replica = ""
+        # the replica id the fault sites' ctx, the obs labels and the live
+        # plane carry: one engine is "", the fleet labels its replicas
+        self.replica = replica
         self.watchdog_s = watchdog_s
         self.layout = decoder.layout
         self.n_pages = decoder.n_pages
@@ -287,14 +307,34 @@ class ServeEngine:
         # allocated (a device-resident prefix cache), move to host
         # memory when the free list runs dry and page back on a hit
         self.tier: HostTier | None = None
+        # the fleet prefix store: a shared atomic-commit directory every
+        # replica publishes materialized full prefix blocks into (eagerly,
+        # so a SIGKILLed replica's warm prefixes are already visible) and
+        # consults on an admission miss before prefilling fresh
+        self.store: PrefixStore | None = None
+        # blocks awaiting publication with their path, captured when the
+        # block materialized (block ids are reused: the publish wave drops
+        # a pair whose block moved on)
+        self._store_pending: list[tuple[int, tuple[int, ...]]] = []
+        # paths this engine published or fetched: republishing is wasted
+        self._store_published: set[tuple[int, ...]] = set()
         if kv_host_tier:
+            leaf_meta = {
+                name: ((shape[0], *shape[2:]), dt)
+                for name, (shape, dt) in decoder._pool_leaves().items()
+            }
             self.tier = HostTier(
-                {name: ((shape[0], *shape[2:]), dt)
-                 for name, (shape, dt) in decoder._pool_leaves().items()},
+                leaf_meta,
                 block_len=self.layout.block_len,
                 session_dir=session_dir, capacity_blocks=host_tier_blocks,
                 fingerprint=self.fingerprint,
             )
+            if prefix_store:
+                self.store = PrefixStore(
+                    prefix_store, leaf_meta,
+                    block_len=self.layout.block_len,
+                    fingerprint=self.fingerprint,
+                )
         self.retry_policy = retry_policy or faults.serve_retry_policy()
         # retained blocks: {block: last-reference stamp}, the LRU order
         # (a counter, not a clock, so replays are deterministic)
@@ -309,15 +349,17 @@ class ServeEngine:
         # (bulk first, then preempts running bulk under ``preempt``)
         # while a burn episode lasts, ``spec_off`` falls back from the
         # wide step to plain decode (same ids)
-        self.slo = SloMonitor(slo)
+        self.slo = SloMonitor(slo, replica=replica)
         self.burn_mitigation = burn_mitigation
         # the cost book: measured prefill/decode walls apportioned over
         # the rows of each wave, and the pool's block-seconds; the
         # decision ledger: one entry a defer, evict, shed, preempt or
         # breaker trip with the signals read at decision time.  Both
         # fail open (the obs.cost_book site)
-        self.cost = _register_cost(CostBook(self.layout.n_blocks - 1))
-        self.decisions = DecisionLedger()
+        self.cost = _register_cost(
+            CostBook(self.layout.n_blocks - 1, replica=replica)
+        )
+        self.decisions = DecisionLedger(replica=replica)
         # admissions the burn ladder shed: {rid: reason}, a terminal
         # bucket like done, so the trace's accounting still closes
         self.shed: dict[int, str] = {}
@@ -360,6 +402,10 @@ class ServeEngine:
             "onload_ns": 0,
             # preemption events, and preempted requests later retired
             "preempted": 0, "preempted_resumed": 0,
+            # the fleet prefix store (all 0 with it off)
+            "store_publishes": 0, "store_publish_bytes": 0,
+            "store_hits": 0, "store_fetch_bytes": 0,
+            "store_prewarmed": 0, "store_fallbacks": 0,
         }
         # SIGTERM/SIGINT (or an injected ``preempt``) sets the event; the
         # loop finishes its iteration, snapshots into snapshot_dir and
@@ -494,7 +540,8 @@ class ServeEngine:
 
         def attempt():
             # before the copy: nothing mutated, so an error retries
-            faults.inject("serve.evict", rid=rid, rows=len(blocks))
+            faults.inject("serve.evict", rid=rid, rows=len(blocks),
+                          replica=self.replica)
             out = self.decoder.gather_blocks(self.pool, blocks)
             host = {n: t.to("cpu") for n, t in out.items()}
             return [
@@ -528,6 +575,13 @@ class ServeEngine:
             self.index.evict_block(b, h)
             self.retained.pop(b, None)
             self.free.append(b)
+        if self.store is not None:
+            # the host bytes are in hand: publish the wave to the fleet
+            # store beside the tier copy (a publish failure never touches
+            # the eviction above)
+            self._store_publish_entries(
+                [(path, data) for _, data, path in entries], rid=rid
+            )
         n_bytes = self.tier.block_nbytes() * len(entries)
         self.stats["evictions"] += len(entries)
         self.stats["evict_bytes"] += n_bytes
@@ -610,7 +664,8 @@ class ServeEngine:
 
         def attempt():
             # before the copy: the targets hold garbage either way
-            faults.inject("serve.onload", rid=rid, rows=len(handles))
+            faults.inject("serve.onload", rid=rid, rows=len(handles),
+                          replica=self.replica)
             vals = {
                 n: torch.stack([self.tier.get(h)[n] for h in handles], 1)
                 for n in self.tier.leaf_meta
@@ -644,6 +699,238 @@ class ServeEngine:
             host_blocks=str(len(self.tier)),
         )
         return blocks
+
+    # -- the fleet prefix store (serve/store.py) -------------------------
+
+    def _store_fallback(self, op: str, err: Exception) -> None:
+        """A store operation failed past its retries: degrade to fresh
+        prefill (or skip the publication) for this wave, engine state
+        unchanged, and leave the trail: a ``serve.store_fallback`` event,
+        a WARNING Record (``serve.jsonl`` under the obs run dir, markers
+        on stderr) and the fallbacks counter."""
+        self.stats["store_fallbacks"] += 1
+        obs.counter("tpu_patterns_store_fallbacks_total").inc()
+        obs.event("serve.store_fallback", op=op, error=str(err))
+        try:
+            ResultWriter(
+                jsonl_path=os.path.join(obs.run_dir(), "serve.jsonl"),
+                stream=sys.stderr,
+            ).record(Record(
+                pattern="serve",
+                mode="store_fallback",
+                commands=op,
+                metrics={"pid": float(os.getpid())},
+                verdict=Verdict.WARNING,
+                notes=[
+                    f"prefix store {op} failed after retries ({err}); "
+                    "degrading to fresh prefill for this wave — "
+                    "engine state unchanged, never torn"
+                ],
+            ))
+        except Exception:  # the trail is best-effort: a healed wave stays
+            pass
+
+    def _store_enqueue(self, blocks) -> None:
+        """Queue newly materialized blocks for publication.  The path is
+        captured now: block ids are recycled, and the publish wave checks
+        the pair again before it gathers."""
+        if self.store is None:
+            return
+        for b in blocks:
+            path = self.index.node_path(b)
+            if path and path not in self._store_published:
+                self._store_pending.append((b, path))
+
+    def _store_publish_entries(self, entries, rid: int = -1) -> int:
+        """Commit host-side block payloads (``[(path, {leaf: CPU
+        tensor})]``) under the ``store.publish`` site: tmp +
+        ``os.replace`` a block.  Returns the blocks published; a failure
+        past the retries skips the publication, local serving
+        untouched."""
+        todo = [
+            (path, data) for path, data in entries
+            if tuple(path) not in self._store_published
+        ]
+        if self.store is None or not todo:
+            return 0
+
+        def attempt():
+            # before any file I/O: a retried publish rewrites the same
+            # content under the same keys
+            faults.inject(
+                "store.publish", rid=rid, rows=len(todo),
+                replica=self.replica,
+                fingerprint=block_fingerprint(todo[0][0]),
+            )
+            return sum(self.store.publish(data, path) for path, data in todo)
+
+        try:
+            n_bytes = faults.call_with_retry(
+                attempt, policy=self.retry_policy, site="store.publish"
+            )
+        except (OSError, faults.Quarantined) as e:
+            self._store_fallback("publish", e)
+            return 0
+        for path, _ in todo:
+            self._store_published.add(tuple(path))
+        self.stats["store_publishes"] += len(todo)
+        self.stats["store_publish_bytes"] += n_bytes
+        obs.counter("tpu_patterns_store_publishes_total").inc(len(todo))
+        obs.histogram("tpu_patterns_store_publish_bytes").observe(
+            float(n_bytes)
+        )
+        obs.event("serve.store_publish", blocks=str(len(todo)),
+                  replica=self.replica)
+        return len(todo)
+
+    def _store_publish_wave(self, limit: int = 8, rid: int = -1) -> int:
+        """Publish up to ``limit`` pending materialized blocks in one
+        gather (the pool is read, not changed), at an iteration boundary:
+        a SIGKILLed replica cannot be asked for its warm set afterwards,
+        so the set must already be in the store."""
+        if self.store is None or not self._store_pending:
+            return 0
+        batch: list[tuple[int, tuple[int, ...]]] = []
+        while self._store_pending and len(batch) < limit:
+            b, path = self._store_pending.pop(0)
+            # a stale pair: published meanwhile, evicted or freed, or the
+            # block id recycled under another path
+            if (path in self._store_published
+                    or not self.index.is_materialized(b)
+                    or self.index.node_path(b) != path):
+                continue
+            batch.append((b, path))
+        if not batch:
+            return 0
+        out = self.decoder.gather_blocks(self.pool, [b for b, _ in batch])
+        host = {n: t.to("cpu") for n, t in out.items()}
+        return self._store_publish_entries(
+            [(path, {n: host[n][:, i] for n in host})
+             for i, (_, path) in enumerate(batch)],
+            rid=rid,
+        )
+
+    def _store_flush(self) -> int:
+        """Drain or run-end flush: the pending device-resident blocks and
+        the host tier's resident set reach the store before the engine
+        exits, so fail-over reroutes and restarts land warm."""
+        if self.store is None:
+            return 0
+        n = 0
+        while self._store_pending:
+            done = self._store_publish_wave()
+            if not done and self._store_pending:
+                # a deterministic publish failure (or an all-stale tail):
+                # drop the rest, the flush must not wedge the shutdown
+                self._store_pending = []
+                break
+            n += done
+        n += self._store_publish_entries([
+            (self.tier.paths[h], self.tier.get(h))
+            for h in sorted(self.tier.store)
+        ])
+        return n
+
+    def _store_fetch(self, req: Request, need: int, covered: int
+                     ) -> list[int]:
+        """The admission-miss consult: extend the plan's coverage with
+        store blocks, contiguously from ``covered`` full blocks deep.
+        Each hit lands in the host tier and the index
+        (``add_host_path``) and returns as a restore handle, which the
+        caller onloads like a local tier hit.  A miss or failure stops
+        the run: coverage stays a contiguous prefix, the rest prefills
+        fresh."""
+        out: list[int] = []
+        if self.store is None:
+            return out
+        bl = self.layout.block_len
+        for j in range(covered, min(need, len(req.tokens) // bl)):
+            path = tuple(req.tokens[: (j + 1) * bl])
+
+            def attempt(path=path):
+                # before the read: nothing adopted yet, an error retries
+                faults.inject(
+                    "store.fetch", rid=req.rid, replica=self.replica,
+                    fingerprint=block_fingerprint(path),
+                )
+                return self.store.fetch(path)
+
+            try:
+                data = faults.call_with_retry(
+                    attempt, policy=self.retry_policy, site="store.fetch"
+                )
+            except (OSError, faults.Quarantined) as e:
+                self._store_fallback("fetch", e)
+                break
+            except ValueError as e:
+                # a foreign-config or corrupt entry, refused by the store
+                self._store_fallback("fetch-validate", e)
+                break
+            if data is None:
+                break  # a miss at depth j: no deeper entry can help
+            h = self.tier.put(data, path)
+            if not self.index.add_host_path(path, h):
+                # a duplicate: the local copy wins
+                self.tier.discard(h)
+                break
+            out.append(h)
+            self._store_published.add(path)  # already in the store
+            self.stats["store_hits"] += 1
+            self.stats["store_fetch_bytes"] += self.store.block_nbytes()
+            obs.counter("tpu_patterns_store_hits_total").inc()
+            obs.histogram("tpu_patterns_store_fetch_bytes").observe(
+                float(self.store.block_nbytes())
+            )
+        if out:
+            obs.event("serve.store_fetch", rid=str(req.rid),
+                      blocks=str(len(out)), replica=self.replica)
+        return out
+
+    def prewarm_paths(self, paths) -> int:
+        """Scale-out pre-warm: fetch the ring arc's hottest prefixes from
+        the store into the host tier, shallow-first (the first admission
+        hit pages them onto the device).  A failure stops the walk: a
+        cold replica is correct, only slower.  Returns the blocks
+        fetched."""
+        if self.store is None:
+            return 0
+        n = 0
+        for path in sorted((tuple(int(t) for t in p) for p in paths),
+                           key=lambda p: (len(p), p)):
+            if not path or len(path) % self.layout.block_len:
+                continue
+
+            def attempt(path=path):
+                faults.inject(
+                    "store.prewarm", replica=self.replica,
+                    fingerprint=block_fingerprint(path),
+                )
+                return self.store.fetch(path)
+
+            try:
+                data = faults.call_with_retry(
+                    attempt, policy=self.retry_policy, site="store.prewarm"
+                )
+            except (OSError, faults.Quarantined) as e:
+                self._store_fallback("prewarm", e)
+                break
+            except ValueError as e:
+                self._store_fallback("prewarm-validate", e)
+                break
+            if data is None:
+                continue
+            h = self.tier.put(data, path)
+            if not self.index.add_host_path(path, h):
+                self.tier.discard(h)
+                continue
+            self._store_published.add(path)
+            n += 1
+        if n:
+            self.stats["store_prewarmed"] += n
+            obs.counter("tpu_patterns_store_prewarms_total").inc(n)
+            obs.event("serve.store_prewarm", blocks=str(n),
+                      replica=self.replica)
+        return n
 
     def save_session(self) -> None:
         """Persist the session cache: evict every retained block to the
@@ -736,6 +1023,13 @@ class ServeEngine:
         attrs = {"rid": s.rid}
         if s.scenario:
             attrs["scenario"] = s.scenario
+        # the fleet's identity: the replica id qualifies the merged trace's
+        # lane (every replica restarts rids at 0) and the journey id makes
+        # the lifecycle spans journey anchors
+        if self.replica:
+            attrs["replica"] = self.replica
+        if s.jid:
+            attrs["jid"] = s.jid
         if s.t_admit_ns:
             obs.complete_span(
                 "req.queued", s.t_submit_ns, s.t_admit_ns - s.t_submit_ns,
@@ -842,7 +1136,7 @@ class ServeEngine:
                 scenario=s.scenario, deadline_ms=s.deadline_ms,
                 priority="bulk", temperature=s.temperature, top_k=s.top_k,
                 top_p=s.top_p, seed=s.seed,
-                gen_offset=s.gen_offset + len(s.out),
+                gen_offset=s.gen_offset + len(s.out), jid=s.jid,
             ),
             s.t_submit_ns,
         ))
@@ -855,7 +1149,7 @@ class ServeEngine:
         )
         burn = self.slo.snapshot()
         self.decisions.book(
-            "preempt", rid=s.rid,
+            "preempt", rid=s.rid, jid=s.jid,
             rationale="bulk victim parked to host tier (LIFO: least "
                       "banked decode work), remainder re-queued as "
                       "forced session",
@@ -948,6 +1242,15 @@ class ServeEngine:
             aliased = list(plan.aliased)[:need] if plan else []
             restores = (list(plan.restores)[: need - len(aliased)]
                         if plan and self.tier is not None else [])
+            if self.store is not None:
+                # the fleet store consult: an admission miss extends its
+                # coverage with blocks a sibling replica published; they
+                # land in the tier and the index and ride the onload
+                # below like a local restore (a miss or failure prefills
+                # fresh, never a half-adopted block)
+                restores += self._store_fetch(
+                    req, need, len(aliased) + len(restores)
+                )
             # restore targets and fresh blocks both draw on the free
             # list: a dry one evicts cold retained blocks first, sparing
             # the blocks this admission aliases and its CoW donor
@@ -972,7 +1275,7 @@ class ServeEngine:
                     need=device_need, free=len(self.free),
                 )
                 self.decisions.book(
-                    "defer", rid=req.rid,
+                    "defer", rid=req.rid, jid=req.jid,
                     rationale="pool pressure: fresh-block need exceeds "
                               "free list after evict/preempt rungs",
                     need=device_need, free=len(self.free),
@@ -1044,12 +1347,19 @@ class ServeEngine:
                 priority=req.priority, temperature=req.temperature,
                 top_k=req.top_k, top_p=req.top_p, seed=req.seed,
                 gen_offset=req.gen_offset, t_admit_ns=now, slot=slot_tok,
+                jid=req.jid,
             )
             self.inflight.acquire(req.rid, slot)
             # the row's residency integral opens: it holds len(table)
             # block references until it retires
             self.cost.hold(req.rid, len(table), scenario=req.scenario,
                            priority=req.priority)
+            if req.jid:
+                # the journey anchor at admission: it ships at the next
+                # iteration boundary, so even a replica SIGKILLed later has
+                # placed the request on its leg (obs/fleet.py)
+                obs.event("journey.admit", jid=req.jid, rid=str(req.rid),
+                          replica=self.replica)
             self.stats["queue_wait_ns"].append(now - t_submit)
             obs.histogram("tpu_patterns_serve_queue_wait_ms").observe(
                 (now - t_submit) / 1e6
@@ -1145,6 +1455,9 @@ class ServeEngine:
         if self.index is not None:
             for s in slots:
                 self.index.materialize(list(s.own_blocks))
+                # a prefilled full block is immutable (CoW): queue it for
+                # the fleet store's next publish wave
+                self._store_enqueue(s.own_blocks)
         obs.counter("tpu_patterns_serve_tokens_total").inc(len(slots))
         self.stats["prefills"] += 1
         self.active.extend(slots)
@@ -1582,12 +1895,20 @@ class ServeEngine:
                         len(self.active)
                     )
                     self.cost.tick(self.allocated_blocks())
+                    # publish this iteration's newly materialized full
+                    # blocks to the fleet store (a bounded wave): a
+                    # replica SIGKILLed next iteration has already made
+                    # its warm prefixes visible
+                    self._store_publish_wave()
                     if self.breaker_tripped:
                         self._trip()
                         break
                     if self._preempt.is_set():
                         self._take_preemption()
                         break
+            # drain or run end: pending and host-resident blocks reach
+            # the fleet store before this engine exits
+            self._store_flush()
             if self.tier is not None and self.tier.session_dir:
                 # bank the session cache at the run's end
                 self.save_session()
@@ -1659,7 +1980,12 @@ class ServeEngine:
         """The breaker opened: count and explain the stop (the loop ends
         at this iteration boundary with the queue and verdicts
         intact)."""
-        obs.counter("tpu_patterns_replica_breaker_trips_total").inc()
+        # a fleet engine labels the trip with its replica id: the series
+        # ships to the parent and must match the parent's mirror key
+        obs.counter(
+            "tpu_patterns_replica_breaker_trips_total",
+            **({"replica": self.replica} if self.replica else {}),
+        ).inc()
         obs.event("serve.breaker_open", replica=self.replica,
                   queued=len(self.queue))
         self.decisions.book(
@@ -1749,6 +2075,35 @@ class ServeConfig:
     # off; the ``obs watch URL`` subcommand polls it.  (The CLI's
     # ``--obs_http 0`` means an ephemeral port, as a plane's ``port``)
     obs_http: int = 0
+    # the fleet prefix store (serve/store.py): a shared directory every
+    # replica publishes materialized full prefix blocks into and consults
+    # on an admission miss, so fail-over reroutes land warm and scale-out
+    # replicas pre-warm their ring arc.  Needs --kv_host_tier and
+    # --replicas; "" = off
+    prefix_store: str = ""
+    # multi-replica serving (serve/replica.py): N engine processes, each
+    # on its own slice of the ranks, behind the prefix-aware router
+    # (serve/router.py); 0 = the single-engine paths.  With --scenario
+    # the fleet serves the schedule under both router policies (the
+    # routing comparison), with --elastic_reserve the elastic A/B
+    replicas: int = 0
+    replica_policy: str = "prefix"  # prefix | round_robin
+    route_blocks: int = 0  # prefix-fingerprint depth in blocks (0 = 2)
+    # the 1 -> N scaling gate: aggregate tokens/s over N replicas against
+    # ONE replica on the same slice size; 0 skips the baseline leg
+    min_replica_speedup: float = 1.8
+    replica_watchdog_s: float = 120.0  # no-message deadline a replica
+    replica_dir: str = ""  # fleet work dir (logs, snapshots, sessions)
+    # the elastic fleet (serve/elastic.py): N + R slices up front, N
+    # replicas started, the parent's policy scales out onto a reserved
+    # slice when lease occupancy holds above the high water and in by
+    # draining the coldest replica below the low water; 0 = static
+    elastic_reserve: int = 0
+    scale_out_occupancy: float = 1.25  # leases a slot, high water
+    scale_in_occupancy: float = 0.25  # leases a slot, low water
+    scale_sustain_s: float = 0.5  # the signal must hold this long
+    scale_cooldown_s: float = 2.0  # least gap between scale actions
+    min_live_replicas: int = 1  # the scale-in floor
     device: str = "cuda"  # "cpu" runs the plain torch versions
 
 
@@ -2525,6 +2880,21 @@ def _kv_session_record(cfg: ServeConfig, writer: ResultWriter, mcfg,
 def _refuse_unsupported(cfg: ServeConfig) -> None:
     """The reference's refusals of flag combinations a path does not
     run, raised before the model is built."""
+    if cfg.replicas:
+        _refuse_fleet(cfg)
+        return
+    if cfg.prefix_store:
+        raise ValueError(
+            "serve --prefix_store runs through --replicas (the fleet "
+            "store migrates KV across replicas); single-engine restart "
+            "persistence is --session_dir"
+        )
+    if cfg.elastic_reserve:
+        raise ValueError(
+            "serve --elastic_reserve requires --replicas (the elastic "
+            "fleet scales a replica fleet; there is nothing to scale on "
+            "the single-engine paths)"
+        )
     if cfg.scenario:
         if cfg.snapshot_dir or cfg.resume or cfg.ids_out:
             raise ValueError(
@@ -2545,6 +2915,54 @@ def _refuse_unsupported(cfg: ServeConfig) -> None:
         raise ValueError("serve --ids_out requires --snapshot_dir")
     if cfg.session_dir and not cfg.kv_host_tier:
         raise ValueError("serve --session_dir requires --kv_host_tier")
+
+
+def _refuse_fleet(cfg: ServeConfig) -> None:
+    """``serve --replicas``'s refusals (the reference's, from its CLI and
+    its ``run_serve``), raised before any replica spawns."""
+    from tpu_patterns_torch.serve.router import Router
+
+    if cfg.replicas < 1:
+        raise ValueError(f"replicas must be >= 1, got {cfg.replicas}")
+    if cfg.snapshot_dir or cfg.resume or cfg.ids_out:
+        raise ValueError(
+            "serve --replicas owns its snapshot dirs (one per replica "
+            "under --replica_dir); run preemption via the single-engine "
+            "trace instead"
+        )
+    if cfg.session_dir:
+        raise ValueError(
+            "serve --replicas owns its session dirs (one per replica "
+            "under --replica_dir, banked on drain); run --session_dir "
+            "through the single-engine path"
+        )
+    if cfg.replica_policy not in Router.POLICIES:
+        raise ValueError(
+            f"unknown replica_policy {cfg.replica_policy!r} (want one of "
+            f"{Router.POLICIES})"
+        )
+    if cfg.preempt != "off" and not cfg.kv_host_tier:
+        raise ValueError(
+            "serve --preempt requires --kv_host_tier (a preempted row "
+            "parks in the host tier)"
+        )
+    if cfg.prefix_store and not cfg.kv_host_tier:
+        raise ValueError(
+            "serve --prefix_store requires --kv_host_tier (fetched "
+            "blocks adopt through the host tier)"
+        )
+    if cfg.prefix_store and cfg.scenario:
+        raise ValueError(
+            "serve --prefix_store is incompatible with --scenario: the "
+            "routing-comparison A/B would leak warmth between its legs "
+            "through the shared store"
+        )
+    if cfg.elastic_reserve and not cfg.scenario:
+        raise ValueError(
+            "serve --elastic_reserve needs --scenario: the elastic Record "
+            "is the diurnal-ramp A/B, and priority classes ride the "
+            "scenario schedule"
+        )
 
 
 def run_serve(cfg: ServeConfig, writer: ResultWriter | None = None,
@@ -2580,6 +2998,11 @@ def run_serve(cfg: ServeConfig, writer: ResultWriter | None = None,
     run on that port of 127.0.0.1; every engine the run builds attaches
     to it while its loop runs.
 
+    With ``replicas`` the run is the replica fleet's instead
+    (``serve/replica.py::run_replicas``): the scaling/fail-over Record,
+    or with ``scenario`` the routing comparison, or with
+    ``elastic_reserve`` the elastic A/B.
+
     With ``mesh`` (a ``comm/mesh.py::NamedMesh`` of sp x tp ranks, dp 1)
     every path serves through the :class:`PagedDecoder` over it, its
     exactness oracle is the same-mesh dense decoder, the modes say
@@ -2606,6 +3029,12 @@ def run_serve(cfg: ServeConfig, writer: ResultWriter | None = None,
                              mesh)
         finally:
             plane.stop()
+    if cfg.replicas:
+        # the replica fleet (serve/replica.py): N engine processes on
+        # disjoint slices of the ranks behind the prefix-aware router
+        from tpu_patterns_torch.serve.replica import run_replicas
+
+        return run_replicas(cfg, writer, mesh)
     if cfg.scenario:
         return _run_scenario(cfg, writer, mesh)
     mcfg, decoder, params, trace = build_serve(cfg, mesh)
