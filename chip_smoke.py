@@ -28,8 +28,9 @@ and Ulysses over a rank mesh of four ranks on the one card, through the
 flash kernels), and the parallelism patterns (the collective matmul,
 the GPipe and 1F1B pipelines, top-1 MoE dispatch and the ZeRO step over
 rank meshes on the one card; no kernel on their path), the model train
-step across ranks, and ``decode`` and ``lm`` across ranks (no kernel on
-their path).
+step across ranks, ``decode`` and ``lm`` across ranks (no kernel on
+their path), the sharded serve path, the replica fleet and its
+disaggregated prefill/decode split.
 Phases, each one or more printed lines:
 
 1. device and toolchain: torch/CUDA versions, ``nvcc --version``, and the
@@ -92,9 +93,9 @@ Phases, each one or more printed lines:
    and in place, peak device memory; ids against the dense oracle as a
    report (a flip only where the oracle's top-2 margin is below bf16
    resolution); then the device's busy and idle share of the continuous
-   run, from torch.profiler.  The legs after it run at depth 2
-   (``SERVE_LEG_CUT``, the serve model's depth halved).  A second leg
-   serves 8 requests with 2 K/V heads and an int8 pool.  The spec leg
+   run, from torch.profiler.  The legs after it run at depth 2 with 8
+   requests (``SERVE_LEG_CUT``, the serve model's depth and requests
+   halved).  A second leg serves 2 K/V heads and an int8 pool.  The spec leg
    decodes the repetitive trace
    with spec_k 4 beside plain decode (tokens/s of each, accepted tokens
    per row-step > 1.0, K1 launched depth x verify steps times in the
@@ -103,7 +104,7 @@ Phases, each one or more printed lines:
    with sharing and without (peak blocks, CoW copies, prefix hits, no
    leaked block, K1 launched depth x steps times); both with the oracle
    gate of the main leg;
-6. serve exactness at full width (depth 2, ``SERVE_LEG_CUT``) in
+6. serve exactness at full width (depth 2, 8 requests, ``SERVE_LEG_CUT``) in
    float32 with TF32 off: ``run_serve`` with spec_k 4 and prefix
    sharing: its main,
    ``prefix_share_*`` and ``spec_decode_*`` Records, each SUCCESS with
@@ -259,7 +260,8 @@ Phases, each one or more printed lines:
     first (``warmup``: the decode and sampling paths' first launches),
     then each of
     the five presets (chat, rag, batch-summarize, agentic, chat-sampled)
-    at ``time_scale`` 1 under its own SLO, each a ``run_loadgen`` of its
+    at half their requests (``LOADGEN_REQUESTS``) and ``time_scale`` 1
+    under its own SLO, each a ``run_loadgen`` of its
     own: every Record SUCCESS (goodput 1.0, nothing lost), cost
     identities closed, K1 launched (its count set to 0 just before each
     run, read just after, with the width of every launch), and
@@ -504,7 +506,8 @@ Phases, each one or more printed lines:
     left out each above it; the phase's wall time;
 24. the replica fleet (``fleet``; alone with ``--tree . fleet``): the
     serve width in float32 (E 1024, 8 x 128, depth 4, vocab 2048, RoPE,
-    block_len 16; phase 5's trace, ``FLEET_CUT``), every replica a
+    block_len 16; phase 5's trace at 16 generated tokens and 8
+    requests in leg c, ``FLEET_CUT``), every replica a
     ``python -m
     tpu_patterns_torch`` process of its own on the one card, each
     serving through K1: (a) ``serve --replicas 2 --devices 2
@@ -524,7 +527,25 @@ Phases, each one or more printed lines:
     dir: one journey a completed request, the merged retirements equal
     to the Record's ``done_total``; every child that served launched K1;
     the phase's wall time;
-25. the card's name and power limit again, the ``kernels`` line (the
+25. disaggregated prefill/decode (``disagg``; alone with ``--tree .
+    disagg``): the fleet width of phase 24 in float32, every replica a
+    process of its own on the one card: (a) ``serve --replicas 2
+    --devices 2 --disagg 1:1`` on the ``rag`` preset (``DISAGG_RAG``,
+    arrivals at ``DISAGG_TIME_SCALE``): the disagg A/B Record SUCCESS
+    with a transfer, exact ids, no leak and no recompute, the TTFT gate
+    off (``DISAGG_TTFT_GATE`` 0: the reference smoke's 1.05 is not met
+    on the one card); ``ttft_p99_ms_disagg``,
+    ``ttft_p99_ms_unified``, ``ttft_improvement`` and ``transfer_bytes``
+    printed; (b) chaos case (h): ``--replicas 3 --devices 3 --disagg
+    2:1`` under ``DISAGG_KILL`` (prefill replica 0 SIGKILLed at its
+    first transfer, a shared fault-state dir): SUCCESS with
+    ``rerouted`` > 0 and no ``.tmp`` file left under the fleet's dir;
+    (c) ``perf report --include disagg.stream`` at the serve width (a
+    96-token window): the wire's ms and GB/s against its byte floor; in
+    (a) and (b) K1 launched in every decode child and every unified
+    child and in no prefill child, printed by replica and role; the
+    phase's wall time;
+26. the card's name and power limit again, the ``kernels`` line (the
     flash rows also carry ``train_loop_launches``, phase 8b's counts,
     K1's row ``loadgen_launches``, phase 14's by scenario,
     ``kv_tier_launches``, phase 16's by leg, ``recovery_launches``,
@@ -534,8 +555,9 @@ Phases, each one or more printed lines:
     float32 times at longctx's shape, K3/K4 ``model_mesh_launches``,
     phase 21's by mesh, and K1-K4 ``decode_lm_mesh_launches``, phase
     22's, and K1's ``serve_mesh_launches``, phase 23's by leg, with its
-    stripe checks and its times by rank, and ``fleet_launches``, phase
-    24's by leg and replica),
+    stripe checks and its times by rank, ``fleet_launches``, phase
+    24's by leg and replica, and ``disagg_launches``, phase 25's by
+    leg, replica and role),
     then the device line, which is the last.
 """
 
@@ -564,8 +586,9 @@ SPEC_K = 4  # drafts a row of the spec legs: K1 verifies at W = 5
 SHARED_PREFIX = 384  # of the prefix leg's 512-token prompts
 # the serve legs after phase 5's main bf16 leg (its GQA/int8, spec and
 # prefix legs and phase 6's float32 Records) at half the serve model's
-# depth: each runs its trace continuous and sequential, twice
-SERVE_LEG_CUT = dict(depth=2)
+# depth and half its requests: each runs its trace continuous and
+# sequential, twice
+SERVE_LEG_CUT = dict(depth=2, requests=8)
 FULL_WIDTH = dict(
     vocab=2048, embed=1024, heads=8, head_dim=128, mlp_mult=4, depth=4,
     rope=True, slots=8, block_len=16, min_prompt=64, max_prompt=512,
@@ -3522,6 +3545,10 @@ LOADGEN_WIDTH = dict(
 )
 LOADGEN_PRESETS = ("chat", "rag", "batch-summarize", "agentic",
                    "chat-sampled")
+# each preset at half its requests (its arrival process, lengths and SLO
+# unchanged): the presets' walls are their arrival schedules
+LOADGEN_REQUESTS = {"chat": 16, "rag": 12, "batch-summarize": 12,
+                    "agentic": 20, "chat-sampled": 16}
 LOADGEN_CHAOS = "loadgen.arrive:error:after=2:count=1"
 
 
@@ -3685,7 +3712,7 @@ def phase_loadgen(torch, pk, timing):
     bad = []
     by_scenario = {}
     for name in LOADGEN_PRESETS:
-        kw = {"scenarios": (name,)}
+        kw = {"scenarios": (f"{name}:requests={LOADGEN_REQUESTS[name]}",)}
         if name == "chat":
             kw["chaos"] = LOADGEN_CHAOS
         recs, launches, widths, wall = _loadgen_run(torch, pk, lg, **kw)
@@ -3714,7 +3741,9 @@ def phase_loadgen(torch, pk, timing):
                     != m["requests"]):
                 bad.append(f"{chaos.mode} {chaos.verdict.value}: {m}")
     recs, launches, widths, wall = _loadgen_run(
-        torch, pk, lg, scenarios=("chat-sampled",), spec_k=SPEC_K)
+        torch, pk, lg, scenarios=(
+            f"chat-sampled:requests={LOADGEN_REQUESTS['chat-sampled']}",),
+        spec_k=SPEC_K)
     rec = recs[0]
     by_scenario[f"chat-sampled spec_k{SPEC_K}"] = launches
     emit(_lg_row(rec, spec_k=SPEC_K, kernel_launches=launches,
@@ -5006,7 +5035,7 @@ def diag_perf(torch, pk, work):
                                      "--perf-dir", perf_dir])
     launches["e_report"] = pk.paged_block.launches
     (snap,) = history.load_history(perf_dir)
-    rows = {n: f"| {n} |" in out for n in registry.PORTED}
+    rows = {n: f"| {n} |" in out for n in registry.EXECUTABLES}
     execs = snap["executables"]
     impossible = [
         n for n, m in execs.items()
@@ -5014,7 +5043,7 @@ def diag_perf(torch, pk, work):
         or m.get("achieved_gbps", 0.0) > SPEC_PLAUSIBILITY_MARGIN * 3350.0]
     row = {"phase": "diagnostics", "leg": "e_perf_report", "rc": rc,
            "card": snap["mesh"].get("card"), "rows": rows,
-           "skipped": snap["skipped"], "impossible": impossible,
+           "impossible": impossible,
            "executables": {n: {k: m[k] for k in (
                "step_ms", "analytic_flops", "analytic_hbm_bytes",
                "achieved_gflops", "achieved_gbps", "mfu",
@@ -6973,7 +7002,11 @@ FLEET_CHAT = ("chat:requests=16:prefix_groups=2:shared_prefix=32"
 FLEET_KILL = "serve.step:kill:after=4:count=1"
 FLEET_KILL_CUT = dict(requests=8, gen=16)
 # what the phase cuts of the serve width, by leg
-FLEET_CUT = {"c_store": FLEET_KILL_CUT}
+# leg a: phase 5's trace at 16 generated tokens (its oracle, decoded
+# once a run_replicas call, and the one-replica leg were most of its
+# serving time at 64)
+FLEET_SCALING_CUT = dict(gen=16)
+FLEET_CUT = {"a_scaling": FLEET_SCALING_CUT, "c_store": FLEET_KILL_CUT}
 # leg d: the reference's elastic recipe (scripts/elastic_smoke.py)
 FLEET_RAMP = ("batch-summarize:requests=24:rate_rps=12:bulk_fraction=0.5"
               ":min_prompt=8:mean_prompt=14:max_prompt=20"
@@ -7042,7 +7075,8 @@ def phase_fleet(torch):
         rec = _fleet_record(eng_mod, replica, mesh_mod,
                             os.path.join(work, "a"), replicas=2,
                             replica_policy=FLEET_SCALING_POLICY,
-                            min_replica_speedup=FLEET_SPEEDUP_GATE)
+                            min_replica_speedup=FLEET_SPEEDUP_GATE,
+                            **FLEET_SCALING_CUT)
         obs.dump(reason="end_of_run")
     finally:
         obs.configure(None)
@@ -7054,7 +7088,8 @@ def phase_fleet(torch):
     agg_tps = rec.metrics["aggregate_tokens_per_s"]
     t0 = time.perf_counter()
     rec = _fleet_record(eng_mod, replica, mesh_mod, os.path.join(work, "a1"),
-                        ranks=1, replicas=1, min_replica_speedup=0.0)
+                        ranks=1, replicas=1, min_replica_speedup=0.0,
+                        **FLEET_SCALING_CUT)
     row = _fleet_row(rec, "a_one_replica", t0)
     launched("a_one_replica", row)
     if rec.verdict.value != "SUCCESS":
@@ -7154,6 +7189,144 @@ def phase_fleet(torch):
     return launches
 
 
+# phase 25: the port's rag preset (24 requests, prompts 48-96, 2-8
+# generated), the traffic the split exists for, arrivals compressed
+DISAGG_RAG = "rag"
+DISAGG_TIME_SCALE = 0.05
+# leg a's TTFT gate: off.  The reference smoke's 1.05
+# (scripts/disagg_smoke.py, on hosts of 4 cores or more) is not met
+# steadily on the one card: the split read 0.658, 0.260 and 1.190 in
+# three calls (PERF.md §6), its one prefill replica prefilling every
+# prompt and spooling it before the first token's op leaves, while the
+# unified fleet prefills on both, and each host path sharing the host.
+# The Record notes the gate is off; ttft_improvement is printed
+DISAGG_TTFT_GATE = 0.0
+# leg b: the reference's chaos case (h), prefill replica 0 killed at its
+# first transfer, a shared fault-state dir; half the preset's requests
+DISAGG_KILL = "disagg.transfer:kill:replica=0:count=1"
+DISAGG_KILL_RAG = "rag:requests=12"
+# leg c: the wire at the serve width, a 96-token prompt's window
+DISAGG_STREAM = [*DIAG_PERF, "--max_prompt=96", "--include",
+                 "disagg.stream"]
+
+
+def _disagg_launches(rec, roles, bad, leg) -> dict:
+    """K1's launches by replica of each leg, with its role: every decode
+    child and every unified child launched K1, no prefill child did."""
+    by = rec.config.get("paged_block_launches") or [{}, {}]
+    out = {"disagg": {r: {"role": roles.get(r), "launches": v}
+                      for r, v in by[0].items()},
+           "unified": by[1]}
+    wrong = ([r for r, v in by[0].items()
+              if (v > 0) != (roles.get(r) == "decode")]
+             + [r for r, v in by[1].items() if v <= 0])
+    if len(by) != 2 or not by[1] or wrong:
+        bad.append(f"{leg}: K1 launches by replica {out}")
+    return out
+
+
+def phase_disagg(torch):
+    """Phase 25 (module docstring).  Returns K1's launches by leg,
+    replica and role; raises if any part fails."""
+    import glob
+    import tempfile
+
+    from tpu_patterns_torch.comm import mesh as mesh_mod
+    from tpu_patterns_torch.perf import history
+    from tpu_patterns_torch.serve import engine as eng_mod
+    from tpu_patterns_torch.serve import replica
+
+    t_phase = time.perf_counter()
+    bad, launches, ends = [], {}, {}
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="disagg_", dir=os.path.join(ROOT,
+                                                               "build"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    # (a) the A/B: 1 prefill + 1 decode replica against 2 unified
+    t0 = time.perf_counter()
+    rec = _fleet_record(eng_mod, replica, mesh_mod, os.path.join(work, "a"),
+                        replicas=2, disagg="1:1", scenario=DISAGG_RAG,
+                        time_scale=DISAGG_TIME_SCALE,
+                        min_ttft_improvement=DISAGG_TTFT_GATE)
+    m = rec.metrics
+    launches["a_ab"] = _disagg_launches(rec, replica.disagg_roles(1, 1),
+                                        bad, "a_ab")
+    emit({"phase": "disagg", "leg": "a_ab", "mode": rec.mode,
+          "verdict": rec.verdict.value,
+          "ttft_p99_ms_disagg": m["ttft_p99_ms_disagg"],
+          "ttft_p99_ms_unified": m["ttft_p99_ms_unified"],
+          "ttft_improvement": m["ttft_improvement"],
+          "ttft_gate": DISAGG_TTFT_GATE, "transfers": m["transfers"],
+          "transfer_bytes": m["transfer_bytes"],
+          "transfer_bytes_per_transfer": (m["transfer_bytes"]
+                                          / max(m["transfers"], 1)),
+          "metrics": m, "k1_launches": launches["a_ab"],
+          "notes": rec.notes, "seconds": time.perf_counter() - t0,
+          "card": _smi()})
+    if (rec.verdict.value != "SUCCESS" or m["transfers"] < 1
+            or m["exact"] != 1.0 or m["leaked_blocks"]
+            or m["recomputes"]):
+        bad.append(f"disagg A/B {rec.verdict.value}: {rec.notes}")
+    ends["a_ab"] = time.perf_counter() - t_phase
+
+    # (b) chaos case (h): a prefill replica killed mid-transfer
+    t0 = time.perf_counter()
+    with _env(TPU_PATTERNS_FAULTS=DISAGG_KILL,
+              TPU_PATTERNS_FAULTS_STATE=os.path.join(work, "b-state")):
+        rec = _fleet_record(eng_mod, replica, mesh_mod,
+                            os.path.join(work, "b"), ranks=3, replicas=3,
+                            disagg="2:1", scenario=DISAGG_KILL_RAG,
+                            time_scale=DISAGG_TIME_SCALE,
+                            replica_policy="round_robin")
+    m = rec.metrics
+    tmp_left = glob.glob(os.path.join(work, "b", "**", "*.tmp"),
+                         recursive=True)
+    launches["b_kill"] = _disagg_launches(rec, replica.disagg_roles(2, 1),
+                                          bad, "b_kill")
+    emit({"phase": "disagg", "leg": "b_kill", "mode": rec.mode,
+          "verdict": rec.verdict.value, "spec": DISAGG_KILL,
+          "rerouted": m["rerouted"], "tmp_files_left": tmp_left,
+          "metrics": m, "k1_launches": launches["b_kill"],
+          "notes": rec.notes, "seconds": time.perf_counter() - t0,
+          "card": _smi()})
+    if (rec.verdict.value != "SUCCESS" or m["rerouted"] < 1 or tmp_left
+            or m["exact"] != 1.0 or m["leaked_blocks"]
+            or "0" in launches["b_kill"]["disagg"]):
+        bad.append(f"disagg chaos (h) {rec.verdict.value}: rerouted "
+                   f"{m['rerouted']}, tmp {tmp_left}, {rec.notes}")
+    ends["b_kill"] = time.perf_counter() - t_phase
+
+    # (c) the wire alone through `perf`
+    t0 = time.perf_counter()
+    perf_dir = os.path.join(work, "perf")
+    rc, _, _ = _cli_in_process(["perf", "report", *DISAGG_STREAM,
+                                "--perf-dir", perf_dir])
+    (snap,) = history.load_history(perf_dir)
+    wire = snap["executables"]["disagg.stream"]
+    floor_ms = wire["transfer_bytes"] / 3.35e12 * 1e3
+    row = {"phase": "disagg", "leg": "c_stream", "rc": rc,
+           "card": snap["mesh"].get("card"), "ms": wire["step_ms"],
+           "transfer_bytes": wire["transfer_bytes"],
+           "gbps": wire["transfer_bytes"] / wire["step_ms"] / 1e6,
+           "byte_floor_ms": floor_ms,
+           "share_of_floor": floor_ms / wire["step_ms"],
+           "achieved_gbps_of_hops": wire.get("achieved_gbps"),
+           "seconds": time.perf_counter() - t0}
+    emit(row)
+    if rc or not wire["step_ms"] > 0 or "H100" not in (row["card"] or ""):
+        bad.append(f"disagg.stream capture: {row}")
+    ends["c_stream"] = time.perf_counter() - t_phase
+    shutil.rmtree(work, ignore_errors=True)
+    emit({"phase": "disagg_phase", "seconds": time.perf_counter() - t_phase,
+          "leg_end_s": ends, "k1_launches": launches, "card": _smi(),
+          "ttft_gate": DISAGG_TTFT_GATE})
+    if bad:
+        raise AssertionError("disagg: " + " | ".join(bad))
+    return launches
+
+
 def profile_concurrency_main() -> int:
     """``python3 chip_smoke.py --profile-concurrency``, which the smoke
     runs in a process of its own: the xla concurrent "C C" run, the
@@ -7228,7 +7401,7 @@ def profile_concurrency_main() -> int:
 # the timing phases ``--tree`` runs with another checkout's package
 TREE_PHASES = ("put_time", "ring_put_time", "accumulate_time",
                "allreduce", "add_one_time", "parallel", "model_mesh",
-               "decode_lm_mesh", "serve_mesh", "fleet")
+               "decode_lm_mesh", "serve_mesh", "fleet", "disagg")
 # phases ``--tree`` runs only when named: phases 14-19 on their own,
 # phase 16's leg e again and again (``kv_race``: its spread), phase 5's
 # bf16 serve leg (a tree's serve tokens/s and ids against another's),
@@ -7309,6 +7482,7 @@ def tree_main(tree: str, phases: list[str]) -> int:
            "decode_lm_mesh": lambda: phase_decode_lm_mesh(torch, pk, F),
            "serve_mesh": lambda: phase_serve_mesh(torch, pk, timing, spec),
            "fleet": lambda: phase_fleet(torch),
+           "disagg": lambda: phase_disagg(torch),
            "flash_f32_time": lambda: phase_flash_f32_time(
                torch, F, timing, spec, libs),
            "k1_time": lambda: k1_times(torch, pk, timing, spec, slice_case(
@@ -7512,8 +7686,7 @@ def main() -> int:
                   / main_leg["tokens_per_s"])
     cut = dataclasses.replace(base, **SERVE_LEG_CUT)
     serve_leg(torch, eng_mod, "gqa2_int8",
-              dataclasses.replace(cut, kv_heads=2, cache_int8=True,
-                                  requests=8),
+              dataclasses.replace(cut, kv_heads=2, cache_int8=True),
               gate_flips=False)
     spec_leg = serve_spec_leg(torch, eng_mod, pk,
                               dataclasses.replace(cut, spec_k=SPEC_K))
@@ -7603,6 +7776,8 @@ def main() -> int:
     mark("serve_mesh")
     fleet_launches = phase_fleet(torch)
     mark("fleet")
+    disagg_launches = phase_disagg(torch)
+    mark("disagg")
 
     rows = {**ftime, **ptime, "paged_attention": {
         "ms": ktime["kernel"]["ms"], "bound_ms": ktime["bound_ms"],
@@ -7662,6 +7837,7 @@ def main() -> int:
         "recovery_launches": recovery_launches,
         "diagnostics_launches": diagnostics_launches["paged_attention"],
         "fleet_launches": fleet_launches,
+        "disagg_launches": disagg_launches,
     }]
     for kname, (source, replaces) in FLASH_KERNELS.items():
         row = ftime[kname]

@@ -9,9 +9,9 @@ event and ``faults.jsonl`` line.  The port knows only the sites it has
 (``train.step``, ``ckpt.save``, ``ckpt.restore``, ``loadgen.arrive``,
 ``obs.cost_book``, ``obs.scrape``, the serve engine's prefill,
 decode-step, kv-tier and preemption sites, ``error`` included at
-``serve.prefill``, ``serve.step`` and ``serve.verify``, and the replica
-fleet's and the prefix store's): a spec naming any other site (the
-disaggregated handoff's, the sweep's, the warm workers') is refused at
+``serve.prefill``, ``serve.step`` and ``serve.verify``, the replica
+fleet's, the prefix store's and the disaggregated handoff's): a spec
+naming any other site (the sweep's, the warm workers') is refused at
 parse time, where the JAX package takes it."""
 
 import dataclasses
@@ -29,10 +29,12 @@ import torch
 # holds for the whole run)
 torch.set_num_threads(1)
 
-# the replica fleet's sites and the prefix store's
+# the replica fleet's sites, the prefix store's and the disaggregated
+# handoff's
 FLEET_SITES = {"router.route", "replica.spawn", "replica.drain",
                "replica.obs_ship", "fleet.scale_out", "fleet.scale_in",
-               "store.publish", "store.fetch", "store.prewarm"}
+               "store.publish", "store.fetch", "store.prewarm",
+               "disagg.transfer", "disagg.adopt"}
 PORT_SITES = {"train.step", "ckpt.save", "ckpt.restore", "loadgen.arrive",
               "obs.cost_book", "obs.scrape", "serve.evict", "serve.onload",
               "serve.preempt", "serve.shed", "serve.prefill", "serve.step",
@@ -107,9 +109,15 @@ def test_unported_sites_are_refused(site):
 
 
 def test_disagg_sites_are_refused_naming_step_9b():
+    """Refused, naming their step, until the disaggregated handoff was
+    ported; now each parses, with its match keys, as the reference's,
+    and a refusal names only step 10's sites."""
     for site in ("disagg.transfer", "disagg.adopt"):
-        with pytest.raises(ValueError, match="step 9b"):
-            tf.parse_spec(f"{site}:error")
+        text = f"{site}:error:count=2:rid=3:replica=0:blocks=4"
+        got = [dataclasses.asdict(s) for s in tf.parse_spec(text)]
+        assert got == [dataclasses.asdict(s) for s in jf.parse_spec(text)]
+    with pytest.raises(ValueError, match="step 10"):
+        tf.parse_spec("cell.run:error")
 
 
 @pytest.mark.parametrize("site", sorted(FLEET_SITES))

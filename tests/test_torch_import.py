@@ -202,14 +202,16 @@ def test_unported_options_are_refused():
                  ["p2p", "--mechanism", "affinity"],
                  ["p2p", "--placement", "diagonal"],
                  ["hier", "--placement", "spread"],
-                 ["p2p", "--put-kernel", "pallas"],
-                 ["serve", "--disagg", "1:1"],
-                 ["serve", "--min_ttft_improvement", "1.05"]):
+                 ["p2p", "--put-kernel", "pallas"]):
         with pytest.raises(SystemExit):
             cli.build_parser().parse_args(argv)
-    # the replica fleet parses since ROADMAP step 9a
+    # the replica fleet parses since ROADMAP step 9a, its disaggregated
+    # split since step 9b
     assert cli.build_parser().parse_args(
         ["serve", "--replicas", "2"]).replicas == 2
+    args = cli.build_parser().parse_args(
+        ["serve", "--disagg", "1:1", "--min_ttft_improvement", "1.05"])
+    assert (args.disagg, args.min_ttft_improvement) == ("1:1", 1.05)
 
 
 def test_diagnostics_subcommands_parse():
@@ -241,9 +243,9 @@ def test_diagnostics_refusals():
 
     from tpu_patterns_torch import cli
 
-    for argv in (["perf", "report", "--include", "disagg.stream",
+    for argv in (["perf", "report", "--include", "disagg.streams",
                   "--device", "cpu", "--no-history"],
-                 ["perf", "diff", "--include", "disagg.stream",
+                 ["perf", "diff", "--include", "disagg.streams",
                   "--device", "cpu", "--no-history"],
                  ["doctor", "--workers", "true", "--device", "cpu"],
                  ["perf", "report", "--devices", "4"],

@@ -225,14 +225,14 @@ def captured():
 
 def test_capture_runs_every_ported_executable(captured):
     snap, cfg = captured
-    assert set(snap["executables"]) == set(registry.PORTED) == {
+    # the whole registry: disagg.stream, skipped until the disaggregated
+    # handoff was ported, is captured too
+    assert set(snap["executables"]) == set(registry.EXECUTABLES) == {
         "train.step", "zero.step", "decoder.prefill", "decoder.step",
         "decoder.verify", "decoder.step_pallas", "decoder.verify_pallas",
-        "copy_blocks", "serve.step", "serve.kv_tier", "serve.prefix_store"}
-    assert snap["skipped"] == {
-        "disagg.stream": "ROADMAP.md Queue 1 step 9b (disaggregated "
-                         "serving)",
-    }
+        "copy_blocks", "disagg.stream", "serve.step", "serve.kv_tier",
+        "serve.prefix_store"}
+    assert "skipped" not in snap
     assert set(snap["run"]) == {"run_id", "git_sha", "mesh_fp"}
     assert snap["mesh"] == {"shape": {"dp": 1, "sp": 1, "tp": 1},
                             "devices": 1, "platform": "cpu"}
@@ -289,6 +289,12 @@ def test_capture_analytic_values_equal_reference_formulas(captured):
         "serve.step": (A.step_flops(mc, cfg.vocab, cfg.slots, ctx),
                        A.step_hbm_bytes(mc, cfg.vocab, cfg.slots, ctx)),
     }
+    # the reference's disagg.stream floor: one request's table window,
+    # two hops each reading and writing it
+    n_pages = -(-(cfg.max_prompt + cfg.gen) // cfg.block_len)
+    wire = n_pages * cfg.block_len * A.kv_token_bytes(mc, False)
+    want["disagg.stream"] = (0.0, 4.0 * wire)
+    assert ex["disagg.stream"]["transfer_bytes"] == wire
     want["decoder.step_pallas"] = want["decoder.step"]
     want["decoder.verify_pallas"] = want["decoder.verify"]
     for name, (flops, byts) in want.items():
@@ -319,9 +325,10 @@ def test_committed_baseline_diffs_clean(captured):
 def test_include_selects_and_refuses():
     with pytest.raises(ValueError, match="unknown executable"):
         registry._selected(registry.PerfConfig(include="decoder.stepp"))
-    with pytest.raises(ValueError, match="step 9b"):
-        registry._selected(registry.PerfConfig(
-            include="decoder.step,disagg.stream"))
+    # refused until the disaggregated handoff was ported; now selected
+    assert registry._selected(registry.PerfConfig(
+        include="decoder.step,disagg.stream")) == [
+            "decoder.step", "disagg.stream"]
     # the fleet prefix store's capture is ported: selected, not refused
     assert registry._selected(registry.PerfConfig(
         include="decoder.step,serve.prefix_store")) == [
@@ -435,7 +442,7 @@ def test_perf_report_prune_and_history(tmp_path, monkeypatch):
 
 def test_perf_cli_refuses(tmp_path):
     err = io.StringIO()
-    for argv in (["perf", "report", "--include", "disagg.stream"],
+    for argv in (["perf", "report", "--include", "disagg.streams"],
                  ["perf", "update-baseline", "--include", "serve.step"],
                  ["perf", "diff", "--dp", "2"]):
         with pytest.raises(SystemExit) as e, \

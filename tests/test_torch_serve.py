@@ -162,15 +162,13 @@ def _serve_flags(parser):
 
 
 def test_cli_takes_or_refuses_every_reference_serve_flag():
-    """Each flag of the reference's ``serve`` is either a port flag or
-    refused with a message; the port adds only ``--device``."""
+    """Each flag of the reference's ``serve`` is a port flag, parsed as
+    the reference parses it (the disaggregated split's two, refused until
+    it was ported, included); the port adds only ``--device``."""
     ref = _serve_flags(jcli.build_parser())
     port = _serve_flags(tcli.build_parser())
     assert port - ref == {"device"}
     assert ref <= port
-    for name in tcli._NOT_PORTED:
-        with pytest.raises(SystemExit):
-            tcli.build_parser().parse_args(["serve", f"--{name}", "1"])
     # speculative decoding and prefix sharing are taken
     args = tcli.build_parser().parse_args(
         ["serve", "--spec_k", "4", "--min_accepted", "1.5",
@@ -179,8 +177,6 @@ def test_cli_takes_or_refuses_every_reference_serve_flag():
     assert (args.spec_k, args.min_accepted, args.prefix_share,
             args.shared_prefix, args.min_block_savings) == (
         4, 1.5, True, 16, 0.25)
-    assert not {"spec_k", "min_accepted", "prefix_share", "shared_prefix",
-                "min_block_savings"} & set(tcli._NOT_PORTED)
     # the load generator's bridge and the burn monitor's flags are taken
     moved = {"scenario": "chat:requests=4", "time_scale": "0.5",
              "burn_mitigation": "spec_off", "slo_fast_s": "30",
@@ -194,27 +190,24 @@ def test_cli_takes_or_refuses_every_reference_serve_flag():
             args.slo_fast_s, args.slo_slow_s, args.slo_budget,
             args.burn_multiplier) == ("chat:requests=4", 0.5, "spec_off",
                                       30.0, 120.0, 0.2, 3.0)
-    assert not set(moved) & set(tcli._NOT_PORTED)
     with pytest.raises(SystemExit):
         tcli.build_parser().parse_args(["serve", "--burn_mitigation", "x"])
-    # the replica fleet's flags are taken and parse as the reference's;
-    # only the disaggregated split (step 9b) is refused
-    assert set(tcli._NOT_PORTED) == {"disagg", "min_ttft_improvement"}
-    assert "9b" in tcli._NotPorted.where
+    # the replica fleet's flags, the disaggregated split's included, are
+    # taken and parse as the reference's
     fleet = {"replicas": "2", "replica_policy": "round_robin",
              "route_blocks": "3", "min_replica_speedup": "0",
              "replica_watchdog_s": "30", "replica_dir": "w",
              "prefix_store": "st", "elastic_reserve": "1",
              "scale_out_occupancy": "1.1", "scale_in_occupancy": "0.1",
              "scale_sustain_s": "0.2", "scale_cooldown_s": "0.5",
-             "min_live_replicas": "1"}
+             "min_live_replicas": "1", "disagg": "1:1",
+             "min_ttft_improvement": "1.05"}
     argv = ["serve"]
     for name, value in fleet.items():
         argv += [f"--{name}", value]
     got = vars(tcli.build_parser().parse_args(argv))
     want = vars(jcli.build_parser().parse_args(argv))
     assert {k: got[k] for k in fleet} == {k: want[k] for k in fleet}
-    assert not set(fleet) & set(tcli._NOT_PORTED)
 
 
 def test_cli_takes_or_refuses_every_reference_loadgen_flag():

@@ -115,8 +115,10 @@ Kineto trace's device breakdown (``core/profile.py``); ``fleet [DIR]``
 ``journey <jid|rid>`` and ``explain <jid|rid>`` (or ``--action KIND``)
 read the merged timeline of a fleet's dumps (``obs/fleet.py``).
 ``serve --replicas N`` runs N engine processes behind the prefix-aware
-router (``serve/replica.py``), with its fleet flags; only ``--disagg``
-and ``--min_ttft_improvement`` are refused (step 9b).  The
+router (``serve/replica.py``), with its fleet flags; ``--disagg P:D``
+splits them into P prefill and D decode replicas and banks the disagg
+A/B Record (``--min_ttft_improvement`` its TTFT gate).  ``serve`` takes
+every flag of the reference's.  The
 global ``--enable_profiling`` runs any subcommand under torch.profiler
 (CPU and CUDA activity), exports the Kineto trace under
 ``--profile_dir`` and banks a ``profile_breakdown`` Record of where the
@@ -154,20 +156,6 @@ from tpu_patterns_torch.core.results import ResultWriter
 # the model commands' mesh flags: `flagship`, `train`, `decode`, `lm`,
 # `serve` and `loadgen` take them (the last two refuse a dp other than 1)
 _MESH_FLAGS = ("devices", "dp", "tp")
-# serve's disaggregated-fleet flags, refused until it is ported
-_NOT_PORTED = ("disagg", "min_ttft_improvement")
-
-
-class _NotPorted(argparse.Action):
-    where = ("ROADMAP.md Queue 1 step 9b (the disaggregated prefill/"
-             "decode fleet)")
-
-    def __call__(self, parser, namespace, values, option_string=None):
-        parser.error(
-            f"{option_string} is a `tpu-patterns {parser.prog.split()[-1]}`"
-            " flag that tpu_patterns_torch does not support yet "
-            f"({self.where})"
-        )
 
 
 def _bool(s: str) -> bool:
@@ -198,17 +186,11 @@ _CHOICES = {
 }
 
 
-def _add_config_flags(p: argparse.ArgumentParser, cls, not_ported,
-                      skip=(), refuse=_NotPorted) -> None:
+def _add_config_flags(p: argparse.ArgumentParser, cls, skip=()) -> None:
     """One ``--<field>`` per dataclass field of ``cls`` not in ``skip``
-    (default: ``TPU_PATTERNS_<FIELD>`` when set, else the field's), and a
-    refusing flag (``refuse``, naming where it is ported) for each name in
-    ``not_ported``."""
+    (default: ``TPU_PATTERNS_<FIELD>`` when set, else the field's)."""
     add_config_args(p, cls, skip=skip, choices=_CHOICES,
                     coerce=_coerce_strict)
-    for name in not_ported:
-        p.add_argument("--" + name, nargs="?", action=refuse,
-                       help=argparse.SUPPRESS)
 
 
 def _add_model_mesh_flags(p: argparse.ArgumentParser) -> None:
@@ -297,7 +279,7 @@ def build_parser() -> argparse.ArgumentParser:
         help="continuous-batching serve engine over a paged KV cache "
         "with the fused paged-attention kernel",
     )
-    _add_config_flags(sv, ServeConfig, _NOT_PORTED)
+    _add_config_flags(sv, ServeConfig)
     _add_model_mesh_flags(sv)
     lg = sub.add_parser(
         "loadgen",
@@ -306,21 +288,21 @@ def build_parser() -> argparse.ArgumentParser:
         "batch-summarize, agentic, chat-sampled), TTFT/TPOT/e2e "
         "percentiles, goodput-under-SLO verdicts, optional chaos twin",
     )
-    _add_config_flags(lg, LoadGenConfig, ())
+    _add_config_flags(lg, LoadGenConfig)
     _add_model_mesh_flags(lg)
     fl = sub.add_parser(
         "flagship",
         help="PatternFormer train-step benchmark (fwd+bwd+SGD) with the "
         "fused flash-attention kernels",
     )
-    _add_config_flags(fl, FlagshipConfig, ())
+    _add_config_flags(fl, FlagshipConfig)
     _add_model_mesh_flags(fl)
     tr = sub.add_parser(
         "train",
         help="resumable training loop with atomic checkpoints "
         "(--ckpt_dir/--ckpt_every/--resume)",
     )
-    _add_config_flags(tr, TrainLoopConfig, ())
+    _add_config_flags(tr, TrainLoopConfig)
     _add_model_mesh_flags(tr)
     tr.add_argument("--device", choices=_CHOICES["device"], default="cuda")
     dc = sub.add_parser(
@@ -329,7 +311,7 @@ def build_parser() -> argparse.ArgumentParser:
         "long-context inference pattern): prefill, then timed "
         "self-feeding generation, gated by teacher forcing",
     )
-    _add_config_flags(dc, DecodeConfig, ())
+    _add_config_flags(dc, DecodeConfig)
     _add_model_mesh_flags(dc)
     lmp = sub.add_parser(
         "lm",
@@ -337,7 +319,7 @@ def build_parser() -> argparse.ArgumentParser:
         "then generate (greedy or Gumbel-max sampled), one measured "
         "pattern",
     )
-    _add_config_flags(lmp, LMConfig, ())
+    _add_config_flags(lmp, LMConfig)
     _add_model_mesh_flags(lmp)
     ck = sub.add_parser(
         "ckpt",
@@ -382,7 +364,7 @@ def build_parser() -> argparse.ArgumentParser:
         "over a rank mesh, with the fused flash kernels")
     from tpu_patterns_torch.longctx.pattern import LongCtxConfig
 
-    _add_config_flags(lc, LongCtxConfig, (), skip=("strategies", "device"))
+    _add_config_flags(lc, LongCtxConfig, skip=("strategies", "device"))
     lc.add_argument(
         "--strategy", choices=LONGCTX_STRATEGIES, default="both",
         help="manual-ring vs library-collective lineage; ring_pallas = "
@@ -414,7 +396,7 @@ def build_parser() -> argparse.ArgumentParser:
     )
     from tpu_patterns_torch.core.doctor import DoctorConfig
 
-    _add_config_flags(dr, DoctorConfig, ())
+    _add_config_flags(dr, DoctorConfig)
     pc = sub.add_parser(
         "profilecheck",
         help="validate a captured trace: real-op-name fixture snapshot, "
@@ -445,12 +427,12 @@ def _add_parallel_parsers(sub) -> None:
         help="collective matmul: decomposed ring all-gather/"
         "reduce-scatter matmuls vs the library collective baseline",
     )
-    _add_config_flags(ov, OverlapConfig, (), skip=("device",))
+    _add_config_flags(ov, OverlapConfig, skip=("device",))
     _add_mesh_args(ov)
     pl = sub.add_parser(
         "pipeline",
         help="GPipe vs 1F1B schedule benchmark (bubble + memory)")
-    _add_config_flags(pl, PipelineConfig, (), skip=("schedules", "device"))
+    _add_config_flags(pl, PipelineConfig, skip=("schedules", "device"))
     pl.add_argument("--schedule", choices=("gpipe", "1f1b", "both"),
                     default="both")
     pl.add_argument("--devices", type=int, default=0,
@@ -459,8 +441,7 @@ def _add_parallel_parsers(sub) -> None:
     mo = sub.add_parser(
         "moe",
         help="expert-parallel dispatch benchmark (capacity regimes)")
-    _add_config_flags(mo, MoEConfig, (),
-                      skip=("capacity_factors", "device"))
+    _add_config_flags(mo, MoEConfig, skip=("capacity_factors", "device"))
     mo.add_argument("--capacity_factor", type=float, action="append",
                     help="repeatable; 0 = exact (C = T); default 0, 2.0, "
                     "1.0")
@@ -484,7 +465,7 @@ def _add_perf_flags(pf: argparse.ArgumentParser) -> None:
         "(per-entry justifications survive); prune-stale: NO capture — "
         "drop entries whose executable left the registry",
     )
-    _add_config_flags(pf, PerfConfig, ())
+    _add_config_flags(pf, PerfConfig)
     pf.add_argument(
         "--baseline", default=None,
         help="baseline path (default: the committed "
@@ -724,7 +705,7 @@ def _obs_fleet(args, obs_dir: str, writer: ResultWriter) -> None:
 def _add_allreduce_flags(p: argparse.ArgumentParser) -> None:
     from tpu_patterns_torch.miniapps.apps.allreduce import AllreduceConfig
 
-    _add_config_flags(p, AllreduceConfig, ())
+    _add_config_flags(p, AllreduceConfig)
     p.add_argument("--variant", choices=("xla", "pallas"), default="xla")
     _add_mesh_args(p)
 
@@ -955,7 +936,7 @@ def _add_concurrency_flags(p: argparse.ArgumentParser) -> None:
         "--commands", action="append", metavar='"C H2D"',
         help="command group; repeatable (default: \"C C\")",
     )
-    _add_config_flags(p, ConcurrencyConfig, (),
+    _add_config_flags(p, ConcurrencyConfig,
                       skip=("backend", "mode", "commands"))
     p.add_argument("--no_tuning", action="store_true",
                    help="skip auto-tune")
@@ -987,7 +968,7 @@ def _add_p2p_flags(p: argparse.ArgumentParser) -> None:
     from tpu_patterns_torch.comm.onesided import KERNELS
     from tpu_patterns_torch.comm.p2p import P2PConfig
 
-    _add_config_flags(p, P2PConfig, ())
+    _add_config_flags(p, P2PConfig)
     p.add_argument(
         "--transport", choices=("two_sided", "one_sided"),
         default="two_sided",
@@ -1040,7 +1021,7 @@ def _p2p(args, writer: ResultWriter) -> None:
 def _add_hier_flags(p: argparse.ArgumentParser) -> None:
     from tpu_patterns_torch.comm.hierarchical import HierConfig
 
-    _add_config_flags(p, HierConfig, ())
+    _add_config_flags(p, HierConfig)
     # no placement flags: the (dcn, ici) split is the placement
     p.add_argument("--devices", type=int, default=0,
                    help="ranks (0 = one per card)")
@@ -1241,8 +1222,6 @@ def _perf(args, writer: ResultWriter) -> None:
         )
     _checked("perf", lambda: perf_registry._selected(cfg))
     snap = perf_registry.capture(cfg, writer)
-    for name, why in snap["skipped"].items():
-        writer.progress(f"not captured: {name} ({why})")
     if not args.no_history:
         path = perf_history.append_snapshot(snap, args.perf_dir)
         writer.progress(f"snapshot appended -> {path}")

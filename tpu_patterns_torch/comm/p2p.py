@@ -74,6 +74,34 @@ def pair_exchange(shards: Sequence[torch.Tensor],
             for x, o in zip(shards, out)]
 
 
+def make_block_stream(mesh, axis: str = "sp"):
+    """The prefill->decode KV-block transfer core: a function that takes a
+    payload ``{leaf: [tensor of each rank]}`` over ``mesh`` (a
+    ``NamedMesh``) and pair-exchanges every leaf within each ``axis``
+    group and back (:func:`stream_permutation`, an involution), so the
+    bytes cross between the ranks' buffers and land bit-identical to the
+    input.  The payload is consumed: its dict is emptied, so the staging
+    copy dies once shipped (the reference donates it).  Pure data
+    movement: no compute, no reduction."""
+    groups = (mesh.groups(axis) if axis in mesh.axes
+              else [[r] for r in range(mesh.size)])
+    perm = stream_permutation(len(groups[0]))
+
+    def hop(leaves: list) -> list:
+        out = list(leaves)
+        for g in groups:
+            for r, t in zip(g, pair_exchange([leaves[r] for r in g], perm)):
+                out[r] = t
+        return out
+
+    def stream(vals: dict) -> dict:
+        there = {k: hop(v) for k, v in vals.items()}
+        vals.clear()
+        return {k: hop(v) for k, v in there.items()}
+
+    return stream
+
+
 def shard_checksums(shards: Sequence[torch.Tensor]) -> list[int]:
     """Each shard's values summed as integers and wrapped to 32 bits:
     the reference's per-shard ``checksum_device``."""

@@ -64,11 +64,18 @@ Fault sites of this package:
   store.publish, store.fetch, store.prewarm  serve/engine.py, before a
                  fleet-store commit, admission-miss read or scale-out
                  pre-fetch (each degrades to fresh prefill)
+  disagg.transfer  serve/engine.py (prefill role), before the gather of
+                 a finished prefill's blocks for the handoff (retried; a
+                 deterministic failure ships a no-payload manifest, and
+                 the decode pool re-prefills; a ``kill`` leaves no
+                 partial spool file)
+  disagg.adopt   serve/engine.py (decode role), before a shipped
+                 payload's onload (retried; a deterministic failure
+                 returns the blocks and re-prefills locally)
 
-Not ported: the disaggregated handoff's sites (``disagg.transfer``,
-``disagg.adopt``; Queue 1 step 9b) and the sweep's and warm workers'
-(``cell.run``, ``worker.ready``; step 10).  A spec naming one is refused
-at parse time.
+Not ported: the sweep's and warm workers' sites (``cell.run``,
+``worker.ready``; Queue 1 step 10).  A spec naming one is refused at
+parse time.
 """
 
 from tpu_patterns_torch.faults.injector import (  # noqa: F401

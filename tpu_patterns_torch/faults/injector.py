@@ -62,8 +62,8 @@ ACTIONS = frozenset(
 )
 
 # every inject() call site in the package: a spec naming anything else
-# is a typo (or a site not ported yet: the disaggregated handoff's, the
-# sweep's and the warm workers') that would silently inject nothing, so
+# is a typo (or a site not ported yet: the sweep's and the warm
+# workers') that would silently inject nothing, so
 # parse_spec rejects it
 KNOWN_SITES = frozenset({
     "ckpt.save",  # ckpt/checkpoint.py, after the shards, before the manifest
@@ -106,14 +106,16 @@ KNOWN_SITES = frozenset({
     # admission-miss store read, prewarm before a scale-out pre-fetch;
     # each degrades to fresh prefill on a deterministic failure
     "store.publish", "store.fetch", "store.prewarm",
+    # the disaggregated handoff (serve/engine.py, roles prefill and
+    # decode; ctx rid, replica, blocks): transfer fires before the gather
+    # of a finished prefill's blocks, adopt before the onload of a shipped
+    # payload; an ``error`` retries, exhaustion degrades to a re-prefill
+    # on the decode side, and a ``kill`` leaves no partial spool file
+    "disagg.transfer", "disagg.adopt",
 })
 
 # sites of the JAX package that a later step ports, named in the refusal
 _LATER_SITES = {
-    "disagg.transfer": "ROADMAP.md Queue 1 step 9b, the disaggregated "
-                       "prefill/decode handoff",
-    "disagg.adopt": "ROADMAP.md Queue 1 step 9b, the disaggregated "
-                    "prefill/decode handoff",
     "cell.run": "ROADMAP.md Queue 1 step 10, the sweep",
     "worker.ready": "ROADMAP.md Queue 1 step 10, the warm workers",
 }
@@ -123,7 +125,8 @@ _LATER_SITES = {
 # ``scenario``, at obs.cost_book ``rows`` or ``rid`` and ``replica``, at
 # the serve.* sites ``rid``, ``rows``, ``step`` and ``replica``, at
 # obs.scrape ``endpoint``, at the fleet's sites ``replica`` (router.route
-# also ``rid``) and at the store.* sites ``fingerprint``)
+# also ``rid``), at the store.* sites ``fingerprint`` and at the
+# disagg.* sites ``rid``, ``replica`` and ``blocks``)
 MATCH_KEYS = frozenset({
     "pid", "cmd", "cell", "step", "proc", "rows", "rid", "scenario",
     "replica", "blocks", "endpoint", "fingerprint",

@@ -35,10 +35,10 @@ over two dp ranks on the one device, a real dp axis as the JAX
 package's ``_train_mesh`` gives it.  ``serve.prefix_store`` is the
 fleet prefix store's round trip (a publisher engine, then a cold
 fetcher engine on the same trace, in one process).  ``disagg.stream``
-(ROADMAP.md Queue 1 step 9b) reads machinery not ported yet: a capture
-that names it is refused, and the full capture lists it under
-``skipped`` with its step.  The JAX package's Tier C ``SpmdEntry``
-registry serves its static analysis and is not part of this module.
+is the disaggregated handoff's wire (``PagedDecoder.stream``) at one
+request's worth of shipped blocks.  The JAX package's Tier C
+``SpmdEntry`` registry serves its static analysis and is not part of
+this module (ROADMAP.md Queue 1 step 10).
 
 Every direct-timed rep runs inside an ``obs.span("perf.<name>")``.
 """
@@ -111,30 +111,16 @@ EXECUTABLES = (
     "serve.prefix_store",
 )
 
-# entries whose machinery is not ported yet -> the ROADMAP step that
-# ports it
-NOT_PORTED = {
-    "disagg.stream": "ROADMAP.md Queue 1 step 9b (disaggregated serving)",
-}
-
-PORTED = tuple(n for n in EXECUTABLES if n not in NOT_PORTED)
-
 
 def _selected(cfg: PerfConfig) -> list[str]:
     if not cfg.include:
-        return list(PORTED)
+        return list(EXECUTABLES)
     names = [n.strip() for n in cfg.include.split(",") if n.strip()]
     unknown = sorted(set(names) - set(EXECUTABLES))
     if unknown:
         raise ValueError(
             f"unknown executable(s) {unknown} — registry: "
             f"{list(EXECUTABLES)}"
-        )
-    refused = sorted(set(names) & set(NOT_PORTED))
-    if refused:
-        raise ValueError(
-            "not ported yet: "
-            + "; ".join(f"{n} ({NOT_PORTED[n]})" for n in refused)
         )
     return names
 
@@ -418,6 +404,41 @@ def _capture_decoder_pallas(cfg: PerfConfig, dev) -> dict[str, dict]:
     return out
 
 
+def _capture_disagg_stream(cfg: PerfConfig, dev) -> dict[str, dict]:
+    """disagg.stream — the prefill->decode KV-block wire, direct-timed at
+    one request's worth of shipped blocks (its whole table window).  The
+    payload is gathered once from a prefilled pool (live KV, not init
+    zeros), then the wire is timed rethreading its own output, as the
+    handoff drives it.  The byte floor is the shipped payload
+    (``transfer_bytes``, analytic); ``analytic_hbm_bytes`` counts the two
+    hops' read and write traffic."""
+    from tpu_patterns_torch.perf import analytic
+
+    decoder, params, mcfg = decoder_for(cfg, dev)
+    a = core_inputs(cfg, decoder)
+    pool = decoder.init_pool()
+    decoder.prefill(params, pool, a["tokens"], a["lens"], a["start"],
+                    a["tables"], a["active"])
+    n_ship = decoder.n_pages
+    state = {"vals": decoder.gather_blocks(pool, a["tables"][0, :n_ship])}
+
+    def call():
+        state["vals"] = decoder.stream(state["vals"])
+        return state["vals"]["k"]
+
+    payload = float(n_ship * cfg.block_len
+                    * analytic.kv_token_bytes(mcfg, cfg.cache_int8))
+    ms = _timed_reps("disagg.stream", call, cfg, dev)
+    return {"disagg.stream": {
+        "analytic_flops": 0.0,
+        # two hops, each reading and writing every payload byte
+        "analytic_hbm_bytes": 4.0 * payload,
+        "transfer_bytes": payload,
+        "transfer_ms": ms,
+        "step_ms": ms,
+    }}
+
+
 def _hist_state(name: str) -> tuple[float, int]:
     from tpu_patterns_torch import obs
 
@@ -663,6 +684,8 @@ _CAPTURES = (
      _capture_decoder, "decoder prefill/step/verify + copy_blocks"),
     (("decoder.step_pallas", "decoder.verify_pallas"),
      _capture_decoder_pallas, "K1 decoder step/verify"),
+    (("disagg.stream",), _capture_disagg_stream,
+     "disagg.stream (KV-block wire)"),
     (("serve.step",), _capture_serve, "serve.step (engine-driven trace)"),
     (("serve.kv_tier",), _capture_kv_tier,
      "serve.kv_tier (tiered-KV offload trace)"),
@@ -725,6 +748,4 @@ def capture(cfg: PerfConfig, writer=None) -> dict:
         "config": dataclasses.asdict(cfg),
         "mesh": mesh,
         "executables": executables,
-        # the full registry's entries this capture could not run
-        "skipped": {} if cfg.include else dict(NOT_PORTED),
     }

@@ -76,8 +76,19 @@ id) rides its lifecycle spans, and ``prefix_store`` (needs the kv tier)
 publishes every materialized full prefix block to the fleet prefix
 store (``serve/store.py``) at iteration boundaries and consults it on an
 admission miss before prefilling fresh; ``prewarm_paths`` fetches a
-scale-out replica's ring arc into the tier.  Not ported (ROADMAP.md
-Queue 1 step 9b): the disaggregated prefill/decode handoff.
+scale-out replica's ring arc into the tier.
+
+So is the disaggregated prefill/decode handoff (``role``): a
+``prefill`` engine ships each prefilled row's prompt blocks (the gather,
+``PagedDecoder.stream`` over sp and back, one host copy, an atomically
+spooled ``kv-<rid>.npz`` under ``spool_dir``) with a manifest in
+``handoffs`` and frees them (``_handoff_wave``, the ``disagg.transfer``
+site); a ``decode`` engine adopts the manifests the replica plane queues
+in ``adopt_queue`` onto fresh blocks and decodes on, its first step
+writing tok0's K/V where a unified engine would (``_admit_adopts``, the
+``disagg.adopt`` site).  A transfer or adoption that fails past its
+retries degrades to a local re-prefill with the same ids.  ``first_ns``
+records each request's first-token stamp for the parent's TTFT.
 
 ``run_serve`` is the measured pattern: the same trace served continuous
 (``slots`` wide) and sequential (one slot), gated on speedup, exactness
@@ -126,7 +137,12 @@ from tpu_patterns_torch.serve.paged import (
 from tpu_patterns_torch.serve.kvtier import HostTier
 from tpu_patterns_torch.serve.paged_kernel import paged_block
 from tpu_patterns_torch.serve.prefix import PrefixIndex
-from tpu_patterns_torch.serve.store import PrefixStore, block_fingerprint
+from tpu_patterns_torch.serve.store import (
+    PrefixStore,
+    block_fingerprint,
+    leaf_from_numpy,
+    leaf_to_numpy,
+)
 
 # the reference's snapshot format: 2 added refcounts, the prefix index
 # and slot prompts; 3 the per-request sampling config and the
@@ -224,7 +240,9 @@ class ServeEngine:
     ``fingerprint`` is the config a snapshot or session must agree on.
     ``replica`` is a fleet engine's id (its fault sites' ``replica`` ctx
     and its obs labels); ``prefix_store`` (needs ``kv_host_tier``) names
-    the fleet prefix store's directory.
+    the fleet prefix store's directory.  ``role`` (``prefill`` or
+    ``decode``; "" is unified) splits serving across two engines; a
+    prefill engine spools its handoffs under ``spool_dir``.
 
     ``retry_policy`` (default ``faults.serve_retry_policy()``) governs the
     prefill, step and verify retries; ``breaker`` (an ``rt.Breaker``,
@@ -245,9 +263,20 @@ class ServeEngine:
                  snapshot_dir: str | None = None,
                  fingerprint: dict | None = None,
                  replica: str = "",
-                 prefix_store: str | None = None):
+                 prefix_store: str | None = None,
+                 role: str = "",
+                 spool_dir: str | None = None):
         if slots < 1:
             raise ValueError(f"slots must be >= 1, got {slots}")
+        if role not in ("", "prefill", "decode"):
+            raise ValueError(
+                f"role must be '' | prefill | decode, got {role!r}"
+            )
+        if role == "prefill" and not spool_dir:
+            raise ValueError(
+                "role='prefill' requires spool_dir: the handoff wire "
+                "spools KV payloads there for the decode pool"
+            )
         if spec_k < 0:
             raise ValueError(f"spec_k must be >= 0, got {spec_k}")
         if session_dir and not kv_host_tier:
@@ -256,6 +285,11 @@ class ServeEngine:
             raise ValueError(
                 "prefix_store requires kv_host_tier: fetched blocks "
                 "adopt through the host tier's onload path"
+            )
+        if prefix_store and role:
+            raise ValueError(
+                "prefix_store is incompatible with disaggregated "
+                "roles: the handoff wire owns cross-engine KV movement"
             )
         if burn_mitigation not in ("off", "shed", "spec_off"):
             raise ValueError(
@@ -285,6 +319,26 @@ class ServeEngine:
         # the replica id the fault sites' ctx, the obs labels and the live
         # plane carry: one engine is "", the fleet labels its replicas
         self.replica = replica
+        # disaggregated prefill/decode serving (``serve --disagg P:D``): a
+        # ``prefill`` engine admits and prefills, then ships each row's
+        # written blocks (gather -> the block stream -> an atomically
+        # spooled file) and releases everything it held; a ``decode``
+        # engine adopts those payloads onto fresh blocks and runs pure
+        # decode.  "" is the unified engine
+        self.role = role
+        self.spool_dir = spool_dir
+        # finished handoffs awaiting the replica report loop: {rid: wire
+        # manifest} (tok0, sampling state, spool path, or recompute=True
+        # when the transfer failed past its retries)
+        self.handoffs: dict[int, dict] = {}
+        # inbound handoffs (decode role): manifests the parent's ``adopt``
+        # op queued, admitted FIFO by _admit_adopts each iteration
+        self.adopt_queue: list[dict] = []
+        # the first-token ledger: rid -> host stamp of its first token
+        # (any role); the replica report loop ships a ``first`` op off it,
+        # so the parent clocks TTFT on its own clock for a unified and a
+        # disaggregated fleet alike
+        self.first_ns: dict[int, int] = {}
         self.watchdog_s = watchdog_s
         self.layout = decoder.layout
         self.n_pages = decoder.n_pages
@@ -406,6 +460,12 @@ class ServeEngine:
             "store_publishes": 0, "store_publish_bytes": 0,
             "store_hits": 0, "store_fetch_bytes": 0,
             "store_prewarmed": 0, "store_fallbacks": 0,
+            # the disaggregated handoff (all 0 with role ""): handoffs and
+            # transfer_bytes on the prefill side, adopts and
+            # adopted_blocks on the decode side, and the re-prefill
+            # degradations of each
+            "handoffs": 0, "transfer_bytes": 0, "handoff_recomputes": 0,
+            "adopts": 0, "adopted_blocks": 0, "adopt_recomputes": 0,
         }
         # SIGTERM/SIGINT (or an injected ``preempt``) sets the event; the
         # loop finishes its iteration, snapshots into snapshot_dir and
@@ -1451,6 +1511,7 @@ class ServeEngine:
             s.out.append(s.last_tok)
             s.write_from = 0  # fence spent: the wave is on the device
             s.t_first_ns = s.t_last_ns = t_tok
+            self.first_ns.setdefault(s.rid, t_tok)
             self.stats["tokens"] += 1
         if self.index is not None:
             for s in slots:
@@ -1461,6 +1522,234 @@ class ServeEngine:
         obs.counter("tpu_patterns_serve_tokens_total").inc(len(slots))
         self.stats["prefills"] += 1
         self.active.extend(slots)
+
+    # -- the disaggregated prefill/decode handoff -------------------------
+
+    def _spool_path(self, rid: int) -> str:
+        return os.path.join(self.spool_dir, f"kv-{rid}.npz")
+
+    def _handoff_wave(self) -> None:
+        """Prefill-role tail of an iteration: every active row has its
+        first token and its prompt's K/V in the pool, so ship each one to
+        the decode pool and release everything this engine held.
+
+        The wire is the gather (the pool is read, not changed, so a retry
+        starts from the same state) -> the block stream (``PagedDecoder.
+        stream``: the payload pair-exchanged over sp and back, consumed on
+        the way) -> one device->host copy of the shipped blocks -> an
+        atomically spooled ``kv-<rid>.npz`` (tmp + ``os.replace``: a crash
+        leaves the complete file or none), its leaves as the host tier
+        stores them (a bfloat16 leaf as two-byte void members).  The
+        ``disagg.transfer`` site fires before the gather; past its
+        retries the handoff degrades to a no-payload manifest
+        (``recompute``) and the decode pool prefills the prompt again,
+        with the same ids.  Blocks go back through the retire ladder
+        (:meth:`_release_block`), so with the kv tier on this replica's
+        shipped prefixes stay retained as a prefix cache."""
+        leaves = self.decoder._pool_leaves()
+        for s in list(self.active):
+            n_ship = self.layout.blocks_for(s.lens)
+            path = self._spool_path(s.rid) if self.spool_dir else ""
+            nbytes = 0
+            recompute = not path
+
+            def attempt(s=s, n_ship=n_ship, path=path):
+                # before the gather: nothing spooled, nothing mutated, so
+                # an ``error`` retries cleanly and a ``kill`` leaves no
+                # partial spool file
+                faults.inject("disagg.transfer", rid=s.rid,
+                              replica=self.replica, blocks=n_ship)
+                wire = self.decoder.stream(
+                    self.decoder.gather_blocks(self.pool, s.table[:n_ship])
+                )
+                # the ship: every leaf's copy to the host queued, then the
+                # one wait for all of them
+                host = {n: t.to("cpu", non_blocking=True)
+                        for n, t in wire.items()}
+                self.decoder.sync()
+                arrays = {n: leaf_to_numpy(t, leaves[n][1])
+                          for n, t in host.items()}
+                tmp = path + ".tmp"
+                with open(tmp, "wb") as f:
+                    np.savez(f, **arrays)
+                os.replace(tmp, path)
+                return sum(a.nbytes for a in arrays.values())
+
+            if not recompute:
+                try:
+                    nbytes = faults.call_with_retry(
+                        attempt, policy=self.retry_policy,
+                        site="disagg.transfer",
+                    )
+                except (OSError, faults.Quarantined) as e:
+                    recompute, path, nbytes = True, "", 0
+                    self.stats["handoff_recomputes"] += 1
+                    obs.event("disagg.transfer_degraded", rid=str(s.rid),
+                              replica=self.replica, reason=str(e)[:120])
+            self.handoffs[s.rid] = {
+                "rid": s.rid, "jid": s.jid,
+                "prompt": list(s.prompt), "n_gen": s.n_gen,
+                "scenario": s.scenario, "deadline_ms": s.deadline_ms,
+                "priority": s.priority,
+                "temperature": s.temperature, "top_k": s.top_k,
+                "top_p": s.top_p, "seed": s.seed,
+                "gen_offset": s.gen_offset,
+                "tok0": s.out[0],
+                "t_submit_ns": s.t_submit_ns,
+                "t_first_ns": s.t_first_ns,
+                "path": path,
+                "blocks": 0 if recompute else n_ship,
+                "nbytes": nbytes,
+                "recompute": recompute,
+            }
+            for b in s.table:
+                self._release_block(b)
+            self.slot_pool.release(s.slot, reusable=True)
+            self.inflight.release(s.rid)
+            self.cost.drop(s.rid)
+            self.active.remove(s)
+            self.stats["handoffs"] += 1
+            self.stats["transfer_bytes"] += nbytes
+            obs.event("serve.handoff", rid=str(s.rid), replica=self.replica,
+                      blocks=str(0 if recompute else n_ship),
+                      recompute=str(recompute))
+
+    def _resubmit_adopt(self, msg: dict) -> None:
+        """The recompute degradation: queue the handed-off request for a
+        local prefill on this (decode) pool.  Greedy ids and the sampled
+        keys ``(seed, gen_offset + n)`` depend only on the prompt and the
+        request's own stream position, so the output equals the adopted
+        path's: at worst recompute, never corruption."""
+        self.stats["adopt_recomputes"] += 1
+        self.submit(
+            Request(
+                rid=msg["rid"], tokens=list(msg["prompt"]),
+                n_gen=msg["n_gen"], scenario=msg["scenario"],
+                deadline_ms=msg["deadline_ms"], jid=msg["jid"],
+                priority=msg["priority"],
+                temperature=msg["temperature"], top_k=msg["top_k"],
+                top_p=msg["top_p"], seed=msg["seed"],
+                gen_offset=msg["gen_offset"],
+            ),
+            t_submit_ns=msg["t_submit_ns"],
+        )
+
+    def _admit_adopts(self) -> None:
+        """Decode-role head of an iteration: adopt queued handoff
+        payloads onto fresh blocks, FIFO, while slots and blocks last.
+
+        Adoption reserves the request's whole lifetime rectangle (as
+        admission does), onloads the shipped prompt blocks in one copy
+        and seats a slot indistinguishable from one this engine
+        prefilled: lens at the prompt boundary, steps 0, the shipped
+        first token as ``last_tok``, so the first decode step writes
+        tok0's K/V where the unified engine would.  The ``disagg.adopt``
+        site fires before the onload (the targets came off the free list
+        holding garbage, so an error retries and no adopted block is ever
+        torn); past its retries the blocks go back and the request
+        prefills locally (:meth:`_resubmit_adopt`)."""
+        leaves = self.decoder._pool_leaves()
+        while self.adopt_queue:
+            msg = self.adopt_queue[0]
+            if msg.get("recompute"):
+                self.adopt_queue.pop(0)
+                self._resubmit_adopt(msg)
+                continue
+            lens = len(msg["prompt"])
+            need = self.layout.blocks_for(lens + max(msg["n_gen"] - 1, 0))
+            if need > self.layout.n_blocks - 1:
+                self.adopt_queue.pop(0)
+                self.failed[msg["rid"]] = (
+                    f"adopt needs {need} blocks; pool has "
+                    f"{self.layout.n_blocks - 1}"
+                )
+                continue
+            slot_tok = self.slot_pool.lease()
+            if slot_tok is None:
+                break  # the active set is full: adopt next iteration
+            if need > len(self.free):
+                self._evict_for(need - len(self.free), set(),
+                                rid=msg["rid"])
+            if need > len(self.free):
+                self.slot_pool.release(slot_tok, reusable=True)
+                self.stats["deferrals"] += 1
+                obs.counter("tpu_patterns_serve_deferrals_total").inc()
+                obs.event("serve.defer", rid=str(msg["rid"]), need=need,
+                          free=len(self.free))
+                self.decisions.book(
+                    "defer", rid=msg["rid"], jid=msg["jid"],
+                    rationale="pool pressure: adopted-block need "
+                              "exceeds free list after evict rung",
+                    need=need, free=len(self.free),
+                    adopt_queue=len(self.adopt_queue),
+                    active=len(self.active),
+                )
+                break  # FIFO: later adoptions must not starve this one
+            self.adopt_queue.pop(0)
+            blocks = [self.free.pop() for _ in range(need)]
+            n_ship = msg["blocks"]
+
+            def attempt(msg=msg, blocks=blocks, n_ship=n_ship):
+                # before the read and the onload: the targets hold
+                # garbage either way, so an ``error`` retries cleanly
+                faults.inject("disagg.adopt", rid=msg["rid"],
+                              replica=self.replica, blocks=n_ship)
+                with np.load(msg["path"]) as data:
+                    vals = {n: leaf_from_numpy(data[n], dt)
+                            for n, (_, dt) in leaves.items()}
+                self.decoder.onload_blocks(self.pool, vals, blocks[:n_ship])
+
+            try:
+                faults.call_with_retry(attempt, policy=self.retry_policy,
+                                       site="disagg.adopt")
+            except (OSError, faults.Quarantined) as e:
+                self.free.extend(blocks)
+                self.slot_pool.release(slot_tok, reusable=True)
+                obs.event("disagg.adopt_degraded", rid=str(msg["rid"]),
+                          replica=self.replica, reason=str(e)[:120])
+                self._resubmit_adopt(msg)
+                continue
+            for b in blocks:
+                self.ref[b] = 1
+            own_blocks: tuple[int, ...] = ()
+            if self.index is not None:
+                own_blocks = tuple(
+                    self.index.insert(list(msg["prompt"]), blocks)
+                )
+                self.index.materialize(list(own_blocks))
+            s = _Slot(
+                rid=msg["rid"], lens=lens, steps=0, n_gen=msg["n_gen"],
+                table=blocks, last_tok=msg["tok0"], out=[msg["tok0"]],
+                t_submit_ns=msg["t_submit_ns"],
+                prompt=list(msg["prompt"]), write_from=0,
+                own_blocks=own_blocks, scenario=msg["scenario"],
+                deadline_ms=msg["deadline_ms"], jid=msg["jid"],
+                priority=msg["priority"],
+                temperature=msg["temperature"], top_k=msg["top_k"],
+                top_p=msg["top_p"], seed=msg["seed"],
+                gen_offset=msg["gen_offset"], t_admit_ns=clock_ns(),
+                # the client saw its first token when the prefill replica
+                # emitted it: TTFT and TPOT do not restart at adoption
+                t_first_ns=msg["t_first_ns"],
+                t_last_ns=msg["t_first_ns"],
+                slot=slot_tok,
+            )
+            self.inflight.acquire(s.rid, s)
+            self.cost.hold(s.rid, len(blocks), scenario=s.scenario,
+                           priority=s.priority)
+            if s.jid:
+                obs.event("journey.admit", jid=s.jid, rid=str(s.rid),
+                          replica=self.replica)
+            self.active.append(s)
+            self.stats["adopts"] += 1
+            self.stats["adopted_blocks"] += n_ship
+            obs.event("serve.adopt", rid=str(s.rid), replica=self.replica,
+                      blocks=str(n_ship))
+            if msg["path"]:
+                try:
+                    os.unlink(msg["path"])
+                except OSError:
+                    pass  # the spool dir is the run's scratch either way
 
     def _step(self) -> None:
         rows = _bucket(len(self.active), self.slots)
@@ -1854,7 +2143,8 @@ class ServeEngine:
             with obs.span("serve.run", requests=len(requests)):
                 while True:
                     if source is not None:
-                        batch = source(idle=not (self.queue or self.active))
+                        batch = source(idle=not (self.queue or self.active
+                                                 or self.adopt_queue))
                         if batch is None:
                             source = None
                         else:
@@ -1864,7 +2154,7 @@ class ServeEngine:
                                                 t_submit_ns=item[1])
                                 else:
                                     self.submit(item)
-                    if not (self.queue or self.active):
+                    if not (self.queue or self.active or self.adopt_queue):
                         if self._preempt.is_set():
                             # idle until the next arrival: the signal
                             # does not wait for it
@@ -1877,10 +2167,22 @@ class ServeEngine:
                     # sample the pool integral where retire frees blocks
                     # and admission takes them
                     self.cost.tick(self.allocated_blocks())
+                    if self.role == "decode" and self.adopt_queue:
+                        # shipped KV first: its prefill was paid on the
+                        # other pool, so an adopted row joins this
+                        # iteration's decode dispatch
+                        self._admit_adopts()
+                        self.cost.tick(self.allocated_blocks())
                     admitted = self._admit()
                     self.cost.tick(self.allocated_blocks())
                     if admitted:
                         self._prefill_wave(admitted)
+                    if self.role == "prefill" and self.active:
+                        # every active row has its first token: ship it
+                        # and free its rectangle.  The wave drains the
+                        # active set, so a prefill engine never decodes
+                        self._handoff_wave()
+                        self.cost.tick(self.allocated_blocks())
                     if self.active:
                         self._decode()
                     self.stats["peak_blocks"] = max(
@@ -2079,7 +2381,8 @@ class ServeConfig:
     # replica publishes materialized full prefix blocks into and consults
     # on an admission miss, so fail-over reroutes land warm and scale-out
     # replicas pre-warm their ring arc.  Needs --kv_host_tier and
-    # --replicas; "" = off
+    # --replicas; "" = off.  Incompatible with --disagg (the handoff
+    # wire owns cross-engine KV movement there)
     prefix_store: str = ""
     # multi-replica serving (serve/replica.py): N engine processes, each
     # on its own slice of the ranks, behind the prefix-aware router
@@ -2104,6 +2407,18 @@ class ServeConfig:
     scale_sustain_s: float = 0.5  # the signal must hold this long
     scale_cooldown_s: float = 2.0  # least gap between scale actions
     min_live_replicas: int = 1  # the scale-in floor
+    # disaggregated prefill/decode (serve/replica.py): "P:D" splits the
+    # --replicas fleet into P prefill-only replicas (they admit, fill
+    # paged blocks, then ship each request's KV blocks over the block
+    # stream) and D decode-only replicas (they adopt shipped blocks into
+    # their own pool and run pure decode).  The run becomes the disagg
+    # A/B Record: the split fleet against a unified fleet of N replicas
+    # at the same device count.  "" = off
+    disagg: str = ""
+    # the disagg A/B's TTFT p99 gate: the split fleet's front-door p99
+    # must be at least this factor better than unified's (1.05 = 5%
+    # better).  0 = report, do not gate
+    min_ttft_improvement: float = 0.0
     device: str = "cuda"  # "cpu" runs the plain torch versions
 
 
@@ -2516,7 +2831,10 @@ def _serve_fingerprint(cfg: ServeConfig, n_blocks: int) -> dict:
               # request is terminal bookkeeping, spec_off is
               # bit-identical), nor does preemption (resume is exact)
               "obs_http", "burn_mitigation", "slo_fast_s", "slo_slow_s",
-              "slo_budget", "burn_multiplier", "preempt"):
+              "slo_budget", "burn_multiplier", "preempt",
+              # a gate threshold, not a trace shape (disagg stays in:
+              # roles change which engine serves what)
+              "min_ttft_improvement"):
         fp.pop(k)
     fp["n_blocks"] = n_blocks  # resolved, not the 0 = auto sentinel
     return fp
@@ -2895,6 +3213,11 @@ def _refuse_unsupported(cfg: ServeConfig) -> None:
             "fleet scales a replica fleet; there is nothing to scale on "
             "the single-engine paths)"
         )
+    if cfg.disagg:
+        raise ValueError(
+            "serve --disagg splits a replica fleet into prefill and "
+            "decode pools — it needs --replicas N with P+D == N"
+        )
     if cfg.scenario:
         if cfg.snapshot_dir or cfg.resume or cfg.ids_out:
             raise ValueError(
@@ -2951,6 +3274,11 @@ def _refuse_fleet(cfg: ServeConfig) -> None:
             "serve --prefix_store requires --kv_host_tier (fetched "
             "blocks adopt through the host tier)"
         )
+    if cfg.prefix_store and cfg.disagg:
+        raise ValueError(
+            "serve --prefix_store is incompatible with --disagg: the "
+            "handoff wire owns cross-engine KV movement there"
+        )
     if cfg.prefix_store and cfg.scenario:
         raise ValueError(
             "serve --prefix_store is incompatible with --scenario: the "
@@ -2963,6 +3291,34 @@ def _refuse_fleet(cfg: ServeConfig) -> None:
             "is the diurnal-ramp A/B, and priority classes ride the "
             "scenario schedule"
         )
+    if cfg.disagg:
+        disagg_split(cfg)
+
+
+def disagg_split(cfg: ServeConfig) -> tuple[int, int]:
+    """``--disagg P:D`` checked as the reference checks it: (P, D)."""
+    if cfg.elastic_reserve:
+        raise ValueError(
+            "serve --disagg and --elastic_reserve are mutually exclusive: "
+            "role assignment is static for this Record"
+        )
+    try:
+        n_pre, n_dec = (int(x) for x in cfg.disagg.split(":"))
+    except ValueError:
+        raise ValueError(
+            f"--disagg wants P:D (two integers), got {cfg.disagg!r}"
+        ) from None
+    if n_pre < 1 or n_dec < 1:
+        raise ValueError(
+            f"--disagg {cfg.disagg}: need at least one prefill and one "
+            "decode replica"
+        )
+    if n_pre + n_dec != cfg.replicas:
+        raise ValueError(
+            f"--disagg {cfg.disagg}: P+D = {n_pre + n_dec} must equal "
+            f"--replicas {cfg.replicas}"
+        )
+    return n_pre, n_dec
 
 
 def run_serve(cfg: ServeConfig, writer: ResultWriter | None = None,

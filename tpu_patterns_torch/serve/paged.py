@@ -36,7 +36,9 @@ where writes diverge.  ``verify`` runs a k+1-token window for
 speculative decoding; ``step`` is ``verify`` at a window of one token.
 ``gather_blocks`` and ``onload_blocks`` move whole blocks between the
 pool and the host kv tier (``serve/kvtier.py``); like the reference's
-gather and onload they are plain indexing, not a kernel.
+gather and onload they are plain indexing, not a kernel.  ``stream`` is
+the disaggregated handoff's wire: a gathered payload pair-exchanged
+over ``sp`` and back (``comm/p2p.py::make_block_stream``).
 
 A decoder made with ``sampling=True`` takes five more per-row host
 arrays ``(seeds, gidx, temp, topk, topp)`` in ``prefill``, ``step`` and
@@ -654,6 +656,24 @@ class PagedDecoder:
                                      self._spec(n))
             for leaf, d_, part in zip(leaves, dsts, parts):
                 leaf.index_copy_(1, d_, part)
+
+    @torch.no_grad()
+    def stream(self, vals: dict) -> dict[str, torch.Tensor]:
+        """The disagg prefill->decode wire (the reference's
+        ``stream_jit``, ``comm/p2p.py::make_block_stream``): a global-
+        layout payload from :meth:`gather_blocks`, split over the ranks
+        as the pool is, pair-exchanged across ``sp`` and back, and
+        assembled again on rank 0's device, bit-identical.  ``vals`` is
+        consumed (emptied), as the reference donates it."""
+        from tpu_patterns_torch.comm.p2p import make_block_stream
+
+        mesh = self.ranks
+        specs = {n: self._spec(n) for n in vals}
+        parts = {n: mesh.shard(vals[n], specs[n]) for n in vals}
+        vals.clear()
+        wire = make_block_stream(mesh, axis="sp")(parts)
+        return {n: mesh.assemble(leaves, specs[n])
+                for n, leaves in wire.items()}
 
     # -- params ----------------------------------------------------------
 

@@ -19,15 +19,17 @@ with its own CUDA context, and the contexts time-slice the card.
 Protocol (line JSON; fd 1 is claimed for the protocol before torch is
 imported, chatter goes to stderr, ``replica-<id>.log``):
 
-  parent -> child : {"op":"init", replica, devices, sp, tp, cfg,
-                     snapshot_dir, session_dir, warm, obs_dir}
+  parent -> child : {"op":"init", replica, devices, sp, tp, cfg, role,
+                     spool_dir, snapshot_dir, session_dir, warm,
+                     obs_dir}
                     (first line; ``devices`` the slice's rank devices)
                     {"op":"req", rid, tokens, n_gen[, deadline_ms,
                      jid, scenario, priority, sampling fields]}
-                    {"op":"prewarm", paths}
+                    {"op":"adopt", m} | {"op":"prewarm", paths}
                     {"op":"fin"} | {"op":"drain"} |
                     {"op":"checkpoint"} | {"op":"shutdown"}
   child -> parent : {"ready": true, pid, replica, platform}
+                    {"op":"first", rid} | {"op":"handoff", rid, m}
                     {"op":"done", rid, ids} |
                     {"op":"failed", rid, reason} | {"op":"shed", rid,
                      reason} | {"op":"hb", steps, tokens}
@@ -65,8 +67,17 @@ Accounting is an identity: ``done + failed + rerouted (+ shed) ==
 scheduled`` and ``leaked_blocks == 0`` across the fleet, with every
 completed request's ids equal to its per-request dense decode.
 
-Not ported (ROADMAP.md Queue 1 step 9b): the disaggregated prefill/
-decode split (``--disagg P:D``), its roles and handoff ops.
+The disaggregated split (``--disagg P:D``, ``roles``): admission routes
+over a ring of the P prefill replicas only.  A prefill child prefills,
+spools each request's prompt blocks under ``<work_dir>/spool`` and sends
+the manifest up (``handoff``); the parent moves the lease to a decode
+replica (plain rotation over the live ones), books the decision and
+forwards the manifest (``adopt``); the decode child adopts the blocks
+and decodes through the paged kernel.  A decode replica that dies holding
+adopted rows fails over like any other: its rows reroute through the
+prefill ring.  Every child sends ``first`` when a request's first token
+reaches its host, so the parent stamps TTFT on its own clock for the
+split fleet and the unified one alike (the disagg A/B Record).
 """
 
 from __future__ import annotations
@@ -79,6 +90,8 @@ import queue
 import subprocess
 import sys
 import threading
+
+import numpy as np
 
 from tpu_patterns_torch import faults, obs, rt
 from tpu_patterns_torch.core.timing import clock_ns
@@ -124,6 +137,8 @@ class _StdinSource:
         self._reported_done: set[int] = set()
         self._reported_failed: set[int] = set()
         self._reported_shed: set[int] = set()
+        self._reported_first: set[int] = set()
+        self._reported_handoff: set[int] = set()
         self._last_hb_ns = 0
         # span/counter deltas ship at iteration boundaries; dump_obs banks
         # ring + metrics into the per-replica obs dir at checkpoint/exit
@@ -147,6 +162,20 @@ class _StdinSource:
     def report(self) -> None:
         """Stream newly terminal requests and a bounded-rate heartbeat."""
         eng = self._engine
+        # first-token instants ship before terminal buckets: the parent
+        # clocks TTFT at receipt, and a request whose done lands in the
+        # same batch must not read a first token after its last
+        for rid in list(eng.first_ns):
+            if rid not in self._reported_first:
+                self._reported_first.add(rid)
+                self._send({"op": "first", "rid": rid})
+        # disagg handoffs (prefill role): the manifest goes up, so the
+        # parent moves the lease and picks a decode replica to adopt it
+        for rid in list(eng.handoffs):
+            if rid not in self._reported_handoff:
+                self._reported_handoff.add(rid)
+                self._send({"op": "handoff", "rid": rid,
+                            "m": eng.handoffs[rid]})
         for rid in list(eng.done):
             if rid not in self._reported_done:
                 self._reported_done.add(rid)
@@ -226,6 +255,10 @@ class _StdinSource:
                     seed=int(msg.get("seed", 0)),
                     gen_offset=int(msg.get("gen_offset", 0)),
                 ))
+            elif op == "adopt":
+                # disagg: a handoff manifest the parent routed here, queued
+                # for _admit_adopts at the next iteration head
+                self._engine.adopt_queue.append(dict(msg["m"]))
             elif op == "prewarm":
                 # scale-out pre-warm: fetch this replica's ring-arc store
                 # prefixes into the host tier between engine iterations
@@ -261,7 +294,8 @@ class _StdinSource:
                 self.fin = True
                 self.closed = True
         eng = self._engine
-        if self.fin and not batch and not eng.queue and not eng.active:
+        if (self.fin and not batch and not eng.queue and not eng.active
+                and not eng.adopt_queue):
             return None  # exhausted: the engine loop may exit
         return batch
 
@@ -295,6 +329,12 @@ def _child_stats(eng) -> dict:
         "sheds": len(eng.shed),
         "preempted": eng.stats["preempted"],
         "preempted_resumed": eng.stats["preempted_resumed"],
+        "handoffs": eng.stats["handoffs"],
+        "handoff_recomputes": eng.stats["handoff_recomputes"],
+        "transfer_bytes": eng.stats["transfer_bytes"],
+        "adopts": eng.stats["adopts"],
+        "adopted_blocks": eng.stats["adopted_blocks"],
+        "adopt_recomputes": eng.stats["adopt_recomputes"],
         "store_publishes": eng.stats["store_publishes"],
         "store_publish_bytes": eng.stats["store_publish_bytes"],
         "store_hits": eng.stats["store_hits"],
@@ -307,8 +347,9 @@ def _child_stats(eng) -> dict:
             str(rid): n for rid, n in eng.fresh_by_rid.items()
         },
         "leaked_blocks": eng.leaked_blocks(),
-        # the paged kernel's launches in this child since its warm-up
-        # (0 on the CPU, where the plain version runs)
+        # the paged kernel's launches in this child since its warm-up (0
+        # on the CPU, where the plain version runs, and in a prefill-role
+        # child, whose decoder runs the dense path)
         "paged_block_launches": paged_block.launches,
     }
 
@@ -345,10 +386,14 @@ def _child_engine(init: dict):
         mlp_mult=cfg["mlp_mult"], dtype=cfg["dtype"], depth=cfg["depth"],
         kv_heads=cfg["kv_heads"], rope=cfg["rope"],
     )
+    role = str(init.get("role") or "")
     decoder = make_paged_lm_decoder(
         mcfg, cfg["vocab"], n_blocks=cfg["n_blocks"],
         block_len=cfg["block_len"], max_len=cfg["max_len"],
-        cache_int8=cfg["cache_int8"], attn=cfg["paged_attn"],
+        cache_int8=cfg["cache_int8"],
+        # a prefill-only pool never runs the decode/verify loop, so it
+        # takes the dense path: the decode kernel is not its to launch
+        attn="dense" if role == "prefill" else cfg["paged_attn"],
         # greedy rows through a sampling decoder stay bit-identical
         sampling=bool(cfg.get("sampling", False)),
         device=devices[0], mesh=mesh,
@@ -395,6 +440,10 @@ def _child_engine(init: dict):
             # nor fetches real blocks into an engine about to be dropped
             prefix_store=(None if warming
                           else (cfg.get("prefix_store") or None)),
+            # the warm-up engine serves its trace to the end itself: a
+            # prefill role would spool the warm requests instead
+            role="" if warming else role,
+            spool_dir=None if warming else init.get("spool_dir"),
         )
 
     # warm-up: serve the parent's warm trace through a throwaway engine
@@ -580,6 +629,13 @@ class FleetResult:
         default_factory=dict
     )
     t_done_ns: dict[int, int] = dataclasses.field(default_factory=dict)
+    # front-door first-token instants, stamped on the PARENT clock when a
+    # child's ``first`` op arrives: the TTFT ledger the disagg A/B gates
+    # (the same measurement for a unified and a split fleet)
+    t_first_ns: dict[int, int] = dataclasses.field(default_factory=dict)
+    # rids that crossed the prefill->decode wire (recompute degradations
+    # included: they crossed as manifests)
+    handoff_rids: set[int] = dataclasses.field(default_factory=set)
     arrival_ms: dict[int, float] = dataclasses.field(default_factory=dict)
     t0_ns: int = 0
     wall_s: float = 0.0
@@ -623,6 +679,25 @@ class FleetResult:
 
     def preempted_resumed(self) -> int:
         return self._stat("preempted_resumed")
+
+    def handoffs(self) -> int:
+        """Prefill->decode handoffs (recompute degradations included)."""
+        return self._stat("handoffs")
+
+    def adopts(self) -> int:
+        return self._stat("adopts")
+
+    def adopted_blocks(self) -> int:
+        return self._stat("adopted_blocks")
+
+    def transfer_bytes(self) -> int:
+        return self._stat("transfer_bytes")
+
+    def disagg_recomputes(self) -> int:
+        """Handoffs that degraded to a re-prefill on either side of the
+        wire: bounded recompute, never a torn block."""
+        return self._stat("handoff_recomputes") + self._stat(
+            "adopt_recomputes")
 
     def store_publishes(self) -> int:
         return self._stat("store_publishes")
@@ -721,9 +796,39 @@ class ReplicaManager:
         warm: list | None = None,
         retry_policy=None,
         elastic: ElasticConfig | None = None,
+        roles: dict[str, str] | None = None,
     ):
         if n < 1:
             raise ValueError(f"replicas must be >= 1, got {n}")
+        # the disaggregated fleet: replica id -> "prefill" | "decode".
+        # Admission routes over the prefill ring only; decode replicas take
+        # work only through handoff adoption
+        self.roles = dict(roles or {})
+        if self.roles:
+            if elastic is not None:
+                raise ValueError(
+                    "disagg and elastic are mutually exclusive: the scale "
+                    "controller reasons about one homogeneous pool of "
+                    "slots"
+                )
+            by_role = {"prefill": [], "decode": []}
+            for r in range(n):
+                role = self.roles.get(str(r), "")
+                if role not in by_role:
+                    raise ValueError(
+                        f"replica {r}: role must be prefill | decode, got "
+                        f"{role!r}"
+                    )
+                by_role[role].append(str(r))
+            if not by_role["prefill"] or not by_role["decode"]:
+                raise ValueError(
+                    "disagg needs at least one prefill and one decode "
+                    f"replica, got {len(by_role['prefill'])}:"
+                    f"{len(by_role['decode'])}"
+                )
+        # the handoff target's cursor: plain rotation over the live decode
+        # replicas (adopted tables are all fresh: no affinity to keep)
+        self._decode_rr = 0
         # the elastic fleet: the ring is built over ALL n + reserve ids up
         # front with the reserves quarantined — scale-out is ring.restore
         # (only the reserve's own arc remaps), scale-in the drain path
@@ -751,7 +856,8 @@ class ReplicaManager:
             max_attempts=2, backoff_base_s=0.1
         )
         self.router = Router(
-            [str(r) for r in range(n_total)],
+            [str(r) for r in range(n_total)
+             if not self.roles or self.roles.get(str(r)) == "prefill"],
             block_len=int(child_cfg["block_len"]), policy=policy,
             route_blocks=route_blocks, vnodes=vnodes,
         )
@@ -794,6 +900,12 @@ class ReplicaManager:
     def _spawn_one(self, r: int) -> ReplicaHandle:
         rid = str(r)
         os.makedirs(self.work_dir, exist_ok=True)
+        spool_dir = None
+        if self.roles:
+            # the handoff spool: prefill children write payloads here (tmp
+            # + atomic rename), decode children adopt and unlink them
+            spool_dir = os.path.join(self.work_dir, "spool")
+            os.makedirs(spool_dir, exist_ok=True)
         attempts = {"n": 0}
 
         def attempt():
@@ -815,6 +927,8 @@ class ReplicaManager:
             "devices": self.device_slices[r],
             "sp": self.sp, "tp": self.tp,
             "cfg": self.child_cfg,
+            "role": self.roles.get(rid, ""),
+            "spool_dir": spool_dir,
             "snapshot_dir": os.path.join(self.work_dir,
                                          f"replica-{rid}-snap"),
             # the per-replica session bank (kv tier only): a drained
@@ -1258,6 +1372,13 @@ class ReplicaManager:
                 res.done[r] = [int(t) for t in msg["ids"]]
                 res.t_done_ns[r] = clock_ns()
             h.breaker.success()
+        elif op == "first":
+            # front-door TTFT is stamped here, on the parent's clock: the
+            # same measurement for a unified and a split fleet, and a
+            # re-prefilled first token does not move it
+            res.t_first_ns.setdefault(int(msg["rid"]), clock_ns())
+        elif op == "handoff":
+            self._adopt_handoff(h, msg, res)
         elif op == "shed":
             # the child's burn ladder shed this admission: terminal, and
             # mitigation working, not replica sickness (breaker untouched)
@@ -1316,6 +1437,72 @@ class ReplicaManager:
                 return
             self._replica_down(h, op.strip("_"), res)
         # hb: the timestamp update above is the point
+
+    # -- the disaggregated handoff ---------------------------------------
+
+    def _pick_decode(self) -> ReplicaHandle | None:
+        """Round-robin over the live decode replicas: they are not on the
+        prefix ring (they take no admissions), and adopted blocks seed
+        each one's own prefix index instead."""
+        live = sorted((h for h in self._live()
+                       if self.roles.get(h.id) == "decode"),
+                      key=lambda h: int(h.id))
+        if not live:
+            return None
+        pick = live[self._decode_rr % len(live)]
+        self._decode_rr += 1
+        return pick
+
+    def _adopt_handoff(self, h: ReplicaHandle, msg: dict,
+                       res: FleetResult) -> None:
+        """A prefill replica finished its half of ``rid``: move the lease
+        to a decode replica and forward the manifest.  The transfer itself
+        happened child-side (the spool file); the parent is the control
+        plane: it picks the adopter, keeps the lease table leak-free and
+        books why."""
+        r = int(msg["rid"])
+        m = dict(msg["m"])
+        h.leases.release(r)
+        h.breaker.success()  # the prefill leg served its half
+        if r in res.done or r in res.failed or r in res.shed:
+            return
+        res.handoff_rids.add(r)
+        d = self._pick_decode()
+        recompute = bool(m.get("recompute"))
+        # one transfers tick a handoff decision (degradations included);
+        # the payload series count real shipped blocks and bytes only
+        obs.counter("tpu_patterns_disagg_transfers_total").inc()
+        if not recompute:
+            obs.counter("tpu_patterns_disagg_adopted_blocks_total").inc(
+                int(m.get("blocks", 0)))
+            obs.counter("tpu_patterns_disagg_transfer_bytes_total").inc(
+                int(m.get("nbytes", 0)))
+        self.decisions.book(
+            "handoff", rid=r, jid=str(m.get("jid", "")),
+            rationale=(
+                "prefill transfer degraded; decode pool re-prefills from "
+                "the prompt" if recompute else
+                "prefill complete; KV blocks shipped to the decode pool "
+                "over the block stream"
+            ),
+            src=h.id, dst=d.id if d else "",
+            blocks=int(m.get("blocks", 0)),
+            nbytes=int(m.get("nbytes", 0)),
+            recompute=recompute,
+            decode_live=0 if d is None else 1,
+        )
+        if d is None:
+            res.failed[r] = "no live decode replica left to adopt"
+            return
+        obs.event("journey.handoff", jid=str(m.get("jid", "")),
+                  rid=str(r), src=h.id, replica=d.id)
+        try:
+            d.leases.acquire(r, meta=res.requests_by_rid.get(r))
+            d.send({"op": "adopt", "m": m})
+        except ReplicaError:
+            # the adopter died at the send: standard fail-over settles its
+            # leases (this rid included) back through the prefill ring
+            self._replica_down(d, "send failed at adopt", res)
 
     def _check_watchdogs(self, res: FleetResult) -> None:
         now = clock_ns()
@@ -1586,7 +1773,8 @@ def fleet_plan(cfg, mesh=None, writer=None) -> FleetPlan:
 
 def make_manager(plan: FleetPlan, cfg, n: int, policy: str, work_dir: str,
                  obs_base: str | None,
-                 elastic: ElasticConfig | None = None) -> ReplicaManager:
+                 elastic: ElasticConfig | None = None,
+                 roles: dict[str, str] | None = None) -> ReplicaManager:
     """A :class:`ReplicaManager` of ``n`` replicas for ``plan``."""
     return ReplicaManager(
         n, base_env=dict(os.environ), work_dir=work_dir,
@@ -1594,8 +1782,28 @@ def make_manager(plan: FleetPlan, cfg, n: int, policy: str, work_dir: str,
         sp=plan.child_sp, tp=plan.tp, policy=policy,
         route_blocks=cfg.route_blocks or 2,
         watchdog_s=cfg.replica_watchdog_s, obs_base=obs_base,
-        warm=plan.warm, elastic=elastic,
+        warm=plan.warm, elastic=elastic, roles=roles,
     )
+
+
+def disagg_roles(n_pre: int, n_dec: int) -> dict[str, str]:
+    """Replicas 0..P-1 prefill, the rest decode."""
+    return {str(i): "prefill" if i < n_pre else "decode"
+            for i in range(n_pre + n_dec)}
+
+
+def _ttft_p99(res: FleetResult) -> float:
+    """Front-door p99 time to first token over completed requests, in
+    ms: the parent-clock first-token stamp less the request's scheduled
+    arrival.  Child clock readings never cross the pipe: both A/B legs
+    stamp at the parent's receipt of ``first``, so queueing, routing and
+    the handoff are all inside."""
+    waits = [(res.t_first_ns[rid] - res.t0_ns) / 1e6
+             - res.arrival_ms.get(rid, 0.0)
+             for rid in res.done if rid in res.t_first_ns]
+    if not waits:
+        return -1.0
+    return float(np.percentile(np.asarray(waits), 99.0))
 
 
 def run_replicas(cfg, writer, mesh=None) -> list:
@@ -1608,6 +1816,13 @@ def run_replicas(cfg, writer, mesh=None) -> list:
     device, and (with ``min_replica_speedup`` > 0) aggregate tokens/s
     over N replicas >= the gate x ONE replica on the same slice size.
 
+    With ``disagg`` ("P:D"): the disagg A/B Record — the fleet split into
+    P prefill and D decode replicas (``roles``) against a unified fleet
+    of N on the same schedule and slices: both legs covered, exact
+    against one dense decode of the schedule and leak-free, at least one
+    handoff, and with ``min_ttft_improvement`` > 0 the split fleet's
+    front-door TTFT p99 (:func:`_ttft_p99`) at least that factor better.
+
     With ``scenario``: the same fleet serves the scenario schedule under
     BOTH router policies (the routing comparison: prefix-aware routing
     must beat round-robin on fleet-wide ``prefix_hit_blocks`` and
@@ -1617,7 +1832,8 @@ def run_replicas(cfg, writer, mesh=None) -> list:
     ``mesh`` is the run's dp-1 rank mesh (:func:`fleet_plan`).  Before
     the first spawn on the card the parent builds the kernels, so the
     children only load them.  On the card every child that served must
-    have launched the paged kernel, or the Record fails.
+    have launched the paged kernel, and no prefill-role child may have,
+    or the Record fails.
     """
     import tempfile
 
@@ -1626,11 +1842,16 @@ def run_replicas(cfg, writer, mesh=None) -> list:
     from tpu_patterns_torch.serve.engine import (
         _oracle_expected,
         _serve_commands,
+        disagg_split,
         model_config,
     )
 
     plan = fleet_plan(cfg, mesh, writer)
     n, reserve = int(cfg.replicas), int(cfg.elastic_reserve)
+    roles = None
+    if cfg.disagg:
+        n_pre, n_dec = disagg_split(cfg)
+        roles = disagg_roles(n_pre, n_dec)
     timed, spec, dev = plan.timed, plan.spec, plan.device
     child_sp, tp, per = plan.child_sp, plan.tp, plan.per
     mcfg = model_config(cfg)
@@ -1645,7 +1866,8 @@ def run_replicas(cfg, writer, mesh=None) -> list:
     )
 
     def fleet(n_replicas: int, policy: str, tag: str, primary: bool = False,
-              elastic: ElasticConfig | None = None) -> FleetResult:
+              elastic: ElasticConfig | None = None,
+              roles: dict[str, str] | None = None) -> FleetResult:
         # the PRIMARY leg's per-replica obs dirs live under the run's obs
         # dir, where `obs fleet` / `obs journey` merge them with the
         # parent's own dumps; the other legs keep theirs under the work
@@ -1654,7 +1876,7 @@ def run_replicas(cfg, writer, mesh=None) -> list:
             plan, cfg, n_replicas, policy, os.path.join(work_root, tag),
             obs.run_dir() if primary
             else os.path.join(work_root, tag, "obs"),
-            elastic=elastic,
+            elastic=elastic, roles=roles,
         )
         writer.progress(
             f"fleet[{tag}]: spawning {n_replicas} replica(s) x {per} "
@@ -1700,19 +1922,30 @@ def run_replicas(cfg, writer, mesh=None) -> list:
         bad = [r.rid for r in reqs if res.done[r.rid] != want[r.rid]]
         return (0.0 if bad else 1.0), bad
 
-    def launch_notes(rec, *results) -> None:
+    def launch_notes(rec, *results, roles=None) -> None:
         """On the card every child that served must have launched the
-        paged kernel: a replica whose count stayed 0 fails the Record."""
+        paged kernel, and a prefill-role child (``roles``, one dict a
+        result) never: either breach fails the Record."""
         if dev.type != "cuda" or cfg.paged_attn != "kernel":
             return
-        for r in results:
-            idle = [k for k, v in r.paged_block_launches().items()
-                    if v <= 0 and r.replica_stats[k].get("done", 0)]
+        for r, role_of in zip(results, roles or [{}] * len(results)):
+            by = r.paged_block_launches()
+            idle = [k for k, v in by.items()
+                    if v <= 0 and role_of.get(k) != "prefill"
+                    and r.replica_stats[k].get("done", 0)]
             if idle:
                 rec.verdict = Verdict.FAILURE
                 rec.notes.append(
                     f"replica(s) {idle} served without a paged kernel "
                     "launch on the card"
+                )
+            busy = [k for k, v in by.items()
+                    if v > 0 and role_of.get(k) == "prefill"]
+            if busy:
+                rec.verdict = Verdict.FAILURE
+                rec.notes.append(
+                    f"prefill replica(s) {busy} launched the paged kernel: "
+                    "a prefill-only pool never decodes"
                 )
         rec.config["paged_block_launches"] = [
             r.paged_block_launches() for r in results
@@ -1721,6 +1954,103 @@ def run_replicas(cfg, writer, mesh=None) -> list:
     def missing(r: FleetResult) -> list[int]:
         return sorted(set(r.requests_by_rid) - set(r.done)
                       - set(r.failed) - set(r.shed))
+
+    if roles is not None:
+        # -- the disagg Record (the P:D split against unified) ----------
+        # The same devices, schedule and slice a replica: a fleet split
+        # into P prefill and D decode replicas against a unified fleet of
+        # N.  Gates: both legs covered, exact and leak-free, at least one
+        # handoff, and (with min_ttft_improvement > 0) the split fleet's
+        # front-door TTFT p99 at least that factor better
+        res_d = fleet(n, cfg.replica_policy, "disagg", primary=True,
+                      roles=roles)
+        res_u = fleet(n, cfg.replica_policy, "unified")
+        # one dense decode of the schedule serves both legs
+        oracle([r for _, r in timed])
+        exact_d, bad_d = exactness(res_d)
+        exact_u, bad_u = exactness(res_u)
+        p99_d, p99_u = _ttft_p99(res_d), _ttft_p99(res_u)
+        improvement = p99_u / p99_d if p99_d > 0 else 0.0
+        counts_d, counts_u = res_d.counts(), res_u.counts()
+        transfers = res_d.handoffs()
+        ok = (
+            res_d.covered() and res_u.covered()
+            and exact_d == 1.0 and exact_u == 1.0
+            and res_d.leaked_blocks() == 0 and res_u.leaked_blocks() == 0
+            and transfers >= 1
+        )
+        if cfg.min_ttft_improvement > 0:
+            ok = ok and improvement >= cfg.min_ttft_improvement
+        rec = Record(
+            pattern="serve",
+            mode=(f"disagg_{spec.name if spec else 'trace'}_"
+                  f"p{n_pre}d{n_dec}_sp{child_sp}"),
+            commands=(f"{cfg.scenario or _serve_commands(cfg)} | "
+                      f"{n_pre} prefill + {n_dec} decode x "
+                      f"sp{child_sp}tp{tp} vs {n} unified"),
+            metrics={
+                "requests": float(len(timed)),
+                "ttft_p99_ms_disagg": round(p99_d, 3),
+                "ttft_p99_ms_unified": round(p99_u, 3),
+                "ttft_improvement": round(improvement, 4),
+                "transfers": float(transfers),
+                "adopts": float(res_d.adopts()),
+                "adopted_blocks": float(res_d.adopted_blocks()),
+                "transfer_bytes": float(res_d.transfer_bytes()),
+                "recomputes": float(res_d.disagg_recomputes()),
+                "done_disagg": float(counts_d["done_total"]),
+                "done_unified": float(counts_u["done_total"]),
+                "failed": float(counts_d["failed_total"]
+                                + counts_u["failed_total"]),
+                "rerouted": float(counts_d["rerouted"]),
+                "exact": float(exact_d == 1.0 and exact_u == 1.0),
+                "covered": float(res_d.covered() and res_u.covered()),
+                "leaked_blocks": float(res_d.leaked_blocks()
+                                       + res_u.leaked_blocks()),
+            },
+            verdict=Verdict.SUCCESS if ok else Verdict.FAILURE,
+            config={"device": str(dev)},
+        )
+        if transfers < 1:
+            rec.notes.append(
+                "no request crossed the prefill->decode wire — the split "
+                "fleet never exercised the handoff path and the A/B is "
+                "vacuous"
+            )
+        if 0 < improvement < cfg.min_ttft_improvement:
+            rec.notes.append(
+                f"TTFT p99 improvement {improvement:.3f}x < gate "
+                f"{cfg.min_ttft_improvement:g}x ({p99_d:.1f}ms disagg vs "
+                f"{p99_u:.1f}ms unified) — dedicating {n_pre} replica(s) "
+                "to prefill did not pay on this schedule"
+            )
+        if cfg.min_ttft_improvement <= 0:
+            rec.notes.append(
+                "TTFT gate off (min_ttft_improvement 0): ttft_improvement "
+                "is reported, not gated"
+            )
+        for tag, bad in (("disagg", bad_d), ("unified", bad_u)):
+            if bad:
+                rec.notes.append(
+                    f"exactness FAILED on the {tag} leg for request(s) "
+                    f"{bad[:8]}: ids diverged from dense decode (adopted "
+                    "completions gate here too)"
+                )
+        for tag, r in (("disagg", res_d), ("unified", res_u)):
+            if not r.covered():
+                rec.notes.append(
+                    f"coverage identity broken on the {tag} leg: "
+                    f"request(s) {missing(r)[:8]} unaccounted"
+                )
+        if res_d.disagg_recomputes():
+            rec.notes.append(
+                f"{res_d.disagg_recomputes()} handoff(s) degraded to a "
+                "re-prefill (transfer or adopt fault) — bounded "
+                "recompute, completions still exact"
+            )
+        launch_notes(rec, res_d, res_u, roles=[roles, {}])
+        writer.record(rec)
+        return [rec]
 
     if spec is not None and reserve:
         # -- the elastic Record (diurnal-ramp A/B: elastic vs static) ---

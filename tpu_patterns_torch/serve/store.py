@@ -77,7 +77,7 @@ def block_fingerprint(path) -> str:
     ).hexdigest()
 
 
-def _to_numpy(t: torch.Tensor, dt: torch.dtype) -> np.ndarray:
+def leaf_to_numpy(t: torch.Tensor, dt: torch.dtype) -> np.ndarray:
     """A leaf's C-order host array for the npz member: its own numpy
     dtype, or for bfloat16 (which numpy lacks) the raw two-byte void
     array the JAX package's ``np.savez`` of a bfloat16 array writes."""
@@ -87,7 +87,7 @@ def _to_numpy(t: torch.Tensor, dt: torch.dtype) -> np.ndarray:
     return t.numpy()
 
 
-def _from_numpy(arr: np.ndarray, dt: torch.dtype) -> torch.Tensor:
+def leaf_from_numpy(arr: np.ndarray, dt: torch.dtype) -> torch.Tensor:
     """An npz member back as a CPU tensor of the meta's dtype (a
     bfloat16 leaf is read back from its raw bytes)."""
     arr = np.ascontiguousarray(arr)
@@ -221,7 +221,7 @@ class PrefixStore:
                     f"store block leaf {name}: shape {tuple(arr.shape)}"
                     f" != declared {shape}"
                 )
-            payload[name] = _to_numpy(arr, dt)
+            payload[name] = leaf_to_numpy(arr, dt)
         meta = {
             "format": STORE_FORMAT,
             "fingerprint": self.fingerprint,
@@ -330,7 +330,7 @@ class PrefixStore:
                 f"entry under {self.root}) — refusing the block"
             )
         return {
-            name: _from_numpy(arr, self.leaf_meta[name][1])
+            name: leaf_from_numpy(arr, self.leaf_meta[name][1])
             for name, arr in data.items()
         }
 
