@@ -30,7 +30,8 @@ the GPipe and 1F1B pipelines, top-1 MoE dispatch and the ZeRO step over
 rank meshes on the one card; no kernel on their path), the model train
 step across ranks, ``decode`` and ``lm`` across ranks (no kernel on
 their path), the sharded serve path, the replica fleet and its
-disaggregated prefill/decode split.
+disaggregated prefill/decode split, and the sweep engine that runs the
+suites' cells (``sweep``, ``report``).
 Phases, each one or more printed lines:
 
 1. device and toolchain: torch/CUDA versions, ``nvcc --version``, and the
@@ -473,7 +474,8 @@ Phases, each one or more printed lines:
     rank's (moe: of (1,1,2)'s), the greedy ids at (2,2,2) equal to one
     rank's, and the sampled ids (T 0.8, top_k 0 and 40) equal across
     two runs at one seed; (d) ``python -m tpu_patterns_torch decode
-    --devices 4 --tp 2`` and ``lm --devices 8 --dp 2 --tp 2`` in
+    --devices 4 --tp 2 --depth 2 --gen 32`` (``DLM_CLI_CUT``) and ``lm
+    --devices 8 --dp 2 --tp 2`` in
     processes of their own on the package under test, beside (b) and
     (c), exit 0 and a SUCCESS marker; K1-K4 launched 0 times in the
     phase; its wall time;
@@ -498,7 +500,7 @@ Phases, each one or more printed lines:
     but for int8); in float32 with TF32 off ``run_serve`` with the prefix
     and spec Records at (1,2,2), at (1,4,1), the kv tier Record at
     (1,2,1) (phase 16's 32 requests), a preempt/resume pair at (1,2,1)
-    and ``run_loadgen`` ``chat:requests=16`` at (1,2,2): every Record
+    and ``run_loadgen`` ``chat:requests=8`` (``SM_LOADGEN``) at (1,2,2): every Record
     SUCCESS (the preempted one WARNING) with exact ids, its mode the
     mesh's sp, K1 launched depth x ranks x the decoder's calls; (c) the
     combine gate: the sound combine at sp 2 and 4 within
@@ -545,7 +547,29 @@ Phases, each one or more printed lines:
     (a) and (b) K1 launched in every decode child and every unified
     child and in no prefill child, printed by replica and role; the
     phase's wall time;
-26. the card's name and power limit again, the ``kernels`` line (the
+26. the sweep engine (``sweep``; alone with ``--tree . sweep``), each
+    cell a ``python -m tpu_patterns_torch`` child of a sweep parent that
+    is itself a process of its own: (a) ``sweep all --quick --jobs 2``
+    over ``SWEEP_CELLS`` (the one-sided put K8, interop K10, the pallas
+    ``dma_overlap`` "C C" cell K7 and ``serve.pallas_attn`` K1): every
+    cell ``device_exclusive`` and completed in the state file, each
+    Record's verdict the one its own gates give (the put's data checks,
+    SUCCESS iff its rate is plausible for device memory; interop's
+    Records SUCCESS; the concurrency cell SUCCESS iff its speedup
+    reaches theoretical / 1.3; serve's ids exact), the exit code 1 iff
+    a verdict is FAILURE, and the engine Record banked with no CUDA
+    context in the parent (``parent_cuda_context`` 0); (b) the same call
+    with ``--resume`` runs no cell; (c) ``SWEEP_CRASH`` (a crash at the
+    ``cell.run`` site of one cell, a shared fault-state dir): the cell
+    completes on attempt 2, one ``cell.run`` retry counted; (d)
+    ``report`` over leg a's logs and JSONL names every Record, and
+    ``sweep summarize`` has one row a Record; (e) ``SWEEP_PROFILED``,
+    the quick flagship cell (K3/K4 in float32) and ``serve.pallas_attn``
+    (K1), rerun as profiled twins (``--enable_profiling --profile_dir``
+    ahead of their argv) through ``exec.run_cells``: each child's own
+    ``profile_breakdown`` Record names its kernels among its device ops,
+    and their counts are ``sweep_launches``; the phase's wall time;
+27. the card's name and power limit again, the ``kernels`` line (the
     flash rows also carry ``train_loop_launches``, phase 8b's counts,
     K1's row ``loadgen_launches``, phase 14's by scenario,
     ``kv_tier_launches``, phase 16's by leg, ``recovery_launches``,
@@ -556,8 +580,9 @@ Phases, each one or more printed lines:
     phase 21's by mesh, and K1-K4 ``decode_lm_mesh_launches``, phase
     22's, and K1's ``serve_mesh_launches``, phase 23's by leg, with its
     stripe checks and its times by rank, ``fleet_launches``, phase
-    24's by leg and replica, and ``disagg_launches``, phase 25's by
-    leg, replica and role),
+    24's by leg and replica, ``disagg_launches``, phase 25's by
+    leg, replica and role, and ``sweep_launches``, phase 26's by cell,
+    null on the rows its profiled cells do not reach),
     then the device line, which is the last.
 """
 
@@ -6156,6 +6181,9 @@ def phase_model_mesh(torch, F):
 # card, so a mesh leg's host time grows with its ranks: at depth 4 and
 # gen 128 (2,2,2) alone took 47.5 s)
 DLM_CUT = dict(depth=2, gen=32, reps=2)
+# leg d's decode process at DLM_CUT's depth and gen (cut for phase 26's
+# room; DecodeConfig's depth 4 and gen 128 before)
+DLM_CLI_CUT = ("--depth", "2", "--gen", "32")
 DLM_MESHES = (
     ("111", (1, 1, 1), dict(reps=2)),
     ("141", (1, 4, 1), DLM_CUT),
@@ -6532,7 +6560,7 @@ def dlm_cli_start():
     path = os.environ.get("PYTHONPATH")
     env = {**os.environ, "PYTHONPATH": (tree + os.pathsep + path if path
                                         else tree)}
-    runs = [["decode", "--devices", "4", "--tp", "2"],
+    runs = [["decode", "--devices", "4", "--tp", "2", *DLM_CLI_CUT],
             ["lm", "--devices", "8", "--dp", "2", "--tp", "2"]]
     return tree, time.perf_counter(), [
         (argv, subprocess.Popen([sys.executable, "-m", "tpu_patterns_torch",
@@ -6629,7 +6657,9 @@ SM_F32 = dict(FULL_WIDTH, dtype="float32", **SM_CUT)
 SM_TOL = {"f32": 2e-5, "bf16": 1e-4, "int8": 1e-4}
 SM_COMBINE_TOL = {"f32": 1e-5, "bf16": 2.0**-7, "int8": 2.0**-7}
 SM_SPS = (2, 4)
-SM_LOADGEN = "chat:requests=16"
+# the loadgen leg's trace: chat at 8 requests (16 before phase 26's room
+# was cut from it)
+SM_LOADGEN = "chat:requests=8"
 
 
 def _mesh_note(mesh):
@@ -7327,6 +7357,260 @@ def phase_disagg(torch):
     return launches
 
 
+# phase 26: leg a's cells, one a kernel family the sweep reaches (K8,
+# K10, K7, K1), in the quick tier of `sweep all`
+SWEEP_CELLS = ("measured.onesided_hbm", "measured.interop",
+               "measured.concurrency.pallas.dma_overlap.C_C",
+               "serve.pallas_attn")
+# leg c: leg a's call crashes this cell at the cell.run site on its first
+# attempt (a shared fault-state dir holds the ordinal across processes)
+SWEEP_CRASH_CELL = "measured.onesided_hbm"
+SWEEP_CRASH = f"cell.run:crash:cell={SWEEP_CRASH_CELL}"
+# leg e's profiled twins (quick tier) -> the kernels (substrings of their
+# device ops' names: a trace names a kernel by its demangled signature)
+# each must name: the flagship step's K3 and K4 in float32, and the
+# serve cell's K1
+SWEEP_PROFILED = {
+    "measured.flagship_pallas": ("flash_fwd_f32_kernel",
+                                 "flash_bwd_dq_f32_kernel",
+                                 "flash_bwd_dkv_f32_kernel"),
+    "serve.pallas_attn": ("paged_attention_split_kernel",),
+}
+# kernel-table row -> its kernel's names in a trace (the rows leg e's
+# twins reach; sweep_launches counts these)
+SWEEP_OPS = {
+    "paged_attention": ("paged_attention_split_kernel",),
+    "flash_block": ("flash_fwd_f32_kernel", "flash_fwd_wgmma_kernel"),
+    "flash_block_bwd_dq": ("flash_bwd_dq_f32_kernel",
+                           "flash_bwd_wgmma_dq_kernel"),
+    "flash_block_bwd_dkv": ("flash_bwd_dkv_f32_kernel",
+                            "flash_bwd_wgmma_dkv_kernel"),
+}
+
+
+def _sweep_cli(tree, argv, env, timeout=600):
+    """``python -m tpu_patterns_torch ARGV`` on TREE's package in a
+    process group of its own (the sweep parent): rc, stdout+stderr,
+    seconds."""
+    from tpu_patterns_torch.exec.proc import run_command
+
+    path = env.get("PYTHONPATH")
+    env = {**env, "PYTHONPATH": tree + os.pathsep + path if path else tree}
+    t0 = time.perf_counter()
+    out, rc, timed_out = run_command(
+        [sys.executable, "-m", "tpu_patterns_torch", *argv], env=env,
+        timeout=timeout, cwd=tree)
+    if timed_out:
+        raise AssertionError(f"sweep {argv}: timed out:\n{out[-2000:]}")
+    return rc, out, time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def _only_env(env):
+    """``os.environ`` replaced by ``env`` while inside (an in-process
+    sweep reads its cells' signatures from it), restored after."""
+    old = dict(os.environ)
+    os.environ.clear()
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        os.environ.clear()
+        os.environ.update(old)
+
+
+def _cell_records(d, cell):
+    path = os.path.join(d, cell + ".jsonl")
+    return ([json.loads(ln) for ln in open(path) if ln.strip()]
+            if os.path.exists(path) else [])
+
+
+def _sweep_verdicts(d, bad) -> dict:
+    """Leg a's Records against the gates that set their verdicts (the
+    JAX package's designs): the put's data must check and its verdict is
+    SUCCESS iff its rate is plausible for device memory; interop's
+    Records all SUCCESS; the concurrency cell SUCCESS iff its speedup
+    reaches theoretical / 1.3; every serve Record's ids exact."""
+    out = {}
+    for cell in SWEEP_CELLS:
+        recs = _cell_records(d, cell)
+        out[cell] = [(r["mode"], r["verdict"]) for r in recs]
+        if not recs:
+            bad.append(f"{cell}: no Record")
+        for r in recs:
+            m, v = r["metrics"], r["verdict"]
+            if cell == "measured.onesided_hbm":
+                want = ("SUCCESS" if m["checksum_ok"] == 1.0
+                        and m.get("hbm_plausible", 1.0) == 1.0
+                        else "FAILURE")
+                if m["checksum_ok"] != 1.0 or v != want:
+                    bad.append(f"{cell}: {v} checksum {m['checksum_ok']} "
+                               f"plausible {m.get('hbm_plausible')}")
+            elif cell == "measured.interop":
+                if v != "SUCCESS":
+                    bad.append(f"{cell}: {r['mode']} {v} {r['notes']}")
+            elif cell.startswith("measured.concurrency"):
+                ok = m["speedup"] >= m["theoretical_speedup"] / 1.3
+                if v != ("SUCCESS" if ok else "FAILURE"):
+                    bad.append(f"{cell}: {v} at speedup {m['speedup']}")
+            elif "exact" in m and m["exact"] != 1.0:
+                bad.append(f"{cell}: {r['mode']} ids not exact")
+    return out
+
+
+def phase_sweep(torch, tree=ROOT):
+    """Phase 26 (module docstring).  Returns the profiled twins' kernel
+    launches by kernel row and cell; raises if any leg fails."""
+    import tempfile
+
+    from tpu_patterns_torch import cli
+    from tpu_patterns_torch import exec as exec_mod
+    from tpu_patterns_torch import sweep
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()  # this process idles while the cells run
+    bad, ends = [], {}
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="sweep_", dir=os.path.join(ROOT, "build"))
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("TPU_PATTERNS_")}
+    env.update(TPU_PATTERNS_OBS_DIR=os.path.join(work, "obs"),
+               TPU_PATTERNS_FAULTS=SWEEP_CRASH,
+               TPU_PATTERNS_FAULTS_STATE=os.path.join(work, "fstate"))
+    names = [a for c in SWEEP_CELLS for a in ("--name", c)]
+
+    # (a) the cells through the engine (--jobs 2: device cells drain
+    # serially, and the engine Record is banked), (c) one of them
+    # crashed at cell.run on its first attempt
+    d = os.path.join(work, "a")
+    argv = ["sweep", "all", "--quick", "--jobs", "2", "--out", d, *names]
+    rc, out, secs = _sweep_cli(tree, argv, env)
+    state = sweep.load_sweep_state(d)
+    classes = dict(re.findall(r"^# sweep cell: (\S+) \[(\w+)\]", out, re.M))
+    verdicts = _sweep_verdicts(d, bad)
+    (eng,) = _cell_records(d, "sweep-engine")
+    failed = any(v == "FAILURE" for recs in verdicts.values()
+                 for _, v in recs)
+    emit({"phase": "sweep", "leg": "a_cells", "rc": rc, "seconds": secs,
+          "classes": classes, "verdicts": verdicts,
+          "completed": {c: state.get(c, {}).get("completed")
+                        for c in SWEEP_CELLS},
+          "engine": {"verdict": eng["verdict"], "commands": eng["commands"],
+                     **{k: eng["metrics"][k] for k in (
+                         "device_exclusive_cells", "host_parallel_cells",
+                         "parent_cuda_context", "cell_retries", "wall_s",
+                         "serial_estimate_s")}},
+          "card": _smi()})
+    if rc != (1 if failed else 0):
+        bad.append(f"sweep rc {rc} with verdicts {verdicts}:\n{out[-1500:]}")
+    if any(not state.get(c, {}).get("completed") for c in SWEEP_CELLS):
+        bad.append(f"cells not completed: {state}")
+    if (classes != {c: "device_exclusive" for c in SWEEP_CELLS}
+            or eng["metrics"]["device_exclusive_cells"] != len(SWEEP_CELLS)
+            or eng["mode"] != "engine"
+            or eng["metrics"]["parent_cuda_context"] != 0.0):
+        bad.append(f"classes {classes}, engine {eng['metrics']}")
+    ends["a_cells"] = time.perf_counter() - t_phase
+
+    # (c) the crash healed on attempt 2, one cell.run retry counted
+    retries = sum(
+        r["value"] for r in map(json.loads, open(os.path.join(
+            d, "sweep-metrics.jsonl")))
+        if r.get("metric") == "tpu_patterns_faults_retries_total"
+        and r.get("labels", {}).get("site") == "cell.run")
+    (fired,) = _cell_records(os.path.join(work, "obs"), "faults")
+    healed = re.findall(rf"^# -> {re.escape(SWEEP_CRASH_CELL)} exit .*$", out,
+                        re.M)
+    emit({"phase": "sweep", "leg": "c_crash", "spec": SWEEP_CRASH,
+          "cell_run_retries": retries, "engine_cell_retries":
+          eng["metrics"]["cell_retries"], "fired": [fired["mode"],
+                                                    fired["commands"]],
+          "attempts_line": healed})
+    if (retries != 1 or healed != [f"# -> {SWEEP_CRASH_CELL} exit 0 "
+                                   "(attempts=2)"]
+            or not state.get(SWEEP_CRASH_CELL, {}).get("completed")):
+        bad.append(f"crash not healed on attempt 2: {healed}, {retries}")
+
+    # (b) the same call with --resume runs no cell (a sweep parent that
+    # runs no cell: in this process, with the cells' environment)
+    before = open(os.path.join(d, "sweep-state.jsonl")).read()
+    t0, buf = time.perf_counter(), io.StringIO()
+    with _only_env(env), contextlib.redirect_stdout(buf):
+        rc_b = cli.main([*argv, "--resume"])
+    out_b = buf.getvalue()
+    skipped = re.findall(r"^# sweep cell: (\S+) \(resume: already", out_b,
+                         re.M)
+    emit({"phase": "sweep", "leg": "b_resume", "rc": rc_b,
+          "seconds": time.perf_counter() - t0, "skipped": skipped})
+    if (rc_b != rc or sorted(skipped) != sorted(SWEEP_CELLS)
+            or "# -> " in out_b
+            or open(os.path.join(d, "sweep-state.jsonl")).read() != before):
+        bad.append(f"resume ran a cell: rc {rc_b}\n{out_b[-1500:]}")
+    ends["b_resume"] = time.perf_counter() - t_phase
+
+    # (d) report over leg a's logs and JSONL, and sweep summarize
+    paths = sorted(os.path.join(d, f) for f in os.listdir(d)
+                   if f.split(".", 1)[0] in ("measured", "serve")
+                   and f.endswith((".log", ".jsonl")))
+    rc_d, report, _ = _cli_in_process(["report", *paths])
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc_s = cli.main(["sweep", "summarize", "--out", d])
+    summary = buf.getvalue()
+    rows = [ln for ln in summary.splitlines()
+            if ln.startswith("| ") and not ln.startswith("| cell ")]
+    recs_a = [r for c in SWEEP_CELLS for r in _cell_records(d, c)]
+    missing = [f"{r['mode']} | {r['commands']}" for r in recs_a
+               if r["mode"] not in report]
+    emit({"phase": "sweep", "leg": "d_report", "rc_report": rc_d,
+          "rc_summarize": rc_s, "summary_rows": len(rows),
+          "records": len(recs_a), "report_missing_modes": missing})
+    if rc_d or rc_s or len(rows) != len(recs_a) or missing:
+        bad.append(f"report/summarize: {len(rows)} rows for {len(recs_a)} "
+                   f"Records, missing {missing}\n{summary[-1500:]}")
+    ends["d_report"] = time.perf_counter() - t_phase
+
+    # (e) profiled twins through exec.run_cells: each child's own
+    # profile_breakdown Record names its kernels among its device ops
+    quick = {s.name: s for s in sweep.specs_for("all", quick=True)}
+    de = os.path.join(work, "e")
+    twins = [sweep.SweepSpec(
+        f"{c}.profiled",
+        ("--enable_profiling", "--profile_dir", os.path.join(de, "prof", c),
+         *quick[c].argv), quick[c].env) for c in SWEEP_PROFILED]
+    path = env.get("PYTHONPATH")
+    twin_env = {k: v for k, v in env.items()
+                if not k.startswith("TPU_PATTERNS_FAULTS")}
+    twin_env["PYTHONPATH"] = tree + os.pathsep + path if path else tree
+    results, _ = exec_mod.run_cells(
+        twins, de, jobs=1, suite="sweep_phase", cell_timeout=600,
+        base_env=twin_env, progress=lambda s: None)
+    launches = {}
+    for res, (cell, kernels) in zip(results, SWEEP_PROFILED.items()):
+        recs = _cell_records(de, res.spec.name)
+        ops = next((r["config"].get("device_ops", {}) for r in recs
+                    if r["mode"] == "profile_breakdown"), {})
+        named = {k: sum(n for op, n in ops.items() if k in op)
+                 for k in kernels}
+        launches[cell] = {row: sum(n for op, n in ops.items()
+                                   if any(k in op for k in found))
+                          for row, found in SWEEP_OPS.items()}
+        emit({"phase": "sweep", "leg": "e_profiled", "cell": cell,
+              "rc": res.rc, "class": res.cell_class.value,
+              "seconds": res.run_s,
+              "verdicts": [(r["mode"], r["verdict"]) for r in recs],
+              "kernel_ops": named, "device_ops": len(ops)})
+        if not res.completed or not all(named.values()):
+            bad.append(f"profiled {cell}: rc {res.rc}, kernels {named}")
+    ends["e_profiled"] = time.perf_counter() - t_phase
+    shutil.rmtree(work, ignore_errors=True)
+    emit({"phase": "sweep_phase", "seconds": time.perf_counter() - t_phase,
+          "leg_end_s": ends, "launches": launches, "card": _smi()})
+    if bad:
+        raise AssertionError("sweep: " + " | ".join(bad))
+    return launches
+
+
 def profile_concurrency_main() -> int:
     """``python3 chip_smoke.py --profile-concurrency``, which the smoke
     runs in a process of its own: the xla concurrent "C C" run, the
@@ -7401,7 +7685,7 @@ def profile_concurrency_main() -> int:
 # the timing phases ``--tree`` runs with another checkout's package
 TREE_PHASES = ("put_time", "ring_put_time", "accumulate_time",
                "allreduce", "add_one_time", "parallel", "model_mesh",
-               "decode_lm_mesh", "serve_mesh", "fleet", "disagg")
+               "decode_lm_mesh", "serve_mesh", "fleet", "disagg", "sweep")
 # phases ``--tree`` runs only when named: phases 14-19 on their own,
 # phase 16's leg e again and again (``kv_race``: its spread), phase 5's
 # bf16 serve leg (a tree's serve tokens/s and ids against another's),
@@ -7483,6 +7767,7 @@ def tree_main(tree: str, phases: list[str]) -> int:
            "serve_mesh": lambda: phase_serve_mesh(torch, pk, timing, spec),
            "fleet": lambda: phase_fleet(torch),
            "disagg": lambda: phase_disagg(torch),
+           "sweep": lambda: phase_sweep(torch, os.path.abspath(tree)),
            "flash_f32_time": lambda: phase_flash_f32_time(
                torch, F, timing, spec, libs),
            "k1_time": lambda: k1_times(torch, pk, timing, spec, slice_case(
@@ -7778,6 +8063,8 @@ def main() -> int:
     mark("fleet")
     disagg_launches = phase_disagg(torch)
     mark("disagg")
+    sweep_launches = phase_sweep(torch)
+    mark("sweep")
 
     rows = {**ftime, **ptime, "paged_attention": {
         "ms": ktime["kernel"]["ms"], "bound_ms": ktime["bound_ms"],
@@ -7927,6 +8214,13 @@ def main() -> int:
         "library_device_ms": k10_time["library_device_ms"],
         "host_us_per_call": k10_time["host_us_per_call"],
     })
+    # launches in phase 26's profiled sweep cells, counted from each
+    # child's own trace by the kernel's device-op names (rows its cells
+    # do not reach: null)
+    for k in kernels:
+        k["sweep_launches"] = (
+            {cell: got[k["name"]] for cell, got in sweep_launches.items()}
+            if k["name"] in SWEEP_OPS else None)
     # the card's name and power limit again, beside the numbers, where a
     # tail of the output still holds them
     emit(_run(["nvidia-smi", "--query-gpu=name,power.limit",

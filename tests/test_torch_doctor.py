@@ -3,9 +3,9 @@ the JAX package's (``tpu_patterns/core/doctor.py``): with the probes
 stubbed identically, the same Record mode, checks and verdict; the same
 episode log over the same polls; a hung probe killed within its
 deadline; a box with no card reported down, never probed on the CPU in
-its place; and ``--workers`` refused."""
+its place; and ``--workers``' warm-worker probe, refused (skipped) when
+a device layer is broken, run for real on the CPU the tests name."""
 
-import contextlib
 import io
 import json
 
@@ -13,7 +13,6 @@ import pytest
 
 from tpu_patterns.core import doctor as ref_doctor
 from tpu_patterns.core import results as ref_results
-from tpu_patterns_torch import cli
 from tpu_patterns_torch.core import doctor
 from tpu_patterns_torch.core import results
 
@@ -195,12 +194,51 @@ def test_cpu_probes_run_for_real(tmp_path):
     assert out["ok"] and out["compile_s"] >= 0 and out["warm_3x_ms"] >= 0
 
 
-def test_workers_are_refused(capsys):
-    with pytest.raises(ValueError, match="Queue 1 step 10"):
-        doctor.run_doctor(doctor.DoctorConfig(workers=True, device="cpu"),
-                          results.ResultWriter(stream=io.StringIO()))
-    with pytest.raises(SystemExit), contextlib.redirect_stderr(io.StringIO()):
-        cli.main(["doctor", "--workers", "true", "--device", "cpu"])
+def test_workers_are_refused(monkeypatch, tmp_path):
+    """The warm-worker probe is refused (skipped, named in the notes)
+    when a device layer is broken, as the reference's is, and no worker
+    is spawned."""
+    from tpu_patterns import obs as ref_obs
+    from tpu_patterns_torch import obs
+    from tpu_patterns_torch.exec import workers
+
+    monkeypatch.setattr(workers, "WarmWorker", None)  # never spawned
+    answers = SCENARIOS["backend_hang"]
+    got, _, got_out = _run(
+        doctor, results, obs,
+        doctor.DoctorConfig(workers=True, device="cpu"), answers,
+        monkeypatch, tmp_path / "p")
+    want, _, want_out = _run(
+        ref_doctor, ref_results, ref_obs,
+        ref_doctor.DoctorConfig(workers=True), answers, monkeypatch,
+        tmp_path / "r")
+    assert got.metrics == want.metrics
+    assert got.notes == want.notes
+    assert "warm_worker: skipped: backend_init failed" in got.notes
+    assert got_out == want_out
+
+
+def test_workers_probe_a_warm_worker(monkeypatch, tmp_path):
+    """With healthy layers the probe spawns the sweep engine's warm
+    worker on the probed device (the CPU here), times its ready
+    handshake and a ping, and kills it: the reference's keys."""
+    from tpu_patterns import obs as ref_obs
+    from tpu_patterns_torch import obs
+
+    monkeypatch.setenv("JAX_PLATFORMS", "cpu")
+    got, _, out = _run(
+        doctor, results, obs,
+        doctor.DoctorConfig(workers=True, device="cpu"), HEALTHY,
+        monkeypatch, tmp_path / "p")
+    want, _, _ = _run(
+        ref_doctor, ref_results, ref_obs,
+        ref_doctor.DoctorConfig(workers=True), HEALTHY, monkeypatch,
+        tmp_path / "r")
+    assert got.verdict.value == want.verdict.value == "SUCCESS"
+    assert set(got.metrics) == set(want.metrics)
+    assert got.metrics["warm_worker_ok"] == 1.0
+    assert got.metrics["warm_worker_spawn_s"] > 0
+    assert "# doctor warm_worker: ok [spawn_s=" in out
 
 
 def test_recent_hang_dumps_warn_and_stale_ones_do_not(monkeypatch,

@@ -11,8 +11,9 @@ event and ``faults.jsonl`` line.  The port knows only the sites it has
 decode-step, kv-tier and preemption sites, ``error`` included at
 ``serve.prefill``, ``serve.step`` and ``serve.verify``, the replica
 fleet's, the prefix store's and the disaggregated handoff's): a spec
-naming any other site (the sweep's, the warm workers') is refused at
-parse time, where the JAX package takes it."""
+naming any other site is refused at parse time.  Since the sweep and
+its warm workers were ported, the port knows every site of the JAX
+package (``cell.run``, ``worker.ready`` included)."""
 
 import dataclasses
 
@@ -35,10 +36,12 @@ FLEET_SITES = {"router.route", "replica.spawn", "replica.drain",
                "replica.obs_ship", "fleet.scale_out", "fleet.scale_in",
                "store.publish", "store.fetch", "store.prewarm",
                "disagg.transfer", "disagg.adopt"}
+# the sweep's and its warm workers'
+SWEEP_SITES = {"cell.run", "worker.ready"}
 PORT_SITES = {"train.step", "ckpt.save", "ckpt.restore", "loadgen.arrive",
               "obs.cost_book", "obs.scrape", "serve.evict", "serve.onload",
               "serve.preempt", "serve.shed", "serve.prefill", "serve.step",
-              "serve.verify"} | FLEET_SITES
+              "serve.verify"} | FLEET_SITES | SWEEP_SITES
 
 SPECS = [
     "train.step:nan",
@@ -101,23 +104,27 @@ def test_malformed_specs_raise_in_both(text):
         " (want")[0]
 
 
-@pytest.mark.parametrize("site", sorted(jf.KNOWN_SITES - PORT_SITES))
+@pytest.mark.parametrize("site", sorted(jf.KNOWN_SITES))
 def test_unported_sites_are_refused(site):
-    assert jf.parse_spec(f"{site}:error")
-    with pytest.raises(ValueError, match="unknown site"):
-        tf.parse_spec(f"{site}:error")
+    """No site of the JAX package is left unported: each parses in both,
+    and a near miss of it is refused by both."""
+    assert not jf.KNOWN_SITES - PORT_SITES
+    assert tf.parse_spec(f"{site}:error") == [
+        tf.FaultSpec(**dataclasses.asdict(s))
+        for s in jf.parse_spec(f"{site}:error")]
+    for pkg in (jf, tf):
+        with pytest.raises(ValueError, match="unknown site"):
+            pkg.parse_spec(f"{site}s:error")
 
 
 def test_disagg_sites_are_refused_naming_step_9b():
     """Refused, naming their step, until the disaggregated handoff was
     ported; now each parses, with its match keys, as the reference's,
-    and a refusal names only step 10's sites."""
-    for site in ("disagg.transfer", "disagg.adopt"):
+    and so does step 10's ``cell.run`` since the sweep was ported."""
+    for site in ("disagg.transfer", "disagg.adopt", "cell.run"):
         text = f"{site}:error:count=2:rid=3:replica=0:blocks=4"
         got = [dataclasses.asdict(s) for s in tf.parse_spec(text)]
         assert got == [dataclasses.asdict(s) for s in jf.parse_spec(text)]
-    with pytest.raises(ValueError, match="step 10"):
-        tf.parse_spec("cell.run:error")
 
 
 @pytest.mark.parametrize("site", sorted(FLEET_SITES))
@@ -321,3 +328,51 @@ def test_retry_and_quarantine_counters_match(errors, attempts):
                       for n, b in zip(names, before)])
     assert moved[0] == moved[1]
     assert sum(moved[1]) >= 1
+
+
+def _cell_firings(pkg, spec, calls):
+    """Which of ``calls`` ((cmd, cell) pairs at cell.run) fire."""
+    pkg.configure(None)
+    pkg.configure(spec)
+    fired = []
+    for cmd, cell in calls:
+        try:
+            fired.append(pkg.inject("cell.run", cmd=cmd, cell=cell)
+                         is not None)
+        except pkg.InjectedFault:
+            fired.append(True)
+    return fired
+
+
+@pytest.mark.parametrize("spec", [
+    "cell.run:error:cell=a",
+    "cell.run:error:cmd=serve:count=2",
+    "cell.run:error:after=1:count=2",
+    "cell.run:error:cell=b:cmd=p2p",
+])
+def test_cell_site_matches_as_the_reference(spec):
+    calls = [("serve", "a"), ("p2p", "b"), ("serve", "b"), ("p2p", "a"),
+             ("serve", "")]
+    assert _cell_firings(tf, spec, calls) == _cell_firings(jf, spec, calls)
+
+
+@pytest.mark.parametrize("outcomes,attempts", [
+    ([(0, True)], 2),  # passes at once
+    ([(1, True)], 2),  # a completed FAILURE: never retried
+    ([(41, False), (0, True)], 2),  # a crash healed on attempt 2
+    ([(41, False), (41, False)], 3),  # the same rc twice: quarantined
+    ([(41, False), (9, False), (0, True)], 3),  # a changing rc: retried
+    ([(41, False), (9, False)], 2),  # budget spent
+])
+def test_run_cell_attempts_matches(outcomes, attempts):
+    """The sweep's cell loop gives the reference's (rc, completed,
+    attempts, quarantined) and progress lines."""
+    def run(pkg):
+        it, said = iter(outcomes), []
+        out = pkg.run_cell_attempts(
+            lambda attempt: next(it),
+            policy=pkg.RetryPolicy(max_attempts=attempts, seed=3),
+            cell="c", sleep=lambda s: None, progress=said.append)
+        return out, said
+
+    assert run(tf) == run(jf)

@@ -78,7 +78,8 @@ def test_import_pulls_no_jax():
         "import tpu_patterns_torch.serve.replica\n"
         "import tpu_patterns_torch.serve.router, tpu_patterns_torch.serve.store\n"
         "import tpu_patterns_torch.serve.elastic, tpu_patterns_torch.obs.fleet\n"
-        "import tpu_patterns_torch.exec.proc\n"
+        "import tpu_patterns_torch.exec.proc, tpu_patterns_torch.exec\n"
+        "import tpu_patterns_torch.sweep, tpu_patterns_torch.exec.worker\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'tpu_patterns', 'tabulate')]\n"
         "assert not bad, bad\n"
@@ -247,7 +248,7 @@ def test_diagnostics_refusals():
                   "--device", "cpu", "--no-history"],
                  ["perf", "diff", "--include", "disagg.streams",
                   "--device", "cpu", "--no-history"],
-                 ["doctor", "--workers", "true", "--device", "cpu"],
+                 ["doctor", "--workers", "maybe", "--device", "cpu"],
                  ["perf", "report", "--devices", "4"],
                  ["perf", "report", "--tp", "2"]):
         with pytest.raises(SystemExit) as e, \

@@ -220,3 +220,25 @@ def test_lm_decoder_oracle(devices, cache_int8):
         )
         want = y[0, -1] @ jnp.asarray(flat["wemb"]).T
         _close(logits[0], want, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("batch", [1, 2])
+def test_flash_inputs_are_contiguous_at_every_batch(batch, monkeypatch):
+    """The folded q/k/v reach the flash kernels contiguous: at batch 1
+    the fold is a view of the projection's einsum output, which the card
+    refused (the quick ``measured.flagship_pallas_L8192`` sweep cell)."""
+    _, tcfg = _cfgs(attn="kernel", block_q=16, block_k=16)
+    seen = []
+    real = ttr.flash_attention_diff
+
+    def spy(q, k, v, *a, **kw):
+        seen.append([t.is_contiguous() for t in (q, k, v)])
+        return real(q, k, v, *a, **kw)
+
+    monkeypatch.setattr(ttr, "flash_attention_diff", spy)
+    p = ttr.init_params(torch.Generator().manual_seed(0), tcfg)
+    x = torch.randn(batch, 32, tcfg.embed, generator=torch.Generator()
+                    .manual_seed(1))
+    loss = ttr.loss_shard(p, x, tcfg)
+    assert torch.isfinite(loss)
+    assert seen == [[True, True, True]]

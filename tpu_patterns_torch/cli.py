@@ -56,6 +56,10 @@
         --chrome-trace trace.json --prom
     python -m tpu_patterns_torch obs watch http://127.0.0.1:9100
     python -m tpu_patterns_torch --obs-dir obs obs cost
+    python -m tpu_patterns_torch sweep measured --out results/measured
+    python -m tpu_patterns_torch sweep all --quick --jobs 0 --resume
+    python -m tpu_patterns_torch sweep summarize --out results/measured
+    python -m tpu_patterns_torch report results/measured/*.log
 
 One flag per field of the subcommand's config
 (:class:`~tpu_patterns_torch.serve.engine.ServeConfig`,
@@ -126,8 +130,8 @@ device time went (none, with a progress line, when the trace holds no
 device event).  ``profilecheck DIR`` snapshots a trace's device op
 names, gates the share of busy time the classifier books as ``other``
 and cross-checks a Record stream's ``tflops_hw``; ``doctor`` runs the
-deadline-bounded health probes (``core/doctor.py``; ``--workers`` is
-refused); ``perf report|diff|update-baseline|prune-stale`` captures the
+deadline-bounded health probes (``core/doctor.py``; ``--workers true``
+also spawns a warm worker, times its ready handshake and a ping); ``perf report|diff|update-baseline|prune-stale`` captures the
 executable registry (``perf/registry.py``), banks the snapshot and
 renders or gates it against ``perf/baseline.json``, exiting 1 on a new
 regression.  The global ``--obs-dir`` sets where dumps land and
@@ -135,6 +139,15 @@ regression.  The global ``--obs-dir`` sets where dumps land and
 serve or loadgen run) ``cost.jsonl`` there when the run ends; an
 uncaught exception or SIGTERM dumps the flight recorder to
 ``crash.jsonl``.
+``sweep SUITE`` runs a suite's cells (``sweep.py``, the JAX package's
+suites and cell names), each a ``python -m tpu_patterns_torch`` child in
+its own process group, with a resumable state file under ``--out``
+(``--resume``, ``--name``, ``--cell-timeout``, ``--jobs`` with the
+executor of ``exec/``, ``--no-warm-workers``); ``sweep promote`` and
+``sweep summarize`` fold or tabulate a finished run.  ``report PATH...``
+tabulates logs and JSONL of either package (≙ parse.py).
+A ``--device`` flag defaults to ``TPU_PATTERNS_DEVICE`` when set, as the
+config fields' ``device`` does.
 ``--devices N`` is the rank count (≙ ``mpirun -n N``, 0 = one rank per
 card): the ranks of a rank mesh (``comm/mesh.py``) are placed over the
 visible cards, several to a card when there are fewer cards.  A
@@ -186,6 +199,19 @@ _CHOICES = {
 }
 
 
+def _device_default() -> str:
+    """The default of a ``--device`` flag that no config field carries:
+    ``TPU_PATTERNS_DEVICE`` when set (the config tier's variable for
+    every ``device`` field), else ``cuda``."""
+    import os
+
+    dev = os.environ.get("TPU_PATTERNS_DEVICE", "cuda")
+    if dev not in _CHOICES["device"]:
+        raise ValueError(
+            f"TPU_PATTERNS_DEVICE={dev!r}: not one of {_CHOICES['device']}")
+    return dev
+
+
 def _add_config_flags(p: argparse.ArgumentParser, cls, skip=()) -> None:
     """One ``--<field>`` per dataclass field of ``cls`` not in ``skip``
     (default: ``TPU_PATTERNS_<FIELD>`` when set, else the field's)."""
@@ -227,7 +253,8 @@ def _add_mesh_args(p: argparse.ArgumentParser) -> None:
                    default="mesh",
                    help="ordering (mesh ≙ affinity mask) vs subset "
                    "(visible ≙ selector)")
-    p.add_argument("--device", choices=_CHOICES["device"], default="cuda")
+    p.add_argument("--device", choices=_CHOICES["device"],
+                   default=_device_default())
 
 
 def _mesh(args):
@@ -304,7 +331,8 @@ def build_parser() -> argparse.ArgumentParser:
     )
     _add_config_flags(tr, TrainLoopConfig)
     _add_model_mesh_flags(tr)
-    tr.add_argument("--device", choices=_CHOICES["device"], default="cuda")
+    tr.add_argument("--device", choices=_CHOICES["device"],
+                    default=_device_default())
     dc = sub.add_parser(
         "decode",
         help="autoregressive decode over a dense KV cache (the "
@@ -355,10 +383,12 @@ def build_parser() -> argparse.ArgumentParser:
     m.add_argument("--elements", type=int, default=0,
                    help="0 = app default")
     m.add_argument("--reps", type=int, default=3)
-    m.add_argument("--device", choices=_CHOICES["device"], default="cuda")
+    m.add_argument("--device", choices=_CHOICES["device"],
+                   default=_device_default())
     t = sub.add_parser("topo", help="fabric probe (≙ ./topology [N])")
     t.add_argument("n", nargs="?", type=int, default=None)
-    t.add_argument("--device", choices=_CHOICES["device"], default="cuda")
+    t.add_argument("--device", choices=_CHOICES["device"],
+                   default=_device_default())
     lc = sub.add_parser(
         "longctx", help="sequence-parallel attention (ring vs Ulysses) "
         "over a rank mesh, with the fused flash kernels")
@@ -373,7 +403,8 @@ def build_parser() -> argparse.ArgumentParser:
     _add_mesh_args(lc)
     _add_parallel_parsers(sub)
     i = sub.add_parser("interop", help="native C++ round-trip proofs")
-    i.add_argument("--device", choices=_CHOICES["device"], default="cuda",
+    i.add_argument("--device", choices=_CHOICES["device"],
+                   default=_device_default(),
                    help="device of the offload round trips (the native "
                    "ones run on CPU tensors)")
     _add_obs_flags(sub.add_parser(
@@ -412,7 +443,67 @@ def build_parser() -> argparse.ArgumentParser:
         help="Record stream holding a tflops_hw rate to cross-check "
         "against the breakdown's compute time",
     )
+    _add_sweep_flags(sub.add_parser(
+        "sweep", help="config-matrix sweeps (≙ run*.sh)"))
+    r = sub.add_parser("report", help="tabulate logs (≙ parse.py)")
+    r.add_argument("paths", nargs="+")
     return parser
+
+
+def _add_sweep_flags(s: argparse.ArgumentParser) -> None:
+    """The flags of ``tpu-patterns sweep``."""
+    from tpu_patterns_torch.sweep import DEFAULT_CELL_TIMEOUT, SUITES
+
+    s.add_argument(
+        "suite",
+        choices=(*SUITES, "all", "promote", "summarize"),
+        help="a sweep suite; 'promote' folds a finished tune run (--out "
+        "points at its directory) into the one-sided put's defaults "
+        "(comm/tuned.json); 'summarize' prints a markdown table of "
+        "whatever cells have records under --out",
+    )
+    s.add_argument("--out", default="results", help="log/JSONL directory")
+    s.add_argument(
+        "--gates-dir", default=None,
+        help="with 'promote': fold this finished `sweep gates` run into "
+        "the committed grad-gate width (longctx/gates_fit.json) instead "
+        "of promoting tune knobs",
+    )
+    s.add_argument(
+        "--flash-dir", default=None,
+        help="with 'promote': fold this measured run's flagship "
+        "block-shape win (a lever cell beating the base beyond noise, "
+        "converged timings both sides) into the flash defaults "
+        "(longctx/flash_tuned.json)",
+    )
+    s.add_argument("--quick", action="store_true", help="tiny workloads")
+    s.add_argument(
+        "--resume", action="store_true",
+        help="skip cells already completed in a previous (interrupted) run",
+    )
+    s.add_argument(
+        "--cell-timeout", type=float, default=DEFAULT_CELL_TIMEOUT,
+        help="per-cell subprocess deadline in seconds; <= 0 disables it "
+        "(a timed-out cell is not completed: --resume retries it)",
+    )
+    s.add_argument(
+        "--jobs", type=int, default=1,
+        help="concurrent engine width for host-parallel cells: 1 = the "
+        "serial engine (default), 0 = auto (one per core, capped), N = "
+        "N-wide; device-exclusive and env-isolated cells always drain "
+        "serially",
+    )
+    s.add_argument(
+        "--no-warm-workers", action="store_true",
+        help="run every cell as a fresh subprocess even under --jobs "
+        "(warm workers skip the interpreter start, torch's import and "
+        "the device warm-up a cell, for host-parallel cells)",
+    )
+    s.add_argument(
+        "--name", action="append", metavar="CELL",
+        help="run only the named cell(s); repeatable (unknown names "
+        "fail loudly, never silently drop coverage)",
+    )
 
 
 def _add_parallel_parsers(sub) -> None:
@@ -437,7 +528,8 @@ def _add_parallel_parsers(sub) -> None:
                     default="both")
     pl.add_argument("--devices", type=int, default=0,
                     help="ranks (0 = one per card)")
-    pl.add_argument("--device", choices=_CHOICES["device"], default="cuda")
+    pl.add_argument("--device", choices=_CHOICES["device"],
+                    default=_device_default())
     mo = sub.add_parser(
         "moe",
         help="expert-parallel dispatch benchmark (capacity regimes)")
@@ -447,7 +539,8 @@ def _add_parallel_parsers(sub) -> None:
                     "1.0")
     mo.add_argument("--devices", type=int, default=0,
                     help="ranks (0 = one per card)")
-    mo.add_argument("--device", choices=_CHOICES["device"], default="cuda")
+    mo.add_argument("--device", choices=_CHOICES["device"],
+                    default=_device_default())
 
 
 def _add_perf_flags(pf: argparse.ArgumentParser) -> None:
@@ -1025,7 +1118,8 @@ def _add_hier_flags(p: argparse.ArgumentParser) -> None:
     # no placement flags: the (dcn, ici) split is the placement
     p.add_argument("--devices", type=int, default=0,
                    help="ranks (0 = one per card)")
-    p.add_argument("--device", choices=_CHOICES["device"], default="cuda")
+    p.add_argument("--device", choices=_CHOICES["device"],
+                   default=_device_default())
 
 
 def _hier(args, writer: ResultWriter) -> None:
@@ -1298,7 +1392,7 @@ def _perf(args, writer: ResultWriter) -> None:
 
 
 def _doctor(args, parser, writer: ResultWriter) -> None:
-    """The health probes; ``--workers`` (not ported) is refused."""
+    """The health probes (``--workers true`` adds the warm worker's)."""
     from tpu_patterns_torch.core.doctor import DoctorConfig, run_doctor
 
     try:
@@ -1418,6 +1512,104 @@ def _profilecheck(args, writer: ResultWriter) -> None:
     writer.record(rec)
 
 
+def _sweep(args, writer: ResultWriter) -> int:
+    """``sweep``: run a suite, summarize a directory, or promote a run,
+    with the reference's refusals (``tpu_patterns/cli.py``)."""
+    from tpu_patterns_torch import sweep
+
+    if args.gates_dir and args.suite != "promote":
+        raise SystemExit("--gates-dir applies to 'sweep promote' only")
+    if args.flash_dir and args.suite != "promote":
+        raise SystemExit("--flash-dir applies to 'sweep promote' only")
+    if args.suite in ("promote", "summarize") and (
+        args.jobs != 1 or args.no_warm_workers or args.name
+    ):
+        # promote and summarize run no cells: engine flags are no-ops
+        raise SystemExit(
+            "--jobs/--no-warm-workers/--name do not apply to "
+            f"'sweep {args.suite}'"
+        )
+    if args.jobs < 0:
+        raise SystemExit("--jobs must be >= 0 (0 = auto, 1 = serial)")
+    if args.suite == "summarize":
+        if args.quick or args.resume:
+            raise SystemExit(
+                "--quick/--resume do not apply to 'sweep summarize'"
+            )
+        print(sweep.summarize_sweep(args.out))
+        return 0
+    if args.suite == "promote":
+        picked = [d for d in (args.gates_dir, args.flash_dir) if d]
+        if picked and args.out != "results":
+            raise SystemExit(
+                "pass EXACTLY ONE of --out (tune), --gates-dir (gate "
+                "width), or --flash-dir (flash blocks)"
+            )
+        if len(picked) > 1:
+            raise SystemExit(
+                "pass EXACTLY ONE of --gates-dir or --flash-dir"
+            )
+        if args.gates_dir:
+            fit = sweep.promote_gates(args.gates_dir)
+            print(f"# promoted gates fit: {fit}")
+        elif args.flash_dir:
+            tuned = sweep.promote_flash(args.flash_dir)
+            print(f"# flash promotion: {tuned}")
+        else:
+            tuned = sweep.promote_tuned(args.out)
+            print(f"# promoted {tuned}")
+        return 0
+    try:
+        rc = sweep.run_sweep(
+            args.suite, out_dir=args.out, quick=args.quick,
+            resume=args.resume, cell_timeout=args.cell_timeout,
+            names=args.name, jobs=args.jobs,
+            warm_workers=not args.no_warm_workers,
+        )
+    except ValueError as e:
+        # usage errors (unknown --name cells, empty matches) read as one
+        # line at the CLI boundary, not a traceback
+        raise SystemExit(f"error: {e}") from e
+    if args.suite == "gates":
+        fit = sweep.fit_gates(args.out)
+        print(f"# gates fit: {fit}")
+        if any(c["defect"] for c in fit["configs"].values()):
+            rc = 1  # clean code over the gate = kernel defect, not noise
+    elif args.suite == "runtime":
+        # flag a sweep whose knobs all measured inert
+        writer.record(sweep.check_runtime_bite(args.out))
+    return rc
+
+
+def _report(args) -> None:
+    """``report``: the tables of ``tpu-patterns report`` over logs and
+    JSONL of either package; grad records from before the FLOP-
+    accounting fix that are not marked superseded are refused (exit 2)."""
+    from tpu_patterns_torch.core.results import (
+        parse_log,
+        prefer_refined,
+        stale_grad_records,
+        tabulate_records,
+    )
+
+    lines: list[str] = []
+    for path in args.paths:
+        with open(path) as f:
+            lines.extend(f.readlines())
+    records = parse_log(lines)
+    stale = stale_grad_records(records)
+    if stale:
+        for r in stale:
+            print(
+                f"# REFUSED: {r.mode} | {r.commands} predates the grad "
+                "accounting fix and is not marked superseded",
+                file=sys.stderr,
+            )
+        raise SystemExit(2)
+    # a refined measurement supersedes its first-pass quick twin
+    print(tabulate_records(prefer_refined(records)))
+
+
 def _dispatch(args, parser, writer: ResultWriter) -> None:
     from tpu_patterns_torch.models.flagship import (
         FlagshipConfig,
@@ -1464,6 +1656,8 @@ def _dispatch(args, parser, writer: ResultWriter) -> None:
         _doctor(args, parser, writer)
     elif args.cmd == "profilecheck":
         _profilecheck(args, writer)
+    elif args.cmd == "report":
+        _report(args)
     else:
         run_flagship(_config(FlagshipConfig, args), writer,
                      mesh=_mesh3d(args))
@@ -1493,7 +1687,8 @@ def _profiled(args, parser, writer: ResultWriter) -> None:
     prof.export_chrome_trace(path)
     writer.progress(f"profile trace written to {path}")
     try:
-        bd = profile_mod.breakdown_of(profile_mod.parse_trace(path))
+        planes = profile_mod.parse_trace(path)
+        bd = profile_mod.breakdown_of(planes)
     except (OSError, ValueError, KeyError, TypeError) as e:
         # a truncated/corrupt trace: the run itself succeeded
         writer.progress(f"trace unparsable ({type(e).__name__}: {e})")
@@ -1502,27 +1697,55 @@ def _profiled(args, parser, writer: ResultWriter) -> None:
         writer.progress("no device plane in the trace (host-only run?) — "
                         "no breakdown Record")
         return
+    # the run's device ops by name and launch count: the Record names
+    # the kernels the run went through
+    ops = {n: d["count"] for n, d in profile_mod.op_names(planes).items()}
     writer.record(Record(
         pattern=args.cmd, mode="profile_breakdown", commands=path,
         metrics={k: round(v, 4) for k, v in bd.items()},
+        config={"device_ops": ops},
         verdict=Verdict.SUCCESS,
     ))
 
 
 def main(argv: list[str] | None = None) -> int:
-    from tpu_patterns_torch import obs
+    import os
+
+    from tpu_patterns_torch import faults, obs
     from tpu_patterns_torch.perf import provenance
 
     parser = build_parser()
     args = parser.parse_args(argv)
     # one CLI invocation = one run: every Record this run banks carries
-    # a fresh run_id
+    # a fresh run_id (a warm worker calls main() once a cell)
     provenance.new_run()
     if args.obs_dir:
         obs.configure(args.obs_dir)
     if args.cmd != "obs":  # the reader must not dump over what it reads
         obs.install_crash_handlers()
+    # fault site: a whole CLI run (one sweep cell) crashing or hanging
+    # before dispatch; the sweep's retry and quarantine recover.  Cells
+    # are matchable by name: the sweep exports TPU_PATTERNS_CELL.
+    faults.inject(
+        "cell.run",
+        cmd=args.cmd,
+        cell=os.environ.get("TPU_PATTERNS_CELL", ""),
+    )
     writer = ResultWriter(jsonl_path=args.jsonl)
+    if args.cmd == "sweep":
+        for flag, why in (
+            (args.jsonl, "--jsonl does not apply to sweep (each cell "
+             "writes <name>.jsonl under --out)"),
+            (args.enable_profiling, "--enable_profiling does not apply to "
+             "sweep (cells are subprocesses; profile an individual pattern "
+             "run instead)"),
+            (args.obs_dump, "--obs-dump does not apply to sweep (cells are "
+             "subprocesses with their own recorders; pass it to an "
+             "individual pattern run)"),
+        ):
+            if flag:
+                raise SystemExit(f"error: {why}")
+        return _sweep(args, writer)
     if args.enable_profiling:
         _profiled(args, parser, writer)
     else:

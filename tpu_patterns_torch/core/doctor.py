@@ -12,9 +12,11 @@ timeout.
 
 ``DoctorConfig.device`` (default ``cuda``) names the device the probes
 run on.  A box with no card reports ``backend_init`` failed and a
-FAILURE Record; the doctor never probes the CPU in its place.  The warm
-workers the JAX package's ``--workers`` probes live in ``exec/``, which
-is not ported: asking for them is refused.
+FAILURE Record; the doctor never probes the CPU in its place.
+``workers`` adds the JAX package's warm-worker probe
+(``tpu_patterns/core/doctor.py``): one ``exec/`` warm worker is spawned
+on that device, its ready handshake and a ping are timed, and it is
+killed.
 """
 
 from __future__ import annotations
@@ -33,11 +35,6 @@ from tpu_patterns_torch.core.timing import wall_time_s
 # must not take the doctor down with it
 clock_ns = time.perf_counter_ns
 
-WORKERS_NOT_PORTED = (
-    "doctor --workers: the warm workers live in exec/, which is not "
-    "ported yet (ROADMAP.md Queue 1 step 10)"
-)
-
 
 @dataclasses.dataclass
 class DoctorConfig:
@@ -48,7 +45,8 @@ class DoctorConfig:
     # the passes-preflight-then-hangs failure mode)
     deep: bool = True
     deep_timeout: int = 120
-    # the JAX package's warm-worker probe: refused (not ported)
+    # opt-in warm-worker probe: spawn the sweep engine's warm worker,
+    # time ready + ping, kill it
     workers: bool = False
     # watch mode: coalesce consecutive failing polls into ONE open/close
     # episode entry in this JSONL file instead of a line per poll
@@ -156,6 +154,40 @@ def _probe(script: str, timeout: int) -> dict:
     return out
 
 
+def _probe_worker(cfg: DoctorConfig) -> dict:
+    """Spawn one warm worker on ``cfg.device``, time its ready handshake
+    and a ping, and always kill it (a live worker on a card holds a
+    CUDA context)."""
+    from tpu_patterns_torch.exec.workers import WarmWorker, WorkerError
+
+    t0 = clock_ns()
+    w = None
+    try:
+        w = WarmWorker({**os.environ, "TPU_PATTERNS_DEVICE": cfg.device})
+        if not w.wait_ready(timeout=cfg.probe_timeout):
+            return {
+                "ok": False,
+                "error": f"worker not ready within {cfg.probe_timeout}s "
+                "(device warm-up failed or wedged)",
+            }
+        spawn_s = (clock_ns() - t0) / 1e9
+        t1 = clock_ns()
+        resp = w.request({"op": "ping"}, timeout=cfg.probe_timeout)
+        out = {
+            "ok": resp.get("rc") == 0,
+            "spawn_s": round(spawn_s, 2),
+            "ping_ms": round((clock_ns() - t1) / 1e6, 1),
+        }
+        if not out["ok"]:
+            out["error"] = f"ping rc={resp.get('rc')}"
+        return out
+    except (WorkerError, OSError) as e:
+        return {"ok": False, "error": f"{type(e).__name__}: {e}"}
+    finally:
+        if w is not None:
+            w.kill()
+
+
 def run_doctor(cfg: DoctorConfig, writer) -> list:
     """Layered health report; verdict FAILURE iff a layer is broken.
 
@@ -166,8 +198,6 @@ def run_doctor(cfg: DoctorConfig, writer) -> list:
     noise)."""
     from tpu_patterns_torch.core.results import Record, Verdict
 
-    if cfg.workers:
-        raise ValueError(WORKERS_NOT_PORTED)
     if cfg.device not in ("cuda", "cpu"):
         raise ValueError(
             f"unsupported device {cfg.device!r}: want cuda or cpu")
@@ -208,6 +238,16 @@ def run_doctor(cfg: DoctorConfig, writer) -> list:
         "ok": loader_ok,
         **({} if loader_ok else {"error": str(io_loader.build_error())}),
     }
+
+    # warm-worker probe (opt-in): the sweep engine's fast path is a
+    # warmed `python -m tpu_patterns_torch` server; if it cannot come
+    # up, `sweep --jobs N` degrades to cold subprocesses.  Gated on the
+    # device layers: a worker's warm-up would wedge on the same broken
+    # backend.
+    if cfg.workers and broken is not None:
+        checks["warm_worker"] = {"ok": False, "error": f"skipped: {broken}"}
+    elif cfg.workers:
+        checks["warm_worker"] = _probe_worker(cfg)
 
     # watchdog probe: the obs layer's live hang evidence folded into the
     # health report (a runtime can pass every probe NOW yet have wedged

@@ -314,8 +314,14 @@ def op_name_snapshot(trace_dir: str) -> dict | None:
     path = newest_trace(trace_dir)
     if path is None:
         return None
+    return op_names(parse_trace(path)) or None
+
+
+def op_names(planes: list) -> dict[str, dict]:
+    """Unique device op names of ``planes`` (count, total duration,
+    category), stream lines of the skipped kinds left out."""
     names: dict[str, dict] = {}
-    for plane in device_planes(parse_trace(path)):
+    for plane in device_planes(planes):
         for line in plane.lines:
             if any(s in line.name.lower() for s in _SKIP_LINES):
                 continue
@@ -327,7 +333,7 @@ def op_name_snapshot(trace_dir: str) -> dict | None:
                 )
                 d["count"] += 1
                 d["duration_ps"] += ev.duration_ps
-    return names or None
+    return names
 
 
 def crosscheck_rate(

@@ -1,10 +1,13 @@
-"""Result records and verdict markers, with the JAX package's keys.
+"""Result records, verdict markers and the log readers of ``report``.
 
 Every run prints ``# ...`` progress lines and one
 ``## <mode> | <commands> | <VERDICT>`` marker per Record, and can append
 the Record as a JSON line.  The keys are those of
 ``tpu_patterns/core/results.py``, so one report reads the Records of
-both packages.
+both packages.  The reader half (:func:`parse_log`,
+:func:`prefer_refined`, :func:`stale_grad_records`,
+:func:`integrity_flags`, :func:`tabulate_records`) is the JAX package's,
+with the tables drawn by ``obs/table.py`` in place of ``tabulate``.
 """
 
 from __future__ import annotations
@@ -13,8 +16,9 @@ import dataclasses
 import enum
 import json
 import os
+import re
 import sys
-from typing import Any, TextIO
+from typing import Any, Iterable, TextIO
 
 from tpu_patterns_torch.core.timing import wall_time_s
 
@@ -126,3 +130,154 @@ class ResultWriter:
     @property
     def exit_code(self) -> int:
         return 1 if self._failures else 0
+
+
+# Commit epoch of the JAX package's flash-grad FLOP-accounting fix: grad
+# Records older than this are provenance, never results, unless marked
+# superseded (``report`` refuses them).  The same instant here, so one
+# archive reads the same in both packages.
+GRAD_ACCOUNTING_FIX_TS = 1785446857.0
+
+
+def stale_grad_records(records: Iterable[Record]) -> list[Record]:
+    """Grad records that predate the accounting fix and are not marked
+    superseded: the rows ``report`` must refuse."""
+    return [
+        r
+        for r in records
+        if r.mode.endswith("_grad")
+        and r.timestamp < GRAD_ACCOUNTING_FIX_TS
+        and not r.superseded
+    ]
+
+
+def prefer_refined(records: Iterable[Record]) -> list[Record]:
+    """Drop first-pass-tier records shadowed by a refined record.
+
+    The measured sweep banks every cell at the least repetition count
+    first (``TPU_PATTERNS_SWEEP_TIER=first_pass`` in the env context),
+    then refines it.  The supersede key is the sweep cell (both tiers
+    carry the cell name as ``TPU_PATTERNS_SWEEP_CONFIG``) with the
+    record's (pattern, mode), not its ``commands``: lm prints its step
+    count there, sibling lever cells print identical surfaces, and a
+    cell cut short may have flushed only some of its records.  Records
+    without a cell tag key by (pattern, mode, commands).  An unshadowed
+    first-pass record still tabulates.
+    """
+    records = list(records)  # may be a generator; it is walked twice
+
+    def key(r: Record) -> tuple:
+        cell = r.env.get("TPU_PATTERNS_SWEEP_CONFIG")
+        if cell:
+            return ("cell", cell, r.pattern, r.mode)
+        return ("record", r.pattern, r.mode, r.commands)
+
+    def is_fp(r: Record) -> bool:
+        return r.env.get("TPU_PATTERNS_SWEEP_TIER") == "first_pass"
+
+    refined = {key(r) for r in records if not is_fp(r)}
+    return [r for r in records if not is_fp(r) or key(r) not in refined]
+
+
+_VERDICT_RE = re.compile(
+    r"^##\s*(?P<mode>[^|]+?)\s*\|\s*(?P<commands>[^|]+?)\s*\|\s*"
+    r"(?P<verdict>SUCCESS|FAILURE|WARNING|SKIPPED)\s*$"
+)
+_EXPORT_RE = re.compile(
+    r"^\+*\s*export\s+(?P<key>[A-Za-z_][A-Za-z0-9_]*)=(?P<val>.*)$"
+)
+
+
+def parse_log(lines: Iterable[str]) -> list[Record]:
+    """Parse a mixed log: JSONL records, ``##`` markers, ``export`` context.
+
+    ``export`` lines set the env context of the markers after them, and
+    each ``##`` marker yields one record.  JSON lines are parsed
+    directly and shadow marker lines with the same (mode, commands)
+    anywhere in the input, so the order in which a cell's log and JSONL
+    are joined does not matter.
+    """
+    lines = [ln.rstrip("\n") for ln in lines]
+    records: list[Record] = []
+    seen: set[tuple[str, str]] = set()
+    json_records: dict[int, Record] = {}
+    for i, line in enumerate(lines):
+        if line.startswith("{"):
+            try:
+                rec = Record.from_json(line)
+            except (json.JSONDecodeError, TypeError, ValueError):
+                continue
+            json_records[i] = rec
+            seen.add((rec.mode, rec.commands))
+    env: dict[str, str] = {}
+    for i, line in enumerate(lines):
+        if i in json_records:
+            records.append(json_records[i])
+            continue
+        m = _EXPORT_RE.match(line)
+        if m:
+            env[m.group("key")] = m.group("val").strip("\"'")
+            continue
+        m = _VERDICT_RE.match(line)
+        if m:
+            if (m.group("mode"), m.group("commands")) in seen:
+                continue
+            records.append(Record(
+                pattern="",
+                mode=m.group("mode"),
+                commands=m.group("commands"),
+                verdict=Verdict(m.group("verdict")),
+                env=dict(env),
+            ))
+    return records
+
+
+# zero-valued gate metric -> the tag every table renderer shows
+_INTEGRITY_FLAG_TAGS = (
+    ("timing_converged", "NOISE-BOUND"),
+    ("hbm_plausible", "NOT-HBM"),
+    ("ici_plausible", "NOT-ICI"),
+)
+
+
+def integrity_flags(rec: Record) -> list[str]:
+    """Human-readable tags for every failed integrity gate on a record."""
+    return [
+        tag
+        for key, tag in _INTEGRITY_FLAG_TAGS
+        if rec.metrics.get(key, 1.0) == 0.0
+    ]
+
+
+def tabulate_records(records: list[Record]) -> str:
+    """Render records as one table an env context: rows are commands,
+    columns modes, each cell the verdict with the first metric."""
+    from tpu_patterns_torch.obs.table import markdown_table
+
+    by_env: dict[str, dict[str, dict[str, str]]] = {}
+    for rec in records:
+        env_key = ", ".join(
+            f"{k}={v}" for k, v in sorted(rec.env.items())
+        ) or "(default env)"
+        cell = rec.verdict.value
+        if rec.metrics:
+            name, value = next(iter(rec.metrics.items()))
+            cell = f"{rec.verdict.value} ({name}={value:.4g})"
+        flags = integrity_flags(rec)
+        if flags:
+            cell = f"{cell} [{','.join(flags)}]"
+        if rec.superseded:
+            cell = f"SUPERSEDED [{cell}]"
+        by_env.setdefault(env_key, {}).setdefault(
+            rec.commands, {})[rec.mode] = cell
+    chunks = []
+    for env_key, rows in by_env.items():
+        modes = sorted({m for cells in rows.values() for m in cells})
+        table = [
+            [cmds] + [cells.get(m, "") for m in modes]
+            for cmds, cells in rows.items()
+        ]
+        chunks.append(env_key)
+        chunks.append(markdown_table(table, ["commands"] + modes))
+        chunks.append("")
+    return "\n".join(chunks)

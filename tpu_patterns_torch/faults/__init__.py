@@ -13,11 +13,15 @@ preemption, transient faults, and numerical blowups as EXPECTED inputs:
                applied to ckpt I/O, the serve engine's prefill, decode
                and verify calls and the kv tier's copies, and
                ``run_cell_attempts``/``cell_retry_policy``, the sweep
-               cells' loop (its caller, ``sweep.py``, waits for ROADMAP.md
-               Queue 1 step 10)
+               cells' loop (``sweep.run_sweep``, ``exec.run_cells``)
 
-Fault sites of this package:
+Fault sites of this package (all of the JAX package's):
 
+  cell.run       cli.py main(), before dispatch (ctx: cell, cmd; the
+                 sweep exports TPU_PATTERNS_CELL into each cell's env,
+                 and a crashed cell is retried by run_cell_attempts)
+  worker.ready   exec/worker.py, before the warm worker's ready
+                 handshake (ctx: pid)
   ckpt.save      ckpt/checkpoint.py, mid-save (after the shards, before
                  the manifest commit marker)
   ckpt.restore   ckpt/checkpoint.py, before the shard reads
@@ -73,9 +77,7 @@ Fault sites of this package:
                  payload's onload (retried; a deterministic failure
                  returns the blocks and re-prefills locally)
 
-Not ported: the sweep's and warm workers' sites (``cell.run``,
-``worker.ready``; Queue 1 step 10).  A spec naming one is refused at
-parse time.
+A spec naming any other site is refused at parse time.
 """
 
 from tpu_patterns_torch.faults.injector import (  # noqa: F401

@@ -62,10 +62,15 @@ ACTIONS = frozenset(
 )
 
 # every inject() call site in the package: a spec naming anything else
-# is a typo (or a site not ported yet: the sweep's and the warm
-# workers') that would silently inject nothing, so
-# parse_spec rejects it
+# is a typo that would silently inject nothing, so parse_spec rejects it
 KNOWN_SITES = frozenset({
+    # cli.py main(), before dispatch (ctx cmd, cell: the sweep exports
+    # TPU_PATTERNS_CELL into each cell's env): a whole CLI run, one sweep
+    # cell, crashing or hanging; the sweep's run_cell_attempts recovers
+    "cell.run",
+    # exec/worker.py, before the warm worker's ready handshake (ctx pid):
+    # the pool's ready deadline and breaker recover
+    "worker.ready",
     "ckpt.save",  # ckpt/checkpoint.py, after the shards, before the manifest
     "ckpt.restore",  # ckpt/checkpoint.py, before the shard reads
     "train.step",  # models/train_loop.py, per step (``nan`` poisons loss)
@@ -114,14 +119,9 @@ KNOWN_SITES = frozenset({
     "disagg.transfer", "disagg.adopt",
 })
 
-# sites of the JAX package that a later step ports, named in the refusal
-_LATER_SITES = {
-    "cell.run": "ROADMAP.md Queue 1 step 10, the sweep",
-    "worker.ready": "ROADMAP.md Queue 1 step 10, the warm workers",
-}
-
 # the match keys of the spec grammar (the JAX package's set; the sites
-# here pass ``step``, at ckpt.save ``proc``, at loadgen.arrive ``rid`` and
+# here pass, at cell.run ``cmd`` and ``cell``, at worker.ready ``pid``,
+# elsewhere ``step``, at ckpt.save ``proc``, at loadgen.arrive ``rid`` and
 # ``scenario``, at obs.cost_book ``rows`` or ``rid`` and ``replica``, at
 # the serve.* sites ``rid``, ``rows``, ``step`` and ``replica``, at
 # obs.scrape ``endpoint``, at the fleet's sites ``replica`` (router.route
@@ -167,11 +167,9 @@ def parse_spec(text: str) -> list[FaultSpec]:
             )
         site, action = parts[0].strip(), parts[1].strip()
         if site not in KNOWN_SITES:
-            where = _LATER_SITES.get(site)
             raise ValueError(
-                f"fault spec {chunk!r}: unknown site {site!r}"
-                + (f", not ported yet ({where})" if where else "")
-                + f" (want one of {sorted(KNOWN_SITES)})"
+                f"fault spec {chunk!r}: unknown site {site!r} "
+                f"(want one of {sorted(KNOWN_SITES)})"
             )
         if action not in ACTIONS:
             raise ValueError(

@@ -5,9 +5,9 @@ The port's copy of ``tpu_patterns/faults/retry.py``.
 One :class:`RetryPolicy` shape serves every self-healing path —
 checkpoint I/O, the serve engine's prefill, decode and verify launches
 and its kv tier's copies, and the sweep's cell loop
-(:func:`run_cell_attempts`, whose caller waits for ROADMAP.md Queue 1
-step 10) — so "how many times, how long between, when to give up" is a
-single tunable surface.
+(:func:`run_cell_attempts`, called by ``sweep.run_sweep`` and
+``exec/scheduler.run_cells``) — so "how many times, how long between,
+when to give up" is a single tunable surface.
 
 Classification rule (transient vs deterministic): a failure carries a
 SIGNATURE (exception type+message, or a cell's exit code), and the SAME

@@ -400,7 +400,10 @@ def forward_mesh(mesh: NamedMesh, layers: list, xs: list,
     b, l, h, d = qkv[0][0].shape
 
     def fold(a):
-        return a.transpose(0, 1).reshape(l, b * h, d)
+        # at B = 1 the reshape is a view of the projection's einsum
+        # output, which need not be contiguous; the flash kernels take
+        # contiguous tensors only (at B > 1 the reshape already copied)
+        return a.transpose(0, 1).reshape(l, b * h, d).contiguous()
 
     def unfold(a):
         return a.reshape(l, b, h, d).transpose(0, 1)

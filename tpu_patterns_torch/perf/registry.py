@@ -38,7 +38,7 @@ fetcher engine on the same trace, in one process).  ``disagg.stream``
 is the disaggregated handoff's wire (``PagedDecoder.stream``) at one
 request's worth of shipped blocks.  The JAX package's Tier C
 ``SpmdEntry`` registry serves its static analysis and is not part of
-this module (ROADMAP.md Queue 1 step 10).
+this module (ROADMAP.md Queue 1 step 10b).
 
 Every direct-timed rep runs inside an ``obs.span("perf.<name>")``.
 """

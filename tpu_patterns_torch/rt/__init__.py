@@ -5,9 +5,8 @@ The port's copy of ``tpu_patterns/rt/``.  Ported: ``Breaker``,
 and the re-exported ``RetryPolicy``.  The serve engine leases its slots
 from a ``LeasePool``, tracks in-flight rows in a ``LeaseTable`` and
 feeds an opt-in ``Breaker``.  ``LeasePool``'s spawn and kill hooks stay
-generic: the warm-worker pool that also drives them (``exec/``) and the
-replica manager that watches replicas with a ``Breaker`` wait for
-ROADMAP.md Queue 1 steps 10 and 9.
+generic: the sweep's warm-worker pool (``exec/workers.py``) drives them
+too, and the replica manager watches its replicas with a ``Breaker``.
 
 Three subsystems grew the same machinery independently: the sweep
 engine's warm-worker pool (exec/workers.py: lease/recycle accounting +

@@ -11,6 +11,7 @@ card can never turn into a quiet CPU run.
 from __future__ import annotations
 
 import contextlib
+import os
 
 import torch
 
@@ -121,3 +122,19 @@ def exact_f32(on_cuda: bool = True):
     finally:
         (torch.backends.cuda.matmul.allow_tf32,
          torch.backends.cudnn.allow_tf32) = old
+
+
+def warm_backend() -> str:
+    """Pay a process's slow start costs now and return its device type.
+
+    The warm worker's warm-up (``exec/worker.py``): torch is imported
+    already; on the device of ``TPU_PATTERNS_DEVICE`` (default ``cuda``,
+    as every entry point's) this creates the CUDA context and loads the
+    cuBLAS library with one small product.  A host with no card raises,
+    as :func:`resolve_device` does: the CPU is warmed only when the
+    environment names it.
+    """
+    dev = resolve_device(os.environ.get("TPU_PATTERNS_DEVICE") or None)
+    a = torch.ones(8, 8, device=dev)
+    (a @ a).sum().item()  # the context, the allocator and cuBLAS
+    return dev.type
